@@ -1,0 +1,27 @@
+"""Serving: paged KV cache, samplers, the causal-LM runtime and the engine.
+
+Submodules load on first attribute access, as in the package root."""
+
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "CausalLM": "causal_lm",
+    "DecodeSession": "causal_lm",
+    "GenerationResult": "causal_lm",
+    "Completion": "engine",
+    "Request": "engine",
+    "ServeEngine": "engine",
+    "PagedKVCache": "paged_cache",
+    "PagePoolExhausted": "paged_cache",
+    "Sampler": "sampling",
+    "SlotSampler": "sampling",
+}
+
+
+def __getattr__(name):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{mod}"), name)

@@ -1,0 +1,139 @@
+"""Build and load the port's CUDA kernels (no JAX counterpart).
+
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first
+use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
+under ``build/kernels/`` at the repository root (git-ignored), named by a
+hash of the sources and flags, and loaded with ``ctypes``. A later process
+with the same sources reuses the library; a changed source builds anew.
+
+Binding rules: every pointer and the stream travel as ``c_void_p`` (a
+plain ``c_int`` would cut a 64-bit address), the stream is PyTorch's
+current one, and each C entry returns ``cudaGetLastError()`` so a launch the
+card refuses raises in the wrapper instead of vanishing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# name -> (C entry point, argtypes); the return type is always int
+SIGNATURES = {
+    # q, k, v, qpos, kpos, out, lse, bh, sq, sk, d, group, h, sm_scale,
+    # dtype (0 fp32 / 1 bf16), stream
+    "flash_fwd": ("flash_fwd", [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P]),
+    # q, k_pages, v_pages, k_scale, v_scale, block_table, cache_len, out,
+    # b, n_kv, group, hd, page_size, pages_per_seq, sm_scale,
+    # q dtype (0 fp32 / 1 bf16), pool dtype (0 fp32 / 1 bf16 / 2 int8), stream
+    "paged_decode": ("paged_decode", [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                      F, I, I, P]),
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+# compiler output (``-Xptxas -v``: registers, shared memory, spills) and
+# wall seconds of each build done by this process
+build_log: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a machine "
+                       "with the CUDA toolkit")
+
+
+def _sources(name: str) -> List[Path]:
+    return [CSRC / f"{name}.cu"]
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources(name) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _command(name: str, out: Path) -> List[str]:
+    return [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-o", str(out),
+            *map(str, _sources(name))]
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    each, all started together. Raises with the compiler's output when one
+    fails. Returns name -> library path."""
+    names = list(names)
+    paths = {n: library_path(n) for n in names}
+    todo = [n for n in names if not paths[n].exists()]
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n in todo:
+        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, time.perf_counter(), subprocess.Popen(
+            _command(n, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, t0, proc) in procs.items():
+        out, _ = proc.communicate()
+        build_seconds[n] = time.perf_counter() - t0
+        build_log[n] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n{out}")
+            continue
+        os.replace(tmp, paths[n])   # atomic: a concurrent build never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built on first use in this process."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = build([name])[name]
+        lib = ctypes.CDLL(str(path))
+        entry, argtypes = SIGNATURES[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def call(name: str, *args) -> None:
+    """Launch a kernel's C entry; raise when the launch was refused."""
+    entry, _ = SIGNATURES[name]
+    err = getattr(load(name), entry)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError {err}")
+
+
+def ptr(t) -> int:
+    return t.data_ptr() if t is not None else None
+
+
+def stream_of(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+

@@ -1,0 +1,225 @@
+"""Flash attention forward: CUDA kernel, plain PyTorch twin, mask helpers.
+
+Counterpart of ``neuronx_distributed_tpu/kernels/flash_attn.py`` (the
+forward half). Masking is position based as there: key ``j`` is visible to
+query ``i`` iff ``kv_pos[j] <= q_pos[i]``; pad keys carry ``INVALID_POS``,
+pad query rows ``-1``, and a fully masked row gives output 0 and LSE
+``NEG_INF``. K/V stay compact under GQA (kv row = q row // group).
+
+:func:`flash_block_forward` is the kernel wrapper: a CUDA tensor launches
+``csrc/flash_fwd.cu`` (counted in ``flash_block_forward.launches``), a CPU
+tensor runs :func:`flash_block_forward_plain`, the twin with the TPU
+kernel's tiling (blocked online softmax over ``block_k`` keys, block skip,
+``p`` rounded to the operand dtype before the PV product). The LSE is
+``(b*h, sq)`` fp32; the TPU's 128-lane padding is not carried over.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from neuronx_distributed_tpu_torch._device import on_cuda
+
+NEG_INF = -1e30
+INVALID_POS = 2**30  # kv sentinel: never <= any real query position
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_HEAD_DIMS = (64, 128)
+
+
+def default_attention_blocks(sq: int) -> tuple:
+    """(block_q, block_k) defaults of the JAX package (measured there on a
+    TPU; kept so the same shapes take the same path)."""
+    for b in (1024, 512, 256, 128):
+        if flash_supported(sq, sq, b, b):
+            return min(b, sq), min(b, sq)
+    return min(128, sq), min(128, sq)
+
+
+def default_prefill_blocks(sq: int) -> tuple:
+    """(block_q, block_k) for forward-only (prefill) use."""
+    return default_attention_blocks(sq)
+
+
+def flash_supported(sq: int, sk: int, block_q: int, block_k: int) -> bool:
+    """True iff both sequence lengths are multiples of their clamped block
+    sizes — the one shape contract of the kernel path."""
+    return sq % min(block_q, sq) == 0 and sk % min(block_k, sk) == 0
+
+
+def default_positions(b: int, sq: int, sk: int, causal: bool,
+                      device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keys at ``iota(sk)``; causal queries bottom-aligned at
+    ``iota(sq) + (sk - sq)``, non-causal queries all at ``sk - 1``."""
+    kpos = torch.arange(sk, dtype=torch.int32, device=device).expand(b, sk)
+    if causal:
+        qpos = torch.arange(sq, dtype=torch.int32, device=device) + (sk - sq)
+    else:
+        qpos = torch.full((sq,), sk - 1, dtype=torch.int32, device=device)
+    return qpos.expand(b, sq), kpos
+
+
+def resolve_positions(b, sq, sk, causal, q_positions, kv_positions, device=None):
+    """Fill missing position arrays with :func:`default_positions`."""
+    if q_positions is None or kv_positions is None:
+        dq_pos, dk_pos = default_positions(b, sq, sk, causal, device)
+        q_positions = dq_pos if q_positions is None else q_positions
+        kv_positions = dk_pos if kv_positions is None else kv_positions
+    return q_positions, kv_positions
+
+
+def _check(q, k, v, qpos, kpos, group, num_q_heads):
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("q, k, v must be (rows, seq, head_dim)")
+    bh, sq, d = q.shape
+    if k.shape != v.shape or k.shape[2] != d:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if bh % num_q_heads or num_q_heads % group or k.shape[0] * group != bh:
+        raise ValueError(f"rows {bh}, kv rows {k.shape[0]}, heads {num_q_heads}, "
+                         f"group {group} are inconsistent")
+    b = bh // num_q_heads
+    sk = k.shape[1]
+    if qpos.shape not in ((b, 1, sq), (b, sq)) or kpos.shape not in ((b, 1, sk), (b, sk)):
+        raise ValueError(f"positions {tuple(qpos.shape)}/{tuple(kpos.shape)} do not match "
+                         f"batch {b}, sq {sq}, sk {sk}")
+    if qpos.dtype != torch.int32 or kpos.dtype != torch.int32:
+        raise ValueError("positions must be int32")
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise ValueError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def flash_block_forward_plain(q, k, v, qpos, kpos, sm_scale, block_q, block_k,
+                              group, num_q_heads):
+    """Plain PyTorch twin of the kernel: the TPU kernel's blocked online
+    softmax, vectorised over rows and query blocks, looping over key blocks.
+    Returns ``(out (bh, sq, d) in q's dtype, lse (bh, sq) fp32)``."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    h = num_q_heads
+    b = bh // h
+    dev = q.device
+    kvrow = torch.arange(bh, device=dev) // group
+    qp = qpos.reshape(b, sq).repeat_interleave(h, dim=0)          # (bh, sq)
+    kp = kpos.reshape(b, sk).repeat_interleave(h, dim=0)          # (bh, sk)
+    nqb = math.ceil(sq / block_q)
+    qmax = torch.nn.functional.pad(qp, (0, nqb * block_q - sq), value=-(2**31)) \
+        .reshape(bh, nqb, block_q).amax(-1)                        # (bh, nqb)
+    qf = q.float()
+    m = torch.full((bh, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((bh, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=dev)
+    for k0 in range(0, sk, block_k):
+        kpj = kp[:, k0:k0 + block_k]
+        run = (kpj.amin(-1, keepdim=True) <= qmax).repeat_interleave(block_q, dim=1)[:, :sq]
+        if not bool(run.any()):
+            continue
+        kj = k[kvrow, k0:k0 + block_k].float()
+        vj = v[kvrow, k0:k0 + block_k]
+        s = torch.einsum("bqd,bkd->bqk", qf, kj) * sm_scale
+        valid = kpj[:, None, :] <= qp[:, :, None]
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + p.sum(-1)
+        acc_new = acc * corr[..., None] + torch.einsum(
+            "bqk,bkd->bqd", p.to(v.dtype).float(), vj.float())
+        m = torch.where(run, m_new, m)
+        l = torch.where(run, l_new, l)
+        acc = torch.where(run[..., None], acc_new, acc)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    out = (acc / l_safe[..., None]).to(q.dtype)
+    return out, m + torch.log(l_safe)
+
+
+def _flash_fwd_kernel(q, k, v, qpos, kpos, sm_scale, group, num_q_heads):
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"flash kernel takes fp32 or bf16, got {q.dtype}")
+    bh, sq, d = q.shape
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {_KERNEL_HEAD_DIMS}, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("qpos", qpos), ("kpos", kpos)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash kernel needs a contiguous {name}")
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    _build.call("flash_fwd", _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(qpos),
+                _build.ptr(kpos), _build.ptr(out), _build.ptr(lse), bh, sq, k.shape[1], d,
+                group, num_q_heads, float(sm_scale), _KERNEL_DTYPES[q.dtype],
+                _build.stream_of(q.device))
+    return out, lse
+
+
+def flash_block_forward(q, k, v, qpos, kpos, sm_scale, block_q, block_k,
+                        group, num_q_heads):
+    """Forward kernel with its softmax statistics over flattened operands:
+    q ``(b*h, sq, d)``, compact k/v ``(b*h/group, sk, d)``, int32 positions
+    ``(b, 1, s)`` or ``(b, s)``. Returns ``(out, lse (b*h, sq) fp32)``.
+    CUDA tensors launch the kernel, CPU tensors run the twin. The block
+    sizes set the shape contract and the twin's tiling; the kernel tiles
+    64 x 64 whatever they are."""
+    _check(q, k, v, qpos, kpos, group, num_q_heads)
+    sq, sk = q.shape[1], k.shape[1]
+    if not flash_supported(sq, sk, block_q, block_k):
+        raise ValueError(f"seq lengths (q={sq}, kv={sk}) must be multiples of the block "
+                         f"sizes (block_q={block_q}, block_k={block_k})")
+    if not on_cuda(q, k, v, qpos, kpos):
+        return flash_block_forward_plain(q, k, v, qpos, kpos, sm_scale, block_q, block_k,
+                                         group, num_q_heads)
+    out = _flash_fwd_kernel(q, k, v, qpos, kpos, sm_scale, group, num_q_heads)
+    flash_block_forward.launches += 1
+    return out
+
+
+flash_block_forward.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, sm_scale: Optional[float] = None,
+                    block_q: int = 128, block_k: int = 128,
+                    q_positions: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flash attention over ``(batch, heads, seq, head_dim)`` tensors; K/V
+    may carry fewer (GQA) heads. Positions as in the module docstring."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    if h % hk != 0:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {hk}")
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    q_positions, kv_positions = resolve_positions(
+        b, sq, sk, causal, q_positions, kv_positions, q.device)
+    qp = q_positions.to(torch.int32).reshape(b, 1, sq).contiguous()
+    kp = kv_positions.to(torch.int32).reshape(b, 1, sk).contiguous()
+    out, _ = flash_block_forward(
+        q.contiguous().reshape(b * h, sq, d), k.contiguous().reshape(b * hk, sk, d),
+        v.contiguous().reshape(b * hk, sk, d), qp, kp, float(sm_scale), block_q, block_k,
+        h // hk, h)
+    return out.reshape(b, h, sq, d)
+
+
+def reference_attention(q, k, v, causal=True, sm_scale=None,
+                        q_positions=None, kv_positions=None):
+    """Dense attention with the same position masks (the numerical golden)."""
+    b, h, sq, d = q.shape
+    hk = k.shape[1]
+    if hk != h:
+        k = k.repeat_interleave(h // hk, dim=1)
+        v = v.repeat_interleave(h // hk, dim=1)
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    sk = k.shape[2]
+    q_positions, kv_positions = resolve_positions(
+        b, sq, sk, causal, q_positions, kv_positions, q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    mask = kv_positions[:, None, None, :] <= q_positions[:, None, :, None]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1, keepdim=True), p, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

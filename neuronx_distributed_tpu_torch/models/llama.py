@@ -1,0 +1,432 @@
+"""Llama-2/3 model family for serving, on PyTorch.
+
+Counterpart of ``neuronx_distributed_tpu/models/llama.py``: ``LlamaConfig``
+and its presets, rotary tables, ``cached_attention``, and the decoder stack
+(``nn.scan`` over layers becomes an ``nn.ModuleList``). Module and weight
+names mirror the flax tree (``model.layers.{i}.attention.qkv.q_kernel``,
+...), so ``converters/jax_params.py`` maps a flax tree by renaming.
+
+Decode mode (``config.decode``) keeps its KV state in a :class:`KVCache`
+that the forward updates in place: a contiguous ``(b, max_seq_len, n_kv,
+hd)`` slab per layer, or a page pool ``(pages, page_size, n_kv, hd)`` per
+layer resolved through per-slot block tables. Prefill widths of 128 and up
+take the flash kernel under the same gate as the JAX package; single-token
+paged steps take the paged decode kernel when ``paged_attn_kernel`` is set.
+Out of scope in this slice: int8 page writes, Medusa chunk masks, LoRA,
+context parallelism, activation checkpointing and the training loss.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from neuronx_distributed_tpu_torch.inference.paged_kernel import (
+    paged_decode_attention,
+    paged_kernel_supported,
+)
+from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+    default_attention_blocks,
+    default_prefill_blocks,
+    flash_supported,
+)
+from neuronx_distributed_tpu_torch.ops.attention import attention
+from neuronx_distributed_tpu_torch.parallel.layers import (
+    ColumnParallelLinear,
+    GQAQKVColumnParallelLinear,
+    ParallelEmbedding,
+    RMSNorm,
+    RowParallelLinear,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """Llama-3.1 piecewise rope scaling (HF ``rope_type: "llama3"``)."""
+
+    factor: float = 8.0
+    low_freq_factor: float = 1.0
+    high_freq_factor: float = 4.0
+    original_max_position_embeddings: int = 8192
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: Optional[int] = None
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[RopeScaling] = None
+    rms_norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16          # compute dtype
+    param_dtype: torch.dtype = torch.float32     # storage dtype
+    use_flash_attention: bool = True
+    attention_block_q: Optional[int] = None
+    attention_block_k: Optional[int] = None
+    tie_word_embeddings: bool = False
+    decode: bool = False
+    # paged KV (decode only): page pool of page_pool_pages x page_size
+    # tokens per layer; page_size must divide max_seq_len
+    page_size: Optional[int] = None
+    page_pool_pages: Optional[int] = None
+    paged_attn_kernel: bool = False
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+    def blocks_for(self, sq: int, sk: Optional[int] = None) -> Tuple[int, int]:
+        """Flash block sizes: explicit config values, else adaptive (block_q
+        keyed on the query length, block_k on the key sweep length), each
+        shrunk to a divisor of its sequence — the JAX package's rule."""
+        pick = default_prefill_blocks if self.decode else default_attention_blocks
+        sk = sk or sq
+        dq = self.attention_block_q or pick(sq)[0]
+        dk = self.attention_block_k or pick(sk)[1]
+
+        def shrink(b: int, s: int) -> int:
+            b = min(b, s)
+            while b > 128 and s % b:
+                b //= 2
+            return b
+
+        return shrink(dq, sq), shrink(dk, sk)
+
+
+def _preset(base, over):
+    return LlamaConfig(**{**base, **over})
+
+
+def llama2_7b(**over) -> LlamaConfig:
+    return _preset(dict(hidden_size=4096, intermediate_size=11008, num_layers=32,
+                        num_heads=32, num_kv_heads=32), over)
+
+
+def llama2_13b(**over) -> LlamaConfig:
+    return _preset(dict(hidden_size=5120, intermediate_size=13824, num_layers=40,
+                        num_heads=40, num_kv_heads=40), over)
+
+
+def llama2_70b(**over) -> LlamaConfig:
+    return _preset(dict(hidden_size=8192, intermediate_size=28672, num_layers=80,
+                        num_heads=64, num_kv_heads=8), over)
+
+
+def llama3_8b(**over) -> LlamaConfig:
+    return _preset(dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+                        num_layers=32, num_heads=32, num_kv_heads=8,
+                        rope_theta=500000.0, max_seq_len=8192), over)
+
+
+def llama31_8b(**over) -> LlamaConfig:
+    """Llama-3.1-8B: 3.0 dims + the long-context rope scaling."""
+    return llama3_8b(max_seq_len=over.pop("max_seq_len", 131072),
+                     rope_scaling=over.pop("rope_scaling", RopeScaling()), **over)
+
+
+def llama3_70b(**over) -> LlamaConfig:
+    return _preset(dict(vocab_size=128256, hidden_size=8192,
+                        intermediate_size=28672, num_layers=80,
+                        num_heads=64, num_kv_heads=8,
+                        rope_theta=500000.0, max_seq_len=8192), over)
+
+
+def rotary_embedding(positions: torch.Tensor, head_dim: int, theta: float,
+                     dtype=torch.float32, scaling: Optional[RopeScaling] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables ``(..., seq, head_dim/2)`` for the given positions."""
+    dev = positions.device
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                             device=dev) / head_dim))
+    if scaling is not None:
+        s = scaling
+        wavelen = 2.0 * math.pi / inv_freq
+        low_wl = s.original_max_position_embeddings / s.low_freq_factor
+        high_wl = s.original_max_position_embeddings / s.high_freq_factor
+        smooth = (s.original_max_position_embeddings / wavelen - s.low_freq_factor) / (
+            s.high_freq_factor - s.low_freq_factor)
+        interp = (1.0 - smooth) * inv_freq / s.factor + smooth * inv_freq
+        inv_freq = torch.where(wavelen > low_wl, inv_freq / s.factor,
+                               torch.where(wavelen < high_wl, inv_freq, interp))
+    angles = positions.float()[..., None] * inv_freq
+    return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate halves (x1, x2) of ``x`` (b, s, n, d); cos/sin (s, d/2) or (b, s, d/2)."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def cached_attention(q, k_cache, v_cache, cache_len, sm_scale=None, mask=None):
+    """Dense attention against a fixed-size cache: ``q`` (b, s_new, n, d) at
+    positions ``cache_len .. cache_len + s_new``; ``k_cache``/``v_cache``
+    (b, S, n_kv, d); key j visible to query i iff ``j <= cache_len + i``."""
+    b, s_new, n, d = q.shape
+    n_kv = k_cache.shape[2]
+    if n != n_kv:
+        k_cache = k_cache.repeat_interleave(n // n_kv, dim=2)
+        v_cache = v_cache.repeat_interleave(n // n_kv, dim=2)
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    s_max = k_cache.shape[1]
+    cache_len = torch.as_tensor(cache_len, device=q.device)
+    if cache_len.dim() == 0:
+        cache_len = cache_len.expand(b)
+    scores = torch.einsum("bind,bjnd->bnij", q.float(), k_cache.float()) * sm_scale
+    if mask is None:
+        qpos = cache_len[:, None] + torch.arange(s_new, device=q.device)[None, :]
+        kpos = torch.arange(s_max, device=q.device)
+        mask = kpos[None, None, :] <= qpos[..., None]
+    scores = torch.where(mask[:, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bnij,bjnd->bind", probs, v_cache.float())
+    return out.to(q.dtype)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Decode-mode KV state, updated in place by the forward.
+
+    ``keys``/``values``: one tensor per layer — the slab ``(b, max_seq_len,
+    n_kv, hd)`` or the page pool ``(pages, page_size, n_kv, hd)``.
+    ``cache_index``: (b,) int32 tokens written per row (the write position
+    of the next token). ``block_table``: (b, max_seq_len / page_size) int32
+    logical -> physical pages (paged mode only)."""
+
+    keys: List[torch.Tensor]
+    values: List[torch.Tensor]
+    cache_index: torch.Tensor
+    block_table: Optional[torch.Tensor] = None
+    # host-side upper bound of cache_index when the caller knows it (None =
+    # unknown): a write that cannot reach max_seq_len skips the drop mask
+    max_index: Optional[int] = None
+
+    def rows(self, cache_index: torch.Tensor, block_table: Optional[torch.Tensor] = None,
+             max_index: Optional[int] = None) -> "KVCache":
+        """A row view sharing this cache's pools (paged inserts write the
+        pools in place through their own block tables)."""
+        return KVCache(self.keys, self.values, cache_index, block_table, max_index)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        hd = cfg.head_dim_
+        self.qkv = GQAQKVColumnParallelLinear(
+            cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, hd, dtype=cfg.dtype,
+            param_dtype=cfg.param_dtype, device=device)
+        self.o_proj = RowParallelLinear(cfg.num_heads * hd, cfg.hidden_size, use_bias=False,
+                                        dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                                        device=device)
+
+    def forward(self, x, rope, cache: Optional[KVCache] = None, layer: int = 0):
+        cfg = self.config
+        q, k, v = self.qkv(x)
+        if cfg.decode:
+            return self._decode_attention(x, q, k, v, cache, layer)
+        cos, sin = rope
+        q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
+        s = x.shape[1]
+        blk_q, blk_k = cfg.blocks_for(s)
+        o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+                      use_flash=cfg.use_flash_attention and flash_supported(s, s, blk_q, blk_k),
+                      block_q=blk_q, block_k=blk_k)
+        return self.o_proj(o.transpose(1, 2).reshape(x.shape[0], s, -1))
+
+    def _decode_attention(self, x, q, k, v, cache: KVCache, layer: int):
+        cfg = self.config
+        b, s_new = x.shape[0], x.shape[1]
+        n_kv, hd, ps = k.shape[2], cfg.head_dim_, cfg.page_size
+        idx = cache.cache_index                                     # (b,) int32
+        ck, cv = cache.keys[layer], cache.values[layer]
+        slots = idx[:, None] + torch.arange(s_new, dtype=torch.int32, device=x.device)[None, :]
+        positions = slots
+        cos, sin = rotary_embedding(positions, hd, cfg.rope_theta, dtype=q.dtype,
+                                    scaling=cfg.rope_scaling)
+        q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
+        # writes at slots >= max_seq_len are dropped (the overflow latch
+        # freezes a row instead of letting its writes wrap). The drop mask
+        # costs a device sync, so it runs only when the host-side bound
+        # says a write could reach the end.
+        keep = None
+        if cache.max_index is None or cache.max_index + s_new > cfg.max_seq_len:
+            keep = slots < cfg.max_seq_len
+        if ps:
+            table = cache.block_table
+            ppseq = cfg.max_seq_len // ps
+            page_of = torch.clamp(slots // ps, 0, ppseq - 1).long()
+            flat = torch.gather(table, 1, page_of).long() * ps + (slots % ps)  # (b, s_new)
+            npages = ck.shape[0]
+            kf, vf = ck.view(npages * ps, n_kv, hd), cv.view(npages * ps, n_kv, hd)
+            if keep is None:
+                kf[flat], vf[flat] = k.to(kf.dtype), v.to(vf.dtype)
+            else:
+                kf[flat[keep]], vf[flat[keep]] = k[keep].to(kf.dtype), v[keep].to(vf.dtype)
+            if cfg.paged_attn_kernel and paged_kernel_supported(s_new, ps, q.shape[2], n_kv):
+                # attend straight off the post-write pool: no logical slab
+                o = paged_decode_attention(q.contiguous(), ck, cv, table, idx)
+                return self.o_proj(o.reshape(b, s_new, -1))
+            # gather the (b, max_seq_len) logical view; stale bytes in reused
+            # pages sit behind the position mask like the slab's zeros
+            lpos = torch.arange(cfg.max_seq_len, device=x.device)
+            pg = table[:, lpos // ps].long()
+            all_flat = pg * ps + (lpos % ps)[None, :]
+            k_all = ck.view(npages * ps, n_kv, hd)[all_flat]
+            v_all = cv.view(npages * ps, n_kv, hd)[all_flat]
+        else:
+            rows = torch.arange(b, device=x.device)[:, None].expand(b, s_new)
+            cols = slots.long()
+            if keep is None:
+                ck[rows, cols], cv[rows, cols] = k.to(ck.dtype), v.to(cv.dtype)
+            else:
+                ck[rows[keep], cols[keep]] = k[keep].to(ck.dtype)
+                cv[rows[keep], cols[keep]] = v[keep].to(cv.dtype)
+            k_all, v_all = ck, cv
+        # block_k tiles the cache sweep (max_seq_len), not the query chunk
+        cfg_blk_q, cfg_blk_k = cfg.blocks_for(s_new, cfg.max_seq_len)
+        blk_q = min(cfg_blk_q, s_new)
+        use_flash = (cfg.use_flash_attention and s_new >= 128
+                     and flash_supported(s_new, cfg.max_seq_len, blk_q, cfg_blk_k))
+        if use_flash:
+            o = attention(q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2),
+                          causal=False, use_flash=True, block_q=blk_q, block_k=cfg_blk_k,
+                          q_positions=positions, kv_positions=None).transpose(1, 2)
+        else:
+            o = cached_attention(q, k_all, v_all, idx)
+        return self.o_proj(o.reshape(b, s_new, -1))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        cfg = config
+        kw = dict(use_bias=False, dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+        self.gate_proj = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.up_proj = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.down_proj = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size, **kw)
+
+    def forward(self, x):
+        return self.down_proj(nn.functional.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        cfg = config
+        norm = dict(epsilon=cfg.rms_norm_eps, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                    device=device)
+        self.input_norm = RMSNorm(cfg.hidden_size, **norm)
+        self.attention = LlamaAttention(cfg, device)
+        self.post_attn_norm = RMSNorm(cfg.hidden_size, **norm)
+        self.mlp = LlamaMLP(cfg, device)
+
+    def forward(self, x, rope, cache=None, layer=0):
+        x = x + self.attention(self.input_norm(x), rope, cache, layer)
+        return x + self.mlp(self.post_attn_norm(x))
+
+
+class LlamaModel(nn.Module):
+    """Embedding + decoder stack + final norm over ``(batch, seq, hidden)``."""
+
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype,
+                                       param_dtype=cfg.param_dtype, device=device)
+        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, dtype=cfg.dtype,
+                                  param_dtype=cfg.param_dtype, device=device)
+
+    def forward(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None):
+        cfg = self.config
+        if input_ids.shape[1] > cfg.max_seq_len:
+            raise ValueError(f"sequence length {input_ids.shape[1]} exceeds max_seq_len "
+                             f"{cfg.max_seq_len}")
+        if cfg.decode and cache is None:
+            raise ValueError("decode mode needs a KVCache")
+        x = self.embed(input_ids)
+        rope = None
+        if not cfg.decode:
+            positions = torch.arange(input_ids.shape[1], dtype=torch.int32,
+                                     device=input_ids.device)
+            rope = rotary_embedding(positions, cfg.head_dim_, cfg.rope_theta, dtype=x.dtype,
+                                    scaling=cfg.rope_scaling)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, rope, cache, i)
+        if cfg.decode:
+            cache.cache_index = cache.cache_index + input_ids.shape[1]
+            if cache.max_index is not None:
+                cache.max_index += input_ids.shape[1]
+        return self.final_norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Model + LM head (tied to the embedding when ``tie_word_embeddings``).
+    ``forward`` returns logits ``(b, s, vocab)`` in the compute dtype."""
+
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        self.model = LlamaModel(cfg, device)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size,
+                                                use_bias=False, dtype=cfg.dtype,
+                                                param_dtype=cfg.param_dtype, device=device)
+
+    def forward(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None):
+        x = self.model(input_ids, cache)
+        if self.config.tie_word_embeddings:
+            return self.model.embed.attend(x)
+        return self.lm_head(x)
+
+    def new_cache(self, batch: int, device=None) -> KVCache:
+        """Zeroed decode cache at ``batch`` rows (block tables all 0)."""
+        cfg = self.config
+        hd, n_kv = cfg.head_dim_, cfg.num_kv_heads
+        if cfg.page_size:
+            shape = (cfg.page_pool_pages, cfg.page_size, n_kv, hd)
+            table = torch.zeros((batch, cfg.max_seq_len // cfg.page_size), dtype=torch.int32,
+                                device=device)
+        else:
+            shape, table = (batch, cfg.max_seq_len, n_kv, hd), None
+        z = lambda: torch.zeros(shape, dtype=cfg.dtype, device=device)  # noqa: E731
+        return KVCache(keys=[z() for _ in range(cfg.num_layers)],
+                       values=[z() for _ in range(cfg.num_layers)],
+                       cache_index=torch.zeros((batch,), dtype=torch.int32, device=device),
+                       block_table=table)
+
+
+def init_params(config: LlamaConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random weights from a seeded generator, in ``param_dtype``, as a state
+    dict for :class:`LlamaForCausalLM`: kernels normal with std
+    1/sqrt(fan_in) (the JAX package's lecun-normal scale), the embedding
+    normal(0, 1), norm scales 1."""
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in LlamaForCausalLM(config).state_dict().items()}
+    out = {}
+    for name, shape in shapes.items():
+        if name.endswith(".scale"):
+            out[name] = torch.ones(shape, dtype=config.param_dtype, device=device)
+            continue
+        t = torch.randn(shape, generator=generator, dtype=config.param_dtype, device=device)
+        if not name.endswith("embedding"):
+            t.mul_(1.0 / math.sqrt(shape[0]))
+        out[name] = t
+    return out

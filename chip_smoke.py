@@ -6,22 +6,36 @@ one NVIDIA GPU.
 
 Phases, each fatal on failure (exit code 1, no result line):
 
-1. build   every CUDA kernel of the serving path from ``csrc/`` (one
-           ``nvcc`` per source, all started together);
-2. kernels each kernel at the serving shapes, in bf16, against its plain
+1. build   every CUDA source under ``csrc/`` (one ``nvcc`` per source, all
+           started together);
+2. kernels each kernel at the shapes of its path, in bf16, against its plain
            PyTorch twin on the same inputs (max abs error beside the stated
            tolerance), timed beside the twin, one PyTorch library call
-           (timed only, never used by the port) and the card's bound;
+           (timed only, never used by the port) and the card's bound:
+           flash forward and paged decode at the serving shapes, flash
+           forward again and flash backward (dK/dV, dQ) at one training
+           layer's attention (each element held against its own size, the
+           median |ref| printed beside each limit), AdamW at the embedding
+           leaf;
 3. check   a small fp32 model served through ``CausalLM`` on the GPU
-           (kernels) and on the CPU (twins): logits must agree;
+           (kernels) and on the CPU (twins): logits must agree; the same
+           model trained two steps on each: losses and weights must agree;
 4. serve   Llama-3-8B at full width (random bf16 weights from a seeded
            generator) behind ``ServeEngine``: the launch counters are set to
-           0 just before and read just after, and every kernel must have run;
-           every logit must be finite and every request complete.
+           0 just before and read just after, and every serving kernel must
+           have run; every logit must be finite and every request complete;
+5. train   Llama-3-8B widths cut to 4 layers (bf16 weights, fp32 master
+           AdamW, clipping, activation checkpointing, the optimizer kernel)
+           on a repeated 2 x 4096-token batch: 2 warm-up steps, then 5 timed
+           steps between zeroing and reading the counters; every training
+           kernel must have run, every loss and grad norm be finite, the
+           loss fall, and the peak memory stay below the card's.
 
 ``--profile PATH`` serves the workload a second time under
 ``torch.profiler`` (device activity only), prints the device's busy share
-of that run's wall time and writes its kernel table to PATH.
+of that run's wall time and writes its kernel table to PATH; it also
+profiles one more training step the same way (table at ``PATH`` with
+``_train`` added to its name).
 
 Before its last line it prints one JSON object with every kernel's numbers
 and the card's name and power limit; the last line is
@@ -30,7 +44,9 @@ and the card's name and power limit; the last line is
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -40,6 +56,7 @@ ROOT = Path(__file__).resolve().parent
 
 # published peaks of one H100 SXM (dense): the bound of each kernel
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12      # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # kernel vs twin at the seeded serving shapes, bf16 operands with fp32
@@ -52,12 +69,47 @@ PEAK_BYTES = 3.35e12
 TOL_FLASH_BF16 = 4e-3
 TOL_PAGED_BF16 = 1e-3
 TOL_LSE = 1e-3
+# At the training shape (one layer's causal attention over 4096 tokens) the
+# outputs span orders of magnitude: a row that sees n keys has |dQ|, |dK|
+# and |out| of about 1/sqrt(n), while |dV| reaches 10. So B1's output there
+# and each gradient of B3a/B3b are held element by element against their
+# own size: |got - want| <= REL_BF16 * |want| + floor. Both sides round an
+# fp32 sum to bf16, and two sums a few fp32 places apart round one bf16
+# last place apart where they straddle a rounding point: at most 2**-7 of
+# the value. The floor admits what the rest leaves where a sum cancels to
+# near zero: p and ds are rounded to bf16 before the products, and where the
+# two sides' fp32 values straddle a rounding point one term moves by a last
+# place. Each floor is about twice its reading on an H100 (the least floor
+# that passed, over the pad and causal cases: out 5.6e-8, dQ 2.4e-4, dK
+# 3.0e-4, dV 1.9e-4, where the median |want| is 0.026, 0.026, 0.030 and
+# 0.031), and the script checks that it stays under 5 % of the median.
+REL_BF16 = 2.0 ** -7
+TOL_FLASH_TRAIN_FLOOR = 2e-7
+TOL_DQ_FLOOR = 5e-4
+TOL_DK_FLOOR = 6e-4
+TOL_DV_FLOOR = 4e-4
+FLOOR_SHARE_OF_MEDIAN = 0.05
+# B4 rounds where its twin rounds (IEEE intrinsics, no FMA contraction):
+# bit for bit on an H100 (reads 0)
+TOL_ADAMW = 0.0
 # the small fp32 model: kernels vs twins on the CPU, summation order only
 TOL_LOGITS_FP32 = 2e-3
+# the small fp32 model trained two steps on the GPU and on the CPU. The
+# losses read equal (0) on an H100: 1e-5 is 20 fp32 last places at a loss
+# of 6. The weights read 6.9e-5 apart; a weight moves by about lr (1e-3)
+# per Adam step, and a gradient whose sign differed between the devices
+# would put a weight 2e-3 off: 2.5e-4 admits the reading and catches that
+TOL_TRAIN_LOSS = 1e-5
+TRAIN_CHECK_LR = 1e-3
+TOL_TRAIN_PARAMS = 2.5e-4
 
 SERVE_PROMPT_LENS = (100, 180, 316, 376, 300, 420, 500, 150)
 SHARED_PREFIX = 256       # requests 2 and 3 share their first 256 tokens
 MAX_NEW_TOKENS = 32
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS = 2, 4096, 4
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+TRAIN_LR = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -98,6 +150,27 @@ def time_ms(fn, reps: int, flush) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def held(got, want, floor: float, rel: float = REL_BF16) -> dict:
+    """The readings of ``got`` held element by element against ``want``:
+    max |error|, the least floor with which ``|got - want| <= rel * |want| +
+    floor`` holds everywhere, the median and rms of |want|, and the limit."""
+    err = (got.float() - want.float()).abs()
+    size = want.float().abs()
+    need = float((err - rel * size).max())
+    return dict(max_abs_err=float(err.max()), floor_needed=max(0.0, need), floor=floor,
+                rel=rel, median_abs_ref=float(size.flatten().median()),
+                rms_ref=float(size.square().mean().sqrt()), ok=need <= floor)
+
+
+def check_held(name: str, r: dict) -> None:
+    check(r["ok"], f"{name} differs from its twin beyond {r['rel']:.3g} * |ref| + {r['floor']:.3g}"
+                   f" (needs a floor of {r['floor_needed']:.3g}; max |err| {r['max_abs_err']:.3g},"
+                   f" median |ref| {r['median_abs_ref']:.3g})")
+    check(r["floor"] <= FLOOR_SHARE_OF_MEDIAN * r["median_abs_ref"],
+          f"{name}: floor {r['floor']:.3g} is not below {FLOOR_SHARE_OF_MEDIAN} of the median "
+          f"|ref| {r['median_abs_ref']:.3g}")
 
 
 # --- phase 2: kernels vs twins -------------------------------------------------
@@ -247,11 +320,193 @@ def run_paged(dev, flush, reps=20):
         **bound(flops, moved))
 
 
-def bound(flops: float, moved: float) -> dict:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+def bound(flops: float, moved: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    t_ops, t_bytes = flops / peak_flops * 1e3, moved / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 flops=flops, bytes=moved)
+
+
+def flash_bwd_case(dev, pads: bool, b=2, h=32, hk=8, s=4096, d=128, pad_rows=100, pad_keys=7):
+    """B1 and B3a/B3b at the training shape: the attention of one Llama-3-8B
+    layer over 2 x 4096 tokens, causal, bf16. ``pads`` adds pad query rows
+    (-1) at the end of batch row 0 and INVALID_POS keys in batch row 1 (the
+    edge rules). Returns the forward's arguments and dO."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import INVALID_POS
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf = torch.bfloat16
+    q = torch.randn((b * h, s, d), generator=g, device=dev).to(bf)
+    k = torch.randn((b * hk, s, d), generator=g, device=dev).to(bf)
+    v = torch.randn((b * hk, s, d), generator=g, device=dev).to(bf)
+    do = torch.randn((b * h, s, d), generator=g, device=dev).to(bf)
+    qpos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
+    kpos = qpos.clone()
+    if pads:
+        qpos[0, s - pad_rows:] = -1
+        kpos[1, 1000:1000 + pad_keys] = INVALID_POS
+    qpos, kpos = qpos.reshape(b, 1, s), kpos.reshape(b, 1, s)
+    return (q, k, v, qpos, kpos, d ** -0.5, 64, 64, h // hk, h), do
+
+
+def run_flash_bwd(dev, flush, reps=5):
+    """At the training shape, on the pad case and the causal case: B1 (out
+    and LSE) against its twin, then B3a (dK/dV) and B3b (dQ) against theirs
+    under the forward kernel's own LSE and delta = rowsum(dO * O); timed on
+    the causal case. One library yardstick for B3a and B3b: SDPA forward
+    plus backward on the same q/k/v/dO (timed only). Returns B3a's and
+    B3b's kernel entries and B1's readings at this shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_block_forward_plain,
+        flash_bwd_dkdv,
+        flash_bwd_dkdv_plain,
+        flash_bwd_dq,
+        flash_bwd_dq_plain,
+    )
+
+    floors = {"out": TOL_FLASH_TRAIN_FLOOR, "dq": TOL_DQ_FLOOR, "dk": TOL_DK_FLOOR,
+              "dv": TOL_DV_FLOOR}
+    readings = {}
+    for case in ("pads", "causal"):   # causal last: its inputs are the ones timed
+        fwd, do = flash_bwd_case(dev, case == "pads")
+        out, lse = flash_block_forward(*fwd)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_block_forward_plain(*fwd)
+        r = {"out": held(out, ref, floors["out"])}
+        r["lse"] = dict(max_abs_err=float((lse - ref_lse).abs().max()), tolerance=TOL_LSE)
+        del ref, ref_lse
+        q, k, v, qpos, kpos = fwd[:5]
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, qpos, kpos, *fwd[5:])
+        got = (flash_bwd_dq(*args), *flash_bwd_dkdv(*args))
+        torch.cuda.synchronize()
+        want = (flash_bwd_dq_plain(*args), *flash_bwd_dkdv_plain(*args))
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            check(bool(torch.isfinite(a).all()), f"flash backward {name} ({case}) is not finite")
+            r[name] = held(a, w, floors[name])
+        if case == "pads":   # pad keys of batch row 1 (kv rows hk..2hk) get exactly zero dK, dV
+            hk = k.shape[0] // 2
+            check(float(got[1][hk:, 1000:1007].abs().max()) == 0.0 and
+                  float(got[2][hk:, 1000:1007].abs().max()) == 0.0,
+                  "pad keys got a nonzero dK or dV")
+        check(bool(torch.isfinite(out).all()), f"flash_fwd ({case}) produced non-finite values")
+        readings[case] = r
+        del got, want, out
+    for case, r in readings.items():
+        check_held(f"flash_fwd out at the training shape ({case})", r["out"])
+        check(r["lse"]["max_abs_err"] <= TOL_LSE,
+              f"flash_fwd lse at the training shape ({case}) differs from its twin by "
+              f"{r['lse']['max_abs_err']}")
+        for name, kernel in (("dq", "flash_bwd_dq"), ("dk", "flash_bwd_dkdv"),
+                             ("dv", "flash_bwd_dkdv")):
+            check_held(f"{kernel} {name} ({case})", r[name])
+    worst = {name: max(r[name]["max_abs_err"] for r in readings.values())
+             for name in ("out", "lse", "dq", "dk", "dv")}
+    by_case = lambda *names: {c: {n: r[n] for n in names} for c, r in readings.items()}  # noqa: E731
+
+    q, k, v, do, lse, delta, qpos, kpos, _, _, _, group, h = args
+    bh, s, d = q.shape
+    b, hk = bh // h, k.shape[0] // (bh // h)
+    mask = kpos.reshape(b, 1, s) <= qpos.reshape(b, s, 1)          # (b, sq, sk)
+    pairs = int(mask.sum()) * h                                      # visible (query, key) pairs
+    common = nbytes(q, k, v, do, lse, delta, qpos, kpos)
+    q4, k4, v4 = (t.reshape(b, -1, s, d).detach().requires_grad_(True) for t in (q, k, v))
+    do4 = do.reshape(b, h, s, d)
+
+    def library():
+        o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, (q4, k4, v4), do4)
+
+    library_ms = time_ms(library, reps, flush)
+    shape = f"q ({bh}, {s}, {d}) bf16, k/v ({k.shape[0]}, {s}, {d}), group {group}, causal"
+    note = "SDPA forward + backward (both kernels' work and the forward's)"
+    limit = lambda *names: f"{REL_BF16:.4g} * |ref| + floor (" + ", ".join(  # noqa: E731
+        f"{n} {floors[n]:.3g}" for n in names) + ")"
+    dkdv = dict(
+        name="flash_bwd_dkdv", route="cuda",
+        source="neuronx_distributed_tpu_torch/csrc/flash_bwd.cu",
+        replaces="neuronx_distributed_tpu/kernels/flash_attn.py:122",
+        shape=shape, max_abs_err=max(worst["dk"], worst["dv"]), dk_max_abs_err=worst["dk"],
+        dv_max_abs_err=worst["dv"], tolerance=limit("dk", "dv"), held=by_case("dk", "dv"),
+        ms=time_ms(lambda: flash_bwd_dkdv(*args), reps, flush),
+        plain_ms=time_ms(lambda: flash_bwd_dkdv_plain(*args), 1, flush),
+        library_ms=library_ms, library=note,
+        # S, dP, dV and dK products: 8 * d operations per visible pair
+        **bound(8 * d * pairs, common + 2 * nbytes(k)))
+    dq = dict(
+        name="flash_bwd_dq", route="cuda",
+        source="neuronx_distributed_tpu_torch/csrc/flash_bwd.cu",
+        replaces="neuronx_distributed_tpu/kernels/flash_attn.py:175",
+        shape=shape, max_abs_err=worst["dq"], tolerance=limit("dq"), held=by_case("dq"),
+        ms=time_ms(lambda: flash_bwd_dq(*args), reps, flush),
+        plain_ms=time_ms(lambda: flash_bwd_dq_plain(*args), 1, flush),
+        library_ms=library_ms, library=note,
+        # S, dP and dQ products: 6 * d operations per visible pair
+        **bound(6 * d * pairs, common + nbytes(q)))
+    fwd_train = dict(shape=shape, max_abs_err=worst["out"], lse_max_abs_err=worst["lse"],
+                     tolerance=limit("out"), lse_tolerance=TOL_LSE, held=by_case("out", "lse"))
+    return [dkdv, dq], fwd_train
+
+
+def run_adamw(dev, flush, reps=10):
+    """B4 at the largest leaf of the training phase, the embedding (128256 x
+    4096): bf16 grad and param, fp32 mu, nu and master. Kernel and twin run
+    on copies of the same state; the library yardstick is
+    ``torch._fused_adamw_`` on the fp32 master, mu and nu with an fp32 grad
+    (timed only; it has no clip scale and writes no bf16 param)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.optimizer.fused_kernel import (
+        fused_adamw_leaf,
+        fused_adamw_leaf_plain,
+    )
+
+    g_ = torch.Generator(device=dev).manual_seed(14)
+    shape = (128256, 4096)
+    g = torch.randn(shape, generator=g_, device=dev).to(torch.bfloat16)
+    state = [torch.randn(shape, generator=g_, device=dev) * 0.1,
+             torch.rand(shape, generator=g_, device=dev) * 0.01,
+             torch.randn(shape, generator=g_, device=dev)]
+    twin_state = [t.clone() for t in state]
+    # [clip_scale, lr, 1 - 0.9**3, 1 - 0.999**3]: the third step
+    scalars = torch.tensor([[0.7, 1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3]], device=dev)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01, p_dtype=torch.bfloat16)
+    *_, p = fused_adamw_leaf(g, *state, scalars, **kw)
+    torch.cuda.synchronize()
+    *_, p_ref = fused_adamw_leaf_plain(g, *twin_state, scalars, **kw)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(state + [p], twin_state + [p_ref]))
+    check(err <= TOL_ADAMW, f"fused_adamw differs from its twin by {err}")
+    check(bool(torch.isfinite(state[2]).all()), "fused_adamw produced a non-finite master")
+    del twin_state, p_ref
+    g32 = g.float()
+    steps = [torch.tensor(3.0, device=dev)]
+
+    def library():
+        torch._fused_adamw_([state[2]], [g32], [state[0]], [state[1]], [], steps, lr=1e-4,
+                            beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
+                            amsgrad=False, maximize=False)
+
+    n = g.numel()
+    return dict(
+        name="fused_adamw", route="cuda", source="neuronx_distributed_tpu_torch/csrc/adamw.cu",
+        replaces="neuronx_distributed_tpu/optimizer/fused_kernel.py:34",
+        shape=f"{shape[0]} x {shape[1]} = {n} elements, bf16 grad and param, fp32 mu/nu/master",
+        max_abs_err=err, tolerance=TOL_ADAMW,
+        ms=time_ms(lambda: fused_adamw_leaf(g, *state, scalars, **kw), reps, flush),
+        plain_ms=time_ms(lambda: fused_adamw_leaf_plain(g, *state, scalars, **kw), 2, flush),
+        library_ms=time_ms(library, reps, flush),
+        library="torch._fused_adamw_ on the fp32 master/mu/nu with an fp32 grad: no clip "
+                "scale, no bf16 param write",
+        # read g, mu, nu, master; write mu, nu, master, p (28 bytes an element);
+        # 17 fp32 operations an element on the CUDA cores
+        **bound(17 * n, nbytes(g, p) + 2 * nbytes(*state), PEAK_FP32_FLOPS))
 
 
 # --- phase 3: small model, GPU kernels vs CPU twins ---------------------------------
@@ -436,6 +691,176 @@ def serve(cfg, dev, counters, block_steps=8, max_batch=8, profile_path=None):
     return stats
 
 
+# --- phases 3b and 5: training ----------------------------------------------------
+
+
+def train_batch(vocab: int, batch: int, seq: int, dev, seed: int = 7) -> dict:
+    """Next-token batch from a seeded numpy RNG (the JAX examples'
+    ``synthetic_lm_batches``), on ``dev``."""
+    import numpy as np
+    import torch
+
+    ids = np.random.RandomState(seed).randint(0, vocab, (batch, seq + 1), dtype=np.int64)
+    return {"ids": torch.as_tensor(ids[:, :-1].astype(np.int32), device=dev),
+            "labels": torch.as_tensor(ids[:, 1:].astype(np.int32), device=dev)}
+
+
+def build_trainer(cfg, dev, lr: float, params=None):
+    """The training entry points a user calls: config -> model -> optimizer
+    -> state -> step (fp32 master AdamW, clipping at norm 1.0, the optimizer
+    kernel on)."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.trainer import (
+        create_train_state,
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+        neuronx_distributed_config,
+    )
+
+    nxd = neuronx_distributed_config(
+        optimizer_config={"zero_one_enabled": True, "grad_clipping": True, "max_grad_norm": 1.0},
+        mixed_precision_config={"use_master_weights": True}, model_init_config={"seed": 0})
+    model = initialize_parallel_model(nxd, lambda: LlamaForCausalLM(cfg), device=dev,
+                                      params=params)
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=lr, weight_decay=0.01)
+
+    def loss_fn(p, batch, rng):
+        return model.apply(p, batch["ids"], batch["labels"], method="loss")
+
+    return model, create_train_state(model, opt), make_train_step(model, opt, loss_fn,
+                                                                  optimizer_kernel=True)
+
+
+def train_check(dev, counters) -> dict:
+    """Two training steps of the small fp32 model (sequence 256: the flash
+    gate) on ``dev`` (every training kernel launches) and on the CPU (the
+    twins), from the same weights: losses and every weight after step 2."""
+    import dataclasses
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+
+    cfg = dataclasses.replace(small_config(), remat_policy="full")
+    params = init_params(cfg, torch.Generator().manual_seed(3))
+    runs = {}
+    for d in (dev, "cpu"):
+        before = {c.__name__: c.launches for c in counters}
+        model, state, step = build_trainer(cfg, d, TRAIN_CHECK_LR, params=params)
+        batch = train_batch(cfg.vocab_size, 2, cfg.max_seq_len, d, seed=8)
+        losses = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        runs[d] = (losses, {n: p.float().cpu() for n, p in state.params.items()},
+                   {c.__name__: c.launches - before[c.__name__] for c in counters})
+        del model, state, step
+    (gl, gp, launched), (cl, cp, cpu_launched) = runs[dev], runs["cpu"]
+    for name, n in launched.items():
+        check(n > 0, f"the small training check never launched {name}")
+    check(not any(cpu_launched.values()), f"the CPU run launched kernels: {cpu_launched}")
+    loss_err = max(abs(a - b) for a, b in zip(gl, cl))
+    param_err = max(float((gp[n] - cp[n]).abs().max()) for n in gp)
+    check(loss_err <= TOL_TRAIN_LOSS, f"small-model training losses differ GPU vs CPU by {loss_err}")
+    check(param_err <= TOL_TRAIN_PARAMS,
+          f"small-model weights after two steps differ GPU vs CPU by {param_err}")
+    check(gl[1] < gl[0], f"small-model loss did not fall: {gl}")
+    return dict(losses_gpu=gl, losses_cpu=cl, loss_max_abs_err=loss_err,
+                param_max_abs_err=param_err, launches=launched)
+
+
+def train_config():
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import llama3_8b
+
+    return llama3_8b(num_layers=TRAIN_LAYERS, max_seq_len=TRAIN_SEQ, dtype=torch.bfloat16,
+                     param_dtype=torch.bfloat16, remat_policy="full")
+
+
+def profile_step(step, state, batch, path: str):
+    """One more training step under ``torch.profiler`` (device activity
+    only): the device's busy share of that step's wall time and the kernels
+    by device time (table at ``path``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(kernels), "the profiler recorded no device activity in the training step")
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(prof.key_averages().table(sort_by="self_device_time_total",
+                                                    row_limit=60))
+    return state, dict(wall_s=wall, device_busy_s=busy_us / 1e6,
+                       device_busy_share=busy_us / 1e6 / wall,
+                       top=[dict(name=e.key[:90], calls=e.count,
+                                 ms=e.self_device_time_total / 1e3,
+                                 share=e.self_device_time_total / busy_us)
+                            for e in kernels[:15]])
+
+
+def train(cfg, dev, counters, profile_path=None) -> dict:
+    """Train Llama-3-8B widths at cut depth: ``TRAIN_WARMUP`` steps, then
+    ``TRAIN_STEPS`` timed steps with the launch counters zeroed just before
+    and read just after; one batch repeated, so the loss must fall."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, state, step = build_trainer(cfg, dev, TRAIN_LR)
+    batch = train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    metrics = []
+    for _ in range(TRAIN_WARMUP):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        metrics.append(m)
+    launches = {c.__name__: c.launches for c in counters}
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(peak < total, f"peak memory {peak} exceeds the card's {total}")
+    for name, n in launches.items():
+        check(n > 0, f"the training path never launched {name}")
+    mean_s = sum(step_s) / len(step_s)
+    stats = dict(
+        layers=cfg.num_layers, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, params=model.num_params(), setup_s=setup_s,
+        step_ms=[s * 1e3 for s in step_s], step_ms_mean=mean_s * 1e3,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / mean_s, losses=losses, grad_norms=norms,
+        peak_bytes=peak, device_bytes=total, launches=launches,
+        launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()})
+    if profile_path is not None:
+        p = Path(profile_path)
+        state, stats["profile"] = profile_step(step, state, batch,
+                                               str(p.with_name(f"{p.stem}_train{p.suffix}")))
+    del model, state, step
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -443,8 +868,9 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="PATH",
-                        help="also serve the workload once under torch.profiler and write "
-                             "the kernel table to PATH")
+                        help="also serve the workload and take one training step under "
+                             "torch.profiler; write their kernel tables to PATH and to PATH "
+                             "with _train added to its name")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -459,7 +885,12 @@ def main(argv=None) -> int:
         return 1
     from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
     from neuronx_distributed_tpu_torch.kernels import _build
-    from neuronx_distributed_tpu_torch.kernels.flash_attn import flash_block_forward
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_bwd_dkdv,
+        flash_bwd_dq,
+    )
+    from neuronx_distributed_tpu_torch.optimizer.fused_kernel import fused_adamw_leaf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -473,30 +904,46 @@ def main(argv=None) -> int:
           + ", ".join(f"{n} {s:.1f} s" for n, s in _build.build_seconds.items()), flush=True)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)   # 256 MB > L2
-    kernels = [run_flash(dev, flush), run_paged(dev, flush)]
+    flash = run_flash(dev, flush)
+    bwd, flash["train_shape"] = run_flash_bwd(dev, flush)
+    flash["train_shape_max_abs_err"] = flash["train_shape"]["max_abs_err"]
+    kernels = [flash, run_paged(dev, flush), *bwd, run_adamw(dev, flush)]
     for k in kernels:
         print(f"kernel {k['name']}: {k['shape']}; max_abs_err {k['max_abs_err']:.3g} "
               f"(tol {k['tolerance']}); {k['ms']:.4f} ms, twin {k['plain_ms']:.4f} ms, "
               f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}) [{card}]", flush=True)
+        for entry in (k, k.get("train_shape", {})):
+            for case, names in entry.get("held", {}).items():
+                print(f"  held at {entry['shape']} ({case}): " + "; ".join(
+                    f"{n} max |err| {r['max_abs_err']:.3g}" + (
+                        f", floor needed {r['floor_needed']:.3g} of {r['floor']:.3g}, median "
+                        f"|ref| {r['median_abs_ref']:.3g}, rms |ref| {r['rms_ref']:.3g}"
+                        if "floor" in r else f" (tol {r['tolerance']})")
+                    for n, r in names.items()), flush=True)
     del flush
+    gc.collect()
+    torch.cuda.empty_cache()
 
     worst = reference_check(dev)
     print(f"check: small fp32 model, GPU kernels vs CPU twins, max |logit diff| "
           f"{worst:.3g} (tol {TOL_LOGITS_FP32})", flush=True)
+    train_counters = (flash_block_forward, flash_bwd_dkdv, flash_bwd_dq, fused_adamw_leaf)
+    tc = train_check(dev, train_counters)
+    print(f"check: small fp32 model trained 2 steps, GPU kernels vs CPU twins: losses "
+          f"{tc['losses_gpu']} vs {tc['losses_cpu']}, max |loss diff| "
+          f"{tc['loss_max_abs_err']:.3g} (tol {TOL_TRAIN_LOSS}), max |weight diff| "
+          f"{tc['param_max_abs_err']:.3g} (tol {TOL_TRAIN_PARAMS}), launches {tc['launches']}",
+          flush=True)
 
-    counters = (flash_block_forward, paged_decode_attention)
-    stats = serve(serve_config(), dev, counters, profile_path=args.profile)
+    serve_counters = (flash_block_forward, paged_decode_attention)
+    stats = serve(serve_config(), dev, serve_counters, profile_path=args.profile)
     print(f"serve: llama3_8b full width ({stats['layers']} layers, no depth cut), "
           f"{stats['requests']} requests, {stats['generated_tokens']} tokens in "
           f"{stats['wall_s']:.3f} s = {stats['tokens_per_s']:.1f} tok/s, TTFT p50 "
           f"{stats['ttft_s_p50'] * 1e3:.1f} ms max {stats['ttft_s_max'] * 1e3:.1f} ms, "
           f"KV pool {stats['kv_pool_bytes']} bytes, prefix hit tokens "
           f"{stats['prefix_hit_tokens']}, launches {stats['launches']} [{card}]", flush=True)
-    for k in kernels:
-        k["launches"] = stats["launches"][{"flash_fwd": "flash_block_forward",
-                                           "paged_decode": "paged_decode_attention"}[k["name"]]]
-        check(k["launches"] > 0, f"the serving path never launched {k['name']}")
     if "profile" in stats:
         prof = stats["profile"]
         print(f"profile: device busy {prof['device_busy_s']:.3f} s of the profiled run's "
@@ -504,7 +951,35 @@ def main(argv=None) -> int:
               f"run took {stats['wall_s']:.3f} s); top kernels "
               + "; ".join(f"{t['name'][:48]} {t['ms']:.1f} ms x{t['calls']}"
                           for t in prof["top"][:6]) + f" [{card}]", flush=True)
-    print(json.dumps({"serve": stats, "card": card}))
+    # the serve phase's weights and page pool go before training
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tstats = train(train_config(), dev, train_counters, profile_path=args.profile)
+    print(f"train: llama3_8b widths, {tstats['layers']} of 32 layers, {tstats['params']} "
+          f"params, batch {tstats['batch']} x {tstats['seq']} tokens: step "
+          f"{tstats['step_ms_mean']:.1f} ms (steps {[round(x, 1) for x in tstats['step_ms']]}), "
+          f"{tstats['tokens_per_s']:.0f} tok/s, losses {[round(x, 4) for x in tstats['losses']]}, "
+          f"peak {tstats['peak_bytes']} of {tstats['device_bytes']} bytes, launches per step "
+          f"{tstats['launches_per_step']}, set-up {tstats['setup_s']:.1f} s [{card}]", flush=True)
+    if "profile" in tstats:
+        prof = tstats["profile"]
+        print(f"profile: training step, device busy {prof['device_busy_s'] * 1e3:.1f} ms of "
+              f"{prof['wall_s'] * 1e3:.1f} ms wall ({prof['device_busy_share']:.1%}); top kernels "
+              + "; ".join(f"{t['name'][:48]} {t['ms']:.1f} ms x{t['calls']}"
+                          for t in prof["top"][:8]) + f" [{card}]", flush=True)
+
+    by_path = {"serve": stats["launches"], "train": tstats["launches"]}
+    wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
+               "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
+               "fused_adamw": "fused_adamw_leaf"}
+    for k in kernels:
+        k["launches_by_path"] = {path: counts[wrapper[k["name"]]]
+                                 for path, counts in by_path.items() if wrapper[k["name"]] in counts}
+        k["launches"] = sum(k["launches_by_path"].values())
+        for path, n in k["launches_by_path"].items():
+            check(n > 0, f"the {path} path never launched {k['name']}")
+    print(json.dumps({"serve": stats, "train": tstats, "train_check": tc, "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{key: k[key] for key in keys}, **k} for k in kernels],

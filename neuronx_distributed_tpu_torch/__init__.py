@@ -1,10 +1,13 @@
-"""PyTorch/CUDA port of ``neuronx_distributed_tpu``: the serving slice.
+"""PyTorch/CUDA port of ``neuronx_distributed_tpu``: serving and training.
 
 The JAX package beside this one is the reference; each module here mirrors
 the JAX module of the same path and name. The serving path runs
-``ServeEngine`` -> ``CausalLM`` -> Llama -> attention, and its two
-attention kernels are CUDA C++ written for Hopper (``csrc/``), built with
-``nvcc`` at first use and bound with ``ctypes``.
+``ServeEngine`` -> ``CausalLM`` -> Llama -> attention; the training path
+runs ``initialize_parallel_model`` -> ``initialize_parallel_optimizer`` ->
+``create_train_state`` -> ``make_train_step`` -> ``LlamaForCausalLM.loss``
+on one device. Their kernels (flash attention forward and backward, paged
+decode attention, fused AdamW) are CUDA C++ written for Hopper (``csrc/``),
+built with ``nvcc`` at first use and bound with ``ctypes``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU they raise instead of carrying on silently on the CPU. Every
@@ -19,7 +22,8 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("converters", "inference", "kernels", "models", "ops", "parallel")
+_SUBMODULES = ("converters", "inference", "kernels", "models", "ops", "optimizer", "parallel",
+               "trainer")
 
 
 def __getattr__(name):

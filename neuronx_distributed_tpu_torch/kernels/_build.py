@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (no JAX counterpart).
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first
-use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
-under ``build/kernels/`` at the repository root (git-ignored), named by a
-hash of the sources and flags, and loaded with ``ctypes``. A later process
-with the same sources reuses the library; a changed source builds anew.
+Each source ``csrc/<source>.cu`` exports one or more C entry points. At
+first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
+library under ``build/kernels/`` at the repository root (git-ignored), named
+by a hash of the sources and flags, and loaded with ``ctypes``. A later
+process with the same sources reuses the library; a changed source builds
+anew.
 
 Binding rules: every pointer and the stream travel as ``c_void_p`` (a
 plain ``c_int`` would cut a 64-bit address), the stream is PyTorch's
@@ -28,9 +29,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
-# name -> (C entry point, argtypes); the return type is always int
+# C entry point -> (source under csrc/, argtypes); the return type is always int
 SIGNATURES = {
     # q, k, v, qpos, kpos, out, lse, bh, sq, sk, d, group, h, sm_scale,
     # dtype (0 fp32 / 1 bf16), stream
@@ -40,11 +41,23 @@ SIGNATURES = {
     # q dtype (0 fp32 / 1 bf16), pool dtype (0 fp32 / 1 bf16 / 2 int8), stream
     "paged_decode": ("paged_decode", [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                       F, I, I, P]),
+    # q, k, v, do, lse, delta, qpos, kpos, dk, dv, bkv, sq, sk, d, group, h,
+    # sm_scale, dtype (0 fp32 / 1 bf16), stream
+    "flash_bwd_dkdv": ("flash_bwd", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                     F, I, P]),
+    # q, k, v, do, lse, delta, qpos, kpos, dq, bh, sq, sk, d, group, h,
+    # sm_scale, dtype, stream
+    "flash_bwd_dq": ("flash_bwd", [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P]),
+    # g, mu, nu, master, p, scalars, n, b1, 1 - b1, b2, 1 - b2, eps, wd,
+    # g dtype (0 fp32 / 1 bf16), p dtype (0 fp32 / 1 bf16), stream
+    "fused_adamw": ("adamw", [P, P, P, P, P, P, L, F, F, F, F, F, F, I, I, P]),
 }
+SOURCES = tuple(sorted({source for source, _ in SIGNATURES.values()}))
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, object] = {}   # C entry point -> its ctypes function
 # compiler output (``-Xptxas -v``: registers, shared memory, spills) and
-# wall seconds of each build done by this process
+# wall seconds of each build done by this process, by source
 build_log: Dict[str, str] = {}
 build_seconds: Dict[str, float] = {}
 
@@ -77,10 +90,10 @@ def _command(name: str, out: Path) -> List[str]:
             *map(str, _sources(name))]
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
-    """Compile every named kernel whose library is missing, one ``nvcc``
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every named source whose library is missing, one ``nvcc``
     each, all started together. Raises with the compiler's output when one
-    fails. Returns name -> library path."""
+    fails. Returns source -> library path."""
     names = list(names)
     paths = {n: library_path(n) for n in names}
     todo = [n for n in names if not paths[n].exists()]
@@ -106,26 +119,27 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built on first use in this process."""
-    lib = _libs.get(name)
-    if lib is None:
-        path = build([name])[name]
-        lib = ctypes.CDLL(str(path))
-        entry, argtypes = SIGNATURES[name]
+def load(entry: str):
+    """The C entry point, its source built and loaded on first use in this
+    process."""
+    fn = _entries.get(entry)
+    if fn is None:
+        source, argtypes = SIGNATURES[entry]
+        lib = _libs.get(source)
+        if lib is None:
+            lib = _libs[source] = ctypes.CDLL(str(build([source])[source]))
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return lib
+        _entries[entry] = fn
+    return fn
 
 
-def call(name: str, *args) -> None:
+def call(entry: str, *args) -> None:
     """Launch a kernel's C entry; raise when the launch was refused."""
-    entry, _ = SIGNATURES[name]
-    err = getattr(load(name), entry)(*args)
+    err = load(entry)(*args)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError {err}")
+        raise RuntimeError(f"{entry} launch failed with cudaError {err}")
 
 
 def ptr(t) -> int:

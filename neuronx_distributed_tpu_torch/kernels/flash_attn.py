@@ -1,16 +1,23 @@
-"""Flash attention forward: CUDA kernel, plain PyTorch twin, mask helpers.
+"""Flash attention forward and backward: CUDA kernels, plain PyTorch twins,
+mask helpers.
 
-Counterpart of ``neuronx_distributed_tpu/kernels/flash_attn.py`` (the
-forward half). Masking is position based as there: key ``j`` is visible to
-query ``i`` iff ``kv_pos[j] <= q_pos[i]``; pad keys carry ``INVALID_POS``,
-pad query rows ``-1``, and a fully masked row gives output 0 and LSE
-``NEG_INF``. K/V stay compact under GQA (kv row = q row // group).
+Counterpart of ``neuronx_distributed_tpu/kernels/flash_attn.py``. Masking
+is position based as there: key ``j`` is visible to query ``i`` iff
+``kv_pos[j] <= q_pos[i]``; pad keys carry ``INVALID_POS``, pad query rows
+``-1``, and a fully masked row gives output 0 and LSE ``NEG_INF``. K/V stay
+compact under GQA (kv row = q row // group).
 
-:func:`flash_block_forward` is the kernel wrapper: a CUDA tensor launches
-``csrc/flash_fwd.cu`` (counted in ``flash_block_forward.launches``), a CPU
-tensor runs :func:`flash_block_forward_plain`, the twin with the TPU
-kernel's tiling (blocked online softmax over ``block_k`` keys, block skip,
-``p`` rounded to the operand dtype before the PV product). The LSE is
+Kernel wrappers (a CUDA tensor launches the kernel and adds one to the
+wrapper's ``launches``; a CPU tensor runs the plain twin, which keeps the
+TPU kernel's tiling and roundings):
+
+- :func:`flash_block_forward` -> ``csrc/flash_fwd.cu`` (out and LSE);
+- :func:`flash_bwd_dkdv` and :func:`flash_bwd_dq` -> ``csrc/flash_bwd.cu``
+  (recompute backward under a caller-supplied LSE and ``delta``), both
+  behind :func:`flash_block_grads`.
+
+:func:`flash_attention` is differentiable through ``_FlashAttention`` on
+every device, the counterpart of JAX's custom VJP. LSE and ``delta`` are
 ``(b*h, sq)`` fp32; the TPU's 128-lane padding is not carried over.
 """
 
@@ -136,17 +143,23 @@ def flash_block_forward_plain(q, k, v, qpos, kpos, sm_scale, block_q, block_k,
     return out, m + torch.log(l_safe)
 
 
+def _kernel_check(q, **operands):
+    """What the CUDA kernels take: fp32 or bf16, head_dim 64 or 128, every
+    operand contiguous."""
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"flash kernel takes fp32 or bf16, got {q.dtype}")
+    if q.shape[-1] not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {_KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+    for name, t in (("q", q), *operands.items()):
+        if not t.is_contiguous():
+            raise ValueError(f"flash kernel needs a contiguous {name}")
+
+
 def _flash_fwd_kernel(q, k, v, qpos, kpos, sm_scale, group, num_q_heads):
     from neuronx_distributed_tpu_torch.kernels import _build
 
-    if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"flash kernel takes fp32 or bf16, got {q.dtype}")
+    _kernel_check(q, k=k, v=v, qpos=qpos, kpos=kpos)
     bh, sq, d = q.shape
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {_KERNEL_HEAD_DIMS}, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("qpos", qpos), ("kpos", kpos)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash kernel needs a contiguous {name}")
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     _build.call("flash_fwd", _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(qpos),
@@ -180,13 +193,194 @@ def flash_block_forward(q, k, v, qpos, kpos, sm_scale, block_q, block_k,
 flash_block_forward.launches = 0
 
 
+# --- backward ----------------------------------------------------------------------
+
+
+def _bwd_check(q, k, v, do, lse, delta, qpos, kpos, block_q, block_k, group, num_q_heads):
+    _check(q, k, v, qpos, kpos, group, num_q_heads)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be fp32 {tuple(q.shape[:2])}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    sq, sk = q.shape[1], k.shape[1]
+    if not flash_supported(sq, sk, block_q, block_k):
+        raise ValueError(f"seq lengths (q={sq}, kv={sk}) must be multiples of the block "
+                         f"sizes (block_q={block_q}, block_k={block_k})")
+
+
+def _bwd_tiles(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k, group,
+               num_q_heads):
+    """The recompute both backward twins share, one ``block_k`` key block at
+    a time over all rows: yields ``(k0, kj, p, ds)`` with ``kj`` the block's
+    keys per q row (fp32), ``p = where(valid, exp(s - lse), 0)`` and
+    ``ds = p * (dp - delta) * scale`` (fp32, before any rounding). A key
+    block that no query block of any row can see is skipped (the TPU
+    kernels' block skip; its ``p`` would be all zero)."""
+    bh, sq, _ = q.shape
+    sk = k.shape[1]
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    h = num_q_heads
+    b = bh // h
+    dev = q.device
+    kvrow = torch.arange(bh, device=dev) // group
+    qp = qpos.reshape(b, sq).repeat_interleave(h, dim=0)          # (bh, sq)
+    kp = kpos.reshape(b, sk).repeat_interleave(h, dim=0)          # (bh, sk)
+    nqb = math.ceil(sq / block_q)
+    qmax = torch.nn.functional.pad(qp, (0, nqb * block_q - sq), value=-(2**31)) \
+        .reshape(bh, nqb, block_q).amax(-1)                        # (bh, nqb)
+    qf, dof = q.float(), do.float()
+    lse_, delta_ = lse[..., None], delta[..., None]
+    for k0 in range(0, sk, block_k):
+        kpj = kp[:, k0:k0 + block_k]
+        if not bool((kpj.amin(-1, keepdim=True) <= qmax).any()):
+            continue
+        kj = k[kvrow, k0:k0 + block_k].float()
+        vj = v[kvrow, k0:k0 + block_k].float()
+        s = torch.einsum("bqd,bkd->bqk", qf, kj) * sm_scale
+        valid = kpj[:, None, :] <= qp[:, :, None]
+        # masked pairs are selected away before any use: a fully masked row
+        # carries lse = NEG_INF, where exp(s - lse) overflows
+        p = torch.where(valid, torch.exp(s - lse_), 0.0)
+        dp = torch.einsum("bqd,bkd->bqk", dof, vj)
+        yield k0, kj, p, p * (dp - delta_) * sm_scale
+
+
+def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k,
+                         group, num_q_heads):
+    """Plain twin of the dK/dV kernel: ``dV = P^T dO`` with ``p`` rounded to
+    dO's dtype, ``dK = dS^T Q`` with ``ds`` rounded to q's dtype, fp32 sums
+    over the GQA group and every query. Returns ``(dk, dv)`` in k's dtype."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dk = torch.zeros((bh, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    qf, dof = q.float(), do.float()
+    for k0, _, p, ds in _bwd_tiles(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q,
+                                   block_k, group, num_q_heads):
+        k1 = k0 + p.shape[-1]
+        dv[:, k0:k1] = torch.einsum("bqk,bqd->bkd", p.to(do.dtype).float(), dof)
+        dk[:, k0:k1] = torch.einsum("bqk,bqd->bkd", ds.to(q.dtype).float(), qf)
+    fold = lambda t: t.reshape(-1, group, sk, d).sum(1).to(k.dtype)  # noqa: E731
+    return fold(dk), fold(dv)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k,
+                       group, num_q_heads):
+    """Plain twin of the dQ kernel: ``dQ = dS K`` with ``ds`` rounded to k's
+    dtype, fp32 sums over the key blocks. Returns dq in q's dtype."""
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for _, kj, _, ds in _bwd_tiles(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q,
+                                   block_k, group, num_q_heads):
+        dq += torch.einsum("bqk,bkd->bqd", ds.to(k.dtype).float(), kj)
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k, group,
+                   num_q_heads):
+    """dK and dV of one (query block, key block) pairing under the given
+    softmax statistics (B3a). Operands as in :func:`flash_block_grads`. CUDA
+    tensors launch ``csrc/flash_bwd.cu::flash_bwd_dkdv``, CPU tensors run
+    :func:`flash_bwd_dkdv_plain`."""
+    _bwd_check(q, k, v, do, lse, delta, qpos, kpos, block_q, block_k, group, num_q_heads)
+    if not on_cuda(q, k, v, do, lse, delta, qpos, kpos):
+        return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q,
+                                    block_k, group, num_q_heads)
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    _kernel_check(q, k=k, v=v, do=do, lse=lse, delta=delta, qpos=qpos, kpos=kpos)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _build.call("flash_bwd_dkdv", *map(_build.ptr, (q, k, v, do, lse, delta, qpos, kpos, dk, dv)),
+                k.shape[0], q.shape[1], k.shape[1], q.shape[2], group, num_q_heads,
+                float(sm_scale), _KERNEL_DTYPES[q.dtype], _build.stream_of(q.device))
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkdv.launches = 0
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k, group,
+                 num_q_heads):
+    """dQ of one pairing under the given softmax statistics (B3b). CUDA
+    tensors launch ``csrc/flash_bwd.cu::flash_bwd_dq``, CPU tensors run
+    :func:`flash_bwd_dq_plain`."""
+    _bwd_check(q, k, v, do, lse, delta, qpos, kpos, block_q, block_k, group, num_q_heads)
+    if not on_cuda(q, k, v, do, lse, delta, qpos, kpos):
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q,
+                                  block_k, group, num_q_heads)
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    _kernel_check(q, k=k, v=v, do=do, lse=lse, delta=delta, qpos=qpos, kpos=kpos)
+    dq = torch.empty_like(q)
+    _build.call("flash_bwd_dq", *map(_build.ptr, (q, k, v, do, lse, delta, qpos, kpos, dq)),
+                q.shape[0], q.shape[1], k.shape[1], q.shape[2], group, num_q_heads,
+                float(sm_scale), _KERNEL_DTYPES[q.dtype], _build.stream_of(q.device))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_block_grads(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k,
+                      group, num_q_heads):
+    """Backward of one (query block, key block) pairing under externally
+    supplied softmax statistics: ``lse`` and ``delta`` are ``(b*h, sq)``
+    fp32. With this call's own statistics it is plain flash backward; with
+    global ones over a larger key set (ring attention) the result is this
+    block's share of the global gradients. Shapes as in
+    :func:`flash_block_forward`; ``do`` like q. Returns ``(dq, dk, dv)``."""
+    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k,
+                            group, num_q_heads)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k, group,
+                      num_q_heads)
+    return dq, dk, dv
+
+
+def flash_block_grads_plain(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k,
+                            group, num_q_heads):
+    """Both backward twins: ``(dq, dk, dv)`` as :func:`flash_block_grads`
+    computes them for CPU tensors."""
+    args = (q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k, group, num_q_heads)
+    return (flash_bwd_dq_plain(*args), *flash_bwd_dkdv_plain(*args))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention over flattened operands with its recompute backward,
+    the counterpart of JAX's ``_flash_attention_bh`` custom VJP. Gradients
+    flow to q, k and v only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, sm_scale, block_q, block_k, group, num_q_heads):
+        out, lse = flash_block_forward(q, k, v, qpos, kpos, sm_scale, block_q, block_k, group,
+                                       num_q_heads)
+        ctx.save_for_backward(q, k, v, qpos, kpos, out, lse)
+        ctx.static = (sm_scale, block_q, block_k, group, num_q_heads)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, qpos, kpos, out, lse = ctx.saved_tensors
+        # delta pre-pass rowsum(dO * O) in fp32: elementwise, a torch op, as
+        # the JAX package leaves it to XLA outside the Pallas calls
+        delta = (do.float() * out.float()).sum(-1)
+        dq, dk, dv = flash_block_grads(q, k, v, do.contiguous(), lse, delta, qpos, kpos,
+                                       *ctx.static)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     block_q: int = 128, block_k: int = 128,
                     q_positions: Optional[torch.Tensor] = None,
                     kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flash attention over ``(batch, heads, seq, head_dim)`` tensors; K/V
-    may carry fewer (GQA) heads. Positions as in the module docstring."""
+    may carry fewer (GQA) heads. Positions as in the module docstring.
+    Differentiable in q, k and v: the backward runs the recompute kernels
+    (their twins for CPU tensors)."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     if h % hk != 0:
@@ -197,7 +391,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, sq, sk, causal, q_positions, kv_positions, q.device)
     qp = q_positions.to(torch.int32).reshape(b, 1, sq).contiguous()
     kp = kv_positions.to(torch.int32).reshape(b, 1, sk).contiguous()
-    out, _ = flash_block_forward(
+    out = _FlashAttention.apply(
         q.contiguous().reshape(b * h, sq, d), k.contiguous().reshape(b * hk, sk, d),
         v.contiguous().reshape(b * hk, sk, d), qp, kp, float(sm_scale), block_q, block_k,
         h // hk, h)

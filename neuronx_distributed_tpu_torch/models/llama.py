@@ -1,4 +1,4 @@
-"""Llama-2/3 model family for serving, on PyTorch.
+"""Llama-2/3 model family for serving and training, on PyTorch.
 
 Counterpart of ``neuronx_distributed_tpu/models/llama.py``: ``LlamaConfig``
 and its presets, rotary tables, ``cached_attention``, and the decoder stack
@@ -12,8 +12,12 @@ hd)`` slab per layer, or a page pool ``(pages, page_size, n_kv, hd)`` per
 layer resolved through per-slot block tables. Prefill widths of 128 and up
 take the flash kernel under the same gate as the JAX package; single-token
 paged steps take the paged decode kernel when ``paged_attn_kernel`` is set.
-Out of scope in this slice: int8 page writes, Medusa chunk masks, LoRA,
-context parallelism, activation checkpointing and the training loss.
+
+Training: :meth:`LlamaForCausalLM.loss` (whole-sequence or chunked head and
+cross-entropy), ``remat_policy="full"`` as ``torch.utils.checkpoint`` around
+each decoder layer (only while autograd records, never in decode mode), and
+``qkv_clip``. Out of scope in this slice: int8 page writes, Medusa chunk
+masks, LoRA, context parallelism and the ``"attention"`` remat policy.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from neuronx_distributed_tpu_torch.inference.paged_kernel import (
     paged_decode_attention,
@@ -41,6 +46,10 @@ from neuronx_distributed_tpu_torch.parallel.layers import (
     ParallelEmbedding,
     RMSNorm,
     RowParallelLinear,
+)
+from neuronx_distributed_tpu_torch.parallel.loss import (
+    parallel_cross_entropy,
+    parallel_cross_entropy_mean,
 )
 
 
@@ -72,8 +81,14 @@ class LlamaConfig:
     use_flash_attention: bool = True
     attention_block_q: Optional[int] = None
     attention_block_k: Optional[int] = None
+    remat_policy: Optional[str] = "full"  # None | "full" | "attention"
     tie_word_embeddings: bool = False
+    # clamp q/k/v projections to [-qkv_clip, qkv_clip] (DBRX's clip_qkv)
+    qkv_clip: Optional[float] = None
     decode: bool = False
+    # CE loss sequence chunking: the head matmul and CE run per chunk of
+    # this many tokens when the sequence exceeds it (None = 4096)
+    loss_chunk_size: Optional[int] = None
     # paged KV (decode only): page pool of page_pool_pages x page_size
     # tokens per layer; page_size must divide max_seq_len
     page_size: Optional[int] = None
@@ -237,6 +252,8 @@ class LlamaAttention(nn.Module):
     def forward(self, x, rope, cache: Optional[KVCache] = None, layer: int = 0):
         cfg = self.config
         q, k, v = self.qkv(x)
+        if cfg.qkv_clip is not None:  # DBRX clip_qkv, before RoPE
+            q, k, v = (t.clamp(-cfg.qkv_clip, cfg.qkv_clip) for t in (q, k, v))
         if cfg.decode:
             return self._decode_attention(x, q, k, v, cache, layer)
         cos, sin = rope
@@ -340,6 +357,22 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attn_norm(x))
 
 
+def _remat(cfg: LlamaConfig) -> bool:
+    """Whether each decoder layer runs under activation checkpointing: only
+    while autograd records and outside decode mode, so serving never pays
+    for it. ``"full"`` saves nothing inside a layer and recomputes it in the
+    backward (JAX's ``nothing_saveable``)."""
+    if cfg.decode or not torch.is_grad_enabled() or cfg.remat_policy is None:
+        return False
+    if cfg.remat_policy == "full":
+        return True
+    if cfg.remat_policy == "attention":
+        raise NotImplementedError(
+            'remat_policy="attention" (save the matmul outputs, recompute the rest) is not '
+            "ported yet: ROADMAP queue A, training-side model pieces")
+    raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+
+
 class LlamaModel(nn.Module):
     """Embedding + decoder stack + final norm over ``(batch, seq, hidden)``."""
 
@@ -367,8 +400,12 @@ class LlamaModel(nn.Module):
                                      device=input_ids.device)
             rope = rotary_embedding(positions, cfg.head_dim_, cfg.rope_theta, dtype=x.dtype,
                                     scaling=cfg.rope_scaling)
+        remat = _remat(cfg)
         for i, layer in enumerate(self.layers):
-            x = layer(x, rope, cache, i)
+            if remat:
+                x = checkpoint(layer, x, rope, cache, i, use_reentrant=False)
+            else:
+                x = layer(x, rope, cache, i)
         if cfg.decode:
             cache.cache_index = cache.cache_index + input_ids.shape[1]
             if cache.max_index is not None:
@@ -389,11 +426,38 @@ class LlamaForCausalLM(nn.Module):
                                                 use_bias=False, dtype=cfg.dtype,
                                                 param_dtype=cfg.param_dtype, device=device)
 
-    def forward(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None):
-        x = self.model(input_ids, cache)
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
         if self.config.tie_word_embeddings:
             return self.model.embed.attend(x)
         return self.lm_head(x)
+
+    def forward(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None):
+        return self._head(self.model(input_ids, cache))
+
+    def loss(self, input_ids: torch.Tensor, labels: torch.Tensor,
+             ignore_index: int = -100) -> torch.Tensor:
+        """Mean next-token cross entropy over the tokens whose label is not
+        ``ignore_index``. Past ``loss_chunk_size`` tokens (default 4096) the
+        head and the cross entropy run per chunk under activation
+        checkpointing, so only one chunk's logits are alive at a time; a
+        sequence that the chunk does not divide ends with a short chunk."""
+        x = self.model(input_ids)
+        s = labels.shape[1]
+        chunk = self.config.loss_chunk_size or 4096
+        if s <= chunk:
+            return parallel_cross_entropy_mean(self._head(x), labels, ignore_index=ignore_index)
+
+        def chunk_loss(xc, lc):
+            per_tok = parallel_cross_entropy(self._head(xc), lc, ignore_index=ignore_index)
+            return per_tok.sum(), (lc != ignore_index).float().sum()
+
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        count = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, chunk):
+            sl, cn = checkpoint(chunk_loss, x[:, i:i + chunk], labels[:, i:i + chunk],
+                                use_reentrant=False)
+            total, count = total + sl, count + cn
+        return total / torch.clamp(count, min=1.0)
 
     def new_cache(self, batch: int, device=None) -> KVCache:
         """Zeroed decode cache at ``batch`` rows (block tables all 0)."""

@@ -22,7 +22,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-head attention over BHSD tensors; K/V may carry fewer (GQA)
     heads. ``q_positions``/``kv_positions`` ((b, sq)/(b, sk) int32) select
-    the position-based mask; defaults are (bottom-aligned) causal."""
+    the position-based mask; defaults are (bottom-aligned) causal. Both
+    branches are differentiable in q, k and v (the flash branch through its
+    recompute backward)."""
     if not use_flash:
         return reference_attention(q, k, v, causal=causal, sm_scale=sm_scale,
                                    q_positions=q_positions, kv_positions=kv_positions)

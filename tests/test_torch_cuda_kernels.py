@@ -5,9 +5,16 @@ present. Run on a machine with one:
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q``.
 Imports nothing of JAX, so it runs where only the port is installed.
 
-Tolerances: fp32 kernels differ from their twins only in summation order
-(2e-5); bf16 outputs are rounded to bf16 on both sides after fp32
-accumulation, and a last-place flip of bf16 at |x| ~ 1 is 2**-7 (2e-2).
+Tolerances: the paged kernel differs from its twin only in summation order
+(fp32 2e-5; bf16 outputs rounded on both sides, a last-place flip at
+|x| ~ 1 is 2**-7, 2e-2). The flash forward's output and the backward's
+gradients span orders of magnitude, so each element is held against its
+own size, ``|got - want| <= rel * |want| + floor``: fp32 rel 1e-5 (a few
+fp32 places of summation order), bf16 rel 2**-7 (one bf16 last place at
+the value); the floors are about four times the largest the H100 needed
+on these cases (fp32 1.3e-7, bf16 9.6e-6), far below the median |want|
+(0.06 to 0.11). The AdamW kernel rounds where its twin rounds (IEEE
+intrinsics, no FMA contraction): it must match bit for bit.
 """
 
 import numpy as np
@@ -23,11 +30,29 @@ from neuronx_distributed_tpu_torch.kernels.flash_attn import (
     INVALID_POS,
     flash_block_forward,
     flash_block_forward_plain,
+    flash_block_grads,
+    flash_block_grads_plain,
+    flash_bwd_dkdv,
+    flash_bwd_dq,
+)
+from neuronx_distributed_tpu_torch.models import llama as tl
+from neuronx_distributed_tpu_torch.optimizer.fused_kernel import (
+    fused_adamw_leaf,
+    fused_adamw_leaf_plain,
 )
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+FLOOR = {torch.float32: 5e-7, torch.bfloat16: 4e-5}
+
+
+def _assert_held(got, want, name):
+    """Every element within ``REL * |want| + FLOOR`` of its twin."""
+    err = (got.float() - want.float()).abs()
+    excess = float((err - REL[want.dtype] * want.float().abs()).max())
+    assert excess <= FLOOR[want.dtype], (name, excess, float(err.max()))
 
 
 @pytest.fixture
@@ -60,7 +85,7 @@ def test_flash_kernel_matches_twin(cuda, dtype, shape):
     torch.cuda.synchronize()
     assert flash_block_forward.launches == before + 1
     ref_out, ref_lse = flash_block_forward_plain(*args)
-    np.testing.assert_allclose(out.float().cpu(), ref_out.float().cpu(), atol=TOL[dtype])
+    _assert_held(out, ref_out, "out")
     np.testing.assert_allclose(lse.cpu(), ref_lse.cpu(), atol=1e-4, rtol=1e-5)
     assert float(out[0, -1].abs().max()) == 0.0
     assert float(lse[0, -1]) == float(np.float32(-1e30))
@@ -91,3 +116,83 @@ def test_paged_kernel_matches_twin(cuda, pool, dtype):
     assert paged_decode_attention.launches == before + 1
     ref = paged_decode_attention_plain(*args, **kw)
     np.testing.assert_allclose(out.float().cpu(), ref.float().cpu(), atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4, 2, 128, 256, 128), (1, 8, 8, 192, 192, 64)])
+def test_flash_backward_kernels_match_twins(cuda, dtype, shape):
+    """dK/dV (B3a) and dQ (B3b) under the forward's own LSE, with a pad
+    query row block and pad keys: every gradient element within its limit,
+    and the pad keys' dK and dV exactly zero."""
+    b, h, hk, sq, sk, d = shape
+    q, k, v, qp, kp = _flash_case(cuda, dtype, b, h, hk, sq, sk, d)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cpu").manual_seed(9)).to(cuda, dtype)
+    _, lse = flash_block_forward_plain(q, k, v, qp, kp, d ** -0.5, 64, 64, h // hk, h)
+    out, _ = flash_block_forward_plain(q, k, v, qp, kp, d ** -0.5, 64, 64, h // hk, h)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, qp, kp, d ** -0.5, 64, 64, h // hk, h)
+    before = (flash_bwd_dkdv.launches, flash_bwd_dq.launches)
+    got = flash_block_grads(*args)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dkdv.launches, flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_block_grads_plain(*args)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        _assert_held(g_, w_, name)
+    pad = slice(sk // 2, sk // 2 + 5)      # INVALID_POS keys of the last batch row
+    assert float(got[1][-hk:, pad].abs().max()) == 0.0
+    assert float(got[2][-hk:, pad].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_fused_adamw_kernel_matches_twin(cuda, g_dtype):
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    n = 3 * 8192
+    g = (torch.randn(n, generator=gen) * 2).to(cuda, g_dtype)
+    state = [torch.randn(n, generator=gen).mul(0.1), torch.randn(n, generator=gen).abs() * 0.01,
+             torch.randn(n, generator=gen)]
+    kern = [t.to(cuda) for t in state]
+    twin = [t.to(cuda) for t in state]
+    scalars = torch.tensor([[0.7, 1e-2, 0.5, 0.3]], device=cuda)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01, p_dtype=g_dtype)
+    before = fused_adamw_leaf.launches
+    *_, p = fused_adamw_leaf(g, *kern, scalars, **kw)
+    torch.cuda.synchronize()
+    assert fused_adamw_leaf.launches == before + 1
+    *_, p_ref = fused_adamw_leaf_plain(g, *twin, scalars, **kw)
+    for a, b_ in zip(kern + [p], twin + [p_ref]):
+        assert torch.equal(a, b_)
+    assert not torch.equal(kern[2].cpu(), state[2])      # the master moved, in place
+    out = torch.zeros(n, dtype=g_dtype, device=cuda)     # a donated param
+    got = fused_adamw_leaf(g, *(t.to(cuda) for t in state), scalars, **kw, out=out)[3]
+    torch.cuda.synchronize()
+    assert got is out and torch.equal(out, p_ref)
+
+
+def test_llama_loss_backward_reaches_qkv_on_cuda(cuda):
+    """Regression pin: the flash path's output on the card used to carry no
+    autograd graph, so a loss through the Llama forward gave the q/k/v
+    kernels no gradient. Now they get one, and it matches the CPU route."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tl.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=2, num_kv_heads=1, max_seq_len=128, dtype=torch.float32,
+                         remat_policy=None)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0))
+    ids = torch.randint(0, 256, (2, 128), generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for dev in ("cpu", cuda):
+        with torch.device("meta"):
+            model = tl.LlamaForCausalLM(cfg)
+        model.load_state_dict({n: p.to(dev) for n, p in params.items()}, assign=True)
+        model.requires_grad_(True)
+        before = flash_block_forward.launches
+        loss = model.loss(ids.to(dev), ids.to(dev))
+        loss.backward()
+        if dev != "cpu":
+            assert flash_block_forward.launches == before + cfg.num_layers
+        grads[str(dev)] = {n: p.grad.cpu() for n, p in model.named_parameters()
+                           if ".qkv." in n}
+    assert len(grads["cpu"]) == 3 * cfg.num_layers
+    for n, want in grads["cpu"].items():
+        got = grads[str(cuda)][n]
+        assert float(got.abs().max()) > 0.0, n
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=n)

@@ -9,7 +9,8 @@ int8 pools carry one fp32 scale per (page, kv head), applied inside the
 tile.
 
 :func:`paged_decode_attention` is the kernel wrapper: a CUDA tensor
-launches ``csrc/paged_decode.cu`` (counted in
+launches ``csrc/paged_decode.cu`` (pages split across CTAs, partials
+merged by a second kernel; counted once a call in
 ``paged_decode_attention.launches``), a CPU tensor runs
 :func:`paged_decode_attention_plain`, the twin with the TPU kernel's page
 loop and online softmax in fp32. :func:`reference_paged_attention` is the
@@ -124,6 +125,16 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_table, cache_len, *,
     return (acc / l_safe[..., None]).reshape(b, 1, n_q, hd).to(q.dtype)
 
 
+# keys of one split of the kernel's page loop, in whole pages (the
+# KEYS_PER_SPLIT rule of csrc/paged_decode.cu; the workspace is sized by it)
+_KEYS_PER_SPLIT = 128
+
+
+def _n_split(page_size: int, pages_per_seq: int) -> int:
+    pps = max(1, _KEYS_PER_SPLIT // page_size)
+    return -(-pages_per_seq // pps)
+
+
 def _paged_decode_kernel(q, k_pages, v_pages, block_table, cache_len, k_scale,
                          v_scale, sm_scale):
     from neuronx_distributed_tpu_torch.kernels import _build
@@ -138,12 +149,25 @@ def _paged_decode_kernel(q, k_pages, v_pages, block_table, cache_len, k_scale,
             raise ValueError(f"paged kernel needs a contiguous {name}")
     b, _, n_q, hd = q.shape
     _, ps, n_kv, _ = k_pages.shape
+    # a pool row is read 16 bytes a lane, hd * itemsize / 16 lanes: a power
+    # of two up to a warp's 32
+    lanes, rest = divmod(hd * k_pages.element_size(), 16)
+    if rest or lanes > 32 or lanes & (lanes - 1):
+        raise ValueError(f"paged kernel reads pool rows 16 bytes a lane: head_dim {hd} of "
+                         f"{k_pages.dtype} must span a power of two of up to 32 lanes")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged kernel needs {name} to start 16-byte aligned")
+    n_split = _n_split(ps, block_table.shape[1])
     out = torch.empty_like(q)
+    # per query row and split: (m, l) and the partial sums, from shapes alone
+    # (the step reads no device value on the host)
+    work = torch.empty(b * n_q * n_split * (hd + 2), dtype=torch.float32, device=q.device)
     _build.call("paged_decode", _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
                 _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(block_table),
-                _build.ptr(cache_len), _build.ptr(out), b, n_kv, n_q // n_kv, hd, ps,
-                block_table.shape[1], float(sm_scale), _Q_DTYPES[q.dtype],
-                _POOL_DTYPES[k_pages.dtype], _build.stream_of(q.device))
+                _build.ptr(cache_len), _build.ptr(out), _build.ptr(work), b, n_kv,
+                n_q // n_kv, hd, ps, block_table.shape[1], float(sm_scale),
+                _Q_DTYPES[q.dtype], _POOL_DTYPES[k_pages.dtype], _build.stream_of(q.device))
     return out
 
 

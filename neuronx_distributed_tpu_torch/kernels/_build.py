@@ -37,9 +37,9 @@ SIGNATURES = {
     # dtype (0 fp32 / 1 bf16), stream
     "flash_fwd": ("flash_fwd", [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P]),
     # q, k_pages, v_pages, k_scale, v_scale, block_table, cache_len, out,
-    # b, n_kv, group, hd, page_size, pages_per_seq, sm_scale,
+    # workspace, b, n_kv, group, hd, page_size, pages_per_seq, sm_scale,
     # q dtype (0 fp32 / 1 bf16), pool dtype (0 fp32 / 1 bf16 / 2 int8), stream
-    "paged_decode": ("paged_decode", [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+    "paged_decode": ("paged_decode", [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                       F, I, I, P]),
     # q, k, v, do, lse, delta, qpos, kpos, dk, dv, bkv, sq, sk, d, group, h,
     # sm_scale, dtype (0 fp32 / 1 bf16), stream

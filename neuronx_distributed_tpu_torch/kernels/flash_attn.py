@@ -159,6 +159,10 @@ def _flash_fwd_kernel(q, k, v, qpos, kpos, sm_scale, group, num_q_heads):
     from neuronx_distributed_tpu_torch.kernels import _build
 
     _kernel_check(q, k=k, v=v, qpos=qpos, kpos=kpos)
+    if q.dtype == torch.bfloat16:   # the tensor-core route stages 16 bytes at a time
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash kernel needs {name} to start 16-byte aligned")
     bh, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)

@@ -1,13 +1,23 @@
-"""The checks ``chip_smoke.py`` holds the backward kernels to, on the CPU.
+"""The checks ``chip_smoke.py`` holds the attention kernels to, on the CPU.
 
-``bwd_exact`` (the fp64 evaluation of the flash backward that the card's
-gradients are also held against) is compared with JAX's
-``flash_block_grads`` on the same seeded fp32 inputs under external
-statistics: with fp32 operands neither side rounds p or dS, so only the
-summation precision differs (atol 2e-5 on gradients of about 1, as
-``test_torch_flash_backward.py``). ``held`` is pinned on hand-made
-tensors: an element beyond its limit against the twin passes only where
-it lies within the limit of the fp64 value.
+The fp64 evaluations that the card's outputs are also held against are
+compared with the JAX package's kernels (Pallas, in interpret mode on the
+CPU) on the same seeded inputs:
+
+- ``bwd_exact`` with ``flash_block_grads`` under external statistics: with
+  fp32 operands neither side rounds p or dS, so only the summation
+  precision differs (atol 2e-5 on gradients of about 1, as
+  ``test_torch_flash_backward.py``);
+- ``fwd_exact`` with ``flash_block_forward`` (out and LSE; pad rows, pad
+  keys, causal and non-causal): fp32 operands, so p is not rounded either
+  (atol 1e-5 on outputs and LSEs of about 1);
+- ``decode_exact`` with ``paged_decode_attention`` on bf16 and int8 pools
+  with fp32 queries: both read the same pool values (int8 dequantized in
+  fp32 by the same multiply) and the kernel sums in fp32 (atol 1e-5).
+
+``held`` is pinned on hand-made tensors: an element beyond its limit
+against the twin passes only where it lies within the limit of the fp64
+value.
 """
 
 import importlib.util
@@ -18,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from neuronx_distributed_tpu.inference import paged_kernel as jpk
 from neuronx_distributed_tpu.kernels import flash_attn as jfa
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -51,6 +62,57 @@ def test_bwd_exact_matches_jax_block_grads(smoke, causal):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.float64
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_exact_matches_jax_block_forward(smoke, causal):
+    b, h, hk, sq, sk, d, blk = 2, 4, 2, 128, 192, 32, 64
+    rng = np.random.default_rng(22)
+    q = rng.standard_normal((b * h, sq, d), dtype=np.float32)
+    k, v = (rng.standard_normal((b * hk, sk, d), dtype=np.float32) for _ in range(2))
+    kpos = np.tile(np.arange(sk, dtype=np.int32), (b, 1))
+    qpos = np.tile((np.arange(sq, dtype=np.int32) + (sk - sq)) if causal
+                   else np.full(sq, sk - 1, np.int32), (b, 1))
+    qpos[0, -3:] = -1                          # pad query rows: out 0, LSE -1e30
+    kpos[1, 70:75] = 2**30                     # INVALID_POS keys
+    qpos, kpos = qpos.reshape(b, 1, sq), kpos.reshape(b, 1, sk)
+    want_out, want_lse = jfa.flash_block_forward(*map(jnp.asarray, (q, k, v, qpos, kpos)),
+                                                 d ** -0.5, blk, blk, h // hk, h)
+    got_out, got_lse = smoke.fwd_exact(*map(torch.from_numpy, (q, k, v, qpos, kpos)),
+                                       d ** -0.5, blk, blk, h // hk, h)
+    assert got_out.dtype == torch.float64
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out), atol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0], atol=1e-5)
+    assert float(got_out[0, -3:].abs().max()) == 0.0
+    assert float(got_lse[0, -1]) == -1e30
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_decode_exact_matches_jax_paged_decode(smoke, pool):
+    b, n_q, n_kv, hd, ps, pages, ppseq = 3, 8, 2, 32, 8, 20, 5
+    rng = np.random.default_rng(23)
+    q = rng.standard_normal((b, 1, n_q, hd), dtype=np.float32)
+    kf, vf = (rng.standard_normal((pages, ps, n_kv, hd), dtype=np.float32) * 2
+              for _ in range(2))
+    table = rng.permutation(pages)[: b * ppseq].reshape(b, ppseq).astype(np.int32)
+    cache_len = np.array([0, 13, ps * ppseq - 1], np.int32)
+    jkw, tkw = {}, {}
+    if pool == "int8":
+        kq, ks = jpk.quantize_kv_pages(jnp.asarray(kf))
+        vq, vs = jpk.quantize_kv_pages(jnp.asarray(vf))
+        jk, jv = kq, vq
+        tk, tv = torch.from_numpy(np.array(kq)), torch.from_numpy(np.array(vq))
+        jkw = dict(k_scale=ks, v_scale=vs)
+        tkw = dict(k_scale=torch.from_numpy(np.array(ks)), v_scale=torch.from_numpy(np.array(vs)))
+    else:
+        jk, jv = jnp.asarray(kf, jnp.bfloat16), jnp.asarray(vf, jnp.bfloat16)
+        tk, tv = torch.from_numpy(kf).bfloat16(), torch.from_numpy(vf).bfloat16()
+    want = jpk.paged_decode_attention(jnp.asarray(q), jk, jv, jnp.asarray(table),
+                                      jnp.asarray(cache_len), **jkw)
+    got = smoke.decode_exact(torch.from_numpy(q), tk, tv, torch.from_numpy(table),
+                             torch.from_numpy(cache_len), **tkw)
+    assert got.dtype == torch.float64 and got.shape == (b, 1, n_q, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 def test_held_excuses_only_what_the_fp64_value_backs(smoke):

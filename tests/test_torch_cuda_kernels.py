@@ -7,16 +7,25 @@ Imports nothing of JAX, so it runs where only the port is installed.
 
 Tolerances: the paged kernel differs from its twin only in summation order
 (fp32 2e-5; bf16 outputs rounded on both sides, a last-place flip at
-|x| ~ 1 is 2**-7, 2e-2). The flash forward's output and the backward's
-gradients span orders of magnitude, so each element is held against its
-own size, ``|got - want| <= rel * |want| + floor``: fp32 rel 1e-5 (a few
-fp32 places of summation order), bf16 rel 2**-7 (one bf16 last place at
-the value); the floors are about four times the largest the H100 needed
-on these cases (fp32 1.3e-7, bf16 9.6e-6), far below the median |want|
-(0.06 to 0.11); the bf16 backward, on the tensor cores, has its own floor
-(``BWD_FLOOR``). The AdamW kernel rounds where its twin rounds (IEEE
-intrinsics, no FMA contraction): it must match bit for bit.
+|x| ~ 1 is 2**-7, 2e-2), its split merge included. The flash forward's
+output and the backward's gradients span orders of magnitude, so each
+element is held against its own size, ``|got - want| <= rel * |want| +
+floor``: fp32 rel 1e-5 (a few fp32 places of summation order), bf16 rel
+2**-7 (one bf16 last place at the value). The fp32 floor is about four
+times the largest the H100 needed on these cases (1.3e-7). The bf16
+kernels run their products on the tensor cores, whose sums round otherwise
+than the twin's fp32 sums: where the two land on opposite sides of a bf16
+rounding point of p or dS, an output moves by one term's last place. So a
+bf16 forward element may instead lie within its limit of an fp64
+evaluation with the twin's rounding of p (``chip_smoke.fwd_exact``, the
+rule ``chip_smoke.py`` holds the kernels to), and the bf16 floors
+(``FWD_FLOOR``, ``BWD_FLOOR``) are set from the H100's readings on these
+cases. The AdamW kernel rounds where its twin rounds (IEEE intrinsics, no
+FMA contraction): it must match bit for bit.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -44,9 +53,14 @@ from neuronx_distributed_tpu_torch.optimizer.fused_kernel import (
 
 pytestmark = pytest.mark.cuda
 
+# chip_smoke.py's fp64 evaluations (it imports nothing of JAX either)
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
-FLOOR = {torch.float32: 5e-7, torch.bfloat16: 4e-5}
 # the bf16 backward runs its products on the tensor cores, whose sums round
 # otherwise than the twin's fp32 sums: where the two land on opposite sides
 # of a bf16 rounding point of p or dS, a gradient moves by one term's last
@@ -54,12 +68,22 @@ FLOOR = {torch.float32: 5e-7, torch.bfloat16: 4e-5}
 # (equal max |error| on an H100); the floor is about three times the most
 # these cases needed there (3.5e-4, against medians of 0.04 to 0.17)
 BWD_FLOOR = {torch.float32: 5e-7, torch.bfloat16: 1e-3}
+# the bf16 forward runs on the tensor cores too: an element passes within
+# its limit of the twin or of ``chip_smoke.fwd_exact``. These cases needed
+# at most 1.3e-4 on an H100 by that rule (5.6e-4 against the twin alone;
+# medians 0.06 to 0.11); the floor is about twice that
+FWD_FLOOR = {torch.float32: 5e-7, torch.bfloat16: 2.5e-4}
 
 
-def _assert_held(got, want, name, floor=FLOOR):
-    """Every element within ``REL * |want| + floor`` of its twin."""
+def _assert_held(got, want, name, floor, exact=None):
+    """Every element within ``REL * |want| + floor`` of its twin or, given
+    ``exact`` (an fp64 evaluation of the same function), of that value."""
+    rel = REL[want.dtype]
     err = (got.float() - want.float()).abs()
-    excess = float((err - REL[want.dtype] * want.float().abs()).max())
+    excess = err - rel * want.float().abs()
+    if exact is not None:
+        excess = excess.double().minimum((got.double() - exact).abs() - rel * exact.abs())
+    excess = float(excess.max())
     assert excess <= floor[want.dtype], (name, excess, float(err.max()))
 
 
@@ -82,33 +106,76 @@ def _flash_case(dev, dtype, b, h, hk, sq, sk, d, seed=0):
     return q, k, v, qpos.reshape(b, 1, sq).to(dev), kpos.reshape(b, 1, sk).to(dev)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 4, 2, 128, 256, 128), (1, 8, 8, 192, 192, 64)])
+_FWD_SHAPES = [(2, 4, 2, 128, 256, 128, "causal"), (1, 8, 8, 192, 192, 64, "causal")]
+# the bf16 (tensor-core) route's edges; the fp32 route keeps its two cases
+_FWD_BF16_SHAPES = [
+    (2, 4, 4, 200, 384, 64, "ragged"),         # ragged lengths, group 1 (see the test)
+    (1, 8, 1, 256, 256, 128, "causal"),        # group 8
+    (2, 8, 2, 128, 256, 128, "causal"),        # group 4
+    (1, 4, 2, 128, 256, 64, "noncausal"),      # every query after every key
+    (2, 4, 2, 256, 256, 128, "masked_tile"),   # a query tile whose rows are all masked
+]
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    *((dtype, shape) for shape in _FWD_SHAPES for dtype in (torch.float32, torch.bfloat16)),
+    *((torch.bfloat16, shape) for shape in _FWD_BF16_SHAPES)])
 def test_flash_kernel_matches_twin(cuda, dtype, shape):
-    b, h, hk, sq, sk, d = shape
+    """B1 with pad query rows and pad keys: every output element within its
+    limit of the twin (bf16: or of the fp64 evaluation, whose p is rounded
+    as the twin's), the LSE close, and masked rows 0 with LSE -1e30.
+
+    The twin rounds p against the running max of each of its key blocks, so
+    key lengths stay multiples of the kernel's 64-key tiles here. "ragged":
+    200 queries (a partial query tile) over 384 keys of which the last 56
+    are pads; the kernel run on the first 328 keys alone (a partial key
+    tile, zero-filled) must give the same bits."""
+    b, h, hk, sq, sk, d, mode = shape
     q, k, v, qp, kp = _flash_case(cuda, dtype, b, h, hk, sq, sk, d)
-    args = (q, k, v, qp, kp, d ** -0.5, 64, 64, h // hk, h)
+    if mode == "masked_tile":
+        qp[:, :, 64:128] = -1
+    if mode == "noncausal":
+        qp = torch.where(qp >= 0, sk - 1, qp)
+    if mode == "ragged":
+        kp[:, :, 328:] = INVALID_POS
+    bq = 64 if sq % 64 == 0 else sq
+    args = (q, k, v, qp, kp, d ** -0.5, bq, 64, h // hk, h)
     before = flash_block_forward.launches
     out, lse = flash_block_forward(*args)
     torch.cuda.synchronize()
     assert flash_block_forward.launches == before + 1
     ref_out, ref_lse = flash_block_forward_plain(*args)
-    _assert_held(out, ref_out, "out")
+    exact = smoke.fwd_exact(*args)[0] if dtype == torch.bfloat16 else None
+    _assert_held(out, ref_out, "out", FWD_FLOOR, exact=exact)
     np.testing.assert_allclose(lse.cpu(), ref_lse.cpu(), atol=1e-4, rtol=1e-5)
     assert float(out[0, -1].abs().max()) == 0.0
     assert float(lse[0, -1]) == float(np.float32(-1e30))
+    if mode == "masked_tile":
+        rows = out.reshape(b, h, sq, d)[:, :, 64:128]
+        assert float(rows.abs().max()) == 0.0
+        assert bool((lse.reshape(b, h, sq)[:, :, 64:128] == float(np.float32(-1e30))).all())
+    if mode == "ragged":
+        cut = [t[..., :328, :].contiguous() for t in (k, v)] + [kp[..., :328].contiguous()]
+        short = flash_block_forward(q, cut[0], cut[1], qp, cut[2], d ** -0.5, sq, 328,
+                                    h // hk, h)
+        assert torch.equal(short[0], out) and torch.equal(short[1], lse)
 
 
-@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("pool", ["fp32", "bf16", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_kernel_matches_twin(cuda, pool, dtype):
+@pytest.mark.parametrize("group,ps", [(1, 16), (4, 16), (8, 16), (4, 48)])
+def test_paged_kernel_matches_twin(cuda, pool, dtype, group, ps):
+    """B2 split across CTAs, against its twin: GQA groups 1, 4 and 8, a page
+    size that does not divide the 128-key split (48), empty (cache_len 0)
+    and full tables."""
     g = torch.Generator(device="cpu").manual_seed(1)
-    b, n_q, n_kv, hd, ps, pages, ppseq = 3, 8, 2, 128, 16, 40, 8
+    b, n_kv, hd, ppseq = 3, 2, 128, 8 if ps == 48 else 24
+    n_q, pages = n_kv * group, b * ppseq + 4
     q = torch.randn((b, 1, n_q, hd), generator=g).to(cuda, dtype)
     kf = torch.randn((pages, ps, n_kv, hd), generator=g)   # stale bytes everywhere
     vf = torch.randn((pages, ps, n_kv, hd), generator=g)
     table = torch.randperm(pages, generator=g)[: b * ppseq].reshape(b, ppseq).int()
-    cache_len = torch.tensor([0, 37, ps * ppseq - 1], dtype=torch.int32)
+    cache_len = torch.tensor([0, 37 + ps * 9, ps * ppseq - 1], dtype=torch.int32)
     kw = {}
     if pool == "int8":
         kq, ks = quantize_kv_pages(kf)
@@ -116,7 +183,8 @@ def test_paged_kernel_matches_twin(cuda, pool, dtype):
         kp, vp = kq.to(cuda), vq.to(cuda)
         kw = dict(k_scale=ks.to(cuda), v_scale=vs.to(cuda))
     else:
-        kp, vp = kf.to(cuda, dtype), vf.to(cuda, dtype)
+        pool_dtype = torch.float32 if pool == "fp32" else torch.bfloat16
+        kp, vp = kf.to(cuda, pool_dtype), vf.to(cuda, pool_dtype)
     args = (q, kp, vp, table.to(cuda), cache_len.to(cuda))
     before = paged_decode_attention.launches
     out = paged_decode_attention(*args, **kw)
@@ -124,6 +192,67 @@ def test_paged_kernel_matches_twin(cuda, pool, dtype):
     assert paged_decode_attention.launches == before + 1
     ref = paged_decode_attention_plain(*args, **kw)
     np.testing.assert_allclose(out.float().cpu(), ref.float().cpu(), atol=TOL[dtype])
+
+
+def test_flash_and_paged_kernels_are_deterministic(cuda):
+    """No atomics and a fixed order of sums: two launches of B1 (bf16,
+    ragged, GQA, pads) and of B2 (int8 pool, split pages) on the same inputs
+    give the same bits."""
+    q, k, v, qp, kp = _flash_case(cuda, torch.bfloat16, 2, 8, 2, 200, 328, 128)
+    args = (q, k, v, qp, kp, 128 ** -0.5, 200, 328, 4, 8)
+    first, second = flash_block_forward(*args), flash_block_forward(*args)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    kq, ks = quantize_kv_pages(torch.randn((80, 16, 2, 128), generator=g))
+    vq, vs = quantize_kv_pages(torch.randn((80, 16, 2, 128), generator=g))
+    pargs = (torch.randn((2, 1, 8, 128), generator=g).to(cuda, torch.bfloat16), kq.to(cuda),
+             vq.to(cuda), torch.randperm(80, generator=g)[:64].reshape(2, 32).int().to(cuda),
+             torch.tensor([300, 511], dtype=torch.int32, device=cuda))
+    kw = dict(k_scale=ks.to(cuda), v_scale=vs.to(cuda))
+    pa, pb = paged_decode_attention(*pargs, **kw), paged_decode_attention(*pargs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(pa, pb)
+
+
+def test_attention_wrappers_make_no_host_sync(cuda):
+    """The paged kernel sizes its split grid and workspace from shapes
+    alone, and the flash forward reads no device value either: under
+    ``torch.cuda.set_sync_debug_mode("error")`` neither wrapper makes a
+    call that waits for the device (a decode step stays capturable in a
+    CUDA graph)."""
+    q, k, v, qp, kp = _flash_case(cuda, torch.bfloat16, 1, 4, 2, 128, 256, 128)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    pargs = (torch.randn((2, 1, 8, 128), generator=g).to(cuda, torch.bfloat16),
+             torch.randn((40, 16, 2, 128), generator=g).to(cuda, torch.bfloat16),
+             torch.randn((40, 16, 2, 128), generator=g).to(cuda, torch.bfloat16),
+             torch.randperm(40, generator=g)[:32].reshape(2, 16).int().to(cuda),
+             torch.tensor([5, 200], dtype=torch.int32, device=cuda))
+    flash_block_forward(q, k, v, qp, kp, 128 ** -0.5, 64, 64, 2, 4)   # builds and loads
+    paged_decode_attention(*pargs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flash_block_forward(q, k, v, qp, kp, 128 ** -0.5, 64, 64, 2, 4)
+        paged_decode_attention(*pargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_bf16_kernels_reject_misaligned_operands(cuda):
+    """The tensor-core forward and the paged kernel stage operands 16 bytes
+    at a time: an operand that starts off a 16-byte boundary raises."""
+    q, k, v, qp, kp = _flash_case(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 64)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_block_forward(shifted, k, v, qp, kp, 0.125, 64, 64, 1, 2)
+    pool = torch.zeros((4, 16, 1, 128), dtype=torch.bfloat16, device=cuda)
+    off = torch.empty(pool.numel() + 1, dtype=pool.dtype, device=cuda)[1:].view(pool.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(torch.zeros((1, 1, 1, 128), dtype=torch.bfloat16, device=cuda),
+                               off, pool, torch.zeros((1, 4), dtype=torch.int32, device=cuda),
+                               torch.zeros(1, dtype=torch.int32, device=cuda))
 
 
 def _backward_case(cuda, dtype, b, h, hk, sq, sk, d, mode):

@@ -16,7 +16,9 @@ Phases, each fatal on failure (exit code 1, no result line):
            decode also at GQA groups 1 and 8, an fp32 pool and cache
            lengths 0 to 4095), flash forward again, timed, and flash
            backward (dK/dV, dQ) at one training layer's attention, AdamW at
-           the embedding leaf. Flash forward at the serve shape and AdamW
+           the embedding leaf; flash forward, flash backward and paged
+           decode again at head_dim 96 and 80 (the widths the kernels are
+           not built for). Flash forward at the serve shape and AdamW
            are held absolutely; at the training shape and for paged decode
            each output element is held against its own size, against the
            twin or an fp64 evaluation of the same function (``fwd_exact``,
@@ -27,10 +29,19 @@ Phases, each fatal on failure (exit code 1, no result line):
 3. check   a small fp32 model served through ``CausalLM`` on the GPU
            (kernels) and on the CPU (twins): logits must agree; the same
            model trained two steps on each: losses and weights must agree;
+           the same model (head_dim 128, then 96) behind a ``ServeEngine``
+           whose decode blocks are captured CUDA graphs and one that steps
+           token by token, greedy and sampled requests: bit-identical
+           streams on the card, greedy streams equal to the CPU's, and a
+           steady-state block one replay and one fetch;
 4. serve   Llama-3-8B at full width (random bf16 weights from a seeded
-           generator) behind ``ServeEngine``: the launch counters are set to
-           0 just before and read just after, and every serving kernel must
-           have run; every logit must be finite and every request complete;
+           generator) behind ``ServeEngine``, each decode block one replay
+           of a captured CUDA graph: the launch counters are set to 0 just
+           before and read just after, and every serving kernel must have
+           run; every logit (read from the graph's flags) must be finite
+           and every request complete; then the same requests again with
+           int8 KV pages (the same weights), whose tokens are matched
+           against the first pass;
 5. train   Llama-3-8B widths cut to 4 layers (bf16 weights, fp32 master
            AdamW, clipping, activation checkpointing, the optimizer kernel)
            on a repeated 2 x 4096-token batch: 2 warm-up steps, then 5 timed
@@ -776,6 +787,69 @@ def run_flash_bwd(dev, flush, reps=5):
     return [dkdv, dq], fwd_train
 
 
+HEAD_DIM_CASES = (96, 80)   # gpt_neox_20b's head_dim, and one more the kernels are not built for
+
+
+def run_head_dims(dev) -> dict:
+    """B1, B3a/B3b and B2 at head dims other than the built 64 and 128: B1
+    and B3 run zero-padded to 128 by their wrappers (the softmax scale from
+    the unpadded d), B2 reads a pool row with 12 (hd 96) or 10 (hd 80) of
+    a 16-lane group. One layer's causal attention over 2 x 1024 tokens
+    with pad rows and pad keys, and the serve-shape decode over bf16 and
+    int8 pools; every output held by the element rule against its twin or
+    its fp64 evaluation, with the floors of the 128-wide cases."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.paged_kernel import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_block_forward_plain,
+        flash_bwd_dkdv,
+        flash_bwd_dkdv_plain,
+        flash_bwd_dq,
+        flash_bwd_dq_plain,
+    )
+
+    readings = {}
+    for d in HEAD_DIM_CASES:
+        fwd, do = flash_bwd_case(dev, True, s=1024, d=d)
+        out, lse = flash_block_forward(*fwd)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_block_forward_plain(*fwd)
+        r = {"out": held(out, ref, TOL_FLASH_TRAIN_FLOOR, exact=fwd_exact(*fwd)[0]),
+             "lse": dict(max_abs_err=float((lse - ref_lse).abs().max()), tolerance=TOL_LSE)}
+        check(r["lse"]["max_abs_err"] <= TOL_LSE, f"flash_fwd lse at head_dim {d} differs from "
+                                                  f"its twin by {r['lse']['max_abs_err']}")
+        q, k, v, qpos, kpos = fwd[:5]
+        args = (q, k, v, do, lse, (do.float() * out.float()).sum(-1), qpos, kpos, *fwd[5:])
+        got = (flash_bwd_dq(*args), *flash_bwd_dkdv(*args))
+        torch.cuda.synchronize()
+        want = (flash_bwd_dq_plain(*args), *flash_bwd_dkdv_plain(*args))
+        for name, a, w, x, floor in zip(("dq", "dk", "dv"), got, want, bwd_exact(*args),
+                                        (TOL_DQ_FLOOR, TOL_DK_FLOOR, TOL_DV_FLOOR)):
+            check(bool(torch.isfinite(a).all()), f"flash backward {name} at head_dim {d} is not "
+                                                 "finite")
+            r[name] = held(a, w, floor, exact=x)
+        del got, want, out, ref
+        for pool in ("bf16", "int8"):
+            pargs, kw = paged_case(dev, pool, hd=d)
+            o = paged_decode_attention(*pargs, **kw)
+            torch.cuda.synchronize()
+            r[f"paged {pool}"] = held(o, paged_decode_attention_plain(*pargs, **kw),
+                                      TOL_PAGED_FLOOR, exact=decode_exact(*pargs, **kw))
+        for name, x in r.items():
+            if "floor" in x:
+                check_held(f"{name} at head_dim {d}", x)
+        readings[d] = dict(
+            flash_shape=f"q {tuple(q.shape)} bf16, k/v {tuple(k.shape)}, causal, pad rows and keys",
+            paged_shape=f"q {tuple(pargs[0].shape)} bf16, pools {tuple(pargs[1].shape)}",
+            held=r)
+    return readings
+
+
 def run_adamw(dev, flush, reps=10):
     """B4 at the largest leaf of the training phase, the embedding (128256 x
     4096): bf16 grad and param, fp32 mu, nu and master. Kernel and twin run
@@ -924,34 +998,80 @@ def run_workload(lm, dev, block_steps, before_run=None):
     return engine, done, time.perf_counter() - t0
 
 
+# B2's two device kernels: each launch of its wrapper runs both once
+B2_DEVICE_KERNELS = ("split_kernel", "merge_kernel")
+
+
+def device_kernel_calls(prof, names) -> dict:
+    """Calls of the device kernels whose names contain each of ``names`` in
+    a ``torch.profiler`` trace of device activity."""
+    import torch
+
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {n: sum(e.count for e in kernels if n in e.key) for n in names}
+
+
+def replay_b2_calls(lm, engine) -> dict:
+    """One more replay of ``engine``'s captured block (every slot idle by
+    now: the writes land in scratch pages and the sink) under
+    ``torch.profiler``: B2's kernels as the device ran them, to hold the
+    launch count derived from replays against."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    runner = lm.compile_session_decode_fused(engine.block_steps, engine.slot_sampler,
+                                             engine.pad_token_id)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runner(engine.session)
+        torch.cuda.synchronize()
+    calls = device_kernel_calls(prof, B2_DEVICE_KERNELS)
+    calls["derived"] = runner.launches_per_replay["paged_decode_attention"]
+    return calls
+
+
 def profile_workload(lm, dev, block_steps, path: str) -> dict:
     """The workload once more under ``torch.profiler``, tracing device
     activity only (no per-operator host records, which slow the host the
     device waits on): the device's busy share of this same run's wall time
-    and the kernels by device time (table at ``path``)."""
+    and the kernels by device time (table at ``path``). B2's kernel calls in
+    the trace must equal the run's B2 launch count (replays times the
+    launches recorded at capture)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
+
+    paged_decode_attention.launches = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, done, wall = run_workload(lm, dev, block_steps)
+    derived = paged_decode_attention.launches
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     check(bool(kernels), "the profiler recorded no device activity")
+    traced = device_kernel_calls(prof, B2_DEVICE_KERNELS)
+    check(all(v == derived for v in traced.values()),
+          f"the profiled serve ran B2's kernels {traced} times, its launch count says {derived}")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_us = sum(e.self_device_time_total for e in kernels)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text(prof.key_averages().table(sort_by="self_device_time_total",
                                                     row_limit=60))
     return dict(wall_s=wall, device_busy_s=busy_us / 1e6, device_busy_share=busy_us / 1e6 / wall,
-                tokens=sum(len(c.tokens) for c in done),
+                tokens=sum(len(c.tokens) for c in done), b2_launches=derived, b2_traced=traced,
                 top=[dict(name=e.key[:90], calls=e.count, ms=e.self_device_time_total / 1e3,
                           share=e.self_device_time_total / busy_us) for e in kernels[:12]])
 
 
-def serve(cfg, dev, counters, block_steps=8, max_batch=8, profile_path=None):
+def serve(cfg, dev, counters, block_steps=8, max_batch=8, profile_path=None, params=None,
+          page_dtype=None, reference=None):
     """Serve the workload once with the launch counters zeroed just before
     ``run()``; returns the printed metrics (and a profile of a second run
-    when ``profile_path`` is given)."""
+    when ``profile_path`` is given). The engine is built, and its decode
+    block captured, before the timed run (a throwaway engine serves one
+    short request first). ``params`` (random weights from a seed when
+    None) may be shared with another pass; ``reference`` is another pass's
+    completions, whose tokens this pass's are matched against."""
     import torch
 
     from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
@@ -959,27 +1079,21 @@ def serve(cfg, dev, counters, block_steps=8, max_batch=8, profile_path=None):
     from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
 
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     lm = CausalLM(cfg, params, LlamaForCausalLM, buckets=(128, 512), max_batch=max_batch,
-                  page_size=16, paged_attn_kernel=True, device=dev)
+                  page_size=16, paged_attn_kernel=True, page_dtype=page_dtype, device=dev)
     del params
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-    seen = []
-
-    def watch(_module, _inputs, logits):
-        nonlocal finite
-        finite = finite & torch.isfinite(logits).all()
-        seen.append(tuple(logits.shape))
-
-    lm.model.register_forward_hook(watch)
     _sync(dev)
     setup_s = time.perf_counter() - t0
 
-    # warm-up on a throwaway engine (library handles, allocator)
+    # warm-up on a throwaway engine (captures the decode block; library
+    # handles, allocator)
     warm = ServeEngine(lm, block_steps=block_steps)
+    capture_s = warm.capture_s
     warm.submit(serve_prompts(cfg.vocab_size, seed=6)[0][:130], 4)
     warm.run()
-    seen.clear()
+    del warm
 
     def zero_counters():
         for c in counters:
@@ -988,29 +1102,112 @@ def serve(cfg, dev, counters, block_steps=8, max_batch=8, profile_path=None):
     engine, done, wall = run_workload(lm, dev, block_steps, before_run=zero_counters)
     launches = {c.__name__: c.launches for c in counters}
 
-    check(bool(finite), "non-finite logits while serving")
+    # the captured block reports non-finite logits through its flags (a
+    # forward hook does not run on a replay)
+    check(engine.nonfinite_logits == 0,
+          f"non-finite logits while serving ({engine.nonfinite_logits} slots)")
+    check(engine.replays == engine.decode_blocks > 0,
+          f"{engine.replays} replays for {engine.decode_blocks} decode blocks")
+    # the replays' B2 launches are counted as replays times the launches
+    # recorded at capture; the device's own count for one replay backs that
+    b2_replay = replay_b2_calls(lm, engine)
+    check(b2_replay["derived"] > 0 and all(b2_replay[n] == b2_replay["derived"]
+                                           for n in B2_DEVICE_KERNELS),
+          f"one replay ran B2's kernels {b2_replay} times")
     check(len(done) == len(SERVE_PROMPT_LENS),
           f"{len(done)} of {len(SERVE_PROMPT_LENS)} requests completed")
     for c in done:
         check(len(c.tokens) == MAX_NEW_TOKENS, f"request {c.request_id} gave {len(c.tokens)}")
         check(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
               f"request {c.request_id} gave a token outside the vocabulary")
-    check(all(s[-1] == cfg.vocab_size for s in seen), f"logit shapes {sorted(set(seen))}")
     ttft = sorted(c.token_ts[0] - c.submit_ts for c in done)
     tokens = sum(len(c.tokens) for c in done)
     pkv = engine.session.paged
+    host_ops = engine.replays + engine.host_fetches + engine.h2d_copies
     stats = dict(
         layers=cfg.num_layers, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
+        page_dtype=page_dtype or str(cfg.dtype).replace("torch.", ""),
         requests=len(done), generated_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
         ttft_s_p50=ttft[len(ttft) // 2], ttft_s_max=ttft[-1], setup_s=setup_s,
-        kv_pool_bytes=lm.kv_cache_bytes(), decode_blocks=engine.decode_blocks,
+        capture_s=capture_s, kv_pool_bytes=lm.kv_cache_bytes(),
+        decode_blocks=engine.decode_blocks, replays=engine.replays,
+        host_fetches=engine.host_fetches, h2d_copies=engine.h2d_copies,
+        host_ops_per_block=host_ops / engine.decode_blocks,
         inserts=engine.inserts, prefix_hit_tokens=pkv.prefix_hit_tokens,
         launches=launches,
-        launches_per_token={k: v / tokens for k, v in launches.items()})
+        launches_per_token={k: v / tokens for k, v in launches.items()},
+        b2_per_replay=b2_replay,
+        streams={c.request_id: c.tokens.tolist() for c in done})
+    if reference is not None:
+        same = sum(int(a == b) for rid, ts in stats["streams"].items()
+                   for a, b in zip(ts, reference[rid]))
+        stats["token_match_share"] = same / tokens
     if profile_path is not None:
         del engine
         stats["profile"] = profile_workload(lm, dev, block_steps, profile_path)
     return stats
+
+
+def graph_check(dev, head_dim=None) -> dict:
+    """The small fp32 model (``head_dim`` 96 when given) behind a captured
+    engine and a stepwise engine on ``dev`` and a stepwise engine on the
+    CPU, greedy and sampled requests mixed: the card's two routes must give
+    bit-identical streams, the greedy streams must equal the CPU's, and a
+    steady-state block (no admission or retirement before it) must make
+    exactly one replay and one fetch, any other block at most one copy
+    more."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+    from neuronx_distributed_tpu_torch.inference.sampling import Sampler
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
+
+    cfg = small_config()
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    params = init_params(cfg, torch.Generator().manual_seed(3))
+    # (prompt length, budget, sampled, arrival block): two long streams
+    # leave steady blocks between the admissions and retirements
+    work = ((100, 40, False, 0), (70, 33, True, 0), (120, 9, False, 1), (33, 12, True, 2),
+            (50, 6, False, 2), (90, 10, True, 5))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n, *_ in work]
+    runs, ops = {}, []
+    for d, fused in ((dev, True), (dev, False), ("cpu", False)):
+        lm = CausalLM(cfg, params, LlamaForCausalLM, buckets=(128,), max_batch=4,
+                      page_size=16, paged_attn_kernel=True, device=d)
+        engine = ServeEngine(lm, block_steps=4, fused=fused, seed=5)
+        for p, (_, budget, sampled, arrival) in zip(prompts, work):
+            engine.submit(p, budget, sampler=Sampler(temperature=0.8) if sampled else None,
+                          arrival_block=arrival)
+        while True:
+            before = (engine.replays, engine.host_fetches, engine.h2d_copies,
+                      engine.decode_blocks)
+            if not engine.step_block():
+                break
+            if fused and engine.decode_blocks > before[3]:
+                ops.append(tuple(a - b for a, b in zip(
+                    (engine.replays, engine.host_fetches, engine.h2d_copies), before)))
+        check(engine.nonfinite_logits == 0, "non-finite logits in the small serve check")
+        runs[(d, fused)] = {c.request_id: c.tokens.tolist() for c in engine.completed}
+        del lm, engine
+    check(runs[(dev, True)] == runs[(dev, False)],
+          "the captured block and the stepwise route gave different streams on the card")
+    greedy = [i for i, w in enumerate(work) if not w[2]]
+    check(all(runs[(dev, True)][i] == runs[("cpu", False)][i] for i in greedy),
+          "greedy streams on the card differ from the CPU's")
+    steady = [o for o in ops if o[2] == 0]
+    check(bool(steady) and all(o == (1, 1, 0) for o in steady),
+          f"steady-state blocks made other host ops than one replay and one fetch: {ops}")
+    check(all(o[:2] == (1, 1) and o[2] <= 1 for o in ops), f"block host ops {ops}")
+    return dict(head_dim=cfg.head_dim_, blocks=len(ops), steady_blocks=len(steady),
+                host_ops=[sum(o) for o in ops],
+                sampled_equal_cpu=all(runs[(dev, True)][i] == runs[("cpu", False)][i]
+                                      for i, w in enumerate(work) if w[2]))
 
 
 # --- phases 3b and 5: training ----------------------------------------------------
@@ -1212,6 +1409,7 @@ def main(argv=None) -> int:
         flash_bwd_dkdv,
         flash_bwd_dq,
     )
+    from neuronx_distributed_tpu_torch.models.llama import init_params
     from neuronx_distributed_tpu_torch.optimizer.fused_kernel import fused_adamw_leaf
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1233,7 +1431,7 @@ def main(argv=None) -> int:
             f"{v['hmma']} HMMA" for k, v in sorted(report.items())) + f" [{card}]", flush=True)
         for k, v in report.items():   # the bf16 route: tensor-core products, no spills
             if k.startswith("tc::"):
-                check(v.get("spill_bytes") in (0, None), f"{k} spills {v['spill_bytes']} bytes")
+                check(v.get("spill_bytes") in (0, None), f"{k} spills {v.get('spill_bytes')} bytes")
                 check(v["hmma"] != 0, f"{k} has no HMMA (tensor-core) instruction in its SASS")
         compiled.update(report)
 
@@ -1250,6 +1448,22 @@ def main(argv=None) -> int:
     for k in bwd:
         k["compiled"] = {n: v for n, v in compiled.items() if k["name"][len("flash_bwd_"):] in n}
     kernels = [flash, run_paged(dev, flush), *bwd, run_adamw(dev, flush)]
+    head_dims = run_head_dims(dev)
+    for d, r in head_dims.items():
+        for names in (("out", "lse", "dq", "dk", "dv"), ("paged bf16", "paged int8")):
+            at = r["flash_shape"] if names[0] == "out" else r["paged_shape"]
+            print(f"  held at head_dim {d}, {at}: " + "; ".join(
+                f"{n} max |err| {r['held'][n]['max_abs_err']:.3g}" + (
+                    f", floor needed {r['held'][n]['floor_needed']:.3g} of "
+                    f"{r['held'][n]['floor']:.3g}, median |ref| "
+                    f"{r['held'][n]['median_abs_ref']:.3g}" if "floor" in r["held"][n]
+                    else f" (tol {r['held'][n]['tolerance']})") for n in names)
+                  + f" [{card}]", flush=True)
+    for k in kernels:
+        names = {"flash_fwd": ("out", "lse"), "paged_decode": ("paged bf16", "paged int8"),
+                 "flash_bwd_dkdv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}.get(k["name"])
+        if names:
+            k["head_dims"] = {d: {n: r["held"][n] for n in names} for d, r in head_dims.items()}
     for k in kernels:
         extra = (f", {k['tflops']:.1f} TFLOP/s, {k['bound_share']:.1%} of bound"
                  if "tflops" in k else "")
@@ -1288,19 +1502,44 @@ def main(argv=None) -> int:
           f"{tc['param_max_abs_err']:.3g} (tol {TOL_TRAIN_PARAMS}), launches {tc['launches']} "
           f"[{card}]", flush=True)
 
+    graph = [graph_check(dev), graph_check(dev, head_dim=96)]
+    for g in graph:
+        print(f"check: small fp32 model (head_dim {g['head_dim']}) served by the captured "
+              f"block and step by step on the card: bit-identical streams, greedy streams "
+              f"equal the CPU's (sampled too: {g['sampled_equal_cpu']}); {g['steady_blocks']} "
+              f"of {g['blocks']} blocks steady at 2 host ops, host ops a block {g['host_ops']} "
+              f"[{card}]", flush=True)
+
     serve_counters = (flash_block_forward, paged_decode_attention)
-    stats = serve(serve_config(), dev, serve_counters, profile_path=args.profile)
-    print(f"serve: llama3_8b full width ({stats['layers']} layers, no depth cut), "
-          f"{stats['requests']} requests, {stats['generated_tokens']} tokens in "
-          f"{stats['wall_s']:.3f} s = {stats['tokens_per_s']:.1f} tok/s, TTFT p50 "
-          f"{stats['ttft_s_p50'] * 1e3:.1f} ms max {stats['ttft_s_max'] * 1e3:.1f} ms, "
-          f"KV pool {stats['kv_pool_bytes']} bytes, prefix hit tokens "
-          f"{stats['prefix_hit_tokens']}, launches {stats['launches']} [{card}]", flush=True)
+    cfg = serve_config()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    stats = serve(cfg, dev, serve_counters, profile_path=args.profile, params=params)
+    gc.collect()
+    int8 = serve(cfg, dev, serve_counters, params=params, page_dtype="int8",
+                 reference=stats["streams"])
+    del params
+    for name, st in (("serve", stats), ("serve int8 pages", int8)):
+        print(f"{name}: llama3_8b full width ({st['layers']} layers, no depth cut), "
+              f"{st['page_dtype']} pages, {st['requests']} requests, {st['generated_tokens']} "
+              f"tokens in {st['wall_s']:.3f} s = {st['tokens_per_s']:.1f} tok/s, TTFT p50 "
+              f"{st['ttft_s_p50'] * 1e3:.1f} ms max {st['ttft_s_max'] * 1e3:.1f} ms, KV pool "
+              f"{st['kv_pool_bytes']} bytes, prefix hit tokens {st['prefix_hit_tokens']}, "
+              f"decode blocks {st['decode_blocks']}: {st['replays']} replays, "
+              f"{st['host_fetches']} fetches, {st['h2d_copies']} copies = "
+              f"{st['host_ops_per_block']:.3f} host ops a block, capture {st['capture_s']:.3f} s, "
+              f"launches {st['launches']} (B2: replays x {st['b2_per_replay']['derived']} "
+              f"recorded at capture; one replay traced: split_kernel "
+              f"{st['b2_per_replay']['split_kernel']}, merge_kernel "
+              f"{st['b2_per_replay']['merge_kernel']}), paged_decode launches a token "
+              f"{st['launches_per_token']['paged_decode_attention']:.3f}"
+              + (f", tokens matching the bf16 pass {st['token_match_share']:.4f}"
+                 if "token_match_share" in st else "") + f" [{card}]", flush=True)
     if "profile" in stats:
         prof = stats["profile"]
         print(f"profile: device busy {prof['device_busy_s']:.3f} s of the profiled run's "
               f"{prof['wall_s']:.3f} s wall ({prof['device_busy_share']:.1%}; the unprofiled "
-              f"run took {stats['wall_s']:.3f} s); top kernels "
+              f"run took {stats['wall_s']:.3f} s); B2 kernels traced {prof['b2_traced']} for "
+              f"{prof['b2_launches']} counted launches; top kernels "
               + "; ".join(f"{t['name'][:48]} {t['ms']:.1f} ms x{t['calls']}"
                           for t in prof["top"][:6]) + f" [{card}]", flush=True)
     # the serve phase's weights and page pool go before training
@@ -1321,7 +1560,8 @@ def main(argv=None) -> int:
               + "; ".join(f"{t['name'][:48]} {t['ms']:.1f} ms x{t['calls']}"
                           for t in prof["top"][:8]) + f" [{card}]", flush=True)
 
-    by_path = {"serve": stats["launches"], "train": tstats["launches"]}
+    by_path = {"serve": stats["launches"], "serve_int8": int8["launches"],
+               "train": tstats["launches"]}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
                "fused_adamw": "fused_adamw_leaf"}
@@ -1331,7 +1571,8 @@ def main(argv=None) -> int:
         k["launches"] = sum(k["launches_by_path"].values())
         for path, n in k["launches_by_path"].items():
             check(n > 0, f"the {path} path never launched {k['name']}")
-    print(json.dumps({"serve": stats, "train": tstats, "train_check": tc, "card": card}))
+    print(json.dumps({"serve": stats, "serve_int8": int8, "train": tstats, "train_check": tc,
+                      "graph_check": graph, "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{key: k[key] for key in keys}, **k} for k in kernels],

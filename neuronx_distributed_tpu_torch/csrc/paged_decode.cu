@@ -31,7 +31,9 @@
 // writes an empty partial (m = -1e30, l = 0) and returns. Otherwise each
 // warp walks its own pages of the split (no barrier in the page loop): lanes
 // load K/V rows 16 bytes at a time (8 bf16, 16 int8 or 4 fp32; hd / (16 /
-// sizeof) lanes a row, the rest of the warp on the next keys), the query
+// sizeof) lanes a row, at most 32, in a group of the next power of two
+// lanes whose spare lanes hold zeros, e.g. 12 of 16 at hd 96 in bf16; the
+// rest of the warp on the next keys), the query
 // rows stay in registers, dot products reduce by warp shuffles, and each
 // lane keeps an online (m, l, acc) over its keys, rescaled only when the
 // row max grows (exp(0) = 1 otherwise, so skipping it changes no bit). The
@@ -120,9 +122,12 @@ split_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     return;
   }
 
-  const int C = hd / E;     // lanes a pool row spans (a power of two <= 32)
-  const int rl = lane / C;  // this lane's key within a step of 32 / C keys
-  const int cl = lane % C;  // and its 16-byte chunk of the row
+  const int C = hd / E;     // lanes a pool row spans (at most 32)
+  int CP = 1;               // lanes of a row's group: the next power of two
+  while (CP < C) CP <<= 1;
+  const int rl = lane / CP;   // this lane's key within a step of 32 / CP keys
+  const int cl = lane % CP;   // and its 16-byte chunk of the row
+  const bool on = cl < C;     // a spare lane of the group holds zeros
   float qv[GMAX][E], acc[GMAX][E], m[GMAX], l[GMAX];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
@@ -130,7 +135,7 @@ split_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      qv[g][e] = g < nr ? nxd::to_f(q[(row0 + g) * hd + cl * E + e]) : 0.f;
+      qv[g][e] = g < nr && on ? nxd::to_f(q[(row0 + g) * hd + cl * E + e]) : 0.f;
       acc[g][e] = 0.f;
     }
   }
@@ -146,11 +151,11 @@ split_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     }
     const size_t base = static_cast<size_t>(page) * page_size * row_stride +
                         static_cast<size_t>(hi) * hd + cl * E;
-    for (int r0 = 0; r0 < page_size; r0 += 32 / C) {
+    for (int r0 = 0; r0 < page_size; r0 += 32 / CP) {
       const int r = r0 + rl;
       const bool vis = r < page_size && j * page_size + r <= qpos;
       float kf[E] = {}, vf[E] = {};
-      if (vis) {
+      if (vis && on) {
         Row16<P>::load(kf, k_pages + base + r * row_stride, ksc);
         Row16<P>::load(vf, v_pages + base + r * row_stride, vsc);
       }
@@ -159,10 +164,10 @@ split_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
         float d = 0.f;
 #pragma unroll
         for (int e = 0; e < E; ++e) d = fmaf(qv[g][e], kf[e], d);
-        for (int off = 1; off < C; off <<= 1) d += __shfl_xor_sync(~0u, d, off);
+        for (int off = 1; off < CP; off <<= 1) d += __shfl_xor_sync(~0u, d, off);
         const float s = vis ? __fmul_rn(d, sm_scale) : nxd::kNegInf;
         float mx = s;
-        for (int off = C; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, off));
+        for (int off = CP; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, off));
         if (mx > m[g]) {   // warp-uniform: every lane holds the same m and mx
           const float corr = expf(__fsub_rn(m[g], mx));
           l[g] *= corr;
@@ -182,12 +187,12 @@ split_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   // the warp's state: sums over its key lanes, then into shared memory
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
-    for (int off = C; off < 32; off <<= 1) {
+    for (int off = CP; off < 32; off <<= 1) {
       l[g] += __shfl_xor_sync(~0u, l[g], off);
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[g][e] += __shfl_xor_sync(~0u, acc[g][e], off);
     }
-    if (g < nr && rl == 0) {
+    if (g < nr && rl == 0 && on) {
 #pragma unroll
       for (int e = 0; e < E; ++e) w_acc[(warp * GMAX + g) * hd + cl * E + e] = acc[g][e];
       if (lane == 0) {
@@ -251,7 +256,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const float* k
                    float sm_scale, cudaStream_t stream) {
   constexpr int E = Row16<P>::E;
   const int c = hd / E;
-  if (hd % E != 0 || c > 32 || (c & (c - 1)) != 0) return cudaErrorInvalidValue;
+  if (hd % E != 0 || c < 1 || c > 32) return cudaErrorInvalidValue;
   const int pps = pages_per_split(page_size);
   const int n_split = (pages_per_seq + pps - 1) / pps;
   if (n_split > 65535) return cudaErrorInvalidValue;

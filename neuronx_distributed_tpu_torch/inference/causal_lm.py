@@ -8,25 +8,43 @@ mode (``page_size``) the slots resolve through block tables into a shared
 page pool, with radix prefix reuse: a prefix hit prefills only the suffix.
 
 Where the JAX package compiles programs (prefill per bucket, a donated
-decode step, a K-step fused ``lax.scan``), this runtime runs eagerly and
-updates the cache in place. :meth:`CausalLM.session_decode` is the K-step
-fused decode as a plain loop that keeps the per-slot lengths, active, done
-and EOS-freeze state on the device and hands back the (K, b) token matrix
-for one host fetch; CUDA graphs come later.
+decode step, a K-step fused ``lax.scan``), this runtime runs prefill and
+single steps eagerly and updates the cache in place. The K-step fused
+decode is :meth:`CausalLM.compile_session_decode_fused`: on CUDA one
+captured ``torch.cuda.CUDAGraph`` that advances every slot K tokens per
+replay (the counterpart of the jitted scan), on the CPU the same body run
+eagerly. A graph is bound to the addresses it was captured over, so a
+``CausalLM`` owns one set of device buffers — the KV pools and a
+:class:`SlotState` that packs the per-slot decode state with the block
+tables — and :meth:`CausalLM.start_session` resets them for each new
+session (one live session per ``CausalLM``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Mapping, Optional, Sequence
+import time
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from neuronx_distributed_tpu_torch._device import DeviceLike, resolve_device
 from neuronx_distributed_tpu_torch.inference.paged_cache import PagedKVCache
-from neuronx_distributed_tpu_torch.inference.sampling import Sampler, SlotSampler
-from neuronx_distributed_tpu_torch.models.llama import KVCache
+from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
+from neuronx_distributed_tpu_torch.inference.sampling import (
+    Sampler,
+    SlotSampler,
+    draw_rows,
+    request_seed,
+    split_key,
+)
+from neuronx_distributed_tpu_torch.models.llama import KVCache, page_storage_dtype
+
+# the kernel wrappers a decode step can reach (flash attention runs only at
+# 128 tokens and up); a replay adds to their launch counters what one run
+# of the captured body launched
+_KERNEL_WRAPPERS = (paged_decode_attention,)
 
 
 def infer_prompt_lengths(prompt_ids: np.ndarray, pad_token_id: int = 0) -> np.ndarray:
@@ -43,16 +61,181 @@ class GenerationResult:
     lengths: np.ndarray         # (b,) generated lengths incl. eos
 
 
+class SlotState:
+    """The per-slot decode state of a session, packed in one int32 buffer on
+    the device with a host mirror of the same layout: one ``(max_batch,)``
+    row per field of ``FIELDS`` (``temperature`` holds fp32 bits), then the
+    ``(max_batch, pages_per_seq)`` block tables in paged mode. The KV
+    cache's ``cache_index`` and ``block_table`` are views of the device
+    buffer, so one copy (:meth:`push`) refreshes all of it.
+
+    The session API keeps ``length`` and the tables; the caller of a fused
+    decode runner keeps the rest. Whoever changes the host mirror marks the
+    state ``dirty``; :meth:`sync` then copies it before the next decode.
+    The copy is synchronous (pageable host memory), so no copy is in flight
+    when the host next changes the mirror."""
+
+    FIELDS = ("tok", "key_lo", "key_hi", "count", "length", "active", "done", "eos", "greedy",
+              "temperature")
+
+    def __init__(self, batch: int, table_cols: int, device: torch.device):
+        self.batch, self.table_cols = batch, table_cols
+        n = len(self.FIELDS) * batch + batch * table_cols
+        self.host = np.zeros((n,), np.int32)
+        self.dev = torch.zeros((n,), dtype=torch.int32, device=device)
+        self.dirty = False
+
+    def _span(self, name: str) -> slice:
+        i = self.FIELDS.index(name)
+        return slice(i * self.batch, (i + 1) * self.batch)
+
+    def host_field(self, name: str) -> np.ndarray:
+        f = self.host[self._span(name)]
+        return f.view(np.float32) if name == "temperature" else f
+
+    def dev_field(self, name: str) -> torch.Tensor:
+        f = self.dev[self._span(name)]
+        return f.view(torch.float32) if name == "temperature" else f
+
+    def _table_span(self) -> slice:
+        return slice(len(self.FIELDS) * self.batch, self.host.size)
+
+    @property
+    def host_table(self) -> np.ndarray:
+        return self.host[self._table_span()].reshape(self.batch, self.table_cols)
+
+    @property
+    def dev_table(self) -> torch.Tensor:
+        return self.dev[self._table_span()].view(self.batch, self.table_cols)
+
+    def push(self) -> None:
+        """One host-to-device copy of the whole mirror."""
+        self.dev.copy_(torch.from_numpy(self.host))
+        self.dirty = False
+
+    def sync(self) -> int:
+        """:meth:`push` when the mirror changed; returns the copies made."""
+        if not self.dirty:
+            return 0
+        self.push()
+        return 1
+
+
 @dataclasses.dataclass
 class DecodeSession:
-    """Continuous-batching session: the KV cache plus host-side per-slot
-    accounting; ``paged`` is the host half of the page pool (None on a
-    contiguous slab)."""
+    """Continuous-batching session: the KV cache, the packed slot state and
+    host-side per-slot accounting; ``lengths`` is the host mirror of the
+    device ``cache_index``; ``paged`` is the host half of the page pool
+    (None on a contiguous slab)."""
 
     cache: KVCache
+    slots: SlotState
     lengths: np.ndarray         # (max_batch,) tokens written per slot
     active: np.ndarray          # (max_batch,) slot in use
     paged: Optional[PagedKVCache] = None
+    generation: int = 0
+
+
+class FusedDecode:
+    """``steps`` continuous-batching decode iterations for the whole slot
+    pool over a :class:`CausalLM`'s device state — the counterpart of the
+    JAX package's fused session program. On CUDA the body is captured once
+    as a ``torch.cuda.CUDAGraph`` and each call is one replay; on the CPU
+    each call runs the same body eagerly. A capture or replay error raises:
+    nothing falls back to an eager loop.
+
+    Each step of the body: the model forward on the slot tokens (the cache
+    advances in place), counter-based Gumbel noise for every row
+    (:func:`counter_gumbel` keyed by the slot's ``key`` at its ``count``),
+    the :class:`SlotSampler` draw (greedy rows keep their argmax), the
+    emission frozen to ``pad`` for rows done or inactive before the step,
+    ``done`` latched on the row's ``eos`` entry (−1 disables) and when its
+    next write would pass ``max_seq_len``. It writes ``tok``, ``count`` and
+    ``done`` back into the slot state (``length`` is the cache index), so a
+    steady-state block needs no copy to the device, and leaves in
+    :attr:`out` the (steps, b) emissions plus one row of per-slot flags
+    (1 where every logit of the block was finite): one fetch a block."""
+
+    def __init__(self, lm: "CausalLM", steps: int, slot_sampler: SlotSampler, pad: int):
+        self.lm, self.steps, self.slot_sampler, self.pad = lm, int(steps), slot_sampler, int(pad)
+        self.out = torch.zeros((self.steps + 1, lm.max_batch), dtype=torch.int32,
+                               device=lm.device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        # launches one replay makes, per kernel wrapper (read at capture)
+        self.launches_per_replay: Dict[str, int] = {}
+        self.capture_s = 0.0
+        self.replays = 0
+
+    def _body(self) -> None:
+        lm, st = self.lm, self.lm._slots
+        cache = lm._cache
+        f = st.dev_field
+        active, greedy = f("active") != 0, f("greedy") != 0
+        eos, temperature = f("eos"), f("temperature")
+        key_lo, key_hi, count = f("key_lo"), f("key_hi"), f("count")
+        done = f("done") != 0
+        tok = f("tok")[:, None]
+        finite = torch.ones_like(active)
+        max_len = lm.config.max_seq_len
+        for i in range(self.steps):
+            logits = lm._forward(tok, cache)[:, 0].float()
+            finite = finite & torch.isfinite(logits).all(-1)
+            nxt = draw_rows(logits, key_lo, key_hi, count, temperature, greedy,
+                            self.slot_sampler)
+            self.out[i] = torch.where(done | ~active, self.pad, nxt)
+            done = done | (active & (eos >= 0) & (nxt == eos))
+            count.add_(1)
+            done = done | (active & (cache.cache_index + 1 >= max_len))
+            tok = nxt[:, None]
+        f("tok").copy_(tok[:, 0])
+        f("done").copy_(done.to(torch.int32))
+        self.out[self.steps] = finite.to(torch.int32)
+
+    def capture(self) -> None:
+        """Warm the body up once on a side stream (loads every kernel
+        module, the ctypes libraries included), then capture it. The
+        warm-up decodes for real, so it runs only while no slot is live
+        (its writes land in scratch pages or idle slab rows) and the slot
+        state is restored from the host mirror after it."""
+        lm = self.lm
+        if lm._session is not None and lm._session.active.any():
+            raise RuntimeError("capture the fused decode before inserting into the session: "
+                               "its warm-up decodes every slot")
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(lm.device)
+        side = torch.cuda.Stream(lm.device)
+        side.wait_stream(torch.cuda.current_stream(lm.device))
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream(lm.device).wait_stream(side)
+        warmed = {fn: fn.launches for fn in _KERNEL_WRAPPERS}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._body()
+        torch.cuda.synchronize(lm.device)
+        # a capture records launches but runs none: keep only the warm-up's
+        self.launches_per_replay = {}
+        for fn in _KERNEL_WRAPPERS:
+            self.launches_per_replay[fn.__name__] = fn.launches - warmed[fn]
+            fn.launches = warmed[fn]
+        lm._slots.push()
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, session: DecodeSession) -> torch.Tensor:
+        """Advance every slot ``steps`` tokens; returns :attr:`out` on the
+        device (fetch it once)."""
+        self.lm._check_session(session)
+        session.slots.sync()
+        if self.lm.device.type == "cuda":
+            self.graph.replay()
+            for fn in _KERNEL_WRAPPERS:   # the replay launched the captured kernels
+                fn.launches += self.launches_per_replay.get(fn.__name__, 0)
+        else:
+            self._body()
+        self.replays += 1
+        session.lengths += self.steps
+        return self.out
 
 
 class CausalLM:
@@ -67,8 +250,8 @@ class CausalLM:
     def __init__(self, config, params: Mapping[str, Any], model_cls,
                  buckets=(128, 512, 2048), max_batch: int = 4,
                  page_size: Optional[int] = None, page_pool_pages: Optional[int] = None,
-                 paged_attn_kernel: bool = False, prefix_cache: bool = True,
-                 device: DeviceLike = None):
+                 page_dtype: Optional[str] = None, paged_attn_kernel: bool = False,
+                 prefix_cache: bool = True, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.config = dataclasses.replace(config, decode=True)
         self.paged = bool(page_size)
@@ -81,9 +264,10 @@ class CausalLM:
                 max_batch * (self.config.max_seq_len // page_size) + max_batch)
             self.config = dataclasses.replace(
                 self.config, page_size=int(page_size), page_pool_pages=int(pool),
-                paged_attn_kernel=bool(paged_attn_kernel))
-        elif paged_attn_kernel:
-            raise ValueError("paged_attn_kernel requires paged mode (pass page_size)")
+                page_dtype=page_dtype, paged_attn_kernel=bool(paged_attn_kernel))
+            page_storage_dtype(self.config)   # validates page_dtype
+        elif paged_attn_kernel or page_dtype:
+            raise ValueError("page_dtype / paged_attn_kernel require paged mode (pass page_size)")
         self.max_batch = int(max_batch)
         self.buckets = tuple(sorted(b for b in buckets if b <= self.config.max_seq_len))
         if not self.buckets:
@@ -95,6 +279,14 @@ class CausalLM:
                  for k, v in params.items()}
         model.load_state_dict(state, strict=True, assign=True)
         self.model = model.eval().requires_grad_(False)
+        # device state, made at the first start_session
+        self._cache: Optional[KVCache] = None
+        self._slots: Optional[SlotState] = None
+        self._session: Optional[DecodeSession] = None
+        self._generation = 0
+        self._fused: Dict[tuple, FusedDecode] = {}
+        # wall ms of each captured program (warm-up + capture), by signature
+        self.capture_ms: Dict[str, float] = {}
 
     # --- helpers ---------------------------------------------------------
 
@@ -114,33 +306,69 @@ class CausalLM:
             return self.model(ids, cache)
 
     def kv_cache_bytes(self) -> int:
-        """Bytes of the session KV pools (every layer, K and V)."""
+        """Bytes of the session KV pools (every layer, K and V; paged: the
+        sink page and the int8 scales included)."""
         cfg = self.config
         hd, n_kv = cfg.head_dim_, cfg.num_kv_heads
-        if self.paged:
-            elems = cfg.page_pool_pages * cfg.page_size * n_kv * hd
-        else:
+        if not self.paged:
             elems = self.max_batch * cfg.max_seq_len * n_kv * hd
-        return 2 * cfg.num_layers * elems * torch.empty((), dtype=cfg.dtype).element_size()
+            return 2 * cfg.num_layers * elems * torch.empty((), dtype=cfg.dtype).element_size()
+        pages = cfg.page_pool_pages + 1
+        dtype = page_storage_dtype(cfg)
+        per_layer = pages * cfg.page_size * n_kv * hd * torch.empty((), dtype=dtype).element_size()
+        if dtype == torch.int8:
+            per_layer += pages * n_kv * 4
+        return 2 * cfg.num_layers * per_layer
+
+    # --- device state ----------------------------------------------------
+
+    def _device_state(self) -> None:
+        """Allocate the KV pools and the slot state once; every session and
+        every captured graph of this ``CausalLM`` uses these buffers."""
+        if self._cache is not None:
+            return
+        cfg = self.config
+        cols = cfg.max_seq_len // cfg.page_size if self.paged else 0
+        self._slots = SlotState(self.max_batch, cols, self.device)
+        self._cache = self.model.new_cache(
+            self.max_batch, self.device, cache_index=self._slots.dev_field("length"),
+            block_table=self._slots.dev_table if self.paged else None)
+
+    def _check_session(self, session: DecodeSession) -> None:
+        if session.generation != self._generation:
+            raise RuntimeError("this session was replaced by a later start_session(): a "
+                               "CausalLM keeps one live session on its device buffers")
 
     # --- continuous batching (slot-level session API) --------------------
 
     def start_session(self) -> DecodeSession:
-        """Fresh decode session (all slots free)."""
-        session = DecodeSession(
-            cache=self.model.new_cache(self.max_batch, self.device),
-            lengths=np.zeros((self.max_batch,), np.int64),
-            active=np.zeros((self.max_batch,), bool))
+        """Fresh decode session (all slots free): zeroed pools and slot
+        state. Any earlier session of this ``CausalLM`` ends here."""
+        self._device_state()
+        self._generation += 1
+        for pools in (self._cache.keys, self._cache.values, self._cache.k_scales or [],
+                      self._cache.v_scales or []):
+            for t in pools:
+                t.zero_()
+        st = self._slots
+        st.host[:] = 0
+        st.host_field("eos")[:] = -1
+        session = DecodeSession(cache=self._cache, slots=st, lengths=st.host_field("length"),
+                                active=np.zeros((self.max_batch,), bool),
+                                generation=self._generation)
         if self.paged:
             session.paged = PagedKVCache(
                 self.config.page_size, self.config.page_pool_pages, self.max_batch,
                 self.config.max_seq_len, prefix_cache=self.prefix_cache)
-            self._set_block_tables(session)
+            st.host_table[:] = session.paged.tables
+        st.push()
+        self._session = session
         return session
 
     def _set_block_tables(self, session: DecodeSession) -> None:
-        session.cache.block_table.copy_(
-            torch.as_tensor(session.paged.tables, dtype=torch.int32))
+        """Mirror the host tables; the device copy rides the next sync."""
+        session.slots.host_table[:] = session.paged.tables
+        session.slots.dirty = True
 
     def _check_slots(self, slot_ids: np.ndarray) -> None:
         if len(slot_ids) == 0:
@@ -158,6 +386,7 @@ class CausalLM:
         rows and lengths are preserved. Right-sized: only the inserted rows
         are prefilled, at their own batch width. Returns the next-token
         logits ``(len(slot_ids), vocab)``."""
+        self._check_session(session)
         slot_ids = np.asarray(slot_ids, np.int32)
         self._check_slots(slot_ids)
         b, s = prompt_ids.shape
@@ -180,7 +409,6 @@ class CausalLM:
         # whole rows into the session slab (stale tails of the slots' earlier
         # requests are overwritten, as the JAX scatter does)
         fresh = self.model.new_cache(rows, self.device)
-        fresh.max_index = 0
         logits = self._forward(self._ids(ids), fresh)
         dst = torch.as_tensor(slot_ids, dtype=torch.long, device=self.device)
         cache = session.cache
@@ -224,8 +452,7 @@ class CausalLM:
         for i in range(rows):
             ids[i, : suffix[i]] = prompt_ids[i, starts[i]: lengths[i]]
         tables = np.stack([pkv.table_for(int(slot_ids[i]), plans[i]) for i in range(rows)])
-        view = session.cache.rows(self._ids(starts), self._ids(tables),
-                                  max_index=int(starts.max()))
+        view = session.cache.rows(self._ids(starts), self._ids(tables))
         try:
             logits = self._forward(self._ids(ids), view)
         except Exception:
@@ -238,6 +465,7 @@ class CausalLM:
         dst = torch.as_tensor(slot_ids, dtype=torch.long, device=self.device)
         session.cache.cache_index.index_copy_(0, dst, self._ids(lengths))
         session.cache.block_table.index_copy_(0, dst, self._ids(tables))
+        session.slots.host_table[slot_ids] = tables
         session.lengths[slot_ids] = lengths
         session.active[slot_ids] = True
         last = torch.as_tensor(np.maximum(suffix - 1, 0), dtype=torch.long, device=self.device)
@@ -246,9 +474,9 @@ class CausalLM:
     def _decode_step(self, session: DecodeSession, tok: torch.Tensor) -> torch.Tensor:
         """One single-token forward for every slot (inactive slots advance
         harmlessly); ``tok`` (max_batch, 1) int32 on the device."""
-        cache = session.cache
-        cache.max_index = int(session.lengths.max())
-        logits = self._forward(tok, cache)
+        self._check_session(session)
+        session.slots.sync()
+        logits = self._forward(tok, session.cache)
         session.lengths += 1
         return logits[:, 0]
 
@@ -261,40 +489,44 @@ class CausalLM:
                              f"{self.config.max_seq_len}: re-insert or retire them")
         return self._decode_step(session, self._ids(tokens).reshape(-1, 1))
 
-    def session_decode(self, session: DecodeSession, steps: int, tok: torch.Tensor,
-                       active: torch.Tensor, done: torch.Tensor, eos_ids: torch.Tensor,
-                       temperature: torch.Tensor, greedy: torch.Tensor,
-                       slot_sampler: Optional[SlotSampler] = None,
-                       noise: Optional[Callable[[int], Optional[torch.Tensor]]] = None,
-                       pad_token_id: int = 0):
-        """``steps`` continuous-batching decode iterations with the per-slot
-        state on the device (the JAX package's fused session program, as a
-        loop). Row j's step-i emission is frozen to ``pad_token_id`` when
-        the row was done or inactive before step i; ``done`` latches on the
-        row's own ``eos_ids`` entry (−1 disables) and when its next write
-        would pass ``max_seq_len``. ``noise(i)`` gives step i's (b, vocab)
-        Gumbel noise, or None when every row is greedy.
-
-        Returns ``(tokens (steps, b), next_tok (b, 1), done (b,))`` on the
-        device: the caller fetches once per call."""
+    def compile_session_decode_fused(self, steps: int,
+                                     slot_sampler: Optional[SlotSampler] = None,
+                                     pad_token_id: int = 0) -> FusedDecode:
+        """The ``steps``-token continuous-batching block as one program
+        (:class:`FusedDecode`), cached per ``(steps, slot_sampler, pad)``.
+        On CUDA it is captured here — warm-up and capture timed into
+        ``capture_ms`` — so call it before inserting into the session (a
+        ``ServeEngine`` does so when it is built)."""
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
         slot_sampler = slot_sampler or SlotSampler()
-        max_len = self.config.max_seq_len
-        lengths = torch.as_tensor(session.lengths, dtype=torch.int32, device=self.device)
-        toks = []
-        pad = torch.tensor(pad_token_id, dtype=torch.int32, device=self.device)
-        for i in range(steps):
-            logits = self._decode_step(session, tok)
-            nxt = slot_sampler(logits, temperature, greedy, noise(i) if noise else None)
-            toks.append(torch.where(done | ~active, pad, nxt))
-            done = done | (active & (eos_ids >= 0) & (nxt == eos_ids))
-            lengths = lengths + 1
-            done = done | (active & (lengths + 1 >= max_len))
-            tok = nxt[:, None]
-        return torch.stack(toks), tok, done
+        key = (steps, slot_sampler, pad_token_id)
+        runner = self._fused.get(key)
+        if runner is None:
+            self._device_state()
+            runner = FusedDecode(self, steps, slot_sampler, pad_token_id)
+            if self.device.type == "cuda":
+                runner.capture()
+                self.capture_ms[f"session_fused_k{steps}"] = round(runner.capture_s * 1e3, 2)
+            self._fused[key] = runner
+        return runner
+
+    def compile_decode_fused(self, steps: int, top_k: Optional[int] = None,
+                             top_p: Optional[float] = None,
+                             pad_token_id: int = 0) -> FusedDecode:
+        """The ``steps``-token block of :meth:`generate` (``fused_chunk``):
+        the session program for ``top_k``/``top_p``. Unlike the JAX
+        package's, it builds in no temperature, greedy flag or EOS id: those
+        are per-slot state that ``generate`` loads before the block, so one
+        graph serves every value of them."""
+        return self.compile_session_decode_fused(
+            steps, SlotSampler(top_k=top_k, top_p=top_p), pad_token_id)
 
     def retire(self, session: DecodeSession, slot_ids) -> None:
         """Mark slots idle; in paged mode return their pages and point their
-        device tables back at scratch. Idempotent and empty-safe."""
+        tables back at scratch (on the device at the next sync). Idempotent
+        and empty-safe."""
+        self._check_session(session)
         slot_ids = np.asarray(slot_ids, np.int32).reshape(-1)
         if len(slot_ids) == 0:
             return
@@ -310,19 +542,25 @@ class CausalLM:
 
     def generate(self, prompt_ids: np.ndarray, max_new_tokens: int,
                  sampler: Optional[Sampler] = None, eos_token_id: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None,
-                 lengths: Optional[np.ndarray] = None,
-                 pad_token_id: int = 0) -> GenerationResult:
+                 seed: int = 0, lengths: Optional[np.ndarray] = None,
+                 pad_token_id: int = 0, fused_chunk: int = 0) -> GenerationResult:
         """Batched generate on the contiguous slot path: prefill the prompts
-        into slots 0..b-1, then decode step by step. ``prompt_ids`` (b, s)
-        right-padded with ``pad_token_id``."""
+        into slots 0..b-1, then decode. ``prompt_ids`` (b, s) right-padded
+        with ``pad_token_id``. Row r's t-th token draws its noise from
+        ``counter_gumbel`` under ``request_seed(seed, r)``.
+
+        ``fused_chunk > 1`` decodes in ``fused_chunk``-token blocks through
+        :meth:`compile_decode_fused` (one replay and one fetch a block on
+        CUDA), with one shorter block for the tail; the tokens equal the
+        stepwise path's."""
         if self.paged:
             raise ValueError("generate() runs the contiguous-slot path; a paged CausalLM "
                              "serves through sessions (insert/step) or ServeEngine")
         sampler = sampler or Sampler(greedy=True)
         b, s = prompt_ids.shape
-        if b > self.max_batch:
-            raise ValueError(f"batch {b} exceeds max_batch {self.max_batch}")
+        mb = self.max_batch
+        if b > mb:
+            raise ValueError(f"batch {b} exceeds max_batch {mb}")
         if lengths is None:
             lengths = infer_prompt_lengths(prompt_ids, pad_token_id)
         lengths = np.maximum(np.asarray(lengths, np.int32), 1)
@@ -331,19 +569,70 @@ class CausalLM:
                              f"({max_new_tokens}) exceeds max_seq_len "
                              f"{self.config.max_seq_len}")
         session = self.start_session()
+        chunk = int(fused_chunk) if fused_chunk and fused_chunk > 1 else 0
+        fused = {}
+        if chunk:   # captured before the insert: the warm-up decodes every slot
+            tail = (max_new_tokens - 1) % chunk
+            for k in {min(chunk, max_new_tokens - 1), tail} - {0, 1}:
+                fused[k] = self.compile_decode_fused(k, sampler.top_k, sampler.top_p,
+                                                     pad_token_id)
         logits = self.insert(session, np.arange(b), prompt_ids, lengths=lengths)
+        greedy = bool(sampler.greedy or sampler.temperature == 0.0)
+        st = session.slots
+        keys = [split_key(request_seed(seed, r)) for r in range(mb)]
+        st.host_field("key_lo")[:] = [k[0] for k in keys]
+        st.host_field("key_hi")[:] = [k[1] for k in keys]
+        st.host_field("temperature")[:] = 0.0 if greedy else sampler.temperature
+        st.host_field("greedy")[:] = int(greedy)
+        st.host_field("eos")[:] = -1 if eos_token_id is None else eos_token_id
+        st.host_field("active")[:b] = 1
+        st.dirty = True
+        slot_sampler = SlotSampler(top_k=sampler.top_k, top_p=sampler.top_p)
+        f = st.dev_field
+
+        def draw(step_logits: torch.Tensor, t: int) -> np.ndarray:
+            """Row tokens of a stepwise draw: the fused body's math."""
+            n = step_logits.shape[0]
+            counts = torch.full((n,), t, dtype=torch.int32, device=self.device)
+            return draw_rows(step_logits, f("key_lo")[:n], f("key_hi")[:n], counts,
+                             f("temperature")[:n], f("greedy")[:n] != 0,
+                             slot_sampler).cpu().numpy()
+
+        st.sync()
         out = np.zeros((b, max_new_tokens), np.int64)
         gen_len = np.zeros((b,), np.int32)
         done = np.zeros((b,), bool)
-        tok = np.zeros((self.max_batch,), np.int32)
-        for t in range(max_new_tokens):
-            nxt = sampler(logits, generator).cpu().numpy()
-            out[:, t] = np.where(done, pad_token_id, nxt)
+
+        def record(tok_np: np.ndarray, t: int) -> bool:
+            nonlocal done, gen_len
+            out[:, t] = np.where(done, pad_token_id, tok_np[:b])
             gen_len = np.where(done, gen_len, gen_len + 1)
             if eos_token_id is not None:
-                done = done | (nxt == eos_token_id)
-            if done.all() or t + 1 == max_new_tokens:
-                break
-            tok[:b] = nxt
-            logits = self.step(session, tok)[:b]
+                done = done | (tok_np[:b] == eos_token_id)
+            return bool(done.all())
+
+        tok = np.zeros((mb,), np.int32)
+        tok[:b] = draw(logits, 0)
+        finished = record(tok, 0)
+        t = 1
+        while t < max_new_tokens and not finished:
+            k = min(chunk, max_new_tokens - t) if chunk else 1
+            if k > 1:
+                st.host_field("tok")[:] = tok
+                st.host_field("count")[:] = t
+                st.host_field("done")[:b] = done
+                st.dirty = True
+                toks = fused[k](session).cpu().numpy()[:k]
+                for row in toks:
+                    finished = record(row, t)
+                    t += 1
+                    if finished:
+                        break
+                tok = toks[-1].astype(np.int32)
+                continue
+            step_logits = self.step(session, tok)
+            tok = np.zeros((mb,), np.int32)
+            tok[:b] = draw(step_logits[:b], t)
+            finished = record(tok, t)
+            t += 1
         return GenerationResult(tokens=out, lengths=gen_len)

@@ -6,11 +6,15 @@ that share a prefill bucket ride one right-sized insert), advances every
 live slot ``block_steps`` tokens per scheduling round, and retires streams
 on EOS or budget at block boundaries.
 
-``fused=True`` advances a block through :meth:`CausalLM.session_decode`
-with one host fetch of the (K, slots) token matrix; ``fused=False`` runs
-the same schedule with a fetch per token. Both emit identical streams:
-request r's t-th token is a pure function of its logits and, when sampled,
-of Gumbel noise from a generator seeded by ``(seed, r, t)``.
+``fused=True`` advances a block through the captured K-step program of
+:meth:`CausalLM.compile_session_decode_fused` (built with the engine): a
+steady-state block is one replay and one fetch of the (K + 1, slots)
+result, and a block after an admission or a retirement adds one packed
+copy of the slot state to the device. ``fused=False`` runs the same
+schedule step by step with a fetch per token, the reference route. Both
+emit identical streams: request r's t-th token is a pure function of its
+logits and, when sampled, of ``counter_gumbel`` noise keyed by
+``request_seed(seed, r)`` at counter t.
 
 Still to port: load shedding (``max_queue`` and ``Rejected``), deadlines
 and EDF, chunked prefill, faults, the host tier, parking, the async loop,
@@ -30,19 +34,13 @@ import torch
 
 from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
 from neuronx_distributed_tpu_torch.inference.paged_cache import PagePoolExhausted
-from neuronx_distributed_tpu_torch.inference.sampling import Sampler, SlotSampler, gumbel_noise
-
-_MASK64 = (1 << 64) - 1
-
-
-def request_seed(seed: int, request_id: int, token_index: int) -> int:
-    """Seed of request ``request_id``'s noise for its ``token_index``-th
-    token (a splitmix64-style mix, so streams do not depend on schedule)."""
-    h = 0x9E3779B97F4A7C15
-    for v in (seed, request_id, token_index):
-        h = ((h ^ (int(v) & _MASK64)) * 0xBF58476D1CE4E5B9) & _MASK64
-        h ^= h >> 31
-    return h & ((1 << 63) - 1)
+from neuronx_distributed_tpu_torch.inference.sampling import (
+    Sampler,
+    SlotSampler,
+    draw_rows,
+    request_seed,
+    split_key,
+)
 
 
 @dataclasses.dataclass
@@ -78,7 +76,15 @@ class Completion:
 class ServeEngine:
     """Continuous-batching scheduler over one :class:`CausalLM` session.
     ``block_steps`` is the K knob: each round advances every live slot K
-    tokens."""
+    tokens. Building a fused engine captures its decode block on CUDA,
+    outside :meth:`run` (``capture_s``: the wall seconds that took, about 0
+    when the ``CausalLM`` had captured it already).
+
+    Host operations of the decode blocks, as plain counters: ``replays``
+    (fused block programs run), ``host_fetches`` (device-to-host reads) and
+    ``h2d_copies`` (slot-state copies to the device). ``nonfinite_logits``
+    counts the rows of an insert, of a stepwise step or of a fused block
+    whose logits held a non-finite value."""
 
     def __init__(self, lm: CausalLM, block_steps: int = 8, fused: bool = True,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
@@ -101,8 +107,8 @@ class ServeEngine:
         self._submit_ts: Dict[int, float] = {}
         self._finish_reason: Dict[int, str] = {}
         self.completed: List[Completion] = []
-        # host mirrors of the per-slot decode state
-        self._lengths = np.zeros((b,), np.int32)
+        # host mirrors of the per-slot decode state, packed into the
+        # session's slot state when an admission or retirement changes them
         self._active = np.zeros((b,), bool)
         self._done = np.zeros((b,), bool)
         self._eos = np.full((b,), -1, np.int32)
@@ -110,13 +116,24 @@ class ServeEngine:
         self._greedy = np.ones((b,), bool)
         self._tok = np.zeros((b,), np.int32)
         self._gen_counts = np.zeros((b,), np.int32)
+        self._keys = np.zeros((b, 2), np.int32)
+        self._changed = True
         self._next_id = 0
         self.blocks = 0
         # plain counters, read as attributes
         self.decode_blocks = 0
         self.inserts = 0
+        self.replays = 0
         self.host_fetches = 0
+        self.h2d_copies = 0
+        self.nonfinite_logits = 0
         self.deferred_admissions = 0
+        self._fused = None
+        t0 = time.perf_counter()
+        if self.fused:
+            self._fused = lm.compile_session_decode_fused(self.block_steps, self.slot_sampler,
+                                                          self.pad_token_id)
+        self.capture_s = time.perf_counter() - t0
 
     # --- submission ------------------------------------------------------
 
@@ -169,20 +186,21 @@ class ServeEngine:
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is None]
 
-    def _noise(self, rids, counts, greedy) -> Optional[torch.Tensor]:
-        """(rows, vocab) Gumbel noise for the rows that sample (zeros for
-        greedy rows), or None when every row is greedy."""
-        if all(greedy):
-            return None
+    def _draw(self, logits: torch.Tensor, keys: np.ndarray, counts, temps: np.ndarray,
+              greedy: np.ndarray) -> torch.Tensor:
+        """Rows' tokens under their keys at their token counters, then one
+        flag a row (1 where its logits are all finite), as one int32 tensor
+        ``(2 * rows,)`` on the device: the fused block's sampling math."""
         dev = self.lm.device
-        rows = []
-        for rid, t, g in zip(rids, counts, greedy):
-            if g or rid < 0:
-                rows.append(torch.zeros((self.lm.config.vocab_size,), device=dev))
-                continue
-            gen = torch.Generator(device=dev).manual_seed(request_seed(self.seed, rid, t))
-            rows.append(gumbel_noise((self.lm.config.vocab_size,), gen, dev))
-        return torch.stack(rows)
+        as_dev = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
+        tok = draw_rows(logits, as_dev(keys[:, 0], torch.int32), as_dev(keys[:, 1], torch.int32),
+                        as_dev(counts, torch.int32), as_dev(temps, torch.float32),
+                        as_dev(greedy, torch.bool), self.slot_sampler)
+        return torch.cat([tok, torch.isfinite(logits).all(-1).to(torch.int32)])
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        self.host_fetches += 1
+        return t.cpu().numpy()
 
     def _admit(self) -> None:
         """Admit arrived requests into free slots, FIFO: the head request's
@@ -229,20 +247,22 @@ class ServeEngine:
                                 lengths=lens, pad_token_id=self.pad_token_id,
                                 reserve_tokens=reserve if self.paged else None)
         self.inserts += 1
-        dev = self.lm.device
         temps = np.asarray([r.temperature for r in group], np.float32)
         greedy = np.asarray([r.greedy for r in group], bool)
-        noise = self._noise([r.request_id for r in group], [0] * rows, greedy)
-        first = self.slot_sampler(logits, torch.as_tensor(temps, device=dev),
-                                  torch.as_tensor(greedy, device=dev), noise)
-        first = first.cpu().numpy()
+        keys = np.asarray([split_key(request_seed(self.seed, r.request_id)) for r in group],
+                          np.int32)
+        drawn = self._draw(logits, keys, np.zeros((rows,), np.int32), temps, greedy)
+        drawn = drawn.cpu().numpy()
+        first = drawn[:rows]
+        self.nonfinite_logits += int((drawn[rows:] == 0).sum())
         now = time.perf_counter()
+        self._changed = True
         for i, (r, slot) in enumerate(zip(group, slot_ids)):
             r.start_block = r.first_token_block = self.blocks
             self.slots[slot] = r
             self._out[r.request_id] = []
             self._out_ts[r.request_id] = []
-            self._lengths[slot] = lens[i]
+            self._keys[slot] = keys[i]
             self._active[slot] = True
             self._done[slot] = False
             self._eos[slot] = -1 if r.eos_token_id is None else r.eos_token_id
@@ -272,6 +292,7 @@ class ServeEngine:
         if not finished:
             return
         self.lm.retire(self.session, np.asarray(finished, np.int32))
+        self._changed = True
         for slot in finished:
             req = self.slots[slot]
             rid = req.request_id
@@ -309,47 +330,59 @@ class ServeEngine:
             for slot, req in enumerate(self.slots):
                 if req is not None and not self._done[slot]:
                     self._record(slot, int(toks[i, slot]), now)
-            self._lengths += 1
             self._gen_counts += 1
         self._tok = toks[-1].astype(np.int32)
         self.blocks += 1
         self._retire_finished()
         return True
 
-    def _step_noise(self, step: int) -> Optional[torch.Tensor]:
-        rids = [-1 if (r is None or not self._active[s]) else r.request_id
-                for s, r in enumerate(self.slots)]
-        return self._noise(rids, self._gen_counts + step, self._greedy | (np.asarray(rids) < 0))
+    def _stage(self) -> None:
+        """Pack the host mirrors into the session's slot state (copied to
+        the device by the next sync): the rows an admission or retirement
+        changed, and the rest as the device already holds them."""
+        st = self.session.slots
+        st.host_field("tok")[:] = self._tok
+        st.host_field("key_lo")[:] = self._keys[:, 0]
+        st.host_field("key_hi")[:] = self._keys[:, 1]
+        st.host_field("count")[:] = self._gen_counts
+        st.host_field("active")[:] = self._active
+        st.host_field("done")[:] = self._done
+        st.host_field("eos")[:] = self._eos
+        st.host_field("greedy")[:] = self._greedy
+        st.host_field("temperature")[:] = self._temp
+        st.dirty = True
 
     def _advance_block(self) -> np.ndarray:
         """Advance the pool ``block_steps`` tokens; returns the emitted
         (K, max_batch) token matrix."""
-        dev = self.lm.device
-        as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-        active, eos = as_dev(self._active), as_dev(self._eos)
-        temp, greedy = as_dev(self._temp), as_dev(self._greedy)
+        if self._changed:
+            self._stage()
+            self._changed = False
+        self.h2d_copies += self.session.slots.sync()
+        K = self.block_steps
         if self.fused:
-            toks, _, _ = self.lm.session_decode(
-                self.session, self.block_steps, as_dev(self._tok[:, None]), active,
-                as_dev(self._done), eos, temp, greedy, self.slot_sampler,
-                self._step_noise, self.pad_token_id)
-            self.host_fetches += 1
-            return toks.cpu().numpy()
-        out = np.zeros((self.block_steps, self.lm.max_batch), np.int64)
+            out = self._fused(self.session)
+            self.replays += 1
+            got = self._fetch(out)
+            self.nonfinite_logits += int((got[K] == 0).sum())
+            return got[:K].astype(np.int64)
+        dev = self.lm.device
+        out = np.zeros((K, self.lm.max_batch), np.int64)
         done = self._done.copy()
         tok = self._tok.copy()
-        lengths = self._lengths.copy()
         max_len = self.lm.config.max_seq_len
-        for i in range(self.block_steps):
+        b = self.lm.max_batch
+        for i in range(K):
             # the direct decode step, not lm.step(): step() raises at the
-            # cache edge where the fused loop latches done and runs on
-            logits = self.lm._decode_step(self.session, as_dev(tok[:, None]).to(torch.int32))
-            nxt = self.slot_sampler(logits, temp, greedy, self._step_noise(i)).cpu().numpy()
-            self.host_fetches += 1
+            # cache edge where the fused block latches done and runs on
+            logits = self.lm._decode_step(self.session, torch.as_tensor(tok[:, None], device=dev))
+            got = self._fetch(self._draw(logits, self._keys, self._gen_counts + i, self._temp,
+                                         self._greedy))
+            nxt = got[:b]
+            self.nonfinite_logits += int((got[b:] == 0).sum())
             out[i] = np.where(done | ~self._active, self.pad_token_id, nxt)
             done = done | (self._active & (self._eos >= 0) & (nxt == self._eos))
-            lengths = lengths + 1
-            done = done | (self._active & (lengths + 1 >= max_len))
+            done = done | (self._active & (self.session.lengths + 1 >= max_len))
             tok = nxt.astype(np.int32)
         return out
 

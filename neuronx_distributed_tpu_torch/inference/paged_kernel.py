@@ -149,12 +149,13 @@ def _paged_decode_kernel(q, k_pages, v_pages, block_table, cache_len, k_scale,
             raise ValueError(f"paged kernel needs a contiguous {name}")
     b, _, n_q, hd = q.shape
     _, ps, n_kv, _ = k_pages.shape
-    # a pool row is read 16 bytes a lane, hd * itemsize / 16 lanes: a power
-    # of two up to a warp's 32
+    # a pool row is read 16 bytes a lane, hd * itemsize / 16 lanes, up to a
+    # warp's 32 (a row's lane group is the next power of two; spare lanes
+    # hold zeros)
     lanes, rest = divmod(hd * k_pages.element_size(), 16)
-    if rest or lanes > 32 or lanes & (lanes - 1):
+    if rest or lanes > 32:
         raise ValueError(f"paged kernel reads pool rows 16 bytes a lane: head_dim {hd} of "
-                         f"{k_pages.dtype} must span a power of two of up to 32 lanes")
+                         f"{k_pages.dtype} must span whole 16-byte lanes, at most 32")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"paged kernel needs {name} to start 16-byte aligned")

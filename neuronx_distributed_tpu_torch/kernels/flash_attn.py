@@ -16,6 +16,12 @@ TPU kernel's tiling and roundings):
   (recompute backward under a caller-supplied LSE and ``delta``), both
   behind :func:`flash_block_grads`.
 
+The kernels are built for head_dim 64 and 128; any other head_dim up to
+128 runs them zero-padded to the next of those widths (:func:`at_kernel_width`):
+zero columns change no q·kᵀ, no LSE, no delta and none of the first d
+columns of an output, and the softmax scale stays the caller's (by default
+1/√d of the unpadded d).
+
 :func:`flash_attention` is differentiable through ``_FlashAttention`` on
 every device, the counterpart of JAX's custom VJP. LSE and ``delta`` are
 ``(b*h, sq)`` fp32; the TPU's 128-lane padding is not carried over.
@@ -143,9 +149,32 @@ def flash_block_forward_plain(q, k, v, qpos, kpos, sm_scale, block_q, block_k,
     return out, m + torch.log(l_safe)
 
 
+def kernel_head_dim(d: int) -> int:
+    """The kernel width a head_dim runs at: the least built width >= d."""
+    for w in _KERNEL_HEAD_DIMS:
+        if d <= w:
+            return w
+    raise ValueError(f"flash kernels take head_dim up to {_KERNEL_HEAD_DIMS[-1]}, got {d}")
+
+
+def at_kernel_width(fn, d: int, padded, *rest, keep=()):
+    """``fn(*padded', *rest)`` with each tensor of ``padded`` zero-padded on
+    its last axis from ``d`` to :func:`kernel_head_dim` ``(d)``, and each
+    output (one, or a tuple whose indices in ``keep`` are left as they are)
+    cut back to ``d`` columns. The caller passes ``sm_scale`` in ``rest``,
+    taken from the unpadded d."""
+    w = kernel_head_dim(d)
+    if w == d:
+        return fn(*padded, *rest)
+    out = fn(*(torch.nn.functional.pad(t, (0, w - d)) for t in padded), *rest)
+    if not isinstance(out, tuple):
+        return out[..., :d].contiguous()
+    return tuple(t if i in keep else t[..., :d].contiguous() for i, t in enumerate(out))
+
+
 def _kernel_check(q, **operands):
-    """What the CUDA kernels take: fp32 or bf16, head_dim 64 or 128, every
-    operand contiguous."""
+    """What the CUDA kernels take: fp32 or bf16, head_dim at a built width
+    (64 or 128), every operand contiguous."""
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"flash kernel takes fp32 or bf16, got {q.dtype}")
     if q.shape[-1] not in _KERNEL_HEAD_DIMS:
@@ -156,6 +185,11 @@ def _kernel_check(q, **operands):
 
 
 def _flash_fwd_kernel(q, k, v, qpos, kpos, sm_scale, group, num_q_heads):
+    return at_kernel_width(_flash_fwd_launch, q.shape[-1], (q, k, v), qpos, kpos, sm_scale,
+                           group, num_q_heads, keep=(1,))   # the LSE has no head_dim
+
+
+def _flash_fwd_launch(q, k, v, qpos, kpos, sm_scale, group, num_q_heads):
     from neuronx_distributed_tpu_torch.kernels import _build
 
     _kernel_check(q, k=k, v=v, qpos=qpos, kpos=kpos)
@@ -292,6 +326,13 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block
     if not on_cuda(q, k, v, do, lse, delta, qpos, kpos):
         return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q,
                                     block_k, group, num_q_heads)
+    out = at_kernel_width(_flash_bwd_dkdv_launch, q.shape[-1], (q, k, v, do), lse, delta,
+                          qpos, kpos, sm_scale, group, num_q_heads)
+    flash_bwd_dkdv.launches += 1
+    return out
+
+
+def _flash_bwd_dkdv_launch(q, k, v, do, lse, delta, qpos, kpos, sm_scale, group, num_q_heads):
     from neuronx_distributed_tpu_torch.kernels import _build
 
     _kernel_check(q, k=k, v=v, do=do, lse=lse, delta=delta, qpos=qpos, kpos=kpos)
@@ -299,7 +340,6 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block
     _build.call("flash_bwd_dkdv", *map(_build.ptr, (q, k, v, do, lse, delta, qpos, kpos, dk, dv)),
                 k.shape[0], q.shape[1], k.shape[1], q.shape[2], group, num_q_heads,
                 float(sm_scale), _KERNEL_DTYPES[q.dtype], _build.stream_of(q.device))
-    flash_bwd_dkdv.launches += 1
     return dk, dv
 
 
@@ -315,6 +355,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k
     if not on_cuda(q, k, v, do, lse, delta, qpos, kpos):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q,
                                   block_k, group, num_q_heads)
+    dq = at_kernel_width(_flash_bwd_dq_launch, q.shape[-1], (q, k, v, do), lse, delta, qpos,
+                         kpos, sm_scale, group, num_q_heads)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def _flash_bwd_dq_launch(q, k, v, do, lse, delta, qpos, kpos, sm_scale, group, num_q_heads):
     from neuronx_distributed_tpu_torch.kernels import _build
 
     _kernel_check(q, k=k, v=v, do=do, lse=lse, delta=delta, qpos=qpos, kpos=kpos)
@@ -322,7 +369,6 @@ def flash_bwd_dq(q, k, v, do, lse, delta, qpos, kpos, sm_scale, block_q, block_k
     _build.call("flash_bwd_dq", *map(_build.ptr, (q, k, v, do, lse, delta, qpos, kpos, dq)),
                 q.shape[0], q.shape[1], k.shape[1], q.shape[2], group, num_q_heads,
                 float(sm_scale), _KERNEL_DTYPES[q.dtype], _build.stream_of(q.device))
-    flash_bwd_dq.launches += 1
     return dq
 
 

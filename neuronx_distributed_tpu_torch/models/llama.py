@@ -8,16 +8,19 @@ names mirror the flax tree (``model.layers.{i}.attention.qkv.q_kernel``,
 
 Decode mode (``config.decode``) keeps its KV state in a :class:`KVCache`
 that the forward updates in place: a contiguous ``(b, max_seq_len, n_kv,
-hd)`` slab per layer, or a page pool ``(pages, page_size, n_kv, hd)`` per
-layer resolved through per-slot block tables. Prefill widths of 128 and up
+hd)`` slab per layer, or a page pool ``(pages + 1, page_size, n_kv, hd)``
+per layer resolved through per-slot block tables (fp pages, or int8 pages
+with per-(page, kv head) fp32 scales when ``page_dtype="int8"``). The
+decode step reads no device value on the host and rebinds no tensor, so a
+run of steps can be captured in a CUDA graph. Prefill widths of 128 and up
 take the flash kernel under the same gate as the JAX package; single-token
 paged steps take the paged decode kernel when ``paged_attn_kernel`` is set.
 
 Training: :meth:`LlamaForCausalLM.loss` (whole-sequence or chunked head and
 cross-entropy), ``remat_policy="full"`` as ``torch.utils.checkpoint`` around
 each decoder layer (only while autograd records, never in decode mode), and
-``qkv_clip``. Out of scope in this slice: int8 page writes, Medusa chunk
-masks, LoRA, context parallelism and the ``"attention"`` remat policy.
+``qkv_clip``. Out of scope in this slice: Medusa chunk masks, LoRA,
+context parallelism and the ``"attention"`` remat policy.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from neuronx_distributed_tpu_torch.inference.paged_kernel import (
+    dequantize_kv_pages,
     paged_decode_attention,
     paged_kernel_supported,
+    quantize_kv_pages,
 )
 from neuronx_distributed_tpu_torch.kernels.flash_attn import (
     default_attention_blocks,
@@ -93,6 +98,9 @@ class LlamaConfig:
     # tokens per layer; page_size must divide max_seq_len
     page_size: Optional[int] = None
     page_pool_pages: Optional[int] = None
+    # page storage: None (the compute dtype) or "int8" (absmax per page and
+    # kv head, requantized over the pages a write touches)
+    page_dtype: Optional[str] = None
     paged_attn_kernel: bool = False
 
     @property
@@ -192,9 +200,9 @@ def cached_attention(q, k_cache, v_cache, cache_len, sm_scale=None, mask=None):
     (b, S, n_kv, d); key j visible to query i iff ``j <= cache_len + i``."""
     b, s_new, n, d = q.shape
     n_kv = k_cache.shape[2]
-    if n != n_kv:
-        k_cache = k_cache.repeat_interleave(n // n_kv, dim=2)
-        v_cache = v_cache.repeat_interleave(n // n_kv, dim=2)
+    if n != n_kv:   # kv head j serves query heads j*g .. j*g+g-1 (repeat_interleave)
+        k_cache, v_cache = (t.unsqueeze(3).expand(*t.shape[:3], n // n_kv, d).reshape(
+            *t.shape[:2], n, d) for t in (k_cache, v_cache))
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
     s_max = k_cache.shape[1]
@@ -217,24 +225,74 @@ class KVCache:
     """Decode-mode KV state, updated in place by the forward.
 
     ``keys``/``values``: one tensor per layer — the slab ``(b, max_seq_len,
-    n_kv, hd)`` or the page pool ``(pages, page_size, n_kv, hd)``.
+    n_kv, hd)`` or the page pool ``(pages + 1, page_size, n_kv, hd)``, whose
+    last page is the sink of dropped writes (no block table names it).
     ``cache_index``: (b,) int32 tokens written per row (the write position
-    of the next token). ``block_table``: (b, max_seq_len / page_size) int32
-    logical -> physical pages (paged mode only)."""
+    of the next token), advanced in place. ``block_table``: (b, max_seq_len
+    / page_size) int32 logical -> physical pages (paged mode only).
+    ``k_scales``/``v_scales``: per layer ``(pages + 1, 1, n_kv, 1)`` fp32
+    page scales of int8 pools (None otherwise)."""
 
     keys: List[torch.Tensor]
     values: List[torch.Tensor]
     cache_index: torch.Tensor
     block_table: Optional[torch.Tensor] = None
-    # host-side upper bound of cache_index when the caller knows it (None =
-    # unknown): a write that cannot reach max_seq_len skips the drop mask
-    max_index: Optional[int] = None
+    k_scales: Optional[List[torch.Tensor]] = None
+    v_scales: Optional[List[torch.Tensor]] = None
 
-    def rows(self, cache_index: torch.Tensor, block_table: Optional[torch.Tensor] = None,
-             max_index: Optional[int] = None) -> "KVCache":
+    def rows(self, cache_index: torch.Tensor,
+             block_table: Optional[torch.Tensor] = None) -> "KVCache":
         """A row view sharing this cache's pools (paged inserts write the
         pools in place through their own block tables)."""
-        return KVCache(self.keys, self.values, cache_index, block_table, max_index)
+        return KVCache(self.keys, self.values, cache_index, block_table, self.k_scales,
+                       self.v_scales)
+
+
+def _write_pages(pool: torch.Tensor, new: torch.Tensor, phys: torch.Tensor,
+                 slots: torch.Tensor, keep: torch.Tensor) -> None:
+    """fp pages: scatter ``new`` (b, s_new, n_kv, hd) at logical ``slots``
+    through physical pages ``phys`` (b, s_new); dropped writes (``keep``
+    False) land in the sink page."""
+    npages, ps = pool.shape[:2]
+    sink = (npages - 1) * ps + slots % ps
+    flat = torch.where(keep, phys * ps + slots % ps, sink)
+    pool.view(npages * ps, *pool.shape[2:])[flat] = new.to(pool.dtype)
+
+
+def _write_int8_window(pool: torch.Tensor, scale: torch.Tensor, new: torch.Tensor,
+                       table: torch.Tensor, idx: torch.Tensor, slots: torch.Tensor,
+                       keep: torch.Tensor, max_seq_len: int) -> None:
+    """int8 pages: dequantize the W pages a step of ``s_new`` tokens can
+    touch (the narrowest logical span covering ``idx .. idx + s_new - 1`` at
+    any alignment), write ``new``, zero the positions at or above the row's
+    new length (stale bytes would inflate the absmax), requantize per (page,
+    kv head), and write back only the pages the step touched. An untouched
+    window entry may name another row's live page (a clamped or unowned
+    table entry): its write goes to the sink page instead."""
+    b, s_new, n_kv, hd = new.shape
+    npages, ps = pool.shape[:2]
+    ppseq = table.shape[1]
+    sink = npages - 1
+    W = (s_new + ps - 1) // ps + 1
+    first = torch.div(idx, ps, rounding_mode="floor").long()                 # (b,)
+    lpage = first[:, None] + torch.arange(W, device=idx.device)[None, :]     # (b, W)
+    phys_w = torch.gather(table, 1, lpage.clamp(0, ppseq - 1)).long()        # (b, W)
+    win = dequantize_kv_pages(pool[phys_w], scale[phys_w]).reshape(b, W * ps, n_kv, hd)
+    # window-relative slots; dropped writes go to one spare column
+    rel = torch.where(keep, slots - first[:, None] * ps, W * ps).long()
+    win = torch.cat([win, win.new_zeros((b, 1, n_kv, hd))], dim=1)
+    rows = torch.arange(b, device=idx.device)[:, None].expand(b, s_new)
+    win[rows, rel] = new.float()
+    wpos = first[:, None] * ps + torch.arange(W * ps, device=idx.device)[None, :]
+    live = (wpos < (idx.long() + s_new)[:, None])[..., None, None]
+    win = torch.where(live, win[:, : W * ps], 0.0).reshape(b, W, ps, n_kv, hd)
+    q, sc = quantize_kv_pages(win)                   # (b, W, ps, n_kv, hd), (b, W, 1, n_kv, 1)
+    last = torch.div(torch.clamp_max(idx.long() + s_new - 1, max_seq_len - 1), ps,
+                     rounding_mode="floor")
+    touched = (lpage <= last[:, None]) & (lpage < ppseq)
+    dest = torch.where(touched, phys_w, sink)
+    pool[dest] = q
+    scale[dest] = sc
 
 
 class LlamaAttention(nn.Module):
@@ -276,43 +334,50 @@ class LlamaAttention(nn.Module):
         cos, sin = rotary_embedding(positions, hd, cfg.rope_theta, dtype=q.dtype,
                                     scaling=cfg.rope_scaling)
         q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
-        # writes at slots >= max_seq_len are dropped (the overflow latch
-        # freezes a row instead of letting its writes wrap). The drop mask
-        # costs a device sync, so it runs only when the host-side bound
-        # says a write could reach the end.
-        keep = None
-        if cache.max_index is None or cache.max_index + s_new > cfg.max_seq_len:
-            keep = slots < cfg.max_seq_len
+        # writes at slots >= max_seq_len are dropped (JAX's mode="drop": the
+        # overflow latch freezes a row instead of letting its writes wrap),
+        # by redirection rather than boolean indexing, so no step waits for
+        # the device
+        keep = slots < cfg.max_seq_len
         if ps:
             table = cache.block_table
             ppseq = cfg.max_seq_len // ps
-            page_of = torch.clamp(slots // ps, 0, ppseq - 1).long()
-            flat = torch.gather(table, 1, page_of).long() * ps + (slots % ps)  # (b, s_new)
-            npages = ck.shape[0]
-            kf, vf = ck.view(npages * ps, n_kv, hd), cv.view(npages * ps, n_kv, hd)
-            if keep is None:
-                kf[flat], vf[flat] = k.to(kf.dtype), v.to(vf.dtype)
+            ks = vs = None
+            if cache.k_scales is not None:
+                ks, vs = cache.k_scales[layer], cache.v_scales[layer]
+                for pool, scale, new in ((ck, ks, k), (cv, vs, v)):
+                    _write_int8_window(pool, scale, new, table, idx, slots, keep,
+                                       cfg.max_seq_len)
             else:
-                kf[flat[keep]], vf[flat[keep]] = k[keep].to(kf.dtype), v[keep].to(vf.dtype)
+                page_of = torch.clamp(slots // ps, 0, ppseq - 1).long()
+                phys = torch.gather(table, 1, page_of).long()      # (b, s_new)
+                _write_pages(ck, k, phys, slots, keep)
+                _write_pages(cv, v, phys, slots, keep)
             if cfg.paged_attn_kernel and paged_kernel_supported(s_new, ps, q.shape[2], n_kv):
                 # attend straight off the post-write pool: no logical slab
-                o = paged_decode_attention(q.contiguous(), ck, cv, table, idx)
+                o = paged_decode_attention(q.contiguous(), ck, cv, table, idx, k_scale=ks,
+                                           v_scale=vs)
                 return self.o_proj(o.reshape(b, s_new, -1))
             # gather the (b, max_seq_len) logical view; stale bytes in reused
             # pages sit behind the position mask like the slab's zeros
+            npages = ck.shape[0]
             lpos = torch.arange(cfg.max_seq_len, device=x.device)
             pg = table[:, lpos // ps].long()
             all_flat = pg * ps + (lpos % ps)[None, :]
             k_all = ck.view(npages * ps, n_kv, hd)[all_flat]
             v_all = cv.view(npages * ps, n_kv, hd)[all_flat]
+            if ks is not None:   # each slot dequantized with its page's scale
+                k_all = dequantize_kv_pages(k_all, ks.view(npages, n_kv)[pg][..., None], q.dtype)
+                v_all = dequantize_kv_pages(v_all, vs.view(npages, n_kv)[pg][..., None], q.dtype)
         else:
             rows = torch.arange(b, device=x.device)[:, None].expand(b, s_new)
-            cols = slots.long()
-            if keep is None:
-                ck[rows, cols], cv[rows, cols] = k.to(ck.dtype), v.to(cv.dtype)
-            else:
-                ck[rows[keep], cols[keep]] = k[keep].to(ck.dtype)
-                cv[rows[keep], cols[keep]] = v[keep].to(cv.dtype)
+            # a dropped write rewrites column idx - 1 with its own value: no
+            # kept write of this step lands there
+            cols = torch.where(keep, slots, torch.clamp(idx - 1, 0, cfg.max_seq_len - 1)[:, None])
+            cols = cols.long()
+            for pool, new in ((ck, k), (cv, v)):
+                pool[rows, cols] = torch.where(keep[..., None, None], new.to(pool.dtype),
+                                               pool[rows, cols])
             k_all, v_all = ck, cv
         # block_k tiles the cache sweep (max_seq_len), not the query chunk
         cfg_blk_q, cfg_blk_k = cfg.blocks_for(s_new, cfg.max_seq_len)
@@ -406,10 +471,8 @@ class LlamaModel(nn.Module):
                 x = checkpoint(layer, x, rope, cache, i, use_reentrant=False)
             else:
                 x = layer(x, rope, cache, i)
-        if cfg.decode:
-            cache.cache_index = cache.cache_index + input_ids.shape[1]
-            if cache.max_index is not None:
-                cache.max_index += input_ids.shape[1]
+        if cfg.decode:   # in place: a captured step keeps reading this buffer
+            cache.cache_index.add_(input_ids.shape[1])
         return self.final_norm(x)
 
 
@@ -459,21 +522,43 @@ class LlamaForCausalLM(nn.Module):
             total, count = total + sl, count + cn
         return total / torch.clamp(count, min=1.0)
 
-    def new_cache(self, batch: int, device=None) -> KVCache:
-        """Zeroed decode cache at ``batch`` rows (block tables all 0)."""
+    def new_cache(self, batch: int, device=None, cache_index: Optional[torch.Tensor] = None,
+                  block_table: Optional[torch.Tensor] = None) -> KVCache:
+        """Zeroed decode cache at ``batch`` rows (block tables all 0). Paged
+        pools hold ``page_pool_pages`` pages plus the sink page; int8 pools
+        carry zero scales (unwritten pages dequantize to zeros).
+        ``cache_index`` and ``block_table``, when given, are the (zeroed)
+        buffers to use for those fields."""
         cfg = self.config
         hd, n_kv = cfg.head_dim_, cfg.num_kv_heads
+        if cache_index is None:
+            cache_index = torch.zeros((batch,), dtype=torch.int32, device=device)
+        scales = None
         if cfg.page_size:
-            shape = (cfg.page_pool_pages, cfg.page_size, n_kv, hd)
-            table = torch.zeros((batch, cfg.max_seq_len // cfg.page_size), dtype=torch.int32,
-                                device=device)
+            pages = cfg.page_pool_pages + 1
+            shape = (pages, cfg.page_size, n_kv, hd)
+            if block_table is None:
+                block_table = torch.zeros((batch, cfg.max_seq_len // cfg.page_size),
+                                          dtype=torch.int32, device=device)
+            dtype = page_storage_dtype(cfg)
+            if dtype == torch.int8:
+                scales = [[torch.zeros((pages, 1, n_kv, 1), dtype=torch.float32, device=device)
+                           for _ in range(cfg.num_layers)] for _ in range(2)]
         else:
-            shape, table = (batch, cfg.max_seq_len, n_kv, hd), None
-        z = lambda: torch.zeros(shape, dtype=cfg.dtype, device=device)  # noqa: E731
+            shape, block_table, dtype = (batch, cfg.max_seq_len, n_kv, hd), None, cfg.dtype
+        z = lambda: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
         return KVCache(keys=[z() for _ in range(cfg.num_layers)],
                        values=[z() for _ in range(cfg.num_layers)],
-                       cache_index=torch.zeros((batch,), dtype=torch.int32, device=device),
-                       block_table=table)
+                       cache_index=cache_index, block_table=block_table,
+                       k_scales=scales and scales[0], v_scales=scales and scales[1])
+
+
+def page_storage_dtype(config: LlamaConfig) -> torch.dtype:
+    """The dtype of the paged KV pools: ``page_dtype`` or the compute dtype."""
+    named = {None: config.dtype, "int8": torch.int8}
+    if config.page_dtype not in named:
+        raise ValueError(f"page_dtype must be None or 'int8', got {config.page_dtype!r}")
+    return named[config.page_dtype]
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator,

@@ -9,8 +9,9 @@ unpacked with ``git archive``). The script imports ``chip_smoke`` and the
 port from ``TREE``, builds its kernels, runs ``chip_smoke.serve`` (Llama-3-8B
 full width, 8 requests) and ``chip_smoke.train`` (Llama-3-8B widths at 4
 layers, 2 x 4096 tokens, 2 warm-up and 5 timed steps), and prints one line
-``AB {json}``: serve tokens/s and TTFT, step ms and training tokens/s, the
-losses and the peak memory. Run it once per checkout in turns (A, B, B, A)
+``AB {json}``: serve tokens/s, wall and TTFT (and, where the tree has
+them, host operations a decode block and the capture seconds), step ms and
+training tokens/s, the losses and the peak memory. Run it once per checkout in turns (A, B, B, A)
 on one machine: two machines may carry cards that differ.
 """
 
@@ -47,6 +48,8 @@ def main(tree: str) -> None:
     print("AB", json.dumps(dict(
         tree=root, card=cs.card_line(), serve_tok_s=serve["tokens_per_s"],
         ttft_p50_ms=serve["ttft_s_p50"] * 1e3, ttft_max_ms=serve["ttft_s_max"] * 1e3,
+        serve_wall_s=serve["wall_s"], host_ops_per_block=serve.get("host_ops_per_block"),
+        capture_s=serve.get("capture_s"),
         step_ms=train["step_ms_mean"], steps=train["step_ms"],
         train_tok_s=train["tokens_per_s"], losses=train["losses"], peak=train["peak_bytes"])),
         flush=True)

@@ -31,11 +31,14 @@ import numpy as np
 import pytest
 import torch
 
+from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
 from neuronx_distributed_tpu_torch.inference.paged_kernel import (
     paged_decode_attention,
     paged_decode_attention_plain,
     quantize_kv_pages,
 )
+from neuronx_distributed_tpu_torch.inference.sampling import Sampler
 from neuronx_distributed_tpu_torch.kernels.flash_attn import (
     INVALID_POS,
     flash_block_forward,
@@ -168,8 +171,12 @@ def test_paged_kernel_matches_twin(cuda, pool, dtype, group, ps):
     """B2 split across CTAs, against its twin: GQA groups 1, 4 and 8, a page
     size that does not divide the 128-key split (48), empty (cache_len 0)
     and full tables."""
+    _check_paged(cuda, pool, dtype, group, ps, 128)
+
+
+def _check_paged(cuda, pool, dtype, group, ps, hd):
     g = torch.Generator(device="cpu").manual_seed(1)
-    b, n_kv, hd, ppseq = 3, 2, 128, 8 if ps == 48 else 24
+    b, n_kv, ppseq = 3, 2, 8 if ps == 48 else 24
     n_q, pages = n_kv * group, b * ppseq + 4
     q = torch.randn((b, 1, n_q, hd), generator=g).to(cuda, dtype)
     kf = torch.randn((pages, ps, n_kv, hd), generator=g)   # stale bytes everywhere
@@ -379,3 +386,81 @@ def test_llama_loss_backward_reaches_qkv_on_cuda(cuda):
         got = grads[str(cuda)][n]
         assert float(got.abs().max()) > 0.0, n
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=n)
+
+
+@pytest.mark.parametrize("d", [80, 96])
+def test_kernels_at_head_dims_the_build_lacks(cuda, d):
+    """Head dims other than the built 64 and 128: B1 and B3 run zero-padded
+    to 128 by their wrappers (sm_scale from the unpadded d), B2 reads a
+    bf16 row with 10 or 12 lanes of a 16-lane group (int8 5 or 6 of 8,
+    fp32 20 or 24 of 32). Each against its twin by the rules above."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, qp, kp = _flash_case(cuda, dtype, 2, 4, 2, 128, 256, d)
+        args = (q, k, v, qp, kp, d ** -0.5, 64, 64, 2, 4)
+        out, lse = flash_block_forward(*args)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape
+        ref_out, ref_lse = flash_block_forward_plain(*args)
+        exact = smoke.fwd_exact(*args)[0] if dtype == torch.bfloat16 else None
+        _assert_held(out, ref_out, "out", FWD_FLOOR, exact=exact)
+        np.testing.assert_allclose(lse.cpu(), ref_lse.cpu(), atol=1e-4, rtol=1e-5)
+        bargs = _backward_case(cuda, dtype, 2, 4, 2, 128, 256, d, "causal")
+        got = flash_block_grads(*bargs)
+        torch.cuda.synchronize()
+        for name, g_, w_ in zip(("dq", "dk", "dv"), got, flash_block_grads_plain(*bargs)):
+            assert g_.shape == w_.shape
+            _assert_held(g_, w_, name, BWD_FLOOR)
+        for pool in ("fp32", "bf16", "int8"):
+            _check_paged(cuda, pool, dtype, 4, 16, d)
+
+
+@pytest.mark.parametrize("head_dim,page_dtype", [(128, None), (96, "int8")])
+def test_captured_decode_block_equals_the_eager_steps(cuda, head_dim, page_dtype):
+    """A ServeEngine captures its decode block when it is built: the
+    capture raises nothing (a host sync in the body would fail it), every
+    block is one replay, and the streams equal the per-token route's bit
+    for bit, greedy and sampled rows mixed. A ``head_dim=96`` model with
+    int8 pages serves on the card."""
+    cfg = tl.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=4, num_kv_heads=2, head_dim=head_dim, max_seq_len=256,
+                         dtype=torch.float32)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0))
+    lm = CausalLM(cfg, params, tl.LlamaForCausalLM, buckets=(128,), max_batch=4,
+                  page_size=16, paged_attn_kernel=True, page_dtype=page_dtype, device=cuda)
+    runs = {}
+    for fused in (True, False):
+        engine = ServeEngine(lm, block_steps=4, fused=fused, seed=2)
+        rng = np.random.default_rng(3)
+        for i, (n, budget) in enumerate(((90, 20), (40, 13), (120, 9), (64, 17), (30, 6))):
+            engine.submit(rng.integers(1, 255, n), budget, arrival_block=i // 2,
+                          sampler=Sampler(temperature=0.9) if i % 2 else None)
+        before = paged_decode_attention.launches
+        runs[fused] = {c.request_id: c.tokens.tolist() for c in engine.run()}
+        assert paged_decode_attention.launches - before == (
+            engine.decode_blocks * 4 * cfg.num_layers)
+        assert engine.nonfinite_logits == 0
+        if fused:
+            assert engine.replays == engine.decode_blocks > 0
+            assert set(lm.capture_ms) == {"session_fused_k4"}
+    assert runs[True] == runs[False]
+
+
+def test_generate_fused_chunk_on_cuda_equals_stepwise(cuda):
+    """``generate(fused_chunk=4)`` on the contiguous slab (the dense decode
+    attention inside the graph): 11 new tokens as 1 + 4 + 4 + a 2-token
+    tail program, the same tokens as the stepwise route on the card, and
+    greedy tokens equal to the CPU's."""
+    cfg = tl.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=4, num_kv_heads=2, max_seq_len=128, dtype=torch.float32)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(1))
+    prompts = np.random.default_rng(4).integers(1, 255, (3, 16)).astype(np.int32)
+    lms = {d: CausalLM(cfg, params, tl.LlamaForCausalLM, buckets=(16,), max_batch=4, device=d)
+           for d in (cuda, "cpu")}
+    for sampler in (None, Sampler(temperature=1.0, top_k=40)):
+        fused = lms[cuda].generate(prompts, 11, sampler=sampler, seed=3, fused_chunk=4)
+        step = lms[cuda].generate(prompts, 11, sampler=sampler, seed=3)
+        np.testing.assert_array_equal(fused.tokens, step.tokens)
+        if sampler is None:
+            np.testing.assert_array_equal(
+                fused.tokens, lms["cpu"].generate(prompts, 11, fused_chunk=4).tokens)
+    assert set(lms[cuda].capture_ms) == {"session_fused_k4", "session_fused_k2"}

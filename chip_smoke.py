@@ -18,7 +18,11 @@ Phases, each fatal on failure (exit code 1, no result line):
            backward (dK/dV, dQ) at one training layer's attention, AdamW at
            the embedding leaf; flash forward, flash backward and paged
            decode again at head_dim 96 and 80 (the widths the kernels are
-           not built for). Flash forward at the serve shape and AdamW
+           not built for) and at 160 and 256 (the 256-wide builds, timed
+           at 256), paged decode also over an fp32 pool at 256; flash
+           forward again at a chunk extend of the trace phase (queries at
+           positions 2560..3071 over a 4096-key view). Flash forward at
+           the serve shape and AdamW
            are held absolutely; at the training shape and for paged decode
            each output element is held against its own size, against the
            twin or an fp64 evaluation of the same function (``fwd_exact``,
@@ -42,6 +46,17 @@ Phases, each fatal on failure (exit code 1, no result line):
            and every request complete; then the same requests again with
            int8 KV pages (the same weights), whose tokens are matched
            against the first pass;
+4b. trace  the same weights behind a ``CausalLM`` with a 4096-token bucket:
+           a synthetic arrival trace of 32 greedy requests (every 4th a
+           3072-token prompt) served three times, with one-shot inserts,
+           with 512-token prefill chunks, and with chunks in the pipelined
+           loop (``async_loop``), the counters zeroed before each pass:
+           tokens/s, TTFT of short and long requests, the largest gap
+           between a short request's tokens, host ops a decode block; every
+           request must complete, the two chunked passes must give
+           bit-identical streams, and a chunked pass's steady decode block
+           must be one replay and one fetch, any block at most one copy
+           more;
 5. train   Llama-3-8B widths cut to 4 layers (bf16 weights, fp32 master
            AdamW, clipping, activation checkpointing, the optimizer kernel)
            on a repeated 2 x 4096-token batch: 2 warm-up steps, then 5 timed
@@ -49,11 +64,12 @@ Phases, each fatal on failure (exit code 1, no result line):
            kernel must have run, every loss and grad norm be finite, the
            loss fall, and the peak memory stay below the card's.
 
-``--profile PATH`` serves the workload a second time under
-``torch.profiler`` (device activity only), prints the device's busy share
-of that run's wall time and writes its kernel table to PATH; it also
-profiles one more training step the same way (table at ``PATH`` with
-``_train`` added to its name).
+``--profile PATH`` repeats each trace pass under ``torch.profiler`` (device
+activity only) for the device's busy share of its wall time, then serves
+the workload once more, timed and under the profiler (its busy share, and
+its kernel table written to PATH), after every timed serving run; it also
+profiles one more training step (table at ``PATH`` with ``_train`` added
+to its name).
 
 Before its last line it prints one JSON object with every kernel's numbers
 and the card's name and power limit; the last line is
@@ -129,6 +145,19 @@ FLOOR_SHARE_OF_MEDIAN = 0.05
 # 2.9e-9 at most (0 against fp64 but for the GQA-group-8 case); 6e-9 is
 # about twice that.
 TOL_PAGED_FLOOR = 6e-9
+# Head dims above 128 run the 256-wide builds (160 zero-padded to 256). On
+# the random cases of ``run_head_dims`` an H100 read at head_dim 160 and 256
+# the floors that the 128-wide constants above were read from elsewhere:
+# out 4.2e-4 and 5.8e-4 (kernel vs fp64; floor 8.5e-4), dV 6.8e-4 and 6.0e-4
+# (8e-4), dQ 1.60e-3 and 8.1e-4 against 1.25e-3, dK 1.86e-3 and 6.6e-4
+# against 1.5e-3, and B2 over int8 pools at 256 9.6e-9 against 6e-9: the
+# same one-term straddles, over sums of up to twice as many products. These
+# widths take their own floors for dQ, dK and B2, about 1.5 times (dQ, dK)
+# and twice (B2) the most read, each under 5 % of its median |ref|; out and
+# dV keep theirs.
+TOL_DQ_FLOOR_WIDE = 2.3e-3
+TOL_DK_FLOOR_WIDE = 2.8e-3
+TOL_PAGED_FLOOR_WIDE = 2e-8
 # B4 rounds where its twin rounds (IEEE intrinsics, no FMA contraction):
 # bit for bit on an H100 (reads 0)
 TOL_ADAMW = 0.0
@@ -315,6 +344,75 @@ def flash_case(dev, b=6, h=32, hk=8, sq=512, sk=4096, d=128, pad_rows=12, pad_ke
     kpos = torch.arange(sk, dtype=torch.int32, device=dev).repeat(b, 1)
     kpos[:, 200:200 + pad_keys] = INVALID_POS
     return q, k, v, qpos.reshape(b, 1, sq), kpos.reshape(b, 1, sk), h, hk
+
+
+# B1 at a chunk extend of the trace phase: the last 512-token chunk of a
+# 3072-token prompt, queries at positions 2560..3071 over the 4096-position
+# logical view, whose keys past 3071 are unwritten (zeros here)
+CHUNK_QPOS0, CHUNK_LEN, CHUNK_SK = 2560, 512, 4096
+
+
+def chunk_flash_case(dev, h=32, hk=8, d=128, q0=CHUNK_QPOS0, sq=CHUNK_LEN, sk=CHUNK_SK,
+                     seed=16):
+    """B1's arguments at the shape of one chunk extend of the trace phase
+    (one row: q ``(h, sq, d)`` at positions ``q0 .. q0 + sq - 1`` over k/v
+    ``(hk, sk, d)`` at positions ``0 .. sk - 1``, the keys past the chunk's
+    last position zero: not yet written), bf16, the block sizes of
+    ``LlamaConfig.blocks_for`` for that extend (512, 512)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    q = torch.randn((h, sq, d), generator=g, device=dev).to(bf)
+    k = torch.randn((hk, sk, d), generator=g, device=dev).to(bf)
+    v = torch.randn((hk, sk, d), generator=g, device=dev).to(bf)
+    k[:, q0 + sq:] = 0
+    v[:, q0 + sq:] = 0
+    qpos = (torch.arange(sq, dtype=torch.int32, device=dev) + q0).reshape(1, 1, sq)
+    kpos = torch.arange(sk, dtype=torch.int32, device=dev).reshape(1, 1, sk)
+    return q, k, v, qpos, kpos, d ** -0.5, 512, 512, h // hk, h
+
+
+def run_flash_chunk(dev, flush, reps=10) -> dict:
+    """B1 at the chunk-extend shape (``chunk_flash_case``) against its twin
+    by the element rule with the training-shape floor (or its fp64
+    evaluation), the LSE absolutely; timed beside the twin, SDPA with the
+    same boolean mask, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_block_forward_plain,
+    )
+
+    args = chunk_flash_case(dev)
+    q, k, v, qpos, kpos = args[:5]
+    out, lse = flash_block_forward(*args)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_block_forward_plain(*args)
+    r = held(out, ref, TOL_FLASH_TRAIN_FLOOR, exact=fwd_exact(*args)[0])
+    check_held("flash_fwd at the chunk shape", r)
+    lse_err = float((lse - ref_lse).abs().max())
+    check(lse_err <= TOL_LSE, f"flash_fwd lse at the chunk shape differs from its twin by {lse_err}")
+    h, hk, sq, d = q.shape[0], k.shape[0], q.shape[1], q.shape[2]
+    mask = kpos.reshape(1, 1, 1, -1) <= qpos.reshape(1, 1, sq, 1)
+    q4, k4, v4 = q[None], k[None], v[None]
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    visible = int(mask.sum())                           # visible (query, key) pairs a head
+    seen = int(mask.any(dim=2).sum())                   # keys some query sees
+    return dict(shape=f"q ({h}, {sq}, {d}) bf16 at positions {CHUNK_QPOS0}..{CHUNK_QPOS0 + sq - 1}"
+                      f", k/v ({hk}, {k.shape[1]}, {d}), keys past {CHUNK_QPOS0 + sq - 1} "
+                      f"unwritten",
+                max_abs_err=r["max_abs_err"], lse_max_abs_err=lse_err, held={"out": r},
+                tolerance=f"{REL_BF16:.4g} * |ref| + floor {TOL_FLASH_TRAIN_FLOOR:.3g}",
+                ms=time_ms(lambda: flash_block_forward(*args), reps, flush),
+                plain_ms=time_ms(lambda: flash_block_forward_plain(*args), 2, flush),
+                library_ms=time_ms(library, reps, flush), library="SDPA, bool mask",
+                # q, positions, out and LSE once; only the K/V rows some query sees
+                **bound(4 * visible * h * d,
+                        nbytes(q, qpos, kpos, out, lse) + 2 * hk * seen * d * k.element_size()))
 
 
 def run_flash(dev, flush, reps=10):
@@ -787,17 +885,32 @@ def run_flash_bwd(dev, flush, reps=5):
     return [dkdv, dq], fwd_train
 
 
-HEAD_DIM_CASES = (96, 80)   # gpt_neox_20b's head_dim, and one more the kernels are not built for
+# gpt_neox_20b's head_dim, one more below 128 and one above that the kernels
+# are not built for (each zero-padded), and the widest built one
+HEAD_DIM_CASES = (96, 80, 160, 256)
 
 
-def run_head_dims(dev) -> dict:
-    """B1, B3a/B3b and B2 at head dims other than the built 64 and 128: B1
-    and B3 run zero-padded to 128 by their wrappers (the softmax scale from
-    the unpadded d), B2 reads a pool row with 12 (hd 96) or 10 (hd 80) of
-    a 16-lane group. One layer's causal attention over 2 x 1024 tokens
-    with pad rows and pad keys, and the serve-shape decode over bf16 and
-    int8 pools; every output held by the element rule against its twin or
-    its fp64 evaluation, with the floors of the 128-wide cases."""
+def head_dim_floors(d: int) -> dict:
+    """The element rule's floor per output at head dim ``d``: the 128-wide
+    constants up to 128, the wide ones for dQ, dK and B2 above."""
+    wide = d > 128
+    return dict(out=TOL_FLASH_TRAIN_FLOOR, dv=TOL_DV_FLOOR,
+                dq=TOL_DQ_FLOOR_WIDE if wide else TOL_DQ_FLOOR,
+                dk=TOL_DK_FLOOR_WIDE if wide else TOL_DK_FLOOR,
+                paged=TOL_PAGED_FLOOR_WIDE if wide else TOL_PAGED_FLOOR)
+
+
+def run_head_dims(dev, flush=None, reps=5) -> dict:
+    """B1, B3a/B3b and B2 at head dims other than 128: B1 and B3 run the
+    64-, 128- or 256-wide builds, zero-padded by their wrappers below a
+    built width (the softmax scale from the unpadded d); B2 reads a pool row
+    with a part of a 16- or 32-lane group (hd 96 bf16: 12 of 16), or, fp32
+    at 256, with all 32 lanes twice. One layer's causal attention over
+    2 x 1024 tokens with pad rows and pad keys, and the serve-shape decode
+    over bf16 and int8 pools (and fp32 at 256); every output held by the
+    element rule against its twin or its fp64 evaluation, with the floors of
+    ``head_dim_floors``. Given ``flush``, the 256-wide builds are timed at
+    these shapes beside their twins, a library call and their bounds."""
     import torch
 
     from neuronx_distributed_tpu_torch.inference.paged_kernel import (
@@ -815,11 +928,12 @@ def run_head_dims(dev) -> dict:
 
     readings = {}
     for d in HEAD_DIM_CASES:
+        floors = head_dim_floors(d)
         fwd, do = flash_bwd_case(dev, True, s=1024, d=d)
         out, lse = flash_block_forward(*fwd)
         torch.cuda.synchronize()
         ref, ref_lse = flash_block_forward_plain(*fwd)
-        r = {"out": held(out, ref, TOL_FLASH_TRAIN_FLOOR, exact=fwd_exact(*fwd)[0]),
+        r = {"out": held(out, ref, floors["out"], exact=fwd_exact(*fwd)[0]),
              "lse": dict(max_abs_err=float((lse - ref_lse).abs().max()), tolerance=TOL_LSE)}
         check(r["lse"]["max_abs_err"] <= TOL_LSE, f"flash_fwd lse at head_dim {d} differs from "
                                                   f"its twin by {r['lse']['max_abs_err']}")
@@ -828,18 +942,18 @@ def run_head_dims(dev) -> dict:
         got = (flash_bwd_dq(*args), *flash_bwd_dkdv(*args))
         torch.cuda.synchronize()
         want = (flash_bwd_dq_plain(*args), *flash_bwd_dkdv_plain(*args))
-        for name, a, w, x, floor in zip(("dq", "dk", "dv"), got, want, bwd_exact(*args),
-                                        (TOL_DQ_FLOOR, TOL_DK_FLOOR, TOL_DV_FLOOR)):
+        for name, a, w, x in zip(("dq", "dk", "dv"), got, want, bwd_exact(*args)):
             check(bool(torch.isfinite(a).all()), f"flash backward {name} at head_dim {d} is not "
                                                  "finite")
-            r[name] = held(a, w, floor, exact=x)
-        del got, want, out, ref
-        for pool in ("bf16", "int8"):
+            r[name] = held(a, w, floors[name], exact=x)
+        del got, want, ref
+        pools = ("bf16", "int8", "fp32") if d == 256 else ("bf16", "int8")
+        for pool in pools:
             pargs, kw = paged_case(dev, pool, hd=d)
             o = paged_decode_attention(*pargs, **kw)
             torch.cuda.synchronize()
             r[f"paged {pool}"] = held(o, paged_decode_attention_plain(*pargs, **kw),
-                                      TOL_PAGED_FLOOR, exact=decode_exact(*pargs, **kw))
+                                      floors["paged"], exact=decode_exact(*pargs, **kw))
         for name, x in r.items():
             if "floor" in x:
                 check_held(f"{name} at head_dim {d}", x)
@@ -847,7 +961,91 @@ def run_head_dims(dev) -> dict:
             flash_shape=f"q {tuple(q.shape)} bf16, k/v {tuple(k.shape)}, causal, pad rows and keys",
             paged_shape=f"q {tuple(pargs[0].shape)} bf16, pools {tuple(pargs[1].shape)}",
             held=r)
+        if flush is not None and d == 256:
+            readings[d]["timed"] = _time_wide(fwd, do, out, lse, args, flush, reps)
+        del out, lse
     return readings
+
+
+def _time_wide(fwd, do, out, lse, args, flush, reps) -> dict:
+    """The 256-wide builds at the head-dim shapes: ms beside the twin, a
+    library call and the bound (operations of the causal attention; B2 at the
+    serve decode shape over a bf16 pool, bytes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuronx_distributed_tpu_torch.inference.paged_kernel import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_block_forward_plain,
+        flash_bwd_dkdv,
+        flash_bwd_dkdv_plain,
+        flash_bwd_dq,
+        flash_bwd_dq_plain,
+    )
+
+    q, k, v, qpos, kpos = fwd[:5]
+    bh, s, d = q.shape
+    b = qpos.shape[0]
+    mask = kpos.reshape(b, 1, 1, s) <= qpos.reshape(b, 1, s, 1)
+    pairs = int(mask.sum()) * (bh // b)
+    q4, k4, v4 = (t.reshape(b, -1, s, d) for t in (q, k, v))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+    do4 = do.reshape(b, -1, s, d)
+
+    def sdpa_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, enable_gqa=True)
+        return torch.autograd.grad(o, (qg, kg, vg), do4)
+
+    bwd_ms = time_ms(sdpa_bwd, reps, flush)
+    common = nbytes(q, k, v, do, lse, args[5], qpos, kpos)
+    shape = f"q {tuple(q.shape)} bf16, k/v {tuple(k.shape)}, causal, pad rows and keys"
+    timed = {
+        "flash_fwd": dict(
+            shape=shape, ms=time_ms(lambda: flash_block_forward(*fwd), reps, flush),
+            plain_ms=time_ms(lambda: flash_block_forward_plain(*fwd), 1, flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, enable_gqa=True), reps, flush),
+            library="SDPA forward, bool mask",
+            **bound(4 * d * pairs, nbytes(q, k, v, qpos, kpos, out, lse))),
+        "flash_bwd_dkdv": dict(
+            shape=shape, ms=time_ms(lambda: flash_bwd_dkdv(*args), reps, flush),
+            plain_ms=time_ms(lambda: flash_bwd_dkdv_plain(*args), 1, flush),
+            library_ms=bwd_ms, library="SDPA forward + backward, bool mask",
+            **bound(8 * d * pairs, common + 2 * nbytes(k))),
+        "flash_bwd_dq": dict(
+            shape=shape, ms=time_ms(lambda: flash_bwd_dq(*args), reps, flush),
+            plain_ms=time_ms(lambda: flash_bwd_dq_plain(*args), 1, flush),
+            library_ms=bwd_ms, library="SDPA forward + backward, bool mask",
+            **bound(6 * d * pairs, common + nbytes(q))),
+    }
+    pargs, _ = paged_case(q.device, "bf16", hd=d)
+    pq, kp, vp, table, cache_len = pargs
+    pb, _, n_q, hd = pq.shape
+    _, ps, n_kv, _ = kp.shape
+    s_max = table.shape[1] * ps
+
+    def library():
+        k_all = kp[table.long()].reshape(pb, s_max, n_kv, hd).transpose(1, 2)
+        v_all = vp[table.long()].reshape(pb, s_max, n_kv, hd).transpose(1, 2)
+        m = torch.arange(s_max, device=pq.device)[None, :] <= cache_len[:, None].long()
+        return F.scaled_dot_product_attention(pq.transpose(1, 2), k_all, v_all,
+                                              attn_mask=m[:, None, None, :], enable_gqa=True)
+
+    lens = cache_len.long().cpu()
+    pages_read = int(((lens // ps) + 1).sum())
+    timed["paged_decode"] = dict(
+        shape=f"q {tuple(pq.shape)} bf16, bf16 pools {tuple(kp.shape)}",
+        ms=time_ms(lambda: paged_decode_attention(*pargs), reps, flush),
+        plain_ms=time_ms(lambda: paged_decode_attention_plain(*pargs), 2, flush),
+        library_ms=time_ms(library, reps, flush), library="gather + SDPA",
+        **bound(4 * n_q * hd * int((lens + 1).sum()),
+                2 * pages_read * ps * n_kv * hd * kp.element_size() + pages_read * 4
+                + 2 * nbytes(pq) + nbytes(cache_len)))
+    return timed
 
 
 def run_adamw(dev, flush, reps=10):
@@ -1210,6 +1408,191 @@ def graph_check(dev, head_dim=None) -> dict:
                                       for i, w in enumerate(work) if w[2]))
 
 
+# --- phase 4b: the synthetic arrival trace -------------------------------------------
+
+# the trace of the trace phase: 32 greedy requests of 64 new tokens, every
+# 4th a 3072-token prompt arriving while decode traffic is live
+TRACE_REQUESTS = 32
+TRACE_KNOBS = dict(prompt_lens=(64, 128, 256, 384), max_new_tokens=64,
+                   mean_interarrival_blocks=0.5, long_prompt_frac=0.25, long_prompt_len=3072,
+                   seed=0)
+TRACE_BUCKETS = (128, 512, 4096)   # 4096: the one-shot pass inserts the long prompts whole
+TRACE_CHUNK = 512
+# (label, prefill_chunk_tokens, async_loop)
+TRACE_PASSES = (("a", 0, False), ("b", TRACE_CHUNK, False), ("c", TRACE_CHUNK, True))
+
+
+def device_busy_s(prof) -> float:
+    """Seconds of device activity (kernels, copies, memsets) in a
+    ``torch.profiler`` run, summed off its raw records: building its event
+    list (``key_averages``) takes minutes for the 1.7 million records of a
+    trace pass."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda) / 1e9
+
+
+def trace_latency(done, arrival_ts, long_len: int) -> dict:
+    """Per kind of request (``short``: prompt shorter than ``long_len``,
+    ``long``), TTFT in wall ms from the request's arrival (``arrival_ts``:
+    request id -> the wall time the engine's clock reached its arrival
+    block) to its first token, p50 (the upper middle) and max; and the
+    largest gap in wall ms between two tokens of any short request (the
+    stall a long prefill puts on live streams)."""
+    out = {}
+    for kind, pick in (("short", lambda c: c.prompt_len < long_len),
+                       ("long", lambda c: c.prompt_len >= long_len)):
+        t = sorted((c.token_ts[0] - arrival_ts[c.request_id]) * 1e3 for c in done if pick(c))
+        out[f"ttft_ms_p50_{kind}"] = t[len(t) // 2] if t else None
+        out[f"ttft_ms_max_{kind}"] = t[-1] if t else None
+    gaps = [max(b - a for a, b in zip(c.token_ts[:-1], c.token_ts[1:])) * 1e3
+            for c in done if c.prompt_len < long_len and len(c.token_ts) > 1]
+    out["max_gap_ms_short"] = max(gaps) if gaps else None
+    return out
+
+
+def trace_pass(lm, dev, trace, chunk: int, async_loop: bool, counters, profile=False) -> dict:
+    """One pass of ``trace`` through a ``ServeEngine`` on ``lm``: every
+    request submitted up front with its arrival block, its arrival stamped
+    in wall time when the engine's clock reaches that block; the launch
+    counters zeroed just before and read just after. Per decode round the
+    host ops (replays, fetches, copies); B1's launches inside chunk extends
+    counted apart. With ``profile``, the pass runs under ``torch.profiler``
+    (device activity only) and returns the device's busy share instead."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import flash_block_forward
+
+    engine = ServeEngine(lm, block_steps=8, prefill_chunk_tokens=chunk, async_loop=async_loop)
+    for it in trace:
+        engine.submit(it["prompt"], it["max_new_tokens"], eos_token_id=it["eos_token_id"],
+                      arrival_block=it["arrival_block"])
+    extend = lm.extend
+    extend_b1 = [0]
+
+    def counted_extend(*a, **kw):
+        before = flash_block_forward.launches
+        logits = extend(*a, **kw)
+        extend_b1[0] += flash_block_forward.launches - before
+        return logits
+
+    lm.extend = counted_extend
+    arrival_ts, ops = {}, []
+    for c in counters:
+        c.launches = 0
+    prof = torch_profile(activities=[ProfilerActivity.CUDA]) if profile else None
+    _sync(dev)
+    if prof is not None:
+        prof.__enter__()
+    t0 = time.perf_counter()
+    try:
+        while True:
+            now = time.perf_counter()
+            for r in engine.queue:
+                if r.arrival_block <= engine.blocks:
+                    arrival_ts.setdefault(r.request_id, now)
+            before = (engine.replays, engine.host_fetches, engine.h2d_copies,
+                      engine.decode_blocks)
+            if not engine.step_block():
+                break
+            if engine.decode_blocks > before[3]:
+                ops.append(tuple(a - b for a, b in zip(
+                    (engine.replays, engine.host_fetches, engine.h2d_copies), before)))
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        del lm.extend
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    launches = {c.__name__: c.launches for c in counters}
+    if prof is not None:
+        busy = device_busy_s(prof)
+        return dict(wall_s=wall, device_busy_s=busy, device_busy_share=busy / wall)
+    done = engine.completed
+    tokens = sum(len(c.tokens) for c in done)
+    steady = [o for o in ops if o[2] == 0]
+    return dict(
+        prefill_chunk_tokens=chunk, async_loop=async_loop, requests=len(done),
+        generated_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+        **trace_latency(done, arrival_ts, TRACE_KNOBS["long_prompt_len"]),
+        decode_blocks=engine.decode_blocks, blocks=engine.blocks,
+        host_ops=[sum(o) for o in ops], host_ops_per_block=sum(map(sum, ops)) / len(ops),
+        steady_blocks=len(steady), steady_ok=all(o == (1, 1, 0) for o in steady),
+        blocks_ok=all(o[:2] == (1, 1) and o[2] <= 1 for o in ops),
+        inserts=engine.inserts, chunk_program_calls=engine.chunk_program_calls,
+        prefill_chunk_tokens_done=engine.prefill_chunk_tokens_done,
+        b1_launches_in_extends=extend_b1[0], nonfinite_logits=engine.nonfinite_logits,
+        launches=launches,
+        streams={c.request_id: c.tokens.tolist() for c in done},
+        schedule={c.request_id: (c.queue_blocks, c.ttft_blocks, c.decode_blocks) for c in done})
+
+
+def run_trace_phase(cfg, dev, params, counters, profile=False) -> dict:
+    """The synthetic trace (``TRACE_KNOBS``) served three times on one
+    ``CausalLM`` at the serve phase's widths and weights: (a) one-shot
+    inserts, (b) chunked prefill, (c) chunked prefill in the pipelined loop.
+    Hard gates: every request completes with its 64 tokens in every pass,
+    every logit is finite, each pass launched B1 and B2; (b) and (c) give
+    bit-identical streams; in (b) and (c) every decode block makes at most
+    3 host ops and a steady one exactly 2. Reported: the share of tokens
+    equal between (a) and (b) (cuBLAS may pick another GEMM for a 4096-row
+    insert than for 512-row chunks)."""
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+    from neuronx_distributed_tpu_torch.inference.trace import synthetic_trace
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+
+    lm = CausalLM(cfg, params, LlamaForCausalLM, buckets=TRACE_BUCKETS, max_batch=8,
+                  page_size=16, paged_attn_kernel=True, device=dev)
+    trace = synthetic_trace(TRACE_REQUESTS, cfg.vocab_size, **TRACE_KNOBS)
+    # warm-up: the decode block's capture, the one-shot and chunk shapes
+    warm = ServeEngine(lm, block_steps=8, prefill_chunk_tokens=TRACE_CHUNK)
+    capture_s = warm.capture_s
+    warm.submit(trace[3]["prompt"][:1100], 2)
+    warm.run()
+    warm = ServeEngine(lm, block_steps=8)
+    warm.submit(trace[0]["prompt"], 2)
+    warm.submit(trace[3]["prompt"], 2)
+    warm.run()
+    del warm
+    passes = {}
+    for label, chunk, async_loop in TRACE_PASSES:
+        st = trace_pass(lm, dev, trace, chunk, async_loop, counters)
+        name = f"pass ({label})"
+        check(st["requests"] == TRACE_REQUESTS, f"trace {name}: {st['requests']} of "
+                                                 f"{TRACE_REQUESTS} requests completed")
+        check(all(len(t) == TRACE_KNOBS["max_new_tokens"] for t in st["streams"].values()),
+              f"trace {name}: a request gave fewer than its 64 tokens")
+        check(st["nonfinite_logits"] == 0, f"trace {name}: non-finite logits")
+        for fn, n in st["launches"].items():
+            check(n > 0, f"trace {name} never launched {fn}")
+        if chunk:
+            check(st["steady_ok"] and st["blocks_ok"],
+                  f"trace {name}: host ops a decode block {st['host_ops']}")
+            check(st["chunk_program_calls"] > 0 and st["b1_launches_in_extends"] > 0,
+                  f"trace {name}: no chunk extend ran B1")
+        passes[label] = st
+    if profile:   # after the timed passes: a profiled run slows the ones after it
+        for label, chunk, async_loop in TRACE_PASSES:
+            passes[label]["profile"] = trace_pass(lm, dev, trace, chunk, async_loop, counters,
+                                                  profile=True)
+    check(passes["b"]["streams"] == passes["c"]["streams"],
+          "trace passes (b) sync and (c) async gave different streams")
+    same = sum(int(x == y) for rid, ts in passes["a"]["streams"].items()
+               for x, y in zip(ts, passes["b"]["streams"][rid]))
+    schedule_equal = passes["b"]["schedule"] == passes["c"]["schedule"]
+    for st in passes.values():   # 6144 tokens: kept off the printed summary
+        del st["streams"], st["schedule"]
+    return dict(passes=passes, capture_s=capture_s,
+                token_match_a_b=same / passes["a"]["generated_tokens"],
+                schedule_equal_b_c=schedule_equal,
+                requests=TRACE_REQUESTS, knobs={k: v for k, v in TRACE_KNOBS.items()},
+                buckets=TRACE_BUCKETS)
+
+
 # --- phases 3b and 5: training ----------------------------------------------------
 
 
@@ -1434,9 +1817,19 @@ def main(argv=None) -> int:
                 check(v.get("spill_bytes") in (0, None), f"{k} spills {v.get('spill_bytes')} bytes")
                 check(v["hmma"] != 0, f"{k} has no HMMA (tensor-core) instruction in its SASS")
         compiled.update(report)
+    wide = ("tc::fwd_kernel<256>", "tc::dkdv_kernel<256>", "tc::dq_kernel<256>")
+    check(all(k in compiled for k in wide), f"the 256-wide builds are missing from {sorted(compiled)}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)   # 256 MB > L2
     flash = run_flash(dev, flush)
+    flash["chunk_shape"] = run_flash_chunk(dev, flush)
+    cs = flash["chunk_shape"]
+    print(f"kernel flash_fwd at the chunk shape: {cs['shape']}; {cs['ms']:.4f} ms, twin "
+          f"{cs['plain_ms']:.4f} ms, library {cs['library_ms']:.4f} ms ({cs['library']}), bound "
+          f"{cs['bound_ms']:.4f} ms ({cs['bound_by']}); out max |err| {cs['max_abs_err']:.3g}, "
+          f"floor needed {cs['held']['out']['floor_needed']:.3g} of "
+          f"{cs['held']['out']['floor']:.3g}, lse max |err| {cs['lse_max_abs_err']:.3g} "
+          f"[{card}]", flush=True)
     bwd, flash["train_shape"] = run_flash_bwd(dev, flush)
     flash["train_shape_max_abs_err"] = flash["train_shape"]["max_abs_err"]
     ts = flash["train_shape"]
@@ -1448,9 +1841,11 @@ def main(argv=None) -> int:
     for k in bwd:
         k["compiled"] = {n: v for n, v in compiled.items() if k["name"][len("flash_bwd_"):] in n}
     kernels = [flash, run_paged(dev, flush), *bwd, run_adamw(dev, flush)]
-    head_dims = run_head_dims(dev)
+    head_dims = run_head_dims(dev, flush)
+    paged_names = ("paged bf16", "paged int8", "paged fp32")
     for d, r in head_dims.items():
-        for names in (("out", "lse", "dq", "dk", "dv"), ("paged bf16", "paged int8")):
+        for names in (("out", "lse", "dq", "dk", "dv"),
+                      tuple(n for n in paged_names if n in r["held"])):
             at = r["flash_shape"] if names[0] == "out" else r["paged_shape"]
             print(f"  held at head_dim {d}, {at}: " + "; ".join(
                 f"{n} max |err| {r['held'][n]['max_abs_err']:.3g}" + (
@@ -1460,10 +1855,24 @@ def main(argv=None) -> int:
                     else f" (tol {r['held'][n]['tolerance']})") for n in names)
                   + f" [{card}]", flush=True)
     for k in kernels:
-        names = {"flash_fwd": ("out", "lse"), "paged_decode": ("paged bf16", "paged int8"),
+        names = {"flash_fwd": ("out", "lse"), "paged_decode": paged_names,
                  "flash_bwd_dkdv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}.get(k["name"])
         if names:
-            k["head_dims"] = {d: {n: r["held"][n] for n in names} for d, r in head_dims.items()}
+            k["head_dims"] = {d: {n: r["held"][n] for n in names if n in r["held"]}
+                              for d, r in head_dims.items()}
+            # the 256-wide build of this kernel: its readings at head_dim 256
+            t = head_dims[256]["timed"][k["name"]]
+            k["instantiations"] = [dict(
+                head_dim=256, shape=t["shape"], ms=t["ms"], plain_ms=t["plain_ms"],
+                library_ms=t["library_ms"], library=t["library"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"],
+                max_abs_err=max(k["head_dims"][256][n]["max_abs_err"] for n in names
+                                if n in k["head_dims"][256]),
+                compiled={n: v for n, v in compiled.items()
+                          if n.endswith("<256>") and k["name"].split("_")[-1] in n})]
+            print(f"kernel {k['name']} at head_dim 256: {t['shape']}; {t['ms']:.4f} ms, twin "
+                  f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms ({t['library']}), "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]", flush=True)
     for k in kernels:
         extra = (f", {k['tflops']:.1f} TFLOP/s, {k['bound_share']:.1%} of bound"
                  if "tflops" in k else "")
@@ -1513,10 +1922,17 @@ def main(argv=None) -> int:
     serve_counters = (flash_block_forward, paged_decode_attention)
     cfg = serve_config()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    stats = serve(cfg, dev, serve_counters, profile_path=args.profile, params=params)
+    # the timed runs first: a profiled run slows the runs after it
+    stats = serve(cfg, dev, serve_counters, params=params)
     gc.collect()
     int8 = serve(cfg, dev, serve_counters, params=params, page_dtype="int8",
                  reference=stats["streams"])
+    gc.collect()
+    trace = run_trace_phase(cfg, dev, params, serve_counters, profile=args.profile is not None)
+    if args.profile is not None:
+        gc.collect()
+        stats["profile"] = serve(cfg, dev, serve_counters, profile_path=args.profile,
+                                 params=params)["profile"]
     del params
     for name, st in (("serve", stats), ("serve int8 pages", int8)):
         print(f"{name}: llama3_8b full width ({st['layers']} layers, no depth cut), "
@@ -1534,6 +1950,25 @@ def main(argv=None) -> int:
               f"{st['launches_per_token']['paged_decode_attention']:.3f}"
               + (f", tokens matching the bf16 pass {st['token_match_share']:.4f}"
                  if "token_match_share" in st else "") + f" [{card}]", flush=True)
+    for label, st in trace["passes"].items():
+        print(f"trace pass ({label}): llama3_8b full width, {'async' if st['async_loop'] else 'sync'}"
+              f", prefill_chunk_tokens {st['prefill_chunk_tokens']}, {st['requests']} requests "
+              f"(every 4th {TRACE_KNOBS['long_prompt_len']} prompt tokens), "
+              f"{st['generated_tokens']} tokens in {st['wall_s']:.3f} s = "
+              f"{st['tokens_per_s']:.1f} tok/s, TTFT short p50 {st['ttft_ms_p50_short']:.1f} ms "
+              f"max {st['ttft_ms_max_short']:.1f} ms, long p50 {st['ttft_ms_p50_long']:.1f} ms "
+              f"max {st['ttft_ms_max_long']:.1f} ms, largest gap between tokens of a short "
+              f"request {st['max_gap_ms_short']:.1f} ms, {st['decode_blocks']} decode blocks at "
+              f"{st['host_ops_per_block']:.3f} host ops a block ({st['steady_blocks']} steady), "
+              f"{st['inserts']} inserts, chunk_program_calls {st['chunk_program_calls']}, B1 "
+              f"launches in chunk extends {st['b1_launches_in_extends']}, launches "
+              f"{st['launches']}" + (f", device busy {st['profile']['device_busy_share']:.1%} of "
+                                     f"the profiled repeat's {st['profile']['wall_s']:.3f} s"
+                                     if "profile" in st else "") + f" [{card}]", flush=True)
+    print(f"trace: passes (b) and (c) bit-identical streams, schedules equal "
+          f"{trace['schedule_equal_b_c']}; tokens equal between (a) and (b) "
+          f"{trace['token_match_a_b']:.4f}; capture {trace['capture_s']:.3f} s [{card}]",
+          flush=True)
     if "profile" in stats:
         prof = stats["profile"]
         print(f"profile: device busy {prof['device_busy_s']:.3f} s of the profiled run's "
@@ -1561,6 +1996,7 @@ def main(argv=None) -> int:
                           for t in prof["top"][:8]) + f" [{card}]", flush=True)
 
     by_path = {"serve": stats["launches"], "serve_int8": int8["launches"],
+               **{f"trace_{label}": st["launches"] for label, st in trace["passes"].items()},
                "train": tstats["launches"]}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
@@ -1571,8 +2007,18 @@ def main(argv=None) -> int:
         k["launches"] = sum(k["launches_by_path"].values())
         for path, n in k["launches_by_path"].items():
             check(n > 0, f"the {path} path never launched {k['name']}")
-    print(json.dumps({"serve": stats, "serve_int8": int8, "train": tstats, "train_check": tc,
-                      "graph_check": graph, "card": card}))
+    # the element-by-element readings go on the summary line, which keeps the
+    # kernels line short
+    checks = {}
+    for k in kernels:
+        c = checks[k["name"]] = {key: k.pop(key) for key in ("held", "head_dims", "case_shapes")
+                                 if key in k}
+        for part in ("train_shape", "chunk_shape"):
+            if "held" in k.get(part, {}):
+                c[part] = k[part].pop("held")
+    print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "train": tstats,
+                      "train_check": tc, "graph_check": graph, "kernel_checks": checks,
+                      "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{key: k[key] for key in keys}, **k} for k in kernels],

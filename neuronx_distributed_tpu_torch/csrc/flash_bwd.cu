@@ -39,8 +39,9 @@
 // fp32 tiles live in shared memory rows padded by one word so the 16
 // threads of a half-warp read 16 different banks (165 KB for dK/dV and
 // 149 KB for dQ at D = 128, opted in above 48 KB). Thread (ty, tx) owns rows
-// ty + 16 i and columns tx + 16 j of each 64 x 64 tile, and rows ty + 16 i by
-// columns tx + 16 j of its 64 x D fp32 accumulators.
+// ty + 16 i and columns tx + 16 j of each BQ x 64 tile, and rows ty + 16 i by
+// columns tx + 16 j of its fp32 accumulators. Query tiles are BQ = 64 rows
+// up to D = 128 and 32 at D = 256, where 64-row tiles would need 296 KB.
 
 #include <climits>
 
@@ -49,35 +50,38 @@
 
 namespace {
 
-constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
 
-// Stage rows [r0, r0 + 64) of a (rows, D) operand as fp32 (zeros past the end).
-template <typename T, int D>
+// query rows of an fp32 tile at head dim D
+template <int D>
+__host__ __device__ constexpr int query_tile() { return D > 128 ? 32 : 64; }
+
+// Stage rows [r0, r0 + R) of a (rows, D) operand as fp32 (zeros past the end).
+template <typename T, int D, int R = 64>
 __device__ __forceinline__ void stage_tile(float* dst, const T* src, int r0, int rows, int tid) {
   constexpr int LD = D + 1;
-  for (int i = tid; i < 64 * D; i += NT) {
+  for (int i = tid; i < R * D; i += NT) {
     const int r = i / D, c = i % D, row = r0 + r;
     dst[r * LD + c] = row < rows ? nxd::to_f(src[static_cast<size_t>(row) * D + c]) : 0.f;
   }
 }
 
-// s[i][j] = sum_c a[ty + 16 i][c] * b[tx + 16 j][c] over two 64 x D tiles,
-// and the same for the pair (a2, b2) into s2.
-template <int D>
+// s[i][j] = sum_c a[ty + 16 i][c] * b[tx + 16 j][c] over an (16 RA) x D and
+// a 64 x D tile, and the same for the pair (a2, b2) into s2.
+template <int D, int RA>
 __device__ __forceinline__ void tile_products(const float* a, const float* b, const float* a2,
-                                              const float* b2, int ty, int tx, float (&s)[4][4],
-                                              float (&s2)[4][4]) {
+                                              const float* b2, int ty, int tx, float (&s)[RA][4],
+                                              float (&s2)[RA][4]) {
   constexpr int LD = D + 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RA; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = s2[i][j] = 0.f;
   for (int c = 0; c < D; ++c) {
-    float av[4], a2v[4], bv[4], b2v[4];
+    float av[RA], a2v[RA], bv[4], b2v[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RA; ++i) {
       av[i] = a[(ty + 16 * i) * LD + c];
       a2v[i] = a2[(ty + 16 * i) * LD + c];
     }
@@ -87,7 +91,7 @@ __device__ __forceinline__ void tile_products(const float* a, const float* b, co
       b2v[j] = b2[(tx + 16 * j) * LD + c];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RA; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         s[i][j] = fmaf(av[i], bv[j], s[i][j]);
@@ -107,6 +111,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LD = D + 1;   // padded row stride of the 64 x D tiles
   constexpr int LP = BK + 1;  // padded row stride of the p and ds tiles
   constexpr int DJ = D / 16;  // accumulator columns per thread
+  constexpr int BQ = query_tile<D>();
+  constexpr int RI = BQ / 16;  // query rows per thread
   extern __shared__ float smem[];
   float* ks = smem;            // BK x LD
   float* vs = ks + BK * LD;    // BK x LD
@@ -158,8 +164,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // (uniform across the CTA: the barrier returns one value)
       if (!__syncthreads_or(tid < BQ && qp_s[tid] >= kmin)) continue;
 
-      stage_tile<T, D>(qs, qb, q0, sq, tid);
-      stage_tile<T, D>(dos, dob, q0, sq, tid);
+      stage_tile<T, D, BQ>(qs, qb, q0, sq, tid);
+      stage_tile<T, D, BQ>(dos, dob, q0, sq, tid);
       if (tid < BQ) {
         const int r = q0 + tid;
         lse_s[tid] = r < sq ? lse[static_cast<size_t>(row) * sq + r] : 0.f;
@@ -169,10 +175,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
       // S = Q K^T and dP = dO V^T at rows ty + 16 i (queries), columns
       // tx + 16 j (keys)
-      float s[4][4], dp[4][4];
-      tile_products<D>(qs, ks, dos, vs, ty, tx, s, dp);
+      float s[RI][4], dp[RI][4];
+      tile_products<D, RI>(qs, ks, dos, vs, ty, tx, s, dp);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const int r = ty + 16 * i;
         const int qp = qp_s[r];
         const float l = lse_s[r];
@@ -233,6 +239,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LD = D + 1;
   constexpr int LP = BK + 1;
   constexpr int DJ = D / 16;
+  constexpr int BQ = query_tile<D>();
+  constexpr int RI = BQ / 16;  // query rows per thread
   extern __shared__ float smem[];
   float* qs = smem;            // BQ x LD
   float* dos = qs + BQ * LD;   // BQ x LD
@@ -254,8 +262,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + static_cast<size_t>(kvrow) * sk * D;
   const int* kpb = kpos + static_cast<size_t>(b) * sk;
 
-  stage_tile<T, D>(qs, q + static_cast<size_t>(bh) * sq * D, q0, sq, tid);
-  stage_tile<T, D>(dos, dout + static_cast<size_t>(bh) * sq * D, q0, sq, tid);
+  stage_tile<T, D, BQ>(qs, q + static_cast<size_t>(bh) * sq * D, q0, sq, tid);
+  stage_tile<T, D, BQ>(dos, dout + static_cast<size_t>(bh) * sq * D, q0, sq, tid);
   if (tid < BQ) {
     const int r = q0 + tid;
     qp_s[tid] = r < sq ? qpos[static_cast<size_t>(b) * sq + r] : INT_MIN;  // rows past sq see no key
@@ -263,19 +271,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   int qmax = INT_MIN;
   for (int r = 0; r < BQ; ++r) qmax = max(qmax, qp_s[r]);
-  int my_qp[4];
-  float my_l[4], my_dl[4];
+  int my_qp[RI];
+  float my_l[RI], my_dl[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = q0 + ty + 16 * i;
     my_qp[i] = qp_s[ty + 16 * i];
     my_l[i] = r < sq ? lse[static_cast<size_t>(bh) * sq + r] : 0.f;
     my_dl[i] = r < sq ? delta[static_cast<size_t>(bh) * sq + r] : 0.f;
   }
 
-  float acc[4][DJ];
+  float acc[RI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
@@ -291,13 +299,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage_tile<T, D>(vs, vb, k0, sk, tid);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    tile_products<D>(qs, ks, dos, vs, ty, tx, s, dp);
+    float s[RI][4], dp[RI][4];
+    tile_products<D, RI>(qs, ks, dos, vs, ty, tx, s, dp);
     int my_kp[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) my_kp[j] = kp_s[tx + 16 * j];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = my_kp[j] <= my_qp[i] ? expf(s[i][j] * sm_scale - my_l[i]) : 0.f;
@@ -308,21 +316,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // dQ += dS K at rows ty + 16 i (queries), columns tx + 16 j (head dim)
     for (int c = 0; c < BK; ++c) {
-      float dsv[4];
+      float dsv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty + 16 * i) * LP + c];
+      for (int i = 0; i < RI; ++i) dsv[i] = dss[(ty + 16 * i) * LP + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         const float kv = ks[c * LD + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
+        for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
       }
     }
     __syncthreads();  // the next tile overwrites ks, vs, dss and kp_s
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= sq) continue;
     T* out = dq + (static_cast<size_t>(bh) * sq + r) * D;
@@ -336,6 +344,7 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
                         const float* lse, const float* delta, const int* qpos, const int* kpos,
                         void* dk, void* dv, int bkv, int sq, int sk, int group, int h,
                         float sm_scale, cudaStream_t stream) {
+  constexpr int BQ = query_tile<D>();
   const size_t smem = sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * (BK + 1));
   cudaError_t err = nxd::allow_smem(flash_bwd_dkdv_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
@@ -352,6 +361,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       const float* lse, const float* delta, const int* qpos, const int* kpos,
                       void* dq, int bh, int sq, int sk, int group, int h, float sm_scale,
                       cudaStream_t stream) {
+  constexpr int BQ = query_tile<D>();
   const size_t smem = sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
   cudaError_t err = nxd::allow_smem(flash_bwd_dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
@@ -375,6 +385,9 @@ cudaError_t dkdv_d(int d, const void* q, const void* k, const void* v, const voi
     case 128:
       return launch_dkdv<T, 128>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, bkv, sq, sk,
                                  group, h, sm_scale, stream);
+    case 256:
+      return launch_dkdv<T, 256>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, bkv, sq, sk,
+                                 group, h, sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -391,6 +404,9 @@ cudaError_t dq_d(int d, const void* q, const void* k, const void* v, const void*
                               sm_scale, stream);
     case 128:
       return launch_dq<T, 128>(q, k, v, dout, lse, delta, qpos, kpos, dq, bh, sq, sk, group,
+                               h, sm_scale, stream);
+    case 256:
+      return launch_dq<T, 256>(q, k, v, dout, lse, delta, qpos, kpos, dq, bh, sq, sk, group,
                                h, sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
@@ -425,6 +441,12 @@ cudaError_t dq_d(int d, const void* q, const void* k, const void* v, const void*
 // mma.sync sums from zero over one 16-deep step (S, dP) or one 32-row step
 // (dK, dV, dQ), and fp32 adds fold the steps into the accumulators.
 // Registers (-Xptxas -v, D = 128): dK/dV 255, dQ 201, no spills.
+// D = 256: a CTA owns DC = 128 of the D columns of its accumulators (the
+// grid's third axis) and forms S and dP over the whole head dim, so both
+// CTAs of a tile recompute the same S and dP: the accumulators keep their
+// D = 128 register budget (dK/dV 255 registers, dQ 201, no spills; a
+// 256-wide dQ spilled 12 bytes). Six 64 x 256 tiles take 204 KB of shared
+// memory, one CTA an SM.
 
 namespace tc {
 
@@ -515,13 +537,13 @@ __device__ __forceinline__ void product_step(float (&acc)[4][4], const bf16* a, 
   nxd::add_to(acc, part);
 }
 
-// acc[c / 8] and acc[c / 8 + 1] (16 rows x columns c..c + 15) += the A
-// fragments `frag` (16 rows x 32, two k steps) times rows 0..31, columns
-// c..c + 15 of the padded tile `b`; summed from zero, folded in by fp32 adds
-template <int D>
-__device__ __forceinline__ void accumulate_step(float (&acc)[D / 8][4],
+// acc[n] and acc[n + 1] (16 rows x 16 columns) += the A fragments `frag`
+// (16 rows x 32, two k steps) times rows 0..31, columns c..c + 15 of the
+// padded tile `b`; summed from zero, folded in by fp32 adds
+template <int D, int N>
+__device__ __forceinline__ void accumulate_step(float (&acc)[N][4],
                                                 const uint32_t (&frag)[2][4], const bf16* b,
-                                                int c, int lane) {
+                                                int c, int n, int lane) {
   constexpr int LDS = D + PAD;
   float part[2][4] = {};
 #pragma unroll
@@ -533,12 +555,12 @@ __device__ __forceinline__ void accumulate_step(float (&acc)[D / 8][4],
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    acc[c / 8][e] += part[0][e];
-    acc[c / 8 + 1][e] += part[1][e];
+    acc[n][e] += part[0][e];
+    acc[n + 1][e] += part[1][e];
   }
 }
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(NTH, 2)
 dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
             const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -546,7 +568,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
             const int* __restrict__ kpos, bf16* __restrict__ dk, bf16* __restrict__ dv,
             int sq, int sk, int group, int h, float sm_scale) {
   constexpr int LDS = D + PAD;
-  constexpr int DN = D / 8;   // 8-wide n-blocks of the head dim
+  constexpr int DN = DC / 8;   // 8-wide n-blocks of this CTA's columns
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);   // TILE x LDS
   bf16* vs = ks + TILE * LDS;                 // TILE x LDS
@@ -559,6 +581,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
 
   const int bk = blockIdx.x;   // kv row
   const int k0 = blockIdx.y * TILE;
+  const int c0 = blockIdx.z * DC;   // this CTA's columns of dK and dV
   const int b = bk / (h / group);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
@@ -657,9 +680,9 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
         }
         // dV += P^T dO and dK += dS^T Q over the step's 32 queries
 #pragma unroll
-        for (int c = 0; c < D; c += 16) {
-          accumulate_step<D>(acc_dv, pa, dot_s + q0 * LDS, c, lane);
-          accumulate_step<D>(acc_dk, dsa, qt_s + q0 * LDS, c, lane);
+        for (int c = 0; c < DC; c += 16) {
+          accumulate_step<D>(acc_dv, pa, dot_s + q0 * LDS, c0 + c, c / 8, lane);
+          accumulate_step<D>(acc_dk, dsa, qt_s + q0 * LDS, c0 + c, c / 8, lane);
         }
       }
       __syncthreads();   // the next stage overwrites this buffer
@@ -670,12 +693,12 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     }
   }
 
-  // rows kr, kr + 8; columns 8 n + 2t, +1 (zeros for a tile no query sees)
+  // rows kr, kr + 8; columns c0 + 8 n + 2t, +1 (zeros for a tile no query sees)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = kr + 8 * i;
     if (key >= sk) continue;
-    const size_t base = (static_cast<size_t>(bk) * sk + key) * D + 2 * t;
+    const size_t base = (static_cast<size_t>(bk) * sk + key) * D + c0 + 2 * t;
 #pragma unroll
     for (int n = 0; n < DN; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + base + 8 * n) =
@@ -686,7 +709,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   }
 }
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(NTH, 2)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
           const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -694,7 +717,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
           const int* __restrict__ kpos, bf16* __restrict__ dq, int sq, int sk, int group,
           int h, float sm_scale) {
   constexpr int LDS = D + PAD;
-  constexpr int DN = D / 8;
+  constexpr int DN = DC / 8;   // 8-wide n-blocks of this CTA's columns
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);   // TILE x LDS
   bf16* dos = qs + TILE * LDS;                // TILE x LDS
@@ -705,6 +728,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TILE;   // latest query tiles first
+  const int c0 = blockIdx.z * DC;                       // this CTA's columns of dQ
   const int b = bh / h;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
@@ -773,16 +797,16 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
       const bf16* vt_s = vs + buf * TILE * LDS;
       const int* kpt = kp_s + buf * TILE;
 #pragma unroll 1
-      for (int c0 = 0; c0 < TILE; c0 += STEP) {
+      for (int k_step = 0; k_step < TILE; k_step += STEP) {
         // S = Q K^T and dP = dO V^T: 16 queries x 32 keys, 4 n-blocks
         float s[4][4] = {}, dp[4][4] = {};
 #pragma unroll 2   // a full unroll hoists every step's fragments and spills
         for (int kk = 0; kk < D; kk += 16) {
-          product_step<D>(s, qw, kt_s + c0 * LDS, kk, lane);
-          product_step<D>(dp, dow, vt_s + c0 * LDS, kk, lane);
+          product_step<D>(s, qw, kt_s + k_step * LDS, kk, lane);
+          product_step<D>(dp, dow, vt_s + k_step * LDS, kk, lane);
         }
-        // dS at rows qr, qr + 8 and keys c0 + 8 n + 2t, +1, packed to bf16 A
-        // fragments of two 16-key k steps
+        // dS at rows qr, qr + 8 and keys k_step + 8 n + 2t, +1, packed to bf16
+        // A fragments of two 16-key k steps
         uint32_t dsa[2][4];
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
@@ -791,7 +815,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
           for (int e = 0; e < 4; ++e) {
             const int i = e >> 1;
             const float p =
-                kpt[c0 + 8 * n + 2 * t + (e & 1)] <= qp[i] ? prob(s[n][e], sm_scale, l[i]) : 0.f;
+                kpt[k_step + 8 * n + 2 * t + (e & 1)] <= qp[i] ? prob(s[n][e], sm_scale, l[i])
+                                                                : 0.f;
             ds[e] = dscore(p, dp[n][e], dl[i], sm_scale);
           }
           dsa[n >> 1][(n & 1) * 2] = nxd::pack_bf16(ds[0], ds[1]);
@@ -799,7 +824,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
         }
         // dQ += dS K over the step's 32 keys
 #pragma unroll
-        for (int c = 0; c < D; c += 16) accumulate_step<D>(acc, dsa, kt_s + c0 * LDS, c, lane);
+        for (int c = 0; c < DC; c += 16)
+          accumulate_step<D>(acc, dsa, kt_s + k_step * LDS, c0 + c, c / 8, lane);
       }
       __syncthreads();   // the next stage overwrites this buffer
       if (!more) break;
@@ -812,7 +838,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   for (int i = 0; i < 2; ++i) {
     const int r = qr + 8 * i;
     if (r >= sq) continue;
-    bf16* out = dq + (static_cast<size_t>(bh) * sq + r) * D + 2 * t;
+    bf16* out = dq + (static_cast<size_t>(bh) * sq + r) * D + c0 + 2 * t;
 #pragma unroll
     for (int n = 0; n < DN; ++n)
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
@@ -830,7 +856,7 @@ size_t smem_bytes(int tiles) {
   return sizeof(bf16) * 6 * TILE * (D + PAD) + sizeof(int) * (6 * TILE + tiles);
 }
 
-template <int D>
+template <int D, int DC = D>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, const int* qpos, const int* kpos,
                         void* dk, void* dv, int bkv, int sq, int sk, int group, int h,
@@ -838,16 +864,16 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
   const int nkt = (sk + TILE - 1) / TILE;
   const size_t smem = smem_bytes<D>((sq + TILE - 1) / TILE);
   if (nkt > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = nxd::allow_smem(dkdv_kernel<D>, smem);
+  cudaError_t err = nxd::allow_smem(dkdv_kernel<D, DC>, smem);
   if (err != cudaSuccess) return err;
-  dkdv_kernel<D><<<dim3(bkv, nkt), NTH, smem, stream>>>(
+  dkdv_kernel<D, DC><<<dim3(bkv, nkt, D / DC), NTH, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, qpos, kpos, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), sq, sk, group, h, sm_scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DC = D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, const int* qpos, const int* kpos,
                       void* dq, int bh, int sq, int sk, int group, int h, float sm_scale,
@@ -855,9 +881,9 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   const int nqt = (sq + TILE - 1) / TILE;
   const size_t smem = smem_bytes<D>((sk + TILE - 1) / TILE);
   if (nqt > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = nxd::allow_smem(dq_kernel<D>, smem);
+  cudaError_t err = nxd::allow_smem(dq_kernel<D, DC>, smem);
   if (err != cudaSuccess) return err;
-  dq_kernel<D><<<dim3(bh, nqt), NTH, smem, stream>>>(
+  dq_kernel<D, DC><<<dim3(bh, nqt, D / DC), NTH, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, qpos, kpos, static_cast<bf16*>(dq), sq, sk,
       group, h, sm_scale);
@@ -877,6 +903,9 @@ cudaError_t dkdv_d(int d, const void* q, const void* k, const void* v, const voi
     case 128:
       return launch_dkdv<128>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, bkv, sq, sk,
                               group, h, sm_scale, stream);
+    case 256:
+      return launch_dkdv<256, 128>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, bkv, sq, sk,
+                                   group, h, sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -895,6 +924,9 @@ cudaError_t dq_d(int d, const void* q, const void* k, const void* v, const void*
     case 128:
       return launch_dq<128>(q, k, v, dout, lse, delta, qpos, kpos, dq, bh, sq, sk, group, h,
                             sm_scale, stream);
+    case 256:
+      return launch_dq<256, 128>(q, k, v, dout, lse, delta, qpos, kpos, dq, bh, sq, sk, group, h,
+                                 sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
   }

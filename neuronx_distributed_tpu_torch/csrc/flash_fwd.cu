@@ -221,6 +221,8 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const
       return launch<T, 64>(q, k, v, qpos, kpos, out, lse, bh, sq, sk, group, h, sm_scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, qpos, kpos, out, lse, bh, sq, sk, group, h, sm_scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, qpos, kpos, out, lse, bh, sq, sk, group, h, sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -250,6 +252,14 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const
 // per 32 keys instead read the same against the twin and the fp64 value on
 // an H100 and spilled at D = 128. Registers (-Xptxas -v): D = 128 241,
 // D = 64 160, no spills.
+// D = 256: the Q fragments (64 registers) and a 256-wide O (128) do not fit
+// beside the rest, so Q stays in shared memory and its fragments are read
+// at each 16-deep step, and a CTA owns DC = 128 of the D output columns (the
+// grid's third axis; with all 256 the kernel spilled 72 bytes at 255
+// registers, with 128 it takes 214 and spills none): both CTAs of a query
+// tile form the same S, so m, l and the LSE agree bit for bit, and the one
+// of columns 0..127 writes the LSE. The tiles take 170 KB of shared memory,
+// one CTA an SM.
 
 namespace tc {
 
@@ -272,14 +282,15 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int r0, i
   }
 }
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(NTH, 2)
 fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
            const int* __restrict__ qpos, const int* __restrict__ kpos, bf16* __restrict__ out,
            float* __restrict__ lse, int sq, int sk, int group, int h, float sm_scale) {
   constexpr int LDS = D + PAD;
-  constexpr int DK = D / 16;   // 16-deep k steps of the head dim
-  constexpr int DN = D / 8;    // 8-wide n-blocks of the head dim
+  constexpr int DK = D / 16;          // 16-deep k steps of the head dim
+  constexpr int DN = DC / 8;          // 8-wide n-blocks of this CTA's output columns
+  constexpr bool QREG = D <= 128;     // Q fragments in registers (else read from qs)
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);   // TILE x LDS
   bf16* ks = qs + TILE * LDS;                 // 2 buffers of TILE x LDS
@@ -291,6 +302,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TILE;   // latest query tiles first
+  const int c0 = blockIdx.z * DC;                       // this CTA's output columns
   const int b = bh / h;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
@@ -349,10 +361,12 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     nxd::cp_async_commit();
     nxd::cp_async_wait<1>();   // Q has landed
     __syncthreads();
-    uint32_t qf[DK][4];
+    uint32_t qf[QREG ? DK : 1][4];
+    if constexpr (QREG) {
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk)
-      nxd::ldsm_x4(qf[kk], qs + warp * 16 * LDS + nxd::a_offset(lane, LDS) + 16 * kk);
+      for (int kk = 0; kk < DK; ++kk)
+        nxd::ldsm_x4(qf[kk], qs + warp * 16 * LDS + nxd::a_offset(lane, LDS) + 16 * kk);
+    }
     int kt = first, buf = 0;
     while (true) {
       const int nk = next_visible(kt + 1);
@@ -368,21 +382,32 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       // S = Q K^T: 16 queries x 64 keys, 8 n-blocks, 16 keys at a time
       // (both loops unrolled whole: the Q fragments are indexed by the step)
       float s[8][4] = {};
+      auto s_step = [&](const uint32_t(&a)[4], int j, int kk) {
+        uint32_t bfr[4];
+        nxd::ldsm_x4(bfr, kt_s + 16 * j * LDS + nxd::bt_offset(lane, LDS) + 16 * kk);
+        float part[2][4] = {};
+        nxd::mma_bf16(part[0], a, bfr[0], bfr[1]);
+        nxd::mma_bf16(part[1], a, bfr[2], bfr[3]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int kk = 0; kk < DK; ++kk) {
-          uint32_t bfr[4];
-          nxd::ldsm_x4(bfr, kt_s + 16 * j * LDS + nxd::bt_offset(lane, LDS) + 16 * kk);
-          float part[2][4] = {};
-          nxd::mma_bf16(part[0], qf[kk], bfr[0], bfr[1]);
-          nxd::mma_bf16(part[1], qf[kk], bfr[2], bfr[3]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[2 * j][e] += part[0][e];
-            s[2 * j + 1][e] += part[1][e];
-          }
+        for (int e = 0; e < 4; ++e) {
+          s[2 * j][e] += part[0][e];
+          s[2 * j + 1][e] += part[1][e];
         }
+      };
+      if constexpr (QREG) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int kk = 0; kk < DK; ++kk) s_step(qf[kk], j, kk);
+      } else {   // each S element sums its k steps in the same order
+#pragma unroll 2
+        for (int kk = 0; kk < DK; ++kk) {
+          uint32_t af[4];
+          nxd::ldsm_x4(af, qs + warp * 16 * LDS + nxd::a_offset(lane, LDS) + 16 * kk);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s_step(af, j, kk);
+        }
+      }
       // scores at rows qr (e < 2), qr + 8 and keys 8 n + 2t, +1; the mask
       // only where some query of the CTA does not see every key of the tile
       const bool masked = kmax_s[kt] > qmin;
@@ -430,14 +455,15 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
         sum[i] += __shfl_xor_sync(~0u, sum[i], 2);
         l[i] = __fadd_rn(__fmul_rn(l[i], corr[i]), sum[i]);
       }
-      // O = O * corr + P V, columns c..c + 15 at a time over the tile's 64 keys
+      // O = O * corr + P V, columns c0 + c..c0 + c + 15 at a time over the
+      // tile's 64 keys
 #pragma unroll
-      for (int c = 0; c < D; c += 16) {
+      for (int c = 0; c < DC; c += 16) {
         float part[2][4] = {};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           uint32_t bfr[4];
-          nxd::ldsm_x4_t(bfr, vt_s + 16 * j * LDS + nxd::a_offset(lane, LDS) + c);
+          nxd::ldsm_x4_t(bfr, vt_s + 16 * j * LDS + nxd::a_offset(lane, LDS) + c0 + c);
           nxd::mma_bf16(part[0], pa[j], bfr[0], bfr[1]);
           nxd::mma_bf16(part[1], pa[j], bfr[2], bfr[3]);
         }
@@ -456,25 +482,25 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     }
   }
 
-  // rows qr, qr + 8; columns 8 n + 2t, +1
+  // rows qr, qr + 8; columns c0 + 8 n + 2t, +1
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = qr + 8 * i;
     if (r >= sq) continue;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    bf16* ob = out + (static_cast<size_t>(bh) * sq + r) * D + 2 * t;
+    bf16* ob = out + (static_cast<size_t>(bh) * sq + r) * D + c0 + 2 * t;
 #pragma unroll
     for (int n = 0; n < DN; ++n)
       *reinterpret_cast<__nv_bfloat162*>(ob + 8 * n) =
           __floats2bfloat162_rn(o[n][2 * i] / l_safe, o[n][2 * i + 1] / l_safe);
-    if (t == 0) lse[static_cast<size_t>(bh) * sq + r] = m[i] + logf(l_safe);
+    if (t == 0 && c0 == 0) lse[static_cast<size_t>(bh) * sq + r] = m[i] + logf(l_safe);
   }
 }
 
 // cp.async moves 16-byte chunks: the bf16 operands must start 16-byte aligned
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int D>
+template <int D, int DC = D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
                    const int* kpos, void* out, float* lse, int bh, int sq, int sk, int group,
                    int h, float sm_scale, cudaStream_t stream) {
@@ -482,9 +508,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
   // five bf16 tiles, two 64-entry position arrays, two bounds per key tile
   const size_t smem = sizeof(bf16) * 5 * TILE * (D + PAD) + sizeof(int) * (2 * TILE + 2 * nkt);
   if (nqt > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = nxd::allow_smem(fwd_kernel<D>, smem);
+  cudaError_t err = nxd::allow_smem(fwd_kernel<D, DC>, smem);
   if (err != cudaSuccess) return err;
-  fwd_kernel<D><<<dim3(bh, nqt), NTH, smem, stream>>>(
+  fwd_kernel<D, DC><<<dim3(bh, nqt, D / DC), NTH, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       qpos, kpos, static_cast<bf16*>(out), lse, sq, sk, group, h, sm_scale);
   return cudaGetLastError();
@@ -499,6 +525,9 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const
       return launch<64>(q, k, v, qpos, kpos, out, lse, bh, sq, sk, group, h, sm_scale, stream);
     case 128:
       return launch<128>(q, k, v, qpos, kpos, out, lse, bh, sq, sk, group, h, sm_scale, stream);
+    case 256:
+      return launch<256, 128>(q, k, v, qpos, kpos, out, lse, bh, sq, sk, group, h, sm_scale,
+                              stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -30,10 +30,13 @@
 // pages). A CTA reads cache_len[b] itself; if its pages lie past it, it
 // writes an empty partial (m = -1e30, l = 0) and returns. Otherwise each
 // warp walks its own pages of the split (no barrier in the page loop): lanes
-// load K/V rows 16 bytes at a time (8 bf16, 16 int8 or 4 fp32; hd / (16 /
-// sizeof) lanes a row, at most 32, in a group of the next power of two
-// lanes whose spare lanes hold zeros, e.g. 12 of 16 at hd 96 in bf16; the
-// rest of the warp on the next keys), the query
+// load K/V rows in chunks of VB bytes, 16 (8 bf16, 16 int8 or 4 fp32) where
+// a row's byte length is a multiple of 16 and 4 otherwise (such rows do not
+// all start 16-byte aligned: bf16 hd 36, int8 hd 40). A row of up to 32
+// chunks takes a group of the next power of two lanes whose spare lanes hold
+// zeros (e.g. 12 of 16 at hd 96 in bf16), the rest of the warp on the next
+// keys; a longer row (fp32 at hd > 128: 64 chunks at hd 256) takes the whole
+// warp, each lane up to NCM chunks 32 apart. Head dims run up to 256. The query
 // rows stay in registers, dot products reduce by warp shuffles, and each
 // lane keeps an online (m, l, acc) over its keys, rescaled only when the
 // row max grows (exp(0) = 1 otherwise, so skipping it changes no bit). The
@@ -49,24 +52,29 @@ constexpr int NT = 128;               // 4 warps
 constexpr int NW = NT / 32;
 constexpr int GMAX = 4;               // query rows of a kv head a CTA holds in registers
 constexpr int KEYS_PER_SPLIT = 128;   // keys of a split, in whole pages
+constexpr int HD_MAX = 256;           // the widest head dim (paged_kernel.py _MAX_HEAD_DIM)
 
 // The rule the wrapper sizes the workspace by (paged_kernel.py _n_split).
 __host__ __device__ inline int pages_per_split(int page_size) {
   return page_size >= KEYS_PER_SPLIT ? 1 : KEYS_PER_SPLIT / page_size;
 }
 
-// 16 bytes of a pool row as floats, times `scale` for int8 pools
-template <typename P> struct Row16;
-template <> struct Row16<float> {
+// VB bytes of a pool row as floats, times `scale` for int8 pools
+template <typename P, int VB> struct Chunk;
+template <> struct Chunk<float, 16> {
   static constexpr int E = 4;
-  __device__ static void load(float (&f)[E], const float* p, float) {
+  __device__ static void load(float* f, const float* p, float) {
     const float4 x = __ldg(reinterpret_cast<const float4*>(p));
     f[0] = x.x, f[1] = x.y, f[2] = x.z, f[3] = x.w;
   }
 };
-template <> struct Row16<__nv_bfloat16> {
+template <> struct Chunk<float, 4> {
+  static constexpr int E = 1;
+  __device__ static void load(float* f, const float* p, float) { f[0] = __ldg(p); }
+};
+template <> struct Chunk<__nv_bfloat16, 16> {
   static constexpr int E = 8;
-  __device__ static void load(float (&f)[E], const __nv_bfloat16* p, float) {
+  __device__ static void load(float* f, const __nv_bfloat16* p, float) {
     const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
 #pragma unroll
@@ -76,17 +84,34 @@ template <> struct Row16<__nv_bfloat16> {
     }
   }
 };
-template <> struct Row16<int8_t> {
+template <> struct Chunk<__nv_bfloat16, 4> {
+  static constexpr int E = 2;
+  __device__ static void load(float* f, const __nv_bfloat16* p, float) {
+    const unsigned x = __ldg(reinterpret_cast<const unsigned*>(p));
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+    f[0] = v.x, f[1] = v.y;
+  }
+};
+template <> struct Chunk<int8_t, 16> {
   static constexpr int E = 16;
-  __device__ static void load(float (&f)[E], const int8_t* p, float scale) {
+  __device__ static void load(float* f, const int8_t* p, float scale) {
     const int4 x = __ldg(reinterpret_cast<const int4*>(p));
     const int8_t* c = reinterpret_cast<const int8_t*>(&x);
 #pragma unroll
     for (int i = 0; i < E; ++i) f[i] = static_cast<float>(c[i]) * scale;   // in-tile dequant
   }
 };
+template <> struct Chunk<int8_t, 4> {
+  static constexpr int E = 4;
+  __device__ static void load(float* f, const int8_t* p, float scale) {
+    const int x = __ldg(reinterpret_cast<const int*>(p));
+    const int8_t* c = reinterpret_cast<const int8_t*>(&x);
+#pragma unroll
+    for (int i = 0; i < E; ++i) f[i] = static_cast<float>(c[i]) * scale;
+  }
+};
 
-template <typename T, typename P>
+template <typename T, typename P, int VB>
 __global__ void __launch_bounds__(NT)
 split_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
              const P* __restrict__ v_pages, const float* __restrict__ k_scale,
@@ -94,7 +119,10 @@ split_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
              const int* __restrict__ cache_len, float* __restrict__ part_ml,
              float* __restrict__ part_acc, int n_kv, int group, int hd, int page_size,
              int pages_per_seq, float sm_scale) {
-  constexpr int E = Row16<P>::E;
+  constexpr int E = Chunk<P, VB>::E;
+  // chunks a lane holds: enough for a row of HD_MAX over 32 lanes
+  constexpr int NCM = (HD_MAX * static_cast<int>(sizeof(P)) / VB + 31) / 32;
+  constexpr int W = NCM * E;   // row elements a lane holds
   extern __shared__ float smem[];
   float* w_acc = smem;                    // NW x GMAX x hd
   float* w_m = w_acc + NW * GMAX * hd;    // NW x GMAX
@@ -122,22 +150,30 @@ split_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     return;
   }
 
-  const int C = hd / E;     // lanes a pool row spans (at most 32)
-  int CP = 1;               // lanes of a row's group: the next power of two
-  while (CP < C) CP <<= 1;
+  const int C = hd / E;     // chunks a pool row spans (at most 32 NCM)
+  int CP = 32;              // lanes of a row's group: the next power of two up to 32
+  if (C <= 32) {
+    CP = 1;
+    while (CP < C) CP <<= 1;
+  }
   const int rl = lane / CP;   // this lane's key within a step of 32 / CP keys
-  const int cl = lane % CP;   // and its 16-byte chunk of the row
-  const bool on = cl < C;     // a spare lane of the group holds zeros
-  float qv[GMAX][E], acc[GMAX][E], m[GMAX], l[GMAX];
+  const int cl = lane % CP;   // and its first chunk of the row (then cl + 32, ...)
+  bool on[NCM];               // a spare lane or chunk holds zeros
+#pragma unroll
+  for (int i = 0; i < NCM; ++i) on[i] = cl + 32 * i < C;
+  float qv[GMAX][W], acc[GMAX][W], m[GMAX], l[GMAX];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     m[g] = nxd::kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      qv[g][e] = g < nr && on ? nxd::to_f(q[(row0 + g) * hd + cl * E + e]) : 0.f;
-      acc[g][e] = 0.f;
-    }
+    for (int i = 0; i < NCM; ++i)
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        qv[g][i * E + e] =
+            g < nr && on[i] ? nxd::to_f(q[(row0 + g) * hd + (cl + 32 * i) * E + e]) : 0.f;
+        acc[g][i * E + e] = 0.f;
+      }
   }
   const int* table = block_table + static_cast<size_t>(bi) * pages_per_seq;
   const size_t row_stride = static_cast<size_t>(n_kv) * hd;
@@ -154,16 +190,19 @@ split_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     for (int r0 = 0; r0 < page_size; r0 += 32 / CP) {
       const int r = r0 + rl;
       const bool vis = r < page_size && j * page_size + r <= qpos;
-      float kf[E] = {}, vf[E] = {};
-      if (vis && on) {
-        Row16<P>::load(kf, k_pages + base + r * row_stride, ksc);
-        Row16<P>::load(vf, v_pages + base + r * row_stride, vsc);
-      }
+      float kf[W] = {}, vf[W] = {};
+#pragma unroll
+      for (int i = 0; i < NCM; ++i)
+        if (vis && on[i]) {
+          const size_t at = base + r * row_stride + 32 * i * E;
+          Chunk<P, VB>::load(kf + i * E, k_pages + at, ksc);
+          Chunk<P, VB>::load(vf + i * E, v_pages + at, vsc);
+        }
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < E; ++e) d = fmaf(qv[g][e], kf[e], d);
+        for (int e = 0; e < W; ++e) d = fmaf(qv[g][e], kf[e], d);
         for (int off = 1; off < CP; off <<= 1) d += __shfl_xor_sync(~0u, d, off);
         const float s = vis ? __fmul_rn(d, sm_scale) : nxd::kNegInf;
         float mx = s;
@@ -172,14 +211,14 @@ split_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
           const float corr = expf(__fsub_rn(m[g], mx));
           l[g] *= corr;
 #pragma unroll
-          for (int e = 0; e < E; ++e) acc[g][e] *= corr;
+          for (int e = 0; e < W; ++e) acc[g][e] *= corr;
           m[g] = mx;
         }
         // exp under the mask: a row that saw no key yet has s - m == 0
         const float p = vis ? expf(__fsub_rn(s, m[g])) : 0.f;
         l[g] += p;
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        for (int e = 0; e < W; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
       }
     }
   }
@@ -190,11 +229,16 @@ split_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     for (int off = CP; off < 32; off <<= 1) {
       l[g] += __shfl_xor_sync(~0u, l[g], off);
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] += __shfl_xor_sync(~0u, acc[g][e], off);
+      for (int e = 0; e < W; ++e) acc[g][e] += __shfl_xor_sync(~0u, acc[g][e], off);
     }
-    if (g < nr && rl == 0 && on) {
+    if (g < nr && rl == 0) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) w_acc[(warp * GMAX + g) * hd + cl * E + e] = acc[g][e];
+      for (int i = 0; i < NCM; ++i)
+        if (on[i]) {
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            w_acc[(warp * GMAX + g) * hd + (cl + 32 * i) * E + e] = acc[g][i * E + e];
+        }
       if (lane == 0) {
         w_m[warp * GMAX + g] = m[g];
         w_l[warp * GMAX + g] = l[g];
@@ -249,14 +293,12 @@ merge_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_a
   }
 }
 
-template <typename T, typename P>
+template <typename T, typename P, int VB>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const float* ks,
                    const float* vs, const int* bt, const int* cl, void* out, float* ws, int b,
                    int n_kv, int group, int hd, int page_size, int pages_per_seq,
                    float sm_scale, cudaStream_t stream) {
-  constexpr int E = Row16<P>::E;
-  const int c = hd / E;
-  if (hd % E != 0 || c < 1 || c > 32) return cudaErrorInvalidValue;
+  if (hd < 1 || hd > HD_MAX || hd % Chunk<P, VB>::E != 0) return cudaErrorInvalidValue;
   const int pps = pages_per_split(page_size);
   const int n_split = (pages_per_seq + pps - 1) / pps;
   if (n_split > 65535) return cudaErrorInvalidValue;
@@ -265,7 +307,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const float* k
   float* part_acc = ws + static_cast<size_t>(rows) * n_split * 2;
   const dim3 grid(b * n_kv * ((group + GMAX - 1) / GMAX), n_split);
   const size_t smem = sizeof(float) * NW * GMAX * (hd + 2);
-  split_kernel<T, P><<<grid, NT, smem, stream>>>(
+  split_kernel<T, P, VB><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(kp), static_cast<const P*>(vp), ks, vs,
       bt, cl, part_ml, part_acc, n_kv, group, hd, page_size, pages_per_seq, sm_scale);
   cudaError_t err = cudaGetLastError();
@@ -275,6 +317,22 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const float* k
   return cudaGetLastError();
 }
 
+// chunks of 16 bytes where a pool row's byte length allows, else of 4
+template <typename T, typename P>
+cudaError_t dispatch_chunk(const void* q, const void* kp, const void* vp, const float* ks,
+                           const float* vs, const int* bt, const int* cl, void* out, float* ws,
+                           int b, int n_kv, int group, int hd, int page_size, int pages_per_seq,
+                           float sm_scale, cudaStream_t st) {
+  const int row_bytes = hd * static_cast<int>(sizeof(P));
+  if (row_bytes % 16 == 0)
+    return launch<T, P, 16>(q, kp, vp, ks, vs, bt, cl, out, ws, b, n_kv, group, hd, page_size,
+                            pages_per_seq, sm_scale, st);
+  if (row_bytes % 4 == 0)
+    return launch<T, P, 4>(q, kp, vp, ks, vs, bt, cl, out, ws, b, n_kv, group, hd, page_size,
+                           pages_per_seq, sm_scale, st);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 cudaError_t dispatch_pool(int pool_dtype, const void* q, const void* kp, const void* vp,
                           const float* ks, const float* vs, const int* bt, const int* cl,
@@ -282,14 +340,15 @@ cudaError_t dispatch_pool(int pool_dtype, const void* q, const void* kp, const v
                           int page_size, int pages_per_seq, float sm_scale, cudaStream_t st) {
   switch (pool_dtype) {
     case 0:
-      return launch<T, float>(q, kp, vp, ks, vs, bt, cl, out, ws, b, n_kv, group, hd,
-                              page_size, pages_per_seq, sm_scale, st);
-    case 1:
-      return launch<T, __nv_bfloat16>(q, kp, vp, ks, vs, bt, cl, out, ws, b, n_kv, group, hd,
+      return dispatch_chunk<T, float>(q, kp, vp, ks, vs, bt, cl, out, ws, b, n_kv, group, hd,
                                       page_size, pages_per_seq, sm_scale, st);
+    case 1:
+      return dispatch_chunk<T, __nv_bfloat16>(q, kp, vp, ks, vs, bt, cl, out, ws, b, n_kv,
+                                              group, hd, page_size, pages_per_seq, sm_scale,
+                                              st);
     case 2:
-      return launch<T, int8_t>(q, kp, vp, ks, vs, bt, cl, out, ws, b, n_kv, group, hd,
-                               page_size, pages_per_seq, sm_scale, st);
+      return dispatch_chunk<T, int8_t>(q, kp, vp, ks, vs, bt, cl, out, ws, b, n_kv, group, hd,
+                                       page_size, pages_per_seq, sm_scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -299,7 +358,8 @@ cudaError_t dispatch_pool(int pool_dtype, const void* q, const void* kp, const v
 
 // q_dtype: 0 = fp32, 1 = bf16; pool_dtype: 0 = fp32, 1 = bf16, 2 = int8
 // (then k_scale and v_scale are required). The pools must start 16-byte
-// aligned. Returns cudaGetLastError().
+// aligned; hd * sizeof(pool element) must be a multiple of 4 bytes and hd at
+// most 256. Returns cudaGetLastError().
 extern "C" int paged_decode(const void* q, const void* k_pages, const void* v_pages,
                             const void* k_scale, const void* v_scale, const void* block_table,
                             const void* cache_len, void* out, void* workspace, int b, int n_kv,

@@ -67,13 +67,24 @@ class SlotState:
     row per field of ``FIELDS`` (``temperature`` holds fp32 bits), then the
     ``(max_batch, pages_per_seq)`` block tables in paged mode. The KV
     cache's ``cache_index`` and ``block_table`` are views of the device
-    buffer, so one copy (:meth:`push`) refreshes all of it.
+    buffer, so one copy refreshes all of it.
 
     The session API keeps ``length`` and the tables; the caller of a fused
-    decode runner keeps the rest. Whoever changes the host mirror marks the
-    state ``dirty``; :meth:`sync` then copies it before the next decode.
-    The copy is synchronous (pageable host memory), so no copy is in flight
-    when the host next changes the mirror."""
+    decode runner keeps the rest. Whoever changes the host mirror says which
+    part: ``dirty`` for all of it (:meth:`push` copies the whole mirror), or
+    :meth:`mark_rows` for some slots, whose fields and table rows one copy
+    and a row-masked merge on the device then replace while every other
+    row keeps what the device holds (a decode block run since the host last
+    read it has advanced ``tok``, ``count``, ``done`` and ``length`` there).
+    :meth:`take_tok` makes a marked row's ``tok`` a device value instead, an
+    index into a buffer the caller hands to :meth:`sync` (a first token
+    still on the device), and latches its ``done`` on its ``eos`` there.
+
+    The whole-mirror copy is synchronous (pageable memory). The merge's
+    copy leaves from one of two pinned buffers on CUDA and does not wait for
+    the device: a buffer is written again only after the event recorded
+    behind its last copy has passed, so no copy is in flight from a buffer
+    the host changes."""
 
     FIELDS = ("tok", "key_lo", "key_hi", "count", "length", "active", "done", "eos", "greedy",
               "temperature")
@@ -84,6 +95,18 @@ class SlotState:
         self.host = np.zeros((n,), np.int32)
         self.dev = torch.zeros((n,), dtype=torch.int32, device=device)
         self.dirty = False
+        # rows to merge at the next sync, and the device source of their tok
+        self._rows = np.zeros((batch,), bool)
+        self._tok_src = np.full((batch,), -1, np.int32)
+        # the merge: the slot row of each element of the packed buffer, and
+        # the staged copy (mirror, row mask, tok sources) on the device
+        row_of = np.concatenate([np.tile(np.arange(batch), len(self.FIELDS)),
+                                 np.repeat(np.arange(batch), table_cols)])
+        self._row_of = torch.as_tensor(row_of, dtype=torch.long, device=device)
+        self._staged = torch.zeros((n + 2 * batch,), dtype=torch.int32, device=device)
+        self._pinned: list = []
+        self._copied: list = [None, None]   # the event behind each pinned buffer's copy
+        self._turn = 0
 
     def _span(self, name: str) -> slice:
         i = self.FIELDS.index(name)
@@ -112,12 +135,58 @@ class SlotState:
         """One host-to-device copy of the whole mirror."""
         self.dev.copy_(torch.from_numpy(self.host))
         self.dirty = False
+        self._rows[:] = False
+        self._tok_src[:] = -1
 
-    def sync(self) -> int:
-        """:meth:`push` when the mirror changed; returns the copies made."""
-        if not self.dirty:
+    def mark_rows(self, rows) -> None:
+        """Copy these slots' rows of the mirror at the next :meth:`sync`."""
+        self._rows[np.asarray(rows, np.int64)] = True
+
+    def take_tok(self, slot: int, index: int) -> None:
+        """At the next :meth:`sync`, ``slot``'s tok is ``firsts[index]`` of
+        the device buffer passed there (the slot must be marked too)."""
+        self._tok_src[slot] = index
+
+    def _merge(self, firsts: Optional[torch.Tensor]) -> None:
+        n, b = self.host.size, self.batch
+        packed = np.concatenate([self.host, self._rows.astype(np.int32), self._tok_src])
+        if self.dev.device.type == "cuda":
+            if not self._pinned:
+                self._pinned = [torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
+                                for _ in range(2)]
+            buf, done = self._pinned[self._turn], self._copied[self._turn]
+            if done is not None:
+                done.synchronize()   # the last copy from this buffer has left it
+            buf.numpy()[:] = packed
+            self._staged.copy_(buf, non_blocking=True)
+            self._copied[self._turn] = torch.cuda.Event()
+            self._copied[self._turn].record()
+            self._turn ^= 1
+        else:
+            self._staged.copy_(torch.from_numpy(packed))
+        take_row = self._staged[n:n + b] != 0
+        self.dev.copy_(torch.where(take_row[self._row_of], self._staged[:n], self.dev))
+        if (self._tok_src >= 0).any():
+            if firsts is None:
+                raise ValueError("take_tok rows need the firsts buffer at sync")
+            src = self._staged[n + b:]
+            take = src >= 0
+            tok, done, eos = self.dev_field("tok"), self.dev_field("done"), self.dev_field("eos")
+            tok.copy_(torch.where(take, firsts[src.clamp(min=0).long()], tok))
+            done.copy_(torch.where(take & (eos >= 0) & (tok == eos), 1, done))
+        self._rows[:] = False
+        self._tok_src[:] = -1
+
+    def sync(self, firsts: Optional[torch.Tensor] = None) -> int:
+        """Bring the device up to the mirror's changes: the whole mirror when
+        ``dirty``, else the marked rows (``firsts``: the device buffer that
+        :meth:`take_tok` indexes). Returns the host-to-device copies made."""
+        if self.dirty:
+            self.push()
+            return 1
+        if not self._rows.any():
             return 0
-        self.push()
+        self._merge(firsts)
         return 1
 
 
@@ -296,8 +365,15 @@ class CausalLM:
                 return b
         raise ValueError(f"prompt length {s} exceeds largest bucket {self.buckets[-1]}")
 
-    def _ids(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=self.device)
+    def _ids(self, a, dtype=torch.int32) -> torch.Tensor:
+        """Host values on the device (int32 by default). On CUDA the copy
+        leaves from a fresh pinned buffer without waiting for the device
+        (PyTorch's host allocator keeps the buffer until the copy has run),
+        so a call made while a decode block runs does not wait for it."""
+        t = torch.as_tensor(np.asarray(a), dtype=dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     def _forward(self, ids: torch.Tensor, cache: KVCache) -> torch.Tensor:
         # no_grad rather than inference_mode: the cache tensors made here
@@ -365,10 +441,11 @@ class CausalLM:
         self._session = session
         return session
 
-    def _set_block_tables(self, session: DecodeSession) -> None:
-        """Mirror the host tables; the device copy rides the next sync."""
-        session.slots.host_table[:] = session.paged.tables
-        session.slots.dirty = True
+    def _set_block_tables(self, session: DecodeSession, slot_ids: np.ndarray) -> None:
+        """Mirror these slots' host tables; the device copy rides the next
+        sync (with their other fields)."""
+        session.slots.host_table[slot_ids] = session.paged.tables[slot_ids]
+        session.slots.mark_rows(slot_ids)
 
     def _check_slots(self, slot_ids: np.ndarray) -> None:
         if len(slot_ids) == 0:
@@ -410,7 +487,7 @@ class CausalLM:
         # requests are overwritten, as the JAX scatter does)
         fresh = self.model.new_cache(rows, self.device)
         logits = self._forward(self._ids(ids), fresh)
-        dst = torch.as_tensor(slot_ids, dtype=torch.long, device=self.device)
+        dst = self._ids(slot_ids, torch.long)
         cache = session.cache
         for layer in range(self.config.num_layers):
             cache.keys[layer].index_copy_(0, dst, fresh.keys[layer])
@@ -418,7 +495,7 @@ class CausalLM:
         cache.cache_index.index_copy_(0, dst, self._ids(lengths))
         session.lengths[slot_ids] = lengths
         session.active[slot_ids] = True
-        last = torch.as_tensor(np.maximum(lengths - 1, 0), dtype=torch.long, device=self.device)
+        last = self._ids(np.maximum(lengths - 1, 0), torch.long)
         return logits[torch.arange(rows, device=self.device), last]
 
     def _insert_paged(self, session: DecodeSession, slot_ids: np.ndarray,
@@ -462,13 +539,72 @@ class CausalLM:
         for i in range(rows):
             pkv.commit(int(slot_ids[i]), plans[i], prompt_ids[i, : lengths[i]].tolist(),
                        ns=nss[i])
-        dst = torch.as_tensor(slot_ids, dtype=torch.long, device=self.device)
+        dst = self._ids(slot_ids, torch.long)
         session.cache.cache_index.index_copy_(0, dst, self._ids(lengths))
         session.cache.block_table.index_copy_(0, dst, self._ids(tables))
         session.slots.host_table[slot_ids] = tables
         session.lengths[slot_ids] = lengths
         session.active[slot_ids] = True
-        last = torch.as_tensor(np.maximum(suffix - 1, 0), dtype=torch.long, device=self.device)
+        last = self._ids(np.maximum(suffix - 1, 0), torch.long)
+        return logits[torch.arange(rows, device=self.device), last]
+
+    def extend(self, session: DecodeSession, slot_ids, chunk_ids: np.ndarray,
+               lengths: np.ndarray, starts: np.ndarray,
+               tables: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Chunked-prefill extension (JAX ``causal_lm.py:1121``): write
+        ``lengths[i]`` prompt tokens of row i at positions ``starts[i] ..
+        starts[i] + lengths[i]``, attending over what the slot holds below
+        ``starts[i]``. The chunk is padded to its bucket; the pad tail's
+        writes land past the covered length, behind the position mask, as a
+        one-shot insert's pads do. Returns the logits at each row's last real
+        chunk token (the next-token logits on a request's final chunk).
+
+        Paged: the forward runs through the caller's ``tables`` (every page
+        written so far, scratch beyond), the paged insert's route; the
+        slot's device block table is left as it is (scratch until the
+        admission commits), so decode blocks run between chunks write the
+        idle row into its scratch page. int8 pages: a chunk starting inside
+        a page requantizes that page's window, as the insert does. Slab:
+        the rows are gathered, extended and scattered back (JAX
+        ``_chunk_extend_programs``, ``:1054``). Either way the slot's
+        ``cache_index`` becomes ``starts + lengths``, so an idle row's
+        decode writes land at or past what the chunks have covered. Runs
+        eagerly; it rebinds nothing a captured block reads."""
+        self._check_session(session)
+        slot_ids = np.asarray(slot_ids, np.int32)
+        self._check_slots(slot_ids)
+        rows, s = chunk_ids.shape
+        if rows != len(slot_ids):
+            raise ValueError(f"{rows} chunks for {len(slot_ids)} slots")
+        lengths = np.asarray(lengths, np.int32)
+        starts = np.asarray(starts, np.int32)
+        if (lengths < 1).any():
+            raise ValueError(f"empty chunk in {lengths.tolist()}")
+        new_len = starts + lengths
+        if int(new_len.max()) >= self.config.max_seq_len:
+            raise ValueError(f"chunk end {int(new_len.max())} leaves no decode room in "
+                             f"max_seq_len {self.config.max_seq_len}")
+        bucket = self._bucket_for(s)
+        ids = np.zeros((rows, bucket), np.int32)
+        ids[:, :s] = chunk_ids
+        dst = self._ids(slot_ids, torch.long)
+        cache = session.cache
+        if self.paged:
+            if tables is None:
+                raise ValueError("paged extend needs per-row block tables")
+            logits = self._forward(self._ids(ids), cache.rows(self._ids(starts),
+                                                              self._ids(tables)))
+        else:
+            view = cache.rows(self._ids(starts))
+            view.keys = [t.index_select(0, dst) for t in cache.keys]
+            view.values = [t.index_select(0, dst) for t in cache.values]
+            logits = self._forward(self._ids(ids), view)
+            for layer in range(self.config.num_layers):
+                cache.keys[layer].index_copy_(0, dst, view.keys[layer])
+                cache.values[layer].index_copy_(0, dst, view.values[layer])
+        cache.cache_index.index_copy_(0, dst, self._ids(new_len))
+        session.lengths[slot_ids] = new_len
+        last = self._ids(np.maximum(lengths - 1, 0), torch.long)
         return logits[torch.arange(rows, device=self.device), last]
 
     def _decode_step(self, session: DecodeSession, tok: torch.Tensor) -> torch.Tensor:
@@ -536,7 +672,7 @@ class CausalLM:
         if self.paged and session.paged is not None:
             for slot in slot_ids:
                 session.paged.release(int(slot))
-            self._set_block_tables(session)
+            self._set_block_tables(session, slot_ids)
 
     # --- generation ------------------------------------------------------
 

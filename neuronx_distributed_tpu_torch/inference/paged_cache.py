@@ -5,9 +5,10 @@ The port's own copy of the device-independent core of
 ``neuronx_distributed_tpu/inference/paged_cache.py`` (PagedAttention,
 Kwon et al. 2023; RadixAttention, Zheng et al. 2024). Decisions are the
 same as there for the same call sequence — free-list order, refcounts, LRU
-victims, block tables — so the two can be held against each other. The
-host tier, chunked prefill, page adoption and conversation purge come with
-later slices.
+victims, block tables — so the two can be held against each other. Chunked
+prefill allocates a long prompt's pages chunk by chunk
+(:class:`ChunkedPrefill`, ``begin/extend/finish/abort_chunked``). The host
+tier, page adoption and conversation purge come with later slices.
 
 Device layout (``models/llama.py``): each layer holds a K and a V page pool
 of ``num_pages`` pages x ``page_size`` tokens; slot ``i``'s block table row
@@ -224,6 +225,22 @@ class RadixPrefixIndex:
 
 
 @dataclasses.dataclass
+class ChunkedPrefill:
+    """In-flight chunked-prefill page state of one request (JAX
+    ``paged_cache.py:682``): pages are allocated as chunks extend coverage,
+    so a long prompt never needs its whole footprint free at once, and an
+    abort rolls every hold back in one step. ``start`` is the page-aligned
+    reused prefix length (the prefill begins there); ``owned`` grows with
+    each :meth:`PagedKVCache.extend_chunked`."""
+
+    tokens: list
+    reserve_total: int
+    start: int
+    shared: List[int]
+    owned: List[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class InsertPlan:
     """One admission's page layout: ``table`` is the block-table row
     (shared pages, owned pages, -1 for scratch), ``start`` the page-aligned
@@ -343,6 +360,75 @@ class PagedKVCache:
         pages = self._slot_pages.pop(slot, None)
         if pages:
             self.allocator.release(pages)
+        self.tables[slot] = self.scratch[slot]
+
+    # --- chunked-prefill lifecycle: begin -> extend* -> finish | abort ------
+
+    def begin_chunked(self, tokens: Sequence[int], reserve_total: int,
+                      ns: Optional[str] = None) -> ChunkedPrefill:
+        """Open a chunked admission (JAX ``paged_cache.py:1124``): the
+        prefix walk takes a hold on the reused pages, and no page is owned
+        yet. Cannot raise :class:`PagePoolExhausted`."""
+        tokens = _ns_tokens(tokens, ns)
+        if len(tokens) < 1:
+            raise ValueError("empty prompt")
+        shared: List[int] = []
+        if self.prefix is not None:
+            self.prefix_queries += 1
+            shared = self._resolve_prefix(tokens)
+            if shared:
+                self.prefix_hits += 1
+                self.prefix_hit_tokens += len(shared) * self.page_size
+        return ChunkedPrefill(tokens=list(tokens), reserve_total=int(reserve_total),
+                              start=len(shared) * self.page_size, shared=list(shared))
+
+    def extend_chunked(self, state: ChunkedPrefill, covered_tokens: int,
+                       final: bool = False) -> None:
+        """Allocate the pages a chunk needs before it runs (JAX ``:1152``):
+        coverage grows to ``covered_tokens``, and the final chunk also covers
+        the decode reserve. Evicts cache-only prefix pages first; raises
+        :class:`PagePoolExhausted` with ``state`` untouched."""
+        ps = self.page_size
+        total = min(int(covered_tokens), self.max_seq_len)
+        if final:
+            total = min(max(state.reserve_total, len(state.tokens)), self.max_seq_len)
+        need = -(-total // ps) - len(state.shared) - len(state.owned)
+        if need <= 0:
+            return
+        pages = self._alloc_with_reclaim(need)
+        if pages is None:
+            raise PagePoolExhausted(f"chunked prefill needs {need} pages, "
+                                    f"{self.allocator.available()} free")
+        state.owned.extend(pages)
+
+    def chunk_table(self, slot: int, state: ChunkedPrefill) -> np.ndarray:
+        """Block-table row for the next chunk (JAX ``:1177``): the pages
+        held so far, scratch beyond. Not installed in :attr:`tables` until
+        :meth:`finish_chunked`."""
+        t = np.full((self.pages_per_slot,), self.scratch[slot], np.int32)
+        pages = state.shared + state.owned
+        t[: len(pages)] = pages
+        return t
+
+    def finish_chunked(self, slot: int, state: ChunkedPrefill) -> None:
+        """Install the completed prefill on ``slot`` and register the
+        prompt's fully covered pages (JAX ``:1190``); allocates nothing."""
+        self.release(slot)
+        self.tables[slot] = self.chunk_table(slot, state)
+        self._slot_pages[slot] = state.shared + state.owned
+        if self.prefix is not None:
+            n_full = len(state.tokens) // self.page_size
+            self.prefix.register(state.tokens[: n_full * self.page_size],
+                                 [int(p) for p in self.tables[slot, :n_full]])
+        self.pages_in_use_peak = max(self.pages_in_use_peak, self.allocator.in_use())
+
+    def abort_chunked(self, slot: int, state: ChunkedPrefill) -> None:
+        """Roll an in-flight chunked prefill back (JAX ``:1207``): every
+        hold it took is released and the slot's table row points at scratch.
+        Idempotent."""
+        self.allocator.release(state.shared)
+        self.allocator.release(state.owned)
+        state.shared, state.owned = [], []
         self.tables[slot] = self.scratch[slot]
 
     def live_pages(self) -> List[int]:

@@ -29,6 +29,8 @@ NEG_INF = -1e30
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the widest head_dim the kernel reads (csrc/paged_decode.cu HD_MAX)
+_MAX_HEAD_DIM = 256
 
 
 def paged_kernel_supported(s_new: int, page_size: int, n_heads: int,
@@ -149,13 +151,13 @@ def _paged_decode_kernel(q, k_pages, v_pages, block_table, cache_len, k_scale,
             raise ValueError(f"paged kernel needs a contiguous {name}")
     b, _, n_q, hd = q.shape
     _, ps, n_kv, _ = k_pages.shape
-    # a pool row is read 16 bytes a lane, hd * itemsize / 16 lanes, up to a
-    # warp's 32 (a row's lane group is the next power of two; spare lanes
-    # hold zeros)
-    lanes, rest = divmod(hd * k_pages.element_size(), 16)
-    if rest or lanes > 32:
-        raise ValueError(f"paged kernel reads pool rows 16 bytes a lane: head_dim {hd} of "
-                         f"{k_pages.dtype} must span whole 16-byte lanes, at most 32")
+    # a pool row is read in chunks of 16 bytes (4 where its byte length is
+    # no multiple of 16) spread over the lanes of a warp
+    if hd > _MAX_HEAD_DIM:
+        raise ValueError(f"paged kernel takes head_dim up to {_MAX_HEAD_DIM}, got {hd}")
+    if hd * k_pages.element_size() % 4:
+        raise ValueError(f"paged kernel reads pool rows 4 bytes at a time at least: head_dim "
+                         f"{hd} of {k_pages.dtype} spans {hd * k_pages.element_size()} bytes")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"paged kernel needs {name} to start 16-byte aligned")

@@ -1,0 +1,121 @@
+"""Synthetic arrival traces for the serving engine, numpy only.
+
+The port's own copy of ``synthetic_trace_stream`` and ``synthetic_trace``
+(``neuronx_distributed_tpu/inference/engine.py:4212-4386``): for the same
+knobs and seed it draws the same prompts, arrival blocks and tenant labels.
+Virtual time is in decode blocks: a request with ``arrival_block`` t is
+admitted no earlier than the engine's block t (``ServeEngine.submit``).
+
+Knobs whose engine features are not ported yet raise
+``NotImplementedError`` naming the queue item that brings them: deadlines
+(``ttft_deadline_ms``, ``deadline_ms``: ROADMAP A5), adapters (``adapters``,
+``adapter_skew``: A8.1) and grammars (``grammar_frac``, ``grammars``:
+A8.2). Leaving them out shifts no other draw: in the reference the adapter
+and grammar labels come from streams of their own, and the deadlines are
+copied, not drawn.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+
+_NOT_PORTED = {
+    "ttft_deadline_ms": (None, "deadlines and EDF admission (ROADMAP A5)"),
+    "deadline_ms": (None, "deadlines and EDF admission (ROADMAP A5)"),
+    "adapters": (0, "multi-LoRA adapters (ROADMAP A8.1)"),
+    "adapter_skew": (1.0, "multi-LoRA adapters (ROADMAP A8.1)"),
+    "grammar_frac": (0.0, "grammar-constrained decoding (ROADMAP A8.2)"),
+    "grammars": ((), "grammar-constrained decoding (ROADMAP A8.2)"),
+}
+
+
+def synthetic_trace_stream(num_requests: int, vocab_size: int, *,
+                           prompt_lens: Sequence[int] = (8, 16), max_new_tokens: int = 16,
+                           mean_interarrival_blocks: float = 0.5,
+                           eos_token_id: Optional[int] = None,
+                           shared_prefix_len: int = 0,
+                           prefix_families: int = 1,
+                           long_prompt_frac: float = 0.0,
+                           long_prompt_len: int = 0,
+                           tenants: int = 0,
+                           tenant_skew: float = 1.0,
+                           diurnal: float = 0.0,
+                           diurnal_period_blocks: int = 64,
+                           burst_every: int = 0,
+                           burst_mult: float = 4.0,
+                           seed: int = 0,
+                           **not_ported) -> Iterator[dict]:
+    """One request dict at a time (``prompt``, ``max_new_tokens``,
+    ``eos_token_id``, ``arrival_block``, and ``tenant`` when ``tenants``):
+    exponential inter-arrivals of mean ``mean_interarrival_blocks``, scaled
+    by ``1 + diurnal * sin(2 pi t / diurnal_period_blocks)`` and by
+    ``burst_mult`` in the first quarter of every ``burst_every`` blocks;
+    prompt lengths cycled through ``prompt_lens``, every
+    ``round(1 / long_prompt_frac)``-th request (never the first) carrying
+    ``long_prompt_len`` tokens instead; ``shared_prefix_len`` tokens of one
+    of ``prefix_families`` prefixes (runs of four requests) before each
+    prompt; tenants ``t0..`` drawn with P(rank k) proportional to
+    1 / (k + 1) ** ``tenant_skew`` (a label only)."""
+    for name, value in not_ported.items():
+        if name not in _NOT_PORTED:
+            raise TypeError(f"synthetic_trace got an unexpected keyword {name!r}")
+        default, feature = _NOT_PORTED[name]
+        if value != default and not (value is None and default is None):
+            raise NotImplementedError(f"{name} needs {feature}, not ported yet")
+    if not 0.0 <= diurnal < 1.0:
+        raise ValueError(f"diurnal must be in [0, 1), got {diurnal}")
+    if diurnal_period_blocks < 1:
+        raise ValueError(f"diurnal_period_blocks must be >= 1, got {diurnal_period_blocks}")
+    if burst_every < 0:
+        raise ValueError(f"burst_every must be >= 0, got {burst_every}")
+    if burst_mult <= 0:
+        raise ValueError(f"burst_mult must be > 0, got {burst_mult}")
+    if long_prompt_frac < 0 or long_prompt_frac > 1:
+        raise ValueError(f"long_prompt_frac must be in [0, 1], got {long_prompt_frac}")
+    if long_prompt_frac > 0 and long_prompt_len < 1:
+        raise ValueError("long_prompt_frac > 0 needs long_prompt_len >= 1")
+    if tenants < 0:
+        raise ValueError(f"tenants must be >= 0, got {tenants}")
+    if tenant_skew < 0:
+        raise ValueError(f"tenant_skew must be >= 0, got {tenant_skew}")
+    if prefix_families < 1:
+        raise ValueError(f"prefix_families must be >= 1, got {prefix_families}")
+    long_every = round(1 / long_prompt_frac) if long_prompt_frac > 0 else 0
+    rs = np.random.RandomState(seed)
+    prefixes = [rs.randint(1, vocab_size, (shared_prefix_len,)).astype(np.int32)
+                for _ in range(prefix_families)]
+    tenant_p = None
+    if tenants:
+        w = 1.0 / np.arange(1, tenants + 1, dtype=np.float64) ** tenant_skew
+        tenant_p = w / w.sum()
+    t = 0.0
+    for i in range(num_requests):
+        rate = 1.0
+        if diurnal > 0:
+            rate *= max(1.0 + diurnal * math.sin(2.0 * math.pi * t / diurnal_period_blocks),
+                        0.05)
+        if burst_every and int(t) % burst_every < max(1, burst_every // 4):
+            rate *= burst_mult
+        t += rs.exponential(mean_interarrival_blocks / rate)
+        s = int(prompt_lens[i % len(prompt_lens)])
+        if long_every and i % long_every == long_every - 1:
+            s = int(long_prompt_len)
+        tail = rs.randint(1, vocab_size, (s,)).astype(np.int32)
+        item = {
+            "prompt": (np.concatenate([prefixes[(i // 4) % prefix_families], tail])
+                       if shared_prefix_len else tail),
+            "max_new_tokens": max_new_tokens,
+            "eos_token_id": eos_token_id,
+            "arrival_block": int(t),
+        }
+        if tenant_p is not None:
+            item["tenant"] = f"t{int(rs.choice(tenants, p=tenant_p))}"
+        yield item
+
+
+def synthetic_trace(num_requests: int, vocab_size: int, **kw) -> List[dict]:
+    """:func:`synthetic_trace_stream` as a list (the same knobs and draws)."""
+    return list(synthetic_trace_stream(num_requests, vocab_size, **kw))

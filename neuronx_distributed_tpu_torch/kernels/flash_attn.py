@@ -16,11 +16,12 @@ TPU kernel's tiling and roundings):
   (recompute backward under a caller-supplied LSE and ``delta``), both
   behind :func:`flash_block_grads`.
 
-The kernels are built for head_dim 64 and 128; any other head_dim up to
-128 runs them zero-padded to the next of those widths (:func:`at_kernel_width`):
-zero columns change no q·kᵀ, no LSE, no delta and none of the first d
-columns of an output, and the softmax scale stays the caller's (by default
-1/√d of the unpadded d).
+The kernels are built for head_dim 64, 128 and 256; any other head_dim up
+to 256 runs them zero-padded to the next of those widths
+(:func:`at_kernel_width`): zero columns change no q·kᵀ, no LSE, no delta
+and none of the first d columns of an output, and the softmax scale stays
+the caller's (by default 1/√d of the unpadded d). A head_dim above 256 (no
+public decoder config has one) raises.
 
 :func:`flash_attention` is differentiable through ``_FlashAttention`` on
 every device, the counterpart of JAX's custom VJP. LSE and ``delta`` are
@@ -40,7 +41,7 @@ NEG_INF = -1e30
 INVALID_POS = 2**30  # kv sentinel: never <= any real query position
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def default_attention_blocks(sq: int) -> tuple:
@@ -154,7 +155,8 @@ def kernel_head_dim(d: int) -> int:
     for w in _KERNEL_HEAD_DIMS:
         if d <= w:
             return w
-    raise ValueError(f"flash kernels take head_dim up to {_KERNEL_HEAD_DIMS[-1]}, got {d}")
+    raise ValueError(f"flash kernels take head_dim up to {_KERNEL_HEAD_DIMS[-1]} (the widest "
+                     f"built width), got {d}")
 
 
 def at_kernel_width(fn, d: int, padded, *rest, keep=()):
@@ -174,7 +176,7 @@ def at_kernel_width(fn, d: int, padded, *rest, keep=()):
 
 def _kernel_check(q, **operands):
     """What the CUDA kernels take: fp32 or bf16, head_dim at a built width
-    (64 or 128), every operand contiguous."""
+    (64, 128 or 256), every operand contiguous."""
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"flash kernel takes fp32 or bf16, got {q.dtype}")
     if q.shape[-1] not in _KERNEL_HEAD_DIMS:

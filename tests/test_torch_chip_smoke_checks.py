@@ -129,3 +129,65 @@ def test_held_excuses_only_what_the_fp64_value_backs(smoke):
     assert not r["ok"]
     assert r["floor_needed"] == pytest.approx(0.01 - rel * 0.25, rel=1e-4)
     assert not smoke.held(good, twin, floor, rel)["ok"]   # without fp64, the twin decides
+
+
+def test_trace_latency_reads_ttft_and_gaps_from_arrival(smoke):
+    """The trace phase's latency summary on hand-made completions: TTFT is
+    first token minus arrival, per kind (short below ``long_len``), p50 the
+    upper middle and max; the largest gap is taken over short requests
+    only."""
+    from neuronx_distributed_tpu_torch.inference.engine import Completion
+
+    def comp(rid, plen, ts):
+        return Completion(request_id=rid, tokens=np.zeros(len(ts), np.int64), prompt_len=plen,
+                          queue_blocks=0, decode_blocks=0, token_ts=np.asarray(ts))
+
+    done = [comp(0, 64, [1.0, 1.1, 1.2]), comp(1, 128, [2.0, 2.5]),
+            comp(2, 3072, [3.0, 4.0]), comp(3, 384, [1.5, 1.52, 1.9])]
+    arrival = {0: 0.9, 1: 1.0, 2: 1.0, 3: 1.4}
+    r = smoke.trace_latency(done, arrival, 3072)
+    assert r["ttft_ms_p50_short"] == pytest.approx(100.0)      # sorted 100, 100, 1000
+    assert r["ttft_ms_max_short"] == pytest.approx(1000.0)
+    assert r["ttft_ms_p50_long"] == r["ttft_ms_max_long"] == pytest.approx(2000.0)
+    assert r["max_gap_ms_short"] == pytest.approx(500.0)       # the long one's 1 s gap is not
+    r = smoke.trace_latency(done[:1], arrival, 32)
+    assert r["ttft_ms_p50_short"] is None and r["max_gap_ms_short"] is None
+    assert r["ttft_ms_max_long"] == pytest.approx(100.0)
+
+
+def test_chunk_flash_case_is_the_last_chunk_of_a_long_prompt(smoke):
+    """B1 at the chunk shape: 32 query heads of 512 queries at positions
+    2560..3071, 8 kv heads over positions 0..4095 whose keys past 3071 are
+    zero (unwritten), the 1/sqrt(128) scale and the extend's (512, 512)
+    blocks; the JAX flash forward on the same (fp32) operands agrees with
+    the port's twin."""
+    args = smoke.chunk_flash_case("cpu")
+    q, k, v, qpos, kpos, sm, bq, bk, group, h = args
+    assert tuple(q.shape) == (32, 512, 128) and tuple(k.shape) == tuple(v.shape) == (8, 4096, 128)
+    assert q.dtype == torch.bfloat16
+    assert qpos.flatten().tolist() == list(range(2560, 3072))
+    assert kpos.flatten().tolist() == list(range(4096))
+    assert float(k[:, 3072:].abs().max()) == float(v[:, 3072:].abs().max()) == 0.0
+    assert float(k[:, :3072].abs().max()) > 0
+    assert (sm, bq, bk, group, h) == (128 ** -0.5, 512, 512, 4, 32)
+    assert smoke.CHUNK_QPOS0 + smoke.CHUNK_LEN == smoke.TRACE_KNOBS["long_prompt_len"]
+    assert smoke.TRACE_CHUNK == smoke.CHUNK_LEN
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import flash_block_forward_plain
+
+    # a cut of the case (4 heads, the keys a query can see and one past)
+    qs, ks, vs = q[:4].float(), k[:1, :3200].float(), v[:1, :3200].float()
+    kp = kpos[..., :3200].contiguous()
+    got, got_lse = flash_block_forward_plain(qs, ks, vs, qpos, kp, sm, bq, 64, 4, 4)
+    want, want_lse = jfa.flash_block_forward(
+        *(jnp.asarray(t.numpy()) for t in (qs, ks, vs, qpos, kp)), sm, bq, 64, 4, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0], atol=1e-5)
+
+
+def test_head_dim_floors_widen_only_above_128(smoke):
+    narrow, wide = smoke.head_dim_floors(96), smoke.head_dim_floors(256)
+    assert narrow["dq"] == smoke.TOL_DQ_FLOOR and narrow["paged"] == smoke.TOL_PAGED_FLOOR
+    assert wide["dq"] == smoke.TOL_DQ_FLOOR_WIDE and wide["dk"] == smoke.TOL_DK_FLOOR_WIDE
+    assert wide["out"] == narrow["out"] and wide["dv"] == narrow["dv"]
+    assert smoke.head_dim_floors(160) == wide
+    assert set(smoke.HEAD_DIM_CASES) >= {160, 256}

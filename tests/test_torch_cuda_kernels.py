@@ -388,12 +388,30 @@ def test_llama_loss_backward_reaches_qkv_on_cuda(cuda):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=n)
 
 
-@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("d", [80, 96, 160])
 def test_kernels_at_head_dims_the_build_lacks(cuda, d):
-    """Head dims other than the built 64 and 128: B1 and B3 run zero-padded
-    to 128 by their wrappers (sm_scale from the unpadded d), B2 reads a
-    bf16 row with 10 or 12 lanes of a 16-lane group (int8 5 or 6 of 8,
-    fp32 20 or 24 of 32). Each against its twin by the rules above."""
+    """Head dims other than the built 64, 128 and 256: B1 and B3 run
+    zero-padded to the next built width by their wrappers (sm_scale from
+    the unpadded d), B2 reads a bf16 row with 10, 12 or 20 lanes of a
+    16- or 32-lane group (int8 5, 6 or 10; fp32 20, 24 or 40, the last two
+    chunks a lane). Each against its twin by the rules above."""
+    _check_head_dim(cuda, d)
+
+
+def test_kernels_at_head_dim_256_and_ragged_pool_rows(cuda):
+    """The 256-wide builds (B1 and B3 split their output columns across two
+    CTAs; B2 reads an fp32 row in 64 lanes, two a lane), and pool rows whose
+    byte length is no multiple of 16 (bf16 hd 36, int8 hd 40: read 4 bytes
+    a lane)."""
+    _check_head_dim(cuda, 256)
+    for pool, hd in (("bf16", 36), ("int8", 40), ("fp32", 36)):
+        for dtype in (torch.float32, torch.bfloat16):
+            _check_paged(cuda, pool, dtype, 4, 16, hd)
+    with pytest.raises(ValueError, match="up to 256"):
+        _check_paged(cuda, "bf16", torch.bfloat16, 4, 16, 288)
+
+
+def _check_head_dim(cuda, d):
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, qp, kp = _flash_case(cuda, dtype, 2, 4, 2, 128, 256, d)
         args = (q, k, v, qp, kp, d ** -0.5, 64, 64, 2, 4)
@@ -464,3 +482,35 @@ def test_generate_fused_chunk_on_cuda_equals_stepwise(cuda):
             np.testing.assert_array_equal(
                 fused.tokens, lms["cpu"].generate(prompts, 11, fused_chunk=4).tokens)
     assert set(lms[cuda].capture_ms) == {"session_fused_k4", "session_fused_k2"}
+
+
+def test_chunked_and_async_engines_on_cuda_equal_the_sync_engine(cuda):
+    """Chunked prefill (chunks of 48 over a 128 bucket, a 200-token prompt
+    past it) and the pipelined loop on the card: the streams of the
+    synchronous one-shot engine (a 200-token prompt is chunked in every
+    engine here: it is past the largest bucket), greedy and sampled; the
+    pipelined loop keeps the same schedule and makes one replay and one
+    fetch a steady block."""
+    cfg = tl.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=4, num_kv_heads=2, max_seq_len=512, dtype=torch.float32)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(5))
+    lm = CausalLM(cfg, params, tl.LlamaForCausalLM, buckets=(64, 128), max_batch=4,
+                  page_size=16, paged_attn_kernel=True, device=cuda)
+    rng = np.random.default_rng(6)
+    work = [(rng.integers(1, 255, n), budget, i // 2)
+            for i, (n, budget) in enumerate(((90, 20), (200, 13), (120, 9), (64, 17), (30, 6)))]
+    runs = {}
+    for chunk, async_loop in ((128, False), (48, False), (48, True)):
+        engine = ServeEngine(lm, block_steps=4, seed=2, prefill_chunk_tokens=chunk,
+                             async_loop=async_loop)
+        for i, (p, budget, arrival) in enumerate(work):
+            engine.submit(p, budget, arrival_block=arrival,
+                          sampler=Sampler(temperature=0.9) if i % 2 else None)
+        done = engine.run()
+        runs[(chunk, async_loop)] = {c.request_id: (c.tokens.tolist(), c.queue_blocks,
+                                                    c.ttft_blocks) for c in done}
+        assert engine.nonfinite_logits == 0 and engine.chunk_program_calls > 0
+    tokens = {k: {r: v[0] for r, v in run.items()} for k, run in runs.items()}
+    assert tokens[(48, False)] == tokens[(128, False)]
+    assert runs[(48, True)] == runs[(48, False)]
+    assert engine.host_fetches == engine.replays == engine.decode_blocks

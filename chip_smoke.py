@@ -57,6 +57,23 @@ Phases, each fatal on failure (exit code 1, no result line):
            bit-identical streams, and a chunked pass's steady decode block
            must be one replay and one fetch, any block at most one copy
            more;
+4c. overload the same ``CausalLM``: 48 greedy requests arriving 4 a block
+           (every 4th a 3072-token prompt, two tenants) with TTFT and
+           completion deadlines on a virtual block clock of fixed length
+           (``OVERLOAD_BLOCK_MS``; a short prompt's TTFT budget a quarter of
+           a long one's), behind an engine with EDF admission, a queue
+           bound of 8 and the ``deadline`` shed policy, served three times:
+           (d) the synchronous and (e) the pipelined loop through
+           ``run_trace`` (tracer on), (f) the pipelined loop untraced. The
+           three must make the same decisions (streams, schedules,
+           rejections, expiries, finish reasons); every request completes or
+           is rejected; (d) sheds to a full queue, evicts by deadline,
+           expires in the queue and mid-decode and completes on time; each
+           pass launches B1 and B2; the traced passes keep the host ops of
+           a decode block (a steady one 2, any at most 3), drop no trace
+           event, record each delivered token once and export a trace the
+           validator accepts. Printed: ``run_trace``'s report of (d) and
+           (e), and (e) against (f) tokens/s (the tracer's cost);
 5. train   Llama-3-8B widths cut to 4 layers (bf16 weights, fp32 master
            AdamW, clipping, activation checkpointing, the optimizer kernel)
            on a repeated 2 x 4096-token batch: 2 warm-up steps, then 5 timed
@@ -64,12 +81,12 @@ Phases, each fatal on failure (exit code 1, no result line):
            kernel must have run, every loss and grad norm be finite, the
            loss fall, and the peak memory stay below the card's.
 
-``--profile PATH`` repeats each trace pass under ``torch.profiler`` (device
-activity only) for the device's busy share of its wall time, then serves
-the workload once more, timed and under the profiler (its busy share, and
-its kernel table written to PATH), after every timed serving run; it also
-profiles one more training step (table at ``PATH`` with ``_train`` added
-to its name).
+``--profile PATH`` repeats each trace and overload pass under
+``torch.profiler`` (device activity only) for the device's busy share of
+its wall time, then serves the workload once more, timed and under the
+profiler (its busy share, and its kernel table written to PATH), after
+every timed serving run; it also profiles one more training step (table
+at ``PATH`` with ``_train`` added to its name).
 
 Before its last line it prints one JSON object with every kernel's numbers
 and the card's name and power limit; the last line is
@@ -1453,6 +1470,34 @@ def trace_latency(done, arrival_ts, long_len: int) -> dict:
     return out
 
 
+def count_host_ops(engine) -> list:
+    """Wrap ``engine.step_block`` so that each round that decodes a block
+    appends its host ops (replays, fetches, slot-state copies) to the
+    returned list."""
+    step, ops = engine.step_block, []
+
+    def counted_step():
+        before = (engine.replays, engine.host_fetches, engine.h2d_copies, engine.decode_blocks)
+        more = step()
+        if engine.decode_blocks > before[3]:
+            ops.append(tuple(a - b for a, b in zip(
+                (engine.replays, engine.host_fetches, engine.h2d_copies), before)))
+        return more
+
+    engine.step_block = counted_step
+    return ops
+
+
+def host_op_stats(ops) -> dict:
+    """The host-op gate's reading of :func:`count_host_ops`: a steady block
+    (no copy) one replay and one fetch, any block at most one copy more."""
+    steady = [o for o in ops if o[2] == 0]
+    return dict(host_ops=[sum(o) for o in ops],
+                host_ops_per_block=sum(map(sum, ops)) / max(len(ops), 1),
+                steady_blocks=len(steady), steady_ok=all(o == (1, 1, 0) for o in steady),
+                blocks_ok=all(o[:2] == (1, 1) and o[2] <= 1 for o in ops))
+
+
 def trace_pass(lm, dev, trace, chunk: int, async_loop: bool, counters, profile=False) -> dict:
     """One pass of ``trace`` through a ``ServeEngine`` on ``lm``: every
     request submitted up front with its arrival block, its arrival stamped
@@ -1480,7 +1525,7 @@ def trace_pass(lm, dev, trace, chunk: int, async_loop: bool, counters, profile=F
         return logits
 
     lm.extend = counted_extend
-    arrival_ts, ops = {}, []
+    arrival_ts, ops = {}, count_host_ops(engine)
     for c in counters:
         c.launches = 0
     prof = torch_profile(activities=[ProfilerActivity.CUDA]) if profile else None
@@ -1494,13 +1539,8 @@ def trace_pass(lm, dev, trace, chunk: int, async_loop: bool, counters, profile=F
             for r in engine.queue:
                 if r.arrival_block <= engine.blocks:
                     arrival_ts.setdefault(r.request_id, now)
-            before = (engine.replays, engine.host_fetches, engine.h2d_copies,
-                      engine.decode_blocks)
             if not engine.step_block():
                 break
-            if engine.decode_blocks > before[3]:
-                ops.append(tuple(a - b for a, b in zip(
-                    (engine.replays, engine.host_fetches, engine.h2d_copies), before)))
         _sync(dev)
         wall = time.perf_counter() - t0
     finally:
@@ -1513,15 +1553,11 @@ def trace_pass(lm, dev, trace, chunk: int, async_loop: bool, counters, profile=F
         return dict(wall_s=wall, device_busy_s=busy, device_busy_share=busy / wall)
     done = engine.completed
     tokens = sum(len(c.tokens) for c in done)
-    steady = [o for o in ops if o[2] == 0]
     return dict(
         prefill_chunk_tokens=chunk, async_loop=async_loop, requests=len(done),
         generated_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
         **trace_latency(done, arrival_ts, TRACE_KNOBS["long_prompt_len"]),
-        decode_blocks=engine.decode_blocks, blocks=engine.blocks,
-        host_ops=[sum(o) for o in ops], host_ops_per_block=sum(map(sum, ops)) / len(ops),
-        steady_blocks=len(steady), steady_ok=all(o == (1, 1, 0) for o in steady),
-        blocks_ok=all(o[:2] == (1, 1) and o[2] <= 1 for o in ops),
+        decode_blocks=engine.decode_blocks, blocks=engine.blocks, **host_op_stats(ops),
         inserts=engine.inserts, chunk_program_calls=engine.chunk_program_calls,
         prefill_chunk_tokens_done=engine.prefill_chunk_tokens_done,
         b1_launches_in_extends=extend_b1[0], nonfinite_logits=engine.nonfinite_logits,
@@ -1530,9 +1566,19 @@ def trace_pass(lm, dev, trace, chunk: int, async_loop: bool, counters, profile=F
         schedule={c.request_id: (c.queue_blocks, c.ttft_blocks, c.decode_blocks) for c in done})
 
 
-def run_trace_phase(cfg, dev, params, counters, profile=False) -> dict:
-    """The synthetic trace (``TRACE_KNOBS``) served three times on one
-    ``CausalLM`` at the serve phase's widths and weights: (a) one-shot
+def trace_lm(cfg, dev, params):
+    """The ``CausalLM`` of the trace and overload phases: the serve phase's
+    widths and weights with a 4096-token bucket."""
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+
+    return CausalLM(cfg, params, LlamaForCausalLM, buckets=TRACE_BUCKETS, max_batch=8,
+                    page_size=16, paged_attn_kernel=True, device=dev)
+
+
+def run_trace_phase(lm, dev, counters, profile=False) -> dict:
+    """The synthetic trace (``TRACE_KNOBS``) served three times on ``lm``
+    (:func:`trace_lm`): (a) one-shot
     inserts, (b) chunked prefill, (c) chunked prefill in the pipelined loop.
     Hard gates: every request completes with its 64 tokens in every pass,
     every logit is finite, each pass launched B1 and B2; (b) and (c) give
@@ -1540,14 +1586,10 @@ def run_trace_phase(cfg, dev, params, counters, profile=False) -> dict:
     3 host ops and a steady one exactly 2. Reported: the share of tokens
     equal between (a) and (b) (cuBLAS may pick another GEMM for a 4096-row
     insert than for 512-row chunks)."""
-    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
     from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
     from neuronx_distributed_tpu_torch.inference.trace import synthetic_trace
-    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
 
-    lm = CausalLM(cfg, params, LlamaForCausalLM, buckets=TRACE_BUCKETS, max_batch=8,
-                  page_size=16, paged_attn_kernel=True, device=dev)
-    trace = synthetic_trace(TRACE_REQUESTS, cfg.vocab_size, **TRACE_KNOBS)
+    trace = synthetic_trace(TRACE_REQUESTS, lm.config.vocab_size, **TRACE_KNOBS)
     # warm-up: the decode block's capture, the one-shot and chunk shapes
     warm = ServeEngine(lm, block_steps=8, prefill_chunk_tokens=TRACE_CHUNK)
     capture_s = warm.capture_s
@@ -1591,6 +1633,211 @@ def run_trace_phase(cfg, dev, params, counters, profile=False) -> dict:
                 schedule_equal_b_c=schedule_equal,
                 requests=TRACE_REQUESTS, knobs={k: v for k, v in TRACE_KNOBS.items()},
                 buckets=TRACE_BUCKETS)
+
+
+# --- phase 4c: serving under overload -----------------------------------------------
+
+# 48 greedy requests of 64 new tokens arriving 4 a block (8 slots retire about
+# 1 a block), every 4th a 3072-token prompt, two tenants
+OVERLOAD_REQUESTS = 48
+OVERLOAD_KNOBS = dict(prompt_lens=(64, 128, 256, 384), max_new_tokens=64,
+                      mean_interarrival_blocks=0.25, long_prompt_frac=0.25, long_prompt_len=3072,
+                      tenants=2, seed=1)
+# the virtual clock's block in wall ms: a constant, never measured in the
+# run, so the schedule is a function of the trace alone. 150 ms is about one
+# round of the chunked pipelined trace pass on an H100 80GB HBM3 at 700 W
+# (8.37 s over 57 decode blocks, PERF.md section 5)
+OVERLOAD_BLOCK_MS = 150.0
+OVERLOAD_TTFT_BLOCKS = 20       # a long prompt's TTFT budget; a short one's is a quarter
+OVERLOAD_DEADLINE_BLOCKS = 16   # every stream's completion budget, from arrival
+OVERLOAD_ENGINE = dict(block_steps=8, prefill_chunk_tokens=512, max_queue=8,
+                       shed_policy="deadline", block_time_ms=OVERLOAD_BLOCK_MS)
+# (label, async_loop, through run_trace with the tracer on)
+OVERLOAD_PASSES = (("d", False, True), ("e", True, True), ("f", True, False))
+
+
+def overload_trace(vocab: int) -> list:
+    """The overload phase's trace: ``OVERLOAD_KNOBS`` with budgets in blocks
+    times ``OVERLOAD_BLOCK_MS``; a short prompt (chat) gets a quarter of a
+    long one's (document) TTFT budget."""
+    from neuronx_distributed_tpu_torch.inference.trace import synthetic_trace
+
+    trace = synthetic_trace(OVERLOAD_REQUESTS, vocab,
+                            ttft_deadline_ms=OVERLOAD_TTFT_BLOCKS * OVERLOAD_BLOCK_MS,
+                            deadline_ms=OVERLOAD_DEADLINE_BLOCKS * OVERLOAD_BLOCK_MS,
+                            **OVERLOAD_KNOBS)
+    for it in trace:
+        if it["prompt"].size < OVERLOAD_KNOBS["long_prompt_len"]:
+            it["ttft_deadline_ms"] /= 4
+    return trace
+
+
+def overload_pass(lm, dev, trace, async_loop: bool, traced: bool, counters,
+                  profile=False) -> dict:
+    """One pass of ``trace`` through ``ServeEngine(**OVERLOAD_ENGINE)`` on
+    ``lm``: through ``run_trace`` (the tracer on), or submitted and run
+    with the tracer off. The launch counters are zeroed just before and
+    read just after; the host ops of each decode round are counted around
+    ``step_block``. Returns the decisions (streams, schedule, rejected,
+    expired, finish reasons), the counts the gates read, the host ms spent
+    launching each kind of program (``serve_dispatch_ms``) and, traced, the
+    report and the tracer's checks. With ``profile``, the pass runs under
+    ``torch.profiler`` (device activity only) and returns the device's
+    busy share instead."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine, run_trace
+    from neuronx_distributed_tpu_torch.observability import validate_chrome_trace
+
+    engine = ServeEngine(lm, async_loop=async_loop, **OVERLOAD_ENGINE)
+    ops = count_host_ops(engine)
+    for c in counters:
+        c.launches = 0
+    prof = torch_profile(activities=[ProfilerActivity.CUDA]) if profile else None
+    _sync(dev)
+    if prof is not None:
+        prof.__enter__()
+    t0 = time.perf_counter()
+    report = None
+    try:
+        if traced:
+            report = run_trace(engine, trace)
+        else:
+            for it in trace:
+                engine.submit(it["prompt"], it["max_new_tokens"],
+                              eos_token_id=it["eos_token_id"], arrival_block=it["arrival_block"],
+                              ttft_deadline_ms=it["ttft_deadline_ms"],
+                              deadline_ms=it["deadline_ms"], tenant=it.get("tenant", "default"))
+            engine.run()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    if prof is not None:
+        busy = device_busy_s(prof)
+        return dict(wall_s=wall, device_busy_s=busy, device_busy_share=busy / wall)
+    done = engine.completed
+    dispatch = engine.metrics.snapshot()["serve_dispatch_ms"]["samples"]
+    tokens = sum(len(c.tokens) for c in done)
+    st = dict(
+        async_loop=async_loop, traced=traced, submitted=len(trace), completed=len(done),
+        rejected_n=len(engine.rejected), generated_tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall, decode_blocks=engine.decode_blocks, blocks=engine.blocks,
+        **host_op_stats(ops), nonfinite_logits=engine.nonfinite_logits,
+        shed_evictions=engine.shed_evictions,
+        queue_full=sum(r.reason == "queue_full" for r in engine.rejected),
+        expired_n=sum(1 for c in done if c.expired),
+        partial_expiries=sum(1 for c in done if c.expired and len(c.tokens)),
+        ontime=sum(1 for c in done if not (c.deadline_missed or c.expired)),
+        launches={c.__name__: c.launches for c in counters},
+        # host wall ms launching each kind of program, and the launches
+        dispatch_ms={d["labels"]["kind"]: d["sum"] for d in dispatch},
+        dispatches={d["labels"]["kind"]: d["count"] for d in dispatch},
+        streams={c.request_id: c.tokens.tolist() for c in done},
+        schedule={c.request_id: (c.queue_blocks, c.ttft_blocks, c.decode_blocks) for c in done},
+        finish={c.request_id: c.finish_reason for c in done},
+        expired={c.request_id: len(c.tokens) for c in done if c.expired},
+        rejected=[(r.request_id, r.reason, r.retry_after_blocks, r.queue_depth)
+                  for r in engine.rejected])
+    if traced:
+        lanes = engine.tracer.by_request()
+        names = {rid: [ev["name"] for ev in evs] for rid, evs in lanes.items()}
+        toks = {rid: [ev["args"]["t"] for ev in evs if ev["name"] == "tok"]
+                for rid, evs in lanes.items()}
+        try:
+            validate_chrome_trace(engine.tracer.export_chrome())
+            chrome = "ok"
+        except ValueError as e:
+            chrome = str(e)
+        sheds = [ev["args"] for ev in engine.tracer.events("shed")]
+        st.update(report=report, dropped=engine.tracer.dropped, chrome=chrome,
+                  # sheds whose victim was a queued request, not the newest
+                  # arrival: the deadline policy's evictions (at submit and
+                  # at block boundaries)
+                  deadline_evictions=sum(1 for a in sheds if a.get("evicted")),
+                  tok_events_match=all(toks.get(rid, []) == t for rid, t in st["streams"].items()),
+                  # expired before any admission: no slot ever took it
+                  queued_expiries=sum(1 for rid in st["expired"]
+                                      if not {"admit", "chunk_begin"} & set(names[rid])))
+    return st
+
+
+def overload_gates(passes: dict) -> list:
+    """The overload phase's hard gates on its passes (label -> the dict of
+    :func:`overload_pass`); returns what failed, empty when every gate held:
+    every pass makes pass (d)'s decisions with pass (d)'s streams; every
+    submission completes or is rejected; (d) sheds a newcomer to a full
+    queue, evicts a queued request by deadline, expires a request in the
+    queue and cuts a decoding one short, and completes one on time; each
+    pass launched B1 and B2; the traced passes keep a steady decode block at
+    one replay and one fetch (any block at most one copy more), drop no
+    trace event, record each delivered token once, and export a trace the
+    validator accepts."""
+    problems = []
+    ref = passes["d"]
+    for label, st in passes.items():
+        for key in ("streams", "schedule", "rejected", "expired", "finish"):
+            if st[key] != ref[key]:
+                problems.append(f"pass ({label}) {key} differ from pass (d)'s")
+        if st["completed"] + st["rejected_n"] != st["submitted"]:
+            problems.append(f"pass ({label}): {st['completed']} completed + {st['rejected_n']} "
+                            f"rejected != {st['submitted']} submitted")
+        for fn, n in st["launches"].items():
+            if n <= 0:
+                problems.append(f"pass ({label}) never launched {fn}")
+        if st["traced"]:
+            if not (st["steady_ok"] and st["blocks_ok"]):
+                problems.append(f"pass ({label}): host ops a decode block {st['host_ops']}")
+            if st["dropped"]:
+                problems.append(f"pass ({label}): the tracer dropped {st['dropped']} events")
+            if not st["tok_events_match"]:
+                problems.append(f"pass ({label}): tok events differ from the delivered tokens")
+            if st["chrome"] != "ok":
+                problems.append(f"pass ({label}): exported trace refused: {st['chrome']}")
+    for key, what in (("queue_full", "shed to a full queue"),
+                      ("deadline_evictions", "eviction by deadline"),
+                      ("queued_expiries", "expiry in the queue"),
+                      ("partial_expiries", "decoding expiry with a partial stream"),
+                      ("ontime", "on-time completion")):
+        if not ref.get(key):
+            problems.append(f"pass (d) has no {what}")
+    return problems
+
+
+def run_overload_phase(lm, dev, counters, profile=False) -> dict:
+    """The overload trace (:func:`overload_trace`) served three times on
+    ``lm``: (d) the synchronous loop and (e) the pipelined loop through
+    ``run_trace``, (f) the pipelined loop untraced through ``run()``; hard
+    gates :func:`overload_gates` and finite logits, after one untimed
+    warm-up pass. Reported: each traced pass's report, and (e) against (f)
+    tokens/s (the tracer's cost); with
+    ``profile``, each pass repeated under the profiler after the timed ones
+    for the device's busy share."""
+    trace = overload_trace(lm.config.vocab_size)
+    # warm-up, neither timed nor gated: the first pass meets insert shapes
+    # (group sizes) no earlier phase ran, and pays their first-use costs
+    overload_pass(lm, dev, trace, False, False, counters)
+    passes = {label: overload_pass(lm, dev, trace, async_loop, traced, counters)
+              for label, async_loop, traced in OVERLOAD_PASSES}
+    if profile:
+        for label, async_loop, traced in OVERLOAD_PASSES:
+            passes[label]["profile"] = overload_pass(lm, dev, trace, async_loop, traced,
+                                                     counters, profile=True)
+    problems = overload_gates(passes)
+    check(not problems, "overload: " + "; ".join(problems))
+    for label, st in passes.items():
+        check(st["nonfinite_logits"] == 0, f"overload pass ({label}): non-finite logits")
+    for st in passes.values():   # kept off the printed summary
+        for key in ("streams", "schedule", "finish", "rejected", "expired"):
+            del st[key]
+        if st.get("report"):
+            del st["report"]["per_request"]
+    return dict(passes=passes, requests=OVERLOAD_REQUESTS, knobs=dict(OVERLOAD_KNOBS),
+                block_time_ms=OVERLOAD_BLOCK_MS, ttft_blocks=OVERLOAD_TTFT_BLOCKS,
+                deadline_blocks=OVERLOAD_DEADLINE_BLOCKS,
+                engine={k: v for k, v in OVERLOAD_ENGINE.items()},
+                tracing_cost=1 - passes["e"]["tokens_per_s"] / passes["f"]["tokens_per_s"])
 
 
 # --- phases 3b and 5: training ----------------------------------------------------
@@ -1928,7 +2175,10 @@ def main(argv=None) -> int:
     int8 = serve(cfg, dev, serve_counters, params=params, page_dtype="int8",
                  reference=stats["streams"])
     gc.collect()
-    trace = run_trace_phase(cfg, dev, params, serve_counters, profile=args.profile is not None)
+    lm = trace_lm(cfg, dev, params)
+    trace = run_trace_phase(lm, dev, serve_counters, profile=args.profile is not None)
+    overload = run_overload_phase(lm, dev, serve_counters, profile=args.profile is not None)
+    del lm
     if args.profile is not None:
         gc.collect()
         stats["profile"] = serve(cfg, dev, serve_counters, profile_path=args.profile,
@@ -1969,6 +2219,42 @@ def main(argv=None) -> int:
           f"{trace['schedule_equal_b_c']}; tokens equal between (a) and (b) "
           f"{trace['token_match_a_b']:.4f}; capture {trace['capture_s']:.3f} s [{card}]",
           flush=True)
+    for label, st in overload["passes"].items():
+        rep = st.get("report") or {}
+        print(f"overload pass ({label}): llama3_8b full width, "
+              f"{'async' if st['async_loop'] else 'sync'}, "
+              f"{'run_trace (traced)' if st['traced'] else 'run() untraced'}, "
+              f"{st['submitted']} submitted: {st['completed']} completed "
+              f"({st['ontime']} on time, {st['expired_n']} "
+              f"expired: {st.get('queued_expiries', '-')} in the queue, "
+              f"{st['partial_expiries']} cut short), {st['rejected_n']} rejected "
+              f"({st.get('deadline_evictions', '-')} evictions by deadline), "
+              f"{st['generated_tokens']} tokens in {st['wall_s']:.3f} s = "
+              f"{st['tokens_per_s']:.1f} tok/s, {st['decode_blocks']} decode blocks at "
+              f"{st['host_ops_per_block']:.3f} host ops a block ({st['steady_blocks']} steady), "
+              f"host ms launching " + ", ".join(
+                  f"{k} {v:.1f} ({st['dispatches'][k]})" for k, v in st["dispatch_ms"].items())
+              + f", launches {st['launches']}" + (
+                  f", device busy {st['profile']['device_busy_share']:.1%} of the profiled "
+                  f"repeat's {st['profile']['wall_s']:.3f} s" if "profile" in st else "") + (
+                  f"; run_trace: tokens_per_sec {rep['tokens_per_sec']}, goodput_tokens_per_sec "
+                  f"{rep['goodput_tokens_per_sec']}, deadline_miss_rate "
+                  f"{rep['deadline_miss_rate']}, itl_p50_ms {rep['itl_p50_ms']}, itl_p99_ms "
+                  f"{rep['itl_p99_ms']}, max_itl_gap_ms {rep['max_itl_gap_ms']}, "
+                  f"interblock_gap_ms_p50 {rep.get('interblock_gap_ms_p50')}, "
+                  f"interblock_gap_ms_p99 {rep.get('interblock_gap_ms_p99')}, "
+                  f"fetch_blocked_ms_p50 {rep.get('fetch_blocked_ms_p50')}, "
+                  f"host_ops_per_block {rep['host_ops_per_block']}, ttft_blocks_mean "
+                  f"{rep['ttft_blocks_mean']}, per_tenant "
+                  + json.dumps({t: {k: d[k] for k in ("requests", "goodput_tokens_per_sec",
+                                                       "itl_p99_ms", "rejected", "expired")}
+                                for t, d in rep["per_tenant"].items()})
+                  if rep else "") + f" [{card}]", flush=True)
+    print(f"overload: passes (d), (e), (f) equal streams, schedules, rejections, expiries and "
+          f"finish reasons; tracing cost (1 - (e) / (f) tok/s) {overload['tracing_cost']:.4f}; "
+          f"block_time_ms {overload['block_time_ms']} (a constant), TTFT budget "
+          f"{overload['ttft_blocks']} blocks (short prompts a quarter), deadline "
+          f"{overload['deadline_blocks']} blocks [{card}]", flush=True)
     if "profile" in stats:
         prof = stats["profile"]
         print(f"profile: device busy {prof['device_busy_s']:.3f} s of the profiled run's "
@@ -1997,6 +2283,8 @@ def main(argv=None) -> int:
 
     by_path = {"serve": stats["launches"], "serve_int8": int8["launches"],
                **{f"trace_{label}": st["launches"] for label, st in trace["passes"].items()},
+               **{f"overload_{label}": st["launches"]
+                  for label, st in overload["passes"].items()},
                "train": tstats["launches"]}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
@@ -2016,7 +2304,8 @@ def main(argv=None) -> int:
         for part in ("train_shape", "chunk_shape"):
             if "held" in k.get(part, {}):
                 c[part] = k[part].pop("held")
-    print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "train": tstats,
+    print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
+                      "train": tstats,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,
                       "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

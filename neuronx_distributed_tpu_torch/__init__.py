@@ -22,8 +22,8 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("converters", "inference", "kernels", "models", "ops", "optimizer", "parallel",
-               "trainer")
+_SUBMODULES = ("converters", "inference", "kernels", "models", "observability", "ops",
+               "optimizer", "parallel", "trainer")
 
 
 def __getattr__(name):

@@ -11,8 +11,10 @@ _EXPORTS = {
     "DecodeSession": "causal_lm",
     "GenerationResult": "causal_lm",
     "Completion": "engine",
+    "Rejected": "engine",
     "Request": "engine",
     "ServeEngine": "engine",
+    "run_trace": "engine",
     "PagedKVCache": "paged_cache",
     "PagePoolExhausted": "paged_cache",
     "Sampler": "sampling",

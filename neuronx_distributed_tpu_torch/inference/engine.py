@@ -24,9 +24,28 @@ stream, and lifts the bucket ceiling on prompt length. ``async_loop=True``
 (fused only) replays block t before it fetches block t - 1. ``cancel``
 retires a request in any state. Token streams are the same in every mode.
 
-Still to port: load shedding (``max_queue`` and ``Rejected``), deadlines
-and EDF, faults, the host tier, parking, disaggregation, the router,
-grammars, adapters, snapshots and the observability layer.
+Overload (JAX ``engine.py:54-67``): ``submit(ttft_deadline_ms=,
+deadline_ms=)`` puts deadlines on the virtual block clock
+(``block_time_ms`` a block); admission is earliest-deadline-first among
+arrived requests (:class:`~.schedq.AdmissionQueue`); a queued or
+mid-prefill request past its deadline expires with no tokens, a decoding
+one past its completion deadline retires with a partial ``expired``
+completion; ``max_queue`` bounds the arrived backlog and sheds by
+``shed_policy`` with a :class:`Rejected` verdict and a retry-after. Every
+decision reads the virtual clock and the host's own counters, so the
+synchronous and the pipelined loop make the same ones.
+
+Observability (JAX ``engine.py:538-565``): ``trace=True`` (or a shared
+``tracer``) records each request's lifecycle and the engine's dispatch,
+fetch and block spans from host state the scheduler already holds, with no
+device synchronisation; ``metrics`` holds the TTFT, inter-token and
+dispatch histograms and the queue and pool gauges. :func:`run_trace`
+drives a synthetic trace and returns the serving report.
+
+Still to port: snapshots and faults (``faults.py``, the retry half of
+``_dispatch``, ``simlm.py``), the host tier and parking, the streaming
+report (``keep_completions=False``), disaggregation, the router, grammars
+and adapters (ROADMAP A5, A8).
 """
 
 from __future__ import annotations
@@ -34,13 +53,14 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
 from neuronx_distributed_tpu_torch.inference.paged_cache import ChunkedPrefill, PagePoolExhausted
+from neuronx_distributed_tpu_torch.inference.schedq import AdmissionQueue, shed_deadline_key
 from neuronx_distributed_tpu_torch.inference.sampling import (
     Sampler,
     SlotSampler,
@@ -48,6 +68,8 @@ from neuronx_distributed_tpu_torch.inference.sampling import (
     request_seed,
     split_key,
 )
+from neuronx_distributed_tpu_torch.models.llama import page_storage_dtype
+from neuronx_distributed_tpu_torch.observability import MetricsRegistry, Tracer, interblock_gaps
 
 
 @dataclasses.dataclass
@@ -65,6 +87,11 @@ class Request:
     submit_block: int = 0
     start_block: Optional[int] = None
     first_token_block: Optional[int] = None
+    # absolute deadlines on the virtual clock (None: none): the first token
+    # by ttft_deadline_block, the whole stream by deadline_block
+    ttft_deadline_block: Optional[int] = None
+    deadline_block: Optional[int] = None
+    tenant: str = "default"
 
 
 @dataclasses.dataclass
@@ -77,7 +104,27 @@ class Completion:
     ttft_blocks: int = 0
     token_ts: Optional[np.ndarray] = None   # wall perf_counter per token
     submit_ts: Optional[float] = None       # wall perf_counter at submit
-    finish_reason: str = "budget"           # "eos" | "budget" | "cancelled"
+    cancelled: bool = False
+    # ``expired``: the engine cut the stream off at its deadline (tokens
+    # hold what was delivered by then); ``deadline_missed`` also covers a
+    # stream that finished late
+    expired: bool = False
+    deadline_missed: bool = False
+    tenant: str = "default"
+    finish_reason: str = "budget"   # "eos" | "budget" | "expired" | "cancelled"
+
+
+@dataclasses.dataclass
+class Rejected:
+    """A shed request (JAX ``engine.py:215``): the bounded queue refused it.
+    ``retry_after_blocks`` estimates when a resubmission (a new request id)
+    has a fresh chance; ``reason`` is ``"queue_full"`` or
+    ``"pool_exhausted"``."""
+
+    request_id: int
+    retry_after_blocks: int
+    queue_depth: int
+    reason: str = "queue_full"
 
 
 @dataclasses.dataclass
@@ -128,12 +175,31 @@ class ServeEngine:
     whose logits held a non-finite value. ``chunk_program_calls`` and
     ``prefill_chunk_tokens_done`` count the chunk extends and their tokens,
     ``prefill_aborts`` the rolled-back chunked admissions, ``cancelled``
-    the requests :meth:`cancel` took."""
+    the requests :meth:`cancel` took.
+
+    Overload knobs (JAX ``engine.py:518-528``): deadlines given in ms are
+    converted to blocks at ``block_time_ms`` a block (1.0, the default,
+    makes ms and blocks the same: the deterministic basis; on a card, give
+    a block's wall time there); ``max_queue`` bounds the arrived backlog,
+    shedding by ``shed_policy`` (``"tail"`` the newest arrival,
+    ``"deadline"`` the laxest deadline) into ``rejected``. Counters:
+    ``expired``, ``shed_evictions`` (queued requests a tighter newcomer
+    displaced), ``deferred_admissions`` (pool pressure), ``program_calls``
+    (decode programs: a replay a fused block, a forward a step) and
+    ``inserted_requests``.
+
+    Observability: ``trace`` turns on a fresh :class:`Tracer` (or pass a
+    shared ``tracer``); ``metrics`` is the :class:`MetricsRegistry` the
+    histograms and gauges live in; ``name`` is the engine's lane in the
+    trace (``"engine"`` by default)."""
 
     def __init__(self, lm: CausalLM, block_steps: int = 8, fused: bool = True,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
                  pad_token_id: int = 0, seed: int = 0, prefill_chunk_tokens: int = 0,
-                 async_loop: bool = False):
+                 async_loop: bool = False, max_queue: Optional[int] = None,
+                 shed_policy: str = "tail", block_time_ms: float = 1.0, trace: bool = False,
+                 tracer: Optional[Tracer] = None, metrics: Optional[MetricsRegistry] = None,
+                 name: Optional[str] = None):
         if block_steps < 1:
             raise ValueError(f"block_steps must be >= 1, got {block_steps}")
         if prefill_chunk_tokens < 0:
@@ -144,6 +210,12 @@ class ServeEngine:
         if async_loop and not fused:
             raise ValueError("async_loop requires fused=True: the pipeline overlaps the fused "
                              "block; the stepwise route is synchronous")
+        if shed_policy not in ("tail", "deadline"):
+            raise ValueError(f"shed_policy must be 'tail' or 'deadline', got {shed_policy!r}")
+        if max_queue is not None and max_queue < 0:
+            raise ValueError(f"max_queue must be >= 0, got {max_queue}")
+        if block_time_ms <= 0:
+            raise ValueError(f"block_time_ms must be > 0, got {block_time_ms}")
         self.lm = lm
         self.block_steps = int(block_steps)
         self.fused = bool(fused)
@@ -152,10 +224,29 @@ class ServeEngine:
         self.slot_sampler = SlotSampler(top_k=top_k, top_p=top_p)
         self.pad_token_id = int(pad_token_id)
         self.seed = int(seed)
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.shed_policy = shed_policy
+        self.block_time_ms = float(block_time_ms)
         self.paged = lm.paged
         self.session = lm.start_session()
         b = lm.max_batch
-        self.queue: deque = deque()
+        self.lane = str(name) if name else "engine"
+        self.tracer = tracer if tracer is not None else Tracer(enabled=bool(trace))
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self._m_ttft = self.metrics.histogram("serve_ttft_ms",
+                                              help="wall submit->first-token latency")
+        self._m_itl = self.metrics.histogram("serve_itl_ms",
+                                             help="wall gap between token deliveries")
+        self._m_queue = self.metrics.gauge("serve_queue_depth", help="arrived admission backlog")
+        self._m_dropped = self.metrics.counter(
+            "trace_dropped_events", help="tracer ring-buffer events dropped (export is partial)")
+        if self.paged:
+            self._m_pool = self.metrics.gauge("serve_page_pool_in_use",
+                                              help="allocated KV pages")
+        self._disp_hist: Dict[str, Any] = {}
+        self._last_tok_ts: Dict[int, float] = {}
+        self.queue = AdmissionQueue()
+        self.rejected: List[Rejected] = []
         self.slots: List[Optional[Request]] = [None] * b
         self._out: Dict[int, List[int]] = {}
         self._out_ts: Dict[int, List[float]] = {}
@@ -190,6 +281,10 @@ class ServeEngine:
         self.prefill_chunk_tokens_done = 0
         self.prefill_aborts = 0
         self.cancelled = 0
+        self.program_calls = 0
+        self.inserted_requests = 0
+        self.expired = 0
+        self.shed_evictions = 0
         # the pipeline (async_loop): dispatched blocks not yet harvested,
         # first tokens on the device, and retired requests whose last
         # tokens are still in flight (their completions, tokens to come)
@@ -228,9 +323,16 @@ class ServeEngine:
 
     def submit(self, prompt, max_new_tokens: int, sampler: Optional[Sampler] = None,
                eos_token_id: Optional[int] = None, arrival_block: int = 0,
-               request_id: Optional[int] = None) -> int:
-        """Queue a request; returns its id. A prompt longer than the largest
-        bucket is accepted when it will be chunked (JAX ``engine.py:834``)."""
+               ttft_deadline_ms: Optional[float] = None, deadline_ms: Optional[float] = None,
+               tenant: str = "default",
+               request_id: Optional[int] = None) -> Union[int, Rejected]:
+        """Queue a request; returns its id, or the :class:`Rejected` verdict
+        when the bounded queue sheds it on arrival (JAX ``engine.py:860``).
+        A prompt longer than the largest bucket is accepted when it will be
+        chunked. ``ttft_deadline_ms`` and ``deadline_ms`` are budgets from
+        the arrival block for the first token and the whole stream, turned
+        into blocks at ``block_time_ms``; ``tenant`` is a label the
+        completion carries."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -261,10 +363,35 @@ class ServeEngine:
                       eos_token_id=eos_token_id,
                       temperature=0.0 if greedy else float(sampler.temperature),
                       greedy=greedy, arrival_block=int(arrival_block),
-                      submit_block=self.blocks)
+                      submit_block=self.blocks,
+                      ttft_deadline_block=self._deadline_block(arrival_block, ttft_deadline_ms,
+                                                               "ttft_deadline_ms"),
+                      deadline_block=self._deadline_block(arrival_block, deadline_ms,
+                                                          "deadline_ms"),
+                      tenant=str(tenant))
         self._next_id = max(self._next_id, rid + 1)
-        self._submit_ts[rid] = time.perf_counter()
+        now = time.perf_counter()
+        self._submit_ts[rid] = now
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "submit", ("req", rid), block=self.blocks, ts=now,
+                args={"prompt_len": int(prompt.size), "max_new_tokens": int(max_new_tokens),
+                      "arrival_block": req.arrival_block,
+                      "ttft_deadline_block": req.ttft_deadline_block,
+                      "deadline_block": req.deadline_block, "tenant": req.tenant,
+                      "engine": self.lane})
+        # an arrived request into a full backlog is shed now; a future
+        # arrival is shed, if at all, at the block it arrives in
+        # (_shed_overflow). Free slots extend the bound only where the page
+        # pool could fill them (JAX engine.py:949-965)
+        if self.max_queue is not None and req.arrival_block <= self.blocks:
+            arrived = self.queue.arrived_count(self.blocks)
+            pool_bound = not self._pool_can_admit(prompt.size, req.max_new_tokens)
+            usable = 0 if pool_bound else len(self._free_slots())
+            if arrived >= self.max_queue + usable:
+                return self._shed(req, pool_bound=pool_bound)
         self.queue.append(req)
+        self._m_queue.set(len(self.queue))
         return rid
 
     def cancel(self, request_id: int) -> bool:
@@ -275,17 +402,17 @@ class ServeEngine:
         (``finish_reason="cancelled"``; the pipelined loop first drains,
         and a stream the drain finishes completes normally). Returns False
         when the id is unknown or already completed."""
-        for r in self.queue:
-            if r.request_id == request_id:
-                self.queue.remove(r)
-                self._submit_ts.pop(request_id, None)
-                self.cancelled += 1
-                return True
+        if self.queue.remove(request_id) is not None:
+            self._submit_ts.pop(request_id, None)
+            self.cancelled += 1
+            self._trace_req("cancel", request_id, state="queued")
+            return True
         for slot, st in list(self._prefilling.items()):
             if st.req.request_id == request_id:
                 self._abort_prefill(slot, requeue=False)
                 self._submit_ts.pop(request_id, None)
                 self.cancelled += 1
+                self._trace_req("cancel", request_id, state="prefill")
                 return True
         if request_id in self._tail:    # retired, its last tokens in flight
             self._flush()
@@ -307,6 +434,262 @@ class ServeEngine:
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is None]
 
+    # --- deadlines and shedding -------------------------------------------
+
+    def _deadline_block(self, arrival_block: int, ms: Optional[float],
+                        name: str) -> Optional[int]:
+        if ms is None:
+            return None
+        if ms <= 0:
+            raise ValueError(f"{name} must be > 0, got {ms}")
+        return int(arrival_block) + max(1, int(np.ceil(float(ms) / self.block_time_ms)))
+
+    def _deadline_passed(self, r: Request) -> bool:
+        return ((r.ttft_deadline_block is not None and self.blocks > r.ttft_deadline_block)
+                or (r.deadline_block is not None and self.blocks > r.deadline_block))
+
+    def _missed(self, req: Request) -> bool:
+        """Whether ``req``, retiring now, missed a deadline: its first token
+        (the admission's block, the virtual clock's) came after its TTFT
+        deadline, or the clock is past its completion deadline."""
+        if req.ttft_deadline_block is not None and (
+                req.first_token_block is None
+                or req.first_token_block > req.ttft_deadline_block):
+            return True
+        return req.deadline_block is not None and self.blocks > req.deadline_block
+
+    def _delivered(self, slot: int) -> int:
+        """Tokens the slot's stream holds by the blocks dispatched so far:
+        the host's own count, which the pipelined loop knows a block before
+        the tokens come back (JAX reads ``len(_out)``, equal in its
+        synchronous loop)."""
+        if slot in self._prefilling:
+            return 0
+        return min(int(self._gen_counts[slot]), self.slots[slot].max_new_tokens)
+
+    def _retry_after(self) -> int:
+        """Blocks to drain the backlog (JAX ``engine.py:1267``): the
+        undelivered token budget, queued and in the slots, over the pool's
+        ``max_batch * block_steps`` tokens a block."""
+        inflight = sum(r.max_new_tokens - self._delivered(i)
+                       for i, r in enumerate(self.slots) if r is not None)
+        rate = max(self.lm.max_batch * self.block_steps, 1)
+        return max(1, -(-(self.queue.tokens() + inflight) // rate))
+
+    def _pool_can_admit(self, prompt_len: int, max_new_tokens: int) -> bool:
+        """Whether the page pool could take this admission now, counting
+        what prefix eviction would free (JAX ``engine.py:1291``); the slab
+        always can."""
+        if not self.paged:
+            return True
+        pkv = self.session.paged
+        need = pkv.pages_needed(prompt_len, max_new_tokens + self._reserve_slack())
+        free = pkv.allocator.available()
+        if free < need and pkv.prefix is not None:
+            free += pkv.prefix.reclaimable_pages()
+        return free >= need
+
+    def _pool_retry_after(self) -> int:
+        """Pool-pressure retry estimate (JAX ``engine.py:1309``, without the
+        host tier's spill branch): the oldest decoding stream's remaining
+        budget in blocks, the earliest retirement that returns pages."""
+        oldest = None
+        for slot, r in enumerate(self.slots):
+            if r is None or slot in self._prefilling:
+                continue
+            if oldest is None or (r.start_block or 0) < (self.slots[oldest].start_block or 0):
+                oldest = slot
+        if oldest is None:
+            return 1
+        remaining = self.slots[oldest].max_new_tokens - self._delivered(oldest)
+        return max(1, -(-remaining // self.block_steps))
+
+    def _note_pool_pressure(self, reqs: Sequence[Request]) -> None:
+        """A ``pool_defer`` mark on each deferred request's lane."""
+        if self.tracer.enabled:
+            free = self.session.paged.allocator.available() if self.paged else None
+            for r in reqs:
+                self._trace_req("pool_defer", r.request_id, free_pages=free)
+
+    def _shed(self, req: Request, pool_bound: bool = False) -> Union[int, Rejected]:
+        """Shed on a full arrived backlog (JAX ``engine.py:1356``): ``tail``
+        rejects the newcomer; ``deadline`` rejects the laxest deadline of
+        the queue and the newcomer (a displaced queued request surfaces in
+        ``rejected``). ``pool_bound``: forced by page-pool exhaustion, said
+        in the reason, and the retry-after covers the oldest stream's
+        remaining budget."""
+        victim = req
+        if self.shed_policy == "deadline":
+            worst = self.queue.peek_lax_victim(self.blocks)
+            if worst is not None and shed_deadline_key(worst) > shed_deadline_key(req):
+                self.queue.remove(worst.request_id)
+                self.queue.append(req)
+                victim = worst
+                self.shed_evictions += 1
+        retry = self._retry_after()
+        if pool_bound:
+            retry = max(retry, self._pool_retry_after())
+        rej = Rejected(request_id=victim.request_id, retry_after_blocks=retry,
+                       queue_depth=self.queue.arrived_count(self.blocks),
+                       reason="pool_exhausted" if pool_bound else "queue_full")
+        self.rejected.append(rej)
+        self._submit_ts.pop(victim.request_id, None)
+        self._trace_req("shed", victim.request_id, policy=self.shed_policy, reason=rej.reason,
+                        retry_after_blocks=rej.retry_after_blocks, queue_depth=rej.queue_depth,
+                        evicted=victim is not req)
+        return rej if victim is req else req.request_id
+
+    def _shed_overflow(self) -> None:
+        """The backlog bound at a block boundary (JAX ``engine.py:1397``):
+        requests submitted ahead of their arrival arrive here, and the
+        arrived backlog past ``max_queue`` plus the slots still free after
+        admission is shed by policy."""
+        if self.max_queue is None:
+            return
+        limit = self.max_queue + len(self._free_slots())
+        while True:
+            arrived = self.queue.arrived_count(self.blocks)
+            if arrived <= limit:
+                return
+            victim = (self.queue.peek_lax_victim(self.blocks) if self.shed_policy == "deadline"
+                      else self.queue.peek_tail_victim(self.blocks))
+            if victim is None:
+                return
+            # traced: whether the victim is not the newest arrival (the
+            # deadline policy evicted a queued request ahead of it)
+            evicted = (self.tracer.enabled
+                       and victim is not self.queue.peek_tail_victim(self.blocks))
+            self.queue.remove(victim.request_id)
+            self.rejected.append(Rejected(request_id=victim.request_id,
+                                          retry_after_blocks=self._retry_after(),
+                                          queue_depth=arrived - 1))
+            self._submit_ts.pop(victim.request_id, None)
+            self._trace_req("shed", victim.request_id, policy=self.shed_policy,
+                            at="block_boundary", queue_depth=arrived - 1, evicted=evicted)
+
+    def _expire_request(self, req: Request) -> None:
+        """A deadline passed before decoding began: an empty ``expired``
+        completion now (JAX ``engine.py:1590``)."""
+        rid = req.request_id
+        self._trace_req("expire", rid, generated=0, state="pre_decode", deadline_missed=True)
+        waited = max(self.blocks - req.arrival_block, 0)
+        self.completed.append(Completion(
+            request_id=rid, tokens=np.zeros((0,), np.int64), prompt_len=req.prompt.size,
+            queue_blocks=waited, decode_blocks=0, ttft_blocks=waited,
+            token_ts=np.zeros((0,), np.float64), submit_ts=self._submit_ts.pop(rid, None),
+            expired=True, deadline_missed=True, tenant=req.tenant, finish_reason="expired"))
+        self.expired += 1
+
+    def _expire_queued(self) -> None:
+        for r in self.queue.expire_due(self.blocks):
+            self._expire_request(r)
+
+    def _expire_prefilling(self) -> None:
+        """A deadline passed mid-chunked-prefill: the admission rolls back
+        (pages released, as ``cancel`` does) and the request expires."""
+        for slot, st in list(self._prefilling.items()):
+            if self._deadline_passed(st.req):
+                self._abort_prefill(slot, requeue=False)
+                self._expire_request(st.req)
+
+    def _expire_decoding(self) -> None:
+        """Streams past their completion deadline retire now with the
+        tokens delivered so far (JAX ``engine.py:1639``). The decision reads
+        the virtual clock; the pipelined loop drains first, so the partial
+        holds every token the synchronous loop's does."""
+        def victims():
+            ended = self._done | self._budget_done()
+            return [slot for slot, r in enumerate(self.slots)
+                    if r is not None and slot not in self._prefilling and not ended[slot]
+                    and r.deadline_block is not None and self.blocks > r.deadline_block]
+
+        if not victims():
+            return
+        self._flush()
+        late = victims()    # a stream the drain finished retires normally
+        if late:
+            self._retire(late, reason="expired")
+            self.expired += len(late)
+
+    # --- observability seams ----------------------------------------------
+
+    def _trace_req(self, name: str, rid: int, ts: Optional[float] = None,
+                   block: Optional[int] = None, **args) -> None:
+        """An instant on request ``rid``'s lane."""
+        if self.tracer.enabled:
+            self.tracer.instant(name, ("req", rid), ts=ts,
+                                block=self.blocks if block is None else block,
+                                args=args or None)
+
+    def _dispatch(self, kind: str, fn):
+        """Run one program launch (``insert``, ``extend`` or ``decode``)
+        and time the host's part of it into ``serve_dispatch_ms{kind}`` and,
+        traced, a span on the dispatch lane (the timing half of JAX
+        ``engine.py:1431``). It waits for nothing on the device."""
+        hist = self._disp_hist.get(kind)
+        if hist is None:
+            hist = self._disp_hist[kind] = self.metrics.histogram(
+                "serve_dispatch_ms", help="program launch wall ms (host side)", kind=kind)
+        t0 = time.perf_counter()
+        out = fn()
+        t1 = time.perf_counter()
+        hist.observe((t1 - t0) * 1e3)
+        if self.tracer.enabled:
+            self.tracer.complete(kind, (self.lane, "dispatch"), t0, t1, block=self.blocks)
+        return out
+
+    def _trace_queued(self, req: Request, now: float) -> None:
+        """The request's ``queued`` span: from its submit to the moment a
+        slot took it."""
+        if self.tracer.enabled:
+            self.tracer.complete("queued", ("req", req.request_id),
+                                 self._submit_ts.get(req.request_id, now), now,
+                                 block=self.blocks,
+                                 args={"queue_blocks": max(self.blocks - req.arrival_block, 0)})
+
+    def _observe_first_token(self, req: Request, slot: int, now: float, **extra) -> None:
+        """The first token at admission, on the virtual clock: the TTFT
+        histogram and the ``admit``/``first_token`` marks (the pipelined
+        loop's token is still on the device; the mark does not wait)."""
+        sts = self._submit_ts.get(req.request_id)
+        if sts is not None:
+            self._m_ttft.observe((now - sts) * 1e3)
+        self._trace_req("admit", req.request_id, ts=now, slot=int(slot), **extra)
+        self._trace_req("first_token", req.request_id, ts=now,
+                        ttft_blocks=max(self.blocks - req.arrival_block, 0))
+
+    def _observe_block(self) -> None:
+        """Per-round levels (JAX ``engine.py:3468``): the arrived backlog
+        and the pool's pages in use as gauges and, traced, counter tracks."""
+        depth = self.queue.arrived_count(self.blocks)
+        self._m_queue.set(depth)
+        self._m_dropped.set(self.tracer.dropped)
+        if self.tracer.enabled:
+            self.tracer.counter("queue_depth", (self.lane, "queue"), depth, block=self.blocks)
+        if self.paged:
+            in_use = self.session.paged.allocator.in_use()
+            self._m_pool.set(in_use)
+            if self.tracer.enabled:
+                self.tracer.counter("pages_in_use", ("cache", "pool"), in_use,
+                                    block=self.blocks)
+
+    def request_timeline(self, request_id: int) -> List[dict]:
+        """The request's recorded lifecycle, oldest first (JAX
+        ``engine.py:4011``): per event its name, wall ``ts_ms`` from the
+        tracer's epoch, virtual ``block``, ``dur_ms`` for spans and args.
+        Empty when tracing was off."""
+        picked = [(i, ev) for i, ev in enumerate(self.tracer.events())
+                  if ev["lane"] == ("req", request_id)]
+        picked.sort(key=lambda t: (t[1]["ts"], t[0]))
+        out = []
+        for _, ev in picked:
+            d = {"name": ev["name"], "ts_ms": round((ev["ts"] - self.tracer._t0) * 1e3, 3),
+                 "block": ev["block"], "args": ev["args"] or {}}
+            if ev["ph"] == "X":
+                d["dur_ms"] = round(ev["dur"] * 1e3, 3)
+            out.append(d)
+        return out
+
     def _draw(self, logits: torch.Tensor, keys: np.ndarray, counts, temps: np.ndarray,
               greedy: np.ndarray) -> torch.Tensor:
         """Rows' tokens under their keys at their token counters, then one
@@ -318,11 +701,29 @@ class ServeEngine:
         return torch.cat([tok, torch.isfinite(logits).all(-1).to(torch.int32)])
 
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """A blocking read of a block's (or a step's) output: a ``fetch``
+        span on the dispatch lane when traced."""
         self.host_fetches += 1
-        return t.cpu().numpy()
+        if not self.tracer.enabled:
+            return t.cpu().numpy()
+        t0 = time.perf_counter()
+        out = t.cpu().numpy()
+        self.tracer.complete("fetch", (self.lane, "dispatch"), t0, time.perf_counter(),
+                             block=self.blocks)
+        return out
 
     def _admit(self) -> None:
-        """Admit arrived requests into free slots, FIFO (JAX
+        """Expire the queued requests past their deadline, admit arrived
+        ones into free slots, then bound what is left of the arrived backlog
+        (``max_queue``), as JAX ``engine.py:1670`` does."""
+        self._expire_queued()
+        try:
+            self._admit_loop()
+        finally:
+            self._shed_overflow()
+
+    def _admit_loop(self) -> None:
+        """Admission in EDF order, deque position on a tie (JAX
         ``engine.py:1685-1754``): a long prompt takes the chunked path
         alone; otherwise the head request's bucket defines a group, which
         grows until a request of another bucket or a long one; each group
@@ -331,12 +732,12 @@ class ServeEngine:
             free = self._free_slots()
             if not free:
                 return
-            order = [r for r in self.queue if r.arrival_block <= self.blocks][: len(free)]
+            order = self.queue.peek_edf(self.blocks, (), len(free))
             if not order:
                 return
             head = order[0]
             if self._is_chunked(head):
-                self.queue.remove(head)
+                self.queue.remove(head.request_id)
                 self._begin_chunked(head, free[0])
                 continue
             bucket = self.lm._bucket_for(head.prompt.size)
@@ -346,26 +747,30 @@ class ServeEngine:
                     break
                 group.append(r)
             for r in group:
-                self.queue.remove(r)
+                self.queue.remove(r.request_id)
             try:
                 self._insert_group(group, free[: len(group)])
             except PagePoolExhausted:
                 # no device work ran: requeue, retry the head alone first
                 self.deferred_admissions += 1
                 self.queue.extendleft(reversed(group[1:]))
+                self._note_pool_pressure(group[1:])
                 try:
                     self._insert_group(group[:1], free[:1])
                 except PagePoolExhausted:
                     self.queue.appendleft(group[0])
+                    self._note_pool_pressure(group[:1])
                     return
 
     def _start_stream(self, slot: int, req: Request, temp: float, greedy: bool,
-                      tok: Optional[int], first_idx: Optional[int], now: float) -> None:
+                      tok: Optional[int], first_idx: Optional[int], now: float,
+                      **extra) -> None:
         """Hand ``slot`` to the decode pool with its first token: ``tok``,
         fetched, or, in the pipelined loop, entry ``first_idx`` of the first
-        tokens left on the device."""
+        tokens left on the device (``extra``: args of the ``admit`` mark)."""
         rid = req.request_id
         req.first_token_block = self.blocks
+        self._observe_first_token(req, slot, now, **extra)
         self.slots[slot] = req
         self._out[rid] = []
         self._out_ts[rid] = []
@@ -380,7 +785,8 @@ class ServeEngine:
         if tok is None:
             self._tok[slot] = 0
             self._tok_from[slot] = first_idx
-            self._first_pending.append(dict(slot=slot, req=req, idx=first_idx, seq=self._seq))
+            self._first_pending.append(dict(slot=slot, req=req, idx=first_idx, seq=self._seq,
+                                            block=self.blocks))
         else:
             self._tok[slot] = tok
             self._record(slot, tok, now)
@@ -412,10 +818,11 @@ class ServeEngine:
             lens[i] = r.prompt.size
         reserve = np.asarray([r.max_new_tokens + self._reserve_slack() for r in group],
                              np.int64)
-        logits = self.lm.insert(self.session, np.asarray(slot_ids, np.int32), ids,
-                                lengths=lens, pad_token_id=self.pad_token_id,
-                                reserve_tokens=reserve if self.paged else None)
+        logits = self._dispatch("insert", lambda: self.lm.insert(
+            self.session, np.asarray(slot_ids, np.int32), ids, lengths=lens,
+            pad_token_id=self.pad_token_id, reserve_tokens=reserve if self.paged else None))
         self.inserts += 1
+        self.inserted_requests += rows
         temps = np.asarray([r.temperature for r in group], np.float32)
         greedy = np.asarray([r.greedy for r in group], bool)
         keys = np.asarray([split_key(request_seed(self.seed, r.request_id)) for r in group],
@@ -426,10 +833,11 @@ class ServeEngine:
         now = time.perf_counter()
         for i, (r, slot) in enumerate(zip(group, slot_ids)):
             r.start_block = self.blocks
-            if first is None:
-                self._start_stream(slot, r, temps[i], greedy[i], None, i0 + i, now)
-            else:
-                self._start_stream(slot, r, temps[i], greedy[i], int(first[i]), None, now)
+            self._trace_queued(r, now)
+            self._start_stream(slot, r, temps[i], greedy[i],
+                               None if first is None else int(first[i]),
+                               None if first is not None else i0 + i, now,
+                               bucket=bucket, rows=rows)
 
     # --- chunked prefill -------------------------------------------------
 
@@ -444,6 +852,9 @@ class ServeEngine:
                                                      req.prompt.size + reserve)
             written = chunk.start
         req.start_block = self.blocks
+        self._trace_queued(req, time.perf_counter())
+        self._trace_req("chunk_begin", req.request_id, slot=int(slot),
+                        prompt_len=int(req.prompt.size), prefix_reused_tokens=int(written))
         self.slots[slot] = req
         self._active[slot] = False
         self._done[slot] = False
@@ -474,12 +885,15 @@ class ServeEngine:
                     self.deferred_admissions += 1
                     return
                 tables = pkv.chunk_table(slot, st.chunk)[None]
-            logits = self.lm.extend(self.session, [slot], req.prompt[st.written: st.written + n][None],
-                                    [n], [st.written], tables=tables)
+            ids = req.prompt[st.written: st.written + n][None]
+            logits = self._dispatch("extend", lambda: self.lm.extend(
+                self.session, [slot], ids, [n], [st.written], tables=tables))
             self.chunk_program_calls += 1
             self.prefill_chunk_tokens_done += n
             st.written += n
             budget -= n
+            self._trace_req("prefill_chunk", req.request_id, tokens=int(n),
+                            written=int(st.written), of=int(req.prompt.size), final=bool(final))
             if final:
                 self._finish_prefill(slot, st, logits)
 
@@ -494,12 +908,14 @@ class ServeEngine:
             self.session.paged.finish_chunked(slot, st.chunk)
         self.session.active[slot] = True
         self.inserts += 1
+        self.inserted_requests += 1
         key = np.asarray([split_key(request_seed(self.seed, req.request_id))], np.int32)
         first, i0 = self._first_tokens(
             self._draw(logits, key, np.zeros((1,), np.int32),
                        np.asarray([req.temperature], np.float32), np.asarray([req.greedy])), 1)
         self._start_stream(slot, req, req.temperature, req.greedy,
-                           None if first is None else int(first[0]), i0, time.perf_counter())
+                           None if first is None else int(first[0]), i0, time.perf_counter(),
+                           chunked=True)
 
     def _abort_prefill(self, slot: int, requeue: bool) -> None:
         """Unwind a chunked admission in one step (JAX ``engine.py:2045``):
@@ -515,21 +931,32 @@ class ServeEngine:
         self.session.active[slot] = False
         self._staged.add(slot)
         self.prefill_aborts += 1
+        self._trace_req("prefill_abort", st.req.request_id, requeue=bool(requeue),
+                        written=int(st.written))
         if requeue:
             st.req.start_block = None
             self.queue.appendleft(st.req)
 
     # --- emissions and retirement ----------------------------------------
 
-    def _deliver(self, req: Request, token: int, ts: float) -> bool:
+    def _deliver(self, req: Request, token: int, ts: float, block: int) -> bool:
         """Append one emitted token to ``req``'s stream unless it already
-        ended; returns whether the stream has ended (EOS or budget)."""
+        ended (a ``tok`` mark stamped with the ``block`` that emitted it,
+        and the gap since the last delivery into ``serve_itl_ms``); returns
+        whether the stream has ended (EOS or budget)."""
         rid = req.request_id
         if rid in self._ended or rid not in self._out:
             return True
         out = self._out[rid]
         out.append(token)
         self._out_ts[rid].append(ts)
+        # the tokens of one fetch share a stamp: only gaps between
+        # deliveries are inter-token latency
+        last = self._last_tok_ts.get(rid)
+        if last is not None and ts > last:
+            self._m_itl.observe((ts - last) * 1e3)
+        self._last_tok_ts[rid] = ts
+        self._trace_req("tok", rid, ts=ts, block=block, t=int(token), i=len(out) - 1)
         if req.eos_token_id is not None and token == req.eos_token_id:
             self._ended.add(rid)
             self._finish_reason.setdefault(rid, "eos")
@@ -538,11 +965,14 @@ class ServeEngine:
             self._finish_reason.setdefault(rid, "budget")
         return rid in self._ended
 
-    def _record(self, slot: int, token: int, ts: float, req: Optional[Request] = None) -> None:
-        """Deliver a token of ``req`` (by default the slot's request) and
-        latch the slot's done when the stream ended."""
+    def _record(self, slot: int, token: int, ts: float, req: Optional[Request] = None,
+                block: Optional[int] = None) -> None:
+        """Deliver a token of ``req`` (by default the slot's request),
+        emitted in ``block`` (by default the current one), and latch the
+        slot's done when the stream ended."""
         req = self.slots[slot] if req is None else req
-        if req is not None and self._deliver(req, token, ts) and self.slots[slot] is req:
+        block = self.blocks if block is None else block
+        if req is not None and self._deliver(req, token, ts, block) and self.slots[slot] is req:
             self._done[slot] = True
 
     def _awaiting(self, rid: int) -> bool:
@@ -552,36 +982,46 @@ class ServeEngine:
                 or any(p["req"].request_id == rid for p in self._first_pending))
 
     def _retire(self, slots: List[int], reason: Optional[str] = None) -> None:
-        """Free ``slots`` and complete their requests; a request whose last
-        tokens are in flight completes when they are harvested."""
+        """Free ``slots`` and complete their requests (``reason``:
+        ``"cancelled"``, ``"expired"``, or None for a stream that ended); a
+        request whose last tokens are in flight completes when they are
+        harvested. Deadlines are judged now, on the virtual clock."""
         self.lm.retire(self.session, np.asarray(slots, np.int32))
         for slot in slots:
             req = self.slots[slot]
             rid = req.request_id
+            expired = reason == "expired"
             comp = Completion(
                 request_id=rid, tokens=np.zeros((0,), np.int64), prompt_len=req.prompt.size,
                 queue_blocks=max(req.start_block - req.arrival_block, 0),
                 decode_blocks=self.blocks - req.start_block,
                 ttft_blocks=max(req.first_token_block - req.arrival_block, 0),
-                submit_ts=self._submit_ts.pop(rid, None),
-                finish_reason=reason or "")
+                submit_ts=self._submit_ts.pop(rid, None), cancelled=reason == "cancelled",
+                expired=expired, deadline_missed=expired or self._missed(req),
+                tenant=req.tenant, finish_reason=reason or "")
             self.slots[slot] = None
             self._active[slot] = False
             self._done[slot] = False
             self._tok_from.pop(slot, None)
             self._staged.add(slot)
             if reason is None and self._awaiting(rid):
-                self._tail[rid] = comp
+                self._tail[rid] = (comp, self.blocks)
             else:
-                self._complete(comp)
+                self._complete(comp, self.blocks)
 
-    def _complete(self, comp: Completion) -> None:
+    def _complete(self, comp: Completion, block: int) -> None:
+        """Fill in ``comp``'s tokens and hand it out, with a ``retire``,
+        ``expire`` or ``cancel`` mark stamped with the retiring ``block``."""
         rid = comp.request_id
         comp.tokens = np.asarray(self._out.pop(rid), np.int64)
         comp.token_ts = np.asarray(self._out_ts.pop(rid), np.float64)
+        self._last_tok_ts.pop(rid, None)
         reason = self._finish_reason.pop(rid, "budget")
         comp.finish_reason = comp.finish_reason or reason
         self._ended.discard(rid)
+        self._trace_req("cancel" if comp.cancelled else "expire" if comp.expired else "retire",
+                        rid, block=block, generated=len(comp.tokens),
+                        deadline_missed=comp.deadline_missed)
         self.completed.append(comp)
 
     def _budget_done(self) -> np.ndarray:
@@ -604,16 +1044,21 @@ class ServeEngine:
     # --- the block loop --------------------------------------------------
 
     def step_block(self) -> bool:
-        """One scheduling round: admit, spend the prefill-chunk budget,
-        advance every active slot ``block_steps`` tokens, record emissions,
-        retire finished slots. Returns False when there is nothing left to
-        do. With ``async_loop`` the round replays block t before it
-        harvests block t - 1 (:meth:`_step_block_async`)."""
+        """One scheduling round (JAX ``engine.py:3573``): admit (expiring
+        and shedding first), expire mid-prefill admissions past their
+        deadline, spend the prefill-chunk budget, advance every active slot
+        ``block_steps`` tokens, record emissions, expire streams past their
+        completion deadline, retire finished slots. Returns False when there
+        is nothing left to do. With ``async_loop`` the round replays block t
+        before it harvests block t - 1 (:meth:`_step_block_async`)."""
+        self.queue.advance(self.blocks)
         self._admit()
         self._retire_finished()   # a 1-token budget finishes at insert time
         self._admit()             # ... freeing its slot for queued work now
+        self._expire_prefilling()
         self._advance_prefill()
         self._retire_finished()   # ... or at the end of its chunked prefill
+        self._observe_block()
         if self.async_loop:
             return self._step_block_async()
         if not self._active.any():
@@ -621,8 +1066,10 @@ class ServeEngine:
                 return False
             self.blocks += 1      # arrivals or chunks pending: advance virtual time
             return True
+        t0 = time.perf_counter()
         toks = self._advance_block()
         now = time.perf_counter()
+        self._trace_block(t0, now)
         self.decode_blocks += 1
         for i in range(self.block_steps):
             for slot, req in enumerate(self.slots):
@@ -631,8 +1078,18 @@ class ServeEngine:
             self._gen_counts += 1
         self._tok = toks[-1].astype(np.int32)
         self.blocks += 1
+        self._expire_decoding()
         self._retire_finished()
         return True
+
+    def _trace_block(self, t0: float, t1: float) -> None:
+        """The round's ``decode_block`` span on the engine's blocks lane."""
+        if self.tracer.enabled:
+            self.tracer.complete("decode_block", (self.lane, "blocks"), t0, t1,
+                                 block=self.blocks,
+                                 args={"active": int(self._active.sum()),
+                                       "steps": self.block_steps, "fused": self.fused,
+                                       "inflight": len(self._inflight)})
 
     def _stage(self) -> None:
         """Write the changed slots' host mirrors into the session's slot
@@ -663,8 +1120,9 @@ class ServeEngine:
         self.h2d_copies += self.session.slots.sync()
         K = self.block_steps
         if self.fused:
-            out = self._fused(self.session)
+            out = self._dispatch("decode", lambda: self._fused(self.session))
             self.replays += 1
+            self.program_calls += 1
             got = self._fetch(out)
             self.nonfinite_logits += int((got[K] == 0).sum())
             return got[:K].astype(np.int64)
@@ -676,7 +1134,9 @@ class ServeEngine:
         for i in range(K):
             # the direct decode step, not lm.step(): step() raises at the
             # cache edge where the fused block latches done and runs on
-            logits = self.lm._decode_step(self.session, self.lm._ids(tok[:, None]))
+            logits = self._dispatch("decode", lambda t=tok: self.lm._decode_step(
+                self.session, self.lm._ids(t[:, None])))
+            self.program_calls += 1
             got = self._fetch(self._draw(logits, self._keys, self._gen_counts + i, self._temp,
                                          self._greedy))
             nxt = got[:b]
@@ -702,10 +1162,13 @@ class ServeEngine:
                 return False
             self.blocks += 1
             return True
+        t0 = time.perf_counter()
         self._dispatch_block_async()
         self.decode_blocks += 1
         self._harvest_inflight()
+        self._trace_block(t0, time.perf_counter())
         self.blocks += 1
+        self._expire_decoding()
         self._retire_finished()
         return True
 
@@ -721,8 +1184,9 @@ class ServeEngine:
         self._stage()
         base = (K + 1) * b
         self.h2d_copies += self.session.slots.sync(self._ring[base: base + self._first_cap])
-        out = self._fused(self.session)
+        out = self._dispatch("decode", lambda: self._fused(self.session))
         self.replays += 1
+        self.program_calls += 1
         self._ring[:base].copy_(out.view(-1))
         turn = self._ring_turn
         event = None
@@ -752,18 +1216,22 @@ class ServeEngine:
             self._harvest_rec(self._inflight.popleft())
         if drain and self._first_pending:
             self._settle_undispatched()
-        for rid, comp in list(self._tail.items()):
+        for rid, (comp, block) in list(self._tail.items()):
             if not self._awaiting(rid):
                 del self._tail[rid]
-                self._complete(comp)
+                self._complete(comp, block)
 
     def _harvest_rec(self, rec: dict) -> None:
         """Record one fetched block (JAX ``engine.py:3948-3971``): first
         the first tokens drawn before it, then its K rows, each row
         attributed to the request that held the slot at dispatch."""
+        t0 = time.perf_counter()
         if rec["event"] is not None:
             rec["event"].synchronize()
         got = self._ring_host[rec["turn"]].numpy().copy()
+        if self.tracer.enabled:
+            self.tracer.complete("fetch", (self.lane, "dispatch"), t0, time.perf_counter(),
+                                 block=rec["block"])
         K, b, cap = self.block_steps, self.lm.max_batch, self._first_cap
         base = (K + 1) * b
         now = time.perf_counter()
@@ -775,7 +1243,7 @@ class ServeEngine:
         for i in range(K):
             for slot, req in enumerate(rec["reqs"]):
                 if req is not None:
-                    self._record(slot, int(toks[i, slot]), now, req)
+                    self._record(slot, int(toks[i, slot]), now, req, block=rec["block"])
         for slot, req in enumerate(rec["reqs"]):
             if req is not None and self.slots[slot] is req:
                 self._tok[slot] = int(toks[-1, slot])
@@ -787,14 +1255,15 @@ class ServeEngine:
         slot, req = p["slot"], p["req"]
         if self.slots[slot] is req:
             self._tok[slot] = tok
-        self._record(slot, tok, now, req)
+        self._record(slot, tok, now, req, block=p["block"])
 
     def _settle_undispatched(self) -> None:
         """First tokens drawn since the last replay, fetched directly (a
         drain with no block to carry them); rows still waiting to go to the
         device take them from the host instead."""
         base = (self.block_steps + 1) * self.lm.max_batch
-        got = self._fetch(self._ring[base:])
+        self.host_fetches += 1
+        got = self._ring[base:].cpu().numpy()   # no block fetch: no fetch span
         now = time.perf_counter()
         for p in self._first_pending:
             idx = p["idx"]
@@ -813,10 +1282,215 @@ class ServeEngine:
 
     def run(self, max_blocks: Optional[int] = None) -> List[Completion]:
         """Drive blocks until the queue and every slot drain (or
-        ``max_blocks`` elapse); returns completions in finish order."""
+        ``max_blocks`` elapse); returns completions in finish order.
+        Snapshots (JAX ``run(snapshot_path=)``) come with ROADMAP A5's
+        snapshot/restore."""
         n = 0
         while self.step_block():
             n += 1
             if max_blocks is not None and n >= max_blocks:
                 break
+        self._m_dropped.set(self.tracer.dropped)   # retire marks land after the last block's
         return self.completed
+
+
+# --- the serving report ----------------------------------------------------
+
+_NOT_PORTED_ITEM_KEYS = {"adapter": "multi-LoRA adapters (ROADMAP A8.1)",
+                         "grammar": "grammar-constrained decoding (ROADMAP A8.2)"}
+
+
+def per_tenant_report(completions: List[Completion], tok_ts: Dict[int, np.ndarray],
+                      wall_s: float, rejected_tenants: Sequence[str] = ()) -> Dict[str, dict]:
+    """Per tenant (JAX ``engine.py:4388``, without the grammar column):
+    requests, generated tokens, inter-token gap p50/p99 from the delivery
+    stamps, TTFT in blocks, goodput (tokens of streams that met their
+    deadlines a wall second), and the rejected, expired and missed
+    counts."""
+    rej = list(rejected_tenants)
+    out: Dict[str, dict] = {}
+    for t in sorted({c.tenant for c in completions} | set(rej)):
+        comps = [c for c in completions if c.tenant == t]
+        gaps: List[float] = []
+        for c in comps:
+            ts = tok_ts.get(c.request_id, np.zeros((0,)))
+            g = np.diff(ts) * 1e3 if ts.size > 1 else np.zeros((0,))
+            gaps.extend(g[g > 0.0].tolist())
+        ontime = sum(len(c.tokens) for c in comps
+                     if not (c.deadline_missed or c.expired or c.cancelled))
+        out[t] = {
+            "requests": len(comps),
+            "generated_tokens": int(sum(len(c.tokens) for c in comps)),
+            "itl_p50_ms": round(float(np.percentile(gaps, 50)), 3) if gaps else None,
+            "itl_p99_ms": round(float(np.percentile(gaps, 99)), 3) if gaps else None,
+            "ttft_blocks_mean": (round(float(np.mean([c.ttft_blocks for c in comps])), 2)
+                                 if comps else None),
+            "ttft_blocks_p99": (int(np.percentile([c.ttft_blocks for c in comps], 99))
+                                if comps else None),
+            "goodput_tokens_per_sec": round(ontime / wall_s, 1) if wall_s > 0 else None,
+            "rejected": rej.count(t),
+            "expired": sum(1 for c in comps if c.expired),
+            "deadline_missed": sum(1 for c in comps if c.deadline_missed),
+        }
+    return out
+
+
+def interblock_gap_report(tracer: Tracer, lanes: List[Any]) -> dict:
+    """The pipeline's two idle surfaces off the dispatch lanes' ``decode``
+    and ``fetch`` spans (JAX ``engine.py:4431``): ``interblock_gap_ms_*``,
+    from a block's fetch to the next block's launch (the device waits on
+    the host; 0 in the pipelined loop), and ``fetch_blocked_ms_*``, the
+    host waiting on the device. Empty without such spans."""
+    gaps: List[float] = []
+    blocked: List[float] = []
+    for lane in lanes:
+        g, b = interblock_gaps(tracer, lane)
+        gaps.extend(g)
+        blocked.extend(b)
+    out: dict = {}
+    if gaps:
+        out.update({"interblock_gap_ms_p50": round(float(np.percentile(gaps, 50)), 3),
+                    "interblock_gap_ms_p99": round(float(np.percentile(gaps, 99)), 3),
+                    "interblock_gap_ms_mean": round(float(np.mean(gaps)), 3)})
+    if blocked:
+        out.update({"fetch_blocked_ms_p50": round(float(np.percentile(blocked, 50)), 3),
+                    "fetch_blocked_ms_mean": round(float(np.mean(blocked)), 3)})
+    return out
+
+
+def run_trace(engine: ServeEngine, trace: Sequence[dict], max_blocks: Optional[int] = None,
+              snapshot_path: Optional[str] = None) -> dict:
+    """Submit a synthetic trace (``inference/trace.py``) and drive the
+    engine to the end; returns the serving report of JAX ``engine.py:4471``
+    under its key names: throughput, blocks, host operations, the pipeline
+    gaps, the chunked-prefill counters, TTFT in blocks, inter-token latency
+    from the tracer's ``tok`` stamps (tracing is turned on; measure the
+    untraced engine with ``engine.run()``), the overload surface (rejected,
+    expired, evictions, deadline-miss rate over every submission, goodput:
+    tokens of streams that met their deadlines), ``per_tenant`` when the
+    trace labels tenants, and the page pool.
+
+    Left out with the features they read (ROADMAP A5, A8): parking,
+    grammars, adapters, fault and tier counters, ``tp_degree``. The port's
+    ``host_ops_per_block`` counts its slot-state copies beside program
+    calls and fetches (``h2d_copies``, also reported)."""
+    if snapshot_path is not None:
+        raise NotImplementedError("snapshot_path needs snapshot/restore, not ported yet "
+                                  "(ROADMAP A5, with faults.py)")
+    trace = list(trace)
+    for item in trace:
+        for key, feature in _NOT_PORTED_ITEM_KEYS.items():
+            if item.get(key) is not None:
+                raise NotImplementedError(f"trace item key {key!r} needs {feature}, "
+                                          f"not ported yet")
+    engine.tracer.enabled = True
+    tenant_of: Dict[int, str] = {}
+    for item in trace:
+        out = engine.submit(item["prompt"], item["max_new_tokens"],
+                            eos_token_id=item.get("eos_token_id"),
+                            arrival_block=item.get("arrival_block", 0),
+                            ttft_deadline_ms=item.get("ttft_deadline_ms"),
+                            deadline_ms=item.get("deadline_ms"),
+                            tenant=item.get("tenant", "default"))
+        rid = out.request_id if isinstance(out, Rejected) else out
+        tenant_of[rid] = item.get("tenant", "default")
+    t0 = time.perf_counter()
+    completions = engine.run(max_blocks=max_blocks)
+    wall_s = time.perf_counter() - t0
+    total_tokens = int(sum(len(c.tokens) for c in completions))
+    decode_blocks = max(engine.decode_blocks, 1)
+    # inter-token latency from the tracer's delivery stamps: the tokens of
+    # one fetch share a stamp, so only gaps between deliveries count
+    tok_ts = {rid: np.asarray([ev["ts"] for ev in evs if ev["name"] == "tok"], np.float64)
+              for rid, evs in engine.tracer.by_request().items()}
+    per_request = []
+    gaps_ms: List[float] = []
+    for c in completions:
+        ts = tok_ts.get(c.request_id, np.zeros((0,)))
+        g = np.diff(ts) * 1e3 if ts.size > 1 else np.zeros((0,))
+        g = g[g > 0.0]
+        gaps_ms.extend(g.tolist())
+        per_request.append({"request_id": c.request_id, "prompt_len": c.prompt_len,
+                            "generated": int(len(c.tokens)), "ttft_blocks": c.ttft_blocks,
+                            "max_itl_gap_ms": round(float(g.max()), 2) if g.size else 0.0})
+    mean = lambda xs: round(float(np.mean(xs)), 2) if completions else None  # noqa: E731
+    report = {
+        "requests_completed": len(completions),
+        "total_generated_tokens": total_tokens,
+        "wall_s": round(wall_s, 4),
+        "tokens_per_sec": round(total_tokens / wall_s, 1) if wall_s > 0 else None,
+        "blocks": engine.blocks,
+        "decode_blocks": engine.decode_blocks,
+        "block_steps": engine.block_steps,
+        "fused": engine.fused,
+        "inserts": engine.inserts,
+        "inserted_requests": engine.inserted_requests,
+        "program_calls": engine.program_calls,
+        "host_fetches": engine.host_fetches,
+        "h2d_copies": engine.h2d_copies,
+        "host_ops_per_block": round(
+            (engine.program_calls + engine.host_fetches + engine.h2d_copies) / decode_blocks, 2),
+        "async_loop": engine.async_loop,
+        **interblock_gap_report(engine.tracer, [engine.lane]),
+        "queue_blocks_mean": mean([c.queue_blocks for c in completions]),
+        "decode_blocks_mean": mean([c.decode_blocks for c in completions]),
+        "prefill_chunk_tokens": engine.prefill_chunk_tokens,
+        "chunk_program_calls": engine.chunk_program_calls,
+        "prefill_chunk_tokens_done": engine.prefill_chunk_tokens_done,
+        "prefill_aborts": engine.prefill_aborts,
+        "ttft_blocks_mean": mean([c.ttft_blocks for c in completions]),
+        "ttft_blocks_max": (int(max(c.ttft_blocks for c in completions))
+                            if completions else None),
+        "itl_p50_ms": round(float(np.percentile(gaps_ms, 50)), 3) if gaps_ms else None,
+        "itl_p99_ms": round(float(np.percentile(gaps_ms, 99)), 3) if gaps_ms else None,
+        "max_itl_gap_ms": round(float(np.max(gaps_ms)), 2) if gaps_ms else None,
+        "per_request": per_request,
+    }
+    # overload: a shed request counts as a miss (its client got nothing);
+    # goodput counts only the tokens of streams that met their deadlines
+    submitted = len(trace)
+    rejected = len(engine.rejected)
+    missed = sum(1 for c in completions if c.deadline_missed)
+    has_deadlines = any(item.get("deadline_ms") or item.get("ttft_deadline_ms")
+                        for item in trace)
+    ontime_tokens = sum(len(c.tokens) for c in completions
+                        if not (c.deadline_missed or c.expired or c.cancelled))
+    report.update({
+        "rejected": rejected,
+        "expired": sum(1 for c in completions if c.expired),
+        "shed_evictions": engine.shed_evictions,
+        "max_queue": engine.max_queue,
+        "shed_policy": engine.shed_policy,
+        "deadline_miss_rate": (round((rejected + missed) / submitted, 4)
+                               if has_deadlines and submitted else None),
+        "goodput_tokens_per_sec": round(ontime_tokens / wall_s, 1) if wall_s > 0 else None,
+        "trace_events": len(engine.tracer.events()),
+        "trace_events_dropped": engine.tracer.dropped,
+    })
+    if any(t != "default" for t in tenant_of.values()):
+        report["per_tenant"] = per_tenant_report(
+            completions, tok_ts, wall_s,
+            [tenant_of.get(r.request_id, "default") for r in engine.rejected])
+    if engine.paged:
+        pkv = engine.session.paged
+        cfg = engine.lm.config
+        kv = engine.lm.kv_cache_bytes()
+        slab = (2 * cfg.num_layers * engine.lm.max_batch * cfg.max_seq_len * cfg.num_kv_heads
+                * cfg.head_dim_ * torch.empty((), dtype=cfg.dtype).element_size())
+        report.update({
+            "paged": True,
+            "page_size": pkv.page_size,
+            "page_pool_pages": pkv.num_pages,
+            "page_dtype": str(page_storage_dtype(cfg)).replace("torch.", ""),
+            "paged_attn_kernel": bool(cfg.paged_attn_kernel),
+            "prefix_queries": pkv.prefix_queries,
+            "prefix_hits": pkv.prefix_hits,
+            "prefix_hit_tokens": pkv.prefix_hit_tokens,
+            "pages_in_use_peak": pkv.pages_in_use_peak,
+            "evicted_pages": pkv.evicted_pages,
+            "deferred_admissions": engine.deferred_admissions,
+            "kv_hbm_bytes": kv,
+            "kv_slab_hbm_bytes": slab,
+            "kv_hbm_vs_slab": round(kv / slab, 3),
+        })
+    return report

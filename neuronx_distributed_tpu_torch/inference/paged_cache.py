@@ -213,6 +213,23 @@ class RadixPrefixIndex:
             freed += self._drop_subtree(victim)
         return freed
 
+    def reclaimable_pages(self) -> int:
+        """Pages :meth:`evict` could free right now (JAX
+        ``paged_cache.py:453-476`` without a host tier): cache-only pages
+        (refcount 1) whose whole subtree is cache-only too, since eviction
+        drops leaves first."""
+        def count(node) -> Tuple[int, bool]:
+            total, all_free = 0, True
+            for c in node.children.values():
+                t, free = count(c)
+                total += t
+                all_free = all_free and free
+            if all_free and self.allocator.refcount[node.page] == 1:
+                return total + 1, True
+            return total, False
+
+        return sum(count(c)[0] for c in self.root.children.values())
+
     def _drop_subtree(self, node) -> int:
         freed = 0
         self.cached_pages -= 1

@@ -6,13 +6,12 @@ knobs and seed it draws the same prompts, arrival blocks and tenant labels.
 Virtual time is in decode blocks: a request with ``arrival_block`` t is
 admitted no earlier than the engine's block t (``ServeEngine.submit``).
 
-Knobs whose engine features are not ported yet raise
-``NotImplementedError`` naming the queue item that brings them: deadlines
-(``ttft_deadline_ms``, ``deadline_ms``: ROADMAP A5), adapters (``adapters``,
-``adapter_skew``: A8.1) and grammars (``grammar_frac``, ``grammars``:
-A8.2). Leaving them out shifts no other draw: in the reference the adapter
-and grammar labels come from streams of their own, and the deadlines are
-copied, not drawn.
+The deadline knobs (``ttft_deadline_ms``, ``deadline_ms``) are copied onto
+every request, not drawn. Knobs whose engine features are not ported yet
+raise ``NotImplementedError`` naming the queue item that brings them:
+adapters (``adapters``, ``adapter_skew``: ROADMAP A8.1) and grammars
+(``grammar_frac``, ``grammars``: A8.2). Leaving them out shifts no other
+draw: in the reference their labels come from streams of their own.
 """
 
 from __future__ import annotations
@@ -23,8 +22,6 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 
 _NOT_PORTED = {
-    "ttft_deadline_ms": (None, "deadlines and EDF admission (ROADMAP A5)"),
-    "deadline_ms": (None, "deadlines and EDF admission (ROADMAP A5)"),
     "adapters": (0, "multi-LoRA adapters (ROADMAP A8.1)"),
     "adapter_skew": (1.0, "multi-LoRA adapters (ROADMAP A8.1)"),
     "grammar_frac": (0.0, "grammar-constrained decoding (ROADMAP A8.2)"),
@@ -40,6 +37,8 @@ def synthetic_trace_stream(num_requests: int, vocab_size: int, *,
                            prefix_families: int = 1,
                            long_prompt_frac: float = 0.0,
                            long_prompt_len: int = 0,
+                           ttft_deadline_ms: Optional[float] = None,
+                           deadline_ms: Optional[float] = None,
                            tenants: int = 0,
                            tenant_skew: float = 1.0,
                            diurnal: float = 0.0,
@@ -49,7 +48,8 @@ def synthetic_trace_stream(num_requests: int, vocab_size: int, *,
                            seed: int = 0,
                            **not_ported) -> Iterator[dict]:
     """One request dict at a time (``prompt``, ``max_new_tokens``,
-    ``eos_token_id``, ``arrival_block``, and ``tenant`` when ``tenants``):
+    ``eos_token_id``, ``arrival_block``, ``ttft_deadline_ms``,
+    ``deadline_ms``, and ``tenant`` when ``tenants``):
     exponential inter-arrivals of mean ``mean_interarrival_blocks``, scaled
     by ``1 + diurnal * sin(2 pi t / diurnal_period_blocks)`` and by
     ``burst_mult`` in the first quarter of every ``burst_every`` blocks;
@@ -63,7 +63,7 @@ def synthetic_trace_stream(num_requests: int, vocab_size: int, *,
         if name not in _NOT_PORTED:
             raise TypeError(f"synthetic_trace got an unexpected keyword {name!r}")
         default, feature = _NOT_PORTED[name]
-        if value != default and not (value is None and default is None):
+        if value != default:
             raise NotImplementedError(f"{name} needs {feature}, not ported yet")
     if not 0.0 <= diurnal < 1.0:
         raise ValueError(f"diurnal must be in [0, 1), got {diurnal}")
@@ -110,6 +110,9 @@ def synthetic_trace_stream(num_requests: int, vocab_size: int, *,
             "max_new_tokens": max_new_tokens,
             "eos_token_id": eos_token_id,
             "arrival_block": int(t),
+            # per-request budgets from arrival, the same on every item
+            "ttft_deadline_ms": ttft_deadline_ms,
+            "deadline_ms": deadline_ms,
         }
         if tenant_p is not None:
             item["tenant"] = f"t{int(rs.choice(tenants, p=tenant_p))}"

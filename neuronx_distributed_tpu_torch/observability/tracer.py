@@ -1,0 +1,315 @@
+"""Ring-buffer structured tracer: per-request lifecycle lanes and engine
+lanes on two clocks (virtual decode blocks and wall time), exported as
+Chrome trace-event JSON (loadable in Perfetto or ``chrome://tracing``).
+
+The port's own copy of ``neuronx_distributed_tpu/observability/tracer.py``,
+stdlib only. Every event the serving engine records is a fact its scheduler
+already holds between blocks (queued, admitted, chunk rounds, first token,
+token deliveries, retire, expire, shed), so recording costs a dict append
+and no device work:
+
+* disabled (the default) — one attribute check per call site;
+* enabled — a bounded ``deque`` append; once ``capacity`` is exceeded the
+  oldest events drop and ``dropped`` counts them, so an export is never
+  silently partial;
+* nothing here touches a device tensor or a captured graph: tracing on or
+  off cannot change what the device runs.
+
+Lanes are ``(process, track)`` pairs: ``("req", <request_id>)`` gives each
+request its own row; ``(<engine name>, "dispatch"|"blocks"|"queue")`` and
+``("cache", "pool")`` carry the engine's and the page pool's timelines.
+The exporter assigns stable pids/tids and writes the ``process_name`` and
+``thread_name`` metadata Perfetto sorts by.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
+
+Lane = Tuple[str, Any]
+
+# Chrome trace-event phases this tracer emits: X (complete span with dur),
+# i (instant), C (counter), M (metadata — exporter only)
+_PHASES = ("X", "i", "C")
+
+
+class Tracer:
+    """Bounded structured event recorder. One per engine; share one
+    across components to get a single merged timeline."""
+
+    def __init__(self, capacity: int = 65536, enabled: bool = True):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.enabled = bool(enabled)
+        self.capacity = int(capacity)
+        self._buf: deque = deque(maxlen=capacity)
+        self._recorded = 0
+        self._t0 = time.perf_counter()
+
+    # --- recording -------------------------------------------------------
+
+    def now(self) -> float:
+        """Wall stamp (seconds, ``perf_counter`` basis) — pass to ``ts=`` to
+        share one stamp across events (e.g. every token of one fetch)."""
+        return time.perf_counter()
+
+    def _append(self, ev: dict) -> None:
+        self._recorded += 1
+        self._buf.append(ev)
+
+    def instant(self, name: str, lane: Lane, *, block: Optional[int] = None,
+                ts: Optional[float] = None, args: Optional[dict] = None) -> None:
+        if not self.enabled:
+            return
+        self._append({"name": name, "ph": "i", "lane": lane,
+                      "ts": self.now() if ts is None else ts,
+                      "block": block, "args": args})
+
+    def complete(self, name: str, lane: Lane, start: float, end: float, *,
+                 block: Optional[int] = None,
+                 args: Optional[dict] = None) -> None:
+        """Record a finished span [start, end] (wall seconds from
+        :meth:`now`)."""
+        if not self.enabled:
+            return
+        self._append({"name": name, "ph": "X", "lane": lane, "ts": start,
+                      "dur": max(end - start, 0.0), "block": block,
+                      "args": args})
+
+    def counter(self, name: str, lane: Lane, value, *,
+                block: Optional[int] = None,
+                ts: Optional[float] = None) -> None:
+        """Counter-track sample (renders as a little area chart in
+        Perfetto — queue depth, pool occupancy)."""
+        if not self.enabled:
+            return
+        self._append({"name": name, "ph": "C", "lane": lane,
+                      "ts": self.now() if ts is None else ts,
+                      "block": block, "args": {"value": value}})
+
+    @contextlib.contextmanager
+    def span(self, name: str, lane: Lane, *, block: Optional[int] = None,
+             args: Optional[dict] = None):
+        """``with tracer.span("decode", ("engine", "dispatch")):`` — times
+        the body and records one X event (recorded even when the body
+        raises, with ``error`` marked: a failed dispatch is exactly the
+        event a timeline reader is looking for)."""
+        if not self.enabled:
+            yield None
+            return
+        t0 = self.now()
+        try:
+            yield None
+        except BaseException as e:
+            self.complete(name, lane, t0, self.now(), block=block,
+                          args={**(args or {}), "error": type(e).__name__})
+            raise
+        self.complete(name, lane, t0, self.now(), block=block, args=args)
+
+    # --- introspection ---------------------------------------------------
+
+    @property
+    def dropped(self) -> int:
+        return self._recorded - len(self._buf)
+
+    def events(self, name: Optional[str] = None,
+               lane_group: Optional[str] = None) -> List[dict]:
+        """Recorded events in order, optionally filtered by name and/or lane
+        process group ('req', 'engine', 'cache')."""
+        out = []
+        for ev in self._buf:
+            if name is not None and ev["name"] != name:
+                continue
+            if lane_group is not None and ev["lane"][0] != lane_group:
+                continue
+            out.append(ev)
+        return out
+
+    def by_request(self) -> Dict[int, List[dict]]:
+        """request_id -> its lane's events, recording order."""
+        out: Dict[int, List[dict]] = {}
+        for ev in self._buf:
+            if ev["lane"][0] == "req":
+                out.setdefault(ev["lane"][1], []).append(ev)
+        return out
+
+    def clear(self) -> None:
+        self._buf.clear()
+        self._recorded = 0
+
+    # --- export ----------------------------------------------------------
+
+    def chrome_events(self) -> List[dict]:
+        """Chrome trace-event list: metadata first, then events sorted by
+        timestamp (ties keep recording order). ``ts`` is µs relative to the
+        tracer epoch; the virtual block clock rides ``args.block`` so a
+        Perfetto query can join wall and scheduler time."""
+        procs: Dict[str, int] = {}
+        threads: Dict[Lane, int] = {}
+        meta: List[dict] = []
+
+        def ids(lane: Lane) -> Tuple[int, int]:
+            proc, track = lane
+            if proc not in procs:
+                procs[proc] = len(procs) + 1
+                meta.append({"name": "process_name", "ph": "M",
+                             "pid": procs[proc], "tid": 0,
+                             "args": {"name": proc}})
+            pid = procs[proc]
+            if lane not in threads:
+                # request lanes get tid = request id (stable, sortable);
+                # named tracks number up from 0 in first-seen order
+                tid = (int(track) if proc == "req"
+                       else sum(1 for t in threads if t[0] == proc))
+                threads[lane] = tid
+                label = (f"req {track}" if proc == "req" else str(track))
+                meta.append({"name": "thread_name", "ph": "M", "pid": pid,
+                             "tid": tid, "args": {"name": label}})
+                meta.append({"name": "thread_sort_index", "ph": "M",
+                             "pid": pid, "tid": tid,
+                             "args": {"sort_index": tid}})
+            return pid, threads[lane]
+
+        # ring-buffer drops are stamped INTO the event stream (not only the
+        # sidecar otherData): a trace viewer or slice that keeps just
+        # traceEvents still learns it is looking at a partial window
+        meta.append({"name": "trace_dropped_events", "ph": "M", "pid": 0,
+                     "tid": 0, "args": {"dropped": self.dropped,
+                                        "recorded": self._recorded}})
+        events: List[dict] = []
+        for i, ev in enumerate(self._buf):
+            pid, tid = ids(ev["lane"])
+            ts_us = max(ev["ts"] - self._t0, 0.0) * 1e6
+            args = dict(ev["args"] or {})
+            if ev["block"] is not None:
+                args["block"] = ev["block"]
+            out = {"name": ev["name"], "ph": ev["ph"], "pid": pid,
+                   "tid": tid, "ts": ts_us, "args": args}
+            if ev["ph"] == "X":
+                out["dur"] = ev["dur"] * 1e6
+            if ev["ph"] == "i":
+                out["s"] = "t"   # thread-scoped instant
+            events.append((ts_us, i, out))
+        events.sort(key=lambda t: (t[0], t[1]))
+        return meta + [e for _, _, e in events]
+
+    def export_chrome(self, path: Optional[str] = None) -> dict:
+        """The Perfetto-loadable document. Writes JSON to ``path`` when
+        given; always returns the dict."""
+        doc = {
+            "traceEvents": self.chrome_events(),
+            "displayTimeUnit": "ms",
+            "otherData": {
+                "recorded_events": self._recorded,
+                "dropped_events": self.dropped,
+            },
+        }
+        if path:
+            with open(path, "w") as f:
+                json.dump(doc, f)
+        return doc
+
+
+def interblock_gaps(tracer: Tracer, lane_track: Any) -> Tuple[List[float], List[float]]:
+    """Inter-block device-idle gaps and host-blocked fetch times, in ms,
+    read off the ``(lane, "dispatch")`` track's existing ``decode``/``fetch``
+    X spans — no new instrumentation.
+
+    The i-th gap pairs the i-th ``fetch`` span (the host comes back from
+    the block's blocking fetch) with the (i+1)-th ``decode`` span (the next
+    fused-block dispatch): ``gap = max(0, dispatch.ts - fetch.end)``. Under
+    the synchronous loop the whole scheduling pass sits in that window and
+    the device idles through it; under ``async_loop`` block t+1 is
+    dispatched BEFORE block t's fetch, the pairing goes negative, and the
+    clamped gap is exactly 0.0. The second list is each fetch's own duration
+    (the host-blocked side of the split): in the async loop it overlaps
+    device compute instead of following it.
+
+    Pure stdlib on recorded host events (this module must stay importable
+    without numpy); percentile math happens at the call sites.
+    """
+    lane = (lane_track, "dispatch")
+    decodes = [ev for ev in tracer.events("decode")
+               if ev["ph"] == "X" and ev["lane"] == lane]
+    fetches = [ev for ev in tracer.events("fetch")
+               if ev["ph"] == "X" and ev["lane"] == lane]
+    gaps: List[float] = []
+    for i, f in enumerate(fetches):
+        if i + 1 >= len(decodes):
+            break
+        d = decodes[i + 1]
+        gaps.append(max(0.0, (d["ts"] - (f["ts"] + f["dur"])) * 1e3))
+    blocked = [f["dur"] * 1e3 for f in fetches]
+    return gaps, blocked
+
+
+def validate_chrome_trace(doc: dict, require_request_lanes: bool = True) -> dict:
+    """Schema gate for an exported trace. Checks:
+    top-level shape, required per-event fields and types, known phases,
+    non-negative sorted timestamps (metadata exempt), ``dur`` on X events —
+    and, by default, that at least one per-request lane exists. Returns a
+    summary dict; raises ``ValueError`` on the first violation."""
+    if not isinstance(doc, dict) or "traceEvents" not in doc:
+        raise ValueError("trace must be a dict with a traceEvents list")
+    evs = doc["traceEvents"]
+    if not isinstance(evs, list) or not evs:
+        raise ValueError("traceEvents must be a non-empty list")
+    pids: Dict[int, str] = {}
+    req_pid = None
+    last_ts = 0.0
+    names = set()
+    n_real = 0
+    dropped = 0
+    for i, ev in enumerate(evs):
+        if not isinstance(ev, dict):
+            raise ValueError(f"event {i} is not an object")
+        for field, types in (("name", str), ("ph", str), ("pid", int),
+                             ("tid", int)):
+            if not isinstance(ev.get(field), types):
+                raise ValueError(f"event {i} missing/invalid {field!r}: {ev}")
+        ph = ev["ph"]
+        if ph == "M":
+            if ev["name"] == "process_name":
+                pids[ev["pid"]] = ev["args"]["name"]
+                if ev["args"]["name"] == "req":
+                    req_pid = ev["pid"]
+            elif ev["name"] == "trace_dropped_events":
+                d = (ev.get("args") or {}).get("dropped")
+                if not isinstance(d, int) or d < 0:
+                    raise ValueError(
+                        f"event {i}: trace_dropped_events metadata must "
+                        f"carry a non-negative integer 'dropped': {ev}")
+                dropped = d
+            continue
+        if ph not in _PHASES:
+            raise ValueError(f"event {i} has unknown phase {ph!r}")
+        ts = ev.get("ts")
+        if not isinstance(ts, (int, float)) or ts < 0:
+            raise ValueError(f"event {i} missing/negative ts: {ev}")
+        if ts < last_ts:
+            raise ValueError(f"event {i} out of order: {ts} < {last_ts}")
+        last_ts = ts
+        if ph == "X" and not (isinstance(ev.get("dur"), (int, float))
+                              and ev["dur"] >= 0):
+            raise ValueError(f"X event {i} missing/negative dur: {ev}")
+        names.add(ev["name"])
+        n_real += 1
+    req_lanes = sorted(
+        ev["tid"] for ev in evs
+        if ev["ph"] != "M" and req_pid is not None and ev["pid"] == req_pid)
+    if require_request_lanes and not req_lanes:
+        raise ValueError("trace has no per-request lanes")
+    # surface ring-buffer drops wherever they were stamped (metadata event
+    # and/or the exporter's otherData): a reader of the SUMMARY learns the
+    # trace is a partial window without digging for the sidecar field
+    other = doc.get("otherData")
+    if isinstance(other, dict) and isinstance(
+            other.get("dropped_events"), int):
+        dropped = max(dropped, other["dropped_events"])
+    return {"events": n_real, "processes": sorted(pids.values()),
+            "request_lanes": sorted(set(req_lanes)), "names": names,
+            "dropped_events": dropped}

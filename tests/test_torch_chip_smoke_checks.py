@@ -191,3 +191,114 @@ def test_head_dim_floors_widen_only_above_128(smoke):
     assert wide["out"] == narrow["out"] and wide["dv"] == narrow["dv"]
     assert smoke.head_dim_floors(160) == wide
     assert set(smoke.HEAD_DIM_CASES) >= {160, 256}
+
+
+def _overload_passes(changes=()):
+    """Three fabricated overload passes that hold every gate; ``changes``
+    maps ``(label, key)`` to a value that breaks one."""
+    def one(traced, async_loop):
+        st = dict(async_loop=async_loop, traced=traced, submitted=6, completed=4, rejected_n=2,
+                  streams={0: [5, 6, 7], 1: [], 2: [8], 3: [9, 9]},
+                  schedule={0: (0, 0, 2), 1: (3, 3, 0), 2: (1, 1, 1), 3: (0, 0, 2)},
+                  finish={0: "budget", 1: "expired", 2: "expired", 3: "budget"},
+                  expired={1: 0, 2: 1},
+                  rejected=[(4, "queue_full", 2, 8), (5, "queue_full", 3, 8)],
+                  launches={"flash_block_forward": 12, "paged_decode_attention": 96},
+                  host_ops=[2, 3, 2], steady_ok=True, blocks_ok=True, queue_full=2,
+                  partial_expiries=1, ontime=2)
+        if traced:
+            st.update(dropped=0, tok_events_match=True, chrome="ok", queued_expiries=1,
+                      deadline_evictions=1)
+        return st
+
+    passes = {"d": one(True, False), "e": one(True, True), "f": one(False, True)}
+    for (label, key), value in dict(changes).items():
+        passes[label][key] = value
+    return passes
+
+
+def test_overload_gates_hold_on_a_good_run(smoke):
+    assert smoke.overload_gates(_overload_passes()) == []
+
+
+@pytest.mark.parametrize("label,key,value,says", [
+    ("d", "deadline_evictions", 0, "no eviction by deadline"),
+    ("d", "queue_full", 0, "no shed to a full queue"),
+    ("d", "queued_expiries", 0, "no expiry in the queue"),
+    ("d", "partial_expiries", 0, "no decoding expiry with a partial stream"),
+    ("d", "ontime", 0, "no on-time completion"),
+    ("e", "schedule", {0: (0, 0, 3), 1: (3, 3, 0), 2: (1, 1, 1), 3: (0, 0, 2)},
+     "(e) schedule differ"),
+    ("f", "streams", {0: [5, 6, 7], 1: [], 2: [8], 3: [9, 8]}, "(f) streams differ"),
+    ("f", "rejected", [(4, "queue_full", 2, 8)], "(f) rejected differ"),
+    ("e", "expired", {1: 0}, "(e) expired differ"),
+    ("e", "finish", {0: "budget", 1: "expired", 2: "budget", 3: "budget"}, "(e) finish differ"),
+    ("e", "dropped", 3, "dropped 3 events"),
+    ("d", "tok_events_match", False, "tok events differ"),
+    ("e", "chrome", "event 4 out of order", "exported trace refused"),
+    ("d", "steady_ok", False, "host ops a decode block"),
+    ("e", "blocks_ok", False, "host ops a decode block"),
+    ("f", "launches", {"flash_block_forward": 0, "paged_decode_attention": 96},
+     "(f) never launched flash_block_forward"),
+    ("d", "completed", 3, "3 completed + 2 rejected != 6 submitted"),
+])
+def test_overload_gates_catch_each_fault(smoke, label, key, value, says):
+    """A missing shed, eviction or expiry, a pass whose decisions differ
+    from (d)'s, a dropped or mismatched trace event, a refused export, too
+    many host ops, a kernel not launched, or a lost request: each fails the
+    overload phase, and the message says which."""
+    problems = smoke.overload_gates(_overload_passes({(label, key): value}))
+    assert len(problems) >= 1 and any(says in p for p in problems), problems
+
+
+def test_overload_trace_budgets(smoke):
+    """Budgets are blocks times the fixed block time; a short prompt's TTFT
+    budget is a quarter of a long one's, the completion budget the same
+    for every request; the draws are the trace phase's generator's."""
+    trace = smoke.overload_trace(128256)
+    assert len(trace) == smoke.OVERLOAD_REQUESTS == 48
+    long_len = smoke.OVERLOAD_KNOBS["long_prompt_len"]
+    ttft = smoke.OVERLOAD_TTFT_BLOCKS * smoke.OVERLOAD_BLOCK_MS
+    for it in trace:
+        want = ttft if it["prompt"].size == long_len else ttft / 4
+        assert it["ttft_deadline_ms"] == want
+        assert it["deadline_ms"] == smoke.OVERLOAD_DEADLINE_BLOCKS * smoke.OVERLOAD_BLOCK_MS
+    assert sum(it["prompt"].size == long_len for it in trace) == 12
+    assert {it["tenant"] for it in trace} == {"t0", "t1"}
+    assert smoke.OVERLOAD_ENGINE["block_time_ms"] == smoke.OVERLOAD_BLOCK_MS
+
+
+def test_overload_schedule_meets_the_coverage_gates_on_the_cpu(smoke):
+    """The overload phase's schedule is a function of its trace alone
+    (greedy, no EOS, a fixed block time): served by a one-layer model at
+    the phase's scheduling shape (4096-token context, pages of 16, 8 slots,
+    buckets 128/512/4096, K = 8, chunks of 512, ``max_queue=8``; the
+    prompts' ids folded into a 512-token vocabulary, which moves no
+    decision), pass (d) sheds to a full queue, evicts by deadline, expires
+    in the queue and mid-decode, completes on time, and a steady decode
+    block is one replay and one fetch, with the counts the card's run
+    gives (``PERF.md``). One intra-op thread: the test shares the CPU."""
+    from neuronx_distributed_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig(vocab_size=512, hidden_size=16, intermediate_size=32, num_layers=1,
+                         num_heads=2, num_kv_heads=1, max_seq_len=4096, dtype=torch.float32)
+    lm = smoke.trace_lm(cfg, "cpu", tl.init_params(cfg, torch.Generator().manual_seed(0)))
+    trace = smoke.overload_trace(128256)
+    for it in trace:
+        it["prompt"] = it["prompt"] % (cfg.vocab_size - 1) + 1
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        st = smoke.overload_pass(lm, "cpu", trace, False, True, ())
+    finally:
+        torch.set_num_threads(threads)
+    launches = dict(flash_block_forward=1, paged_decode_attention=1)   # the CPU runs the twins
+    passes = {label: {**st, "launches": launches} for label in ("d", "e", "f")}
+    assert smoke.overload_gates(passes) == []
+    counts = {k: st[k] for k in ("completed", "rejected_n", "ontime", "expired_n",
+                                 "queued_expiries", "partial_expiries", "deadline_evictions",
+                                 "decode_blocks")}
+    assert counts == dict(completed=28, rejected_n=20, ontime=17, expired_n=11,
+                          queued_expiries=10, partial_expiries=1, deadline_evictions=7,
+                          decode_blocks=25)
+    assert st["report"]["shed_policy"] == "deadline" and st["report"]["per_tenant"]

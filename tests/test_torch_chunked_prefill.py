@@ -303,23 +303,27 @@ def test_chunked_page_lifecycle_matches_jax():
     dict(prompt_lens=(9,), tenants=3, tenant_skew=1.5, eos_token_id=2, seed=4),
     dict(prompt_lens=(3, 5), diurnal=0.6, diurnal_period_blocks=8, burst_every=6,
          burst_mult=3.0, mean_interarrival_blocks=1.5, seed=7),
+    # the deadline knobs, once refused here, are copied onto every item
+    dict(prompt_lens=(5, 8), ttft_deadline_ms=5.0, tenants=2, seed=2),
+    dict(prompt_lens=(6,), deadline_ms=9.0, ttft_deadline_ms=2.5, seed=8),
 ])
 def test_synthetic_trace_draws_as_jax(knobs):
     """Every kept knob draws the same prompts, arrivals and tenant labels as
-    the JAX trace; the JAX trace's adapter labels come from a stream of
-    their own, so asking for them there shifts nothing here."""
+    the JAX trace and copies the same deadlines; the JAX trace's adapter
+    labels come from a stream of their own, so asking for them there
+    shifts nothing here."""
     mine = synthetic_trace(12, 128, **knobs)
     for ref in (jax_trace(12, 128, **knobs), jax_trace(12, 128, adapters=3, **knobs)):
         assert len(mine) == len(ref)
         for a, b in zip(mine, ref):
             assert np.array_equal(a["prompt"], b["prompt"])
-            for key in ("max_new_tokens", "eos_token_id", "arrival_block"):
+            for key in ("max_new_tokens", "eos_token_id", "arrival_block", "ttft_deadline_ms",
+                        "deadline_ms"):
                 assert a[key] == b[key]
             assert a.get("tenant") == b.get("tenant")
 
 
-@pytest.mark.parametrize("knob", [dict(ttft_deadline_ms=5.0), dict(deadline_ms=9.0),
-                                  dict(adapters=2), dict(grammar_frac=0.5, grammars=("g",))])
+@pytest.mark.parametrize("knob", [dict(adapters=2), dict(grammar_frac=0.5, grammars=("g",))])
 def test_synthetic_trace_refuses_knobs_of_features_not_ported(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         synthetic_trace(4, 128, **knob)

@@ -60,6 +60,17 @@ def test_port_imports_with_jax_blocked():
     assert res.stdout.strip() == "ok"
 
 
+def test_overload_and_observability_modules_stand_alone():
+    """The admission queue and the observability copies are stdlib-only
+    ports: they are walked and imported above, and import nothing but the
+    standard library."""
+    for mod in ("inference.schedq", "observability.metrics", "observability.tracer"):
+        assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
+        path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
+        assert set(_imported_roots(path)) <= {"__future__", "contextlib", "heapq", "json",
+                                              "math", "re", "time", "collections", "typing"}
+
+
 def _tiny_lm_args():
     cfg = tl.LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1,
                          num_heads=4, num_kv_heads=2, max_seq_len=32, dtype=torch.float32)

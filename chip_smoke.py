@@ -74,6 +74,20 @@ Phases, each fatal on failure (exit code 1, no result line):
            event, record each delivered token once and export a trace the
            validator accepts. Printed: ``run_trace``'s report of (d) and
            (e), and (e) against (f) tokens/s (the tracer's cost);
+4d. recovery the same weights behind a ``CausalLM`` with a 300-page pool and
+           a 256-page host tier: 32 greedy requests over four shared
+           512-token prefixes served seven times: (g) the reference, (h)
+           dispatch faults in the pipelined loop, (i) and (j) a chaos plan
+           (pool storms, dispatch faults, corrupted pages, tier read
+           failures and corruptions) in both loops, (k) a crash at a
+           snapshot and ``from_snapshot``, (l) every live page with a tier
+           copy corrupted and repaired, (m) the streaming report. (h) and
+           (l) must give (g)'s streams bit for bit, (i) and (j) the same
+           decisions and streams, each stream (g)'s tokens up to its first
+           replay, (k) every request resumed with (g)'s tokens up to the
+           snapshot and the captured graph reused, (m) (g)'s totals, and
+           every count (faults, replays, spills, restores, repairs, blocks)
+           the one the CPU rehearsal predicted;
 5. train   Llama-3-8B widths cut to 4 layers (bf16 weights, fp32 master
            AdamW, clipping, activation checkpointing, the optimizer kernel)
            on a repeated 2 x 4096-token batch: 2 warm-up steps, then 5 timed
@@ -1840,6 +1854,411 @@ def run_overload_phase(lm, dev, counters, profile=False) -> dict:
                 tracing_cost=1 - passes["e"]["tokens_per_s"] / passes["f"]["tokens_per_s"])
 
 
+# --- phase 4d: serving that survives faults ----------------------------------------
+
+# 32 greedy requests of 64 new tokens arriving 2 a block over four shared
+# 512-token prefixes (runs of four requests): each prefix comes back 16
+# requests later, after its first users retired, so a pool of 300 pages
+# spills it to the host tier and the second run restores it (with eight
+# prefixes over 32 requests none would come back)
+RECOVERY_REQUESTS = 32
+RECOVERY_KNOBS = dict(prompt_lens=(64, 128, 256, 384), max_new_tokens=64,
+                      mean_interarrival_blocks=0.5, shared_prefix_len=512, prefix_families=4,
+                      seed=3)
+RECOVERY_POOL_PAGES = 300
+RECOVERY_TIER_PAGES = 256
+RECOVERY_ENGINE = dict(block_steps=8, host_tier_pages=RECOVERY_TIER_PAGES)
+# the plans, chosen on the CPU so that every seam fires in pass (i)
+RECOVERY_DISPATCH_PLAN = dict(seed=0, dispatch_fail_prob=0.1, dispatch_max_failures=2)
+RECOVERY_CHAOS_PLAN = dict(seed=2, pool_exhaust_prob=0.05, pool_storm_len=2,
+                           dispatch_fail_prob=0.05, dispatch_max_failures=2,
+                           corrupt_page_prob=0.15, tier_restore_fail_prob=0.1,
+                           tier_corrupt_prob=0.1)
+RECOVERY_CHAOS_RETRIES = 8
+# pass (k) snapshots every 4 rounds and stops ("crashes") at a snapshot
+RECOVERY_SNAPSHOT_EVERY = 4
+RECOVERY_CRASH_BLOCKS = 16
+# (label, plan, async_loop): the passes that run the trace through run_trace
+RECOVERY_PASSES = (("g", None, False), ("h", "dispatch", True), ("i", "chaos", False),
+                   ("j", "chaos", True))
+# the counts the schedule gives, a function of the trace and the plan
+# alone (greedy, no EOS): read from the CPU rehearsal at one layer
+# (tests/test_torch_chip_smoke_checks.py), held exactly on the card
+RECOVERY_COUNT_KEYS = ("decode_blocks", "blocks", "inserts", "deferred_admissions",
+                       "tier_spilled_pages", "tier_restored_pages", "tier_hits",
+                       "tier_restore_failures", "tier_repaired_pages", "corrupt_page_replays",
+                       "tier_page_repairs", "dispatch_retries", "injected_corruptions",
+                       "restored_requests", "fault_stats")
+_CHAOS_FAULTS = dict(alloc_faults=4, dispatch_faults=10, pages_corrupted=5, tier_restore_faults=3,
+                     tier_corruptions=1)
+RECOVERY_PREDICTED = {
+    "g": dict(decode_blocks=36, blocks=36, inserts=20, deferred_admissions=0,
+             tier_spilled_pages=420, tier_restored_pages=128, tier_hits=4,
+             tier_restore_failures=0, tier_repaired_pages=0, corrupt_page_replays=0,
+             tier_page_repairs=0, dispatch_retries=0, injected_corruptions=0,
+             restored_requests=0, fault_stats=None),
+    "h": dict(decode_blocks=36, blocks=36, inserts=20, deferred_admissions=0,
+             tier_spilled_pages=420, tier_restored_pages=128, tier_hits=4,
+             tier_restore_failures=0, tier_repaired_pages=0, corrupt_page_replays=0,
+             tier_page_repairs=0, dispatch_retries=12, injected_corruptions=0,
+             restored_requests=0, fault_stats={'dispatch_faults': 12}),
+    "i": dict(decode_blocks=36, blocks=36, inserts=32, deferred_admissions=2,
+             tier_spilled_pages=390, tier_restored_pages=6, tier_hits=3,
+             tier_restore_failures=4, tier_repaired_pages=0, corrupt_page_replays=11,
+             tier_page_repairs=0, dispatch_retries=10, injected_corruptions=0,
+             restored_requests=0, fault_stats=_CHAOS_FAULTS),
+    "j": dict(decode_blocks=36, blocks=36, inserts=32, deferred_admissions=2,
+             tier_spilled_pages=390, tier_restored_pages=6, tier_hits=3,
+             tier_restore_failures=4, tier_repaired_pages=0, corrupt_page_replays=11,
+             tier_page_repairs=0, dispatch_retries=10, injected_corruptions=0,
+             restored_requests=0, fault_stats=_CHAOS_FAULTS),
+    "k": dict(decode_blocks=20, blocks=36, inserts=17, deferred_admissions=0,
+             tier_spilled_pages=266, tier_restored_pages=64, tier_hits=2,
+             tier_restore_failures=0, tier_repaired_pages=0, corrupt_page_replays=0,
+             tier_page_repairs=0, dispatch_retries=0, injected_corruptions=0,
+             restored_requests=23, fault_stats=None),
+    "l": dict(decode_blocks=36, blocks=36, inserts=20, deferred_admissions=0,
+             tier_spilled_pages=420, tier_restored_pages=128, tier_hits=4,
+             tier_restore_failures=0, tier_repaired_pages=128, corrupt_page_replays=0,
+             tier_page_repairs=128, dispatch_retries=0, injected_corruptions=128,
+             restored_requests=0, fault_stats=None),
+    "m": dict(decode_blocks=36, blocks=36, inserts=20, deferred_admissions=0,
+             tier_spilled_pages=420, tier_restored_pages=128, tier_hits=4,
+             tier_restore_failures=0, tier_repaired_pages=0, corrupt_page_replays=0,
+             tier_page_repairs=0, dispatch_retries=0, injected_corruptions=0,
+             restored_requests=0, fault_stats=None),
+}
+
+
+def recovery_lm(cfg, dev, params):
+    """The ``CausalLM`` of the recovery phase: the serve phase's widths and
+    weights (shared, not copied), the trace phase's buckets, and a pool of
+    ``RECOVERY_POOL_PAGES`` pages."""
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+
+    return CausalLM(cfg, params, LlamaForCausalLM, buckets=TRACE_BUCKETS, max_batch=8,
+                    page_size=16, paged_attn_kernel=True, page_pool_pages=RECOVERY_POOL_PAGES,
+                    device=dev)
+
+
+def recovery_trace(vocab: int) -> list:
+    from neuronx_distributed_tpu_torch.inference.trace import synthetic_trace
+
+    return synthetic_trace(RECOVERY_REQUESTS, vocab, **RECOVERY_KNOBS)
+
+
+def _recovery_engine(lm, plan=None, **kw):
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+    from neuronx_distributed_tpu_torch.inference.faults import FaultPlan
+
+    plans = {"dispatch": (RECOVERY_DISPATCH_PLAN, 3),
+             "chaos": (RECOVERY_CHAOS_PLAN, RECOVERY_CHAOS_RETRIES)}
+    if plan is not None:
+        kw.update(faults=FaultPlan(**plans[plan][0]), dispatch_retries=plans[plan][1])
+    return ServeEngine(lm, **RECOVERY_ENGINE, **kw)
+
+
+def _timed_method(obj, name: str, spent: dict, key: str) -> None:
+    """Add the wall seconds of each call of ``obj.<name>`` to
+    ``spent[key]``."""
+    method = getattr(obj, name)
+    spent[key] = 0.0
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return method(*a, **kw)
+        finally:
+            spent[key] += time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+
+
+def _recovery_counts(engine) -> dict:
+    pkv = engine.session.paged
+    out = {k: getattr(engine, k) for k in ("decode_blocks", "blocks", "inserts",
+                                           "deferred_admissions", "corrupt_page_replays",
+                                           "tier_page_repairs", "injected_corruptions",
+                                           "restored_requests")}
+    out.update({k: getattr(pkv, k) for k in ("tier_spilled_pages", "tier_restored_pages",
+                                             "tier_hits", "tier_restore_failures",
+                                             "tier_repaired_pages")})
+    out["dispatch_retries"] = engine.dispatch_retry_count
+    out["fault_stats"] = (None if engine._injector is None
+                          else {k: v for k, v in engine._injector.stats.items() if v})
+    return out
+
+
+def _first_replays(engine) -> dict:
+    """Request id -> tokens it had delivered when it first replayed."""
+    out = {}
+    for ev in engine.tracer.events():
+        if ev["name"] == "corrupt_replay":
+            out.setdefault(ev["lane"][1], ev["args"]["delivered"])
+    return out
+
+
+def recovery_pass(lm, dev, trace, plan, async_loop: bool, counters, corrupt_tiered=False,
+                  keep_completions=True) -> dict:
+    """One pass of ``trace`` through ``run_trace`` on a tiered engine of
+    ``lm`` under ``plan`` (None, ``"dispatch"`` or ``"chaos"``). The launch
+    counters are zeroed just before and read just after; the host ops of
+    each decode round, and the wall seconds spent in spill reads and in
+    replay admissions, are counted around the engine's methods. With
+    ``corrupt_tiered``, after each round every live page whose prefix
+    entry holds a tier copy (and was not hit before) is declared corrupted
+    (``inject_page_corruption``)."""
+    from neuronx_distributed_tpu_torch.inference.engine import run_trace
+
+    engine = _recovery_engine(lm, plan, async_loop=async_loop, keep_completions=keep_completions)
+    ops = count_host_ops(engine)
+    spent: dict = {}
+    # the tier reads a spilled page through the callback the index holds
+    _timed_method(engine.session.paged.prefix, "_read_page", spent, "spill")
+    _timed_method(engine, "_replay_admission", spent, "replay")
+    # each request's first insert: its block and the ids inserted with it
+    admitted, insert_group = {}, engine._insert_group
+
+    def recorded_insert(group, slot_ids):
+        insert_group(group, slot_ids)
+        for r in group:
+            admitted.setdefault(r.request_id, (engine.blocks, sorted(x.request_id for x in group)))
+
+    engine._insert_group = recorded_insert
+    if corrupt_tiered:
+        step, hit = engine.step_block, set()
+
+        def step_and_corrupt():
+            more = step()
+            pkv = engine.session.paged
+            victims = [p for p in pkv.live_pages()
+                       if p not in hit and (pkv.prefix.node_for_page(p) is not None
+                                            and pkv.prefix.node_for_page(p).tier_id is not None)]
+            if victims:
+                hit.update(victims)
+                engine.inject_page_corruption(victims)
+            return more
+
+        engine.step_block = step_and_corrupt
+    for c in counters:
+        c.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    report = run_trace(engine, trace)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    done = engine.completed
+    tokens = report["total_generated_tokens"]
+    st = dict(plan=plan, async_loop=async_loop, wall_s=wall, tokens_per_s=tokens / wall,
+              requests=report["requests_completed"], generated_tokens=tokens,
+              **host_op_stats(ops), nonfinite_logits=engine.nonfinite_logits,
+              launches={c.__name__: c.launches for c in counters},
+              counts=_recovery_counts(engine), capture_s=engine.capture_s,
+              spill_read_s=spent["spill"], replay_s=spent["replay"],
+              tier_restore_ms_p99=report.get("tier_restore_ms_p99"),
+              tier_d2h_copies=engine.tier_d2h_copies, tier_h2d_copies=engine.tier_h2d_copies,
+              tier_blocking_spills=engine.tier_blocking_spills,
+              recovery_fetches=engine.recovery_fetches, streaming=not keep_completions,
+              streams={c.request_id: c.tokens.tolist() for c in done},
+              schedule={c.request_id: (c.queue_blocks, c.ttft_blocks, c.decode_blocks)
+                        for c in done},
+              first_replays=_first_replays(engine) if keep_completions else {},
+              admitted=admitted)
+    return st
+
+
+def recovery_crash_pass(lm, dev, trace, counters, path: Path) -> dict:
+    """Pass (k): the reference setup runs with ``run(snapshot_path=...,
+    snapshot_every_blocks=RECOVERY_SNAPSHOT_EVERY,
+    max_blocks=RECOVERY_CRASH_BLOCKS)`` and stops at a snapshot (the
+    crash); ``ServeEngine.from_snapshot(lm, path)`` runs the rest with the
+    same ``snapshot_path``, whose clean drain removes the file."""
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+
+    engine = _recovery_engine(lm)
+    for it in trace:
+        engine.submit(it["prompt"], it["max_new_tokens"], arrival_block=it["arrival_block"])
+    if path.exists():
+        path.unlink()
+    for c in counters:
+        c.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    engine.run(max_blocks=RECOVERY_CRASH_BLOCKS, snapshot_path=str(path),
+               snapshot_every_blocks=RECOVERY_SNAPSHOT_EVERY)
+    _sync(dev)
+    crash_s = time.perf_counter() - t0
+    saved = path.exists()
+    snap = json.loads(path.read_text()) if saved else {"requests": []}
+    before = {c.request_id: c.tokens.tolist() for c in engine.completed}
+    t1 = time.perf_counter()
+    restored = ServeEngine.from_snapshot(lm, str(path))
+    restored.run(snapshot_path=str(path))
+    _sync(dev)
+    wall = crash_s + time.perf_counter() - t1
+    after = {c.request_id: c.tokens.tolist() for c in restored.completed}
+    tokens = sum(map(len, before.values())) + sum(map(len, after.values()))
+    return dict(wall_s=wall, tokens_per_s=tokens / wall, generated_tokens=tokens,
+                snapshot_saved=saved, file_removed=not path.exists(),
+                capture_s=restored.capture_s, restored_requests=restored.restored_requests,
+                launches={c.__name__: c.launches for c in counters},
+                nonfinite_logits=engine.nonfinite_logits + restored.nonfinite_logits,
+                counts=_recovery_counts(restored), before=before, after=after,
+                at_snapshot={int(r["request_id"]): r["generated"] for r in snap["requests"]})
+
+
+def before_replay(chaos: dict, ref: dict) -> dict:
+    """Tokens a chaos pass's streams delivered before their first replay,
+    against the reference pass's: how many, how many equal, and the
+    requests that differ with their first insert in each pass (block, the
+    ids inserted together). Exact in fp32 on the CPU; in bf16 on the card
+    a request inserted in another group (a pool storm split it, a failed
+    tier read re-prefilled its prefix) reads other GEMM roundings."""
+    total = same = 0
+    differ = {}
+    for rid, n in chaos["first_replays"].items():
+        got, want = chaos["streams"].get(rid, [])[:n], ref["streams"].get(rid, [])[:n]
+        total += n
+        same += sum(int(x == y) for x, y in zip(got, want))
+        if got != want:
+            differ[rid] = (chaos["admitted"].get(rid), ref["admitted"].get(rid))
+    return dict(tokens=total, equal=same, differ=differ)
+
+
+def recovery_coverage(st: dict) -> list:
+    """The seams the chaos pass must fire: what it did not."""
+    c, fs = st["counts"], st["counts"].get("fault_stats") or {}
+    return [f"pass (i) has no {what}" for what, n in (
+        ("alloc fault", fs.get("alloc_faults")), ("dispatch retry", c["dispatch_retries"]),
+        ("corrupted page", fs.get("pages_corrupted")),
+        ("corrupt-page replay", c["corrupt_page_replays"]),
+        ("tier restore", c["tier_restored_pages"]),
+        ("tier failure or checksum failure", c["tier_restore_failures"])) if not n]
+
+
+def recovery_gates(passes: dict, predicted: dict) -> list:
+    """The recovery phase's gates on its passes (label -> dict); returns
+    what failed, empty when every gate held. (h), (l) and (m) match (g):
+    (h) and (l) bit for bit and schedule for schedule, (m) in its totals;
+    (i) and (j) make the same decisions with the same streams and every
+    request completes with its full length (their tokens before a replay
+    against (g)'s: :func:`before_replay`, exact on the CPU, reported on
+    the card); (i) fires every seam; (k)
+    resumes every request from a snapshot that holds (g)'s tokens, removes
+    the file on its clean drain and reuses the captured graph; (l) repairs
+    each page in place with no replay. Every pass launches B1 and B2 and
+    keeps the decode block's host ops (a steady block 2, any at most 3),
+    and every count the CPU predicted (``predicted``: label -> counts)
+    comes out exactly."""
+    problems = []
+    g = passes["g"]
+    full = RECOVERY_KNOBS["max_new_tokens"]
+    for label, st in passes.items():
+        for fn, n in st["launches"].items():
+            if n <= 0:
+                problems.append(f"pass ({label}) never launched {fn}")
+        if "steady_ok" in st and not (st["steady_ok"] and st["blocks_ok"]):
+            problems.append(f"pass ({label}): host ops a decode block {st['host_ops']}")
+        if st.get("nonfinite_logits"):
+            problems.append(f"pass ({label}): {st['nonfinite_logits']} non-finite logit rows")
+        want = predicted.get(label)
+        if want is not None and {k: st["counts"].get(k) for k in want} != want:
+            problems.append(f"pass ({label}) counts {st['counts']} differ from the CPU's {want}")
+    for label in ("g", "h", "i", "j", "l"):
+        st = passes[label]
+        if len(st["streams"]) != RECOVERY_REQUESTS or any(
+                len(t) != full for t in st["streams"].values()):
+            problems.append(f"pass ({label}): not every request completed with {full} tokens")
+    for label in ("h", "l"):
+        if passes[label]["streams"] != g["streams"]:
+            problems.append(f"pass ({label}) streams differ from pass (g)'s")
+        if passes[label]["schedule"] != g["schedule"]:
+            problems.append(f"pass ({label}) schedule differ from pass (g)'s")
+    i, j = passes["i"], passes["j"]
+    for key in ("streams", "schedule", "counts", "first_replays"):
+        if i[key] != j[key]:
+            problems.append(f"passes (i) and (j) {key} differ")
+    problems += recovery_coverage(i)
+    if not passes["h"]["counts"]["dispatch_retries"]:
+        problems.append("pass (h) retried no dispatch")
+    k = passes["k"]
+    if set(k["before"]) & set(k["after"]) or len(set(k["before"]) | set(k["after"])) != \
+            RECOVERY_REQUESTS:
+        problems.append("pass (k): the completions before and after the crash do not cover "
+                        "every request once")
+    if any(len(t) != full for t in list(k["before"].values()) + list(k["after"].values())):
+        problems.append(f"pass (k): a request completed with fewer than {full} tokens")
+    if any(k["before"][rid] != g["streams"].get(rid) for rid in k["before"]) or any(
+            toks != g["streams"].get(rid, [])[:len(toks)] for rid, toks in
+            k["at_snapshot"].items()):
+        problems.append("pass (k): tokens delivered before the snapshot differ from (g)'s")
+    if not k["snapshot_saved"] or not k["restored_requests"]:
+        problems.append("pass (k): no snapshot to restore from")
+    if not k["file_removed"]:
+        problems.append("pass (k): the snapshot file survived the clean drain")
+    if k["capture_s"] > 0.05:
+        problems.append(f"pass (k): the restored engine captured again ({k['capture_s']:.3f} s)")
+    lc = passes["l"]["counts"]
+    if not lc["injected_corruptions"] or lc["corrupt_page_replays"] or \
+            lc["tier_page_repairs"] != lc["injected_corruptions"]:
+        problems.append(f"pass (l): {lc['injected_corruptions']} pages corrupted, "
+                        f"{lc['tier_page_repairs']} repaired, {lc['corrupt_page_replays']} "
+                        f"replays")
+    m = passes["m"]
+    if (m["requests"], m["generated_tokens"]) != (g["requests"], g["generated_tokens"]):
+        problems.append("pass (m) totals differ from pass (g)'s")
+    return problems
+
+
+def recovery_passes(lm, dev, counters, snapshot_path: Path, trace=None, labels=None) -> dict:
+    """Passes (g)-(m) of the recovery phase (or those in ``labels``) on
+    ``lm``, over ``trace`` (by default :func:`recovery_trace` at the
+    model's vocabulary)."""
+    trace = recovery_trace(lm.config.vocab_size) if trace is None else trace
+    passes = {}
+    for label, plan, async_loop in RECOVERY_PASSES:
+        if labels is None or label in labels:
+            passes[label] = recovery_pass(lm, dev, trace, plan, async_loop, counters)
+    if labels is None or "k" in labels:
+        passes["k"] = recovery_crash_pass(lm, dev, trace, counters, snapshot_path)
+    if labels is None or "l" in labels:
+        passes["l"] = recovery_pass(lm, dev, trace, None, False, counters, corrupt_tiered=True)
+    if labels is None or "m" in labels:
+        passes["m"] = recovery_pass(lm, dev, trace, None, False, counters,
+                                    keep_completions=False)
+    return passes
+
+
+def run_recovery_phase(lm, dev, counters) -> dict:
+    """The recovery trace served seven times on ``lm`` (:func:`recovery_lm`)
+    after one untimed warm-up: (g) the reference, (h) dispatch faults in the
+    pipelined loop, (i) and (j) the chaos plan in both loops, (k) crash and
+    restore, (l) tier repair, (m) the streaming report; hard gates
+    :func:`recovery_gates` with the CPU's predicted counts. Reported: each
+    pass's tokens/s, ``tier_restore_ms_p99``, the wall of spill reads and
+    of replays, and the share of (i)'s tokens equal to (g)'s."""
+    trace = recovery_trace(lm.config.vocab_size)
+    recovery_pass(lm, dev, trace, None, False, counters)   # warm-up: shapes, the capture
+    path = ROOT / "build" / "recovery.snap"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    passes = recovery_passes(lm, dev, counters, path)
+    problems = recovery_gates(passes, RECOVERY_PREDICTED)
+    check(not problems, "recovery: " + "; ".join(problems))
+    g, i = passes["g"]["streams"], passes["i"]["streams"]
+    same = sum(int(x == y) for rid, ts in i.items() for x, y in zip(ts, g.get(rid, [])))
+    pre = before_replay(passes["i"], passes["g"])
+    for st in passes.values():   # kept off the printed summary
+        for key in ("streams", "schedule", "first_replays", "before", "after", "at_snapshot",
+                    "admitted"):
+            st.pop(key, None)
+    return dict(passes=passes, requests=RECOVERY_REQUESTS, knobs=dict(RECOVERY_KNOBS),
+                pool_pages=RECOVERY_POOL_PAGES, tier_pages=RECOVERY_TIER_PAGES,
+                dispatch_plan=dict(RECOVERY_DISPATCH_PLAN), chaos_plan=dict(RECOVERY_CHAOS_PLAN),
+                token_match_i_g=same / max(passes["i"]["generated_tokens"], 1),
+                before_replay_i_g=pre)
+
+
 # --- phases 3b and 5: training ----------------------------------------------------
 
 
@@ -2179,6 +2598,11 @@ def main(argv=None) -> int:
     trace = run_trace_phase(lm, dev, serve_counters, profile=args.profile is not None)
     overload = run_overload_phase(lm, dev, serve_counters, profile=args.profile is not None)
     del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = recovery_lm(cfg, dev, params)
+    recovery = run_recovery_phase(lm, dev, serve_counters)
+    del lm
     if args.profile is not None:
         gc.collect()
         stats["profile"] = serve(cfg, dev, serve_counters, profile_path=args.profile,
@@ -2255,6 +2679,39 @@ def main(argv=None) -> int:
           f"block_time_ms {overload['block_time_ms']} (a constant), TTFT budget "
           f"{overload['ttft_blocks']} blocks (short prompts a quarter), deadline "
           f"{overload['deadline_blocks']} blocks [{card}]", flush=True)
+    for label, st in recovery["passes"].items():
+        c = st["counts"]
+        print(f"recovery pass ({label}): llama3_8b full width, "
+              + (f"crash after {RECOVERY_CRASH_BLOCKS} rounds and restore from the snapshot, "
+                 f"{st['restored_requests']} requests restored, capture of the restored engine "
+                 f"{st['capture_s']:.4f} s, snapshot file removed {st['file_removed']}"
+                 if label == "k" else
+                 f"{'async' if st['async_loop'] else 'sync'}, plan {st['plan']}"
+                 + (", corrupting every live page with a tier copy" if label == "l" else "")
+                 + (", keep_completions=False" if st["streaming"] else ""))
+              + f", pool {RECOVERY_POOL_PAGES} pages, tier {RECOVERY_TIER_PAGES} pages, "
+              f"{st['generated_tokens']} tokens in {st['wall_s']:.3f} s = "
+              f"{st['tokens_per_s']:.1f} tok/s, {c['decode_blocks']} decode blocks"
+              + (f" at {st['host_ops_per_block']:.3f} host ops a block ({st['steady_blocks']} "
+                 f"steady)" if "host_ops_per_block" in st else "")
+              + f", tier spilled {c['tier_spilled_pages']} restored {c['tier_restored_pages']} "
+              f"(hits {c['tier_hits']}, failures {c['tier_restore_failures']}) repaired "
+              f"{c['tier_repaired_pages']}, replays {c['corrupt_page_replays']}, dispatch "
+              f"retries {c['dispatch_retries']}, faults {c['fault_stats']}"
+              + (f", tier_restore_ms_p99 {st['tier_restore_ms_p99']}, spill reads "
+                 f"{st['spill_read_s']:.3f} s ({st['tier_blocking_spills']} waited for a block "
+                 f"in flight), replays {st['replay_s']:.3f} s, page copies "
+                 f"{st['tier_d2h_copies']} D2H / {st['tier_h2d_copies']} H2D, recovery "
+                 f"fetches {st['recovery_fetches']}" if "spill_read_s" in st else "")
+              + f", launches {st['launches']} [{card}]", flush=True)
+    print(f"recovery: (h) and (l) bit-identical to (g), (i) and (j) equal decisions and streams, "
+          f"every count as the CPU predicted, (k) resumed every request, (m) totals equal "
+          f"(g)'s; tokens of (i) equal to (g)'s {recovery['token_match_i_g']:.4f}; before each "
+          f"stream's first replay {recovery['before_replay_i_g']['equal']} of "
+          f"{recovery['before_replay_i_g']['tokens']} equal to (g)'s, streams that differ there "
+          f"with their first insert in (i) and in (g) (block, ids inserted together) "
+          f"{recovery['before_replay_i_g']['differ']} [{card}]",
+          flush=True)
     if "profile" in stats:
         prof = stats["profile"]
         print(f"profile: device busy {prof['device_busy_s']:.3f} s of the profiled run's "
@@ -2285,6 +2742,8 @@ def main(argv=None) -> int:
                **{f"trace_{label}": st["launches"] for label, st in trace["passes"].items()},
                **{f"overload_{label}": st["launches"]
                   for label, st in overload["passes"].items()},
+               **{f"recovery_{label}": st["launches"]
+                  for label, st in recovery["passes"].items()},
                "train": tstats["launches"]}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
@@ -2305,7 +2764,7 @@ def main(argv=None) -> int:
             if "held" in k.get(part, {}):
                 c[part] = k[part].pop("held")
     print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
-                      "train": tstats,
+                      "recovery": recovery, "train": tstats,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,
                       "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

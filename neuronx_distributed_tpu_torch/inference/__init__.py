@@ -1,4 +1,5 @@
-"""Serving: paged KV cache, samplers, the causal-LM runtime and the engine.
+"""Serving: paged KV cache and host tier, samplers, the causal-LM runtime,
+the engine, fault plans and the host-only sim model.
 
 Submodules load on first attribute access, as in the package root."""
 
@@ -15,10 +16,19 @@ _EXPORTS = {
     "Request": "engine",
     "ServeEngine": "engine",
     "run_trace": "engine",
+    "DispatchFailed": "faults",
+    "FaultInjector": "faults",
+    "FaultPlan": "faults",
+    "TransientDispatchError": "faults",
+    "PageAllocator": "paged_cache",
     "PagedKVCache": "paged_cache",
     "PagePoolExhausted": "paged_cache",
+    "RadixPrefixIndex": "paged_cache",
     "Sampler": "sampling",
     "SlotSampler": "sampling",
+    "SimCausalLM": "simlm",
+    "synthetic_trace": "trace",
+    "synthetic_trace_stream": "trace",
 }
 
 

@@ -40,25 +40,47 @@ Observability (JAX ``engine.py:538-565``): ``trace=True`` (or a shared
 fetch and block spans from host state the scheduler already holds, with no
 device synchronisation; ``metrics`` holds the TTFT, inter-token and
 dispatch histograms and the queue and pool gauges. :func:`run_trace`
-drives a synthetic trace and returns the serving report.
+drives a synthetic trace and returns the serving report;
+``keep_completions=False`` folds finished streams into counters and
+histograms (the memory-bounded streaming report).
 
-Still to port: snapshots and faults (``faults.py``, the retry half of
-``_dispatch``, ``simlm.py``), the host tier and parking, the streaming
-report (``keep_completions=False``), disaggregation, the router, grammars
-and adapters (ROADMAP A5, A8).
+Fault tolerance (JAX ``engine.py:68-91``): ``faults=FaultPlan(...)``
+(``faults.py``) injects seeded faults at the allocator, at each program
+launch (retried with exponential backoff, :class:`DispatchFailed` past
+``dispatch_retries``), into live KV pages and into host-tier reads;
+``host_tier_pages`` spills cold prefix pages to checksummed host copies and
+restores them on a hit (spill, restore, re-prefill, then shed); a
+corrupted page is repaired from its tier copy or its readers re-prefill
+prompt plus delivered tokens and resume; :meth:`ServeEngine.snapshot` and
+:meth:`ServeEngine.from_snapshot` carry every live request across a crash
+in the reference's version-1 format. Token ``t`` of request ``r`` is a
+function of its logits and ``(seed, r, t)`` alone, so a resumed greedy
+stream is the uninterrupted one. A :class:`~.simlm.SimCausalLM` runs the
+same scheduler with no device work.
+
+Still to port (ROADMAP A5, A8): parking, disaggregation, the router,
+grammars, adapters, and the router's ``extract_*``/``load_summary`` seams.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+from neuronx_distributed_tpu_torch.inference.faults import (
+    DispatchFailed,
+    FaultInjector,
+    FaultPlan,
+    TransientDispatchError,
+)
 from neuronx_distributed_tpu_torch.inference.paged_cache import ChunkedPrefill, PagePoolExhausted
 from neuronx_distributed_tpu_torch.inference.schedq import AdmissionQueue, shed_deadline_key
 from neuronx_distributed_tpu_torch.inference.sampling import (
@@ -70,6 +92,12 @@ from neuronx_distributed_tpu_torch.inference.sampling import (
 )
 from neuronx_distributed_tpu_torch.models.llama import page_storage_dtype
 from neuronx_distributed_tpu_torch.observability import MetricsRegistry, Tracer, interblock_gaps
+
+# what a garbled page holds (JAX ``engine.py:2368``): ``104729.0`` cast to
+# each leaf's dtype, and for int8 leaves the 127 JAX's cast saturates to (a
+# float-to-int8 cast out of range is undefined in C and in PyTorch)
+GARBLE_FP = 104729.0
+GARBLE_INT8 = 127
 
 
 @dataclasses.dataclass
@@ -191,7 +219,24 @@ class ServeEngine:
     Observability: ``trace`` turns on a fresh :class:`Tracer` (or pass a
     shared ``tracer``); ``metrics`` is the :class:`MetricsRegistry` the
     histograms and gauges live in; ``name`` is the engine's lane in the
-    trace (``"engine"`` by default)."""
+    trace (``"engine"`` by default).
+
+    Faults and recovery (JAX ``engine.py:404-407``): ``faults`` is a
+    :class:`FaultPlan` or a :class:`FaultInjector` (one per engine run);
+    ``dispatch_retries``/``dispatch_backoff_s`` bound the retry of a failed
+    launch; ``host_tier_pages`` > 0 (paged, prefix cache on) keeps spilled
+    prefix pages in host memory. Counters: ``dispatch_retry_count``
+    (launches retried; the report's ``dispatch_retries``),
+    ``corrupt_page_replays``, ``tier_page_repairs``,
+    ``injected_corruptions``, ``restored_requests``, and the page I/O,
+    which is no decode-block host op: ``tier_d2h_copies`` and
+    ``tier_h2d_copies`` (one per leaf kind a batched read or write moves),
+    ``tier_blocking_spills`` (spills whose device read waited for a block
+    in flight), and ``recovery_fetches`` (first tokens a recovery drain of
+    the pipeline fetched). ``keep_completions=False`` keeps no
+    :class:`Completion`: finished streams fold into ``completed_count``,
+    ``generated_tokens``, ``ontime_tokens``, ``deadline_misses``,
+    ``queue_blocks_sum`` and ``ttft_blocks_sum``."""
 
     def __init__(self, lm: CausalLM, block_steps: int = 8, fused: bool = True,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
@@ -199,7 +244,10 @@ class ServeEngine:
                  async_loop: bool = False, max_queue: Optional[int] = None,
                  shed_policy: str = "tail", block_time_ms: float = 1.0, trace: bool = False,
                  tracer: Optional[Tracer] = None, metrics: Optional[MetricsRegistry] = None,
-                 name: Optional[str] = None):
+                 name: Optional[str] = None,
+                 faults: Optional[Union[FaultPlan, FaultInjector]] = None,
+                 dispatch_retries: int = 3, dispatch_backoff_s: float = 0.001,
+                 host_tier_pages: int = 0, keep_completions: bool = True):
         if block_steps < 1:
             raise ValueError(f"block_steps must be >= 1, got {block_steps}")
         if prefill_chunk_tokens < 0:
@@ -216,6 +264,20 @@ class ServeEngine:
             raise ValueError(f"max_queue must be >= 0, got {max_queue}")
         if block_time_ms <= 0:
             raise ValueError(f"block_time_ms must be > 0, got {block_time_ms}")
+        if dispatch_retries < 0:
+            raise ValueError(f"dispatch_retries must be >= 0, got {dispatch_retries}")
+        if host_tier_pages < 0:
+            raise ValueError(f"host_tier_pages must be >= 0, got {host_tier_pages}")
+        if host_tier_pages and not lm.paged:
+            raise ValueError("host_tier_pages requires a paged CausalLM")
+        if host_tier_pages and not lm.prefix_cache:
+            raise ValueError("host_tier_pages requires prefix_cache=True (the tier keeps radix "
+                             "entries: without the index there is nothing to mark tiered)")
+        # a host-only model (simlm.py): no device work, sampling sites and
+        # the decode block read its token function
+        self._sim = bool(getattr(lm, "sim", False))
+        if self._sim and host_tier_pages:
+            raise ValueError("sim engines have no device pages to tier")
         self.lm = lm
         self.block_steps = int(block_steps)
         self.fused = bool(fused)
@@ -227,8 +289,22 @@ class ServeEngine:
         self.max_queue = None if max_queue is None else int(max_queue)
         self.shed_policy = shed_policy
         self.block_time_ms = float(block_time_ms)
+        self.dispatch_retries = int(dispatch_retries)
+        self.dispatch_backoff_s = float(dispatch_backoff_s)
+        self.keep_completions = bool(keep_completions)
+        self._injector: Optional[FaultInjector] = None
+        if faults is not None:
+            self._injector = faults if isinstance(faults, FaultInjector) else FaultInjector(faults)
         self.paged = lm.paged
         self.session = lm.start_session()
+        self.host_tier_pages = int(host_tier_pages)
+        pkv = self.session.paged
+        if self.host_tier_pages:
+            pkv.enable_tier(self.host_tier_pages, self._read_page_bytes, self._write_page_bytes)
+        if self._injector is not None and pkv is not None:
+            pkv.allocator.fault_hook = self._injector.on_alloc
+            if pkv.tier is not None:
+                pkv.tier.fault_hook = self._injector.on_tier_restore
         b = lm.max_batch
         self.lane = str(name) if name else "engine"
         self.tracer = tracer if tracer is not None else Tracer(enabled=bool(trace))
@@ -285,6 +361,27 @@ class ServeEngine:
         self.inserted_requests = 0
         self.expired = 0
         self.shed_evictions = 0
+        self.dispatch_retry_count = 0
+        self.corrupt_page_replays = 0
+        self.tier_page_repairs = 0
+        self.injected_corruptions = 0
+        self.restored_requests = 0
+        self.tier_d2h_copies = 0
+        self.tier_h2d_copies = 0
+        self.tier_blocking_spills = 0
+        self.recovery_fetches = 0
+        # the streaming report's aggregates (every finished stream)
+        self.completed_count = 0
+        self.generated_tokens = 0
+        self.ontime_tokens = 0
+        self.deadline_misses = 0
+        self.queue_blocks_sum = 0
+        self.ttft_blocks_sum = 0
+        # recovery work (a corrupted page's readers, a restored snapshot's
+        # streams): (request, tokens delivered, their stamps), re-admitted
+        # ahead of fresh admissions
+        self._replay_q: deque = deque()
+        self._replay_tokens = 0     # max_new_tokens summed over _replay_q
         # the pipeline (async_loop): dispatched blocks not yet harvested,
         # first tokens on the device, and retired requests whose last
         # tokens are still in flight (their completions, tokens to come)
@@ -297,7 +394,7 @@ class ServeEngine:
         self._first_cap = 4 * b     # first tokens drawn between two replays, at most 3b
         if self.async_loop:
             n = (self.block_steps + 1) * b + 2 * self._first_cap
-            dev = lm.device
+            dev = torch.device("cpu") if self._sim else lm.device
             # [block out (K + 1, b) | first tokens (cap) | their finite flags (cap)]
             self._ring = torch.zeros((n,), dtype=torch.int32, device=dev)
             self._ring_host = [torch.zeros((n,), dtype=torch.int32,
@@ -305,18 +402,22 @@ class ServeEngine:
             self._ring_turn = 0
         self._fused = None
         t0 = time.perf_counter()
-        if self.fused:
+        if self.fused and not self._sim:
             self._fused = lm.compile_session_decode_fused(self.block_steps, self.slot_sampler,
                                                           self.pad_token_id)
         self.capture_s = time.perf_counter() - t0
 
     # --- submission ------------------------------------------------------
 
-    def _reserve_slack(self) -> int:
+    def _reserve_slack(self, may_end_on_eos: bool = True) -> int:
         """Decode-overrun page reserve (JAX ``engine.py:1279-1289``): a
         finished row writes at most ``block_steps - 1`` positions past its
-        last delivered token, and one block more in the pipelined loop."""
-        return 2 * self.block_steps if self.async_loop else self.block_steps
+        last delivered token, and one block more in the pipelined loop when
+        the stream may end on EOS (the latch comes back a block late). A
+        request with no EOS id ends on its budget or the cache edge, which
+        the pipelined loop retires at the synchronous loop's block: its
+        reserve, and so its pages, are the synchronous loop's."""
+        return 2 * self.block_steps if self.async_loop and may_end_on_eos else self.block_steps
 
     def _is_chunked(self, req: Request) -> bool:
         return bool(self.prefill_chunk_tokens and req.prompt.size > self.prefill_chunk_tokens)
@@ -348,7 +449,8 @@ class ServeEngine:
                              f"{self.lm.buckets[-1]}")
         if self.paged:
             pkv = self.session.paged
-            need = pkv.pages_needed(prompt.size, max_new_tokens + self._reserve_slack())
+            need = pkv.pages_needed(prompt.size, max_new_tokens
+                                    + self._reserve_slack(eos_token_id is not None))
             if need > pkv.capacity_pages():
                 raise ValueError(f"request needs {need} pages, pool holds at most "
                                  f"{pkv.capacity_pages()}")
@@ -386,7 +488,7 @@ class ServeEngine:
         # pool could fill them (JAX engine.py:949-965)
         if self.max_queue is not None and req.arrival_block <= self.blocks:
             arrived = self.queue.arrived_count(self.blocks)
-            pool_bound = not self._pool_can_admit(prompt.size, req.max_new_tokens)
+            pool_bound = not self._pool_can_admit(req)
             usable = 0 if pool_bound else len(self._free_slots())
             if arrived >= self.max_queue + usable:
                 return self._shed(req, pool_bound=pool_bound)
@@ -407,6 +509,27 @@ class ServeEngine:
             self.cancelled += 1
             self._trace_req("cancel", request_id, state="queued")
             return True
+        for i, (req, pregen, ts) in enumerate(self._replay_q):
+            if req.request_id == request_id:
+                # the client holds the delivered tokens: the completion
+                # carries them
+                del self._replay_q[i]
+                self._replay_tokens -= req.max_new_tokens
+                self._out[request_id] = list(pregen)
+                self._out_ts[request_id] = list(ts)
+                self._complete(Completion(
+                    request_id=request_id, tokens=np.zeros((0,), np.int64),
+                    prompt_len=req.prompt.size,
+                    queue_blocks=max((req.start_block if req.start_block is not None
+                                      else self.blocks) - req.arrival_block, 0),
+                    decode_blocks=self.blocks - (req.start_block or 0),
+                    ttft_blocks=max((req.first_token_block if req.first_token_block is not None
+                                     else self.blocks) - req.arrival_block, 0),
+                    submit_ts=self._submit_ts.pop(request_id, None), cancelled=True,
+                    deadline_missed=self._missed(req), tenant=req.tenant,
+                    finish_reason="cancelled"), self.blocks)
+                self.cancelled += 1
+                return True
         for slot, st in list(self._prefilling.items()):
             if st.req.request_id == request_id:
                 self._abort_prefill(slot, requeue=False)
@@ -469,30 +592,42 @@ class ServeEngine:
 
     def _retry_after(self) -> int:
         """Blocks to drain the backlog (JAX ``engine.py:1267``): the
-        undelivered token budget, queued and in the slots, over the pool's
-        ``max_batch * block_steps`` tokens a block."""
+        undelivered token budget, queued, waiting to replay and in the
+        slots, over the pool's ``max_batch * block_steps`` tokens a
+        block."""
         inflight = sum(r.max_new_tokens - self._delivered(i)
                        for i, r in enumerate(self.slots) if r is not None)
         rate = max(self.lm.max_batch * self.block_steps, 1)
-        return max(1, -(-(self.queue.tokens() + inflight) // rate))
+        return max(1, -(-(self.queue.tokens() + self._replay_tokens + inflight) // rate))
 
-    def _pool_can_admit(self, prompt_len: int, max_new_tokens: int) -> bool:
+    def _need_pages(self, req: Request) -> int:
+        """Pages ``req``'s admission takes: prompt, budget and reserve."""
+        return self.session.paged.pages_needed(
+            req.prompt.size, req.max_new_tokens + self._reserve_slack(req.eos_token_id is not None))
+
+    def _pool_can_admit(self, req: Request) -> bool:
         """Whether the page pool could take this admission now, counting
-        what prefix eviction would free (JAX ``engine.py:1291``); the slab
-        always can."""
+        what reclaim (tier spill, else eviction) would free (JAX
+        ``engine.py:1291``); the slab always can."""
         if not self.paged:
             return True
         pkv = self.session.paged
-        need = pkv.pages_needed(prompt_len, max_new_tokens + self._reserve_slack())
+        need = self._need_pages(req)
         free = pkv.allocator.available()
         if free < need and pkv.prefix is not None:
             free += pkv.prefix.reclaimable_pages()
         return free >= need
 
-    def _pool_retry_after(self) -> int:
-        """Pool-pressure retry estimate (JAX ``engine.py:1309``, without the
-        host tier's spill branch): the oldest decoding stream's remaining
+    def _pool_retry_after(self, req: Optional[Request] = None) -> int:
+        """Pool-pressure retry estimate (JAX ``engine.py:1309``): 1 block
+        when a spill could free what ``req`` needs (the next admission
+        attempt reclaims it), else the oldest decoding stream's remaining
         budget in blocks, the earliest retirement that returns pages."""
+        pkv = self.session.paged if self.paged else None
+        if (req is not None and pkv is not None and pkv.prefix is not None
+                and pkv.tier is not None):
+            if pkv.allocator.available() + pkv.prefix.spillable_pages() >= self._need_pages(req):
+                return 1
         oldest = None
         for slot, r in enumerate(self.slots):
             if r is None or slot in self._prefilling:
@@ -528,7 +663,7 @@ class ServeEngine:
                 self.shed_evictions += 1
         retry = self._retry_after()
         if pool_bound:
-            retry = max(retry, self._pool_retry_after())
+            retry = max(retry, self._pool_retry_after(victim))
         rej = Rejected(request_id=victim.request_id, retry_after_blocks=retry,
                        queue_depth=self.queue.arrived_count(self.blocks),
                        reason="pool_exhausted" if pool_bound else "queue_full")
@@ -573,7 +708,7 @@ class ServeEngine:
         rid = req.request_id
         self._trace_req("expire", rid, generated=0, state="pre_decode", deadline_missed=True)
         waited = max(self.blocks - req.arrival_block, 0)
-        self.completed.append(Completion(
+        self._emit_completion(Completion(
             request_id=rid, tokens=np.zeros((0,), np.int64), prompt_len=req.prompt.size,
             queue_blocks=waited, decode_blocks=0, ttft_blocks=waited,
             token_ts=np.zeros((0,), np.float64), submit_ts=self._submit_ts.pop(rid, None),
@@ -623,20 +758,44 @@ class ServeEngine:
 
     def _dispatch(self, kind: str, fn):
         """Run one program launch (``insert``, ``extend`` or ``decode``)
-        and time the host's part of it into ``serve_dispatch_ms{kind}`` and,
-        traced, a span on the dispatch lane (the timing half of JAX
-        ``engine.py:1431``). It waits for nothing on the device."""
+        with retry (JAX ``engine.py:1431``): the fault injector, when armed,
+        fails the launch before ``fn`` runs, so a retry re-runs nothing on
+        the device; each failure is a ``fault:dispatch`` instant on the
+        faults lane, the next attempt waits ``dispatch_backoff_s * 2**(n -
+        1)``, and past ``dispatch_retries`` retries :class:`DispatchFailed`
+        is raised. A launch that ran is timed (host side) into
+        ``serve_dispatch_ms{kind}`` and, traced, a span on the dispatch
+        lane. It waits for nothing on the device."""
         hist = self._disp_hist.get(kind)
         if hist is None:
             hist = self._disp_hist[kind] = self.metrics.histogram(
                 "serve_dispatch_ms", help="program launch wall ms (host side)", kind=kind)
-        t0 = time.perf_counter()
-        out = fn()
-        t1 = time.perf_counter()
-        hist.observe((t1 - t0) * 1e3)
-        if self.tracer.enabled:
-            self.tracer.complete(kind, (self.lane, "dispatch"), t0, t1, block=self.blocks)
-        return out
+        attempts = 0
+        while True:
+            try:
+                if self._injector is not None:
+                    self._injector.before_dispatch(kind)
+                t0 = time.perf_counter()
+                out = fn()
+                t1 = time.perf_counter()
+                hist.observe((t1 - t0) * 1e3)
+                if self.tracer.enabled:
+                    self.tracer.complete(kind, (self.lane, "dispatch"), t0, t1, block=self.blocks,
+                                         args={"retries": attempts} if attempts else None)
+                return out
+            except TransientDispatchError as e:
+                attempts += 1
+                self.dispatch_retry_count += 1
+                if self.tracer.enabled:
+                    self.tracer.instant("fault:dispatch", (self.lane, "faults"), block=self.blocks,
+                                        args={"kind": kind, "attempt": attempts,
+                                              "error": str(e)})
+                if attempts > self.dispatch_retries:
+                    raise DispatchFailed(f"{kind} dispatch failed {attempts} times "
+                                         f"(retry budget {self.dispatch_retries})") from e
+                delay = self.dispatch_backoff_s * (2 ** (attempts - 1))
+                if delay > 0:
+                    time.sleep(delay)
 
     def _trace_queued(self, req: Request, now: float) -> None:
         """The request's ``queued`` span: from its submit to the moment a
@@ -667,11 +826,15 @@ class ServeEngine:
         if self.tracer.enabled:
             self.tracer.counter("queue_depth", (self.lane, "queue"), depth, block=self.blocks)
         if self.paged:
-            in_use = self.session.paged.allocator.in_use()
+            pkv = self.session.paged
+            in_use = pkv.allocator.in_use()
             self._m_pool.set(in_use)
             if self.tracer.enabled:
                 self.tracer.counter("pages_in_use", ("cache", "pool"), in_use,
                                     block=self.blocks)
+                if pkv.tier is not None:
+                    self.tracer.counter("tier_pages", ("cache", "tier"), pkv.tier_pages(),
+                                        block=self.blocks)
 
     def request_timeline(self, request_id: int) -> List[dict]:
         """The request's recorded lifecycle, oldest first (JAX
@@ -699,6 +862,12 @@ class ServeEngine:
         tok = draw_rows(logits, h2d(keys[:, 0]), h2d(keys[:, 1]), h2d(counts),
                         h2d(temps, torch.float32), h2d(greedy, torch.bool), self.slot_sampler)
         return torch.cat([tok, torch.isfinite(logits).all(-1).to(torch.int32)])
+
+    def _sim_draw(self, rids: Sequence[int], counts: Sequence[int]) -> torch.Tensor:
+        """:meth:`_draw`'s layout from the sim token function (every row
+        finite), on the host."""
+        toks = self.lm.sim_first_tokens(rids, counts)
+        return torch.tensor(toks + [1] * len(toks), dtype=torch.int32)
 
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
         """A blocking read of a block's (or a step's) output: a ``fetch``
@@ -816,20 +985,25 @@ class ServeEngine:
         for i, r in enumerate(group):
             ids[i, : r.prompt.size] = r.prompt
             lens[i] = r.prompt.size
-        reserve = np.asarray([r.max_new_tokens + self._reserve_slack() for r in group],
-                             np.int64)
+        reserve = np.asarray([r.max_new_tokens + self._reserve_slack(r.eos_token_id is not None)
+                              for r in group], np.int64)
+        tier_before = self._tier_marker()
         logits = self._dispatch("insert", lambda: self.lm.insert(
             self.session, np.asarray(slot_ids, np.int32), ids, lengths=lens,
             pad_token_id=self.pad_token_id, reserve_tokens=reserve if self.paged else None))
+        self._note_tier_restore(group, tier_before)
         self.inserts += 1
         self.inserted_requests += rows
         temps = np.asarray([r.temperature for r in group], np.float32)
         greedy = np.asarray([r.greedy for r in group], bool)
-        keys = np.asarray([split_key(request_seed(self.seed, r.request_id)) for r in group],
-                          np.int32)
         # token index 0 of each request's key stream
-        first, i0 = self._first_tokens(
-            self._draw(logits, keys, np.zeros((rows,), np.int32), temps, greedy), rows)
+        if self._sim:
+            drawn = self._sim_draw([r.request_id for r in group], [0] * rows)
+        else:
+            keys = np.asarray([split_key(request_seed(self.seed, r.request_id))
+                               for r in group], np.int32)
+            drawn = self._draw(logits, keys, np.zeros((rows,), np.int32), temps, greedy)
+        first, i0 = self._first_tokens(drawn, rows)
         now = time.perf_counter()
         for i, (r, slot) in enumerate(zip(group, slot_ids)):
             r.start_block = self.blocks
@@ -847,10 +1021,12 @@ class ServeEngine:
         starts the prefill at the page-aligned reused length."""
         chunk, written = None, 0
         if self.paged:
-            reserve = req.max_new_tokens + self._reserve_slack()
+            reserve = req.max_new_tokens + self._reserve_slack(req.eos_token_id is not None)
+            tier_before = self._tier_marker()
             chunk = self.session.paged.begin_chunked(req.prompt.tolist(),
                                                      req.prompt.size + reserve)
             written = chunk.start
+            self._note_tier_restore([req], tier_before)
         req.start_block = self.blocks
         self._trace_queued(req, time.perf_counter())
         self._trace_req("chunk_begin", req.request_id, slot=int(slot),
@@ -909,10 +1085,14 @@ class ServeEngine:
         self.session.active[slot] = True
         self.inserts += 1
         self.inserted_requests += 1
-        key = np.asarray([split_key(request_seed(self.seed, req.request_id))], np.int32)
-        first, i0 = self._first_tokens(
-            self._draw(logits, key, np.zeros((1,), np.int32),
-                       np.asarray([req.temperature], np.float32), np.asarray([req.greedy])), 1)
+        if self._sim:
+            drawn = self._sim_draw([req.request_id], [0])
+        else:
+            key = np.asarray([split_key(request_seed(self.seed, req.request_id))], np.int32)
+            drawn = self._draw(logits, key, np.zeros((1,), np.int32),
+                               np.asarray([req.temperature], np.float32),
+                               np.asarray([req.greedy]))
+        first, i0 = self._first_tokens(drawn, 1)
         self._start_stream(slot, req, req.temperature, req.greedy,
                            None if first is None else int(first[0]), i0, time.perf_counter(),
                            chunked=True)
@@ -1022,7 +1202,22 @@ class ServeEngine:
         self._trace_req("cancel" if comp.cancelled else "expire" if comp.expired else "retire",
                         rid, block=block, generated=len(comp.tokens),
                         deadline_missed=comp.deadline_missed)
-        self.completed.append(comp)
+        self._emit_completion(comp)
+
+    def _emit_completion(self, comp: Completion) -> None:
+        """Every finished stream leaves here (JAX ``engine.py:1528``): into
+        the streaming report's counters, and into ``completed`` when
+        ``keep_completions``."""
+        self.completed_count += 1
+        self.generated_tokens += len(comp.tokens)
+        self.queue_blocks_sum += comp.queue_blocks
+        self.ttft_blocks_sum += comp.ttft_blocks
+        if comp.deadline_missed:
+            self.deadline_misses += 1
+        if not (comp.deadline_missed or comp.expired or comp.cancelled):
+            self.ontime_tokens += len(comp.tokens)
+        if self.keep_completions:
+            self.completed.append(comp)
 
     def _budget_done(self) -> np.ndarray:
         """Decoding rows whose budget the blocks dispatched so far spend
@@ -1041,28 +1236,417 @@ class ServeEngine:
         if finished:
             self._retire(finished)
 
+    # --- recovery: replay, page I/O, corrupted pages ----------------------
+    # Token t of request r is a function of its logits and (seed, r, t):
+    # a request whose KV is lost re-prefills prompt + delivered tokens and
+    # resumes at index len(delivered) with the stream it would have had.
+
+    def _tier_marker(self) -> Optional[int]:
+        """Tier restores so far, before an admission (None without a
+        tier): paired with :meth:`_note_tier_restore`."""
+        pkv = self.session.paged if self.paged else None
+        return None if pkv is None or pkv.tier is None else pkv.tier_restored_pages
+
+    def _note_tier_restore(self, group: Sequence[Request], before: Optional[int]) -> None:
+        """A ``tier_restore`` mark on each request of an admission that
+        restored pages from the host tier (JAX ``engine.py:1764``; a group
+        shares one count)."""
+        if before is None or not self.tracer.enabled:
+            return
+        delta = self.session.paged.tier_restored_pages - before
+        if delta > 0:
+            for r in group:
+                self._trace_req("tier_restore", r.request_id, pages=int(delta),
+                                group_rows=len(group))
+
+    def _drain_replays(self) -> None:
+        """Re-admit recovery work into free slots ahead of fresh admissions
+        (JAX ``engine.py:2084``): streams the client is consuming already.
+        Pool pressure defers the rest to the next round."""
+        while self._replay_q:
+            free = self._free_slots()
+            if not free:
+                return
+            req, pregen, ts = self._replay_q[0]
+            try:
+                self._replay_admission(req, pregen, ts, free[0])
+            except PagePoolExhausted:
+                self.deferred_admissions += 1
+                self._note_pool_pressure(())
+                return
+            self._replay_q.popleft()
+            self._replay_tokens -= req.max_new_tokens
+
+    def _replay_admission(self, req: Request, pregen: List[int], ts: List[float],
+                          slot: int) -> None:
+        """Rebuild a request's KV and resume its stream at token
+        ``len(pregen)`` (JAX ``engine.py:2125``): prompt + delivered tokens
+        prefill through largest-bucket ``extend`` chunks (surviving prefix
+        pages reused, tiered ones restored), then token ``g`` is drawn at
+        counter ``g`` under the request's key. Any exception unwinds the
+        admission whole; the request stays queued for replay."""
+        if self.async_loop:
+            self._flush(recovery=True)
+        g = len(pregen)
+        seq = (np.concatenate([req.prompt, np.asarray(pregen, np.int32)]) if g
+               else np.asarray(req.prompt, np.int32))
+        total = int(seq.size)
+        chunk_cap = self.lm.buckets[-1]
+        st, written = None, 0
+        pkv = self.session.paged if self.paged else None
+        if pkv is not None:
+            tier_before = self._tier_marker()
+            st = pkv.begin_chunked(seq.tolist(), total + (req.max_new_tokens - g)
+                                   + self._reserve_slack(req.eos_token_id is not None))
+            written = st.start
+            self._note_tier_restore([req], tier_before)
+        logits = None
+        try:
+            while written < total:
+                n = min(chunk_cap, total - written)
+                tables = None
+                if pkv is not None:
+                    pkv.extend_chunked(st, written + n, final=written + n == total)
+                    tables = pkv.chunk_table(slot, st)[None]
+                ids, w = seq[written: written + n][None], written
+                logits = self._dispatch("extend", lambda: self.lm.extend(
+                    self.session, [slot], ids, [n], [w], tables=tables))
+                written += n
+        except BaseException:
+            if pkv is not None:
+                pkv.abort_chunked(slot, st)
+            self.session.lengths[slot] = 0
+            self.session.active[slot] = False
+            self._staged.add(slot)
+            raise
+        if pkv is not None:
+            pkv.finish_chunked(slot, st)
+        self.session.active[slot] = True
+        rid = req.request_id
+        if self._sim:
+            tok = self.lm.sim_token(rid, g)
+        else:
+            key = np.asarray([split_key(request_seed(self.seed, rid))], np.int32)
+            got = self._draw(logits, key, np.full((1,), g, np.int32),
+                             np.asarray([req.temperature], np.float32),
+                             np.asarray([req.greedy])).cpu().numpy()
+            self.nonfinite_logits += int(got[1] == 0)
+            tok = int(got[0])
+        now = time.perf_counter()
+        if req.start_block is None:
+            req.start_block = self.blocks
+        if req.first_token_block is None:
+            req.first_token_block = self.blocks
+        self.slots[slot] = req
+        self._out[rid] = [int(t) for t in pregen]
+        self._out_ts[rid] = list(ts[:g])
+        self._keys[slot] = split_key(request_seed(self.seed, rid))
+        self._active[slot] = True
+        self._done[slot] = False
+        self._eos[slot] = -1 if req.eos_token_id is None else req.eos_token_id
+        self._temp[slot] = req.temperature
+        self._greedy[slot] = req.greedy
+        self._tok[slot] = tok
+        self._gen_counts[slot] = g + 1
+        self._staged.add(slot)
+        if g == 0:
+            self._observe_first_token(req, slot, now, replayed=True)
+        else:
+            # the resumed token's stamp: a sorted timeline shows the replay
+            # before the token it resumed
+            self._trace_req("replay_admit", rid, ts=now, slot=int(slot), resumed_at=int(g))
+        self._record(slot, tok, now)
+        self.inserts += 1
+        self.inserted_requests += 1
+
+    def _page_dtype(self) -> str:
+        """The page pools' storage dtype as a string (``"int8"``,
+        ``"bfloat16"``, ...); a sim engine's is ``"float32"``."""
+        if self._sim:
+            return "float32"
+        return str(page_storage_dtype(self.lm.config)).replace("torch.", "")
+
+    def _page_pools(self) -> Dict[str, List[torch.Tensor]]:
+        """The per-layer tensors whose dim 0 is the page, by leaf name: a
+        page's K and V (and an int8 pool's scales) travel, garble and are
+        checksummed together, in name order."""
+        c = self.session.cache
+        pools = {"keys": c.keys, "values": c.values}
+        if c.k_scales is not None:
+            pools.update(k_scales=c.k_scales, v_scales=c.v_scales)
+        return pools
+
+    def _read_pages_bytes(self, pages: List[int]) -> List[Dict[str, np.ndarray]]:
+        """Host copies of ``pages`` across every layer (JAX
+        ``engine.py:2318``): per leaf one gather of the page list from each
+        layer's pool and one blocking device-to-host copy, split into a
+        ``{leaf: (layers, page_size, kv_heads, head_dim) array}`` per page.
+        bf16 travels as its int16 bit pattern."""
+        idx = self.lm._ids(pages, torch.long)
+        out: List[Dict[str, np.ndarray]] = [{} for _ in pages]
+        for name, pools in self._page_pools().items():
+            got = torch.stack([t.index_select(0, idx) for t in pools], 1)
+            if got.dtype == torch.bfloat16:
+                got = got.view(torch.int16)
+            arr = got.cpu().numpy()
+            self.tier_d2h_copies += 1
+            for i in range(len(pages)):
+                out[i][name] = arr[i]
+        return out
+
+    def _write_pages_bytes(self, pages: List[int], datas: List[Dict[str, np.ndarray]]) -> None:
+        """Write host copies back into ``pages`` in place (JAX
+        ``engine.py:2334``): per leaf one blocking host-to-device copy and
+        one indexed copy into each layer's pool, the tensors a captured
+        decode block reads."""
+        idx = self.lm._ids(pages, torch.long)
+        for name, pools in self._page_pools().items():
+            src = torch.from_numpy(np.stack([d[name] for d in datas], 1)).to(self.lm.device)
+            self.tier_h2d_copies += 1
+            if pools[0].dtype == torch.bfloat16:
+                src = src.view(torch.bfloat16)
+            for layer, t in enumerate(pools):
+                t.index_copy_(0, idx, src[layer])
+
+    def _read_page_bytes(self, page: int) -> Dict[str, np.ndarray]:
+        """One page's host copy: the tier's spill read. In the pipelined
+        loop it waits for the block in flight (``tier_blocking_spills``)."""
+        if self._inflight:
+            self.tier_blocking_spills += 1
+        return self._read_pages_bytes([page])[0]
+
+    def _write_page_bytes(self, page: int, data: Dict[str, np.ndarray]) -> None:
+        """One page written back: the tier's restore and repair write."""
+        self._write_pages_bytes([page], [data])
+
+    def _corrupt_page_bytes(self, pages: List[int]) -> None:
+        """Garble ``pages`` in every layer's pools, in place (JAX
+        ``engine.py:2357``), so recovery must rewrite the bytes: fp and
+        scale leaves take 104729.0 (104960 in bf16), int8 leaves 127, the
+        value JAX's cast of 104729.0 to int8 saturates to."""
+        if self._sim:
+            return
+        idx = self.lm._ids(pages, torch.long)
+        for pools in self._page_pools().values():
+            for t in pools:
+                t.index_fill_(0, idx, GARBLE_INT8 if t.dtype == torch.int8 else GARBLE_FP)
+
+    def inject_page_corruption(self, pages: List[int]) -> None:
+        """Declare ``pages`` corrupted between rounds (JAX
+        ``engine.py:2376``): their bytes are garbled and the whole
+        repair-or-replay recovery runs."""
+        if not self.paged:
+            raise ValueError("page corruption applies to paged engines only")
+        self._handle_corrupt_pages([int(p) for p in pages])
+        self.injected_corruptions += len(pages)
+
+    def _handle_corrupt_pages(self, pages: List[int]) -> None:
+        """Corrupted-page recovery in dependency order (JAX
+        ``engine.py:2386``): garble the bytes; repair in place each page
+        whose entry holds a checksum-valid tier copy; invalidate the rest in
+        the prefix index; roll back the chunked admissions holding one (they
+        requeue); queue a replay of every decoding stream reading through
+        one. The pipelined loop drains first and retires what the drain
+        finished, which must not replay past its budget."""
+        pkv = self.session.paged
+        if self.async_loop:
+            self._flush(recovery=True)
+            self._retire_finished()
+        bad = {int(p) for p in pages}
+        if self.tracer.enabled:
+            self.tracer.instant("fault:corrupt_pages", (self.lane, "faults"), block=self.blocks,
+                                args={"pages": sorted(bad)})
+        self._corrupt_page_bytes(sorted(bad))
+        if pkv.tier is not None:
+            repaired = {p for p in sorted(bad) if pkv.repair_page_from_tier(p)}
+            self.tier_page_repairs += len(repaired)
+            bad -= repaired
+            if not bad:
+                return
+        if pkv.prefix is not None:
+            pkv.prefix.invalidate_pages(sorted(bad))
+        for slot, st in list(self._prefilling.items()):
+            held = set(st.chunk.shared + st.chunk.owned) if st.chunk else set()
+            if bad & held:
+                self._abort_prefill(slot, requeue=True)
+        for slot in range(self.lm.max_batch):
+            req = self.slots[slot]
+            if req is None or slot in self._prefilling or not bad & set(pkv.slot_pages(slot)):
+                continue
+            rid = req.request_id
+            pregen = list(self._out.get(rid, []))
+            ts = list(self._out_ts.get(rid, []))
+            self.lm.retire(self.session, np.asarray([slot], np.int32))
+            self.slots[slot] = None
+            self._active[slot] = False
+            self._done[slot] = False
+            self._staged.add(slot)
+            self._replay_q.append((req, pregen, ts))
+            self._replay_tokens += req.max_new_tokens
+            self.corrupt_page_replays += 1
+            self._trace_req("corrupt_replay", rid, delivered=len(pregen))
+        self._drain_replays()
+
+    # --- snapshot / restore ------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """The scheduler's state at a round boundary as a JSON-able dict,
+        JAX's version-1 format key for key (JAX ``engine.py:3175``): the
+        knobs, the seed as JAX key data (``[0, seed]``), and every live
+        request's prompt, delivered tokens, deadlines and state (decoding,
+        prefill or queued). Completed requests are not in it. The pipelined
+        loop drains first and retires what the drain finished."""
+        if self._sim:
+            raise ValueError("sim engines have no rng/device state to snapshot")
+        if self.async_loop:
+            self._flush(recovery=True)
+            self._retire_finished()
+
+        def enc(r: Request, state: str, generated: List[int]) -> dict:
+            return {"grammar": None, "grammar_state": None,
+                    "request_id": int(r.request_id), "prompt": [int(t) for t in r.prompt],
+                    "max_new_tokens": int(r.max_new_tokens),
+                    "eos_token_id": None if r.eos_token_id is None else int(r.eos_token_id),
+                    "temperature": float(r.temperature), "greedy": bool(r.greedy),
+                    "arrival_block": int(r.arrival_block),
+                    "ttft_deadline_block": r.ttft_deadline_block,
+                    "deadline_block": r.deadline_block,
+                    "generated": [int(t) for t in generated], "state": state,
+                    "tenant": r.tenant, "adapter": None}
+
+        reqs = []
+        for slot, r in enumerate(self.slots):
+            if r is None:
+                continue
+            if slot in self._prefilling:
+                d = enc(r, "prefill", [])
+                d["prefill_written"] = int(self._prefilling[slot].written)
+                reqs.append(d)
+            else:
+                reqs.append(enc(r, "decoding", self._out[r.request_id]))
+        for req, pregen, _ts in self._replay_q:
+            reqs.append(enc(req, "decoding", pregen))
+        for r in self.queue.ordered():
+            reqs.append(enc(r, "queued", []))
+        return {
+            "version": 1,
+            "blocks": int(self.blocks),
+            "next_id": int(self._next_id),
+            "rng": [(self.seed >> 32) & 0xFFFFFFFF, self.seed & 0xFFFFFFFF],
+            "config": {
+                "block_steps": self.block_steps, "fused": self.fused,
+                "prefill_chunk_tokens": self.prefill_chunk_tokens,
+                "top_k": self.slot_sampler.top_k, "top_p": self.slot_sampler.top_p,
+                "pad_token_id": self.pad_token_id, "max_queue": self.max_queue,
+                "shed_policy": self.shed_policy, "block_time_ms": self.block_time_ms,
+                "dispatch_retries": self.dispatch_retries,
+                "host_tier_pages": self.host_tier_pages, "paged": self.paged,
+                "async_loop": self.async_loop, "park_idle_blocks": 0, "park_dir": None,
+            },
+            # tier content is not kept (host buffers die with the process);
+            # the restored engine re-enables an empty tier and re-prefills
+            "requests": reqs,
+            "parked": [],
+        }
+
+    def save_snapshot(self, path: str) -> None:
+        """Write :meth:`snapshot` to ``path`` crash-safely: a temporary file,
+        then an atomic rename, so a reader never sees half a snapshot."""
+        with self.tracer.span("snapshot_save", (self.lane, "snapshot"), block=self.blocks):
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(self.snapshot(), f)
+            os.replace(tmp, path)
+
+    @classmethod
+    def from_snapshot(cls, lm: CausalLM, snap: Union[dict, str], **overrides) -> "ServeEngine":
+        """An engine rebuilt from a :meth:`snapshot` (a dict or a file
+        path; JAX ``engine.py:3296``) on a fresh session of ``lm``: queued
+        and mid-prefill requests re-enter the queue with their ids and
+        deadlines, decoding ones replay prompt + delivered tokens and resume
+        where they stopped. ``overrides`` patch knobs (``fused=False``
+        restores into the stepwise route; the streams are the same). A
+        fused engine on the ``CausalLM`` that took the snapshot reuses its
+        captured decode block. Snapshots with parked conversations,
+        adapters or grammars (features not ported) are refused."""
+        if isinstance(snap, str):
+            with open(snap) as f:
+                snap = json.load(f)
+        if snap.get("version") != 1:
+            raise ValueError(f"unknown snapshot version {snap.get('version')}")
+        if snap.get("parked"):
+            raise ValueError("the snapshot holds parked conversations: parking is not ported "
+                             "(ROADMAP A8.5)")
+        for rd in snap["requests"]:
+            if rd.get("adapter") is not None or rd.get("grammar") is not None:
+                raise ValueError(f"request {rd['request_id']} carries an adapter or a grammar: "
+                                 f"not ported (ROADMAP A8.1, A8.2)")
+        cfg = dict(snap.get("config", {}))
+        cfg.pop("paged", None)   # the lm decides
+        if cfg.pop("park_idle_blocks", 0) or cfg.pop("park_dir", None) is not None:
+            raise ValueError("the snapshot's engine parked conversations: parking is not "
+                             "ported (ROADMAP A8.5)")
+        if not lm.paged:
+            cfg.pop("host_tier_pages", None)
+        cfg.update(overrides)
+        if not cfg.get("fused", True):
+            cfg.pop("async_loop", None)
+        hi, lo = (int(x) for x in snap["rng"])
+        eng = cls(lm, seed=(hi << 32) | lo, **cfg)
+        eng.blocks = int(snap["blocks"])
+        eng._next_id = int(snap["next_id"])
+        for rd in snap["requests"]:
+            req = Request(request_id=int(rd["request_id"]),
+                          prompt=np.asarray(rd["prompt"], np.int32),
+                          max_new_tokens=int(rd["max_new_tokens"]),
+                          eos_token_id=rd["eos_token_id"],
+                          temperature=float(rd["temperature"]), greedy=bool(rd["greedy"]),
+                          arrival_block=int(rd["arrival_block"]), submit_block=eng.blocks,
+                          ttft_deadline_block=rd.get("ttft_deadline_block"),
+                          deadline_block=rd.get("deadline_block"),
+                          tenant=rd.get("tenant", "default"))
+            if rd["state"] == "decoding":
+                eng._replay_q.append((req, [int(t) for t in rd["generated"]], []))
+                eng._replay_tokens += req.max_new_tokens
+            else:
+                # mid-prefill admissions restart from the queue, ahead of
+                # the queued ones (listed first)
+                eng.queue.append(req)
+            eng.restored_requests += 1
+        if eng.tracer.enabled:
+            eng.tracer.instant("restore", (eng.lane, "snapshot"), block=eng.blocks,
+                               args={"requests": len(snap["requests"])})
+        eng._drain_replays()
+        return eng
+
     # --- the block loop --------------------------------------------------
 
     def step_block(self) -> bool:
-        """One scheduling round (JAX ``engine.py:3573``): admit (expiring
-        and shedding first), expire mid-prefill admissions past their
-        deadline, spend the prefill-chunk budget, advance every active slot
-        ``block_steps`` tokens, record emissions, expire streams past their
-        completion deadline, retire finished slots. Returns False when there
-        is nothing left to do. With ``async_loop`` the round replays block t
+        """One scheduling round (JAX ``engine.py:3573``): re-admit recovery
+        replays, admit (expiring and shedding first), expire mid-prefill
+        admissions past their deadline, spend the prefill-chunk budget, run
+        the page-corruption seam, advance every active slot ``block_steps``
+        tokens, record emissions, expire streams past their completion
+        deadline, retire finished slots. Returns False when there is
+        nothing left to do. With ``async_loop`` the round replays block t
         before it harvests block t - 1 (:meth:`_step_block_async`)."""
         self.queue.advance(self.blocks)
+        self._drain_replays()     # recovery work goes in ahead of fresh admissions
         self._admit()
         self._retire_finished()   # a 1-token budget finishes at insert time
         self._admit()             # ... freeing its slot for queued work now
         self._expire_prefilling()
         self._advance_prefill()
         self._retire_finished()   # ... or at the end of its chunked prefill
+        if self._injector is not None and self.paged:
+            victims = self._injector.pages_to_corrupt(self.session.paged.live_pages())
+            if victims:
+                self._handle_corrupt_pages(victims)
         self._observe_block()
         if self.async_loop:
             return self._step_block_async()
         if not self._active.any():
-            if not self.queue and not self._prefilling:
+            if not self.queue and not self._prefilling and not self._replay_q:
                 return False
             self.blocks += 1      # arrivals or chunks pending: advance virtual time
             return True
@@ -1091,6 +1675,31 @@ class ServeEngine:
                                        "steps": self.block_steps, "fused": self.fused,
                                        "inflight": len(self._inflight)})
 
+    def _sync_slots(self, firsts: Optional[torch.Tensor] = None) -> int:
+        """Bring the device's slot state up to the host's changes before a
+        block (:meth:`_stage`, then one copy); returns the copies made. A
+        sim engine has no device state: it counts the copy the real one
+        would make."""
+        if self._sim:
+            copies = int(bool(self._staged))
+            self._staged.clear()
+            self._tok_from.clear()
+            return copies
+        self._stage()
+        return self.session.slots.sync(firsts)
+
+    def _sim_block(self) -> torch.Tensor:
+        """A sim engine's decode block: the fused block's output layout
+        ((K, b) tokens, then a row of finite flags) from the sim token
+        function, on the host."""
+        rids = [-1 if r is None or i in self._prefilling else r.request_id
+                for i, r in enumerate(self.slots)]
+        toks = self.lm.sim_decode_block(self.block_steps, self._tok, self._active, self._done,
+                                        self._gen_counts, rids)
+        self.session.lengths += self.block_steps
+        out = np.concatenate([toks, np.ones((1, self.lm.max_batch), np.int64)])
+        return torch.from_numpy(out.astype(np.int32))
+
     def _stage(self) -> None:
         """Write the changed slots' host mirrors into the session's slot
         state and mark them, so the next sync copies and merges those rows
@@ -1116,11 +1725,11 @@ class ServeEngine:
     def _advance_block(self) -> np.ndarray:
         """Advance the pool ``block_steps`` tokens; returns the emitted
         (K, max_batch) token matrix."""
-        self._stage()
-        self.h2d_copies += self.session.slots.sync()
+        self.h2d_copies += self._sync_slots()
         K = self.block_steps
-        if self.fused:
-            out = self._dispatch("decode", lambda: self._fused(self.session))
+        if self.fused or self._sim:
+            out = self._dispatch("decode", self._sim_block if self._sim
+                                 else lambda: self._fused(self.session))
             self.replays += 1
             self.program_calls += 1
             got = self._fetch(out)
@@ -1158,7 +1767,8 @@ class ServeEngine:
         if not self._active.any():
             self._flush()
             self._retire_finished()
-            if not self.queue and not self._prefilling and not self._active.any():
+            if (not self.queue and not self._prefilling and not self._replay_q
+                    and not self._active.any()):
                 return False
             self.blocks += 1
             return True
@@ -1181,10 +1791,10 @@ class ServeEngine:
         K, b = self.block_steps, self.lm.max_batch
         reqs = [r if r is not None and i not in self._prefilling else None
                 for i, r in enumerate(self.slots)]
-        self._stage()
         base = (K + 1) * b
-        self.h2d_copies += self.session.slots.sync(self._ring[base: base + self._first_cap])
-        out = self._dispatch("decode", lambda: self._fused(self.session))
+        self.h2d_copies += self._sync_slots(self._ring[base: base + self._first_cap])
+        out = self._dispatch("decode", self._sim_block if self._sim
+                             else lambda: self._fused(self.session))
         self.replays += 1
         self.program_calls += 1
         self._ring[:base].copy_(out.view(-1))
@@ -1206,7 +1816,7 @@ class ServeEngine:
         self._ring_turn ^= 1
         self._gen_counts += K      # the device counts every row
 
-    def _harvest_inflight(self, drain: bool = False) -> None:
+    def _harvest_inflight(self, drain: bool = False, recovery: bool = False) -> None:
         """Harvest dispatched blocks down to one in flight, or all of them
         (``drain``) and the first tokens no block carried (JAX
         ``engine.py:3936``); then complete the retired requests whose last
@@ -1215,7 +1825,7 @@ class ServeEngine:
         while len(self._inflight) > keep:
             self._harvest_rec(self._inflight.popleft())
         if drain and self._first_pending:
-            self._settle_undispatched()
+            self._settle_undispatched(recovery)
         for rid, (comp, block) in list(self._tail.items()):
             if not self._awaiting(rid):
                 del self._tail[rid]
@@ -1257,12 +1867,16 @@ class ServeEngine:
             self._tok[slot] = tok
         self._record(slot, tok, now, req, block=p["block"])
 
-    def _settle_undispatched(self) -> None:
+    def _settle_undispatched(self, recovery: bool = False) -> None:
         """First tokens drawn since the last replay, fetched directly (a
         drain with no block to carry them); rows still waiting to go to the
-        device take them from the host instead."""
+        device take them from the host instead. A recovery drain's fetch
+        counts in ``recovery_fetches``, not among the decode blocks'."""
         base = (self.block_steps + 1) * self.lm.max_batch
-        self.host_fetches += 1
+        if recovery:
+            self.recovery_fetches += 1
+        else:
+            self.host_fetches += 1
         got = self._ring[base:].cpu().numpy()   # no block fetch: no fetch span
         now = time.perf_counter()
         for p in self._first_pending:
@@ -1274,22 +1888,33 @@ class ServeEngine:
         self._first_pending = []
         self._first_next = 0
 
-    def _flush(self) -> None:
+    def _flush(self, recovery: bool = False) -> None:
         """Drain the pipeline (JAX ``engine.py:4000``): harvest every block
-        in flight and settle every first token still on the device."""
+        in flight and settle every first token still on the device
+        (``recovery``: for a snapshot, a corrupted page or a replay)."""
         if self.async_loop:
-            self._harvest_inflight(drain=True)
+            self._harvest_inflight(drain=True, recovery=recovery)
 
-    def run(self, max_blocks: Optional[int] = None) -> List[Completion]:
+    def run(self, max_blocks: Optional[int] = None, snapshot_path: Optional[str] = None,
+            snapshot_every_blocks: int = 8) -> List[Completion]:
         """Drive blocks until the queue and every slot drain (or
         ``max_blocks`` elapse); returns completions in finish order.
-        Snapshots (JAX ``run(snapshot_path=)``) come with ROADMAP A5's
-        snapshot/restore."""
+        ``snapshot_path`` (JAX ``engine.py:4186``) writes :meth:`save_snapshot`
+        every ``snapshot_every_blocks`` rounds and removes the file on a
+        clean drain: a file there at start-up means the last run died
+        mid-trace, and :meth:`from_snapshot` resumes it."""
+        every = max(int(snapshot_every_blocks), 1)
         n = 0
+        drained = True
         while self.step_block():
             n += 1
+            if snapshot_path and n % every == 0:
+                self.save_snapshot(snapshot_path)
             if max_blocks is not None and n >= max_blocks:
+                drained = False
                 break
+        if drained and snapshot_path and os.path.exists(snapshot_path):
+            os.remove(snapshot_path)
         self._m_dropped.set(self.tracer.dropped)   # retire marks land after the last block's
         return self.completed
 
@@ -1358,7 +1983,19 @@ def interblock_gap_report(tracer: Tracer, lanes: List[Any]) -> dict:
     return out
 
 
-def run_trace(engine: ServeEngine, trace: Sequence[dict], max_blocks: Optional[int] = None,
+def _submit_item(submit, item: dict) -> Union[int, Rejected]:
+    """Submit one synthetic-trace dict through ``submit`` (JAX
+    ``engine.py:4797``): the one place the item's keys are read."""
+    for key, feature in _NOT_PORTED_ITEM_KEYS.items():
+        if item.get(key) is not None:
+            raise NotImplementedError(f"trace item key {key!r} needs {feature}, not ported yet")
+    return submit(item["prompt"], item["max_new_tokens"], eos_token_id=item.get("eos_token_id"),
+                  arrival_block=item.get("arrival_block", 0),
+                  ttft_deadline_ms=item.get("ttft_deadline_ms"),
+                  deadline_ms=item.get("deadline_ms"), tenant=item.get("tenant", "default"))
+
+
+def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[int] = None,
               snapshot_path: Optional[str] = None) -> dict:
     """Submit a synthetic trace (``inference/trace.py``) and drive the
     engine to the end; returns the serving report of JAX ``engine.py:4471``
@@ -1370,32 +2007,36 @@ def run_trace(engine: ServeEngine, trace: Sequence[dict], max_blocks: Optional[i
     tokens of streams that met their deadlines), ``per_tenant`` when the
     trace labels tenants, and the page pool.
 
-    Left out with the features they read (ROADMAP A5, A8): parking,
-    grammars, adapters, fault and tier counters, ``tp_degree``. The port's
-    ``host_ops_per_block`` counts its slot-state copies beside program
-    calls and fetches (``h2d_copies``, also reported)."""
-    if snapshot_path is not None:
-        raise NotImplementedError("snapshot_path needs snapshot/restore, not ported yet "
-                                  "(ROADMAP A5, with faults.py)")
+    The recovery surface: ``dispatch_retries`` (launches retried),
+    ``corrupt_page_replays``, ``restored_requests``, ``fault_stats`` (the
+    injector's counts) when faults are armed, and with a host tier its
+    pages, bytes, spills, restores, hits, failures, repairs and
+    ``tier_restore_ms_p99``; the port adds its page I/O counts
+    (``tier_d2h_copies``, ``tier_h2d_copies``, ``tier_blocking_spills``,
+    ``recovery_fetches``). ``snapshot_path`` arms ``run``'s crash-safe
+    snapshots.
+
+    ``keep_completions=False`` engines take the streaming report (JAX
+    ``engine.py:4810``): ``trace`` may be a generator, each request is
+    submitted when the clock reaches its arrival, and the report is built
+    from the engine's counters and histograms alone.
+
+    Left out with the features they read (ROADMAP A8): parking, grammars,
+    adapters, ``tp_degree``. The port's ``host_ops_per_block`` counts its
+    slot-state copies beside program calls and fetches (``h2d_copies``,
+    also reported)."""
+    if not engine.keep_completions:
+        return _run_trace_streaming(engine, trace, max_blocks=max_blocks,
+                                    snapshot_path=snapshot_path)
     trace = list(trace)
-    for item in trace:
-        for key, feature in _NOT_PORTED_ITEM_KEYS.items():
-            if item.get(key) is not None:
-                raise NotImplementedError(f"trace item key {key!r} needs {feature}, "
-                                          f"not ported yet")
     engine.tracer.enabled = True
     tenant_of: Dict[int, str] = {}
     for item in trace:
-        out = engine.submit(item["prompt"], item["max_new_tokens"],
-                            eos_token_id=item.get("eos_token_id"),
-                            arrival_block=item.get("arrival_block", 0),
-                            ttft_deadline_ms=item.get("ttft_deadline_ms"),
-                            deadline_ms=item.get("deadline_ms"),
-                            tenant=item.get("tenant", "default"))
+        out = _submit_item(engine.submit, item)
         rid = out.request_id if isinstance(out, Rejected) else out
         tenant_of[rid] = item.get("tenant", "default")
     t0 = time.perf_counter()
-    completions = engine.run(max_blocks=max_blocks)
+    completions = engine.run(max_blocks=max_blocks, snapshot_path=snapshot_path)
     wall_s = time.perf_counter() - t0
     total_tokens = int(sum(len(c.tokens) for c in completions))
     decode_blocks = max(engine.decode_blocks, 1)
@@ -1464,6 +2105,10 @@ def run_trace(engine: ServeEngine, trace: Sequence[dict], max_blocks: Optional[i
         "deadline_miss_rate": (round((rejected + missed) / submitted, 4)
                                if has_deadlines and submitted else None),
         "goodput_tokens_per_sec": round(ontime_tokens / wall_s, 1) if wall_s > 0 else None,
+        "dispatch_retries": engine.dispatch_retry_count,
+        "corrupt_page_replays": engine.corrupt_page_replays,
+        "restored_requests": engine.restored_requests,
+        "recovery_fetches": engine.recovery_fetches,
         "trace_events": len(engine.tracer.events()),
         "trace_events_dropped": engine.tracer.dropped,
     })
@@ -1471,18 +2116,24 @@ def run_trace(engine: ServeEngine, trace: Sequence[dict], max_blocks: Optional[i
         report["per_tenant"] = per_tenant_report(
             completions, tok_ts, wall_s,
             [tenant_of.get(r.request_id, "default") for r in engine.rejected])
+    if engine._injector is not None:
+        report["fault_stats"] = dict(engine._injector.stats)
     if engine.paged:
         pkv = engine.session.paged
         cfg = engine.lm.config
         kv = engine.lm.kv_cache_bytes()
-        slab = (2 * cfg.num_layers * engine.lm.max_batch * cfg.max_seq_len * cfg.num_kv_heads
-                * cfg.head_dim_ * torch.empty((), dtype=cfg.dtype).element_size())
+        if engine._sim:
+            slab = engine.lm.kv_slab_bytes()
+        else:
+            slab = (2 * cfg.num_layers * engine.lm.max_batch * cfg.max_seq_len
+                    * cfg.num_kv_heads * cfg.head_dim_
+                    * torch.empty((), dtype=cfg.dtype).element_size())
         report.update({
             "paged": True,
             "page_size": pkv.page_size,
             "page_pool_pages": pkv.num_pages,
-            "page_dtype": str(page_storage_dtype(cfg)).replace("torch.", ""),
-            "paged_attn_kernel": bool(cfg.paged_attn_kernel),
+            "page_dtype": engine._page_dtype(),
+            "paged_attn_kernel": bool(getattr(cfg, "paged_attn_kernel", False)),
             "prefix_queries": pkv.prefix_queries,
             "prefix_hits": pkv.prefix_hits,
             "prefix_hit_tokens": pkv.prefix_hit_tokens,
@@ -1493,4 +2144,92 @@ def run_trace(engine: ServeEngine, trace: Sequence[dict], max_blocks: Optional[i
             "kv_slab_hbm_bytes": slab,
             "kv_hbm_vs_slab": round(kv / slab, 3),
         })
+        if pkv.tier is not None:
+            report.update({
+                "host_tier_pages": pkv.tier.max_pages,
+                "tier_pages_resident": pkv.tier_pages(),
+                "tier_bytes_resident": pkv.tier_bytes(),
+                "tier_spilled_pages": pkv.tier_spilled_pages,
+                "tier_restored_pages": pkv.tier_restored_pages,
+                "tier_hits": pkv.tier_hits,
+                "tier_restore_failures": pkv.tier_restore_failures,
+                "tier_repaired_pages": pkv.tier_repaired_pages,
+                "tier_restore_ms_p99": (round(float(np.percentile(pkv._restore_ms, 99)), 3)
+                                        if pkv._restore_ms else None),
+                "tier_d2h_copies": engine.tier_d2h_copies,
+                "tier_h2d_copies": engine.tier_h2d_copies,
+                "tier_blocking_spills": engine.tier_blocking_spills,
+            })
     return report
+
+
+def _run_trace_streaming(engine: ServeEngine, trace: Iterable[dict],
+                         max_blocks: Optional[int] = None,
+                         snapshot_path: Optional[str] = None) -> dict:
+    """``run_trace`` for ``keep_completions=False`` (JAX ``engine.py:4810``):
+    each request is submitted when the clock reaches its arrival block, off
+    a possibly endless iterator, and the report comes from the engine's
+    counters and log-bucket histograms (percentiles are bucket upper
+    edges), with no per-request record and no tracer: host memory stays
+    the requests in flight's."""
+    if snapshot_path is not None:
+        raise ValueError("streaming runs do not snapshot (keep_completions=False drops the "
+                         "per-request record the snapshot would serialize)")
+    it = iter(trace)
+    nxt = next(it, None)
+    submitted = 0
+    has_deadlines = False
+    t0 = time.perf_counter()
+    n = 0
+    while True:
+        while nxt is not None and int(nxt.get("arrival_block", 0)) <= engine.blocks:
+            _submit_item(engine.submit, nxt)
+            submitted += 1
+            has_deadlines = has_deadlines or bool(nxt.get("deadline_ms")
+                                                  or nxt.get("ttft_deadline_ms"))
+            nxt = next(it, None)
+        more = engine.step_block()
+        n += 1
+        if max_blocks is not None and n >= max_blocks:
+            break
+        if not more and nxt is None:
+            break
+    engine._m_dropped.set(engine.tracer.dropped)
+    wall_s = time.perf_counter() - t0
+    completed = engine.completed_count
+    total_tokens = engine.generated_tokens
+    decode_blocks = max(engine.decode_blocks, 1)
+    itl = engine._m_itl
+    rejected = len(engine.rejected)
+    return {
+        "streaming": True,
+        "percentile_basis": "log-bucket histogram upper edges",
+        "requests_submitted": submitted,
+        "requests_completed": completed,
+        "total_generated_tokens": total_tokens,
+        "wall_s": round(wall_s, 4),
+        "tokens_per_sec": round(total_tokens / wall_s, 1) if wall_s > 0 else None,
+        "goodput_tokens_per_sec": (round(engine.ontime_tokens / wall_s, 1)
+                                   if wall_s > 0 else None),
+        "sched_overhead_us_per_request": (round(wall_s * 1e6 / completed, 2)
+                                          if completed else None),
+        "blocks": engine.blocks,
+        "decode_blocks": engine.decode_blocks,
+        "block_steps": engine.block_steps,
+        "fused": engine.fused,
+        "inserts": engine.inserts,
+        "inserted_requests": engine.inserted_requests,
+        "host_ops_per_block": round(
+            (engine.program_calls + engine.host_fetches + engine.h2d_copies) / decode_blocks, 2),
+        "queue_blocks_mean": round(engine.queue_blocks_sum / completed, 2) if completed else None,
+        "ttft_blocks_mean": round(engine.ttft_blocks_sum / completed, 2) if completed else None,
+        "itl_p50_ms": round(itl.percentile(50), 3) if itl.count else None,
+        "itl_p99_ms": round(itl.percentile(99), 3) if itl.count else None,
+        "rejected": rejected,
+        "expired": engine.expired,
+        "shed_evictions": engine.shed_evictions,
+        "deadline_miss_rate": (round((rejected + engine.deadline_misses) / submitted, 4)
+                               if has_deadlines and submitted else None),
+        "deferred_admissions": engine.deferred_admissions,
+        "dispatch_retries": engine.dispatch_retry_count,
+    }

@@ -302,3 +302,142 @@ def test_overload_schedule_meets_the_coverage_gates_on_the_cpu(smoke):
                           queued_expiries=10, partial_expiries=1, deadline_evictions=7,
                           decode_blocks=25)
     assert st["report"]["shed_policy"] == "deadline" and st["report"]["per_tenant"]
+
+
+def _recovery_passes(smoke, changes=()):
+    """Seven fabricated recovery passes that hold every gate; ``changes``
+    maps ``(label, key)`` to a value that breaks one."""
+    n, full = smoke.RECOVERY_REQUESTS, smoke.RECOVERY_KNOBS["max_new_tokens"]
+    streams = {r: [r + 1] * full for r in range(n)}
+    # chaos streams: (g)'s up to each stream's first replay, then drift
+    chaos = {r: t[:10] + [0] * (full - 10) for r, t in streams.items()}
+
+    def one(label, **kw):
+        st = dict(launches={"flash_block_forward": 5, "paged_decode_attention": 64},
+                  steady_ok=True, blocks_ok=True, host_ops=[2, 3], nonfinite_logits=0,
+                  counts=dict(smoke.RECOVERY_PREDICTED[label]), streams=dict(streams),
+                  schedule={r: (0, 0, 8) for r in range(n)}, first_replays={},
+                  requests=n, generated_tokens=n * full)
+        st.update(kw)
+        return st
+
+    passes = {label: one(label) for label in ("g", "h", "l")}
+    for label in ("i", "j"):
+        passes[label] = one(label, streams=dict(chaos), first_replays={0: 10, 3: 4})
+    passes["m"] = one("m", streams={}, schedule={})
+    passes["k"] = dict(launches={"flash_block_forward": 5, "paged_decode_attention": 64},
+                       nonfinite_logits=0, counts=dict(smoke.RECOVERY_PREDICTED["k"]),
+                       before={r: streams[r] for r in range(9)},
+                       after={r: [7] * full for r in range(9, n)},
+                       at_snapshot={r: streams[r][:20] for r in range(9, n)},
+                       snapshot_saved=True, file_removed=True, capture_s=0.0,
+                       restored_requests=n - 9)
+    for (label, key), value in dict(changes).items():
+        passes[label][key] = value
+    return passes
+
+
+def test_recovery_gates_hold_on_a_good_run(smoke):
+    assert smoke.recovery_gates(_recovery_passes(smoke), smoke.RECOVERY_PREDICTED) == []
+
+
+def _with(counts, **kw):
+    return {**counts, **kw}
+
+
+@pytest.mark.parametrize("label,key,value,says", [
+    ("h", "streams", {0: [9]}, "(h) streams differ"),
+    ("l", "schedule", {0: (1, 1, 8)}, "(l) schedule differ"),
+    ("j", "streams", {0: [1] * 64}, "(i) and (j) streams differ"),
+    ("j", "first_replays", {0: 9, 3: 4}, "(i) and (j) first_replays differ"),
+    ("i", "streams", {0: [1] * 63}, "not every request completed"),
+    ("g", "counts", "decode_blocks=35", "counts"),
+    ("i", "counts", "tier_restore_failures=0", "no tier failure or checksum failure"),
+    ("i", "counts", "corrupt_page_replays=0", "no corrupt-page replay"),
+    ("h", "counts", "dispatch_retries=0", "(h) retried no dispatch"),
+    ("k", "file_removed", False, "survived the clean drain"),
+    ("k", "capture_s", 1.5, "captured again"),
+    ("k", "after", {}, "cover every request"),
+    ("k", "at_snapshot", {20: [99]}, "before the snapshot differ"),
+    ("l", "counts", "corrupt_page_replays=1", "pass (l):"),
+    ("m", "generated_tokens", 5, "(m) totals differ"),
+    ("j", "launches", {"flash_block_forward": 0, "paged_decode_attention": 64},
+     "(j) never launched flash_block_forward"),
+    ("h", "blocks_ok", False, "host ops a decode block"),
+    ("k", "nonfinite_logits", 2, "non-finite"),
+])
+def test_recovery_gates_catch_each_fault(smoke, label, key, value, says):
+    """A pass whose streams, schedule or decisions leave (g)'s or each
+    other's where they must not, a seam that never fired, a count the CPU
+    did not predict, a crash that lost a request or kept its file or
+    captured again, a repair that replayed, a kernel not launched or too
+    many host ops: each fails the recovery phase, and the message says
+    which."""
+    passes = _recovery_passes(smoke)
+    if key == "counts":
+        name, n = value.split("=")
+        value = _with(passes[label]["counts"], **{name: int(n)})
+    problems = smoke.recovery_gates(_recovery_passes(smoke, {(label, key): value}),
+                                    smoke.RECOVERY_PREDICTED)
+    assert len(problems) >= 1 and any(says in p for p in problems), problems
+
+
+def test_before_replay_counts_tokens_and_names_the_streams_that_differ(smoke):
+    """``before_replay`` reads each chaos stream up to its first replay
+    against the reference, and names a differing stream with its first
+    insert in each pass."""
+    ref = dict(streams={0: [1, 2, 3, 4], 1: [5, 6, 7, 8]}, admitted={0: (0, [0]), 1: (0, [1])})
+    chaos = dict(streams={0: [1, 2, 9, 9], 1: [5, 7, 7, 7]}, first_replays={0: 2, 1: 3},
+                 admitted={0: (0, [0]), 1: (1, [1, 2])})
+    assert smoke.before_replay(chaos, ref) == dict(tokens=5, equal=4,
+                                                   differ={1: ((1, [1, 2]), (0, [1]))})
+
+
+def test_recovery_trace_brings_each_prefix_back(smoke):
+    """The recovery trace: 32 requests in runs of four over four 512-token
+    prefixes, so each prefix comes back once (the tier's hit), arrivals
+    the trace phase's generator gives."""
+    trace = smoke.recovery_trace(128256)
+    assert len(trace) == smoke.RECOVERY_REQUESTS == 32
+    heads = [tuple(it["prompt"][:512]) for it in trace]
+    assert len(set(heads)) == 4
+    assert all(heads[i] == heads[i + 16] for i in range(16))
+    assert {it["prompt"].size - 512 for it in trace} == {64, 128, 256, 384}
+    assert smoke.RECOVERY_CHAOS_RETRIES > smoke.RECOVERY_DISPATCH_PLAN["dispatch_max_failures"]
+
+
+def test_recovery_chaos_pass_meets_its_coverage_on_the_cpu(smoke, tmp_path):
+    """Passes (g) and (i) of the recovery phase are functions of the trace
+    and the plan alone (greedy, no EOS): served by a one-layer model at the
+    phase's scheduling shape (4096-token context, pages of 16, 8 slots,
+    buckets 128/512/4096, K = 8, the 300-page pool and 256-page tier; the
+    prompts' ids folded into a 512-token vocabulary, which moves no
+    decision), (i) fires every seam, keeps a decode block's host ops,
+    completes every request with its 64 tokens, gives exactly the counts
+    the card's run is held to (``RECOVERY_PREDICTED``;
+    ``scripts/recovery_rehearsal.py`` reads every pass's), and in fp32
+    every token a stream delivered before its first replay is (g)'s. One
+    intra-op thread: the test shares the CPU."""
+    from neuronx_distributed_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig(vocab_size=512, hidden_size=16, intermediate_size=32, num_layers=1,
+                         num_heads=2, num_kv_heads=1, max_seq_len=4096, dtype=torch.float32)
+    lm = smoke.recovery_lm(cfg, "cpu", tl.init_params(cfg, torch.Generator().manual_seed(0)))
+    trace = smoke.recovery_trace(128256)
+    for it in trace:
+        it["prompt"] = it["prompt"] % (cfg.vocab_size - 1) + 1
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        passes = smoke.recovery_passes(lm, "cpu", (), tmp_path / "r.snap", trace=trace,
+                                       labels=("g", "i"))
+    finally:
+        torch.set_num_threads(threads)
+    st = passes["i"]
+    assert smoke.recovery_coverage(st) == []
+    assert passes["g"]["counts"] == smoke.RECOVERY_PREDICTED["g"]
+    pre = smoke.before_replay(st, passes["g"])
+    assert pre["differ"] == {} and pre["equal"] == pre["tokens"] > 0
+    assert {k: st["counts"][k] for k in smoke.RECOVERY_COUNT_KEYS} == smoke.RECOVERY_PREDICTED["i"]
+    assert st["steady_ok"] and st["blocks_ok"] and st["first_replays"]
+    assert len(st["streams"]) == 32 and all(len(t) == 64 for t in st["streams"].values())

@@ -33,6 +33,7 @@ import torch
 
 from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
 from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+from neuronx_distributed_tpu_torch.inference.faults import FaultPlan
 from neuronx_distributed_tpu_torch.inference.paged_kernel import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -514,3 +515,105 @@ def test_chunked_and_async_engines_on_cuda_equal_the_sync_engine(cuda):
     assert tokens[(48, False)] == tokens[(128, False)]
     assert runs[(48, True)] == runs[(48, False)]
     assert engine.host_fetches == engine.replays == engine.decode_blocks
+
+
+def _tier_lm(cuda, page_dtype, seed=7):
+    """A small bf16 paged model on the card (pages of 16, 40 of them)."""
+    cfg = tl.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=4, num_kv_heads=2, max_seq_len=256, dtype=torch.bfloat16)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(seed))
+    return CausalLM(cfg, params, tl.LlamaForCausalLM, buckets=(64, 128), max_batch=4,
+                    page_size=16, page_pool_pages=40, paged_attn_kernel=True,
+                    page_dtype=page_dtype, device=cuda)
+
+
+def _tier_work():
+    """Two families over a 64-token prefix (request, budget, arrival); the
+    first family comes back at block 12."""
+    rng = np.random.default_rng(8)
+    prefixes = [rng.integers(1, 255, 64) for _ in range(2)]
+    return [(np.concatenate([prefixes[fam], rng.integers(1, 255, 20 + 7 * i)]), 12 + i,
+             (0, 0, 3, 3, 4, 12, 12)[i]) for i, fam in enumerate((0, 0, 1, 1, 1, 0, 0))]
+
+
+@pytest.mark.parametrize("page_dtype", [None, "int8"])
+def test_tier_restore_and_repair_under_the_captured_block(cuda, page_dtype):
+    """Restores and repairs write the pools in place, into the tensors the
+    captured decode block reads. The first five requests run, the whole
+    prefix cache is spilled, and the first family comes back (a restore);
+    every live page with a tier copy is then corrupted and repaired between
+    blocks. The captured block's streams equal the per-token route's bit
+    for bit (bf16 and int8 pages), no stream replays, and the repaired
+    pages hold their bytes again."""
+    lm = _tier_lm(cuda, page_dtype)
+    work = _tier_work()
+    runs = {}
+    for fused in (True, False):
+        engine = ServeEngine(lm, block_steps=4, fused=fused, seed=2, host_tier_pages=32)
+        pkv, hit, repaired_ok = engine.session.paged, set(), []
+        for i, (p, budget, arrival) in enumerate(work):
+            if i == 5:
+                engine.run()
+                assert pkv.prefix.spill(10 ** 6) > 0
+            engine.submit(p, budget, arrival_block=arrival,
+                          sampler=Sampler(temperature=0.9) if i % 3 == 1 else None)
+        while engine.step_block():
+            victims = [q for q in pkv.live_pages() if q not in hit and pkv.prefix.node_for_page(q)
+                       is not None and pkv.prefix.node_for_page(q).tier_id is not None]
+            if victims:
+                hit.update(victims)
+                want = engine._read_pages_bytes(victims)
+                engine.inject_page_corruption(victims)
+                got = engine._read_pages_bytes(victims)
+                repaired_ok.append(all(np.array_equal(w[k], g[k]) for w, g in zip(want, got)
+                                       for k in w))
+        runs[fused] = {c.request_id: c.tokens.tolist() for c in engine.completed}
+        assert pkv.tier_restored_pages > 0 and pkv.tier_hits > 0
+        assert engine.tier_page_repairs == len(hit) > 0 and engine.corrupt_page_replays == 0
+        assert repaired_ok and all(repaired_ok) and engine.nonfinite_logits == 0
+        assert len(runs[fused]) == len(work)
+        if fused:
+            assert engine.replays == engine.decode_blocks
+    assert runs[True] == runs[False]
+
+
+def test_from_snapshot_reuses_the_captured_graph(cuda):
+    """A restored engine on the ``CausalLM`` that took the snapshot replays
+    the decode block captured before (no second capture, ``capture_s``
+    about 0), resumes every stream to its budget with finite logits, and
+    keeps the tokens delivered before the snapshot."""
+    lm = _tier_lm(cuda, None, seed=9)
+    engine = ServeEngine(lm, block_steps=4, seed=2, host_tier_pages=32)
+    assert engine.capture_s > 0
+    work = _tier_work()
+    for p, budget, arrival in work:
+        engine.submit(p, budget, arrival_block=arrival)
+    for _ in range(6):
+        engine.step_block()
+    snap = engine.snapshot()
+    at_snap = {r["request_id"]: r["generated"] for r in snap["requests"]}
+    before = {c.request_id: c.tokens.tolist() for c in engine.completed}
+    restored = ServeEngine.from_snapshot(lm, snap)
+    assert restored.capture_s < 0.05 and len(lm._fused) == 1
+    assert set(lm.capture_ms) == {"session_fused_k4"}
+    restored.run()
+    after = {c.request_id: c.tokens.tolist() for c in restored.completed}
+    assert set(before) | set(after) == set(range(len(work))) and not set(before) & set(after)
+    assert all(len(after[r]) == work[r][1] for r in after)
+    assert all(after[r][:len(g)] == g for r, g in at_snap.items())
+    assert restored.replays == restored.decode_blocks > 0 and restored.nonfinite_logits == 0
+
+
+def test_dispatch_retry_on_the_card_is_bit_identical(cuda):
+    """A launch retried under injected faults re-runs nothing on the
+    device: the streams equal the fault-free run's bit for bit."""
+    lm = _tier_lm(cuda, None, seed=11)
+    runs = {}
+    for plan in (None, FaultPlan(seed=0, dispatch_fail_prob=0.3, dispatch_max_failures=2)):
+        engine = ServeEngine(lm, block_steps=4, seed=2, faults=plan, dispatch_retries=8,
+                             dispatch_backoff_s=0.0, async_loop=True)
+        for p, budget, arrival in _tier_work():
+            engine.submit(p, budget, arrival_block=arrival)
+        runs[plan is None] = {c.request_id: c.tokens.tolist() for c in engine.run()}
+    assert engine.dispatch_retry_count > 0
+    assert runs[True] == runs[False]

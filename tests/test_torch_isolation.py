@@ -71,6 +71,20 @@ def test_overload_and_observability_modules_stand_alone():
                                               "math", "re", "time", "collections", "typing"}
 
 
+def test_fault_and_sim_modules_stand_alone():
+    """The fault plan and the sim model are the port's own copies of JAX
+    modules that import no JAX: the standard library, numpy and the port's
+    page cache only."""
+    allowed = {"__future__", "dataclasses", "json", "os", "zlib", "typing", "numpy",
+               "neuronx_distributed_tpu_torch"}
+    for mod in ("inference.faults", "inference.simlm"):
+        assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
+        path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
+        assert set(_imported_roots(path)) <= allowed, mod
+    src = (PORT / "inference" / "simlm.py").read_text()
+    assert "import torch" not in src
+
+
 def _tiny_lm_args():
     cfg = tl.LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1,
                          num_heads=4, num_kv_heads=2, max_seq_len=32, dtype=torch.float32)

@@ -346,8 +346,9 @@ def test_overload_report_surface_and_goodput(lms):
     assert {k: rep.get(k) for k in keys} == {k: reps["jax"][k] for k in keys}
 
 
-def test_engine_robustness_knob_validation(lms):
-    """``:500``: the overload knobs are validated as in JAX."""
+def test_engine_robustness_knob_validation(lms, tmp_path):
+    """``:500``: the overload knobs are validated as in JAX; ``run_trace``
+    takes ``snapshot_path`` (removed again on a clean drain)."""
     lm = lms["port"]["slab"]
     with pytest.raises(ValueError, match="shed_policy"):
         ServeEngine(lm, block_steps=K, shed_policy="lifo")
@@ -360,8 +361,9 @@ def test_engine_robustness_knob_validation(lms):
         eng.submit(_prompts(1)[0], 4, deadline_ms=-1.0)
     with pytest.raises(ValueError, match="ttft_deadline_ms"):
         eng.submit(_prompts(1)[0], 4, ttft_deadline_ms=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        run_trace(eng, [], snapshot_path="snap.json")
+    path = tmp_path / "snap.json"
+    assert run_trace(eng, [], snapshot_path=str(path))["requests_completed"] == 0
+    assert not path.exists()
 
 
 def test_async_cancel_and_deadline_exact(lms):

@@ -88,6 +88,19 @@ Phases, each fatal on failure (exit code 1, no result line):
            snapshot and the captured graph reused, (m) (g)'s totals, and
            every count (faults, replays, spills, restores, repairs, blocks)
            the one the CPU rehearsal predicted;
+4e. tenants the same weights behind a ``CausalLM`` with a rank-16 adapter
+           pool (five usable slots) and a pool of four grammar slots:
+           (n) the trace phase's trace with no labels, which must give
+           trace pass (a)'s tokens bit for bit; (o) 32 requests under
+           eight adapters over two shared prefixes, whose counts (loads,
+           hits, evictions, a full pool, prefix hits, blocks) must be the
+           CPU rehearsal's; (p) (o) in the pipelined loop, (o)'s
+           decisions and streams; (q) half of them under four grammars,
+           (r) pipelined, (s) under adapter and grammar load faults and
+           corruptions: every constrained stream must parse, every
+           garbled slot be repaired and every load fault retried; (t) one
+           full-width fp32 layer with an adapter held against merged
+           weights; one capture for the phase;
 5. train   Llama-3-8B widths cut to 4 layers (bf16 weights, fp32 master
            AdamW, clipping, activation checkpointing, the optimizer kernel)
            on a repeated 2 x 4096-token batch: 2 warm-up steps, then 5 timed
@@ -109,6 +122,7 @@ and the card's name and power limit; the last line is
 
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import math
@@ -1539,7 +1553,7 @@ def trace_pass(lm, dev, trace, chunk: int, async_loop: bool, counters, profile=F
         return logits
 
     lm.extend = counted_extend
-    arrival_ts, ops = {}, count_host_ops(engine)
+    arrival_ts, ops, block_events = {}, count_host_ops(engine), time_blocks(engine)
     for c in counters:
         c.launches = 0
     prof = torch_profile(activities=[ProfilerActivity.CUDA]) if profile else None
@@ -1567,7 +1581,9 @@ def trace_pass(lm, dev, trace, chunk: int, async_loop: bool, counters, profile=F
         return dict(wall_s=wall, device_busy_s=busy, device_busy_share=busy / wall)
     done = engine.completed
     tokens = sum(len(c.tokens) for c in done)
+    block_ms = [a.elapsed_time(b) for a, b in block_events]
     return dict(
+        decode_block_ms_p50=_pct(block_ms, 50),
         prefill_chunk_tokens=chunk, async_loop=async_loop, requests=len(done),
         generated_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
         **trace_latency(done, arrival_ts, TRACE_KNOBS["long_prompt_len"]),
@@ -1640,9 +1656,10 @@ def run_trace_phase(lm, dev, counters, profile=False) -> dict:
     same = sum(int(x == y) for rid, ts in passes["a"]["streams"].items()
                for x, y in zip(ts, passes["b"]["streams"][rid]))
     schedule_equal = passes["b"]["schedule"] == passes["c"]["schedule"]
+    streams_a = passes["a"]["streams"]
     for st in passes.values():   # 6144 tokens: kept off the printed summary
         del st["streams"], st["schedule"]
-    return dict(passes=passes, capture_s=capture_s,
+    return dict(passes=passes, capture_s=capture_s, streams_a=streams_a, trace=trace,
                 token_match_a_b=same / passes["a"]["generated_tokens"],
                 schedule_equal_b_c=schedule_equal,
                 requests=TRACE_REQUESTS, knobs={k: v for k, v in TRACE_KNOBS.items()},
@@ -2259,6 +2276,427 @@ def run_recovery_phase(lm, dev, counters) -> dict:
                 before_replay_i_g=pre)
 
 
+# --- phase 4e: tenants on one pool ------------------------------------------------
+
+# the serve phase's weights behind an adapter pool of rank 16 (slot 0 the
+# identity, five usable slots for eight adapters: loads, hits, LRU
+# evictions and a full pool) and a pool of four grammar slots of 64 states
+TENANT_LM = dict(buckets=TRACE_BUCKETS, max_batch=8, page_size=16, paged_attn_kernel=True,
+                 lora_rank=16, lora_slots=6, grammar_slots=4, grammar_states=64)
+TENANT_ADAPTERS = 8        # a0..a7, ranks 8 and 16 alternately
+TENANT_REQUESTS = 32
+# seed 2, not 5: at seed 5 no more than five adapters are ever pinned at
+# once (the CPU rehearsal: 0 rejects), at seed 2 the pool fills three times
+TENANT_KNOBS = dict(prompt_lens=(64, 128, 256, 384), max_new_tokens=64,
+                    mean_interarrival_blocks=0.5, shared_prefix_len=256, prefix_families=2,
+                    adapters=TENANT_ADAPTERS, adapter_skew=1.0, tenants=2, seed=2)
+TENANT_JSON = {"type": "object", "properties": {"a": {"type": "integer"},
+                                                "ok": {"type": "boolean"}}}
+TENANT_GRAMMARS = {"gnum": {"regex": "-?[0-9]{1,3}"}, "gab": {"regex": "a[ab]*b"},
+                   "gjson": {"json_schema": TENANT_JSON},
+                   "gmail": {"regex": "[a-z]{1,8}@[a-z]{1,8}\\.com"}}
+TENANT_GRAMMAR_KNOBS = dict(grammar_frac=0.5, grammars=tuple(TENANT_GRAMMARS))
+# chosen on the CPU so that every verdict of both seams fires in pass (s)
+TENANT_CHAOS_PLAN = dict(seed=3, adapter_load_fail_prob=0.1, adapter_corrupt_prob=0.1,
+                         grammar_load_fail_prob=0.1, grammar_corrupt_prob=0.1)
+# (label, grammars, async_loop, chaos): the passes through run_trace
+TENANT_PASSES = (("o", False, False, False), ("p", False, True, False),
+                 ("q", True, False, False), ("r", True, True, False), ("s", True, False, True))
+# the counts of passes (o) and (p), a function of the trace alone (greedy,
+# no EOS, no grammar): read from the CPU rehearsal at one layer
+# (scripts/tenants_rehearsal.py), held exactly on the card
+TENANT_COUNT_KEYS = ("adapter_loads", "adapter_hits", "adapter_evictions", "adapter_rejects",
+                     "decode_blocks", "blocks", "inserts", "prefix_hits", "completed",
+                     "rejected")
+_TENANT_O = dict(adapter_loads=8, adapter_hits=21, adapter_evictions=3, adapter_rejects=3,
+                 decode_blocks=33, blocks=33, inserts=22, prefix_hits=18, completed=29,
+                 rejected=3)
+TENANT_PREDICTED = {"o": _TENANT_O, "p": _TENANT_O}
+# (t): one full-width decoder layer in fp32, an adapter in a pool slot
+# against the same layer with the adapter merged into its weights: the
+# largest |difference| of the outputs (of size about 1) allowed
+TOL_LORA_LAYER = 1e-4
+
+
+def tenant_lm(cfg, dev, params):
+    """The ``CausalLM`` of the tenants phase: the serve phase's widths and
+    weights (shared, not copied), the trace phase's buckets, both pools."""
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+
+    return CausalLM(cfg, params, LlamaForCausalLM, device=dev, **TENANT_LM)
+
+
+def tenant_adapters(cfg, n: int = TENANT_ADAPTERS) -> dict:
+    """``a0``.. ``a{n-1}``: the port's ``init_lora`` over ``cfg``'s weights
+    (their shapes), ranks 8 and 16 alternately (alpha twice the rank), each
+    from its own generator, with B 0.05 * normal (B = 0 would be the base
+    model). Name -> (tree, LoraConfig), on the host."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.lora import LoraConfig, init_lora
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+
+    with torch.device("meta"):
+        shapes = LlamaForCausalLM(cfg).state_dict()
+    out = {}
+    for i in range(n):
+        r = 8 if i % 2 == 0 else 16
+        lcfg = LoraConfig(r=r, lora_alpha=2.0 * r)
+        gen = torch.Generator().manual_seed(100 + i)
+        tree = init_lora(shapes, lcfg, gen)
+        for ad in tree.values():
+            ad["lora_b"] = 0.05 * torch.randn(ad["lora_b"].shape, generator=gen)
+        out[f"a{i}"] = (tree, lcfg)
+    return out
+
+
+def tenant_trace(vocab: int, grammars: bool) -> list:
+    from neuronx_distributed_tpu_torch.inference.trace import synthetic_trace
+
+    return synthetic_trace(TENANT_REQUESTS, vocab, **TENANT_KNOBS,
+                           **(TENANT_GRAMMAR_KNOBS if grammars else {}))
+
+
+def tenant_regex() -> dict:
+    """Each grammar's regex, for the parse oracle (Python ``re``)."""
+    from neuronx_distributed_tpu_torch.inference.grammar import json_schema_to_regex
+
+    return {n: s["regex"] if "regex" in s else json_schema_to_regex(s["json_schema"])
+            for n, s in TENANT_GRAMMARS.items()}
+
+
+def time_blocks(engine) -> list:
+    """CUDA events around each decode-block replay of ``engine`` (one
+    pair a block, read after the pass); empty off CUDA."""
+    import torch
+
+    runner, events = engine._fused, []
+    if engine.lm.device.type != "cuda":
+        return events
+
+    def timed(session):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = runner(session)
+        b.record()
+        events.append((a, b))
+        return out
+
+    engine._fused = timed
+    return events
+
+
+def _pct(xs, q):
+    import numpy as np
+
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def _tenant_counts(engine) -> dict:
+    pool, gpool = engine.session.adapters, engine.session.grammars
+    return dict(adapter_loads=pool.loads, adapter_hits=pool.hits,
+                adapter_evictions=pool.evictions, adapter_rejects=engine.adapter_rejects,
+                adapter_repairs=pool.repairs, adapter_garbled=pool.garbled,
+                adapter_load_retries=engine.adapter_load_retries,
+                grammar_loads=gpool.loads, grammar_hits=gpool.hits,
+                grammar_evictions=gpool.evictions, grammar_rejects=engine.grammar_rejects,
+                grammar_repairs=gpool.repairs, grammar_garbled=gpool.garbled,
+                grammar_load_retries=engine.grammar_load_retries,
+                decode_blocks=engine.decode_blocks, blocks=engine.blocks, inserts=engine.inserts,
+                prefix_hits=engine.session.paged.prefix_hits, completed=len(engine.completed),
+                rejected=len(engine.rejected))
+
+
+def tenant_pass(lm, dev, trace, adapters, async_loop: bool, plan, counters) -> dict:
+    """One pass of ``trace`` through ``run_trace`` on a ``ServeEngine`` of
+    ``lm`` (``block_steps=8``) with the adapters and grammars registered
+    (timed apart) and ``plan`` (a ``FaultPlan``'s knobs, or None). The
+    launch counters are zeroed just before and read just after; counted
+    around the engine: the host ops of each decode round, each block's
+    device ms (CUDA events around the replay) and each request's first
+    insert (block, the ids inserted with it, the prefix tokens it reused)."""
+    import re
+
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine, run_trace
+    from neuronx_distributed_tpu_torch.inference.faults import FaultPlan
+    from neuronx_distributed_tpu_torch.inference.grammar import default_token_table, detokenize
+
+    engine = ServeEngine(lm, block_steps=8, async_loop=async_loop,
+                         faults=None if plan is None else FaultPlan(**plan))
+    t0 = time.perf_counter()
+    for name, (tree, lcfg) in adapters.items():
+        engine.register_adapter(name, tree, lcfg)
+    for name, spec in TENANT_GRAMMARS.items():
+        engine.register_grammar(name, **spec)
+    register_s = time.perf_counter() - t0
+    ops, block_events = count_host_ops(engine), time_blocks(engine)
+    admitted, insert_group = {}, engine._insert_group
+
+    def recorded_insert(group, slot_ids):
+        pkv = engine.session.paged
+        hits = [pkv.prefix_peek(r.prompt.tolist(), ns=r.adapter) for r in group]
+        insert_group(group, slot_ids)
+        ids = sorted(r.request_id for r in group)
+        for r, h in zip(group, hits):
+            admitted.setdefault(r.request_id, (engine.blocks, ids, h))
+
+    engine._insert_group = recorded_insert
+    for c in counters:
+        c.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    report = run_trace(engine, trace)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    done = engine.completed
+    tokens = report["total_generated_tokens"]
+    table = default_token_table(lm.config.vocab_size)
+    regex = tenant_regex()
+    constrained = [c for c in done if c.grammar is not None]
+    parsed = sum(1 for c in constrained
+                 if re.fullmatch(regex[c.grammar], detokenize(c.tokens, table)))
+    block_ms = [a.elapsed_time(b) for a, b in block_events]
+    pool, gpool = engine.session.adapters, engine.session.grammars
+    return dict(
+        async_loop=async_loop, plan=plan, submitted=len(trace), wall_s=wall,
+        tokens_per_s=tokens / wall, generated_tokens=tokens, register_s=register_s,
+        **host_op_stats(ops), nonfinite_logits=engine.nonfinite_logits,
+        capture_s=engine.capture_s, launches={c.__name__: c.launches for c in counters},
+        counts=_tenant_counts(engine),
+        fault_stats=(None if engine._injector is None
+                     else {k: v for k, v in engine._injector.stats.items() if v}),
+        decode_block_ms_p50=_pct(block_ms, 50),
+        decode_block_ms_mean=sum(block_ms) / len(block_ms) if block_ms else None,
+        acquire_ms_p50=_pct(pool.acquire_ms, 50), acquire_ms_p99=_pct(pool.acquire_ms, 99),
+        adapter_load_ms_p50=_pct(pool.load_ms, 50),
+        grammar_acquire_ms_p50=_pct(gpool.acquire_ms, 50),
+        grammar_acquire_ms_p99=_pct(gpool.acquire_ms, 99),
+        interblock_gap_ms_p50=report.get("interblock_gap_ms_p50"),
+        interblock_gap_ms_p99=report.get("interblock_gap_ms_p99"),
+        fetch_blocked_ms_p50=report.get("fetch_blocked_ms_p50"),
+        constrained=len(constrained), parsed=parsed,
+        finish_reasons=dict(sorted(collections.Counter(c.finish_reason for c in done).items())),
+        streams={c.request_id: c.tokens.tolist() for c in done},
+        schedule={c.request_id: (c.queue_blocks, c.ttft_blocks, c.decode_blocks) for c in done},
+        rejected=sorted((r.request_id, r.reason) for r in engine.rejected),
+        admitted=admitted,
+        compile_ms={n: gpool.compile_ms_of(n) for n in TENANT_GRAMMARS})
+
+
+def same_adapter_hits(st: dict, trace: list) -> bool:
+    """Every prefix hit of a pass reused pages an earlier admission of the
+    same adapter and the same shared prefix wrote (the index is namespaced
+    by adapter)."""
+    plen = TENANT_KNOBS["shared_prefix_len"]
+    order = sorted(st["admitted"].items(), key=lambda kv: (kv[1][0], kv[0]))
+    seen = set()
+    for rid, (_block, group, hit) in order:
+        key = (trace[rid].get("adapter"), tuple(trace[rid]["prompt"][:plen].tolist()))
+        if hit and key not in seen:
+            return False
+        seen.add(key)
+    return True
+
+
+def tenant_gates(passes: dict, predicted: dict, streams_a: dict, traces: dict) -> list:
+    """The tenants phase's gates on its passes (label -> dict); returns
+    what failed, empty when every gate held. (n) gives trace pass (a)'s
+    tokens bit for bit (slot 0 and the identity grammar touch nothing);
+    (o)'s counts are the CPU's and its prefix hits same-adapter; (p) makes
+    (o)'s decisions with (o)'s streams; in (q), (r), (s) every constrained
+    stream parses, and (q) ends streams both on a grammar's accept state and
+    on the budget; (r) gives (q)'s stream to every request admitted as in
+    (q) (the same block, the same insert group, the same reused prefix: a
+    grammar that ends a stream retires it a block later in the pipelined
+    loop, which can move later admissions, and bf16 prefill is not
+    batch-invariant); in (s) each pool repaired every slot it garbled before
+    the pin and each load fault was retried. Every pass launches B1 and B2,
+    keeps a decode block at one replay and one fetch (one copy more when a
+    slot changed), completes or rejects every request, and reuses the one
+    captured block."""
+    problems = []
+    n = passes["n"]
+    if n["streams"] != streams_a:
+        same = sum(int(x == y) for rid, ts in n["streams"].items()
+                   for x, y in zip(ts, streams_a.get(rid, [])))
+        problems.append(f"pass (n) tokens differ from trace pass (a)'s ({same} equal)")
+    for label, st in passes.items():
+        for fn, k in st["launches"].items():
+            if k <= 0:
+                problems.append(f"pass ({label}) never launched {fn}")
+        if st.get("nonfinite_logits"):
+            problems.append(f"pass ({label}): {st['nonfinite_logits']} non-finite logit rows")
+        if not (st["steady_ok"] and st["blocks_ok"]):
+            problems.append(f"pass ({label}): host ops a decode block {st['host_ops']}")
+        if label != "n":
+            c = st["counts"]
+            if c["completed"] + c["rejected"] != st["submitted"]:
+                problems.append(f"pass ({label}): {c['completed']} completed + {c['rejected']} "
+                                f"rejected != {st['submitted']} submitted")
+            if st["parsed"] != st["constrained"]:
+                problems.append(f"pass ({label}): {st['parsed']} of {st['constrained']} "
+                                f"constrained streams parse")
+            if st["capture_s"] > 0.05:
+                problems.append(f"pass ({label}) captured again ({st['capture_s']:.3f} s)")
+        want = predicted.get(label)
+        if want is not None and {k: st["counts"].get(k) for k in want} != want:
+            problems.append(f"pass ({label}) counts {st['counts']} differ from the CPU's {want}")
+    o, p = passes["o"], passes["p"]
+    for key in ("streams", "schedule", "rejected"):
+        if o[key] != p[key]:
+            problems.append(f"passes (o) and (p) {key} differ")
+    if {k: o["counts"][k] for k in TENANT_COUNT_KEYS} != \
+            {k: p["counts"][k] for k in TENANT_COUNT_KEYS}:
+        problems.append("passes (o) and (p) counts differ")
+    if not same_adapter_hits(o, traces["o"]):
+        problems.append("pass (o) reused a prefix across adapters")
+    for what, key in (("no adapter load", "adapter_loads"), ("no adapter hit", "adapter_hits"),
+                      ("no adapter eviction", "adapter_evictions"),
+                      ("no full adapter pool", "adapter_rejects"), ("no prefix hit", "prefix_hits")):
+        if not o["counts"][key]:
+            problems.append(f"pass (o) has {what}")
+    q, r = passes["q"], passes["r"]
+    if not {"grammar_accept", "budget"} <= set(q["finish_reasons"]):
+        problems.append(f"pass (q) finish reasons {q['finish_reasons']}")
+    alike = [rid for rid, a in q["admitted"].items() if r["admitted"].get(rid) == a]
+    if any(q["streams"].get(rid) != r["streams"].get(rid) for rid in alike):
+        problems.append("pass (r) streams differ from (q)'s for requests admitted alike")
+    s = passes["s"]
+    for kind in ("adapter", "grammar"):
+        c, fs = s["counts"], s["fault_stats"] or {}
+        if c[f"{kind}_repairs"] != c[f"{kind}_garbled"]:
+            problems.append(f"pass (s): {c[f'{kind}_garbled']} {kind} slots garbled, "
+                            f"{c[f'{kind}_repairs']} repaired")
+        if c[f"{kind}_load_retries"] != fs.get(f"{kind}_load_faults", 0):
+            problems.append(f"pass (s): {fs.get(f'{kind}_load_faults', 0)} {kind} load faults, "
+                            f"{c[f'{kind}_load_retries']} retries")
+    return problems
+
+
+def lora_layer_check(cfg, dev) -> dict:
+    """Pass (t): one decoder layer at ``cfg``'s widths in fp32 (seeded
+    weights), an adapter of rank 16 in slot 1 of a pool: its output on two
+    rows of 64 tokens against the same layer with the adapter merged into
+    its weights (``merge_lora``); slot-0 rows against the layer without
+    LoRA, bit for bit."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.adapters import AdapterPool
+    from neuronx_distributed_tpu_torch.lora import LoraConfig, init_lora, merge_lora
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaDecoderLayer,
+        lora_layout,
+        rotary_embedding,
+    )
+
+    c = dataclasses.replace(cfg, num_layers=1, dtype=torch.float32, param_dtype=torch.float32,
+                            use_flash_attention=False, lora_rank=16, lora_slots=2, decode=False)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    layer = LlamaDecoderLayer(c, device=dev)
+    sd = {}
+    for name, w in layer.state_dict().items():
+        t = torch.randn(w.shape, generator=gen, device=dev)
+        sd[name] = (torch.ones_like(w) if name.endswith(".scale")
+                    else t * (1.0 / math.sqrt(w.shape[0])))
+    layer.load_state_dict(sd)
+    lcfg = LoraConfig(r=16, lora_alpha=32.0)
+    prefix = "model.layers.0."
+    full = {prefix + k: v for k, v in sd.items()}
+    tree = init_lora(full, lcfg, torch.Generator().manual_seed(12))
+    for ad in tree.values():
+        ad["lora_b"] = 0.05 * torch.randn(ad["lora_b"].shape,
+                                          generator=torch.Generator().manual_seed(13))
+    layout = lora_layout(c)
+    pool_buf = torch.zeros((2, 1, layout.per_layer), device=dev)
+    pool = AdapterPool(pool_buf, layout)
+    pool.register("a", tree, lcfg)
+    slot = pool.acquire("a")
+    merged = LlamaDecoderLayer(c, device=dev)
+    merged.load_state_dict({k[len(prefix):]: v.to(dev) for k, v in
+                            merge_lora(full, {k: {n: t.to(dev) for n, t in v.items()}
+                                              for k, v in tree.items()}, lcfg).items()})
+    x = torch.randn((2, 64, c.hidden_size), generator=gen, device=dev)
+    rope = rotary_embedding(torch.arange(64, device=dev), c.head_dim_, c.rope_theta,
+                            scaling=c.rope_scaling)
+
+    def run(mod, idx):
+        lora = None if idx is None else (
+            pool_buf[:, 0].index_select(0, torch.as_tensor(idx, device=dev)), layout)
+        with torch.no_grad():
+            return mod(x, rope, None, 0, lora)
+
+    got, want = run(layer, [slot, slot]), run(merged, None)
+    err = float((got - want).abs().max())
+    base_equal = bool(torch.equal(run(layer, [0, 0]), run(layer, None)))
+    check(err <= TOL_LORA_LAYER, f"tenants (t): pooled adapter vs merged weights max |err| "
+                                 f"{err:.3g} > {TOL_LORA_LAYER}")
+    check(base_equal, "tenants (t): slot-0 rows differ from the layer without LoRA")
+    return dict(max_abs_err=err, tolerance=TOL_LORA_LAYER, max_abs_ref=float(want.abs().max()),
+                delta_max_abs=float((want - run(layer, None)).abs().max()),
+                base_bit_identical=base_equal, shape=[2, 64, c.hidden_size])
+
+
+def tenant_passes(lm, dev, counters, adapters, trace_n=None, labels=None):
+    """Passes (o)-(s) of the tenants phase (or those in ``labels``) on
+    ``lm``, and (n) when ``trace_n`` (the trace phase's trace) is given;
+    returns the passes and the traces, by label."""
+    passes = {}
+    if trace_n is not None:
+        passes["n"] = trace_pass(lm, dev, trace_n, 0, False, counters)
+        del passes["n"]["schedule"]
+    traces = {}
+    for label, grammars, async_loop, chaos in TENANT_PASSES:
+        if labels is None or label in labels:
+            traces[label] = tenant_trace(lm.config.vocab_size, grammars)
+            passes[label] = tenant_pass(lm, dev, traces[label], adapters, async_loop,
+                                        TENANT_CHAOS_PLAN if chaos else None, counters)
+    return passes, traces
+
+
+def run_tenant_phase(lm, dev, counters, streams_a: dict, trace_n: list) -> dict:
+    """The tenants phase on ``lm`` (:func:`tenant_lm`) after one untimed
+    warm-up: (n) the trace phase's trace with no labels, (o)-(s) the
+    adapter trace, then with grammars, in both loops and under faults;
+    hard gates :func:`tenant_gates` with the CPU's predicted counts, one
+    capture for ``lm``, and (t) :func:`lora_layer_check`. Reported: each
+    pass's tokens/s, decode-block ms, acquire ms, the grammars' compile ms,
+    the interblock gaps, and (s)'s share of tokens equal to (q)'s."""
+    t0 = time.perf_counter()
+    adapters = tenant_adapters(lm.config)
+    build_s = time.perf_counter() - t0
+    tenant_pass(lm, dev, tenant_trace(lm.config.vocab_size, True)[:12], adapters, False,
+                None, counters)   # warm-up: the capture, the shapes
+    capture_s = lm.capture_ms.get("session_fused_k8")
+    passes, traces = tenant_passes(lm, dev, counters, adapters, trace_n=trace_n)
+    problems = tenant_gates(passes, TENANT_PREDICTED, streams_a, traces)
+    if len(lm._fused) != 1:
+        problems.append(f"the tenants CausalLM captured {len(lm._fused)} blocks")
+    check(not problems, "tenants: " + "; ".join(problems))
+    q, r, s = passes["q"], passes["r"], passes["s"]
+    alike = [rid for rid, a in q["admitted"].items() if r["admitted"].get(rid) == a]
+    admitted_q = len(q["admitted"])
+    same_s = sum(int(x == y) for rid, ts in s["streams"].items()
+                 for x, y in zip(ts, q["streams"].get(rid, [])))
+    same_r = sum(int(x == y) for rid, ts in r["streams"].items()
+                 for x, y in zip(ts, q["streams"].get(rid, [])))
+    layer = lora_layer_check(lm.config, dev)
+    for st in passes.values():   # kept off the printed summary
+        for key in ("streams", "schedule", "admitted"):
+            st.pop(key, None)
+    return dict(passes=passes, layer=layer, adapters_build_s=build_s,
+                capture_ms=capture_s, requests=TENANT_REQUESTS, knobs=dict(TENANT_KNOBS),
+                chaos_plan=dict(TENANT_CHAOS_PLAN), lm={k: v for k, v in TENANT_LM.items()},
+                r_admitted_alike=len(alike), r_requests=admitted_q,
+                r_token_share_equal_q=same_r / max(r["generated_tokens"], 1),
+                s_token_share_equal_q=same_s / max(s["generated_tokens"], 1),
+                adapter_bytes_per_slot=lm.model.model.lora_layout.per_layer
+                * lm.config.num_layers * 4)
+
+
 # --- phases 3b and 5: training ----------------------------------------------------
 
 
@@ -2603,6 +3041,12 @@ def main(argv=None) -> int:
     lm = recovery_lm(cfg, dev, params)
     recovery = run_recovery_phase(lm, dev, serve_counters)
     del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = tenant_lm(cfg, dev, params)
+    tenants = run_tenant_phase(lm, dev, serve_counters, trace.pop("streams_a"),
+                               trace.pop("trace"))
+    del lm
     if args.profile is not None:
         gc.collect()
         stats["profile"] = serve(cfg, dev, serve_counters, profile_path=args.profile,
@@ -2632,7 +3076,8 @@ def main(argv=None) -> int:
               f"{st['tokens_per_s']:.1f} tok/s, TTFT short p50 {st['ttft_ms_p50_short']:.1f} ms "
               f"max {st['ttft_ms_max_short']:.1f} ms, long p50 {st['ttft_ms_p50_long']:.1f} ms "
               f"max {st['ttft_ms_max_long']:.1f} ms, largest gap between tokens of a short "
-              f"request {st['max_gap_ms_short']:.1f} ms, {st['decode_blocks']} decode blocks at "
+              f"request {st['max_gap_ms_short']:.1f} ms, decode block ms p50 "
+              f"{st['decode_block_ms_p50']}, {st['decode_blocks']} decode blocks at "
               f"{st['host_ops_per_block']:.3f} host ops a block ({st['steady_blocks']} steady), "
               f"{st['inserts']} inserts, chunk_program_calls {st['chunk_program_calls']}, B1 "
               f"launches in chunk extends {st['b1_launches_in_extends']}, launches "
@@ -2712,6 +3157,42 @@ def main(argv=None) -> int:
           f"with their first insert in (i) and in (g) (block, ids inserted together) "
           f"{recovery['before_replay_i_g']['differ']} [{card}]",
           flush=True)
+    for label, st in tenants["passes"].items():
+        c = st.get("counts", {})
+        print(f"tenants pass ({label}): llama3_8b full width, "
+              + ("the trace phase's trace, no adapter or grammar, sync, one-shot inserts"
+                 if label == "n" else
+                 f"{'async' if st['async_loop'] else 'sync'}, adapters"
+                 + (", grammars" if label in "qrs" else "")
+                 + (f", faults {st['fault_stats']}" if st.get("plan") else ""))
+              + f", {st['generated_tokens']} tokens in {st['wall_s']:.3f} s = "
+              f"{st['tokens_per_s']:.1f} tok/s, {st['host_ops_per_block']:.3f} host ops a block "
+              f"({st['steady_blocks']} steady)"
+              + (f", decode block ms p50 {st['decode_block_ms_p50']}" if label == "n" else "")
+              + (f", decode block ms p50 {st['decode_block_ms_p50']:.3f} mean "
+                 f"{st['decode_block_ms_mean']:.3f}, adapter acquire ms p50 "
+                 f"{st['acquire_ms_p50']:.2f} p99 {st['acquire_ms_p99']:.2f} (cold load p50 "
+                 f"{st['adapter_load_ms_p50']:.2f}), grammar acquire ms p50 "
+                 f"{st['grammar_acquire_ms_p50']} p99 {st['grammar_acquire_ms_p99']}, "
+                 f"interblock gap ms p50 {st['interblock_gap_ms_p50']} p99 "
+                 f"{st['interblock_gap_ms_p99']}, fetch blocked ms p50 "
+                 f"{st['fetch_blocked_ms_p50']}, registration {st['register_s']:.2f} s, "
+                 f"counts {json.dumps(c)}, finish {st['finish_reasons']}, parsed "
+                 f"{st['parsed']} of {st['constrained']} constrained"
+                 if label != "n" else "")
+              + f", launches {st['launches']} [{card}]", flush=True)
+    lay = tenants["layer"]
+    print(f"tenants: (n) bit-identical to trace pass (a), (o) counts as the CPU predicted, (p) = "
+          f"(o), (r) = (q) for {tenants['r_admitted_alike']} of {tenants['r_requests']} requests "
+          f"admitted alike (tokens equal {tenants['r_token_share_equal_q']:.4f}), (s) tokens "
+          f"equal to (q) {tenants['s_token_share_equal_q']:.4f}, every constrained stream "
+          f"parsed; one capture ({tenants['capture_ms']} ms); grammar compile ms at vocab "
+          f"{cfg.vocab_size} {tenants['passes']['o']['compile_ms']}; adapters built in "
+          f"{tenants['adapters_build_s']:.1f} s, {tenants['adapter_bytes_per_slot']} bytes a "
+          f"slot; (t) one layer fp32 pooled vs merged max |err| {lay['max_abs_err']:.3g} (tol "
+          f"{lay['tolerance']}, max |ref| {lay['max_abs_ref']:.3g}, the adapter moves it by "
+          f"{lay['delta_max_abs']:.3g}), slot 0 bit-identical {lay['base_bit_identical']} "
+          f"[{card}]", flush=True)
     if "profile" in stats:
         prof = stats["profile"]
         print(f"profile: device busy {prof['device_busy_s']:.3f} s of the profiled run's "
@@ -2744,6 +3225,7 @@ def main(argv=None) -> int:
                   for label, st in overload["passes"].items()},
                **{f"recovery_{label}": st["launches"]
                   for label, st in recovery["passes"].items()},
+               **{f"tenants_{label}": st["launches"] for label, st in tenants["passes"].items()},
                "train": tstats["launches"]}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
@@ -2764,7 +3246,7 @@ def main(argv=None) -> int:
             if "held" in k.get(part, {}):
                 c[part] = k[part].pop("held")
     print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
-                      "recovery": recovery, "train": tstats,
+                      "recovery": recovery, "tenants": tenants, "train": tstats,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,
                       "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

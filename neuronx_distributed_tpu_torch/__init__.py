@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("converters", "inference", "kernels", "models", "observability", "ops",
+_SUBMODULES = ("converters", "inference", "kernels", "lora", "models", "observability", "ops",
                "optimizer", "parallel", "trainer")
 
 

@@ -18,6 +18,15 @@ eagerly. A graph is bound to the addresses it was captured over, so a
 :class:`SlotState` that packs the per-slot decode state with the block
 tables — and :meth:`CausalLM.start_session` resets them for each new
 session (one live session per ``CausalLM``).
+
+Tenants (JAX ``causal_lm.py:253-298``): ``lora_rank`` gives the model a
+pool of adapter slots (``inference/adapters.py``) that every forward reads
+per row, and ``grammar_slots`` a pool of grammar tables
+(``inference/grammar.py``) that every draw of the fused block and of the
+engine's first tokens masks with. Both pools are device buffers of this
+``CausalLM``, written in place, so one captured block serves every mix of
+adapters and grammars; each session gets fresh pool bookkeeping over them
+(:meth:`CausalLM.new_adapter_pool`, :meth:`CausalLM.new_grammar_pool`).
 """
 
 from __future__ import annotations
@@ -30,6 +39,14 @@ import numpy as np
 import torch
 
 from neuronx_distributed_tpu_torch._device import DeviceLike, resolve_device
+from neuronx_distributed_tpu_torch.inference.adapters import AdapterPool
+from neuronx_distributed_tpu_torch.inference.grammar import (
+    GrammarPool,
+    default_token_table,
+    grammar_allowed,
+    grammar_tables,
+    reset_grammar_tables,
+)
 from neuronx_distributed_tpu_torch.inference.paged_cache import PagedKVCache
 from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
 from neuronx_distributed_tpu_torch.inference.sampling import (
@@ -78,7 +95,11 @@ class SlotState:
     read it has advanced ``tok``, ``count``, ``done`` and ``length`` there).
     :meth:`take_tok` makes a marked row's ``tok`` a device value instead, an
     index into a buffer the caller hands to :meth:`sync` (a first token
-    still on the device), and latches its ``done`` on its ``eos`` there.
+    still on the device), and latches its ``done`` on its ``eos`` there;
+    with ``grammar_tables`` set, a grammar row's ``gstate`` also takes the
+    token's transition there and ``done`` latches on an accept-terminal
+    landing. ``adapter`` and ``grammar`` are the rows' pool slots,
+    ``gstate`` their DFA state and ``budget`` their token budget.
 
     The whole-mirror copy is synchronous (pageable memory). The merge's
     copy leaves from one of two pinned buffers on CUDA and does not wait for
@@ -87,7 +108,7 @@ class SlotState:
     the host changes."""
 
     FIELDS = ("tok", "key_lo", "key_hi", "count", "length", "active", "done", "eos", "greedy",
-              "temperature")
+              "temperature", "adapter", "grammar", "gstate", "budget")
 
     def __init__(self, batch: int, table_cols: int, device: torch.device):
         self.batch, self.table_cols = batch, table_cols
@@ -95,6 +116,7 @@ class SlotState:
         self.host = np.zeros((n,), np.int32)
         self.dev = torch.zeros((n,), dtype=torch.int32, device=device)
         self.dirty = False
+        self.grammar_tables: Optional[Dict[str, torch.Tensor]] = None
         # rows to merge at the next sync, and the device source of their tok
         self._rows = np.zeros((batch,), bool)
         self._tok_src = np.full((batch,), -1, np.int32)
@@ -174,6 +196,12 @@ class SlotState:
             tok, done, eos = self.dev_field("tok"), self.dev_field("done"), self.dev_field("eos")
             tok.copy_(torch.where(take, firsts[src.clamp(min=0).long()], tok))
             done.copy_(torch.where(take & (eos >= 0) & (tok == eos), 1, done))
+            if self.grammar_tables is not None:
+                t = self.grammar_tables
+                g, gs = self.dev_field("grammar").long(), self.dev_field("gstate")
+                adv = take & (g > 0)
+                gs.copy_(torch.where(adv, t["next"][g, gs.long(), tok.long()], gs))
+                done.copy_(torch.where(adv & t["terminal"][g, gs.long()], 1, done))
         self._rows[:] = False
         self._tok_src[:] = -1
 
@@ -203,6 +231,8 @@ class DecodeSession:
     active: np.ndarray          # (max_batch,) slot in use
     paged: Optional[PagedKVCache] = None
     generation: int = 0
+    adapters: Optional[AdapterPool] = None
+    grammars: Optional[GrammarPool] = None
 
 
 class FusedDecode:
@@ -219,7 +249,11 @@ class FusedDecode:
     the :class:`SlotSampler` draw (greedy rows keep their argmax), the
     emission frozen to ``pad`` for rows done or inactive before the step,
     ``done`` latched on the row's ``eos`` entry (−1 disables) and when its
-    next write would pass ``max_seq_len``. It writes ``tok``, ``count`` and
+    next write would pass ``max_seq_len``. The forward reads each row's
+    adapter slot; with grammars, the draw is masked by
+    :func:`grammar_allowed`, live rows step ``gstate`` to ``next[grammar,
+    gstate, token]`` and latch ``done`` on an accept-terminal landing (JAX
+    ``causal_lm.py:744-767``); ``gstate`` stays on the device. It writes ``tok``, ``count`` and
     ``done`` back into the slot state (``length`` is the cache index), so a
     steady-state block needs no copy to the device, and leaves in
     :attr:`out` the (steps, b) emissions plus one row of per-slot flags
@@ -246,18 +280,32 @@ class FusedDecode:
         tok = f("tok")[:, None]
         finite = torch.ones_like(active)
         max_len = lm.config.max_seq_len
+        adapter = f("adapter") if lm.lora else None
+        tables = lm._grammar_tables
+        if tables is not None:
+            gidx, gstate, gbudget = f("grammar"), f("gstate"), f("budget")
+            gactive, gl = gidx > 0, gidx.long()
         for i in range(self.steps):
-            logits = lm._forward(tok, cache)[:, 0].float()
+            logits = lm._forward(tok, cache, adapter)[:, 0].float()
             finite = finite & torch.isfinite(logits).all(-1)
+            allowed = (None if tables is None
+                       else grammar_allowed(tables, gidx, gstate, gbudget, count))
             nxt = draw_rows(logits, key_lo, key_hi, count, temperature, greedy,
-                            self.slot_sampler)
+                            self.slot_sampler, allowed)
+            done_before = done
             self.out[i] = torch.where(done | ~active, self.pad, nxt)
             done = done | (active & (eos >= 0) & (nxt == eos))
+            if tables is not None:
+                adv = gactive & active & ~done_before
+                gstate = torch.where(adv, tables["next"][gl, gstate.long(), nxt.long()], gstate)
+                done = done | (adv & tables["terminal"][gl, gstate.long()])
             count.add_(1)
             done = done | (active & (cache.cache_index + 1 >= max_len))
             tok = nxt[:, None]
         f("tok").copy_(tok[:, 0])
         f("done").copy_(done.to(torch.int32))
+        if tables is not None:
+            f("gstate").copy_(gstate)
         self.out[self.steps] = finite.to(torch.int32)
 
     def capture(self) -> None:
@@ -314,13 +362,21 @@ class CausalLM:
     ``params`` is a state dict (tensors or numpy arrays) in the model's
     naming; it is moved to ``device`` in the config's ``param_dtype``.
     ``device`` defaults to ``cuda`` and must be given as ``"cpu"`` to run
-    on the CPU."""
+    on the CPU.
+
+    ``lora_rank``/``lora_slots``/``lora_targets``: the adapter pool (slots
+    default 8, slot 0 the identity). ``grammar_slots``/``grammar_states``/
+    ``grammar_tokens``: the grammar pool over a token table (default
+    :func:`default_token_table` of the vocabulary)."""
 
     def __init__(self, config, params: Mapping[str, Any], model_cls,
                  buckets=(128, 512, 2048), max_batch: int = 4,
                  page_size: Optional[int] = None, page_pool_pages: Optional[int] = None,
                  page_dtype: Optional[str] = None, paged_attn_kernel: bool = False,
-                 prefix_cache: bool = True, device: DeviceLike = None):
+                 prefix_cache: bool = True, lora_rank: Optional[int] = None,
+                 lora_slots: int = 0, lora_targets: Optional[Sequence[str]] = None,
+                 grammar_slots: int = 0, grammar_states: int = 64,
+                 grammar_tokens: Optional[Sequence[str]] = None, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.config = dataclasses.replace(config, decode=True)
         self.paged = bool(page_size)
@@ -337,6 +393,33 @@ class CausalLM:
             page_storage_dtype(self.config)   # validates page_dtype
         elif paged_attn_kernel or page_dtype:
             raise ValueError("page_dtype / paged_attn_kernel require paged mode (pass page_size)")
+        self.lora = bool(lora_rank)
+        if self.lora:
+            slots = int(lora_slots) if lora_slots else 8
+            if slots < 2:
+                raise ValueError(f"lora_slots must be >= 2 (slot 0 is the identity adapter), "
+                                 f"got {slots}")
+            over = dict(lora_rank=int(lora_rank), lora_slots=slots)
+            if lora_targets:
+                over["lora_targets"] = tuple(lora_targets)
+            self.config = dataclasses.replace(self.config, **over)
+        self.grammar = bool(grammar_slots)
+        if self.grammar:
+            if grammar_slots < 2:
+                raise ValueError(f"grammar_slots must be >= 2 (slot 0 is the identity grammar), "
+                                 f"got {grammar_slots}")
+            if grammar_states < 2:
+                raise ValueError(f"grammar_states must be >= 2, got {grammar_states}")
+        self.grammar_slots = int(grammar_slots)
+        self.grammar_states = int(grammar_states)
+        self.grammar_tokens: Optional[tuple] = None
+        if self.grammar:
+            if grammar_tokens is None:
+                grammar_tokens = default_token_table(config.vocab_size)
+            if len(grammar_tokens) != config.vocab_size:
+                raise ValueError(f"grammar_tokens has {len(grammar_tokens)} entries for "
+                                 f"vocab_size {config.vocab_size}")
+            self.grammar_tokens = tuple(grammar_tokens)
         self.max_batch = int(max_batch)
         self.buckets = tuple(sorted(b for b in buckets if b <= self.config.max_seq_len))
         if not self.buckets:
@@ -347,10 +430,14 @@ class CausalLM:
         state = {k: torch.as_tensor(v).to(device=self.device, dtype=dt)
                  for k, v in params.items()}
         model.load_state_dict(state, strict=True, assign=True)
+        if self.lora:   # the pool is no weight: allocated here, zeroed per session
+            model.model.lora_pool = torch.zeros(model.model.lora_pool.shape, dtype=torch.float32,
+                                                device=self.device)
         self.model = model.eval().requires_grad_(False)
         # device state, made at the first start_session
         self._cache: Optional[KVCache] = None
         self._slots: Optional[SlotState] = None
+        self._grammar_tables: Optional[Dict[str, torch.Tensor]] = None
         self._session: Optional[DecodeSession] = None
         self._generation = 0
         self._fused: Dict[tuple, FusedDecode] = {}
@@ -375,11 +462,24 @@ class CausalLM:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def _forward(self, ids: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    def _forward(self, ids: torch.Tensor, cache: KVCache,
+                 adapter_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The model on ``ids``; ``adapter_idx`` (rows,) the rows' adapter
+        slots (None: the identity)."""
+        if self.lora:
+            self.model.model.adapter_idx = adapter_idx
         # no_grad rather than inference_mode: the cache tensors made here
         # are updated in place by later calls outside any such mode
         with torch.no_grad():
             return self.model(ids, cache)
+
+    def _adapter_rows(self, adapter_slots, rows: int) -> Optional[torch.Tensor]:
+        if not self.lora or adapter_slots is None:
+            return None
+        slots = np.asarray(adapter_slots, np.int32).reshape(-1)
+        if slots.shape != (rows,):
+            raise ValueError(f"{slots.size} adapter slots for {rows} rows")
+        return self._ids(slots)
 
     def kv_cache_bytes(self) -> int:
         """Bytes of the session KV pools (every layer, K and V; paged: the
@@ -409,6 +509,10 @@ class CausalLM:
         self._cache = self.model.new_cache(
             self.max_batch, self.device, cache_index=self._slots.dev_field("length"),
             block_table=self._slots.dev_table if self.paged else None)
+        if self.grammar:
+            self._grammar_tables = grammar_tables(self.grammar_slots, self.grammar_states,
+                                                  self.config.vocab_size, self.device)
+            self._slots.grammar_tables = self._grammar_tables
 
     def _check_session(self, session: DecodeSession) -> None:
         if session.generation != self._generation:
@@ -438,8 +542,30 @@ class CausalLM:
                 self.config.max_seq_len, prefix_cache=self.prefix_cache)
             st.host_table[:] = session.paged.tables
         st.push()
+        if self.lora:
+            self.model.model.lora_pool.zero_()
+            session.adapters = self.new_adapter_pool()
+        if self.grammar:
+            reset_grammar_tables(self._grammar_tables)
+            session.grammars = self.new_grammar_pool()
         self._session = session
         return session
+
+    def new_adapter_pool(self) -> AdapterPool:
+        """Adapter-pool bookkeeping over this ``CausalLM``'s pool buffer
+        (one per session; :meth:`start_session` makes it)."""
+        if not self.lora:
+            raise ValueError("CausalLM was built without lora_rank")
+        return AdapterPool(self.model.model.lora_pool, self.model.model.lora_layout)
+
+    def new_grammar_pool(self) -> GrammarPool:
+        """Grammar-pool bookkeeping over this ``CausalLM``'s tables (one per
+        session; :meth:`start_session` makes it)."""
+        if not self.grammar:
+            raise ValueError("CausalLM was built without grammar_slots")
+        self._device_state()
+        return GrammarPool(self.grammar_slots, self.grammar_states, self.grammar_tokens,
+                           tables=self._grammar_tables)
 
     def _set_block_tables(self, session: DecodeSession, slot_ids: np.ndarray) -> None:
         """Mirror these slots' host tables; the device copy rides the next
@@ -458,11 +584,14 @@ class CausalLM:
     def insert(self, session: DecodeSession, slot_ids, prompt_ids: np.ndarray,
                lengths: Optional[np.ndarray] = None, pad_token_id: int = 0,
                reserve_tokens: Optional[Any] = None,
-               ns: Optional[Sequence[Optional[str]]] = None) -> torch.Tensor:
+               ns: Optional[Sequence[Optional[str]]] = None,
+               adapter_slots=None) -> torch.Tensor:
         """Prefill ``slot_ids`` with new prompts; every other slot's cache
         rows and lengths are preserved. Right-sized: only the inserted rows
-        are prefilled, at their own batch width. Returns the next-token
-        logits ``(len(slot_ids), vocab)``."""
+        are prefilled, at their own batch width. ``adapter_slots``: each
+        row's adapter-pool slot (None: the identity); ``ns``: each row's
+        prefix-index namespace (its adapter). Returns the next-token logits
+        ``(len(slot_ids), vocab)``."""
         self._check_session(session)
         slot_ids = np.asarray(slot_ids, np.int32)
         self._check_slots(slot_ids)
@@ -475,9 +604,10 @@ class CausalLM:
         if int(lengths.max()) >= self.config.max_seq_len:
             raise ValueError(f"prompt length {int(lengths.max())} leaves no decode room in "
                              f"max_seq_len {self.config.max_seq_len}")
+        aidx = self._adapter_rows(adapter_slots, len(slot_ids))
         if self.paged:
             return self._insert_paged(session, slot_ids, prompt_ids, lengths,
-                                      reserve_tokens, ns=ns)
+                                      reserve_tokens, ns=ns, aidx=aidx)
         bucket = self._bucket_for(s)
         rows = len(slot_ids)
         ids = np.zeros((rows, bucket), np.int32)
@@ -486,7 +616,7 @@ class CausalLM:
         # whole rows into the session slab (stale tails of the slots' earlier
         # requests are overwritten, as the JAX scatter does)
         fresh = self.model.new_cache(rows, self.device)
-        logits = self._forward(self._ids(ids), fresh)
+        logits = self._forward(self._ids(ids), fresh, aidx)
         dst = self._ids(slot_ids, torch.long)
         cache = session.cache
         for layer in range(self.config.num_layers):
@@ -500,7 +630,8 @@ class CausalLM:
 
     def _insert_paged(self, session: DecodeSession, slot_ids: np.ndarray,
                       prompt_ids: np.ndarray, lengths: np.ndarray, reserve_tokens,
-                      ns: Optional[Sequence[Optional[str]]] = None) -> torch.Tensor:
+                      ns: Optional[Sequence[Optional[str]]] = None,
+                      aidx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Paged admission: per-row prefix lookup and page allocation on the
         host, then one suffix-width prefill that writes the pool in place
         through the rows' block tables. Raises :class:`PagePoolExhausted`
@@ -531,7 +662,7 @@ class CausalLM:
         tables = np.stack([pkv.table_for(int(slot_ids[i]), plans[i]) for i in range(rows)])
         view = session.cache.rows(self._ids(starts), self._ids(tables))
         try:
-            logits = self._forward(self._ids(ids), view)
+            logits = self._forward(self._ids(ids), view, aidx)
         except Exception:
             for p in plans:
                 pkv.rollback(p)
@@ -550,7 +681,7 @@ class CausalLM:
 
     def extend(self, session: DecodeSession, slot_ids, chunk_ids: np.ndarray,
                lengths: np.ndarray, starts: np.ndarray,
-               tables: Optional[np.ndarray] = None) -> torch.Tensor:
+               tables: Optional[np.ndarray] = None, adapter_slots=None) -> torch.Tensor:
         """Chunked-prefill extension (JAX ``causal_lm.py:1121``): write
         ``lengths[i]`` prompt tokens of row i at positions ``starts[i] ..
         starts[i] + lengths[i]``, attending over what the slot holds below
@@ -569,7 +700,8 @@ class CausalLM:
         ``_chunk_extend_programs``, ``:1054``). Either way the slot's
         ``cache_index`` becomes ``starts + lengths``, so an idle row's
         decode writes land at or past what the chunks have covered. Runs
-        eagerly; it rebinds nothing a captured block reads."""
+        eagerly; it rebinds nothing a captured block reads. The chunk runs
+        under the rows' ``adapter_slots`` (the KV it writes is theirs)."""
         self._check_session(session)
         slot_ids = np.asarray(slot_ids, np.int32)
         self._check_slots(slot_ids)
@@ -589,16 +721,17 @@ class CausalLM:
         ids[:, :s] = chunk_ids
         dst = self._ids(slot_ids, torch.long)
         cache = session.cache
+        aidx = self._adapter_rows(adapter_slots, rows)
         if self.paged:
             if tables is None:
                 raise ValueError("paged extend needs per-row block tables")
             logits = self._forward(self._ids(ids), cache.rows(self._ids(starts),
-                                                              self._ids(tables)))
+                                                              self._ids(tables)), aidx)
         else:
             view = cache.rows(self._ids(starts))
             view.keys = [t.index_select(0, dst) for t in cache.keys]
             view.values = [t.index_select(0, dst) for t in cache.values]
-            logits = self._forward(self._ids(ids), view)
+            logits = self._forward(self._ids(ids), view, aidx)
             for layer in range(self.config.num_layers):
                 cache.keys[layer].index_copy_(0, dst, view.keys[layer])
                 cache.values[layer].index_copy_(0, dst, view.values[layer])
@@ -612,7 +745,8 @@ class CausalLM:
         harmlessly); ``tok`` (max_batch, 1) int32 on the device."""
         self._check_session(session)
         session.slots.sync()
-        logits = self._forward(tok, session.cache)
+        logits = self._forward(tok, session.cache,
+                               session.slots.dev_field("adapter") if self.lora else None)
         session.lengths += 1
         return logits[:, 0]
 

@@ -58,8 +58,21 @@ function of its logits and ``(seed, r, t)`` alone, so a resumed greedy
 stream is the uninterrupted one. A :class:`~.simlm.SimCausalLM` runs the
 same scheduler with no device work.
 
-Still to port (ROADMAP A5, A8): parking, disaggregation, the router,
-grammars, adapters, and the router's ``extract_*``/``load_summary`` seams.
+Tenants (JAX ``engine.py:715-760``): on a ``CausalLM`` built with
+``lora_rank``, ``register_adapter`` and ``submit(adapter=)`` serve each
+request under its own LoRA adapter out of the session's adapter pool; with
+``grammar_slots``, ``register_grammar`` and ``submit(grammar=)`` constrain
+its stream to a regex or JSON schema. Admission pins the request's adapter
+and grammar (a full pool sheds it with ``adapter_pool_exhausted`` or
+``grammar_pool_exhausted``, an injected load fault requeues it), the
+radix prefix index is namespaced by adapter, every first-token draw and
+every step of the decode block masks a constrained row to its grammar,
+and retirement unpins. The host follows each constrained stream's DFA
+state from the tokens it receives (``finish_reason="grammar_accept"`` on
+an accept-terminal landing), so a block stays one replay and one fetch.
+
+Still to port (ROADMAP A5, A8): parking, disaggregation, the router and
+the router's ``extract_*``/``load_summary`` seams.
 """
 
 from __future__ import annotations
@@ -74,12 +87,21 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from neuronx_distributed_tpu_torch.inference.adapters import (
+    AdapterLoadError,
+    AdapterPoolExhausted,
+)
 from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
 from neuronx_distributed_tpu_torch.inference.faults import (
     DispatchFailed,
     FaultInjector,
     FaultPlan,
     TransientDispatchError,
+)
+from neuronx_distributed_tpu_torch.inference.grammar import (
+    GrammarLoadError,
+    GrammarPoolExhausted,
+    grammar_allowed,
 )
 from neuronx_distributed_tpu_torch.inference.paged_cache import ChunkedPrefill, PagePoolExhausted
 from neuronx_distributed_tpu_torch.inference.schedq import AdmissionQueue, shed_deadline_key
@@ -120,6 +142,10 @@ class Request:
     ttft_deadline_block: Optional[int] = None
     deadline_block: Optional[int] = None
     tenant: str = "default"
+    # the registered adapter its tokens are drawn under (None: the base
+    # model) and the registered grammar its stream must match (None: free)
+    adapter: Optional[str] = None
+    grammar: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -139,15 +165,20 @@ class Completion:
     expired: bool = False
     deadline_missed: bool = False
     tenant: str = "default"
-    finish_reason: str = "budget"   # "eos" | "budget" | "expired" | "cancelled"
+    adapter: Optional[str] = None
+    grammar: Optional[str] = None
+    # "eos" | "budget" | "grammar_accept" (the DFA landed in an
+    # accept-terminal state) | "expired" | "cancelled"
+    finish_reason: str = "budget"
 
 
 @dataclasses.dataclass
 class Rejected:
     """A shed request (JAX ``engine.py:215``): the bounded queue refused it.
     ``retry_after_blocks`` estimates when a resubmission (a new request id)
-    has a fresh chance; ``reason`` is ``"queue_full"`` or
-    ``"pool_exhausted"``."""
+    has a fresh chance; ``reason`` is ``"queue_full"``,
+    ``"pool_exhausted"``, ``"adapter_pool_exhausted"`` or
+    ``"grammar_pool_exhausted"``."""
 
     request_id: int
     retry_after_blocks: int
@@ -236,7 +267,12 @@ class ServeEngine:
     the pipeline fetched). ``keep_completions=False`` keeps no
     :class:`Completion`: finished streams fold into ``completed_count``,
     ``generated_tokens``, ``ontime_tokens``, ``deadline_misses``,
-    ``queue_blocks_sum`` and ``ttft_blocks_sum``."""
+    ``queue_blocks_sum`` and ``ttft_blocks_sum``.
+
+    Tenants: ``adapter_rejects``/``grammar_rejects`` (admissions shed on a
+    full pool) and ``adapter_load_retries``/``grammar_load_retries``
+    (admissions requeued on a load fault); the pools' own counters live on
+    ``session.adapters`` and ``session.grammars``."""
 
     def __init__(self, lm: CausalLM, block_steps: int = 8, fused: bool = True,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
@@ -309,6 +345,13 @@ class ServeEngine:
         self.lane = str(name) if name else "engine"
         self.tracer = tracer if tracer is not None else Tracer(enabled=bool(trace))
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        for pool, hook in ((getattr(self.session, "adapters", None), "on_adapter_acquire"),
+                           (getattr(self.session, "grammars", None), "on_grammar_acquire")):
+            if pool is not None:
+                pool.attach_observability(self.tracer, self.metrics,
+                                          block_fn=lambda: self.blocks)
+                if self._injector is not None:
+                    pool.fault_hook = getattr(self._injector, hook)
         self._m_ttft = self.metrics.histogram("serve_ttft_ms",
                                               help="wall submit->first-token latency")
         self._m_itl = self.metrics.histogram("serve_itl_ms",
@@ -340,6 +383,19 @@ class ServeEngine:
         self._tok = np.zeros((b,), np.int32)
         self._gen_counts = np.zeros((b,), np.int32)
         self._keys = np.zeros((b, 2), np.int32)
+        # tenancy mirrors: each slot's adapter-pool and grammar-pool slot,
+        # DFA state and token budget; by request id, the pins held and each
+        # constrained stream's DFA state (the host's walk of the tokens it
+        # received, which may arrive after its slot retired)
+        self.lora = bool(getattr(lm, "lora", False))
+        self.grammar = bool(getattr(lm, "grammar", False))
+        self._adapter_idx = np.zeros((b,), np.int32)
+        self._gidx = np.zeros((b,), np.int32)
+        self._gstate = np.zeros((b,), np.int32)
+        self._gbudget = np.zeros((b,), np.int32)
+        self._adapter_pins: Dict[int, str] = {}
+        self._grammar_pins: Dict[int, str] = {}
+        self._dfa: Dict[int, int] = {}
         self._staged: set = set()
         self._prefilling: Dict[int, _PrefillInFlight] = {}
         self._prefill_q: deque = deque()
@@ -370,6 +426,10 @@ class ServeEngine:
         self.tier_h2d_copies = 0
         self.tier_blocking_spills = 0
         self.recovery_fetches = 0
+        self.adapter_rejects = 0
+        self.adapter_load_retries = 0
+        self.grammar_rejects = 0
+        self.grammar_load_retries = 0
         # the streaming report's aggregates (every finished stream)
         self.completed_count = 0
         self.generated_tokens = 0
@@ -409,6 +469,44 @@ class ServeEngine:
 
     # --- submission ------------------------------------------------------
 
+    def register_adapter(self, name: str, lora_params, lora_config) -> None:
+        """Register ``name``'s LoRA weights (a port ``init_lora`` tree and
+        its ``LoraConfig``) with the session's adapter pool: host only; the
+        adapter loads at the first admission that pins it."""
+        if not self.lora:
+            raise ValueError("register_adapter requires a CausalLM built with lora_rank")
+        self.session.adapters.register(name, lora_params, lora_config)
+
+    def register_grammar(self, name: str, regex: Optional[str] = None,
+                         json_schema: Optional[dict] = None) -> None:
+        """Compile and register a grammar with the session's grammar pool
+        (host only; its tables load at the first admission that pins them).
+        A bad pattern raises ``GrammarCompileError`` here."""
+        if not self.grammar:
+            raise ValueError("register_grammar requires a CausalLM built with grammar_slots")
+        self.session.grammars.register(name, regex=regex, json_schema=json_schema)
+
+    def _validate_tenancy(self, adapter: Optional[str], grammar: Optional[str],
+                          max_new_tokens: int) -> None:
+        """JAX ``engine.py:770-815``: a known adapter and grammar, and a
+        budget that lets the grammar reach an accept state."""
+        if adapter is not None:
+            if not self.lora:
+                raise ValueError("submit(adapter=) requires a CausalLM built with lora_rank")
+            if not self.session.adapters.registered(adapter):
+                raise ValueError(f"unknown adapter {adapter!r} (register_adapter first)")
+        if grammar is not None:
+            if not self.grammar:
+                raise ValueError("submit(grammar=) requires a CausalLM built with grammar_slots")
+            pool = self.session.grammars
+            if not pool.registered(grammar):
+                raise ValueError(f"unknown grammar {grammar!r} (register_grammar first)")
+            need = pool.min_tokens(grammar)
+            if max_new_tokens < need:
+                raise ValueError(f"grammar {grammar!r} needs at least {need} tokens to reach an "
+                                 f"accept state; max_new_tokens {max_new_tokens} could never "
+                                 f"parse")
+
     def _reserve_slack(self, may_end_on_eos: bool = True) -> int:
         """Decode-overrun page reserve (JAX ``engine.py:1279-1289``): a
         finished row writes at most ``block_steps - 1`` positions past its
@@ -425,7 +523,8 @@ class ServeEngine:
     def submit(self, prompt, max_new_tokens: int, sampler: Optional[Sampler] = None,
                eos_token_id: Optional[int] = None, arrival_block: int = 0,
                ttft_deadline_ms: Optional[float] = None, deadline_ms: Optional[float] = None,
-               tenant: str = "default",
+               tenant: str = "default", adapter: Optional[str] = None,
+               grammar: Optional[str] = None,
                request_id: Optional[int] = None) -> Union[int, Rejected]:
         """Queue a request; returns its id, or the :class:`Rejected` verdict
         when the bounded queue sheds it on arrival (JAX ``engine.py:860``).
@@ -433,7 +532,8 @@ class ServeEngine:
         chunked. ``ttft_deadline_ms`` and ``deadline_ms`` are budgets from
         the arrival block for the first token and the whole stream, turned
         into blocks at ``block_time_ms``; ``tenant`` is a label the
-        completion carries."""
+        completion carries; ``adapter`` and ``grammar`` name a registered
+        adapter and grammar."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -460,6 +560,7 @@ class ServeEngine:
                              f"differ from the engine's {self.slot_sampler.top_k}/"
                              f"{self.slot_sampler.top_p}")
         greedy = bool(sampler.greedy or sampler.temperature == 0.0)
+        self._validate_tenancy(adapter, grammar, int(max_new_tokens))
         rid = self._next_id if request_id is None else int(request_id)
         req = Request(request_id=rid, prompt=prompt, max_new_tokens=int(max_new_tokens),
                       eos_token_id=eos_token_id,
@@ -470,7 +571,7 @@ class ServeEngine:
                                                                "ttft_deadline_ms"),
                       deadline_block=self._deadline_block(arrival_block, deadline_ms,
                                                           "deadline_ms"),
-                      tenant=str(tenant))
+                      tenant=str(tenant), adapter=adapter, grammar=grammar)
         self._next_id = max(self._next_id, rid + 1)
         now = time.perf_counter()
         self._submit_ts[rid] = now
@@ -481,7 +582,7 @@ class ServeEngine:
                       "arrival_block": req.arrival_block,
                       "ttft_deadline_block": req.ttft_deadline_block,
                       "deadline_block": req.deadline_block, "tenant": req.tenant,
-                      "engine": self.lane})
+                      "adapter": req.adapter, "grammar": req.grammar, "engine": self.lane})
         # an arrived request into a full backlog is shed now; a future
         # arrival is shed, if at all, at the block it arrives in
         # (_shed_overflow). Free slots extend the bound only where the page
@@ -504,7 +605,9 @@ class ServeEngine:
         (``finish_reason="cancelled"``; the pipelined loop first drains,
         and a stream the drain finishes completes normally). Returns False
         when the id is unknown or already completed."""
-        if self.queue.remove(request_id) is not None:
+        queued = self.queue.remove(request_id)
+        if queued is not None:
+            self._release_pins(queued)
             self._submit_ts.pop(request_id, None)
             self.cancelled += 1
             self._trace_req("cancel", request_id, state="queued")
@@ -527,12 +630,15 @@ class ServeEngine:
                                      else self.blocks) - req.arrival_block, 0),
                     submit_ts=self._submit_ts.pop(request_id, None), cancelled=True,
                     deadline_missed=self._missed(req), tenant=req.tenant,
+                    adapter=req.adapter, grammar=req.grammar,
                     finish_reason="cancelled"), self.blocks)
+                self._release_pins(req)
                 self.cancelled += 1
                 return True
         for slot, st in list(self._prefilling.items()):
             if st.req.request_id == request_id:
                 self._abort_prefill(slot, requeue=False)
+                self._release_pins(st.req)
                 self._submit_ts.pop(request_id, None)
                 self.cancelled += 1
                 self._trace_req("cancel", request_id, state="prefill")
@@ -669,6 +775,7 @@ class ServeEngine:
                        reason="pool_exhausted" if pool_bound else "queue_full")
         self.rejected.append(rej)
         self._submit_ts.pop(victim.request_id, None)
+        self._release_pins(victim)
         self._trace_req("shed", victim.request_id, policy=self.shed_policy, reason=rej.reason,
                         retry_after_blocks=rej.retry_after_blocks, queue_depth=rej.queue_depth,
                         evicted=victim is not req)
@@ -699,6 +806,7 @@ class ServeEngine:
                                           retry_after_blocks=self._retry_after(),
                                           queue_depth=arrived - 1))
             self._submit_ts.pop(victim.request_id, None)
+            self._release_pins(victim)
             self._trace_req("shed", victim.request_id, policy=self.shed_policy,
                             at="block_boundary", queue_depth=arrived - 1, evicted=evicted)
 
@@ -712,7 +820,9 @@ class ServeEngine:
             request_id=rid, tokens=np.zeros((0,), np.int64), prompt_len=req.prompt.size,
             queue_blocks=waited, decode_blocks=0, ttft_blocks=waited,
             token_ts=np.zeros((0,), np.float64), submit_ts=self._submit_ts.pop(rid, None),
-            expired=True, deadline_missed=True, tenant=req.tenant, finish_reason="expired"))
+            expired=True, deadline_missed=True, tenant=req.tenant, adapter=req.adapter,
+            grammar=req.grammar, finish_reason="expired"))
+        self._release_pins(req)
         self.expired += 1
 
     def _expire_queued(self) -> None:
@@ -835,6 +945,13 @@ class ServeEngine:
                 if pkv.tier is not None:
                     self.tracer.counter("tier_pages", ("cache", "tier"), pkv.tier_pages(),
                                         block=self.blocks)
+        if self.tracer.enabled:   # resident adapters and grammars (JAX engine.py:3490)
+            if self.lora:
+                self.tracer.counter("adapter_pool_pages", ("cache", "adapter"),
+                                    self.session.adapters.in_use(), block=self.blocks)
+            if self.grammar:
+                self.tracer.counter("grammar_pool_slots", ("cache", "grammar"),
+                                    self.session.grammars.in_use(), block=self.blocks)
 
     def request_timeline(self, request_id: int) -> List[dict]:
         """The request's recorded lifecycle, oldest first (JAX
@@ -854,14 +971,30 @@ class ServeEngine:
         return out
 
     def _draw(self, logits: torch.Tensor, keys: np.ndarray, counts, temps: np.ndarray,
-              greedy: np.ndarray) -> torch.Tensor:
-        """Rows' tokens under their keys at their token counters, then one
-        flag a row (1 where its logits are all finite), as one int32 tensor
-        ``(2 * rows,)`` on the device: the fused block's sampling math."""
+              greedy: np.ndarray, allowed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Rows' tokens under their keys at their token counters (within
+        ``allowed`` when given), then one flag a row (1 where its logits are
+        all finite), as one int32 tensor ``(2 * rows,)`` on the device: the
+        fused block's sampling math."""
         h2d = self.lm._ids
         tok = draw_rows(logits, h2d(keys[:, 0]), h2d(keys[:, 1]), h2d(counts),
-                        h2d(temps, torch.float32), h2d(greedy, torch.bool), self.slot_sampler)
+                        h2d(temps, torch.float32), h2d(greedy, torch.bool), self.slot_sampler,
+                        allowed)
         return torch.cat([tok, torch.isfinite(logits).all(-1).to(torch.int32)])
+
+    def _first_allowed(self, reqs: Sequence[Request], gstates,
+                       counts) -> Optional[torch.Tensor]:
+        """The budget-aware mask of a first-token draw (insert, final chunk,
+        replay) for requests at DFA states ``gstates`` and token counters
+        ``counts``: the block's :func:`grammar_allowed` on the device
+        tables (JAX builds the same boolean on the host, ``:1202``). None
+        when no request is constrained."""
+        if not self.grammar or all(r.grammar is None for r in reqs):
+            return None
+        h2d = self.lm._ids
+        return grammar_allowed(self.session.grammars.tables,
+                               h2d([self._grammar_slot(r) for r in reqs]), h2d(gstates),
+                               h2d([r.max_new_tokens for r in reqs]), h2d(counts))
 
     def _sim_draw(self, rids: Sequence[int], counts: Sequence[int]) -> torch.Tensor:
         """:meth:`_draw`'s layout from the sim token function (every row
@@ -896,17 +1029,24 @@ class ServeEngine:
         ``engine.py:1685-1754``): a long prompt takes the chunked path
         alone; otherwise the head request's bucket defines a group, which
         grows until a request of another bucket or a long one; each group
-        is one right-sized insert."""
+        is one right-sized insert. Each request pins its adapter and its
+        grammar first (keyed on (tenant, adapter)): one that cannot is shed
+        or requeued and sits out the rest of this round, while its group
+        mates still ride the insert."""
+        deferred: set = set()
         while True:
             free = self._free_slots()
             if not free:
                 return
-            order = self.queue.peek_edf(self.blocks, (), len(free))
+            order = self.queue.peek_edf(self.blocks, deferred, len(free))
             if not order:
                 return
             head = order[0]
             if self._is_chunked(head):
                 self.queue.remove(head.request_id)
+                if not (self._acquire(head, "adapter") and self._acquire(head, "grammar")):
+                    deferred.add(head.request_id)
+                    continue
                 self._begin_chunked(head, free[0])
                 continue
             bucket = self.lm._bucket_for(head.prompt.size)
@@ -917,6 +1057,15 @@ class ServeEngine:
                 group.append(r)
             for r in group:
                 self.queue.remove(r.request_id)
+            admitted = []
+            for r in group:
+                if self._acquire(r, "adapter") and self._acquire(r, "grammar"):
+                    admitted.append(r)
+                else:
+                    deferred.add(r.request_id)
+            group = admitted
+            if not group:
+                continue
             try:
                 self._insert_group(group, free[: len(group)])
             except PagePoolExhausted:
@@ -930,6 +1079,87 @@ class ServeEngine:
                     self.queue.appendleft(group[0])
                     self._note_pool_pressure(group[:1])
                     return
+
+    # --- tenancy: adapter and grammar pins ------------------------------
+
+    def _acquire(self, req: Request, kind: str) -> bool:
+        """Load and pin ``req``'s adapter or grammar (``kind``) at admission
+        (JAX ``engine.py:1039``, ``:1107``); True when it needs none or
+        holds its pin. False means it does not admit this round: a full
+        pool sheds it (``Rejected(reason="<kind>_pool_exhausted")``, its
+        other pin released), a load fault requeues it at the head."""
+        name = getattr(req, kind)
+        pins = self._adapter_pins if kind == "adapter" else self._grammar_pins
+        if name is None or not getattr(self, "lora" if kind == "adapter" else "grammar"):
+            return True
+        if req.request_id in pins:
+            return True
+        pool = self.session.adapters if kind == "adapter" else self.session.grammars
+        exhausted = AdapterPoolExhausted if kind == "adapter" else GrammarPoolExhausted
+        load_error = AdapterLoadError if kind == "adapter" else GrammarLoadError
+        loads_before = pool.loads
+        try:
+            slot = pool.acquire(name)
+        except exhausted:
+            rej = Rejected(request_id=req.request_id, retry_after_blocks=self._pool_retry_after(),
+                           queue_depth=self.queue.arrived_count(self.blocks),
+                           reason=f"{kind}_pool_exhausted")
+            self.rejected.append(rej)
+            setattr(self, f"{kind}_rejects", getattr(self, f"{kind}_rejects") + 1)
+            self._submit_ts.pop(req.request_id, None)
+            self._release_pins(req)
+            self._trace_req("shed", req.request_id, reason=rej.reason, **{kind: name},
+                            retry_after_blocks=rej.retry_after_blocks)
+            return False
+        except load_error as e:
+            setattr(self, f"{kind}_load_retries", getattr(self, f"{kind}_load_retries") + 1)
+            self._trace_req(f"{kind}_defer", req.request_id, **{kind: name}, error=str(e))
+            self.queue.appendleft(req)
+            return False
+        pins[req.request_id] = name
+        self._trace_req(f"{kind}_load", req.request_id, **{kind: name}, slot=int(slot),
+                        cold=pool.loads > loads_before)
+        return True
+
+    def _adapter_slot(self, req: Request) -> int:
+        if req.adapter is None or not self.lora:
+            return 0
+        return self.session.adapters.slot_of(req.adapter)
+
+    def _grammar_slot(self, req: Request) -> int:
+        if req.grammar is None or not self.grammar:
+            return 0
+        return self.session.grammars.slot_of(req.grammar)
+
+    def _release_pins(self, req: Request) -> None:
+        """Drop ``req``'s adapter and grammar pins (they stay resident)."""
+        name = self._adapter_pins.pop(req.request_id, None)
+        if name is not None:
+            self.session.adapters.release(name)
+        name = self._grammar_pins.pop(req.request_id, None)
+        if name is not None:
+            self.session.grammars.release(name)
+
+    def _set_tenancy(self, slot: int, req: Optional[Request], gstate: int = 0) -> None:
+        """The slot's tenancy mirrors for ``req`` (None: an idle slot), and
+        the DFA state its stream's walk starts from."""
+        self._adapter_idx[slot] = 0 if req is None else self._adapter_slot(req)
+        self._gidx[slot] = 0 if req is None else self._grammar_slot(req)
+        self._gstate[slot] = gstate
+        self._gbudget[slot] = 0 if req is None else req.max_new_tokens
+        if req is not None and self._gidx[slot]:
+            self._dfa[req.request_id] = gstate
+
+    def _grammar_walk(self, name: str, state: int, tokens: Sequence[int]) -> int:
+        """The DFA state after ``tokens`` (a resumed stream's, JAX
+        ``engine.py:1166``)."""
+        dfa = self.session.grammars.grammar(name)
+        for t in tokens:
+            state = dfa.walk(state, int(t))
+            if state < 0:
+                raise ValueError(f"delivered token {int(t)} violates grammar {name!r}: the "
+                                 f"recovery record is corrupt")
+        return state
 
     def _start_stream(self, slot: int, req: Request, temp: float, greedy: bool,
                       tok: Optional[int], first_idx: Optional[int], now: float,
@@ -950,6 +1180,7 @@ class ServeEngine:
         self._temp[slot] = temp
         self._greedy[slot] = greedy
         self._gen_counts[slot] = 1
+        self._set_tenancy(slot, req)
         self._staged.add(slot)
         if tok is None:
             self._tok[slot] = 0
@@ -987,10 +1218,15 @@ class ServeEngine:
             lens[i] = r.prompt.size
         reserve = np.asarray([r.max_new_tokens + self._reserve_slack(r.eos_token_id is not None)
                               for r in group], np.int64)
+        aslots = (np.asarray([self._adapter_slot(r) for r in group], np.int32)
+                  if self.lora else None)
         tier_before = self._tier_marker()
+        # prefix KV is a function of (tokens, adapter): the radix walk is
+        # namespaced by adapter (JAX engine.py:1808)
         logits = self._dispatch("insert", lambda: self.lm.insert(
             self.session, np.asarray(slot_ids, np.int32), ids, lengths=lens,
-            pad_token_id=self.pad_token_id, reserve_tokens=reserve if self.paged else None))
+            pad_token_id=self.pad_token_id, reserve_tokens=reserve if self.paged else None,
+            ns=[r.adapter for r in group] if self.paged else None, adapter_slots=aslots))
         self._note_tier_restore(group, tier_before)
         self.inserts += 1
         self.inserted_requests += rows
@@ -1002,7 +1238,9 @@ class ServeEngine:
         else:
             keys = np.asarray([split_key(request_seed(self.seed, r.request_id))
                                for r in group], np.int32)
-            drawn = self._draw(logits, keys, np.zeros((rows,), np.int32), temps, greedy)
+            zero = np.zeros((rows,), np.int32)
+            drawn = self._draw(logits, keys, zero, temps, greedy,
+                               self._first_allowed(group, zero, zero))
         first, i0 = self._first_tokens(drawn, rows)
         now = time.perf_counter()
         for i, (r, slot) in enumerate(zip(group, slot_ids)):
@@ -1024,7 +1262,7 @@ class ServeEngine:
             reserve = req.max_new_tokens + self._reserve_slack(req.eos_token_id is not None)
             tier_before = self._tier_marker()
             chunk = self.session.paged.begin_chunked(req.prompt.tolist(),
-                                                     req.prompt.size + reserve)
+                                                     req.prompt.size + reserve, ns=req.adapter)
             written = chunk.start
             self._note_tier_restore([req], tier_before)
         req.start_block = self.blocks
@@ -1034,6 +1272,8 @@ class ServeEngine:
         self.slots[slot] = req
         self._active[slot] = False
         self._done[slot] = False
+        # the chunks prefill under the request's adapter: their KV is its
+        self._adapter_idx[slot] = self._adapter_slot(req)
         self._prefilling[slot] = _PrefillInFlight(req=req, slot=slot, written=written,
                                                   chunk=chunk)
         self._prefill_q.append(slot)
@@ -1062,8 +1302,10 @@ class ServeEngine:
                     return
                 tables = pkv.chunk_table(slot, st.chunk)[None]
             ids = req.prompt[st.written: st.written + n][None]
+            aslots = [self._adapter_idx[slot]] if self.lora else None
             logits = self._dispatch("extend", lambda: self.lm.extend(
-                self.session, [slot], ids, [n], [st.written], tables=tables))
+                self.session, [slot], ids, [n], [st.written], tables=tables,
+                adapter_slots=aslots))
             self.chunk_program_calls += 1
             self.prefill_chunk_tokens_done += n
             st.written += n
@@ -1089,9 +1331,9 @@ class ServeEngine:
             drawn = self._sim_draw([req.request_id], [0])
         else:
             key = np.asarray([split_key(request_seed(self.seed, req.request_id))], np.int32)
-            drawn = self._draw(logits, key, np.zeros((1,), np.int32),
-                               np.asarray([req.temperature], np.float32),
-                               np.asarray([req.greedy]))
+            zero = np.zeros((1,), np.int32)
+            drawn = self._draw(logits, key, zero, np.asarray([req.temperature], np.float32),
+                               np.asarray([req.greedy]), self._first_allowed([req], zero, zero))
         first, i0 = self._first_tokens(drawn, 1)
         self._start_stream(slot, req, req.temperature, req.greedy,
                            None if first is None else int(first[0]), i0, time.perf_counter(),
@@ -1107,6 +1349,7 @@ class ServeEngine:
             self.session.paged.abort_chunked(slot, st.chunk)
         self.slots[slot] = None
         self._active[slot] = False
+        self._set_tenancy(slot, None)
         self.session.lengths[slot] = 0
         self.session.active[slot] = False
         self._staged.add(slot)
@@ -1119,11 +1362,14 @@ class ServeEngine:
 
     # --- emissions and retirement ----------------------------------------
 
-    def _deliver(self, req: Request, token: int, ts: float, block: int) -> bool:
+    def _deliver(self, req: Request, token: int, ts: float, block: int,
+                 slot: Optional[int] = None) -> bool:
         """Append one emitted token to ``req``'s stream unless it already
         ended (a ``tok`` mark stamped with the ``block`` that emitted it,
         and the gap since the last delivery into ``serve_itl_ms``); returns
-        whether the stream has ended (EOS or budget)."""
+        whether the stream has ended (EOS, budget, or an accept-terminal
+        state of its grammar). A constrained stream's DFA state in its
+        ``slot`` follows the token (JAX ``engine.py:1179``)."""
         rid = req.request_id
         if rid in self._ended or rid not in self._out:
             return True
@@ -1143,6 +1389,18 @@ class ServeEngine:
         if len(out) >= req.max_new_tokens:
             self._ended.add(rid)
             self._finish_reason.setdefault(rid, "budget")
+        if rid in self._dfa:
+            dfa = self.session.grammars.grammar(req.grammar)
+            nxt = dfa.walk(self._dfa[rid], token)
+            # a forbidden token (never drawn for a live row) keeps the state
+            if nxt >= 0:
+                self._dfa[rid] = nxt
+                if slot is not None and self.slots[slot] is req:
+                    self._gstate[slot] = nxt
+                if dfa.terminal[nxt]:
+                    self._ended.add(rid)
+                    if self._finish_reason.get(rid) != "eos":
+                        self._finish_reason[rid] = "grammar_accept"
         return rid in self._ended
 
     def _record(self, slot: int, token: int, ts: float, req: Optional[Request] = None,
@@ -1152,7 +1410,8 @@ class ServeEngine:
         slot's done when the stream ended."""
         req = self.slots[slot] if req is None else req
         block = self.blocks if block is None else block
-        if req is not None and self._deliver(req, token, ts, block) and self.slots[slot] is req:
+        if req is not None and self._deliver(req, token, ts, block, slot) \
+                and self.slots[slot] is req:
             self._done[slot] = True
 
     def _awaiting(self, rid: int) -> bool:
@@ -1178,10 +1437,15 @@ class ServeEngine:
                 ttft_blocks=max(req.first_token_block - req.arrival_block, 0),
                 submit_ts=self._submit_ts.pop(rid, None), cancelled=reason == "cancelled",
                 expired=expired, deadline_missed=expired or self._missed(req),
-                tenant=req.tenant, finish_reason=reason or "")
+                tenant=req.tenant, adapter=req.adapter, grammar=req.grammar,
+                finish_reason=reason or "")
+            # unpinned at the slot's release, in either loop (the adapter
+            # and grammar stay resident)
+            self._release_pins(req)
             self.slots[slot] = None
             self._active[slot] = False
             self._done[slot] = False
+            self._set_tenancy(slot, None)
             self._tok_from.pop(slot, None)
             self._staged.add(slot)
             if reason is None and self._awaiting(rid):
@@ -1193,6 +1457,7 @@ class ServeEngine:
         """Fill in ``comp``'s tokens and hand it out, with a ``retire``,
         ``expire`` or ``cancel`` mark stamped with the retiring ``block``."""
         rid = comp.request_id
+        self._dfa.pop(rid, None)
         comp.tokens = np.asarray(self._out.pop(rid), np.int64)
         comp.token_ts = np.asarray(self._out_ts.pop(rid), np.float64)
         self._last_tok_ts.pop(rid, None)
@@ -1274,6 +1539,17 @@ class ServeEngine:
                 self.deferred_admissions += 1
                 self._note_pool_pressure(())
                 return
+            except (AdapterPoolExhausted, GrammarPoolExhausted):
+                # a stream the client is consuming is never shed: it waits
+                # for a pin to come back (JAX engine.py:2097)
+                self.deferred_admissions += 1
+                return
+            except (AdapterLoadError, GrammarLoadError) as e:
+                kind = "adapter" if isinstance(e, AdapterLoadError) else "grammar"
+                setattr(self, f"{kind}_load_retries", getattr(self, f"{kind}_load_retries") + 1)
+                self._trace_req(f"{kind}_defer", req.request_id,
+                                **{kind: getattr(req, kind)}, state="replay")
+                return
             self._replay_q.popleft()
             self._replay_tokens -= req.max_new_tokens
 
@@ -1287,6 +1563,16 @@ class ServeEngine:
         admission whole; the request stays queued for replay."""
         if self.async_loop:
             self._flush(recovery=True)
+        # re-pin the stream's adapter and grammar before any page work (they
+        # may have been evicted meanwhile); a full pool or a load fault
+        # defers the replay (_drain_replays), never a wrong adapter
+        for kind, pins in (("adapter", self._adapter_pins), ("grammar", self._grammar_pins)):
+            name = getattr(req, kind)
+            if name is not None and getattr(self, "lora" if kind == "adapter" else "grammar") \
+                    and req.request_id not in pins:
+                getattr(self.session, kind + "s").acquire(name)
+                pins[req.request_id] = name
+        aslot = self._adapter_slot(req)
         g = len(pregen)
         seq = (np.concatenate([req.prompt, np.asarray(pregen, np.int32)]) if g
                else np.asarray(req.prompt, np.int32))
@@ -1297,7 +1583,8 @@ class ServeEngine:
         if pkv is not None:
             tier_before = self._tier_marker()
             st = pkv.begin_chunked(seq.tolist(), total + (req.max_new_tokens - g)
-                                   + self._reserve_slack(req.eos_token_id is not None))
+                                   + self._reserve_slack(req.eos_token_id is not None),
+                                   ns=req.adapter)
             written = st.start
             self._note_tier_restore([req], tier_before)
         logits = None
@@ -1310,7 +1597,8 @@ class ServeEngine:
                     tables = pkv.chunk_table(slot, st)[None]
                 ids, w = seq[written: written + n][None], written
                 logits = self._dispatch("extend", lambda: self.lm.extend(
-                    self.session, [slot], ids, [n], [w], tables=tables))
+                    self.session, [slot], ids, [n], [w], tables=tables,
+                    adapter_slots=[aslot] if self.lora else None))
                 written += n
         except BaseException:
             if pkv is not None:
@@ -1323,13 +1611,18 @@ class ServeEngine:
             pkv.finish_chunked(slot, st)
         self.session.active[slot] = True
         rid = req.request_id
+        # a resumed constrained stream's DFA state is a function of the
+        # tokens it delivered: walk them, then mask token g as the
+        # uninterrupted run would have
+        rstate = (self._grammar_walk(req.grammar, 0, pregen)
+                  if self.grammar and req.grammar is not None else 0)
         if self._sim:
             tok = self.lm.sim_token(rid, g)
         else:
             key = np.asarray([split_key(request_seed(self.seed, rid))], np.int32)
             got = self._draw(logits, key, np.full((1,), g, np.int32),
-                             np.asarray([req.temperature], np.float32),
-                             np.asarray([req.greedy])).cpu().numpy()
+                             np.asarray([req.temperature], np.float32), np.asarray([req.greedy]),
+                             self._first_allowed([req], [rstate], [g])).cpu().numpy()
             self.nonfinite_logits += int(got[1] == 0)
             tok = int(got[0])
         now = time.perf_counter()
@@ -1348,6 +1641,7 @@ class ServeEngine:
         self._greedy[slot] = req.greedy
         self._tok[slot] = tok
         self._gen_counts[slot] = g + 1
+        self._set_tenancy(slot, req, rstate)
         self._staged.add(slot)
         if g == 0:
             self._observe_first_token(req, slot, now, replayed=True)
@@ -1480,6 +1774,7 @@ class ServeEngine:
             self.slots[slot] = None
             self._active[slot] = False
             self._done[slot] = False
+            self._set_tenancy(slot, None)   # its pins survive for the replay
             self._staged.add(slot)
             self._replay_q.append((req, pregen, ts))
             self._replay_tokens += req.max_new_tokens
@@ -1503,7 +1798,16 @@ class ServeEngine:
             self._retire_finished()
 
         def enc(r: Request, state: str, generated: List[int]) -> dict:
-            return {"grammar": None, "grammar_state": None,
+            # a constrained stream carries its grammar's name and its DFA
+            # state, recomputable from its tokens (and recomputed on
+            # restore)
+            gstate = None
+            if r.grammar is not None and self.grammar:
+                try:
+                    gstate = self._grammar_walk(r.grammar, 0, generated)
+                except (KeyError, ValueError):
+                    gstate = None
+            return {"grammar": r.grammar, "grammar_state": gstate,
                     "request_id": int(r.request_id), "prompt": [int(t) for t in r.prompt],
                     "max_new_tokens": int(r.max_new_tokens),
                     "eos_token_id": None if r.eos_token_id is None else int(r.eos_token_id),
@@ -1512,7 +1816,7 @@ class ServeEngine:
                     "ttft_deadline_block": r.ttft_deadline_block,
                     "deadline_block": r.deadline_block,
                     "generated": [int(t) for t in generated], "state": state,
-                    "tenant": r.tenant, "adapter": None}
+                    "tenant": r.tenant, "adapter": r.adapter}
 
         reqs = []
         for slot, r in enumerate(self.slots):
@@ -1559,7 +1863,9 @@ class ServeEngine:
             os.replace(tmp, path)
 
     @classmethod
-    def from_snapshot(cls, lm: CausalLM, snap: Union[dict, str], **overrides) -> "ServeEngine":
+    def from_snapshot(cls, lm: CausalLM, snap: Union[dict, str],
+                      adapters: Optional[dict] = None, grammars: Optional[dict] = None,
+                      **overrides) -> "ServeEngine":
         """An engine rebuilt from a :meth:`snapshot` (a dict or a file
         path; JAX ``engine.py:3296``) on a fresh session of ``lm``: queued
         and mid-prefill requests re-enter the queue with their ids and
@@ -1567,8 +1873,12 @@ class ServeEngine:
         where they stopped. ``overrides`` patch knobs (``fused=False``
         restores into the stepwise route; the streams are the same). A
         fused engine on the ``CausalLM`` that took the snapshot reuses its
-        captured decode block. Snapshots with parked conversations,
-        adapters or grammars (features not ported) are refused."""
+        captured decode block. Adapter weights and grammar tables are not in
+        a snapshot: ``adapters`` (``{name: (lora_params, lora_config)}``)
+        and ``grammars`` (``{name: {"regex": ...} | {"json_schema": ...}}``)
+        register them again, and each replay pins its own (JAX
+        ``engine.py:3334-3346``). Snapshots with parked conversations (not
+        ported) are refused."""
         if isinstance(snap, str):
             with open(snap) as f:
                 snap = json.load(f)
@@ -1577,10 +1887,6 @@ class ServeEngine:
         if snap.get("parked"):
             raise ValueError("the snapshot holds parked conversations: parking is not ported "
                              "(ROADMAP A8.5)")
-        for rd in snap["requests"]:
-            if rd.get("adapter") is not None or rd.get("grammar") is not None:
-                raise ValueError(f"request {rd['request_id']} carries an adapter or a grammar: "
-                                 f"not ported (ROADMAP A8.1, A8.2)")
         cfg = dict(snap.get("config", {}))
         cfg.pop("paged", None)   # the lm decides
         if cfg.pop("park_idle_blocks", 0) or cfg.pop("park_dir", None) is not None:
@@ -1593,9 +1899,15 @@ class ServeEngine:
             cfg.pop("async_loop", None)
         hi, lo = (int(x) for x in snap["rng"])
         eng = cls(lm, seed=(hi << 32) | lo, **cfg)
+        for name, (lp, lc) in (adapters or {}).items():
+            eng.register_adapter(name, lp, lc)
+        for name, spec in (grammars or {}).items():
+            eng.register_grammar(name, **spec)
         eng.blocks = int(snap["blocks"])
         eng._next_id = int(snap["next_id"])
         for rd in snap["requests"]:
+            eng._validate_tenancy(rd.get("adapter"), rd.get("grammar"),
+                                  int(rd["max_new_tokens"]))
             req = Request(request_id=int(rd["request_id"]),
                           prompt=np.asarray(rd["prompt"], np.int32),
                           max_new_tokens=int(rd["max_new_tokens"]),
@@ -1604,7 +1916,8 @@ class ServeEngine:
                           arrival_block=int(rd["arrival_block"]), submit_block=eng.blocks,
                           ttft_deadline_block=rd.get("ttft_deadline_block"),
                           deadline_block=rd.get("deadline_block"),
-                          tenant=rd.get("tenant", "default"))
+                          tenant=rd.get("tenant", "default"), adapter=rd.get("adapter"),
+                          grammar=rd.get("grammar"))
             if rd["state"] == "decoding":
                 eng._replay_q.append((req, [int(t) for t in rd["generated"]], []))
                 eng._replay_tokens += req.max_new_tokens
@@ -1712,7 +2025,9 @@ class ServeEngine:
                              ("key_hi", self._keys[:, 1]), ("count", self._gen_counts),
                              ("active", self._active), ("done", self._done),
                              ("eos", self._eos), ("greedy", self._greedy),
-                             ("temperature", self._temp)):
+                             ("temperature", self._temp), ("adapter", self._adapter_idx),
+                             ("grammar", self._gidx), ("gstate", self._gstate),
+                             ("budget", self._gbudget)):
             st.host_field(name)[rows] = mirror[rows]
         if self.paged:
             st.host_table[rows] = self.session.paged.tables[rows]
@@ -1740,18 +2055,38 @@ class ServeEngine:
         tok = self._tok.copy()
         max_len = self.lm.config.max_seq_len
         b = self.lm.max_batch
+        h2d = self.lm._ids
+        if self.grammar:
+            # the block's grammar math on the device (JAX engine.py:3676-3718):
+            # the DFA state rides along, terminal landings come back with
+            # each step's fetch
+            tables = self.session.grammars.tables
+            gidx, gbudget = h2d(self._gidx), h2d(self._gbudget)
+            gstate = h2d(self._gstate)
+            gactive = (self._gidx > 0) & self._active
         for i in range(K):
             # the direct decode step, not lm.step(): step() raises at the
             # cache edge where the fused block latches done and runs on
             logits = self._dispatch("decode", lambda t=tok: self.lm._decode_step(
                 self.session, self.lm._ids(t[:, None])))
             self.program_calls += 1
-            got = self._fetch(self._draw(logits, self._keys, self._gen_counts + i, self._temp,
-                                         self._greedy))
+            allowed = (grammar_allowed(tables, gidx, gstate, gbudget,
+                                       h2d(self._gen_counts + i)) if self.grammar else None)
+            drawn = self._draw(logits, self._keys, self._gen_counts + i, self._temp,
+                               self._greedy, allowed=allowed)
+            if self.grammar:
+                adv = h2d(gactive & ~done, torch.bool)
+                gstate = torch.where(adv, tables["next"][gidx.long(), gstate.long(),
+                                                         drawn[:b].long()], gstate)
+                term = adv & tables["terminal"][gidx.long(), gstate.long()]
+                drawn = torch.cat([drawn, term.to(torch.int32)])
+            got = self._fetch(drawn)
             nxt = got[:b]
-            self.nonfinite_logits += int((got[b:] == 0).sum())
+            self.nonfinite_logits += int((got[b:2 * b] == 0).sum())
             out[i] = np.where(done | ~self._active, self.pad_token_id, nxt)
             done = done | (self._active & (self._eos >= 0) & (nxt == self._eos))
+            if self.grammar:
+                done = done | (got[2 * b:] != 0)
             done = done | (self._active & (self.session.lengths + 1 >= max_len))
             tok = nxt.astype(np.int32)
         return out
@@ -1921,17 +2256,12 @@ class ServeEngine:
 
 # --- the serving report ----------------------------------------------------
 
-_NOT_PORTED_ITEM_KEYS = {"adapter": "multi-LoRA adapters (ROADMAP A8.1)",
-                         "grammar": "grammar-constrained decoding (ROADMAP A8.2)"}
-
-
 def per_tenant_report(completions: List[Completion], tok_ts: Dict[int, np.ndarray],
                       wall_s: float, rejected_tenants: Sequence[str] = ()) -> Dict[str, dict]:
-    """Per tenant (JAX ``engine.py:4388``, without the grammar column):
-    requests, generated tokens, inter-token gap p50/p99 from the delivery
-    stamps, TTFT in blocks, goodput (tokens of streams that met their
-    deadlines a wall second), and the rejected, expired and missed
-    counts."""
+    """Per tenant (JAX ``engine.py:4388``): requests, constrained requests,
+    generated tokens, inter-token gap p50/p99 from the delivery stamps,
+    TTFT in blocks, goodput (tokens of streams that met their deadlines a
+    wall second), and the rejected, expired and missed counts."""
     rej = list(rejected_tenants)
     out: Dict[str, dict] = {}
     for t in sorted({c.tenant for c in completions} | set(rej)):
@@ -1945,6 +2275,7 @@ def per_tenant_report(completions: List[Completion], tok_ts: Dict[int, np.ndarra
                      if not (c.deadline_missed or c.expired or c.cancelled))
         out[t] = {
             "requests": len(comps),
+            "constrained_requests": sum(1 for c in comps if c.grammar is not None),
             "generated_tokens": int(sum(len(c.tokens) for c in comps)),
             "itl_p50_ms": round(float(np.percentile(gaps, 50)), 3) if gaps else None,
             "itl_p99_ms": round(float(np.percentile(gaps, 99)), 3) if gaps else None,
@@ -1986,13 +2317,75 @@ def interblock_gap_report(tracer: Tracer, lanes: List[Any]) -> dict:
 def _submit_item(submit, item: dict) -> Union[int, Rejected]:
     """Submit one synthetic-trace dict through ``submit`` (JAX
     ``engine.py:4797``): the one place the item's keys are read."""
-    for key, feature in _NOT_PORTED_ITEM_KEYS.items():
-        if item.get(key) is not None:
-            raise NotImplementedError(f"trace item key {key!r} needs {feature}, not ported yet")
     return submit(item["prompt"], item["max_new_tokens"], eos_token_id=item.get("eos_token_id"),
                   arrival_block=item.get("arrival_block", 0),
                   ttft_deadline_ms=item.get("ttft_deadline_ms"),
-                  deadline_ms=item.get("deadline_ms"), tenant=item.get("tenant", "default"))
+                  deadline_ms=item.get("deadline_ms"), tenant=item.get("tenant", "default"),
+                  adapter=item.get("adapter"), grammar=item.get("grammar"))
+
+
+def _split_report(completions: List[Completion], tok_ts: Dict[int, np.ndarray]) -> dict:
+    """Requests, inter-token gap p50/p99 and mean TTFT in blocks of a set
+    of completions (the constrained / free-form split)."""
+    gaps: List[float] = []
+    for c in completions:
+        ts = tok_ts.get(c.request_id, np.zeros((0,)))
+        g = np.diff(ts) * 1e3 if ts.size > 1 else np.zeros((0,))
+        gaps.extend(g[g > 0.0].tolist())
+    return {
+        "requests": len(completions),
+        "itl_p50_ms": round(float(np.percentile(gaps, 50)), 3) if gaps else None,
+        "itl_p99_ms": round(float(np.percentile(gaps, 99)), 3) if gaps else None,
+        "ttft_blocks_mean": (round(float(np.mean([c.ttft_blocks for c in completions])), 2)
+                             if completions else None),
+    }
+
+
+def tenancy_report(engine: "ServeEngine", completions: List[Completion],
+                   tok_ts: Dict[int, np.ndarray]) -> dict:
+    """``run_trace``'s ``structured`` section and multi-LoRA keys (JAX
+    ``engine.py:4679-4741``): the constrained share and its latency beside
+    the free-form streams', finish reasons, and each pool's residency,
+    loads, evictions, hits, repairs, rejects and load retries."""
+    out: dict = {}
+    if engine.grammar:
+        gpool = engine.session.grammars
+        constrained = [c for c in completions if c.grammar is not None]
+        out["structured"] = {
+            "constrained_requests": len(constrained),
+            "constrained_share": (round(len(constrained) / len(completions), 3)
+                                  if completions else None),
+            "constrained": _split_report(constrained, tok_ts),
+            "freeform": _split_report([c for c in completions if c.grammar is None], tok_ts),
+            "finish_reasons": {r: sum(1 for c in completions if c.finish_reason == r)
+                               for r in sorted({c.finish_reason for c in completions})},
+            "grammar_slots": gpool.n_slots,
+            "grammars_resident": sorted(gpool.resident),
+            "grammar_loads": gpool.loads,
+            "grammar_evictions": gpool.evictions,
+            "grammar_hits": gpool.hits,
+            "grammar_repairs": gpool.repairs,
+            "grammar_rejects": engine.grammar_rejects,
+            "grammar_load_retries": engine.grammar_load_retries,
+            "grammar_bytes_per_slot": gpool.grammar_bytes(),
+            "grammar_compile_ms": {n: gpool.compile_ms_of(n) for n in sorted(gpool._registry)},
+        }
+    if engine.lora:
+        pool = engine.session.adapters
+        out.update({
+            "multilora": True,
+            "adapter_slots": pool.n_slots,
+            "adapters_resident": sorted(pool.resident),
+            "adapter_loads": pool.loads,
+            "adapter_evictions": pool.evictions,
+            "adapter_hits": pool.hits,
+            "adapter_repairs": pool.repairs,
+            "adapter_load_failures": pool.load_failures,
+            "adapter_rejects": engine.adapter_rejects,
+            "adapter_load_retries": engine.adapter_load_retries,
+            "adapter_bytes_per_slot": pool.adapter_bytes(),
+        })
+    return out
 
 
 def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[int] = None,
@@ -2006,6 +2399,9 @@ def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[i
     expired, evictions, deadline-miss rate over every submission, goodput:
     tokens of streams that met their deadlines), ``per_tenant`` when the
     trace labels tenants, and the page pool.
+
+    Tenants: the ``structured`` section and the multi-LoRA keys of
+    :func:`tenancy_report`.
 
     The recovery surface: ``dispatch_retries`` (launches retried),
     ``corrupt_page_replays``, ``restored_requests``, ``fault_stats`` (the
@@ -2021,8 +2417,8 @@ def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[i
     submitted when the clock reaches its arrival, and the report is built
     from the engine's counters and histograms alone.
 
-    Left out with the features they read (ROADMAP A8): parking, grammars,
-    adapters, ``tp_degree``. The port's ``host_ops_per_block`` counts its
+    Left out with the features they read (ROADMAP A8): parking and
+    ``tp_degree``. The port's ``host_ops_per_block`` counts its
     slot-state copies beside program calls and fetches (``h2d_copies``,
     also reported)."""
     if not engine.keep_completions:
@@ -2116,6 +2512,7 @@ def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[i
         report["per_tenant"] = per_tenant_report(
             completions, tok_ts, wall_s,
             [tenant_of.get(r.request_id, "default") for r in engine.rejected])
+    report.update(tenancy_report(engine, completions, tok_ts))
     if engine._injector is not None:
         report["fault_stats"] = dict(engine._injector.stats)
     if engine.paged:

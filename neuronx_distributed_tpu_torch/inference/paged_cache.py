@@ -495,6 +495,24 @@ class RadixPrefixIndex:
         scrub(self.root)
         return removed
 
+    def invalidate_tokens(self, tokens: Sequence) -> int:
+        """Drop the trie path of ``tokens`` from its first page on, subtree
+        included (JAX ``paged_cache.py:623``): device holds released, tier
+        copies dropped, tiered-only entries too. ``tokens`` is keyed as
+        :meth:`register` keys it: an adapter-namespaced stream holds
+        ``(ns, token)`` pairs (``_ns_tokens``). Returns entries removed."""
+        ps = self.page_size
+        if len(tokens) < ps:
+            return 0
+        key = tuple(t if isinstance(t, tuple) else int(t) for t in tokens[:ps])
+        child = self.root.children.get(key)
+        if child is None:
+            return 0
+        before = self.cached_pages
+        self._drop_subtree(child)
+        del self.root.children[key]
+        return before - self.cached_pages
+
     def _drop_subtree(self, node) -> int:
         """Remove ``node`` and its descendants from every account: device
         holds released, tier copies dropped, marked dead. Returns the

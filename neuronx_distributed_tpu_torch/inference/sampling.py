@@ -118,12 +118,17 @@ def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
 
 def draw_rows(logits: torch.Tensor, key_lo: torch.Tensor, key_hi: torch.Tensor,
               counts: torch.Tensor, temperature: torch.Tensor, greedy: torch.Tensor,
-              slot_sampler: "SlotSampler") -> torch.Tensor:
+              slot_sampler: "SlotSampler", allowed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Each row's token (b,) int32: the :class:`SlotSampler` draw under the
     row's :func:`counter_gumbel` noise at its token counter. The one draw
     of the fused decode block, the engine's stepwise route and
-    ``generate``."""
+    ``generate``. ``allowed`` (b, vocab) bool is a grammar's support
+    (``grammar.py``): the other logits are floored to −1e30 before the
+    noise and the greedy argmax (JAX ``sampling.py:98``), so both branches
+    draw inside it; an all-True row leaves its logits untouched."""
     logits = logits.float()
+    if allowed is not None:
+        logits = torch.where(allowed, logits, NEG_INF)
     noise = counter_gumbel(key_lo, key_hi, counts, logits.shape[-1])
     return slot_sampler(logits, temperature, greedy, noise)
 

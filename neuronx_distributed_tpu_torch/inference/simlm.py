@@ -111,7 +111,7 @@ class SimCausalLM:
     # --- insert / extend / retire: host accounting only ---------------------
 
     def insert(self, session: SimSession, slot_ids, prompt_ids, lengths=None,
-               pad_token_id: int = 0, reserve_tokens=None, ns=None):
+               pad_token_id: int = 0, reserve_tokens=None, ns=None, adapter_slots=None):
         """Paged admission through the real plan/commit lifecycle with no
         device work (the slab: length bookkeeping). Returns None: the
         engine draws sim tokens instead of reading logits."""
@@ -145,7 +145,8 @@ class SimCausalLM:
         session.active[slot_ids] = True
         return None
 
-    def extend(self, session: SimSession, slot_ids, ids, new_len, starts, tables=None):
+    def extend(self, session: SimSession, slot_ids, ids, new_len, starts, tables=None,
+               adapter_slots=None):
         """A chunk extend: its pages were allocated by
         ``PagedKVCache.extend_chunked`` already; nothing else to do."""
         slot_ids = np.asarray(slot_ids, np.int32).reshape(-1)

@@ -7,11 +7,10 @@ Virtual time is in decode blocks: a request with ``arrival_block`` t is
 admitted no earlier than the engine's block t (``ServeEngine.submit``).
 
 The deadline knobs (``ttft_deadline_ms``, ``deadline_ms``) are copied onto
-every request, not drawn. Knobs whose engine features are not ported yet
-raise ``NotImplementedError`` naming the queue item that brings them:
-adapters (``adapters``, ``adapter_skew``: ROADMAP A8.1) and grammars
-(``grammar_frac``, ``grammars``: A8.2). Leaving them out shifts no other
-draw: in the reference their labels come from streams of their own.
+every request, not drawn. Adapter labels (``adapters``, ``adapter_skew``)
+and grammar labels (``grammar_frac``, ``grammars``) come from random
+streams of their own (seeds ``seed + 0x5A`` and ``seed + 0x67``), so
+adding them shifts no other draw.
 """
 
 from __future__ import annotations
@@ -20,14 +19,6 @@ import math
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
-
-_NOT_PORTED = {
-    "adapters": (0, "multi-LoRA adapters (ROADMAP A8.1)"),
-    "adapter_skew": (1.0, "multi-LoRA adapters (ROADMAP A8.1)"),
-    "grammar_frac": (0.0, "grammar-constrained decoding (ROADMAP A8.2)"),
-    "grammars": ((), "grammar-constrained decoding (ROADMAP A8.2)"),
-}
-
 
 def synthetic_trace_stream(num_requests: int, vocab_size: int, *,
                            prompt_lens: Sequence[int] = (8, 16), max_new_tokens: int = 16,
@@ -45,8 +36,11 @@ def synthetic_trace_stream(num_requests: int, vocab_size: int, *,
                            diurnal_period_blocks: int = 64,
                            burst_every: int = 0,
                            burst_mult: float = 4.0,
-                           seed: int = 0,
-                           **not_ported) -> Iterator[dict]:
+                           adapters: int = 0,
+                           adapter_skew: float = 1.0,
+                           grammar_frac: float = 0.0,
+                           grammars: Sequence[str] = (),
+                           seed: int = 0) -> Iterator[dict]:
     """One request dict at a time (``prompt``, ``max_new_tokens``,
     ``eos_token_id``, ``arrival_block``, ``ttft_deadline_ms``,
     ``deadline_ms``, and ``tenant`` when ``tenants``):
@@ -58,13 +52,11 @@ def synthetic_trace_stream(num_requests: int, vocab_size: int, *,
     ``long_prompt_len`` tokens instead; ``shared_prefix_len`` tokens of one
     of ``prefix_families`` prefixes (runs of four requests) before each
     prompt; tenants ``t0..`` drawn with P(rank k) proportional to
-    1 / (k + 1) ** ``tenant_skew`` (a label only)."""
-    for name, value in not_ported.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"synthetic_trace got an unexpected keyword {name!r}")
-        default, feature = _NOT_PORTED[name]
-        if value != default:
-            raise NotImplementedError(f"{name} needs {feature}, not ported yet")
+    1 / (k + 1) ** ``tenant_skew`` (a label only); ``adapter`` ``a0..``
+    drawn the same way with ``adapter_skew`` over ``adapters`` names (the
+    caller registers every one); ``grammar``, on a ``grammar_frac`` share
+    of requests, cycling through ``grammars`` over the constrained ones (JAX
+    ``engine.py:4294-4343``)."""
     if not 0.0 <= diurnal < 1.0:
         raise ValueError(f"diurnal must be in [0, 1), got {diurnal}")
     if diurnal_period_blocks < 1:
@@ -83,6 +75,14 @@ def synthetic_trace_stream(num_requests: int, vocab_size: int, *,
         raise ValueError(f"tenant_skew must be >= 0, got {tenant_skew}")
     if prefix_families < 1:
         raise ValueError(f"prefix_families must be >= 1, got {prefix_families}")
+    if adapters < 0:
+        raise ValueError(f"adapters must be >= 0, got {adapters}")
+    if adapter_skew < 0:
+        raise ValueError(f"adapter_skew must be >= 0, got {adapter_skew}")
+    if not 0.0 <= grammar_frac <= 1.0:
+        raise ValueError(f"grammar_frac must be in [0, 1], got {grammar_frac}")
+    if grammar_frac > 0 and not grammars:
+        raise ValueError("grammar_frac > 0 needs grammars=(names...)")
     long_every = round(1 / long_prompt_frac) if long_prompt_frac > 0 else 0
     rs = np.random.RandomState(seed)
     prefixes = [rs.randint(1, vocab_size, (shared_prefix_len,)).astype(np.int32)
@@ -91,6 +91,13 @@ def synthetic_trace_stream(num_requests: int, vocab_size: int, *,
     if tenants:
         w = 1.0 / np.arange(1, tenants + 1, dtype=np.float64) ** tenant_skew
         tenant_p = w / w.sum()
+    grammar_rs = np.random.RandomState(seed + 0x67)
+    grammar_count = 0
+    adapter_p = None
+    adapter_rs = np.random.RandomState(seed + 0x5A)
+    if adapters:
+        wa = 1.0 / np.arange(1, adapters + 1, dtype=np.float64) ** adapter_skew
+        adapter_p = wa / wa.sum()
     t = 0.0
     for i in range(num_requests):
         rate = 1.0
@@ -116,6 +123,13 @@ def synthetic_trace_stream(num_requests: int, vocab_size: int, *,
         }
         if tenant_p is not None:
             item["tenant"] = f"t{int(rs.choice(tenants, p=tenant_p))}"
+        if adapter_p is not None:
+            item["adapter"] = f"a{int(adapter_rs.choice(adapters, p=adapter_p))}"
+        if grammar_frac > 0 and grammar_rs.random_sample() < grammar_frac:
+            # names cycle over the constrained requests, so every grammar
+            # sees traffic at any share
+            item["grammar"] = grammars[grammar_count % len(grammars)]
+            grammar_count += 1
         yield item
 
 

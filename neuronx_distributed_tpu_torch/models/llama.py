@@ -19,15 +19,23 @@ paged steps take the paged decode kernel when ``paged_attn_kernel`` is set.
 Training: :meth:`LlamaForCausalLM.loss` (whole-sequence or chunked head and
 cross-entropy), ``remat_policy="full"`` as ``torch.utils.checkpoint`` around
 each decoder layer (only while autograd records, never in decode mode), and
-``qkv_clip``. Out of scope in this slice: Medusa chunk masks, LoRA,
-context parallelism and the ``"attention"`` remat policy.
+``qkv_clip``. Not ported yet: Medusa chunk masks, LoRA training, context
+parallelism and the ``"attention"`` remat policy.
+
+Multi-LoRA serving (``lora_rank``, JAX ``llama.py:315-333``): the model
+holds one fp32 pool ``(lora_slots, num_layers, per_layer)`` of adapter
+slots (:class:`LoraLayout` says where each matrix sits in a layer's chunk)
+and reads an ``adapter_idx (b,)`` the caller sets; each targeted
+projection adds the row's own ``s * (x @ A) @ B``, gathered from the pool
+per row (S-LoRA's batched adapter matmul). Slot 0 is all zeros, so its
+rows' outputs are bit for bit those of a model built without LoRA.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -102,6 +110,11 @@ class LlamaConfig:
     # kv head, requantized over the pages a write touches)
     page_dtype: Optional[str] = None
     paged_attn_kernel: bool = False
+    # multi-LoRA serving pool: per-slot rank-lora_rank adapters on the
+    # targeted projections (None: no pool, the forward is unchanged)
+    lora_rank: Optional[int] = None
+    lora_slots: int = 0
+    lora_targets: Tuple[str, ...] = ("qkv", "o_proj", "gate_proj", "up_proj", "down_proj")
 
     @property
     def head_dim_(self) -> int:
@@ -192,6 +205,88 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     else:
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+class LoraGroup(NamedTuple):
+    """Projections that read one input: their ``A`` matrices side by side
+    in one ``(fan_in, len(leaves) * rank)`` block at ``a_offset`` (one
+    matmul for the group), each leaf's ``B (rank, fan_out)`` at its own
+    offset, and its scale at ``scale_offset + scale`` of the layer chunk."""
+
+    fan_in: int
+    a_offset: int
+    leaves: Tuple[Tuple[str, int, int, int], ...]   # (leaf, fan_out, b_offset, scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraLayout:
+    """One adapter slot's bytes for one layer: ``per_layer`` fp32 words
+    holding the groups' ``A`` and ``B`` blocks (row-major), then one scale
+    per leaf. Groups by input: ``qkv`` (q, k, v), ``o_proj``, ``mlp_in``
+    (gate_proj, up_proj) and ``down_proj``."""
+
+    rank: int
+    groups: Dict[str, LoraGroup]
+    scale_offset: int
+    per_layer: int
+
+    def leaves(self) -> Dict[str, Tuple[str, int, int, int, int, int]]:
+        """Leaf -> (group, column of its A block, fan_in, fan_out, B offset,
+        scale index)."""
+        out = {}
+        for gname, g in self.groups.items():
+            for j, (leaf, fan_out, b_off, scale) in enumerate(g.leaves):
+                out[leaf] = (gname, j * self.rank, g.fan_in, fan_out, b_off, scale)
+        return out
+
+
+def lora_layout(cfg: LlamaConfig) -> LoraLayout:
+    """The pool layout of ``cfg``'s ``lora_rank`` over ``lora_targets``."""
+    r, hd = cfg.lora_rank, cfg.head_dim_
+    q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    t = set(cfg.lora_targets)
+    unknown = t - {"qkv", "o_proj", "gate_proj", "up_proj", "down_proj"}
+    if unknown:
+        raise ValueError(f"lora_targets {sorted(unknown)} are not serving projections")
+    plan = []
+    if "qkv" in t:
+        plan.append(("qkv", cfg.hidden_size, (("q", q_out), ("k", kv_out), ("v", kv_out))))
+    if "o_proj" in t:
+        plan.append(("o_proj", q_out, (("o_proj", cfg.hidden_size),)))
+    mlp_in = tuple((n, cfg.intermediate_size) for n in ("gate_proj", "up_proj") if n in t)
+    if mlp_in:
+        plan.append(("mlp_in", cfg.hidden_size, mlp_in))
+    if "down_proj" in t:
+        plan.append(("down_proj", cfg.intermediate_size, (("down_proj", cfg.hidden_size),)))
+    groups, off, n_scales = {}, 0, 0
+    for gname, fan_in, leaves in plan:
+        a_off = off
+        off += fan_in * len(leaves) * r
+        placed = []
+        for leaf, fan_out in leaves:
+            placed.append((leaf, fan_out, off, n_scales))
+            off += r * fan_out
+            n_scales += 1
+        groups[gname] = LoraGroup(fan_in, a_off, tuple(placed))
+    return LoraLayout(rank=r, groups=groups, scale_offset=off, per_layer=off + n_scales)
+
+
+def lora_deltas(rows: torch.Tensor, layout: LoraLayout, group: str,
+                x: torch.Tensor) -> List[torch.Tensor]:
+    """Each leaf of ``group``: the rows' corrections ``s * (x @ A) @ B``
+    (b, s, fan_out) in fp32, ``rows`` (b, per_layer) the rows' gathered
+    layer chunks. The group's ``A`` blocks go through one matmul."""
+    g = layout.groups[group]
+    b, r = x.shape[0], layout.rank
+    width = len(g.leaves) * r
+    a = rows[:, g.a_offset: g.a_offset + g.fan_in * width].view(b, g.fan_in, width)
+    d = torch.bmm(x.float().reshape(b, -1, g.fan_in), a)
+    out = []
+    for j, (_leaf, fan_out, b_off, scale) in enumerate(g.leaves):
+        bm = rows[:, b_off: b_off + r * fan_out].view(b, r, fan_out)
+        y = torch.bmm(d[..., j * r:(j + 1) * r], bm)
+        out.append(y * rows[:, layout.scale_offset + scale][:, None, None])
+    return out
 
 
 def cached_attention(q, k_cache, v_cache, cache_len, sm_scale=None, mask=None):
@@ -307,13 +402,20 @@ class LlamaAttention(nn.Module):
                                         dtype=cfg.dtype, param_dtype=cfg.param_dtype,
                                         device=device)
 
-    def forward(self, x, rope, cache: Optional[KVCache] = None, layer: int = 0):
+    def forward(self, x, rope, cache: Optional[KVCache] = None, layer: int = 0, lora=None):
         cfg = self.config
         q, k, v = self.qkv(x)
+        if lora is not None and "qkv" in lora[1].groups:
+            # the rows' corrections on the fused projections, before clip
+            # and RoPE (JAX llama.py:357-369)
+            dq, dk, dv = lora_deltas(*lora, "qkv", x)
+            q = q + dq.reshape(q.shape).to(q.dtype)
+            k = k + dk.reshape(k.shape).to(k.dtype)
+            v = v + dv.reshape(v.shape).to(v.dtype)
         if cfg.qkv_clip is not None:  # DBRX clip_qkv, before RoPE
             q, k, v = (t.clamp(-cfg.qkv_clip, cfg.qkv_clip) for t in (q, k, v))
         if cfg.decode:
-            return self._decode_attention(x, q, k, v, cache, layer)
+            return self._decode_attention(x, q, k, v, cache, layer, lora)
         cos, sin = rope
         q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
         s = x.shape[1]
@@ -321,9 +423,15 @@ class LlamaAttention(nn.Module):
         o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
                       use_flash=cfg.use_flash_attention and flash_supported(s, s, blk_q, blk_k),
                       block_q=blk_q, block_k=blk_k)
-        return self.o_proj(o.transpose(1, 2).reshape(x.shape[0], s, -1))
+        return self._o_proj(o.transpose(1, 2).reshape(x.shape[0], s, -1), lora)
 
-    def _decode_attention(self, x, q, k, v, cache: KVCache, layer: int):
+    def _o_proj(self, o, lora=None):
+        y = self.o_proj(o)
+        if lora is not None and "o_proj" in lora[1].groups:
+            y = y + lora_deltas(*lora, "o_proj", o)[0].to(y.dtype)
+        return y
+
+    def _decode_attention(self, x, q, k, v, cache: KVCache, layer: int, lora=None):
         cfg = self.config
         b, s_new = x.shape[0], x.shape[1]
         n_kv, hd, ps = k.shape[2], cfg.head_dim_, cfg.page_size
@@ -357,7 +465,7 @@ class LlamaAttention(nn.Module):
                 # attend straight off the post-write pool: no logical slab
                 o = paged_decode_attention(q.contiguous(), ck, cv, table, idx, k_scale=ks,
                                            v_scale=vs)
-                return self.o_proj(o.reshape(b, s_new, -1))
+                return self._o_proj(o.reshape(b, s_new, -1), lora)
             # gather the (b, max_seq_len) logical view; stale bytes in reused
             # pages sit behind the position mask like the slab's zeros
             npages = ck.shape[0]
@@ -390,7 +498,7 @@ class LlamaAttention(nn.Module):
                           q_positions=positions, kv_positions=None).transpose(1, 2)
         else:
             o = cached_attention(q, k_all, v_all, idx)
-        return self.o_proj(o.reshape(b, s_new, -1))
+        return self._o_proj(o.reshape(b, s_new, -1), lora)
 
 
 class LlamaMLP(nn.Module):
@@ -402,8 +510,19 @@ class LlamaMLP(nn.Module):
         self.up_proj = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.down_proj = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size, **kw)
 
-    def forward(self, x):
-        return self.down_proj(nn.functional.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, lora=None):
+        gate, up = self.gate_proj(x), self.up_proj(x)
+        if lora is not None and "mlp_in" in lora[1].groups:
+            for leaf, d in zip(lora[1].groups["mlp_in"].leaves, lora_deltas(*lora, "mlp_in", x)):
+                if leaf[0] == "gate_proj":
+                    gate = gate + d.to(gate.dtype)
+                else:
+                    up = up + d.to(up.dtype)
+        h = nn.functional.silu(gate) * up
+        y = self.down_proj(h)
+        if lora is not None and "down_proj" in lora[1].groups:
+            y = y + lora_deltas(*lora, "down_proj", h)[0].to(y.dtype)
+        return y
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -417,9 +536,9 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attn_norm = RMSNorm(cfg.hidden_size, **norm)
         self.mlp = LlamaMLP(cfg, device)
 
-    def forward(self, x, rope, cache=None, layer=0):
-        x = x + self.attention(self.input_norm(x), rope, cache, layer)
-        return x + self.mlp(self.post_attn_norm(x))
+    def forward(self, x, rope, cache=None, layer=0, lora=None):
+        x = x + self.attention(self.input_norm(x), rope, cache, layer, lora)
+        return x + self.mlp(self.post_attn_norm(x), lora)
 
 
 def _remat(cfg: LlamaConfig) -> bool:
@@ -450,6 +569,18 @@ class LlamaModel(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, dtype=cfg.dtype,
                                   param_dtype=cfg.param_dtype, device=device)
+        # the adapter pool (read-only here; the serving pool writes its
+        # slots in place) and the rows' slots, set by the caller
+        self.lora_layout: Optional[LoraLayout] = None
+        self.adapter_idx: Optional[torch.Tensor] = None
+        if cfg.lora_rank:
+            if cfg.lora_slots < 2:
+                raise ValueError(f"lora_slots must be >= 2 (slot 0 is the identity adapter), "
+                                 f"got {cfg.lora_slots}")
+            self.lora_layout = lora_layout(cfg)
+            self.register_buffer("lora_pool", torch.zeros(
+                (cfg.lora_slots, cfg.num_layers, self.lora_layout.per_layer),
+                dtype=torch.float32, device=device), persistent=False)
 
     def forward(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None):
         cfg = self.config
@@ -466,11 +597,22 @@ class LlamaModel(nn.Module):
             rope = rotary_embedding(positions, cfg.head_dim_, cfg.rope_theta, dtype=x.dtype,
                                     scaling=cfg.rope_scaling)
         remat = _remat(cfg)
+        idx = None
+        if self.lora_layout is not None:
+            idx = self.adapter_idx
+            if idx is None:
+                idx = torch.zeros((input_ids.shape[0],), dtype=torch.long, device=x.device)
+            if idx.shape != (input_ids.shape[0],):
+                raise ValueError(f"adapter_idx {tuple(idx.shape)} for {input_ids.shape[0]} rows")
+            idx = idx.long()
         for i, layer in enumerate(self.layers):
+            # the rows' chunks of this layer: one gather for every target
+            lora = (None if idx is None
+                    else (self.lora_pool[:, i].index_select(0, idx), self.lora_layout))
             if remat:
-                x = checkpoint(layer, x, rope, cache, i, use_reentrant=False)
+                x = checkpoint(layer, x, rope, cache, i, lora, use_reentrant=False)
             else:
-                x = layer(x, rope, cache, i)
+                x = layer(x, rope, cache, i, lora)
         if cfg.decode:   # in place: a captured step keeps reading this buffer
             cache.cache_index.add_(input_ids.shape[1])
         return self.final_norm(x)
@@ -568,7 +710,8 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     1/sqrt(fan_in) (the JAX package's lecun-normal scale), the embedding
     normal(0, 1), norm scales 1."""
     with torch.device("meta"):
-        shapes = {k: tuple(v.shape) for k, v in LlamaForCausalLM(config).state_dict().items()}
+        shapes = {k: tuple(v.shape) for k, v in
+                  LlamaForCausalLM(dataclasses.replace(config, lora_rank=None)).state_dict().items()}
     out = {}
     for name, shape in shapes.items():
         if name.endswith(".scale"):

@@ -441,3 +441,151 @@ def test_recovery_chaos_pass_meets_its_coverage_on_the_cpu(smoke, tmp_path):
     assert {k: st["counts"][k] for k in smoke.RECOVERY_COUNT_KEYS} == smoke.RECOVERY_PREDICTED["i"]
     assert st["steady_ok"] and st["blocks_ok"] and st["first_replays"]
     assert len(st["streams"]) == 32 and all(len(t) == 64 for t in st["streams"].values())
+
+
+# --- phase 4e: tenants ---------------------------------------------------------------
+
+
+def _tenant_trace():
+    """Four requests over two 256-token prefixes: a0 and a1 on prefix X,
+    a0 again on X (its hit is a0's own), a1 on prefix Y."""
+    x, y = np.arange(1, 300), np.arange(1000, 1300)
+    return [{"adapter": a, "prompt": p} for a, p in (("a0", x), ("a1", x), ("a0", x),
+                                                      ("a1", y))]
+
+
+def _tenant_passes(smoke, changes=()):
+    base = dict(adapter_repairs=0, adapter_garbled=0, adapter_load_retries=0, grammar_loads=2,
+                grammar_hits=1, grammar_evictions=0, grammar_rejects=0, grammar_repairs=0,
+                grammar_garbled=0, grammar_load_retries=0)
+    counts = {**smoke.TENANT_PREDICTED["o"], **base, "completed": 4, "rejected": 0}
+    streams = {r: [r + 1] * 64 for r in range(4)}
+    admitted = {0: (0, [0, 1], 0), 1: (0, [0, 1], 0), 2: (1, [2], 256), 3: (2, [3], 0)}
+
+    def run(**kw):
+        return {**dict(launches={"flash_block_forward": 4, "paged_decode_attention": 64},
+                       nonfinite_logits=0, steady_ok=True, blocks_ok=True, host_ops=[2],
+                       submitted=4,
+                       counts=dict(counts), parsed=0, constrained=0, capture_s=0.0,
+                       streams=dict(streams), schedule={r: (0, 0, 8) for r in range(4)},
+                       rejected=[], admitted=dict(admitted), finish_reasons={"budget": 4},
+                       fault_stats=None), **kw}
+
+    grammar = dict(parsed=2, constrained=2, finish_reasons={"budget": 2, "grammar_accept": 2})
+    passes = {"n": dict(streams={0: [5, 6]}, launches={"paged_decode_attention": 8},
+                        steady_ok=True, blocks_ok=True),
+              "o": run(), "p": run(), "q": run(**grammar), "r": run(**grammar),
+              "s": run(**grammar)}
+    passes["s"]["counts"].update(adapter_repairs=2, adapter_garbled=2, adapter_load_retries=1,
+                                 grammar_repairs=1, grammar_garbled=1, grammar_load_retries=1)
+    passes["s"]["fault_stats"] = dict(adapter_load_faults=1, adapter_corruptions=3,
+                                      grammar_load_faults=1, grammar_corruptions=1)
+    for (label, key), value in dict(changes).items():
+        passes[label][key] = value
+    return passes
+
+
+def _tenant_gates(smoke, passes):
+    predicted = {label: {**want, "completed": 4, "rejected": 0}
+                 for label, want in smoke.TENANT_PREDICTED.items()}
+    return smoke.tenant_gates(passes, predicted, {0: [5, 6]}, {"o": _tenant_trace()})
+
+
+def test_tenant_gates_hold_on_a_good_run(smoke):
+    assert _tenant_gates(smoke, _tenant_passes(smoke)) == []
+
+
+@pytest.mark.parametrize("label,key,value,says", [
+    ("n", "streams", {0: [5, 7]}, "(n) tokens differ from trace pass (a)"),
+    ("o", "counts", "adapter_hits=20", "(o) counts"),
+    ("p", "streams", {0: [9]}, "(o) and (p) streams differ"),
+    ("p", "rejected", [(3, "adapter_pool_exhausted")], "(o) and (p) rejected differ"),
+    ("o", "admitted", {0: (0, [0], 0), 3: (1, [3], 256)}, "reused a prefix across adapters"),
+    ("q", "parsed", 1, "1 of 2 constrained streams parse"),
+    ("s", "parsed", 0, "(s): 0 of 2"),
+    ("q", "finish_reasons", {"budget": 4}, "(q) finish reasons"),
+    ("r", "streams", {0: [1] * 64, 1: [9] * 64, 2: [3] * 64, 3: [4] * 64},
+     "(r) streams differ from (q)'s"),
+    ("s", "counts", "adapter_repairs=1", "adapter slots garbled"),
+    ("s", "counts", "grammar_load_retries=0", "grammar load faults"),
+    ("q", "counts", "rejected=1", "rejected != 4 submitted"),
+    ("r", "capture_s", 1.2, "(r) captured again"),
+    ("o", "launches", {"flash_block_forward": 0}, "(o) never launched"),
+    ("p", "blocks_ok", False, "host ops a decode block"),
+    ("q", "nonfinite_logits", 1, "non-finite"),
+])
+def test_tenant_gates_catch_each_fault(smoke, label, key, value, says):
+    """A pass whose tokens leave trace pass (a)'s or (o)'s or (q)'s where
+    they must not, a count the CPU did not predict, a cross-adapter prefix
+    hit, a stream that does not parse, a missing finish reason, a garbled
+    slot not repaired, a load fault not retried, a request neither
+    completed nor rejected, a second capture, a kernel not launched, too
+    many host ops or a non-finite logit: each fails the tenants phase, and
+    the message says which."""
+    passes = _tenant_passes(smoke)
+    if key == "counts":
+        name, n = value.split("=")
+        value = {**passes[label]["counts"], name: int(n)}
+    problems = _tenant_gates(smoke, _tenant_passes(smoke, {(label, key): value}))
+    assert len(problems) >= 1 and any(says in p for p in problems), problems
+
+
+def test_tenant_traces_share_their_requests(smoke):
+    """The adapter trace (o) and the grammar trace (q): 32 requests, the
+    same prompts, arrivals and adapters (their labels come from streams of
+    their own), eight adapters over two 256-token prefixes; half the
+    requests carry a grammar, every grammar some."""
+    o, q = smoke.tenant_trace(128256, False), smoke.tenant_trace(128256, True)
+    assert len(o) == len(q) == smoke.TENANT_REQUESTS == 32
+    for a, b in zip(o, q):
+        assert np.array_equal(a["prompt"], b["prompt"])
+        assert (a["adapter"], a["arrival_block"]) == (b["adapter"], b["arrival_block"])
+        assert "grammar" not in a
+    assert {it["adapter"] for it in o} <= {f"a{i}" for i in range(8)}
+    assert len({tuple(it["prompt"][:256]) for it in o}) == 2
+    assert {it.get("grammar") for it in q} == set(smoke.TENANT_GRAMMARS) | {None}
+    assert set(smoke.tenant_regex()) == set(smoke.TENANT_GRAMMARS)
+
+
+def test_tenant_schedule_meets_the_prediction_on_the_cpu(smoke):
+    """Pass (o) is a function of the trace alone (greedy, no EOS, no
+    grammar): served by a one-layer model at the phase's scheduling shape
+    (the tenants ``CausalLM``: 4096-token context, pages of 16, 8 slots,
+    buckets 128/512/4096, five usable adapter slots; the prompts' ids folded
+    into a 512-token vocabulary), it gives exactly the counts the card's
+    run is held to (``TENANT_PREDICTED``; ``scripts/tenants_rehearsal.py``
+    reads every pass's), its prefix hits are same-adapter, and the pipelined
+    pass (p) makes the same decisions. One intra-op thread."""
+    from neuronx_distributed_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig(vocab_size=512, hidden_size=16, intermediate_size=32, num_layers=1,
+                         num_heads=2, num_kv_heads=1, max_seq_len=4096, dtype=torch.float32)
+    lm = smoke.tenant_lm(cfg, "cpu", tl.init_params(cfg, torch.Generator().manual_seed(0)))
+    trace = smoke.tenant_trace(128256, False)
+    for it in trace:
+        it["prompt"] = it["prompt"] % (cfg.vocab_size - 1) + 1
+    adapters = smoke.tenant_adapters(cfg)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        o, p = (smoke.tenant_pass(lm, "cpu", trace, adapters, a, None, ()) for a in (False, True))
+    finally:
+        torch.set_num_threads(threads)
+    assert {k: o["counts"][k] for k in smoke.TENANT_COUNT_KEYS} == smoke.TENANT_PREDICTED["o"]
+    assert smoke.same_adapter_hits(o, trace)
+    assert (o["streams"], o["schedule"], o["rejected"]) == \
+        (p["streams"], p["schedule"], p["rejected"])
+    assert o["steady_ok"] and o["blocks_ok"] and p["steady_ok"] and p["blocks_ok"]
+
+
+def test_lora_layer_check_on_the_cpu(smoke):
+    """Pass (t) at a small width on the CPU: the pooled adapter equals the
+    merged weights within the tolerance the card is held to, and slot-0
+    rows are the layer without LoRA, bit for bit."""
+    from neuronx_distributed_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig(vocab_size=64, hidden_size=128, intermediate_size=256, num_layers=2,
+                         num_heads=4, num_kv_heads=2, dtype=torch.float32)
+    got = smoke.lora_layer_check(cfg, "cpu")
+    assert got["max_abs_err"] <= smoke.TOL_LORA_LAYER and got["base_bit_identical"]
+    assert got["delta_max_abs"] > 100 * smoke.TOL_LORA_LAYER

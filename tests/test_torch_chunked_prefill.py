@@ -323,9 +323,14 @@ def test_synthetic_trace_draws_as_jax(knobs):
             assert a.get("tenant") == b.get("tenant")
 
 
-@pytest.mark.parametrize("knob", [dict(adapters=2), dict(grammar_frac=0.5, grammars=("g",))])
+@pytest.mark.parametrize("knob", [dict(adapters=-1), dict(grammar_frac=0.5)])
 def test_synthetic_trace_refuses_knobs_of_features_not_ported(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    """The adapter and grammar knobs are ported now: bad values of them are
+    refused as the JAX trace refuses them, and a knob no trace has is a
+    TypeError."""
+    with pytest.raises(ValueError):
         synthetic_trace(4, 128, **knob)
+    with pytest.raises(ValueError):
+        jax_trace(4, 128, **knob)
     with pytest.raises(TypeError):
         synthetic_trace(4, 128, no_such_knob=1)

@@ -49,6 +49,7 @@ from neuronx_distributed_tpu_torch.kernels.flash_attn import (
     flash_bwd_dkdv,
     flash_bwd_dq,
 )
+from neuronx_distributed_tpu_torch.lora import LoraConfig, init_lora
 from neuronx_distributed_tpu_torch.models import llama as tl
 from neuronx_distributed_tpu_torch.optimizer.fused_kernel import (
     fused_adamw_leaf,
@@ -617,3 +618,104 @@ def test_dispatch_retry_on_the_card_is_bit_identical(cuda):
         runs[plan is None] = {c.request_id: c.tokens.tolist() for c in engine.run()}
     assert engine.dispatch_retry_count > 0
     assert runs[True] == runs[False]
+
+
+def _tenant_lm(cuda):
+    """A small fp32 paged model on the card with an adapter pool (rank 4,
+    two usable slots) and a grammar pool (two usable slots)."""
+    cfg = tl.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=4, num_kv_heads=2, max_seq_len=256, dtype=torch.float32)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(5))
+    lm = CausalLM(cfg, params, tl.LlamaForCausalLM, buckets=(64, 128), max_batch=4,
+                  page_size=16, paged_attn_kernel=True, lora_rank=4, lora_slots=3,
+                  grammar_slots=3, grammar_states=48, device=cuda)
+    adapters = {}
+    for i in range(2):
+        lcfg = LoraConfig(r=4, lora_alpha=8.0)
+        gen = torch.Generator().manual_seed(20 + i)
+        tree = init_lora(params, lcfg, gen)
+        for ad in tree.values():
+            ad["lora_b"] = 0.05 * torch.randn(ad["lora_b"].shape, generator=gen)
+        adapters[f"a{i}"] = (tree, lcfg)
+    return lm, adapters
+
+
+_GRAMMARS = {"gnum": {"regex": "-?[0-9]{1,3}"}, "gab": {"regex": "a[ab]*b"}}
+
+
+def _tenant_engine(lm, adapters, **kw):
+    engine = ServeEngine(lm, block_steps=4, seed=2, **kw)
+    for name, (tree, lcfg) in adapters.items():
+        engine.register_adapter(name, tree, lcfg)
+    for name, spec in _GRAMMARS.items():
+        engine.register_grammar(name, **spec)
+    rng = np.random.default_rng(4)
+    for i, tenancy in enumerate((dict(adapter="a0"), {}, dict(adapter="a1", grammar="gab"),
+                                 dict(grammar="gnum"))):
+        engine.submit(rng.integers(1, 255, 40 + 9 * i), 14, arrival_block=i // 2, **tenancy)
+    return engine
+
+
+def test_adapter_slot_garbled_between_replays_moves_that_row_alone(cuda):
+    """The captured block reads the adapter pool in place: a0's slot
+    garbled for two blocks between replays, then repaired from the
+    registry, changes the tokens of a0's stream and of no other row."""
+    lm, adapters = _tenant_lm(cuda)
+    runs = {}
+    for garble in (False, True):
+        engine = _tenant_engine(lm, adapters)
+        pool, blocks = engine.session.adapters, 0
+        while engine.step_block():
+            blocks += 1
+            if garble and blocks == 2:
+                slot = pool.slot_of("a0")
+                pool._garble_slot(slot)
+                assert not pool._intact(slot, pool._registry["a0"])
+            if garble and blocks == 4:
+                pool._write_slot(slot, pool._registry["a0"])
+                assert pool._intact(slot, pool._registry["a0"])
+        runs[garble] = {c.request_id: c.tokens.tolist() for c in engine.completed}
+        assert engine.replays == engine.decode_blocks and engine.nonfinite_logits == 0
+    assert runs[True][0] != runs[False][0]
+    assert all(runs[True][r] == runs[False][r] for r in (1, 2, 3))
+    assert len(lm._fused) == 1
+
+
+def test_grammar_rows_in_the_captured_block_equal_the_stepwise_route(cuda):
+    """Adapter and grammar rows beside free ones: the captured block's
+    streams equal the per-token route's bit for bit, and every constrained
+    stream parses."""
+    import re
+
+    from neuronx_distributed_tpu_torch.inference.grammar import default_token_table, detokenize
+
+    lm, adapters = _tenant_lm(cuda)
+    runs = {}
+    for fused in (True, False):
+        engine = _tenant_engine(lm, adapters, fused=fused)
+        runs[fused] = {c.request_id: c for c in engine.run()}
+        assert engine.nonfinite_logits == 0
+    assert {r: c.tokens.tolist() for r, c in runs[True].items()} == \
+        {r: c.tokens.tolist() for r, c in runs[False].items()}
+    table = default_token_table(256)
+    for c in runs[True].values():
+        if c.grammar is not None:
+            assert re.fullmatch(_GRAMMARS[c.grammar]["regex"], detokenize(c.tokens, table))
+
+
+def test_from_snapshot_with_tenants_reuses_the_captured_graph(cuda):
+    """A snapshot taken mid-stream under adapters and grammars, restored on
+    the same ``CausalLM``: no second capture, and every stream finishes as
+    the uninterrupted run's."""
+    lm, adapters = _tenant_lm(cuda)
+    oracle = {c.request_id: c.tokens.tolist() for c in _tenant_engine(lm, adapters).run()}
+    engine = _tenant_engine(lm, adapters)
+    for _ in range(3):
+        engine.step_block()
+    snap = engine.snapshot()
+    assert any(r["adapter"] and r["grammar"] and r["generated"] for r in snap["requests"])
+    done = {c.request_id: c.tokens.tolist() for c in engine.completed}
+    restored = ServeEngine.from_snapshot(lm, snap, adapters=adapters, grammars=_GRAMMARS)
+    assert restored.capture_s < 0.05 and len(lm._fused) == 1
+    done.update({c.request_id: c.tokens.tolist() for c in restored.run()})
+    assert done == oracle

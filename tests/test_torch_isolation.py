@@ -85,6 +85,18 @@ def test_fault_and_sim_modules_stand_alone():
     assert "import torch" not in src
 
 
+def test_tenancy_modules_stand_alone():
+    """The LoRA core, the adapter pool and the grammar compiler and pool are
+    the port's own: the standard library, numpy, torch and the port only
+    (the numpy compiler is a copy, not an import of the JAX package's)."""
+    allowed = {"__future__", "dataclasses", "math", "re", "time", "zlib", "typing", "numpy",
+               "torch", "neuronx_distributed_tpu_torch"}
+    for mod in ("lora.core", "inference.adapters", "inference.grammar"):
+        assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
+        path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
+        assert set(_imported_roots(path)) <= allowed, mod
+
+
 def _tiny_lm_args():
     cfg = tl.LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1,
                          num_heads=4, num_kv_heads=2, max_seq_len=32, dtype=torch.float32)

@@ -308,9 +308,9 @@ def test_port_snapshot_restores_in_jax(stack):
 
 
 def test_snapshot_refuses_what_is_not_ported(stack):
-    """Parked conversations, adapters and grammars are not ported: a
-    snapshot carrying them is refused; a sim engine has nothing to
-    snapshot."""
+    """Parked conversations are not ported: a snapshot carrying them is
+    refused, and so is one whose request names an adapter the restoring
+    ``CausalLM`` has no pool for; a sim engine has nothing to snapshot."""
     src = _engine(stack["paged"])
     src.submit(_prompts(1)[0], 4)
     snap = src.snapshot()

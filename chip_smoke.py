@@ -101,6 +101,23 @@ Phases, each fatal on failure (exit code 1, no result line):
            garbled slot be repaired and every load fault retried; (t) one
            full-width fp32 layer with an adapter held against merged
            weights; one capture for the phase;
+4f. park   the trace phase's ``CausalLM`` again: eight chat sessions (six
+           512-token prompts, two 3072-token ones, 96 new tokens each)
+           served five times: (u) the reference; (v) each session parked
+           once it delivered 32 tokens and resumed (``submit(resume=)``)
+           two blocks later, then each session's cold twin (its prompt and
+           32 tokens as a fresh request); (w) the pipelined loop parking
+           after 4 idle blocks through ``run_trace``; (x) (v) under park
+           faults (state-only parks, torn manifests, read faults, corrupt
+           bytes); (y) every session parked, a snapshot, and a fresh engine
+           from it resuming them all. (v), (w), (y) and (x)'s exact resumes
+           must give (u)'s tokens bit for bit, each park leave no page
+           behind, (x)'s counts be the CPU rehearsal's; every request of
+           every traced pass of 4c-4f is attributed with its phases summing
+           to its span, (v)'s parked sessions paying a ``park_resume``
+           phase; (x)'s incident bundles pass the validator. Printed: park
+           and resume ms, resume against cold TTFT, durable bytes and the
+           host split of parks and resumes, by session length;
 5. train   Llama-3-8B widths cut to 4 layers (bf16 weights, fp32 master
            AdamW, clipping, activation checkpointing, the optimizer kernel)
            on a repeated 2 x 4096-token batch: 2 warm-up steps, then 5 timed
@@ -1783,6 +1800,7 @@ def overload_pass(lm, dev, trace, async_loop: bool, traced: bool, counters,
             chrome = str(e)
         sheds = [ev["args"] for ev in engine.tracer.events("shed")]
         st.update(report=report, dropped=engine.tracer.dropped, chrome=chrome,
+                  attribution=attribution_check(engine.tracer)[0],
                   # sheds whose victim was a queued request, not the newest
                   # arrival: the deadline policy's evictions (at submit and
                   # at block boundaries)
@@ -1826,6 +1844,7 @@ def overload_gates(passes: dict) -> list:
                 problems.append(f"pass ({label}): tok events differ from the delivered tokens")
             if st["chrome"] != "ok":
                 problems.append(f"pass ({label}): exported trace refused: {st['chrome']}")
+            problems += [f"pass ({label}) attribution: {p}" for p in st.get("attribution", ())]
     for key, what in (("queue_full", "shed to a full queue"),
                       ("deadline_evictions", "eviction by deadline"),
                       ("queued_expiries", "expiry in the queue"),
@@ -2081,7 +2100,8 @@ def recovery_pass(lm, dev, trace, plan, async_loop: bool, counters, corrupt_tier
               schedule={c.request_id: (c.queue_blocks, c.ttft_blocks, c.decode_blocks)
                         for c in done},
               first_replays=_first_replays(engine) if keep_completions else {},
-              admitted=admitted)
+              admitted=admitted,
+              attribution=attribution_check(engine.tracer)[0] if keep_completions else [])
     return st
 
 
@@ -2182,6 +2202,7 @@ def recovery_gates(passes: dict, predicted: dict) -> list:
         want = predicted.get(label)
         if want is not None and {k: st["counts"].get(k) for k in want} != want:
             problems.append(f"pass ({label}) counts {st['counts']} differ from the CPU's {want}")
+        problems += [f"pass ({label}) attribution: {p}" for p in st.get("attribution", ())]
     for label in ("g", "h", "i", "j", "l"):
         st = passes[label]
         if len(st["streams"]) != RECOVERY_REQUESTS or any(
@@ -2480,7 +2501,7 @@ def tenant_pass(lm, dev, trace, adapters, async_loop: bool, plan, counters) -> d
         streams={c.request_id: c.tokens.tolist() for c in done},
         schedule={c.request_id: (c.queue_blocks, c.ttft_blocks, c.decode_blocks) for c in done},
         rejected=sorted((r.request_id, r.reason) for r in engine.rejected),
-        admitted=admitted,
+        admitted=admitted, attribution=attribution_check(engine.tracer)[0],
         compile_ms={n: gpool.compile_ms_of(n) for n in TENANT_GRAMMARS})
 
 
@@ -2542,6 +2563,7 @@ def tenant_gates(passes: dict, predicted: dict, streams_a: dict, traces: dict) -
         want = predicted.get(label)
         if want is not None and {k: st["counts"].get(k) for k in want} != want:
             problems.append(f"pass ({label}) counts {st['counts']} differ from the CPU's {want}")
+        problems += [f"pass ({label}) attribution: {p}" for p in st.get("attribution", ())]
     o, p = passes["o"], passes["p"]
     for key in ("streams", "schedule", "rejected"):
         if o[key] != p[key]:
@@ -2695,6 +2717,425 @@ def run_tenant_phase(lm, dev, counters, streams_a: dict, trace_n: list) -> dict:
                 s_token_share_equal_q=same_s / max(s["generated_tokens"], 1),
                 adapter_bytes_per_slot=lm.model.model.lora_layout.per_layer
                 * lm.config.num_layers * 4)
+
+
+# --- phase 4f: conversations that outlive their slot --------------------------------
+
+# eight chat sessions on the trace phase's CausalLM: six with 512-token
+# prompts and two long-context ones with 3072, arriving one a block; each
+# generates 96 tokens (greedy, no EOS). A Llama-3-8B bf16 page of 16 tokens
+# is 2 MiB over 32 layers (K and V), so a session parked at 512 + 32 tokens
+# holds 34 pages (68 MiB) and one at 3072 + 32 holds 194 (388 MiB)
+PARK_LENS = (512, 512, 3072, 512, 512, 3072, 512, 512)
+PARK_NEW_TOKENS = 96
+PARK_AT = 32            # (v), (x), (y) park a session once it delivered this many
+PARK_RESUME_AFTER = 2   # (v), (x) resume it this many blocks later
+PARK_IDLE_BLOCKS = 4    # (w): the engine parks a stream after 4 blocks of decoding
+PARK_SEED = 11
+# the degradation ladder's rungs, chosen on the CPU (scripts/park_rehearsal.py
+# --seeds) so that each fires at least once in pass (x): a state-only park, a
+# torn manifest, a read fault and corrupt bytes
+PARK_FAULT_PLAN = dict(seed=4, park_write_fail_prob=0.5, park_read_fail_prob=0.3,
+                       park_corrupt_prob=0.3)
+# (v) and (x) run with SLOs and a flight recorder
+PARK_SLO_MS = dict(ttft_ms=2000.0, itl_ms=500.0)
+PARK_PASSES = ("u", "v", "w", "x", "y")
+# pass (x)'s counts, a function of the trace and the plan alone (greedy, no
+# EOS): read from the CPU rehearsal at one layer, held exactly on the card
+PARK_COUNT_KEYS = ("parked", "resumed", "park_replays", "park_rejects", "fault_stats", "store")
+_PARK_CLEAN = dict(park_replays=0, park_rejects=0, fault_stats=None)
+PARK_PREDICTED = {
+    "u": dict(parked=0, resumed=0, **_PARK_CLEAN, store=None),
+    "v": dict(parked=8, resumed=8, **_PARK_CLEAN, store={"parks": 8, "loads": 8, "removed": 8}),
+    "w": dict(parked=16, resumed=16, **_PARK_CLEAN,
+              store={"parks": 16, "loads": 16, "removed": 16}),
+    "x": dict(parked=8, resumed=1, park_replays=7, park_rejects=0,
+              fault_stats={"park_write_faults": 2, "park_torn_manifests": 2,
+                           "park_read_faults": 3, "park_corruptions": 1},
+              store={"parks": 6, "state_only_parks": 2, "torn_parks": 2, "loads": 8,
+                     "load_faults": 3, "quarantined": 3, "removed": 5}),
+    "y": dict(parked=8, resumed=8, **_PARK_CLEAN, store={"loads": 8, "removed": 8}),
+}
+
+
+def park_trace(vocab: int) -> list:
+    """The park phase's sessions: seeded prompts of ``PARK_LENS`` tokens,
+    arriving one a block."""
+    import numpy as np
+
+    rng = np.random.default_rng(PARK_SEED)
+    return [dict(prompt=rng.integers(1, vocab, (n,)).astype(np.int32),
+                 max_new_tokens=PARK_NEW_TOKENS, arrival_block=i, eos_token_id=None)
+            for i, n in enumerate(PARK_LENS)]
+
+
+def attribution_problems(atts: dict) -> list:
+    """The attribution invariant on request id -> attribution: the phase
+    widths sum to ``end_block - origin_block`` and the segments tile the
+    span, contiguous and non-empty; a problem for each request that
+    breaks it."""
+    problems = []
+    for rid, a in sorted(atts.items()):
+        cur = a["origin_block"]
+        for seg in a["segments"]:
+            if seg["start_block"] != cur or seg["end_block"] <= seg["start_block"]:
+                problems.append(f"request {rid}: segments {a['segments']} do not tile")
+                break
+            cur = seg["end_block"]
+        width = a["end_block"] - a["origin_block"]
+        if sum(a["phases_blocks"].values()) != width or cur != a["end_block"]:
+            problems.append(f"request {rid}: phases {a['phases_blocks']} do not sum to its "
+                            f"{width} blocks")
+    return problems
+
+
+def attribution_check(tracer) -> tuple:
+    """Every request ``tracer`` knows, attributed (host side, after the
+    pass): ``(problems, atts)`` by :func:`attribution_problems`."""
+    from neuronx_distributed_tpu_torch.observability import attribution as att
+
+    grouped = att._events_by_request(tracer)
+    problems, atts = [], {}
+    for rid in att.known_request_ids(tracer):
+        try:
+            a = att.request_attribution(tracer, rid, grouped.get(rid, []))
+        except AssertionError as e:
+            problems.append(f"request {rid}: phases do not sum to its span ({e})")
+            continue
+        if a is not None:
+            atts[rid] = a
+    return problems + attribution_problems(atts), atts
+
+
+def _host_ms(engine) -> dict:
+    st = engine.park_store
+    return {"copy_d2h": engine.park_copy_ms, "copy_h2d": engine.resume_copy_ms,
+            **(st.host_ms if st is not None else {})}
+
+
+def _park_one(engine, rid: int, records: list) -> None:
+    """Park ``rid`` and record its wall ms, host split, durable bytes and
+    whether it left no page behind (its slot's pages all freed, none in
+    the prefix index, no host-tier page)."""
+    pkv = engine.session.paged
+    slot = next(i for i, r in enumerate(engine.slots) if r is not None and r.request_id == rid)
+    req = engine.slots[slot]
+    held, in_use = len(pkv.slot_pages(slot)), pkv.allocator.in_use()
+    covered = req.prompt.tolist() + engine._out[rid][:-1]
+    before, t0 = _host_ms(engine), time.perf_counter()
+    out = engine.park(rid)
+    ms = (time.perf_counter() - t0) * 1e3
+    after = _host_ms(engine)
+    store = engine.park_store
+    records.append(dict(
+        rid=rid, op="park", verdict=out, prompt_len=int(req.prompt.size),
+        generated=len(covered) - int(req.prompt.size) + 1, ms=ms,
+        split={k: after[k] - before[k] for k in after if after[k] != before[k]},
+        bytes=store.parked_bytes(rid) if store.storage.file_exists(
+            f"{store._conv_dir(rid)}/manifest.json") else None,
+        pages_held=held,
+        freed=in_use - pkv.allocator.in_use() == held and pkv.prefix_peek(covered) == 0
+        and pkv.tier_pages() == 0))
+
+
+def _resume_one(engine, rid: int, records: list) -> None:
+    before, t0 = _host_ms(engine), time.perf_counter()
+    out = engine.submit(resume=rid)
+    after = _host_ms(engine)
+    records.append(dict(rid=rid, op="resume", t0=t0, ms=(time.perf_counter() - t0) * 1e3,
+                        verdict=getattr(out, "reason", "resumed"),
+                        split={k: after[k] - before[k] for k in after if after[k] != before[k]}))
+
+
+def _park_drive(engine, trace, records: list, resume_after) -> None:
+    """Submit ``trace`` and step ``engine``: after each round, park every
+    stream that has delivered ``PARK_AT`` tokens (once), and resume each
+    ``resume_after`` rounds later (at once when nothing else is left to
+    run; never with None)."""
+    for it in trace:
+        engine.submit(it["prompt"], it["max_new_tokens"], arrival_block=it["arrival_block"])
+    parked_at, seen = {}, set()
+    while True:
+        more = engine.step_block()
+        for slot, r in enumerate(engine.slots):
+            if (r is not None and r.request_id not in seen and slot not in engine._prefilling
+                    and len(engine._out.get(r.request_id, ())) >= PARK_AT):
+                seen.add(r.request_id)
+                _park_one(engine, r.request_id, records)
+                parked_at[r.request_id] = engine.blocks
+        resumed = False
+        if resume_after is not None:
+            for rid in sorted(parked_at):
+                if engine.blocks >= parked_at[rid] + resume_after or not more:
+                    _resume_one(engine, rid, records)
+                    del parked_at[rid]
+                    resumed = True
+        if not more and not resumed:
+            return
+
+
+def _cold_ttft(engine, trace, streams: dict, records: list) -> None:
+    """Per session, a fresh request whose prompt is the session's prompt and
+    its first ``PARK_AT`` tokens (what a degraded resume re-prefills), alone
+    in ``engine`` with its prefix cache emptied first (a resumed session's
+    pages stay cached when it retires, and a hit would prefill only the
+    tail): its wall TTFT from submit to first token."""
+    pkv = engine.session.paged
+    for rid, it in enumerate(trace):
+        prompt = list(it["prompt"]) + streams[rid][:PARK_AT]
+        pkv.prefix.evict(pkv.prefix.evictable_pages())
+        check(pkv.prefix_peek(prompt) == 0, f"park (v): session {rid}'s cold twin hits the cache")
+        t0 = time.perf_counter()
+        new = engine.submit(prompt, 1)
+        while engine.step_block():
+            pass
+        comp = next(c for c in engine.completed if c.request_id == new)
+        records.append(dict(rid=rid, op="cold", prompt_len=len(it["prompt"]),
+                            context=len(prompt), ttft_ms=(comp.token_ts[0] - t0) * 1e3))
+
+
+def park_pass(lm, dev, trace, label: str, counters, root: Path, plan=None) -> dict:
+    """One pass of the park phase (``label`` in ``PARK_PASSES``) on ``lm``,
+    traced, the launch counters zeroed just before and read just after:
+    (u) the reference through ``run_trace``; (v) each session parked at
+    ``PARK_AT`` tokens and resumed ``PARK_RESUME_AFTER`` blocks later, then
+    each session's cold twin; (w) ``async_loop`` with ``park_idle_blocks``
+    through ``run_trace`` (its drain resumes what is parked); (x) (v) under
+    ``plan``'s park faults; (y) every session parked, a snapshot, and a
+    fresh engine from it resuming them all. (v) and (x) run with SLOs and a
+    flight recorder under ``root``."""
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine, run_trace
+    from neuronx_distributed_tpu_torch.inference.faults import FaultPlan
+    from neuronx_distributed_tpu_torch.observability import (
+        default_slos,
+        validate_incident_bundle,
+    )
+
+    kw = dict(block_steps=8, trace=True)
+    if label != "u":
+        kw["park_dir"] = str(root / label / "park")
+    if label in ("v", "x"):
+        kw.update(slos=default_slos(**PARK_SLO_MS), incident_dir=str(root / label / "incidents"))
+    if label == "w":
+        kw.update(async_loop=True, park_idle_blocks=PARK_IDLE_BLOCKS)
+    if label == "x":
+        kw["faults"] = FaultPlan(**(plan or PARK_FAULT_PLAN))
+    engine = ServeEngine(lm, **kw)
+    ops, records, engines = [count_host_ops(engine)], [], [engine]
+    for c in counters:
+        c.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    if label in ("u", "w"):
+        run_trace(engine, trace)
+    elif label in ("v", "x"):
+        _park_drive(engine, trace, records, PARK_RESUME_AFTER)
+    else:
+        _park_drive(engine, trace, records, None)
+        snap = engine.snapshot()
+        engine = ServeEngine.from_snapshot(lm, snap, trace=True)
+        engines.append(engine)
+        ops.append(count_host_ops(engine))
+        for rid in engine.parked_ids():
+            _resume_one(engine, rid, records)
+        engine.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    done = [c for c in engine.completed if c.request_id < len(trace)]
+    streams = {c.request_id: c.tokens.tolist() for c in done}
+    launches = {c.__name__: c.launches for c in counters}
+    tokens = sum(len(t) for t in streams.values())
+    store = engine.park_store
+    degraded = sorted({ev["args"]["rid"] for e in engines
+                       for ev in e.tracer.events("tier:park_degraded")})
+    problems, atts = [], {}
+    for e in engines:
+        p, a = attribution_check(e.tracer)
+        problems += p
+        atts.update(a)
+    kinds, bad_bundles = [], []
+    for path in [] if engine.incident is None else engine.incident.bundles:
+        try:
+            kinds.append(validate_incident_bundle(path)["kind"])
+        except (ValueError, OSError) as e:
+            bad_bundles.append(f"{Path(path).name}: {e}")
+    st = dict(
+        label=label, wall_s=wall, generated_tokens=tokens, tokens_per_s=tokens / wall,
+        requests=len(done), decode_blocks=sum(e.decode_blocks for e in engines),
+        **host_op_stats([o for part in ops for o in part]), nonfinite_logits=sum(e.nonfinite_logits for e in engines),
+        launches=launches, streams=streams, records=records, degraded=degraded,
+        token_ts={c.request_id: c.token_ts.tolist() for c in done},
+        attribution=problems,
+        park_resume_blocks={rid: a["phases_blocks"].get("park_resume", 0)
+                            for rid, a in atts.items()},
+        counts=dict(parked=sum(e.parked for e in engines),
+                    resumed=sum(e.resumed for e in engines),
+                    park_replays=sum(e.park_replays for e in engines),
+                    park_rejects=sum(e.park_rejects for e in engines),
+                    fault_stats=(None if engine._injector is None else
+                                 {k: v for k, v in engine._injector.stats.items() if v}),
+                    store=(None if store is None else
+                           {k: v for k, v in store.stats.items() if v})),
+        slo=engine.slo_status(), incidents=kinds, incident_problems=bad_bundles,
+        host_ms=_host_ms(engine) if store is not None else {})
+    if label == "v":
+        t1 = time.perf_counter()
+        _cold_ttft(engine, trace, streams, records)
+        st["cold_s"] = time.perf_counter() - t1
+    return st
+
+
+def park_gates(passes: dict, predicted: dict, exact_degraded: bool = False) -> list:
+    """The park phase's gates on its passes (label -> the dict of
+    :func:`park_pass`); returns what failed, empty when every gate held.
+    Every pass completes every session with its ``PARK_NEW_TOKENS``
+    tokens; (v), (w) and (y) resume every park exactly (no replay) and give
+    (u)'s streams bit for bit, as do (x)'s sessions that resumed exactly
+    (with ``exact_degraded``, as on the CPU in fp32, its degraded sessions
+    too: in bf16 on the card a re-prefill is not batch-invariant); each
+    park leaves no page behind;
+    (x)'s counts are the CPU's and each rung of the ladder fires; every
+    request of every pass is attributed with its phases summing to its
+    span, and every session parked in (v) pays a ``park_resume`` phase;
+    (v) and (x) report SLO status and (x) dumps incident bundles, each
+    passing the validator; a decode block keeps its host ops (a steady one 2, any at
+    most 3); each pass launches B1 and B2."""
+    problems = []
+    u = passes["u"]
+    n = len(PARK_LENS)
+    for label, st in passes.items():
+        if st["requests"] != n or any(len(t) != PARK_NEW_TOKENS for t in st["streams"].values()):
+            problems.append(f"pass ({label}): not every session completed with "
+                            f"{PARK_NEW_TOKENS} tokens")
+        for fn, k in st["launches"].items():
+            if k <= 0:
+                problems.append(f"pass ({label}) never launched {fn}")
+        if not (st["steady_ok"] and st["blocks_ok"]):
+            problems.append(f"pass ({label}): host ops a decode block {st['host_ops']}")
+        if st.get("nonfinite_logits"):
+            problems.append(f"pass ({label}): {st['nonfinite_logits']} non-finite logit rows")
+        problems += [f"pass ({label}) attribution: {p}" for p in st["attribution"]]
+        if any(not r["freed"] for r in st["records"] if r["op"] == "park"):
+            problems.append(f"pass ({label}): a parked session kept device or host pages")
+        if label in ("v", "w", "y") and st["degraded"]:
+            problems.append(f"pass ({label}) degraded {st['degraded']}")
+        if (label in ("v", "w", "y") or (label == "x" and exact_degraded)) and \
+                st["streams"] != u["streams"]:
+            problems.append(f"pass ({label}) streams differ from pass (u)'s")
+        if label == "x" and any(st["streams"].get(rid) != u["streams"].get(rid)
+                                for rid in st["streams"] if rid not in st["degraded"]):
+            problems.append("pass (x): a session that resumed exactly differs from pass (u)'s")
+        if label != "u" and not st["counts"]["parked"]:
+            problems.append(f"pass ({label}) parked nothing")
+        want = predicted.get(label)
+        if want is not None and {k: st["counts"].get(k) for k in want} != want:
+            problems.append(f"pass ({label}) counts {st['counts']} differ from the CPU's {want}")
+    if any(b <= 0 for rid, b in passes["v"]["park_resume_blocks"].items() if rid < n):
+        problems.append(f"pass (v): a parked session has no park_resume phase "
+                        f"{passes['v']['park_resume_blocks']}")
+    x = passes["x"]
+    store, fs = x["counts"]["store"] or {}, x["counts"]["fault_stats"] or {}
+    for what, k in (("state-only park", store.get("state_only_parks")),
+                    ("torn manifest", store.get("torn_parks")),
+                    ("read fault", fs.get("park_read_faults")),
+                    ("corrupt bytes", fs.get("park_corruptions"))):
+        if not k:
+            problems.append(f"pass (x) has no {what}")
+    for label in ("v", "x"):
+        if passes[label]["slo"] is None:
+            problems.append(f"pass ({label}) has no SLO status")
+    if not x["incidents"]:
+        problems.append("pass (x) dumped no incident bundle")
+    problems += [f"pass (x) incident bundle {p}" for p in x["incident_problems"]]
+    return problems
+
+
+def park_passes(lm, dev, counters, root: Path, trace=None, labels=None, plan=None) -> dict:
+    """The park phase's passes (or those in ``labels``) on ``lm`` over
+    ``trace`` (by default :func:`park_trace` at the model's vocabulary)."""
+    trace = park_trace(lm.config.vocab_size) if trace is None else trace
+    return {label: park_pass(lm, dev, trace, label, counters, root, plan=plan)
+            for label in PARK_PASSES if labels is None or label in labels}
+
+
+def _split_by_len(records: list, op: str, key: str) -> dict:
+    out = {}
+    for length in sorted(set(PARK_LENS)):
+        xs = sorted(r[key] for r in records if r["op"] == op and r.get("prompt_len") == length
+                    and r.get(key) is not None)
+        out[length] = dict(p50=xs[len(xs) // 2], max=xs[-1], n=len(xs)) if xs else None
+    return out
+
+
+def park_report(passes: dict) -> dict:
+    """What the phase measured, by session length: park and resume ms
+    (p50, max), resume TTFT (from ``submit(resume=)`` to the next token)
+    against the cold twin's TTFT, durable bytes a session, pages a parked
+    session still holds, and the host split (device copies, framing,
+    crc32, sha256, file I/O) of (v)'s parks and resumes."""
+    v = passes["v"]
+    lens = dict(enumerate(PARK_LENS))
+    resumes = [r for r in v["records"] if r["op"] == "resume"]
+    for r in resumes:
+        r["prompt_len"] = lens[r["rid"]]
+        park = next(p for p in v["records"] if p["op"] == "park" and p["rid"] == r["rid"])
+        ts = v["token_ts"][r["rid"]]
+        r["ttft_ms"] = (ts[park["generated"]] - r["t0"]) * 1e3
+    split = {}
+    for op in ("park", "resume"):
+        for length in sorted(set(PARK_LENS)):
+            recs = [r for r in v["records"] if r["op"] == op and r.get("prompt_len") == length]
+            keys = sorted({k for r in recs for k in r["split"]})
+            split[f"{op}_{length}"] = {k: sum(r["split"].get(k, 0.0) for r in recs) / len(recs)
+                                       for k in keys} if recs else None
+    return dict(
+        park_ms=_split_by_len(v["records"], "park", "ms"),
+        resume_ms=_split_by_len(v["records"], "resume", "ms"),
+        resume_ttft_ms=_split_by_len(v["records"], "resume", "ttft_ms"),
+        cold_ttft_ms=_split_by_len(v["records"], "cold", "ttft_ms"),
+        durable_bytes=_split_by_len(v["records"], "park", "bytes"),
+        pages_held_after_park=0 if all(r["freed"] for r in v["records"] if r["op"] == "park")
+        else None,
+        host_split_ms=split)
+
+
+def run_park_phase(lm, dev, counters) -> dict:
+    """The park phase on ``lm`` (:func:`trace_lm`) after one untimed warm-up
+    (the 544- and 3104-token cold shapes included), its park directories
+    in a temporary directory removed at the end: passes (u)-(y), hard gates
+    :func:`park_gates` with the CPU's predicted counts. Reported:
+    :func:`park_report`, each pass's tokens/s, the share of (x)'s tokens
+    equal to (u)'s (degraded sessions re-prefill in bf16, which is not
+    batch-invariant), and the phase's command time."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    trace = park_trace(lm.config.vocab_size)
+    root = Path(tempfile.mkdtemp(prefix="park-"))
+    try:
+        warm = park_trace(lm.config.vocab_size)[:3]
+        park_pass(lm, dev, [dict(it, max_new_tokens=PARK_AT + 16) for it in warm], "v", counters,
+                  root / "warm")
+        passes = park_passes(lm, dev, counters, root, trace=trace)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    problems = park_gates(passes, PARK_PREDICTED)
+    check(not problems, "park: " + "; ".join(problems))
+    u, x = passes["u"]["streams"], passes["x"]["streams"]
+    degraded = passes["x"]["degraded"]
+    same = sum(int(a == b) for rid in degraded for a, b in zip(x[rid], u[rid]))
+    report = park_report(passes)
+    for st in passes.values():   # kept off the printed summary
+        for key in ("streams", "records", "token_ts"):
+            st.pop(key, None)
+    return dict(passes=passes, report=report, lens=PARK_LENS, new_tokens=PARK_NEW_TOKENS,
+                park_at=PARK_AT, idle_blocks=PARK_IDLE_BLOCKS, plan=dict(PARK_FAULT_PLAN),
+                x_degraded=degraded,
+                x_degraded_token_share_equal_u=same / max(
+                    sum(len(x[r]) for r in degraded), 1),
+                phase_s=time.perf_counter() - t0)
+
 
 
 # --- phases 3b and 5: training ----------------------------------------------------
@@ -3047,6 +3488,11 @@ def main(argv=None) -> int:
     tenants = run_tenant_phase(lm, dev, serve_counters, trace.pop("streams_a"),
                                trace.pop("trace"))
     del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = trace_lm(cfg, dev, params)
+    park = run_park_phase(lm, dev, serve_counters)
+    del lm
     if args.profile is not None:
         gc.collect()
         stats["profile"] = serve(cfg, dev, serve_counters, profile_path=args.profile,
@@ -3193,6 +3639,24 @@ def main(argv=None) -> int:
           f"{lay['tolerance']}, max |ref| {lay['max_abs_ref']:.3g}, the adapter moves it by "
           f"{lay['delta_max_abs']:.3g}), slot 0 bit-identical {lay['base_bit_identical']} "
           f"[{card}]", flush=True)
+    for label, st in park["passes"].items():
+        print(f"park pass ({label}): llama3_8b full width, {len(PARK_LENS)} sessions "
+              f"({PARK_LENS}), {st['generated_tokens']} tokens in {st['wall_s']:.3f} s = "
+              f"{st['tokens_per_s']:.1f} tok/s, {st['decode_blocks']} decode blocks at "
+              f"{st['host_ops_per_block']:.3f} host ops a block ({st['steady_blocks']} steady), "
+              f"counts {json.dumps(st['counts'])}, degraded {st['degraded']}, incidents "
+              f"{st['incidents']}, launches {st['launches']} [{card}]", flush=True)
+    rp = park["report"]
+    print(f"park: (v), (w), (y) and (x)'s exact resumes bit-identical to (u), every park left "
+          f"no page, (x) counts as the CPU predicted, attribution sums hold in 4c-4f; by "
+          f"session prompt length: park ms {json.dumps(rp['park_ms'])}, resume ms "
+          f"{json.dumps(rp['resume_ms'])}, resume TTFT ms {json.dumps(rp['resume_ttft_ms'])}, "
+          f"cold TTFT ms {json.dumps(rp['cold_ttft_ms'])}, durable bytes "
+          f"{json.dumps(rp['durable_bytes'])}, pages held after a park "
+          f"{rp['pages_held_after_park']}, host split ms a park/resume "
+          f"{json.dumps(rp['host_split_ms'])}; (x) degraded {park['x_degraded']} with "
+          f"{park['x_degraded_token_share_equal_u']:.4f} of their tokens equal to (u)'s; "
+          f"phase {park['phase_s']:.1f} s [{card}]", flush=True)
     if "profile" in stats:
         prof = stats["profile"]
         print(f"profile: device busy {prof['device_busy_s']:.3f} s of the profiled run's "
@@ -3226,6 +3690,7 @@ def main(argv=None) -> int:
                **{f"recovery_{label}": st["launches"]
                   for label, st in recovery["passes"].items()},
                **{f"tenants_{label}": st["launches"] for label, st in tenants["passes"].items()},
+               **{f"park_{label}": st["launches"] for label, st in park["passes"].items()},
                "train": tstats["launches"]}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
@@ -3246,7 +3711,7 @@ def main(argv=None) -> int:
             if "held" in k.get(part, {}):
                 c[part] = k[part].pop("held")
     print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
-                      "recovery": recovery, "tenants": tenants, "train": tstats,
+                      "recovery": recovery, "tenants": tenants, "park": park, "train": tstats,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,
                       "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

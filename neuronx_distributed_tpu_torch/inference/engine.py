@@ -71,8 +71,30 @@ and retirement unpins. The host follows each constrained stream's DFA
 state from the tokens it receives (``finish_reason="grammar_accept"`` on
 an accept-terminal landing), so a block stays one replay and one fetch.
 
-Still to port (ROADMAP A5, A8): parking, disaggregation, the router and
-the router's ``extract_*``/``load_summary`` seams.
+Parking (JAX ``engine.py:2703-3123``): ``park_dir=`` (or a shared
+``park_store``) arms the durable conversation tier
+(``conversation_tier.py``): :meth:`ServeEngine.park` writes a decoding
+stream's KV pages and state to the store and evicts it from the device and
+the host tier; ``submit(resume=rid)`` re-adopts the pages into a free slot
+and the stream goes on as if never parked. ``park_idle_blocks`` parks a
+stream that has decoded that many blocks by itself, at the top of a round.
+Every fault on the way (a state-only park, a torn manifest, a read fault,
+corrupt bytes, a foreign ``tp_degree`` or ``page_dtype``) degrades to the
+replay path; pool or pin pressure defers the resume with
+``Rejected("park_deferred")``, the record intact.
+
+Analysis (JAX ``engine.py:4033-4172``): ``request_attribution``,
+``attribution_report`` and ``explain_deadline_miss`` read the tracer
+(``observability/attribution.py``); ``slos=`` arms an SLO burn-rate monitor
+(``slo_status``); ``incident_dir=`` (or a shared ``incident``) a flight
+recorder that dumps a bundle on pool-pressure storms, page corruption,
+deadline-miss bursts, burn alerts and a dispatch fail-stop, each with
+``state_summary()`` and ``load_summary()``. Every JAX ``stats`` key of a
+ported feature is a ``serve_<key>`` counter in ``metrics``, and the
+engine's counter attributes read and write those counters.
+
+Still to port (ROADMAP A8.6, A8.7): disaggregation and its handoff, the
+router and its ``extract_*`` seams, and TP serving.
 """
 
 from __future__ import annotations
@@ -92,6 +114,13 @@ from neuronx_distributed_tpu_torch.inference.adapters import (
     AdapterPoolExhausted,
 )
 from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+from neuronx_distributed_tpu_torch.inference.conversation_tier import (
+    ConversationParkStore,
+    ParkError,
+    ParkIntegrityError,
+    from_store_page,
+    to_store_page,
+)
 from neuronx_distributed_tpu_torch.inference.faults import (
     DispatchFailed,
     FaultInjector,
@@ -113,13 +142,75 @@ from neuronx_distributed_tpu_torch.inference.sampling import (
     split_key,
 )
 from neuronx_distributed_tpu_torch.models.llama import page_storage_dtype
-from neuronx_distributed_tpu_torch.observability import MetricsRegistry, Tracer, interblock_gaps
+from neuronx_distributed_tpu_torch.observability import (
+    FlightRecorder,
+    MetricsRegistry,
+    SLOMonitor,
+    Tracer,
+    interblock_gaps,
+)
+from neuronx_distributed_tpu_torch.observability import attribution as _attribution
 
 # what a garbled page holds (JAX ``engine.py:2368``): ``104729.0`` cast to
 # each leaf's dtype, and for int8 leaves the 127 JAX's cast saturates to (a
 # float-to-int8 cast out of range is undefined in C and in PyTorch)
 GARBLE_FP = 104729.0
 GARBLE_INT8 = 127
+
+# JAX ``engine.py:304``'s stats keys that the port serves, each a
+# ``serve_<key>`` counter (the handoff keys wait for disaggregation)
+STAT_KEYS = (
+    "blocks", "decode_blocks", "inserts", "inserted_requests",
+    "program_calls", "host_fetches", "deferred_admissions",
+    "chunk_program_calls", "prefill_chunk_tokens_done", "prefill_aborts",
+    "cancelled", "rejected", "shed_evictions", "expired",
+    "dispatch_retries", "corrupt_page_replays", "restored_requests",
+    "tier_page_repairs",
+    "adapter_rejects", "adapter_load_retries",
+    "grammar_rejects", "grammar_load_retries",
+    "parked", "resumed", "park_replays", "park_rejects",
+    "completed", "generated_tokens", "ontime_tokens", "deadline_misses",
+    "queue_blocks_sum", "ttft_blocks_sum",
+)
+
+
+class _Stat:
+    """An engine counter attribute whose one store is the ``serve_<key>``
+    counter of the engine's registry (JAX ``_StatsView``): ``engine.inserts
+    += 1`` reads and writes the counter the Prometheus text shows. A key
+    outside :data:`STAT_KEYS` registers at its first write, as a JAX stats
+    key does, and reads 0 before."""
+
+    def __init__(self, key: Optional[str] = None):
+        self.key = key
+
+    def __set_name__(self, owner, name):
+        self.key = self.key or name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        c = obj._stats.get(self.key)
+        return 0 if c is None else c.value
+
+    def __set__(self, obj, value) -> None:
+        c = obj._stats.get(self.key)
+        if c is None:
+            c = obj._stats[self.key] = obj.metrics.counter("serve_" + self.key)
+        c.set(value)
+
+
+class _Rejections(list):
+    """``engine.rejected``: the :class:`Rejected` verdicts, each append
+    counted on ``serve_rejected``."""
+
+    def __init__(self, counter):
+        super().__init__()
+        self._counter = counter
+
+    def append(self, rej) -> None:
+        super().append(rej)
+        self._counter.inc()
 
 
 @dataclasses.dataclass
@@ -177,13 +268,50 @@ class Rejected:
     """A shed request (JAX ``engine.py:215``): the bounded queue refused it.
     ``retry_after_blocks`` estimates when a resubmission (a new request id)
     has a fresh chance; ``reason`` is ``"queue_full"``,
-    ``"pool_exhausted"``, ``"adapter_pool_exhausted"`` or
-    ``"grammar_pool_exhausted"``."""
+    ``"pool_exhausted"``, ``"adapter_pool_exhausted"``,
+    ``"grammar_pool_exhausted"``, or a resume's ``"park_deferred"`` (retry
+    later, the park record intact) and ``"park_unresumable"``."""
 
     request_id: int
     retry_after_blocks: int
     queue_depth: int
     reason: str = "queue_full"
+
+
+@dataclasses.dataclass
+class ReplicaLoad:
+    """The engine's load as one typed card (JAX ``engine.py:229``): what a
+    router's placement, an autoscaler and the incident bundle's
+    ``state_summary()`` read. Every field is a block-clock quantity except
+    ``slo_alerting``."""
+
+    role: str
+    queue_depth: int                 # queued, not yet admitted
+    prefilling: int                  # mid-chunked-prefill slots
+    replays: int                     # pending recovery replays
+    backlog: int                     # queue + prefilling + replays
+    active_slots: int
+    free_slots: int
+    # 0 when a free slot and pool room could take work now, else the
+    # soonest-retirement estimate plus the backlog (blocks)
+    est_ttft_blocks: int
+    pool_retry_after_blocks: int
+    pages_in_use: Optional[int] = None     # None without a paged pool
+    pages_free: Optional[int] = None
+    tier_pages: Optional[int] = None       # None without a host tier
+    adapters_resident: Optional[List[str]] = None   # None without LoRA
+    slo_alerting: bool = False       # any burn rule latched right now
+    decode_blocks: int = 0
+    inserted_requests: int = 0
+    inflight_tokens: int = 0         # undelivered budget of the live slots
+    queued_tokens: int = 0           # budget of the queued requests
+    # the block whose emissions this card reflects: the pipelined loop's
+    # harvest trails the dispatch clock by the block in flight
+    observed_block: int = 0
+    parked: int = 0                  # conversations held only as park records
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 @dataclasses.dataclass
@@ -272,7 +400,63 @@ class ServeEngine:
     Tenants: ``adapter_rejects``/``grammar_rejects`` (admissions shed on a
     full pool) and ``adapter_load_retries``/``grammar_load_retries``
     (admissions requeued on a load fault); the pools' own counters live on
-    ``session.adapters`` and ``session.grammars``."""
+    ``session.adapters`` and ``session.grammars``.
+
+    Parking (JAX ``engine.py:421-423``, paged only): ``park_dir`` (a
+    directory the store writes under) or ``park_store`` (a
+    :class:`~.conversation_tier.ConversationParkStore`, shareable between
+    engines) arm :meth:`park` and ``submit(resume=rid)``;
+    ``park_idle_blocks`` > 0 parks a stream after that many blocks of
+    decoding. Counters ``parked``, ``resumed`` (exact page re-adoptions),
+    ``park_replays`` (degraded resumes) and ``park_rejects``; ``park_copy_ms``
+    and ``resume_copy_ms`` sum the wall ms of the parks' device-to-host and
+    the resumes' host-to-device page copies (the store's own steps are in
+    ``park_store.host_ms``).
+
+    Analysis (JAX ``engine.py:412-417``): ``slos`` (``SLObjective``s) arms
+    an :class:`~neuronx_distributed_tpu_torch.observability.SLOMonitor` read
+    by :meth:`slo_status`; ``incident_dir`` (or a shared ``incident``
+    recorder) arms a flight recorder with a trace window of
+    ``incident_window_blocks``, whose burst detectors fire at
+    ``incident_burst_threshold`` deadline misses (or pool-pressure
+    episodes) within ``incident_burst_window`` blocks.
+
+    Every counter attribute named in :data:`STAT_KEYS` (``completed_count``
+    for ``completed``, ``dispatch_retry_count`` for ``dispatch_retries``)
+    lives in ``metrics`` as ``serve_<key>``."""
+
+    blocks = _Stat()
+    decode_blocks = _Stat()
+    inserts = _Stat()
+    inserted_requests = _Stat()
+    program_calls = _Stat()
+    host_fetches = _Stat()
+    deferred_admissions = _Stat()
+    chunk_program_calls = _Stat()
+    prefill_chunk_tokens_done = _Stat()
+    prefill_aborts = _Stat()
+    cancelled = _Stat()
+    shed_evictions = _Stat()
+    expired = _Stat()
+    dispatch_retry_count = _Stat("dispatch_retries")
+    corrupt_page_replays = _Stat()
+    restored_requests = _Stat()
+    tier_page_repairs = _Stat()
+    injected_corruptions = _Stat()
+    adapter_rejects = _Stat()
+    adapter_load_retries = _Stat()
+    grammar_rejects = _Stat()
+    grammar_load_retries = _Stat()
+    parked = _Stat()
+    resumed = _Stat()
+    park_replays = _Stat()
+    park_rejects = _Stat()
+    completed_count = _Stat("completed")
+    generated_tokens = _Stat()
+    ontime_tokens = _Stat()
+    deadline_misses = _Stat()
+    queue_blocks_sum = _Stat()
+    ttft_blocks_sum = _Stat()
 
     def __init__(self, lm: CausalLM, block_steps: int = 8, fused: bool = True,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
@@ -283,7 +467,12 @@ class ServeEngine:
                  name: Optional[str] = None,
                  faults: Optional[Union[FaultPlan, FaultInjector]] = None,
                  dispatch_retries: int = 3, dispatch_backoff_s: float = 0.001,
-                 host_tier_pages: int = 0, keep_completions: bool = True):
+                 host_tier_pages: int = 0, keep_completions: bool = True,
+                 slos: Optional[Sequence] = None, incident_dir: Optional[str] = None,
+                 incident: Optional[FlightRecorder] = None, incident_window_blocks: int = 16,
+                 incident_burst_threshold: int = 3, incident_burst_window: int = 8,
+                 park_idle_blocks: int = 0, park_dir: Optional[str] = None,
+                 park_store: Optional[ConversationParkStore] = None):
         if block_steps < 1:
             raise ValueError(f"block_steps must be >= 1, got {block_steps}")
         if prefill_chunk_tokens < 0:
@@ -314,6 +503,21 @@ class ServeEngine:
         self._sim = bool(getattr(lm, "sim", False))
         if self._sim and host_tier_pages:
             raise ValueError("sim engines have no device pages to tier")
+        # parking exports KV pages: the paged pool is the park unit (JAX
+        # engine.py:470-488)
+        if park_idle_blocks < 0:
+            raise ValueError(f"park_idle_blocks must be >= 0, got {park_idle_blocks}")
+        if park_idle_blocks or park_dir is not None or park_store is not None:
+            if park_dir is not None and park_store is not None:
+                raise ValueError("pass park_dir OR park_store, not both")
+            if park_dir is None and park_store is None:
+                raise ValueError("park_idle_blocks requires park_dir or park_store: the park "
+                                 "has to land somewhere durable")
+            if self._sim:
+                raise ValueError("sim engines have no KV pages to park")
+            if not lm.paged:
+                raise ValueError("conversation parking requires a paged CausalLM (KV pages "
+                                 "are the park unit)")
         self.lm = lm
         self.block_steps = int(block_steps)
         self.fused = bool(fused)
@@ -331,6 +535,9 @@ class ServeEngine:
         self._injector: Optional[FaultInjector] = None
         if faults is not None:
             self._injector = faults if isinstance(faults, FaultInjector) else FaultInjector(faults)
+        # the counter attributes' store (JAX _StatsView): serve_<key> counters
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self._stats = {k: self.metrics.counter("serve_" + k) for k in STAT_KEYS}
         self.paged = lm.paged
         self.session = lm.start_session()
         self.host_tier_pages = int(host_tier_pages)
@@ -344,7 +551,8 @@ class ServeEngine:
         b = lm.max_batch
         self.lane = str(name) if name else "engine"
         self.tracer = tracer if tracer is not None else Tracer(enabled=bool(trace))
-        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        if pkv is not None:
+            pkv.attach_observability(self.tracer, self.metrics, block_fn=lambda: self.blocks)
         for pool, hook in ((getattr(self.session, "adapters", None), "on_adapter_acquire"),
                            (getattr(self.session, "grammars", None), "on_grammar_acquire")):
             if pool is not None:
@@ -362,10 +570,45 @@ class ServeEngine:
         if self.paged:
             self._m_pool = self.metrics.gauge("serve_page_pool_in_use",
                                               help="allocated KV pages")
+        # the conversation tier's price tags: park (page export, store,
+        # eviction) and resume (load, verify, page adoption)
+        self._m_park = self.metrics.histogram(
+            "serve_park_ms", help="conversation park (export+store+evict) wall ms", lo=0.01)
+        self._m_park_resume = self.metrics.histogram(
+            "serve_park_resume_ms",
+            help="parked-conversation resume (load+verify+adopt) wall ms", lo=0.01)
+        # SLO burn-rate monitor and incident flight recorder: built only
+        # when asked for (JAX engine.py:578-596)
+        self._slo: Optional[SLOMonitor] = None
+        if slos:
+            self._slo = SLOMonitor(self.metrics, slos, tracer=self.tracer, lane=self.lane)
+        self.incident: Optional[FlightRecorder] = incident
+        if self.incident is None and incident_dir:
+            self.incident = FlightRecorder(incident_dir, tracer=self.tracer, metrics=self.metrics,
+                                           window_blocks=incident_window_blocks, source=self.lane)
+        self._burst_threshold = int(incident_burst_threshold)
+        self._burst_window = int(incident_burst_window)
+        self._miss_blocks: deque = deque(maxlen=64)
+        self._pool_pressure_blocks: deque = deque(maxlen=64)
+        # the durable park tier (JAX engine.py:625-649)
+        self.park_idle_blocks = int(park_idle_blocks)
+        self.park_store: Optional[ConversationParkStore] = park_store
+        if self.park_store is None and park_dir is not None:
+            self.park_store = ConversationParkStore(park_dir)
+        if self.park_store is not None and self._injector is not None:
+            self.park_store.write_fault_hook = self._injector.on_park_write
+            self.park_store.read_fault_hook = self._injector.on_park_read
+        # in-process records of parked conversations (request, state, wall
+        # stamps): the ladder's last rung and the snapshot's parked section
+        self._parked: Dict[int, dict] = {}
+        # rid -> block it (re)entered decode: the idle sweep's clock
+        self._decode_since: Dict[int, int] = {}
+        self.park_copy_ms = 0.0
+        self.resume_copy_ms = 0.0
         self._disp_hist: Dict[str, Any] = {}
         self._last_tok_ts: Dict[int, float] = {}
         self.queue = AdmissionQueue()
-        self.rejected: List[Rejected] = []
+        self.rejected: List[Rejected] = _Rejections(self._stats["rejected"])
         self.slots: List[Optional[Request]] = [None] * b
         self._out: Dict[int, List[int]] = {}
         self._out_ts: Dict[int, List[float]] = {}
@@ -400,43 +643,18 @@ class ServeEngine:
         self._prefilling: Dict[int, _PrefillInFlight] = {}
         self._prefill_q: deque = deque()
         self._next_id = 0
-        self.blocks = 0
-        # plain counters, read as attributes
-        self.decode_blocks = 0
-        self.inserts = 0
+        # the virtual block the last round entered on and the pipeline depth
+        # then: load_summary's freshness stamp (JAX engine.py:704-712)
+        self._observed_pin = 0
+        self._entry_inflight = 0
+        # counters that are no serve_<key> family, plain attributes
         self.replays = 0
-        self.host_fetches = 0
         self.h2d_copies = 0
         self.nonfinite_logits = 0
-        self.deferred_admissions = 0
-        self.chunk_program_calls = 0
-        self.prefill_chunk_tokens_done = 0
-        self.prefill_aborts = 0
-        self.cancelled = 0
-        self.program_calls = 0
-        self.inserted_requests = 0
-        self.expired = 0
-        self.shed_evictions = 0
-        self.dispatch_retry_count = 0
-        self.corrupt_page_replays = 0
-        self.tier_page_repairs = 0
-        self.injected_corruptions = 0
-        self.restored_requests = 0
         self.tier_d2h_copies = 0
         self.tier_h2d_copies = 0
         self.tier_blocking_spills = 0
         self.recovery_fetches = 0
-        self.adapter_rejects = 0
-        self.adapter_load_retries = 0
-        self.grammar_rejects = 0
-        self.grammar_load_retries = 0
-        # the streaming report's aggregates (every finished stream)
-        self.completed_count = 0
-        self.generated_tokens = 0
-        self.ontime_tokens = 0
-        self.deadline_misses = 0
-        self.queue_blocks_sum = 0
-        self.ttft_blocks_sum = 0
         # recovery work (a corrupted page's readers, a restored snapshot's
         # streams): (request, tokens delivered, their stamps), re-admitted
         # ahead of fresh admissions
@@ -520,12 +738,12 @@ class ServeEngine:
     def _is_chunked(self, req: Request) -> bool:
         return bool(self.prefill_chunk_tokens and req.prompt.size > self.prefill_chunk_tokens)
 
-    def submit(self, prompt, max_new_tokens: int, sampler: Optional[Sampler] = None,
+    def submit(self, prompt=None, max_new_tokens: int = 0, sampler: Optional[Sampler] = None,
                eos_token_id: Optional[int] = None, arrival_block: int = 0,
                ttft_deadline_ms: Optional[float] = None, deadline_ms: Optional[float] = None,
                tenant: str = "default", adapter: Optional[str] = None,
-               grammar: Optional[str] = None,
-               request_id: Optional[int] = None) -> Union[int, Rejected]:
+               grammar: Optional[str] = None, request_id: Optional[int] = None,
+               resume: Optional[int] = None) -> Union[int, Rejected]:
         """Queue a request; returns its id, or the :class:`Rejected` verdict
         when the bounded queue sheds it on arrival (JAX ``engine.py:860``).
         A prompt longer than the largest bucket is accepted when it will be
@@ -533,7 +751,15 @@ class ServeEngine:
         the arrival block for the first token and the whole stream, turned
         into blocks at ``block_time_ms``; ``tenant`` is a label the
         completion carries; ``adapter`` and ``grammar`` name a registered
-        adapter and grammar."""
+        adapter and grammar. ``submit(resume=rid)`` takes no prompt: it
+        resumes parked conversation ``rid`` (:meth:`resume_parked`)."""
+        if resume is not None:
+            if prompt is not None:
+                raise ValueError("submit(resume=rid) takes no prompt: the parked record carries "
+                                 "the request")
+            return self.resume_parked(int(resume))
+        if prompt is None:
+            raise ValueError("prompt required (or pass resume=<parked id>)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -746,7 +972,11 @@ class ServeEngine:
         return max(1, -(-remaining // self.block_steps))
 
     def _note_pool_pressure(self, reqs: Sequence[Request]) -> None:
-        """A ``pool_defer`` mark on each deferred request's lane."""
+        """One pool-pressure episode: a block for the incident recorder's
+        storm detector and a ``pool_defer`` mark on each deferred request's
+        lane."""
+        if self.incident is not None:
+            self._pool_pressure_blocks.append(self.blocks)
         if self.tracer.enabled:
             free = self.session.paged.allocator.available() if self.paged else None
             for r in reqs:
@@ -770,6 +1000,8 @@ class ServeEngine:
         retry = self._retry_after()
         if pool_bound:
             retry = max(retry, self._pool_retry_after(victim))
+            if self.incident is not None:
+                self._pool_pressure_blocks.append(self.blocks)
         rej = Rejected(request_id=victim.request_id, retry_after_blocks=retry,
                        queue_depth=self.queue.arrived_count(self.blocks),
                        reason="pool_exhausted" if pool_bound else "queue_full")
@@ -816,6 +1048,7 @@ class ServeEngine:
         rid = req.request_id
         self._trace_req("expire", rid, generated=0, state="pre_decode", deadline_missed=True)
         waited = max(self.blocks - req.arrival_block, 0)
+        self._decode_since.pop(rid, None)
         self._emit_completion(Completion(
             request_id=rid, tokens=np.zeros((0,), np.int64), prompt_len=req.prompt.size,
             queue_blocks=waited, decode_blocks=0, ttft_blocks=waited,
@@ -823,6 +1056,8 @@ class ServeEngine:
             expired=True, deadline_missed=True, tenant=req.tenant, adapter=req.adapter,
             grammar=req.grammar, finish_reason="expired"))
         self._release_pins(req)
+        if self.incident is not None:
+            self._miss_blocks.append(self.blocks)
         self.expired += 1
 
     def _expire_queued(self) -> None:
@@ -901,6 +1136,11 @@ class ServeEngine:
                                         args={"kind": kind, "attempt": attempts,
                                               "error": str(e)})
                 if attempts > self.dispatch_retries:
+                    if self.incident is not None:
+                        self.incident.trigger(
+                            "dispatch_failstop", self.blocks,
+                            details={"kind": kind, "attempts": attempts, "error": str(e)},
+                            state=self.state_summary())
                     raise DispatchFailed(f"{kind} dispatch failed {attempts} times "
                                          f"(retry budget {self.dispatch_retries})") from e
                 delay = self.dispatch_backoff_s * (2 ** (attempts - 1))
@@ -952,6 +1192,35 @@ class ServeEngine:
             if self.grammar:
                 self.tracer.counter("grammar_pool_slots", ("cache", "grammar"),
                                     self.session.grammars.in_use(), block=self.blocks)
+        if self._slo is not None:
+            fired = self._slo.observe_block(self.blocks)
+            if fired and self.incident is not None:
+                self.incident.trigger("slo_burn", self.blocks, details={"alerts": fired},
+                                      state=self.state_summary(), slo=self.slo_status())
+        if self.incident is not None:
+            self._detect_bursts()
+
+    def _detect_bursts(self) -> None:
+        """The flight recorder's burst detectors (JAX ``engine.py:3512``):
+        ``incident_burst_threshold`` deadline misses, or as many
+        pool-pressure episodes, within the trailing ``incident_burst_window``
+        blocks is an incident; the recorder's per-kind gap keeps a storm to
+        one bundle a window."""
+        lo = self.blocks - self._burst_window
+        misses = sum(1 for b in self._miss_blocks if b > lo)
+        if misses >= self._burst_threshold and self.incident.trigger(
+                "deadline_miss_burst", self.blocks,
+                details={"misses_in_window": misses, "window_blocks": self._burst_window,
+                         "expired_total": self.expired, "rejected_total": len(self.rejected)},
+                state=self.state_summary(), slo=self.slo_status()):
+            self._miss_blocks.clear()
+        storms = sum(1 for b in self._pool_pressure_blocks if b > lo)
+        if storms >= self._burst_threshold and self.incident.trigger(
+                "pool_exhaustion_storm", self.blocks,
+                details={"episodes_in_window": storms, "window_blocks": self._burst_window,
+                         "deferred_total": self.deferred_admissions},
+                state=self.state_summary(), slo=self.slo_status()):
+            self._pool_pressure_blocks.clear()
 
     def request_timeline(self, request_id: int) -> List[dict]:
         """The request's recorded lifecycle, oldest first (JAX
@@ -1458,6 +1727,9 @@ class ServeEngine:
         ``expire`` or ``cancel`` mark stamped with the retiring ``block``."""
         rid = comp.request_id
         self._dfa.pop(rid, None)
+        self._decode_since.pop(rid, None)
+        if self.incident is not None and comp.deadline_missed:
+            self._miss_blocks.append(block)
         comp.tokens = np.asarray(self._out.pop(rid), np.int64)
         comp.token_ts = np.asarray(self._out_ts.pop(rid), np.float64)
         self._last_tok_ts.pop(rid, None)
@@ -1747,6 +2019,8 @@ class ServeEngine:
             self._flush(recovery=True)
             self._retire_finished()
         bad = {int(p) for p in pages}
+        all_bad = sorted(bad)
+        before = (self.corrupt_page_replays, self.tier_page_repairs)
         if self.tracer.enabled:
             self.tracer.instant("fault:corrupt_pages", (self.lane, "faults"), block=self.blocks,
                                 args={"pages": sorted(bad)})
@@ -1756,6 +2030,7 @@ class ServeEngine:
             self.tier_page_repairs += len(repaired)
             bad -= repaired
             if not bad:
+                self._incident_corruption(all_bad, *before)
                 return
         if pkv.prefix is not None:
             pkv.prefix.invalidate_pages(sorted(bad))
@@ -1780,7 +2055,349 @@ class ServeEngine:
             self._replay_tokens += req.max_new_tokens
             self.corrupt_page_replays += 1
             self._trace_req("corrupt_replay", rid, delivered=len(pregen))
+        self._incident_corruption(all_bad, *before)
         self._drain_replays()
+
+    def _incident_corruption(self, pages: List[int], replays_before: int,
+                             repairs_before: int) -> None:
+        """The flight recorder's bundle for one corruption episode (JAX
+        ``engine.py:2454``): the pages, how many were repaired from the tier
+        and how many streams replay."""
+        if self.incident is None:
+            return
+        self.incident.trigger(
+            "page_corruption", self.blocks,
+            details={"pages": pages, "replays": self.corrupt_page_replays - replays_before,
+                     "tier_repairs": self.tier_page_repairs - repairs_before},
+            state=self.state_summary(), slo=self.slo_status())
+
+    # --- the conversation tier: park and resume ----------------------------
+    # An idle decoding stream's KV pages and state go to the park store
+    # (conversation_tier.py) and the stream leaves the device and the host
+    # tier entirely; a resume re-adopts the pages into a free slot with no
+    # re-prefill. Any degradation (a state-only park, a torn manifest, a
+    # read fault, corrupt bytes, a foreign tp_degree or page_dtype) lands on
+    # the replay path, whose stream is the cold one.
+
+    def resume(self, req: Request, generated: Sequence[int] = ()) -> int:
+        """Queue a replay of ``req`` (JAX ``engine.py:2685``): its KV is
+        rebuilt from the prompt and ``generated`` at the next round and the
+        stream goes on at token ``len(generated)``."""
+        self._next_id = max(self._next_id, req.request_id + 1)
+        req.start_block = None
+        req.first_token_block = None
+        self._replay_q.append((req, [int(t) for t in generated], []))
+        self._replay_tokens += req.max_new_tokens
+        return req.request_id
+
+    def _parked_request(self, st: dict, delta: int) -> Request:
+        """A :class:`Request` from a parked state, every block stamp moved
+        by ``delta`` (the blocks spent parked are off the clock)."""
+        def shift(v):
+            return None if v is None else int(v) + delta
+
+        req = Request(request_id=int(st["request_id"]),
+                      prompt=np.asarray(st["prompt"], np.int32),
+                      max_new_tokens=int(st["max_new_tokens"]),
+                      eos_token_id=st.get("eos_token_id"),
+                      temperature=float(st.get("temperature", 0.0)),
+                      greedy=bool(st.get("greedy", True)),
+                      arrival_block=int(st.get("arrival_block", 0)) + delta,
+                      submit_block=self.blocks,
+                      ttft_deadline_block=shift(st.get("ttft_deadline_block")),
+                      deadline_block=shift(st.get("deadline_block")),
+                      tenant=st.get("tenant", "default"), adapter=st.get("adapter"),
+                      grammar=st.get("grammar"))
+        req.start_block = shift(st.get("start_block"))
+        req.first_token_block = shift(st.get("first_token_block"))
+        return req
+
+    def park(self, request_id: int) -> str:
+        """Park one decoding conversation in the durable tier and evict it
+        from the device and the host tier (JAX ``engine.py:2741``). Returns
+        ``"parked"`` (an injected write fault, state-only or torn, shows at
+        resume) or ``"retired"`` when the pipelined loop's drain finds the
+        stream finished. The pages are read and the store written before
+        any engine state changes: a storage exception leaves the stream
+        live. From the durable write on, the slot, its pages and its pins
+        are released."""
+        if self.park_store is None:
+            raise ValueError("parking requires park_dir/park_store at construction")
+        rid = int(request_id)
+        slot = next((i for i, r in enumerate(self.slots)
+                     if r is not None and r.request_id == rid), None)
+        if slot is None or slot in self._prefilling:
+            raise ValueError(f"request {rid} is not a decoding stream")
+        if self.async_loop:
+            # a sync point: the block in flight may emit for (or finish)
+            # this stream; drain, then retire what the drain finished
+            self._flush(recovery=True)
+            self._retire_finished()
+            if self.slots[slot] is None or self.slots[slot].request_id != rid:
+                return "retired"
+        if self._done[slot] or rid in self._ended:
+            return "retired"
+        req = self.slots[slot]
+        t0 = time.perf_counter()
+        generated = [int(t) for t in self._out[rid]]
+        # the stream-state invariant: the cache covers the prompt and every
+        # token but the last, which waits unfed in _tok
+        covered = [int(t) for t in req.prompt] + generated[:-1]
+        length = int(self.session.lengths[slot])
+        assert length == len(covered), (length, len(covered))
+        pkv = self.session.paged
+        n_copy = -(-length // pkv.page_size)
+        t1 = time.perf_counter()
+        pages = self._read_pages_bytes([int(p) for p in pkv.tables[slot][:n_copy]])
+        self.park_copy_ms += (time.perf_counter() - t1) * 1e3
+        key = request_seed(self.seed, rid)
+        state = {
+            "request_id": rid, "prompt": [int(t) for t in req.prompt],
+            "max_new_tokens": int(req.max_new_tokens),
+            "eos_token_id": None if req.eos_token_id is None else int(req.eos_token_id),
+            "temperature": float(req.temperature), "greedy": bool(req.greedy),
+            "arrival_block": int(req.arrival_block),
+            "ttft_deadline_block": req.ttft_deadline_block,
+            "deadline_block": req.deadline_block, "tenant": req.tenant,
+            "adapter": req.adapter, "grammar": req.grammar,
+            "grammar_state": (self._dfa.get(rid) if self.grammar and req.grammar is not None
+                              else None),
+            "generated": generated, "length": length, "parked_block": int(self.blocks),
+            "start_block": req.start_block, "first_token_block": req.first_token_block,
+            # the request's key as two uint32 words: the park is
+            # self-contained (JAX stamps its key data here)
+            "rng_key": [key & 0xFFFFFFFF, (key >> 32) & 0xFFFFFFFF],
+        }
+        manifest_id, _verdict = self.park_store.park(
+            rid, state, [to_store_page(p) for p in pages], tp_degree=1,
+            page_dtype=self._page_dtype())
+        # the durable write landed: evict (prefix entries first, while the
+        # slot still lists its pages), then the device state and the mirrors
+        pkv.purge_conversation(slot, tokens=covered, ns=req.adapter)
+        self.lm.retire(self.session, np.asarray([slot], np.int32))
+        self.slots[slot] = None
+        self._active[slot] = False
+        self._done[slot] = False
+        self._release_pins(req)
+        self._set_tenancy(slot, None)
+        self._tok_from.pop(slot, None)
+        self._staged.add(slot)
+        self._out.pop(rid, None)
+        self._dfa.pop(rid, None)
+        self._finish_reason.pop(rid, None)
+        self._decode_since.pop(rid, None)
+        self._parked[rid] = {"req": req, "state": state, "manifest_id": manifest_id,
+                             "parked_block": int(self.blocks),
+                             "out_ts": self._out_ts.pop(rid, []),
+                             "last_tok_ts": self._last_tok_ts.pop(rid, None),
+                             "submit_ts": self._submit_ts.pop(rid, None)}
+        self.parked += 1
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self._m_park.observe(dt_ms)
+        if self.tracer.enabled:
+            self._trace_req("park", rid, slot=int(slot), pages=n_copy,
+                            generated=len(generated), manifest=manifest_id, ms=round(dt_ms, 3))
+            self.tracer.instant("tier:park", (self.lane, "tier"), block=self.blocks,
+                                args={"rid": rid, "pages": n_copy, "manifest": manifest_id})
+        return "parked"
+
+    def _sweep_idle_parks(self) -> None:
+        """Park every stream that has decoded ``park_idle_blocks`` blocks
+        since it (re)entered decode, on the virtual clock (JAX
+        ``engine.py:2866``); resume is explicit, and parked conversations
+        never hold up a drain."""
+        if self.park_store is None or not self.park_idle_blocks:
+            return
+        for slot, req in enumerate(self.slots):
+            if req is None or slot in self._prefilling or self._done[slot]:
+                continue
+            since = self._decode_since.setdefault(req.request_id, self.blocks)
+            if self.blocks - since >= self.park_idle_blocks:
+                self.park(req.request_id)
+
+    def _park_deferred(self, rid: int, reason: str) -> Rejected:
+        """A resume that cannot run now (no slot, pool or pin pressure): the
+        park record stays as it is; retry after the pool estimate."""
+        rej = Rejected(request_id=rid, retry_after_blocks=max(self._pool_retry_after(), 1),
+                       queue_depth=self.queue.arrived_count(self.blocks), reason=reason)
+        self._trace_req("park_defer", rid, reason=reason,
+                        retry_after_blocks=rej.retry_after_blocks)
+        return rej
+
+    def _resume_degraded(self, rid: int, st: Optional[dict], reason: str,
+                         corrupt: bool) -> Union[int, Rejected]:
+        """The degradation ladder's landing (JAX ``engine.py:2900``): re-prefill
+        through the replay path from ``st``, the best surviving state (the
+        durable one, the recovered state shard, or the in-process record);
+        with none, ``Rejected("park_unresumable")``."""
+        rec = self._parked.get(rid)
+        if st is None and rec is not None:
+            st = rec["state"]
+        if st is None:
+            rej = Rejected(request_id=rid, retry_after_blocks=0,
+                           queue_depth=self.queue.arrived_count(self.blocks),
+                           reason="park_unresumable")
+            self.rejected.append(rej)
+            self.park_rejects += 1
+            self._trace_req("reject", rid, reason="park_unresumable", cause=reason)
+            return rej
+        delta = self.blocks - int(st.get("parked_block", self.blocks))
+        req = self._parked_request(st, delta)
+        generated = [int(t) for t in st.get("generated", [])]
+        self.park_replays += 1
+        if self.tracer.enabled:
+            if corrupt:
+                self.tracer.instant("tier:park_corrupt", (self.lane, "tier"), block=self.blocks,
+                                    args={"rid": rid, "cause": reason})
+            self.tracer.instant("tier:park_degraded", (self.lane, "tier"), block=self.blocks,
+                                args={"rid": rid, "cause": reason})
+        # a corrupt or torn store was quarantined (kept for post-mortem); a
+        # clean but unusable one is consumed
+        if not corrupt:
+            self.park_store.remove(rid)
+        self._parked.pop(rid, None)
+        if rec is not None and rec.get("submit_ts") is not None:
+            self._submit_ts[rid] = rec["submit_ts"]
+        out = self.resume(req, generated)
+        if rec is not None and len(rec.get("out_ts", ())) == len(generated):
+            self._replay_q[-1] = (req, generated, list(rec["out_ts"]))
+        return out
+
+    def resume_parked(self, request_id: int) -> Union[int, Rejected]:
+        """Resume a parked conversation without re-prefill (JAX
+        ``engine.py:2943``): load and verify the record, re-adopt its pages
+        into a free slot, and go on at the exact token where it stopped.
+        Returns the id; ``Rejected("park_deferred")`` when no slot, pool
+        room or pin is free now (the record is kept: retry later);
+        ``Rejected("park_unresumable")`` when nothing of it survives. Every
+        integrity failure degrades to the replay path."""
+        if self.park_store is None:
+            raise ValueError("resume requires park_dir/park_store at construction")
+        rid = int(request_id)
+        if self.async_loop:
+            # a sync point: page adoption lands on a true block boundary
+            self._flush(recovery=True)
+            self._retire_finished()
+        t0 = time.perf_counter()
+        try:
+            parked = self.park_store.load(rid)
+        except ParkIntegrityError as e:
+            # torn or corrupt (quarantined): the state shard may still verify
+            return self._resume_degraded(rid, self.park_store.recover_state(rid),
+                                         reason=str(e), corrupt=True)
+        except ParkError as e:
+            return self._resume_degraded(rid, self.park_store.recover_state(rid),
+                                         reason=str(e), corrupt=False)
+        st = parked.state
+        if parked.payloads is None:
+            return self._resume_degraded(rid, st, reason="state_only_park", corrupt=False)
+        if parked.tp_degree != 1:
+            return self._resume_degraded(rid, st, reason=f"tp_mismatch:{parked.tp_degree}",
+                                         corrupt=False)
+        if parked.page_dtype != self._page_dtype():
+            return self._resume_degraded(
+                rid, st, reason=f"page_dtype_mismatch:{parked.page_dtype}", corrupt=False)
+        generated = [int(t) for t in st["generated"]]
+        length = int(st["length"])
+        prompt = np.asarray(st["prompt"], np.int32)
+        covered = [int(t) for t in prompt] + generated[:-1]
+        pkv = self.session.paged
+        try:
+            payloads = [from_store_page(p) for p in parked.payloads]
+        except ParkIntegrityError:
+            payloads = None
+        if (payloads is None or length != len(covered) or not generated
+                or len(payloads) != -(-length // pkv.page_size)
+                or any(set(p) != set(self._page_pools()) for p in payloads)):
+            # verified, but the state does not fit the framing: re-prefill
+            return self._resume_degraded(rid, st, reason="state_mismatch", corrupt=False)
+        delta = self.blocks - int(st["parked_block"])
+        rec = self._parked.get(rid)
+        req = self._parked_request(st, delta)
+        free = self._free_slots()
+        if not free:
+            return self._park_deferred(rid, "park_deferred")
+        if not self._pool_can_admit(req):
+            self._note_pool_pressure([req])
+            return self._park_deferred(rid, "park_deferred")
+        # pins before page work; a deferral releases what it took, and the
+        # park record stays whole
+        for kind, pins in (("adapter", self._adapter_pins), ("grammar", self._grammar_pins)):
+            name = getattr(req, kind)
+            if name is None or not getattr(self, "lora" if kind == "adapter" else "grammar") \
+                    or rid in pins:
+                continue
+            try:
+                getattr(self.session, kind + "s").acquire(name)
+            except (AdapterPoolExhausted, AdapterLoadError, GrammarPoolExhausted,
+                    GrammarLoadError):
+                self._release_pins(req)
+                return self._park_deferred(rid, "park_deferred")
+            pins[rid] = name
+        slot = free[0]
+        t1 = time.perf_counter()
+        try:
+            pkv.adopt_pages(slot, covered, payloads, self._write_pages_bytes,
+                            prompt.size + req.max_new_tokens
+                            + self._reserve_slack(req.eos_token_id is not None), ns=req.adapter)
+        except PagePoolExhausted:
+            self._release_pins(req)
+            self._note_pool_pressure([req])
+            return self._park_deferred(rid, "park_deferred")
+        self.resume_copy_ms += (time.perf_counter() - t1) * 1e3
+        self._next_id = max(self._next_id, rid + 1)
+        self.slots[slot] = req
+        now = time.perf_counter()
+        self._out[rid] = list(generated)
+        if rec is not None and rec.get("out_ts"):
+            self._out_ts[rid] = list(rec["out_ts"])
+            self._last_tok_ts[rid] = rec.get("last_tok_ts") or rec["out_ts"][-1]
+        else:
+            self._out_ts[rid] = [now] * len(generated)
+            self._last_tok_ts[rid] = now
+        if rec is not None and rec.get("submit_ts") is not None:
+            self._submit_ts[rid] = rec["submit_ts"]
+        self.session.lengths[slot] = length
+        self.session.active[slot] = True
+        self._active[slot] = True
+        self._done[slot] = False
+        self._ended.discard(rid)
+        self._eos[slot] = -1 if req.eos_token_id is None else req.eos_token_id
+        self._temp[slot] = req.temperature
+        self._greedy[slot] = req.greedy
+        # the stream state restored exactly: the last token waits unfed and
+        # the next draw is at counter len(generated) under the parked key
+        self._tok[slot] = int(generated[-1])
+        lo, hi = (int(v) for v in st["rng_key"])
+        self._keys[slot] = split_key(lo | (hi << 32))
+        self._gen_counts[slot] = len(generated)
+        # the DFA state from the delivered tokens (the walk is authoritative)
+        gstate = (self._grammar_walk(req.grammar, 0, generated)
+                  if self.grammar and req.grammar is not None else 0)
+        self._set_tenancy(slot, req, gstate)
+        self._staged.add(slot)
+        self.resumed += 1
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self._m_park_resume.observe(dt_ms)
+        if self.tracer.enabled:
+            self._trace_req("resume", rid, ts=now, slot=int(slot), pages=len(payloads),
+                            generated=len(generated), parked_blocks=delta, ms=round(dt_ms, 3))
+            self.tracer.instant("tier:resume", (self.lane, "tier"), block=self.blocks,
+                                args={"rid": rid, "pages": len(payloads),
+                                      "parked_blocks": delta})
+        # the record is consumed: a second resume needs a new park
+        self.park_store.remove(rid)
+        self._parked.pop(rid, None)
+        self._decode_since[rid] = self.blocks
+        return rid
+
+    def parked_ids(self) -> List[int]:
+        """Ids resumable now: the store's complete parks and this process's
+        in-memory park records (JAX ``engine.py:3116``)."""
+        ids = set(self._parked)
+        if self.park_store is not None:
+            ids.update(self.park_store.list_parked())
+        return sorted(ids)
 
     # --- snapshot / restore ------------------------------------------------
 
@@ -1845,12 +2462,19 @@ class ServeEngine:
                 "shed_policy": self.shed_policy, "block_time_ms": self.block_time_ms,
                 "dispatch_retries": self.dispatch_retries,
                 "host_tier_pages": self.host_tier_pages, "paged": self.paged,
-                "async_loop": self.async_loop, "park_idle_blocks": 0, "park_dir": None,
+                "async_loop": self.async_loop, "park_idle_blocks": self.park_idle_blocks,
+                "park_dir": self.park_store.dirname if self.park_store is not None else None,
             },
             # tier content is not kept (host buffers die with the process);
             # the restored engine re-enables an empty tier and re-prefills
             "requests": reqs,
-            "parked": [],
+            # parked conversations ride by manifest id: the durable copy is in
+            # the store, and this record is the ladder's last rung
+            "parked": [dict(enc(rec["req"], "parked", rec["state"]["generated"]),
+                            manifest_id=rec["manifest_id"], parked_block=rec["parked_block"],
+                            start_block=rec["state"].get("start_block"),
+                            first_token_block=rec["state"].get("first_token_block"))
+                       for _rid, rec in sorted(self._parked.items())],
         }
 
     def save_snapshot(self, path: str) -> None:
@@ -1877,23 +2501,27 @@ class ServeEngine:
         a snapshot: ``adapters`` (``{name: (lora_params, lora_config)}``)
         and ``grammars`` (``{name: {"regex": ...} | {"json_schema": ...}}``)
         register them again, and each replay pins its own (JAX
-        ``engine.py:3334-3346``). Snapshots with parked conversations (not
-        ported) are refused."""
+        ``engine.py:3334-3346``). Parked conversations (JAX ``:3374-3419``)
+        stay parked, by manifest id, when the restored engine has a park
+        store (the snapshot's ``park_dir`` or a ``park_store`` override):
+        ``submit(resume=rid)`` re-adopts their pages, and a record the store
+        lost replays from the snapshot's; with no store they replay."""
         if isinstance(snap, str):
             with open(snap) as f:
                 snap = json.load(f)
         if snap.get("version") != 1:
             raise ValueError(f"unknown snapshot version {snap.get('version')}")
-        if snap.get("parked"):
-            raise ValueError("the snapshot holds parked conversations: parking is not ported "
-                             "(ROADMAP A8.5)")
         cfg = dict(snap.get("config", {}))
         cfg.pop("paged", None)   # the lm decides
-        if cfg.pop("park_idle_blocks", 0) or cfg.pop("park_dir", None) is not None:
-            raise ValueError("the snapshot's engine parked conversations: parking is not "
-                             "ported (ROADMAP A8.5)")
         if not lm.paged:
-            cfg.pop("host_tier_pages", None)
+            # neither the tier nor parking means anything on the slab; parked
+            # entries below replay
+            for k in ("host_tier_pages", "park_idle_blocks", "park_dir"):
+                cfg.pop(k, None)
+        if cfg.get("park_dir") is None:
+            cfg.pop("park_dir", None)
+            if "park_store" not in overrides:
+                cfg.pop("park_idle_blocks", None)
         cfg.update(overrides)
         if not cfg.get("fused", True):
             cfg.pop("async_loop", None)
@@ -1926,11 +2554,126 @@ class ServeEngine:
                 # the queued ones (listed first)
                 eng.queue.append(req)
             eng.restored_requests += 1
+        for rd in snap.get("parked", []):
+            eng._validate_tenancy(rd.get("adapter"), rd.get("grammar"),
+                                  int(rd["max_new_tokens"]))
+            req = Request(request_id=int(rd["request_id"]),
+                          prompt=np.asarray(rd["prompt"], np.int32),
+                          max_new_tokens=int(rd["max_new_tokens"]),
+                          eos_token_id=rd["eos_token_id"],
+                          temperature=float(rd["temperature"]), greedy=bool(rd["greedy"]),
+                          arrival_block=int(rd["arrival_block"]), submit_block=eng.blocks,
+                          ttft_deadline_block=rd.get("ttft_deadline_block"),
+                          deadline_block=rd.get("deadline_block"),
+                          tenant=rd.get("tenant", "default"), adapter=rd.get("adapter"),
+                          grammar=rd.get("grammar"))
+            generated = [int(t) for t in rd["generated"]]
+            state = {k: rd.get(k) for k in (
+                "request_id", "prompt", "max_new_tokens", "eos_token_id", "temperature",
+                "greedy", "arrival_block", "ttft_deadline_block", "deadline_block", "tenant",
+                "adapter", "grammar", "grammar_state", "generated", "start_block",
+                "first_token_block")}
+            state["parked_block"] = int(rd.get("parked_block", eng.blocks))
+            state["length"] = len(rd["prompt"]) + len(generated) - 1
+            if eng.park_store is None:
+                # no durable store to resume from: the record re-prefills now
+                eng._replay_q.append((req, generated, []))
+                eng._replay_tokens += req.max_new_tokens
+            else:
+                eng._parked[req.request_id] = {
+                    "req": req, "state": state, "manifest_id": rd.get("manifest_id"),
+                    "parked_block": state["parked_block"], "out_ts": [], "last_tok_ts": None,
+                    "submit_ts": None}
+            eng.restored_requests += 1
         if eng.tracer.enabled:
             eng.tracer.instant("restore", (eng.lane, "snapshot"), block=eng.blocks,
-                               args={"requests": len(snap["requests"])})
+                               args={"requests": len(snap["requests"])
+                                     + len(snap.get("parked", []))})
         eng._drain_replays()
         return eng
+
+    # --- analysis: attribution, SLOs, the load and state cards --------------
+
+    def request_attribution(self, request_id: int) -> Optional[dict]:
+        """One request's submit-to-terminal span as named phases on the
+        virtual block clock, summing to its end-to-end latency
+        (``observability/attribution.py``); None when tracing was off."""
+        return _attribution.request_attribution(self.tracer, request_id)
+
+    def attribution_report(self) -> dict:
+        """The phase mix over every traced request (per tenant when the
+        trace labels tenants)."""
+        return _attribution.attribution_report(self.tracer)
+
+    def explain_deadline_miss(self, request_id: int) -> dict:
+        """The phase that burned a missed deadline's budget."""
+        return _attribution.explain_deadline_miss(self.tracer, request_id)
+
+    def slo_status(self) -> Optional[dict]:
+        """Per objective: compliance, burn and alerts (None without
+        ``slos``)."""
+        return None if self._slo is None else self._slo.status()
+
+    def load_summary(self) -> ReplicaLoad:
+        """The engine's load as one :class:`ReplicaLoad` (JAX
+        ``engine.py:4056``)."""
+        free = len(self._free_slots())
+        backlog = len(self.queue) + len(self._prefilling) + len(self._replay_q)
+        pkv = self.session.paged if self.paged else None
+        pages_free = pkv.allocator.available() if pkv is not None else None
+        retry = self._pool_retry_after()
+        est = (0 if (free > len(self.queue) and backlog - len(self.queue) == 0
+                     and (pages_free is None or pages_free > 0))
+               else retry + backlog)
+        return ReplicaLoad(
+            role="both", queue_depth=len(self.queue), prefilling=len(self._prefilling),
+            replays=len(self._replay_q), backlog=backlog,
+            active_slots=sum(1 for r in self.slots if r is not None), free_slots=free,
+            est_ttft_blocks=int(est), pool_retry_after_blocks=int(retry),
+            inflight_tokens=int(sum(r.max_new_tokens - self._delivered(i)
+                                    for i, r in enumerate(self.slots) if r is not None)),
+            queued_tokens=int(self.queue.tokens()),
+            pages_in_use=pkv.allocator.in_use() if pkv is not None else None,
+            pages_free=pages_free,
+            tier_pages=pkv.tier_pages() if pkv is not None and pkv.tier is not None else None,
+            adapters_resident=sorted(self.session.adapters.resident) if self.lora else None,
+            slo_alerting=self._slo is not None and self._slo.alerting(),
+            decode_blocks=int(self.decode_blocks), inserted_requests=int(self.inserted_requests),
+            observed_block=self._observed_pin - max(len(self._inflight), self._entry_inflight),
+            parked=len(self._parked))
+
+    def state_summary(self) -> dict:
+        """The scheduler's state as one JSON-able card (JAX
+        ``engine.py:4108``), the incident bundle's engine section: the
+        queue and slots, each live stream's progress, the pools, the load
+        card and every ``serve_<key>`` counter."""
+        slots = [{"slot": slot, "request_id": req.request_id, "tenant": req.tenant,
+                  "generated": len(self._out.get(req.request_id, ())),
+                  "max_new_tokens": req.max_new_tokens, "prefilling": slot in self._prefilling,
+                  "done": bool(self._done[slot])}
+                 for slot, req in enumerate(self.slots) if req is not None]
+        load = self.load_summary()
+        out = {"engine": self.lane, "role": load.role, "blocks": int(self.blocks),
+               "queue_depth": load.queue_depth,
+               "arrived_depth": self.queue.arrived_count(self.blocks),
+               "prefilling": load.prefilling, "replay_pending": load.replays, "slots": slots,
+               "parked": sorted(self._parked), "completed": len(self.completed),
+               "rejected": len(self.rejected), "load": load.to_dict(),
+               "stats": {k: c.value for k, c in self._stats.items()}}
+        pkv = self.session.paged if self.paged else None
+        if pkv is not None:
+            out["pool"] = {"pages": pkv.num_pages, "in_use": pkv.allocator.in_use(),
+                           "free": pkv.allocator.available()}
+            if pkv.tier is not None:
+                out["tier"] = {"max_pages": pkv.tier.max_pages,
+                               "resident_pages": pkv.tier_pages()}
+        for kind, on in (("adapters", self.lora), ("grammars", self.grammar)):
+            if on:
+                pool = getattr(self.session, kind)
+                out[kind] = {"slots": pool.n_slots, "resident": sorted(pool.resident),
+                             "pinned": {n: pool.pinned(n) for n in sorted(pool.resident)
+                                        if pool.pinned(n)}}
+        return out
 
     # --- the block loop --------------------------------------------------
 
@@ -1942,8 +2685,13 @@ class ServeEngine:
         tokens, record emissions, expire streams past their completion
         deadline, retire finished slots. Returns False when there is
         nothing left to do. With ``async_loop`` the round replays block t
-        before it harvests block t - 1 (:meth:`_step_block_async`)."""
+        before it harvests block t - 1 (:meth:`_step_block_async`). A round
+        opens with the park tier's idle sweep (:meth:`_sweep_idle_parks`),
+        which drains the pipeline first."""
+        self._observed_pin = int(self.blocks)
+        self._entry_inflight = len(self._inflight)
         self.queue.advance(self.blocks)
+        self._sweep_idle_parks()  # idle streams go to the durable tier
         self._drain_replays()     # recovery work goes in ahead of fresh admissions
         self._admit()
         self._retire_finished()   # a 1-token budget finishes at insert time
@@ -2250,8 +2998,19 @@ class ServeEngine:
                 break
         if drained and snapshot_path and os.path.exists(snapshot_path):
             os.remove(snapshot_path)
-        self._m_dropped.set(self.tracer.dropped)   # retire marks land after the last block's
+        self._sync_compile_metrics()
         return self.completed
+
+    def _sync_compile_metrics(self) -> None:
+        """Mirror the ``CausalLM``'s capture ms (the port's counterpart of a
+        compile: the decode block's CUDA-graph capture) into the
+        ``compile_ms{program=...}`` gauges (JAX ``engine.py:4174``), and
+        refresh the drop counter (retire marks land after the last block's
+        sample)."""
+        for sig, ms in getattr(self.lm, "capture_ms", getattr(self.lm, "compile_ms", {})).items():
+            self.metrics.gauge("compile_ms", help="first-call capture wall ms",
+                               program=sig).set(ms)
+        self._m_dropped.set(self.tracer.dropped)
 
 
 # --- the serving report ----------------------------------------------------
@@ -2312,6 +3071,41 @@ def interblock_gap_report(tracer: Tracer, lanes: List[Any]) -> dict:
         out.update({"fetch_blocked_ms_p50": round(float(np.percentile(blocked, 50)), 3),
                     "fetch_blocked_ms_mean": round(float(np.mean(blocked)), 3)})
     return out
+
+
+def _drain_parked(engine: ServeEngine, dead: set) -> bool:
+    """One round of ``run_trace``'s park drain (JAX ``engine.py:4527``): with
+    ``park_idle_blocks`` set, resume every parked conversation (the finite
+    trace's stand-in for its user coming back) and step once when none
+    could resume; returns whether the engine has work again. ``dead``
+    collects the ids whose resume was refused for good."""
+    if not engine.park_idle_blocks:
+        return False
+    pending = [r for r in engine.parked_ids() if r not in dead]
+    if not pending:
+        return False
+    resumed = 0
+    for rid in pending:
+        out = engine.submit(resume=rid)
+        if isinstance(out, Rejected):
+            if out.reason != "park_deferred":
+                dead.add(rid)
+        else:
+            resumed += 1
+    return bool(resumed) or engine.step_block()
+
+
+def park_report(engine: ServeEngine) -> dict:
+    """The park tier's report keys (JAX ``engine.py:4656``), empty without a
+    park store: ``parked_bytes`` is the durable footprint of what is still
+    parked, which holds no device or host page."""
+    if engine.park_store is None:
+        return {}
+    return {"park_idle_blocks": engine.park_idle_blocks, "parked": engine.parked,
+            "resumed": engine.resumed, "park_replays": engine.park_replays,
+            "park_rejects": engine.park_rejects, "parked_remaining": len(engine.parked_ids()),
+            "parked_bytes": int(sum(engine.park_store.parked_bytes(r)
+                                    for r in engine.park_store.list_parked()))}
 
 
 def _submit_item(submit, item: dict) -> Union[int, Rejected]:
@@ -2417,10 +3211,17 @@ def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[i
     submitted when the clock reaches its arrival, and the report is built
     from the engine's counters and histograms alone.
 
-    Left out with the features they read (ROADMAP A8): parking and
-    ``tp_degree``. The port's ``host_ops_per_block`` counts its
-    slot-state copies beside program calls and fetches (``h2d_copies``,
-    also reported)."""
+    The park tier (JAX ``engine.py:4520-4540``, ``:4656-4670``): a run whose
+    engine auto-parks (``park_idle_blocks``) resumes every parked
+    conversation once the queue drains and drives the engine again, until
+    none is left (``park_deferred`` retries, any other verdict is final);
+    with a park store the report holds ``park_idle_blocks``, ``parked``,
+    ``resumed``, ``park_replays``, ``park_rejects``, ``parked_remaining``
+    and ``parked_bytes``.
+
+    Left out with the feature it reads (ROADMAP A8.7): ``tp_degree``. The
+    port's ``host_ops_per_block`` counts its slot-state copies beside
+    program calls and fetches (``h2d_copies``, also reported)."""
     if not engine.keep_completions:
         return _run_trace_streaming(engine, trace, max_blocks=max_blocks,
                                     snapshot_path=snapshot_path)
@@ -2433,6 +3234,10 @@ def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[i
         tenant_of[rid] = item.get("tenant", "default")
     t0 = time.perf_counter()
     completions = engine.run(max_blocks=max_blocks, snapshot_path=snapshot_path)
+    dead: set = set()
+    while _drain_parked(engine, dead):
+        # run() returns the cumulative finish-order list: rebind, not extend
+        completions = engine.run(max_blocks=max_blocks, snapshot_path=snapshot_path)
     wall_s = time.perf_counter() - t0
     total_tokens = int(sum(len(c.tokens) for c in completions))
     decode_blocks = max(engine.decode_blocks, 1)
@@ -2507,6 +3312,7 @@ def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[i
         "recovery_fetches": engine.recovery_fetches,
         "trace_events": len(engine.tracer.events()),
         "trace_events_dropped": engine.tracer.dropped,
+        **park_report(engine),
     })
     if any(t != "default" for t in tenant_of.values()):
         report["per_tenant"] = per_tenant_report(
@@ -2574,6 +3380,7 @@ def _run_trace_streaming(engine: ServeEngine, trace: Iterable[dict],
                          "per-request record the snapshot would serialize)")
     it = iter(trace)
     nxt = next(it, None)
+    dead: set = set()
     submitted = 0
     has_deadlines = False
     t0 = time.perf_counter()
@@ -2589,9 +3396,9 @@ def _run_trace_streaming(engine: ServeEngine, trace: Iterable[dict],
         n += 1
         if max_blocks is not None and n >= max_blocks:
             break
-        if not more and nxt is None:
+        if not more and nxt is None and not _drain_parked(engine, dead):
             break
-    engine._m_dropped.set(engine.tracer.dropped)
+    engine._sync_compile_metrics()
     wall_s = time.perf_counter() - t0
     completed = engine.completed_count
     total_tokens = engine.generated_tokens
@@ -2629,4 +3436,5 @@ def _run_trace_streaming(engine: ServeEngine, trace: Iterable[dict],
                                if has_deadlines and submitted else None),
         "deferred_admissions": engine.deferred_admissions,
         "dispatch_retries": engine.dispatch_retry_count,
+        **park_report(engine),
     }

@@ -579,8 +579,11 @@ class PagedKVCache:
     dropped, spills not included), ``pages_in_use_peak`` and the tier's
     ``tier_spilled_pages``, ``tier_restored_pages``, ``tier_hits``
     (admissions that restored), ``tier_restore_failures`` and
-    ``tier_repaired_pages``; ``_restore_ms`` holds the wall ms of each
-    restore and repair (checksum, page allocation, device write)."""
+    ``tier_repaired_pages``, and ``adopted_pages`` (pages written from a
+    park record, :meth:`adopt_pages`); ``_restore_ms`` holds the wall ms of
+    each restore and repair (checksum, page allocation, device write).
+    :meth:`attach_observability` wires the engine's tracer and metrics into
+    the cache's seams (JAX ``paged_cache.py:909``)."""
 
     def __init__(self, page_size: int, num_pages: int, max_batch: int,
                  max_seq_len: int, prefix_cache: bool = True):
@@ -611,10 +614,17 @@ class PagedKVCache:
         self.tier_hits = 0
         self.tier_restore_failures = 0
         self.tier_repaired_pages = 0
+        self.adopted_pages = 0
         # host tier (enable_tier) and the device write restores go through
         self.tier: Optional[HostPageTier] = None
         self._write_page: Optional[Callable[[int, Dict[str, np.ndarray]], None]] = None
         self._restore_ms: List[float] = []
+        # observability (attach_observability); None: no-ops
+        self._tracer = None
+        self._block_fn: Optional[Callable[[], int]] = None
+        self._m_prefix = None
+        self._m_restore = None
+        self._m_tier_bytes = None
 
     # --- host tier -------------------------------------------------------
 
@@ -641,11 +651,14 @@ class PagedKVCache:
         if self.prefix is None:
             return 0
         spilled = self.prefix.spill(n)
-        self.tier_spilled_pages += spilled
+        if spilled:
+            self.tier_spilled_pages += spilled
+            self._note_tier("tier:spill", pages=spilled)
         dropped = 0
         if spilled < n:
             dropped = self.prefix.evict(n - spilled)
             self.evicted_pages += dropped
+            self._note_evict(dropped)
         return spilled + dropped
 
     def _alloc_with_reclaim(self, n: int) -> Optional[List[int]]:
@@ -668,8 +681,9 @@ class PagedKVCache:
         t0 = time.perf_counter()
         try:
             data = self.tier.get(node.tier_id)
-        except (TierRestoreError, TierCorruption):
+        except (TierRestoreError, TierCorruption) as e:
             self.tier_restore_failures += 1
+            self._note_tier("tier:corrupt", error=type(e).__name__)
             self.prefix._tier_nodes.pop(node.tier_id, None)
             node.tier_id = None
             if node.key in getattr(node.parent, "children", {}):
@@ -678,11 +692,16 @@ class PagedKVCache:
             return None
         pages = self._alloc_with_reclaim(1)
         if pages is None:
+            self._note_exhausted(1)
             return None
         self._write_page(pages[0], data)
         self.prefix._set_page(node, pages[0])
-        self._restore_ms.append((time.perf_counter() - t0) * 1e3)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self._restore_ms.append(dt_ms)
         self.tier_restored_pages += 1
+        if self._m_restore is not None:
+            self._m_restore.observe(dt_ms)
+        self._note_tier("tier:restore", page=pages[0], ms=round(dt_ms, 3))
         return pages[0]
 
     def _resolve_prefix(self, tokens: Sequence[int]) -> List[int]:
@@ -719,15 +738,73 @@ class PagedKVCache:
         t0 = time.perf_counter()
         try:
             data = self.tier.get(node.tier_id)
-        except (TierRestoreError, TierCorruption):
+        except (TierRestoreError, TierCorruption) as e:
             self.tier_restore_failures += 1
+            self._note_tier("tier:corrupt", error=type(e).__name__)
             self.prefix._tier_nodes.pop(node.tier_id, None)
             node.tier_id = None
             return False
         self._write_page(int(page), data)
-        self._restore_ms.append((time.perf_counter() - t0) * 1e3)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self._restore_ms.append(dt_ms)
         self.tier_repaired_pages += 1
+        if self._m_restore is not None:
+            self._m_restore.observe(dt_ms)
+        self._note_tier("tier:restore", page=int(page), repair=True, ms=round(dt_ms, 3))
         return True
+
+    # --- observability ---------------------------------------------------
+
+    def attach_observability(self, tracer, metrics, block_fn: Optional[Callable[[], int]] = None
+                             ) -> None:
+        """Wire the engine's tracer and registry into the cache's seams (JAX
+        ``paged_cache.py:909``): prefix-hit lengths (``serve_prefix_hit_tokens``
+        and ``prefix_hit`` instants), evictions and pool exhaustion on the
+        ``("cache", "pool")`` lane, the tier's spill, restore and corrupt
+        instants on ``("cache", "tier")`` with ``serve_tier_restore_ms`` and
+        ``serve_tier_bytes``. ``block_fn`` stamps each instant with the
+        engine's virtual block. Host side only."""
+        self._tracer = tracer
+        self._block_fn = block_fn
+        self._m_prefix = metrics.histogram(
+            "serve_prefix_hit_tokens",
+            help="page-aligned prefix tokens reused per admission query", lo=1.0)
+        self._m_restore = metrics.histogram(
+            "serve_tier_restore_ms",
+            help="host-tier page restore wall ms (checksum + alloc + copy)", lo=0.01)
+        self._m_tier_bytes = metrics.gauge("serve_tier_bytes", help="host-tier KV bytes resident")
+
+    def _block(self) -> Optional[int]:
+        return None if self._block_fn is None else int(self._block_fn())
+
+    def _traced(self) -> bool:
+        return self._tracer is not None and self._tracer.enabled
+
+    def _note_prefix(self, shared: List[int]) -> None:
+        if self._m_prefix is not None:
+            self._m_prefix.observe(len(shared) * self.page_size)
+        if self._traced() and shared:
+            self._tracer.instant("prefix_hit", ("cache", "pool"), block=self._block(),
+                                 args={"tokens": len(shared) * self.page_size,
+                                       "pages": len(shared)})
+
+    def _note_evict(self, freed: int) -> None:
+        if freed and self._traced():
+            self._tracer.instant("evict", ("cache", "pool"), block=self._block(),
+                                 args={"pages": int(freed)})
+
+    def _note_exhausted(self, need: int) -> None:
+        if self._traced():
+            self._tracer.instant("pool_exhausted", ("cache", "pool"), block=self._block(),
+                                 args={"need": int(need),
+                                       "free": int(self.allocator.available())})
+
+    def _note_tier(self, name: str, **args) -> None:
+        if self._m_tier_bytes is not None:
+            self._m_tier_bytes.set(self.tier_bytes())
+        if self._traced():
+            self._tracer.instant(name, ("cache", "tier"), block=self._block(),
+                                 args={**args, "tier_pages": self.tier_pages()})
 
     def plan(self, tokens: Sequence[int], reserve_total: int,
              ns: Optional[str] = None) -> InsertPlan:
@@ -747,12 +824,14 @@ class PagedKVCache:
             if shared:
                 self.prefix_hits += 1
                 self.prefix_hit_tokens += len(shared) * ps
+            self._note_prefix(shared)
         start = len(shared) * ps
         total = min(max(int(reserve_total), plen), self.max_seq_len)
         n_owned = -(-total // ps) - len(shared)
         owned = self._alloc_with_reclaim(n_owned)
         if owned is None:
             self.allocator.release(shared)
+            self._note_exhausted(n_owned)
             raise PagePoolExhausted(f"need {n_owned} pages, "
                                     f"{self.allocator.available()} free")
         table = np.empty((self.pages_per_slot,), np.int32)
@@ -792,6 +871,63 @@ class PagedKVCache:
             self.allocator.release(pages)
         self.tables[slot] = self.scratch[slot]
 
+    def purge_conversation(self, slot: int, tokens: Optional[Sequence[int]] = None,
+                           ns: Optional[str] = None) -> int:
+        """The park path's residency scrub (JAX ``paged_cache.py:1045``):
+        release the slot's holds and remove every prefix entry reachable
+        through its pages or its token path (``tokens`` under adapter
+        namespace ``ns``), device copies freed and host-tier copies dropped,
+        so a parked conversation holds 0 device and 0 host pages. Returns the
+        prefix entries removed."""
+        pages = [int(p) for p in self._slot_pages.get(slot, ())]
+        self.release(slot)
+        removed = 0
+        if self.prefix is not None:
+            if pages:
+                removed += self.prefix.invalidate_pages(pages)
+            if tokens is not None:
+                removed += self.prefix.invalidate_tokens(_ns_tokens(tokens, ns))
+        return removed
+
+    def adopt_pages(self, slot: int, tokens: Sequence[int],
+                    payloads: Sequence[Dict[str, np.ndarray]],
+                    write_pages: Callable[[List[int], List[Dict[str, np.ndarray]]], None],
+                    reserve_total: int, ns: Optional[str] = None) -> List[int]:
+        """Adopt a parked conversation's KV pages (JAX ``paged_cache.py:1067``):
+        allocate the slot's whole footprint (``reserve_total`` tokens,
+        reclaim first), write the payloads into the pages covering
+        ``tokens`` through the engine's batched ``write_pages``, install the
+        slot's table and register the fully covered pages in the prefix
+        index. Raises :class:`PagePoolExhausted` with nothing allocated."""
+        ps = self.page_size
+        tokens = _ns_tokens(tokens, ns)
+        plen = len(tokens)
+        if plen < 1:
+            raise ValueError("empty prompt")
+        n_copy = -(-plen // ps)
+        if len(payloads) != n_copy:
+            raise ValueError(f"{len(payloads)} page payloads for {n_copy} prompt pages")
+        total = min(max(int(reserve_total), plen), self.max_seq_len)
+        n_pages = -(-total // ps)
+        pages = self._alloc_with_reclaim(n_pages)
+        if pages is None:
+            self._note_exhausted(n_pages)
+            raise PagePoolExhausted(f"adoption needs {n_pages} pages, "
+                                    f"{self.allocator.available()} free")
+        write_pages([int(p) for p in pages[:n_copy]], list(payloads))
+        self.release(slot)
+        table = np.full((self.pages_per_slot,), self.scratch[slot], np.int32)
+        table[:n_pages] = pages
+        self.tables[slot] = table
+        self._slot_pages[slot] = [int(p) for p in pages]
+        if self.prefix is not None:
+            n_full = plen // ps
+            if n_full:
+                self.prefix.register(list(tokens)[: n_full * ps], [int(p) for p in pages[:n_full]])
+        self.pages_in_use_peak = max(self.pages_in_use_peak, self.allocator.in_use())
+        self.adopted_pages += n_copy
+        return [int(p) for p in pages]
+
     # --- chunked-prefill lifecycle: begin -> extend* -> finish | abort ------
 
     def begin_chunked(self, tokens: Sequence[int], reserve_total: int,
@@ -809,6 +945,7 @@ class PagedKVCache:
             if shared:
                 self.prefix_hits += 1
                 self.prefix_hit_tokens += len(shared) * self.page_size
+            self._note_prefix(shared)
         return ChunkedPrefill(tokens=list(tokens), reserve_total=int(reserve_total),
                               start=len(shared) * self.page_size, shared=list(shared))
 
@@ -827,6 +964,7 @@ class PagedKVCache:
             return
         pages = self._alloc_with_reclaim(need)
         if pages is None:
+            self._note_exhausted(need)
             raise PagePoolExhausted(f"chunked prefill needs {need} pages, "
                                     f"{self.allocator.available()} free")
         state.owned.extend(pages)

@@ -241,12 +241,14 @@ def test_overload_gates_hold_on_a_good_run(smoke):
     ("f", "launches", {"flash_block_forward": 0, "paged_decode_attention": 96},
      "(f) never launched flash_block_forward"),
     ("d", "completed", 3, "3 completed + 2 rejected != 6 submitted"),
+    ("e", "attribution", ["request 2: phases {} do not sum"], "(e) attribution: request 2"),
 ])
 def test_overload_gates_catch_each_fault(smoke, label, key, value, says):
     """A missing shed, eviction or expiry, a pass whose decisions differ
     from (d)'s, a dropped or mismatched trace event, a refused export, too
-    many host ops, a kernel not launched, or a lost request: each fails the
-    overload phase, and the message says which."""
+    many host ops, a kernel not launched, a lost request, or a request
+    whose attribution does not sum: each fails the overload phase, and the
+    message says which."""
     problems = smoke.overload_gates(_overload_passes({(label, key): value}))
     assert len(problems) >= 1 and any(says in p for p in problems), problems
 
@@ -365,6 +367,7 @@ def _with(counts, **kw):
      "(j) never launched flash_block_forward"),
     ("h", "blocks_ok", False, "host ops a decode block"),
     ("k", "nonfinite_logits", 2, "non-finite"),
+    ("i", "attribution", ["request 4: segments [] do not tile"], "(i) attribution: request 4"),
 ])
 def test_recovery_gates_catch_each_fault(smoke, label, key, value, says):
     """A pass whose streams, schedule or decisions leave (g)'s or each
@@ -513,6 +516,7 @@ def test_tenant_gates_hold_on_a_good_run(smoke):
     ("o", "launches", {"flash_block_forward": 0}, "(o) never launched"),
     ("p", "blocks_ok", False, "host ops a decode block"),
     ("q", "nonfinite_logits", 1, "non-finite"),
+    ("s", "attribution", ["request 7: phases {} do not sum"], "(s) attribution: request 7"),
 ])
 def test_tenant_gates_catch_each_fault(smoke, label, key, value, says):
     """A pass whose tokens leave trace pass (a)'s or (o)'s or (q)'s where
@@ -589,3 +593,181 @@ def test_lora_layer_check_on_the_cpu(smoke):
     got = smoke.lora_layer_check(cfg, "cpu")
     assert got["max_abs_err"] <= smoke.TOL_LORA_LAYER and got["base_bit_identical"]
     assert got["delta_max_abs"] > 100 * smoke.TOL_LORA_LAYER
+
+
+# --- phase 4f: parking -------------------------------------------------------------
+
+
+def _park_passes(smoke, changes=()):
+    """Fabricated passes of the park phase that every gate accepts, with
+    ``changes`` ((label, key) -> value) applied."""
+    n = len(smoke.PARK_LENS)
+    streams = {rid: [rid] * smoke.PARK_NEW_TOKENS for rid in range(n)}
+
+    def one(label):
+        counts = dict(smoke.PARK_PREDICTED[label])
+        parks = [dict(op="park", rid=rid, freed=True) for rid in range(n)] if label != "u" else []
+        return dict(requests=n, streams=dict(streams), launches={"flash_block_forward": 3},
+                    steady_ok=True, blocks_ok=True, host_ops=[2, 3], nonfinite_logits=0,
+                    attribution=[], records=parks,
+                    degraded=[0, 2, 3, 4, 5, 6, 7] if label == "x" else [],
+                    park_resume_blocks={rid: 2 for rid in range(n)}, counts=counts,
+                    slo={"ttft": {}} if label in ("v", "x") else None,
+                    incidents=["slo_burn"] if label == "x" else [], incident_problems=[])
+
+    passes = {label: one(label) for label in smoke.PARK_PASSES}
+    for (label, key), value in dict(changes).items():
+        passes[label][key] = value
+    return passes
+
+
+def test_park_gates_hold_on_a_good_run(smoke):
+    assert smoke.park_gates(_park_passes(smoke), smoke.PARK_PREDICTED) == []
+
+
+def _streams_with(smoke, rid, tokens):
+    n = len(smoke.PARK_LENS)
+    out = {r: [r] * smoke.PARK_NEW_TOKENS for r in range(n)}
+    out[rid] = tokens
+    return out
+
+
+@pytest.mark.parametrize("label,key,value,says", [
+    ("v", "streams", "1:flip", "(v) streams differ from pass (u)'s"),
+    ("w", "streams", "5:flip", "(w) streams differ from pass (u)'s"),
+    ("y", "streams", "0:short", "(y): not every session completed"),
+    ("x", "streams", "1:flip", "resumed exactly differs"),
+    ("v", "degraded", [3], "(v) degraded [3]"),
+    ("x", "counts", "park_replays=6", "(x) counts"),
+    ("x", "counts", "resumed=2", "(x) counts"),
+    ("x", "counts", "fault_stats=torn0", "(x) counts"),
+    ("w", "records", [dict(op="park", rid=0, freed=False)], "kept device or host pages"),
+    ("v", "attribution", ["request 3: phases {} do not sum"], "(v) attribution: request 3"),
+    ("v", "park_resume_blocks", {0: 2, 1: 0}, "no park_resume phase"),
+    ("x", "slo", None, "(x) has no SLO status"),
+    ("x", "incident_problems", ["incident_000_manual_b1.json: bad"], "incident bundle"),
+    ("x", "incidents", [], "dumped no incident bundle"),
+    ("v", "steady_ok", False, "host ops a decode block"),
+    ("u", "launches", {"paged_decode_attention": 0}, "(u) never launched"),
+    ("w", "requests", 7, "(w): not every session"),
+])
+def test_park_gates_catch_each_fault(smoke, label, key, value, says):
+    """A pass whose exact resumes leave (u)'s tokens, a degraded resume
+    where none may degrade, counts the CPU did not predict, a park that
+    left pages behind, an attribution that does not sum, a parked session
+    with no park_resume phase, a missing SLO status or a bad incident
+    bundle, too many host ops, a kernel not launched or a lost session:
+    each fails the park phase, and the message says which."""
+    passes = _park_passes(smoke)
+    if key == "streams":
+        rid, how = value.split(":")
+        rid = int(rid)
+        toks = [rid] * smoke.PARK_NEW_TOKENS
+        value = _streams_with(smoke, rid, toks[:-1] + [toks[-1] + 1] if how == "flip"
+                              else toks[:10])
+    if key == "counts":
+        name, n = value.split("=")
+        value = dict(passes[label]["counts"])
+        if n == "torn0":
+            value["fault_stats"] = {**value["fault_stats"], "park_torn_manifests": 0}
+        else:
+            value[name] = int(n)
+    problems = smoke.park_gates(_park_passes(smoke, {(label, key): value}), smoke.PARK_PREDICTED)
+    assert len(problems) >= 1 and any(says in p for p in problems), problems
+
+
+def test_park_gates_want_every_rung_and_exact_cpu_replays(smoke):
+    """(x) must fire every rung of the ladder; on the CPU (``exact_degraded``)
+    its degraded sessions are held to (u)'s tokens as well."""
+    x = _park_passes(smoke)["x"]
+    x["counts"] = dict(x["counts"], store={**x["counts"]["store"], "torn_parks": 0})
+    problems = smoke.park_gates({**_park_passes(smoke), "x": x}, {})
+    assert any("no torn manifest" in p for p in problems), problems
+    bad = _park_passes(smoke, {("x", "streams"): _streams_with(smoke, 2, [9] * 96)})
+    assert smoke.park_gates(bad, smoke.PARK_PREDICTED) == []
+    assert any("(x) streams differ" in p
+               for p in smoke.park_gates(bad, smoke.PARK_PREDICTED, exact_degraded=True))
+
+
+def test_attribution_problems_catch_a_doctored_attribution(smoke):
+    """The invariant check accepts a tiling attribution and names the
+    request whose phases do not sum to its span or whose segments leave a
+    gap."""
+    good = {"origin_block": 2, "end_block": 9, "phases_blocks": {"queued": 3, "decode": 4},
+            "segments": [dict(phase="queued", start_block=2, end_block=5),
+                         dict(phase="decode", start_block=5, end_block=9)]}
+    assert smoke.attribution_problems({7: good}) == []
+    short = dict(good, phases_blocks={"queued": 3, "decode": 3})
+    gap = dict(good, segments=[dict(phase="queued", start_block=2, end_block=5),
+                               dict(phase="decode", start_block=6, end_block=9)])
+    for bad in (short, gap):
+        problems = smoke.attribution_problems({7: good, 8: bad})
+        assert problems and all(p.startswith("request 8") for p in problems), problems
+
+
+def test_attribution_check_reads_a_parked_trace(smoke, tmp_path):
+    """On a traced sim-free run with a park and a resume, every request is
+    attributed, none with a problem, and the parked one pays its blocks
+    parked as ``park_resume``."""
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+    from neuronx_distributed_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig(vocab_size=128, hidden_size=16, intermediate_size=32, num_layers=1,
+                         num_heads=2, num_kv_heads=1, max_seq_len=64, dtype=torch.float32)
+    lm = CausalLM(cfg, tl.init_params(cfg, torch.Generator().manual_seed(0)),
+                  tl.LlamaForCausalLM, device="cpu", buckets=(8, 16), max_batch=2, page_size=4)
+    eng = ServeEngine(lm, block_steps=4, trace=True, park_dir=str(tmp_path / "park"))
+    p = np.random.default_rng(1).integers(1, 127, (2, 8)).astype(np.int32)
+    a, b = eng.submit(p[0], 16), eng.submit(p[1], 16)
+    eng.step_block()
+    eng.park(a)
+    eng.step_block()
+    eng.step_block()
+    eng.submit(resume=a)
+    eng.run()
+    problems, atts = smoke.attribution_check(eng.tracer)
+    assert problems == [] and sorted(atts) == [a, b]
+    assert atts[a]["phases_blocks"]["park_resume"] == 2
+    assert "park_resume" not in atts[b]["phases_blocks"]
+
+
+def test_park_trace_sessions(smoke):
+    """Eight sessions arriving one a block, six 512-token and two
+    3072-token prompts, 96 new tokens each, no EOS; the draws are seeded."""
+    trace = smoke.park_trace(128256)
+    assert [len(it["prompt"]) for it in trace] == list(smoke.PARK_LENS)
+    assert sorted(smoke.PARK_LENS).count(3072) == 2
+    assert [it["arrival_block"] for it in trace] == list(range(8))
+    assert all(it["max_new_tokens"] == 96 and it["eos_token_id"] is None for it in trace)
+    again = smoke.park_trace(128256)
+    assert all(np.array_equal(x["prompt"], y["prompt"]) for x, y in zip(trace, again))
+
+
+def test_park_fault_pass_meets_the_prediction_on_the_cpu(smoke, tmp_path):
+    """Pass (x) is a function of the sessions and the plan alone (greedy, no
+    EOS): served by a one-layer model at the phase's scheduling shape (the
+    trace phase's ``CausalLM``; the prompts' ids folded into a 512-token
+    vocabulary) it gives exactly the counts the card's run is held to
+    (``PARK_PREDICTED``; ``scripts/park_rehearsal.py`` reads every pass's),
+    fires every rung, and in fp32 its degraded sessions re-prefill to the
+    reference pass's tokens. One intra-op thread."""
+    from neuronx_distributed_tpu_torch.models import llama as tl
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = tl.LlamaConfig(vocab_size=512, hidden_size=16, intermediate_size=32, num_layers=1,
+                             num_heads=2, num_kv_heads=1, max_seq_len=4096, dtype=torch.float32)
+        lm = smoke.trace_lm(cfg, "cpu", tl.init_params(cfg, torch.Generator().manual_seed(0)))
+        trace = smoke.park_trace(128256)
+        for it in trace:
+            it["prompt"] = it["prompt"] % (cfg.vocab_size - 1) + 1
+        passes = smoke.park_passes(lm, "cpu", (), tmp_path, trace=trace, labels=("u", "x"))
+    finally:
+        torch.set_num_threads(threads)
+    x = passes["x"]
+    assert {k: x["counts"][k] for k in smoke.PARK_PREDICTED["x"]} == smoke.PARK_PREDICTED["x"]
+    assert x["streams"] == passes["u"]["streams"] and len(x["streams"]) == 8
+    assert x["attribution"] == [] and x["incidents"] and x["slo"] is not None
+    assert all(r["freed"] for r in x["records"] if r["op"] == "park")

@@ -412,8 +412,10 @@ def test_host_page_tier_store_checksum_and_lru():
 def test_request_timeline_covers_tier_restore_lane(stack):
     """``:484``: the admission that restored spilled pages carries a
     ``tier_restore`` mark with its page count on the request's own
-    timeline, between ``submit`` and ``retire``. (The cache-lane events and
-    the attribution layer are not ported.)"""
+    timeline, between ``submit`` and ``retire``; the cache's own lane
+    carries the spills and restores (``tier:spill``, ``tier:restore`` on
+    ``("cache", "tier")``), and the attribution layer counts the restored
+    pages on the request."""
     submits = _pressure_submits()
     eng = ServeEngine(stack["small"], block_steps=K, seed=42, host_tier_pages=TIER, trace=True)
     for s in submits:
@@ -427,5 +429,10 @@ def test_request_timeline_covers_tier_restore_lane(stack):
     ev = next(e for e in tl_ if e["name"] == "tier_restore")
     assert ev["args"]["pages"] > 0 and ev["block"] is not None
     assert any(e["name"] == "tier_pages" for e in eng.tracer.events())
+    tier_lane = {e["name"] for e in eng.tracer.events() if e["lane"] == ("cache", "tier")}
+    assert {"tier:spill", "tier:restore"} <= tier_lane
+    att = eng.request_attribution(len(submits) - 1)
+    assert att["annotations"]["tier_restored_pages"] == ev["args"]["pages"]
+    assert sum(att["phases_blocks"].values()) == att["e2e_blocks"]
     _drain_all(pkv)
     assert pkv.allocator.in_use() == 0

@@ -16,8 +16,18 @@ engine's.
   tracer equal the ones of the completions' ``token_ts``; traced and
   untraced streams are bit-identical and tracing captures nothing anew;
   request timelines hold the same events at the same blocks as JAX's; the
-  port's metric families are JAX's families of the same type; a small ring
-  buffer's drops reach the drop counter and the report.
+  port's metric families are JAX's families, of the same types (the
+  handoff's wait for disaggregation, and ``compile_ms`` holds the port's
+  CUDA-graph captures, none on the CPU); a small ring buffer's drops reach
+  the drop counter and the report.
+- The cache lanes and the counters: a paged ``SimCausalLM`` trace with
+  shared prefixes on a small pool, and a tiny Llama trace with a host tier,
+  each through both engines, give the same event names on every lane
+  (``prefix_hit``, ``evict``, ``pool_exhausted`` on ``("cache", "pool")``,
+  ``tier:spill``/``tier:restore`` on ``("cache", "tier")``), the same
+  metric families of the same types, and every ``serve_<key>`` counter at
+  the JAX engine's value; the engine's counter attributes read those
+  counters.
 """
 
 import json
@@ -33,12 +43,14 @@ from neuronx_distributed_tpu.inference import CausalLM as JaxLM
 from neuronx_distributed_tpu.inference import ServeEngine as JaxEngine
 from neuronx_distributed_tpu.inference.engine import run_trace as jax_run_trace
 from neuronx_distributed_tpu.inference.engine import synthetic_trace as jax_trace
+from neuronx_distributed_tpu.inference.simlm import SimCausalLM as JaxSim
 from neuronx_distributed_tpu.models import llama as jl
 from neuronx_distributed_tpu.observability import metrics as jmet
 from neuronx_distributed_tpu.observability import tracer as jtr
 from neuronx_distributed_tpu_torch.converters.jax_params import llama_params_from_jax
 from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
-from neuronx_distributed_tpu_torch.inference.engine import ServeEngine, run_trace
+from neuronx_distributed_tpu_torch.inference.engine import STAT_KEYS, ServeEngine, run_trace
+from neuronx_distributed_tpu_torch.inference.simlm import SimCausalLM
 from neuronx_distributed_tpu_torch.inference.trace import synthetic_trace
 from neuronx_distributed_tpu_torch.models import llama as tl
 from neuronx_distributed_tpu_torch.observability import metrics as tmet
@@ -49,6 +61,11 @@ TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_layers=2,
 LM = dict(buckets=(8, 16), max_batch=3)
 K = 4
 ODD_LABEL = 'we"ird\\label\nx}'
+# JAX families of features the port does not have yet (the disaggregation
+# handoff), and the compile gauge, which the port fills from CUDA-graph
+# captures (none on the CPU)
+LEFT_OUT = {"serve_handoff_adopt_ms", "serve_handoffs_sent", "serve_handoffs_adopted",
+            "compile_ms"}
 
 
 # --- metrics -------------------------------------------------------------------
@@ -330,7 +347,7 @@ def test_timelines_metrics_and_chrome_export_match_jax(lms):
             "cancel", "chunk_begin", "prefill_chunk"} <= req_names
     assert {"decode_block", "decode", "fetch", "insert", "extend", "queue_depth",
             "pages_in_use"} <= names
-    assert set(fams) <= set(out["jax"][2]) and all(out["jax"][2][k] == v for k, v in fams.items())
+    assert fams == {k: v for k, v in out["jax"][2].items() if k not in LEFT_OUT}
     assert {"serve_ttft_ms", "serve_itl_ms", "serve_dispatch_ms", "serve_queue_depth",
             "serve_page_pool_in_use", "trace_dropped_events"} <= set(fams)
 
@@ -344,3 +361,81 @@ def test_ring_buffer_drops_reach_the_counter_and_the_report(lms):
     assert {ev["lane"][0] for ev in tracer.events(lane_group="replica0")} == {"replica0"}
     hist = eng.metrics.histogram("serve_ttft_ms")
     assert hist.count == rep["requests_completed"] == 4
+
+
+# --- the cache lanes and the serve_<key> counters (C5) -----------------------------
+
+
+def _lane_names(tracer):
+    """Event names by lane: every request lane together under ``"req"``,
+    the others by (group, track)."""
+    out = {}
+    for ev in tracer.events():
+        lane = ev["lane"]
+        out.setdefault("req" if lane[0] == "req" else tuple(lane), set()).add(ev["name"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def tier_lms():
+    jcfg = jl.LlamaConfig(**TINY, dtype=jnp.float32, remat_policy=None)
+    tcfg = tl.LlamaConfig(**TINY, dtype=torch.float32)
+    params = meta.unbox(jl.LlamaForCausalLM(jcfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32)))["params"]
+    sd = llama_params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    small = dict(page_size=4, page_pool_pages=13, **LM)
+    return {"jax": JaxLM(jcfg, params, jl.LlamaForCausalLM, **small).compile(),
+            "port": CausalLM(tcfg, sd, tl.LlamaForCausalLM, device="cpu", **small)}
+
+
+@pytest.mark.parametrize("case", ["sim", "tier"])
+def test_cache_lanes_and_counter_families_match_jax(tier_lms, case):
+    """Traces with shared prefixes through both engines: a paged
+    ``SimCausalLM`` on a 12-page pool (prefix hits, evictions, pool
+    exhaustion), and the tiny Llama on a 13-page pool with a host tier
+    (a prefix spilled by a burst of other requests, then restored). Every
+    lane carries the JAX engine's event names, the registry JAX's families
+    and types, and every ``serve_<key>`` counter JAX's value."""
+    rng = np.random.default_rng(7)
+    fam_a, fam_b = (rng.integers(1, 127, (8,)).astype(np.int32) for _ in range(2))
+    tail = lambda: rng.integers(1, 127, (4,)).astype(np.int32)  # noqa: E731
+    pressure = ([dict(prompt=np.concatenate([fam_a, tail()]), max_new_tokens=8)]
+                + [dict(prompt=np.concatenate([fam_b, tail()]), max_new_tokens=8,
+                        arrival_block=4) for _ in range(3)]
+                + [dict(prompt=np.concatenate([fam_a, tail()]), max_new_tokens=8,
+                        arrival_block=12)])
+    out = {}
+    for side in ("port", "jax"):
+        make = synthetic_trace if side == "port" else jax_trace
+        trace = (make(6, 128, prompt_lens=(8,), max_new_tokens=6, shared_prefix_len=8,
+                      prefix_families=2, seed=1) if case == "sim" else pressure)
+        if case == "sim":
+            sim = (SimCausalLM if side == "port" else JaxSim)(
+                max_batch=3, buckets=(8, 16), page_size=4, page_pool_pages=12, vocab_size=128)
+            eng = (ServeEngine(sim, block_steps=K) if side == "port"
+                   else JaxEngine(sim, block_steps=K))
+        elif side == "port":
+            eng = ServeEngine(tier_lms["port"], block_steps=K, host_tier_pages=8)
+        else:
+            eng = JaxEngine(tier_lms["jax"], block_steps=K, host_tier_pages=8)
+        rep = (run_trace if side == "port" else jax_run_trace)(eng, trace)
+        fams = {name: f["type"] for name, f in
+                tmet.parse_prometheus(eng.metrics.to_prometheus()).items()}
+        counters = {k: eng.metrics.counter("serve_" + k).value for k in STAT_KEYS}
+        out[side] = (_lane_names(eng.tracer), fams, counters, rep["requests_completed"], eng)
+    lanes, fams, counters, done, port = out["port"]
+    jlanes = {k: v for k, v in out["jax"][0].items() if k != ("engine", "compile")}
+    assert lanes == jlanes
+    assert fams == {k: v for k, v in out["jax"][1].items() if k not in LEFT_OUT}
+    assert counters == out["jax"][2] and done == out["jax"][3] == len(trace)
+    pool = lanes[("cache", "pool")]
+    if case == "sim":
+        assert {"prefix_hit", "evict", "pool_exhausted"} <= pool
+    else:
+        assert "prefix_hit" in pool and {"tier:spill", "tier:restore"} <= lanes[("cache", "tier")]
+        assert port.session.paged.tier_restored_pages > 0
+    # the attributes are the counters
+    assert port.inserts == counters["inserts"] and port.blocks == counters["blocks"]
+    assert port.completed_count == counters["completed"]
+    assert len(port.rejected) == counters["rejected"]
+    assert {"serve_prefix_hit_tokens", "serve_park_ms", "serve_park_resume_ms"} <= set(fams)

@@ -308,18 +308,21 @@ def test_port_snapshot_restores_in_jax(stack):
 
 
 def test_snapshot_refuses_what_is_not_ported(stack):
-    """Parked conversations are not ported: a snapshot carrying them is
-    refused, and so is one whose request names an adapter the restoring
-    ``CausalLM`` has no pool for; a sim engine has nothing to snapshot."""
+    """A snapshot whose request, live or parked, names an adapter the
+    restoring ``CausalLM`` has no pool for is refused, and so is an unknown
+    version; a sim engine has nothing to snapshot. (Parked conversations
+    are ported: ``tests/test_torch_park.py`` restores them.)"""
     src = _engine(stack["paged"])
     src.submit(_prompts(1)[0], 4)
     snap = src.snapshot()
-    with pytest.raises(ValueError, match="parked"):
-        ServeEngine.from_snapshot(stack["paged"], {**snap, "parked": [{"request_id": 9}]})
     bad = json.loads(json.dumps(snap))
     bad["requests"][0]["adapter"] = "a"
     with pytest.raises(ValueError, match="adapter"):
         ServeEngine.from_snapshot(stack["paged"], bad)
+    parked = json.loads(json.dumps(snap))
+    parked["parked"] = [dict(parked["requests"].pop(), state="parked", adapter="a")]
+    with pytest.raises(ValueError, match="adapter"):
+        ServeEngine.from_snapshot(stack["paged"], parked)
     with pytest.raises(ValueError, match="version"):
         ServeEngine.from_snapshot(stack["paged"], {**snap, "version": 2})
     sim = ServeEngine(SimCausalLM(max_batch=2, buckets=(8,), page_size=4, page_pool_pages=16),

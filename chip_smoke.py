@@ -145,6 +145,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1212,6 +1213,56 @@ def reference_check(dev) -> float:
     return worst
 
 
+def program_check(dev) -> dict:
+    """The small fp32 model behind paged engines on ``dev``, its inserts and
+    chunk extends (64-token chunks, prompts up to 200 tokens) run as
+    captured programs, then eagerly (``capture_programs=False``), and on the
+    CPU: the card's two routes must give bit-identical streams and equal the
+    CPU's (greedy); on the slab path ``generate`` the same. Returns the
+    programs captured and their capture ms."""
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
+
+    cfg = small_config()
+    params = init_params(cfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(8)
+    work = [(int(n), a) for n, a in zip(rng.integers(20, 200, 8), (0, 0, 1, 1, 2, 3, 3, 5))]
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n, _ in work]
+    runs, capture_ms = {}, {}
+    for d, captured, chunk in ((dev, True, 64), (dev, False, 64), ("cpu", False, 64),
+                               (dev, True, 0), (dev, False, 0)):
+        lm = CausalLM(cfg, params, LlamaForCausalLM, buckets=(64, 128, 256), max_batch=4,
+                      page_size=16, paged_attn_kernel=True, capture_programs=captured, device=d)
+        engine = ServeEngine(lm, block_steps=4, prefill_chunk_tokens=chunk)
+        for p, (_, arrival) in zip(prompts, work):
+            engine.submit(p, 12, arrival_block=arrival)
+        runs[(d, captured, chunk)] = {c.request_id: c.tokens.tolist() for c in engine.run()}
+        if captured:
+            capture_ms.update(lm.capture_ms)
+        del lm, engine
+    for chunk in (64, 0):
+        check(runs[(dev, True, chunk)] == runs[(dev, False, chunk)],
+              f"captured and eager programs gave different streams on the card (chunk {chunk})")
+    check(runs[(dev, True, 64)] == runs[("cpu", False, 64)],
+          "captured programs' greedy streams on the card differ from the CPU's")
+    slab = {}
+    for captured in (True, False):
+        lm = CausalLM(cfg, params, LlamaForCausalLM, buckets=(128, 256), max_batch=2,
+                      capture_programs=captured, device=dev)
+        batch = np.random.default_rng(9).integers(1, cfg.vocab_size, (2, 200)).astype(np.int32)
+        batch[1, 150:] = 0   # a shorter second prompt
+        slab[captured] = (lm.generate(batch, 16).tokens, lm.generate(batch, 16,
+                                                                       fused_chunk=4).tokens)
+        del lm
+    check(all(np.array_equal(a, b) for a, b in zip(slab[True], slab[False])),
+          "captured and eager slab generate differ on the card")
+    return dict(programs=sorted(capture_ms), capture_ms=capture_ms)
+
+
 # --- phase 4: serve Llama-3-8B -------------------------------------------------------
 
 
@@ -1599,7 +1650,10 @@ def trace_pass(lm, dev, trace, chunk: int, async_loop: bool, counters, profile=F
     done = engine.completed
     tokens = sum(len(c.tokens) for c in done)
     block_ms = [a.elapsed_time(b) for a, b in block_events]
+    dispatch = engine.metrics.snapshot()["serve_dispatch_ms"]["samples"]
     return dict(
+        dispatch_ms={d["labels"]["kind"]: d["sum"] for d in dispatch},
+        dispatches={d["labels"]["kind"]: d["count"] for d in dispatch},
         decode_block_ms_p50=_pct(block_ms, 50),
         prefill_chunk_tokens=chunk, async_loop=async_loop, requests=len(done),
         generated_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
@@ -1673,10 +1727,10 @@ def run_trace_phase(lm, dev, counters, profile=False) -> dict:
     same = sum(int(x == y) for rid, ts in passes["a"]["streams"].items()
                for x, y in zip(ts, passes["b"]["streams"][rid]))
     schedule_equal = passes["b"]["schedule"] == passes["c"]["schedule"]
-    streams_a = passes["a"]["streams"]
+    streams = {label: st.pop("streams") for label, st in passes.items()}
     for st in passes.values():   # 6144 tokens: kept off the printed summary
-        del st["streams"], st["schedule"]
-    return dict(passes=passes, capture_s=capture_s, streams_a=streams_a, trace=trace,
+        del st["schedule"]
+    return dict(passes=passes, capture_s=capture_s, streams=streams, trace=trace,
                 token_match_a_b=same / passes["a"]["generated_tokens"],
                 schedule_equal_b_c=schedule_equal,
                 requests=TRACE_REQUESTS, knobs={k: v for k, v in TRACE_KNOBS.items()},
@@ -3141,6 +3195,342 @@ def run_park_phase(lm, dev, counters) -> dict:
 # --- phases 3b and 5: training ----------------------------------------------------
 
 
+# --- phase 4g: captured programs and speculation ------------------------------------
+
+# speculation and Medusa: one 512-token prompt (the flash kernel's prefill),
+# 128 new tokens, γ = 4 proposals a round, 4 rounds a fused block
+SPEC_BUCKETS = (128, 512)
+SPEC_PROMPT = 512
+SPEC_NEW = 128
+SPEC_DRAFT = 4
+SPEC_ROUNDS = 4
+SPEC_TEMPERATURE = 0.8
+SPEC_DRAFT_LAYERS = 2     # the different draft: Llama-3-8B widths, 2 layers, its own seed
+EXACT_LAYERS = 2          # the fp32 exactness checks: the serve weights' first 2 layers
+MEDUSA_HEADS = 2
+
+
+def pool_bytes(pool):
+    """Bytes the caching allocator holds in graph pool ``pool`` (None when
+    the snapshot does not name pools)."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in s for s in segs):
+        return None
+    return sum(s["total_size"] for s in segs if tuple(s.get("segment_pool_id") or ()) == tuple(pool))
+
+
+def program_route_gates(captured: dict, eager: dict) -> list:
+    """(z1): the eager route's passes against the captured ones (the trace
+    phase's): streams bit-identical, every request complete; a chunked
+    eager pass keeps the host-op gate."""
+    problems = []
+    for label, st in eager.items():
+        if st["streams"] != captured[label]:
+            problems.append(f"pass ({label}): captured and eager streams differ")
+        if st["requests"] != TRACE_REQUESTS:
+            problems.append(f"pass ({label}): {st['requests']} of {TRACE_REQUESTS} completed")
+        if st["prefill_chunk_tokens"] and not (st["steady_ok"] and st["blocks_ok"]):
+            problems.append(f"pass ({label}): host ops a decode block {st['host_ops']}")
+    return problems
+
+
+def per_call_ms(st: dict, kind: str):
+    n = st["dispatches"].get(kind, 0)
+    return st["dispatch_ms"][kind] / n if n else None
+
+
+def run_eager_trace(lm, dev, counters, captured: dict) -> dict:
+    """(z1) The trace phase's three passes again on ``lm`` with the insert,
+    extend and decode forwards run eagerly (``capture_programs=False``; the
+    decode block stays captured), held against the trace phase's captured
+    streams."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.trace import synthetic_trace
+
+    trace = synthetic_trace(TRACE_REQUESTS, lm.config.vocab_size, **TRACE_KNOBS)
+    lm.capture_programs = False
+    try:
+        eager = {label: trace_pass(lm, dev, trace, chunk, async_loop, counters)
+                 for label, chunk, async_loop in TRACE_PASSES}
+    finally:
+        lm.capture_programs = True
+    problems = program_route_gates(captured, eager)
+    check(not problems, "captured programs: " + "; ".join(problems))
+    for st in eager.values():
+        del st["streams"], st["schedule"]
+    return dict(passes=eager, pool_bytes=pool_bytes(lm._graph_pool()),
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                capture_ms={k: v for k, v in lm.capture_ms.items()})
+
+
+def spec_prompt(vocab: int):
+    import numpy as np
+
+    return np.random.default_rng(21).integers(1, vocab, (1, SPEC_PROMPT)).astype(np.int32)
+
+
+def spec_lm(cfg, params, dev):
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+
+    return CausalLM(cfg, params, LlamaForCausalLM, buckets=SPEC_BUCKETS, max_batch=1,
+                    device=dev)
+
+
+def first_layers(params, n: int, dtype=None) -> dict:
+    """The embedding, final norm, head and the first ``n`` layers of
+    ``params`` (in ``dtype`` when given: a copy)."""
+    keep = {k: v for k, v in params.items()
+            if not k.startswith("model.layers.") or int(k.split(".")[2]) < n}
+    return keep if dtype is None else {k: v.to(dtype) for k, v in keep.items()}
+
+
+def timed(fn, dev):
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def spec_gates(runs: dict, gen, exact: bool) -> list:
+    """Speculation's gates on one set of runs (``runs[draft][mode]``:
+    ``host``/``fused`` results, greedy and sampled): fused equals the host
+    loop bit for bit; two host operations a fused block; the self-draft
+    accepts every proposal (``exact``: the fp32 checks, where the target's
+    verify and the draft's step round alike); ``exact``: greedy tokens equal
+    ``generate``'s."""
+    import numpy as np
+
+    problems = []
+    for draft, by_mode in runs.items():
+        for mode, r in by_mode.items():
+            if not np.array_equal(r["host"].tokens, r["fused"].tokens):
+                problems.append(f"{draft} {mode}: fused and host-loop tokens differ")
+            if r["fused"].stats["host_dispatches_per_block"] != 2:
+                problems.append(f"{draft} {mode}: host dispatches a block "
+                                f"{r['fused'].stats['host_dispatches_per_block']}")
+            if exact and draft == "self" and r["host"].stats["acceptance_rate"] != 1.0:
+                problems.append(f"self-draft {mode}: acceptance "
+                                f"{r['host'].stats['acceptance_rate']}")
+            if exact and mode == "greedy" and not np.array_equal(r["host"].tokens, gen.tokens):
+                problems.append(f"{draft}: fp32 greedy tokens differ from generate's")
+    return problems
+
+
+def _spec_runs(target, drafts: dict, prompt, collect_stats=False) -> dict:
+    from neuronx_distributed_tpu_torch.inference.speculative import (
+        speculative_decode_fused,
+        speculative_generate,
+    )
+
+    runs = {}
+    for name, draft in drafts.items():
+        runs[name] = {}
+        for mode, kw in (("greedy", {}), ("sampled", dict(greedy=False,
+                                                          temperature=SPEC_TEMPERATURE,
+                                                          seed=3))):
+            common = dict(max_new_tokens=SPEC_NEW, num_draft=SPEC_DRAFT, **kw)
+            runs[name][mode] = dict(
+                host=speculative_generate(target, draft, prompt, collect_stats=collect_stats,
+                                          **common),
+                fused=speculative_decode_fused(target, draft, prompt,
+                                               rounds_per_block=SPEC_ROUNDS, **common))
+    return runs
+
+
+def run_speculation(cfg, dev, params, counters) -> dict:
+    """(z2) Draft-model speculation of one 512-token prompt on the serve
+    weights (bf16, full depth), the target on the slab path: a self-draft
+    (a second ``CausalLM`` on the same tensors) and a 2-layer draft at full
+    width on its own seed, host loop and fused block, greedy and sampled;
+    tokens/s of the fused block against ``generate(fused_chunk=8)`` in the
+    same call. Then the fp32 checks on the serve weights' first 2 layers
+    (and the draft in fp32). Gates: :func:`spec_gates` (exactness in fp32
+    only)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.speculative import speculative_decode_fused
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+
+    prompt = spec_prompt(cfg.vocab_size)
+    dcfg = dataclasses.replace(cfg, num_layers=SPEC_DRAFT_LAYERS)
+    dparams = init_params(dcfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    target = spec_lm(cfg, params, dev)
+    drafts = {"self": spec_lm(cfg, params, dev), "2-layer": spec_lm(dcfg, dparams, dev)}
+    target.generate(prompt, SPEC_NEW, fused_chunk=8)             # warm: captures
+    for c in counters:
+        c.launches = 0
+    gen, gen_s = timed(lambda: target.generate(prompt, SPEC_NEW, fused_chunk=8), dev)
+    runs = _spec_runs(target, drafts, prompt, collect_stats=True)
+    launches = {c.__name__: c.launches for c in counters}
+    problems = spec_gates(runs, gen, exact=False)
+    report = {}
+    for name, draft in drafts.items():
+        fused, wall = timed(lambda: speculative_decode_fused(
+            target, draft, prompt, SPEC_NEW, num_draft=SPEC_DRAFT,
+            rounds_per_block=SPEC_ROUNDS), dev)
+        host = runs[name]["greedy"]["host"]
+        report[name] = dict(
+            host_stats=host.stats, fused_stats=fused.stats,
+            sampled_acceptance=runs[name]["sampled"]["host"].stats["acceptance_rate"],
+            fused_tokens_per_s=SPEC_NEW / wall,
+            bf16_share_equal_generate=float(np.mean(fused.tokens == gen.tokens)))
+    del target, drafts
+    gc.collect()
+    torch.cuda.empty_cache()
+    # fp32 exactness at 2 layers
+    cfg32 = dataclasses.replace(cfg, num_layers=EXACT_LAYERS, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    p32 = first_layers(params, EXACT_LAYERS, torch.float32)
+    d32 = {k: v.float() for k, v in dparams.items()}
+    del dparams
+    target = spec_lm(cfg32, p32, dev)
+    drafts = {"self": spec_lm(cfg32, p32, dev),
+              "2-layer": spec_lm(dataclasses.replace(cfg32, num_layers=SPEC_DRAFT_LAYERS), d32,
+                                 dev)}
+    gen32 = target.generate(prompt, SPEC_NEW)
+    runs32 = _spec_runs(target, drafts, prompt)
+    problems += [f"fp32 {p}" for p in spec_gates(runs32, gen32, exact=True)]
+    check(not problems, "speculation: " + "; ".join(problems))
+    del target, drafts, p32, d32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prompt_len=SPEC_PROMPT, new_tokens=SPEC_NEW, num_draft=SPEC_DRAFT,
+                rounds_per_block=SPEC_ROUNDS, generate_tokens_per_s=SPEC_NEW / gen_s,
+                drafts=report, launches=launches,
+                fp32_acceptance={n: {m: r["host"].stats["acceptance_rate"]
+                                     for m, r in by.items()} for n, by in runs32.items()})
+
+
+def medusa_heads(cfg, dev, dtype, seed: int = 2) -> dict:
+    """Seeded Medusa heads: ResBlocks zero (the JAX package's init), each
+    head's vocabulary projection normal with std 1/sqrt(hidden)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for i in range(MEDUSA_HEADS):
+        out[f"medusa_res_{i}.kernel"] = torch.zeros((cfg.hidden_size, cfg.hidden_size),
+                                                    dtype=dtype, device=dev)
+        out[f"medusa_res_{i}.bias"] = torch.zeros((cfg.hidden_size,), dtype=dtype, device=dev)
+        out[f"medusa_head_{i}.kernel"] = (torch.randn(
+            (cfg.hidden_size, cfg.vocab_size), generator=g, device=dev, dtype=torch.float32)
+            / math.sqrt(cfg.hidden_size)).to(dtype)
+    return out
+
+
+def run_medusa(cfg, dev, params, counters, gen_tokens=None) -> dict:
+    """(z3) Medusa tree decoding (``DEFAULT_CHOICES``) of the speculation
+    prompt on the serve weights with two seeded heads, bf16 full depth,
+    timed on its second run (the programs captured on the first); then the
+    fp32 check on the first 2 layers: the tokens must equal greedy
+    ``generate``'s."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.medusa import medusa_generate, medusa_model
+
+    prompt = spec_prompt(cfg.vocab_size)
+    heads = medusa_heads(cfg, dev, cfg.param_dtype)
+    model = medusa_model(cfg, {**params, **heads}, MEDUSA_HEADS, device=dev)
+    medusa_generate(cfg, model, prompt, SPEC_NEW, MEDUSA_HEADS)
+    for c in counters:
+        c.launches = 0
+    res, wall = timed(lambda: medusa_generate(cfg, model, prompt, SPEC_NEW, MEDUSA_HEADS), dev)
+    launches = {c.__name__: c.launches for c in counters}
+    del model, heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, num_layers=EXACT_LAYERS, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    p32 = first_layers(params, EXACT_LAYERS, torch.float32)
+    gen32 = spec_lm(cfg32, p32, dev).generate(prompt, SPEC_NEW)
+    res32 = medusa_generate(cfg32, {**p32, **medusa_heads(cfg32, dev, torch.float32)}, prompt,
+                            SPEC_NEW, MEDUSA_HEADS, device=dev)
+    check(np.array_equal(res32.tokens, gen32.tokens),
+          "medusa: fp32 tokens differ from greedy generate's")
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(stats=res.stats, tokens_per_s=SPEC_NEW / wall, launches=launches,
+               fp32_stats=res32.stats)
+    if gen_tokens is not None:
+        out["bf16_share_equal_generate"] = float(np.mean(res.tokens == gen_tokens))
+    return out
+
+
+def run_bundle(cfg, dev, params, counters, root: Path) -> dict:
+    """(z4) A program bundle: the insert forward of one 512-token row (the
+    serve shape of B1: the flash kernel over the 4096-slot cache) of the
+    serve weights' first 2 layers, the weights passed as arguments, traced
+    (captured), saved with ``save_model`` and loaded with ``load_model``.
+    Gates: the loaded program gives the live one's bits, its file holds no
+    tensor data, and its call launches B1."""
+    import dataclasses
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.model_builder import (
+        ModelBuilder,
+        load_model,
+        save_model,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+
+    bcfg = dataclasses.replace(cfg, num_layers=EXACT_LAYERS, decode=True)
+    weights = first_layers(params, EXACT_LAYERS)
+    names = sorted(weights)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(bcfg)
+
+    def prefill(ids, last, *w):
+        cache = model.new_cache(ids.shape[0], ids.device)
+        logits = torch.func.functional_call(model, dict(zip(names, w)), (ids, cache))
+        return logits[torch.arange(ids.shape[0], device=ids.device), last]
+
+    ids = torch.from_numpy(spec_prompt(cfg.vocab_size)).to(dev)
+    last = torch.tensor([SPEC_PROMPT - 1], device=dev)
+    args = (ids, last, *(weights[n] for n in names))
+    t0 = time.perf_counter()
+    live = ModelBuilder().add("prefill", prefill, args).trace(device=dev)
+    trace_s = time.perf_counter() - t0
+    want = live.run("prefill", *args)
+    path = root / "bundle"
+    t0 = time.perf_counter()
+    save_model(live, str(path))
+    save_s = time.perf_counter() - t0
+    with zipfile.ZipFile(path / "prefill_0.pt2") as z:
+        data_bytes = sum(i.file_size for i in z.infolist() if "/data/" in i.filename)
+    t0 = time.perf_counter()
+    loaded = load_model(str(path))
+    load_s = time.perf_counter() - t0
+    for c in counters:
+        c.launches = 0
+    got = loaded.run("prefill", *args)
+    _sync(dev)
+    launches = {c.__name__: c.launches for c in counters}
+    check(torch.equal(got, want), "bundle: the loaded program's output differs from the live "
+                                  f"one's (max |diff| {float((got - want).abs().max())})")
+    check(launches.get("flash_block_forward", 0) > 0,
+          "bundle: the loaded program launched no flash kernel")
+    check(data_bytes < 4096, f"bundle: the saved program holds {data_bytes} bytes of tensors")
+    return dict(trace_s=trace_s, save_s=save_s, load_s=load_s, file_bytes=sum(
+        f.stat().st_size for f in path.iterdir()), tensor_bytes_in_file=data_bytes,
+        launches=launches, logits_finite=bool(torch.isfinite(got).all()),
+        top_token=int(np.argmax(got.float().cpu().numpy()[0])))
+
+
 def train_batch(vocab: int, batch: int, seq: int, dev, seed: int = 7) -> dict:
     """Next-token batch from a seeded numpy RNG (the JAX examples'
     ``synthetic_lm_batches``), on ``dev``."""
@@ -3457,6 +3847,11 @@ def main(argv=None) -> int:
           f"[{card}]", flush=True)
 
     graph = [graph_check(dev), graph_check(dev, head_dim=96)]
+    programs_small = program_check(dev)
+    print(f"check: small fp32 model, inserts and chunk extends as captured programs and "
+          f"eagerly on the card and on the CPU: bit-identical streams, greedy equal to the "
+          f"CPU's; slab generate alike; capture ms {json.dumps(programs_small['capture_ms'])} "
+          f"[{card}]", flush=True)
     for g in graph:
         print(f"check: small fp32 model (head_dim {g['head_dim']}) served by the captured "
               f"block and step by step on the card: bit-identical streams, greedy streams "
@@ -3474,7 +3869,13 @@ def main(argv=None) -> int:
                  reference=stats["streams"])
     gc.collect()
     lm = trace_lm(cfg, dev, params)
+    torch.cuda.reset_peak_memory_stats()
     trace = run_trace_phase(lm, dev, serve_counters, profile=args.profile is not None)
+    trace["capture_ms"] = dict(lm.capture_ms)
+    trace["pool_bytes"] = pool_bytes(lm._graph_pool())
+    trace["peak_bytes"] = torch.cuda.max_memory_allocated()
+    captured = trace.pop("streams")
+    eager = run_eager_trace(lm, dev, serve_counters, captured)
     overload = run_overload_phase(lm, dev, serve_counters, profile=args.profile is not None)
     del lm
     gc.collect()
@@ -3485,7 +3886,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm = tenant_lm(cfg, dev, params)
-    tenants = run_tenant_phase(lm, dev, serve_counters, trace.pop("streams_a"),
+    tenants = run_tenant_phase(lm, dev, serve_counters, captured["a"],
                                trace.pop("trace"))
     del lm
     gc.collect()
@@ -3493,6 +3894,13 @@ def main(argv=None) -> int:
     lm = trace_lm(cfg, dev, params)
     park = run_park_phase(lm, dev, serve_counters)
     del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    b1 = (flash_block_forward,)
+    spec = run_speculation(cfg, dev, params, b1)
+    medusa = run_medusa(cfg, dev, params, b1)
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = run_bundle(cfg, dev, params, b1, Path(tmp))
     if args.profile is not None:
         gc.collect()
         stats["profile"] = serve(cfg, dev, serve_counters, profile_path=args.profile,
@@ -3657,6 +4065,49 @@ def main(argv=None) -> int:
           f"{json.dumps(rp['host_split_ms'])}; (x) degraded {park['x_degraded']} with "
           f"{park['x_degraded_token_share_equal_u']:.4f} of their tokens equal to (u)'s; "
           f"phase {park['phase_s']:.1f} s [{card}]", flush=True)
+    for label, st in eager["passes"].items():
+        cap = trace["passes"][label]
+        print(f"program pass ({label}): llama3_8b full width, "
+              f"{'async' if st['async_loop'] else 'sync'}, prefill_chunk_tokens "
+              f"{st['prefill_chunk_tokens']}: captured {cap['tokens_per_s']:.1f} tok/s, eager "
+              f"{st['tokens_per_s']:.1f} tok/s; host ms an insert captured "
+              f"{per_call_ms(cap, 'insert')} eager {per_call_ms(st, 'insert')} "
+              f"({cap['dispatches'].get('insert', 0)}), a chunk extend captured "
+              f"{per_call_ms(cap, 'extend')} eager {per_call_ms(st, 'extend')} "
+              f"({cap['dispatches'].get('extend', 0)}); eager host ops a block "
+              f"{st['host_ops_per_block']:.3f} ({st['steady_blocks']} steady), launches "
+              f"{st['launches']} [{card}]", flush=True)
+    print(f"programs: captured and eager streams bit-identical in (a), (b), (c); capture ms "
+          f"by signature {json.dumps(trace['capture_ms'])}; graph pool {trace['pool_bytes']} "
+          f"bytes, peak allocated {trace['peak_bytes']} bytes over the trace phase "
+          f"[{card}]", flush=True)
+    for name, r in spec["drafts"].items():
+        h, f = r["host_stats"], r["fused_stats"]
+        print(f"speculation ({name} draft): llama3_8b full width target, {SPEC_PROMPT}-token "
+              f"prompt, {SPEC_NEW} tokens, num_draft {SPEC_DRAFT}: host loop round ms p50 "
+              f"{h['round_ms_p50']} (draft {h['draft_ms_p50']}, verify {h['verify_ms_p50']}), "
+              f"acceptance {h['acceptance_rate']} (sampled {r['sampled_acceptance']}), tokens "
+              f"a round {h['tokens_per_round']}; fused ({SPEC_ROUNDS} rounds a block) block ms "
+              f"p50 {f['block_ms_p50']}, {r['fused_tokens_per_s']:.1f} tok/s against generate("
+              f"fused_chunk=8) {spec['generate_tokens_per_s']:.1f} tok/s, host dispatches a "
+              f"block {f['host_dispatches_per_block']}; bf16 tokens equal to generate's "
+              f"{r['bf16_share_equal_generate']:.4f} [{card}]", flush=True)
+    print(f"speculation: fused = host loop (greedy and sampled, both drafts); fp32 at "
+          f"{EXACT_LAYERS} layers: tokens equal generate's, acceptance "
+          f"{json.dumps(spec['fp32_acceptance'])}; launches {spec['launches']} [{card}]",
+          flush=True)
+    ms = medusa["stats"]
+    print(f"medusa: llama3_8b full width, {MEDUSA_HEADS} seeded heads, default tree, "
+          f"{SPEC_PROMPT}-token prompt, {SPEC_NEW} tokens: tree ms p50 {ms['tree_ms_p50']}, "
+          f"replay ms p50 {ms['replay_ms_p50']}, round ms p50 {ms['round_ms_p50']}, tokens a "
+          f"round {ms['tokens_per_round']}, {medusa['tokens_per_s']:.1f} tok/s; fp32 at "
+          f"{EXACT_LAYERS} layers equal to greedy generate; launches {medusa['launches']} "
+          f"[{card}]", flush=True)
+    print(f"bundle: 2-layer full-width insert forward (512 tokens) traced in "
+          f"{bundle['trace_s']:.2f} s, saved in {bundle['save_s']:.2f} s "
+          f"({bundle['file_bytes']} bytes, {bundle['tensor_bytes_in_file']} of tensors), "
+          f"loaded in {bundle['load_s']:.2f} s; the loaded program gives the live one's bits, "
+          f"launches {bundle['launches']} [{card}]", flush=True)
     if "profile" in stats:
         prof = stats["profile"]
         print(f"profile: device busy {prof['device_busy_s']:.3f} s of the profiled run's "
@@ -3691,7 +4142,10 @@ def main(argv=None) -> int:
                   for label, st in recovery["passes"].items()},
                **{f"tenants_{label}": st["launches"] for label, st in tenants["passes"].items()},
                **{f"park_{label}": st["launches"] for label, st in park["passes"].items()},
-               "train": tstats["launches"]}
+               **{f"program_eager_{label}": st["launches"]
+                  for label, st in eager["passes"].items()},
+               "speculation": spec["launches"], "medusa": medusa["launches"],
+               "bundle": bundle["launches"], "train": tstats["launches"]}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
                "fused_adamw": "fused_adamw_leaf"}
@@ -3711,8 +4165,10 @@ def main(argv=None) -> int:
             if "held" in k.get(part, {}):
                 c[part] = k[part].pop("held")
     print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
+                      "programs": eager, "speculation": spec, "medusa": medusa, "bundle": bundle,
                       "recovery": recovery, "tenants": tenants, "park": park, "train": tstats,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,
+                      "program_check": programs_small,
                       "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

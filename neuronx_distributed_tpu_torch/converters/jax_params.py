@@ -10,6 +10,9 @@ unstack. ``lm_head/kernel`` is absent when ``tie_word_embeddings`` is set.
 ``lora_params_from_jax`` carries an ``init_lora`` adapter tree over the same
 way: keyed by the full flax path, a leading layer axis on stacked kernels,
 into the port's per-layer tree keyed by the port's weight names.
+``medusa_params_from_jax`` carries a ``MedusaLlamaForCausalLM`` tree: the
+Llama part as above plus each head's ``medusa_res_{i}`` (kernel and bias)
+and ``medusa_head_{i}`` (kernel) under the same names.
 """
 
 from __future__ import annotations
@@ -100,4 +103,24 @@ def lora_params_from_jax(tree: Mapping[str, Any], config) -> Dict[str, Dict[str,
                     "lora_b": torch.from_numpy(np.ascontiguousarray(b[i]))}
         else:
             out[".".join(parts)] = {"lora_a": torch.from_numpy(a), "lora_b": torch.from_numpy(b)}
+    return out
+
+
+def medusa_params_from_jax(tree: Mapping[str, Any],
+                           tie_word_embeddings: bool = False) -> Dict[str, torch.Tensor]:
+    """Flax ``MedusaLlamaForCausalLM`` params -> state dict of the port's
+    ``MedusaLlamaForCausalLM``: :func:`llama_params_from_jax` for the base
+    model, then ``medusa_res_{i}.kernel``/``.bias`` and
+    ``medusa_head_{i}.kernel`` for every head the tree holds."""
+    if "params" in tree and "model" not in tree:
+        tree = tree["params"]
+    out = llama_params_from_jax(tree, tie_word_embeddings)
+    heads = sorted(int(k[len("medusa_res_"):]) for k in tree if k.startswith("medusa_res_"))
+    if heads != list(range(len(heads))):
+        raise ValueError(f"medusa heads {heads} are not numbered 0..{len(heads) - 1}")
+    for i in heads:
+        out[f"medusa_res_{i}.kernel"] = torch.from_numpy(_get(tree, (f"medusa_res_{i}", "kernel")))
+        out[f"medusa_res_{i}.bias"] = torch.from_numpy(_get(tree, (f"medusa_res_{i}", "bias")))
+        out[f"medusa_head_{i}.kernel"] = torch.from_numpy(
+            _get(tree, (f"medusa_head_{i}", "kernel")))
     return out

@@ -1,5 +1,6 @@
 """Serving: paged KV cache and host tier, samplers, the causal-LM runtime,
-the engine, fault plans and the host-only sim model.
+the engine, fault plans, the host-only sim model, shape-routed program
+bundles, speculative decoding and Medusa tree decoding.
 
 Submodules load on first attribute access, as in the package root."""
 
@@ -24,6 +25,13 @@ _EXPORTS = {
     "PagedKVCache": "paged_cache",
     "PagePoolExhausted": "paged_cache",
     "RadixPrefixIndex": "paged_cache",
+    "MedusaLlamaForCausalLM": "medusa",
+    "medusa_generate": "medusa",
+    "medusa_model": "medusa",
+    "ModelBuilder": "model_builder",
+    "NxDModel": "model_builder",
+    "speculative_decode_fused": "speculative",
+    "speculative_generate": "speculative",
     "Sampler": "sampling",
     "SlotSampler": "sampling",
     "SimCausalLM": "simlm",

@@ -7,17 +7,33 @@ cache is a fixed pool of ``max_batch`` slots with per-slot lengths;
 mode (``page_size``) the slots resolve through block tables into a shared
 page pool, with radix prefix reuse: a prefix hit prefills only the suffix.
 
-Where the JAX package compiles programs (prefill per bucket, a donated
-decode step, a K-step fused ``lax.scan``), this runtime runs prefill and
-single steps eagerly and updates the cache in place. The K-step fused
-decode is :meth:`CausalLM.compile_session_decode_fused`: on CUDA one
-captured ``torch.cuda.CUDAGraph`` that advances every slot K tokens per
-replay (the counterpart of the jitted scan), on the CPU the same body run
-eagerly. A graph is bound to the addresses it was captured over, so a
-``CausalLM`` owns one set of device buffers — the KV pools and a
-:class:`SlotState` that packs the per-slot decode state with the block
-tables — and :meth:`CausalLM.start_session` resets them for each new
-session (one live session per ``CausalLM``).
+Where the JAX package compiles a program per shape, this runtime runs a
+:class:`~neuronx_distributed_tpu_torch.inference.model_builder.CapturedProgram`
+per shape, under the JAX package's signature names: on CUDA one
+``torch.cuda.CUDAGraph``, captured at the first call with that shape (its
+warm-up is that call) and replayed after, on the CPU the eager body. The
+programs: ``decode`` (one step of every slot), ``prefill_b{bucket}`` and
+``insert_prefill_r{rows}_b{bucket}`` (slab inserts at ``max_batch`` rows
+and fewer), ``paged_insert_r{rows}_b{bucket}`` (paged inserts and paged
+chunk extends), ``chunk_extend_r{rows}_b{bucket}`` (slab chunk extends),
+and the K-step fused decode block ``session_fused_k{K}``
+(:meth:`CausalLM.compile_session_decode_fused`, the counterpart of the
+jitted scan). Each first call's wall time lands in ``capture_ms`` and, with
+a tracer attached, as a ``compile:<signature>`` span on the ``("engine",
+"compile")`` lane. Host-side planning (page plans, commits, rollbacks)
+stays outside the programs. An insert or extend program computes the head
+at each row's last real token only, not over the whole bucket.
+``capture_programs=False`` runs the same bodies eagerly on CUDA (the route
+the captured one is held against).
+
+A graph is bound to the addresses it was captured over, so a ``CausalLM``
+owns one set of device buffers — the KV pools and a :class:`SlotState`
+that packs the per-slot decode state with the block tables — which every
+program reads, and :meth:`CausalLM.start_session` resets them in place for
+each new session (one live session per ``CausalLM``); the programs go with
+those buffers, so they serve every later session. All programs of a
+``CausalLM`` share one graph pool, and each program's static inputs and
+outputs lie outside it.
 
 Tenants (JAX ``causal_lm.py:253-298``): ``lora_rank`` gives the model a
 pool of adapter slots (``inference/adapters.py``) that every forward reads
@@ -47,8 +63,8 @@ from neuronx_distributed_tpu_torch.inference.grammar import (
     grammar_tables,
     reset_grammar_tables,
 )
+from neuronx_distributed_tpu_torch.inference.model_builder import CapturedProgram
 from neuronx_distributed_tpu_torch.inference.paged_cache import PagedKVCache
-from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
 from neuronx_distributed_tpu_torch.inference.sampling import (
     Sampler,
     SlotSampler,
@@ -57,12 +73,6 @@ from neuronx_distributed_tpu_torch.inference.sampling import (
     split_key,
 )
 from neuronx_distributed_tpu_torch.models.llama import KVCache, page_storage_dtype
-
-# the kernel wrappers a decode step can reach (flash attention runs only at
-# 128 tokens and up); a replay adds to their launch counters what one run
-# of the captured body launched
-_KERNEL_WRAPPERS = (paged_decode_attention,)
-
 
 def infer_prompt_lengths(prompt_ids: np.ndarray, pad_token_id: int = 0) -> np.ndarray:
     """Length of each right-padded prompt = 1 + rightmost non-pad position."""
@@ -76,6 +86,13 @@ def infer_prompt_lengths(prompt_ids: np.ndarray, pad_token_id: int = 0) -> np.nd
 class GenerationResult:
     tokens: np.ndarray          # (b, max_new_tokens), pad after eos
     lengths: np.ndarray         # (b,) generated lengths incl. eos
+    # speculation and Medusa attach their per-run metrics (JAX's keys)
+    stats: Optional[dict] = None
+
+
+def percentile_ms(ts, q) -> Optional[float]:
+    """q-th percentile of second timings, in ms (None when empty)."""
+    return round(float(np.percentile(np.asarray(ts) * 1e3, q)), 2) if ts else None
 
 
 class SlotState:
@@ -263,11 +280,14 @@ class FusedDecode:
         self.lm, self.steps, self.slot_sampler, self.pad = lm, int(steps), slot_sampler, int(pad)
         self.out = torch.zeros((self.steps + 1, lm.max_batch), dtype=torch.int32,
                                device=lm.device)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        # launches one replay makes, per kernel wrapper (read at capture)
-        self.launches_per_replay: Dict[str, int] = {}
+        self.program: Optional[CapturedProgram] = None
         self.capture_s = 0.0
         self.replays = 0
+
+    @property
+    def launches_per_replay(self) -> Dict[str, int]:
+        """Launches one replay makes, per kernel wrapper (read at capture)."""
+        return self.program.launches_per_replay if self.program is not None else {}
 
     def _body(self) -> None:
         lm, st = self.lm, self.lm._slots
@@ -319,24 +339,11 @@ class FusedDecode:
             raise RuntimeError("capture the fused decode before inserting into the session: "
                                "its warm-up decodes every slot")
         t0 = time.perf_counter()
+        self.program = CapturedProgram(self._body, lm.device, lm._graph_pool(),
+                                       name=f"session_fused_k{self.steps}")
+        self.program.capture()
         torch.cuda.synchronize(lm.device)
-        side = torch.cuda.Stream(lm.device)
-        side.wait_stream(torch.cuda.current_stream(lm.device))
-        with torch.cuda.stream(side):
-            self._body()
-        torch.cuda.current_stream(lm.device).wait_stream(side)
-        warmed = {fn: fn.launches for fn in _KERNEL_WRAPPERS}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._body()
-        torch.cuda.synchronize(lm.device)
-        # a capture records launches but runs none: keep only the warm-up's
-        self.launches_per_replay = {}
-        for fn in _KERNEL_WRAPPERS:
-            self.launches_per_replay[fn.__name__] = fn.launches - warmed[fn]
-            fn.launches = warmed[fn]
         lm._slots.push()
-        self.graph = graph
         self.capture_s = time.perf_counter() - t0
 
     def __call__(self, session: DecodeSession) -> torch.Tensor:
@@ -344,10 +351,8 @@ class FusedDecode:
         device (fetch it once)."""
         self.lm._check_session(session)
         session.slots.sync()
-        if self.lm.device.type == "cuda":
-            self.graph.replay()
-            for fn in _KERNEL_WRAPPERS:   # the replay launched the captured kernels
-                fn.launches += self.launches_per_replay.get(fn.__name__, 0)
+        if self.program is not None:
+            self.program.replay()
         else:
             self._body()
         self.replays += 1
@@ -367,7 +372,10 @@ class CausalLM:
     ``lora_rank``/``lora_slots``/``lora_targets``: the adapter pool (slots
     default 8, slot 0 the identity). ``grammar_slots``/``grammar_states``/
     ``grammar_tokens``: the grammar pool over a token table (default
-    :func:`default_token_table` of the vocabulary)."""
+    :func:`default_token_table` of the vocabulary). ``capture_programs``
+    (an attribute too): on CUDA, run the decode, prefill, insert and extend
+    forwards as captured programs (default) or eagerly; the CPU runs them
+    eagerly either way."""
 
     def __init__(self, config, params: Mapping[str, Any], model_cls,
                  buckets=(128, 512, 2048), max_batch: int = 4,
@@ -376,8 +384,10 @@ class CausalLM:
                  prefix_cache: bool = True, lora_rank: Optional[int] = None,
                  lora_slots: int = 0, lora_targets: Optional[Sequence[str]] = None,
                  grammar_slots: int = 0, grammar_states: int = 64,
-                 grammar_tokens: Optional[Sequence[str]] = None, device: DeviceLike = None):
+                 grammar_tokens: Optional[Sequence[str]] = None,
+                 capture_programs: bool = True, device: DeviceLike = None):
         self.device = resolve_device(device)
+        self.capture_programs = bool(capture_programs)
         self.config = dataclasses.replace(config, decode=True)
         self.paged = bool(page_size)
         self.prefix_cache = bool(prefix_cache)
@@ -441,8 +451,19 @@ class CausalLM:
         self._session: Optional[DecodeSession] = None
         self._generation = 0
         self._fused: Dict[tuple, FusedDecode] = {}
-        # wall ms of each captured program (warm-up + capture), by signature
+        # the programs by signature, their graph pool, and the slab inserts'
+        # fresh caches by row count (static, outside the pool)
+        self._programs: Dict[str, CapturedProgram] = {}
+        self._pool = None
+        self._fresh: Dict[int, KVCache] = {}
+        self.compiled = False
+        # wall ms of each program's first call by signature: warm-up and
+        # capture on CUDA, the eager first run otherwise (the fused block:
+        # its capture, or its construction on the CPU)
         self.capture_ms: Dict[str, float] = {}
+        # an engine's tracer, attached by ServeEngine: each first call is a
+        # compile:<signature> span on ("engine", "compile")
+        self.tracer = None
 
     # --- helpers ---------------------------------------------------------
 
@@ -473,13 +494,147 @@ class CausalLM:
         with torch.no_grad():
             return self.model(ids, cache)
 
-    def _adapter_rows(self, adapter_slots, rows: int) -> Optional[torch.Tensor]:
-        if not self.lora or adapter_slots is None:
-            return None
+    def _adapter_rows(self, adapter_slots, rows: int) -> list:
+        """The rows' adapter slots as a program input (the identity slot 0
+        when None), or no input without LoRA."""
+        if not self.lora:
+            return []
+        if adapter_slots is None:
+            return [np.zeros((rows,), np.int32)]
         slots = np.asarray(adapter_slots, np.int32).reshape(-1)
         if slots.shape != (rows,):
             raise ValueError(f"{slots.size} adapter slots for {rows} rows")
-        return self._ids(slots)
+        return [slots]
+
+    # --- programs --------------------------------------------------------
+
+    def _graph_pool(self):
+        """The graph pool every captured program of this ``CausalLM`` shares
+        (one program runs at a time)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _run(self, signature: str, body, inputs: Sequence) -> Any:
+        """Run program ``signature`` (``body`` over device tensors) on
+        ``inputs`` (host arrays or device tensors): a replay of its captured
+        graph on CUDA (captured now at its first call), else the eager body.
+        The first call's wall time goes into ``capture_ms`` and the
+        tracer."""
+        cuda = self.device.type == "cuda"
+        captured = cuda and self.capture_programs
+        prog = self._programs.get(signature)
+        if prog is None:
+            prog = self._programs[signature] = CapturedProgram(
+                body, self.device, self._graph_pool() if cuda else None, name=signature)
+        # this call builds the program: its capture, or its first eager run
+        first = prog.graph is None if captured else signature not in self.capture_ms
+        t0 = time.perf_counter()
+        if captured:
+            out = prog(*(torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+                         for a in inputs))
+        else:   # the same body eagerly, on inputs moved to the device
+            out = body(*(self._ids(a, torch.from_numpy(np.asarray(a)).dtype)
+                         if isinstance(a, np.ndarray) else a for a in inputs))
+        if first:
+            t1 = time.perf_counter()
+            self.capture_ms[signature] = round((t1 - t0) * 1e3, 2)
+            tr = self.tracer
+            if tr is not None and tr.enabled:
+                tr.complete("compile:" + signature, ("engine", "compile"), t0, t1)
+        return out
+
+    def _last_logits(self, ids: torch.Tensor, cache: KVCache, last: torch.Tensor,
+                     adapter: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The model over ``ids`` (rows, bucket) on ``cache``, its head at
+        each row's position ``last`` only: ``(rows, vocab)``."""
+        if self.lora:
+            self.model.model.adapter_idx = adapter[0]
+        with torch.no_grad():
+            h = self.model.model(ids, cache)
+            h = h[torch.arange(ids.shape[0], device=ids.device), last]
+            return self.model._head(h[:, None])[:, 0]
+
+    def _fresh_cache(self, rows: int) -> KVCache:
+        """The zeroed-per-call slab a slab insert of ``rows`` rows prefills
+        into before its rows go to the session slab (one per row count)."""
+        fresh = self._fresh.get(rows)
+        if fresh is None:
+            fresh = self._fresh[rows] = self.model.new_cache(rows, self.device)
+        return fresh
+
+    def _slab_insert_body(self, rows: int):
+        cache, fresh, layers = self._cache, self._fresh_cache(rows), self.config.num_layers
+
+        def body(ids, dst, lengths, last, *adapter):
+            for t in (*fresh.keys, *fresh.values, fresh.cache_index):
+                t.zero_()
+            logits = self._last_logits(ids, fresh, last, adapter)
+            # whole rows: the stale tails of the slots' earlier requests go too
+            for layer in range(layers):
+                cache.keys[layer].index_copy_(0, dst, fresh.keys[layer])
+                cache.values[layer].index_copy_(0, dst, fresh.values[layer])
+            cache.cache_index.index_copy_(0, dst, lengths)
+            return logits
+
+        return body
+
+    def _paged_body(self):
+        cache = self._cache
+
+        def body(ids, starts, tables, last, *adapter):
+            # the pools written in place through the rows' own tables
+            return self._last_logits(ids, cache.rows(starts, tables), last, adapter)
+
+        return body
+
+    def _slab_extend_body(self):
+        cache, layers = self._cache, self.config.num_layers
+
+        def body(ids, dst, starts, new_len, last, *adapter):
+            view = cache.rows(starts)
+            view.keys = [t.index_select(0, dst) for t in cache.keys]
+            view.values = [t.index_select(0, dst) for t in cache.values]
+            logits = self._last_logits(ids, view, last, adapter)
+            for layer in range(layers):
+                cache.keys[layer].index_copy_(0, dst, view.keys[layer])
+                cache.values[layer].index_copy_(0, dst, view.values[layer])
+            cache.cache_index.index_copy_(0, dst, new_len)
+            return logits
+
+        return body
+
+    def _decode_body(self):
+        cache, st = self._cache, self._slots
+
+        def body(tok):
+            return self._forward(tok, cache, st.dev_field("adapter") if self.lora
+                                 else None)[:, 0]
+
+        return body
+
+    def compile(self) -> "CausalLM":
+        """Build the JAX package's ``compile()`` programs now: ``decode`` and,
+        on the slab path, ``prefill_b{bucket}`` for every bucket (max_batch
+        rows); the other inserts and extends are built at their first call.
+        Each warm-up runs on zero inputs and writes idle slab rows or scratch
+        pages, so no slot may be live; the slot state is restored from the
+        host mirror after."""
+        self._device_state()
+        if self._session is not None and self._session.active.any():
+            raise RuntimeError("compile before inserting into the session: its warm-ups "
+                               "write every slot")
+        b = self.max_batch
+        self._run("decode", self._decode_body(), [np.zeros((b, 1), np.int32)])
+        if not self.paged:
+            for bucket in self.buckets:
+                self._run(f"prefill_b{bucket}", self._slab_insert_body(b),
+                          [np.zeros((b, bucket), np.int32), np.arange(b, dtype=np.int64),
+                           np.ones((b,), np.int32), np.zeros((b,), np.int64),
+                           *self._adapter_rows(None, b)])
+        self._slots.push()
+        self.compiled = True
+        return self
 
     def kv_cache_bytes(self) -> int:
         """Bytes of the session KV pools (every layer, K and V; paged: the
@@ -612,26 +767,22 @@ class CausalLM:
         rows = len(slot_ids)
         ids = np.zeros((rows, bucket), np.int32)
         ids[:, :s] = prompt_ids
-        # prefill into a fresh zero slab at the rows' own width, then copy the
+        # prefill into a zeroed slab at the rows' own width, then copy the
         # whole rows into the session slab (stale tails of the slots' earlier
         # requests are overwritten, as the JAX scatter does)
-        fresh = self.model.new_cache(rows, self.device)
-        logits = self._forward(self._ids(ids), fresh, aidx)
-        dst = self._ids(slot_ids, torch.long)
-        cache = session.cache
-        for layer in range(self.config.num_layers):
-            cache.keys[layer].index_copy_(0, dst, fresh.keys[layer])
-            cache.values[layer].index_copy_(0, dst, fresh.values[layer])
-        cache.cache_index.index_copy_(0, dst, self._ids(lengths))
+        sig = (f"prefill_b{bucket}" if rows == self.max_batch
+               else f"insert_prefill_r{rows}_b{bucket}")
+        logits = self._run(sig, self._slab_insert_body(rows),
+                           [ids, slot_ids.astype(np.int64), lengths,
+                            np.maximum(lengths - 1, 0).astype(np.int64), *aidx])
         session.lengths[slot_ids] = lengths
         session.active[slot_ids] = True
-        last = self._ids(np.maximum(lengths - 1, 0), torch.long)
-        return logits[torch.arange(rows, device=self.device), last]
+        return logits
 
     def _insert_paged(self, session: DecodeSession, slot_ids: np.ndarray,
                       prompt_ids: np.ndarray, lengths: np.ndarray, reserve_tokens,
                       ns: Optional[Sequence[Optional[str]]] = None,
-                      aidx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      aidx: Sequence = ()) -> torch.Tensor:
         """Paged admission: per-row prefix lookup and page allocation on the
         host, then one suffix-width prefill that writes the pool in place
         through the rows' block tables. Raises :class:`PagePoolExhausted`
@@ -660,9 +811,10 @@ class CausalLM:
         for i in range(rows):
             ids[i, : suffix[i]] = prompt_ids[i, starts[i]: lengths[i]]
         tables = np.stack([pkv.table_for(int(slot_ids[i]), plans[i]) for i in range(rows)])
-        view = session.cache.rows(self._ids(starts), self._ids(tables))
         try:
-            logits = self._forward(self._ids(ids), view, aidx)
+            logits = self._run(f"paged_insert_r{rows}_b{bucket}", self._paged_body(),
+                               [ids, starts, tables.astype(np.int32),
+                                np.maximum(suffix - 1, 0).astype(np.int64), *aidx])
         except Exception:
             for p in plans:
                 pkv.rollback(p)
@@ -676,8 +828,7 @@ class CausalLM:
         session.slots.host_table[slot_ids] = tables
         session.lengths[slot_ids] = lengths
         session.active[slot_ids] = True
-        last = self._ids(np.maximum(suffix - 1, 0), torch.long)
-        return logits[torch.arange(rows, device=self.device), last]
+        return logits
 
     def extend(self, session: DecodeSession, slot_ids, chunk_ids: np.ndarray,
                lengths: np.ndarray, starts: np.ndarray,
@@ -699,9 +850,11 @@ class CausalLM:
         the rows are gathered, extended and scattered back (JAX
         ``_chunk_extend_programs``, ``:1054``). Either way the slot's
         ``cache_index`` becomes ``starts + lengths``, so an idle row's
-        decode writes land at or past what the chunks have covered. Runs
-        eagerly; it rebinds nothing a captured block reads. The chunk runs
-        under the rows' ``adapter_slots`` (the KV it writes is theirs)."""
+        decode writes land at or past what the chunks have covered. The
+        forward is the program ``paged_insert_r{rows}_b{bucket}`` (paged) or
+        ``chunk_extend_r{rows}_b{bucket}`` (slab); it rebinds nothing a
+        captured block reads. The chunk runs under the rows'
+        ``adapter_slots`` (the KV it writes is theirs)."""
         self._check_session(session)
         slot_ids = np.asarray(slot_ids, np.int32)
         self._check_slots(slot_ids)
@@ -719,36 +872,29 @@ class CausalLM:
         bucket = self._bucket_for(s)
         ids = np.zeros((rows, bucket), np.int32)
         ids[:, :s] = chunk_ids
-        dst = self._ids(slot_ids, torch.long)
-        cache = session.cache
         aidx = self._adapter_rows(adapter_slots, rows)
+        last = np.maximum(lengths - 1, 0).astype(np.int64)
         if self.paged:
             if tables is None:
                 raise ValueError("paged extend needs per-row block tables")
-            logits = self._forward(self._ids(ids), cache.rows(self._ids(starts),
-                                                              self._ids(tables)), aidx)
+            logits = self._run(f"paged_insert_r{rows}_b{bucket}", self._paged_body(),
+                               [ids, starts, np.asarray(tables, np.int32), last, *aidx])
+            session.cache.cache_index.index_copy_(0, self._ids(slot_ids, torch.long),
+                                                  self._ids(new_len))
         else:
-            view = cache.rows(self._ids(starts))
-            view.keys = [t.index_select(0, dst) for t in cache.keys]
-            view.values = [t.index_select(0, dst) for t in cache.values]
-            logits = self._forward(self._ids(ids), view, aidx)
-            for layer in range(self.config.num_layers):
-                cache.keys[layer].index_copy_(0, dst, view.keys[layer])
-                cache.values[layer].index_copy_(0, dst, view.values[layer])
-        cache.cache_index.index_copy_(0, dst, self._ids(new_len))
+            logits = self._run(f"chunk_extend_r{rows}_b{bucket}", self._slab_extend_body(),
+                               [ids, slot_ids.astype(np.int64), starts, new_len, last, *aidx])
         session.lengths[slot_ids] = new_len
-        last = self._ids(np.maximum(lengths - 1, 0), torch.long)
-        return logits[torch.arange(rows, device=self.device), last]
+        return logits
 
     def _decode_step(self, session: DecodeSession, tok: torch.Tensor) -> torch.Tensor:
         """One single-token forward for every slot (inactive slots advance
         harmlessly); ``tok`` (max_batch, 1) int32 on the device."""
         self._check_session(session)
         session.slots.sync()
-        logits = self._forward(tok, session.cache,
-                               session.slots.dev_field("adapter") if self.lora else None)
+        logits = self._run("decode", self._decode_body(), [tok])
         session.lengths += 1
-        return logits[:, 0]
+        return logits
 
     def step(self, session: DecodeSession, tokens) -> torch.Tensor:
         """One decode step for all slots; raises without mutating anything
@@ -774,10 +920,15 @@ class CausalLM:
         runner = self._fused.get(key)
         if runner is None:
             self._device_state()
+            t0 = time.perf_counter()
             runner = FusedDecode(self, steps, slot_sampler, pad_token_id)
             if self.device.type == "cuda":
                 runner.capture()
-                self.capture_ms[f"session_fused_k{steps}"] = round(runner.capture_s * 1e3, 2)
+            t1 = time.perf_counter()
+            sig = f"session_fused_k{steps}"
+            self.capture_ms[sig] = round((t1 - t0) * 1e3, 2)
+            if self.tracer is not None and self.tracer.enabled:
+                self.tracer.complete("compile:" + sig, ("engine", "compile"), t0, t1)
             self._fused[key] = runner
         return runner
 

@@ -329,9 +329,10 @@ class _PrefillInFlight:
 class ServeEngine:
     """Continuous-batching scheduler over one :class:`CausalLM` session.
     ``block_steps`` is the K knob: each round advances every live slot K
-    tokens. Building a fused engine captures its decode block on CUDA,
-    outside :meth:`run` (``capture_s``: the wall seconds that took, about 0
-    when the ``CausalLM`` had captured it already).
+    tokens. Building an engine compiles the ``CausalLM``
+    (:meth:`CausalLM.compile`, once per ``CausalLM``) and, fused, captures
+    its decode block on CUDA, outside :meth:`run` (``capture_s``: the wall
+    seconds that took, about 0 when the ``CausalLM`` had done both already).
 
     ``prefill_chunk_tokens`` (JAX ``engine.py:434-441``): 0 admits every
     prompt with one insert; C > 0 prefills any prompt longer than C at most
@@ -551,6 +552,11 @@ class ServeEngine:
         b = lm.max_batch
         self.lane = str(name) if name else "engine"
         self.tracer = tracer if tracer is not None else Tracer(enabled=bool(trace))
+        # compile spans of the lm's programs land on this tracer: an enabled
+        # one always takes the lm, a disabled one only fills a vacancy (a
+        # warm-up engine sharing the lm leaves the serving engine's tracer)
+        if self.tracer.enabled or getattr(lm, "tracer", None) is None:
+            lm.tracer = self.tracer
         if pkv is not None:
             pkv.attach_observability(self.tracer, self.metrics, block_fn=lambda: self.blocks)
         for pool, hook in ((getattr(self.session, "adapters", None), "on_adapter_acquire"),
@@ -680,6 +686,8 @@ class ServeEngine:
             self._ring_turn = 0
         self._fused = None
         t0 = time.perf_counter()
+        if not self._sim and not lm.compiled:   # JAX engine.py:605
+            lm.compile()
         if self.fused and not self._sim:
             self._fused = lm.compile_session_decode_fused(self.block_steps, self.slot_sampler,
                                                           self.pad_token_id)

@@ -186,10 +186,24 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     bf16 or int8); ``block_table``: (b, pages_per_seq) int32;
     ``cache_len``: (b,) int32; ``k_scale``/``v_scale``: (num_pages, 1, n_kv,
     1) fp32, present iff the pools are int8. Returns (b, 1, n_heads, hd)
-    in q's dtype. CUDA tensors launch the kernel, CPU tensors run the twin."""
+    in q's dtype. CUDA tensors launch the kernel, CPU tensors run the twin;
+    under ``torch.export`` the call is the ``nxdt_torch::paged_decode``
+    operator."""
     _check(q, k_pages, v_pages, block_table, cache_len, k_scale, v_scale)
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    args = (q, k_pages, v_pages, block_table, cache_len, k_scale, v_scale, float(sm_scale))
+    if torch.compiler.is_exporting():
+        return torch.ops.nxdt_torch.paged_decode(*args)
+    return _paged_decode_route(*args)   # eager calls skip the operator dispatch
+
+
+def _paged_decode_route(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                        block_table: torch.Tensor, cache_len: torch.Tensor,
+                        k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
+                        sm_scale: float) -> torch.Tensor:
+    """B2's route: CUDA tensors launch the kernel and count the launch, CPU
+    tensors run the twin."""
     if not on_cuda(q, k_pages, v_pages, block_table, cache_len, k_scale, v_scale):
         return paged_decode_attention_plain(q, k_pages, v_pages, block_table, cache_len,
                                             k_scale=k_scale, v_scale=v_scale,
@@ -198,6 +212,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                                v_scale, sm_scale)
     paged_decode_attention.launches += 1
     return out
+
+
+# B2 as an operator PyTorch can trace (``torch.export`` records the call)
+_paged_decode_op = torch.library.custom_op("nxdt_torch::paged_decode", mutates_args=())(
+    _paged_decode_route)
+
+
+@_paged_decode_op.register_fake
+def _(q, k_pages, v_pages, block_table, cache_len, k_scale, v_scale, sm_scale):
+    return torch.empty_like(q)
 
 
 paged_decode_attention.launches = 0

@@ -101,19 +101,34 @@ def counter_gumbel(key_lo: torch.Tensor, key_hi: torch.Tensor, counts: torch.Ten
     draw the same noise for a request's t-th token. Integer mixing in int64
     ops (the same bits on CPU and GPU, no host read), then
     :func:`gumbel_from_bits`."""
+    return gumbel_from_bits(_counter_bits(key_lo, key_hi, counts, vocab))
+
+
+def counter_uniform(key_lo: torch.Tensor, key_hi: torch.Tensor, counts: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """Counter-based uniforms ``(b, n)`` fp32 in (0, 1): the uniforms under
+    :func:`counter_gumbel`'s noise for the same (key, count, column)."""
+    return uniform_from_bits(_counter_bits(key_lo, key_hi, counts, n))
+
+
+def _counter_bits(key_lo, key_hi, counts, n: int) -> torch.Tensor:
     m = lambda t: t.long() & _M32  # noqa: E731
     row = _mix32(m(key_hi) ^ _mix32(m(key_lo) ^ _mix32((m(counts) + 0x9E3779B9) & _M32)))
-    column = _mix32(torch.arange(vocab, dtype=torch.int64, device=counts.device) + 0x85EBCA6B)
-    return gumbel_from_bits(_mix32(column[None, :] ^ row[:, None]))
+    column = _mix32(torch.arange(n, dtype=torch.int64, device=counts.device) + 0x85EBCA6B)
+    return _mix32(column[None, :] ^ row[:, None])
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """A uniform from the top 23 of 32 hash bits (int64 in [0, 2**32)):
+    ``u = (v + 1/2) / 2**23`` in [2**-24, 1 - 2**-24], exact in fp32, so
+    never 0 or 1."""
+    return ((bits >> 9).float() + 0.5) * 2.0 ** -23
 
 
 def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Standard Gumbel noise from 32-bit hash values (int64 in [0, 2**32)):
-    a uniform from the top 23 bits, ``u = (v + 1/2) / 2**23`` in
-    [2**-24, 1 - 2**-24] (exact in fp32, so never 0 or 1), then
-    ``-log(-log(u))``, finite for every input."""
-    u = ((bits >> 9).float() + 0.5) * 2.0 ** -23
-    return -torch.log(-torch.log(u))
+    """Standard Gumbel noise ``-log(-log(u))`` of :func:`uniform_from_bits`,
+    finite for every input."""
+    return -torch.log(-torch.log(uniform_from_bits(bits)))
 
 
 def draw_rows(logits: torch.Tensor, key_lo: torch.Tensor, key_hi: torch.Tensor,

@@ -209,25 +209,50 @@ def _flash_fwd_launch(q, k, v, qpos, kpos, sm_scale, group, num_q_heads):
     return out, lse
 
 
-def flash_block_forward(q, k, v, qpos, kpos, sm_scale, block_q, block_k,
-                        group, num_q_heads):
-    """Forward kernel with its softmax statistics over flattened operands:
-    q ``(b*h, sq, d)``, compact k/v ``(b*h/group, sk, d)``, int32 positions
-    ``(b, 1, s)`` or ``(b, s)``. Returns ``(out, lse (b*h, sq) fp32)``.
-    CUDA tensors launch the kernel, CPU tensors run the twin. The block
-    sizes set the shape contract and the twin's tiling; the kernel tiles
-    64 x 64 whatever they are."""
-    _check(q, k, v, qpos, kpos, group, num_q_heads)
-    sq, sk = q.shape[1], k.shape[1]
-    if not flash_supported(sq, sk, block_q, block_k):
-        raise ValueError(f"seq lengths (q={sq}, kv={sk}) must be multiples of the block "
-                         f"sizes (block_q={block_q}, block_k={block_k})")
+def _flash_fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: torch.Tensor,
+                     kpos: torch.Tensor, sm_scale: float, block_q: int, block_k: int,
+                     group: int, num_q_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1's route: CUDA tensors launch the kernel and count the launch, CPU
+    tensors run the twin."""
     if not on_cuda(q, k, v, qpos, kpos):
         return flash_block_forward_plain(q, k, v, qpos, kpos, sm_scale, block_q, block_k,
                                          group, num_q_heads)
     out = _flash_fwd_kernel(q, k, v, qpos, kpos, sm_scale, group, num_q_heads)
     flash_block_forward.launches += 1
     return out
+
+
+# B1 as an operator PyTorch can trace: ``torch.export`` records the call and a
+# loaded program dispatches it to the route
+_flash_fwd_op = torch.library.custom_op("nxdt_torch::flash_fwd", mutates_args=())(
+    _flash_fwd_route)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, qpos, kpos, sm_scale, block_q, block_k, group, num_q_heads):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+def flash_block_forward(q, k, v, qpos, kpos, sm_scale, block_q, block_k,
+                        group, num_q_heads):
+    """Forward kernel with its softmax statistics over flattened operands:
+    q ``(b*h, sq, d)``, compact k/v ``(b*h/group, sk, d)``, int32 positions
+    ``(b, 1, s)`` or ``(b, s)``. Returns ``(out, lse (b*h, sq) fp32)``.
+    CUDA tensors launch the kernel, CPU tensors run the twin; under
+    ``torch.export`` the call is the ``nxdt_torch::flash_fwd`` operator. The
+    block sizes set the shape
+    contract and the twin's tiling; the kernel tiles 64 x 64 whatever they
+    are."""
+    _check(q, k, v, qpos, kpos, group, num_q_heads)
+    sq, sk = q.shape[1], k.shape[1]
+    if not flash_supported(sq, sk, block_q, block_k):
+        raise ValueError(f"seq lengths (q={sq}, kv={sk}) must be multiples of the block "
+                         f"sizes (block_q={block_q}, block_k={block_k})")
+    args = (q, k, v, qpos, kpos, float(sm_scale), int(block_q), int(block_k), int(group),
+            int(num_q_heads))
+    if torch.compiler.is_exporting():
+        return torch.ops.nxdt_torch.flash_fwd(*args)
+    return _flash_fwd_route(*args)   # eager calls skip the operator dispatch
 
 
 flash_block_forward.launches = 0

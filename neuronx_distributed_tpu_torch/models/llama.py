@@ -19,8 +19,17 @@ paged steps take the paged decode kernel when ``paged_attn_kernel`` is set.
 Training: :meth:`LlamaForCausalLM.loss` (whole-sequence or chunked head and
 cross-entropy), ``remat_policy="full"`` as ``torch.utils.checkpoint`` around
 each decoder layer (only while autograd records, never in decode mode), and
-``qkv_clip``. Not ported yet: Medusa chunk masks, LoRA training, context
+``qkv_clip``. Not ported yet: LoRA training, context
 parallelism and the ``"attention"`` remat policy.
+
+Tree chunks (``chunk_ctx``, JAX ``llama.py:341``, ``:490-497``,
+``:643-656``): a decode-mode forward may carry ``(chunk_mask (s, s) bool,
+chunk_positions (s,))``. The chunk is written at slots ``idx .. idx + s``
+as any chunk is, RoPE runs at ``idx + chunk_positions``, and query i sees
+the prefix slots ``< idx`` and the chunk slots j with ``chunk_mask[i, j]``
+(Medusa's tree verify: a node sees its ancestors). The attention is the
+dense :func:`cached_attention` under that mask, in slab and paged modes;
+the paged kernel and the flash kernel are not taken.
 
 Multi-LoRA serving (``lora_rank``, JAX ``llama.py:315-333``): the model
 holds one fp32 pool ``(lora_slots, num_layers, per_layer)`` of adapter
@@ -402,7 +411,8 @@ class LlamaAttention(nn.Module):
                                         dtype=cfg.dtype, param_dtype=cfg.param_dtype,
                                         device=device)
 
-    def forward(self, x, rope, cache: Optional[KVCache] = None, layer: int = 0, lora=None):
+    def forward(self, x, rope, cache: Optional[KVCache] = None, layer: int = 0, lora=None,
+                chunk_ctx=None):
         cfg = self.config
         q, k, v = self.qkv(x)
         if lora is not None and "qkv" in lora[1].groups:
@@ -415,7 +425,9 @@ class LlamaAttention(nn.Module):
         if cfg.qkv_clip is not None:  # DBRX clip_qkv, before RoPE
             q, k, v = (t.clamp(-cfg.qkv_clip, cfg.qkv_clip) for t in (q, k, v))
         if cfg.decode:
-            return self._decode_attention(x, q, k, v, cache, layer, lora)
+            return self._decode_attention(x, q, k, v, cache, layer, lora, chunk_ctx)
+        if chunk_ctx is not None:
+            raise ValueError("chunk_ctx needs decode mode (a KV cache to attend over)")
         cos, sin = rope
         q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
         s = x.shape[1]
@@ -431,14 +443,20 @@ class LlamaAttention(nn.Module):
             y = y + lora_deltas(*lora, "o_proj", o)[0].to(y.dtype)
         return y
 
-    def _decode_attention(self, x, q, k, v, cache: KVCache, layer: int, lora=None):
+    def _decode_attention(self, x, q, k, v, cache: KVCache, layer: int, lora=None,
+                          chunk_ctx=None):
         cfg = self.config
         b, s_new = x.shape[0], x.shape[1]
         n_kv, hd, ps = k.shape[2], cfg.head_dim_, cfg.page_size
         idx = cache.cache_index                                     # (b,) int32
         ck, cv = cache.keys[layer], cache.values[layer]
         slots = idx[:, None] + torch.arange(s_new, dtype=torch.int32, device=x.device)[None, :]
-        positions = slots
+        chunk_mask = None
+        if chunk_ctx is None:
+            positions = slots
+        else:   # tree chunk: RoPE at each node's depth past the prefix
+            chunk_mask, chunk_positions = chunk_ctx
+            positions = idx[:, None] + chunk_positions.to(torch.int32)[None, :]
         cos, sin = rotary_embedding(positions, hd, cfg.rope_theta, dtype=q.dtype,
                                     scaling=cfg.rope_scaling)
         q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
@@ -461,7 +479,8 @@ class LlamaAttention(nn.Module):
                 phys = torch.gather(table, 1, page_of).long()      # (b, s_new)
                 _write_pages(ck, k, phys, slots, keep)
                 _write_pages(cv, v, phys, slots, keep)
-            if cfg.paged_attn_kernel and paged_kernel_supported(s_new, ps, q.shape[2], n_kv):
+            if (cfg.paged_attn_kernel and chunk_mask is None
+                    and paged_kernel_supported(s_new, ps, q.shape[2], n_kv)):
                 # attend straight off the post-write pool: no logical slab
                 o = paged_decode_attention(q.contiguous(), ck, cv, table, idx, k_scale=ks,
                                            v_scale=vs)
@@ -487,6 +506,16 @@ class LlamaAttention(nn.Module):
                 pool[rows, cols] = torch.where(keep[..., None, None], new.to(pool.dtype),
                                                pool[rows, cols])
             k_all, v_all = ck, cv
+        if chunk_mask is not None:
+            # prefix slots (< idx) all visible; chunk slots by the tree mask
+            kslot = torch.arange(cfg.max_seq_len, device=x.device)[None, None, :]   # (1,1,S)
+            rel = kslot - idx.long()[:, None, None]                                # (b,1,S)
+            in_chunk = (rel >= 0) & (rel < s_new)
+            rel_c = rel.clamp(0, s_new - 1).expand(b, s_new, cfg.max_seq_len)
+            cm = chunk_mask.to(torch.bool)[None].expand(b, s_new, s_new)
+            mask = (rel < 0) | (in_chunk & torch.gather(cm, 2, rel_c))
+            o = cached_attention(q, k_all, v_all, idx, mask=mask)
+            return self._o_proj(o.reshape(b, s_new, -1), lora)
         # block_k tiles the cache sweep (max_seq_len), not the query chunk
         cfg_blk_q, cfg_blk_k = cfg.blocks_for(s_new, cfg.max_seq_len)
         blk_q = min(cfg_blk_q, s_new)
@@ -536,8 +565,8 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attn_norm = RMSNorm(cfg.hidden_size, **norm)
         self.mlp = LlamaMLP(cfg, device)
 
-    def forward(self, x, rope, cache=None, layer=0, lora=None):
-        x = x + self.attention(self.input_norm(x), rope, cache, layer, lora)
+    def forward(self, x, rope, cache=None, layer=0, lora=None, chunk_ctx=None):
+        x = x + self.attention(self.input_norm(x), rope, cache, layer, lora, chunk_ctx)
         return x + self.mlp(self.post_attn_norm(x), lora)
 
 
@@ -582,7 +611,10 @@ class LlamaModel(nn.Module):
                 (cfg.lora_slots, cfg.num_layers, self.lora_layout.per_layer),
                 dtype=torch.float32, device=device), persistent=False)
 
-    def forward(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None):
+    def forward(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None,
+                chunk_ctx=None):
+        """``chunk_ctx``: the tree chunk's ``(chunk_mask, chunk_positions)``
+        (decode mode; see the module docstring)."""
         cfg = self.config
         if input_ids.shape[1] > cfg.max_seq_len:
             raise ValueError(f"sequence length {input_ids.shape[1]} exceeds max_seq_len "
@@ -610,9 +642,9 @@ class LlamaModel(nn.Module):
             lora = (None if idx is None
                     else (self.lora_pool[:, i].index_select(0, idx), self.lora_layout))
             if remat:
-                x = checkpoint(layer, x, rope, cache, i, lora, use_reentrant=False)
+                x = checkpoint(layer, x, rope, cache, i, lora, chunk_ctx, use_reentrant=False)
             else:
-                x = layer(x, rope, cache, i, lora)
+                x = layer(x, rope, cache, i, lora, chunk_ctx)
         if cfg.decode:   # in place: a captured step keeps reading this buffer
             cache.cache_index.add_(input_ids.shape[1])
         return self.final_norm(x)
@@ -636,8 +668,9 @@ class LlamaForCausalLM(nn.Module):
             return self.model.embed.attend(x)
         return self.lm_head(x)
 
-    def forward(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None):
-        return self._head(self.model(input_ids, cache))
+    def forward(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None,
+                chunk_ctx=None):
+        return self._head(self.model(input_ids, cache, chunk_ctx))
 
     def loss(self, input_ids: torch.Tensor, labels: torch.Tensor,
              ignore_index: int = -100) -> torch.Tensor:

@@ -435,6 +435,6 @@ def test_deadline_burst_dumps_incident_bundle(lms, tmp_path):
     assert set(port["state"]) == set(ref["state"])
     assert set(port["state"]["load"]) == set(ref["state"]["load"])
     assert "serve_ttft_ms" in port["metrics"]
-    # the JAX slice adds its compile spans (the port compiles nothing here)
-    assert {e["name"] for e in port["trace"]["events"]} == {
-        e["name"] for e in ref["trace"]["events"] if not e["name"].startswith("compile:")}
+    # compile spans land where each side built its programs: left out
+    assert {e["name"] for e in port["trace"]["events"] if not e["name"].startswith("compile:")} \
+        == {e["name"] for e in ref["trace"]["events"] if not e["name"].startswith("compile:")}

@@ -771,3 +771,108 @@ def test_park_fault_pass_meets_the_prediction_on_the_cpu(smoke, tmp_path):
     assert x["streams"] == passes["u"]["streams"] and len(x["streams"]) == 8
     assert x["attribution"] == [] and x["incidents"] and x["slo"] is not None
     assert all(r["freed"] for r in x["records"] if r["op"] == "park")
+
+
+# --- phase 4g: captured programs and speculation ------------------------------------
+
+
+def _trace_pass(streams, chunk=512, ops_ok=True):
+    return dict(streams=streams, requests=32, prefill_chunk_tokens=chunk, steady_ok=ops_ok,
+                blocks_ok=True, host_ops=[2, 3])
+
+
+def test_program_route_gates_hold_and_catch(smoke):
+    captured = {"a": {0: [1, 2]}, "b": {0: [1, 2], 1: [3]}}
+    good = {"a": _trace_pass({0: [1, 2]}, chunk=0), "b": _trace_pass({0: [1, 2], 1: [3]})}
+    assert smoke.program_route_gates(captured, good) == []
+    bad = {"a": _trace_pass({0: [1, 2]}, chunk=0, ops_ok=False),
+           "b": _trace_pass({0: [1, 2], 1: [4]}, ops_ok=False)}
+    problems = smoke.program_route_gates(captured, bad)
+    assert len(problems) == 2 and "differ" in problems[0] and "host ops" in problems[1]
+
+
+def _spec_result(tokens, acceptance=1.0, dispatches=2):
+    from neuronx_distributed_tpu_torch.inference.causal_lm import GenerationResult
+
+    return GenerationResult(tokens=np.asarray([tokens]), lengths=np.asarray([len(tokens)]),
+                            stats=dict(acceptance_rate=acceptance,
+                                       host_dispatches_per_block=dispatches))
+
+
+def test_spec_gates_hold_and_catch(smoke):
+    gen = _spec_result([5, 6, 7])
+    ok = {"self": {"greedy": dict(host=_spec_result([5, 6, 7]), fused=_spec_result([5, 6, 7])),
+                   "sampled": dict(host=_spec_result([9, 9, 1]), fused=_spec_result([9, 9, 1]))}}
+    assert smoke.spec_gates(ok, gen, exact=True) == []
+    bad = {"self": {"greedy": dict(host=_spec_result([5, 6, 8], 0.5),
+                                   fused=_spec_result([5, 6, 7], dispatches=3))},
+           "2-layer": {"greedy": dict(host=_spec_result([5, 6, 7], 0.1),
+                                      fused=_spec_result([5, 6, 7]))}}
+    problems = smoke.spec_gates(bad, gen, exact=True)
+    assert len(problems) == 4, problems
+    # in bf16 only the fused block and the dispatches are gated
+    assert len(smoke.spec_gates(bad, gen, exact=False)) == 2
+
+
+def test_kernel_wrappers_carry_b1_and_a_replay_adds_its_launches():
+    """A replay runs no Python: the program adds the warm-up's launches of
+    each wrapper, B1's included, to its counter."""
+    from types import SimpleNamespace
+
+    from neuronx_distributed_tpu_torch.inference import model_builder as mb
+    from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import flash_block_forward
+
+    assert flash_block_forward in mb.KERNEL_WRAPPERS
+    assert paged_decode_attention in mb.KERNEL_WRAPPERS
+    prog = mb.CapturedProgram(lambda: None, "cpu", name="p")
+    prog.graph = SimpleNamespace(replay=lambda: None)
+    prog.launches_per_replay = {"flash_block_forward": 3, "paged_decode_attention": 1}
+    before = flash_block_forward.launches, paged_decode_attention.launches
+    try:
+        prog.replay()
+        prog.replay()
+        assert flash_block_forward.launches - before[0] == 6
+        assert paged_decode_attention.launches - before[1] == 2
+    finally:
+        flash_block_forward.launches, paged_decode_attention.launches = before
+
+
+def _small_serve_config():
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=3,
+                       num_heads=4, num_kv_heads=2, max_seq_len=256, dtype=torch.bfloat16,
+                       param_dtype=torch.bfloat16, remat_policy=None)
+
+
+@pytest.fixture
+def short_spec(smoke, monkeypatch):
+    """Phase 4g's speculation and Medusa at a 128-token prompt, 16 tokens."""
+    monkeypatch.setattr(smoke, "SPEC_PROMPT", 128)
+    monkeypatch.setattr(smoke, "SPEC_NEW", 16)
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+
+    cfg = _small_serve_config()
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_speculation_phase_rehearses_on_the_cpu(smoke, short_spec):
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import flash_block_forward
+
+    cfg, params = short_spec
+    out = smoke.run_speculation(cfg, "cpu", params, (flash_block_forward,))
+    assert out["drafts"]["self"]["host_stats"]["acceptance_rate"] == 1.0
+    assert out["fp32_acceptance"]["self"] == {"greedy": 1.0, "sampled": 1.0}
+    assert out["launches"] == {"flash_block_forward": 0}   # the twins launch nothing
+
+
+def test_medusa_and_bundle_phases_rehearse_on_the_cpu(smoke, short_spec, tmp_path):
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import flash_block_forward
+
+    cfg, params = short_spec
+    out = smoke.run_medusa(cfg, "cpu", params, (flash_block_forward,))
+    assert out["stats"]["rounds"] >= 1 and out["fp32_stats"]["tokens_per_round"] >= 1.0
+    # the bundle's gates pass up to the launch gate, which the CPU's twins fail
+    with pytest.raises(smoke.SmokeFailure, match="launched no flash kernel"):
+        smoke.run_bundle(cfg, "cpu", params, (flash_block_forward,), tmp_path)

@@ -461,7 +461,9 @@ def test_captured_decode_block_equals_the_eager_steps(cuda, head_dim, page_dtype
         assert engine.nonfinite_logits == 0
         if fused:
             assert engine.replays == engine.decode_blocks > 0
-            assert set(lm.capture_ms) == {"session_fused_k4"}
+            assert [k for k in lm.capture_ms if k.startswith("session_fused")] == [
+                "session_fused_k4"]
+            assert "decode" in lm.capture_ms
     assert runs[True] == runs[False]
 
 
@@ -483,7 +485,8 @@ def test_generate_fused_chunk_on_cuda_equals_stepwise(cuda):
         if sampler is None:
             np.testing.assert_array_equal(
                 fused.tokens, lms["cpu"].generate(prompts, 11, fused_chunk=4).tokens)
-    assert set(lms[cuda].capture_ms) == {"session_fused_k4", "session_fused_k2"}
+    assert set(lms[cuda].capture_ms) == {"session_fused_k4", "session_fused_k2", "decode",
+                                         "insert_prefill_r3_b16"}
 
 
 def test_chunked_and_async_engines_on_cuda_equal_the_sync_engine(cuda):
@@ -594,9 +597,11 @@ def test_from_snapshot_reuses_the_captured_graph(cuda):
     snap = engine.snapshot()
     at_snap = {r["request_id"]: r["generated"] for r in snap["requests"]}
     before = {c.request_id: c.tokens.tolist() for c in engine.completed}
+    programs = set(lm.capture_ms)
     restored = ServeEngine.from_snapshot(lm, snap)
     assert restored.capture_s < 0.05 and len(lm._fused) == 1
-    assert set(lm.capture_ms) == {"session_fused_k4"}
+    assert set(lm.capture_ms) == programs   # nothing captured again
+    assert [k for k in programs if k.startswith("session_fused")] == ["session_fused_k4"]
     restored.run()
     after = {c.request_id: c.tokens.tolist() for c in restored.completed}
     assert set(before) | set(after) == set(range(len(work))) and not set(before) & set(after)
@@ -719,3 +724,63 @@ def test_from_snapshot_with_tenants_reuses_the_captured_graph(cuda):
     assert restored.capture_s < 0.05 and len(lm._fused) == 1
     done.update({c.request_id: c.tokens.tolist() for c in restored.run()})
     assert done == oracle
+
+
+def test_captured_programs_on_cuda_equal_the_eager_route(cuda):
+    """Inserts, chunk extends and decode steps as captured programs on the
+    card give the eager route's streams bit for bit (fp32 and bf16), with
+    the captures' B1 launches counted at each replay."""
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = tl.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                             num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=512,
+                             dtype=dtype)
+        params = tl.init_params(cfg, torch.Generator().manual_seed(6))
+        rng = np.random.default_rng(7)
+        work = [(rng.integers(1, 255, n), a) for n, a in ((200, 0), (130, 0), (60, 1), (300, 2))]
+        runs = {}
+        for captured in (True, False):
+            lm = CausalLM(cfg, params, tl.LlamaForCausalLM, buckets=(128, 256), max_batch=4,
+                          page_size=16, paged_attn_kernel=True, capture_programs=captured,
+                          device=cuda)
+            for chunk in (0, 128):
+                engine = ServeEngine(lm, block_steps=4, prefill_chunk_tokens=chunk)
+                for p, arrival in work:
+                    engine.submit(p, 10, arrival_block=arrival)
+                before = flash_block_forward.launches
+                runs[(captured, chunk)] = {c.request_id: c.tokens.tolist()
+                                           for c in engine.run()}
+                assert flash_block_forward.launches > before
+            if captured:
+                assert any(k.startswith("paged_insert_r") for k in lm.capture_ms)
+        assert runs[(True, 0)] == runs[(False, 0)] and runs[(True, 128)] == runs[(False, 128)]
+
+
+def test_speculation_and_bundles_on_cuda(cuda, tmp_path):
+    """Speculation's fused block equals its host loop on the card (greedy and
+    sampled), fp32 greedy tokens equal ``generate``'s; a saved and loaded
+    bundle gives the live program's bits and launches B1."""
+    from neuronx_distributed_tpu_torch.inference import model_builder as tmb
+    from neuronx_distributed_tpu_torch.inference import speculative as spec
+
+    cfg = tl.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=4, num_kv_heads=2, max_seq_len=512, dtype=torch.float32)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(8))
+    dparams = tl.init_params(cfg, torch.Generator().manual_seed(9))
+    lms = [CausalLM(cfg, p, tl.LlamaForCausalLM, buckets=(128, 256), max_batch=1, device=cuda)
+           for p in (params, dparams)]
+    ids = np.random.default_rng(1).integers(1, 255, (1, 200)).astype(np.int32)
+    gen = lms[0].generate(ids, 24)
+    for kw in ({}, dict(greedy=False, temperature=0.8, seed=4)):
+        host = spec.speculative_generate(*lms, ids, 24, num_draft=3, **kw)
+        fused = spec.speculative_decode_fused(*lms, ids, 24, num_draft=3, rounds_per_block=3,
+                                              **kw)
+        np.testing.assert_array_equal(host.tokens, fused.tokens)
+        if not kw:
+            np.testing.assert_array_equal(host.tokens, gen.tokens)
+    w = torch.randn((64, 64), device=cuda)
+    live = tmb.ModelBuilder().add("f", lambda x: torch.tanh(x @ w), (torch.zeros((4, 64),
+                                                                                 device=cuda),))
+    live = live.trace()
+    x = torch.randn((3, 64), device=cuda)
+    tmb.save_model(live, str(tmp_path / "b"))
+    assert torch.equal(tmb.load_model(str(tmp_path / "b")).run("f", x), live.run("f", x))

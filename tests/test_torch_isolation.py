@@ -153,3 +153,44 @@ def test_chip_smoke_alone_or_without_a_gpu_fails_with_no_result(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert res.returncode != 0, res.stdout
         assert res.stdout == ""
+
+
+def test_program_and_speculation_entry_points_need_the_gpu_or_the_cpu(monkeypatch):
+    """``ModelBuilder.trace``, ``medusa_generate`` and speculation (through
+    the ``CausalLM`` s it takes) raise without a GPU unless asked for the
+    CPU, and run there when asked."""
+    from neuronx_distributed_tpu_torch.inference.medusa import medusa_generate
+    from neuronx_distributed_tpu_torch.inference.model_builder import ModelBuilder
+    from neuronx_distributed_tpu_torch.inference.speculative import speculative_generate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mb = ModelBuilder().add("f", lambda x: x + 1, (torch.zeros(3),))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mb.trace()
+    assert torch.equal(mb.trace(device="cpu").run("f", torch.ones(2)), torch.tensor([2., 2., 1.]))
+    cfg, params, model_cls = _tiny_lm_args()
+    heads = {f"medusa_{kind}_0.{leaf}": torch.zeros(shape) for kind, leaf, shape in (
+        ("res", "kernel", (32, 32)), ("res", "bias", (32,)), ("head", "kernel", (32, 64)))}
+    ids = np.arange(1, 6, dtype=np.int32)[None]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        medusa_generate(cfg, {**params, **heads}, ids, 2, num_medusa_heads=1,
+                        medusa_choices=[(0,)])
+    assert medusa_generate(cfg, {**params, **heads}, ids, 2, num_medusa_heads=1,
+                           medusa_choices=[(0,)], device="cpu").tokens.shape == (1, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CausalLM(cfg, params, model_cls, buckets=(8,), max_batch=1)
+    t, d = (CausalLM(cfg, params, model_cls, buckets=(8,), max_batch=1, device="cpu")
+            for _ in range(2))
+    assert speculative_generate(t, d, ids, 3, num_draft=2).stats["acceptance_rate"] == 1.0
+
+
+def test_program_modules_stand_alone():
+    """The model builder, speculation and Medusa are the port's own: the
+    standard library, numpy, torch and the port only (the safetensors format
+    is written and read here, with no package for it)."""
+    allowed = {"__future__", "dataclasses", "json", "os", "struct", "time", "typing",
+               "numpy", "torch", "neuronx_distributed_tpu_torch"}
+    for mod in ("inference.model_builder", "inference.speculative", "inference.medusa"):
+        assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
+        path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
+        assert set(_imported_roots(path)) <= allowed, mod

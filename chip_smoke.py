@@ -21,10 +21,14 @@ Phases, each fatal on failure (exit code 1, no result line):
            not built for) and at 160 and 256 (the 256-wide builds, timed
            at 256), paged decode also over an fp32 pool at 256; flash
            forward again at a chunk extend of the trace phase (queries at
-           positions 2560..3071 over a 4096-key view). Flash forward at
-           the serve shape and AdamW
-           are held absolutely; at the training shape and for paged decode
-           each output element is held against its own size, against the
+           positions 2560..3071 over a 4096-key view); the W8A16 GEMM (B5)
+           at the shapes of phase 4h (dense decode both ways, a 512-row
+           prefill, all_experts decode, selective pairs, a per-tensor scale,
+           fp32), timed beside two yardsticks (the dequantized weights and
+           ``torch.matmul``, and ``torch.matmul`` on bf16 weights). Flash
+           forward at the serve shape and AdamW are held absolutely; at the
+           training shape, for paged decode and for B5 each output element
+           is held against its own size, against the
            twin or an fp64 evaluation of the same function (``fwd_exact``,
            ``bwd_exact``, ``decode_exact``), the median |ref| printed
            beside each limit; every attention kernel must give the same
@@ -118,6 +122,21 @@ Phases, each fatal on failure (exit code 1, no result line):
            phase; (x)'s incident bundles pass the validator. Printed: park
            and resume ms, resume against cold TTFT, durable bytes and the
            host split of parks and resumes, by session length;
+4h. quant  int8 weights and the Mixtral family: (q3) a 2-layer fp32 Mixtral
+           (4 experts) with int8 weights on the GPU and the CPU, logits
+           within the small model's tolerance, greedy streams equal on both
+           devices in selective and all_experts decode; (q1) the serve
+           phase's Llama-3-8B weights quantized on the card and the serve
+           workload behind ``ServeEngine``, beside the same workload on the
+           bf16 weights; (q2) Mixtral-8x7B at full width and depth with int8
+           weights (each weight drawn in bf16 from a seed and quantized at
+           once), the serve workload (8 rows: all_experts decode) and a
+           batch-1 ``generate(fused_chunk=8)`` of a 512-token prompt
+           (selective decode). Gates: every request completes, a steady
+           decode block one replay and one fetch, captured = stepwise
+           streams, B1/B2/B5 launched, Mixtral's peak below the card's
+           memory. Printed: weight bytes, tok/s, decode block and step ms,
+           the share of int8 tokens equal to the bf16 pass's;
 5. train   Llama-3-8B widths cut to 4 layers (bf16 weights, fp32 master
            AdamW, clipping, activation checkpointing, the optimizer kernel)
            on a repeated 2 x 4096-token batch: 2 warm-up steps, then 5 timed
@@ -340,7 +359,9 @@ def compile_report(source: str) -> dict:
     library's SASS (``cuobjdump -sass``; None without the tool), keyed
     ``tc::dkdv_kernel<128>`` (bf16) or ``flash_bwd_dkdv_kernel<float, 128>``
     (``flash_bwd``), ``tc::fwd_kernel<128>`` or ``flash_fwd_kernel<float,
-    128>`` (``flash_fwd``)."""
+    128>`` (``flash_fwd``), ``tc::gemm_kernel<16, 1>`` (bf16, rows a CTA and
+    warps along M), ``gemm_f32_kernel`` and ``reduce_kernel<bf16>``
+    (``w8a16_gemm``)."""
     import os
     import re
     import shutil
@@ -348,11 +369,18 @@ def compile_report(source: str) -> dict:
     from neuronx_distributed_tpu_torch.kernels import _build
 
     name = re.compile(r"\d+((?:flash_(?:bwd_)?)?(?:dkdv|dq|fwd)_kernel)I(f?)Li(\d+)E")
+    gemm = re.compile(r"(gemm_kernel)ILi(\d+)ELi(\d+)E|(gemm_f32_kernel)|reduce_kernelI(\w+?)E")
 
     def short(mangled):
         m = name.search(mangled)
         if m is None:
-            return None
+            g = gemm.search(mangled)
+            if g is None:
+                return None
+            if g.group(1):
+                return f"tc::gemm_kernel<{g.group(2)}, {g.group(3)}>"
+            return g.group(4) or ("reduce_kernel<float>" if g.group(5) == "f"
+                                  else "reduce_kernel<bf16>")
         kernel, fp32, d = m.groups()
         return f"{kernel}<float, {d}>" if fp32 else f"tc::{kernel}<{d}>"
 
@@ -1164,6 +1192,144 @@ def run_adamw(dev, flush, reps=10):
         # read g, mu, nu, master; write mu, nu, master, p (28 bytes an element);
         # 17 fp32 operations an element on the CUDA cores
         **bound(17 * n, nbytes(g, p) + 2 * nbytes(*state), PEAK_FP32_FLOPS))
+
+
+# B5 at the shapes of phase 4h's paths: (case, dtype, batch entries, rows, K, N,
+# experts, x shared by the batch (all_experts), routed idx (selective), per tensor)
+W8A16_CASES = (
+    ("dense decode, 4096 -> 14336", "bf16", 1, 8, 4096, 14336, 1, False, False, False),
+    ("dense decode, 14336 -> 4096", "bf16", 1, 8, 14336, 4096, 1, False, False, False),
+    ("dense prefill, 4096 -> 14336", "bf16", 1, 512, 4096, 14336, 1, False, False, False),
+    ("all_experts decode, 8 x 8 rows", "bf16", 8, 8, 4096, 14336, 8, True, False, False),
+    ("selective, 16 pairs x 1 row", "bf16", 16, 1, 4096, 14336, 8, False, True, False),
+    ("per tensor, dense decode", "bf16", 1, 8, 4096, 14336, 1, False, False, True),
+    ("fp32, 64 rows, 4096 -> 4096", "fp32", 1, 64, 4096, 4096, 1, False, False, False),
+)
+W8A16_TIMED = "dense decode, 4096 -> 14336"
+# bf16: one last place at the value (the twin's and the kernel's fp32 sums
+# round to bf16 on either side of a rounding point) plus a floor far below
+# the outputs' median |ref| (about 0.6); fp32: summation order over K = 4096
+TOL_W8A16_FLOOR = 2e-3
+REL_FP32 = 1e-5
+TOL_W8A16_FP32_FLOOR = 1e-5
+
+
+def w8a16_case(dev, dtype, B, M, K, N, E, shared, routed, per_tensor, seed=21):
+    """Seeded operands of one B5 case: x ~ N(0, 1), weights ~ N(0, 1/K)
+    quantized per output channel (or per tensor) with the port's rule."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.quantization.core import quantize_tensor
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    xs = torch.randn((1 if shared else B, M, K), generator=g, device=dev).to(dt)
+    x = xs.expand(B, M, K) if shared else xs
+    w = torch.randn((E, K, N), generator=g, device=dev) / math.sqrt(K)
+    q, scale = quantize_tensor(w, axis=None if per_tensor else 1)
+    del w
+    if routed:
+        idx = torch.randint(0, E, (B,), generator=g, device=dev, dtype=torch.int32)
+    else:
+        idx = torch.arange(B, dtype=torch.int32, device=dev)
+    return x, q, scale, idx
+
+
+def w8a16_exact(x, q, scale, idx):
+    """fp64 evaluation with the twin's rounding of the weights to x's dtype."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import dequantize
+
+    i = idx.long()
+    w = dequantize(q.index_select(0, i), scale.index_select(0, i) if scale.dim() else scale,
+                   x.dtype)
+    return torch.matmul(x.double(), w.double())
+
+
+def run_w8a16(dev, flush, reps=10):
+    """B5 against its twin on every case of ``W8A16_CASES``, each element
+    within its limit of the twin or of the fp64 evaluation; each case
+    launched twice must give the same bits. Timed per case beside the twin,
+    two yardsticks (the dequantized weights and ``torch.matmul``, and
+    ``torch.matmul`` on bf16 weights of the same shape, gathered beforehand
+    for the routed case) and the bound from this run's data (the distinct
+    experts' weights read once). The twins run with cuBLAS's reduced-
+    precision bf16 reductions off."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import (
+        dequantize,
+        w8a16_gemm,
+        w8a16_gemm_plain,
+    )
+
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cases, shapes, timed = {}, {}, {}
+    try:
+        for case, dtype, B, M, K, N, E, shared, routed, per_tensor in W8A16_CASES:
+            x, q, scale, idx = w8a16_case(dev, dtype, B, M, K, N, E, shared, routed, per_tensor)
+            out = w8a16_gemm(x, q, scale, idx)
+            again = w8a16_gemm(x, q, scale, idx)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"a second launch of w8a16_gemm ({case}) gave other bits")
+            ref = w8a16_gemm_plain(x, q, scale, idx)
+            bf16 = dtype == "bf16"
+            r = held(out, ref, TOL_W8A16_FLOOR if bf16 else TOL_W8A16_FP32_FLOOR,
+                     rel=REL_BF16 if bf16 else REL_FP32, exact=w8a16_exact(x, q, scale, idx))
+            cases[case] = {"out": r}
+            shapes[case] = (f"x ({B}, {M}, {K}) {dtype}{' shared by the batch' if shared else ''}"
+                            f", int8 weights ({E}, {K}, {N}), "
+                            f"{'per-tensor' if per_tensor else 'per-channel'} scale, idx "
+                            f"{'routed' if routed else 'identity'}")
+            check_held(f"w8a16_gemm ({case})", r)
+            check(bool(torch.isfinite(out).all()), f"w8a16_gemm ({case}) produced non-finite values")
+            del out, again, ref
+            used = torch.unique(idx).long()
+            i = idx.long()
+            wdt = x.dtype
+
+            def dequant_matmul():
+                w = dequantize(q.index_select(0, i),
+                               scale.index_select(0, i) if scale.dim() else scale, wdt)
+                return torch.matmul(x, w)
+
+            wf = dequantize(q.index_select(0, i) if routed else q,
+                            (scale.index_select(0, i) if routed else scale)
+                            if scale.dim() else scale, wdt)
+            # x read once, the distinct experts' weights and scales read once,
+            # idx read, out written
+            moved = (nbytes(x[:1] if shared else x) + used.numel() * K * N
+                     + (used.numel() * N * 4 if scale.dim() else 4) + nbytes(idx)
+                     + B * M * N * x.element_size())
+            timed[case] = dict(
+                shape=shapes[case],
+                ms=time_ms(lambda: w8a16_gemm(x, q, scale, idx), reps, flush),
+                plain_ms=time_ms(lambda: w8a16_gemm_plain(x, q, scale, idx), max(2, reps // 5),
+                                 flush),
+                library_ms=time_ms(lambda: torch.matmul(x, wf), reps, flush),
+                library_dequant_ms=time_ms(dequant_matmul, max(2, reps // 5), flush),
+                **bound(2.0 * B * M * K * N, moved, PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS))
+            del x, q, scale, idx, wf
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    head = timed[W8A16_TIMED]
+    return dict(
+        name="w8a16_gemm", route="cuda", source="neuronx_distributed_tpu_torch/csrc/w8a16_gemm.cu",
+        replaces="no Pallas call: XLA's fusion of "
+                 "neuronx_distributed_tpu/quantization/core.py:112 (dequantize_leaf) into the "
+                 "consuming einsum",
+        shape=shapes[W8A16_TIMED], case_shapes=shapes,
+        max_abs_err=max(r["out"]["max_abs_err"] for r in cases.values()),
+        tolerance=f"bf16 {REL_BF16:.4g} * |ref| + floor {TOL_W8A16_FLOOR:.3g}; fp32 "
+                  f"{REL_FP32:.3g} * |ref| + floor {TOL_W8A16_FP32_FLOOR:.3g}",
+        held=cases, rerun_bit_identical=True, cases=timed,
+        library="torch.matmul on the dequantized bf16 weights (library_dequant_ms: the "
+                "dequant and torch.matmul)",
+        **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "library_dequant_ms", "bound_ms",
+                                "bound_by", "flops", "bytes")})
 
 
 # --- phase 3: small model, GPU kernels vs CPU twins ---------------------------------
@@ -3531,6 +3697,320 @@ def run_bundle(cfg, dev, params, counters, root: Path) -> dict:
         top_token=int(np.argmax(got.float().cpu().numpy()[0])))
 
 
+# --- phase 4h: int8 weights and the Mixtral family -----------------------------------
+
+QUANT_BLOCK_STEPS = 8
+MIXTRAL_PROMPT = 512       # (q2) the batch-1 selective generate: one prompt, 64 new tokens
+MIXTRAL_GEN_NEW = 64
+MIXTRAL_FUSED = 8
+REPLAY_REPS = 5
+
+
+def mixtral_config():
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.mixtral import mixtral_8x7b
+
+    # the published widths and depth; the only cut: max_seq_len 32768 -> 4096
+    return mixtral_8x7b(max_seq_len=4096, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+
+
+def small_mixtral_config(threshold: float = 0.5):
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralConfig
+
+    # the small fp32 model's widths (head_dim 128, GQA group 2), 4 experts
+    return MixtralConfig(vocab_size=512, hidden_size=512, intermediate_size=1024, num_layers=2,
+                         num_heads=4, num_kv_heads=2, max_seq_len=256, rope_theta=1e6,
+                         num_experts=4, top_k=2, selective_loading_threshold=threshold,
+                         dtype=torch.float32, param_dtype=torch.float32)
+
+
+def weight_bytes(params) -> dict:
+    """Bytes of a state dict by kind: int8 weights, their scales, float."""
+    from neuronx_distributed_tpu_torch.quantization.core import quantized_names
+
+    pairs = quantized_names(params)
+    out = dict(int8=0, scales=0, float=0)
+    for k, t in params.items():
+        base = k.rpartition(".")[0]
+        kind = ("int8" if k == base + ".qweight" else "scales") if base in pairs else "float"
+        out[kind] += nbytes(t)
+    out["total"] = sum(out.values())
+    return out
+
+
+def replay_ms(runner, reps: int = REPLAY_REPS) -> float:
+    """Median device ms of a captured decode block's replay (``reps``
+    replays after the pass: they decode on into the finished session's
+    pages, which nothing reads); None off CUDA, where nothing is captured."""
+    import torch
+
+    if runner.program is None:
+        return None
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        runner.program.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def quant_pass(lm, dev, counters, prompts, max_new=MAX_NEW_TOKENS, reference=None) -> dict:
+    """The serve workload (``prompts``, the second prefix sharer a block
+    late) behind a captured engine on ``lm``, the counters zeroed just
+    before ``run()``; then the same requests behind a stepwise engine. Gates:
+    every request completes in the vocabulary, finite logits, a steady
+    block one replay and one fetch (any block at most one copy more), and
+    the stepwise streams equal the captured ones bit for bit."""
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+
+    vocab = lm.config.vocab_size
+    warm = ServeEngine(lm, block_steps=QUANT_BLOCK_STEPS)
+    warm.submit(prompts[0][:130], 4)
+    warm.run()
+    del warm
+
+    def serve_once(fused: bool):
+        engine = ServeEngine(lm, block_steps=QUANT_BLOCK_STEPS, fused=fused)
+        ops = count_host_ops(engine) if fused else None
+        for i, p in enumerate(prompts):
+            engine.submit(p, max_new, arrival_block=1 if i == 3 else 0)
+        if fused:
+            for c in counters:
+                c.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        done = engine.run()
+        _sync(dev)
+        return engine, done, time.perf_counter() - t0, ops
+
+    engine, done, wall, ops = serve_once(True)
+    launches = {c.__name__: c.launches for c in counters}
+    check(engine.nonfinite_logits == 0, f"non-finite logits ({engine.nonfinite_logits} slots)")
+    check(len(done) == len(prompts), f"{len(done)} of {len(prompts)} requests completed")
+    for c in done:
+        check(len(c.tokens) == max_new and bool(((c.tokens >= 0) & (c.tokens < vocab)).all()),
+              f"request {c.request_id}: {len(c.tokens)} tokens, or one outside the vocabulary")
+    hs = host_op_stats(ops)
+    check(hs["steady_blocks"] > 0 and hs["steady_ok"] and hs["blocks_ok"],
+          f"host ops a decode block {ops}: a steady block must be one replay and one fetch")
+    streams = {c.request_id: c.tokens.tolist() for c in done}
+    block_ms = replay_ms(engine._fused)
+    tokens = sum(len(c.tokens) for c in done)
+    del engine
+    step_engine, step_done, step_wall, _ = serve_once(False)
+    stepwise = {c.request_id: c.tokens.tolist() for c in step_done}
+    check(stepwise == streams, "the captured block and the stepwise route gave other streams")
+    del step_engine
+    ttft = sorted(c.token_ts[0] - c.submit_ts for c in done)
+    st = dict(requests=len(done), generated_tokens=tokens, wall_s=wall,
+              tokens_per_s=tokens / wall, ttft_s_p50=ttft[len(ttft) // 2],
+              decode_block_ms=block_ms,
+              decode_step_ms=block_ms and block_ms / QUANT_BLOCK_STEPS,
+              stepwise_wall_s=step_wall, kv_pool_bytes=lm.kv_cache_bytes(),
+              launches=launches, streams=streams, **{k: hs[k] for k in (
+                  "host_ops_per_block", "steady_blocks")})
+    if reference is not None:
+        same = sum(int(a == b) for rid, ts in streams.items() for a, b in zip(ts, reference[rid]))
+        st["token_match_share"] = same / tokens
+    return st
+
+
+def quant_small_check(dev) -> dict:
+    """(q3) A 2-layer fp32 Mixtral with int8 weights (the small model's
+    widths, 4 experts) on ``dev`` and on the CPU: insert logits and four
+    paged decode steps (3 rows: all_experts) within the small model's
+    tolerance; batch-1 greedy ``generate`` streams (selective under
+    threshold 1.5, all_experts under 0) equal on both devices and between
+    the two modes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
+    from neuronx_distributed_tpu_torch.quantization.core import QuantizationConfig
+
+    cfg = small_mixtral_config()
+    params = init_params(cfg, torch.Generator().manual_seed(3), model_cls=MixtralForCausalLM,
+                         quantize=QuantizationConfig())
+    kw = dict(buckets=(128,), max_batch=3, page_size=16, paged_attn_kernel=True)
+    w8a16_gemm.launches = 0
+    lms = [CausalLM(cfg, params, MixtralForCausalLM, device=d, **kw) for d in (dev, "cpu")]
+    sessions = [lm.start_session() for lm in lms]
+    rng = np.random.default_rng(4)
+    prompts = rng.integers(1, cfg.vocab_size, (2, 120)).astype(np.int32)
+    lengths = np.array([120, 101], np.int32)
+    slots = np.array([0, 2])
+    outs = [lm.insert(s, slots, prompts, lengths=lengths).float().cpu()
+            for lm, s in zip(lms, sessions)]
+    worst = float((outs[0] - outs[1]).abs().max())
+    tok = np.zeros(3, np.int32)
+    tok[slots] = outs[1].argmax(-1).numpy()
+    for _ in range(4):
+        outs = [lm.step(s, tok).float().cpu() for lm, s in zip(lms, sessions)]
+        worst = max(worst, float((outs[0] - outs[1]).abs().max()))
+        tok = outs[1].argmax(-1).numpy().astype(np.int32)
+    check(worst <= TOL_LOGITS_FP32,
+          f"small int8 Mixtral logits on the GPU differ from the CPU twins by {worst}")
+    launches = w8a16_gemm.launches
+    check(launches > 0, "the small int8 Mixtral on the GPU launched no w8a16_gemm")
+    del lms, sessions
+    streams = {}
+    prompt = rng.integers(1, cfg.vocab_size, (1, 100)).astype(np.int32)
+    for mode, thr in (("selective", 1.5), ("all_experts", 0.0)):
+        c = dataclasses.replace(cfg, selective_loading_threshold=thr)
+        for d in (dev, "cpu"):
+            lm = CausalLM(c, params, MixtralForCausalLM, buckets=(128,), max_batch=1, device=d)
+            out = lm.generate(prompt, max_new_tokens=24, fused_chunk=8 if d == dev else 0)
+            streams[(mode, str(d))] = out.tokens[0].tolist()
+            del lm
+    first = streams[("selective", "cpu")]
+    check(all(s == first for s in streams.values()),
+          f"small int8 Mixtral streams differ between devices or modes: {streams}")
+    return dict(logits_max_abs_err=worst, tolerance=TOL_LOGITS_FP32, launches=launches,
+                streams_equal=True, tokens=len(first))
+
+
+def run_quant_llama(cfg, dev, params, counters) -> dict:
+    """(q1) The serve phase's Llama-3-8B weights quantized on the card
+    (int8 per output channel; embedding and head stay bf16) and the serve
+    workload behind ``ServeEngine``, beside the same workload on the bf16
+    weights (its decode block timed in the same call)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.quantization.core import quantize_params
+
+    kw = dict(buckets=(128, 512), max_batch=8, page_size=16, paged_attn_kernel=True, device=dev)
+    prompts = serve_prompts(cfg.vocab_size)
+    lm = CausalLM(cfg, params, LlamaForCausalLM, **kw)
+    bf16 = quant_pass(lm, dev, [c for c in counters if c.__name__ != "w8a16_gemm"], prompts)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    qparams = quantize_params(params)
+    _sync(dev)
+    quantize_s = time.perf_counter() - t0
+    lm = CausalLM(cfg, qparams, LlamaForCausalLM, **kw)
+    int8 = quant_pass(lm, dev, counters, prompts, reference=bf16["streams"])
+    int8.update(quantize_s=quantize_s, weight_bytes=weight_bytes(qparams),
+                bf16_weight_bytes=weight_bytes(params))
+    del lm, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(bf16=bf16, int8=int8)
+
+
+def run_quant_mixtral(dev, counters) -> dict:
+    """(q2) Mixtral-8x7B at full width and depth with int8 weights: each
+    weight drawn in bf16 on the card from a seed and quantized at once (the
+    93 GB bf16 model never exists); the serve workload (vocab 32000) behind
+    ``ServeEngine`` (8 rows: every decode step all_experts), then one
+    512-token prompt through ``generate(fused_chunk=8)`` at batch 1
+    (selective: 1 * 2 / 8 < 0.5) against the stepwise ``generate``. Gates:
+    as :func:`quant_pass`, the peak below the card's memory, equal streams."""
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
+    from neuronx_distributed_tpu_torch.quantization.core import QuantizationConfig
+
+    cfg = mixtral_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         model_cls=MixtralForCausalLM, quantize=QuantizationConfig())
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    wb = weight_bytes(params)
+    lm = CausalLM(cfg, params, MixtralForCausalLM, buckets=(128, 512), max_batch=8,
+                  page_size=16, paged_attn_kernel=True, device=dev)
+    moe = lm.model.model.layers[0].moe
+    check(moe.mode_for(8, 1) == "all_experts" and moe.mode_for(1, 1) == "selective",
+          "Mixtral's decode dispatch: 8 rows must run all_experts, 1 row selective")
+    serve_st = quant_pass(lm, dev, counters, serve_prompts(cfg.vocab_size))
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(1, cfg.vocab_size, (1, MIXTRAL_PROMPT)).astype(np.int32)
+    lm1 = CausalLM(cfg, params, MixtralForCausalLM, buckets=(MIXTRAL_PROMPT,), max_batch=1,
+                   device=dev)
+    lm1.generate(prompt[:, :130], max_new_tokens=MIXTRAL_FUSED, fused_chunk=MIXTRAL_FUSED)
+    # B1 (the prefill) and B5: the slab decode takes no B2
+    gen_counters = [c for c in counters if c.__name__ != "paged_decode_attention"]
+    for c in gen_counters:
+        c.launches = 0
+    _sync(dev)
+    t1 = time.perf_counter()
+    fused = lm1.generate(prompt, max_new_tokens=MIXTRAL_GEN_NEW, fused_chunk=MIXTRAL_FUSED)
+    _sync(dev)
+    gen_wall = time.perf_counter() - t1
+    gen_launches = {c.__name__: c.launches for c in gen_counters}
+    runner = next(r for k, r in lm1._fused.items() if k[0] == MIXTRAL_FUSED)
+    sel_block_ms = replay_ms(runner)
+    stepwise = lm1.generate(prompt, max_new_tokens=MIXTRAL_GEN_NEW)
+    check(fused.tokens.tolist() == stepwise.tokens.tolist(),
+          "Mixtral's fused generate and its stepwise generate gave other streams")
+    check(int(fused.lengths[0]) == MIXTRAL_GEN_NEW, f"generate gave {fused.lengths[0]} tokens")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(peak < total, f"Mixtral's peak {peak} bytes is not below the card's {total}")
+    del lm1, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, hidden=cfg.hidden_size, experts=cfg.num_experts,
+                top_k=cfg.top_k, weight_bytes=wb, build_s=build_s, peak_bytes=peak,
+                device_bytes=total, serve=serve_st,
+                generate=dict(prompt_tokens=MIXTRAL_PROMPT, new_tokens=MIXTRAL_GEN_NEW,
+                              fused_chunk=MIXTRAL_FUSED, wall_s=gen_wall,
+                              tokens_per_s=MIXTRAL_GEN_NEW / gen_wall,
+                              decode_block_ms=sel_block_ms,
+                              decode_step_ms=sel_block_ms and sel_block_ms / MIXTRAL_FUSED,
+                              launches=gen_launches, stepwise_equal=True))
+
+
+def run_quant_phase(dev, parts=("q3", "q1", "q2"), params=None) -> dict:
+    """Phase 4h's model parts on ``dev``: (q3) always cheap, (q1) on
+    ``params`` (the serve phase's weights; made from the seed when None),
+    (q2) after (q1)'s weights are gone."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import flash_block_forward
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+
+    counters = (flash_block_forward, paged_decode_attention, w8a16_gemm)
+    out = {}
+    if "q3" in parts:
+        out["q3"] = quant_small_check(dev)
+    if "q1" in parts:
+        cfg = serve_config()
+        if params is None:
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        out["q1"] = run_quant_llama(cfg, dev, params, counters)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "q2" in parts:
+        out["q2"] = run_quant_mixtral(dev, counters)
+    return out
+
+
 def train_batch(vocab: int, batch: int, seq: int, dev, seed: int = 7) -> dict:
     """Next-token batch from a seeded numpy RNG (the JAX examples'
     ``synthetic_lm_batches``), on ``dev``."""
@@ -3742,7 +4222,7 @@ def main(argv=None) -> int:
           + ", ".join(f"{n} {s:.1f} s" for n, s in _build.build_seconds.items())
           + f" [{card}]", flush=True)
     compiled = {}
-    for source in ("flash_fwd", "flash_bwd"):
+    for source in ("flash_fwd", "flash_bwd", "w8a16_gemm"):
         report = compile_report(source)
         print(f"compiled {source}: " + "; ".join(
             f"{k} {v.get('registers')} registers, {v.get('spill_bytes')} spill bytes, "
@@ -3775,7 +4255,13 @@ def main(argv=None) -> int:
     flash["compiled"] = {n: v for n, v in compiled.items() if "fwd_kernel" in n}
     for k in bwd:
         k["compiled"] = {n: v for n, v in compiled.items() if k["name"][len("flash_bwd_"):] in n}
-    kernels = [flash, run_paged(dev, flush), *bwd, run_adamw(dev, flush)]
+    kernels = [flash, run_paged(dev, flush), *bwd, run_adamw(dev, flush), run_w8a16(dev, flush)]
+    kernels[-1]["compiled"] = {n: v for n, v in compiled.items() if "gemm" in n or "reduce" in n}
+    for case, t in kernels[-1]["cases"].items():
+        print(f"kernel w8a16_gemm ({case}): {t['shape']}; {t['ms']:.4f} ms, twin "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms (dequant and matmul "
+              f"{t['library_dequant_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['ms']:.1%} of bound [{card}]", flush=True)
     head_dims = run_head_dims(dev, flush)
     paged_names = ("paged bf16", "paged int8", "paged fp32")
     for d, r in head_dims.items():
@@ -3905,7 +4391,13 @@ def main(argv=None) -> int:
         gc.collect()
         stats["profile"] = serve(cfg, dev, serve_counters, profile_path=args.profile,
                                  params=params)["profile"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant = run_quant_phase(dev, parts=("q3", "q1"), params=params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant.update(run_quant_phase(dev, parts=("q2",)))
     for name, st in (("serve", stats), ("serve int8 pages", int8)):
         print(f"{name}: llama3_8b full width ({st['layers']} layers, no depth cut), "
               f"{st['page_dtype']} pages, {st['requests']} requests, {st['generated_tokens']} "
@@ -4108,6 +4600,36 @@ def main(argv=None) -> int:
           f"({bundle['file_bytes']} bytes, {bundle['tensor_bytes_in_file']} of tensors), "
           f"loaded in {bundle['load_s']:.2f} s; the loaded program gives the live one's bits, "
           f"launches {bundle['launches']} [{card}]", flush=True)
+    q3, q1, q2 = quant["q3"], quant["q1"], quant["q2"]
+    print(f"quant (q3): small fp32 Mixtral (2 layers, 4 experts) with int8 weights, GPU kernels vs "
+          f"CPU twins: max |logit diff| {q3['logits_max_abs_err']:.3g} (tol {q3['tolerance']}); "
+          f"greedy streams equal on both devices in selective and all_experts; B5 launches "
+          f"{q3['launches']} [{card}]", flush=True)
+    for name, st in (("bf16", q1["bf16"]), ("int8", q1["int8"])):
+        print(f"quant (q1, {name} weights): llama3_8b full width, {st['requests']} requests, "
+              f"{st['generated_tokens']} tokens in {st['wall_s']:.3f} s = "
+              f"{st['tokens_per_s']:.1f} tok/s, TTFT p50 {st['ttft_s_p50'] * 1e3:.1f} ms, decode "
+              f"block ms {st['decode_block_ms']:.3f} ({QUANT_BLOCK_STEPS} steps), "
+              f"{st['host_ops_per_block']:.3f} host ops a block ({st['steady_blocks']} steady), "
+              f"captured = stepwise streams, launches {st['launches']}"
+              + (f", weight bytes {json.dumps(st['weight_bytes'])} against bf16 "
+                 f"{st['bf16_weight_bytes']['total']}, quantized on the card in "
+                 f"{st['quantize_s']:.2f} s, tokens matching the bf16 pass "
+                 f"{st['token_match_share']:.4f}" if name == "int8" else "") + f" [{card}]",
+              flush=True)
+    sv, gen = q2["serve"], q2["generate"]
+    print(f"quant (q2): mixtral_8x7b full width and depth ({q2['layers']} layers, "
+          f"{q2['experts']} experts, top {q2['top_k']}) with int8 weights, weight bytes "
+          f"{json.dumps(q2['weight_bytes'])} built in {q2['build_s']:.1f} s, peak allocated "
+          f"{q2['peak_bytes']} of {q2['device_bytes']} bytes; serve (all_experts decode): "
+          f"{sv['requests']} requests, {sv['generated_tokens']} tokens in {sv['wall_s']:.3f} s = "
+          f"{sv['tokens_per_s']:.1f} tok/s, TTFT p50 {sv['ttft_s_p50'] * 1e3:.1f} ms, decode step "
+          f"ms {sv['decode_step_ms']:.3f}, {sv['host_ops_per_block']:.3f} host ops a block "
+          f"({sv['steady_blocks']} steady), captured = stepwise streams, launches "
+          f"{sv['launches']}; generate batch 1 (selective decode), {gen['prompt_tokens']}-token "
+          f"prompt, {gen['new_tokens']} tokens in {gen['wall_s']:.3f} s = "
+          f"{gen['tokens_per_s']:.1f} tok/s, decode step ms {gen['decode_step_ms']:.3f}, fused = "
+          f"stepwise, launches {gen['launches']} [{card}]", flush=True)
     if "profile" in stats:
         prof = stats["profile"]
         print(f"profile: device busy {prof['device_busy_s']:.3f} s of the profiled run's "
@@ -4145,10 +4667,13 @@ def main(argv=None) -> int:
                **{f"program_eager_{label}": st["launches"]
                   for label, st in eager["passes"].items()},
                "speculation": spec["launches"], "medusa": medusa["launches"],
-               "bundle": bundle["launches"], "train": tstats["launches"]}
+               "bundle": bundle["launches"], "quant_small": {"w8a16_gemm": q3["launches"]},
+               "quant_llama_bf16": q1["bf16"]["launches"],
+               "quant_llama_int8": q1["int8"]["launches"], "quant_mixtral": sv["launches"],
+               "quant_mixtral_generate": gen["launches"], "train": tstats["launches"]}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
-               "fused_adamw": "fused_adamw_leaf"}
+               "fused_adamw": "fused_adamw_leaf", "w8a16_gemm": "w8a16_gemm"}
     for k in kernels:
         k["launches_by_path"] = {path: counts[wrapper[k["name"]]]
                                  for path, counts in by_path.items() if wrapper[k["name"]] in counts}
@@ -4158,6 +4683,8 @@ def main(argv=None) -> int:
     # the element-by-element readings go on the summary line, which keeps the
     # kernels line short
     checks = {}
+    for st in (q1["bf16"], q1["int8"], sv):
+        st.pop("streams")
     for k in kernels:
         c = checks[k["name"]] = {key: k.pop(key) for key in ("held", "head_dims", "case_shapes")
                                  if key in k}
@@ -4166,7 +4693,8 @@ def main(argv=None) -> int:
                 c[part] = k[part].pop("held")
     print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
                       "programs": eager, "speculation": spec, "medusa": medusa, "bundle": bundle,
-                      "recovery": recovery, "tenants": tenants, "park": park, "train": tstats,
+                      "recovery": recovery, "tenants": tenants, "park": park, "quant": quant,
+                      "train": tstats,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,
                       "program_check": programs_small,
                       "card": card}))

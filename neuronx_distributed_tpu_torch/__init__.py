@@ -2,12 +2,14 @@
 
 The JAX package beside this one is the reference; each module here mirrors
 the JAX module of the same path and name. The serving path runs
-``ServeEngine`` -> ``CausalLM`` -> Llama -> attention; the training path
-runs ``initialize_parallel_model`` -> ``initialize_parallel_optimizer`` ->
+``ServeEngine`` -> ``CausalLM`` -> Llama or Mixtral -> attention, the MoE
+block and the int8 weight product; the training path runs
+``initialize_parallel_model`` -> ``initialize_parallel_optimizer`` ->
 ``create_train_state`` -> ``make_train_step`` -> ``LlamaForCausalLM.loss``
 on one device. Their kernels (flash attention forward and backward, paged
-decode attention, fused AdamW) are CUDA C++ written for Hopper (``csrc/``),
-built with ``nvcc`` at first use and bound with ``ctypes``.
+decode attention, fused AdamW, the W8A16 GEMM) are CUDA C++ written for
+Hopper (``csrc/``), built with ``nvcc`` at first use and bound with
+``ctypes``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU they raise instead of carrying on silently on the CPU. Every
@@ -22,8 +24,8 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("converters", "inference", "kernels", "lora", "models", "observability", "ops",
-               "optimizer", "parallel", "trainer")
+_SUBMODULES = ("converters", "inference", "kernels", "lora", "models", "moe", "observability",
+               "ops", "optimizer", "parallel", "quantization", "trainer")
 
 
 def __getattr__(name):

@@ -13,6 +13,17 @@ into the port's per-layer tree keyed by the port's weight names.
 ``medusa_params_from_jax`` carries a ``MedusaLlamaForCausalLM`` tree: the
 Llama part as above plus each head's ``medusa_res_{i}`` (kernel and bias)
 and ``medusa_head_{i}`` (kernel) under the same names.
+
+``mixtral_params_from_jax`` carries a ``MixtralForCausalLM`` tree: the MoE
+block's ``moe/router/kernel`` and the expert tensors ``moe/experts/{gate,
+up,down}`` (stacked ``(L, E, ...)``) unstack like the rest.
+``quantized_params_from_jax`` carries a JAX ``quantize_params`` tree of
+either family: each ``{qweight, scale}`` leaf becomes the port's
+``X.qweight``/``X.scale`` pair, unstacked (a per-tensor 0-d scale goes to
+every layer). An expert scale whose expert axis has size 1 while there are
+more experts is the layout of ROADMAP C7 (the JAX package reduced the expert
+axis of the stacked kernel): it raises rather than share scales across
+experts.
 """
 
 from __future__ import annotations
@@ -37,13 +48,81 @@ _LAYER_LEAVES = {
 }
 
 
-def _get(tree: Mapping[str, Any], path) -> np.ndarray:
+# the Mixtral decoder block: Llama's attention and norms, the MoE block
+_MIXTRAL_LEAVES = {
+    **{k: v for k, v in _LAYER_LEAVES.items() if k[0] != "mlp"},
+    ("moe", "router", "kernel"): "moe.router.kernel",
+    ("moe", "experts", "gate"): "moe.experts.gate",
+    ("moe", "experts", "up"): "moe.experts.up",
+    ("moe", "experts", "down"): "moe.experts.down",
+}
+
+
+def _node(tree: Mapping[str, Any], path):
     node = tree
     for key in path:
         if key not in node:
             raise KeyError(f"flax tree has no {'/'.join(path)}")
         node = node[key]
-    return np.array(node)   # a writable copy: torch tensors share it
+    return node
+
+
+def _get(tree: Mapping[str, Any], path) -> np.ndarray:
+    return np.array(_node(tree, path))   # a writable copy: torch tensors share it
+
+
+def _is_quantized(node) -> bool:
+    return isinstance(node, Mapping) and "qweight" in node
+
+
+def _leaf(node, name: str, out: Dict[str, torch.Tensor]) -> None:
+    """An unstacked leaf: a float array, or a ``{qweight, scale}`` pair."""
+    if _is_quantized(node):
+        out[f"{name}.qweight"] = torch.from_numpy(np.array(node["qweight"]))
+        out[f"{name}.scale"] = torch.from_numpy(np.array(node["scale"], np.float32))
+    else:
+        out[name] = torch.from_numpy(np.array(node))
+
+
+def _stacked(node, path: str, name: str, num_layers: int, out: Dict[str, torch.Tensor]) -> None:
+    """A stacked leaf ``(L, ...)`` as one entry a layer; a quantized one
+    keeps its pair (a 0-d per-tensor scale goes to every layer)."""
+    q = _is_quantized(node)
+    stacked = np.array(node["qweight"] if q else node)
+    if stacked.shape[0] != num_layers:
+        raise ValueError(f"{path} stacks {stacked.shape[0]} layers, expected {num_layers}")
+    scale = np.array(node["scale"], np.float32) if q else None
+    if q and ".moe.experts." in f".{name}" and scale.ndim == stacked.ndim:
+        if scale.shape[1] == 1 and stacked.shape[1] > 1:
+            raise ValueError(
+                f"{path}: scale {scale.shape} for experts {stacked.shape} shares one scale "
+                f"across the expert axis (ROADMAP C7: the JAX quantize_params reduced the "
+                f"expert axis of the scan-stacked kernel); quantize one scale set per expert")
+    for i in range(num_layers):
+        if q:
+            out[f"model.layers.{i}.{name}.qweight"] = torch.from_numpy(
+                np.ascontiguousarray(stacked[i]))
+            # np.array, not ascontiguousarray: a 0-d scale stays 0-d
+            out[f"model.layers.{i}.{name}.scale"] = torch.from_numpy(
+                np.array(scale[i] if scale.ndim else scale))
+        else:
+            out[f"model.layers.{i}.{name}"] = torch.from_numpy(np.ascontiguousarray(stacked[i]))
+
+
+def _params_from_jax(tree: Mapping[str, Any], leaves: Mapping[tuple, str],
+                     tie_word_embeddings: bool) -> Dict[str, torch.Tensor]:
+    if "params" in tree and "model" not in tree:
+        tree = tree["params"]
+    block = ("model", "layers", "block")
+    num_layers = _get(tree, block + ("input_norm", "scale")).shape[0]
+    out: Dict[str, torch.Tensor] = {}
+    _leaf(_node(tree, ("model", "embed", "embedding")), "model.embed.embedding", out)
+    _leaf(_node(tree, ("model", "final_norm", "scale")), "model.final_norm.scale", out)
+    for path, name in leaves.items():
+        _stacked(_node(tree, block + path), "/".join(block + path), name, num_layers, out)
+    if not tie_word_embeddings:
+        _leaf(_node(tree, ("lm_head", "kernel")), "lm_head.kernel", out)
+    return out
 
 
 def llama_params_from_jax(tree: Mapping[str, Any],
@@ -51,24 +130,26 @@ def llama_params_from_jax(tree: Mapping[str, Any],
     """Flax Llama params (``{"model": ..., "lm_head": ...}``, or the
     ``{"params": ...}`` wrapper) -> state dict of the port's
     ``LlamaForCausalLM``."""
-    if "params" in tree and "model" not in tree:
-        tree = tree["params"]
-    block = ("model", "layers", "block")
-    num_layers = _get(tree, block + ("input_norm", "scale")).shape[0]
-    out: Dict[str, torch.Tensor] = {
-        "model.embed.embedding": torch.from_numpy(_get(tree, ("model", "embed", "embedding"))),
-        "model.final_norm.scale": torch.from_numpy(_get(tree, ("model", "final_norm", "scale"))),
-    }
-    for path, name in _LAYER_LEAVES.items():
-        stacked = _get(tree, block + path)
-        if stacked.shape[0] != num_layers:
-            raise ValueError(f"{'/'.join(block + path)} stacks {stacked.shape[0]} layers, "
-                             f"expected {num_layers}")
-        for i in range(num_layers):
-            out[f"model.layers.{i}.{name}"] = torch.from_numpy(np.ascontiguousarray(stacked[i]))
-    if not tie_word_embeddings:
-        out["lm_head.kernel"] = torch.from_numpy(_get(tree, ("lm_head", "kernel")))
-    return out
+    return _params_from_jax(tree, _LAYER_LEAVES, tie_word_embeddings)
+
+
+def mixtral_params_from_jax(tree: Mapping[str, Any],
+                            tie_word_embeddings: bool = False) -> Dict[str, torch.Tensor]:
+    """Flax Mixtral params -> state dict of the port's
+    ``MixtralForCausalLM``: expert tensors ``(L, E, H, I)`` unstack to one
+    ``(E, H, I)`` a layer."""
+    return _params_from_jax(tree, _MIXTRAL_LEAVES, tie_word_embeddings)
+
+
+def quantized_params_from_jax(tree: Mapping[str, Any],
+                              tie_word_embeddings: bool = False) -> Dict[str, torch.Tensor]:
+    """A JAX ``quantize_params`` tree of a Llama or a Mixtral model -> the
+    port's int8 state dict (``X.qweight``/``X.scale`` pairs, leaf for leaf;
+    ``CausalLM`` serves it as it is). Raises on a C7 expert scale."""
+    inner = tree["params"] if "params" in tree and "model" not in tree else tree
+    moe = "moe" in _node(inner, ("model", "layers", "block"))
+    return _params_from_jax(inner, _MIXTRAL_LEAVES if moe else _LAYER_LEAVES,
+                            tie_word_embeddings)
 
 
 _FLAX_KEY = re.compile(r"\['([^']+)'\]")

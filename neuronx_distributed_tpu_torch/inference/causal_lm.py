@@ -47,6 +47,7 @@ adapters and grammars; each session gets fresh pool bookkeeping over them
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, Mapping, Optional, Sequence
@@ -73,6 +74,8 @@ from neuronx_distributed_tpu_torch.inference.sampling import (
     split_key,
 )
 from neuronx_distributed_tpu_torch.models.llama import KVCache, page_storage_dtype
+from neuronx_distributed_tpu_torch.parallel.layers import adopt_quantized
+from neuronx_distributed_tpu_torch.quantization.core import quantized_names
 
 def infer_prompt_lengths(prompt_ids: np.ndarray, pad_token_id: int = 0) -> np.ndarray:
     """Length of each right-padded prompt = 1 + rightmost non-pad position."""
@@ -365,7 +368,17 @@ class CausalLM:
     model class with the :class:`LlamaForCausalLM` interface.
 
     ``params`` is a state dict (tensors or numpy arrays) in the model's
-    naming; it is moved to ``device`` in the config's ``param_dtype``.
+    naming; it is moved to ``device`` in each weight's storage dtype (the
+    config's ``param_dtype``). An int8 tree (``quantization.core``
+    ``quantize_params``: ``X.qweight`` int8 and ``X.scale`` fp32 pairs)
+    serves as it is: its pairs keep their dtypes, the model holds them as
+    ``QuantizedKernel``s and every product with them runs through B5, the
+    W8A16 GEMM. Tensors already on the device in their dtype are used as
+    they are, so a tree larger than half the card loads without a copy.
+    ``param_transform`` (JAX's contract): a function of the tree returning
+    the model's float state dict, applied inside every forward of every
+    program (the model itself stays on the meta device); a route for the
+    CPU tests, since on the card it would hold the transformed tree too.
     ``device`` defaults to ``cuda`` and must be given as ``"cpu"`` to run
     on the CPU.
 
@@ -385,7 +398,8 @@ class CausalLM:
                  lora_slots: int = 0, lora_targets: Optional[Sequence[str]] = None,
                  grammar_slots: int = 0, grammar_states: int = 64,
                  grammar_tokens: Optional[Sequence[str]] = None,
-                 capture_programs: bool = True, device: DeviceLike = None):
+                 capture_programs: bool = True, param_transform=None,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         self.capture_programs = bool(capture_programs)
         self.config = dataclasses.replace(config, decode=True)
@@ -436,10 +450,22 @@ class CausalLM:
             raise ValueError(f"no bucket fits max_seq_len {self.config.max_seq_len}")
         with torch.device("meta"):
             model = model_cls(self.config)
-        dt = self.config.param_dtype
-        state = {k: torch.as_tensor(v).to(device=self.device, dtype=dt)
-                 for k, v in params.items()}
-        model.load_state_dict(state, strict=True, assign=True)
+        state = self._device_params(model, params)
+        self.param_transform = param_transform
+        self._raw_params: Optional[Dict[str, torch.Tensor]] = None
+        if param_transform is None:
+            adopt_quantized(model, state)
+            model.load_state_dict(state, strict=True, assign=True)
+        else:
+            # the model stays on meta: every forward binds the transformed
+            # tree (the names must be the model's, checked on meta tensors)
+            self._raw_params = state
+            want = set(model.state_dict())
+            got = set(param_transform({k: torch.empty_like(v, device="meta")
+                                       for k, v in state.items()}))
+            if got != want:
+                raise KeyError(f"param_transform gives {sorted(got ^ want)[:8]} not matching "
+                               f"the model's weights")
         if self.lora:   # the pool is no weight: allocated here, zeroed per session
             model.model.lora_pool = torch.zeros(model.model.lora_pool.shape, dtype=torch.float32,
                                                 device=self.device)
@@ -483,6 +509,49 @@ class CausalLM:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    def _device_params(self, model, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """``params`` on the device: an ``X.qweight``/``X.scale`` pair stays
+        int8/fp32, every other leaf takes its weight's storage dtype in the
+        model (``param_dtype``; a router's fp32). A tensor already on the
+        device in that dtype passes through as it is (no copy)."""
+        pairs = quantized_names(params)
+        kinds = dict(model.named_parameters())
+        out = {}
+        for k, v in params.items():
+            t = torch.as_tensor(v)
+            base = k.rpartition(".")[0]
+            if base in pairs and k == base + ".qweight":
+                if t.dtype != torch.int8:
+                    raise ValueError(f"{k} is {t.dtype}, not int8")
+                dt = torch.int8
+            elif base in pairs and k == base + ".scale":
+                dt = torch.float32
+            else:
+                p = kinds.get(k)
+                dt = p.dtype if p is not None else self.config.param_dtype
+            out[k] = t.to(device=self.device, dtype=dt)
+        return out
+
+    @contextlib.contextmanager
+    def _weights(self):
+        """With ``param_transform``: the transformed tree bound into the
+        model for one forward (JAX applies it inside every program)."""
+        if self.param_transform is None:
+            yield
+            return
+        tree = self.param_transform(self._raw_params)
+        saved = []
+        try:
+            for name, t in tree.items():
+                mod_name, _, attr = name.rpartition(".")
+                mod = self.model.get_submodule(mod_name)
+                saved.append((mod, attr, mod._parameters[attr]))
+                mod._parameters[attr] = t
+            yield
+        finally:
+            for mod, attr, p in saved:
+                mod._parameters[attr] = p
+
     def _forward(self, ids: torch.Tensor, cache: KVCache,
                  adapter_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The model on ``ids``; ``adapter_idx`` (rows,) the rows' adapter
@@ -491,7 +560,7 @@ class CausalLM:
             self.model.model.adapter_idx = adapter_idx
         # no_grad rather than inference_mode: the cache tensors made here
         # are updated in place by later calls outside any such mode
-        with torch.no_grad():
+        with torch.no_grad(), self._weights():
             return self.model(ids, cache)
 
     def _adapter_rows(self, adapter_slots, rows: int) -> list:
@@ -550,7 +619,7 @@ class CausalLM:
         each row's position ``last`` only: ``(rows, vocab)``."""
         if self.lora:
             self.model.model.adapter_idx = adapter[0]
-        with torch.no_grad():
+        with torch.no_grad(), self._weights():
             h = self.model.model(ids, cache)
             h = h[torch.arange(ids.shape[0], device=ids.device), last]
             return self.model._head(h[:, None])[:, 0]

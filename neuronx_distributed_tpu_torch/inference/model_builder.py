@@ -45,12 +45,13 @@ from torch.utils import _pytree as pytree
 from neuronx_distributed_tpu_torch._device import DeviceLike, resolve_device
 from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
 from neuronx_distributed_tpu_torch.kernels.flash_attn import flash_block_forward
+from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm
 
 # the kernel wrappers a captured body can reach: B1 (prefill, insert, extend
-# and verify forwards of 128 tokens and up) and B2 (paged decode steps). A
-# replay runs no Python, so it adds to their launch counters what one run of
-# the body launched
-KERNEL_WRAPPERS = (flash_block_forward, paged_decode_attention)
+# and verify forwards of 128 tokens and up), B2 (paged decode steps) and B5
+# (every product with int8 weights). A replay runs no Python, so it adds to
+# their launch counters what one run of the body launched
+KERNEL_WRAPPERS = (flash_block_forward, paged_decode_attention, w8a16_gemm)
 
 
 def _clone_out(tree):

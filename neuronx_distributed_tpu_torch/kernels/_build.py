@@ -51,6 +51,10 @@ SIGNATURES = {
     # g, mu, nu, master, p, scalars, n, b1, 1 - b1, b2, 1 - b2, eps, wd,
     # g dtype (0 fp32 / 1 bf16), p dtype (0 fp32 / 1 bf16), stream
     "fused_adamw": ("adamw", [P, P, P, P, P, P, L, F, F, F, F, F, F, I, I, P]),
+    # x, qweight, scale, idx, out, workspace, B, M, K, N, x batch stride,
+    # scale expert stride, scale column stride, splits, k tiles a split,
+    # dtype (0 fp32 / 1 bf16), stream
+    "w8a16_gemm": ("w8a16_gemm", [P, P, P, P, P, P, I, I, I, I, L, I, I, I, I, I, P]),
 }
 SOURCES = tuple(sorted({source for source, _ in SIGNATURES.values()}))
 

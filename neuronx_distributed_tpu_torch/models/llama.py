@@ -587,15 +587,20 @@ def _remat(cfg: LlamaConfig) -> bool:
 
 
 class LlamaModel(nn.Module):
-    """Embedding + decoder stack + final norm over ``(batch, seq, hidden)``."""
+    """Embedding + decoder stack + final norm over ``(batch, seq, hidden)``.
+    ``layer_cls`` is the decoder block (JAX ``llama.py:759-798``: the Mixtral
+    family swaps in its MoE block), a class attribute a subclass sets or an
+    argument."""
 
-    def __init__(self, config: LlamaConfig, device=None):
+    layer_cls = LlamaDecoderLayer
+
+    def __init__(self, config: LlamaConfig, device=None, layer_cls=None):
         super().__init__()
         cfg = self.config = config
+        layer_cls = layer_cls or self.layer_cls
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype,
                                        param_dtype=cfg.param_dtype, device=device)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(layer_cls(cfg, device) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, dtype=cfg.dtype,
                                   param_dtype=cfg.param_dtype, device=device)
         # the adapter pool (read-only here; the serving pool writes its
@@ -652,12 +657,16 @@ class LlamaModel(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """Model + LM head (tied to the embedding when ``tie_word_embeddings``).
-    ``forward`` returns logits ``(b, s, vocab)`` in the compute dtype."""
+    ``forward`` returns logits ``(b, s, vocab)`` in the compute dtype.
+    ``layer_cls`` is the decoder block of its :class:`LlamaModel` (JAX
+    ``llama.py:853-857``)."""
+
+    layer_cls = LlamaDecoderLayer
 
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         cfg = self.config = config
-        self.model = LlamaModel(cfg, device)
+        self.model = LlamaModel(cfg, device, layer_cls=self.layer_cls)
         if not cfg.tie_word_embeddings:
             self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size,
                                                 use_bias=False, dtype=cfg.dtype,
@@ -737,21 +746,32 @@ def page_storage_dtype(config: LlamaConfig) -> torch.dtype:
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
-                device=None) -> dict:
-    """Random weights from a seeded generator, in ``param_dtype``, as a state
-    dict for :class:`LlamaForCausalLM`: kernels normal with std
-    1/sqrt(fan_in) (the JAX package's lecun-normal scale), the embedding
-    normal(0, 1), norm scales 1."""
+                device=None, model_cls=None, quantize=None) -> dict:
+    """Random weights from a seeded generator, in each weight's storage dtype
+    (``param_dtype``; a router's is fp32), as a state dict for ``model_cls``
+    (default :class:`LlamaForCausalLM`): kernels normal with std
+    1/sqrt(fan_in) (the JAX package's lecun-normal scale; an expert weight
+    ``(E, in, out)`` has fan-in ``in``), the embedding normal(0, 1), norm
+    scales 1. ``quantize`` (a ``QuantizationConfig``) quantizes each weight
+    it targets as soon as it is drawn, so only one float weight exists at a
+    time."""
+    from neuronx_distributed_tpu_torch.quantization.core import quantize_leaf
+
+    model_cls = model_cls or LlamaForCausalLM
     with torch.device("meta"):
-        shapes = {k: tuple(v.shape) for k, v in
-                  LlamaForCausalLM(dataclasses.replace(config, lora_rank=None)).state_dict().items()}
+        meta = model_cls(dataclasses.replace(config, lora_rank=None)).state_dict()
     out = {}
-    for name, shape in shapes.items():
+    for name, p in meta.items():
+        shape = tuple(p.shape)
         if name.endswith(".scale"):
-            out[name] = torch.ones(shape, dtype=config.param_dtype, device=device)
+            out[name] = torch.ones(shape, dtype=p.dtype, device=device)
             continue
-        t = torch.randn(shape, generator=generator, dtype=config.param_dtype, device=device)
+        t = torch.randn(shape, generator=generator, dtype=p.dtype, device=device)
         if not name.endswith("embedding"):
-            t.mul_(1.0 / math.sqrt(shape[0]))
-        out[name] = t
+            t.mul_(1.0 / math.sqrt(shape[-2] if ".experts." in name else shape[0]))
+        if quantize is None:
+            out[name] = t
+        else:
+            out.update(quantize_leaf(name, t, quantize))
+            del t
     return out

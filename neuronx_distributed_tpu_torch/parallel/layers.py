@@ -7,8 +7,15 @@ package's layouts (``kernel`` is ``(in, out)``, the fused QKV kernels are
 ``(hidden, heads, head_dim)``) so a converted flax tree loads by renaming
 alone. Each layer stores its weights in ``param_dtype`` and computes in
 ``dtype``, as flax's ``promote_dtype`` does. Meshes, sequence parallelism,
-LoRA, int8 weights and KV-head replication (``kv_size_multiplier > 1``)
-come with later slices.
+LoRA and KV-head replication (``kv_size_multiplier > 1``) come with later
+slices.
+
+int8 weights (JAX ``layers.py:116-120, 163, 322``): a weight may be a
+:class:`QuantizedKernel` (int8 ``qweight`` in the float weight's layout and
+its fp32 ``scale``, put in place by :func:`adopt_quantized`), and the
+layer's product then runs through B5, the W8A16 GEMM (``kernels/w8a16.py``):
+the kernel on the card, JAX's ``dequantize_leaf`` then the matmul on the
+CPU. A GQA kernel ``(H, N, D)`` runs as ``(H, N*D)``.
 """
 
 from __future__ import annotations
@@ -17,6 +24,46 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from neuronx_distributed_tpu_torch.kernels.w8a16 import int8_linear
+
+
+class QuantizedKernel(nn.Module):
+    """An int8 weight: ``qweight`` int8 in the float weight's layout,
+    ``scale`` fp32 (per output channel with the fan-in axis kept as 1, or
+    0-d per tensor). ``dtype`` is the float weight's storage dtype, which
+    the layer's compute dtype promotes with as before."""
+
+    def __init__(self, qweight_shape, scale_shape, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("qweight", torch.empty(qweight_shape, dtype=torch.int8,
+                                                    device=device))
+        self.register_buffer("scale", torch.empty(scale_shape, dtype=torch.float32,
+                                                  device=device))
+
+
+def adopt_quantized(model: nn.Module, state) -> None:
+    """Swap each float weight ``X`` of ``model`` that ``state`` holds as an
+    ``X.qweight``/``X.scale`` pair for a :class:`QuantizedKernel` of those
+    shapes (on ``model``'s device, meta included), so ``state`` loads
+    strictly."""
+    for key in state:
+        if not key.endswith(".qweight"):
+            continue
+        base = key[: -len(".qweight")]
+        if base + ".scale" not in state:
+            raise KeyError(f"{key} has no {base}.scale")
+        mod_name, _, attr = base.rpartition(".")
+        mod = model.get_submodule(mod_name)
+        old = mod._parameters.get(attr)
+        if old is None:
+            raise KeyError(f"{base} is no float weight of the model")
+        q, sc = state[key], state[base + ".scale"]
+        if tuple(q.shape) != tuple(old.shape):
+            raise ValueError(f"{key} is {tuple(q.shape)}, the weight {tuple(old.shape)}")
+        del mod._parameters[attr]
+        mod.add_module(attr, QuantizedKernel(q.shape, sc.shape, old.dtype, device=old.device))
 
 
 def _param(shape, param_dtype, device) -> nn.Parameter:
@@ -44,7 +91,11 @@ class ColumnParallelLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(x, self.kernel, self.dtype)
-        y = x.to(dt) @ self.kernel.to(dt)
+        k = self.kernel
+        if isinstance(k, QuantizedKernel):
+            y = int8_linear(x.to(dt), k.qweight, k.scale)
+        else:
+            y = x.to(dt) @ k.to(dt)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -105,8 +156,14 @@ class GQAQKVColumnParallelLinear(nn.Module):
         out = []
         for name, heads in (("q", self.num_heads), ("k", self.num_kv_heads),
                             ("v", self.num_kv_heads)):
-            w = getattr(self, f"{name}_kernel").to(dt).reshape(hidden, heads * self.head_dim)
-            y = (x @ w).reshape(*x.shape[:-1], heads, self.head_dim)
+            k = getattr(self, f"{name}_kernel")
+            width = heads * self.head_dim
+            if isinstance(k, QuantizedKernel):
+                sc = k.scale.reshape(1, width) if k.scale.dim() else k.scale
+                y = int8_linear(x, k.qweight.reshape(hidden, width), sc)
+            else:
+                y = x @ k.to(dt).reshape(hidden, width)
+            y = y.reshape(*x.shape[:-1], heads, self.head_dim)
             if self.use_bias:
                 y = y + getattr(self, f"{name}_bias").to(y.dtype)
             out.append(y)

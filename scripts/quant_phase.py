@@ -1,0 +1,65 @@
+#!/usr/bin/env python3
+"""Run ``chip_smoke.py``'s phase 4h alone on one NVIDIA GPU: build the
+kernels, then the parts named by ``--parts`` (default all): ``kernels``
+(B5 against its twin at every case, timed), ``q3`` (the 2-layer fp32 int8
+Mixtral, GPU against CPU), ``q1`` (Llama-3-8B with int8 weights behind
+``ServeEngine``, beside the bf16 pass) and ``q2`` (Mixtral-8x7B with int8
+weights at full width and depth). Prints B5's build report and each part's
+result as a JSON line, and the card's name and power limit.
+
+    python3 scripts/quant_phase.py [--parts kernels,q3,q1,q2]
+
+It exits 1 when a gate fails or when no GPU is present.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parts", default="kernels,q3,q1,q2")
+    args = parser.parse_args(argv)
+    parts = args.parts.split(",")
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as smoke
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("quant_phase: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = smoke.card_line()
+    t0 = time.perf_counter()
+    _build.build()
+    print(json.dumps({"build_s": time.perf_counter() - t0, "seconds": _build.build_seconds,
+                      "w8a16_gemm": smoke.compile_report("w8a16_gemm"), "card": card}),
+          flush=True)
+    try:
+        if "kernels" in parts:
+            flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+            r = smoke.run_w8a16("cuda", flush)
+            print(json.dumps({"part": "kernels", **r, "card": card}, default=str), flush=True)
+            del flush
+        models = [p for p in parts if p != "kernels"]
+        if models:
+            out = smoke.run_quant_phase("cuda", parts=models)
+            print(json.dumps({"part": "quant", **out, "card": card}, default=str), flush=True)
+    except smoke.SmokeFailure as e:
+        print(f"quant_phase: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"wall_s": time.perf_counter() - t0, "card": card}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

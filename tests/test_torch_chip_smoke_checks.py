@@ -876,3 +876,85 @@ def test_medusa_and_bundle_phases_rehearse_on_the_cpu(smoke, short_spec, tmp_pat
     # the bundle's gates pass up to the launch gate, which the CPU's twins fail
     with pytest.raises(smoke.SmokeFailure, match="launched no flash kernel"):
         smoke.run_bundle(cfg, "cpu", params, (flash_block_forward,), tmp_path)
+
+
+def test_w8a16_exact_and_cases_against_jax_dequantize(smoke):
+    """Phase 4h's B5 operands and its fp64 evaluation: the port's weights
+    dequantized with the JAX package's ``dequantize_leaf`` give the same
+    product (fp32 operands, atol 1e-5 on outputs of about 1), for the
+    routed, shared and per-tensor cases at small widths."""
+    from neuronx_distributed_tpu.quantization.core import dequantize_leaf
+
+    for B, M, E, shared, routed, per_tensor in ((1, 8, 1, False, False, False),
+                                                (4, 3, 4, True, False, False),
+                                                (6, 1, 4, False, True, False),
+                                                (1, 5, 1, False, False, True)):
+        x, q, s, idx = smoke.w8a16_case("cpu", "fp32", B, M, 64, 48, E, shared, routed, per_tensor)
+        got = smoke.w8a16_exact(x, q, s, idx)
+        w = np.asarray(dequantize_leaf({"qweight": jnp.asarray(q.numpy()),
+                                        "scale": jnp.asarray(s.numpy())}, jnp.float32))
+        want = np.stack([x[b].numpy() @ w[int(i)] for b, i in enumerate(idx.tolist())])
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+        assert got.shape == (B, M, 48)
+
+
+def test_compile_report_names_the_gemm_kernels(smoke, monkeypatch):
+    """``compile_report`` reads B5's entries from a ``-Xptxas -v`` log."""
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    log = "\n".join(f"ptxas info    : Compiling entry function '{m}' for 'sm_90a'\n"
+                    f"ptxas info    : Used {r} registers\n"
+                    f"ptxas info    : 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+                    for m, r in (("_ZN12_GLOBAL__N_12tc11gemm_kernelILi16ELi1EEEvNS_4ArgsE", 80),
+                                 ("_ZN12_GLOBAL__N_115gemm_f32_kernelENS_4ArgsE", 80),
+                                 ("_ZN12_GLOBAL__N_113reduce_kernelI13__nv_bfloat16EEvPKfPT_xi", 32),
+                                 ("_ZN12_GLOBAL__N_113reduce_kernelIfEEvPKfPT_xi", 32)))
+    monkeypatch.setitem(_build.build_log, "w8a16_gemm", log)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setattr("shutil.which", lambda name: None)   # no cuobjdump: no HMMA count
+    report = smoke.compile_report("w8a16_gemm")
+    assert report == {"tc::gemm_kernel<16, 1>": {"registers": 80, "spill_bytes": 0, "hmma": None},
+                      "gemm_f32_kernel": {"registers": 80, "spill_bytes": 0, "hmma": None},
+                      "reduce_kernel<bf16>": {"registers": 32, "spill_bytes": 0, "hmma": None},
+                      "reduce_kernel<float>": {"registers": 32, "spill_bytes": 0, "hmma": None}}
+
+
+def test_quant_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """Phase 4h's (q1) and (q2) at tiny widths on the CPU (the kernels'
+    twins; no timing, no memory reading): every request completes, the
+    captured and stepwise routes agree, the Mixtral serve runs all_experts
+    and its generate selective, and the int8 weights are about a quarter
+    of fp32's. (q3) fails there by design: it demands B5 launches."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralConfig
+
+    small = dict(vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
+                 num_heads=4, num_kv_heads=2, max_seq_len=256, dtype=torch.float32,
+                 param_dtype=torch.float32)
+    monkeypatch.setattr(smoke, "serve_config", lambda: LlamaConfig(**small))
+    monkeypatch.setattr(smoke, "mixtral_config",
+                        lambda: MixtralConfig(**small, num_experts=8, top_k=2))
+    # the serve workload's shape at a quarter of its prompt lengths
+    monkeypatch.setattr(smoke, "SERVE_PROMPT_LENS", tuple(n // 4 for n in smoke.SERVE_PROMPT_LENS))
+    monkeypatch.setattr(smoke, "SHARED_PREFIX", smoke.SHARED_PREFIX // 4)
+    monkeypatch.setattr(smoke, "MIXTRAL_PROMPT", 128)
+    monkeypatch.setattr(smoke, "MIXTRAL_GEN_NEW", 16)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: type("P", (), {"total_memory": 1})())
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = smoke.run_quant_phase("cpu", parts=("q1", "q2"))
+    finally:
+        torch.set_num_threads(threads)
+    q1, q2 = out["q1"], out["q2"]
+    assert q1["int8"]["requests"] == q2["serve"]["requests"] == len(smoke.SERVE_PROMPT_LENS)
+    wb = q1["int8"]["weight_bytes"]   # fp32 weights here: a byte for every four
+    assert wb["int8"] * 4 == q1["int8"]["bf16_weight_bytes"]["float"] - wb["float"]
+    assert 0.0 <= q1["int8"]["token_match_share"] <= 1.0
+    assert q2["generate"]["stepwise_equal"] and q2["weight_bytes"]["int8"] > 0
+    with pytest.raises(smoke.SmokeFailure, match="launched no w8a16_gemm"):
+        smoke.quant_small_check("cpu")

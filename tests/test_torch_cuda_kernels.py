@@ -784,3 +784,66 @@ def test_speculation_and_bundles_on_cuda(cuda, tmp_path):
     x = torch.randn((3, 64), device=cuda)
     tmb.save_model(live, str(tmp_path / "b"))
     assert torch.equal(tmb.load_model(str(tmp_path / "b")).run("f", x), live.run("f", x))
+
+
+# B5 cases: (batch entries, rows, K, N, experts, x shared by the batch,
+# routed idx, per tensor): decode with split K, a ragged prefill tile, the
+# all_experts broadcast, selective pairs, one scalar scale, K not a whole
+# k tile and N not a whole column tile
+_W8A16_CASES = [(1, 8, 1024, 2048, 1, False, False, False),
+                (1, 77, 512, 384, 1, False, False, False),
+                (4, 5, 256, 512, 4, True, False, False),
+                (6, 1, 512, 768, 4, False, True, False),
+                (1, 16, 512, 512, 1, False, False, True),
+                (1, 3, 200, 48, 1, False, False, False)]
+# bf16: one last place at the value (both sums round to bf16) plus a floor
+# far below the outputs' size (about 0.7); fp32: summation order
+W8A16_FLOOR = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _W8A16_CASES)
+def test_w8a16_kernel_matches_twin(cuda, dtype, case):
+    """B5 against its twin (dequantize, then the matmul) element by element,
+    or within the limit of the fp64 evaluation with the twin's weight
+    rounding; a second launch gives the same bits."""
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm, w8a16_gemm_plain
+
+    B, M, K, N, E, shared, routed, per_tensor = case
+    args = smoke.w8a16_case(cuda, "bf16" if dtype == torch.bfloat16 else "fp32", B, M, K, N, E,
+                            shared, routed, per_tensor, seed=3)
+    before = w8a16_gemm.launches
+    got = w8a16_gemm(*args)
+    again = w8a16_gemm(*args)
+    torch.cuda.synchronize()
+    assert w8a16_gemm.launches == before + 2
+    assert torch.equal(got, again)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        want = w8a16_gemm_plain(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    assert got.shape == want.shape == (B, M, N) and got.dtype == dtype
+    _assert_held(got, want, "w8a16", W8A16_FLOOR, exact=smoke.w8a16_exact(*args))
+
+
+def test_w8a16_kernel_rejects_what_it_cannot_read(cuda):
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm
+
+    q = torch.zeros((1, 64, 40), dtype=torch.int8, device=cuda)     # N % 16 != 0
+    s = torch.ones((1, 1, 40), device=cuda)
+    idx = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="N % 16"):
+        w8a16_gemm(torch.zeros((1, 4, 64), dtype=torch.bfloat16, device=cuda), q, s, idx)
+    x = torch.zeros((1, 4, 128), dtype=torch.bfloat16, device=cuda)[:, :, :64]
+    with pytest.raises(ValueError, match="contiguous"):
+        w8a16_gemm(x, q[:, :, :32].contiguous(), s[:, :, :32].contiguous(), idx)
+
+
+def test_int8_mixtral_on_cuda_matches_cpu(cuda):
+    """A 2-layer fp32 Mixtral with int8 weights: GPU logits within the small
+    model's tolerance of the CPU's, greedy streams equal in both decode
+    modes (``chip_smoke.quant_small_check``)."""
+    r = smoke.quant_small_check(cuda)
+    assert r["streams_equal"] and r["launches"] > 0

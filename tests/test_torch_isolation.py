@@ -194,3 +194,38 @@ def test_program_modules_stand_alone():
         assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
         path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
         assert set(_imported_roots(path)) <= allowed, mod
+
+
+def test_quantization_and_moe_modules_stand_alone():
+    """Int8 serving and the Mixtral family are the port's own: the standard
+    library, torch and the port only."""
+    allowed = {"__future__", "collections", "dataclasses", "math", "re", "typing", "torch",
+               "neuronx_distributed_tpu_torch"}
+    for mod in ("quantization.core", "kernels.w8a16", "moe.routing", "moe.expert_mlps",
+                "moe.layer", "models.mixtral"):
+        assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
+        path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
+        assert set(_imported_roots(path)) <= allowed, mod
+
+
+def test_int8_mixtral_needs_the_gpu_or_the_cpu_and_cpu_tensors_take_b5s_twin(monkeypatch):
+    """A Mixtral ``CausalLM`` on an int8 dict raises without a GPU unless
+    asked for the CPU; there every int8 product runs B5's twin and counts no
+    launch."""
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm
+    from neuronx_distributed_tpu_torch.models import mixtral as tm
+    from neuronx_distributed_tpu_torch.quantization.core import QuantizationConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tm.MixtralConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1,
+                           num_heads=4, num_kv_heads=2, max_seq_len=32, num_experts=4,
+                           dtype=torch.float32)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            model_cls=tm.MixtralForCausalLM, quantize=QuantizationConfig())
+    assert params["model.layers.0.moe.experts.gate.qweight"].dtype == torch.int8
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CausalLM(cfg, params, tm.MixtralForCausalLM, buckets=(8,), max_batch=1)
+    before = w8a16_gemm.launches
+    lm = CausalLM(cfg, params, tm.MixtralForCausalLM, buckets=(8,), max_batch=1, device="cpu")
+    out = lm.generate(np.arange(1, 6, dtype=np.int32)[None], 3)
+    assert out.tokens.shape == (1, 3) and w8a16_gemm.launches == before

@@ -22,10 +22,16 @@ Phases, each fatal on failure (exit code 1, no result line):
            at 256), paged decode also over an fp32 pool at 256; flash
            forward again at a chunk extend of the trace phase (queries at
            positions 2560..3071 over a 4096-key view); the W8A16 GEMM (B5)
-           at the shapes of phase 4h (dense decode both ways, a 512-row
-           prefill, all_experts decode, selective pairs, a per-tensor scale,
-           fp32), timed beside two yardsticks (the dequantized weights and
-           ``torch.matmul``, and ``torch.matmul`` on bf16 weights). Flash
+           at the shapes of phase 4h (dense decode both ways, all_experts
+           decode, selective pairs, a per-tensor scale, fp32; the inserts'
+           prefill products: 512 rows to 14336, 1024 and from 14336, 4096
+           rows, 8 experts x 512 shared rows, a ragged 300; the 128-token
+           bucket's inserts at 128 rows, 8 experts x 128 shared rows), each on the
+           route its shapes pick, timed beside three yardsticks (the
+           dequantized weights and ``torch.matmul``, ``torch.matmul`` on
+           bf16 weights, ``torch._weight_int8pack_mm`` where this PyTorch
+           has a CUDA kernel for it) and, where the bytes bound it, a plain
+           read of the weights. Flash
            forward at the serve shape and AdamW are held absolutely; at the
            training shape, for paged decode and for B5 each output element
            is held against its own size, against the
@@ -33,7 +39,9 @@ Phases, each fatal on failure (exit code 1, no result line):
            ``bwd_exact``, ``decode_exact``), the median |ref| printed
            beside each limit; every attention kernel must give the same
            bits when launched twice; the tensor-core kernels must not
-           spill and must hold HMMA instructions;
+           spill and must hold HMMA or HGMMA instructions (B5's prefill
+           kernels HGMMA); B5's launches by route on the main path go on
+           the kernels line;
 3. check   a small fp32 model served through ``CausalLM`` on the GPU
            (kernels) and on the CPU (twins): logits must agree; the same
            model trained two steps on each: losses and weights must agree;
@@ -134,9 +142,12 @@ Phases, each fatal on failure (exit code 1, no result line):
            batch-1 ``generate(fused_chunk=8)`` of a 512-token prompt
            (selective decode). Gates: every request completes, a steady
            decode block one replay and one fetch, captured = stepwise
-           streams, B1/B2/B5 launched, Mixtral's peak below the card's
-           memory. Printed: weight bytes, tok/s, decode block and step ms,
-           the share of int8 tokens equal to the bf16 pass's;
+           streams, B1/B2/B5 launched, B5's wgmma route by the int8
+           inserts and its decode route by the decode steps of (q1) and
+           both (q2) runs (its f32 route by (q3)), Mixtral's peak below the
+           card's memory. Printed: weight bytes, tok/s, decode block and
+           step ms, B5's launches by route, the share of int8 tokens equal
+           to the bf16 pass's;
 5. train   Llama-3-8B widths cut to 4 layers (bf16 weights, fp32 master
            AdamW, clipping, activation checkpointing, the optimizer kernel)
            on a repeated 2 x 4096-token batch: 2 warm-up steps, then 5 timed
@@ -299,6 +310,21 @@ def time_ms(fn, reps: int, flush) -> float:
     return total / reps
 
 
+def zero_launches(counters) -> None:
+    """Set each wrapper's launch count (and its counts by route, where it
+    keeps them: B5) to 0."""
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "launches_by_route"):
+            c.launches_by_route = dict.fromkeys(c.launches_by_route, 0)
+
+
+def routes_of(counters) -> dict:
+    """The counts by route of the wrappers that keep them, by name."""
+    return {c.__name__: dict(c.launches_by_route) for c in counters
+            if hasattr(c, "launches_by_route")}
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -353,14 +379,17 @@ def check_held(name: str, r: dict) -> None:
 
 
 def compile_report(source: str) -> dict:
-    """Each attention kernel's registers and spill bytes from the build log
-    of ``source`` (``nvcc -Xptxas -v``; empty when this process found the
-    library built) and its count of HMMA (tensor-core) instructions in the
-    library's SASS (``cuobjdump -sass``; None without the tool), keyed
+    """Each kernel's registers, shared memory and spill bytes from the build
+    log of ``source`` (``nvcc -Xptxas -v``; empty when this process found
+    the library built) and its counts of HMMA (``mma.sync``) and HGMMA
+    (``wgmma``) tensor-core instructions in the library's SASS
+    (``cuobjdump -sass``; None without the tool), keyed
     ``tc::dkdv_kernel<128>`` (bf16) or ``flash_bwd_dkdv_kernel<float, 128>``
     (``flash_bwd``), ``tc::fwd_kernel<128>`` or ``flash_fwd_kernel<float,
-    128>`` (``flash_fwd``), ``tc::gemm_kernel<16, 1>`` (bf16, rows a CTA and
-    warps along M), ``gemm_f32_kernel`` and ``reduce_kernel<bf16>``
+    128>`` (``flash_fwd``), ``tc::wgmma_kernel<MW>`` (B5's prefill route, tiles
+    of 128 MW rows), ``tc::decode_kernel`` and ``tc::dense_decode_kernel`` (its
+    decode route, batched and one entry), ``gemm_f32_kernel`` and
+    ``reduce_kernel<bf16>``
     (``w8a16_gemm``)."""
     import os
     import re
@@ -369,7 +398,8 @@ def compile_report(source: str) -> dict:
     from neuronx_distributed_tpu_torch.kernels import _build
 
     name = re.compile(r"\d+((?:flash_(?:bwd_)?)?(?:dkdv|dq|fwd)_kernel)I(f?)Li(\d+)E")
-    gemm = re.compile(r"(gemm_kernel)ILi(\d+)ELi(\d+)E|(gemm_f32_kernel)|reduce_kernelI(\w+?)E")
+    gemm = re.compile(r"2tc\d+(?:(wgmma_kernel)ILi(\d)E|(dense_decode_kernel|decode_kernel))"
+                      r"|(gemm_f32_kernel)|reduce_kernelI(\w+?)E")
 
     def short(mangled):
         m = name.search(mangled)
@@ -378,7 +408,9 @@ def compile_report(source: str) -> dict:
             if g is None:
                 return None
             if g.group(1):
-                return f"tc::gemm_kernel<{g.group(2)}, {g.group(3)}>"
+                return f"tc::wgmma_kernel<{g.group(2)}>"
+            if g.group(3):
+                return f"tc::{g.group(3)}"
             return g.group(4) or ("reduce_kernel<float>" if g.group(5) == "f"
                                   else "reduce_kernel<bf16>")
         kernel, fp32, d = m.groups()
@@ -395,6 +427,8 @@ def compile_report(source: str) -> dict:
             report[current]["spill_bytes"] = int(stores) + int(loads)
         elif current and "Used" in line and "registers" in line:
             report[current]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[current]["static_smem_bytes"] = int(smem[1]) if smem else 0
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     sass = None
@@ -406,12 +440,34 @@ def compile_report(source: str) -> dict:
         if "Function :" in line:
             current = short(line)
             if current:
-                report.setdefault(current, {})["hmma"] = 0
+                report.setdefault(current, {}).update(hmma=0, hgmma=0)
+        elif current and "HGMMA" in line:
+            report[current]["hgmma"] += 1
         elif current and "HMMA" in line:
             report[current]["hmma"] += 1
     for entry in report.values():
         entry.setdefault("hmma", None)
+        entry.setdefault("hgmma", None)
+    if source == "w8a16_gemm" and _build.library_path(source).exists():
+        # route codes: 1 decode, 2 / 3 wgmma at 128 / 256 rows
+        for k, code in (("tc::wgmma_kernel<1>", 2), ("tc::wgmma_kernel<2>", 3),
+                        ("tc::decode_kernel", 1)):
+            if k in report:
+                report[k]["dynamic_smem_bytes"] = _build.load("w8a16_smem")(code)
     return report
+
+
+def compile_gates(report: dict) -> None:
+    """Every bf16 tensor-core kernel (``tc::``) spills nothing and holds
+    HMMA or HGMMA instructions; B5's prefill kernels hold HGMMA."""
+    for k, v in report.items():
+        if k.startswith("tc::"):
+            check(v.get("spill_bytes") in (0, None), f"{k} spills {v.get('spill_bytes')} bytes")
+            check(v["hmma"] != 0 or v["hgmma"] not in (0, None),
+                  f"{k} has no HMMA or HGMMA (tensor-core) instruction in its SASS")
+    for k in ("tc::wgmma_kernel<1>", "tc::wgmma_kernel<2>"):
+        if k in report:
+            check(report[k]["hgmma"] != 0, f"{k} has no HGMMA (wgmma) instruction in its SASS")
 
 
 # --- phase 2: kernels vs twins -------------------------------------------------
@@ -1204,6 +1260,24 @@ W8A16_CASES = (
     ("selective, 16 pairs x 1 row", "bf16", 16, 1, 4096, 14336, 8, False, True, False),
     ("per tensor, dense decode", "bf16", 1, 8, 4096, 14336, 1, False, False, True),
     ("fp32, 64 rows, 4096 -> 4096", "fp32", 1, 64, 4096, 4096, 1, False, False, False),
+    # the products of the inserts: k and v, the down projection, 8 rows x
+    # the 512 bucket, Mixtral's all_experts prefill, a ragged prompt
+    ("dense prefill, 4096 -> 1024", "bf16", 1, 512, 4096, 1024, 1, False, False, False),
+    ("dense prefill, 14336 -> 4096", "bf16", 1, 512, 14336, 4096, 1, False, False, False),
+    ("dense prefill, 4096 rows, 4096 -> 14336", "bf16", 1, 4096, 4096, 14336, 1, False, False,
+     False),
+    ("all_experts prefill, 8 x 512 rows", "bf16", 8, 512, 4096, 14336, 8, True, False, False),
+    ("ragged prefill, 300 rows, 4096 -> 14336", "bf16", 1, 300, 4096, 14336, 1, False, False,
+     False),
+    # the 128-token bucket's inserts (a prompt of at most 128 tokens goes in
+    # alone as paged_insert_r1_b128): every layer's products at 128 rows
+    ("insert prefill, 128 rows, 4096 -> 14336", "bf16", 1, 128, 4096, 14336, 1, False, False,
+     False),
+    ("insert prefill, 128 rows, 4096 -> 1024", "bf16", 1, 128, 4096, 1024, 1, False, False,
+     False),
+    ("insert prefill, 128 rows, 14336 -> 4096", "bf16", 1, 128, 14336, 4096, 1, False, False,
+     False),
+    ("all_experts prefill, 8 x 128 rows", "bf16", 8, 128, 4096, 14336, 8, True, False, False),
 )
 W8A16_TIMED = "dense decode, 4096 -> 14336"
 # bf16: one last place at the value (the twin's and the kernel's fp32 sums
@@ -1247,18 +1321,56 @@ def w8a16_exact(x, q, scale, idx):
     return torch.matmul(x.double(), w.double())
 
 
+def w8a16_line(t: dict) -> str:
+    """One B5 case's readings on a line."""
+    int8pack = (f"{t['int8pack_ms']:.4f} ms" if t["int8pack_ms"] is not None
+                else t["int8pack"])
+    read = f", a read of the weights {t['read_ms']:.4f} ms" if "read_ms" in t else ""
+    return (f"{t['shape']}; route {t['route']}, tile {t['tile']}, {t['splits']} split(s); "
+            f"{t['ms']:.4f} ms, twin "
+            f"{t['plain_ms']:.4f} ms, bf16 matmul {t['library_ms']:.4f} ms (ratio "
+            f"{t['ms'] / t['library_ms']:.2f}), dequant and matmul "
+            f"{t['library_dequant_ms']:.4f} ms, int8pack_mm {int8pack}{read}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of bound")
+
+
+def int8pack_yardstick(x, q, scale, reps, flush):
+    """ms of one ``torch._weight_int8pack_mm`` call (x (M, K) against int8
+    (N, K) weights with per-channel scales) on a one-entry case, its
+    operands built outside the timed window; None with the reason where
+    this PyTorch has no CUDA kernel for it or the case is batched or
+    fp32. Timed only: the port never calls it."""
+    import torch
+
+    if not torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm", "CUDA"):
+        return None, "none in this PyTorch (no CUDA kernel for aten::_weight_int8pack_mm)"
+    if x.shape[0] != 1 or x.dtype != torch.bfloat16:
+        return None, "batched or fp32 case: no single call"
+    N = q.shape[2]
+    xs, qt = x[0].contiguous(), q[0].t().contiguous()
+    sc = (scale.reshape(N) if scale.dim() else scale.expand(N)).to(x.dtype).contiguous()
+    return time_ms(lambda: torch._weight_int8pack_mm(xs, qt, sc), reps, flush), \
+        "torch._weight_int8pack_mm"
+
+
 def run_w8a16(dev, flush, reps=10):
     """B5 against its twin on every case of ``W8A16_CASES``, each element
     within its limit of the twin or of the fp64 evaluation; each case
     launched twice must give the same bits. Timed per case beside the twin,
-    two yardsticks (the dequantized weights and ``torch.matmul``, and
+    three yardsticks (the dequantized weights and ``torch.matmul``;
     ``torch.matmul`` on bf16 weights of the same shape, gathered beforehand
-    for the routed case) and the bound from this run's data (the distinct
-    experts' weights read once). The twins run with cuBLAS's reduced-
-    precision bf16 reductions off."""
+    for the routed case; ``torch._weight_int8pack_mm`` where this PyTorch
+    has a CUDA kernel for it) and the bound from this run's data (the
+    distinct experts' weights read once), with the route, tile and splits the
+    shapes pick; where the bytes bound a case, also the time of one plain
+    read of those weights (``read_ms``). The twins run with cuBLAS's
+    reduced-precision bf16 reductions off."""
     import torch
 
     from neuronx_distributed_tpu_torch.kernels.w8a16 import (
+        _route,
+        _splits,
+        _tile,
         dequantize,
         w8a16_gemm,
         w8a16_gemm_plain,
@@ -1303,16 +1415,33 @@ def run_w8a16(dev, flush, reps=10):
             moved = (nbytes(x[:1] if shared else x) + used.numel() * K * N
                      + (used.numel() * N * 4 if scale.dim() else 4) + nbytes(idx)
                      + B * M * N * x.element_size())
+            route = _route(B, M, K, N, x.dtype)
             timed[case] = dict(
-                shape=shapes[case],
+                shape=shapes[case], route=route, splits=_splits(route, B, M, K, N)[0],
+                tile="{1} x {2} x {0}".format(*_tile(route, M)),
                 ms=time_ms(lambda: w8a16_gemm(x, q, scale, idx), reps, flush),
                 plain_ms=time_ms(lambda: w8a16_gemm_plain(x, q, scale, idx), max(2, reps // 5),
                                  flush),
                 library_ms=time_ms(lambda: torch.matmul(x, wf), reps, flush),
                 library_dequant_ms=time_ms(dequant_matmul, max(2, reps // 5), flush),
                 **bound(2.0 * B * M * K * N, moved, PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS))
+            if timed[case]["bound_by"] == "bytes":
+                # the floor this timing method leaves a kernel bound by its
+                # weight bytes: one read of the distinct experts' weights
+                # (their max, as int32 words) after the same L2 flush
+                words = q.index_select(0, used).view(torch.int32) if routed else q.view(torch.int32)
+                timed[case]["read_ms"] = time_ms(lambda: words.amax(), reps, flush)
+                del words
             del x, q, scale, idx, wf
             torch.cuda.empty_cache()
+        # after every kernel timing: the library's int8 call is a slow SIMT
+        # kernel (up to half a second a call) that would heat the card
+        # before the cases timed after it
+        for case, dtype, B, M, K, N, E, shared, routed, per_tensor in W8A16_CASES:
+            x, q, scale, idx = w8a16_case(dev, dtype, B, M, K, N, E, shared, routed, per_tensor)
+            timed[case]["int8pack_ms"], timed[case]["int8pack"] = int8pack_yardstick(
+                x, q, scale, 2, flush)
+            del x, q, scale, idx
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
     head = timed[W8A16_TIMED]
@@ -1328,8 +1457,10 @@ def run_w8a16(dev, flush, reps=10):
         held=cases, rerun_bit_identical=True, cases=timed,
         library="torch.matmul on the dequantized bf16 weights (library_dequant_ms: the "
                 "dequant and torch.matmul)",
-        **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "library_dequant_ms", "bound_ms",
-                                "bound_by", "flops", "bytes")})
+        int8pack="torch._weight_int8pack_mm, timed alone where this PyTorch has a CUDA "
+                 "kernel for it (int8pack_ms; None on batched cases)",
+        **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "library_dequant_ms",
+                                "int8pack_ms", "bound_ms", "bound_by", "flops", "bytes")})
 
 
 # --- phase 3: small model, GPU kernels vs CPU twins ---------------------------------
@@ -1523,21 +1654,36 @@ def profile_workload(lm, dev, block_steps, path: str) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, done, wall = run_workload(lm, dev, block_steps)
     derived = paged_decode_attention.launches
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(bool(kernels), "the profiler recorded no device activity")
+    summary = device_profile_summary(prof, wall, path)
     traced = device_kernel_calls(prof, B2_DEVICE_KERNELS)
     check(all(v == derived for v in traced.values()),
           f"the profiled serve ran B2's kernels {traced} times, its launch count says {derived}")
+    return dict(summary, tokens=sum(len(c.tokens) for c in done), b2_launches=derived,
+                b2_traced=traced)
+
+
+def device_profile_summary(prof, wall: float, path: str, shares=(), top=12) -> dict:
+    """The device kernels of a ``torch.profiler`` trace by device time: the
+    busy time and its share of ``wall``, the first ``top`` and the table
+    written to ``path``; ``shares`` names groups of kernels (name substrings) whose
+    device ms and share of the busy time are added as ``<group>_ms`` and
+    ``<group>_share``."""
+    import torch
+
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(kernels), "the profiler recorded no device activity")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_us = sum(e.self_device_time_total for e in kernels)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text(prof.key_averages().table(sort_by="self_device_time_total",
                                                     row_limit=60))
-    return dict(wall_s=wall, device_busy_s=busy_us / 1e6, device_busy_share=busy_us / 1e6 / wall,
-                tokens=sum(len(c.tokens) for c in done), b2_launches=derived, b2_traced=traced,
-                top=[dict(name=e.key[:90], calls=e.count, ms=e.self_device_time_total / 1e3,
-                          share=e.self_device_time_total / busy_us) for e in kernels[:12]])
+    out = dict(wall_s=wall, device_busy_s=busy_us / 1e6, device_busy_share=busy_us / 1e6 / wall,
+               top=[dict(name=e.key[:90], calls=e.count, ms=e.self_device_time_total / 1e3,
+                         share=e.self_device_time_total / busy_us) for e in kernels[:top]])
+    for group, names in shares:
+        us = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in names))
+        out.update({f"{group}_ms": us / 1e3, f"{group}_share": us / busy_us})
+    return out
 
 
 def serve(cfg, dev, counters, block_steps=8, max_batch=8, profile_path=None, params=None,
@@ -3781,8 +3927,7 @@ def quant_pass(lm, dev, counters, prompts, max_new=MAX_NEW_TOKENS, reference=Non
         for i, p in enumerate(prompts):
             engine.submit(p, max_new, arrival_block=1 if i == 3 else 0)
         if fused:
-            for c in counters:
-                c.launches = 0
+            zero_launches(counters)
         _sync(dev)
         t0 = time.perf_counter()
         done = engine.run()
@@ -3791,6 +3936,7 @@ def quant_pass(lm, dev, counters, prompts, max_new=MAX_NEW_TOKENS, reference=Non
 
     engine, done, wall, ops = serve_once(True)
     launches = {c.__name__: c.launches for c in counters}
+    routes = routes_of(counters)
     check(engine.nonfinite_logits == 0, f"non-finite logits ({engine.nonfinite_logits} slots)")
     check(len(done) == len(prompts), f"{len(done)} of {len(prompts)} requests completed")
     for c in done:
@@ -3813,7 +3959,7 @@ def quant_pass(lm, dev, counters, prompts, max_new=MAX_NEW_TOKENS, reference=Non
               decode_block_ms=block_ms,
               decode_step_ms=block_ms and block_ms / QUANT_BLOCK_STEPS,
               stepwise_wall_s=step_wall, kv_pool_bytes=lm.kv_cache_bytes(),
-              launches=launches, streams=streams, **{k: hs[k] for k in (
+              launches=launches, launches_by_route=routes, streams=streams, **{k: hs[k] for k in (
                   "host_ops_per_block", "steady_blocks")})
     if reference is not None:
         same = sum(int(a == b) for rid, ts in streams.items() for a, b in zip(ts, reference[rid]))
@@ -3843,7 +3989,7 @@ def quant_small_check(dev) -> dict:
     params = init_params(cfg, torch.Generator().manual_seed(3), model_cls=MixtralForCausalLM,
                          quantize=QuantizationConfig())
     kw = dict(buckets=(128,), max_batch=3, page_size=16, paged_attn_kernel=True)
-    w8a16_gemm.launches = 0
+    zero_launches((w8a16_gemm,))
     lms = [CausalLM(cfg, params, MixtralForCausalLM, device=d, **kw) for d in (dev, "cpu")]
     sessions = [lm.start_session() for lm in lms]
     rng = np.random.default_rng(4)
@@ -3862,6 +4008,7 @@ def quant_small_check(dev) -> dict:
     check(worst <= TOL_LOGITS_FP32,
           f"small int8 Mixtral logits on the GPU differ from the CPU twins by {worst}")
     launches = w8a16_gemm.launches
+    by_route = dict(w8a16_gemm.launches_by_route)
     check(launches > 0, "the small int8 Mixtral on the GPU launched no w8a16_gemm")
     del lms, sessions
     streams = {}
@@ -3877,7 +4024,7 @@ def quant_small_check(dev) -> dict:
     check(all(s == first for s in streams.values()),
           f"small int8 Mixtral streams differ between devices or modes: {streams}")
     return dict(logits_max_abs_err=worst, tolerance=TOL_LOGITS_FP32, launches=launches,
-                streams_equal=True, tokens=len(first))
+                launches_by_route=by_route, streams_equal=True, tokens=len(first))
 
 
 def run_quant_llama(cfg, dev, params, counters) -> dict:
@@ -3912,7 +4059,49 @@ def run_quant_llama(cfg, dev, params, counters) -> dict:
     return dict(bf16=bf16, int8=int8)
 
 
-def run_quant_mixtral(dev, counters) -> dict:
+# B5's kernels in a profiler's device table (demangled names), by route; its
+# split-K reduction is launched beside a route's kernel, not counted apart
+B5_ROUTE_KERNELS = {"wgmma": ("tc::wgmma_kernel",),
+                    "decode": ("tc::decode_kernel", "tc::dense_decode_kernel"),
+                    "f32": ("gemm_f32_kernel",)}
+B5_DEVICE_KERNELS = sum(B5_ROUTE_KERNELS.values(), ()) + ("reduce_kernel<",)
+
+
+def b5_traced_by_route(prof) -> dict:
+    """B5's kernel calls in a ``torch.profiler`` trace, by route (its
+    reductions left out)."""
+    calls = device_kernel_calls(prof, B5_DEVICE_KERNELS)
+    return {r: sum(calls[n] for n in names) for r, names in B5_ROUTE_KERNELS.items()}
+
+
+def profile_generate(lm, prompt, path: str) -> dict:
+    """One more ``generate(fused_chunk=MIXTRAL_FUSED)`` of ``prompt`` under
+    ``torch.profiler``, device activity only: the wall, the device's busy
+    time, B5's share of it, and the kernels by device time (table at
+    ``path``). B5's kernel calls in the trace, by route, must equal the
+    run's launches by route."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm
+
+    zero_launches([w8a16_gemm])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lm.generate(prompt, max_new_tokens=MIXTRAL_GEN_NEW, fused_chunk=MIXTRAL_FUSED)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = dict(w8a16_gemm.launches_by_route)
+    traced = b5_traced_by_route(prof)
+    check(traced == counted,
+          f"the profiled generate ran B5's kernels {traced} times by route, its launch counts "
+          f"say {counted}")
+    return dict(device_profile_summary(prof, wall, path, shares=(("b5", B5_DEVICE_KERNELS),)),
+                b5_launches_by_route=counted, b5_traced_by_route=traced)
+
+
+def run_quant_mixtral(dev, counters, profile_path=None) -> dict:
     """(q2) Mixtral-8x7B at full width and depth with int8 weights: each
     weight drawn in bf16 on the card from a seed and quantized at once (the
     93 GB bf16 model never exists); the serve workload (vocab 32000) behind
@@ -3952,20 +4141,21 @@ def run_quant_mixtral(dev, counters) -> dict:
     lm1.generate(prompt[:, :130], max_new_tokens=MIXTRAL_FUSED, fused_chunk=MIXTRAL_FUSED)
     # B1 (the prefill) and B5: the slab decode takes no B2
     gen_counters = [c for c in counters if c.__name__ != "paged_decode_attention"]
-    for c in gen_counters:
-        c.launches = 0
+    zero_launches(gen_counters)
     _sync(dev)
     t1 = time.perf_counter()
     fused = lm1.generate(prompt, max_new_tokens=MIXTRAL_GEN_NEW, fused_chunk=MIXTRAL_FUSED)
     _sync(dev)
     gen_wall = time.perf_counter() - t1
     gen_launches = {c.__name__: c.launches for c in gen_counters}
+    gen_routes = routes_of(gen_counters)
     runner = next(r for k, r in lm1._fused.items() if k[0] == MIXTRAL_FUSED)
     sel_block_ms = replay_ms(runner)
     stepwise = lm1.generate(prompt, max_new_tokens=MIXTRAL_GEN_NEW)
     check(fused.tokens.tolist() == stepwise.tokens.tolist(),
           "Mixtral's fused generate and its stepwise generate gave other streams")
     check(int(fused.lengths[0]) == MIXTRAL_GEN_NEW, f"generate gave {fused.lengths[0]} tokens")
+    gen_profile = profile_generate(lm1, prompt, profile_path) if profile_path else None
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     check(peak < total, f"Mixtral's peak {peak} bytes is not below the card's {total}")
@@ -3980,13 +4170,16 @@ def run_quant_mixtral(dev, counters) -> dict:
                               tokens_per_s=MIXTRAL_GEN_NEW / gen_wall,
                               decode_block_ms=sel_block_ms,
                               decode_step_ms=sel_block_ms and sel_block_ms / MIXTRAL_FUSED,
-                              launches=gen_launches, stepwise_equal=True))
+                              launches=gen_launches, launches_by_route=gen_routes,
+                              stepwise_equal=True,
+                              **({"profile": gen_profile} if gen_profile else {})))
 
 
-def run_quant_phase(dev, parts=("q3", "q1", "q2"), params=None) -> dict:
+def run_quant_phase(dev, parts=("q3", "q1", "q2"), params=None, profile_path=None) -> dict:
     """Phase 4h's model parts on ``dev``: (q3) always cheap, (q1) on
     ``params`` (the serve phase's weights; made from the seed when None),
-    (q2) after (q1)'s weights are gone."""
+    (q2) after (q1)'s weights are gone (with ``profile_path``, its batch-1
+    generate once more under the profiler)."""
     import torch
 
     from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
@@ -4007,8 +4200,29 @@ def run_quant_phase(dev, parts=("q3", "q1", "q2"), params=None) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     if "q2" in parts:
-        out["q2"] = run_quant_mixtral(dev, counters)
+        out["q2"] = run_quant_mixtral(dev, counters, profile_path)
     return out
+
+
+def quant_route_gates(out: dict) -> None:
+    """B5's routes on phase 4h's paths: the int8 inserts (prefill) launch
+    the wgmma route and the decode steps the decode route, in (q1) and in
+    both (q2) runs; (q3)'s fp32 model the f32 route."""
+    runs = {}
+    if "q1" in out:
+        runs["(q1) int8"] = (out["q1"]["int8"]["launches_by_route"]["w8a16_gemm"],
+                             ("wgmma", "decode"))
+    if "q2" in out:
+        runs["(q2) serve"] = (out["q2"]["serve"]["launches_by_route"]["w8a16_gemm"],
+                              ("wgmma", "decode"))
+        runs["(q2) generate"] = (out["q2"]["generate"]["launches_by_route"]["w8a16_gemm"],
+                                 ("wgmma", "decode"))
+    if "q3" in out:
+        runs["(q3)"] = (out["q3"]["launches_by_route"], ("f32",))
+    for name, (counts, routes) in runs.items():
+        for route in routes:
+            check(counts.get(route, 0) > 0,
+                  f"{name} launched no w8a16_gemm on its {route} route: {counts}")
 
 
 def train_batch(vocab: int, batch: int, seq: int, dev, seed: int = 7) -> dict:
@@ -4109,20 +4323,7 @@ def profile_step(step, state, batch, path: str):
         state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(bool(kernels), "the profiler recorded no device activity in the training step")
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_text(prof.key_averages().table(sort_by="self_device_time_total",
-                                                    row_limit=60))
-    return state, dict(wall_s=wall, device_busy_s=busy_us / 1e6,
-                       device_busy_share=busy_us / 1e6 / wall,
-                       top=[dict(name=e.key[:90], calls=e.count,
-                                 ms=e.self_device_time_total / 1e3,
-                                 share=e.self_device_time_total / busy_us)
-                            for e in kernels[:15]])
+    return state, device_profile_summary(prof, wall, path, top=15)
 
 
 def train(cfg, dev, counters, profile_path=None) -> dict:
@@ -4221,17 +4422,19 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           + ", ".join(f"{n} {s:.1f} s" for n, s in _build.build_seconds.items())
           + f" [{card}]", flush=True)
-    compiled = {}
+    compiled, reports = {}, {}
     for source in ("flash_fwd", "flash_bwd", "w8a16_gemm"):
         report = compile_report(source)
         print(f"compiled {source}: " + "; ".join(
-            f"{k} {v.get('registers')} registers, {v.get('spill_bytes')} spill bytes, "
-            f"{v['hmma']} HMMA" for k, v in sorted(report.items())) + f" [{card}]", flush=True)
-        for k, v in report.items():   # the bf16 route: tensor-core products, no spills
-            if k.startswith("tc::"):
-                check(v.get("spill_bytes") in (0, None), f"{k} spills {v.get('spill_bytes')} bytes")
-                check(v["hmma"] != 0, f"{k} has no HMMA (tensor-core) instruction in its SASS")
+            f"{k} {v.get('registers')} registers, {v.get('static_smem_bytes')} static + "
+            f"{v.get('dynamic_smem_bytes', 0)} dynamic smem bytes, {v.get('spill_bytes')} spill "
+            f"bytes, {v['hmma']} HMMA, {v['hgmma']} HGMMA"
+            for k, v in sorted(report.items())) + f" [{card}]", flush=True)
+        compile_gates(report)   # the bf16 routes: tensor-core products, no spills
         compiled.update(report)
+        reports[source] = report
+    check(all(f"tc::wgmma_kernel<{mw}>" in compiled for mw in (1, 2)),
+          f"B5's prefill kernels are missing from {sorted(compiled)}")
     wide = ("tc::fwd_kernel<256>", "tc::dkdv_kernel<256>", "tc::dq_kernel<256>")
     check(all(k in compiled for k in wide), f"the 256-wide builds are missing from {sorted(compiled)}")
 
@@ -4256,12 +4459,9 @@ def main(argv=None) -> int:
     for k in bwd:
         k["compiled"] = {n: v for n, v in compiled.items() if k["name"][len("flash_bwd_"):] in n}
     kernels = [flash, run_paged(dev, flush), *bwd, run_adamw(dev, flush), run_w8a16(dev, flush)]
-    kernels[-1]["compiled"] = {n: v for n, v in compiled.items() if "gemm" in n or "reduce" in n}
+    kernels[-1]["compiled"] = reports["w8a16_gemm"]
     for case, t in kernels[-1]["cases"].items():
-        print(f"kernel w8a16_gemm ({case}): {t['shape']}; {t['ms']:.4f} ms, twin "
-              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms (dequant and matmul "
-              f"{t['library_dequant_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
-              f"{t['bound_ms'] / t['ms']:.1%} of bound [{card}]", flush=True)
+        print(f"kernel w8a16_gemm ({case}): {w8a16_line(t)} [{card}]", flush=True)
     head_dims = run_head_dims(dev, flush)
     paged_names = ("paged bf16", "paged int8", "paged fp32")
     for d, r in head_dims.items():
@@ -4398,6 +4598,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     quant.update(run_quant_phase(dev, parts=("q2",)))
+    quant_route_gates(quant)
     for name, st in (("serve", stats), ("serve int8 pages", int8)):
         print(f"{name}: llama3_8b full width ({st['layers']} layers, no depth cut), "
               f"{st['page_dtype']} pages, {st['requests']} requests, {st['generated_tokens']} "
@@ -4611,7 +4812,8 @@ def main(argv=None) -> int:
               f"{st['tokens_per_s']:.1f} tok/s, TTFT p50 {st['ttft_s_p50'] * 1e3:.1f} ms, decode "
               f"block ms {st['decode_block_ms']:.3f} ({QUANT_BLOCK_STEPS} steps), "
               f"{st['host_ops_per_block']:.3f} host ops a block ({st['steady_blocks']} steady), "
-              f"captured = stepwise streams, launches {st['launches']}"
+              f"captured = stepwise streams, launches {st['launches']}, B5 by route "
+              f"{st['launches_by_route'].get('w8a16_gemm')}"
               + (f", weight bytes {json.dumps(st['weight_bytes'])} against bf16 "
                  f"{st['bf16_weight_bytes']['total']}, quantized on the card in "
                  f"{st['quantize_s']:.2f} s, tokens matching the bf16 pass "
@@ -4626,10 +4828,12 @@ def main(argv=None) -> int:
           f"{sv['tokens_per_s']:.1f} tok/s, TTFT p50 {sv['ttft_s_p50'] * 1e3:.1f} ms, decode step "
           f"ms {sv['decode_step_ms']:.3f}, {sv['host_ops_per_block']:.3f} host ops a block "
           f"({sv['steady_blocks']} steady), captured = stepwise streams, launches "
-          f"{sv['launches']}; generate batch 1 (selective decode), {gen['prompt_tokens']}-token "
+          f"{sv['launches']} (B5 by route {sv['launches_by_route']['w8a16_gemm']}); generate "
+          f"batch 1 (selective decode), {gen['prompt_tokens']}-token "
           f"prompt, {gen['new_tokens']} tokens in {gen['wall_s']:.3f} s = "
           f"{gen['tokens_per_s']:.1f} tok/s, decode step ms {gen['decode_step_ms']:.3f}, fused = "
-          f"stepwise, launches {gen['launches']} [{card}]", flush=True)
+          f"stepwise, launches {gen['launches']} (B5 by route "
+          f"{gen['launches_by_route']['w8a16_gemm']}) [{card}]", flush=True)
     if "profile" in stats:
         prof = stats["profile"]
         print(f"profile: device busy {prof['device_busy_s']:.3f} s of the profiled run's "
@@ -4680,6 +4884,21 @@ def main(argv=None) -> int:
         k["launches"] = sum(k["launches_by_path"].values())
         for path, n in k["launches_by_path"].items():
             check(n > 0, f"the {path} path never launched {k['name']}")
+    # B5's launches by route on each path that ran it (gated in quant_route_gates)
+    b5 = next(k for k in kernels if k["name"] == "w8a16_gemm")
+    b5["routes_by_path"] = {
+        "quant_small": q3["launches_by_route"],
+        "quant_llama_int8": q1["int8"]["launches_by_route"]["w8a16_gemm"],
+        "quant_mixtral": sv["launches_by_route"]["w8a16_gemm"],
+        "quant_mixtral_generate": gen["launches_by_route"]["w8a16_gemm"]}
+    b5["launches_by_route"] = {
+        route: sum(r.get(route, 0) for r in b5["routes_by_path"].values())
+        for route in ("wgmma", "decode", "f32")}
+    check(sum(b5["launches_by_route"].values()) == b5["launches"],
+          f"B5's launches by route {b5['launches_by_route']} do not add up to {b5['launches']}")
+    print(f"kernel w8a16_gemm launches by route on the main path: "
+          f"{json.dumps(b5['launches_by_route'])}, by path {json.dumps(b5['routes_by_path'])} "
+          f"[{card}]", flush=True)
     # the element-by-element readings go on the summary line, which keeps the
     # kernels line short
     checks = {}

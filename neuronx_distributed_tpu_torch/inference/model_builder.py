@@ -54,6 +54,13 @@ from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm
 KERNEL_WRAPPERS = (flash_block_forward, paged_decode_attention, w8a16_gemm)
 
 
+def _route_counts() -> Dict[Callable, Dict[str, int]]:
+    """A copy of each wrapper's launches by route, for those that count
+    routes (B5's ``launches_by_route``)."""
+    return {fn: dict(fn.launches_by_route) for fn in KERNEL_WRAPPERS
+            if hasattr(fn, "launches_by_route")}
+
+
 def _clone_out(tree):
     return pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
 
@@ -73,8 +80,9 @@ class CapturedProgram:
     read no device value on the host (a capture refuses it) and must keep
     its state in tensors that outlive the program (the graph reads and
     writes their addresses). ``launches_per_replay`` is what the warm-up
-    added to each of :data:`KERNEL_WRAPPERS`' counters; each replay adds it
-    again (the capture itself launches nothing)."""
+    added to each of :data:`KERNEL_WRAPPERS`' counters (``routes_per_replay``
+    to their counts by route); each replay adds it again (the capture itself
+    launches nothing)."""
 
     def __init__(self, fn: Callable, device: torch.device, pool=None, name: str = ""):
         self.fn, self.device, self.pool, self.name = fn, torch.device(device), pool, name
@@ -82,6 +90,7 @@ class CapturedProgram:
         self.static_in: Tuple[torch.Tensor, ...] = ()
         self.static_out: Any = None
         self.launches_per_replay: Dict[str, int] = {}
+        self.routes_per_replay: Dict[str, Dict[str, int]] = {}
         self.capture_s = 0.0
 
     def _load(self, args) -> None:
@@ -111,6 +120,7 @@ class CapturedProgram:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         before = {fn: fn.launches for fn in KERNEL_WRAPPERS}
+        before_routes = _route_counts()
         with torch.cuda.stream(side):
             out = self.fn(*self.static_in)
         current = torch.cuda.current_stream(self.device)
@@ -119,6 +129,7 @@ class CapturedProgram:
         pytree.tree_map(lambda t: t.record_stream(current) if isinstance(t, torch.Tensor)
                         else t, out)
         warmed = {fn: fn.launches for fn in KERNEL_WRAPPERS}
+        warmed_routes = _route_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool):
             self.static_out = self.fn(*self.static_in)
@@ -127,6 +138,11 @@ class CapturedProgram:
         for fn in KERNEL_WRAPPERS:
             self.launches_per_replay[fn.__name__] = warmed[fn] - before[fn]
             fn.launches = warmed[fn]
+        self.routes_per_replay = {}
+        for fn, counts in warmed_routes.items():
+            self.routes_per_replay[fn.__name__] = {
+                route: n - before_routes[fn][route] for route, n in counts.items()}
+            fn.launches_by_route.update(counts)
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
         return out
@@ -137,6 +153,8 @@ class CapturedProgram:
         self.graph.replay()
         for fn in KERNEL_WRAPPERS:   # the replay launched the captured kernels
             fn.launches += self.launches_per_replay.get(fn.__name__, 0)
+            for route, n in self.routes_per_replay.get(fn.__name__, {}).items():
+                fn.launches_by_route[route] += n
         return self.static_out
 
     def __call__(self, *args):

@@ -51,10 +51,14 @@ SIGNATURES = {
     # g, mu, nu, master, p, scalars, n, b1, 1 - b1, b2, 1 - b2, eps, wd,
     # g dtype (0 fp32 / 1 bf16), p dtype (0 fp32 / 1 bf16), stream
     "fused_adamw": ("adamw", [P, P, P, P, P, P, L, F, F, F, F, F, F, I, I, P]),
-    # x, qweight, scale, idx, out, workspace, B, M, K, N, x batch stride,
-    # scale expert stride, scale column stride, splits, k tiles a split,
-    # dtype (0 fp32 / 1 bf16), stream
-    "w8a16_gemm": ("w8a16_gemm", [P, P, P, P, P, P, I, I, I, I, L, I, I, I, I, I, P]),
+    # x, qweight, scale, idx, out, workspace, B, M, K, N, experts, x batch
+    # stride, scale expert stride, scale column stride, splits, k tiles a
+    # split, route (0 f32 / 1 decode, batched / 2, 3 wgmma with 128- /
+    # 256-row tiles / 4 decode, one batch entry), stream
+    "w8a16_gemm": ("w8a16_gemm", [P, P, P, P, P, P, I, I, I, I, I, L, I, I, I, I, I, P]),
+    # route code -> the dynamic shared memory its kernel launches with, in
+    # bytes
+    "w8a16_smem": ("w8a16_gemm", [I]),
 }
 SOURCES = tuple(sorted({source for source, _ in SIGNATURES.values()}))
 

@@ -9,7 +9,10 @@ on its way to the tensor cores, so the int8 weights are all a step reads.
 
 :func:`w8a16_gemm` is the kernel wrapper: ``out[b] = x[b] @ W[idx[b]]`` with
 ``W = (qweight.float() * scale).to(x.dtype)``. A CUDA tensor launches the
-kernel (counted once a call in ``w8a16_gemm.launches``), a CPU tensor runs
+kernel of the route :func:`_route` picks from the shapes (counted once a
+call in ``w8a16_gemm.launches`` and in ``w8a16_gemm.launches_by_route``:
+``wgmma`` for bf16 prefill, ``decode`` for bf16 at most 16 rows, ``f32``),
+or raises; a CPU tensor runs
 :func:`w8a16_gemm_plain`, the twin with JAX's math (the dequantized weights,
 then ``torch.matmul`` in the compute dtype). :func:`int8_linear` is the
 dense layers' product ``x @ dequant(qweight, scale)`` through the same
@@ -24,14 +27,68 @@ import torch
 
 from neuronx_distributed_tpu_torch._device import on_cuda
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# k-tile depth and output tile of each kernel route (csrc/w8a16_gemm.cu:
-# tc::BK, tc::BN and the BM choice; F_BK, F_BN, F_BM)
-_TILES = {torch.bfloat16: (64, 128), torch.float32: (16, 64)}
+_DTYPES = (torch.float32, torch.bfloat16)
+# B5's routes (csrc/w8a16_gemm.cu): bf16 prefill on wgmma, bf16 decode (at
+# most _DECODE_ROWS rows; a cp.async ring over several batch entries, PR
+# 13's kernel over one), fp32 SIMT
+ROUTES = ("wgmma", "decode", "f32")
+_DECODE_ROWS = 16
+# the wgmma route's tiles are 128 rows up to this many rows, else 256
+_WGMMA_SHORT_ROWS = 128
 _SMS = 132
-# split K until about this many CTAs are in flight, at most _MAX_SPLITS ways
-_TARGET_CTAS = 4 * _SMS
+# CTAs of one wave: the wgmma route's persistent grid (one a SM), the
+# batched decode kernel four a SM (its 45 KB ring, csrc/w8a16_gemm.cu
+# DECODE_SMEM). A route whose output tiles fill a wave takes one split;
+# below that K is split into as many parts as still fit one wave, each at
+# least _MIN_SPLIT_KTILES k tiles deep so the rings fill. The fp32 route
+# and the one-entry decode kernel split as both first did: until about
+# _SPLIT_TARGET CTAs, at most _MAX_SPLITS ways.
+_WAVE = {"wgmma": _SMS, "decode": 4 * _SMS}
+_MIN_SPLIT_KTILES = 8
+_SPLIT_TARGET = 4 * _SMS
 _MAX_SPLITS = 16
+
+
+def _tile(route: str, M: int):
+    """(k-tile depth, rows, columns) of ``route``'s output tile at M rows
+    (``csrc/w8a16_gemm.cu``: tc::BK, Wg<MW>::BM or D_BM, BN; F_BK, F_BM,
+    F_BN)."""
+    if route == "wgmma":
+        return 64, (128 if M <= _WGMMA_SHORT_ROWS else 256), 128
+    return {"decode": (64, 16, 128), "f32": (16, 64, 64)}[route]
+
+
+def _code(route: str, B: int, M: int) -> int:
+    """The C entry's kernel: 0 f32, 1 decode over several batch entries (the
+    cp.async ring), 4 decode over one (the register-staged kernel, which
+    the ring did not beat there), 2 / 3 wgmma with 128- / 256-row tiles."""
+    if route == "wgmma":
+        return 2 if _tile(route, M)[1] == 128 else 3
+    if route == "decode":
+        return 1 if B > 1 else 4
+    return 0
+
+
+def _route(B: int, M: int, K: int, N: int, dtype: torch.dtype) -> str:
+    """The kernel route for these shapes: shapes alone decide, so a rerun
+    and a captured program take the same route."""
+    if dtype == torch.float32:
+        return "f32"
+    return "decode" if M <= _DECODE_ROWS else "wgmma"
+
+
+def _splits(route: str, B: int, M: int, K: int, N: int):
+    """(splits, k tiles a split) of ``route`` at these shapes: shapes alone
+    decide, so a rerun reduces in the same order."""
+    bk, bm, bn = _tile(route, M)
+    tiles = max(1, B * math.ceil(M / bm) * math.ceil(N / bn))
+    ktiles = math.ceil(K / bk)
+    if route == "f32" or _code(route, B, M) == 4:
+        want = 1 if tiles >= _SPLIT_TARGET // 2 else min(_MAX_SPLITS, -(-_SPLIT_TARGET // tiles))
+    else:
+        want = max(1, min(_WAVE[route] // tiles, ktiles // _MIN_SPLIT_KTILES, _MAX_SPLITS))
+    per = -(-ktiles // max(1, min(want, ktiles)))
+    return -(-ktiles // per), per
 
 
 def dequantize(qweight: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -54,21 +111,13 @@ def _check(x, qweight, scale, idx):
         raise ValueError(f"idx must be ({B},) int32, got {tuple(idx.shape)} {idx.dtype}")
 
 
-def _splits(tiles: int, ktiles: int):
-    """(splits, k tiles a split) for ``tiles`` output tiles over ``ktiles``
-    k tiles: shapes alone decide, so a rerun reduces in the same order."""
-    want = 1 if tiles >= _TARGET_CTAS // 2 else min(_MAX_SPLITS, -(-_TARGET_CTAS // tiles))
-    per = -(-ktiles // max(1, min(want, ktiles)))
-    return -(-ktiles // per), per
-
-
 def _w8a16_kernel(x, qweight, scale, idx):
     from neuronx_distributed_tpu_torch.kernels import _build
 
     if x.dtype not in _DTYPES:
         raise ValueError(f"w8a16 kernel takes fp32 or bf16 activations, got {x.dtype}")
     B, M, K = x.shape
-    _, _, N = qweight.shape
+    E, _, N = qweight.shape
     if x.stride(2) != 1 or x.stride(1) != K or x.stride(0) not in (0, M * K):
         raise ValueError(f"w8a16 kernel needs x rows contiguous with batch stride 0 or M*K, "
                          f"got strides {x.stride()}")
@@ -76,22 +125,21 @@ def _w8a16_kernel(x, qweight, scale, idx):
         if not t.is_contiguous():
             raise ValueError(f"w8a16 kernel needs a contiguous {name}")
     if x.dtype == torch.bfloat16:
-        # 16-byte loads: 8 activations and 16 weights at a time
+        # 16-byte loads and TMA rows: 8 activations and 16 weights at a time
         if K % 8 or N % 16 or x.data_ptr() % 16 or qweight.data_ptr() % 16:
             raise ValueError(f"bf16 w8a16 kernel needs K % 8 == 0, N % 16 == 0 and 16-byte "
                              f"aligned x and qweight, got K={K}, N={N}")
-    bk, bn = _TILES[x.dtype]
-    bm = 16 if (x.dtype == torch.bfloat16 and M <= 16) else 64
-    splits, per = _splits(math.ceil(N / bn) * math.ceil(M / bm) * B, math.ceil(K / bk))
+    route = _route(B, M, K, N, x.dtype)
+    splits, per = _splits(route, B, M, K, N)
     out = torch.empty((B, M, N), dtype=x.dtype, device=x.device)
     work = (torch.empty((splits * B * M * N,), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     per_channel = scale.dim() == 3
     _build.call("w8a16_gemm", _build.ptr(x), _build.ptr(qweight), _build.ptr(scale),
-                _build.ptr(idx), _build.ptr(out), _build.ptr(work), B, M, K, N,
+                _build.ptr(idx), _build.ptr(out), _build.ptr(work), B, M, K, N, E,
                 x.stride(0), N if per_channel else 0, 1 if per_channel else 0, splits, per,
-                _DTYPES[x.dtype], _build.stream_of(x.device))
-    return out
+                _code(route, B, M), _build.stream_of(x.device))
+    return out, route
 
 
 def w8a16_gemm_plain(x: torch.Tensor, qweight: torch.Tensor, scale: torch.Tensor,
@@ -130,8 +178,9 @@ def _w8a16_route(x: torch.Tensor, qweight: torch.Tensor, scale: torch.Tensor,
     tensors run the twin."""
     if not on_cuda(x, qweight, scale, idx):
         return w8a16_gemm_plain(x, qweight, scale, idx)
-    out = _w8a16_kernel(x, qweight, scale, idx)
+    out, route = _w8a16_kernel(x, qweight, scale, idx)
     w8a16_gemm.launches += 1
+    w8a16_gemm.launches_by_route[route] += 1
     return out
 
 
@@ -144,6 +193,7 @@ def _(x, qweight, scale, idx):
 
 
 w8a16_gemm.launches = 0
+w8a16_gemm.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def int8_linear(x: torch.Tensor, qweight: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -899,24 +899,51 @@ def test_w8a16_exact_and_cases_against_jax_dequantize(smoke):
 
 
 def test_compile_report_names_the_gemm_kernels(smoke, monkeypatch):
-    """``compile_report`` reads B5's entries from a ``-Xptxas -v`` log."""
+    """``compile_report`` reads B5's entries from a ``-Xptxas -v`` log
+    (the mangled names nvcc gives them, static shared memory included),
+    and ``compile_gates`` holds them: a ``tc::`` kernel that spills, or has
+    neither HMMA nor HGMMA, fails, and so does a prefill (``wgmma``) kernel
+    without HGMMA."""
     from neuronx_distributed_tpu_torch.kernels import _build
 
+    ns = "_ZN46_GLOBAL__N__52bd4a8a_13_w8a16_gemm_cu_137ee84a"
     log = "\n".join(f"ptxas info    : Compiling entry function '{m}' for 'sm_90a'\n"
-                    f"ptxas info    : Used {r} registers\n"
-                    f"ptxas info    : 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
-                    for m, r in (("_ZN12_GLOBAL__N_12tc11gemm_kernelILi16ELi1EEEvNS_4ArgsE", 80),
-                                 ("_ZN12_GLOBAL__N_115gemm_f32_kernelENS_4ArgsE", 80),
-                                 ("_ZN12_GLOBAL__N_113reduce_kernelI13__nv_bfloat16EEvPKfPT_xi", 32),
-                                 ("_ZN12_GLOBAL__N_113reduce_kernelIfEEvPKfPT_xi", 32)))
+                    f"ptxas info    : 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+                    f"ptxas info    : Used {r} registers, used 1 barriers{smem}"
+                    for m, r, smem in (
+                        (f"{ns}2tc12wgmma_kernelILi1EEEv14CUtensorMap_stS1_NS_4ArgsE", 128, ""),
+                        (f"{ns}2tc12wgmma_kernelILi2EEEv14CUtensorMap_stS1_NS_4ArgsE", 128, ""),
+                        (f"{ns}2tc13decode_kernelENS_4ArgsE", 56, ""),
+                        (f"{ns}2tc19dense_decode_kernelENS_4ArgsE", 80, ", 19712 bytes smem"),
+                        (f"{ns}15gemm_f32_kernelENS_4ArgsE", 80, ", 8448 bytes smem"),
+                        (f"{ns}13reduce_kernelI13__nv_bfloat16EEvPKfPT_xi", 32, ""),
+                        (f"{ns}13reduce_kernelIfEEvPKfPT_xi", 32, "")))
     monkeypatch.setitem(_build.build_log, "w8a16_gemm", log)
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr("shutil.which", lambda name: None)   # no cuobjdump: no HMMA count
     report = smoke.compile_report("w8a16_gemm")
-    assert report == {"tc::gemm_kernel<16, 1>": {"registers": 80, "spill_bytes": 0, "hmma": None},
-                      "gemm_f32_kernel": {"registers": 80, "spill_bytes": 0, "hmma": None},
-                      "reduce_kernel<bf16>": {"registers": 32, "spill_bytes": 0, "hmma": None},
-                      "reduce_kernel<float>": {"registers": 32, "spill_bytes": 0, "hmma": None}}
+    none = dict(spill_bytes=0, static_smem_bytes=0, hmma=None, hgmma=None)
+    assert report == {"tc::wgmma_kernel<1>": {**none, "registers": 128},
+                      "tc::wgmma_kernel<2>": {**none, "registers": 128},
+                      "tc::decode_kernel": {**none, "registers": 56},
+                      "tc::dense_decode_kernel": {**none, "registers": 80,
+                                                  "static_smem_bytes": 19712},
+                      "gemm_f32_kernel": {**none, "registers": 80, "static_smem_bytes": 8448},
+                      "reduce_kernel<bf16>": {**none, "registers": 32},
+                      "reduce_kernel<float>": {**none, "registers": 32}}
+    sass = {"tc::wgmma_kernel<1>": (0, 4), "tc::wgmma_kernel<2>": (0, 4),
+            "tc::decode_kernel": (16, 0), "tc::dense_decode_kernel": (16, 0)}
+    for k, (hmma, hgmma) in sass.items():
+        report[k].update(hmma=hmma, hgmma=hgmma)
+    smoke.compile_gates(report)
+    for k, change, match in (("tc::decode_kernel", dict(hmma=0), "no HMMA or HGMMA"),
+                             ("tc::wgmma_kernel<2>", dict(hgmma=0), "no HMMA or HGMMA"),
+                             ("tc::wgmma_kernel<1>", dict(hmma=8, hgmma=0), "no HGMMA"),
+                             ("tc::decode_kernel", dict(spill_bytes=4), "spills")):
+        bad = {n: dict(v) for n, v in report.items()}
+        bad[k].update(change)
+        with pytest.raises(smoke.SmokeFailure, match=match):
+            smoke.compile_gates(bad)
 
 
 def test_quant_phase_rehearses_on_the_cpu(smoke, monkeypatch):
@@ -958,3 +985,49 @@ def test_quant_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     assert q2["generate"]["stepwise_equal"] and q2["weight_bytes"]["int8"] > 0
     with pytest.raises(smoke.SmokeFailure, match="launched no w8a16_gemm"):
         smoke.quant_small_check("cpu")
+    # the route gates read the counts (zero here: the twins launch nothing)
+    assert q1["int8"]["launches_by_route"] == {
+        "w8a16_gemm": {"wgmma": 0, "decode": 0, "f32": 0}}
+    with pytest.raises(smoke.SmokeFailure, match="launched no w8a16_gemm on its wgmma route"):
+        smoke.quant_route_gates(out)
+
+
+def test_device_profile_summary_and_b5_trace_by_route(smoke, tmp_path):
+    """``device_profile_summary`` ranks a trace's device kernels, writes the
+    table and adds a group's share; ``b5_traced_by_route`` counts B5's
+    kernels by route (both decode kernels on ``decode``, the split-K
+    reduction left out), which ``profile_generate`` holds against the
+    launch counts."""
+    from types import SimpleNamespace
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [SimpleNamespace(key=k, count=n, self_device_time_total=us, device_type=d)
+              for k, n, us, d in (
+                  ("void (anonymous namespace)::tc::wgmma_kernel<2>(CUtensorMap_st)", 32, 600.0,
+                   cuda),
+                  ("void (anonymous namespace)::tc::decode_kernel(Args)", 96, 300.0, cuda),
+                  ("void (anonymous namespace)::tc::dense_decode_kernel(Args)", 64, 100.0, cuda),
+                  ("void (anonymous namespace)::reduce_kernel<__nv_bfloat16>(float const*)", 64,
+                   50.0, cuda),
+                  ("void flash_fwd_kernel", 8, 950.0, cuda),
+                  ("aten::mm", 5, 0.0, cpu))]
+    prof = SimpleNamespace(key_averages=lambda: _Averages(events))
+    out = smoke.device_profile_summary(prof, 0.004, str(tmp_path / "p" / "table.txt"),
+                                       shares=(("b5", smoke.B5_DEVICE_KERNELS),), top=2)
+    assert (tmp_path / "p" / "table.txt").read_text() == "table"
+    assert out["device_busy_s"] == pytest.approx(2e-3)
+    assert out["device_busy_share"] == pytest.approx(0.5)
+    assert [t["calls"] for t in out["top"]] == [8, 32]
+    assert out["b5_ms"] == pytest.approx(1.05) and out["b5_share"] == pytest.approx(0.525)
+    assert smoke.b5_traced_by_route(prof) == {"wgmma": 32, "decode": 160, "f32": 0}
+    prof_idle = SimpleNamespace(key_averages=lambda: _Averages(events[-1:]))
+    with pytest.raises(smoke.SmokeFailure, match="no device activity"):
+        smoke.device_profile_summary(prof_idle, 1.0, str(tmp_path / "idle.txt"))
+
+
+class _Averages(list):
+    """A stand-in for ``torch.profiler``'s ``key_averages()``: the events
+    and a table."""
+
+    def table(self, **kw):
+        return "table"

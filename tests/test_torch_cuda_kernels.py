@@ -92,6 +92,14 @@ def _assert_held(got, want, name, floor, exact=None):
     assert excess <= floor[want.dtype], (name, excess, float(err.max()))
 
 
+@pytest.fixture(autouse=True)
+def _reset_parallel_state():
+    """Overrides ``tests/conftest.py``'s teardown, which imports the JAX
+    package to reset its mesh: these tests never build one, and the file
+    must run where only the port is installed."""
+    yield
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -583,9 +591,13 @@ def test_tier_restore_and_repair_under_the_captured_block(cuda, page_dtype):
 
 def test_from_snapshot_reuses_the_captured_graph(cuda):
     """A restored engine on the ``CausalLM`` that took the snapshot replays
-    the decode block captured before (no second capture, ``capture_s``
-    about 0), resumes every stream to its budget with finite logits, and
-    keeps the tokens delivered before the snapshot."""
+    the decode block captured before (no second capture of it, the same
+    ``session_fused_k4`` program, ``capture_s`` about 0), resumes every
+    stream to its budget with finite logits, and keeps the tokens delivered
+    before the snapshot. Its re-prefill of the restored streams (one row
+    each into the 128 bucket) is an insert signature the first engine never
+    ran, captured at first use as every program is: that one and no other
+    program is new."""
     lm = _tier_lm(cuda, None, seed=9)
     engine = ServeEngine(lm, block_steps=4, seed=2, host_tier_pages=32)
     assert engine.capture_s > 0
@@ -597,12 +609,14 @@ def test_from_snapshot_reuses_the_captured_graph(cuda):
     snap = engine.snapshot()
     at_snap = {r["request_id"]: r["generated"] for r in snap["requests"]}
     before = {c.request_id: c.tokens.tolist() for c in engine.completed}
-    programs = set(lm.capture_ms)
+    programs, fused = dict(lm.capture_ms), dict(lm._fused)
+    assert [k for k in programs if k.startswith("session_fused")] == ["session_fused_k4"]
     restored = ServeEngine.from_snapshot(lm, snap)
     assert restored.capture_s < 0.05 and len(lm._fused) == 1
-    assert set(lm.capture_ms) == programs   # nothing captured again
-    assert [k for k in programs if k.startswith("session_fused")] == ["session_fused_k4"]
     restored.run()
+    assert lm._fused == fused   # the decode block is the one captured before
+    assert lm.capture_ms["session_fused_k4"] == programs["session_fused_k4"]
+    assert set(lm.capture_ms) - set(programs) == {"paged_insert_r1_b128"}
     after = {c.request_id: c.tokens.tolist() for c in restored.completed}
     assert set(before) | set(after) == set(range(len(work))) and not set(before) & set(after)
     assert all(len(after[r]) == work[r][1] for r in after)
@@ -729,7 +743,9 @@ def test_from_snapshot_with_tenants_reuses_the_captured_graph(cuda):
 def test_captured_programs_on_cuda_equal_the_eager_route(cuda):
     """Inserts, chunk extends and decode steps as captured programs on the
     card give the eager route's streams bit for bit (fp32 and bf16), with
-    the captures' B1 launches counted at each replay."""
+    the captures' B1 launches counted at each replay. The unchunked pass
+    keeps every prompt within the largest bucket (256: the fourth prompt cut
+    to 250 tokens); only the chunked pass takes the 300-token prompt."""
     for dtype in (torch.float32, torch.bfloat16):
         cfg = tl.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
                              num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=512,
@@ -745,10 +761,11 @@ def test_captured_programs_on_cuda_equal_the_eager_route(cuda):
             for chunk in (0, 128):
                 engine = ServeEngine(lm, block_steps=4, prefill_chunk_tokens=chunk)
                 for p, arrival in work:
-                    engine.submit(p, 10, arrival_block=arrival)
+                    engine.submit(p if chunk else p[:250], 10, arrival_block=arrival)
                 before = flash_block_forward.launches
                 runs[(captured, chunk)] = {c.request_id: c.tokens.tolist()
                                            for c in engine.run()}
+                assert len(runs[(captured, chunk)]) == len(work)
                 assert flash_block_forward.launches > before
             if captured:
                 assert any(k.startswith("paged_insert_r") for k in lm.capture_ms)
@@ -789,13 +806,22 @@ def test_speculation_and_bundles_on_cuda(cuda, tmp_path):
 # B5 cases: (batch entries, rows, K, N, experts, x shared by the batch,
 # routed idx, per tensor): decode with split K, a ragged prefill tile, the
 # all_experts broadcast, selective pairs, one scalar scale, K not a whole
-# k tile and N not a whole column tile
+# k tile and N not a whole column tile; then the prefill (wgmma) route with
+# M above the decode route's 16 rows and no multiple of its 128-row tile,
+# K no whole 64-deep k tile and N no whole 128-column tile: one x shared by
+# three experts, routed experts, a per-tensor scale, and split K (two
+# output tiles over 32 k tiles)
 _W8A16_CASES = [(1, 8, 1024, 2048, 1, False, False, False),
                 (1, 77, 512, 384, 1, False, False, False),
                 (4, 5, 256, 512, 4, True, False, False),
                 (6, 1, 512, 768, 4, False, True, False),
                 (1, 16, 512, 512, 1, False, False, True),
-                (1, 3, 200, 48, 1, False, False, False)]
+                (1, 3, 200, 48, 1, False, False, False),
+                (1, 300, 200, 272, 1, False, False, False),
+                (3, 130, 264, 176, 3, True, False, False),
+                (5, 40, 136, 144, 4, False, True, False),
+                (1, 200, 520, 400, 1, False, False, True),
+                (1, 150, 2048, 128, 1, False, False, False)]
 # bf16: one last place at the value (both sums round to bf16) plus a floor
 # far below the outputs' size (about 0.7); fp32: summation order
 W8A16_FLOOR = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
@@ -806,17 +832,20 @@ W8A16_FLOOR = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 def test_w8a16_kernel_matches_twin(cuda, dtype, case):
     """B5 against its twin (dequantize, then the matmul) element by element,
     or within the limit of the fp64 evaluation with the twin's weight
-    rounding; a second launch gives the same bits."""
-    from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm, w8a16_gemm_plain
+    rounding; a second launch gives the same bits, through the route the
+    shapes pick."""
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import _route, w8a16_gemm, w8a16_gemm_plain
 
     B, M, K, N, E, shared, routed, per_tensor = case
     args = smoke.w8a16_case(cuda, "bf16" if dtype == torch.bfloat16 else "fp32", B, M, K, N, E,
                             shared, routed, per_tensor, seed=3)
-    before = w8a16_gemm.launches
+    route = _route(B, M, K, N, dtype)
+    before, before_route = w8a16_gemm.launches, w8a16_gemm.launches_by_route[route]
     got = w8a16_gemm(*args)
     again = w8a16_gemm(*args)
     torch.cuda.synchronize()
     assert w8a16_gemm.launches == before + 2
+    assert w8a16_gemm.launches_by_route[route] == before_route + 2
     assert torch.equal(got, again)
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

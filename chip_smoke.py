@@ -2008,6 +2008,7 @@ def run_trace_phase(lm, dev, counters, profile=False) -> dict:
     capture_s = warm.capture_s
     warm.submit(trace[3]["prompt"][:1100], 2)
     warm.run()
+    warm.close()   # the next warm-up takes over this session's state and programs
     warm = ServeEngine(lm, block_steps=8)
     warm.submit(trace[0]["prompt"], 2)
     warm.submit(trace[3]["prompt"], 2)
@@ -2495,6 +2496,7 @@ def recovery_crash_pass(lm, dev, trace, counters, path: Path) -> dict:
     saved = path.exists()
     snap = json.loads(path.read_text()) if saved else {"requests": []}
     before = {c.request_id: c.tokens.tolist() for c in engine.completed}
+    engine.close()   # the crashed engine is gone: the restore takes over its state
     t1 = time.perf_counter()
     restored = ServeEngine.from_snapshot(lm, str(path))
     restored.run(snapshot_path=str(path))
@@ -3299,6 +3301,7 @@ def park_pass(lm, dev, trace, label: str, counters, root: Path, plan=None) -> di
     else:
         _park_drive(engine, trace, records, None)
         snap = engine.snapshot()
+        engine.close()
         engine = ServeEngine.from_snapshot(lm, snap, trace=True)
         engines.append(engine)
         ops.append(count_host_ops(engine))
@@ -4225,6 +4228,729 @@ def quant_route_gates(out: dict) -> None:
                   f"{name} launched no w8a16_gemm on its {route} route: {counts}")
 
 
+# --- phase 4i: the replica fleet ------------------------------------------------------
+
+# Every pass runs on the trace cell's CausalLM (trace_lm: Llama-3-8B full width,
+# bf16 seeded weights held once, max_seq_len 4096, pages of 16, 8 rows a
+# replica), each replica a session of its own, block_steps 8 and 512-token
+# prefill chunks. Every count these gates compare was first predicted on the
+# CPU over SimCausalLM by scripts/fleet_rehearsal.py (greedy, no EOS: the
+# schedules do not depend on token values); after changing a pass, its
+# traffic, its fleet or anything its schedule reads, rerun the script and
+# copy its counts here.
+FLEET_ENGINE = dict(block_steps=8, prefill_chunk_tokens=TRACE_CHUNK)
+FLEET_SEED = 3
+FLEET_SPARE_STATES = 3       # the states passes hand on, programs and all
+# (z2): 32 requests from tenants a and b (weights 1:1); even ids carry a
+# 1024-token system prompt; a steady start, then b bursts 10:1 at block 10
+FLEET_SYSTEM_PROMPT = 1024
+FLEET_NEW_TOKENS = 64
+FLEET_BURST_BLOCK = 10
+FLEET_CRASH = (11, 0)        # (router block, replica): replica 0 goes dark mid-decode
+FLEET_DRAIN = (12, 2)        # drain replica 2 while its streams decode
+FLEET_QUEUE_DEPTH = 2        # each replica may queue 2 placements (a drain migrates them)
+FLEET_SNAPSHOT_EVERY = 4
+FLEET_MIGRATE_PLAN = dict(seed=7, migrate_fail_prob=0.1, migrate_corrupt_prob=0.1)
+# (z4): a burst of 40 short requests at blocks 0-3 on 1 prefill + 2 decode
+# workers, and two late ones at blocks 32 and 36; the decode pool may grow to
+# 3 and shrinks back in the idle valley
+FLEET_SCALE_REQUESTS = 40
+FLEET_SCALE_LATE = (32, 36)
+FLEET_SCALE_POLICY = dict(min_replicas=2, max_replicas=3, backlog_high_blocks=1.0,
+                          up_patience_blocks=1, down_utilization=0.5, down_patience_blocks=3,
+                          cooldown_blocks=4)
+# the router decisions a pass is gated on
+FLEET_STAT_KEYS = ("placements", "affinity_placements", "requeues", "rejected", "crashes",
+                   "heartbeat_misses", "failovers", "failed_over_requests", "drains",
+                   "drain_migrated_requests", "snapshots_taken", "scale_ups", "scale_downs",
+                   "warm_spawns", "cold_spawns", "replica_blocks", "handoffs_sent",
+                   "handoffs_adopted", "handoffs_degraded", "handoffs_deferred",
+                   "handoff_pages")
+FLEET_PREDICTED = {   # python3 scripts/fleet_rehearsal.py (SimCausalLM at the trace cell's shape)
+    "z2": dict(placements=42, affinity_placements=11, requeues=0, rejected=0, crashes=1,
+        heartbeat_misses=1, failovers=1, failed_over_requests=8, drains=1,
+        drain_migrated_requests=2, snapshots_taken=13, scale_ups=0, scale_downs=0, warm_spawns=0,
+        cold_spawns=0, replica_blocks=63, handoffs_sent=0, handoffs_adopted=0, handoffs_degraded=0,
+        handoffs_deferred=0, handoff_pages=0, completed=32, blocks=34),
+    "z3_disagg": dict(placements=32, affinity_placements=0, requeues=0, rejected=0, crashes=0,
+        heartbeat_misses=0, failovers=0, failed_over_requests=0, drains=0,
+        drain_migrated_requests=0, snapshots_taken=0, scale_ups=0, scale_downs=0, warm_spawns=0,
+        cold_spawns=0, replica_blocks=177, handoffs_sent=32, handoffs_adopted=32,
+        handoffs_degraded=0, handoffs_deferred=0, handoff_pages=1760, completed=32, blocks=59),
+    "z3_colocated": dict(placements=32, affinity_placements=0, requeues=0, rejected=0, crashes=0,
+        heartbeat_misses=0, failovers=0, failed_over_requests=0, drains=0,
+        drain_migrated_requests=0, snapshots_taken=0, scale_ups=0, scale_downs=0, warm_spawns=0,
+        cold_spawns=0, replica_blocks=92, handoffs_sent=0, handoffs_adopted=0, handoffs_degraded=0,
+        handoffs_deferred=0, handoff_pages=0, completed=32, blocks=46),
+    "z3_disagg_faults": dict(placements=32, affinity_placements=0, requeues=0, rejected=0,
+        crashes=0, heartbeat_misses=0, failovers=0, failed_over_requests=0, drains=0,
+        drain_migrated_requests=0, snapshots_taken=0, scale_ups=0, scale_downs=0, warm_spawns=0,
+        cold_spawns=0, replica_blocks=177, handoffs_sent=32, handoffs_adopted=26,
+        handoffs_degraded=6, handoffs_deferred=0, handoff_pages=1760, completed=32, blocks=59),
+    "z4": dict(placements=42, affinity_placements=0, requeues=0, rejected=0, crashes=0,
+        heartbeat_misses=0, failovers=0, failed_over_requests=0, drains=1,
+        drain_migrated_requests=0, snapshots_taken=0, scale_ups=1, scale_downs=1, warm_spawns=0,
+        cold_spawns=1, replica_blocks=155, handoffs_sent=42, handoffs_adopted=42,
+        handoffs_degraded=0, handoffs_deferred=88, handoff_pages=412, completed=42, blocks=46),
+    "z4_events": [{"block": 3, "action": "up", "role": "decode", "replica": 3, "reason":
+        "queue_depth", "warm": False}, {"block": 19, "action": "down", "role": "decode", "replica":
+        3, "reason": "idle", "warm": None}, {"block": 20, "action": "parked", "role": "decode",
+        "replica": 3, "reason": "drain_complete", "warm": None}],
+    "z4_time_to_ready": [],
+}
+
+
+def fleet_tenant_trace(vocab: int) -> list:
+    """(z2)'s traffic: 10 requests one a block alternating tenants a and b,
+    then at ``FLEET_BURST_BLOCK`` b's burst of 20 beside a's 2; every even
+    id a ``FLEET_SYSTEM_PROMPT``-token system prompt and a 64-256-token
+    turn, every odd one a 128-384-token prompt of its own; 64 new tokens,
+    greedy, no EOS."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    system = rng.integers(1, vocab, FLEET_SYSTEM_PROMPT).astype(np.int32)
+    plan = [("a" if i % 2 == 0 else "b", i) for i in range(10)]
+    plan += [("b", FLEET_BURST_BLOCK)] * 10 + [("a", FLEET_BURST_BLOCK)] \
+        + [("b", FLEET_BURST_BLOCK)] * 10 + [("a", FLEET_BURST_BLOCK)]
+    items = []
+    for rid, (tenant, arrival) in enumerate(plan):
+        if rid % 2 == 0:
+            prompt = np.concatenate([system, rng.integers(1, vocab, 64 * (1 + rid % 4))])
+        else:
+            prompt = rng.integers(1, vocab, 128 * (1 + rid % 3))
+        items.append(dict(prompt=prompt.astype(np.int32), max_new_tokens=FLEET_NEW_TOKENS,
+                          arrival_block=arrival, tenant=tenant))
+    return items
+
+
+def fleet_burst_trace(vocab: int) -> list:
+    """(z4)'s traffic: ``FLEET_SCALE_REQUESTS`` short requests (64-256 prompt
+    tokens, 64 new) arriving over blocks 0-3, then two at
+    ``FLEET_SCALE_LATE`` (the clock runs through the idle valley)."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    arrivals = [i % 4 for i in range(FLEET_SCALE_REQUESTS)] + list(FLEET_SCALE_LATE)
+    return [dict(prompt=rng.integers(1, vocab, 64 * (1 + i % 4)).astype(np.int32),
+                 max_new_tokens=FLEET_NEW_TOKENS, arrival_block=a, tenant="default")
+            for i, a in enumerate(arrivals)]
+
+
+def fleet_trace_cell(vocab: int) -> list:
+    """(z3)'s traffic: the trace cell's (``TRACE_KNOBS``), tenant-less."""
+    from neuronx_distributed_tpu_torch.inference.trace import synthetic_trace
+
+    return [dict(it, tenant="default") for it in synthetic_trace(TRACE_REQUESTS, vocab,
+                                                                 **TRACE_KNOBS)]
+
+
+def _fleet_engines(router, ops: dict, engines: dict) -> None:
+    """Count the host ops of every engine the router holds (each new one,
+    a spawned or restored replica included, wrapped on first sight)."""
+    for i, eng in enumerate(router.engines):
+        if engines.get(i) is not eng:
+            engines[i] = eng
+            if not getattr(eng, "_sim", False):
+                ops[(i, id(eng))] = count_host_ops(eng)
+
+
+def fleet_drive(router, items, actions=(), before_block=None) -> dict:
+    """Submit ``items`` to ``router`` (ids in item order), then step it to
+    the end: ``actions`` ((router block, callable) pairs) run before that
+    block's step; each request's arrival is stamped in wall time when the
+    router's clock reaches its block; every block's wall time is kept;
+    each engine's host ops are counted. Returns the wall seconds, the
+    stamps, the block walls and the host-op lists."""
+    for it in items:
+        router.submit(it["prompt"], it["max_new_tokens"], arrival_block=it["arrival_block"],
+                      tenant=it.get("tenant", "default"))
+    arrival_ts, block_s, ops, engines = {}, [], {}, {}
+    pending = sorted(actions, key=lambda a: a[0])
+    t0 = time.perf_counter()
+    while True:
+        while pending and pending[0][0] <= router.blocks:
+            pending.pop(0)[1](router)
+        _fleet_engines(router, ops, engines)
+        now = time.perf_counter()
+        for rid, it in enumerate(items):
+            if it["arrival_block"] <= router.blocks:
+                arrival_ts.setdefault(rid, now)
+        if before_block is not None:
+            before_block(router)
+        t1 = time.perf_counter()
+        more = router.step_block()
+        block_s.append(time.perf_counter() - t1)
+        if not more:
+            break
+    return dict(wall_s=time.perf_counter() - t0, arrival_ts=arrival_ts, block_s=block_s,
+                ops=ops)
+
+
+def _fleet_tokens(router) -> dict:
+    return {c.request_id: c.tokens.tolist() for c in router.completed}
+
+
+def _token_match(got: dict, want: dict) -> float:
+    total = sum(len(t) for t in want.values())
+    same = sum(sum(1 for a, b in zip(got.get(r, []), t) if a == b) for r, t in want.items())
+    return same / max(total, 1)
+
+
+def _fleet_summary(router, drive: dict, items, counters) -> dict:
+    """What every fleet pass reports and gates: the router's decisions,
+    completion counts, host ops per engine, launches, the tracer's drops
+    and router lanes, attribution, and survivors' allocators (prefix cache
+    evicted) after the pass."""
+    launches = {c.__name__: c.launches for c in counters}
+    ops = [o for lst in drive["ops"].values() for o in lst]
+    lanes = sorted({ev["lane"][1] for ev in router.tracer.events() if ev["lane"][0] == "router"})
+    problems, atts = attribution_check(router.tracer) if router.tracer.enabled else ([], {})
+    pages = {}
+    for i, eng in enumerate(router.engines):
+        if router._alive[i] and i not in router._drained and eng.session.paged is not None:
+            pkv = eng.session.paged
+            if pkv.prefix is not None:
+                pkv.prefix.evict(10 ** 6)
+            pages[i] = pkv.allocator.in_use()
+    done = router.completed
+    return dict(
+        stats={k: int(router.stats.get(k, 0)) for k in FLEET_STAT_KEYS},
+        submitted=len(items), completed=len(done), rejected=len(router.rejected),
+        generated_tokens=sum(len(c.tokens) for c in done), wall_s=drive["wall_s"],
+        tokens_per_s=sum(len(c.tokens) for c in done) / max(drive["wall_s"], 1e-9),
+        blocks=router.blocks, host_ops=host_op_stats(ops), launches=launches,
+        dropped=router.tracer.dropped, router_lanes=lanes, attribution_problems=problems,
+        attributed=len(atts), survivor_pages_in_use=pages,
+        replica_states=[s["state"] for s in router.replica_states()],
+        nonfinite_logits=sum(getattr(e, "nonfinite_logits", 0) for e in router.engines),
+        captures=[len(e.session.capture_ms) for e in router.engines
+                  if getattr(e.session, "state", None) is not None])
+
+
+def fleet_z1(lm, dev, counters) -> dict:
+    """(z1) identity: a Router over one replica against a bare engine on
+    the serve workload, in the synchronous and the pipelined loop; the
+    streams must be bit-identical, and the router's replica takes over the
+    bare engine's closed session (no capture)."""
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+    from neuronx_distributed_tpu_torch.inference.router import Router
+
+    items = [dict(prompt=p, max_new_tokens=MAX_NEW_TOKENS, arrival_block=0)
+             for p in serve_prompts(lm.config.vocab_size)]
+    out = {}
+    for async_loop in (False, True):
+        kw = dict(FLEET_ENGINE, async_loop=async_loop, seed=FLEET_SEED)
+        eng = ServeEngine(lm, **kw)
+        for it in items:
+            eng.submit(it["prompt"], it["max_new_tokens"])
+        _sync(dev)
+        t0 = time.perf_counter()
+        eng.run()
+        _sync(dev)
+        bare_s = time.perf_counter() - t0
+        bare = {c.request_id: c.tokens.tolist() for c in eng.completed}
+        eng.close()
+        for c in counters:
+            c.launches = 0
+        router = Router(lm, 1, **kw)
+        drive = fleet_drive(router, items)
+        _sync(dev)
+        st = _fleet_summary(router, drive, items, counters)
+        st.update(identical=_fleet_tokens(router) == bare, bare_wall_s=bare_s,
+                  capture_s=router.engines[0].capture_s, async_loop=async_loop)
+        router.close()
+        out["async" if async_loop else "sync"] = st
+    return out
+
+
+def fleet_z2(lm, dev, counters, faults: bool = True) -> dict:
+    """(z2) three replicas under faults: affinity placement, tenants a and b
+    at 1:1 with b's 10:1 burst, replica 0 crashing mid-decode
+    (``FLEET_CRASH``), replica 2 drained while its streams decode
+    (``FLEET_DRAIN``); with ``faults`` False the same fleet and traffic
+    undisturbed (the token-match reference)."""
+    from neuronx_distributed_tpu_torch.inference.router import Router
+
+    items = fleet_tenant_trace(lm.config.vocab_size)
+    router = Router(lm, 3, placement="affinity", snapshot_every_blocks=FLEET_SNAPSHOT_EVERY,
+                    tenant_weights={"a": 1.0, "b": 1.0}, trace=True,
+                    replica_queue_depth=FLEET_QUEUE_DEPTH,
+                    crash_at=[FLEET_CRASH] if faults else (), seed=FLEET_SEED, **FLEET_ENGINE)
+    detect = {}
+
+    def note_failover(r):
+        detect.setdefault("failovers_before", {})[r.blocks] = r.stats["failovers"]
+
+    actions = [(FLEET_DRAIN[0], lambda r: r.drain(FLEET_DRAIN[1]))] if faults else []
+    for c in counters:
+        c.launches = 0
+    drive = fleet_drive(router, items, actions, before_block=note_failover)
+    _sync(dev)
+    st = _fleet_summary(router, drive, items, counters)
+    # the wall of the block whose heartbeat check failed replica 0 over
+    seen = detect.get("failovers_before", {})
+    fo_blocks = [b for b in sorted(seen) if b + 1 in seen and seen[b + 1] > seen[b]]
+    if faults and fo_blocks:
+        st["failover_block"] = fo_blocks[0]
+        st["failover_replay_ms"] = drive["block_s"][fo_blocks[0]] * 1e3
+    st["failover_ms"] = router.last_failover_ms
+    st["drain_ms"] = router.last_drain_ms
+    # each tenant's tokens while both are backlogged (before a's last
+    # retirement) against its weight's share
+    comps = {c.request_id: c for c in router.completed}
+    cut = max((c.ttft_blocks + c.decode_blocks + items[c.request_id]["arrival_block"]
+               for c in comps.values() if c.tenant == "a"), default=0)
+    served = {"a": 0, "b": 0}
+    for rid, evs in router.tracer.by_request().items():
+        if rid in comps:
+            served[comps[rid].tenant] += sum(1 for e in evs if e["name"] == "tok"
+                                             and e["block"] < cut)
+    total = max(sum(served.values()), 1)
+    st["tenant_share"] = {t: n / total for t, n in served.items()}
+    st["streams"] = _fleet_tokens(router)
+    router.close()
+    return st
+
+
+def _adopt_checker(router, record: list) -> None:
+    """Wrap every decode worker's ``adopt_handoff``: an adopted handoff's
+    pages are read back from the decode worker's pool and their crc32s held
+    against the handoff's seal (the bytes the prefill worker read); a
+    handoff whose bytes no longer verify must not be adopted. The check's
+    own time is recorded apart so that the decode clock can leave it out."""
+    from neuronx_distributed_tpu_torch.inference.conversation_tier import to_store_page
+    from neuronx_distributed_tpu_torch.inference.paged_cache import HostPageTier
+
+    for j, eng in enumerate(router.engines):
+        if router.role_of(j) != "decode" or getattr(eng, "_checked", False):
+            continue
+        orig = eng.adopt_handoff
+
+        def checked(h, eng=eng, orig=orig, j=j):
+            t_pre = time.perf_counter()
+            intact = h.verify()
+            t_adopt = time.perf_counter()
+            out = orig(h)
+            t0 = time.perf_counter()
+            ok = None
+            if out == "adopted" and not getattr(eng, "_sim", False):
+                slot = next(s for s, r in enumerate(eng.slots) if r is h.req)
+                pages = [int(p) for p in eng.session.paged.tables[slot][:h.pages]]
+                got = [HostPageTier._crc(to_store_page(p)) for p in eng._read_pages_bytes(pages)]
+                ok = got == list(h.crcs)
+            record.append(dict(worker=j, out=out, intact=intact, bytes_equal=ok,
+                               block=router.blocks, adopt_s=t0 - t_adopt,
+                               check_s=time.perf_counter() - t0 + t_adopt - t_pre))
+            return out
+
+        eng.adopt_handoff = checked
+        eng._checked = True
+
+
+def fleet_z3(lm, dev, counters) -> dict:
+    """(z3) disaggregation: the trace cell's traffic on
+    ``DisaggRouter(lm, 3, prefill_replicas=1)`` (every adopted handoff's
+    pages read back and checked), on a colocated ``Router(lm, 2)``, and on
+    the disaggregated fleet again under ``FLEET_MIGRATE_PLAN``'s failed and
+    corrupted handoffs. Reports the decode clock (each stream's decode
+    worker's own block walls) beside the wall clock for both fleets, TTFT
+    by prompt kind, and the handoffs' pages, bytes, seal and adopt ms."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.inference.disagg import DisaggRouter, decode_clock_itl
+    from neuronx_distributed_tpu_torch.inference.faults import FaultPlan
+    from neuronx_distributed_tpu_torch.inference.router import Router
+
+    items = fleet_trace_cell(lm.config.vocab_size)
+    long_len = TRACE_KNOBS["long_prompt_len"]
+    out = {}
+    for label, make in (
+            ("disagg", lambda: DisaggRouter(lm, 3, prefill_replicas=1, trace=True,
+                                            seed=FLEET_SEED, **FLEET_ENGINE)),
+            ("colocated", lambda: Router(lm, 2, placement="least_loaded", trace=True,
+                                         seed=FLEET_SEED, **FLEET_ENGINE)),
+            ("disagg_faults", lambda: DisaggRouter(
+                lm, 3, prefill_replicas=1, trace=True, seed=FLEET_SEED,
+                faults=FaultPlan(**FLEET_MIGRATE_PLAN), **FLEET_ENGINE))):
+        router = make()
+        checks: list = []
+        for c in counters:
+            c.launches = 0
+        drive = fleet_drive(router, items,
+                            before_block=lambda r: _adopt_checker(r, checks)
+                            if isinstance(r, DisaggRouter) else None)
+        _sync(dev)
+        st = _fleet_summary(router, drive, items, counters)
+        # the adoption check's own time leaves the decode worker's clock
+        for c in checks:
+            wall = router._eng_block_wall[c["worker"]]
+            if c["block"] < len(wall):
+                wall[c["block"]] -= c["check_s"]
+        if not isinstance(router, DisaggRouter):
+            router._decode_home = {c.request_id: i for i, e in enumerate(router.engines)
+                                   for c in e.completed}
+        st.update(decode_clock_itl(router, long_prompt_cutoff=long_len))
+        if checks:   # what the decode clock would read with adoption off it
+            walls = [list(w) for w in router._eng_block_wall]
+            for c in checks:
+                wall = router._eng_block_wall[c["worker"]]
+                if c["block"] < len(wall):
+                    wall[c["block"]] -= c["adopt_s"]
+            bare = decode_clock_itl(router, long_prompt_cutoff=long_len)
+            router._eng_block_wall = walls
+            st.update({f"{k}_without_adoption": v for k, v in bare.items()
+                       if k in ("itl_p99_ms_decode_clock", "decode_stall_excess_ms")})
+        st.update(trace_latency(router.completed, drive["arrival_ts"], long_len))
+        if isinstance(router, DisaggRouter):
+            adopt = []
+            for e in router.engines:
+                h = e.metrics.histogram("serve_handoff_adopt_ms")
+                adopt.append(h)
+            merged = adopt[0].merged(*adopt[1:])
+            seal = list(router.handoff_seal_ms)
+            st.update(
+                handoff_bytes=int(router.stats["handoff_bytes"]),
+                adopted_pages=sum(e.session.paged.adopted_pages for e in router.engines),
+                adopt_ms_p50=merged.percentile(50) if merged.count else None,
+                adopt_ms_p99=merged.percentile(99) if merged.count else None,
+                seal_ms_p50=_pct(seal, 50), seal_ms_max=max(seal) if seal else None,
+                adopt_call_ms_p50=_pct([c["adopt_s"] * 1e3 for c in checks
+                                        if c["out"] == "adopted"], 50),
+                adopt_call_ms_p99=_pct([c["adopt_s"] * 1e3 for c in checks
+                                        if c["out"] == "adopted"], 99),
+                adopt_checks=len(checks),
+                adopted_bytes_equal=all(c["bytes_equal"] is not False for c in checks),
+                corrupt_adopted=sum(1 for c in checks
+                                    if c["out"] == "adopted" and not c["intact"]),
+                decode_inserts=sum(int(router.engines[j].inserts)
+                                   for j in range(len(router.engines))
+                                   if router.role_of(j) == "decode"),
+                fault_stats=dict(router._injector.stats) if router._injector else None)
+        st["streams"] = _fleet_tokens(router)
+        router.close()
+        out[label] = st
+    return out
+
+
+def fleet_z4(lm, dev, counters) -> dict:
+    """(z4) autoscaling: ``Autoscaler`` over ``DisaggRouter(lm, 3,
+    prefill_replicas=1)``, the prefill pool fixed at one, the decode pool
+    between 2 and 3 (``FLEET_SCALE_POLICY``), on a burst
+    (:func:`fleet_burst_trace`) that adds a decode worker and later
+    retires it. The spawn is timed (session, captures) and must capture its
+    programs while other sessions hold live slots."""
+    from neuronx_distributed_tpu_torch.inference.autoscale import AutoscalePolicy, Autoscaler
+    from neuronx_distributed_tpu_torch.inference.disagg import DisaggRouter
+
+    items = fleet_burst_trace(lm.config.vocab_size)
+    scaler = Autoscaler(per_role={
+        "prefill": AutoscalePolicy(min_replicas=1, max_replicas=1),
+        "decode": AutoscalePolicy(**FLEET_SCALE_POLICY)})
+    router = DisaggRouter(lm, 3, prefill_replicas=1, trace=True, autoscaler=scaler,
+                          seed=FLEET_SEED, **FLEET_ENGINE)
+    spawns = []
+    add = router.add_replica
+
+    def timed_add(role="decode", warm=True):
+        live_busy = any(e.session.active.any() for i, e in enumerate(router.engines)
+                        if i in router._live_replicas())
+        states = {id(getattr(e.session, "state", None)) for e in router.engines}
+        before = len(getattr(lm, "captures", ()))
+        t0 = time.perf_counter()
+        i = add(role=role, warm=warm)
+        _sync(dev)
+        eng = router.engines[i]
+        state = getattr(eng.session, "state", None)
+        index = getattr(state, "index", None)
+        spawns.append(dict(replica=i, warm=router.last_spawn["warm"],
+                           spawn_ms=(time.perf_counter() - t0) * 1e3, others_busy=live_busy,
+                           new_state=id(state) not in states,
+                           captured={sig: ms for idx, sig, ms in
+                                     getattr(lm, "captures", ())[before:] if idx == index},
+                           capture_s=eng.capture_s))
+        return i
+
+    router.add_replica = timed_add
+    for c in counters:
+        c.launches = 0
+    drive = fleet_drive(router, items)
+    _sync(dev)
+    st = _fleet_summary(router, drive, items, counters)
+    st.update(device_states=hasattr(lm, "captures"),
+              scale_events=[dict(e) for e in scaler.scale_events],
+              time_to_ready_blocks=scaler.time_to_ready_blocks(router), spawns=spawns,
+              streams=_fleet_tokens(router))
+    router.close()
+    return st
+
+
+def fleet_z5(dev, counters) -> dict:
+    """(z5) fp32 exactness: the 2-layer ``small_config()`` model, on ``dev``
+    and on the CPU, through (z2)'s crash and drain on ``Router(3)`` and
+    through ``FLEET_MIGRATE_PLAN``'s faulted handoffs on
+    ``DisaggRouter(3)``: both fleets' streams bit-identical to one engine
+    serving the same submissions on the same device (greedy and sampled),
+    and the greedy streams equal on the card and the CPU."""
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.inference.disagg import DisaggRouter
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+    from neuronx_distributed_tpu_torch.inference.faults import FaultPlan
+    from neuronx_distributed_tpu_torch.inference.router import Router
+    from neuronx_distributed_tpu_torch.inference.sampling import Sampler
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
+
+    cfg = small_config()
+    params = init_params(cfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(31)
+    shared = rng.integers(1, cfg.vocab_size, 48)
+    work = []
+    for i in range(12):
+        p = (np.concatenate([shared, rng.integers(1, cfg.vocab_size, 8 + 5 * i)]) if i % 2 == 0
+             else rng.integers(1, cfg.vocab_size, 20 + 7 * i))
+        work.append(dict(prompt=p.astype(np.int32), max_new_tokens=16 + i,
+                         arrival_block=i // 3, sampler=Sampler(temperature=0.8)
+                         if i % 3 == 1 else None))
+    kw = dict(block_steps=4, prefill_chunk_tokens=64, seed=5)
+    runs, launches = {}, {}
+    for d in (dev, "cpu"):
+        lm = CausalLM(cfg, params, LlamaForCausalLM, buckets=(64, 128), max_batch=4,
+                      page_size=16, paged_attn_kernel=True, device=d)
+        eng = ServeEngine(lm, **kw)
+        for w in work:
+            eng.submit(**w)
+        eng.run()
+        runs[(d, "engine")] = {c.request_id: c.tokens.tolist() for c in eng.completed}
+        eng.close()
+        for c in counters:
+            c.launches = 0
+        r = Router(lm, 3, crash_at=[(3, 0)], **kw)
+        for w in work:
+            r.submit(**w)
+        while r.step_block():
+            if r.blocks == 4:
+                r.drain(2)
+        runs[(d, "router")] = _fleet_tokens(r)
+        stats_r = {k: r.stats[k] for k in ("crashes", "failovers", "drains")}
+        r.close()
+        r = DisaggRouter(lm, 3, prefill_replicas=1, faults=FaultPlan(**FLEET_MIGRATE_PLAN),
+                         **kw)
+        for w in work:
+            r.submit(**w)
+        r.run()
+        runs[(d, "disagg")] = _fleet_tokens(r)
+        stats_d = {k: r.stats[k] for k in ("handoffs_adopted", "handoffs_degraded")}
+        r.close()
+        if d != "cpu":
+            launches = {c.__name__: c.launches for c in counters}
+        del lm
+    greedy = [i for i, w in enumerate(work) if w["sampler"] is None]
+    return dict(
+        requests=len(work), router_stats=stats_r, disagg_stats=stats_d, launches=launches,
+        identical={f"{'cpu' if d == 'cpu' else 'card'}_{kind}": runs[(d, kind)] == runs[(d, "engine")]
+                   for d in (dev, "cpu") for kind in ("router", "disagg")},
+        greedy_card_equals_cpu=all(runs[(dev, "engine")][i] == runs[("cpu", "engine")][i]
+                                   for i in greedy))
+
+
+def fleet_gates(passes: dict, predicted: dict) -> list:
+    """Phase 4i's gates on its passes (``predicted``: the CPU rehearsal's
+    counts by pass); a message for each that fails."""
+    problems = []
+
+    def need(cond, msg):
+        if not cond:
+            problems.append(msg)
+
+    for label, st in passes.get("z1", {}).items():
+        need(st["identical"], f"(z1 {label}) the router's streams differ from the bare engine's")
+    runs = {f"z2": passes.get("z2")} if "z2" in passes else {}
+    runs.update({f"z3_{k}": v for k, v in passes.get("z3", {}).items()})
+    if "z4" in passes:
+        runs["z4"] = passes["z4"]
+    for label, st in passes.get("z1", {}).items():
+        runs[f"z1_{label}"] = st
+    for label, st in runs.items():
+        if st is None:
+            continue
+        need(st["completed"] + st["rejected"] == st["submitted"],
+             f"({label}) completed {st['completed']} + rejected {st['rejected']} != submitted "
+             f"{st['submitted']}")
+        want = predicted.get(label)
+        if want is not None:
+            for k, v in want.items():
+                got = st["stats"].get(k) if k in st["stats"] else st.get(k)
+                need(got == v, f"({label}) {k} {got}, the CPU predicted {v}")
+        need(st["host_ops"]["steady_ok"] and st["host_ops"]["blocks_ok"],
+             f"({label}) a decode block broke the host-op contract: {st['host_ops']['host_ops']}")
+        need(all(n == 0 for n in st["survivor_pages_in_use"].values()),
+             f"({label}) survivors hold pages after the pass: {st['survivor_pages_in_use']}")
+        need(st["dropped"] == 0, f"({label}) the tracer dropped {st['dropped']} events")
+        need(not st["attribution_problems"],
+             f"({label}) attribution: " + "; ".join(st["attribution_problems"][:3]))
+        need(st["nonfinite_logits"] == 0, f"({label}) non-finite logits")
+        for kernel, n in st["launches"].items():
+            need(n > 0, f"({label}) never launched {kernel}")
+    z2 = passes.get("z2")
+    if z2 is not None:
+        need(z2["completed"] == z2["submitted"], "(z2) not every request completed")
+        need({"place", "clock", "faults", "drain"} <= set(z2["router_lanes"]),
+             f"(z2) router lanes {z2['router_lanes']}")
+        need(z2["attributed"] == z2["submitted"],
+             f"(z2) {z2['attributed']} of {z2['submitted']} requests attributed")
+    z3 = passes.get("z3", {})
+    if "disagg" in z3:
+        st = z3["disagg"]
+        need(st["stats"]["handoffs_adopted"] == st["stats"]["handoffs_sent"] > 0
+             and st["stats"]["handoffs_degraded"] == 0,
+             f"(z3) handoffs sent {st['stats']['handoffs_sent']}, adopted "
+             f"{st['stats']['handoffs_adopted']}, degraded {st['stats']['handoffs_degraded']}")
+        need(st["adopted_bytes_equal"] and st["adopt_checks"] == st["stats"]["handoffs_adopted"],
+             "(z3) adopted page bytes differ from the prefill worker's")
+        need(st["decode_inserts"] == 0, "(z3) a decode worker re-prefilled")
+    if "disagg_faults" in z3:
+        st = z3["disagg_faults"]
+        need(st["completed"] == st["submitted"], "(z3 faults) not every request completed")
+        need(st["corrupt_adopted"] == 0, "(z3 faults) a corrupted handoff was adopted")
+        need(st["stats"]["handoffs_degraded"] > 0, "(z3 faults) the migrate seam never fired")
+    z4 = passes.get("z4")
+    if z4 is not None:
+        want = predicted.get("z4_events")
+        need(want is None or z4["scale_events"] == want,
+             f"(z4) scale events {z4['scale_events']}, the CPU predicted {want}")
+        want = predicted.get("z4_time_to_ready")
+        need(want is None or z4["time_to_ready_blocks"] == want,
+             f"(z4) time to ready {z4['time_to_ready_blocks']}, predicted {want}")
+        cold = [s for s in z4["spawns"] if not s["warm"]]
+        need(not z4["device_states"] or bool(cold) and all(s["new_state"] and s["others_busy"] and s["captured"]
+                                for s in cold),
+             f"(z4) no spawned replica captured its programs beside live sessions: "
+             f"{z4['spawns']}")
+    z5 = passes.get("z5")
+    if z5 is not None:
+        need(all(z5["identical"].values()),
+             f"(z5) fp32 fleet streams differ from one engine's: {z5['identical']}")
+        need(z5["greedy_card_equals_cpu"], "(z5) fp32 greedy streams differ card vs CPU")
+        for kernel, n in z5["launches"].items():
+            need(n > 0, f"(z5) never launched {kernel}")
+    memory = passes.get("memory")
+    if memory is not None:
+        need(memory["peak_bytes"] < memory["card_bytes"],
+             f"peak {memory['peak_bytes']} bytes above the card's {memory['card_bytes']}")
+    return problems
+
+
+def _ms(x) -> str:
+    return "n/a" if x is None else f"{x:.1f}"
+
+
+def print_fleet(fleet: dict, card: str) -> None:
+    """Phase 4i's report lines."""
+    for label, st in fleet["z1"].items():
+        print(f"fleet (z1 {label}): llama3_8b full width, Router(lm, 1) against a bare engine on "
+              f"the serve workload: streams bit-identical {st['identical']}; wall "
+              f"{st['wall_s']:.3f} s against {st['bare_wall_s']:.3f} s; capture "
+              f"{st['capture_s']:.3f} s (the bare engine's closed session taken over); host ops "
+              f"a block {st['host_ops']['host_ops_per_block']:.3f} [{card}]", flush=True)
+    z2 = fleet["z2"]
+    print(f"fleet (z2): 3 replicas, affinity, tenants a:b 1:1 with b's 10:1 burst, replica 0 "
+          f"crashed at block {FLEET_CRASH[0]}, replica 2 drained at block {FLEET_DRAIN[0]}: "
+          f"{z2['completed']} of {z2['submitted']} completed, decisions {json.dumps(z2['stats'])}"
+          f" (the CPU's); serve_failover_replay_ms {_ms(z2.get('failover_replay_ms'))} (wall of "
+          f"detection block {z2.get('failover_block')}; failover bookkeeping "
+          f"{z2['failover_ms']} ms), drain {z2['drain_ms']} ms; tenant shares while both "
+          f"backlogged {json.dumps({t: round(v, 4) for t, v in z2['tenant_share'].items()})} "
+          f"(weights 1:1); tokens equal to the fault-free fleet "
+          f"{z2['token_match_fault_free']:.4f}; {z2['tokens_per_s']:.1f} tok/s (fault-free "
+          f"{z2['fault_free_wall_s']:.3f} s against {z2['wall_s']:.3f} s); host ops a block "
+          f"{z2['host_ops']['host_ops_per_block']:.3f}; {z2['attributed']} requests attributed "
+          f"[{card}]", flush=True)
+    for label, st in fleet["z3"].items():
+        extra = ""
+        if "handoff_bytes" in st:
+            extra = (f"; handoffs {st['stats']['handoffs_adopted']} adopted, "
+                     f"{st['stats']['handoffs_degraded']} degraded, "
+                     f"{st['stats']['handoff_pages']} pages, {st['handoff_bytes']} bytes, "
+                     f"serve_handoff_adopt_ms p50 {_ms(st['adopt_ms_p50'])} p99 "
+                     f"{_ms(st['adopt_ms_p99'])} (the whole adopt_handoff call, crc32 "
+                     f"verify included, p50 {_ms(st['adopt_call_ms_p50'])} p99 "
+                     f"{_ms(st['adopt_call_ms_p99'])}), seal ms p50 {_ms(st['seal_ms_p50'])} max "
+                     f"{_ms(st['seal_ms_max'])}, adopted bytes equal the prefill worker's "
+                     f"{st['adopted_bytes_equal']}")
+        if "itl_p99_ms_decode_clock_without_adoption" in st:
+            extra += (f"; with adoption off the decode clock ITL p99 "
+                      f"{_ms(st['itl_p99_ms_decode_clock_without_adoption'])} ms, stall excess "
+                      f"{_ms(st['decode_stall_excess_ms_without_adoption'])} ms")
+        if "token_match_clean" in st:
+            extra += f"; tokens equal to the clean disaggregated pass {st['token_match_clean']:.4f}"
+        print(f"fleet (z3 {label}): trace cell traffic, decode clock ITL p50 "
+              f"{_ms(st['itl_p50_ms_decode_clock'])} p99 {_ms(st['itl_p99_ms_decode_clock'])} "
+              f"ms, stall excess {_ms(st['decode_stall_excess_ms'])} ms, largest wall gap of a "
+              f"short request {_ms(st['max_gap_ms_short'])} ms; TTFT short p50 "
+              f"{_ms(st['ttft_ms_p50_short'])} max {_ms(st['ttft_ms_max_short'])} ms, long p50 "
+              f"{_ms(st['ttft_ms_p50_long'])} max {_ms(st['ttft_ms_max_long'])} ms; "
+              f"{st['tokens_per_s']:.1f} tok/s over {st['wall_s']:.3f} s{extra} [{card}]",
+              flush=True)
+    z4 = fleet["z4"]
+    print(f"fleet (z4): Autoscaler over 1 prefill + 2 decode workers: events "
+          f"{json.dumps(z4['scale_events'])}, time to ready {z4['time_to_ready_blocks']} (the "
+          f"CPU's); spawns " + "; ".join(
+              f"replica {sp['replica']} {'warm' if sp['warm'] else 'cold'} {sp['spawn_ms']:.1f} "
+              f"ms (capture {sp['capture_s'] * 1e3:.1f} ms, signatures captured "
+              f"{json.dumps(sp['captured'])}) beside live sessions {sp['others_busy']}"
+              for sp in z4["spawns"]) + f" [{card}]", flush=True)
+    z5 = fleet["z5"]
+    print(f"fleet (z5): small fp32 model, Router(3) crash + drain and DisaggRouter(3) faulted "
+          f"handoffs ({json.dumps(z5['disagg_stats'])}): bit-identical to one engine "
+          f"{json.dumps(z5['identical'])}, greedy card = CPU {z5['greedy_card_equals_cpu']} "
+          f"[{card}]", flush=True)
+    mem = fleet["memory"]
+    per_state = {}
+    for c in fleet["captures"]:
+        per_state[c["state"]] = per_state.get(c["state"], 0) + 1
+    print(f"fleet: phase {fleet['wall_s']:.1f} s; peak {mem['peak_bytes']} bytes of the card's "
+          f"{mem['card_bytes']} (a session's KV pools {mem['session_kv_bytes']}); captures by "
+          f"session state {json.dumps(per_state)} [{card}]", flush=True)
+
+
+def run_fleet_phase(lm, dev, counters) -> dict:
+    """Phase 4i on ``lm`` (:func:`trace_lm`): (z1)-(z5), then
+    :func:`fleet_gates` against ``FLEET_PREDICTED``. ``lm`` keeps
+    ``FLEET_SPARE_STATES`` ended sessions' states, so a pass takes over the
+    last one's programs and only fleets larger than that capture anew."""
+    import torch
+
+    lm.spare_states = FLEET_SPARE_STATES
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    passes = {"z1": fleet_z1(lm, dev, counters)}
+    passes["z2"] = fleet_z2(lm, dev, counters)
+    clean = fleet_z2(lm, dev, counters, faults=False)
+    passes["z2"]["token_match_fault_free"] = _token_match(passes["z2"]["streams"],
+                                                          clean.pop("streams"))
+    passes["z2"]["fault_free_wall_s"] = clean["wall_s"]
+    passes["z3"] = fleet_z3(lm, dev, counters)
+    passes["z3"]["disagg_faults"]["token_match_clean"] = _token_match(
+        passes["z3"]["disagg_faults"]["streams"], passes["z3"]["disagg"]["streams"])
+    passes["z4"] = fleet_z4(lm, dev, counters)
+    passes["z5"] = fleet_z5(dev, counters)
+    passes["memory"] = dict(peak_bytes=torch.cuda.max_memory_allocated(),
+                            card_bytes=torch.cuda.get_device_properties(0).total_memory,
+                            session_kv_bytes=lm.kv_cache_bytes())
+    passes["captures"] = [dict(state=s, signature=sig, ms=ms) for s, sig, ms in lm.captures]
+    passes["wall_s"] = time.perf_counter() - t0
+    problems = fleet_gates(passes, FLEET_PREDICTED)
+    if problems:   # the readings first: they say what went wrong
+        print_fleet(passes, card_line())
+    check(not problems, "fleet phase: " + "; ".join(problems))
+    for st in (passes["z2"], *passes["z3"].values(), passes["z4"]):
+        st.pop("streams", None)
+    return passes
+
+
 def train_batch(vocab: int, batch: int, seq: int, dev, seed: int = 7) -> dict:
     """Next-token batch from a seeded numpy RNG (the JAX examples'
     ``synthetic_lm_batches``), on ``dev``."""
@@ -4582,6 +5308,11 @@ def main(argv=None) -> int:
     del lm
     gc.collect()
     torch.cuda.empty_cache()
+    lm = trace_lm(cfg, dev, params)
+    fleet = run_fleet_phase(lm, dev, serve_counters)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
     b1 = (flash_block_forward,)
     spec = run_speculation(cfg, dev, params, b1)
     medusa = run_medusa(cfg, dev, params, b1)
@@ -4842,6 +5573,7 @@ def main(argv=None) -> int:
               f"{prof['b2_launches']} counted launches; top kernels "
               + "; ".join(f"{t['name'][:48]} {t['ms']:.1f} ms x{t['calls']}"
                           for t in prof["top"][:6]) + f" [{card}]", flush=True)
+    print_fleet(fleet, card)
     # the serve phase's weights and page pool go before training
     gc.collect()
     torch.cuda.empty_cache()
@@ -4868,6 +5600,10 @@ def main(argv=None) -> int:
                   for label, st in recovery["passes"].items()},
                **{f"tenants_{label}": st["launches"] for label, st in tenants["passes"].items()},
                **{f"park_{label}": st["launches"] for label, st in park["passes"].items()},
+               **{f"fleet_z1_{label}": st["launches"] for label, st in fleet["z1"].items()},
+               "fleet_z2": fleet["z2"]["launches"],
+               **{f"fleet_z3_{label}": st["launches"] for label, st in fleet["z3"].items()},
+               "fleet_z4": fleet["z4"]["launches"], "fleet_z5": fleet["z5"]["launches"],
                **{f"program_eager_{label}": st["launches"]
                   for label, st in eager["passes"].items()},
                "speculation": spec["launches"], "medusa": medusa["launches"],
@@ -4912,7 +5648,8 @@ def main(argv=None) -> int:
                 c[part] = k[part].pop("held")
     print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
                       "programs": eager, "speculation": spec, "medusa": medusa, "bundle": bundle,
-                      "recovery": recovery, "tenants": tenants, "park": park, "quant": quant,
+                      "recovery": recovery, "tenants": tenants, "park": park, "fleet": fleet,
+                      "quant": quant,
                       "train": tstats,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,
                       "program_check": programs_small,

@@ -1,5 +1,6 @@
 """Serving: paged KV cache and host tier, samplers, the causal-LM runtime,
-the engine, fault plans, the host-only sim model, shape-routed program
+the engine, the replica fleet (router, prefill/decode disaggregation,
+autoscaling), fault plans, the host-only sim model, shape-routed program
 bundles, speculative decoding and Medusa tree decoding.
 
 Submodules load on first attribute access, as in the package root."""
@@ -9,9 +10,14 @@ from __future__ import annotations
 import importlib
 
 _EXPORTS = {
+    "AutoscalePolicy": "autoscale",
+    "Autoscaler": "autoscale",
     "CausalLM": "causal_lm",
     "DecodeSession": "causal_lm",
     "GenerationResult": "causal_lm",
+    "DisaggRouter": "disagg",
+    "KVHandoff": "disagg",
+    "run_disagg_trace": "disagg",
     "Completion": "engine",
     "Rejected": "engine",
     "Request": "engine",
@@ -25,6 +31,10 @@ _EXPORTS = {
     "PagedKVCache": "paged_cache",
     "PagePoolExhausted": "paged_cache",
     "RadixPrefixIndex": "paged_cache",
+    "NoLiveReplicas": "router",
+    "Router": "router",
+    "run_router_trace": "router",
+    "PendingQueue": "schedq",
     "MedusaLlamaForCausalLM": "medusa",
     "medusa_generate": "medusa",
     "medusa_model": "medusa",

@@ -26,31 +26,40 @@ at each row's last real token only, not over the whole bucket.
 ``capture_programs=False`` runs the same bodies eagerly on CUDA (the route
 the captured one is held against).
 
-A graph is bound to the addresses it was captured over, so a ``CausalLM``
-owns one set of device buffers — the KV pools and a :class:`SlotState`
-that packs the per-slot decode state with the block tables — which every
-program reads, and :meth:`CausalLM.start_session` resets them in place for
-each new session (one live session per ``CausalLM``); the programs go with
-those buffers, so they serve every later session. All programs of a
-``CausalLM`` share one graph pool, and each program's static inputs and
-outputs lie outside it.
+Sessions are independent (JAX ``causal_lm.py:888-891``): the weights live
+once on the ``CausalLM``, and every mutable device buffer belongs to a
+:class:`SessionState` that one session holds at a time — the KV pools, a
+:class:`SlotState` that packs the per-slot decode state with the block
+tables, the grammar tables and the adapter pool. A graph is bound to the
+addresses it was captured over, so the programs live on that state too,
+each captured at its first call with it, in the state's own graph pool
+(each program's static inputs and outputs lie outside it). Several
+sessions of one ``CausalLM`` run side by side, one engine each (a router's
+replicas); N live sessions cost N states and N sets of captures.
+:meth:`DecodeSession.close` (or dropping the session) hands its state
+back: the ``CausalLM`` keeps one such spare, reset in place and with its
+programs, for the next :meth:`CausalLM.start_session` (``spare_states``
+of them), and frees the others.
 
 Tenants (JAX ``causal_lm.py:253-298``): ``lora_rank`` gives the model a
 pool of adapter slots (``inference/adapters.py``) that every forward reads
 per row, and ``grammar_slots`` a pool of grammar tables
 (``inference/grammar.py``) that every draw of the fused block and of the
-engine's first tokens masks with. Both pools are device buffers of this
-``CausalLM``, written in place, so one captured block serves every mix of
-adapters and grammars; each session gets fresh pool bookkeeping over them
-(:meth:`CausalLM.new_adapter_pool`, :meth:`CausalLM.new_grammar_pool`).
+engine's first tokens masks with. Both pools are device buffers of a
+session's state, written in place, so one captured block serves every mix
+of adapters and grammars; each session gets fresh pool bookkeeping over
+them (:meth:`CausalLM.new_adapter_pool`, :meth:`CausalLM.new_grammar_pool`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import itertools
 import time
-from typing import Any, Dict, Mapping, Optional, Sequence
+import weakref
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -238,26 +247,98 @@ class SlotState:
         return 1
 
 
+class SessionState:
+    """The device state one session owns: the KV pools, the packed
+    :class:`SlotState`, the grammar tables and the adapter pool, and what
+    is bound to their addresses — the programs by signature (``programs``,
+    the fused blocks in ``fused``), their graph pool, the slab inserts'
+    fresh caches and ``capture_ms``, each program's first-call wall ms by
+    signature. ``tracer`` takes the compile spans of its captures (the
+    engine's that holds the session). ``index`` numbers the states of one
+    ``CausalLM`` in allocation order."""
+
+    def __init__(self, lm: "CausalLM", index: int):
+        cfg = lm.config
+        self.index = index
+        cols = cfg.max_seq_len // cfg.page_size if lm.paged else 0
+        self.slots = SlotState(lm.max_batch, cols, lm.device)
+        self.cache = lm.model.new_cache(
+            lm.max_batch, lm.device, cache_index=self.slots.dev_field("length"),
+            block_table=self.slots.dev_table if lm.paged else None)
+        self.grammar_tables: Optional[Dict[str, torch.Tensor]] = None
+        if lm.grammar:
+            self.grammar_tables = grammar_tables(lm.grammar_slots, lm.grammar_states,
+                                                 cfg.vocab_size, lm.device)
+            self.slots.grammar_tables = self.grammar_tables
+        self.lora_pool: Optional[torch.Tensor] = None
+        if lm.lora:
+            self.lora_pool = torch.zeros(lm._lora_shape, dtype=torch.float32, device=lm.device)
+        self.programs: Dict[str, CapturedProgram] = {}
+        self.fused: Dict[tuple, "FusedDecode"] = {}
+        self.fresh: Dict[int, KVCache] = {}
+        self.pool = None
+        self.capture_ms: Dict[str, float] = {}
+        self.compiled = False
+        self.tracer = None
+        self.extras: Dict[str, Any] = {}
+        self.session: Optional[weakref.ref] = None
+
+    def graph_pool(self):
+        """The graph pool every captured program of this state shares (one
+        program runs at a time)."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.pool
+
+    def holder(self) -> Optional["DecodeSession"]:
+        """The live session holding this state, if any."""
+        s = self.session() if self.session is not None else None
+        return s if s is not None and s.state is self else None
+
+    def free(self) -> None:
+        """Drop every buffer and program (their device memory goes once
+        nothing else holds them)."""
+        self.programs.clear()
+        self.fused.clear()
+        self.fresh.clear()
+        self.extras.clear()
+        self.cache = self.slots = self.grammar_tables = self.lora_pool = self.pool = None
+
+
 @dataclasses.dataclass
 class DecodeSession:
     """Continuous-batching session: the KV cache, the packed slot state and
     host-side per-slot accounting; ``lengths`` is the host mirror of the
     device ``cache_index``; ``paged`` is the host half of the page pool
-    (None on a contiguous slab)."""
+    (None on a contiguous slab); ``state`` the device state it holds (None
+    once closed). Sessions of one ``CausalLM`` are independent."""
 
     cache: KVCache
     slots: SlotState
     lengths: np.ndarray         # (max_batch,) tokens written per slot
     active: np.ndarray          # (max_batch,) slot in use
     paged: Optional[PagedKVCache] = None
-    generation: int = 0
     adapters: Optional[AdapterPool] = None
     grammars: Optional[GrammarPool] = None
+    state: Optional[SessionState] = dataclasses.field(default=None, repr=False)
+    _release: Any = dataclasses.field(default=None, repr=False, compare=False)
+
+    @property
+    def capture_ms(self) -> Dict[str, float]:
+        """This session's programs' first-call wall ms by signature."""
+        return self.state.capture_ms if self.state is not None else {}
+
+    def close(self) -> None:
+        """End the session: its device state goes back to the ``CausalLM``
+        (kept as the spare, or freed). Using the session after raises.
+        Idempotent."""
+        if self._release is not None:
+            self._release()
 
 
 class FusedDecode:
     """``steps`` continuous-batching decode iterations for the whole slot
-    pool over a :class:`CausalLM`'s device state — the counterpart of the
+    pool over one session's device state — the counterpart of the
     JAX package's fused session program. On CUDA the body is captured once
     as a ``torch.cuda.CUDAGraph`` and each call is one replay; on the CPU
     each call runs the same body eagerly. A capture or replay error raises:
@@ -279,8 +360,10 @@ class FusedDecode:
     :attr:`out` the (steps, b) emissions plus one row of per-slot flags
     (1 where every logit of the block was finite): one fetch a block."""
 
-    def __init__(self, lm: "CausalLM", steps: int, slot_sampler: SlotSampler, pad: int):
-        self.lm, self.steps, self.slot_sampler, self.pad = lm, int(steps), slot_sampler, int(pad)
+    def __init__(self, lm: "CausalLM", state: SessionState, steps: int,
+                 slot_sampler: SlotSampler, pad: int):
+        self.lm, self.state = lm, state
+        self.steps, self.slot_sampler, self.pad = int(steps), slot_sampler, int(pad)
         self.out = torch.zeros((self.steps + 1, lm.max_batch), dtype=torch.int32,
                                device=lm.device)
         self.program: Optional[CapturedProgram] = None
@@ -293,8 +376,8 @@ class FusedDecode:
         return self.program.launches_per_replay if self.program is not None else {}
 
     def _body(self) -> None:
-        lm, st = self.lm, self.lm._slots
-        cache = lm._cache
+        lm, state = self.lm, self.state
+        st, cache = state.slots, state.cache
         f = st.dev_field
         active, greedy = f("active") != 0, f("greedy") != 0
         eos, temperature = f("eos"), f("temperature")
@@ -304,12 +387,12 @@ class FusedDecode:
         finite = torch.ones_like(active)
         max_len = lm.config.max_seq_len
         adapter = f("adapter") if lm.lora else None
-        tables = lm._grammar_tables
+        tables = state.grammar_tables
         if tables is not None:
             gidx, gstate, gbudget = f("grammar"), f("gstate"), f("budget")
             gactive, gl = gidx > 0, gidx.long()
         for i in range(self.steps):
-            logits = lm._forward(tok, cache, adapter)[:, 0].float()
+            logits = lm._forward(tok, cache, adapter, state)[:, 0].float()
             finite = finite & torch.isfinite(logits).all(-1)
             allowed = (None if tables is None
                        else grammar_allowed(tables, gidx, gstate, gbudget, count))
@@ -334,25 +417,29 @@ class FusedDecode:
     def capture(self) -> None:
         """Warm the body up once on a side stream (loads every kernel
         module, the ctypes libraries included), then capture it. The
-        warm-up decodes for real, so it runs only while no slot is live
-        (its writes land in scratch pages or idle slab rows) and the slot
-        state is restored from the host mirror after it."""
-        lm = self.lm
-        if lm._session is not None and lm._session.active.any():
+        warm-up decodes for real, so it runs only while no slot of its own
+        session is live (its writes land in that session's scratch pages or
+        idle slab rows; other sessions may be live) and the slot state is
+        restored from the host mirror after it."""
+        lm, state = self.lm, self.state
+        holder = state.holder()
+        if holder is not None and holder.active.any():
             raise RuntimeError("capture the fused decode before inserting into the session: "
                                "its warm-up decodes every slot")
         t0 = time.perf_counter()
-        self.program = CapturedProgram(self._body, lm.device, lm._graph_pool(),
+        self.program = CapturedProgram(self._body, lm.device, state.graph_pool(),
                                        name=f"session_fused_k{self.steps}")
         self.program.capture()
         torch.cuda.synchronize(lm.device)
-        lm._slots.push()
+        state.slots.push()
         self.capture_s = time.perf_counter() - t0
 
     def __call__(self, session: DecodeSession) -> torch.Tensor:
         """Advance every slot ``steps`` tokens; returns :attr:`out` on the
         device (fetch it once)."""
         self.lm._check_session(session)
+        if session.state is not self.state:
+            raise RuntimeError("this fused block was built for another session's state")
         session.slots.sync()
         if self.program is not None:
             self.program.replay()
@@ -388,7 +475,10 @@ class CausalLM:
     :func:`default_token_table` of the vocabulary). ``capture_programs``
     (an attribute too): on CUDA, run the decode, prefill, insert and extend
     forwards as captured programs (default) or eagerly; the CPU runs them
-    eagerly either way."""
+    eagerly either way. ``spare_states`` (an attribute too): how many
+    states of ended sessions the ``CausalLM`` keeps, programs and all, for
+    later sessions to take over (each a session's device memory; the rest
+    are freed)."""
 
     def __init__(self, config, params: Mapping[str, Any], model_cls,
                  buckets=(128, 512, 2048), max_batch: int = 4,
@@ -399,7 +489,7 @@ class CausalLM:
                  grammar_slots: int = 0, grammar_states: int = 64,
                  grammar_tokens: Optional[Sequence[str]] = None,
                  capture_programs: bool = True, param_transform=None,
-                 device: DeviceLike = None):
+                 spare_states: int = 1, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.capture_programs = bool(capture_programs)
         self.config = dataclasses.replace(config, decode=True)
@@ -466,29 +556,25 @@ class CausalLM:
             if got != want:
                 raise KeyError(f"param_transform gives {sorted(got ^ want)[:8]} not matching "
                                f"the model's weights")
-        if self.lora:   # the pool is no weight: allocated here, zeroed per session
-            model.model.lora_pool = torch.zeros(model.model.lora_pool.shape, dtype=torch.float32,
-                                                device=self.device)
+        # the adapter pool is no weight: each session's state holds one (the
+        # model reads the one bound into it for each forward)
+        self._lora_shape = tuple(model.model.lora_pool.shape) if self.lora else None
         self.model = model.eval().requires_grad_(False)
-        # device state, made at the first start_session
-        self._cache: Optional[KVCache] = None
-        self._slots: Optional[SlotState] = None
-        self._grammar_tables: Optional[Dict[str, torch.Tensor]] = None
-        self._session: Optional[DecodeSession] = None
-        self._generation = 0
-        self._fused: Dict[tuple, FusedDecode] = {}
-        # the programs by signature, their graph pool, and the slab inserts'
-        # fresh caches by row count (static, outside the pool)
-        self._programs: Dict[str, CapturedProgram] = {}
-        self._pool = None
-        self._fresh: Dict[int, KVCache] = {}
-        self.compiled = False
-        # wall ms of each program's first call by signature: warm-up and
-        # capture on CUDA, the eager first run otherwise (the fused block:
-        # its capture, or its construction on the CPU)
+        # device state (SessionState): the latest session started, and the
+        # spare states no session holds (the latest released is reused,
+        # programs and all, by the next start_session)
+        self._current: Optional[weakref.ref] = None
+        self._spares: List[SessionState] = []
+        self.spare_states = int(spare_states)
+        self._state_ids = itertools.count()
+        # wall ms of each program's first call by signature, the latest of
+        # any session (warm-up and capture on CUDA, the eager first run
+        # otherwise; the fused block: its capture, or its construction on
+        # the CPU); ``captures`` lists every one as (state index, signature,
+        # ms), each session's own are in its ``capture_ms``
         self.capture_ms: Dict[str, float] = {}
-        # an engine's tracer, attached by ServeEngine: each first call is a
-        # compile:<signature> span on ("engine", "compile")
+        self.captures: List[Tuple[int, str, float]] = []
+        # the tracer of the compile spans of a state with none of its own
         self.tracer = None
 
     # --- helpers ---------------------------------------------------------
@@ -552,12 +638,20 @@ class CausalLM:
             for mod, attr, p in saved:
                 mod._parameters[attr] = p
 
-    def _forward(self, ids: torch.Tensor, cache: KVCache,
-                 adapter_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The model on ``ids``; ``adapter_idx`` (rows,) the rows' adapter
-        slots (None: the identity)."""
+    def _bind_lora(self, adapter_idx: Optional[torch.Tensor],
+                   state: Optional[SessionState]) -> None:
+        """The rows' adapter slots and ``state``'s adapter pool into the
+        model for one forward (the current state's pool when None)."""
         if self.lora:
             self.model.model.adapter_idx = adapter_idx
+            self.model.model.lora_pool = (state or self._default_state()).lora_pool
+
+    def _forward(self, ids: torch.Tensor, cache: KVCache,
+                 adapter_idx: Optional[torch.Tensor] = None,
+                 state: Optional[SessionState] = None) -> torch.Tensor:
+        """The model on ``ids``; ``adapter_idx`` (rows,) the rows' adapter
+        slots (None: the identity) in ``state``'s adapter pool."""
+        self._bind_lora(adapter_idx, state)
         # no_grad rather than inference_mode: the cache tensors made here
         # are updated in place by later calls outside any such mode
         with torch.no_grad(), self._weights():
@@ -577,27 +671,20 @@ class CausalLM:
 
     # --- programs --------------------------------------------------------
 
-    def _graph_pool(self):
-        """The graph pool every captured program of this ``CausalLM`` shares
-        (one program runs at a time)."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        return self._pool
-
-    def _run(self, signature: str, body, inputs: Sequence) -> Any:
-        """Run program ``signature`` (``body`` over device tensors) on
-        ``inputs`` (host arrays or device tensors): a replay of its captured
-        graph on CUDA (captured now at its first call), else the eager body.
-        The first call's wall time goes into ``capture_ms`` and the
-        tracer."""
+    def _run(self, state: SessionState, signature: str, body, inputs: Sequence) -> Any:
+        """Run ``state``'s program ``signature`` (``body`` over device
+        tensors) on ``inputs`` (host arrays or device tensors): a replay of
+        its captured graph on CUDA (captured now at its first call), else
+        the eager body. The first call's wall time goes into the state's
+        and the ``CausalLM``'s ``capture_ms`` and the state's tracer."""
         cuda = self.device.type == "cuda"
         captured = cuda and self.capture_programs
-        prog = self._programs.get(signature)
+        prog = state.programs.get(signature)
         if prog is None:
-            prog = self._programs[signature] = CapturedProgram(
-                body, self.device, self._graph_pool() if cuda else None, name=signature)
+            prog = state.programs[signature] = CapturedProgram(
+                body, self.device, state.graph_pool() if cuda else None, name=signature)
         # this call builds the program: its capture, or its first eager run
-        first = prog.graph is None if captured else signature not in self.capture_ms
+        first = prog.graph is None if captured else signature not in state.capture_ms
         t0 = time.perf_counter()
         if captured:
             out = prog(*(torch.as_tensor(a) if isinstance(a, np.ndarray) else a
@@ -606,39 +693,47 @@ class CausalLM:
             out = body(*(self._ids(a, torch.from_numpy(np.asarray(a)).dtype)
                          if isinstance(a, np.ndarray) else a for a in inputs))
         if first:
-            t1 = time.perf_counter()
-            self.capture_ms[signature] = round((t1 - t0) * 1e3, 2)
-            tr = self.tracer
-            if tr is not None and tr.enabled:
-                tr.complete("compile:" + signature, ("engine", "compile"), t0, t1)
+            self._note_capture(state, signature, t0, time.perf_counter())
         return out
 
+    def _note_capture(self, state: SessionState, signature: str, t0: float, t1: float) -> None:
+        """Record one program's first call: its wall ms by signature on the
+        state and the ``CausalLM``, and a ``compile:<signature>`` span on
+        the state's tracer (the engine's that holds it)."""
+        ms = round((t1 - t0) * 1e3, 2)
+        state.capture_ms[signature] = ms
+        self.capture_ms[signature] = ms
+        self.captures.append((state.index, signature, ms))
+        tr = state.tracer if state.tracer is not None else self.tracer
+        if tr is not None and tr.enabled:
+            tr.complete("compile:" + signature, ("engine", "compile"), t0, t1)
+
     def _last_logits(self, ids: torch.Tensor, cache: KVCache, last: torch.Tensor,
-                     adapter: Sequence[torch.Tensor]) -> torch.Tensor:
+                     adapter: Sequence[torch.Tensor], state: SessionState) -> torch.Tensor:
         """The model over ``ids`` (rows, bucket) on ``cache``, its head at
         each row's position ``last`` only: ``(rows, vocab)``."""
-        if self.lora:
-            self.model.model.adapter_idx = adapter[0]
+        self._bind_lora(adapter[0] if adapter else None, state)
         with torch.no_grad(), self._weights():
             h = self.model.model(ids, cache)
             h = h[torch.arange(ids.shape[0], device=ids.device), last]
             return self.model._head(h[:, None])[:, 0]
 
-    def _fresh_cache(self, rows: int) -> KVCache:
+    def _fresh_cache(self, state: SessionState, rows: int) -> KVCache:
         """The zeroed-per-call slab a slab insert of ``rows`` rows prefills
         into before its rows go to the session slab (one per row count)."""
-        fresh = self._fresh.get(rows)
+        fresh = state.fresh.get(rows)
         if fresh is None:
-            fresh = self._fresh[rows] = self.model.new_cache(rows, self.device)
+            fresh = state.fresh[rows] = self.model.new_cache(rows, self.device)
         return fresh
 
-    def _slab_insert_body(self, rows: int):
-        cache, fresh, layers = self._cache, self._fresh_cache(rows), self.config.num_layers
+    def _slab_insert_body(self, state: SessionState, rows: int):
+        cache, fresh = state.cache, self._fresh_cache(state, rows)
+        layers = self.config.num_layers
 
         def body(ids, dst, lengths, last, *adapter):
             for t in (*fresh.keys, *fresh.values, fresh.cache_index):
                 t.zero_()
-            logits = self._last_logits(ids, fresh, last, adapter)
+            logits = self._last_logits(ids, fresh, last, adapter, state)
             # whole rows: the stale tails of the slots' earlier requests go too
             for layer in range(layers):
                 cache.keys[layer].index_copy_(0, dst, fresh.keys[layer])
@@ -648,23 +743,23 @@ class CausalLM:
 
         return body
 
-    def _paged_body(self):
-        cache = self._cache
+    def _paged_body(self, state: SessionState):
+        cache = state.cache
 
         def body(ids, starts, tables, last, *adapter):
             # the pools written in place through the rows' own tables
-            return self._last_logits(ids, cache.rows(starts, tables), last, adapter)
+            return self._last_logits(ids, cache.rows(starts, tables), last, adapter, state)
 
         return body
 
-    def _slab_extend_body(self):
-        cache, layers = self._cache, self.config.num_layers
+    def _slab_extend_body(self, state: SessionState):
+        cache, layers = state.cache, self.config.num_layers
 
         def body(ids, dst, starts, new_len, last, *adapter):
             view = cache.rows(starts)
             view.keys = [t.index_select(0, dst) for t in cache.keys]
             view.values = [t.index_select(0, dst) for t in cache.values]
-            logits = self._last_logits(ids, view, last, adapter)
+            logits = self._last_logits(ids, view, last, adapter, state)
             for layer in range(layers):
                 cache.keys[layer].index_copy_(0, dst, view.keys[layer])
                 cache.values[layer].index_copy_(0, dst, view.values[layer])
@@ -673,40 +768,60 @@ class CausalLM:
 
         return body
 
-    def _decode_body(self):
-        cache, st = self._cache, self._slots
+    def _decode_body(self, state: SessionState):
+        cache, st = state.cache, state.slots
 
         def body(tok):
-            return self._forward(tok, cache, st.dev_field("adapter") if self.lora
-                                 else None)[:, 0]
+            return self._forward(tok, cache, st.dev_field("adapter") if self.lora else None,
+                                 state)[:, 0]
 
         return body
 
-    def compile(self) -> "CausalLM":
-        """Build the JAX package's ``compile()`` programs now: ``decode`` and,
-        on the slab path, ``prefill_b{bucket}`` for every bucket (max_batch
-        rows); the other inserts and extends are built at their first call.
-        Each warm-up runs on zero inputs and writes idle slab rows or scratch
-        pages, so no slot may be live; the slot state is restored from the
-        host mirror after."""
-        self._device_state()
-        if self._session is not None and self._session.active.any():
+    def compile(self, session: Optional[DecodeSession] = None) -> "CausalLM":
+        """Build the JAX package's ``compile()`` programs now for
+        ``session`` (by default the latest session started while it lives,
+        else the spare state the next :meth:`start_session` takes):
+        ``decode`` and, on the slab path, ``prefill_b{bucket}`` for every
+        bucket (max_batch rows); the other inserts and extends are built at
+        their first call. Each warm-up runs on zero inputs and writes idle
+        slab rows or scratch pages of that session, so none of its slots
+        may be live; the slot state is restored from the host mirror
+        after."""
+        if session is not None:
+            self._check_session(session)
+        state = session.state if session is not None else self._default_state()
+        holder = state.holder()
+        if holder is not None and holder.active.any():
             raise RuntimeError("compile before inserting into the session: its warm-ups "
                                "write every slot")
         b = self.max_batch
-        self._run("decode", self._decode_body(), [np.zeros((b, 1), np.int32)])
+        self._run(state, "decode", self._decode_body(state), [np.zeros((b, 1), np.int32)])
         if not self.paged:
             for bucket in self.buckets:
-                self._run(f"prefill_b{bucket}", self._slab_insert_body(b),
+                self._run(state, f"prefill_b{bucket}", self._slab_insert_body(state, b),
                           [np.zeros((b, bucket), np.int32), np.arange(b, dtype=np.int64),
                            np.ones((b,), np.int32), np.zeros((b,), np.int64),
                            *self._adapter_rows(None, b)])
-        self._slots.push()
-        self.compiled = True
+        state.slots.push()
+        state.compiled = True
         return self
 
+    @property
+    def compiled(self) -> bool:
+        """Whether the default session state (see :meth:`compile`) has been
+        compiled."""
+        state = self._live_current()
+        state = state.state if state is not None else self._spare
+        return state is not None and state.compiled
+
+    @property
+    def _spare(self) -> Optional[SessionState]:
+        """The spare state the next session takes (None when there is
+        none)."""
+        return self._spares[-1] if self._spares else None
+
     def kv_cache_bytes(self) -> int:
-        """Bytes of the session KV pools (every layer, K and V; paged: the
+        """Bytes of one session's KV pools (every layer, K and V; paged: the
         sink page and the int8 scales included)."""
         cfg = self.config
         hd, n_kv = cfg.head_dim_, cfg.num_kv_heads
@@ -722,44 +837,79 @@ class CausalLM:
 
     # --- device state ----------------------------------------------------
 
-    def _device_state(self) -> None:
-        """Allocate the KV pools and the slot state once; every session and
-        every captured graph of this ``CausalLM`` uses these buffers."""
-        if self._cache is not None:
+    def _live_current(self) -> Optional[DecodeSession]:
+        """The latest session started, while it is open."""
+        s = self._current() if self._current is not None else None
+        return s if s is not None and s.state is not None else None
+
+    def _default_state(self) -> SessionState:
+        """The state a call that names no session works on: the latest
+        session's while it is open, else the spare (made now if none)."""
+        s = self._live_current()
+        if s is not None:
+            return s.state
+        if not self._spares:
+            self._spares.append(SessionState(self, next(self._state_ids)))
+        return self._spares[-1]
+
+    def _graph_pool(self):
+        """The default state's graph pool (see :meth:`compile`)."""
+        return self._default_state().graph_pool()
+
+    # the latest session's device state (speculation and the tests read it)
+    _cache = property(lambda self: self._default_state().cache)
+    _fused = property(lambda self: self._default_state().fused)
+    _programs = property(lambda self: self._default_state().programs)
+
+    def _take_state(self) -> SessionState:
+        """A state for a new session: the spare, else a new one (on CUDA
+        after a collection, which may return an abandoned session's)."""
+        if not self._spares and self.device.type == "cuda":
+            gc.collect()
+        if self._spares:
+            return self._spares.pop()
+        return SessionState(self, next(self._state_ids))
+
+    def _release(self, state: SessionState, session_ref) -> None:
+        """``state``'s session ended (closed or collected): it becomes the
+        spare, or is freed when there is one already."""
+        s = session_ref()
+        if s is not None:
+            if s.state is not state:
+                return
+            s.state = s.cache = s.slots = None   # the closed session holds no device memory
+        state.session = None
+        if state in self._spares:
             return
-        cfg = self.config
-        cols = cfg.max_seq_len // cfg.page_size if self.paged else 0
-        self._slots = SlotState(self.max_batch, cols, self.device)
-        self._cache = self.model.new_cache(
-            self.max_batch, self.device, cache_index=self._slots.dev_field("length"),
-            block_table=self._slots.dev_table if self.paged else None)
-        if self.grammar:
-            self._grammar_tables = grammar_tables(self.grammar_slots, self.grammar_states,
-                                                  self.config.vocab_size, self.device)
-            self._slots.grammar_tables = self._grammar_tables
+        if len(self._spares) < self.spare_states:
+            self._spares.append(state)
+        else:
+            if self.device.type == "cuda":   # no graph of it may still run
+                torch.cuda.synchronize(self.device)
+            state.free()
 
     def _check_session(self, session: DecodeSession) -> None:
-        if session.generation != self._generation:
-            raise RuntimeError("this session was replaced by a later start_session(): a "
-                               "CausalLM keeps one live session on its device buffers")
+        if session.state is None:
+            raise RuntimeError("this session was closed: its device state went back to the "
+                               "CausalLM")
 
     # --- continuous batching (slot-level session API) --------------------
 
     def start_session(self) -> DecodeSession:
-        """Fresh decode session (all slots free): zeroed pools and slot
-        state. Any earlier session of this ``CausalLM`` ends here."""
-        self._device_state()
-        self._generation += 1
-        for pools in (self._cache.keys, self._cache.values, self._cache.k_scales or [],
-                      self._cache.v_scales or []):
+        """Fresh decode session (all slots free) on a device state of its
+        own (JAX ``causal_lm.py:888``): zeroed pools and slot state. Other
+        sessions of this ``CausalLM`` go on as they were. The state is the
+        spare one an ended session left (its programs reused) or a new one
+        (its programs captured at first use)."""
+        state = self._take_state()
+        cache, st = state.cache, state.slots
+        for pools in (cache.keys, cache.values, cache.k_scales or [], cache.v_scales or []):
             for t in pools:
                 t.zero_()
-        st = self._slots
         st.host[:] = 0
         st.host_field("eos")[:] = -1
-        session = DecodeSession(cache=self._cache, slots=st, lengths=st.host_field("length"),
-                                active=np.zeros((self.max_batch,), bool),
-                                generation=self._generation)
+        session = DecodeSession(cache=cache, slots=st, lengths=st.host_field("length"),
+                                active=np.zeros((self.max_batch,), bool), state=state)
         if self.paged:
             session.paged = PagedKVCache(
                 self.config.page_size, self.config.page_pool_pages, self.max_batch,
@@ -767,29 +917,40 @@ class CausalLM:
             st.host_table[:] = session.paged.tables
         st.push()
         if self.lora:
-            self.model.model.lora_pool.zero_()
-            session.adapters = self.new_adapter_pool()
+            state.lora_pool.zero_()
+            self.model.model.lora_pool = state.lora_pool
+            session.adapters = self.new_adapter_pool(state)
         if self.grammar:
-            reset_grammar_tables(self._grammar_tables)
-            session.grammars = self.new_grammar_pool()
-        self._session = session
+            reset_grammar_tables(state.grammar_tables)
+            session.grammars = self.new_grammar_pool(state)
+        ref = weakref.ref(session)
+        state.session = ref
+        fin = weakref.finalize(session, self._release, state, lambda: None)
+        fin.atexit = False
+
+        def release() -> None:
+            fin.detach()
+            self._release(state, ref)
+
+        session._release = release
+        self._current = ref
         return session
 
-    def new_adapter_pool(self) -> AdapterPool:
-        """Adapter-pool bookkeeping over this ``CausalLM``'s pool buffer
-        (one per session; :meth:`start_session` makes it)."""
+    def new_adapter_pool(self, state: Optional[SessionState] = None) -> AdapterPool:
+        """Adapter-pool bookkeeping over ``state``'s pool buffer (by default
+        the current one's; :meth:`start_session` makes one a session)."""
         if not self.lora:
             raise ValueError("CausalLM was built without lora_rank")
-        return AdapterPool(self.model.model.lora_pool, self.model.model.lora_layout)
+        return AdapterPool((state or self._default_state()).lora_pool,
+                           self.model.model.lora_layout)
 
-    def new_grammar_pool(self) -> GrammarPool:
-        """Grammar-pool bookkeeping over this ``CausalLM``'s tables (one per
-        session; :meth:`start_session` makes it)."""
+    def new_grammar_pool(self, state: Optional[SessionState] = None) -> GrammarPool:
+        """Grammar-pool bookkeeping over ``state``'s tables (by default the
+        current one's; :meth:`start_session` makes one a session)."""
         if not self.grammar:
             raise ValueError("CausalLM was built without grammar_slots")
-        self._device_state()
         return GrammarPool(self.grammar_slots, self.grammar_states, self.grammar_tokens,
-                           tables=self._grammar_tables)
+                           tables=(state or self._default_state()).grammar_tables)
 
     def _set_block_tables(self, session: DecodeSession, slot_ids: np.ndarray) -> None:
         """Mirror these slots' host tables; the device copy rides the next
@@ -841,7 +1002,8 @@ class CausalLM:
         # requests are overwritten, as the JAX scatter does)
         sig = (f"prefill_b{bucket}" if rows == self.max_batch
                else f"insert_prefill_r{rows}_b{bucket}")
-        logits = self._run(sig, self._slab_insert_body(rows),
+        state = session.state
+        logits = self._run(state, sig, self._slab_insert_body(state, rows),
                            [ids, slot_ids.astype(np.int64), lengths,
                             np.maximum(lengths - 1, 0).astype(np.int64), *aidx])
         session.lengths[slot_ids] = lengths
@@ -881,7 +1043,8 @@ class CausalLM:
             ids[i, : suffix[i]] = prompt_ids[i, starts[i]: lengths[i]]
         tables = np.stack([pkv.table_for(int(slot_ids[i]), plans[i]) for i in range(rows)])
         try:
-            logits = self._run(f"paged_insert_r{rows}_b{bucket}", self._paged_body(),
+            logits = self._run(session.state, f"paged_insert_r{rows}_b{bucket}",
+                               self._paged_body(session.state),
                                [ids, starts, tables.astype(np.int32),
                                 np.maximum(suffix - 1, 0).astype(np.int64), *aidx])
         except Exception:
@@ -946,12 +1109,14 @@ class CausalLM:
         if self.paged:
             if tables is None:
                 raise ValueError("paged extend needs per-row block tables")
-            logits = self._run(f"paged_insert_r{rows}_b{bucket}", self._paged_body(),
+            logits = self._run(session.state, f"paged_insert_r{rows}_b{bucket}",
+                               self._paged_body(session.state),
                                [ids, starts, np.asarray(tables, np.int32), last, *aidx])
             session.cache.cache_index.index_copy_(0, self._ids(slot_ids, torch.long),
                                                   self._ids(new_len))
         else:
-            logits = self._run(f"chunk_extend_r{rows}_b{bucket}", self._slab_extend_body(),
+            logits = self._run(session.state, f"chunk_extend_r{rows}_b{bucket}",
+                               self._slab_extend_body(session.state),
                                [ids, slot_ids.astype(np.int64), starts, new_len, last, *aidx])
         session.lengths[slot_ids] = new_len
         return logits
@@ -961,7 +1126,7 @@ class CausalLM:
         harmlessly); ``tok`` (max_batch, 1) int32 on the device."""
         self._check_session(session)
         session.slots.sync()
-        logits = self._run("decode", self._decode_body(), [tok])
+        logits = self._run(session.state, "decode", self._decode_body(session.state), [tok])
         session.lengths += 1
         return logits
 
@@ -976,41 +1141,42 @@ class CausalLM:
 
     def compile_session_decode_fused(self, steps: int,
                                      slot_sampler: Optional[SlotSampler] = None,
-                                     pad_token_id: int = 0) -> FusedDecode:
-        """The ``steps``-token continuous-batching block as one program
-        (:class:`FusedDecode`), cached per ``(steps, slot_sampler, pad)``.
-        On CUDA it is captured here — warm-up and capture timed into
-        ``capture_ms`` — so call it before inserting into the session (a
-        ``ServeEngine`` does so when it is built)."""
+                                     pad_token_id: int = 0,
+                                     session: Optional[DecodeSession] = None) -> FusedDecode:
+        """The ``steps``-token continuous-batching block of ``session`` (by
+        default the one :meth:`compile` defaults to) as one program
+        (:class:`FusedDecode`), cached on its state per ``(steps,
+        slot_sampler, pad)``. On CUDA it is captured here — warm-up and
+        capture timed into ``capture_ms`` — so call it before inserting
+        into the session (a ``ServeEngine`` does so when it is built);
+        other sessions may be live meanwhile."""
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
+        if session is not None:
+            self._check_session(session)
+        state = session.state if session is not None else self._default_state()
         slot_sampler = slot_sampler or SlotSampler()
         key = (steps, slot_sampler, pad_token_id)
-        runner = self._fused.get(key)
+        runner = state.fused.get(key)
         if runner is None:
-            self._device_state()
             t0 = time.perf_counter()
-            runner = FusedDecode(self, steps, slot_sampler, pad_token_id)
+            runner = FusedDecode(self, state, steps, slot_sampler, pad_token_id)
             if self.device.type == "cuda":
                 runner.capture()
-            t1 = time.perf_counter()
-            sig = f"session_fused_k{steps}"
-            self.capture_ms[sig] = round((t1 - t0) * 1e3, 2)
-            if self.tracer is not None and self.tracer.enabled:
-                self.tracer.complete("compile:" + sig, ("engine", "compile"), t0, t1)
-            self._fused[key] = runner
+            self._note_capture(state, f"session_fused_k{steps}", t0, time.perf_counter())
+            state.fused[key] = runner
         return runner
 
     def compile_decode_fused(self, steps: int, top_k: Optional[int] = None,
-                             top_p: Optional[float] = None,
-                             pad_token_id: int = 0) -> FusedDecode:
+                             top_p: Optional[float] = None, pad_token_id: int = 0,
+                             session: Optional[DecodeSession] = None) -> FusedDecode:
         """The ``steps``-token block of :meth:`generate` (``fused_chunk``):
         the session program for ``top_k``/``top_p``. Unlike the JAX
         package's, it builds in no temperature, greedy flag or EOS id: those
         are per-slot state that ``generate`` loads before the block, so one
         graph serves every value of them."""
         return self.compile_session_decode_fused(
-            steps, SlotSampler(top_k=top_k, top_p=top_p), pad_token_id)
+            steps, SlotSampler(top_k=top_k, top_p=top_p), pad_token_id, session=session)
 
     def retire(self, session: DecodeSession, slot_ids) -> None:
         """Mark slots idle; in paged mode return their pages and point their
@@ -1065,7 +1231,7 @@ class CausalLM:
             tail = (max_new_tokens - 1) % chunk
             for k in {min(chunk, max_new_tokens - 1), tail} - {0, 1}:
                 fused[k] = self.compile_decode_fused(k, sampler.top_k, sampler.top_p,
-                                                     pad_token_id)
+                                                     pad_token_id, session=session)
         logits = self.insert(session, np.arange(b), prompt_ids, lengths=lengths)
         greedy = bool(sampler.greedy or sampler.temperature == 0.0)
         st = session.slots

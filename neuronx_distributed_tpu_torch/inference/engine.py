@@ -93,8 +93,17 @@ deadline-miss bursts, burn alerts and a dispatch fail-stop, each with
 ported feature is a ``serve_<key>`` counter in ``metrics``, and the
 engine's counter attributes read and write those counters.
 
-Still to port (ROADMAP A8.6, A8.7): disaggregation and its handoff, the
-router and its ``extract_*`` seams, and TP serving.
+Fleet seams (JAX ``engine.py:418-431, 2472-2670, 3125-3170``): ``role``
+``"prefill"`` runs only inserts and chunk extends, draws each prompt's
+first token, seals the prompt's KV pages into a checksummed
+:class:`~.disagg.KVHandoff` in ``outbox`` and frees the slot; ``"decode"``
+takes streams only through :meth:`ServeEngine.adopt_handoff` and
+:meth:`ServeEngine.resume`; ``"both"`` is the classic engine. The router
+(``router.py``) moves work between engines with ``submit_request``,
+``resume``, the ``extract_*`` seams and ``has_decode_work``, and an engine
+ends its session with :meth:`ServeEngine.close`.
+
+Still to port (ROADMAP A8.7): TP serving.
 """
 
 from __future__ import annotations
@@ -157,8 +166,7 @@ from neuronx_distributed_tpu_torch.observability import attribution as _attribut
 GARBLE_FP = 104729.0
 GARBLE_INT8 = 127
 
-# JAX ``engine.py:304``'s stats keys that the port serves, each a
-# ``serve_<key>`` counter (the handoff keys wait for disaggregation)
+# JAX ``engine.py:304``'s stats keys, each a ``serve_<key>`` counter
 STAT_KEYS = (
     "blocks", "decode_blocks", "inserts", "inserted_requests",
     "program_calls", "host_fetches", "deferred_admissions",
@@ -170,7 +178,7 @@ STAT_KEYS = (
     "grammar_rejects", "grammar_load_retries",
     "parked", "resumed", "park_replays", "park_rejects",
     "completed", "generated_tokens", "ontime_tokens", "deadline_misses",
-    "queue_blocks_sum", "ttft_blocks_sum",
+    "queue_blocks_sum", "ttft_blocks_sum", "handoffs_sent", "handoffs_adopted",
 )
 
 
@@ -305,8 +313,10 @@ class ReplicaLoad:
     inserted_requests: int = 0
     inflight_tokens: int = 0         # undelivered budget of the live slots
     queued_tokens: int = 0           # budget of the queued requests
-    # the block whose emissions this card reflects: the pipelined loop's
-    # harvest trails the dispatch clock by the block in flight
+    # the block whose decisions this card reflects: the pipelined loop's
+    # harvest trails the dispatch clock by the block in flight, which only
+    # matters for a stream that may end on EOS (the port's host counts a
+    # budget's end at dispatch, so those retire at the synchronous block)
     observed_block: int = 0
     parked: int = 0                  # conversations held only as park records
 
@@ -327,12 +337,13 @@ class _PrefillInFlight:
 
 
 class ServeEngine:
-    """Continuous-batching scheduler over one :class:`CausalLM` session.
-    ``block_steps`` is the K knob: each round advances every live slot K
-    tokens. Building an engine compiles the ``CausalLM``
-    (:meth:`CausalLM.compile`, once per ``CausalLM``) and, fused, captures
-    its decode block on CUDA, outside :meth:`run` (``capture_s``: the wall
-    seconds that took, about 0 when the ``CausalLM`` had done both already).
+    """Continuous-batching scheduler over one :class:`CausalLM` session (its
+    own: engines over one ``CausalLM`` run side by side). ``block_steps``
+    is the K knob: each round advances every live slot K tokens. Building
+    an engine compiles its session (:meth:`CausalLM.compile`) and, fused,
+    captures its decode block on CUDA, outside :meth:`run` (``capture_s``:
+    the wall seconds that took, about 0 when the session took over a
+    closed one's state that had done both already).
 
     ``prefill_chunk_tokens`` (JAX ``engine.py:434-441``): 0 admits every
     prompt with one insert; C > 0 prefills any prompt longer than C at most
@@ -422,6 +433,14 @@ class ServeEngine:
     ``incident_burst_threshold`` deadline misses (or pool-pressure
     episodes) within ``incident_burst_window`` blocks.
 
+    Roles (JAX ``engine.py:418``, paged only): ``role="prefill"`` reserves
+    no decode pages, draws every first token at once (no pipelining) and
+    hands each prefilled stream off (``outbox``, ``handoffs_sent``);
+    ``role="decode"`` refuses :meth:`submit` and adopts handoffs
+    (``handoffs_adopted``, the ``serve_handoff_adopt_ms`` histogram).
+    ``seed`` is the counterpart of JAX's ``rng``: engines with one seed draw
+    token t of request r alike, so a stream moves between them unchanged.
+
     Every counter attribute named in :data:`STAT_KEYS` (``completed_count``
     for ``completed``, ``dispatch_retry_count`` for ``dispatch_retries``)
     lives in ``metrics`` as ``serve_<key>``."""
@@ -458,6 +477,8 @@ class ServeEngine:
     deadline_misses = _Stat()
     queue_blocks_sum = _Stat()
     ttft_blocks_sum = _Stat()
+    handoffs_sent = _Stat()
+    handoffs_adopted = _Stat()
 
     def __init__(self, lm: CausalLM, block_steps: int = 8, fused: bool = True,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
@@ -473,7 +494,12 @@ class ServeEngine:
                  incident: Optional[FlightRecorder] = None, incident_window_blocks: int = 16,
                  incident_burst_threshold: int = 3, incident_burst_window: int = 8,
                  park_idle_blocks: int = 0, park_dir: Optional[str] = None,
-                 park_store: Optional[ConversationParkStore] = None):
+                 park_store: Optional[ConversationParkStore] = None, role: str = "both"):
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role must be 'both', 'prefill' or 'decode', got {role!r}")
+        if role != "both" and not getattr(lm, "paged", False):
+            raise ValueError("disaggregated roles require a paged CausalLM: the prefill->decode "
+                             "handoff moves KV as physical pages (inference/disagg.py)")
         if block_steps < 1:
             raise ValueError(f"block_steps must be >= 1, got {block_steps}")
         if prefill_chunk_tokens < 0:
@@ -520,6 +546,8 @@ class ServeEngine:
                 raise ValueError("conversation parking requires a paged CausalLM (KV pages "
                                  "are the park unit)")
         self.lm = lm
+        self.role = role
+        self.outbox: List = []
         self.block_steps = int(block_steps)
         self.fused = bool(fused)
         self.async_loop = bool(async_loop)
@@ -552,11 +580,9 @@ class ServeEngine:
         b = lm.max_batch
         self.lane = str(name) if name else "engine"
         self.tracer = tracer if tracer is not None else Tracer(enabled=bool(trace))
-        # compile spans of the lm's programs land on this tracer: an enabled
-        # one always takes the lm, a disabled one only fills a vacancy (a
-        # warm-up engine sharing the lm leaves the serving engine's tracer)
-        if self.tracer.enabled or getattr(lm, "tracer", None) is None:
-            lm.tracer = self.tracer
+        # the compile spans of this session's programs land on this tracer
+        if not self._sim:
+            self.session.state.tracer = self.tracer
         if pkv is not None:
             pkv.attach_observability(self.tracer, self.metrics, block_fn=lambda: self.blocks)
         for pool, hook in ((getattr(self.session, "adapters", None), "on_adapter_acquire"),
@@ -573,6 +599,10 @@ class ServeEngine:
         self._m_queue = self.metrics.gauge("serve_queue_depth", help="arrived admission backlog")
         self._m_dropped = self.metrics.counter(
             "trace_dropped_events", help="tracer ring-buffer events dropped (export is partial)")
+        # a decode worker's adoption cost (verify, page allocation, device
+        # writes): the migration's price beside the tier restore's
+        self._m_handoff = self.metrics.histogram(
+            "serve_handoff_adopt_ms", help="migrated-prompt page adoption wall ms", lo=0.01)
         if self.paged:
             self._m_pool = self.metrics.gauge("serve_page_pool_in_use",
                                               help="allocated KV pages")
@@ -618,6 +648,8 @@ class ServeEngine:
         self.slots: List[Optional[Request]] = [None] * b
         self._out: Dict[int, List[int]] = {}
         self._out_ts: Dict[int, List[float]] = {}
+        # streams that delivered a token this round (a router's harvest)
+        self._emitted: set = set()
         self._submit_ts: Dict[int, float] = {}
         self._finish_reason: Dict[int, str] = {}
         self._ended: set = set()    # streams that hit EOS or their budget
@@ -686,12 +718,21 @@ class ServeEngine:
             self._ring_turn = 0
         self._fused = None
         t0 = time.perf_counter()
-        if not self._sim and not lm.compiled:   # JAX engine.py:605
-            lm.compile()
+        if not self._sim and not self.session.state.compiled:   # JAX engine.py:605
+            lm.compile(self.session)
         if self.fused and not self._sim:
             self._fused = lm.compile_session_decode_fused(self.block_steps, self.slot_sampler,
-                                                          self.pad_token_id)
+                                                          self.pad_token_id, session=self.session)
         self.capture_s = time.perf_counter() - t0
+
+    def close(self) -> None:
+        """End the engine's session: its device state goes back to the
+        ``CausalLM`` (the spare a later session reuses, or freed). The
+        engine serves nothing after; its host records stay readable."""
+        close = getattr(self.session, "close", None)
+        if close is not None:
+            close()
+        self._fused = None   # its graph and output buffer go with the state
 
     # --- submission ------------------------------------------------------
 
@@ -768,6 +809,28 @@ class ServeEngine:
             return self.resume_parked(int(resume))
         if prompt is None:
             raise ValueError("prompt required (or pass resume=<parked id>)")
+        prompt, sampler, greedy = self._validate_submit(prompt, max_new_tokens, sampler,
+                                                        eos_token_id)
+        self._validate_tenancy(adapter, grammar, int(max_new_tokens))
+        rid = self._next_id if request_id is None else int(request_id)
+        req = Request(request_id=rid, prompt=prompt, max_new_tokens=int(max_new_tokens),
+                      eos_token_id=eos_token_id,
+                      temperature=0.0 if greedy else float(sampler.temperature),
+                      greedy=greedy, arrival_block=int(arrival_block),
+                      submit_block=self.blocks,
+                      ttft_deadline_block=self._deadline_block(arrival_block, ttft_deadline_ms,
+                                                               "ttft_deadline_ms"),
+                      deadline_block=self._deadline_block(arrival_block, deadline_ms,
+                                                          "deadline_ms"),
+                      tenant=str(tenant), adapter=adapter, grammar=grammar)
+        return self.submit_request(req)
+
+    def _validate_submit(self, prompt, max_new_tokens: int, sampler: Optional[Sampler],
+                         eos_token_id: Optional[int] = None):
+        """Admission checks shared with a router, which builds its own
+        :class:`Request` (JAX ``engine.py:815``): prompt, cache room, bucket
+        or chunk ceiling, pool capacity, sampler. Returns the normalized
+        ``(prompt, sampler, greedy)``."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -793,26 +856,25 @@ class ServeEngine:
             raise ValueError(f"request sampler top_k/top_p {sampler.top_k}/{sampler.top_p} "
                              f"differ from the engine's {self.slot_sampler.top_k}/"
                              f"{self.slot_sampler.top_p}")
-        greedy = bool(sampler.greedy or sampler.temperature == 0.0)
-        self._validate_tenancy(adapter, grammar, int(max_new_tokens))
-        rid = self._next_id if request_id is None else int(request_id)
-        req = Request(request_id=rid, prompt=prompt, max_new_tokens=int(max_new_tokens),
-                      eos_token_id=eos_token_id,
-                      temperature=0.0 if greedy else float(sampler.temperature),
-                      greedy=greedy, arrival_block=int(arrival_block),
-                      submit_block=self.blocks,
-                      ttft_deadline_block=self._deadline_block(arrival_block, ttft_deadline_ms,
-                                                               "ttft_deadline_ms"),
-                      deadline_block=self._deadline_block(arrival_block, deadline_ms,
-                                                          "deadline_ms"),
-                      tenant=str(tenant), adapter=adapter, grammar=grammar)
+        return prompt, sampler, bool(sampler.greedy or sampler.temperature == 0.0)
+
+    def submit_request(self, req: Request) -> Union[int, Rejected]:
+        """Queue an already validated :class:`Request` (JAX ``engine.py:925``:
+        a router's placement; its deadlines are absolute blocks on the
+        shared clock). A decode worker refuses: it takes streams through
+        :meth:`adopt_handoff` and :meth:`resume` only."""
+        if self.role == "decode":
+            raise ValueError("a decode worker admits streams via adopt_handoff/resume only: "
+                             "fresh work goes to a prefill worker")
+        rid = req.request_id
         self._next_id = max(self._next_id, rid + 1)
         now = time.perf_counter()
         self._submit_ts[rid] = now
         if self.tracer.enabled:
             self.tracer.instant(
                 "submit", ("req", rid), block=self.blocks, ts=now,
-                args={"prompt_len": int(prompt.size), "max_new_tokens": int(max_new_tokens),
+                args={"prompt_len": int(req.prompt.size),
+                      "max_new_tokens": int(req.max_new_tokens),
                       "arrival_block": req.arrival_block,
                       "ttft_deadline_block": req.ttft_deadline_block,
                       "deadline_block": req.deadline_block, "tenant": req.tenant,
@@ -940,10 +1002,17 @@ class ServeEngine:
         rate = max(self.lm.max_batch * self.block_steps, 1)
         return max(1, -(-(self.queue.tokens() + self._replay_tokens + inflight) // rate))
 
+    def _decode_reserve(self, req: Request) -> int:
+        """Tokens past the prompt ``req``'s admission reserves pages for: its
+        budget and the overrun reserve, none on a prefill worker (the
+        adopting decode worker holds the decode room)."""
+        if self.role == "prefill":
+            return 0
+        return req.max_new_tokens + self._reserve_slack(req.eos_token_id is not None)
+
     def _need_pages(self, req: Request) -> int:
         """Pages ``req``'s admission takes: prompt, budget and reserve."""
-        return self.session.paged.pages_needed(
-            req.prompt.size, req.max_new_tokens + self._reserve_slack(req.eos_token_id is not None))
+        return self.session.paged.pages_needed(req.prompt.size, self._decode_reserve(req))
 
     def _pool_can_admit(self, req: Request) -> bool:
         """Whether the page pool could take this admission now, counting
@@ -1471,8 +1540,9 @@ class ServeEngine:
     def _first_tokens(self, drawn: torch.Tensor, rows: int):
         """The first tokens of ``rows`` admissions: fetched now (the
         synchronous loop), or copied on the device beside the next block's
-        output (the pipelined loop; returns their first index there)."""
-        if not self.async_loop:
+        output (the pipelined loop; returns their first index there). A
+        prefill worker always fetches: its handoff needs the token now."""
+        if not self.async_loop or self.role == "prefill":
             got = drawn.cpu().numpy()
             self.nonfinite_logits += int((got[rows:] == 0).sum())
             return got[:rows], None
@@ -1493,8 +1563,7 @@ class ServeEngine:
         for i, r in enumerate(group):
             ids[i, : r.prompt.size] = r.prompt
             lens[i] = r.prompt.size
-        reserve = np.asarray([r.max_new_tokens + self._reserve_slack(r.eos_token_id is not None)
-                              for r in group], np.int64)
+        reserve = np.asarray([self._decode_reserve(r) for r in group], np.int64)
         aslots = (np.asarray([self._adapter_slot(r) for r in group], np.int32)
                   if self.lora else None)
         tier_before = self._tier_marker()
@@ -1527,6 +1596,8 @@ class ServeEngine:
                                None if first is None else int(first[i]),
                                None if first is not None else i0 + i, now,
                                bucket=bucket, rows=rows)
+        if self.role == "prefill":   # the prompt's KV is done: hand it off
+            self._handoff_group(list(slot_ids))
 
     # --- chunked prefill -------------------------------------------------
 
@@ -1536,10 +1607,9 @@ class ServeEngine:
         starts the prefill at the page-aligned reused length."""
         chunk, written = None, 0
         if self.paged:
-            reserve = req.max_new_tokens + self._reserve_slack(req.eos_token_id is not None)
             tier_before = self._tier_marker()
-            chunk = self.session.paged.begin_chunked(req.prompt.tolist(),
-                                                     req.prompt.size + reserve, ns=req.adapter)
+            chunk = self.session.paged.begin_chunked(
+                req.prompt.tolist(), req.prompt.size + self._decode_reserve(req), ns=req.adapter)
             written = chunk.start
             self._note_tier_restore([req], tier_before)
         req.start_block = self.blocks
@@ -1615,6 +1685,8 @@ class ServeEngine:
         self._start_stream(slot, req, req.temperature, req.greedy,
                            None if first is None else int(first[0]), i0, time.perf_counter(),
                            chunked=True)
+        if self.role == "prefill":
+            self._handoff_group([slot])
 
     def _abort_prefill(self, slot: int, requeue: bool) -> None:
         """Unwind a chunked admission in one step (JAX ``engine.py:2045``):
@@ -1653,6 +1725,7 @@ class ServeEngine:
         out = self._out[rid]
         out.append(token)
         self._out_ts[rid].append(ts)
+        self._emitted.add(rid)
         # the tokens of one fetch share a stamp: only gaps between
         # deliveries are inter-token latency
         last = self._last_tok_ts.get(rid)
@@ -1955,7 +2028,11 @@ class ServeEngine:
         ``engine.py:2318``): per leaf one gather of the page list from each
         layer's pool and one blocking device-to-host copy, split into a
         ``{leaf: (layers, page_size, kv_heads, head_dim) array}`` per page.
-        bf16 travels as its int16 bit pattern."""
+        bf16 travels as its int16 bit pattern. A sim engine has no bytes: a
+        page reads as its own id, so a handoff's checksum still covers
+        something a corruption can flip."""
+        if self._sim:
+            return [{"keys": np.asarray([p], np.int32)} for p in pages]
         idx = self.lm._ids(pages, torch.long)
         out: List[Dict[str, np.ndarray]] = [{} for _ in pages]
         for name, pools in self._page_pools().items():
@@ -1973,6 +2050,8 @@ class ServeEngine:
         ``engine.py:2334``): per leaf one blocking host-to-device copy and
         one indexed copy into each layer's pool, the tensors a captured
         decode block reads."""
+        if self._sim:
+            return
         idx = self.lm._ids(pages, torch.long)
         for name, pools in self._page_pools().items():
             src = torch.from_numpy(np.stack([d[name] for d in datas], 1)).to(self.lm.device)
@@ -2079,6 +2158,151 @@ class ServeEngine:
                      "tier_repairs": self.tier_page_repairs - repairs_before},
             state=self.state_summary(), slo=self.slo_status())
 
+    # --- prefill/decode disaggregation: the KV-page handoff -----------------
+    # A prefill worker's product is (first token, prompt KV pages); a decode
+    # worker admits through page adoption. Both ends move the bytes through
+    # the batched page I/O with the host tier's crc32 framing, so a corrupted
+    # transfer is caught and degrades to a re-prefill, never a wrong token.
+
+    def _handoff_group(self, slot_ids: List[int]) -> None:
+        """Seal each freshly prefilled slot's prompt pages into a
+        :class:`~.disagg.KVHandoff` on ``outbox`` and free the slot (JAX
+        ``engine.py:2481``): one batched read of the pages, which stay in
+        the prefix index. A slot already done (a 1-token budget, or EOS or a
+        grammar accept at the first token) retires here with a normal
+        completion instead."""
+        from neuronx_distributed_tpu_torch.inference.disagg import KVHandoff
+
+        pkv = self.session.paged
+        ps = pkv.page_size
+        for slot in slot_ids:
+            req = self.slots[slot]
+            if req is None or self._done[slot]:
+                continue
+            rid = req.request_id
+            n_copy = -(-req.prompt.size // ps)
+            pages = [int(p) for p in pkv.tables[slot][:n_copy]]
+            t0 = time.perf_counter()
+            payloads = [to_store_page(p) for p in self._read_pages_bytes(pages)]
+            ts = self._out_ts.get(rid) or [time.perf_counter()]
+            h = KVHandoff(req=req, first_token=int(self._out[rid][0]), first_ts=float(ts[0]),
+                          page_size=ps, payloads=payloads, page_dtype=self._page_dtype())
+            h.seal()
+            h.seal_ms = round((time.perf_counter() - t0) * 1e3, 3)
+            self.outbox.append(h)
+            self.handoffs_sent += 1
+            if self.tracer.enabled:
+                now = time.perf_counter()
+                self.tracer.instant("migrate_send", ("req", rid), block=self.blocks, ts=now,
+                                    args={"pages": n_copy, "prompt_len": int(req.prompt.size)})
+                self.tracer.instant("migrate:send", (self.lane, "migrate"), block=self.blocks,
+                                    args={"rid": rid, "pages": n_copy})
+            # the stream lives in the handoff now: free the slot (its prompt
+            # pages stay in the prefix index) and move the grammar pin with
+            # it (the adopting worker pins again); a disaggregated fleet
+            # takes no adapters, so no adapter pin exists here
+            self.lm.retire(self.session, np.asarray([slot], np.int32))
+            self.slots[slot] = None
+            self._active[slot] = False
+            self._done[slot] = False
+            self._set_tenancy(slot, None)
+            self._tok_from.pop(slot, None)
+            self._staged.add(slot)
+            self._release_pins(req)
+            for d in (self._out, self._out_ts, self._last_tok_ts, self._submit_ts, self._dfa,
+                      self._finish_reason, self._decode_since):
+                d.pop(rid, None)
+            self._ended.discard(rid)
+
+    def adopt_handoff(self, h) -> str:
+        """Adopt one migrated stream (decode role; JAX ``engine.py:2544``):
+        check the handoff's framing stamps and per-page checksums, allocate
+        the slot's whole footprint (reclaim first), write the prompt pages
+        through the batched page write, register them in the prefix index,
+        and enter the stream at token index 1 (its first token was drawn on
+        the prefill side). Returns ``"adopted"``, ``"deferred"`` (no free
+        slot, pool or grammar-pin pressure: retry later, the handoff
+        intact) or ``"degraded"`` (a foreign ``tp_degree`` or
+        ``page_dtype``, or a checksum failure: the caller re-prefills the
+        stream through :meth:`resume`)."""
+        if self.role != "decode":
+            raise ValueError("adopt_handoff requires role='decode'")
+        req = h.req
+        free = self._free_slots()
+        if not free:
+            return "deferred"
+        if not self._pool_can_admit(req):
+            self._note_pool_pressure([req])
+            return "deferred"
+        for stamp, mine in (("tp_degree", 1), ("page_dtype", self._page_dtype())):
+            theirs = getattr(h, stamp)
+            if theirs != mine:
+                if self.tracer.enabled:
+                    self.tracer.instant(f"migrate:{stamp}_mismatch", (self.lane, "migrate"),
+                                        block=self.blocks,
+                                        args={"rid": req.request_id, "src": theirs, "dst": mine})
+                return "degraded"
+        if not h.verify():
+            if self.tracer.enabled:
+                self.tracer.instant("migrate:corrupt", (self.lane, "migrate"),
+                                    block=self.blocks, args={"rid": req.request_id})
+            return "degraded"
+        gstate = 0
+        if self.grammar and req.grammar is not None:
+            # pin the grammar before any page work: pressure defers the
+            # adoption, never a stream decoded without its mask
+            if req.request_id not in self._grammar_pins:
+                try:
+                    self.session.grammars.acquire(req.grammar)
+                except (GrammarPoolExhausted, GrammarLoadError):
+                    self.deferred_admissions += 1
+                    return "deferred"
+                self._grammar_pins[req.request_id] = req.grammar
+            gstate = self._grammar_walk(req.grammar, 0, [int(h.first_token)])
+        slot = free[0]
+        pkv = self.session.paged
+        t0 = time.perf_counter()
+        try:
+            pages = pkv.adopt_pages(slot, req.prompt.tolist(),
+                                    [from_store_page(p) for p in h.payloads],
+                                    self._write_pages_bytes,
+                                    req.prompt.size + self._decode_reserve(req))
+        except PagePoolExhausted:
+            self.deferred_admissions += 1
+            self._note_pool_pressure([req])
+            return "deferred"
+        rid = req.request_id
+        self._next_id = max(self._next_id, rid + 1)
+        self.slots[slot] = req
+        self._out[rid] = [int(h.first_token)]
+        self._out_ts[rid] = [h.first_ts]
+        self._last_tok_ts[rid] = h.first_ts
+        self.session.lengths[slot] = req.prompt.size
+        self.session.active[slot] = True
+        self._keys[slot] = split_key(request_seed(self.seed, rid))
+        self._active[slot] = True
+        self._done[slot] = False
+        self._eos[slot] = -1 if req.eos_token_id is None else req.eos_token_id
+        self._temp[slot] = req.temperature
+        self._greedy[slot] = req.greedy
+        self._tok[slot] = int(h.first_token)
+        self._gen_counts[slot] = 1
+        self._set_tenancy(slot, req, gstate)
+        self._staged.add(slot)   # tables, length and fields go with the next sync
+        self._decode_since[rid] = self.blocks
+        self.handoffs_adopted += 1
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self._m_handoff.observe(dt_ms)
+        if self.tracer.enabled:
+            self.tracer.instant("migrate_adopt", ("req", rid), block=self.blocks,
+                                ts=time.perf_counter(),
+                                args={"slot": int(slot), "pages": len(h.payloads),
+                                      "ms": round(dt_ms, 3)})
+            self.tracer.instant("migrate:recv", (self.lane, "migrate"), block=self.blocks,
+                                args={"rid": rid, "pages": len(h.payloads),
+                                      "total_pages": len(pages)})
+        return "adopted"
+
     # --- the conversation tier: park and resume ----------------------------
     # An idle decoding stream's KV pages and state go to the park store
     # (conversation_tier.py) and the stream leaves the device and the host
@@ -2090,7 +2314,11 @@ class ServeEngine:
     def resume(self, req: Request, generated: Sequence[int] = ()) -> int:
         """Queue a replay of ``req`` (JAX ``engine.py:2685``): its KV is
         rebuilt from the prompt and ``generated`` at the next round and the
-        stream goes on at token ``len(generated)``."""
+        stream goes on at token ``len(generated)``. A prefill worker
+        refuses: replays go to a decode-capable worker."""
+        if self.role == "prefill":
+            raise ValueError("a prefill worker cannot resume decode streams: route replays to "
+                             "a decode worker (DisaggRouter does)")
         self._next_id = max(self._next_id, req.request_id + 1)
         req.start_block = None
         req.first_token_block = None
@@ -2131,6 +2359,8 @@ class ServeEngine:
         are released."""
         if self.park_store is None:
             raise ValueError("parking requires park_dir/park_store at construction")
+        if self.role == "prefill":
+            raise ValueError("prefill workers hold no decode streams to park")
         rid = int(request_id)
         slot = next((i for i, r in enumerate(self.slots)
                      if r is not None and r.request_id == rid), None)
@@ -2281,6 +2511,9 @@ class ServeEngine:
         integrity failure degrades to the replay path."""
         if self.park_store is None:
             raise ValueError("resume requires park_dir/park_store at construction")
+        if self.role == "prefill":
+            raise ValueError("a prefill worker cannot resume decode streams: route resumes to "
+                             "a decode-capable worker")
         rid = int(request_id)
         if self.async_loop:
             # a sync point: page adoption lands on a true block boundary
@@ -2407,6 +2640,51 @@ class ServeEngine:
             ids.update(self.park_store.list_parked())
         return sorted(ids)
 
+    # --- router seams: drain extraction ---------------------------------------
+
+    def extract_queued(self) -> List[Request]:
+        """Remove and return every queued request (JAX ``engine.py:3125``):
+        a drain's migration source, no completion recorded; their pins are
+        released (the destination pins again)."""
+        out = self.queue.ordered()
+        for r in out:
+            self.queue.remove(r.request_id)
+            self._release_pins(r)
+            self._submit_ts.pop(r.request_id, None)
+        self._m_queue.set(0)
+        return out
+
+    def extract_prefilling(self) -> List[Request]:
+        """Roll back every chunked admission in flight (the abort's atomic
+        page rollback) and return the requests for placement elsewhere
+        (JAX ``engine.py:3137``)."""
+        out = []
+        for slot in list(self._prefilling):
+            req = self._prefilling[slot].req
+            out.append(req)
+            self._abort_prefill(slot, requeue=False)
+            self._release_pins(req)
+            self._submit_ts.pop(req.request_id, None)
+        return out
+
+    def extract_replays(self) -> List[tuple]:
+        """Remove and return the pending recovery replays as (request,
+        tokens delivered) pairs (JAX ``engine.py:3152``)."""
+        out = [(req, list(gen)) for req, gen, _ts in self._replay_q]
+        self._replay_q.clear()
+        self._replay_tokens = 0
+        for req, _gen in out:
+            self._release_pins(req)
+        return out
+
+    def has_decode_work(self) -> bool:
+        """Whether a slot still runs (decoding or mid-prefill), a replay is
+        pending, or, pipelined, a block or a first token is still in flight:
+        a drain's completion gate (JAX ``engine.py:3164``)."""
+        return (bool(self._replay_q) or bool(self._prefilling) or bool(self._inflight)
+                or bool(self._first_pending) or bool(self._tail)
+                or any(r is not None for r in self.slots))
+
     # --- snapshot / restore ------------------------------------------------
 
     def snapshot(self) -> dict:
@@ -2415,9 +2693,10 @@ class ServeEngine:
         knobs, the seed as JAX key data (``[0, seed]``), and every live
         request's prompt, delivered tokens, deadlines and state (decoding,
         prefill or queued). Completed requests are not in it. The pipelined
-        loop drains first and retires what the drain finished."""
-        if self._sim:
-            raise ValueError("sim engines have no rng/device state to snapshot")
+        loop drains first and retires what the drain finished. A sim engine
+        snapshots its scheduler state too (it has no device state), so a sim
+        fleet drains and restores as a real one does; the reference's sim
+        refuses."""
         if self.async_loop:
             self._flush(recovery=True)
             self._retire_finished()
@@ -2634,7 +2913,7 @@ class ServeEngine:
                      and (pages_free is None or pages_free > 0))
                else retry + backlog)
         return ReplicaLoad(
-            role="both", queue_depth=len(self.queue), prefilling=len(self._prefilling),
+            role=self.role, queue_depth=len(self.queue), prefilling=len(self._prefilling),
             replays=len(self._replay_q), backlog=backlog,
             active_slots=sum(1 for r in self.slots if r is not None), free_slots=free,
             est_ttft_blocks=int(est), pool_retry_after_blocks=int(retry),
@@ -2647,7 +2926,9 @@ class ServeEngine:
             adapters_resident=sorted(self.session.adapters.resident) if self.lora else None,
             slo_alerting=self._slo is not None and self._slo.alerting(),
             decode_blocks=int(self.decode_blocks), inserted_requests=int(self.inserted_requests),
-            observed_block=self._observed_pin - max(len(self._inflight), self._entry_inflight),
+            observed_block=self._observed_pin - (
+                max(len(self._inflight), self._entry_inflight)
+                if any(r is not None and r.eos_token_id is not None for r in self.slots) else 0),
             parked=len(self._parked))
 
     def state_summary(self) -> dict:
@@ -2696,6 +2977,7 @@ class ServeEngine:
         before it harvests block t - 1 (:meth:`_step_block_async`). A round
         opens with the park tier's idle sweep (:meth:`_sweep_idle_parks`),
         which drains the pipeline first."""
+        self._emitted.clear()     # a router's harvest reads the last round's
         self._observed_pin = int(self.blocks)
         self._entry_inflight = len(self._inflight)
         self.queue.advance(self.blocks)

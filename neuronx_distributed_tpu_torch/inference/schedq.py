@@ -1,9 +1,10 @@
-"""The engine's admission backlog: heaps for EDF admission, shed victims and
-deadline expiry, with O(1) arrived-depth and token-budget counters.
+"""The engine's admission backlog and the router's placement backlog:
+heaps for EDF admission, shed victims, deadline expiry and WFQ placement,
+with O(1) counters.
 
-The port's own copy of ``AdmissionQueue``, ``admission_deadline`` and
-``shed_deadline_key`` (``neuronx_distributed_tpu/inference/schedq.py``),
-stdlib only. Every entry carries a deque-position token: ``append`` hands
+The port's own copy of ``AdmissionQueue``, ``PendingQueue``,
+``admission_deadline`` and ``shed_deadline_key``
+(``neuronx_distributed_tpu/inference/schedq.py``), stdlib only. Every entry carries a deque-position token: ``append`` hands
 out positions toward +inf and ``appendleft`` toward -inf, so "stable sort by
 queue position" (FIFO by arrival, a requeued request ahead of the rest) is
 the EDF tie-break, exactly as in the reference: the schedules of the two
@@ -11,13 +12,16 @@ engines depend on it. Removal marks an entry dead in O(1); heap entries
 are checked against the entry's current token when popped, and the heaps
 are compacted once dead entries outnumber live ones.
 
-The router's ``PendingQueue`` waits for the router (ROADMAP A8.6).
+``PendingQueue`` orders the router's backlog by (replay first, WFQ finish
+tag, request id), a total order, and keeps per-(role, tenant) integer
+arrived-cost sums and per-tenant newest-victim heaps for tenant-aware
+shedding and the autoscaler's signals.
 """
 
 from __future__ import annotations
 
 import heapq
-from typing import Dict, Iterator, List, Set, Tuple
+from typing import Dict, Iterator, List, Optional, Set, Tuple
 
 _INF = float("inf")
 
@@ -229,3 +233,216 @@ class AdmissionQueue:
         self._exp = [t for t in self._exp if t[2] in live and self._pos.get(t[2]) == t[1]]
         for h in (self._future, self._edf, self._tail, self._lax, self._exp):
             heapq.heapify(h)
+
+
+class PendingQueue:
+    """The router's placement backlog: entries are ``router._Entry``
+    objects; the placement order ((replay-first, WFQ finish tag, rid)) is a
+    total order so no deque positions are needed. Arrival/backoff gates
+    (``max(arrival_block, not_before)``) ride a future heap; per-(role,
+    tenant) INTEGER arrived-cost sums and per-tenant newest-victim heaps
+    make tenant-aware shedding and the autoscaler's weighted-backlog signal
+    O(1)-per-mutation instead of O(backlog)-per-block."""
+
+    def __init__(self):
+        self._entries: Dict[int, object] = {}
+        self._gen: Dict[int, int] = {}          # rid -> insertion token
+        self._seq = 0
+        self._now = -(10 ** 9)
+        self._future: List[Tuple[int, int, int]] = []
+        self._ready: List[Tuple[Tuple[int, float, int], int, int]] = []
+        self._ready_set: Set[int] = set()
+        # arrived-cost sums (ints — prompt + budget tokens), per role pool
+        # and tenant; the cost/weight division happens at read time so the
+        # sum is exact regardless of mutation history
+        self._cost: Dict[Tuple[str, str], int] = {}
+        self._ready_role: Dict[str, int] = {"prefill": 0, "decode": 0}
+        self._victims: Dict[str, List[Tuple[int, int, int]]] = {}
+        self._pending_tokens = 0                # sum(max_new - delivered)
+        self._n_decode_replay = 0               # replay entries w/ tokens
+        self._dead = 0
+
+    # --- role/cost helpers ------------------------------------------------
+
+    @staticmethod
+    def entry_role(e) -> str:
+        """Which worker pool a pending entry loads: mid-stream replays are
+        decode work, everything else is prefill work (mirrors
+        ``DisaggRouter._viable_replicas``; a classic fleet sums both)."""
+        return "decode" if (e.replay and e.generated) else "prefill"
+
+    @staticmethod
+    def entry_cost(e) -> int:
+        return int(e.req.prompt.size) + int(e.req.max_new_tokens)
+
+    # --- mutation ---------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __bool__(self) -> bool:
+        return bool(self._entries)
+
+    def __iter__(self) -> Iterator:
+        return iter(list(self._entries.values()))
+
+    def append(self, e) -> None:
+        rid = e.req.request_id
+        if rid in self._entries:
+            raise ValueError(f"entry {rid} already pending")
+        self._seq += 1
+        self._entries[rid] = e
+        self._gen[rid] = self._seq
+        self._pending_tokens += (int(e.req.max_new_tokens)
+                                 - len(e.generated))
+        if e.replay and e.generated:
+            self._n_decode_replay += 1
+        gate = max(int(e.req.arrival_block), int(e.not_before))
+        if gate <= self._now:
+            self._mark_ready(e, self._seq)
+        else:
+            heapq.heappush(self._future, (gate, self._seq, rid))
+
+    # failover/migration re-entries used appendleft on the old deque; the
+    # placement order is key-total, so front/back insertion is equivalent
+    appendleft = append
+
+    def _mark_ready(self, e, seq: int) -> None:
+        rid = e.req.request_id
+        self._ready_set.add(rid)
+        key = (0 if e.replay else 1, float(e.finish_tag), rid)
+        heapq.heappush(self._ready, (key, seq, rid))
+        role = self.entry_role(e)
+        tenant = e.req.tenant
+        self._cost[(role, tenant)] = (self._cost.get((role, tenant), 0)
+                                      + self.entry_cost(e))
+        self._ready_role[role] += 1
+        if not e.replay:
+            heapq.heappush(self._victims.setdefault(tenant, []),
+                           (-rid, seq, rid))
+
+    def remove(self, e) -> None:
+        rid = e.req.request_id if hasattr(e, "req") else int(e)
+        ent = self._entries.pop(rid, None)
+        if ent is None:
+            return
+        self._gen.pop(rid, None)
+        self._pending_tokens -= (int(ent.req.max_new_tokens)
+                                 - len(ent.generated))
+        if ent.replay and ent.generated:
+            self._n_decode_replay -= 1
+        if rid in self._ready_set:
+            self._ready_set.discard(rid)
+            role = self.entry_role(ent)
+            k = (role, ent.req.tenant)
+            left = self._cost.get(k, 0) - self.entry_cost(ent)
+            if left > 0:
+                self._cost[k] = left
+            else:
+                self._cost.pop(k, None)
+            self._ready_role[role] -= 1
+        self._dead += 3
+        self._maybe_compact()
+
+    def get(self, rid: int):
+        return self._entries.get(int(rid))
+
+    # --- clock ------------------------------------------------------------
+
+    def advance(self, now: int) -> None:
+        if now <= self._now:
+            return
+        self._now = int(now)
+        while self._future and self._future[0][0] <= now:
+            _g, seq, rid = heapq.heappop(self._future)
+            if self._gen.get(rid) == seq and rid not in self._ready_set:
+                self._mark_ready(self._entries[rid], seq)
+
+    # --- counters ---------------------------------------------------------
+
+    def ready_count(self, now: int, role: Optional[str] = None) -> int:
+        self.advance(now)
+        if role is None or role == "both":
+            return len(self._ready_set)
+        return self._ready_role.get(role, 0)
+
+    def pending_tokens(self) -> int:
+        return self._pending_tokens
+
+    def fresh_count(self) -> int:
+        """Entries that are prefill work (fresh admissions + zero-token
+        replays) — the disagg liveness check's numerator."""
+        return len(self._entries) - self._n_decode_replay
+
+    def decode_replay_count(self) -> int:
+        return self._n_decode_replay
+
+    def role_tenant_cost(self, role: Optional[str]) -> Dict[str, int]:
+        """Arrived WFQ cost (integer tokens) per tenant for one role pool
+        (None/'both' = both pools) — the autoscaler's weighted-backlog
+        numerator and the tenant-shed usage table, O(tenants) to read."""
+        out: Dict[str, int] = {}
+        for (r, t), c in self._cost.items():
+            if role in (None, "both") or r == role:
+                out[t] = out.get(t, 0) + c
+        return out
+
+    # --- ordered reads ----------------------------------------------------
+
+    def iter_ready(self, now: int):
+        """Yield arrived entries in placement order (replays first, then
+        WFQ finish tags, ids as tiebreak). The caller may ``remove()`` the
+        yielded entry (a placement); everything merely inspected is
+        restored. New entries pushed DURING iteration (requeue backoffs)
+        are gated into the future, never yielded twice."""
+        self.advance(now)
+        popped = []
+        try:
+            while self._ready:
+                item = heapq.heappop(self._ready)
+                _key, seq, rid = item
+                if self._gen.get(rid) != seq or rid not in self._ready_set:
+                    self._dead = max(self._dead - 1, 0)
+                    continue
+                popped.append(item)
+                yield self._entries[rid]
+        finally:
+            for item in popped:
+                if self._gen.get(item[2]) == item[1]:
+                    heapq.heappush(self._ready, item)
+
+    def newest_victim(self, tenant: str):
+        """Newest (max request id) arrived NON-REPLAY entry of ``tenant``
+        — the tenant-over-budget shed victim; None when the tenant has
+        only replay (or no) arrived entries."""
+        h = self._victims.get(tenant)
+        while h:
+            _nr, seq, rid = h[0]
+            if (self._gen.get(rid) == seq and rid in self._ready_set):
+                return self._entries[rid]
+            heapq.heappop(h)
+            self._dead = max(self._dead - 1, 0)
+        return None
+
+    # --- maintenance ------------------------------------------------------
+
+    def _maybe_compact(self) -> None:
+        if self._dead <= 64 + 3 * len(self._entries):
+            return
+        self._dead = 0
+        self._future = [t for t in self._future
+                        if self._gen.get(t[2]) == t[1]
+                        and t[2] not in self._ready_set]
+        self._ready = [t for t in self._ready
+                       if self._gen.get(t[2]) == t[1]
+                       and t[2] in self._ready_set]
+        heapq.heapify(self._future)
+        heapq.heapify(self._ready)
+        vic = {}
+        for tenant, h in self._victims.items():
+            keep = [t for t in h if self._gen.get(t[2]) == t[1]
+                    and t[2] in self._ready_set]
+            if keep:
+                heapq.heapify(keep)
+                vic[tenant] = keep
+        self._victims = vic

@@ -12,7 +12,10 @@ tokens come from :meth:`SimCausalLM.sim_token`, a fixed function of
 decode block here: a sim engine captures no graph, allocates no device
 tensor and launches no kernel, so long fault storms run on the CPU in
 seconds. Page corruption works (there are no bytes to garble); the host
-tier and snapshots raise, as in the reference.
+tier raises, as in the reference. Unlike the reference's, a sim engine
+snapshots (its scheduler state; there is no device state), so a sim fleet
+drains, parks and restores as a card fleet does: a router's counts on a
+trace are predicted over it.
 """
 
 from __future__ import annotations

@@ -172,7 +172,7 @@ def _make_proposer(draft: CausalLM, num_draft: int, greedy: bool, temperature: f
                         noise[2:3])
 
     sig = f"spec_propose_g{num_draft}_{_mode(greedy, temperature)}"
-    return lambda last_tok, noise: draft._run(sig, body, [last_tok, noise])
+    return lambda last_tok, noise: draft._run(draft._default_state(), sig, body, [last_tok, noise])
 
 
 def _set_lengths(lm: CausalLM, session, length: int) -> None:
@@ -265,7 +265,8 @@ def speculative_generate(target: CausalLM, draft: CausalLM, prompt_ids: np.ndarr
         t_verify = time.perf_counter()
         chunk = torch.cat([torch.full((b, 1), out[-1], dtype=torch.int32, device=dev),
                            toks[:, 0][None, :].expand(b, num_draft)], dim=1)
-        t_logits = target._run(f"spec_verify_s{num_draft + 1}", verify_body, [chunk])
+        t_logits = target._run(target._default_state(), f"spec_verify_s{num_draft + 1}",
+                               verify_body, [chunk])
         if collect_stats:
             _wait(dev)
             verify_times.append(time.perf_counter() - t_verify)
@@ -409,9 +410,10 @@ def speculative_decode_fused(target: CausalLM, draft: CausalLM, prompt_ids: np.n
     if not done_h:
         key = (id(draft), num_draft, rounds_per_block, greedy, float(temperature),
                eos_token_id, pad_token_id, max_new_tokens, bucket)
-        store = getattr(target, "_spec_fused_cache", None)
-        if store is None:
-            store = target._spec_fused_cache = {}
+        # the block is bound to both sessions' buffers: kept on the target's
+        # state, keyed by the draft's
+        store = target._default_state().extras.setdefault("spec_fused", {})
+        key = key + (draft._default_state().index,)
         block = store.get(key)
         if block is None:
             block = store[key] = _compile_block(

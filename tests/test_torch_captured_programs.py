@@ -76,10 +76,10 @@ def test_program_signatures_equal_jax_compile_keys(weights, paged):
 
 
 def test_programs_follow_the_device_state_across_sessions(weights):
-    """Programs built in one session serve the next (the device buffers are
-    reset in place, not reallocated): the results equal a fresh
-    ``CausalLM``'s and nothing is built again; a replaced session raises
-    before any program runs."""
+    """Programs built in one session serve the next that takes over its
+    device state once it is closed (the buffers are reset in place, not
+    reallocated): the results equal a fresh ``CausalLM``'s and nothing is
+    built again; the closed session raises before any program runs."""
     _, tcfg, _, sd = weights
     kw = dict(LM, page_size=4, paged_attn_kernel=True)
     lm = CausalLM(tcfg, sd, tl.LlamaForCausalLM, device="cpu", **kw)
@@ -91,10 +91,11 @@ def test_programs_follow_the_device_state_across_sessions(weights):
     progs = dict(lm._programs)
     keys = dict(lm.capture_ms)
     cache_keys = [t.data_ptr() for t in lm._cache.keys]
+    s1.close()
     s2 = lm.start_session()
-    with pytest.raises(RuntimeError, match="replaced"):
+    with pytest.raises(RuntimeError, match="closed"):
         lm.insert(s1, [1], p1[:1])
-    with pytest.raises(RuntimeError, match="replaced"):
+    with pytest.raises(RuntimeError, match="closed"):
         lm.extend(s1, [0], p1[:1, :4], np.array([4]), np.array([0]),
                   tables=np.zeros((1, 16), np.int32))
     got = lm.insert(s2, [1, 0], p2)

@@ -1031,3 +1031,117 @@ class _Averages(list):
 
     def table(self, **kw):
         return "table"
+
+
+# --- phase 4i: the replica fleet ------------------------------------------------------
+
+
+def _fleet_pass(smoke, label, n):
+    want = dict(smoke.FLEET_PREDICTED.get(label, {}))
+    stats = {k: want.get(k, 0) for k in smoke.FLEET_STAT_KEYS}
+    return dict(stats=stats, submitted=n, completed=want.get("completed", n),
+                rejected=want.get("rejected", 0), blocks=want.get("blocks", 10),
+                host_ops=dict(steady_ok=True, blocks_ok=True, host_ops=[2, 3]),
+                survivor_pages_in_use={1: 0}, dropped=0, attribution_problems=[],
+                attributed=n, nonfinite_logits=0,
+                launches={"flash_block_forward": 4, "paged_decode_attention": 9},
+                router_lanes=["clock", "drain", "faults", "place"])
+
+
+def _fleet_passes(smoke, changes=()):
+    """Fabricated phase-4i passes that every gate accepts, with ``changes``
+    ((path, key) -> value) applied."""
+    z3 = {k: _fleet_pass(smoke, f"z3_{k}", 32) for k in ("disagg", "colocated", "disagg_faults")}
+    z3["disagg"].update(adopted_bytes_equal=True, adopt_checks=32, decode_inserts=0)
+    z3["disagg_faults"].update(corrupt_adopted=0, adopted_bytes_equal=True, adopt_checks=26,
+                               decode_inserts=6)
+    z4 = dict(_fleet_pass(smoke, "z4", 42), device_states=True,
+              scale_events=list(smoke.FLEET_PREDICTED["z4_events"]),
+              time_to_ready_blocks=list(smoke.FLEET_PREDICTED["z4_time_to_ready"]),
+              spawns=[dict(replica=3, warm=False, new_state=True, others_busy=True,
+                           captured={"decode": 240.0}, spawn_ms=900.0, capture_s=0.2)])
+    passes = {"z1": {k: dict(_fleet_pass(smoke, f"z1_{k}", 8), identical=True)
+                     for k in ("sync", "async")},
+              "z2": _fleet_pass(smoke, "z2", 32), "z3": z3, "z4": z4,
+              "z5": dict(identical={"card_router": True, "card_disagg": True, "cpu_router": True,
+                                    "cpu_disagg": True}, greedy_card_equals_cpu=True,
+                         launches={"flash_block_forward": 2, "paged_decode_attention": 5}),
+              "memory": dict(peak_bytes=40 * 2**30, card_bytes=80 * 2**30)}
+    for (path, key), value in dict(changes).items():
+        node = passes
+        for part in path.split("/"):
+            node = node[part]
+        node[key] = value
+    return passes
+
+
+def test_fleet_gates_hold_on_a_good_run(smoke):
+    assert smoke.fleet_gates(_fleet_passes(smoke), smoke.FLEET_PREDICTED) == []
+
+
+@pytest.mark.parametrize("path,key,value,says", [
+    ("z1/sync", "identical", False, "(z1 sync) the router's streams differ"),
+    ("z2", "completed", 31, "(z2) completed 31 + rejected 0 != submitted 32"),
+    ("z2", "stats", "failovers=0", "(z2) failovers 0, the CPU predicted 1"),
+    ("z2", "stats", "affinity_placements=3", "(z2) affinity_placements 3"),
+    ("z2", "stats", "drain_migrated_requests=0", "(z2) drain_migrated_requests 0"),
+    ("z2", "survivor_pages_in_use", {1: 4}, "(z2) survivors hold pages"),
+    ("z2", "router_lanes", ["clock", "place"], "(z2) router lanes"),
+    ("z2", "dropped", 3, "(z2) the tracer dropped 3"),
+    ("z2", "attribution_problems", ["request 4: phases"], "(z2) attribution: request 4"),
+    ("z2", "attributed", 30, "(z2) 30 of 32 requests attributed"),
+    ("z2", "host_ops", dict(steady_ok=False, blocks_ok=True, host_ops=[3]), "host-op contract"),
+    ("z2", "launches", {"paged_decode_attention": 0}, "(z2) never launched"),
+    ("z3/disagg", "stats", "handoffs_degraded=1", "(z3) handoffs sent"),
+    ("z3/disagg", "adopted_bytes_equal", False, "adopted page bytes differ"),
+    ("z3/disagg", "decode_inserts", 2, "a decode worker re-prefilled"),
+    ("z3/disagg_faults", "corrupt_adopted", 1, "a corrupted handoff was adopted"),
+    ("z3/disagg_faults", "stats", "handoffs_degraded=5", "(z3_disagg_faults) handoffs_degraded"),
+    ("z3/colocated", "blocks", 47, "(z3_colocated) blocks 47, the CPU predicted 46"),
+    ("z4", "scale_events", [], "(z4) scale events []"),
+    ("z4", "time_to_ready_blocks", [2], "(z4) time to ready [2]"),
+    ("z4", "spawns", [dict(replica=3, warm=False, new_state=False, others_busy=True,
+                          captured={}, spawn_ms=1.0, capture_s=0.0)], "captured its programs"),
+    ("z5", "identical", {"card_router": False, "cpu_router": True}, "(z5) fp32 fleet streams"),
+    ("z5", "greedy_card_equals_cpu", False, "card vs CPU"),
+    ("memory", "peak_bytes", 81 * 2**30, "above the card's"),
+])
+def test_fleet_gates_catch_each_fault(smoke, path, key, value, says):
+    """A router over one replica that leaves the bare engine's streams, a
+    lost request, a decision the CPU did not predict, pages held after a
+    pass, missing router lanes, tracer drops, an attribution that does not
+    sum, extra host ops, a kernel not launched, a handoff degraded or not
+    adopted byte for byte, a re-prefill on a decode worker, a corrupted
+    handoff adopted, other scale events, a spawn that captured nothing
+    beside live sessions, an fp32 fleet off one engine's streams, or a
+    peak above the card: each fails phase 4i, and the message says which."""
+    passes = _fleet_passes(smoke)
+    if key == "stats":
+        name, n = value.split("=")
+        node = passes
+        for part in path.split("/"):
+            node = node[part]
+        value = dict(node["stats"], **{name: int(n)})
+    problems = smoke.fleet_gates(_fleet_passes(smoke, {(path, key): value}),
+                                 smoke.FLEET_PREDICTED)
+    assert problems and any(says in p for p in problems), problems
+
+
+def test_fleet_predictions_are_the_rehearsals(smoke):
+    """``FLEET_PREDICTED`` is what ``scripts/fleet_rehearsal.py`` prints:
+    (z2)-(z4) over the port's ``SimCausalLM`` at the trace cell's shape,
+    whose gates hold on the rehearsal itself."""
+    import importlib.util as iu
+
+    spec = iu.spec_from_file_location("fleet_rehearsal", ROOT / "scripts" / "fleet_rehearsal.py")
+    rehearsal = iu.module_from_spec(spec)
+    spec.loader.exec_module(rehearsal)
+    from neuronx_distributed_tpu_torch.inference.simlm import SimCausalLM
+
+    sim = SimCausalLM(max_batch=8, buckets=smoke.TRACE_BUCKETS, max_seq_len=4096,
+                      vocab_size=rehearsal.VOCAB, page_size=16, page_pool_pages=8 * 256 + 8)
+    passes = {"z2": smoke.fleet_z2(sim, "cpu", ()), "z3": smoke.fleet_z3(sim, "cpu", ()),
+              "z4": smoke.fleet_z4(sim, "cpu", ())}
+    counts = rehearsal.predicted(passes)
+    assert counts == smoke.FLEET_PREDICTED
+    assert smoke.fleet_gates(passes, counts) == []

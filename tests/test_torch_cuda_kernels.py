@@ -590,9 +590,11 @@ def test_tier_restore_and_repair_under_the_captured_block(cuda, page_dtype):
 
 
 def test_from_snapshot_reuses_the_captured_graph(cuda):
-    """A restored engine on the ``CausalLM`` that took the snapshot replays
-    the decode block captured before (no second capture of it, the same
-    ``session_fused_k4`` program, ``capture_s`` about 0), resumes every
+    """A restored engine on the ``CausalLM`` that took the snapshot, once the
+    snapshotted engine has closed its session, takes over that session's
+    state and replays the decode block captured before (no second capture
+    of it, the same ``session_fused_k4`` program, ``capture_s`` about 0),
+    resumes every
     stream to its budget with finite logits, and keeps the tokens delivered
     before the snapshot. Its re-prefill of the restored streams (one row
     each into the 128 bucket) is an insert signature the first engine never
@@ -611,7 +613,10 @@ def test_from_snapshot_reuses_the_captured_graph(cuda):
     before = {c.request_id: c.tokens.tolist() for c in engine.completed}
     programs, fused = dict(lm.capture_ms), dict(lm._fused)
     assert [k for k in programs if k.startswith("session_fused")] == ["session_fused_k4"]
+    state = engine.session.state
+    engine.close()   # the crashed engine's session ends: its state is the spare
     restored = ServeEngine.from_snapshot(lm, snap)
+    assert restored.session.state is state
     assert restored.capture_s < 0.05 and len(lm._fused) == 1
     restored.run()
     assert lm._fused == fused   # the decode block is the one captured before
@@ -734,10 +739,59 @@ def test_from_snapshot_with_tenants_reuses_the_captured_graph(cuda):
     snap = engine.snapshot()
     assert any(r["adapter"] and r["grammar"] and r["generated"] for r in snap["requests"])
     done = {c.request_id: c.tokens.tolist() for c in engine.completed}
+    engine.close()
     restored = ServeEngine.from_snapshot(lm, snap, adapters=adapters, grammars=_GRAMMARS)
     assert restored.capture_s < 0.05 and len(lm._fused) == 1
     done.update({c.request_id: c.tokens.tolist() for c in restored.run()})
     assert done == oracle
+
+
+def test_two_engines_over_one_causal_lm_on_the_card(cuda):
+    """C9 on the card: two engines over one bf16 ``CausalLM``, stepped in
+    turn block by block, each with its own captured programs in its own
+    session, give the streams each serves alone (the schedule of each is
+    the lone engine's, so bf16 rounding cannot differ); the second
+    captures its decode block while the first holds live slots, and each
+    session's device memory goes when the engines close."""
+    lm = _tier_lm(cuda, None, seed=11)
+    rng = np.random.default_rng(12)
+    work = [[(rng.integers(1, 255, 30 + 11 * i), 10 + i, i // 2) for i in range(4)]
+            for _ in range(2)]
+
+    def streams(engine):
+        return {c.request_id: c.tokens.tolist() for c in engine.completed}
+
+    alone = []
+    for w in work:
+        engine = ServeEngine(lm, block_steps=4, seed=2)
+        for p, budget, arrival in w:
+            engine.submit(p, budget, arrival_block=arrival)
+        engine.run()
+        alone.append(streams(engine))
+        engine.close()
+    a = ServeEngine(lm, block_steps=4, seed=2)
+    for p, budget, arrival in work[0]:
+        a.submit(p, budget, arrival_block=arrival)
+    a.step_block()
+    assert a.session.active.any()
+    b = ServeEngine(lm, block_steps=4, seed=2)   # captures beside a's live slots
+    assert b.session.state is not a.session.state and b.capture_s > 0
+    for p, budget, arrival in work[1]:
+        b.submit(p, budget, arrival_block=arrival)
+    more = [True, True]
+    while any(more):
+        for i, engine in enumerate((a, b)):
+            if more[i]:
+                more[i] = engine.step_block()
+    assert [streams(a), streams(b)] == alone
+    assert a.replays == a.decode_blocks and b.replays == b.decode_blocks
+    assert a.nonfinite_logits == b.nonfinite_logits == 0
+    a.close()              # the spare state
+    torch.cuda.synchronize(cuda)
+    held = torch.cuda.memory_allocated(cuda)
+    b.close()              # freed: one spare is kept
+    torch.cuda.synchronize(cuda)
+    assert held - torch.cuda.memory_allocated(cuda) >= lm.kv_cache_bytes()
 
 
 def test_captured_programs_on_cuda_equal_the_eager_route(cuda):

@@ -146,12 +146,19 @@ def test_steady_block_is_one_replay_and_one_fetch(tiny):
 
 
 def test_a_later_session_ends_the_earlier_one(tiny):
-    """One live session per CausalLM: its graphs are bound to one set of
-    device buffers, which start_session resets."""
+    """Sessions of one CausalLM are independent (each holds its own device
+    state, its graphs bound to its buffers): a later session ends an
+    earlier one only once that one is closed, taking over its state, and
+    the closed session then raises."""
     lm = _lm(tiny, "paged")
     first = lm.start_session()
-    lm.start_session()
-    with pytest.raises(RuntimeError, match="later start_session"):
+    second = lm.start_session()
+    assert second.state is not first.state
+    lm.step(first, np.zeros(4, np.int32))     # still live beside the second
+    state = first.state
+    first.close()
+    assert lm.start_session().state is state
+    with pytest.raises(RuntimeError, match="closed"):
         lm.step(first, np.zeros(4, np.int32))
 
 

@@ -208,6 +208,41 @@ def test_quantization_and_moe_modules_stand_alone():
         assert set(_imported_roots(path)) <= allowed, mod
 
 
+def test_fleet_modules_stand_alone():
+    """The router, disaggregation and the autoscaler are the port's own: the
+    standard library, numpy and the port only (the autoscaler and the
+    router's queue the standard library alone); none imports ``jax`` or
+    the JAX package, not even the reference's host-only modules."""
+    allowed = {"__future__", "collections", "dataclasses", "heapq", "time", "typing", "numpy",
+               "neuronx_distributed_tpu_torch"}
+    for mod, extra in (("inference.router", set()), ("inference.disagg", set()),
+                       ("inference.autoscale", set()), ("inference.schedq", set())):
+        assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
+        path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
+        assert set(_imported_roots(path)) <= allowed | extra, mod
+    for mod in ("inference.autoscale", "inference.schedq"):
+        path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
+        assert set(_imported_roots(path)) <= {"__future__", "dataclasses", "heapq", "typing"}
+
+
+def test_fleet_entry_points_need_the_gpu_or_the_cpu(monkeypatch):
+    """A fleet runs where its ``CausalLM`` runs: with no GPU the model
+    refuses to build on CUDA, and a CPU model's replicas, handoffs and
+    spawned sessions all stay on the CPU (nothing moves quietly)."""
+    from neuronx_distributed_tpu_torch.inference.disagg import DisaggRouter
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, params, model_cls = _tiny_lm_args()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CausalLM(cfg, params, model_cls, buckets=(8,), page_size=4)
+    lm = CausalLM(cfg, params, model_cls, buckets=(8,), page_size=4, max_batch=2, device="cpu")
+    router = DisaggRouter(lm, 2, prefill_replicas=1, block_steps=2)
+    router.submit(np.arange(1, 7, dtype=np.int32), 4)
+    router.run()
+    assert router.stats["handoffs_adopted"] == 1 and len(router.completed) == 1
+    assert all(e.session.state.cache.keys[0].device.type == "cpu" for e in router.engines)
+
+
 def test_int8_mixtral_needs_the_gpu_or_the_cpu_and_cpu_tensors_take_b5s_twin(monkeypatch):
     """A Mixtral ``CausalLM`` on an int8 dict raises without a GPU unless
     asked for the CPU; there every int8 product runs B5's twin and counts no

@@ -63,10 +63,9 @@ TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_layers=2,
 LM = dict(buckets=(8, 16), max_batch=3)
 K = 4
 ODD_LABEL = 'we"ird\\label\nx}'
-# JAX families of features the port does not have yet (the disaggregation
-# handoff), and the compile gauge, which the port fills from CUDA-graph
-# captures (none on the CPU)
-LEFT_OUT = {"serve_handoff_adopt_ms", "serve_handoffs_sent", "serve_handoffs_adopted"}
+# JAX families of features the port does not have yet: none since the
+# disaggregation handoff's counters and histogram were ported
+LEFT_OUT = set()
 
 
 # --- metrics -------------------------------------------------------------------

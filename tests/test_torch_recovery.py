@@ -310,8 +310,10 @@ def test_port_snapshot_restores_in_jax(stack):
 def test_snapshot_refuses_what_is_not_ported(stack):
     """A snapshot whose request, live or parked, names an adapter the
     restoring ``CausalLM`` has no pool for is refused, and so is an unknown
-    version; a sim engine has nothing to snapshot. (Parked conversations
-    are ported: ``tests/test_torch_park.py`` restores them.)"""
+    version. (Parked conversations are ported: ``tests/test_torch_park.py``
+    restores them. A sim engine snapshots its scheduler state, unlike the
+    reference's, so that a sim fleet drains: its snapshot restores into a
+    sim engine that serves the request's tokens.)"""
     src = _engine(stack["paged"])
     src.submit(_prompts(1)[0], 4)
     snap = src.snapshot()
@@ -325,10 +327,13 @@ def test_snapshot_refuses_what_is_not_ported(stack):
         ServeEngine.from_snapshot(stack["paged"], parked)
     with pytest.raises(ValueError, match="version"):
         ServeEngine.from_snapshot(stack["paged"], {**snap, "version": 2})
-    sim = ServeEngine(SimCausalLM(max_batch=2, buckets=(8,), page_size=4, page_pool_pages=16),
-                      block_steps=K)
-    with pytest.raises(ValueError, match="sim engines"):
-        sim.snapshot()
+    sim_lm = SimCausalLM(max_batch=2, buckets=(8,), page_size=4, page_pool_pages=16)
+    sim = ServeEngine(sim_lm, block_steps=K)
+    rid = sim.submit(_prompts(1)[0], 6)
+    sim_snap = json.loads(json.dumps(sim.snapshot()))
+    assert [r["state"] for r in sim_snap["requests"]] == ["queued"]
+    restored = ServeEngine.from_snapshot(sim_lm, sim_snap)
+    assert restored.run()[0].tokens.tolist() == [sim_lm.sim_token(rid, t) for t in range(6)]
 
 
 # --- the pipelined loop drains, then retires ---------------------------------------

@@ -148,6 +148,25 @@ Phases, each fatal on failure (exit code 1, no result line):
            card's memory. Printed: weight bytes, tok/s, decode block and
            step ms, B5's launches by route, the share of int8 tokens equal
            to the bf16 pass's;
+4j. tp     tensor-parallel serving: (t1) the serve workload on the serve
+           weights without a group and through ``initialize_model_parallel(1)``
+           over a real NCCL group of one rank, its collectives inside the
+           captured decode blocks: bit-identical streams, a steady block 2
+           host ops, and one profiled replay holding at least a copy a step
+           beyond the plain block's (at one rank NCCL launches no kernel of
+           its own: its all-gather is a device copy, its in-place
+           all-reduce nothing); (t2) two
+           processes on the one card, each a rank of a gloo group
+           (``capture_programs=False``, ``fused=False``): a small fp32 model
+           whose greedy streams must equal TP=1's and logits agree within
+           ``TP_SMALL_TOL``, then Llama-3-8B at full width sharded over the
+           two ranks serving the workload: every request completes, the
+           ranks' digests of streams and decisions agree, each rank holds
+           at most 0.55 of TP=1's KV and weight bytes, B1 and B2 launch on
+           each rank at its 16/4 heads and are held against their twins
+           there. Printed: both decode block times of (t1), (t2)'s token
+           match against (t1) (not gated: a bf16 all-reduce sums in another
+           order), the gathered page read, the card's peak;
 5. train   Llama-3-8B widths cut to 4 layers (bf16 weights, fp32 master
            AdamW, clipping, activation checkpointing, the optimizer kernel)
            on a repeated 2 x 4096-token batch: 2 warm-up steps, then 5 timed
@@ -170,6 +189,7 @@ and the card's name and power limit; the last line is
 from __future__ import annotations
 
 import collections
+import dataclasses
 import gc
 import json
 import math
@@ -1752,7 +1772,7 @@ def serve(cfg, dev, counters, block_steps=8, max_batch=8, profile_path=None, par
         page_dtype=page_dtype or str(cfg.dtype).replace("torch.", ""),
         requests=len(done), generated_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
         ttft_s_p50=ttft[len(ttft) // 2], ttft_s_max=ttft[-1], setup_s=setup_s,
-        capture_s=capture_s, kv_pool_bytes=lm.kv_cache_bytes(),
+        capture_s=capture_s, kv_pool_bytes=lm.kv_cache_bytes()["kv_bytes"],
         decode_blocks=engine.decode_blocks, replays=engine.replays,
         host_fetches=engine.host_fetches, h2d_copies=engine.h2d_copies,
         host_ops_per_block=host_ops / engine.decode_blocks,
@@ -3961,7 +3981,7 @@ def quant_pass(lm, dev, counters, prompts, max_new=MAX_NEW_TOKENS, reference=Non
               tokens_per_s=tokens / wall, ttft_s_p50=ttft[len(ttft) // 2],
               decode_block_ms=block_ms,
               decode_step_ms=block_ms and block_ms / QUANT_BLOCK_STEPS,
-              stepwise_wall_s=step_wall, kv_pool_bytes=lm.kv_cache_bytes(),
+              stepwise_wall_s=step_wall, kv_pool_bytes=lm.kv_cache_bytes()["kv_bytes"],
               launches=launches, launches_by_route=routes, streams=streams, **{k: hs[k] for k in (
                   "host_ops_per_block", "steady_blocks")})
     if reference is not None:
@@ -4939,7 +4959,7 @@ def run_fleet_phase(lm, dev, counters) -> dict:
     passes["z5"] = fleet_z5(dev, counters)
     passes["memory"] = dict(peak_bytes=torch.cuda.max_memory_allocated(),
                             card_bytes=torch.cuda.get_device_properties(0).total_memory,
-                            session_kv_bytes=lm.kv_cache_bytes())
+                            session_kv_bytes=lm.kv_cache_bytes()["kv_bytes"])
     passes["captures"] = [dict(state=s, signature=sig, ms=ms) for s, sig, ms in lm.captures]
     passes["wall_s"] = time.perf_counter() - t0
     problems = fleet_gates(passes, FLEET_PREDICTED)
@@ -4949,6 +4969,447 @@ def run_fleet_phase(lm, dev, counters) -> dict:
     for st in (passes["z2"], *passes["z3"].values(), passes["z4"]):
         st.pop("streams", None)
     return passes
+
+
+# --- phase 4j: tensor-parallel serving ----------------------------------------------------
+
+TP_WORLD = 2                  # (t2): two ranks, one process each, on the one card
+TP_TIMEOUT_S = 300            # every group's timeout: a dead rank fails its peer's collective
+TP_CHILD_TIMEOUT_S = 900      # the parent's wait for the (t2) processes
+TP_SMALL_TOL = 1e-4           # (t2) small fp32 model: |logit| vs TP=1
+TP_SHARE_MAX = 0.55           # (t2) per-rank KV and weight bytes against TP=1's
+TP_LAYERS = None              # (t2) llama3_8b depth (None: all 32 layers)
+TP_SMALL_LENS = (40, 150, 200, 7)
+TP_SMALL_NEW = 16
+TP_SMALL_LM = dict(buckets=(128, 256), max_batch=4, page_size=16, paged_attn_kernel=True)
+TP_SERVE_LM = dict(buckets=(128, 512), max_batch=8, page_size=16, paged_attn_kernel=True)
+TP_LOCAL_HEADS = (16, 4)      # llama3_8b's query and KV heads on each of two ranks
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def tp_digest(streams: dict, decisions: dict) -> str:
+    """A rank's streams and decisions as one digest (equal on every rank
+    that ran the same schedule)."""
+    import hashlib
+
+    blob = json.dumps({"streams": {str(k): v for k, v in sorted(streams.items())},
+                       "decisions": {str(k): v for k, v in sorted(decisions.items())}},
+                      sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def tp_small_prompts(vocab: int):
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    return [rng.integers(1, vocab, n).astype(np.int32) for n in TP_SMALL_LENS]
+
+
+def tp_small_pass(lm) -> dict:
+    """The small fp32 model's check: the logits of one insert of two
+    prompts, and greedy streams of ``TP_SMALL_LENS`` prompts served step by
+    step (``fused=False``)."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+
+    prompts = tp_small_prompts(lm.config.vocab_size)
+    sess = lm.start_session()
+    two = np.zeros((2, TP_SMALL_LENS[1]), np.int32)
+    for i, p in enumerate(prompts[:2]):
+        two[i, :p.size] = p
+    logits = lm.insert(sess, np.arange(2), two, lengths=[p.size for p in prompts[:2]])
+    logits = logits.float().cpu().numpy()
+    sess.close()
+    engine = ServeEngine(lm, block_steps=4, fused=False)
+    for p in prompts:
+        engine.submit(p, TP_SMALL_NEW)
+    done = engine.run()
+    engine.close()
+    return dict(logits=logits.tolist(), streams={c.request_id: c.tokens.tolist() for c in done})
+
+
+def tp_serve_pass(lm, dev, counters, fused: bool) -> dict:
+    """The serve workload (``SERVE_PROMPT_LENS``, ``MAX_NEW_TOKENS`` each)
+    on ``lm`` behind one engine, the counters zeroed just before ``run()``
+    and read just after; a throwaway engine warms up (captures) first."""
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+
+    warm = ServeEngine(lm, block_steps=8, fused=fused)
+    warm.submit(serve_prompts(lm.config.vocab_size, seed=6)[0][:130], 4)
+    warm.run()
+    warm.close()
+    engine = ServeEngine(lm, block_steps=8, fused=fused)
+    for i, p in enumerate(serve_prompts(lm.config.vocab_size)):
+        engine.submit(p, MAX_NEW_TOKENS, arrival_block=1 if i == 3 else 0)
+    ops = count_host_ops(engine) if fused else []
+    zero_launches(counters)
+    _sync(dev)
+    t0 = time.perf_counter()
+    done = engine.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    streams = {c.request_id: c.tokens.tolist() for c in done}
+    decisions = {c.request_id: [c.finish_reason, int(c.queue_blocks), int(c.decode_blocks)]
+                 for c in done}
+    out = dict(requests=len(done), generated_tokens=sum(len(t) for t in streams.values()),
+               wall_s=wall, decode_blocks=engine.decode_blocks, launches=launches,
+               streams=streams, digest=tp_digest(streams, decisions),
+               kv_bytes=lm.kv_cache_bytes(), nonfinite=engine.nonfinite_logits,
+               weight_bytes=sum(nbytes(t) for t in lm.model.state_dict().values()))
+    out["tokens_per_s"] = out["generated_tokens"] / wall
+    if fused:
+        out.update(host_op_stats(ops))
+        out["decode_block_ms"] = replay_ms(engine._fused)
+        out["engine"] = engine   # the caller profiles one more replay, then drops it
+    else:
+        engine.close()
+    return out
+
+
+def replay_activities(engine) -> dict:
+    """Device activities (name -> count) of one more replay of ``engine``'s
+    captured decode block under ``torch.profiler`` (every slot idle by now:
+    the writes land in scratch pages)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine._fused.program.replay()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def tp_t1(cfg, dev, params, counters) -> dict:
+    """(t1): the serve workload on ``cfg`` without a group, then through
+    ``initialize_model_parallel(1)`` over a real NCCL group of one rank, each
+    decode block one replay of the captured fused block (the group's
+    collectives inside it). One more replay of each engine's block runs
+    under ``torch.profiler``: the NCCL block's device work beyond the plain
+    block's is the collectives' (at one rank NCCL launches no kernel of its
+    own: an in-place all-reduce is a no-op, an all-gather one device copy)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+
+    out = {}
+    lm = CausalLM(cfg, params, LlamaForCausalLM, device=dev, **TP_SERVE_LM)
+    out["plain"] = tp_serve_pass(lm, dev, counters, fused=True)
+    engine = out["plain"].pop("engine")
+    plain = replay_activities(engine)
+    engine.close()
+    del engine, lm
+    gc.collect()
+    timeout = datetime.timedelta(seconds=TP_TIMEOUT_S)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1, timeout=timeout)
+    try:
+        group = mesh.initialize_model_parallel(1, timeout=timeout).groups["tp"]
+        # the communicator forms at its first collective: an eager one, before any capture
+        mappings.all_reduce(torch.ones(1, device=dev), group)
+        _sync(dev)
+        lm = CausalLM(cfg, params, LlamaForCausalLM, device=dev, tp_group=group, **TP_SERVE_LM)
+        st = out["nccl"] = tp_serve_pass(lm, dev, counters, fused=True)
+        engine = st.pop("engine")
+        acts = replay_activities(engine)
+        st["collective_work"] = {k[:60]: n - plain.get(k, 0) for k, n in acts.items()
+                                 if n > plain.get(k, 0)}
+        st["nccl_kernels"] = {k[:60]: n for k, n in acts.items()
+                              if "nccl" in k.lower() or "onerank" in k.lower()}
+        st["block_steps"] = engine.block_steps
+        st["group_backend"] = mesh.group_backend(group)
+        engine.close()
+        del engine, lm
+    finally:
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+        gc.collect()
+    return out
+
+
+def tp_child(rank: int, world: int, port: int, out_path: str, layers=None) -> int:
+    """One rank of (t2), a process of its own on ``cuda:0`` over gloo:
+    the small fp32 model's check, then ``llama3_8b`` (full width, ``layers``
+    deep) on its shard, the serve workload step by step; its digest is
+    all-gathered and every rank's written with its readings to
+    ``out_path``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+    from neuronx_distributed_tpu_torch.inference.paged_kernel import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+    from neuronx_distributed_tpu_torch.kernels import _build
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_block_forward_plain,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+
+    dev = "cuda:0"
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timeout = datetime.timedelta(seconds=TP_TIMEOUT_S)
+    t0 = time.perf_counter()
+    mesh.init_distributed("gloo", rank=rank, world_size=world, local_rank=0,
+                          init_method=f"tcp://localhost:{port}", timeout=timeout)
+    group = mesh.initialize_model_parallel(world, timeout=timeout).groups["tp"]
+    _build.build()
+    res = dict(rank=rank, backend=mesh.group_backend(group), startup_s=time.perf_counter() - t0)
+    lm_kw = dict(device=dev, tp_group=group, capture_programs=False)
+    small = small_config()
+    sd = init_params(small, torch.Generator(device=dev).manual_seed(0), device=dev,
+                     tp_rank=rank, tp_size=world)
+    res["small"] = tp_small_pass(CausalLM(small, sd, LlamaForCausalLM, **lm_kw, **TP_SMALL_LM))
+    cfg = serve_config()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    t1 = time.perf_counter()
+    sd = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                     tp_rank=rank, tp_size=world)
+    lm = CausalLM(cfg, sd, LlamaForCausalLM, **lm_kw, **TP_SERVE_LM)
+    del sd
+    res["setup_s"] = time.perf_counter() - t1
+    with torch.device("meta"):   # the same model at TP=1: its bytes
+        res["weight_bytes_tp1"] = sum(nbytes(t) for t in LlamaForCausalLM(cfg).state_dict().values())
+    res["layers"] = cfg.num_layers
+    qkv = lm.model.model.layers[0].attention.qkv
+    res["local_heads"] = [qkv.num_heads, qkv.num_kv_heads]
+    counters = (flash_block_forward, paged_decode_attention)
+    st = tp_serve_pass(lm, dev, counters, fused=False)
+    # every rank's digest, gathered over the group
+    mine = torch.tensor([int(st["digest"], 16)], dtype=torch.int64)
+    st["digests"] = [format(int(v), "016x")
+                     for v in mappings._all_gather(mine, 0, group).tolist()]
+    # the page I/O's gather: a read of 4 pages at full width, median of 3
+    eng = ServeEngine(lm, block_steps=8, fused=False)
+    times = []
+    for _ in range(3):
+        _sync(dev)
+        ta = time.perf_counter()
+        pages = eng._read_pages_bytes([1, 2, 3, 4])
+        times.append((time.perf_counter() - ta) * 1e3)
+    st["page_read_ms"] = sorted(times)[1]
+    st["page_shape"] = list(pages[0]["keys"].shape)
+    eng.close()
+    res["serve"] = st
+    # B1 and B2 at this rank's heads, each against its twin (not counted)
+    h, hk = res["local_heads"]
+    q, k, v, qp, kp, _, _ = flash_case(dev, h=h, hk=hk)
+    args = (q, k, v, qp, kp, q.shape[-1] ** -0.5, 64, 64, h // hk, h)
+    got, _ = flash_block_forward(*args)
+    ref, _ = flash_block_forward_plain(*args)
+    b1 = float((got.float() - ref.float()).abs().max())
+    pargs, kw = paged_case(dev, "bf16", n_q=h, n_kv=hk)
+    r = held(paged_decode_attention(*pargs, **kw), paged_decode_attention_plain(*pargs, **kw),
+             TOL_PAGED_FLOOR, exact=decode_exact(*pargs, **kw))
+    res["held"] = dict(flash_fwd=dict(shape=f"q {tuple(q.shape)}, k/v {tuple(k.shape)}",
+                                      max_abs_err=b1, tolerance=TOL_FLASH_BF16),
+                       paged_decode=dict(shape=f"q {tuple(pargs[0].shape)}, pools "
+                                         f"{tuple(pargs[1].shape)}", **r))
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["wall_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(res))
+    mesh.destroy_model_parallel()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_t2(dev, layers=None) -> dict:
+    """(t2): :func:`tp_child` as ``TP_WORLD`` processes on the one card,
+    each a rank of a gloo group; the card's used memory polled while they
+    run. A rank that fails or outlives ``TP_CHILD_TIMEOUT_S`` fails the
+    phase (every process is stopped)."""
+    import torch
+
+    port = _free_port()
+    free0, total = torch.cuda.mem_get_info()
+    peak_used = total - free0
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(TP_WORLD)]
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-world", str(TP_WORLD),
+               "--tp-port", str(port)] + (["--tp-layers", str(layers)] if layers else [])
+        procs = [subprocess.Popen(cmd + ["--tp-rank", str(r), "--tp-out",
+                                         str(Path(tmp) / f"rank{r}.json")],
+                                  cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(TP_WORLD)]
+        t0 = time.perf_counter()
+        try:
+            while any(p.poll() is None for p in procs):
+                if time.perf_counter() - t0 > TP_CHILD_TIMEOUT_S:
+                    raise SmokeFailure(f"tp phase: the ranks ran past {TP_CHILD_TIMEOUT_S} s")
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break   # one rank failed: its peer fails at the group's timeout
+                free, _ = torch.cuda.mem_get_info()
+                peak_used = max(peak_used, total - free)
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        wall = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                tail = (Path(tmp) / f"rank{r}.log").read_text()[-3000:]
+                raise SmokeFailure(f"tp phase: rank {r} exited {p.returncode}:\n{tail}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(TP_WORLD)]
+    return dict(ranks=ranks, wall_s=wall, card_peak_used_bytes=peak_used, card_bytes=total,
+                layers=layers)
+
+
+def tp_gates(t1: dict, t2: dict, small_ref: dict) -> list:
+    """Phase 4j's hard gates, as a list of problems (empty: pass)."""
+    import numpy as np
+
+    bad = []
+    nc, pl = t1["nccl"], t1["plain"]
+    if nc["streams"] != pl["streams"]:
+        bad.append("(t1) streams through the NCCL group differ from the plain ones")
+    if nc.get("group_backend") != "nccl":
+        bad.append(f"(t1) the group's backend is {nc.get('group_backend')}")
+    for name, st in (("nccl", nc), ("plain", pl)):
+        if not (st["steady_blocks"] and st["steady_ok"]):
+            bad.append(f"(t1 {name}) steady decode blocks are not 2 host ops: {st['host_ops']}")
+        if st["requests"] != len(SERVE_PROMPT_LENS) or st["nonfinite"]:
+            bad.append(f"(t1 {name}) {st['requests']} requests, {st['nonfinite']} non-finite")
+    # the logits' all-gather alone is one device copy a step
+    if sum(nc.get("collective_work", {}).values()) < nc.get("block_steps", 1):
+        bad.append(f"(t1) the replay through the NCCL group holds no more device work than "
+                   f"the plain block's: {nc.get('collective_work')}")
+    for rk in t2["ranks"]:
+        r, sm, st = rk["rank"], rk["small"], rk["serve"]
+        if rk.get("backend") != "gloo":
+            bad.append(f"(t2 rank {r}) group backend {rk.get('backend')}")
+        if {int(k): v for k, v in sm["streams"].items()} != {
+                int(k): v for k, v in small_ref["streams"].items()}:
+            bad.append(f"(t2 rank {r}) small-model greedy streams differ from TP=1's")
+        err = float(np.abs(np.asarray(sm["logits"]) - np.asarray(small_ref["logits"])).max())
+        rk["small_logits_max_abs_err"] = err
+        if not err <= TP_SMALL_TOL:
+            bad.append(f"(t2 rank {r}) small-model logits differ from TP=1's by {err}")
+        if st["requests"] != len(SERVE_PROMPT_LENS) or st["generated_tokens"] != (
+                len(SERVE_PROMPT_LENS) * MAX_NEW_TOKENS) or st["nonfinite"]:
+            bad.append(f"(t2 rank {r}) {st['requests']} requests, {st['generated_tokens']} "
+                       f"tokens, {st['nonfinite']} non-finite")
+        if len(set(st["digests"])) != 1 or st["digests"][r] != st["digest"]:
+            bad.append(f"(t2 rank {r}) digests differ across ranks: {st['digests']}")
+        # TP=1's footprint of the same model: kv_bytes_global, the TP=1 model's bytes
+        kv, kv1 = st["kv_bytes"]["kv_bytes"], st["kv_bytes"]["kv_bytes_global"]
+        if not kv <= TP_SHARE_MAX * kv1:
+            bad.append(f"(t2 rank {r}) kv_bytes {kv} against TP=1's {kv1}")
+        if not st["weight_bytes"] <= TP_SHARE_MAX * rk["weight_bytes_tp1"]:
+            bad.append(f"(t2 rank {r}) weight bytes {st['weight_bytes']} against TP=1's "
+                       f"{rk['weight_bytes_tp1']}")
+        if tuple(rk["local_heads"]) != TP_LOCAL_HEADS:
+            bad.append(f"(t2 rank {r}) local heads {rk['local_heads']}")
+        for name in ("flash_block_forward", "paged_decode_attention"):
+            if not st["launches"].get(name):
+                bad.append(f"(t2 rank {r}) {name} never launched")
+        hb = rk["held"]
+        if not hb["flash_fwd"]["max_abs_err"] <= TOL_FLASH_BF16:
+            bad.append(f"(t2 rank {r}) B1 at local heads differs from its twin by "
+                       f"{hb['flash_fwd']['max_abs_err']}")
+        if not hb["paged_decode"]["ok"]:
+            bad.append(f"(t2 rank {r}) B2 at local heads is not held: {hb['paged_decode']}")
+    if len({rk["serve"]["digest"] for rk in t2["ranks"]}) != 1:
+        bad.append("(t2) the ranks' digests differ")
+    return bad
+
+
+def run_tp_phase(cfg, dev, params, counters, layers=TP_LAYERS) -> dict:
+    """Phase 4j: (t1) on the serve weights, the small model's TP=1
+    reference on the card, then (t2) with this process holding no model
+    or session, and :func:`tp_gates`."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
+
+    t0 = time.perf_counter()
+    out = {"t1": tp_t1(cfg, dev, params, counters)}
+    small = small_config()
+    sd = init_params(small, torch.Generator(device=dev).manual_seed(0), device=dev)
+    small_ref = tp_small_pass(CausalLM(small, sd, LlamaForCausalLM, device=dev,
+                                       capture_programs=False, **TP_SMALL_LM))
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["t2"] = tp_t2(dev, layers)
+    problems = tp_gates(out["t1"], out["t2"], small_ref)
+    ref = out["t1"]["plain"]["streams"]
+    for rk in out["t2"]["ranks"]:
+        got = {int(k): v for k, v in rk["serve"].pop("streams").items()}
+        # against (t1) when both ran the same depth
+        if rk["layers"] == cfg.num_layers:
+            rk["serve"]["token_match_tp1"] = _token_match(got, ref)
+        rk["small"].pop("logits")
+    out["phase_s"] = time.perf_counter() - t0
+    if problems:
+        print_tp(out, card_line())
+    check(not problems, "tp phase: " + "; ".join(problems))
+    for st in out["t1"].values():
+        st.pop("streams")
+    return out
+
+
+def print_tp(tp: dict, card: str) -> None:
+    nc, pl = tp["t1"]["nccl"], tp["t1"]["plain"]
+    print(f"tp (t1): llama3_8b full width, serve workload, captured fused blocks: decode block "
+          f"ms {nc['decode_block_ms']} through initialize_model_parallel(1) over NCCL against "
+          f"{pl['decode_block_ms']} without a group; {nc['tokens_per_s']:.1f} against "
+          f"{pl['tokens_per_s']:.1f} tok/s; streams bit-identical "
+          f"{nc['streams'] == pl['streams'] if 'streams' in nc else True}; host ops a block "
+          f"{nc['host_ops']}; one replay's device work beyond the plain block's "
+          f"{json.dumps(nc['collective_work'])} (NCCL's own kernels "
+          f"{json.dumps(nc['nccl_kernels'])}); "
+          f"launches {nc['launches']} and {pl['launches']} [{card}]", flush=True)
+    t2 = tp["t2"]
+    for rk in t2["ranks"]:
+        st = rk["serve"]
+        print(f"tp (t2) rank {rk['rank']}: gloo, capture_programs=False, fused=False; small fp32 "
+              f"model greedy streams equal TP=1's, logits max |diff| "
+              f"{rk.get('small_logits_max_abs_err', 'n/a')} (tol {TP_SMALL_TOL}); llama3_8b full "
+              f"width, {rk['layers']} layers, heads {rk['local_heads']}: "
+              f"{st['requests']} requests, {st['generated_tokens']} tokens in "
+              f"{st['wall_s']:.3f} s = {st['tokens_per_s']:.1f} tok/s, kv bytes "
+              f"{json.dumps(st['kv_bytes'])}, weight bytes {st['weight_bytes']} (TP=1 "
+              f"{rk['weight_bytes_tp1']}), digest "
+              f"{st['digest']} (all {st['digests']}), tokens equal to (t1)'s "
+              f"{st.get('token_match_tp1', 'n/a')}, page read (4 pages, gathered) "
+              f"{st['page_read_ms']:.2f} ms {st['page_shape']}, launches {st['launches']}, B1 "
+              f"held max |err| {rk['held']['flash_fwd']['max_abs_err']:.3g} at "
+              f"{rk['held']['flash_fwd']['shape']}, B2 max |err| "
+              f"{rk['held']['paged_decode']['max_abs_err']:.3g} at "
+              f"{rk['held']['paged_decode']['shape']}, peak {rk['peak_bytes']} bytes, set-up "
+              f"{rk['setup_s']:.1f} s, process {rk['wall_s']:.1f} s [{card}]", flush=True)
+    print(f"tp (t2): {len(t2['ranks'])} processes on one card in {t2['wall_s']:.1f} s, card peak "
+          f"used {t2['card_peak_used_bytes']} of {t2['card_bytes']} bytes; phase "
+          f"{tp['phase_s']:.1f} s [{card}]", flush=True)
 
 
 def train_batch(vocab: int, batch: int, seq: int, dev, seed: int = 7) -> dict:
@@ -5115,6 +5576,12 @@ def main(argv=None) -> int:
                         help="also serve the workload and take one training step under "
                              "torch.profiler; write their kernel tables to PATH and to PATH "
                              "with _train added to its name")
+    # one rank of phase 4j's (t2), started by the phase itself
+    parser.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-world", type=int, default=TP_WORLD, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-layers", type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5127,6 +5594,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: imported the port from {port.__file__}, not from {ROOT}",
               file=sys.stderr)
         return 1
+    if args.tp_rank is not None:
+        return tp_child(args.tp_rank, args.tp_world, args.tp_port, args.tp_out, args.tp_layers)
     from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
     from neuronx_distributed_tpu_torch.kernels import _build
     from neuronx_distributed_tpu_torch.kernels.flash_attn import (
@@ -5311,6 +5780,9 @@ def main(argv=None) -> int:
     lm = trace_lm(cfg, dev, params)
     fleet = run_fleet_phase(lm, dev, serve_counters)
     del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = run_tp_phase(cfg, dev, params, serve_counters)
     gc.collect()
     torch.cuda.empty_cache()
     b1 = (flash_block_forward,)
@@ -5574,6 +6046,7 @@ def main(argv=None) -> int:
               + "; ".join(f"{t['name'][:48]} {t['ms']:.1f} ms x{t['calls']}"
                           for t in prof["top"][:6]) + f" [{card}]", flush=True)
     print_fleet(fleet, card)
+    print_tp(tp, card)
     # the serve phase's weights and page pool go before training
     gc.collect()
     torch.cuda.empty_cache()
@@ -5604,6 +6077,8 @@ def main(argv=None) -> int:
                "fleet_z2": fleet["z2"]["launches"],
                **{f"fleet_z3_{label}": st["launches"] for label, st in fleet["z3"].items()},
                "fleet_z4": fleet["z4"]["launches"], "fleet_z5": fleet["z5"]["launches"],
+               **{f"tp_t1_{name}": st["launches"] for name, st in tp["t1"].items()},
+               **{f"tp_t2_rank{rk['rank']}": rk["serve"]["launches"] for rk in tp["t2"]["ranks"]},
                **{f"program_eager_{label}": st["launches"]
                   for label, st in eager["passes"].items()},
                "speculation": spec["launches"], "medusa": medusa["launches"],
@@ -5649,6 +6124,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
                       "programs": eager, "speculation": spec, "medusa": medusa, "bundle": bundle,
                       "recovery": recovery, "tenants": tenants, "park": park, "fleet": fleet,
+                      "tp": tp,
                       "quant": quant,
                       "train": tstats,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,

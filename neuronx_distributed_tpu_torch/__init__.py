@@ -3,7 +3,8 @@
 The JAX package beside this one is the reference; each module here mirrors
 the JAX module of the same path and name. The serving path runs
 ``ServeEngine`` -> ``CausalLM`` -> Llama or Mixtral -> attention, the MoE
-block and the int8 weight product; the training path runs
+block and the int8 weight product, on one device or sharded over
+tensor-parallel ranks (``parallel.mesh``); the training path runs
 ``initialize_parallel_model`` -> ``initialize_parallel_optimizer`` ->
 ``create_train_state`` -> ``make_train_step`` -> ``LlamaForCausalLM.loss``
 on one device. Their kernels (flash attention forward and backward, paged

@@ -8,11 +8,26 @@ import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
 
+# the local rank of a process-per-rank launch (``parallel.mesh.init_distributed``)
+_LOCAL_RANK: Optional[int] = None
+
+
+def bind_local_rank(local_rank: Optional[int]) -> None:
+    """This process's rank on its host: the default device becomes
+    ``cuda:{local_rank}``."""
+    global _LOCAL_RANK
+    _LOCAL_RANK = None if local_rank is None else int(local_rank)
+
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``cuda`` unless the caller names another device. Asking for CUDA
+    """``cuda`` unless the caller names another device; in a
+    process-per-rank launch (a bound local rank) the rank's own card
+    ``cuda:{local_rank}``, made the current device. Asking for CUDA
     (explicitly or by default) on a machine without a GPU raises: the port
     never falls back to the CPU on its own."""
+    bound = device is None and _LOCAL_RANK is not None
+    if bound:
+        device = f"cuda:{_LOCAL_RANK}"
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -20,6 +35,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "plain PyTorch path on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if bound:
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"local rank {_LOCAL_RANK} has no card: "
+                               f"{torch.cuda.device_count()} visible; name the device")
+        torch.cuda.set_device(dev)
     return dev
 
 

@@ -7,6 +7,14 @@ under ``model.layers.{i}``. Kernels keep their ``(in, out)`` and
 ``(hidden, heads, head_dim)`` layouts, so the mapping is a rename plus an
 unstack. ``lm_head/kernel`` is absent when ``tie_word_embeddings`` is set.
 
+Tensor parallelism: ``llama_params_from_jax`` and ``lora_params_from_jax``
+take ``tp_rank``/``tp_size`` and return that rank's shard, cut where the
+port's TP layers shard (``parallel/layers.py``): the embedding's and
+``lm_head``'s vocabulary, the Q/K/V heads, ``o_proj``'s and
+``down_proj``'s fan-in, ``gate_proj``'s and ``up_proj``'s fan-out; an
+adapter's ``A`` over fan-in on ``o_proj``/``down_proj`` and its ``B`` over
+fan-out elsewhere.
+
 ``lora_params_from_jax`` carries an ``init_lora`` adapter tree over the same
 way: keyed by the full flax path, a leading layer axis on stacked kernels,
 into the port's per-layer tree keyed by the port's weight names.
@@ -33,6 +41,12 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from neuronx_distributed_tpu_torch.inference.partition import (
+    ROW_PARALLEL_TARGETS,
+    dim_spec,
+    shard_slice,
+)
 
 # flax path under model/layers/block -> port name under model.layers.{i}
 _LAYER_LEAVES = {
@@ -125,12 +139,34 @@ def _params_from_jax(tree: Mapping[str, Any], leaves: Mapping[tuple, str],
     return out
 
 
-def llama_params_from_jax(tree: Mapping[str, Any],
-                          tie_word_embeddings: bool = False) -> Dict[str, torch.Tensor]:
+# the sharded dim of each weight of the port's Llama at TP > 1, by name suffix
+_TP_DIMS = {"embed.embedding": 0, "qkv.q_kernel": 1, "qkv.k_kernel": 1, "qkv.v_kernel": 1,
+            "o_proj.kernel": 0, "gate_proj.kernel": 1, "up_proj.kernel": 1,
+            "down_proj.kernel": 0, "lm_head.kernel": 1}
+
+
+def _tp_dim(name: str, kv_size_multiplier: int):
+    for suffix, dim in _TP_DIMS.items():
+        if name.endswith(suffix):
+            # compact K/V kernels repeated in the forward stay replicated
+            if kv_size_multiplier > 1 and suffix in ("qkv.k_kernel", "qkv.v_kernel"):
+                return None
+            return dim
+    return None
+
+
+def llama_params_from_jax(tree: Mapping[str, Any], tie_word_embeddings: bool = False,
+                          tp_rank: int = 0, tp_size: int = 1,
+                          kv_size_multiplier: int = 1) -> Dict[str, torch.Tensor]:
     """Flax Llama params (``{"model": ..., "lm_head": ...}``, or the
     ``{"params": ...}`` wrapper) -> state dict of the port's
-    ``LlamaForCausalLM``."""
-    return _params_from_jax(tree, _LAYER_LEAVES, tie_word_embeddings)
+    ``LlamaForCausalLM``: at ``tp_size > 1`` rank ``tp_rank``'s shard."""
+    out = _params_from_jax(tree, _LAYER_LEAVES, tie_word_embeddings)
+    if tp_size == 1:
+        return out
+    return {k: shard_slice(v, dim_spec(v.dim(), _tp_dim(k, kv_size_multiplier)), tp_rank,
+                           tp_size).contiguous()
+            for k, v in out.items()}
 
 
 def mixtral_params_from_jax(tree: Mapping[str, Any],
@@ -155,7 +191,8 @@ def quantized_params_from_jax(tree: Mapping[str, Any],
 _FLAX_KEY = re.compile(r"\['([^']+)'\]")
 
 
-def lora_params_from_jax(tree: Mapping[str, Any], config) -> Dict[str, Dict[str, torch.Tensor]]:
+def lora_params_from_jax(tree: Mapping[str, Any], config, tp_rank: int = 0,
+                         tp_size: int = 1) -> Dict[str, Dict[str, torch.Tensor]]:
     """A JAX ``init_lora`` tree (``{"['model']['layers']['block']...
     ['q_kernel']": {"lora_a": (L, fan_in, r), "lora_b": (L, r, fan_out)}}``)
     -> the port's tree, one entry a layer under the port's weight name
@@ -163,7 +200,8 @@ def lora_params_from_jax(tree: Mapping[str, Any], config) -> Dict[str, Dict[str,
     pool reads as ``q``/``k``/``v`` under the fused qkv and the module name
     elsewhere. Unstacked adapters (the embedding's) keep their shapes.
     ``config`` is the adapters' ``LoraConfig``; their rank must be its
-    ``r``."""
+    ``r``. At ``tp_size > 1``: rank ``tp_rank``'s slices (``A`` over fan-in
+    on the row-parallel targets, ``B`` over fan-out on the others)."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     block = ("model", "layers", "block")
     for path, ad in tree.items():
@@ -178,10 +216,15 @@ def lora_params_from_jax(tree: Mapping[str, Any], config) -> Dict[str, Dict[str,
             name = _LAYER_LEAVES.get(parts[3:])
             if name is None:
                 raise KeyError(f"no port weight for the stacked flax path {path}")
+            row = any(f"{t}." in name for t in ROW_PARALLEL_TARGETS)
             for i in range(a.shape[0]):
-                out[f"model.layers.{i}.{name}"] = {
-                    "lora_a": torch.from_numpy(np.ascontiguousarray(a[i])),
-                    "lora_b": torch.from_numpy(np.ascontiguousarray(b[i]))}
+                ai, bi = torch.from_numpy(np.ascontiguousarray(a[i])), torch.from_numpy(
+                    np.ascontiguousarray(b[i]))
+                if row:
+                    ai = shard_slice(ai, ("tp", None), tp_rank, tp_size).contiguous()
+                else:
+                    bi = shard_slice(bi, (None, "tp"), tp_rank, tp_size).contiguous()
+                out[f"model.layers.{i}.{name}"] = {"lora_a": ai, "lora_b": bi}
         else:
             out[".".join(parts)] = {"lora_a": torch.from_numpy(a), "lora_b": torch.from_numpy(b)}
     return out

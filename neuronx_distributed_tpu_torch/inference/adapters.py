@@ -334,7 +334,9 @@ class AdapterPool(ResidentPool):
         """Store ``name``'s padded host bytes and crc32 (residency comes at
         :meth:`acquire`). ``lora_params``: an ``init_lora`` tree of the port
         (one entry a layer, keyed by weight name; ``lora_params_from_jax``
-        makes one from a JAX tree); ``lora_config`` gives the scaling.
+        makes one from a JAX tree), at full width under tensor parallelism
+        (the pool keeps the rank's slices); ``lora_config`` gives the
+        scaling.
         Raises when a weight is outside the pool's coverage or its rank
         exceeds ``max_rank``."""
         if name in self._registry:
@@ -357,6 +359,7 @@ class AdapterPool(ResidentPool):
             if a.ndim != 2 or b.ndim != 2:
                 raise ValueError(f"adapter {name!r} leaf {pstr}: A {a.shape}, B {b.shape} are "
                                  f"not one layer's matrices")
+            a, b = lay.shard(leaf, a, b)   # a tensor-parallel rank's slices
             r = a.shape[-1]
             if r > R:
                 raise ValueError(f"adapter {name!r} rank {r} exceeds pool max_rank {R}")

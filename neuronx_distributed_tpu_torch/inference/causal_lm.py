@@ -49,6 +49,21 @@ engine's first tokens masks with. Both pools are device buffers of a
 session's state, written in place, so one captured block serves every mix
 of adapters and grammars; each session gets fresh pool bookkeeping over
 them (:meth:`CausalLM.new_adapter_pool`, :meth:`CausalLM.new_grammar_pool`).
+
+Tensor parallelism (JAX ``causal_lm.py:395-399``, ``:813-879``): built
+with a ``tp_group`` (or under ``parallel.mesh.initialize_model_parallel``,
+whose TP group it takes), the model holds the rank's weight shards and
+every program gathers the vocab-sharded logits before they leave it, so
+every rank draws the same ``counter_gumbel`` noise over the same full
+logits and picks the same token. A session's KV pools hold the rank's KV
+heads, its adapter pool the rank's slices and its grammar tables the
+rank's vocabulary columns (``inference/partition.py``): a grammar's mask
+is computed on those columns and gathered beside the logits, and a DFA
+transition is looked up on the rank that holds the token's column and
+all-reduced (:meth:`CausalLM.grammar_next`). Every rank runs the same host
+schedule. A gloo group's collectives cannot be captured in a CUDA graph:
+on the card such a group needs ``capture_programs=False`` (and an engine
+with ``fused=False``), and anything else raises.
 """
 
 from __future__ import annotations
@@ -75,6 +90,12 @@ from neuronx_distributed_tpu_torch.inference.grammar import (
 )
 from neuronx_distributed_tpu_torch.inference.model_builder import CapturedProgram
 from neuronx_distributed_tpu_torch.inference.paged_cache import PagedKVCache
+from neuronx_distributed_tpu_torch.inference.partition import (
+    leaf_partition_spec,
+    local_shape,
+    sharded_dim,
+    sharded_fraction,
+)
 from neuronx_distributed_tpu_torch.inference.sampling import (
     Sampler,
     SlotSampler,
@@ -83,7 +104,12 @@ from neuronx_distributed_tpu_torch.inference.sampling import (
     split_key,
 )
 from neuronx_distributed_tpu_torch.models.llama import KVCache, page_storage_dtype
+from neuronx_distributed_tpu_torch.parallel import mesh
 from neuronx_distributed_tpu_torch.parallel.layers import adopt_quantized
+from neuronx_distributed_tpu_torch.parallel.mappings import (
+    all_reduce,
+    gather_from_tensor_parallel_region,
+)
 from neuronx_distributed_tpu_torch.quantization.core import quantized_names
 
 def infer_prompt_lengths(prompt_ids: np.ndarray, pad_token_id: int = 0) -> np.ndarray:
@@ -146,6 +172,7 @@ class SlotState:
         self.dev = torch.zeros((n,), dtype=torch.int32, device=device)
         self.dirty = False
         self.grammar_tables: Optional[Dict[str, torch.Tensor]] = None
+        self.grammar_next = None   # CausalLM.grammar_next over grammar_tables
         # rows to merge at the next sync, and the device source of their tok
         self._rows = np.zeros((batch,), bool)
         self._tok_src = np.full((batch,), -1, np.int32)
@@ -229,7 +256,7 @@ class SlotState:
                 t = self.grammar_tables
                 g, gs = self.dev_field("grammar").long(), self.dev_field("gstate")
                 adv = take & (g > 0)
-                gs.copy_(torch.where(adv, t["next"][g, gs.long(), tok.long()], gs))
+                gs.copy_(torch.where(adv, self.grammar_next(t, g, gs, tok), gs))
                 done.copy_(torch.where(adv & t["terminal"][g, gs.long()], 1, done))
         self._rows[:] = False
         self._tok_src[:] = -1
@@ -268,8 +295,10 @@ class SessionState:
         self.grammar_tables: Optional[Dict[str, torch.Tensor]] = None
         if lm.grammar:
             self.grammar_tables = grammar_tables(lm.grammar_slots, lm.grammar_states,
-                                                 cfg.vocab_size, lm.device)
+                                                 lm.grammar_vocab[1] - lm.grammar_vocab[0],
+                                                 lm.device)
             self.slots.grammar_tables = self.grammar_tables
+            self.slots.grammar_next = lm.grammar_next
         self.lora_pool: Optional[torch.Tensor] = None
         if lm.lora:
             self.lora_pool = torch.zeros(lm._lora_shape, dtype=torch.float32, device=lm.device)
@@ -395,7 +424,7 @@ class FusedDecode:
             logits = lm._forward(tok, cache, adapter, state)[:, 0].float()
             finite = finite & torch.isfinite(logits).all(-1)
             allowed = (None if tables is None
-                       else grammar_allowed(tables, gidx, gstate, gbudget, count))
+                       else lm.grammar_allowed(tables, gidx, gstate, gbudget, count))
             nxt = draw_rows(logits, key_lo, key_hi, count, temperature, greedy,
                             self.slot_sampler, allowed)
             done_before = done
@@ -403,7 +432,7 @@ class FusedDecode:
             done = done | (active & (eos >= 0) & (nxt == eos))
             if tables is not None:
                 adv = gactive & active & ~done_before
-                gstate = torch.where(adv, tables["next"][gl, gstate.long(), nxt.long()], gstate)
+                gstate = torch.where(adv, lm.grammar_next(tables, gl, gstate, nxt), gstate)
                 done = done | (adv & tables["terminal"][gl, gstate.long()])
             count.add_(1)
             done = done | (active & (cache.cache_index + 1 >= max_len))
@@ -478,7 +507,13 @@ class CausalLM:
     eagerly either way. ``spare_states`` (an attribute too): how many
     states of ended sessions the ``CausalLM`` keeps, programs and all, for
     later sessions to take over (each a session's device memory; the rest
-    are freed)."""
+    are freed).
+
+    ``tp_group``: the tensor-parallel group (default: the current
+    ``parallel.mesh`` state's, when one is initialized; else none). Under
+    it ``params`` is the rank's shard (``init_params(tp_rank=, tp_size=)``,
+    ``llama_params_from_jax(tp_rank=, tp_size=)``). int8 weights, Mixtral
+    and speculation are refused at a degree above 1."""
 
     def __init__(self, config, params: Mapping[str, Any], model_cls,
                  buckets=(128, 512, 2048), max_batch: int = 4,
@@ -489,9 +524,14 @@ class CausalLM:
                  grammar_slots: int = 0, grammar_states: int = 64,
                  grammar_tokens: Optional[Sequence[str]] = None,
                  capture_programs: bool = True, param_transform=None,
-                 spare_states: int = 1, device: DeviceLike = None):
+                 spare_states: int = 1, device: DeviceLike = None, tp_group=None):
         self.device = resolve_device(device)
         self.capture_programs = bool(capture_programs)
+        if tp_group is None and mesh.model_parallel_is_initialized():
+            tp_group = mesh.get_tensor_model_parallel_group()
+        self.tp_group = tp_group
+        self.tp, self.tp_rank = mesh.group_size(tp_group), mesh.group_rank(tp_group)
+        self._check_capturable()
         self.config = dataclasses.replace(config, decode=True)
         self.paged = bool(page_size)
         self.prefix_cache = bool(prefix_cache)
@@ -534,12 +574,20 @@ class CausalLM:
                 raise ValueError(f"grammar_tokens has {len(grammar_tokens)} entries for "
                                  f"vocab_size {config.vocab_size}")
             self.grammar_tokens = tuple(grammar_tokens)
+        # the vocabulary columns this rank's grammar tables hold
+        v = config.vocab_size
+        shape = local_shape((2, 2, v), leaf_partition_spec("need", (2, 2, v), self.tp), self.tp)
+        self.grammar_vocab = (self.tp_rank * shape[-1], (self.tp_rank + 1) * shape[-1])
         self.max_batch = int(max_batch)
         self.buckets = tuple(sorted(b for b in buckets if b <= self.config.max_seq_len))
         if not self.buckets:
             raise ValueError(f"no bucket fits max_seq_len {self.config.max_seq_len}")
+        if self.tp > 1 and quantized_names(params):
+            raise NotImplementedError("int8 weights under tensor parallelism are not ported "
+                                      "(ROADMAP queue A)")
         with torch.device("meta"):
-            model = model_cls(self.config)
+            model = (model_cls(self.config) if tp_group is None
+                     else model_cls(self.config, group=tp_group))
         state = self._device_params(model, params)
         self.param_transform = param_transform
         self._raw_params: Optional[Dict[str, torch.Tensor]] = None
@@ -578,6 +626,41 @@ class CausalLM:
         self.tracer = None
 
     # --- helpers ---------------------------------------------------------
+
+    def _check_capturable(self) -> None:
+        """A gloo group on the card cannot run inside captured programs."""
+        if (self.device.type == "cuda" and self.capture_programs
+                and mesh.group_backend(self.tp_group) == "gloo"):
+            raise ValueError("a gloo tensor-parallel group's collectives cannot be captured "
+                             "in a CUDA graph: pass capture_programs=False (and serve with "
+                             "fused=False)")
+
+    def _gather_vocab(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' vocabulary shards of ``x`` (the last dim) gathered to
+        full width (``x`` itself without a group)."""
+        return gather_from_tensor_parallel_region(x, self.tp_group, -1)
+
+    def grammar_allowed(self, tables: Dict[str, torch.Tensor], gidx: torch.Tensor,
+                        gstate: torch.Tensor, gbudget: torch.Tensor,
+                        counts: torch.Tensor) -> torch.Tensor:
+        """:func:`grammar_allowed` over the full vocabulary: each rank's
+        mask of its own columns, gathered."""
+        return self._gather_vocab(grammar_allowed(tables, gidx, gstate, gbudget, counts))
+
+    def grammar_next(self, tables: Dict[str, torch.Tensor], g: torch.Tensor,
+                     gstate: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+        """``next[g, gstate, tok]`` for full-vocabulary token ids: under a
+        group only the rank holding ``tok``'s column reads it, the others
+        give 0, and one all-reduce sums them (every rank then holds the
+        state)."""
+        g, gstate, tok = g.long(), gstate.long(), tok.long()
+        if self.tp_group is None:
+            return tables["next"][g, gstate, tok]
+        start, stop = self.grammar_vocab
+        local = tok - start
+        mine = (local >= 0) & (local < stop - start)
+        got = tables["next"][g, gstate, local.clamp(0, stop - start - 1)]
+        return all_reduce(torch.where(mine, got, 0), self.tp_group)
 
     def _bucket_for(self, s: int) -> int:
         for b in self.buckets:
@@ -655,7 +738,7 @@ class CausalLM:
         # no_grad rather than inference_mode: the cache tensors made here
         # are updated in place by later calls outside any such mode
         with torch.no_grad(), self._weights():
-            return self.model(ids, cache)
+            return self._gather_vocab(self.model(ids, cache))
 
     def _adapter_rows(self, adapter_slots, rows: int) -> list:
         """The rows' adapter slots as a program input (the identity slot 0
@@ -679,6 +762,8 @@ class CausalLM:
         and the ``CausalLM``'s ``capture_ms`` and the state's tracer."""
         cuda = self.device.type == "cuda"
         captured = cuda and self.capture_programs
+        if captured:
+            self._check_capturable()
         prog = state.programs.get(signature)
         if prog is None:
             prog = state.programs[signature] = CapturedProgram(
@@ -716,7 +801,7 @@ class CausalLM:
         with torch.no_grad(), self._weights():
             h = self.model.model(ids, cache)
             h = h[torch.arange(ids.shape[0], device=ids.device), last]
-            return self.model._head(h[:, None])[:, 0]
+            return self._gather_vocab(self.model._head(h[:, None])[:, 0])
 
     def _fresh_cache(self, state: SessionState, rows: int) -> KVCache:
         """The zeroed-per-call slab a slab insert of ``rows`` rows prefills
@@ -820,20 +905,66 @@ class CausalLM:
         none)."""
         return self._spares[-1] if self._spares else None
 
-    def kv_cache_bytes(self) -> int:
-        """Bytes of one session's KV pools (every layer, K and V; paged: the
-        sink page and the int8 scales included)."""
+    def kv_leaves(self) -> Dict[str, Tuple[tuple, int]]:
+        """One session's KV leaves at full width: per layer ``cached_key``
+        and ``cached_value`` (paged: the sink page included) and an int8
+        pool's ``cached_key_scale``/``cached_value_scale``, each as
+        (global shape, bytes)."""
         cfg = self.config
-        hd, n_kv = cfg.head_dim_, cfg.num_kv_heads
+        hd, n_kv = cfg.head_dim_, cfg.kv_heads()
+        size = lambda dt: torch.empty((), dtype=dt).element_size()  # noqa: E731
+        if self.paged:
+            pages = cfg.page_pool_pages + 1
+            shape, dtype = (pages, cfg.page_size, n_kv, hd), page_storage_dtype(cfg)
+        else:
+            shape, dtype = (self.max_batch, cfg.max_seq_len, n_kv, hd), cfg.dtype
+        out = {}
+        for i in range(cfg.num_layers):
+            for leaf in ("cached_key", "cached_value"):
+                out[f"layers.{i}.{leaf}"] = (shape, int(np.prod(shape)) * size(dtype))
+                if dtype == torch.int8:
+                    sshape = (pages, 1, n_kv, 1)
+                    out[f"layers.{i}.{leaf}_scale"] = (sshape, int(np.prod(sshape)) * 4)
+        return out
+
+    def kv_cache_bytes(self) -> Dict[str, int]:
+        """One session's KV footprint (JAX ``causal_lm.py:813-861``):
+        ``kv_bytes`` what it allocates on this rank (a sharded leaf holds
+        ``1/tp`` of its bytes), ``kv_bytes_global`` the full width (what a
+        handoff or a host-tier page carries), ``kv_slab_bytes`` this rank's
+        bytes of a contiguous slab in the compute dtype for the same batch
+        and length (the paged pools' yardstick)."""
+        cfg = self.config
+        actual = total = 0
+        sharded = False
+        for name, (shape, nbytes) in self.kv_leaves().items():
+            div = self.tp if sharded_dim(leaf_partition_spec(name, shape, self.tp)) is not None \
+                else 1
+            sharded = sharded or div > 1
+            actual += nbytes // div
+            total += nbytes
+        slab = (2 * cfg.num_layers * self.max_batch * cfg.max_seq_len * cfg.kv_heads()
+                * cfg.head_dim_ * torch.empty((), dtype=cfg.dtype).element_size())
+        return {"kv_bytes": actual, "kv_bytes_global": total,
+                "kv_slab_bytes": slab // self.tp if sharded else slab}
+
+    def kv_page_bytes(self) -> int:
+        """Bytes one physical page takes across every layer on this rank
+        (JAX ``:863``): the pool-sizing unit. Paged mode only."""
         if not self.paged:
-            elems = self.max_batch * cfg.max_seq_len * n_kv * hd
-            return 2 * cfg.num_layers * elems * torch.empty((), dtype=cfg.dtype).element_size()
-        pages = cfg.page_pool_pages + 1
-        dtype = page_storage_dtype(cfg)
-        per_layer = pages * cfg.page_size * n_kv * hd * torch.empty((), dtype=dtype).element_size()
-        if dtype == torch.int8:
-            per_layer += pages * n_kv * 4
-        return 2 * cfg.num_layers * per_layer
+            raise ValueError("kv_page_bytes applies to paged mode only")
+        return self.kv_cache_bytes()["kv_bytes"] // (self.config.page_pool_pages + 1)
+
+    def kv_page_bytes_host(self) -> int:
+        """Bytes one logical page takes at full width (JAX ``:871``): a
+        host-tier or handoff page, whatever the degree. Paged mode only."""
+        if not self.paged:
+            raise ValueError("kv_page_bytes_host applies to paged mode only")
+        return self.kv_cache_bytes()["kv_bytes_global"] // (self.config.page_pool_pages + 1)
+
+    def kv_sharded_fraction(self) -> float:
+        """The share of the KV bytes whose leaves shard over the ranks."""
+        return sharded_fraction(self.kv_leaves(), self.tp)
 
     # --- device state ----------------------------------------------------
 
@@ -950,7 +1081,8 @@ class CausalLM:
         if not self.grammar:
             raise ValueError("CausalLM was built without grammar_slots")
         return GrammarPool(self.grammar_slots, self.grammar_states, self.grammar_tokens,
-                           tables=(state or self._default_state()).grammar_tables)
+                           tables=(state or self._default_state()).grammar_tables,
+                           vocab_shard=self.grammar_vocab)
 
     def _set_block_tables(self, session: DecodeSession, slot_ids: np.ndarray) -> None:
         """Mirror these slots' host tables; the device copy rides the next
@@ -1152,6 +1284,9 @@ class CausalLM:
         other sessions may be live meanwhile."""
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
+        if self.device.type == "cuda" and mesh.group_backend(self.tp_group) == "gloo":
+            raise ValueError("a gloo tensor-parallel group's collectives cannot be captured "
+                             "in the fused decode block: serve with fused=False")
         if session is not None:
             self._check_session(session)
         state = session.state if session is not None else self._default_state()

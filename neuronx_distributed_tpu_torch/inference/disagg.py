@@ -78,10 +78,10 @@ class KVHandoff:
     payloads: List[Dict[str, np.ndarray]]
     crcs: List[int] = dataclasses.field(default_factory=list)
     src_replica: Optional[int] = None
-    # TP degree of the SEALING worker (1: the port serves no TP yet). The
-    # payloads hold whole pages, so the bytes do not depend on it; an
-    # adopter on another degree degrades to a re-prefill rather than trust
-    # framing it cannot check.
+    # TP degree of the SEALING worker. The payloads are gathered at seal
+    # (full KV width: every rank's heads), so the bytes do not depend on
+    # it; an adopter on another degree degrades to a re-prefill rather
+    # than trust framing it cannot check.
     tp_degree: int = 1
     # storage dtype of the SEALING worker's page pool ("float32"/
     # "bfloat16"/"int8"; int8 payloads carry the quantized pages PLUS

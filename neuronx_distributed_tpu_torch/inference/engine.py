@@ -103,7 +103,13 @@ takes streams only through :meth:`ServeEngine.adopt_handoff` and
 ``resume``, the ``extract_*`` seams and ``has_decode_work``, and an engine
 ends its session with :meth:`ServeEngine.close`.
 
-Still to port (ROADMAP A8.7): TP serving.
+Tensor parallelism (JAX ``engine.py:2565-2590, 2993, 4761-4775``): every
+rank runs this same engine over its own shard of the ``CausalLM``, so the
+host schedules, and the collectives inside the programs, line up rank for
+rank. Page reads gather every rank's KV heads and page writes take the
+rank's heads of full-width bytes, so handoffs, parks and host-tier pages
+are full width at every degree; each carries the degree it was sealed at
+(``tp_degree``), and a foreign degree degrades to a re-prefill.
 """
 
 from __future__ import annotations
@@ -139,9 +145,9 @@ from neuronx_distributed_tpu_torch.inference.faults import (
 from neuronx_distributed_tpu_torch.inference.grammar import (
     GrammarLoadError,
     GrammarPoolExhausted,
-    grammar_allowed,
 )
 from neuronx_distributed_tpu_torch.inference.paged_cache import ChunkedPrefill, PagePoolExhausted
+from neuronx_distributed_tpu_torch.inference.partition import leaf_partition_spec, sharded_dim
 from neuronx_distributed_tpu_torch.inference.schedq import AdmissionQueue, shed_deadline_key
 from neuronx_distributed_tpu_torch.inference.sampling import (
     Sampler,
@@ -151,6 +157,7 @@ from neuronx_distributed_tpu_torch.inference.sampling import (
     split_key,
 )
 from neuronx_distributed_tpu_torch.models.llama import page_storage_dtype
+from neuronx_distributed_tpu_torch.parallel.mappings import gather_from_tensor_parallel_region
 from neuronx_distributed_tpu_torch.observability import (
     FlightRecorder,
     MetricsRegistry,
@@ -546,6 +553,9 @@ class ServeEngine:
                 raise ValueError("conversation parking requires a paged CausalLM (KV pages "
                                  "are the park unit)")
         self.lm = lm
+        # the tensor-parallel degree stamped on handoffs and parks (every
+        # rank runs this same engine on its own shard)
+        self._tp = getattr(lm, "tp", 1)
         self.role = role
         self.outbox: List = []
         self.block_steps = int(block_steps)
@@ -1338,7 +1348,7 @@ class ServeEngine:
         if not self.grammar or all(r.grammar is None for r in reqs):
             return None
         h2d = self.lm._ids
-        return grammar_allowed(self.session.grammars.tables,
+        return self.lm.grammar_allowed(self.session.grammars.tables,
                                h2d([self._grammar_slot(r) for r in reqs]), h2d(gstates),
                                h2d([r.max_new_tokens for r in reqs]), h2d(counts))
 
@@ -2023,20 +2033,35 @@ class ServeEngine:
             pools.update(k_scales=c.k_scales, v_scales=c.v_scales)
         return pools
 
+    def _tp_heads(self, name: str, t: torch.Tensor) -> Optional[int]:
+        """The dim of a page-pool leaf that shards over the TP ranks (its KV
+        heads, ``inference/partition.py``), None when replicated."""
+        leaf = {"keys": "cached_key", "values": "cached_value", "k_scales": "cached_key_scale",
+                "v_scales": "cached_value_scale"}[name]
+        shape = list(t.shape)
+        shape[-2] *= self.lm.tp
+        return sharded_dim(leaf_partition_spec(leaf, shape, self.lm.tp))
+
     def _read_pages_bytes(self, pages: List[int]) -> List[Dict[str, np.ndarray]]:
         """Host copies of ``pages`` across every layer (JAX
         ``engine.py:2318``): per leaf one gather of the page list from each
         layer's pool and one blocking device-to-host copy, split into a
         ``{leaf: (layers, page_size, kv_heads, head_dim) array}`` per page.
-        bf16 travels as its int16 bit pattern. A sim engine has no bytes: a
-        page reads as its own id, so a handoff's checksum still covers
-        something a corruption can flip."""
+        bf16 travels as its int16 bit pattern. Under tensor parallelism the
+        ranks' KV heads are all-gathered first, so every copy is full width
+        (JAX's gather-at-seal, ``paged_cache.py:59-60``): handoffs, parks
+        and host-tier pages carry the same bytes at every degree. A sim
+        engine has no bytes: a page reads as its own id, so a handoff's
+        checksum still covers something a corruption can flip."""
         if self._sim:
             return [{"keys": np.asarray([p], np.int32)} for p in pages]
         idx = self.lm._ids(pages, torch.long)
         out: List[Dict[str, np.ndarray]] = [{} for _ in pages]
         for name, pools in self._page_pools().items():
             got = torch.stack([t.index_select(0, idx) for t in pools], 1)
+            d = self._tp_heads(name, pools[0])
+            if d is not None:
+                got = gather_from_tensor_parallel_region(got, self.lm.tp_group, d + 1)
             if got.dtype == torch.bfloat16:
                 got = got.view(torch.int16)
             arr = got.cpu().numpy()
@@ -2049,12 +2074,19 @@ class ServeEngine:
         """Write host copies back into ``pages`` in place (JAX
         ``engine.py:2334``): per leaf one blocking host-to-device copy and
         one indexed copy into each layer's pool, the tensors a captured
-        decode block reads."""
+        decode block reads. The copies are full width: under tensor
+        parallelism each rank writes its own KV heads of them."""
         if self._sim:
             return
         idx = self.lm._ids(pages, torch.long)
         for name, pools in self._page_pools().items():
-            src = torch.from_numpy(np.stack([d[name] for d in datas], 1)).to(self.lm.device)
+            src = np.stack([d[name] for d in datas], 1)   # (layers, pages, <pool dims 1..>)
+            dim = self._tp_heads(name, pools[0])
+            if dim is not None:
+                n = src.shape[dim + 1] // self.lm.tp
+                src = src.take(range(self.lm.tp_rank * n, (self.lm.tp_rank + 1) * n),
+                               axis=dim + 1)
+            src = torch.from_numpy(np.ascontiguousarray(src)).to(self.lm.device)
             self.tier_h2d_copies += 1
             if pools[0].dtype == torch.bfloat16:
                 src = src.view(torch.bfloat16)
@@ -2186,7 +2218,8 @@ class ServeEngine:
             payloads = [to_store_page(p) for p in self._read_pages_bytes(pages)]
             ts = self._out_ts.get(rid) or [time.perf_counter()]
             h = KVHandoff(req=req, first_token=int(self._out[rid][0]), first_ts=float(ts[0]),
-                          page_size=ps, payloads=payloads, page_dtype=self._page_dtype())
+                          page_size=ps, payloads=payloads, tp_degree=self._tp,
+                          page_dtype=self._page_dtype())
             h.seal()
             h.seal_ms = round((time.perf_counter() - t0) * 1e3, 3)
             self.outbox.append(h)
@@ -2234,7 +2267,7 @@ class ServeEngine:
         if not self._pool_can_admit(req):
             self._note_pool_pressure([req])
             return "deferred"
-        for stamp, mine in (("tp_degree", 1), ("page_dtype", self._page_dtype())):
+        for stamp, mine in (("tp_degree", self._tp), ("page_dtype", self._page_dtype())):
             theirs = getattr(h, stamp)
             if theirs != mine:
                 if self.tracer.enabled:
@@ -2407,7 +2440,7 @@ class ServeEngine:
             "rng_key": [key & 0xFFFFFFFF, (key >> 32) & 0xFFFFFFFF],
         }
         manifest_id, _verdict = self.park_store.park(
-            rid, state, [to_store_page(p) for p in pages], tp_degree=1,
+            rid, state, [to_store_page(p) for p in pages], tp_degree=self._tp,
             page_dtype=self._page_dtype())
         # the durable write landed: evict (prefix entries first, while the
         # slot still lists its pages), then the device state and the mirrors
@@ -2532,7 +2565,7 @@ class ServeEngine:
         st = parked.state
         if parked.payloads is None:
             return self._resume_degraded(rid, st, reason="state_only_park", corrupt=False)
-        if parked.tp_degree != 1:
+        if parked.tp_degree != self._tp:
             return self._resume_degraded(rid, st, reason=f"tp_mismatch:{parked.tp_degree}",
                                          corrupt=False)
         if parked.page_dtype != self._page_dtype():
@@ -3108,14 +3141,14 @@ class ServeEngine:
             logits = self._dispatch("decode", lambda t=tok: self.lm._decode_step(
                 self.session, self.lm._ids(t[:, None])))
             self.program_calls += 1
-            allowed = (grammar_allowed(tables, gidx, gstate, gbudget,
+            allowed = (self.lm.grammar_allowed(tables, gidx, gstate, gbudget,
                                        h2d(self._gen_counts + i)) if self.grammar else None)
             drawn = self._draw(logits, self._keys, self._gen_counts + i, self._temp,
                                self._greedy, allowed=allowed)
             if self.grammar:
                 adv = h2d(gactive & ~done, torch.bool)
-                gstate = torch.where(adv, tables["next"][gidx.long(), gstate.long(),
-                                                         drawn[:b].long()], gstate)
+                gstate = torch.where(adv, self.lm.grammar_next(tables, gidx, gstate, drawn[:b]),
+                                     gstate)
                 term = adv & tables["terminal"][gidx.long(), gstate.long()]
                 drawn = torch.cat([drawn, term.to(torch.int32)])
             got = self._fetch(drawn)
@@ -3509,9 +3542,12 @@ def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[i
     ``resumed``, ``park_replays``, ``park_rejects``, ``parked_remaining``
     and ``parked_bytes``.
 
-    Left out with the feature it reads (ROADMAP A8.7): ``tp_degree``. The
-    port's ``host_ops_per_block`` counts its slot-state copies beside
-    program calls and fetches (``h2d_copies``, also reported)."""
+    Tensor parallelism (JAX ``engine.py:4761-4775``): ``tp_degree`` and,
+    paged, ``kv_sharded_fraction`` beside this rank's ``kv_hbm_bytes``,
+    the full-width ``kv_hbm_bytes_global``, ``kv_slab_hbm_bytes`` and
+    ``kv_hbm_vs_slab``. The port's ``host_ops_per_block`` counts its
+    slot-state copies beside program calls and fetches (``h2d_copies``,
+    also reported)."""
     if not engine.keep_completions:
         return _run_trace_streaming(engine, trace, max_blocks=max_blocks,
                                     snapshot_path=snapshot_path)
@@ -3563,6 +3599,7 @@ def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[i
         "host_ops_per_block": round(
             (engine.program_calls + engine.host_fetches + engine.h2d_copies) / decode_blocks, 2),
         "async_loop": engine.async_loop,
+        "tp_degree": engine._tp,
         **interblock_gap_report(engine.tracer, [engine.lane]),
         "queue_blocks_mean": mean([c.queue_blocks for c in completions]),
         "decode_blocks_mean": mean([c.decode_blocks for c in completions]),
@@ -3615,12 +3652,6 @@ def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[i
         pkv = engine.session.paged
         cfg = engine.lm.config
         kv = engine.lm.kv_cache_bytes()
-        if engine._sim:
-            slab = engine.lm.kv_slab_bytes()
-        else:
-            slab = (2 * cfg.num_layers * engine.lm.max_batch * cfg.max_seq_len
-                    * cfg.num_kv_heads * cfg.head_dim_
-                    * torch.empty((), dtype=cfg.dtype).element_size())
         report.update({
             "paged": True,
             "page_size": pkv.page_size,
@@ -3633,9 +3664,12 @@ def run_trace(engine: ServeEngine, trace: Iterable[dict], max_blocks: Optional[i
             "pages_in_use_peak": pkv.pages_in_use_peak,
             "evicted_pages": pkv.evicted_pages,
             "deferred_admissions": engine.deferred_admissions,
-            "kv_hbm_bytes": kv,
-            "kv_slab_hbm_bytes": slab,
-            "kv_hbm_vs_slab": round(kv / slab, 3),
+            "kv_hbm_bytes": kv["kv_bytes"],
+            "kv_hbm_bytes_global": kv["kv_bytes_global"],
+            "kv_slab_hbm_bytes": kv["kv_slab_bytes"],
+            "kv_hbm_vs_slab": round(kv["kv_bytes"] / kv["kv_slab_bytes"], 3),
+            "kv_sharded_fraction": (0.0 if engine._sim
+                                    else round(engine.lm.kv_sharded_fraction(), 3)),
         })
         if pkv.tier is not None:
             report.update({

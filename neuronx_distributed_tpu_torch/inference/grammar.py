@@ -643,20 +643,26 @@ class GrammarPool(ResidentPool):
     the tables when a session starts. :meth:`register` compiles (host
     only), :meth:`acquire` loads, checks and pins, :meth:`release`
     unpins. ``fault_hook`` is the ``grammar`` seam of ``faults.py``;
-    ``compiles`` counts registrations."""
+    ``compiles`` counts registrations. ``vocab_shard`` ``(start, stop)``:
+    the vocabulary columns the tables hold (a tensor-parallel rank's
+    ``need``/``next`` shard); the DFA is compiled over the whole
+    vocabulary and the slot holds those columns."""
 
     kind = "grammar"
     exhausted_error = GrammarPoolExhausted
     load_error = GrammarLoadError
 
     def __init__(self, n_slots: int, max_states: int, token_strs: Sequence[str],
-                 tables: Optional[Dict[str, torch.Tensor]] = None):
+                 tables: Optional[Dict[str, torch.Tensor]] = None,
+                 vocab_shard: Optional[Tuple[int, int]] = None):
         if max_states < 2:
             raise ValueError(f"max_states must be >= 2, got {max_states}")
         token_strs = tuple(token_strs)
+        self.vocab_shard = tuple(vocab_shard) if vocab_shard else (0, len(token_strs))
+        width = self.vocab_shard[1] - self.vocab_shard[0]
         if tables is None:
-            tables = grammar_tables(n_slots, max_states, len(token_strs))
-        if tuple(tables["need"].shape) != (n_slots, max_states, len(token_strs)):
+            tables = grammar_tables(n_slots, max_states, width)
+        if tuple(tables["need"].shape) != (n_slots, max_states, width):
             raise ValueError(f"tables {tuple(tables['need'].shape)} for {n_slots} slots, "
                              f"{max_states} states, vocab {len(token_strs)}")
         super().__init__(n_slots, tables["need"].device)
@@ -733,7 +739,9 @@ class GrammarPool(ResidentPool):
         need[: dfa.n_states] = dfa.dist_next
         term = np.zeros((S,), bool)
         term[: dfa.n_states] = dfa.terminal
-        return {"need": need, "next": nxt, "terminal": term}
+        lo, hi = self.vocab_shard
+        return {"need": np.ascontiguousarray(need[:, lo:hi]),
+                "next": np.ascontiguousarray(nxt[:, lo:hi]), "terminal": term}
 
     def _write_slot(self, slot: int, entry: dict) -> None:
         for k in _LEAVES:

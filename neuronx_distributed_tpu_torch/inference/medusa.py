@@ -46,6 +46,7 @@ from neuronx_distributed_tpu_torch.models.llama import (
     LlamaForCausalLM,
     LlamaModel,
 )
+from neuronx_distributed_tpu_torch.parallel import mesh
 from neuronx_distributed_tpu_torch.parallel.layers import ColumnParallelLinear
 
 TOPK = 10  # per-head candidate pool
@@ -180,6 +181,9 @@ def medusa_model(config: LlamaConfig, params: Mapping[str, Any], num_medusa_head
     the CPU) from a state dict, in the config's ``param_dtype``. It keeps
     the KV cache and the captured programs of its :func:`medusa_generate`
     runs, so a second run on it replays."""
+    if mesh.model_parallel_is_initialized() and mesh.get_tensor_model_parallel_size() > 1:
+        raise NotImplementedError("Medusa under tensor parallelism is not ported "
+                                  "(ROADMAP queue A)")
     dev = resolve_device(device)
     cfg = dataclasses.replace(config, decode=True)
     with torch.device("meta"):

@@ -29,6 +29,14 @@ and padding writes never touch a live page. Shared prefix pages cover only
 full pages strictly below a request's last prompt token, so every write
 lands in privately owned or scratch pages and a shared page is immutable
 until its refcount drains.
+
+Tensor parallelism (JAX ``paged_cache.py:50-60``): everything here is
+shard-agnostic. Each rank's pools hold its own KV heads, but one logical
+page id names the same page on every rank, so tables, refcounts, the radix
+index and the plan/commit lifecycle never see a shard. Host-tier pages
+are full width (the engine's page reads gather every rank's heads) and are
+sized with ``CausalLM.kv_page_bytes_host()``; the device pool with the
+per-rank ``kv_page_bytes()``.
 """
 
 from __future__ import annotations

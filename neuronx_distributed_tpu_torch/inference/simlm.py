@@ -80,14 +80,14 @@ class SimCausalLM:
                 return b
         raise ValueError(f"prompt length {s} exceeds largest bucket {self.buckets[-1]}")
 
-    def kv_cache_bytes(self) -> int:
-        """Bytes the pool would hold at ``kv_token_bytes`` a token."""
+    def kv_cache_bytes(self) -> dict:
+        """:meth:`CausalLM.kv_cache_bytes`'s keys for a pool of
+        ``kv_token_bytes`` a token (one rank: per-rank = global)."""
         tokens = (self.config.page_pool_pages * self.config.page_size if self.paged
                   else self.max_batch * self.config.max_seq_len)
-        return tokens * self._kv_token_bytes
-
-    def kv_slab_bytes(self) -> int:
-        return self.max_batch * self.config.max_seq_len * self._kv_token_bytes
+        kv = tokens * self._kv_token_bytes
+        return {"kv_bytes": kv, "kv_bytes_global": kv,
+                "kv_slab_bytes": self.max_batch * self.config.max_seq_len * self._kv_token_bytes}
 
     # --- the token function ------------------------------------------------
 

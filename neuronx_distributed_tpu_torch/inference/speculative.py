@@ -188,6 +188,9 @@ def _check_pair(target: CausalLM, draft: CausalLM) -> None:
     if draft is target:
         raise ValueError("the draft must be its own CausalLM (each runs on its own device "
                          "state); for a self-draft build a second one on the same weights")
+    if getattr(target, "tp", 1) > 1 or getattr(draft, "tp", 1) > 1:
+        raise NotImplementedError("speculation under tensor parallelism is not ported "
+                                  "(ROADMAP queue A)")
     if target.paged or draft.paged:
         raise ValueError("speculation runs on the contiguous slab path (no page_size)")
     if draft.max_batch != target.max_batch or draft.device != target.device:

@@ -38,6 +38,16 @@ and reads an ``adapter_idx (b,)`` the caller sets; each targeted
 projection adds the row's own ``s * (x @ A) @ B``, gathered from the pool
 per row (S-LoRA's batched adapter matmul). Slot 0 is all zeros, so its
 rows' outputs are bit for bit those of a model built without LoRA.
+
+Tensor parallelism (JAX ``llama.py:863-871``): built with a ``group``, the
+embedding, the QKV projection, ``o_proj``, the MLP and ``lm_head`` are the
+TP layers of ``parallel/layers.py`` over it (RoPE and the norms stay
+replicated): each rank holds its shard of the weights, attends over its
+own heads and keeps its own heads' KV cache, and the logits come out
+vocab-sharded (``lm_head`` is ``gather_output=False``). The adapter pool
+holds the rank's slices (:func:`lora_layout`). :func:`init_params` gives
+each rank its slice of the same global values, so every degree runs the
+same model.
 """
 
 from __future__ import annotations
@@ -56,6 +66,13 @@ from neuronx_distributed_tpu_torch.inference.paged_kernel import (
     paged_kernel_supported,
     quantize_kv_pages,
 )
+from neuronx_distributed_tpu_torch.inference.partition import (
+    ROW_PARALLEL_TARGETS,
+    leaf_partition_spec,
+    local_shape,
+    param_partition_specs,
+    shard_slice,
+)
 from neuronx_distributed_tpu_torch.kernels.flash_attn import (
     default_attention_blocks,
     default_prefill_blocks,
@@ -73,6 +90,7 @@ from neuronx_distributed_tpu_torch.parallel.loss import (
     parallel_cross_entropy,
     parallel_cross_entropy_mean,
 )
+from neuronx_distributed_tpu_torch.parallel.mesh import group_rank, group_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +111,9 @@ class LlamaConfig:
     num_layers: int = 32
     num_heads: int = 32
     num_kv_heads: int = 32
+    # repeat each KV head this many times so the tensor-parallel degree
+    # divides num_kv_heads * kv_size_multiplier (the K/V kernels stay compact)
+    kv_size_multiplier: int = 1
     head_dim: Optional[int] = None
     max_seq_len: int = 4096
     rope_theta: float = 10000.0
@@ -128,6 +149,10 @@ class LlamaConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+    def kv_heads(self, tp: int = 1) -> int:
+        """KV heads one rank holds at degree ``tp``."""
+        return self.num_kv_heads * self.kv_size_multiplier // tp
 
     def blocks_for(self, sq: int, sk: Optional[int] = None) -> Tuple[int, int]:
         """Flash block sizes: explicit config values, else adaptive (block_q
@@ -232,12 +257,31 @@ class LoraLayout:
     """One adapter slot's bytes for one layer: ``per_layer`` fp32 words
     holding the groups' ``A`` and ``B`` blocks (row-major), then one scale
     per leaf. Groups by input: ``qkv`` (q, k, v), ``o_proj``, ``mlp_in``
-    (gate_proj, up_proj) and ``down_proj``."""
+    (gate_proj, up_proj) and ``down_proj``. At TP degree ``tp`` the fan-ins
+    and fan-outs are rank ``tp_rank``'s (``inference/partition.py``: the
+    row-parallel targets' ``A`` over fan-in, the others' ``B`` over
+    fan-out)."""
 
     rank: int
     groups: Dict[str, LoraGroup]
     scale_offset: int
     per_layer: int
+    tp: int = 1
+    tp_rank: int = 0
+
+    def shard(self, leaf: str, a, b):
+        """The rank's slices of one leaf's ``A (fan_in, r)`` and ``B (r,
+        fan_out)`` (numpy or torch) when they are at full width; a rank's
+        slices already pass as they are."""
+        if self.tp == 1:
+            return a, b
+        _g, _c, fan_in, fan_out, _b, _s = self.leaves()[leaf]
+        r0 = self.tp_rank
+        if leaf in ROW_PARALLEL_TARGETS and a.shape[0] == fan_in * self.tp:
+            a = a[r0 * fan_in:(r0 + 1) * fan_in]
+        elif leaf not in ROW_PARALLEL_TARGETS and b.shape[1] == fan_out * self.tp:
+            b = b[:, r0 * fan_out:(r0 + 1) * fan_out]
+        return a, b
 
     def leaves(self) -> Dict[str, Tuple[str, int, int, int, int, int]]:
         """Leaf -> (group, column of its A block, fan_in, fan_out, B offset,
@@ -249,10 +293,14 @@ class LoraLayout:
         return out
 
 
-def lora_layout(cfg: LlamaConfig) -> LoraLayout:
-    """The pool layout of ``cfg``'s ``lora_rank`` over ``lora_targets``."""
+def lora_layout(cfg: LlamaConfig, tp: int = 1, tp_rank: int = 0) -> LoraLayout:
+    """The pool layout of ``cfg``'s ``lora_rank`` over ``lora_targets``, at
+    rank ``tp_rank`` of degree ``tp``."""
     r, hd = cfg.lora_rank, cfg.head_dim_
     q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    if tp > 1 and cfg.kv_size_multiplier > 1:
+        raise NotImplementedError("LoRA serving with kv_size_multiplier > 1 under tensor "
+                                  "parallelism is not ported")
     t = set(cfg.lora_targets)
     unknown = t - {"qkv", "o_proj", "gate_proj", "up_proj", "down_proj"}
     if unknown:
@@ -267,17 +315,29 @@ def lora_layout(cfg: LlamaConfig) -> LoraLayout:
         plan.append(("mlp_in", cfg.hidden_size, mlp_in))
     if "down_proj" in t:
         plan.append(("down_proj", cfg.intermediate_size, (("down_proj", cfg.hidden_size),)))
+    def local(leaf: str, kind: str, shape) -> Tuple[int, ...]:
+        # the serving spec of the stacked leaf (L, slots, ...) decides
+        full = (cfg.num_layers, 2, *shape)
+        spec = leaf_partition_spec(f"lora_{leaf}_{kind}", full, tp)
+        sharded = leaf in ROW_PARALLEL_TARGETS if kind == "a" else leaf not in ROW_PARALLEL_TARGETS
+        if tp > 1 and sharded and not spec:
+            raise ValueError(f"lora {leaf} {kind} {shape} does not split over {tp} ranks")
+        return local_shape(full, spec, tp)[2:]
+
     groups, off, n_scales = {}, 0, 0
     for gname, fan_in, leaves in plan:
+        fan_in = local(leaves[0][0], "a", (fan_in, r))[0]
         a_off = off
         off += fan_in * len(leaves) * r
         placed = []
         for leaf, fan_out in leaves:
+            fan_out = local(leaf, "b", (r, fan_out))[1]
             placed.append((leaf, fan_out, off, n_scales))
             off += r * fan_out
             n_scales += 1
         groups[gname] = LoraGroup(fan_in, a_off, tuple(placed))
-    return LoraLayout(rank=r, groups=groups, scale_offset=off, per_layer=off + n_scales)
+    return LoraLayout(rank=r, groups=groups, scale_offset=off, per_layer=off + n_scales,
+                      tp=tp, tp_rank=tp_rank)
 
 
 def lora_deltas(rows: torch.Tensor, layout: LoraLayout, group: str,
@@ -400,16 +460,17 @@ def _write_int8_window(pool: torch.Tensor, scale: torch.Tensor, new: torch.Tenso
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, group=None):
         super().__init__()
         cfg = self.config = config
         hd = cfg.head_dim_
         self.qkv = GQAQKVColumnParallelLinear(
             cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, hd, dtype=cfg.dtype,
-            param_dtype=cfg.param_dtype, device=device)
+            param_dtype=cfg.param_dtype, device=device, group=group,
+            kv_size_multiplier=cfg.kv_size_multiplier)
         self.o_proj = RowParallelLinear(cfg.num_heads * hd, cfg.hidden_size, use_bias=False,
                                         dtype=cfg.dtype, param_dtype=cfg.param_dtype,
-                                        device=device)
+                                        device=device, group=group)
 
     def forward(self, x, rope, cache: Optional[KVCache] = None, layer: int = 0, lora=None,
                 chunk_ctx=None):
@@ -438,10 +499,11 @@ class LlamaAttention(nn.Module):
         return self._o_proj(o.transpose(1, 2).reshape(x.shape[0], s, -1), lora)
 
     def _o_proj(self, o, lora=None):
-        y = self.o_proj(o)
+        # the rows' correction joins the rank's partial sum before the reduction
+        delta = None
         if lora is not None and "o_proj" in lora[1].groups:
-            y = y + lora_deltas(*lora, "o_proj", o)[0].to(y.dtype)
-        return y
+            delta = lora_deltas(*lora, "o_proj", o)[0]
+        return self.o_proj(o, delta)
 
     def _decode_attention(self, x, q, k, v, cache: KVCache, layer: int, lora=None,
                           chunk_ctx=None):
@@ -531,10 +593,11 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, group=None):
         super().__init__()
         cfg = config
-        kw = dict(use_bias=False, dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+        kw = dict(use_bias=False, dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
+                  group=group)
         self.gate_proj = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.up_proj = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.down_proj = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size, **kw)
@@ -548,22 +611,22 @@ class LlamaMLP(nn.Module):
                 else:
                     up = up + d.to(up.dtype)
         h = nn.functional.silu(gate) * up
-        y = self.down_proj(h)
+        delta = None
         if lora is not None and "down_proj" in lora[1].groups:
-            y = y + lora_deltas(*lora, "down_proj", h)[0].to(y.dtype)
-        return y
+            delta = lora_deltas(*lora, "down_proj", h)[0]
+        return self.down_proj(h, delta)
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, group=None):
         super().__init__()
         cfg = config
         norm = dict(epsilon=cfg.rms_norm_eps, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
                     device=device)
         self.input_norm = RMSNorm(cfg.hidden_size, **norm)
-        self.attention = LlamaAttention(cfg, device)
+        self.attention = LlamaAttention(cfg, device, group)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, **norm)
-        self.mlp = LlamaMLP(cfg, device)
+        self.mlp = LlamaMLP(cfg, device, group)
 
     def forward(self, x, rope, cache=None, layer=0, lora=None, chunk_ctx=None):
         x = x + self.attention(self.input_norm(x), rope, cache, layer, lora, chunk_ctx)
@@ -590,17 +653,20 @@ class LlamaModel(nn.Module):
     """Embedding + decoder stack + final norm over ``(batch, seq, hidden)``.
     ``layer_cls`` is the decoder block (JAX ``llama.py:759-798``: the Mixtral
     family swaps in its MoE block), a class attribute a subclass sets or an
-    argument."""
+    argument. ``group``: the tensor-parallel group (None: one device)."""
 
     layer_cls = LlamaDecoderLayer
 
-    def __init__(self, config: LlamaConfig, device=None, layer_cls=None):
+    def __init__(self, config: LlamaConfig, device=None, layer_cls=None, group=None):
         super().__init__()
         cfg = self.config = config
         layer_cls = layer_cls or self.layer_cls
+        self.group = group
+        self.tp, self.tp_rank = group_size(group), group_rank(group)
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype,
-                                       param_dtype=cfg.param_dtype, device=device)
-        self.layers = nn.ModuleList(layer_cls(cfg, device) for _ in range(cfg.num_layers))
+                                       param_dtype=cfg.param_dtype, device=device, group=group)
+        self.layers = nn.ModuleList(layer_cls(cfg, device, group=group)
+                                    for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, dtype=cfg.dtype,
                                   param_dtype=cfg.param_dtype, device=device)
         # the adapter pool (read-only here; the serving pool writes its
@@ -611,7 +677,7 @@ class LlamaModel(nn.Module):
             if cfg.lora_slots < 2:
                 raise ValueError(f"lora_slots must be >= 2 (slot 0 is the identity adapter), "
                                  f"got {cfg.lora_slots}")
-            self.lora_layout = lora_layout(cfg)
+            self.lora_layout = lora_layout(cfg, self.tp, self.tp_rank)
             self.register_buffer("lora_pool", torch.zeros(
                 (cfg.lora_slots, cfg.num_layers, self.lora_layout.per_layer),
                 dtype=torch.float32, device=device), persistent=False)
@@ -657,20 +723,22 @@ class LlamaModel(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """Model + LM head (tied to the embedding when ``tie_word_embeddings``).
-    ``forward`` returns logits ``(b, s, vocab)`` in the compute dtype.
-    ``layer_cls`` is the decoder block of its :class:`LlamaModel` (JAX
-    ``llama.py:853-857``)."""
+    ``forward`` returns logits ``(b, s, vocab)`` in the compute dtype, the
+    rank's vocabulary shard under a ``group``. ``layer_cls`` is the decoder
+    block of its :class:`LlamaModel` (JAX ``llama.py:853-857``)."""
 
     layer_cls = LlamaDecoderLayer
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, group=None):
         super().__init__()
         cfg = self.config = config
-        self.model = LlamaModel(cfg, device, layer_cls=self.layer_cls)
+        self.model = LlamaModel(cfg, device, layer_cls=self.layer_cls, group=group)
+        self.tp = self.model.tp
         if not cfg.tie_word_embeddings:
             self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size,
                                                 use_bias=False, dtype=cfg.dtype,
-                                                param_dtype=cfg.param_dtype, device=device)
+                                                param_dtype=cfg.param_dtype, device=device,
+                                                group=group, gather_output=False)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         if self.config.tie_word_embeddings:
@@ -714,7 +782,7 @@ class LlamaForCausalLM(nn.Module):
         ``cache_index`` and ``block_table``, when given, are the (zeroed)
         buffers to use for those fields."""
         cfg = self.config
-        hd, n_kv = cfg.head_dim_, cfg.num_kv_heads
+        hd, n_kv = cfg.head_dim_, cfg.kv_heads(self.model.tp)
         if cache_index is None:
             cache_index = torch.zeros((batch,), dtype=torch.int32, device=device)
         scales = None
@@ -746,7 +814,8 @@ def page_storage_dtype(config: LlamaConfig) -> torch.dtype:
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
-                device=None, model_cls=None, quantize=None) -> dict:
+                device=None, model_cls=None, quantize=None, tp_rank: int = 0,
+                tp_size: int = 1) -> dict:
     """Random weights from a seeded generator, in each weight's storage dtype
     (``param_dtype``; a router's is fp32), as a state dict for ``model_cls``
     (default :class:`LlamaForCausalLM`): kernels normal with std
@@ -754,12 +823,19 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     ``(E, in, out)`` has fan-in ``in``), the embedding normal(0, 1), norm
     scales 1. ``quantize`` (a ``QuantizationConfig``) quantizes each weight
     it targets as soon as it is drawn, so only one float weight exists at a
-    time."""
+    time. ``tp_rank``/``tp_size``: rank ``tp_rank``'s shard of the same
+    global weights (each drawn whole, then cut, one at a time: JAX
+    initialises the global array and shards it), the state dict of that
+    rank's model."""
     from neuronx_distributed_tpu_torch.quantization.core import quantize_leaf
 
     model_cls = model_cls or LlamaForCausalLM
     with torch.device("meta"):
-        meta = model_cls(dataclasses.replace(config, lora_rank=None)).state_dict()
+        model = model_cls(dataclasses.replace(config, lora_rank=None))
+    meta = model.state_dict()
+    if tp_size > 1 and quantize is not None:
+        raise NotImplementedError("int8 weights under tensor parallelism are not ported")
+    specs = param_partition_specs(model) if tp_size > 1 else {}
     out = {}
     for name, p in meta.items():
         shape = tuple(p.shape)
@@ -769,6 +845,8 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
         t = torch.randn(shape, generator=generator, dtype=p.dtype, device=device)
         if not name.endswith("embedding"):
             t.mul_(1.0 / math.sqrt(shape[-2] if ".experts." in name else shape[0]))
+        if specs.get(name):
+            t = shard_slice(t, specs[name], tp_rank, tp_size).clone()
         if quantize is None:
             out[name] = t
         else:

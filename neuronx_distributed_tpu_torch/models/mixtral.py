@@ -52,9 +52,12 @@ def mixtral_8x7b(**over) -> MixtralConfig:
 
 
 class MixtralDecoderLayer(nn.Module):
-    def __init__(self, config: MixtralConfig, device=None):
+    def __init__(self, config: MixtralConfig, device=None, group=None):
         super().__init__()
         cfg = config
+        if group is not None:
+            raise NotImplementedError("Mixtral (the MoE block and expert parallelism) under "
+                                      "tensor parallelism is not ported: ROADMAP queue A")
         if cfg.norm_type != "rmsnorm":
             raise NotImplementedError(f'norm_type={cfg.norm_type!r} (DBRX) is not ported yet: '
                                       "ROADMAP queue A")

@@ -1,1 +1,1 @@
-"""Sharded compute layers (tensor parallel degree 1 in this slice)."""
+"""Sharded compute layers, the TP regions and the parallel state over ``torch.distributed``."""

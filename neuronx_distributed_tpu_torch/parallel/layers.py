@@ -1,4 +1,4 @@
-"""Megatron-style compute layers at tensor-parallel degree 1.
+"""Megatron-style compute layers over a tensor-parallel group.
 
 Counterparts of ``neuronx_distributed_tpu/parallel/layers.py``:
 ``ColumnParallelLinear``, ``RowParallelLinear``, ``ParallelEmbedding``,
@@ -6,26 +6,44 @@ Counterparts of ``neuronx_distributed_tpu/parallel/layers.py``:
 package's layouts (``kernel`` is ``(in, out)``, the fused QKV kernels are
 ``(hidden, heads, head_dim)``) so a converted flax tree loads by renaming
 alone. Each layer stores its weights in ``param_dtype`` and computes in
-``dtype``, as flax's ``promote_dtype`` does. Meshes, sequence parallelism,
-LoRA and KV-head replication (``kv_size_multiplier > 1``) come with later
-slices.
+``dtype``, as flax's ``promote_dtype`` does.
+
+Tensor parallelism: a layer built with a ``group`` (a
+``torch.distributed`` group, ``parallel/mesh.py``) holds the rank's shard
+of its weights — the slice of the global weight along the dim the JAX
+package's ``nn.with_partitioning`` names (``tp_shard_dims``; a seeded init
+or a converted tree is cut with ``inference/partition.py``'s
+``shard_slice``) — and issues the collectives GSPMD would insert
+(``parallel/mappings.py``): a column layer's output stays sharded unless
+``gather_output``, a row layer all-reduces its partial sums once, the
+vocab-parallel embedding all-reduces a masked lookup. Without a group
+the layers are the single-device math, with no collective. Sequence
+parallelism is refused (the serving path does not use it).
 
 int8 weights (JAX ``layers.py:116-120, 163, 322``): a weight may be a
 :class:`QuantizedKernel` (int8 ``qweight`` in the float weight's layout and
 its fp32 ``scale``, put in place by :func:`adopt_quantized`), and the
 layer's product then runs through B5, the W8A16 GEMM (``kernels/w8a16.py``):
 the kernel on the card, JAX's ``dequantize_leaf`` then the matmul on the
-CPU. A GQA kernel ``(H, N, D)`` runs as ``(H, N*D)``.
+CPU. A GQA kernel ``(H, N, D)`` runs as ``(H, N*D)``. Not under a group
+of more than one rank.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from neuronx_distributed_tpu_torch.kernels.w8a16 import int8_linear
+from neuronx_distributed_tpu_torch.parallel.mappings import (
+    copy_to_tensor_parallel_region,
+    gather_from_tensor_parallel_region,
+    reduce_from_tensor_parallel_region,
+    scatter_to_tensor_parallel_region,
+)
+from neuronx_distributed_tpu_torch.parallel.mesh import group_rank, group_size
 
 
 class QuantizedKernel(nn.Module):
@@ -56,6 +74,9 @@ def adopt_quantized(model: nn.Module, state) -> None:
             raise KeyError(f"{key} has no {base}.scale")
         mod_name, _, attr = base.rpartition(".")
         mod = model.get_submodule(mod_name)
+        if getattr(mod, "tp", 1) > 1:
+            raise NotImplementedError(f"{key}: int8 weights under tensor parallelism are not "
+                                      f"ported (ROADMAP queue A)")
         old = mod._parameters.get(attr)
         if old is None:
             raise KeyError(f"{base} is no float weight of the model")
@@ -78,96 +99,225 @@ def _compute_dtype(x: torch.Tensor, w: torch.Tensor,
     return dtype if dtype is not None else torch.promote_types(x.dtype, w.dtype)
 
 
-class ColumnParallelLinear(nn.Module):
-    """``y = x @ kernel (+ bias)``, kernel ``(in, out)``."""
+def divide(numerator: int, denominator: int) -> int:
+    """JAX ``divide``: the quotient, or the divisibility error."""
+    if numerator % denominator != 0:
+        raise ValueError(f"{numerator} is not divisible by {denominator}")
+    return numerator // denominator
+
+
+def _no_sequence_parallel(sequence_parallel: bool) -> None:
+    if sequence_parallel:
+        raise NotImplementedError(
+            "sequence parallelism is not ported: the serving path does not use it "
+            "(ROADMAP queue A, A9)")
+
+
+def _product(x: torch.Tensor, k, dt: torch.dtype) -> torch.Tensor:
+    if isinstance(k, QuantizedKernel):
+        return int8_linear(x.to(dt), k.qweight, k.scale)
+    return x.to(dt) @ k.to(dt)
+
+
+class _Sharded(nn.Module):
+    """A layer over an optional TP group: ``tp``/``tp_rank`` its degree and
+    rank (1/0 without a group). ``tp_shard_dims``: each weight's sharded
+    dim in the global layout (None: replicated)."""
+
+    tp_shard_dims: Dict[str, Optional[int]] = {}
+
+    def _bind(self, group) -> None:
+        self.group = group
+        self.tp, self.tp_rank = group_size(group), group_rank(group)
+
+
+class ColumnParallelLinear(_Sharded):
+    """``y = x @ kernel (+ bias)``, kernel ``(in, out)`` sharded over the
+    output features; ``gather_output`` all-gathers the sharded output."""
+
+    tp_shard_dims = {"kernel": 1, "bias": 0}
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None,
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, device=None, group=None,
+                 gather_output: bool = False, sequence_parallel: bool = False):
         super().__init__()
+        _no_sequence_parallel(sequence_parallel)
+        self._bind(group)
         self.dtype = dtype
-        self.kernel = _param((in_features, features), param_dtype, device)
-        self.bias = _param((features,), param_dtype, device) if use_bias else None
+        self.gather_output = gather_output
+        local = divide(features, self.tp)
+        self.kernel = _param((in_features, local), param_dtype, device)
+        self.bias = _param((local,), param_dtype, device) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(x, self.kernel, self.dtype)
-        k = self.kernel
-        if isinstance(k, QuantizedKernel):
-            y = int8_linear(x.to(dt), k.qweight, k.scale)
-        else:
-            y = x.to(dt) @ k.to(dt)
+        y = _product(copy_to_tensor_parallel_region(x, self.group), self.kernel, dt)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        if self.gather_output:
+            y = gather_from_tensor_parallel_region(y, self.group, -1)
+        return y
+
+
+class RowParallelLinear(_Sharded):
+    """``y = x @ kernel (+ bias)``, kernel ``(in, out)`` sharded over the
+    input features: each rank's partial sum is all-reduced once, after
+    ``partial`` (a rank-local addend, the LoRA delta, JAX ``:166-169``) is
+    added to it; the bias is replicated and added after the reduction.
+    ``input_is_parallel=False`` takes a replicated input and keeps the
+    rank's slice."""
+
+    tp_shard_dims = {"kernel": 0, "bias": None}
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None,
+                 param_dtype: torch.dtype = torch.float32, device=None, group=None,
+                 input_is_parallel: bool = True, sequence_parallel: bool = False):
+        super().__init__()
+        _no_sequence_parallel(sequence_parallel)
+        self._bind(group)
+        self.dtype = dtype
+        self.input_is_parallel = input_is_parallel
+        self.kernel = _param((divide(in_features, self.tp), features), param_dtype, device)
+        self.bias = _param((features,), param_dtype, device) if use_bias else None
+
+    def forward(self, x: torch.Tensor, partial: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dt = _compute_dtype(x, self.kernel, self.dtype)
+        if not self.input_is_parallel:
+            x = scatter_to_tensor_parallel_region(x, self.group, -1)
+        y = _product(x, self.kernel, dt)
+        if partial is not None:
+            y = y + partial.to(y.dtype)
+        y = reduce_from_tensor_parallel_region(y, self.group)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
 
 
-class RowParallelLinear(ColumnParallelLinear):
-    """Same math as :class:`ColumnParallelLinear` at TP=1 (the reduction
-    over the sharded input dim is a no-op on one device)."""
+class ParallelEmbedding(_Sharded):
+    """Embedding table ``(num_embeddings, features)`` sharded over the
+    vocabulary (JAX ``shard_over="vocab"``): a masked lookup of the rank's
+    rows, then an all-reduce. ``attend`` gives the tied-embedding logits
+    ``x @ E.T``, vocab-sharded like a ``gather_output=False`` head."""
 
-
-class ParallelEmbedding(nn.Module):
-    """Embedding table ``(num_embeddings, features)``; ``attend`` gives the
-    tied-embedding logits ``x @ E.T``."""
+    tp_shard_dims = {"embedding": 0}
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype: Optional[torch.dtype] = None,
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, device=None, group=None):
         super().__init__()
+        self._bind(group)
         self.dtype = dtype
-        self.embedding = _param((num_embeddings, features), param_dtype, device)
+        self.embedding = _param((divide(num_embeddings, self.tp), features), param_dtype,
+                                device)
 
     def _table(self) -> torch.Tensor:
         return self.embedding if self.dtype is None else self.embedding.to(self.dtype)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self._table()[ids]
+        e = self._table()
+        if self.group is None:
+            return e[ids]
+        rows = e.shape[0]
+        local = ids - self.tp_rank * rows
+        mine = (local >= 0) & (local < rows)
+        y = torch.where(mine[..., None], e[local.clamp(0, rows - 1)], 0)
+        return reduce_from_tensor_parallel_region(y, self.group)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         e = self._table()
-        return x.to(e.dtype) @ e.T
+        return copy_to_tensor_parallel_region(x.to(e.dtype), self.group) @ e.T
 
 
-class GQAQKVColumnParallelLinear(nn.Module):
-    """Fused Q, K, V projections with grouped-query attention. K/V kernels
-    stay compact at ``num_kv_heads``; returns ``(b, s, heads, head_dim)``
-    tensors."""
+class GQAQKVColumnParallelLinear(_Sharded):
+    """Fused Q, K, V projections with grouped-query attention; returns the
+    rank's heads as ``(b, s, heads, head_dim)`` tensors. The K/V kernels
+    are stored compact at ``num_kv_heads``; with ``kv_size_multiplier > 1``
+    they stay replicated and the forward repeats each head that many times
+    (JAX ``:280-373``) before taking the rank's slice, so every rank holds
+    whole KV heads. Raises JAX's divisibility errors."""
 
     def __init__(self, hidden: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, use_bias: bool = False,
                  dtype: Optional[torch.dtype] = None,
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, device=None, group=None,
+                 kv_size_multiplier: int = 1, sequence_parallel: bool = False):
         super().__init__()
+        _no_sequence_parallel(sequence_parallel)
+        self._bind(group)
+        tp = self.tp
+        if num_heads % tp != 0:
+            raise ValueError(f"num_heads {num_heads} not divisible by tp {tp}")
+        if (num_kv_heads * kv_size_multiplier) % tp != 0:
+            raise ValueError(
+                f"num_kv_heads*kv_size_multiplier ({num_kv_heads}*{kv_size_multiplier}) must "
+                f"be divisible by tp {tp}; raise kv_size_multiplier")
         self.dtype = dtype
-        self.num_heads, self.num_kv_heads, self.head_dim = num_heads, num_kv_heads, head_dim
-        self.q_kernel = _param((hidden, num_heads, head_dim), param_dtype, device)
-        self.k_kernel = _param((hidden, num_kv_heads, head_dim), param_dtype, device)
-        self.v_kernel = _param((hidden, num_kv_heads, head_dim), param_dtype, device)
+        self.head_dim, self.kv_size_multiplier = head_dim, kv_size_multiplier
+        # the rank's heads
+        self.num_heads = num_heads // tp
+        self.num_kv_heads = num_kv_heads * kv_size_multiplier // tp
+        compact = kv_size_multiplier > 1
+        stored_kv = num_kv_heads if compact else self.num_kv_heads
+        kv_dim = None if compact else 1
+        self.tp_shard_dims = {"q_kernel": 1, "k_kernel": kv_dim, "v_kernel": kv_dim,
+                              "q_bias": 0, "k_bias": kv_dim and 0, "v_bias": kv_dim and 0}
+        self.q_kernel = _param((hidden, self.num_heads, head_dim), param_dtype, device)
+        self.k_kernel = _param((hidden, stored_kv, head_dim), param_dtype, device)
+        self.v_kernel = _param((hidden, stored_kv, head_dim), param_dtype, device)
         self.use_bias = use_bias
         if use_bias:
-            self.q_bias = _param((num_heads, head_dim), param_dtype, device)
-            self.k_bias = _param((num_kv_heads, head_dim), param_dtype, device)
-            self.v_bias = _param((num_kv_heads, head_dim), param_dtype, device)
+            self.q_bias = _param((self.num_heads, head_dim), param_dtype, device)
+            self.k_bias = _param((stored_kv, head_dim), param_dtype, device)
+            self.v_bias = _param((stored_kv, head_dim), param_dtype, device)
+
+    def _kv_heads(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        """The rank's KV heads of a compact (replicated) tensor."""
+        if self.kv_size_multiplier == 1:
+            return t
+        t = t.repeat_interleave(self.kv_size_multiplier, dim=axis)
+        n = self.num_kv_heads
+        return t.narrow(axis, self.tp_rank * n, n)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         dt = _compute_dtype(x, self.q_kernel, self.dtype)
-        x = x.to(dt)
+        x = copy_to_tensor_parallel_region(x.to(dt), self.group)
         hidden = x.shape[-1]
         out = []
         for name, heads in (("q", self.num_heads), ("k", self.num_kv_heads),
                             ("v", self.num_kv_heads)):
             k = getattr(self, f"{name}_kernel")
-            width = heads * self.head_dim
             if isinstance(k, QuantizedKernel):
+                width = k.qweight.shape[1] * self.head_dim
                 sc = k.scale.reshape(1, width) if k.scale.dim() else k.scale
                 y = int8_linear(x, k.qweight.reshape(hidden, width), sc)
+                y = y.reshape(*x.shape[:-1], -1, self.head_dim)
             else:
-                y = x @ k.to(dt).reshape(hidden, width)
-            y = y.reshape(*x.shape[:-1], heads, self.head_dim)
+                kk = k.to(dt)
+                if name != "q":
+                    kk = self._kv_heads(kk, 1)
+                y = (x @ kk.reshape(hidden, heads * self.head_dim)).reshape(
+                    *x.shape[:-1], heads, self.head_dim)
+            if name != "q" and isinstance(k, QuantizedKernel):
+                y = self._kv_heads(y, -2)
             if self.use_bias:
-                y = y + getattr(self, f"{name}_bias").to(y.dtype)
+                bias = getattr(self, f"{name}_bias").to(y.dtype)
+                y = y + (bias if name == "q" else self._kv_heads(bias, 0))
             out.append(y)
         return out[0], out[1], out[2]
+
+
+def tp_shard_dims(model: nn.Module) -> Dict[str, Optional[int]]:
+    """Each weight of ``model`` (state-dict name) that a TP layer shards:
+    its dim in the global layout (None: replicated). Weights outside the
+    TP layers (norms, routers) are absent: replicated."""
+    out: Dict[str, Optional[int]] = {}
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, _Sharded):
+            for attr, dim in mod.tp_shard_dims.items():
+                out[f"{prefix}.{attr}" if prefix else attr] = dim
+    return out
 
 
 class RMSNorm(nn.Module):

@@ -1,0 +1,216 @@
+"""Tensor-parallel regions over a ``torch.distributed`` group.
+
+Counterpart of ``neuronx_distributed_tpu/parallel/mappings.py``. The JAX
+file is thin because JAX differentiates through its collectives under one
+global view; torch's autograd sees only the rank's own tensors, so each
+region here is a ``torch.autograd.Function`` with Megatron's conjugate
+backward (the reference ``mappings.py:165-338``):
+
+================================  =================  ====================
+region                            forward            backward
+================================  =================  ====================
+``copy_to_tensor_parallel``       identity           all-reduce
+``reduce_from_tensor_parallel``   all-reduce         identity
+``scatter_to_tensor_parallel``    keep own slice     all-gather
+``gather_from_tensor_parallel``   all-gather         keep own slice
+``scatter_to_sequence_parallel``  keep own slice     all-gather
+``gather_from_sequence_parallel`` all-gather         reduce-scatter
+``reduce_scatter_to_sequence_p``  reduce-scatter     all-gather
+================================  =================  ====================
+
+``all_gather``, ``reduce_scatter`` and ``all_reduce`` are the plain
+collectives with the same conjugates. Every function takes the group
+(``None`` is no group: the identity, no collective) and issues its
+collective at every group size, 1 included, so a degree-1 group really
+runs its backend. The expert all-to-all and the pipeline's p2p sends are
+not here yet.
+
+Both backends take CUDA tensors as they are (gloo copies through the
+host itself, and cannot run inside a CUDA graph capture; NCCL can).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from neuronx_distributed_tpu_torch.parallel.mesh import group_rank, group_size
+
+
+# the group's own methods rather than torch.distributed's functions: those
+# refuse or rename a group made outside the default world (the thread-rank
+# launch) from one torch release to the next
+def _ar(t, group) -> None:
+    group.allreduce([t]).wait()
+
+
+def _ag(out, t, group) -> None:
+    group._allgather_base(out, t).wait()
+
+
+def _rs(out, t, group) -> None:
+    group._reduce_scatter_base(out, t).wait()
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    # bool travels as uint8 (neither backend reduces or gathers bool)
+    return t.to(torch.uint8) if t.dtype == torch.bool else t
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group, as a new tensor."""
+    y = _wire(x).contiguous().clone()
+    _ar(y, group)
+    return y.to(x.dtype)
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' tensors concatenated along ``dim``, in rank order."""
+    n = group_size(group)
+    d = dim % x.dim()
+    src = _wire(x).contiguous()
+    # the ranks' tensors stacked on dim 0
+    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype, device=src.device)
+    _ag(out, src, group)
+    out = out.view(n, *src.shape)
+    return out.movedim(0, d).flatten(d, d + 1).to(x.dtype)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group, each rank keeping its slice along ``dim``."""
+    n = group_size(group)
+    d = dim % x.dim()
+    if x.shape[d] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[d]} does not split over {n} ranks")
+    src = x.movedim(d, 0).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype, device=src.device)
+    _rs(out, src, group)
+    return out.movedim(0, d)
+
+
+def local_slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's contiguous slice of ``x`` along ``dim``."""
+    n, r = group_size(group), group_rank(group)
+    d = dim % x.dim()
+    if x.shape[d] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[d]} does not split over {n} ranks")
+    c = x.shape[d] // n
+    return x.narrow(d, r * c, c).contiguous()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return local_slice(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return local_slice(g, ctx.dim, ctx.group), None, None
+
+
+class _GatherReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
+# --- tensor-parallel regions (reference mappings.py:165-235) ----------------
+
+def copy_to_tensor_parallel_region(x: torch.Tensor, group) -> torch.Tensor:
+    """A replicated activation entering a TP computation: identity forward,
+    all-reduced gradient."""
+    return x if group is None else _Copy.apply(x, group)
+
+
+def reduce_from_tensor_parallel_region(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce partial sums out of a TP region."""
+    return x if group is None else _Reduce.apply(x, group)
+
+
+def scatter_to_tensor_parallel_region(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Keep this rank's slice of a replicated activation along ``dim``."""
+    return x if group is None else _Scatter.apply(x, dim, group)
+
+
+def gather_from_tensor_parallel_region(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """All-gather the ranks' outputs along ``dim``."""
+    return x if group is None else _Gather.apply(x, dim, group)
+
+
+# --- sequence-parallel regions (reference mappings.py:237-309) --------------
+
+def scatter_to_sequence_parallel_region(x: torch.Tensor, group,
+                                        seq_dim: int = 1) -> torch.Tensor:
+    return x if group is None else _Scatter.apply(x, seq_dim, group)
+
+
+def gather_from_sequence_parallel_region(x: torch.Tensor, group,
+                                         seq_dim: int = 1) -> torch.Tensor:
+    return x if group is None else _GatherReduceScatter.apply(x, seq_dim, group)
+
+
+def reduce_scatter_to_sequence_parallel_region(x: torch.Tensor, group,
+                                               seq_dim: int = 1) -> torch.Tensor:
+    return x if group is None else _ReduceScatter.apply(x, seq_dim, group)
+
+
+# --- the plain collectives ---------------------------------------------------
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return x if group is None else _GatherReduceScatter.apply(x, dim, group)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return x if group is None else _ReduceScatter.apply(x, dim, group)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _Reduce.apply(x, group)

@@ -1145,3 +1145,117 @@ def test_fleet_predictions_are_the_rehearsals(smoke):
     counts = rehearsal.predicted(passes)
     assert counts == smoke.FLEET_PREDICTED
     assert smoke.fleet_gates(passes, counts) == []
+
+
+# --- phase 4j: tensor-parallel serving --------------------------------------------------
+
+def _tp_readings(smoke, over=None):
+    """Readings of a good phase 4j run (t1 both legs, t2 two ranks, the
+    small model's TP=1 reference), with ``over`` {(path, key): value}
+    replacing one reading (path "t1/nccl", "t2/0/serve", "t2/1", ...)."""
+    n, new = len(smoke.SERVE_PROMPT_LENS), smoke.MAX_NEW_TOKENS
+    streams = {i: [i + 1] * new for i in range(n)}
+    leg = dict(streams=dict(streams), steady_blocks=4, steady_ok=True, host_ops=[2, 2, 3],
+               requests=n, nonfinite=0, launches={"flash_block_forward": 8,
+                                                   "paged_decode_attention": 128},
+               kv_bytes={"kv_bytes": 100, "kv_bytes_global": 100, "kv_slab_bytes": 90})
+    t1 = {"plain": dict(leg), "nccl": dict(leg, collective_work={"Memcpy DtoD": 528},
+                                           nccl_kernels={}, block_steps=8, group_backend="nccl")}
+    small_ref = {"logits": [[0.5, -1.0], [2.0, 0.25]], "streams": {0: [3, 4], 1: [5]}}
+
+    def rank(r):
+        serve = dict(requests=n, generated_tokens=n * new, nonfinite=0, digest="ab" * 8,
+                     digests=["ab" * 8] * 2,
+                     kv_bytes={"kv_bytes": 50, "kv_bytes_global": 100, "kv_slab_bytes": 45},
+                     weight_bytes=52, launches=dict(leg["launches"]))
+        return dict(rank=r, backend="gloo", local_heads=list(smoke.TP_LOCAL_HEADS),
+                    weight_bytes_tp1=100, layers=32, serve=serve,
+                    small={"logits": [[0.5 + 1e-6, -1.0], [2.0, 0.25]],
+                           "streams": {"0": [3, 4], "1": [5]}},
+                    held={"flash_fwd": {"max_abs_err": 1e-3}, "paged_decode": {"ok": True}})
+
+    t2 = {"ranks": [rank(0), rank(1)], "layers": None}
+    for (path, key), value in (over or {}).items():
+        node = {"t1": t1, "t2": t2}[path.split("/")[0]]
+        for part in path.split("/")[1:]:
+            node = node["ranks"][int(part)] if part.isdigit() else node[part]
+        node[key] = value
+    return t1, t2, small_ref
+
+
+def test_tp_gates_hold_on_a_good_run(smoke):
+    assert smoke.tp_gates(*_tp_readings(smoke)) == []
+
+
+@pytest.mark.parametrize("path,key,value,says", [
+    ("t2/1/serve", "digests", ["ab" * 8, "cd" * 8], "digests differ across ranks"),
+    ("t2/1/serve", "digest", "cd" * 8, "digests differ"),
+    ("t2/0/small", "streams", {"0": [3, 9], "1": [5]}, "small-model greedy streams differ"),
+    ("t2/1/small", "logits", [[0.5 + 1e-3, -1.0], [2.0, 0.25]], "small-model logits differ"),
+    ("t1/nccl", "streams", {0: [0]}, "(t1) streams through the NCCL group differ"),
+    ("t1/nccl", "collective_work", {"Memcpy DtoD": 7}, "holds no more device work"),
+    ("t1/nccl", "steady_ok", False, "(t1 nccl) steady decode blocks are not 2 host ops"),
+    ("t1/plain", "requests", 7, "(t1 plain) 7 requests"),
+    ("t2/0/serve", "generated_tokens", 100, "(t2 rank 0) 8 requests, 100 tokens"),
+    ("t2/0/serve", "kv_bytes", {"kv_bytes": 60, "kv_bytes_global": 100}, "kv_bytes 60"),
+    ("t2/1/serve", "weight_bytes", 56, "weight bytes 56"),
+    ("t2/0", "local_heads", [32, 8], "local heads [32, 8]"),
+    ("t2/1/serve", "launches", {"flash_block_forward": 8}, "paged_decode_attention never"),
+    ("t2/0/held", "flash_fwd", {"max_abs_err": 1.0}, "B1 at local heads differs"),
+    ("t2/1/held", "paged_decode", {"ok": False}, "B2 at local heads is not held"),
+    ("t2/0", "backend", "nccl", "(t2 rank 0) group backend nccl"),
+])
+def test_tp_gates_catch_each_fault(smoke, path, key, value, says):
+    """A digest that differs between the ranks, a small-model stream or
+    logit off TP=1's, NCCL streams off the plain ones, a replay through the
+    NCCL group with less than one collective copy a step beyond the plain
+    block's, extra host ops, a lost request or token, a rank holding
+    more than 0.55 of TP=1's KV or weight bytes, the wrong heads, a kernel
+    not launched or not held at the rank's heads: each fails phase 4j, and
+    the message says which."""
+    problems = smoke.tp_gates(*_tp_readings(smoke, {(path, key): value}))
+    assert problems and any(says in p for p in problems), problems
+
+
+def test_tp_passes_rehearse_on_the_cpu(smoke):
+    """Phase 4j's passes on a small model on the CPU, TP=2 as two thread
+    ranks over gloo: the serve workload's digest equal on both ranks and to
+    TP=1's (fp32), half the KV bytes a rank, the small-model streams equal
+    TP=1's and logits within ``TP_SMALL_TOL``."""
+    import dataclasses
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        init_params,
+    )
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=1024, dtype=torch.float32)
+    small = dataclasses.replace(cfg, max_seq_len=256)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+
+    def run(r, tp):
+        sd = init_params(cfg, torch.Generator().manual_seed(0), tp_rank=r, tp_size=tp)
+        lm = CausalLM(cfg, sd, LlamaForCausalLM, device="cpu", **smoke.TP_SERVE_LM)
+        st = smoke.tp_serve_pass(lm, "cpu", (), fused=False)
+        sd = init_params(small, torch.Generator().manual_seed(0), tp_rank=r, tp_size=tp)
+        return st, smoke.tp_small_pass(CausalLM(small, sd, LlamaForCausalLM, device="cpu",
+                                                **smoke.TP_SMALL_LM))
+
+    try:
+        one = run(0, 1)
+        two = mesh.run_in_threads(2, lambda r: run(r, 2))
+    finally:
+        torch.set_num_threads(threads)
+    assert one[0]["requests"] == len(smoke.SERVE_PROMPT_LENS)
+    for st, sm in two:
+        assert st["digest"] == one[0]["digest"]
+        assert st["kv_bytes"]["kv_bytes"] <= smoke.TP_SHARE_MAX * one[0]["kv_bytes"]["kv_bytes"]
+        assert st["weight_bytes"] <= smoke.TP_SHARE_MAX * one[0]["weight_bytes"]
+        assert sm["streams"] == one[1]["streams"]
+        assert np.abs(np.asarray(sm["logits"]) - np.asarray(one[1]["logits"])).max() \
+            <= smoke.TP_SMALL_TOL

@@ -791,7 +791,7 @@ def test_two_engines_over_one_causal_lm_on_the_card(cuda):
     held = torch.cuda.memory_allocated(cuda)
     b.close()              # freed: one spare is kept
     torch.cuda.synchronize(cuda)
-    assert held - torch.cuda.memory_allocated(cuda) >= lm.kv_cache_bytes()
+    assert held - torch.cuda.memory_allocated(cuda) >= lm.kv_cache_bytes()["kv_bytes"]
 
 
 def test_captured_programs_on_cuda_equal_the_eager_route(cuda):
@@ -930,3 +930,24 @@ def test_int8_mixtral_on_cuda_matches_cpu(cuda):
     modes (``chip_smoke.quant_small_check``)."""
     r = smoke.quant_small_check(cuda)
     assert r["streams_equal"] and r["launches"] > 0
+
+
+def test_tp_degree_one_nccl_leg_at_two_layers(cuda):
+    """Phase 4j's (t1) at Llama-3-8B widths cut to 2 layers: the serve
+    workload through ``initialize_model_parallel(1)`` over a one-rank NCCL
+    group gives the no-group streams bit for bit, a steady decode block is
+    one replay and one fetch, and the captured block holds the collectives'
+    device work (at least one copy a step beyond the plain block's: at one
+    rank NCCL's all-gather is a device copy)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(smoke.serve_config(), num_layers=2)
+    params = tl.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    t1 = smoke.tp_t1(cfg, cuda, params, (flash_block_forward, paged_decode_attention))
+    nc, pl = t1["nccl"], t1["plain"]
+    assert nc["streams"] == pl["streams"]
+    assert nc["group_backend"] == "nccl"
+    assert sum(nc["collective_work"].values()) >= nc["block_steps"]
+    for st in (nc, pl):
+        assert st["steady_blocks"] and st["steady_ok"]
+        assert st["launches"]["flash_block_forward"] and st["launches"]["paged_decode_attention"]

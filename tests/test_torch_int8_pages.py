@@ -77,7 +77,8 @@ def test_int8_decode_matches_jax_across_a_page_boundary():
     half = CausalLM(bf16, sd, tl.LlamaForCausalLM, device="cpu", **{**kw, "page_dtype": None})
     pages = tlm.config.page_pool_pages + 1
     scales = 2 * tcfg.num_layers * pages * tcfg.num_kv_heads * 4
-    assert tlm.kv_cache_bytes() == half.kv_cache_bytes() // 2 + scales
+    assert (tlm.kv_cache_bytes()["kv_bytes"]
+            == half.kv_cache_bytes()["kv_bytes"] // 2 + scales)
 
 
 def test_window_write_leaves_a_neighbour_rows_pages_alone():

@@ -97,6 +97,69 @@ def test_tenancy_modules_stand_alone():
         assert set(_imported_roots(path)) <= allowed, mod
 
 
+def test_parallel_core_modules_stand_alone():
+    """The rank layout and launchers, the TP regions and the serving specs
+    are the port's own: the standard library, numpy, torch and the port
+    only."""
+    allowed = {"__future__", "dataclasses", "datetime", "os", "re", "threading", "typing",
+               "numpy", "torch", "neuronx_distributed_tpu_torch"}
+    for mod in ("parallel.mesh", "parallel.mappings", "inference.partition"):
+        assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
+        path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
+        assert set(_imported_roots(path)) <= allowed, mod
+
+
+def test_a_bound_local_rank_picks_its_card(monkeypatch):
+    """A process-per-rank launch binds its local rank: the default device
+    is ``cuda:{local_rank}``, made current; a rank with no card of its own
+    raises; an explicit device is taken as it is; without a GPU it raises
+    as before."""
+    picked = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", picked.append)
+    try:
+        _device.bind_local_rank(1)
+        assert _device.resolve_device() == torch.device("cuda:1")
+        assert picked == [torch.device("cuda:1")]
+        assert _device.resolve_device("cpu") == torch.device("cpu")
+        assert _device.resolve_device("cuda:0") == torch.device("cuda:0")
+        _device.bind_local_rank(2)
+        with pytest.raises(RuntimeError, match="local rank 2 has no card"):
+            _device.resolve_device()
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _device.resolve_device()
+    finally:
+        _device.bind_local_rank(None)
+    assert picked == [torch.device("cuda:1")]
+
+
+def test_gloo_group_refuses_captured_programs_on_cuda(monkeypatch):
+    """A gloo group's collectives cannot run inside a CUDA graph: a
+    ``CausalLM`` on the card with one raises unless the caller asks for
+    ``capture_programs=False``, and its fused block raises (the caller
+    serves with ``fused=False``). Nothing falls back on its own."""
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    cfg, params, model_cls = _tiny_lm_args()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+
+    def rank(r):
+        g = mesh.get_tensor_model_parallel_group()
+        lm = CausalLM(cfg, params, model_cls, buckets=(8,), device="cpu", tp_group=g)
+        lm.device = torch.device("cuda")   # the checks read only the device's kind
+        with pytest.raises(ValueError, match="capture_programs=False"):
+            lm._check_capturable()
+        with pytest.raises(ValueError, match="fused=False"):
+            lm.compile_session_decode_fused(4)
+        lm.capture_programs = False
+        lm._check_capturable()
+        return lm.tp
+
+    assert mesh.run_in_threads(1, rank) == [1]
+
+
 def _tiny_lm_args():
     cfg = tl.LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1,
                          num_heads=4, num_kv_heads=2, max_seq_len=32, dtype=torch.float32)

@@ -44,7 +44,9 @@ Phases, each fatal on failure (exit code 1, no result line):
            the kernels line;
 3. check   a small fp32 model served through ``CausalLM`` on the GPU
            (kernels) and on the CPU (twins): logits must agree; the same
-           model trained two steps on each: losses and weights must agree;
+           model trained two steps on each, five ways (full remat,
+           ``"attention"`` remat, plain AdamW, LoRA, LoRA with dropout fed the
+           same CPU-drawn masks): losses and trained weights must agree;
            the same model (head_dim 128, then 96) behind a ``ServeEngine``
            whose decode blocks are captured CUDA graphs and one that steps
            token by token, greedy and sampled requests: bit-identical
@@ -167,12 +169,33 @@ Phases, each fatal on failure (exit code 1, no result line):
            there. Printed: both decode block times of (t1), (t2)'s token
            match against (t1) (not gated: a bf16 all-reduce sums in another
            order), the gathered page read, the card's peak;
+4k. train loop Llama-3-8B at full width and depth (bf16 frozen base from a
+           seed) fine-tuned with LoRA (r 16, alpha 32, dropout 0.05, the
+           five default targets) through the loop a user runs: token shards
+           written from a seeded stream, the native ``TokenShardDataset``,
+           ``train_loop`` (6 steps of 2 x 4096 tokens, B4 on the adapters,
+           async saves after steps 3 and 6), a crash that leaves the last
+           save without its ``done`` marker, then a model, optimizer, loader
+           and generator built from nothing resuming through
+           ``maybe_resume`` (verified) from step 3 and running steps 4-6.
+           Gates: the resumed losses, grad norms and adapters bit-identical
+           to the uninterrupted run's, the base unchanged bit for bit, the
+           last epoch's mean loss below the first's, B1, B3a, B3b and B4
+           launched, B4 on an adapter leaf equal to its twin, the peak below
+           the card's memory, a flipped payload byte caught by
+           ``verify=True``. Printed: step ms, the save's synchronous and
+           background ms, load ms, bytes on disk, B4's launches and ms a
+           step, peak bytes, tokens/s;
 5. train   Llama-3-8B widths cut to 4 layers (bf16 weights, fp32 master
-           AdamW, clipping, activation checkpointing, the optimizer kernel)
-           on a repeated 2 x 4096-token batch: 2 warm-up steps, then 5 timed
-           steps between zeroing and reading the counters; every training
-           kernel must have run, every loss and grad norm be finite, the
-           loss fall, and the peak memory stay below the card's.
+           AdamW, clipping, activation checkpointing, every update through
+           ``update_and_params_local``: the optimizer kernel) on a repeated
+           2 x 4096-token batch: 2 warm-up steps, then 5 timed steps between
+           zeroing and reading the counters; every training kernel must have
+           run, every loss and grad norm be finite, the loss fall, and the
+           peak memory stay below the card's. Then (k2) the same cell under
+           ``remat_policy="attention"`` and with plain AdamW on the bf16
+           params: step ms, peak bytes, launches (B1's a layer), the loss
+           falling.
 
 ``--profile PATH`` repeats each trace and overload pass under
 ``torch.profiler`` (device activity only) for the device's busy share of
@@ -5423,10 +5446,14 @@ def train_batch(vocab: int, batch: int, seq: int, dev, seed: int = 7) -> dict:
             "labels": torch.as_tensor(ids[:, 1:].astype(np.int32), device=dev)}
 
 
-def build_trainer(cfg, dev, lr: float, params=None):
+def build_trainer(cfg, dev, lr: float, params=None, lora=None, master=True, adapters=None):
     """The training entry points a user calls: config -> model -> optimizer
-    -> state -> step (fp32 master AdamW, clipping at norm 1.0, the optimizer
-    kernel on)."""
+    -> state -> step (AdamW with fp32 master weights, or plain AdamW on the
+    params when ``master`` is False; clipping at norm 1.0). ``lora``: a
+    ``LoraConfig``'s fields (the base frozen, the adapters trained);
+    ``adapters``: a flat adapter tree to start from instead of the seeded
+    one. Returns ``(model, optimizer, state, step)``."""
+    from neuronx_distributed_tpu_torch.lora import LoraConfig
     from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
     from neuronx_distributed_tpu_torch.trainer import (
         create_train_state,
@@ -5438,54 +5465,377 @@ def build_trainer(cfg, dev, lr: float, params=None):
 
     nxd = neuronx_distributed_config(
         optimizer_config={"zero_one_enabled": True, "grad_clipping": True, "max_grad_norm": 1.0},
-        mixed_precision_config={"use_master_weights": True}, model_init_config={"seed": 0})
+        mixed_precision_config={"use_master_weights": master}, model_init_config={"seed": 0},
+        lora_config=None if lora is None else LoraConfig(**lora))
     model = initialize_parallel_model(nxd, lambda: LlamaForCausalLM(cfg), device=dev,
                                       params=params)
+    if adapters is not None:
+        model.bind_trainable({n: t.to(model.device) for n, t in adapters.items()})
     opt = initialize_parallel_optimizer(nxd, model, learning_rate=lr, weight_decay=0.01)
 
     def loss_fn(p, batch, rng):
         return model.apply(p, batch["ids"], batch["labels"], method="loss")
 
-    return model, create_train_state(model, opt), make_train_step(model, opt, loss_fn,
-                                                                  optimizer_kernel=True)
+    return model, opt, create_train_state(model, opt), make_train_step(model, opt, loss_fn)
+
+
+# the small model trained GPU vs CPU: each case's config and optimizer
+# (phase 3); the LoRA cases start from the same adapters on both devices
+# (drawn on the CPU, B nonzero) and the dropout case feeds both the same
+# keep-masks, drawn on the CPU
+TRAIN_CHECK_LORA = dict(r=16, lora_alpha=32.0)
+TRAIN_CHECK_CASES = (
+    ("full", dict(remat="full")),
+    ("attention", dict(remat="attention")),
+    ("plain_adamw", dict(remat="full", master=False)),
+    ("lora", dict(remat="full", lora=TRAIN_CHECK_LORA)),
+    ("lora_dropout", dict(remat="full", lora=dict(TRAIN_CHECK_LORA, lora_dropout=0.05))),
+)
+
+
+def check_adapters(params, lora: dict, seed: int = 5) -> dict:
+    """A flat adapter tree for the state dict ``params``, drawn on the CPU:
+    ``init_lora``'s A, and B ~ N(0, 0.01^2) (nonzero, so A trains from the
+    first step)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.lora import LoraConfig, init_lora
+    from neuronx_distributed_tpu_torch.lora.core import flat_lora
+
+    g = torch.Generator().manual_seed(seed)
+    flat = flat_lora(init_lora(params, LoraConfig(**lora), g))
+    return {n: t if n.endswith(".lora_a") else torch.randn(tuple(t.shape), generator=g) * 0.01
+            for n, t in flat.items()}
+
+
+def check_masks(adapters: dict, batch, keep: float, steps: int, seed: int = 6) -> list:
+    """Per step, a keep-mask per adapted weight (bool, the shape of the
+    layer's input), drawn on the CPU."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    b, s = batch["ids"].shape
+    fan_in = {n[: -len(".lora_a")]: t.shape[0] for n, t in adapters.items()
+              if n.endswith(".lora_a")}
+    return [{w: torch.rand((b, s, f), generator=g) < keep for w, f in sorted(fan_in.items())}
+            for _ in range(steps)]
 
 
 def train_check(dev, counters) -> dict:
     """Two training steps of the small fp32 model (sequence 256: the flash
-    gate) on ``dev`` (every training kernel launches) and on the CPU (the
-    twins), from the same weights: losses and every weight after step 2."""
+    gate) on ``dev`` and on the CPU from the same weights, in each of
+    ``TRAIN_CHECK_CASES``: losses and every trained weight after step 2
+    must agree, the loss fall, ``dev`` launch B1, B3a and B3b (and B4 but
+    under plain AdamW) and the CPU launch nothing."""
     import dataclasses
 
     import torch
 
     from neuronx_distributed_tpu_torch.models.llama import init_params
 
-    cfg = dataclasses.replace(small_config(), remat_policy="full")
-    params = init_params(cfg, torch.Generator().manual_seed(3))
-    runs = {}
-    for d in (dev, "cpu"):
-        before = {c.__name__: c.launches for c in counters}
-        model, state, step = build_trainer(cfg, d, TRAIN_CHECK_LR, params=params)
-        batch = train_batch(cfg.vocab_size, 2, cfg.max_seq_len, d, seed=8)
-        losses = []
-        for _ in range(2):
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))
-        runs[d] = (losses, {n: p.float().cpu() for n, p in state.params.items()},
-                   {c.__name__: c.launches - before[c.__name__] for c in counters})
-        del model, state, step
-    (gl, gp, launched), (cl, cp, cpu_launched) = runs[dev], runs["cpu"]
-    for name, n in launched.items():
-        check(n > 0, f"the small training check never launched {name}")
-    check(not any(cpu_launched.values()), f"the CPU run launched kernels: {cpu_launched}")
-    loss_err = max(abs(a - b) for a, b in zip(gl, cl))
-    param_err = max(float((gp[n] - cp[n]).abs().max()) for n in gp)
-    check(loss_err <= TOL_TRAIN_LOSS, f"small-model training losses differ GPU vs CPU by {loss_err}")
-    check(param_err <= TOL_TRAIN_PARAMS,
-          f"small-model weights after two steps differ GPU vs CPU by {param_err}")
-    check(gl[1] < gl[0], f"small-model loss did not fall: {gl}")
-    return dict(losses_gpu=gl, losses_cpu=cl, loss_max_abs_err=loss_err,
-                param_max_abs_err=param_err, launches=launched)
+    base = small_config()
+    params = init_params(base, torch.Generator().manual_seed(3))
+    out = {}
+    for name, case in TRAIN_CHECK_CASES:
+        cfg = dataclasses.replace(base, remat_policy=case["remat"])
+        lora, runs = case.get("lora"), {}
+        adapters = None if lora is None else check_adapters(params, lora)
+        for d in (dev, "cpu"):
+            before = {c.__name__: c.launches for c in counters}
+            model, _opt, state, step = build_trainer(cfg, d, TRAIN_CHECK_LR, params=params,
+                                                     lora=lora, master=case.get("master", True),
+                                                     adapters=adapters)
+            batch = train_batch(cfg.vocab_size, 2, cfg.max_seq_len, d, seed=8)
+            masks = [None, None]
+            if lora is not None and lora.get("lora_dropout"):
+                masks = check_masks(adapters, batch, 1.0 - lora["lora_dropout"], 2)
+            losses = []
+            for i in range(2):
+                state, m = step(state, batch, lora_masks=masks[i])
+                losses.append(float(m["loss"]))
+            runs[d] = (losses, {n: p.float().cpu() for n, p in state.params.items()},
+                       {c.__name__: c.launches - before[c.__name__] for c in counters})
+            del model, state, step
+        (gl, gp, launched), (cl, cp, cpu_launched) = runs[dev], runs["cpu"]
+        for kname, n in launched.items():
+            if not (kname == "fused_adamw_leaf" and name == "plain_adamw"):
+                check(n > 0, f"the small training check ({name}) never launched {kname}")
+        check(not any(cpu_launched.values()),
+              f"the CPU run ({name}) launched kernels: {cpu_launched}")
+        loss_err = max(abs(a - b) for a, b in zip(gl, cl))
+        param_err = max(float((gp[n] - cp[n]).abs().max()) for n in gp)
+        check(loss_err <= TOL_TRAIN_LOSS,
+              f"small-model training losses ({name}) differ GPU vs CPU by {loss_err}")
+        check(param_err <= TOL_TRAIN_PARAMS,
+              f"small-model weights after two steps ({name}) differ GPU vs CPU by {param_err}")
+        check(gl[1] < gl[0], f"small-model loss ({name}) did not fall: {gl}")
+        out[name] = dict(losses_gpu=gl, losses_cpu=cl, loss_max_abs_err=loss_err,
+                         param_max_abs_err=param_err, trained_tensors=len(gp), launches=launched)
+    return out
+
+
+# --- phase 4k: the training loop a user runs -------------------------------------
+
+# Llama-3-8B at full width and depth, LoRA on the five default targets, fp32
+# master AdamW on the adapters (B4), clipping 1.0, remat "full"; the corpus
+# 4 sequences of 4096 tokens in 2 shards (2 batches an epoch, reshuffled
+# each epoch), so the first and the last epoch's mean losses are over the
+# same tokens
+TRAIN_LOOP_BATCH, TRAIN_LOOP_SEQ = 2, 4096
+TRAIN_LOOP_ROWS, TRAIN_LOOP_SHARDS = 4, 2
+TRAIN_LOOP_STEPS, TRAIN_LOOP_SAVE_AT = 6, 3
+TRAIN_LOOP_LORA = dict(r=16, lora_alpha=32.0, lora_dropout=0.05)
+TRAIN_LOOP_LR = 1e-3
+TRAIN_LOOP_SEED = 17
+TRAIN_LOOP_COUNTERS = ("flash_block_forward", "flash_bwd_dkdv", "flash_bwd_dq",
+                       "fused_adamw_leaf")
+
+
+def train_loop_config():
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import llama3_8b
+
+    return llama3_8b(max_seq_len=TRAIN_LOOP_SEQ, dtype=torch.bfloat16,
+                     param_dtype=torch.bfloat16, remat_policy="full")
+
+
+def train_loop_shards(root: Path, vocab: int, seq: int, rows: int = TRAIN_LOOP_ROWS,
+                      shards: int = TRAIN_LOOP_SHARDS, seed: int = TRAIN_LOOP_SEED) -> list:
+    """The corpus as token shards, written from a seeded numpy stream."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.data import write_token_shard
+
+    rs = np.random.RandomState(seed)
+    paths = []
+    for i in range(shards):
+        p = root / f"corpus_{i}.tokens"
+        write_token_shard(str(p), rs.randint(0, vocab, (rows // shards, seq)).astype(np.int32))
+        paths.append(str(p))
+    return paths
+
+
+def _timed_step(step, dev, seconds: list):
+    """``step`` with its synced wall seconds appended to ``seconds``."""
+    def run(state, batch, **kw):
+        t = time.perf_counter()
+        out = step(state, batch, **kw)
+        _sync(dev)
+        seconds.append(time.perf_counter() - t)
+        return out
+    return run
+
+
+def _records(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def _tag_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def run_train_loop(cfg, dev, counters, root: Path, lora=TRAIN_LOOP_LORA, lr=TRAIN_LOOP_LR,
+                   batch=TRAIN_LOOP_BATCH, steps=TRAIN_LOOP_STEPS, save_at=TRAIN_LOOP_SAVE_AT,
+                   flush=None) -> dict:
+    """Phase 4k: token shards -> ``TokenShardDataset`` (native) ->
+    ``train_loop`` (``steps`` LoRA steps, an async save after step
+    ``save_at`` and one after the last) -> a crash in the last save (its
+    ``done`` marker gone) -> a model, optimizer, loader and generator built
+    from nothing, resumed through ``maybe_resume`` (verified) from the
+    newest done tag -> the remaining steps. The counters are zeroed just
+    before the first step and read after the resumed run. Returns the
+    readings; :func:`train_loop_gates` judges them."""
+    import shutil
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.checkpoint import core as ckpt
+    from neuronx_distributed_tpu_torch.data import TokenShardDataset
+    from neuronx_distributed_tpu_torch.examples.common import maybe_resume, train_loop
+    from neuronx_distributed_tpu_torch.optimizer.fused_kernel import (
+        fused_adamw_leaf,
+        fused_adamw_leaf_plain,
+        leaf_supported,
+    )
+
+    on_card = torch.device(dev).type == "cuda"
+    paths = train_loop_shards(root, cfg.vocab_size, cfg.max_seq_len)
+    ck = root / "ckpt"
+    t0 = time.perf_counter()
+    ds = TokenShardDataset(paths, batch_size=batch, shuffle_seed=TRAIN_LOOP_SEED, native=True)
+    model, opt, state, step = build_trainer(cfg, dev, lr, lora=lora)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    times_a: list = []
+    state, _ = train_loop(_timed_step(step, dev, times_a), state, iter(ds), steps,
+                          batch_size=batch, device=model.device, log_every=1,
+                          checkpoint_dir=str(ck), checkpoint_every=save_at,
+                          metrics_file=str(root / "run_a.jsonl"),
+                          metrics_out=str(root / "run_a_registry.json"), dataset=ds)
+    peak_run = torch.cuda.max_memory_allocated() if on_card else None
+    background = dict(ckpt.last_save_seconds)
+    run_a = _records(root / "run_a.jsonl")
+    save_ms = json.loads((root / "run_a_registry.json").read_text())["train_checkpoint_ms"]
+    adapters_a = {n: t.clone() for n, t in state.params.items()}
+    tags_after_run = sorted(p.name for p in ck.iterdir())
+    # the crash: the last save lost its completion marker
+    (ck / f"step_{steps}" / "done").unlink()
+    resume_tag = ckpt.latest_tag(str(ck))
+    tag_bytes = _tag_bytes(ck / resume_tag)
+    # a byte flipped in a copy of the payload must fail verification
+    flipped = root / "flipped"
+    shutil.copytree(ck / resume_tag, flipped / resume_tag)
+    payload = flipped / resume_tag / "state" / "tensors.safetensors"
+    data = bytearray(payload.read_bytes())
+    data[len(data) // 3] ^= 0x10
+    payload.write_bytes(bytes(data))
+    try:
+        ckpt.load_checkpoint(str(flipped), verify=True)
+        flip_caught = False
+    except ckpt.CheckpointIntegrityError:
+        flip_caught = True
+    shutil.rmtree(flipped)
+
+    # a fresh process state: model, optimizer, loader and generator from nothing
+    ds_b = TokenShardDataset(paths, batch_size=batch, shuffle_seed=TRAIN_LOOP_SEED, native=True)
+    model_b, opt_b, state_b, step_b = build_trainer(cfg, dev, lr, lora=lora)
+    base_unchanged = all(torch.equal(model.params[n], p) for n, p in model_b.params.items())
+    t = time.perf_counter()
+    state_b = maybe_resume(str(ck), state_b, dataset=ds_b, verify=True)
+    _sync(dev)
+    load_s = time.perf_counter() - t
+    resumed_at = int(state_b.step)
+    times_b: list = []
+    state_b, _ = train_loop(_timed_step(step_b, dev, times_b), state_b, iter(ds_b), steps,
+                            batch_size=batch, device=model_b.device, log_every=1,
+                            checkpoint_dir=str(ck), checkpoint_every=save_at,
+                            metrics_file=str(root / "run_b.jsonl"), dataset=ds_b)
+    launches = {c.__name__: c.launches for c in counters}
+    run_b = _records(root / "run_b.jsonl")
+    adapters_equal = all(torch.equal(state_b.params[n], t) for n, t in adapters_a.items())
+    base_still = all(torch.equal(model.params[n], p) for n, p in model_b.params.items())
+    peak_phase = torch.cuda.max_memory_allocated() if on_card else None
+
+    # B4 on the adapters, off the main path: one update of every leaf on
+    # copies (kernel route and the plain route), and one leaf against its twin
+    tx = opt.tx
+    g = torch.Generator(device=model.device).manual_seed(3)
+    grads = {n: torch.randn(p.shape, generator=g, device=p.device) * 1e-3
+             for n, p in adapters_a.items()}
+    st = opt.init(adapters_a)
+    scale = torch.tensor(0.5, device=model.device)
+    b4_leaves = sum(1 for t in adapters_a.values() if leaf_supported(t.numel()))
+    opt_ms = plain_opt_ms = None
+    if on_card:
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev) if flush is None else flush
+        opt_ms = time_ms(lambda: tx.update_and_params_local(grads, st, adapters_a, scale=scale,
+                                                            out=adapters_a), 5, flush)
+        plain_opt_ms = time_ms(lambda: tx.update_and_params(grads, st, adapters_a, scale=scale,
+                                                            out=adapters_a), 3, flush)
+    supported = [n for n in adapters_a if leaf_supported(adapters_a[n].numel())]
+    name = max(supported, key=lambda n: adapters_a[n].numel()) if supported else None
+    leaf_err = None
+    if name is not None:
+        leaf = [st.mu[name].clone(), st.nu[name].clone(), st.master[name].clone()]
+        twin = [x.clone() for x in leaf]
+        scalars = torch.tensor([[0.5, lr, 1 - 0.9 ** 2, 1 - 0.999 ** 2]], device=model.device)
+        kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01, p_dtype=torch.float32)
+        *_, p = fused_adamw_leaf(grads[name], *leaf, scalars, **kw)
+        _sync(dev)
+        *_, p_ref = fused_adamw_leaf_plain(grads[name], *twin, scalars, **kw)
+        leaf_err = max(float((a - b).abs().max()) for a, b in zip(leaf + [p], twin + [p_ref]))
+
+    losses_a = [r["loss"] for r in run_a]
+    n_total = steps + (steps - resumed_at)
+    warm = times_a[1:] or times_a
+    out = dict(
+        layers=cfg.num_layers, hidden=cfg.hidden_size, vocab=cfg.vocab_size, batch=batch,
+        seq=cfg.max_seq_len, lora=dict(lora), lr=lr, save_at=save_at, base_params=model.num_params(),
+        adapter_params=sum(t.numel() for t in adapters_a.values()),
+        adapter_tensors=len(adapters_a), b4_leaves=b4_leaves, build_s=build_s,
+        using_native=ds.using_native and ds_b.using_native, shards=len(paths),
+        step_ms=[x * 1e3 for x in times_a], step_ms_resumed=[x * 1e3 for x in times_b],
+        step_ms_mean=sum(warm) / len(warm) * 1e3,
+        tokens_per_s=batch * cfg.max_seq_len / (sum(warm) / len(warm)),
+        losses=losses_a, grad_norms=[r["grad_norm"] for r in run_a],
+        losses_resumed=[r["loss"] for r in run_b],
+        grad_norms_resumed=[r["grad_norm"] for r in run_b],
+        steps_resumed=[r["step"] for r in run_b], resumed_at=resumed_at,
+        resume_tag=resume_tag, tags_after_run=tags_after_run,
+        tags_at_end=sorted(p.name for p in ck.iterdir() if p.is_dir()),
+        save_sync_ms=save_ms["samples"][0]["sum"] / max(save_ms["samples"][0]["count"], 1),
+        saves=save_ms["samples"][0]["count"],
+        save_background_ms={k: v * 1e3 for k, v in background.items()},
+        load_ms=load_s * 1e3, tag_bytes=tag_bytes, flip_caught=flip_caught,
+        base_unchanged=base_unchanged and base_still, adapters_equal=adapters_equal,
+        epoch_loss_first=sum(losses_a[:2]) / 2, epoch_loss_last=sum(losses_a[-2:]) / 2,
+        launches=launches, launches_per_step={k: v / n_total for k, v in launches.items()},
+        b4_update_ms=opt_ms, b4_plain_update_ms=plain_opt_ms, b4_leaf=name,
+        b4_leaf_max_abs_err=leaf_err, peak_bytes_run=peak_run, peak_bytes_phase=peak_phase,
+        device_bytes=(torch.cuda.get_device_properties(0).total_memory if on_card else None))
+    del model, model_b, state, state_b, step, step_b, adapters_a, grads, st
+    return out
+
+
+def train_loop_gates(st: dict, kernels: bool = True) -> list:
+    """The phase's failures (empty: every gate held). ``kernels=False``
+    leaves out the launch and memory gates (a CPU rehearsal)."""
+    bad = []
+    want = lambda cond, msg: None if cond else bad.append(msg)  # noqa: E731
+    n = len(st["losses"])
+    want(st["using_native"], "the native token-shard reader was not used")
+    want(st["resume_tag"] == f"step_{st['save_at']}" and st["resumed_at"] == st["save_at"],
+         f"resumed from {st['resume_tag']} at step {st['resumed_at']}")
+    want(st["tags_at_end"] == [f"step_{st['save_at']}", f"step_{n}"],
+         f"tags at the end {st['tags_at_end']}")
+    want(st["steps_resumed"] == list(range(st["resumed_at"] + 1, n + 1)),
+         f"the resumed run logged steps {st['steps_resumed']}")
+    k = st["resumed_at"]
+    want(st["losses_resumed"] == st["losses"][k:],
+         f"resumed losses {st['losses_resumed']} differ from {st['losses'][k:]}")
+    want(st["grad_norms_resumed"] == st["grad_norms"][k:],
+         f"resumed grad norms {st['grad_norms_resumed']} differ from {st['grad_norms'][k:]}")
+    want(st["adapters_equal"], "the resumed adapters differ from the uninterrupted run's")
+    want(st["base_unchanged"], "the frozen base weights changed")
+    want(all(math.isfinite(x) for x in st["losses"] + st["grad_norms"]),
+         "a loss or grad norm is not finite")
+    want(st["epoch_loss_last"] < st["epoch_loss_first"],
+         f"the loss did not fall: epoch means {st['epoch_loss_first']} -> "
+         f"{st['epoch_loss_last']}")
+    want(st["flip_caught"], "a flipped payload byte passed verify=True")
+    if kernels:
+        err = st["b4_leaf_max_abs_err"]
+        want(err is not None and err <= TOL_ADAMW,
+             f"B4 on the adapter leaf {st['b4_leaf']} differs from its twin by {err}")
+        for name in TRAIN_LOOP_COUNTERS:
+            want(st["launches"].get(name, 0) > 0, f"the train loop never launched {name}")
+        want(st["peak_bytes_phase"] < st["device_bytes"],
+             f"peak {st['peak_bytes_phase']} exceeds the card's {st['device_bytes']}")
+    return bad
+
+
+def print_train_loop(st: dict, card: str) -> None:
+    print(f"train loop (k1): llama3_8b full width and depth ({st['layers']} layers), LoRA "
+          f"{json.dumps(st['lora'])} on {st['adapter_tensors']} tensors ({st['adapter_params']} "
+          f"adapter params, {st['base_params']} frozen), batch {st['batch']} x {st['seq']}, native "
+          f"reader over {st['shards']} shards: step ms {[round(x, 1) for x in st['step_ms']]} "
+          f"(mean after the first {st['step_ms_mean']:.1f}, {st['tokens_per_s']:.0f} tok/s), "
+          f"resumed {[round(x, 1) for x in st['step_ms_resumed']]}; losses "
+          f"{[round(x, 4) for x in st['losses']]}; save sync ms {st['save_sync_ms']:.1f} "
+          f"({st['saves']} saves), background ms "
+          f"{json.dumps({k: round(v, 1) for k, v in st['save_background_ms'].items()})}, load ms "
+          f"(verified) {st['load_ms']:.1f}, {st['tag_bytes']} bytes on disk a tag; resumed from "
+          f"{st['resume_tag']}: losses, grad norms and adapters bit-identical, base unchanged; B4 "
+          f"launches a step {st['launches_per_step'].get('fused_adamw_leaf')} ({st['b4_leaves']} "
+          f"of {st['adapter_tensors']} leaves), one update of every adapter "
+          f"{st['b4_update_ms']:.3f} ms (plain route {st['b4_plain_update_ms']:.3f} ms); "
+          f"launches a step {json.dumps(st['launches_per_step'])}; peak {st['peak_bytes_run']} "
+          f"(run) / {st['peak_bytes_phase']} (two models) of {st['device_bytes']} bytes; build "
+          f"{st['build_s']:.1f} s [{card}]", flush=True)
 
 
 def train_config():
@@ -5521,7 +5871,7 @@ def train(cfg, dev, counters, profile_path=None) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model, state, step = build_trainer(cfg, dev, TRAIN_LR)
+    model, _opt, state, step = build_trainer(cfg, dev, TRAIN_LR)
     batch = train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -5564,6 +5914,60 @@ def train(cfg, dev, counters, profile_path=None) -> dict:
                                                str(p.with_name(f"{p.stem}_train{p.suffix}")))
     del model, state, step
     return stats
+
+
+# (k2) the train cell's variants: "attention" remat, plain AdamW on the bf16
+# params (each warmed up one step, then TRAIN_VARIANT_STEPS timed)
+TRAIN_VARIANT_STEPS = 3
+TRAIN_VARIANTS = (("attention", dict(remat_policy="attention"), True),
+                  ("plain_adamw", dict(), False))
+
+
+def train_variants(cfg, dev, counters) -> dict:
+    """The train cell (phase 5's config and batch) under each of
+    ``TRAIN_VARIANTS``: step ms, peak bytes, launches a step and B1's a
+    layer; every loss finite and falling. Plain AdamW has no kernel of its
+    own, so B4 is not among its counters."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+    for name, over, master in TRAIN_VARIANTS:
+        c = dataclasses.replace(cfg, **over)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, _opt, state, step = build_trainer(c, dev, TRAIN_LR, master=master)
+        batch = train_batch(c.vocab_size, TRAIN_BATCH, TRAIN_SEQ, dev)
+        state, m = step(state, batch)
+        metrics = [m]
+        torch.cuda.synchronize()
+        counted = [k for k in counters if master or k.__name__ != "fused_adamw_leaf"]
+        zero_launches(counted)
+        step_s = []
+        for _ in range(TRAIN_VARIANT_STEPS):
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            metrics.append(m)
+        launches = {k.__name__: k.launches for k in counted}
+        losses = [float(m["loss"]) for m in metrics]
+        check(all(math.isfinite(x) for x in losses), f"train ({name}): non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"train ({name}): the loss did not fall: {losses}")
+        for k, n in launches.items():
+            check(n > 0, f"train ({name}) never launched {k}")
+        mean_s = sum(step_s) / len(step_s)
+        out[name] = dict(step_ms=[x * 1e3 for x in step_s], step_ms_mean=mean_s * 1e3,
+                         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / mean_s, losses=losses,
+                         peak_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+                         launches_per_step={k: v / TRAIN_VARIANT_STEPS
+                                            for k, v in launches.items()},
+                         b1_per_layer=launches["flash_block_forward"]
+                         / (TRAIN_VARIANT_STEPS * c.num_layers))
+        del model, state, step
+    return out
 
 
 def main(argv=None) -> int:
@@ -5721,11 +6125,12 @@ def main(argv=None) -> int:
           f"{worst:.3g} (tol {TOL_LOGITS_FP32}) [{card}]", flush=True)
     train_counters = (flash_block_forward, flash_bwd_dkdv, flash_bwd_dq, fused_adamw_leaf)
     tc = train_check(dev, train_counters)
-    print(f"check: small fp32 model trained 2 steps, GPU kernels vs CPU twins: losses "
-          f"{tc['losses_gpu']} vs {tc['losses_cpu']}, max |loss diff| "
-          f"{tc['loss_max_abs_err']:.3g} (tol {TOL_TRAIN_LOSS}), max |weight diff| "
-          f"{tc['param_max_abs_err']:.3g} (tol {TOL_TRAIN_PARAMS}), launches {tc['launches']} "
-          f"[{card}]", flush=True)
+    for name, r in tc.items():
+        print(f"check: small fp32 model trained 2 steps ({name}), GPU kernels vs CPU twins: "
+              f"losses {r['losses_gpu']} vs {r['losses_cpu']}, max |loss diff| "
+              f"{r['loss_max_abs_err']:.3g} (tol {TOL_TRAIN_LOSS}), max |weight diff| "
+              f"{r['param_max_abs_err']:.3g} over {r['trained_tensors']} trained tensors (tol "
+              f"{TOL_TRAIN_PARAMS}), launches {r['launches']} [{card}]", flush=True)
 
     graph = [graph_check(dev), graph_check(dev, head_dim=96)]
     programs_small = program_check(dev)
@@ -6051,6 +6456,14 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = run_train_loop(train_loop_config(), dev, train_counters, Path(tmp))
+    failures = train_loop_gates(loop)
+    check(not failures, "train loop (k1): " + "; ".join(failures))
+    print_train_loop(loop, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     tstats = train(train_config(), dev, train_counters, profile_path=args.profile)
     print(f"train: llama3_8b widths, {tstats['layers']} of 32 layers, {tstats['params']} "
           f"params, batch {tstats['batch']} x {tstats['seq']} tokens: step "
@@ -6064,6 +6477,16 @@ def main(argv=None) -> int:
               f"{prof['wall_s'] * 1e3:.1f} ms wall ({prof['device_busy_share']:.1%}); top kernels "
               + "; ".join(f"{t['name'][:48]} {t['ms']:.1f} ms x{t['calls']}"
                           for t in prof["top"][:8]) + f" [{card}]", flush=True)
+    variants = train_variants(train_config(), dev, train_counters)
+    for name, v in variants.items():
+        print(f"train ({name}, k2): the train cell, step {v['step_ms_mean']:.1f} ms (steps "
+              f"{[round(x, 1) for x in v['step_ms']]}) against {tstats['step_ms_mean']:.1f} "
+              f"(full remat, fp32 master), {v['tokens_per_s']:.0f} tok/s, peak "
+              f"{v['peak_bytes']} bytes against {tstats['peak_bytes']}, B1 launches a layer "
+              f"{v['b1_per_layer']:.2f} against "
+              f"{tstats['launches_per_step']['flash_block_forward'] / tstats['layers']:.2f}, "
+              f"launches a step {json.dumps(v['launches_per_step'])}, losses "
+              f"{[round(x, 4) for x in v['losses']]} [{card}]", flush=True)
 
     by_path = {"serve": stats["launches"], "serve_int8": int8["launches"],
                **{f"trace_{label}": st["launches"] for label, st in trace["passes"].items()},
@@ -6085,7 +6508,9 @@ def main(argv=None) -> int:
                "bundle": bundle["launches"], "quant_small": {"w8a16_gemm": q3["launches"]},
                "quant_llama_bf16": q1["bf16"]["launches"],
                "quant_llama_int8": q1["int8"]["launches"], "quant_mixtral": sv["launches"],
-               "quant_mixtral_generate": gen["launches"], "train": tstats["launches"]}
+               "quant_mixtral_generate": gen["launches"], "train_loop": loop["launches"],
+               "train": tstats["launches"],
+               **{f"train_{name}": v["launches"] for name, v in variants.items()}}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
                "fused_adamw": "fused_adamw_leaf", "w8a16_gemm": "w8a16_gemm"}
@@ -6126,7 +6551,7 @@ def main(argv=None) -> int:
                       "recovery": recovery, "tenants": tenants, "park": park, "fleet": fleet,
                       "tp": tp,
                       "quant": quant,
-                      "train": tstats,
+                      "train_loop": loop, "train": tstats, "train_variants": variants,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,
                       "program_check": programs_small,
                       "card": card}))

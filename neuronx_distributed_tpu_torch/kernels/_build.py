@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (no JAX counterpart).
+"""Build and load the port's CUDA kernels and its native host code (no JAX
+counterpart).
 
 Each source ``csrc/<source>.cu`` exports one or more C entry points. At
 first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
@@ -11,6 +12,10 @@ Binding rules: every pointer and the stream travel as ``c_void_p`` (a
 plain ``c_int`` would cut a 64-bit address), the stream is PyTorch's
 current one, and each C entry returns ``cudaGetLastError()`` so a launch the
 card refuses raises in the wrapper instead of vanishing.
+
+Native host code (the token-shard reader, ``data/_native/tokenshard.cpp``)
+builds the same way with ``g++`` into ``build/native/``
+(:func:`native_library`), never beside its source.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NATIVE_DIR = BUILD_DIR.parent / "native"
+CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -159,3 +166,27 @@ def stream_of(device) -> int:
 
     return torch.cuda.current_stream(device).cuda_stream
 
+
+
+def native_library(source: Path) -> Path:
+    """The shared library of one C++ source, built with ``g++`` on first use
+    into ``build/native/`` under a name hashed from the source and the flags
+    (a changed source builds anew; the write is atomic, so concurrent
+    builds never load half a file). Raises with the compiler's output when
+    the build fails or no ``g++`` is found."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(source.read_bytes())
+    out = NATIVE_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found: {source.name} cannot be built")
+    NATIVE_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *CXX_FLAGS, str(source), "-o", str(tmp)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on {source.name}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out

@@ -17,10 +17,13 @@ take the flash kernel under the same gate as the JAX package; single-token
 paged steps take the paged decode kernel when ``paged_attn_kernel`` is set.
 
 Training: :meth:`LlamaForCausalLM.loss` (whole-sequence or chunked head and
-cross-entropy), ``remat_policy="full"`` as ``torch.utils.checkpoint`` around
-each decoder layer (only while autograd records, never in decode mode), and
-``qkv_clip``. Not ported yet: LoRA training, context
-parallelism and the ``"attention"`` remat policy.
+cross-entropy), activation checkpointing around each decoder layer (only
+while autograd records, never in decode mode) under ``remat_policy="full"``
+(JAX ``nothing_saveable``: the layer is recomputed in the backward) or
+``"attention"`` (JAX ``dots_with_no_batch_dims_saveable``: the outputs of
+the projection GEMMs are saved, everything else, the flash kernel
+included, recomputed), ``qkv_clip``, and LoRA training through the layers'
+``adapters`` (``lora/core.py``). Not ported yet: context parallelism.
 
 Tree chunks (``chunk_ctx``, JAX ``llama.py:341``, ``:490-497``,
 ``:643-656``): a decode-mode forward may carry ``(chunk_mask (s, s) bool,
@@ -58,7 +61,11 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from neuronx_distributed_tpu_torch.inference.paged_kernel import (
     dequantize_kv_pages,
@@ -633,19 +640,29 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attn_norm(x), lora)
 
 
-def _remat(cfg: LlamaConfig) -> bool:
-    """Whether each decoder layer runs under activation checkpointing: only
-    while autograd records and outside decode mode, so serving never pays
-    for it. ``"full"`` saves nothing inside a layer and recomputes it in the
-    backward (JAX's ``nothing_saveable``)."""
+# the dots with no batch dims: every projection GEMM (a 3-D input times a
+# 2-D kernel reaches the dispatcher as one of these)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if func in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: LlamaConfig) -> Optional[dict]:
+    """The ``torch.utils.checkpoint`` arguments of each decoder layer, or
+    None for no checkpointing: only while autograd records and outside
+    decode mode, so serving never pays for it. ``"full"`` saves nothing
+    inside a layer and recomputes it in the backward; ``"attention"`` saves
+    the outputs of the dots with no batch dims and recomputes the rest."""
     if cfg.decode or not torch.is_grad_enabled() or cfg.remat_policy is None:
-        return False
+        return None
     if cfg.remat_policy == "full":
-        return True
+        return {"use_reentrant": False}
     if cfg.remat_policy == "attention":
-        raise NotImplementedError(
-            'remat_policy="attention" (save the matmul outputs, recompute the rest) is not '
-            "ported yet: ROADMAP queue A, training-side model pieces")
+        return {"use_reentrant": False,
+                "context_fn": lambda: create_selective_checkpoint_contexts(_save_dots)}
     raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
 
 
@@ -712,8 +729,8 @@ class LlamaModel(nn.Module):
             # the rows' chunks of this layer: one gather for every target
             lora = (None if idx is None
                     else (self.lora_pool[:, i].index_select(0, idx), self.lora_layout))
-            if remat:
-                x = checkpoint(layer, x, rope, cache, i, lora, chunk_ctx, use_reentrant=False)
+            if remat is not None:
+                x = checkpoint(layer, x, rope, cache, i, lora, chunk_ctx, **remat)
             else:
                 x = layer(x, rope, cache, i, lora, chunk_ctx)
         if cfg.decode:   # in place: a captured step keeps reading this buffer

@@ -1,10 +1,17 @@
-"""AdamW with fp32 master params for bf16 training.
+"""AdamW with fp32 master params for bf16 training, and plain AdamW.
 
 Counterpart of ``neuronx_distributed_tpu/optimizer/adamw.py``: the state
 keeps ``mu``, ``nu`` and an fp32 ``master`` copy of each param; new params
 are the cast of the new master. Trees are dicts of tensors keyed by the
 port's parameter names. The math and its order of operations are the JAX
 package's, so the numbers match it.
+
+:func:`adamw` is the optimizer the JAX trainer takes under
+``use_master_weights=False`` (``optax.adamw``): plain tensor code on the
+params' own dtype, in optax's order (the moments, the bias corrections cast
+to the moment's dtype, eps outside the square root, the decay on the old
+param, then ``-lr``), with no kernel of its own: JAX computes it in XLA,
+outside any Pallas call.
 
 Unlike the functional JAX version, every update here writes the state's
 tensors in place (the JAX train step donates the old state, so its buffers
@@ -134,3 +141,63 @@ def adamw_fp32_master(learning_rate: LearningRate, b1: float = 0.9, b2: float = 
 
     return FusedGradientTransformation(init_fn, update_fn, update_and_params_fn,
                                        update_and_params_local_fn)
+
+
+class AdamState(NamedTuple):
+    count: torch.Tensor   # () int32: updates taken
+    mu: Tree              # in each param's dtype
+    nu: Tree
+
+    def clone(self) -> "AdamState":
+        copy = lambda t: {n: x.clone() for n, x in t.items()}  # noqa: E731
+        return AdamState(self.count.clone(), copy(self.mu), copy(self.nu))
+
+
+def adamw(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 1e-4) -> FusedGradientTransformation:
+    """``optax.adamw`` on the params themselves. ``update`` returns optax's
+    updates; the fused forms apply them (``p + u`` in the param's dtype),
+    first scaling each grad by the clip ``scale`` in fp32 back to its dtype
+    (JAX's ``clip_grads_with_norm``); ``update_and_params_local`` is the
+    same plain code (this optimizer has no kernel)."""
+
+    def init_fn(params: Tree) -> AdamState:
+        dev = next(iter(params.values())).device if params else None
+        return AdamState(count=torch.zeros((), dtype=torch.int32, device=dev),
+                         mu={n: torch.zeros_like(p) for n, p in params.items()},
+                         nu={n: torch.zeros_like(p) for n, p in params.items()})
+
+    def _updates(grads: Tree, state: AdamState, params: Tree):
+        """optax's updates, the moments written in place."""
+        lr = learning_rate(state.count) if callable(learning_rate) else learning_rate
+        count = state.count + 1
+        c = count.float()
+        bc1, bc2 = 1 - b1 ** c, 1 - b2 ** c
+        out = {}
+        for n, g in grads.items():
+            m, v, p = state.mu[n], state.nu[n], params[n]
+            m.copy_((1 - b1) * g + b1 * m)
+            v.copy_((1 - b2) * (g * g) + b2 * v)
+            u = (m / bc1.to(m.dtype)) / (torch.sqrt(v / bc2.to(v.dtype)) + eps)
+            u = u + weight_decay * p
+            out[n] = (_f32(-lr, u.device).to(u.dtype) if torch.is_tensor(lr) else -lr) * u
+        return out, state._replace(count=count)
+
+    def update_fn(grads: Tree, state: AdamState, params: Optional[Tree] = None):
+        if params is None:
+            raise ValueError("adamw requires params (the weight decay reads them)")
+        return _updates(grads, state, params)
+
+    def update_and_params_fn(grads: Tree, state: AdamState, params: Tree, scale=None,
+                             out: Optional[Tree] = None):
+        if scale is not None:
+            grads = {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}
+        updates, new_state = _updates(grads, state, params)
+        new = {}
+        for n, u in updates.items():
+            p = (params[n] + u).to(params[n].dtype)
+            new[n] = p if out is None else out[n].copy_(p)
+        return new, new_state
+
+    return FusedGradientTransformation(init_fn, update_fn, update_and_params_fn,
+                                       update_and_params_fn)

@@ -27,11 +27,18 @@ layer's product then runs through B5, the W8A16 GEMM (``kernels/w8a16.py``):
 the kernel on the card, JAX's ``dequantize_leaf`` then the matmul on the
 CPU. A GQA kernel ``(H, N, D)`` runs as ``(H, N*D)``. Not under a group
 of more than one rank.
+
+LoRA training (JAX ``layers.py:56-80``): ``adapters`` maps a weight's
+attribute name to the callable ``lora.core.attach_adapters`` installs. A
+linear layer adds its output ``(dropout(x) @ A) @ (s * B)`` to ``x @ W``
+before the bias (a row layer before its reduction, a GQA kernel's per head
+group); the embedding adds ``s * A @ B`` to its table. Empty: the layer is
+unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -129,6 +136,7 @@ class _Sharded(nn.Module):
     def _bind(self, group) -> None:
         self.group = group
         self.tp, self.tp_rank = group_size(group), group_rank(group)
+        self.adapters: Dict[str, Callable] = {}   # LoRA training, by weight attribute
 
 
 class ColumnParallelLinear(_Sharded):
@@ -152,7 +160,11 @@ class ColumnParallelLinear(_Sharded):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(x, self.kernel, self.dtype)
-        y = _product(copy_to_tensor_parallel_region(x, self.group), self.kernel, dt)
+        x = copy_to_tensor_parallel_region(x, self.group)
+        y = _product(x, self.kernel, dt)
+        ad = self.adapters.get("kernel")
+        if ad is not None:
+            y = y + ad(x.to(dt))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         if self.gather_output:
@@ -187,6 +199,9 @@ class RowParallelLinear(_Sharded):
         if not self.input_is_parallel:
             x = scatter_to_tensor_parallel_region(x, self.group, -1)
         y = _product(x, self.kernel, dt)
+        ad = self.adapters.get("kernel")
+        if ad is not None:
+            y = y + ad(x.to(dt))
         if partial is not None:
             y = y + partial.to(y.dtype)
         y = reduce_from_tensor_parallel_region(y, self.group)
@@ -213,7 +228,11 @@ class ParallelEmbedding(_Sharded):
                                 device)
 
     def _table(self) -> torch.Tensor:
-        return self.embedding if self.dtype is None else self.embedding.to(self.dtype)
+        e = self.embedding
+        ad = self.adapters.get("embedding")
+        if ad is not None:
+            e = ad.merged(e)
+        return e if self.dtype is None else e.to(self.dtype)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         e = self._table()
@@ -301,6 +320,10 @@ class GQAQKVColumnParallelLinear(_Sharded):
                     *x.shape[:-1], heads, self.head_dim)
             if name != "q" and isinstance(k, QuantizedKernel):
                 y = self._kv_heads(y, -2)
+            ad = self.adapters.get(f"{name}_kernel")
+            if ad is not None:   # per stored head, then the rank's KV heads
+                d = ad(x).reshape(*x.shape[:-1], -1, self.head_dim)
+                y = y + (d if name == "q" else self._kv_heads(d, -2))
             if self.use_bias:
                 bias = getattr(self, f"{name}_bias").to(y.dtype)
                 y = y + (bias if name == "q" else self._kv_heads(bias, 0))

@@ -7,8 +7,15 @@ materialized once on the target device: random from a seeded generator
 (``model_init_config.seed``, through ``models.llama.init_params``) or taken
 from a given state dict (for example one that
 ``converters.jax_params.llama_params_from_jax`` made). Parallel degrees
-other than 1, LoRA and context parallelism raise: they come with later
-slices of the port.
+other than 1 raise: they come with a later slice of the port.
+
+LoRA (JAX ``trainer/model.py:39-86, 137-184``): with a ``lora_config`` the
+base weights stay frozen (``requires_grad=False``: no gradient, no
+optimizer state, no gradient GEMMs), ``init_lora`` draws the adapters from
+a generator seeded ``seed + 1``, they are attached to the layers in the
+in-activation form (``lora.core.attach_adapters``), and the trainable tree
+is theirs: ``trainable_params`` (``"{weight}.lora_a"`` / ``.lora_b``),
+``trainable_specs`` and ``merged_params``.
 """
 
 from __future__ import annotations
@@ -20,6 +27,17 @@ import torch
 from torch import nn
 
 from neuronx_distributed_tpu_torch._device import DeviceLike, resolve_device
+from neuronx_distributed_tpu_torch.inference.partition import param_partition_specs
+from neuronx_distributed_tpu_torch.lora.core import (
+    LoraConfig,
+    LoraDropout,
+    attach_adapters,
+    flat_lora,
+    init_lora,
+    lora_param_specs,
+    merge_lora,
+    nest_lora,
+)
 from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -34,20 +52,24 @@ def resolve_dtype(name) -> torch.dtype:
 @dataclasses.dataclass
 class ParallelModel:
     """Module plus its weights by name. ``params`` holds tensors that share
-    storage with the module's parameters: the tree the optimizer and the
-    train step work on."""
+    storage with the module's parameters. Without LoRA they are the tree the
+    optimizer and the train step work on; with LoRA that tree is the
+    adapters' (``lora_leaves``: the tensors the layers read, which take the
+    gradients) and ``params`` is the frozen base."""
 
     module: nn.Module
     params: Dict[str, torch.Tensor]
     device: torch.device
+    seed: int = 0
+    lora_config: Optional[LoraConfig] = None
+    lora_leaves: Optional[Dict[str, torch.Tensor]] = None
+    lora_specs: Optional[Dict[str, Dict[str, tuple]]] = None
+    lora_dropout: Optional[LoraDropout] = None
 
     def bind(self, params: Mapping[str, torch.Tensor]) -> None:
         """Point the module's parameters at ``params`` (no copy); a parameter
         that already uses its tensor's storage is left alone."""
-        for name, p in self.module.named_parameters():
-            t = params[name]
-            if p.data_ptr() != t.data_ptr() or p.shape != t.shape or p.dtype != t.dtype:
-                p.data = t
+        _rebind(dict(self.module.named_parameters()), params)
 
     def apply(self, params: Mapping[str, torch.Tensor], *args, method: str = "forward",
               **kwargs):
@@ -59,6 +81,46 @@ class ParallelModel:
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.params.values())
+
+    def trainable_leaves(self) -> Dict[str, torch.Tensor]:
+        """The tensors that take gradients, by trainable name."""
+        if self.lora_config is not None:
+            return self.lora_leaves
+        return dict(self.module.named_parameters())
+
+    @property
+    def trainable_params(self) -> Dict[str, torch.Tensor]:
+        return {n: t.detach() for n, t in self.trainable_leaves().items()}
+
+    @property
+    def trainable_specs(self) -> Dict[str, tuple]:
+        """Partition specs (``inference/partition.py`` terms) of the
+        trainable tree."""
+        if self.lora_config is not None:
+            return {f"{w}.{k}": spec for w, ad in self.lora_specs.items()
+                    for k, spec in ad.items()}
+        return param_partition_specs(self.module)
+
+    def bind_trainable(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Point the trainable tensors at ``params`` (see :meth:`bind`)."""
+        _rebind(self.trainable_leaves(), params)
+
+    def merged_params(self, lora_params: Optional[Mapping[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """The base with ``W + s * A @ B`` folded in (``lora_params``: a
+        flat adapter tree, default the live one); the base itself without
+        LoRA."""
+        if self.lora_config is None:
+            return self.params
+        flat = self.trainable_params if lora_params is None else lora_params
+        return merge_lora(self.params, nest_lora(flat), self.lora_config)
+
+
+def _rebind(targets: Mapping[str, torch.Tensor], params: Mapping[str, torch.Tensor]) -> None:
+    for name, p in targets.items():
+        t = params[name]
+        if p.data_ptr() != t.data_ptr() or p.shape != t.shape or p.dtype != t.dtype:
+            p.data = t
 
 
 def _apply_config_overrides(module: nn.Module, nxd_config: Dict[str, Any]) -> nn.Module:
@@ -98,17 +160,15 @@ def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[]
             f"parallel degrees {bad}: the port trains on one device so far; tensor, pipeline, "
             "expert and context parallelism over torch.distributed come with a later slice "
             "(ROADMAP queue A, training line)")
-    if nxd_config.get("lora_config") is not None:
-        raise NotImplementedError("LoRA training is not ported yet (ROADMAP queue A)")
     dev = resolve_device(device)
     with torch.device("meta"):
         module = _apply_config_overrides(module_fn(), nxd_config)
     shapes = module.state_dict()
+    seed = nxd_config.get("model_init_config", {}).get("seed", 0)
     if params is None:
         if not isinstance(module, LlamaForCausalLM):
             raise ValueError(f"a seeded init is defined for LlamaForCausalLM; pass params for "
                              f"{type(module).__name__}")
-        seed = nxd_config.get("model_init_config", {}).get("seed", 0)
         state = init_params(module.config, torch.Generator(device=dev).manual_seed(seed),
                             device=dev)
     else:
@@ -116,6 +176,17 @@ def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[]
         state = {n: torch.as_tensor(params[n]).to(device=dev, dtype=shapes[n].dtype, copy=True)
                  for n in shapes}
     module.load_state_dict(state, strict=True, assign=True)
-    module.requires_grad_(True)
-    return ParallelModel(module=module, device=dev,
-                         params={n: p.detach() for n, p in module.named_parameters()})
+    lora_cfg = nxd_config.get("lora_config")
+    module.requires_grad_(lora_cfg is None)
+    model = ParallelModel(module=module, device=dev, seed=seed,
+                          params={n: p.detach() for n, p in module.named_parameters()})
+    if lora_cfg is not None:
+        if isinstance(lora_cfg, dict):
+            lora_cfg = LoraConfig(**lora_cfg)
+        lora = init_lora(model.params, lora_cfg,
+                         torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
+        leaves = {n: t.requires_grad_(True) for n, t in flat_lora(lora).items()}
+        model.lora_config, model.lora_leaves = lora_cfg, leaves
+        model.lora_specs = lora_param_specs(lora, param_partition_specs(module))
+        model.lora_dropout = attach_adapters(module, nest_lora(leaves), lora_cfg)
+    return model

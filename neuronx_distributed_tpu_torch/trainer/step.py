@@ -3,23 +3,31 @@
 Counterpart of ``neuronx_distributed_tpu/trainer/step.py``. The JAX step is
 one jitted program; here it is eager PyTorch with the same semantics:
 gradients by autograd, ``grad_accum_steps`` microbatches accumulated as an
-fp32 mean, the clip scale folded into the optimizer's grad cast, the fused
-``update_and_params`` (or, with ``optimizer_kernel=True``, the single-pass
-AdamW kernel on every leaf it takes), and the new params written back into
-the module's parameters. ``loss`` and ``grad_norm`` come back as device
-tensors: the step reads nothing back to the host.
+fp32 mean, the clip scale handed to the optimizer, the update through the
+optimizer's ``update_and_params_local`` (fp32-master AdamW: the single-pass
+kernel on every leaf it takes, the plain formula on the rest; plain AdamW:
+its plain code), and the new params written back into the trainable
+tensors. ``loss`` and ``grad_norm`` come back as device tensors: the step
+reads nothing back to the host.
+
+LoRA (JAX ``step.py:115-135``): ``state.params`` is the flat adapter tree,
+gradients are taken with respect to the adapters only, and the layers add
+their in-activation correction (``lora/core.py``). With dropout each step
+draws one seed per adapter from ``state.rng`` (a CPU ``torch.Generator``,
+part of the train state and so of its checkpoint), or takes the step's
+``lora_masks``.
 
 Donation: with ``donate=True`` (the default) the old state's tensors are
 reused in place, as JAX reuses donated buffers, and the old state must not
 be used again. With ``donate=False`` the old state stays valid: the step
-works on a copy of the optimizer state and points the module at new param
-tensors.
+works on a copy of the optimizer state and points the trainable tensors at
+new ones.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -32,44 +40,59 @@ Tree = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass
 class TrainState:
-    """Step counter (a () int32 device tensor), params by name, optimizer
-    state."""
+    """Step counter (a () int32 device tensor), the trainable params by
+    name, the optimizer state, and the generator the step's LoRA dropout
+    draws from."""
 
     step: torch.Tensor
     params: Tree
     opt_state: Any
+    rng: Optional[torch.Generator] = None
 
 
 def create_train_state(model: ParallelModel, optimizer: NxDOptimizer) -> TrainState:
+    """The first state: the trainable params (the adapters under LoRA),
+    their optimizer state, and a generator seeded ``seed + 2``."""
+    params = model.trainable_params
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=model.device),
-                      params=dict(model.params), opt_state=optimizer.init(model.params))
+                      params=params, opt_state=optimizer.init(params),
+                      rng=torch.Generator().manual_seed(model.seed + 2))
 
 
 def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
                     loss_fn: Callable[..., torch.Tensor], donate: bool = True,
-                    grad_accum_steps: int = 1, optimizer_kernel: Optional[bool] = None
+                    grad_accum_steps: int = 1
                     ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """Build ``step(state, batch, rng=None) -> (state, metrics)``.
+    """Build ``step(state, batch, rng=None, lora_masks=None) -> (state,
+    metrics)``.
 
     ``loss_fn(params, batch, rng) -> scalar loss`` runs the model on
-    ``params`` (``model.apply(params, ...)``, or the module itself: the step
-    points it at ``state.params`` first). ``batch`` is a dict of arrays or
-    tensors with a leading batch dim, which ``grad_accum_steps > 1`` splits
-    into that many microbatches; each gets the same ``rng``. The optimizer
-    is a fused transformation (``adamw_fp32_master``); its kernel route is
-    opt-in, as in the JAX package."""
+    ``params`` (``model.apply(params, ...)``, or the module itself); under
+    LoRA it gets the frozen base (``model.params``) and the adapters ride
+    in the layers. ``batch`` is a dict of arrays or tensors with a leading
+    batch dim, which ``grad_accum_steps > 1`` splits into that many
+    microbatches; each gets the same ``rng`` and the same dropout seeds.
+    ``lora_masks`` (adapter weight name -> bool keep-mask shaped like the
+    layer's input) replaces the drawn dropout masks for this step."""
     tx = optimizer.tx
-    update = tx.update_and_params_local if optimizer_kernel else tx.update_and_params
-    module_params = dict(model.module.named_parameters())
+    lora_cfg = model.lora_config
+    leaves = model.trainable_leaves()
+    names = list(leaves)
 
-    def value_and_grad(state: TrainState, batch, rng):
-        loss = loss_fn(state.params, batch, rng)
-        names = list(state.params)
-        grads = torch.autograd.grad(loss, [module_params[n] for n in names])
+    def value_and_grad(params: Tree, batch, rng):
+        loss = loss_fn(model.params if lora_cfg is not None else params, batch, rng)
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
         return loss.detach(), dict(zip(names, grads))
 
-    def step_fn(state: TrainState, batch, rng=None):
-        model.bind(state.params)
+    def step_fn(state: TrainState, batch, rng=None,
+                lora_masks: Optional[Mapping[str, torch.Tensor]] = None):
+        model.bind_trainable(state.params)
+        dropout = model.lora_dropout
+        if dropout is not None:
+            if lora_masks is not None:
+                dropout.use_masks(lora_masks)
+            else:
+                dropout.draw(state.rng, sorted(model.lora_specs))
         if grad_accum_steps > 1:
             lead = len(next(iter(batch.values())))
             if lead % grad_accum_steps:
@@ -81,7 +104,7 @@ def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
                    for n, p in state.params.items()}
             for i in range(grad_accum_steps):
                 micro = {key: x[i * m:(i + 1) * m] for key, x in batch.items()}
-                loss_i, grads_i = value_and_grad(state, micro, rng)
+                loss_i, grads_i = value_and_grad(state.params, micro, rng)
                 loss = loss + loss_i.float()
                 for n, g in grads_i.items():
                     acc[n] += g.float()
@@ -89,12 +112,12 @@ def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
             grads = {n: (a / grad_accum_steps).to(state.params[n].dtype) for n, a in acc.items()}
             del acc
         else:
-            loss, grads = value_and_grad(state, batch, rng)
+            loss, grads = value_and_grad(state.params, batch, rng)
         metrics = {"loss": loss}
         scale = None
         if optimizer.grad_clipping:
             # the clip scale (clip_grads_with_norm's coefficient) rides into
-            # the optimizer's fp32 grad cast; clipped grads are never written
+            # the optimizer
             grad_norm = get_grad_norm(grads)
             scale = torch.clamp(optimizer.max_grad_norm / (grad_norm + 1e-6), max=1.0)
             metrics["grad_norm"] = grad_norm
@@ -102,10 +125,12 @@ def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
         with torch.no_grad():
             # donated params take the new values in place, written by the
             # update itself (the kernel writes each param once)
-            new_params, opt_state = update(grads, opt_state, state.params, scale=scale,
-                                           out=state.params if donate else None)
+            new_params, opt_state = tx.update_and_params_local(
+                grads, opt_state, state.params, scale=scale,
+                out=state.params if donate else None)
             del grads
-        model.bind(new_params)
-        return TrainState(step=state.step + 1, params=new_params, opt_state=opt_state), metrics
+        model.bind_trainable(new_params)
+        return dataclasses.replace(state, step=state.step + 1, params=new_params,
+                                   opt_state=opt_state), metrics
 
     return step_fn

@@ -1259,3 +1259,58 @@ def test_tp_passes_rehearse_on_the_cpu(smoke):
         assert sm["streams"] == one[1]["streams"]
         assert np.abs(np.asarray(sm["logits"]) - np.asarray(one[1]["logits"])).max() \
             <= smoke.TP_SMALL_TOL
+
+
+@pytest.fixture(scope="module")
+def train_loop_run(smoke, tmp_path_factory):
+    """Phase 4k at a tiny width on the CPU: the same loop, crash and resume
+    as on the card."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=128, dtype=torch.float32,
+                      param_dtype=torch.float32, remat_policy="full")
+    return smoke.run_train_loop(cfg, "cpu", (), tmp_path_factory.mktemp("loop"),
+                                lora=dict(r=8, lora_alpha=16.0, lora_dropout=0.05))
+
+
+def test_train_loop_phase_rehearses_on_the_cpu(smoke, train_loop_run):
+    """The loop resumes from step 3 of 6 with bit-identical losses, grad
+    norms and adapters, the base untouched and the loss falling; every gate
+    but the card's (launches, memory) holds."""
+    st = train_loop_run
+    assert smoke.train_loop_gates(st, kernels=False) == []
+    assert (st["resume_tag"], st["resumed_at"], st["steps_resumed"]) == ("step_3", 3, [4, 5, 6])
+    assert st["adapter_tensors"] == 2 * 7 * 2 and st["saves"] == 2 and st["flip_caught"]
+    assert st["losses_resumed"] == st["losses"][3:]
+
+
+@pytest.mark.parametrize("key,value,says", [
+    ("losses_resumed", [0.0, 0.0, 0.0], "resumed losses"),
+    ("adapters_equal", False, "resumed adapters"),
+    ("base_unchanged", False, "frozen base"),
+    ("flip_caught", False, "flipped payload byte"),
+    ("using_native", False, "native token-shard reader"),
+    ("resume_tag", "step_6", "resumed from step_6"),
+    ("epoch_loss_last", 1e9, "did not fall"),
+    ("launches", {"flash_block_forward": 64, "flash_bwd_dkdv": 0, "flash_bwd_dq": 32,
+                  "fused_adamw_leaf": 448}, "never launched flash_bwd_dkdv"),
+])
+def test_train_loop_gates_catch_each_fault(smoke, train_loop_run, key, value, says):
+    st = {**train_loop_run, key: value, "peak_bytes_phase": 1, "device_bytes": 2,
+          "b4_leaf_max_abs_err": 0.0}
+    if key != "launches":
+        st["launches"] = dict.fromkeys(smoke.TRAIN_LOOP_COUNTERS, 1)
+    bad = smoke.train_loop_gates(st)
+    assert len(bad) == 1 and says in bad[0], bad
+
+
+def test_train_check_cases_rehearse_on_the_cpu(smoke):
+    """Phase 3's five training cases run end to end (CPU against CPU here,
+    so every difference reads 0 and no kernel is counted)."""
+    out = smoke.train_check("cpu", ())
+    assert list(out) == [name for name, _ in smoke.TRAIN_CHECK_CASES]
+    for name, r in out.items():
+        assert r["loss_max_abs_err"] == 0.0 and r["param_max_abs_err"] == 0.0, name
+        assert r["losses_gpu"][1] < r["losses_gpu"][0], name
+    assert out["lora"]["trained_tensors"] == 2 * 7 * 2

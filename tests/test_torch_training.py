@@ -7,8 +7,9 @@ forward and backward twins here) is carried over with
 against ``jax.value_and_grad`` of ``LlamaForCausalLM.loss`` (JAX's gradient
 tree mapped by name through the same converter), and three steps of the
 port's ``make_train_step`` against JAX's at TP = 1, ZeRO off, clipping on.
-Then the port against itself: the optimizer kernel route, gradient
-accumulation, the chunked loss and activation checkpointing.
+Then the port against itself: the single optimizer route against the
+reference route, gradient accumulation, the chunked loss and activation
+checkpointing.
 
 Tolerances, fp32 on both sides: the loss to 1e-5; gradients (largest about
 0.3) to 2e-6 absolute, the summation order of two frameworks; the
@@ -141,7 +142,7 @@ def _jax_trajectory(jcfg, params, batch, steps, lr):
     return out
 
 
-def _port_run(params, batch, steps, lr, optimizer_kernel=False, grad_accum_steps=1,
+def _port_run(params, batch, steps, lr, reference_route=False, grad_accum_steps=1,
               convert=True, **over):
     cfg = neuronx_distributed_config(
         optimizer_config={"zero_one_enabled": False, "grad_clipping": True,
@@ -149,9 +150,11 @@ def _port_run(params, batch, steps, lr, optimizer_kernel=False, grad_accum_steps
         mixed_precision_config={"use_master_weights": True})
     model = _port_model(params, convert, **over)
     opt = initialize_parallel_optimizer(cfg, model, learning_rate=lr, weight_decay=0.01)
+    if reference_route:   # the fused update without the kernel's route
+        opt = dataclasses.replace(opt, tx=opt.tx._replace(
+            update_and_params_local=opt.tx.update_and_params))
     state = create_train_state(model, opt)
-    step = make_train_step(model, opt, _port_loss_fn(model), grad_accum_steps=grad_accum_steps,
-                           optimizer_kernel=optimizer_kernel)
+    step = make_train_step(model, opt, _port_loss_fn(model), grad_accum_steps=grad_accum_steps)
     out = []
     for _ in range(steps):
         state, m = step(state, batch)
@@ -184,11 +187,11 @@ def tiny_params():
 
 
 def test_optimizer_kernel_route_equals_plain_route(monkeypatch):
-    """``optimizer_kernel=True`` sends the leaves of 8192 elements or more
-    (here the embedding and the head, at vocab 256) through
-    ``fused_adamw_leaf`` (its twin here) and the rest through the plain
-    formula; the two routes round the same way, so the params agree bit for
-    bit."""
+    """Every step updates through ``update_and_params_local``, which sends
+    the leaves of 8192 elements or more (here the embedding and the head, at
+    vocab 256) through ``fused_adamw_leaf`` (its twin here) and the rest
+    through the plain formula; the reference route ``update_and_params``
+    rounds the same way, so the params agree bit for bit."""
     from neuronx_distributed_tpu_torch.optimizer import adamw
 
     params = tl.init_params(tl.LlamaConfig(**{**TINY, "vocab_size": 256}, dtype=torch.float32),
@@ -198,9 +201,9 @@ def test_optimizer_kernel_route_equals_plain_route(monkeypatch):
     real = adamw.fused_adamw_leaf
     monkeypatch.setattr(adamw, "fused_adamw_leaf",
                         lambda g, *a, **k: calls.append(g.numel()) or real(g, *a, **k))
-    runs = [_port_run(params, batch, steps=2, lr=1e-2, optimizer_kernel=k, vocab_size=256,
-                      convert=False) for k in (False, True)]
-    assert calls == [256 * 32] * 4      # embedding and head, two steps, kernel route only
+    runs = [_port_run(params, batch, steps=2, lr=1e-2, reference_route=ref, vocab_size=256,
+                      convert=False) for ref in (True, False)]
+    assert calls == [256 * 32] * 4      # embedding and head, two steps, the step's route only
     assert runs[0][0] == runs[1][0]
     for n, p in runs[0][1].params.items():
         np.testing.assert_array_equal(p.numpy(), runs[1][1].params[n].numpy(), err_msg=n)
@@ -230,28 +233,32 @@ def test_chunked_loss_equals_unchunked(tiny_params):
 
 
 def test_full_remat_gives_the_same_gradients():
-    """``remat_policy="full"`` recomputes each layer in the backward: the
-    gradients equal those of ``None``; ``"attention"`` is not ported and
-    says so; serving (no grad) never checkpoints."""
+    """``remat_policy="full"`` recomputes each layer in the backward and
+    ``"attention"`` all but its projection GEMMs: the gradients equal those
+    of ``None``; an unknown policy raises; serving (no grad) never
+    checkpoints."""
     params = tl.init_params(tl.LlamaConfig(**TINY, dtype=torch.float32),
                             torch.Generator().manual_seed(0))
     batch = _batch(2, 128, seed=5)
     grads = {}
-    for policy in ("full", None):
+    for policy in ("full", "attention", None):
         grads[policy] = _grads(_port_model(params, False, remat_policy=policy), batch)[1]
-    for n, g in grads[None].items():
-        np.testing.assert_allclose(grads["full"][n].numpy(), g.numpy(), atol=1e-7, err_msg=n)
+    for policy in ("full", "attention"):
+        for n, g in grads[None].items():
+            np.testing.assert_allclose(grads[policy][n].numpy(), g.numpy(), atol=1e-7,
+                                       err_msg=f"{policy} {n}")
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        _grads(_port_model(params, False, remat_policy="dots"), batch)
     m = _port_model(params, False, remat_policy="attention")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.module.loss(torch.as_tensor(batch["ids"]), torch.as_tensor(batch["labels"]))
     with torch.no_grad():
         assert m.module(torch.as_tensor(batch["ids"])).shape == (2, 128, TINY["vocab_size"])
 
 
 def test_initialize_parallel_model_config_and_refusals():
     """Explicit mixed-precision keys and the activation-checkpoint config
-    reach the model config; the seeded init is reproducible; parallel
-    degrees above 1 and the plain-AdamW optimizer raise."""
+    reach the model config; the seeded init is reproducible; a LoRA config
+    freezes the base and trains the adapters; plain AdamW is built under
+    ``use_master_weights=False``; parallel degrees above 1 raise."""
     cfg = neuronx_distributed_config(
         mixed_precision_config={"param_dtype": "bfloat16"},
         activation_checkpoint_config=None, model_init_config={"seed": 7})
@@ -266,9 +273,17 @@ def test_initialize_parallel_model_config_and_refusals():
         neuronx_distributed_config(activation_checkpoint_config="full"),
         lambda: tl.LlamaForCausalLM(tl.LlamaConfig(**TINY, remat_policy=None)), device="cpu")
     assert remat.module.config.remat_policy == "full"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        initialize_parallel_model(neuronx_distributed_config(tensor_parallel_size=2), make,
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="use_master_weights=False"):
-        initialize_parallel_optimizer(
-            neuronx_distributed_config(mixed_precision_config={"use_master_weights": False}), a)
+    for degree in ("tensor_parallel_size", "pipeline_parallel_size", "context_parallel_size"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            initialize_parallel_model(neuronx_distributed_config(**{degree: 2}), make,
+                                      device="cpu")
+    plain = initialize_parallel_optimizer(
+        neuronx_distributed_config(mixed_precision_config={"use_master_weights": False}), a)
+    assert type(plain.init(a.params)).__name__ == "AdamState"
+    lora = initialize_parallel_model(
+        neuronx_distributed_config(lora_config={"r": 4, "lora_alpha": 8.0}), make, device="cpu")
+    assert not any(p.requires_grad for p in lora.module.parameters())
+    assert set(lora.trainable_params) == {f"{w}.{k}" for w in lora.lora_specs
+                                          for k in ("lora_a", "lora_b")}
+    assert all(t.requires_grad for t in lora.trainable_leaves().values())
+    assert len(lora.trainable_params) == 2 * 7 * TINY["num_layers"]

@@ -196,6 +196,19 @@ Phases, each fatal on failure (exit code 1, no result line):
            ``remat_policy="attention"`` and with plain AdamW on the bf16
            params: step ms, peak bytes, launches (B1's a layer), the loss
            falling.
+4l. dist   distributed training: (d0) Llama-2-7B widths at 4 layers, 4 x
+           4096 tokens a step of a seeded stream, bf16 with fp32 masters,
+           remat ``"attention"``, clipping 1.0, 3 steps on one rank; (d1)
+           the same run through the Llama-2 TP+ZeRO-1+SP example's entry
+           point as four processes on the card over gloo (TP 2 x DP 2, SP
+           and ZeRO-1 on): each step's loss within 1 % of (d0)'s, the DP
+           replicas' params and the TP-replicated leaves bit-identical
+           after every step, the ZeRO state a quarter of (d0)'s, B1, B3a,
+           B3b and B4 (30 a step) launched in every rank; (d2) the small
+           fp32 model on the same layout against one CPU rank (losses and
+           grad norms within 1e-5), a multi-rank async save after step 2
+           and a fresh group resuming step 3 bit for bit, the tag loaded at
+           TP=1 equal to the gathered params, a flipped byte caught.
 
 ``--profile PATH`` repeats each trace and overload pass under
 ``torch.profiler`` (device activity only) for the device's busy share of
@@ -5970,6 +5983,456 @@ def train_variants(cfg, dev, counters) -> dict:
     return out
 
 
+# --- phase 4l: distributed training (TP + SP + DP with ZeRO-1) ----------------------
+
+DIST_WORLD, DIST_TP = 4, 2        # TP 2 x DP 2, four processes on the one card
+DIST_LAYERS = 4                   # llama2_7b depth 32 -> 4 (fp32 masters of 32 do not fit)
+DIST_SEQ, DIST_BATCH, DIST_STEPS = 4096, 4, 3
+DIST_LR = 1e-4                    # the example's default
+DIST_LOSS_RTOL = 1e-2             # (d1) vs (d0), bf16
+DIST_STATE_RTOL = 0.01            # ZeRO state bytes against a quarter of (d0)'s
+DIST_SMALL_TOL = 1e-5             # (d2) GPU ranks vs one CPU rank, fp32
+DIST_SMALL_BATCH, DIST_SMALL_LR = 4, 1e-3
+DIST_B4_PER_STEP = 30             # 4 layers x 7 matrices + embedding + head
+DIST_TIMEOUT_S = 300              # every group's timeout
+DIST_CHILD_TIMEOUT_S = 900        # the parent's wait for the ranks
+DIST_COUNTERS = ("flash_block_forward", "flash_bwd_dkdv", "flash_bwd_dq", "fused_adamw_leaf")
+
+
+def _digest(tensors: dict) -> str:
+    """sha256 of the tensors' bytes, in name order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for n in sorted(tensors):
+        h.update(tensors[n].detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def dist_args(layers: int, extra=()) -> list:
+    """The example's arguments for the (d0)/(d1) run."""
+    return ["--layers", str(layers), "--seq_len", str(DIST_SEQ), "--batch_size",
+            str(DIST_BATCH), "--steps", str(DIST_STEPS), "--lr", str(DIST_LR),
+            "--log_every", "0", *extra]
+
+
+def dist_d0(dev, counters, layers=DIST_LAYERS) -> dict:
+    """(d0): the example's model, batches and optimizer on one rank, through
+    the entry points (ZeRO off: one rank); counters zeroed just before the
+    steps and read just after."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.examples import llama2_tp_zero1 as example
+    from neuronx_distributed_tpu_torch.examples.common import synthetic_lm_batches, to_device
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.trainer import (
+        create_train_state,
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+        neuronx_distributed_config,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = example.parse_args(dist_args(layers))
+    cfg = example.build_config(args, DIST_SEQ)
+    nxd = neuronx_distributed_config(
+        optimizer_config={"zero_one_enabled": False, "grad_clipping": True, "max_grad_norm": 1.0},
+        mixed_precision_config={"use_master_weights": True})
+    model = initialize_parallel_model(nxd, lambda: LlamaForCausalLM(cfg), device=dev)
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=DIST_LR,
+                                        weight_decay=args.weight_decay)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, lambda p, b, rng: model.apply(
+        p, b["ids"], b["labels"], method="loss"))
+    batches = synthetic_lm_batches(cfg.vocab_size, DIST_BATCH, DIST_SEQ, seed=args.seed)
+    next(batches)   # the example's init sample
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    zero_launches(counters)
+    steps = []
+    for _ in range(DIST_STEPS):
+        batch = to_device(next(batches), dev)
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        steps.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                          ms=(time.perf_counter() - t) * 1e3))
+    launches = {c.__name__: c.launches for c in counters}
+    st = state.opt_state
+    out = dict(layers=cfg.num_layers, steps=steps, launches=launches, setup_s=setup_s,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               param_bytes=sum(nbytes(t) for t in state.params.values()),
+               state_bytes_by_leaf={n: nbytes(st.mu[n], st.nu[n], st.master[n])
+                                    for n in st.mu})
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in steps),
+          f"dist (d0): non-finite loss or grad norm {steps}")
+    del model, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_small_batches(vocab: int, seq: int) -> list:
+    """(d2)'s global batches, numpy (the same on every rank and the CPU)."""
+    import numpy as np
+
+    out = []
+    for i in range(DIST_STEPS):
+        ids = np.random.RandomState(30 + i).randint(0, vocab, (DIST_SMALL_BATCH, seq + 1))
+        out.append({"ids": ids[:, :-1].astype(np.int32), "labels": ids[:, 1:].astype(np.int32)})
+    return out
+
+
+def dist_small_trainer(dev, params, tp: int):
+    """(d2)'s trainer: the small fp32 model from ``params`` (global, CPU),
+    TP ``tp`` with SP, ZeRO-1, fp32 masters, clipping 1.0."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.trainer import (
+        create_train_state,
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+        neuronx_distributed_config,
+    )
+
+    nxd = neuronx_distributed_config(
+        tensor_parallel_size=tp, sequence_parallel=tp > 1,
+        optimizer_config={"zero_one_enabled": True, "grad_clipping": True, "max_grad_norm": 1.0},
+        mixed_precision_config={"use_master_weights": True})
+    model = initialize_parallel_model(nxd, lambda: LlamaForCausalLM(small_config()), device=dev,
+                                      params=params)
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=DIST_SMALL_LR,
+                                        weight_decay=0.01)
+    step = make_train_step(model, opt, lambda p, b, rng: model.apply(
+        p, b["ids"], b["labels"], method="loss"))
+    return create_train_state(model, opt), step
+
+
+def dist_small_steps(state, step, batches, dev):
+    import torch
+
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    out = []
+    for b in batches:
+        rows = mesh.data_batch_slice(DIST_SMALL_BATCH)
+        state, m = step(state, {k: torch.as_tensor(v[rows]).to(dev) for k, v in b.items()})
+        out.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+    return state, out
+
+
+def dist_child(rank: int, world: int, port: int, out_path: str, layers: int,
+               ckpt_dir: str, dev: str = "cuda:0") -> int:
+    """One rank of (d1) and (d2), a process of its own on ``cuda:0`` over
+    gloo. (d1): the Llama-2 example's ``main`` at TP 2 x DP 2, with a step
+    hook that reads the loss, grad norm, step time and param digests; the
+    launch counters and the collective table zeroed just before ``main``
+    and read just after. (d2): the small fp32 model, 3 steps straight; a
+    fresh state, 2 steps and an async save; a fresh group resuming step 3
+    from the tag. Writes every reading to ``out_path``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.checkpoint import (
+        finalize_checkpoint,
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from neuronx_distributed_tpu_torch.examples import llama2_tp_zero1 as example
+    from neuronx_distributed_tpu_torch.kernels import _build
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_bwd_dkdv,
+        flash_bwd_dq,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+    from neuronx_distributed_tpu_torch.optimizer import zero1
+    from neuronx_distributed_tpu_torch.optimizer.fused_kernel import fused_adamw_leaf
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build()
+    res = dict(rank=rank)
+    counters = (flash_block_forward, flash_bwd_dkdv, flash_bwd_dq, fused_adamw_leaf)
+    steps, mark = [], {}
+
+    def on_step(i, state, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                   ms=(now - mark["t"]) * 1e3 if "t" in mark else None)
+        pieces = state.layout
+        tp_leaves = {n for n, t in state.params.items()
+                     if tuple(pieces[f".params['{n}']"].global_shape) != tuple(t.shape)}
+        rec["digest"] = _digest(state.params)
+        rec["replicated_digest"] = _digest({n: t for n, t in state.params.items()
+                                            if n not in tp_leaves})
+        if i == 0:
+            st = state.opt_state
+            res["param_bytes"] = sum(nbytes(t) for t in state.params.values())
+            res["state_bytes_tp_sharded"] = sum(nbytes(st.mu[n], st.nu[n], st.master[n])
+                                                for n in st.mu if n in tp_leaves)
+            res["state_bytes_replicated"] = sum(nbytes(st.mu[n], st.nu[n], st.master[n])
+                                                for n in st.mu if n not in tp_leaves)
+            res["tp_sharded_leaves"] = sorted(tp_leaves)
+            res["coords"] = mesh.local_mesh_coords()
+        steps.append(rec)
+        mark["t"] = time.perf_counter()
+
+    argv = dist_args(layers, ["--tp", str(DIST_TP), "--backend", "gloo", "--device", dev,
+                              "--coordinator_address", f"localhost:{port}",
+                              "--num_processes", str(world), "--process_id", str(rank)])
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    mappings.reset_collective_stats()
+    zero1.staging_copies = 0
+    t1 = time.perf_counter()
+    example.main(argv, on_step=on_step)
+    res["d1"] = dict(steps=steps, launches={c.__name__: c.launches for c in counters},
+                     collectives=mappings.collective_stats(), staging_copies=zero1.staging_copies,
+                     peak_bytes=torch.cuda.max_memory_allocated(),
+                     main_s=time.perf_counter() - t1, backend=mesh.group_backend(
+                         mesh.get_tensor_model_parallel_group()))
+    mesh.destroy_model_parallel()
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d2): the small fp32 model on the same layout
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT_S)
+    cfg = small_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    batches = dist_small_batches(cfg.vocab_size, cfg.max_seq_len)
+
+    def join(p):
+        mesh.init_distributed("gloo", rank=rank, world_size=world, local_rank=0,
+                              init_method=f"tcp://localhost:{p}", timeout=timeout)
+        mesh.initialize_model_parallel(DIST_TP, timeout=timeout)
+
+    join(port + 1)
+    state, step = dist_small_trainer(dev, params, DIST_TP)
+    state, straight = dist_small_steps(state, step, batches, dev)
+    want = _digest(state.params)
+    state, step = dist_small_trainer(dev, params, DIST_TP)
+    state, head = dist_small_steps(state, step, batches[:2], dev)
+    save_checkpoint(ckpt_dir, "step_2", state, user_content={"step": 2}, async_save=True)
+    torch.save({"params": {n: t.cpu() for n, t in state.params.items()},
+                "layout": {k: (v.global_shape, v.offset) for k, v in state.layout.items()}},
+               str(Path(out_path).with_suffix(".params.pt")))
+    finalize_checkpoint()
+    mesh.destroy_model_parallel()
+    dist.destroy_process_group()
+    join(port + 2)   # a fresh group resumes
+    state, step = dist_small_trainer(dev, params, DIST_TP)
+    state, content = load_checkpoint(ckpt_dir, target=state, verify=True)
+    state, tail = dist_small_steps(state, step, batches[2:], dev)
+    res["d2"] = dict(straight=straight, resumed=head + tail, resumed_step=content["step"],
+                     bit_identical=_digest(state.params) == want
+                     and [s["loss"] for s in head + tail] == [s["loss"] for s in straight])
+    res["wall_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(res))
+    mesh.destroy_model_parallel()
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_ranks(layers: int, ckpt_dir: str, tmp: Path) -> dict:
+    """(d1) and (d2): :func:`dist_child` as ``DIST_WORLD`` processes on the
+    one card; the card's used memory polled while they run. A rank that
+    fails or outlives ``DIST_CHILD_TIMEOUT_S`` fails the phase (every
+    process is stopped)."""
+    import torch
+
+    port = _free_port()
+    free0, total = torch.cuda.mem_get_info()
+    peak_used = total - free0
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(DIST_WORLD)]
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-world", str(DIST_WORLD),
+           "--dist-port", str(port), "--dist-layers", str(layers), "--dist-dir", ckpt_dir]
+    procs = [subprocess.Popen(cmd + ["--dist-rank", str(r), "--dist-out",
+                                     str(tmp / f"rank{r}.json")],
+                              cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(DIST_WORLD)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() - t0 > DIST_CHILD_TIMEOUT_S:
+                raise SmokeFailure(f"dist phase: the ranks ran past {DIST_CHILD_TIMEOUT_S} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break   # one rank failed: its peers fail at the group's timeout
+            free, _ = torch.cuda.mem_get_info()
+            peak_used = max(peak_used, total - free)
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (tmp / f"rank{r}.log").read_text()[-3000:]
+            raise SmokeFailure(f"dist phase: rank {r} exited {p.returncode}:\n{tail}")
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(DIST_WORLD)]
+    return dict(ranks=ranks, wall_s=wall, card_peak_used_bytes=peak_used, card_bytes=total)
+
+
+def dist_gates(d0: dict, d1: dict) -> list:
+    """(d1)'s hard gates against (d0), as a list of problems."""
+    bad = []
+    ranks = d1["ranks"]
+    want = [s["loss"] for s in d0["steps"]]
+    worst = 0.0
+    for rk in ranks:
+        got = [s["loss"] for s in rk["d1"]["steps"]]
+        if len(got) != DIST_STEPS:
+            bad.append(f"rank {rk['rank']} ran {len(got)} steps")
+            continue
+        for a, b in zip(got, want):
+            worst = max(worst, abs(a - b) / abs(b))
+    d1["loss_max_rel_diff"] = worst
+    if worst > DIST_LOSS_RTOL:
+        bad.append(f"losses differ from (d0)'s by {worst:.3g} relative (limit {DIST_LOSS_RTOL})")
+    for i in range(DIST_STEPS):
+        by_tp = {}
+        for rk in ranks:
+            by_tp.setdefault(rk["coords"]["tp"], set()).add(rk["d1"]["steps"][i]["digest"])
+        if any(len(v) != 1 for v in by_tp.values()):
+            bad.append(f"step {i + 1}: data-parallel replicas' params differ {by_tp}")
+        rep = {rk["d1"]["steps"][i]["replicated_digest"] for rk in ranks}
+        if len(rep) != 1:
+            bad.append(f"step {i + 1}: TP-replicated leaves differ across ranks {rep}")
+    names = set(ranks[0]["tp_sharded_leaves"])
+    d0_sharded = sum(v for n, v in d0["state_bytes_by_leaf"].items() if n in names)
+    for rk in ranks:
+        share = rk["state_bytes_tp_sharded"] / (d0_sharded / DIST_WORLD)
+        rk["state_share_of_quarter"] = share
+        if abs(share - 1.0) > DIST_STATE_RTOL:
+            bad.append(f"rank {rk['rank']}: ZeRO state bytes {rk['state_bytes_tp_sharded']} are "
+                       f"{share:.4f} of a quarter of (d0)'s {d0_sharded}")
+        ln = rk["d1"]["launches"]
+        for name in DIST_COUNTERS:
+            if ln.get(name, 0) <= 0:
+                bad.append(f"rank {rk['rank']} never launched {name}")
+        if ln.get("fused_adamw_leaf") != DIST_B4_PER_STEP * DIST_STEPS:
+            bad.append(f"rank {rk['rank']}: B4 launched {ln.get('fused_adamw_leaf')} times, not "
+                       f"{DIST_B4_PER_STEP} a step")
+    return bad
+
+
+def dist_small_reference(ckpt_dir: str, tmp: Path, ranks: list) -> dict:
+    """(d2)'s CPU side: the one-rank run the ranks are held against, the
+    tag loaded at TP=1 on one rank against the ranks' gathered step-2
+    params, and a flipped byte in one rank's piece."""
+    import shutil
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.checkpoint import CheckpointIntegrityError, load_checkpoint
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+
+    cfg = small_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    batches = dist_small_batches(cfg.vocab_size, cfg.max_seq_len)
+    state, step = dist_small_trainer("cpu", params, 1)
+    _, cpu = dist_small_steps(state, step, batches, "cpu")
+    errs = [max(abs(a["loss"] - c["loss"]), abs(a["grad_norm"] - c["grad_norm"]))
+            for rk in ranks for a, c in zip(rk["d2"]["straight"], cpu)]
+    # the tag at TP=1, one rank: every leaf whole
+    target, _ = dist_small_trainer("cpu", params, 1)
+    whole, content = load_checkpoint(ckpt_dir, target=target, verify=True)
+    gathered = {n: torch.empty_like(t) for n, t in whole.params.items()}
+    for r in range(DIST_WORLD):
+        part = torch.load(str(tmp / f"rank{r}.params.pt"))
+        for n, t in part["params"].items():
+            _, off = part["layout"][f".params['{n}']"]
+            gathered[n][tuple(slice(o, o + s) for o, s in zip(off, t.shape))] = t
+    equal = all(torch.equal(gathered[n], whole.params[n]) for n in gathered)
+    bad = tmp / "flipped"
+    shutil.copytree(ckpt_dir, bad)
+    piece = bad / "step_2" / "state" / "tensors.rank00003.safetensors"
+    blob = bytearray(piece.read_bytes())
+    blob[-7] ^= 0x20
+    piece.write_bytes(bytes(blob))
+    try:
+        load_checkpoint(str(bad), verify=True)
+        caught = False
+    except CheckpointIntegrityError:
+        caught = True
+    return dict(cpu=cpu, max_abs_err=max(errs), tp1_equals_gathered=equal,
+                flipped_byte_caught=caught, resumed_from=content["step"])
+
+
+def run_dist_phase(dev, counters, layers=DIST_LAYERS) -> dict:
+    """Phase 4l: (d0) in this process, then (d1) and (d2) as four rank
+    processes, then (d2)'s CPU side; every gate."""
+    t0 = time.perf_counter()
+    d0 = dist_d0(dev, counters, layers)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        ckpt = str(tmp / "ckpt")
+        d1 = dist_ranks(layers, ckpt, tmp)
+        d2 = dist_small_reference(ckpt, tmp, d1["ranks"])
+    problems = dist_gates(d0, d1)
+    if d2["max_abs_err"] > DIST_SMALL_TOL:
+        problems.append(f"(d2): the ranks' losses or grad norms differ from the CPU rank's by "
+                        f"{d2['max_abs_err']:.3g} (limit {DIST_SMALL_TOL})")
+    for rk in d1["ranks"]:
+        if not rk["d2"]["bit_identical"]:
+            problems.append(f"(d2) rank {rk['rank']}: the resumed step 3 is not bit-identical")
+    for key in ("tp1_equals_gathered", "flipped_byte_caught"):
+        if not d2[key]:
+            problems.append(f"(d2): {key} failed")
+    check(not problems, "dist phase: " + "; ".join(problems))
+    return dict(d0=d0, d1=d1, d2=d2, phase_s=time.perf_counter() - t0)
+
+
+def print_dist(dist: dict, card: str) -> None:
+    d0, d1, d2 = dist["d0"], dist["d1"], dist["d2"]
+
+    def steps_text(steps):
+        return ", ".join(f"{s['loss']:.5f}/{s['grad_norm']:.4f}"
+                         + (f" {s['ms']:.0f} ms" if s.get("ms") else "") for s in steps)
+
+    print(f"dist (d0): llama2_7b widths, {d0['layers']} of 32 layers, one rank, {DIST_BATCH} x "
+          f"{DIST_SEQ} tokens a step, bf16 + fp32 masters, remat attention; loss/grad norm/step "
+          f"{steps_text(d0['steps'])}; param bytes {d0['param_bytes']}, state bytes "
+          f"{sum(d0['state_bytes_by_leaf'].values())}, peak {d0['peak_bytes']} bytes, set-up "
+          f"{d0['setup_s']:.1f} s, launches {json.dumps(d0['launches'])} [{card}]", flush=True)
+    for rk in d1["ranks"]:
+        r1 = rk["d1"]
+        coll = {k: f"{v[0]} calls {v[1]} bytes" for k, v in sorted(r1["collectives"].items())}
+        print(f"dist (d1) rank {rk['rank']} (tp {rk['coords']['tp']}, dp {rk['coords']['dp']}): "
+              f"the example over {r1['backend']}, TP {DIST_TP} x DP {DIST_WORLD // DIST_TP}, SP "
+              f"and ZeRO-1 on; loss/grad norm/step {steps_text(r1['steps'])}; param bytes "
+              f"{rk['param_bytes']}, ZeRO state bytes {rk['state_bytes_tp_sharded']} + "
+              f"{rk['state_bytes_replicated']} on TP-replicated leaves "
+              f"({rk['state_share_of_quarter']:.4f} of a quarter of (d0)'s), peak "
+              f"{r1['peak_bytes']} bytes, launches {json.dumps(r1['launches'])}, collectives "
+              f"{json.dumps(coll)}, ZeRO staging copies {r1['staging_copies']}, main "
+              f"{r1['main_s']:.1f} s [{card}]", flush=True)
+    print(f"dist (d1): every step's loss within {d1['loss_max_rel_diff']:.3g} of (d0)'s "
+          f"(limit {DIST_LOSS_RTOL}); DP replicas and TP-replicated leaves bit-identical after "
+          f"every step; {len(d1['ranks'])} processes in {d1['wall_s']:.1f} s with (d2), card peak "
+          f"used {d1['card_peak_used_bytes']} of {d1['card_bytes']} bytes [{card}]", flush=True)
+    print(f"dist (d2): small fp32 model, TP {DIST_TP} x DP {DIST_WORLD // DIST_TP} on the card vs "
+          f"one CPU rank: max |loss or grad norm diff| {d2['max_abs_err']:.3g} (tol "
+          f"{DIST_SMALL_TOL}); async save after step 2, a fresh group resumed step 3 bit for bit; "
+          f"the tag at TP=1 equals the gathered params {d2['tp1_equals_gathered']}; flipped "
+          f"byte caught {d2['flipped_byte_caught']}; phase {dist['phase_s']:.1f} s [{card}]",
+          flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5986,6 +6449,13 @@ def main(argv=None) -> int:
     parser.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--tp-layers", type=int, default=None, help=argparse.SUPPRESS)
+    # one rank of phase 4l's (d1)/(d2), started by the phase itself
+    parser.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dist-world", type=int, default=DIST_WORLD, help=argparse.SUPPRESS)
+    parser.add_argument("--dist-port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dist-out", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dist-layers", type=int, default=DIST_LAYERS, help=argparse.SUPPRESS)
+    parser.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6000,6 +6470,9 @@ def main(argv=None) -> int:
         return 1
     if args.tp_rank is not None:
         return tp_child(args.tp_rank, args.tp_world, args.tp_port, args.tp_out, args.tp_layers)
+    if args.dist_rank is not None:
+        return dist_child(args.dist_rank, args.dist_world, args.dist_port, args.dist_out,
+                          args.dist_layers, args.dist_dir)
     from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
     from neuronx_distributed_tpu_torch.kernels import _build
     from neuronx_distributed_tpu_torch.kernels.flash_attn import (
@@ -6488,6 +6961,11 @@ def main(argv=None) -> int:
               f"launches a step {json.dumps(v['launches_per_step'])}, losses "
               f"{[round(x, 4) for x in v['losses']]} [{card}]", flush=True)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = run_dist_phase(dev, train_counters)
+    print_dist(dist, card)
+
     by_path = {"serve": stats["launches"], "serve_int8": int8["launches"],
                **{f"trace_{label}": st["launches"] for label, st in trace["passes"].items()},
                **{f"overload_{label}": st["launches"]
@@ -6510,7 +6988,10 @@ def main(argv=None) -> int:
                "quant_llama_int8": q1["int8"]["launches"], "quant_mixtral": sv["launches"],
                "quant_mixtral_generate": gen["launches"], "train_loop": loop["launches"],
                "train": tstats["launches"],
-               **{f"train_{name}": v["launches"] for name, v in variants.items()}}
+               **{f"train_{name}": v["launches"] for name, v in variants.items()},
+               "dist_d0": dist["d0"]["launches"],
+               **{f"dist_d1_rank{rk['rank']}": rk["d1"]["launches"]
+                  for rk in dist["d1"]["ranks"]}}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
                "fused_adamw": "fused_adamw_leaf", "w8a16_gemm": "w8a16_gemm"}
@@ -6549,7 +7030,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
                       "programs": eager, "speculation": spec, "medusa": medusa, "bundle": bundle,
                       "recovery": recovery, "tenants": tenants, "park": park, "fleet": fleet,
-                      "tp": tp,
+                      "tp": tp, "dist": dist,
                       "quant": quant,
                       "train_loop": loop, "train": tstats, "train_variants": variants,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,

@@ -88,3 +88,32 @@ def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
                 else torch.empty((0,), dtype=dt))
         out[name] = flat.reshape(info["shape"])
     return out
+
+
+class SafetensorsReader:
+    """One safetensors file read a tensor at a time: the header once, then
+    each tensor's bytes by offset (a checkpoint piece is read only by the
+    ranks whose blocks it covers)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        with open(path, "rb") as fh:
+            (n,) = struct.unpack("<Q", fh.read(8))
+            self.header = {k: v for k, v in json.loads(fh.read(n)).items()
+                           if k != "__metadata__"}
+        self.base = 8 + n
+
+    def keys(self):
+        return self.header.keys()
+
+    def get(self, name: str) -> torch.Tensor:
+        info = self.header[name]
+        if info["dtype"] not in _ST_TORCH:
+            raise ValueError(f"{name}: safetensors dtype {info['dtype']} is not read here")
+        dt = _ST_TORCH[info["dtype"]]
+        b0, b1 = info["data_offsets"]
+        with open(self.path, "rb") as fh:
+            fh.seek(self.base + b0)
+            raw = bytearray(fh.read(b1 - b0))
+        flat = torch.frombuffer(raw, dtype=dt) if raw else torch.empty((0,), dtype=dt)
+        return flat.reshape(info["shape"])

@@ -3,13 +3,21 @@ synthetic batches, the training loop with metrics and async checkpoints,
 and resume.
 
 Counterpart of ``examples/common.py`` of the JAX package. Every training
-script follows the same skeleton: ``neuronx_distributed_config`` ->
-``initialize_parallel_model`` -> ``initialize_parallel_optimizer`` ->
-``create_train_state`` -> :func:`maybe_resume` -> ``make_train_step`` ->
-:func:`train_loop`. Scripts run on the card unless ``--device cpu`` is
-given, and accept ``--tiny`` for a CPU-sized model. A tensor-parallel
-degree above 1 raises in ``initialize_parallel_model``: multi-rank training
-comes with a later slice, and so does the multi-process launch.
+script follows the same skeleton: :func:`setup_example` ->
+``neuronx_distributed_config`` -> ``initialize_parallel_model`` ->
+``initialize_parallel_optimizer`` -> ``create_train_state`` ->
+:func:`maybe_resume` -> ``make_train_step`` -> :func:`train_loop`. Scripts
+run on the card unless ``--device cpu`` is given, and accept ``--tiny`` for
+a CPU-sized model.
+
+Many ranks: one process a rank, launched with ``torchrun``'s environment or
+the JAX package's ``NXD_*`` trio (or ``--coordinator_address``,
+``--num_processes``, ``--process_id``); :func:`setup_example` joins the
+default group and builds the mesh. ``--batch_size`` is the global batch:
+each data-parallel rank trains on its own rows (:func:`distribute_batches`
+slices a global synthetic stream; a ``TokenShardDataset`` shards at the
+source). A rank-per-thread world (``parallel.mesh.run_in_threads``, the
+CPU tests) arrives with its mesh already built.
 """
 
 from __future__ import annotations
@@ -63,6 +71,15 @@ def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                              "suffix writes the JSON snapshot)")
     parser.add_argument("--tiny", action="store_true",
                         help="shrink the model and batch to CPU-test scale")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="host:port of rank 0 (or NXD_COORDINATOR_ADDRESS / MASTER_ADDR)")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="world size (or NXD_NUM_PROCESSES / WORLD_SIZE)")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="this process's rank (or NXD_PROCESS_ID / RANK)")
+    parser.add_argument("--backend", type=str, default=None,
+                        help="torch.distributed backend (default nccl with a GPU; gloo runs "
+                             "several ranks on one card)")
     return parser
 
 
@@ -108,6 +125,61 @@ def synthetic_lm_batches(vocab_size: int, batch: int, seq: int,
         yield {"ids": ids[:, :-1].astype(np.int32), "labels": ids[:, 1:].astype(np.int32)}
 
 
+def setup_distributed(args) -> bool:
+    """Join the default group when a launch is configured (a no-op
+    otherwise, so every script calls it). Returns True on a multi-process
+    run."""
+    from neuronx_distributed_tpu_torch.parallel.distributed import initialize_distributed
+
+    multi = initialize_distributed(getattr(args, "coordinator_address", None),
+                                   getattr(args, "num_processes", None),
+                                   getattr(args, "process_id", None),
+                                   backend=getattr(args, "backend", None),
+                                   device=getattr(args, "device", None))
+    if multi:
+        import torch.distributed as dist
+
+        logger.info("process %d/%d", dist.get_rank(), dist.get_world_size())
+    return multi
+
+
+def setup_example(args, tensor_parallel_size: int = 1) -> int:
+    """The examples' bootstrap: join the default group (a process-per-rank
+    launch), then build the mesh at ``tensor_parallel_size`` unless this
+    rank already holds one (a rank-per-thread world). Returns the world
+    size."""
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    if mesh.model_parallel_is_initialized():
+        return mesh.get_world_size()
+    if setup_distributed(args):
+        mesh.initialize_model_parallel(tensor_parallel_size)
+        return mesh.get_world_size()
+    return 1
+
+
+def distribute_batches(batches: Iterator[Dict[str, np.ndarray]],
+                       global_batch: int) -> Iterator[Dict[str, np.ndarray]]:
+    """A global-batch stream made the same on every rank (one seed), cut to
+    this rank's rows when the world has more than one data-parallel rank;
+    a pass-through otherwise."""
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    if not mesh.model_parallel_is_initialized() or mesh.get_data_parallel_size() == 1:
+        return batches
+    return host_local_batches(batches, global_batch)
+
+
+def host_local_batches(batches: Iterator[Dict[str, np.ndarray]],
+                       global_batch: int) -> Iterator[Dict[str, np.ndarray]]:
+    """Each global batch cut to this rank's rows (``host_batch_slice``)."""
+    from neuronx_distributed_tpu_torch.parallel.distributed import host_batch_slice
+
+    sl = host_batch_slice(global_batch)
+    for b in batches:
+        yield {k: v[sl] for k, v in b.items()}
+
+
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
@@ -117,7 +189,8 @@ def train_loop(step_fn: Callable, state, batches: Iterator[Dict[str, np.ndarray]
                checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
                metrics_file: Optional[str] = None, profile_dir: Optional[str] = None,
                extra_metrics: Optional[Dict[str, Any]] = None, trace_out: Optional[str] = None,
-               metrics_out: Optional[str] = None, dataset=None):
+               metrics_out: Optional[str] = None, dataset=None,
+               on_step: Optional[Callable] = None):
     """Run steps ``state.step`` .. ``steps`` with throughput logging,
     optional periodic async checkpoints (every ``checkpoint_every`` steps,
     tag ``step_{n}``, the newest 3 kept, and a sync save at the end unless
@@ -126,7 +199,8 @@ def train_loop(step_fn: Callable, state, batches: Iterator[Dict[str, np.ndarray]
     ``device`` before its step. ``dataset`` (anything with ``state_dict``,
     for example a ``TokenShardDataset``): its position after the step goes
     into each save's ``user_content["data"]``, where :func:`maybe_resume`
-    finds it. Returns ``(final_state, last_metrics)``.
+    finds it. ``on_step(i, state, metrics)`` runs after step ``i`` (0-based)
+    and before its save. Returns ``(final_state, last_metrics)``.
 
     ``trace_out``/``metrics_out`` arm the host-side observability layer:
     a span a step (dispatch wall time) and a save in the trainer lane
@@ -170,6 +244,8 @@ def train_loop(step_fn: Callable, state, batches: Iterator[Dict[str, np.ndarray]
                 if tracer.enabled:
                     tracer.complete(f"step_{i}", ("trainer", "steps"), t0, t1,
                                     args={"step": i + 1})
+                if on_step is not None:
+                    on_step(i, state, metrics)
                 if log_every and ((i + 1) % log_every == 0 or i + 1 == steps):
                     loss = float(metrics["loss"])   # the host read waits for the step
                     seq_s = throughput.get_throughput() * (i + 1 - last_logged)

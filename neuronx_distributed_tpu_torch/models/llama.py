@@ -23,7 +23,17 @@ while autograd records, never in decode mode) under ``remat_policy="full"``
 ``"attention"`` (JAX ``dots_with_no_batch_dims_saveable``: the outputs of
 the projection GEMMs are saved, everything else, the flash kernel
 included, recomputed), ``qkv_clip``, and LoRA training through the layers'
-``adapters`` (``lora/core.py``). Not ported yet: context parallelism.
+``adapters`` (``lora/core.py``). Not ported yet: context parallelism
+(``context_parallel=True`` raises).
+
+Sequence parallelism (JAX ``llama.py:822-829, 873-877``): with
+``sequence_parallel`` under a group, the residual stream is cut along the
+sequence from the embedding (which reduce-scatters) through every norm,
+residual add and row-layer output to the final norm; the column layers
+gather the whole sequence for the attention and the MLP, and the final
+hidden state is all-gathered before the head. Every rank issues the same
+collectives in the same order, the activation-checkpoint recompute
+included.
 
 Tree chunks (``chunk_ctx``, JAX ``llama.py:341``, ``:490-497``,
 ``:643-656``): a decode-mode forward may carry ``(chunk_mask (s, s) bool,
@@ -47,7 +57,9 @@ embedding, the QKV projection, ``o_proj``, the MLP and ``lm_head`` are the
 TP layers of ``parallel/layers.py`` over it (RoPE and the norms stay
 replicated): each rank holds its shard of the weights, attends over its
 own heads and keeps its own heads' KV cache, and the logits come out
-vocab-sharded (``lm_head`` is ``gather_output=False``). The adapter pool
+vocab-sharded (``lm_head`` is ``gather_output=False``); :meth:`loss`
+reduces the cross entropy over the whole vocabulary through the group
+(``parallel/loss.py``). The adapter pool
 holds the rank's slices (:func:`lora_layout`). :func:`init_params` gives
 each rank its slice of the same global values, so every degree runs the
 same model.
@@ -97,6 +109,7 @@ from neuronx_distributed_tpu_torch.parallel.loss import (
     parallel_cross_entropy,
     parallel_cross_entropy_mean,
 )
+from neuronx_distributed_tpu_torch.parallel.mappings import gather_from_tensor_parallel_region
 from neuronx_distributed_tpu_torch.parallel.mesh import group_rank, group_size
 
 
@@ -152,6 +165,10 @@ class LlamaConfig:
     lora_rank: Optional[int] = None
     lora_slots: int = 0
     lora_targets: Tuple[str, ...] = ("qkv", "o_proj", "gate_proj", "up_proj", "down_proj")
+    # training layouts under a tensor-parallel group: the residual stream
+    # cut along the sequence (Megatron SP); context parallelism is not ported
+    sequence_parallel: bool = False
+    context_parallel: bool = False
 
     @property
     def head_dim_(self) -> int:
@@ -474,10 +491,11 @@ class LlamaAttention(nn.Module):
         self.qkv = GQAQKVColumnParallelLinear(
             cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, hd, dtype=cfg.dtype,
             param_dtype=cfg.param_dtype, device=device, group=group,
-            kv_size_multiplier=cfg.kv_size_multiplier)
+            kv_size_multiplier=cfg.kv_size_multiplier, sequence_parallel=cfg.sequence_parallel)
         self.o_proj = RowParallelLinear(cfg.num_heads * hd, cfg.hidden_size, use_bias=False,
                                         dtype=cfg.dtype, param_dtype=cfg.param_dtype,
-                                        device=device, group=group)
+                                        device=device, group=group,
+                                        sequence_parallel=cfg.sequence_parallel)
 
     def forward(self, x, rope, cache: Optional[KVCache] = None, layer: int = 0, lora=None,
                 chunk_ctx=None):
@@ -498,7 +516,7 @@ class LlamaAttention(nn.Module):
             raise ValueError("chunk_ctx needs decode mode (a KV cache to attend over)")
         cos, sin = rope
         q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
-        s = x.shape[1]
+        s = q.shape[1]   # the whole sequence (x is the rank's shard under SP)
         blk_q, blk_k = cfg.blocks_for(s)
         o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
                       use_flash=cfg.use_flash_attention and flash_supported(s, s, blk_q, blk_k),
@@ -604,7 +622,7 @@ class LlamaMLP(nn.Module):
         super().__init__()
         cfg = config
         kw = dict(use_bias=False, dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
-                  group=group)
+                  group=group, sequence_parallel=cfg.sequence_parallel)
         self.gate_proj = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.up_proj = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.down_proj = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size, **kw)
@@ -629,7 +647,7 @@ class LlamaDecoderLayer(nn.Module):
         super().__init__()
         cfg = config
         norm = dict(epsilon=cfg.rms_norm_eps, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
-                    device=device)
+                    device=device, sequence_parallel=cfg.sequence_parallel, group=group)
         self.input_norm = RMSNorm(cfg.hidden_size, **norm)
         self.attention = LlamaAttention(cfg, device, group)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, **norm)
@@ -678,14 +696,25 @@ class LlamaModel(nn.Module):
         super().__init__()
         cfg = self.config = config
         layer_cls = layer_cls or self.layer_cls
+        if cfg.context_parallel:
+            if cfg.sequence_parallel:
+                raise ValueError("sequence_parallel and context_parallel are exclusive")
+            raise NotImplementedError("context parallelism (ring attention) is not ported yet "
+                                      "(ROADMAP queue A)")
+        if cfg.sequence_parallel and cfg.decode:
+            raise ValueError("sequence_parallel is a training layout; decode mode does not "
+                             "take it")
         self.group = group
         self.tp, self.tp_rank = group_size(group), group_rank(group)
+        sp = cfg.sequence_parallel
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype,
-                                       param_dtype=cfg.param_dtype, device=device, group=group)
+                                       param_dtype=cfg.param_dtype, device=device, group=group,
+                                       sequence_parallel=sp)
         self.layers = nn.ModuleList(layer_cls(cfg, device, group=group)
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, dtype=cfg.dtype,
-                                  param_dtype=cfg.param_dtype, device=device)
+                                  param_dtype=cfg.param_dtype, device=device,
+                                  sequence_parallel=sp, group=group)
         # the adapter pool (read-only here; the serving pool writes its
         # slots in place) and the rows' slots, set by the caller
         self.lora_layout: Optional[LoraLayout] = None
@@ -762,9 +791,20 @@ class LlamaForCausalLM(nn.Module):
             return self.model.embed.attend(x)
         return self.lm_head(x)
 
+    def _hidden(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None,
+                chunk_ctx=None) -> torch.Tensor:
+        """The final norm's output over the whole sequence: under sequence
+        parallelism the ranks' shards are all-gathered (the head's input
+        region all-reduces the gradient, so the gather's backward keeps
+        the rank's slice)."""
+        x = self.model(input_ids, cache, chunk_ctx)
+        if self.model.embed.sequence_parallel:
+            x = gather_from_tensor_parallel_region(x, self.model.group, 1)
+        return x
+
     def forward(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None,
                 chunk_ctx=None):
-        return self._head(self.model(input_ids, cache, chunk_ctx))
+        return self._head(self._hidden(input_ids, cache, chunk_ctx))
 
     def loss(self, input_ids: torch.Tensor, labels: torch.Tensor,
              ignore_index: int = -100) -> torch.Tensor:
@@ -772,15 +812,20 @@ class LlamaForCausalLM(nn.Module):
         ``ignore_index``. Past ``loss_chunk_size`` tokens (default 4096) the
         head and the cross entropy run per chunk under activation
         checkpointing, so only one chunk's logits are alive at a time; a
-        sequence that the chunk does not divide ends with a short chunk."""
-        x = self.model(input_ids)
+        sequence that the chunk does not divide ends with a short chunk.
+        Under a tensor-parallel group the logits stay vocab-sharded and the
+        cross entropy reduces over the whole vocabulary through the group."""
+        x = self._hidden(input_ids)
+        group = self.model.group
         s = labels.shape[1]
         chunk = self.config.loss_chunk_size or 4096
         if s <= chunk:
-            return parallel_cross_entropy_mean(self._head(x), labels, ignore_index=ignore_index)
+            return parallel_cross_entropy_mean(self._head(x), labels, ignore_index=ignore_index,
+                                               group=group)
 
         def chunk_loss(xc, lc):
-            per_tok = parallel_cross_entropy(self._head(xc), lc, ignore_index=ignore_index)
+            per_tok = parallel_cross_entropy(self._head(xc), lc, ignore_index=ignore_index,
+                                             group=group)
             return per_tok.sum(), (lc != ignore_index).float().sum()
 
         total = torch.zeros((), dtype=torch.float32, device=x.device)

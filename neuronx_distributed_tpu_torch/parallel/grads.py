@@ -1,31 +1,55 @@
-"""Gradient norm and clipping over a dict of gradients, on one device.
+"""Gradient norm, clipping and the data-parallel reduction over sharded grads.
 
 Counterpart of ``neuronx_distributed_tpu/parallel/grads.py``
-(``get_grad_norm``, ``clip_grads_with_norm``, ``clip_grad_norm``). Every
-result stays a device tensor: nothing is read back to the host. The
-data-parallel reduction (``psum_gradients_over_dp``) comes with the slice
-that ports data parallelism.
+(``get_grad_norm``, ``clip_grads_with_norm``, ``clip_grad_norm``,
+``psum_gradients_over_dp``). JAX's gradients are global arrays and its norm
+is a plain sum; here each rank holds pieces, so :func:`get_grad_norm` takes
+the layout: a leaf named in ``tp_sharded`` is a tensor-parallel shard (its
+squares summed over TP), one named in ``dp_sharded`` a ZeRO-1 shard
+reduce-scattered over DP (summed over DP); every other leaf is replicated
+along that axis and counted once, on the axis's rank 0. The inf norm takes
+a MAX over both. Every result stays a device tensor: nothing is read back
+to the host.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Collection, Dict, Mapping, Optional, Tuple
 
 import torch
+
+from neuronx_distributed_tpu_torch.parallel import mesh as ps
+from neuronx_distributed_tpu_torch.parallel.mappings import all_reduce_max_, all_reduce_sum_
 
 Tree = Mapping[str, torch.Tensor]
 
 
-def get_grad_norm(grads: Tree, norm_type: float = 2.0) -> torch.Tensor:
-    """Global gradient norm in fp32 (the p-norm over every element of every
-    leaf, or the largest magnitude for ``inf``)."""
-    leaves = list(grads.values())
+def get_grad_norm(grads: Tree, norm_type: float = 2.0, *, tp_group=None, dp_group=None,
+                  tp_sharded: Collection[str] = (),
+                  dp_sharded: Collection[str] = ()) -> torch.Tensor:
+    """Global gradient norm in fp32 (the p-norm over every element of the
+    global gradients, or the largest magnitude for ``inf``), the same on
+    every rank. Without groups: the single-device norm."""
+    leaves = list(grads.items())
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
     if norm_type == float("inf"):
-        return torch.stack([g.float().abs().amax() for g in leaves]).amax()
-    norms = torch.stack([(g.float().abs() ** norm_type).sum() for g in leaves])
-    return norms.sum() ** (1.0 / norm_type)
+        out = torch.stack([g.float().abs().amax() for _, g in leaves]).amax().reshape(1)
+        all_reduce_max_(out, tp_group)
+        all_reduce_max_(out, dp_group)
+        return out.reshape(())
+    tp_rank, dp_rank = ps.group_rank(tp_group), ps.group_rank(dp_group)
+    # a replicated piece counts on its axis's rank 0 only
+    parts = [(g.float().abs() ** norm_type).sum() for n, g in leaves
+             if (n in tp_sharded or tp_rank == 0) and (n in dp_sharded or dp_rank == 0)]
+    total = (torch.stack(parts).sum() if parts
+             else torch.zeros((), dtype=torch.float32, device=leaves[0][1].device))
+    if tp_group is not None or dp_group is not None:
+        total = total.reshape(1)
+        all_reduce_sum_(total, tp_group)
+        all_reduce_sum_(total, dp_group)
+        total = total.reshape(())
+    return total ** (1.0 / norm_type)
 
 
 def clip_grads_with_norm(grads: Tree, total_norm: torch.Tensor,
@@ -36,9 +60,26 @@ def clip_grads_with_norm(grads: Tree, total_norm: torch.Tensor,
     return {n: (g.float() * coeff).to(g.dtype) for n, g in grads.items()}
 
 
-def clip_grad_norm(grads: Tree, max_norm: float,
-                   norm_type: float = 2.0) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Compute the norm, then clip. Returns ``(clipped grads, norm before
-    clipping)``."""
-    total_norm = get_grad_norm(grads, norm_type)
+def clip_grad_norm(grads: Tree, max_norm: float, norm_type: float = 2.0,
+                   **layout) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Compute the norm (``layout``: :func:`get_grad_norm`'s keywords),
+    then clip. Returns ``(clipped grads, norm before clipping)``."""
+    total_norm = get_grad_norm(grads, norm_type, **layout)
     return clip_grads_with_norm(grads, total_norm, max_norm), total_norm
+
+
+def psum_gradients_over_dp(grads: Tree, mean: bool = True,
+                           group: Optional[object] = None) -> Dict[str, torch.Tensor]:
+    """The gradients summed (``mean``: averaged) over the data-parallel
+    group (default: the current mesh's), as new tensors."""
+    if group is None:
+        if not ps.model_parallel_is_initialized():
+            return dict(grads)
+        group = ps.get_data_parallel_group()
+    scale = 1.0 / ps.group_size(group) if mean else 1.0
+    out = {}
+    for n, g in grads.items():
+        t = g.contiguous().clone()
+        all_reduce_sum_(t, group)
+        out[n] = t.mul_(scale) if mean else t
+    return out

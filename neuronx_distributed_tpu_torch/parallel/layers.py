@@ -2,10 +2,10 @@
 
 Counterparts of ``neuronx_distributed_tpu/parallel/layers.py``:
 ``ColumnParallelLinear``, ``RowParallelLinear``, ``ParallelEmbedding``,
-``GQAQKVColumnParallelLinear`` and ``RMSNorm``. Weights keep the JAX
-package's layouts (``kernel`` is ``(in, out)``, the fused QKV kernels are
-``(hidden, heads, head_dim)``) so a converted flax tree loads by renaming
-alone. Each layer stores its weights in ``param_dtype`` and computes in
+``GQAQKVColumnParallelLinear``, ``SPLayerNorm`` and ``RMSNorm``. Weights
+keep the JAX package's layouts (``kernel`` is ``(in, out)``, the fused QKV
+kernels are ``(hidden, heads, head_dim)``) so a converted flax tree loads
+by renaming alone. Each layer stores its weights in ``param_dtype`` and computes in
 ``dtype``, as flax's ``promote_dtype`` does.
 
 Tensor parallelism: a layer built with a ``group`` (a
@@ -17,8 +17,21 @@ or a converted tree is cut with ``inference/partition.py``'s
 (``parallel/mappings.py``): a column layer's output stays sharded unless
 ``gather_output``, a row layer all-reduces its partial sums once, the
 vocab-parallel embedding all-reduces a masked lookup. Without a group
-the layers are the single-device math, with no collective. Sequence
-parallelism is refused (the serving path does not use it).
+the layers are the single-device math, with no collective.
+
+Sequence parallelism (JAX ``layers.py:83-250``, reference
+``mappings.py:237-309``): with ``sequence_parallel=True`` under a group,
+the activations between the TP layers are cut along the sequence (dim 1)
+instead of replicated: a column layer (and the fused QKV) all-gathers its
+input along the sequence (its backward reduce-scatters), a row layer
+reduce-scatters its partial sums along the sequence instead of
+all-reducing them, and the embedding reduce-scatters its masked lookup.
+:class:`RMSNorm` then normalises the rank's positions only, so its weight
+gradient is a partial sum: ``sequence_parallel=True`` routes the weight
+through a copy region whose backward all-reduces it over the group (the
+reference all-reduces the grads it tags ``sequence_parallel_enabled``,
+grads.py:313-329; JAX's GSPMD sums the replicated weight's cotangents),
+and the replicated weights stay bit-identical across the ranks.
 
 int8 weights (JAX ``layers.py:116-120, 163, 322``): a weight may be a
 :class:`QuantizedKernel` (int8 ``qweight`` in the float weight's layout and
@@ -46,8 +59,10 @@ from torch import nn
 from neuronx_distributed_tpu_torch.kernels.w8a16 import int8_linear
 from neuronx_distributed_tpu_torch.parallel.mappings import (
     copy_to_tensor_parallel_region,
+    gather_from_sequence_parallel_region,
     gather_from_tensor_parallel_region,
     reduce_from_tensor_parallel_region,
+    reduce_scatter_to_sequence_parallel_region,
     scatter_to_tensor_parallel_region,
 )
 from neuronx_distributed_tpu_torch.parallel.mesh import group_rank, group_size
@@ -113,13 +128,6 @@ def divide(numerator: int, denominator: int) -> int:
     return numerator // denominator
 
 
-def _no_sequence_parallel(sequence_parallel: bool) -> None:
-    if sequence_parallel:
-        raise NotImplementedError(
-            "sequence parallelism is not ported: the serving path does not use it "
-            "(ROADMAP queue A, A9)")
-
-
 def _product(x: torch.Tensor, k, dt: torch.dtype) -> torch.Tensor:
     if isinstance(k, QuantizedKernel):
         return int8_linear(x.to(dt), k.qweight, k.scale)
@@ -133,15 +141,33 @@ class _Sharded(nn.Module):
 
     tp_shard_dims: Dict[str, Optional[int]] = {}
 
-    def _bind(self, group) -> None:
+    def _bind(self, group, sequence_parallel: bool = False) -> None:
         self.group = group
         self.tp, self.tp_rank = group_size(group), group_rank(group)
+        # without a group there is no sequence to cut: the flag is a no-op
+        self.sequence_parallel = bool(sequence_parallel) and group is not None
         self.adapters: Dict[str, Callable] = {}   # LoRA training, by weight attribute
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A column layer's input region: all-gather the sequence shards
+        under sequence parallelism, else the replicated copy."""
+        if self.sequence_parallel:
+            return gather_from_sequence_parallel_region(x, self.group, 1)
+        return copy_to_tensor_parallel_region(x, self.group)
+
+    def _leave(self, y: torch.Tensor) -> torch.Tensor:
+        """A row layer's (or the embedding's) reduction of partial sums:
+        reduce-scattered along the sequence under sequence parallelism,
+        else all-reduced."""
+        if self.sequence_parallel:
+            return reduce_scatter_to_sequence_parallel_region(y, self.group, 1)
+        return reduce_from_tensor_parallel_region(y, self.group)
 
 
 class ColumnParallelLinear(_Sharded):
     """``y = x @ kernel (+ bias)``, kernel ``(in, out)`` sharded over the
-    output features; ``gather_output`` all-gathers the sharded output."""
+    output features; ``gather_output`` all-gathers the sharded output;
+    ``sequence_parallel`` takes a sequence-sharded input."""
 
     tp_shard_dims = {"kernel": 1, "bias": 0}
 
@@ -150,8 +176,7 @@ class ColumnParallelLinear(_Sharded):
                  param_dtype: torch.dtype = torch.float32, device=None, group=None,
                  gather_output: bool = False, sequence_parallel: bool = False):
         super().__init__()
-        _no_sequence_parallel(sequence_parallel)
-        self._bind(group)
+        self._bind(group, sequence_parallel)
         self.dtype = dtype
         self.gather_output = gather_output
         local = divide(features, self.tp)
@@ -160,7 +185,7 @@ class ColumnParallelLinear(_Sharded):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(x, self.kernel, self.dtype)
-        x = copy_to_tensor_parallel_region(x, self.group)
+        x = self._enter(x)
         y = _product(x, self.kernel, dt)
         ad = self.adapters.get("kernel")
         if ad is not None:
@@ -178,7 +203,8 @@ class RowParallelLinear(_Sharded):
     ``partial`` (a rank-local addend, the LoRA delta, JAX ``:166-169``) is
     added to it; the bias is replicated and added after the reduction.
     ``input_is_parallel=False`` takes a replicated input and keeps the
-    rank's slice."""
+    rank's slice; ``sequence_parallel`` reduce-scatters the partial sums
+    along the sequence instead."""
 
     tp_shard_dims = {"kernel": 0, "bias": None}
 
@@ -187,8 +213,7 @@ class RowParallelLinear(_Sharded):
                  param_dtype: torch.dtype = torch.float32, device=None, group=None,
                  input_is_parallel: bool = True, sequence_parallel: bool = False):
         super().__init__()
-        _no_sequence_parallel(sequence_parallel)
-        self._bind(group)
+        self._bind(group, sequence_parallel)
         self.dtype = dtype
         self.input_is_parallel = input_is_parallel
         self.kernel = _param((divide(in_features, self.tp), features), param_dtype, device)
@@ -204,25 +229,31 @@ class RowParallelLinear(_Sharded):
             y = y + ad(x.to(dt))
         if partial is not None:
             y = y + partial.to(y.dtype)
-        y = reduce_from_tensor_parallel_region(y, self.group)
+        y = self._leave(y)
         if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
+            # under SP the rank adds the replicated bias to its positions
+            # only: its gradient is all-reduced, as the norms' are
+            bias = (copy_to_tensor_parallel_region(self.bias, self.group)
+                    if self.sequence_parallel else self.bias)
+            y = y + bias.to(y.dtype)
         return y
 
 
 class ParallelEmbedding(_Sharded):
     """Embedding table ``(num_embeddings, features)`` sharded over the
     vocabulary (JAX ``shard_over="vocab"``): a masked lookup of the rank's
-    rows, then an all-reduce. ``attend`` gives the tied-embedding logits
+    rows, then an all-reduce (a reduce-scatter along the sequence under
+    ``sequence_parallel``). ``attend`` gives the tied-embedding logits
     ``x @ E.T``, vocab-sharded like a ``gather_output=False`` head."""
 
     tp_shard_dims = {"embedding": 0}
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype: Optional[torch.dtype] = None,
-                 param_dtype: torch.dtype = torch.float32, device=None, group=None):
+                 param_dtype: torch.dtype = torch.float32, device=None, group=None,
+                 sequence_parallel: bool = False):
         super().__init__()
-        self._bind(group)
+        self._bind(group, sequence_parallel)
         self.dtype = dtype
         self.embedding = _param((divide(num_embeddings, self.tp), features), param_dtype,
                                 device)
@@ -242,7 +273,7 @@ class ParallelEmbedding(_Sharded):
         local = ids - self.tp_rank * rows
         mine = (local >= 0) & (local < rows)
         y = torch.where(mine[..., None], e[local.clamp(0, rows - 1)], 0)
-        return reduce_from_tensor_parallel_region(y, self.group)
+        return self._leave(y)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         e = self._table()
@@ -263,8 +294,7 @@ class GQAQKVColumnParallelLinear(_Sharded):
                  param_dtype: torch.dtype = torch.float32, device=None, group=None,
                  kv_size_multiplier: int = 1, sequence_parallel: bool = False):
         super().__init__()
-        _no_sequence_parallel(sequence_parallel)
-        self._bind(group)
+        self._bind(group, sequence_parallel)
         tp = self.tp
         if num_heads % tp != 0:
             raise ValueError(f"num_heads {num_heads} not divisible by tp {tp}")
@@ -301,7 +331,7 @@ class GQAQKVColumnParallelLinear(_Sharded):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         dt = _compute_dtype(x, self.q_kernel, self.dtype)
-        x = copy_to_tensor_parallel_region(x.to(dt), self.group)
+        x = self._enter(x.to(dt))
         hidden = x.shape[-1]
         out = []
         for name, heads in (("q", self.num_heads), ("k", self.num_kv_heads),
@@ -343,20 +373,71 @@ def tp_shard_dims(model: nn.Module) -> Dict[str, Optional[int]]:
     return out
 
 
-class RMSNorm(nn.Module):
-    """RMSNorm with the JAX casts: normalise in fp32, cast to ``dtype`` (or
-    the input's dtype), then scale."""
+class _LayerNormParams(nn.Module):
+    # flax's ``nn.LayerNorm`` submodule ``ln``: its weights' names
+    def __init__(self, features: int, use_bias: bool, param_dtype: torch.dtype, device):
+        super().__init__()
+        self.scale = _param((features,), param_dtype, device)
+        self.bias = _param((features,), param_dtype, device) if use_bias else None
+
+
+class SPLayerNorm(nn.Module):
+    """LayerNorm inside sequence-parallel regions (JAX ``SPLayerNorm``, the
+    reference's ``parallel_layers/layer_norm.py``): flax's ``LayerNorm``
+    arithmetic (statistics in fp32, ``var = E[x^2] - E[x]^2``, scale then
+    bias, the result in ``dtype``) on weights ``ln.scale``/``ln.bias``.
+    ``sequence_parallel`` under a ``group``: the input is the rank's
+    sequence shard and both weights' gradients are all-reduced over the
+    group, as the reference all-reduces the grads it tags
+    ``sequence_parallel_enabled``."""
 
     def __init__(self, features: int, epsilon: float = 1e-5,
                  dtype: Optional[torch.dtype] = None,
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, device=None,
+                 sequence_parallel: bool = False, group=None, use_bias: bool = True):
         super().__init__()
         self.epsilon = epsilon
         self.dtype = dtype
+        self.group = group
+        self.sequence_parallel = bool(sequence_parallel) and group is not None
+        self.ln = _LayerNormParams(features, use_bias, param_dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weights = [self.ln.scale] + ([self.ln.bias] if self.ln.bias is not None else [])
+        if self.sequence_parallel:
+            weights = [copy_to_tensor_parallel_region(w, self.group) for w in weights]
+        out_dtype = self.dtype or torch.promote_types(x.dtype, self.ln.scale.dtype)
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp(xf.square().mean(dim=-1, keepdim=True) - mean.square(), min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * weights[0].float())
+        if len(weights) > 1:
+            y = y + weights[1].float()
+        return y.to(out_dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with the JAX casts: normalise in fp32, cast to ``dtype`` (or
+    the input's dtype), then scale. ``sequence_parallel`` under a
+    ``group``: the input is the rank's sequence shard and the weight's
+    gradient is all-reduced over the group."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None,
+                 param_dtype: torch.dtype = torch.float32, device=None,
+                 sequence_parallel: bool = False, group=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.group = group
+        self.sequence_parallel = bool(sequence_parallel) and group is not None
         self.scale = _param((features,), param_dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         var = xf.square().mean(dim=-1, keepdim=True)
         y = (xf * torch.rsqrt(var + self.epsilon)).to(self.dtype or x.dtype)
-        return y * self.scale.to(y.dtype)
+        scale = self.scale
+        if self.sequence_parallel:
+            scale = copy_to_tensor_parallel_region(scale, self.group)
+        return y * scale.to(y.dtype)

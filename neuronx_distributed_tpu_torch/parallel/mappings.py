@@ -19,36 +19,90 @@ region                            forward            backward
 ================================  =================  ====================
 
 ``all_gather``, ``reduce_scatter`` and ``all_reduce`` are the plain
-collectives with the same conjugates. Every function takes the group
-(``None`` is no group: the identity, no collective) and issues its
-collective at every group size, 1 included, so a degree-1 group really
-runs its backend. The expert all-to-all and the pipeline's p2p sends are
-not here yet.
+collectives with the same conjugates; ``all_reduce_sum_`` and
+``all_reduce_max_`` reduce a tensor in place outside autograd (the
+vocab-parallel loss, the gradient norm, the data-parallel reduction).
+Every function takes the group (``None`` is no group: the identity, no
+collective) and issues its collective at every group size, 1 included, so
+a degree-1 group really runs its backend. The expert all-to-all and the
+pipeline's p2p sends are not here yet.
 
 Both backends take CUDA tensors as they are (gloo copies through the
 host itself, and cannot run inside a CUDA graph capture; NCCL can).
+``collective_stats`` counts every collective issued here by kind, with the
+bytes of its input (``reset_collective_stats`` zeroes it).
 """
 
 from __future__ import annotations
 
+import threading
+from typing import Dict, List
+
 import torch
+import torch.distributed as dist
 
 from neuronx_distributed_tpu_torch.parallel.mesh import group_rank, group_size
+
+# kind -> [calls, input bytes]; one table a thread (the thread-rank launch
+# runs every rank in one process)
+_STATS = threading.local()
+
+
+def collective_stats() -> Dict[str, List[int]]:
+    """This thread's collectives since the last reset: kind -> ``[calls,
+    bytes]`` (``all_reduce``, ``all_reduce_max``, ``all_gather``,
+    ``reduce_scatter``)."""
+    if not hasattr(_STATS, "table"):
+        _STATS.table = {}
+    return _STATS.table
+
+
+def reset_collective_stats() -> None:
+    _STATS.table = {}
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    entry = collective_stats().setdefault(kind, [0, 0])
+    entry[0] += 1
+    entry[1] += t.numel() * t.element_size()
 
 
 # the group's own methods rather than torch.distributed's functions: those
 # refuse or rename a group made outside the default world (the thread-rank
 # launch) from one torch release to the next
-def _ar(t, group) -> None:
-    group.allreduce([t]).wait()
+def _ar(t, group, op=None) -> None:
+    if op is None:
+        _count("all_reduce", t)
+        group.allreduce([t]).wait()
+        return
+    _count("all_reduce_max", t)
+    opts = dist.AllreduceOptions()
+    opts.reduceOp = op
+    group.allreduce([t], opts).wait()
 
 
 def _ag(out, t, group) -> None:
+    _count("all_gather", t)
     group._allgather_base(out, t).wait()
 
 
 def _rs(out, t, group) -> None:
+    _count("reduce_scatter", t)
     group._reduce_scatter_base(out, t).wait()
+
+
+def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` (contiguous) over ``group`` in place, outside autograd."""
+    if group is not None:
+        _ar(t, group)
+    return t
+
+
+def all_reduce_max_(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``t`` (contiguous) over ``group``, in place."""
+    if group is not None:
+        _ar(t, group, dist.ReduceOp.MAX)
+    return t
 
 
 def _wire(t: torch.Tensor) -> torch.Tensor:

@@ -97,6 +97,9 @@ class ParallelState:
     context_parallel_size: int
     groups: Dict[str, object]
     group_ranks: Dict[str, List[int]]
+    # the key-value store every rank of this world reaches (the checkpoint
+    # protocol agrees through it; None: no store known)
+    store: object = None
 
     def coords(self) -> Dict[str, int]:
         """Position along each axis (``dp`` the combined one)."""
@@ -151,6 +154,7 @@ def initialize_model_parallel(tensor_model_parallel_size: int = 1,
         world, me = int(world_size), int(rank)
     lay = rank_layout(world, tensor_model_parallel_size, pipeline_model_parallel_size,
                       expert_model_parallel_size, context_parallel_size)
+    shared = store if store is not None else _default_store()
     groups, group_ranks = {}, {}
     for axis in GROUP_AXES:
         for i, members in enumerate(lay["groups"][axis]):
@@ -168,9 +172,17 @@ def initialize_model_parallel(tensor_model_parallel_size: int = 1,
     st = ParallelState(world_size=world, rank=me, tensor_model_parallel_size=tp,
                        pipeline_model_parallel_size=pp, expert_model_parallel_size=ep,
                        data_parallel_size=edp * ep, expert_data_parallel_size=edp,
-                       context_parallel_size=cp, groups=groups, group_ranks=group_ranks)
+                       context_parallel_size=cp, groups=groups, group_ranks=group_ranks,
+                       store=None if shared is None else dist.PrefixStore("nxd", shared))
     _LOCAL.state = st
     return st
+
+
+def _default_store():
+    try:
+        return dist.distributed_c10d._get_default_store()
+    except (RuntimeError, AttributeError, ValueError):
+        return None
 
 
 def model_parallel_is_initialized() -> bool:
@@ -214,8 +226,71 @@ def get_expert_data_parallel_size() -> int:
     return _require_state().expert_data_parallel_size
 
 
+def get_context_parallel_size() -> int:
+    return _require_state().context_parallel_size
+
+
 def get_world_size() -> int:
     return _require_state().world_size
+
+
+def get_data_parallel_group():
+    """The combined ``(edp, ep)`` group: the ranks that hold the same
+    shards and split the batch."""
+    return _require_state().groups["dp"]
+
+
+# --- this rank's coordinates (JAX's in-graph ranks are axis indices inside
+# shard_map; here every rank knows its own) -----------------------------------
+
+def tensor_model_parallel_rank() -> int:
+    return _require_state().coords()[TP_AXIS]
+
+
+def expert_model_parallel_rank() -> int:
+    return _require_state().coords()[EP_AXIS]
+
+
+def data_parallel_rank() -> int:
+    """The combined ``(edp, ep)`` rank, row-major (JAX ``data_parallel_rank``)."""
+    return _require_state().coords()["dp"]
+
+
+
+def local_mesh_coords() -> Dict[str, int]:
+    """This rank's position on every axis, ``dp`` the combined one (JAX
+    ``local_mesh_coords``)."""
+    c = _require_state().coords()
+    return {axis: c[axis] for axis in (PP_AXIS, EDP_AXIS, EP_AXIS, CP_AXIS, TP_AXIS, "dp")}
+
+
+def data_batch_slice(global_batch_size: int) -> slice:
+    """The rows of a global batch this rank feeds: the counterpart of JAX's
+    ``data_pspec`` (the batch dim sharded over the combined DP axes), one
+    contiguous slice a data-parallel rank, the same on every rank of its
+    tensor-parallel group. Off-mesh: the whole batch."""
+    if not model_parallel_is_initialized():
+        return slice(0, global_batch_size)
+    dp, r = get_data_parallel_size(), data_parallel_rank()
+    if global_batch_size % dp:
+        raise ValueError(f"global batch {global_batch_size} not divisible by data parallel "
+                         f"size {dp}")
+    per = global_batch_size // dp
+    return slice(r * per, (r + 1) * per)
+
+
+def require_trainable_layout() -> None:
+    """Raise for the degrees the port's training line does not take yet:
+    pipeline and context parallelism."""
+    st = _state()
+    if st is None:
+        return
+    for name, n in (("pipeline", st.pipeline_model_parallel_size),
+                    ("context", st.context_parallel_size)):
+        if n > 1:
+            raise NotImplementedError(
+                f"{name} parallel degree {n}: {name} parallelism is not ported yet "
+                f"(ROADMAP queue A)")
 
 
 def rmsg(msg: str) -> str:

@@ -1,13 +1,24 @@
-"""Model wrapper and its initialization, on one device.
+"""Model wrapper and its initialization, on one rank of a parallel world.
 
 Counterpart of ``neuronx_distributed_tpu/trainer/model.py``. The module is
 built on the meta device, its config takes the trainer config's explicit
-overrides (compute and param dtype, remat policy), and each weight is
-materialized once on the target device: random from a seeded generator
-(``model_init_config.seed``, through ``models.llama.init_params``) or taken
-from a given state dict (for example one that
-``converters.jax_params.llama_params_from_jax`` made). Parallel degrees
-other than 1 raise: they come with a later slice of the port.
+overrides (compute and param dtype, remat policy, sequence parallelism),
+and each weight is materialized once on the target device: random from a
+seeded generator (``model_init_config.seed``, through
+``models.llama.init_params``) or taken from a given state dict (for example
+one that ``converters.jax_params.llama_params_from_jax`` made).
+
+Parallel degrees (JAX ``trainer/model.py:86-184``): the mesh is the current
+one (``parallel/mesh.py``), or is initialized from the config's degrees over
+the default group. Under a tensor-parallel degree above 1 the module is
+built with the mesh's TP group, and each rank materializes its shard of the
+one global init: ``init_params`` draws every leaf whole and cuts the rank's
+slice, and a given global state dict is sliced the same way (a dict of the
+rank's shards is taken as it is), so every layout trains the same weights.
+Data parallelism (``dp = edp * ep``, a dense model) needs nothing here: the
+train step reduces the gradients over it. Pipeline and context parallelism
+raise by name (ROADMAP queue A), and so does LoRA under a tensor-parallel
+degree above 1.
 
 LoRA (JAX ``trainer/model.py:39-86, 137-184``): with a ``lora_config`` the
 base weights stay frozen (``requires_grad=False``: no gradient, no
@@ -39,6 +50,8 @@ from neuronx_distributed_tpu_torch.lora.core import (
     nest_lora,
 )
 from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
+from neuronx_distributed_tpu_torch.parallel import mesh as ps
+from neuronx_distributed_tpu_torch.parallel.partitioning import local_state_dict
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 _DEGREES = ("tensor_parallel_size", "pipeline_parallel_size", "expert_parallel_size",
@@ -61,6 +74,8 @@ class ParallelModel:
     params: Dict[str, torch.Tensor]
     device: torch.device
     seed: int = 0
+    # the tensor-parallel group the module was built with (None: one rank)
+    group: Any = None
     lora_config: Optional[LoraConfig] = None
     lora_leaves: Optional[Dict[str, torch.Tensor]] = None
     lora_specs: Optional[Dict[str, Dict[str, tuple]]] = None
@@ -123,13 +138,18 @@ def _rebind(targets: Mapping[str, torch.Tensor], params: Mapping[str, torch.Tens
             p.data = t
 
 
-def _apply_config_overrides(module: nn.Module, nxd_config: Dict[str, Any]) -> nn.Module:
+def _apply_config_overrides(module: nn.Module, nxd_config: Dict[str, Any],
+                            group=None) -> nn.Module:
     """Apply the keys the user set explicitly (compute and param dtype,
-    activation checkpointing) to the module's dataclass config, rebuilding
-    it as ``type(module)(new_config)``; defaults never override a model's own
-    choice."""
+    activation checkpointing, sequence parallelism) to the module's
+    dataclass config, rebuilding it as ``type(module)(new_config)``
+    (``group=group`` under tensor parallelism); defaults never override a
+    model's own choice."""
     cfg = getattr(module, "config", None)
     if cfg is None or not dataclasses.is_dataclass(cfg):
+        if group is not None:
+            raise ValueError(f"{type(module).__name__} has no dataclass config to rebuild "
+                             f"it over a tensor-parallel group")
         return module
     over: Dict[str, Any] = {}
     mp = nxd_config.get("mixed_precision_config", {})
@@ -140,9 +160,28 @@ def _apply_config_overrides(module: nn.Module, nxd_config: Dict[str, Any]) -> nn
     ac = nxd_config.get("activation_checkpoint_config")
     if ac is not None and hasattr(cfg, "remat_policy"):
         over["remat_policy"] = ac
-    if not over:
+    if explicit.get("sequence_parallel") and hasattr(cfg, "sequence_parallel"):
+        over["sequence_parallel"] = bool(nxd_config.get("sequence_parallel"))
+    if not over and group is None:
         return module
-    return type(module)(dataclasses.replace(cfg, **over))
+    new_cfg = dataclasses.replace(cfg, **over)
+    return type(module)(new_cfg) if group is None else type(module)(new_cfg, group=group)
+
+
+def _mesh(nxd_config: Dict[str, Any]) -> None:
+    """The current mesh, or one made from the config's degrees over the
+    default group; pipeline and context parallelism raise."""
+    degrees = {k: int(nxd_config.get(k, 1)) for k in _DEGREES}
+    for key, what in (("pipeline_parallel_size", "pipeline"),
+                      ("context_parallel_size", "context")):
+        if degrees[key] > 1:
+            raise NotImplementedError(f"{key}={degrees[key]}: {what} parallelism is not "
+                                      f"ported yet (ROADMAP queue A)")
+    if not ps.model_parallel_is_initialized() and any(v != 1 for v in degrees.values()):
+        ps.initialize_model_parallel(
+            tensor_model_parallel_size=degrees["tensor_parallel_size"],
+            expert_model_parallel_size=degrees["expert_parallel_size"])
+    ps.require_trainable_layout()
 
 
 def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[], nn.Module],
@@ -152,17 +191,21 @@ def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[]
     otherwise) with the config's overrides, and make its weights trainable.
     ``example_args`` are accepted for the JAX signature; the port's modules
     know their shapes from their config. ``params`` (a state dict of tensors
-    or arrays) replaces the seeded random init; each is copied to the device
-    in the module's param dtype."""
-    bad = {k: nxd_config.get(k, 1) for k in _DEGREES if nxd_config.get(k, 1) != 1}
-    if bad:
-        raise NotImplementedError(
-            f"parallel degrees {bad}: the port trains on one device so far; tensor, pipeline, "
-            "expert and context parallelism over torch.distributed come with a later slice "
-            "(ROADMAP queue A, training line)")
+    or arrays: the global weights, or this rank's shards) replaces the
+    seeded random init; each is copied to the device in the module's param
+    dtype."""
+    _mesh(nxd_config)
+    on_mesh = ps.model_parallel_is_initialized()
+    tp = ps.get_tensor_model_parallel_size() if on_mesh else 1
+    tp_rank = ps.tensor_model_parallel_rank() if on_mesh else 0
+    group = ps.get_tensor_model_parallel_group() if tp > 1 else None
+    lora_cfg = nxd_config.get("lora_config")
+    if lora_cfg is not None and group is not None:
+        raise NotImplementedError("LoRA under a tensor-parallel degree above 1 is not ported "
+                                  "yet (ROADMAP queue A); data parallelism takes it")
     dev = resolve_device(device)
     with torch.device("meta"):
-        module = _apply_config_overrides(module_fn(), nxd_config)
+        module = _apply_config_overrides(module_fn(), nxd_config, group)
     shapes = module.state_dict()
     seed = nxd_config.get("model_init_config", {}).get("seed", 0)
     if params is None:
@@ -170,15 +213,18 @@ def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[]
             raise ValueError(f"a seeded init is defined for LlamaForCausalLM; pass params for "
                              f"{type(module).__name__}")
         state = init_params(module.config, torch.Generator(device=dev).manual_seed(seed),
-                            device=dev)
+                            device=dev, model_cls=type(module), tp_rank=tp_rank, tp_size=tp)
     else:
+        given = {n: params[n] for n in shapes}
+        if group is not None:
+            given = local_state_dict(given, param_partition_specs(module), tp_rank, tp,
+                                     {n: t.shape for n, t in shapes.items()})
         # a copy: the train step updates the weights in place
-        state = {n: torch.as_tensor(params[n]).to(device=dev, dtype=shapes[n].dtype, copy=True)
+        state = {n: torch.as_tensor(given[n]).to(device=dev, dtype=shapes[n].dtype, copy=True)
                  for n in shapes}
     module.load_state_dict(state, strict=True, assign=True)
-    lora_cfg = nxd_config.get("lora_config")
     module.requires_grad_(lora_cfg is None)
-    model = ParallelModel(module=module, device=dev, seed=seed,
+    model = ParallelModel(module=module, device=dev, seed=seed, group=group,
                           params={n: p.detach() for n, p in module.named_parameters()})
     if lora_cfg is not None:
         if isinstance(lora_cfg, dict):

@@ -22,6 +22,21 @@ reused in place, as JAX reuses donated buffers, and the old state must not
 be used again. With ``donate=False`` the old state stays valid: the step
 works on a copy of the optimizer state and points the trainable tensors at
 new ones.
+
+Parallel worlds (JAX ``step.py:137-257``): each rank runs the step on its
+own rows of the global batch and its own shards. The data-parallel
+reduction comes once a step, after the ``grad_accum_steps`` microbatches:
+the mean over DP of each gradient, reduce-scattered along its ZeRO-1 dim
+(``optimizer/zero1.py``) or all-reduced where its state is not DP-sharded
+(ZeRO off, or no dim divides). The clip norm is the global one over the
+sharded gradients (``parallel/grads.py``), the same on every rank. The
+update then runs on the rank's state shards (B4 where the shard is a
+supported leaf) and the new param shards are all-gathered over DP into the
+params. ``loss`` is the mean of the data-parallel ranks' losses (the
+reference's mean of per-rank means; equal to JAX's global mean when the
+ranks count the same tokens). A state made by :func:`create_train_state`
+on a world of several ranks carries its ``layout`` (leaf path ->
+``checkpoint.core.Piece``) for the multi-rank checkpoint.
 """
 
 from __future__ import annotations
@@ -31,7 +46,15 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from neuronx_distributed_tpu_torch.checkpoint.core import Piece
+from neuronx_distributed_tpu_torch.optimizer.zero1 import (
+    all_gather_into,
+    all_reduce_mean_,
+    reduce_scatter_mean,
+)
+from neuronx_distributed_tpu_torch.parallel import mesh as ps
 from neuronx_distributed_tpu_torch.parallel.grads import get_grad_norm
+from neuronx_distributed_tpu_torch.parallel.mappings import all_reduce_sum_
 from neuronx_distributed_tpu_torch.trainer.model import ParallelModel
 from neuronx_distributed_tpu_torch.trainer.optimizer import NxDOptimizer
 
@@ -42,21 +65,55 @@ Tree = Dict[str, torch.Tensor]
 class TrainState:
     """Step counter (a () int32 device tensor), the trainable params by
     name, the optimizer state, and the generator the step's LoRA dropout
-    draws from."""
+    draws from. ``layout`` describes the state (where each leaf's block
+    lies in its global tensor, and which rank writes it) and is not saved."""
 
     step: torch.Tensor
     params: Tree
     opt_state: Any
     rng: Optional[torch.Generator] = None
+    layout: Optional[Dict[str, Piece]] = dataclasses.field(
+        default=None, repr=False, compare=False, metadata={"checkpoint": False})
+
+
+def _state_layout(optimizer: NxDOptimizer, params: Tree,
+                  opt_state) -> Optional[Dict[str, Piece]]:
+    """Each sharded or replicated leaf's :class:`Piece` on this rank (None
+    on one rank): a param is its TP shard, written by its data-parallel
+    rank 0; a state leaf its ZeRO-1 slice of that shard, written by its own
+    rank (or, not DP-sharded, like its param); a TP-replicated leaf is
+    written by its tensor-parallel rank 0."""
+    if not ps.model_parallel_is_initialized() or ps.get_world_size() == 1:
+        return None
+    plan = optimizer.zero1_plan
+    out: Dict[str, Piece] = {}
+    for n, p in params.items():
+        shape = tuple(p.shape)
+        glob = plan.global_shape(n, shape)
+        tp_own = plan.tp_dim(n) is not None or plan.tp_rank == 0
+        out[f".params['{n}']"] = Piece(glob, plan.param_offset(n, shape),
+                                       tp_own and plan.dp_rank == 0)
+        zero = plan.dims.get(n) is not None and plan.dp > 1
+        state_piece = Piece(glob, plan.state_offset(n, shape) if zero
+                            else plan.param_offset(n, shape),
+                            tp_own and (zero or plan.dp_rank == 0))
+        for field in getattr(opt_state, "_fields", ()):
+            tree = getattr(opt_state, field)
+            if isinstance(tree, dict) and n in tree:
+                out[f".opt_state.{field}['{n}']"] = state_piece
+    return out
 
 
 def create_train_state(model: ParallelModel, optimizer: NxDOptimizer) -> TrainState:
     """The first state: the trainable params (the adapters under LoRA),
-    their optimizer state, and a generator seeded ``seed + 2``."""
+    their optimizer state (born in its ZeRO-1 shards), a generator seeded
+    ``seed + 2``, and on several ranks the state's layout."""
     params = model.trainable_params
+    opt_state = optimizer.init(params)
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=model.device),
-                      params=params, opt_state=optimizer.init(params),
-                      rng=torch.Generator().manual_seed(model.seed + 2))
+                      params=params, opt_state=opt_state,
+                      rng=torch.Generator().manual_seed(model.seed + 2),
+                      layout=_state_layout(optimizer, params, opt_state))
 
 
 def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
@@ -78,6 +135,46 @@ def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
     lora_cfg = model.lora_config
     leaves = model.trainable_leaves()
     names = list(leaves)
+    plan = optimizer.zero1_plan
+    dp_group, dp = plan.dp_group, plan.dp
+    # in the trainable tree's order: every rank issues the collectives alike
+    # (a set's order varies from process to process)
+    zero = [n for n in names if plan.dims.get(n) is not None] if plan.sharded else []
+    layout = dict(tp_group=model.group, dp_group=dp_group,
+                  tp_sharded={n for n in names if plan.tp_dim(n) is not None},
+                  dp_sharded=set(zero))
+    # each ZeRO leaf's shard of the new params, written by the update and
+    # all-gathered into the params (allocated at the first step)
+    shard_out: Tree = {}
+
+    def reduce_over_dp(loss, grads):
+        """The DP means: the loss, and each gradient (its ZeRO slice)."""
+        loss = all_reduce_sum_(loss.float().reshape(1), dp_group).reshape(()) / dp
+        return loss, {n: (reduce_scatter_mean(g, plan.dims[n], dp_group, dp) if n in zero
+                          else all_reduce_mean_(g.contiguous(), dp_group, dp))
+                      for n, g in grads.items()}
+
+    def zero_update(grads, opt_state, params, scale):
+        """The update on the state shards; the new param shards all-gathered
+        over DP into the params (new tensors without donation)."""
+        if not shard_out:
+            shard_out.update({n: torch.empty(plan.shard(n, params[n]).shape,
+                                             dtype=params[n].dtype, device=params[n].device)
+                              for n in zero})
+        if not hasattr(opt_state, "master"):   # plain AdamW reads the old values
+            for n in zero:
+                shard_out[n].copy_(plan.shard(n, params[n]))
+        out = {n: shard_out[n] if n in zero else (params[n] if donate else
+                                                  torch.empty_like(params[n]))
+               for n in params}
+        local = {n: shard_out[n] if n in zero else params[n] for n in params}
+        new, opt_state = tx.update_and_params_local(grads, opt_state, local, scale=scale,
+                                                    out=out)
+        for n in zero:
+            target = params[n] if donate else torch.empty_like(params[n])
+            all_gather_into(target, new[n], plan.dims[n], dp_group, dp)
+            new[n] = target
+        return new, opt_state
 
     def value_and_grad(params: Tree, batch, rng):
         loss = loss_fn(model.params if lora_cfg is not None else params, batch, rng)
@@ -113,21 +210,26 @@ def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
             del acc
         else:
             loss, grads = value_and_grad(state.params, batch, rng)
+        if dp_group is not None:
+            loss, grads = reduce_over_dp(loss, grads)
         metrics = {"loss": loss}
         scale = None
         if optimizer.grad_clipping:
             # the clip scale (clip_grads_with_norm's coefficient) rides into
             # the optimizer
-            grad_norm = get_grad_norm(grads)
+            grad_norm = get_grad_norm(grads, **layout)
             scale = torch.clamp(optimizer.max_grad_norm / (grad_norm + 1e-6), max=1.0)
             metrics["grad_norm"] = grad_norm
         opt_state = state.opt_state if donate else state.opt_state.clone()
         with torch.no_grad():
-            # donated params take the new values in place, written by the
-            # update itself (the kernel writes each param once)
-            new_params, opt_state = tx.update_and_params_local(
-                grads, opt_state, state.params, scale=scale,
-                out=state.params if donate else None)
+            if zero:
+                new_params, opt_state = zero_update(grads, opt_state, state.params, scale)
+            else:
+                # donated params take the new values in place, written by the
+                # update itself (the kernel writes each param once)
+                new_params, opt_state = tx.update_and_params_local(
+                    grads, opt_state, state.params, scale=scale,
+                    out=state.params if donate else None)
             del grads
         model.bind_trainable(new_params)
         return dataclasses.replace(state, step=state.step + 1, params=new_params,

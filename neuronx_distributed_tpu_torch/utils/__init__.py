@@ -27,8 +27,13 @@ def pad_to_multiple(value: int, multiple: int) -> int:
 
 
 def process_rank() -> int:
-    """This process's rank in the live ``torch.distributed`` group (0 when
-    none is initialized)."""
+    """This rank's place in its world: the parallel state's rank (a thread
+    rank has one of its own), else the live ``torch.distributed`` group's,
+    else 0."""
     import torch.distributed as dist
 
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    if mesh.model_parallel_is_initialized():
+        return mesh.get_state().rank
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0

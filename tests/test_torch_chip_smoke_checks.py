@@ -1314,3 +1314,50 @@ def test_train_check_cases_rehearse_on_the_cpu(smoke):
         assert r["loss_max_abs_err"] == 0.0 and r["param_max_abs_err"] == 0.0, name
         assert r["losses_gpu"][1] < r["losses_gpu"][0], name
     assert out["lora"]["trained_tensors"] == 2 * 7 * 2
+
+
+def _dist_run():
+    """A fabricated phase-4l reading that passes every gate: (d0) and four
+    ranks at TP 2 x DP 2."""
+    d0 = {"steps": [{"loss": 10.0 - i, "grad_norm": 1.0} for i in range(3)],
+          "state_bytes_by_leaf": {"a": 4000, "norm": 40}}
+    ranks = []
+    for r in range(4):
+        tp = r % 2
+        ranks.append({"rank": r, "coords": {"tp": tp, "dp": r // 2},
+                      "tp_sharded_leaves": ["a"], "state_bytes_tp_sharded": 1000,
+                      "d1": {"steps": [{"loss": (10.0 - i) * 1.001, "digest": f"p{tp}{i}",
+                                        "replicated_digest": f"r{i}"} for i in range(3)],
+                             "launches": {"flash_block_forward": 24, "flash_bwd_dkdv": 12,
+                                          "flash_bwd_dq": 12, "fused_adamw_leaf": 90}}})
+    return d0, {"ranks": ranks}
+
+
+def test_dist_gates_hold_on_a_good_run(smoke):
+    d0, d1 = _dist_run()
+    assert smoke.dist_gates(d0, d1) == []
+    assert abs(d1["loss_max_rel_diff"] - 1e-3) < 1e-9
+    assert all(rk["state_share_of_quarter"] == 1.0 for rk in d1["ranks"])
+
+
+@pytest.mark.parametrize("fault,says", [
+    ("loss", "losses differ"), ("dp_digest", "data-parallel replicas"),
+    ("replicated", "TP-replicated leaves"), ("state", "ZeRO state bytes"),
+    ("b1", "never launched flash_block_forward"), ("b4", "B4 launched 60 times")])
+def test_dist_gates_catch_each_fault(smoke, fault, says):
+    d0, d1 = _dist_run()
+    rk = d1["ranks"][2]
+    if fault == "loss":
+        rk["d1"]["steps"][1]["loss"] *= 1.02
+    elif fault == "dp_digest":
+        rk["d1"]["steps"][2]["digest"] = "other"
+    elif fault == "replicated":
+        rk["d1"]["steps"][0]["replicated_digest"] = "other"
+    elif fault == "state":
+        rk["state_bytes_tp_sharded"] = 1020
+    elif fault == "b1":
+        rk["d1"]["launches"]["flash_block_forward"] = 0
+    else:
+        rk["d1"]["launches"]["fused_adamw_leaf"] = 60
+    problems = smoke.dist_gates(d0, d1)
+    assert any(says in p for p in problems), problems

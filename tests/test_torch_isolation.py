@@ -97,6 +97,20 @@ def test_tenancy_modules_stand_alone():
         assert set(_imported_roots(path)) <= allowed, mod
 
 
+def test_distributed_training_modules_stand_alone():
+    """The distributed-training line (bootstrap, seeds, partitioning, head
+    padding, ZeRO-1, its converter and the Llama-2 example) is the port's
+    own: the standard library, numpy, torch and the port only."""
+    allowed = {"__future__", "argparse", "dataclasses", "datetime", "glob", "os", "typing",
+               "numpy", "torch", "neuronx_distributed_tpu_torch"}
+    for mod in ("parallel.distributed", "parallel.random", "parallel.partitioning",
+                "parallel.pad", "parallel.loss", "parallel.grads", "optimizer.zero1",
+                "optimizer.convert_zero_checkpoints", "examples.llama2_tp_zero1"):
+        assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
+        path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
+        assert set(_imported_roots(path)) <= allowed, mod
+
+
 def test_parallel_core_modules_stand_alone():
     """The rank layout and launchers, the TP regions and the serving specs
     are the port's own: the standard library, numpy, torch and the port

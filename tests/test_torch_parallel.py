@@ -452,10 +452,17 @@ def test_gqa_qkv_matches_jax(mult):
 
 
 def test_sequence_parallel_and_int8_refused_under_tp():
-    """What this slice does not port raises by name: sequence parallelism,
-    and int8 weights in a layer of more than one rank."""
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        TL.ColumnParallelLinear(8, 8, sequence_parallel=True)
+    """Sequence parallelism is ported (``tests/test_torch_sequence_parallel.py``
+    holds it against JAX): without a group the flag is a no-op. What is
+    still not ported raises by name: context parallelism, and int8 weights
+    in a layer of more than one rank."""
+    assert not TL.ColumnParallelLinear(8, 8, sequence_parallel=True).sequence_parallel
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    with torch.device("meta"), pytest.raises(NotImplementedError, match="context parallelism"):
+        LlamaForCausalLM(LlamaConfig(vocab_size=64, hidden_size=16, intermediate_size=32,
+                                     num_layers=1, num_heads=2, num_kv_heads=2,
+                                     context_parallel=True))
 
     def rank(r):
         m = TL.ColumnParallelLinear(8, 8, group=mesh.get_tensor_model_parallel_group())

@@ -258,7 +258,9 @@ def test_initialize_parallel_model_config_and_refusals():
     """Explicit mixed-precision keys and the activation-checkpoint config
     reach the model config; the seeded init is reproducible; a LoRA config
     freezes the base and trains the adapters; plain AdamW is built under
-    ``use_master_weights=False``; parallel degrees above 1 raise."""
+    ``use_master_weights=False``; pipeline and context parallel degrees
+    above 1 raise by name, and a tensor-parallel degree needs a world of
+    ranks (``tests/test_torch_dist_training.py`` trains on one)."""
     cfg = neuronx_distributed_config(
         mixed_precision_config={"param_dtype": "bfloat16"},
         activation_checkpoint_config=None, model_init_config={"seed": 7})
@@ -273,10 +275,13 @@ def test_initialize_parallel_model_config_and_refusals():
         neuronx_distributed_config(activation_checkpoint_config="full"),
         lambda: tl.LlamaForCausalLM(tl.LlamaConfig(**TINY, remat_policy=None)), device="cpu")
     assert remat.module.config.remat_policy == "full"
-    for degree in ("tensor_parallel_size", "pipeline_parallel_size", "context_parallel_size"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    for degree in ("pipeline_parallel_size", "context_parallel_size"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
             initialize_parallel_model(neuronx_distributed_config(**{degree: 2}), make,
                                       device="cpu")
+    with pytest.raises(RuntimeError, match="no default process group"):
+        initialize_parallel_model(neuronx_distributed_config(tensor_parallel_size=2), make,
+                                  device="cpu")
     plain = initialize_parallel_optimizer(
         neuronx_distributed_config(mixed_precision_config={"use_master_weights": False}), a)
     assert type(plain.init(a.params)).__name__ == "AdamState"

@@ -209,6 +209,26 @@ Phases, each fatal on failure (exit code 1, no result line):
            grad norms within 1e-5), a multi-rank async save after step 2
            and a fresh group resuming step 3 bit for bit, the tag loaded at
            TP=1 equal to the gathered params, a flipped byte caught.
+4m. cp/pp  context and pipeline parallelism: (c0) Llama-2-7B widths at 4
+           layers, one 32768-token sequence a step, bf16 with fp32 masters,
+           remat ``"full"``, 3 steps on one rank; (c1) the same through the
+           trainer at CP 2 x TP 2 (ring attention, zigzag) as four
+           processes on the card over gloo: each step's loss within 1 % of
+           (c0)'s, B1, B3a, B3b and B4 launched in every rank, the ring's
+           sends counted; (c2) the small fp32 model on that layout against
+           one CPU rank (1e-5), and the ring op alone at ``RING_CHECK``
+           against the CPU ranks' ring by the element rule; (p0)
+           Llama-2-70B widths at 4 layers, the forward loss of one 4 x 4096
+           batch from the seeded init on one rank; (p1) the Llama-2-70B TP
+           x PP example's entry point at TP 2 x PP 2 (4 microbatches, 1F1B,
+           3 steps): step 1 within 1 % of (p0), every rank's stash within
+           pp - stage, the kernels launched in every rank; (p2) the same
+           with two VPP chunks a stage, each step within 1 % of (p1)'s; (p3)
+           the small fp32 model at TP 2 x PP 2, 1F1B and interleaved,
+           against one CPU rank (1e-5), a save after step 2 and a fresh
+           group resuming step 3 bit for bit, the tag at TP1 x PP1 equal to
+           the gathered params, a flipped byte caught; then
+           ``measure_cp_ratio`` at 32768 tokens, cp 2.
 
 ``--profile PATH`` repeats each trace and overload pass under
 ``torch.profiler`` (device activity only) for the device's busy share of
@@ -229,6 +249,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -385,17 +406,17 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def _excess(got, ref, rel: float):
-    """|got - ref| - rel * |ref|, element by element, in fp64 when ``ref`` is
-    fp64 and in fp32 otherwise."""
+def _excess(got, ref, rel: float, size=None):
+    """|got - ref| - rel * |ref| (``size`` in place of |ref| when given),
+    element by element, in fp64 when ``ref`` is fp64 and in fp32 otherwise."""
     import torch
 
     wide = torch.float64 if ref.dtype == torch.float64 else torch.float32
     g, r = got.to(wide), ref.to(wide)
-    return (g - r).abs() - rel * r.abs()
+    return (g - r).abs() - rel * (r.abs() if size is None else size.to(wide))
 
 
-def held(got, want, floor: float, rel: float = REL_BF16, exact=None) -> dict:
+def held(got, want, floor: float, rel: float = REL_BF16, exact=None, size=None) -> dict:
     """The readings of ``got`` held element by element against ``want``:
     max |error|, the least floor with which ``|got - want| <= rel * |want| +
     floor`` holds everywhere, the median and rms of |want|, and the limit.
@@ -405,23 +426,28 @@ def held(got, want, floor: float, rel: float = REL_BF16, exact=None) -> dict:
     ``rel * |exact| + floor`` of it: the twin's fp32 sums are not exact
     either, and where they put a p or a dS on the other side of a bf16
     rounding point than the exact sums do, the twin is the one off. Both the
-    kernel's and the twin's readings against ``exact`` are returned."""
+    kernel's and the twin's readings against ``exact`` are returned.
+
+    With ``size`` (a tensor shaped like ``want``) the relative allowance is
+    ``rel * size``: for a value made of terms each rounded to bf16 on its
+    own and then summed (the ring's blocks), the sum of the terms'
+    magnitudes and of the result's, one last place a rounding."""
     err = (got.float() - want.float()).abs()
-    size = want.float().abs()
-    over = _excess(got, want, rel)
+    over = _excess(got, want, rel, size)
+    mag = want.float().abs()
     r = dict(max_abs_err=float(err.max()), floor_needed_vs_twin=max(0.0, float(over.max())))
     if exact is not None:
-        over_exact = _excess(got, exact, rel).float()
+        over_exact = _excess(got, exact, rel, size).float()
         r["vs_exact"] = {
             who: dict(max_abs_err=float((t.double() - exact).abs().max()),
-                      floor_needed=max(0.0, float(_excess(t, exact, rel).max())))
+                      floor_needed=max(0.0, float(_excess(t, exact, rel, size).max())))
             for who, t in (("kernel", got), ("twin", want))}
         over = over.minimum(over_exact)
         del over_exact
     need = float(over.max())
     r.update(floor_needed=max(0.0, need), floor=floor, rel=rel,
-             median_abs_ref=float(size.flatten().median()),
-             rms_ref=float(size.square().mean().sqrt()), ok=need <= floor)
+             median_abs_ref=float(mag.flatten().median()),
+             rms_ref=float(mag.square().mean().sqrt()), ok=need <= floor)
     return r
 
 
@@ -6433,6 +6459,1059 @@ def print_dist(dist: dict, card: str) -> None:
           flush=True)
 
 
+# --- phase 4m: context and pipeline parallelism ---------------------------------------
+
+CPPP_WORLD = 4                    # four processes on the one card, over gloo
+CP_TP, CP_CP = 2, 2               # (c1): TP 2 x CP 2, zigzag
+CP_LAYERS = 4                     # llama2_7b depth 32 -> 4
+CP_SEQ, CP_STEPS, CP_LR = 32768, 3, 1e-4
+CP_SEED = 11
+PP_TP, PP_PP = 2, 2               # (p1)/(p2): TP 2 x PP 2
+PP_LAYERS = 4                     # llama2_70b depth 80 -> 4
+PP_SEQ, PP_BATCH, PP_MB, PP_STEPS, PP_LR = 4096, 4, 4, 3, 1e-4
+CPPP_LOSS_RTOL = 1e-2             # (c1) vs (c0), (p1) vs (p0), (p2) vs (p1): bf16
+CPPP_SMALL_TOL = 1e-5             # (c2), (p3): card ranks vs one CPU rank, fp32
+CPPP_SMALL_BATCH, CPPP_SMALL_STEPS, CPPP_SMALL_LR = 4, 3, 1e-3
+# (c2)'s ring check: global q (b, h, s, d) over compact k/v (b, hk, s, d), bf16, zigzag,
+# the card's ranks against CPU ranks; s = 3968 puts each zigzag chunk at 992 positions,
+# not a multiple of the kernels' 64-row tiles (their block skip reads per-tile position
+# bounds: a tile holds both of a rank's chunks); the twins tile at 64 as the kernels do
+RING_CHECK = dict(b=1, h=8, hk=2, s=3968, d=128, block=64)
+# the ring's floors, set from the readings on an H100 80GB HBM3 (700 W) at this shape
+# (needed against the twins' ring or the fp64 one: out 1.1e-4, dq 3.2e-4, dk 6.6e-5,
+# dv 1.7e-5; a later run read the same, as seeded inputs and deterministic kernels
+# must), about twice each and under 5 % of every median |ref| (0.025-0.034). The
+# planted faults of ``ring_faults`` need floors four orders of magnitude above them:
+# out 1.5 (blocks merged with equal weights), 3.5 (keys a position late), 3.8 (every
+# block under the rank's own positions); dk 5.0 and dv 8.2 (dK/dV a hop short of home)
+RING_FLOORS = dict(out=2.5e-4, dq=6.5e-4, dk=1.5e-4, dv=5e-5)
+CPPP_TIMEOUT_S = 300              # every group's timeout
+CPPP_CHILD_TIMEOUT_S = 900        # the parent's wait for the ranks
+CPPP_COUNTERS = DIST_COUNTERS
+
+
+def cp_config(layers: int = CP_LAYERS):
+    """(c0)/(c1)'s model: Llama-2-7B widths, bf16 storage (fp32 masters in
+    the optimizer), remat ``"full"``, zigzag under CP."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import llama2_7b
+
+    return llama2_7b(max_seq_len=CP_SEQ, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                     remat_policy="full", num_layers=layers, cp_layout="zigzag")
+
+
+def cp_batches(vocab: int, seq: int, steps: int, batch: int = 1, seed: int = CP_SEED) -> list:
+    """Seeded numpy batches, the same in every process."""
+    from neuronx_distributed_tpu_torch.examples.common import synthetic_lm_batches
+
+    stream = synthetic_lm_batches(vocab, batch, seq, seed=seed)
+    return [next(stream) for _ in range(steps)]
+
+
+def cp_trainer(dev, cfg, lr: float, cp: int = 1, tp: int = 1, params=None):
+    """The trainer through its entry points: ZeRO-1, fp32-master AdamW,
+    clipping 1.0; on a mesh with ``cp > 1`` the model runs ring attention."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.trainer import (
+        create_train_state,
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+        neuronx_distributed_config,
+    )
+
+    nxd = neuronx_distributed_config(
+        tensor_parallel_size=tp, context_parallel_size=cp,
+        optimizer_config={"zero_one_enabled": True, "grad_clipping": True, "max_grad_norm": 1.0},
+        mixed_precision_config={"use_master_weights": True})
+    model = initialize_parallel_model(nxd, lambda: LlamaForCausalLM(cfg), device=dev,
+                                      params=params)
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=lr, weight_decay=0.01)
+    step = make_train_step(model, opt, lambda p, b, rng: model.apply(
+        p, b["ids"], b["labels"], method="loss"))
+    return model, create_train_state(model, opt), step
+
+
+def cp_rank_batch(b: dict, dev, cp_layout: str = "zigzag") -> dict:
+    """This rank's rows and block of the sequence: the sequence permuted by
+    ``zigzag_indices`` first under the zigzag layout (one rank: the whole)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.ops.ring_attention import zigzag_indices
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    rows, seq = slice(None), b["ids"].shape[1]
+    cols = slice(None)
+    idx = None
+    if mesh.model_parallel_is_initialized():
+        rows, cols = mesh.data_batch_slice(b["ids"].shape[0]), mesh.context_seq_slice(seq)
+        if cp_layout == "zigzag" and mesh.get_context_parallel_size() > 1:
+            idx = zigzag_indices(seq, mesh.get_context_parallel_size()).numpy()
+    out = {}
+    for k, v in b.items():
+        v = v[rows]
+        if idx is not None:
+            v = v[:, idx]
+        out[k] = torch.as_tensor(v[:, cols]).to(dev)
+    return out
+
+
+def cp_steps(state, step, batches, dev, timed: bool = False):
+    import torch
+
+    out = []
+    for b in batches:
+        t = time.perf_counter()
+        state, m = step(state, cp_rank_batch(b, dev))
+        if timed:
+            torch.cuda.synchronize()
+        rec = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+        if timed:
+            rec["ms"] = (time.perf_counter() - t) * 1e3
+        out.append(rec)
+    return state, out
+
+
+def reckoning(params: int, act_bytes: int, total: int) -> dict:
+    """A rank's memory plan: bf16 params and grads, fp32 masters and both
+    Adam moments (16 bytes a param), the activations named, against the
+    card."""
+    state = 16 * params
+    return dict(params=params, state_bytes=state, activation_bytes=act_bytes,
+                planned_bytes=state + act_bytes, card_bytes=total)
+
+
+def cp_c0(dev, counters, layers=CP_LAYERS) -> dict:
+    """(c0): one rank, 3 steps of one 32768-token sequence through the
+    trainer; counters zeroed just before the steps, read just after."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = cp_config(layers)
+    model, state, step = cp_trainer(dev, cfg, CP_LR)
+    batches = cp_batches(cfg.vocab_size, CP_SEQ, CP_STEPS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    zero_launches(counters)
+    state, steps = cp_steps(state, step, batches, dev, timed=True)
+    out = dict(layers=layers, steps=steps, setup_s=setup_s,
+               launches={c.__name__: c.launches for c in counters},
+               params=sum(p.numel() for p in state.params.values()),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in steps),
+          f"cp (c0): non-finite loss or grad norm {steps}")
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_check_inputs():
+    """(c2)'s ring inputs, global and in natural order (bf16 on the CPU)."""
+    import torch
+
+    c = RING_CHECK
+    g = torch.Generator().manual_seed(23)
+    q = torch.randn((c["b"], c["h"], c["s"], c["d"]), generator=g)
+    k = torch.randn((c["b"], c["hk"], c["s"], c["d"]), generator=g)
+    v = torch.randn((c["b"], c["hk"], c["s"], c["d"]), generator=g)
+    w = torch.randn((c["b"], c["h"], c["s"], c["d"]), generator=g)
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v, w))
+
+
+def ring_check_rank(dev) -> dict:
+    """This rank's ring attention forward and gradients at (c2)'s shape,
+    zigzag over the mesh's cp group: out, dq, dk, dv (CPU copies)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.ops.ring_attention import ring_attention, zigzag_indices
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    q, k, v, w = ring_check_inputs()
+    s = q.shape[2]
+    idx = zigzag_indices(s, mesh.get_context_parallel_size())
+    sl = mesh.context_seq_slice(s)
+    qi, ki, vi = (t[:, :, idx][:, :, sl].to(dev).requires_grad_(True) for t in (q, k, v))
+    blk = RING_CHECK["block"]
+    out = ring_attention(qi, ki, vi, group=mesh.get_context_parallel_group(), layout="zigzag",
+                         impl="flash", block_q=blk, block_k=blk)
+    grads = torch.autograd.grad(out, (qi, ki, vi), w[:, :, idx][:, :, sl].to(dev))
+    return {n: t.detach().cpu() for n, t in zip(("out", "dq", "dk", "dv"), (out, *grads))}
+
+
+def ring_references(want: list):
+    """The CPU side of (c2)'s element rule, per cp rank (``want``: the CPU
+    ring's outputs by cp rank, whose out defines delta). ``sizes``: the
+    ring rounds each block's result to bf16 before it sums the blocks in
+    fp32 and rounds the sum, so each term and the result may sit one last
+    place off: the sum over blocks of |term| plus |result|. ``exact``: the
+    ring in fp64 from the same bf16 operands, each block by
+    ``fwd_exact``/``bwd_exact`` (the twin's roundings inside a block, none
+    between blocks), merged and summed unrounded."""
+    import math as _math
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.ops.ring_attention import _rank_positions, zigzag_indices
+
+    c = RING_CHECK
+    cp, s, blk = CP_CP, c["s"], c["block"]
+    s_loc, b, h, hk, d = s // cp, c["b"], c["h"], c["hk"], c["d"]
+    sm = 1.0 / _math.sqrt(d)
+    q, k, v, w = (t[:, :, zigzag_indices(s, cp)] for t in ring_check_inputs())
+
+    def block(t, r, heads):
+        return t[:, :, r * s_loc:(r + 1) * s_loc].reshape(b * heads, s_loc, d).contiguous()
+
+    pos = [_rank_positions(r, cp, s_loc, "zigzag").reshape(1, 1, s_loc) for r in range(cp)]
+    args = lambda r, j: (block(q, r, h), block(k, j, hk), block(v, j, hk))  # noqa: E731
+    sizes = [dict(out=0.0, dq=0.0, dk=0.0, dv=0.0) for _ in range(cp)]
+    exact = [dict(out=0.0, dq=0.0, dk=0.0, dv=0.0) for _ in range(cp)]
+    for r in range(cp):
+        fwd = [fwd_exact(*args(r, j), pos[r], pos[j], sm, blk, blk, h // hk, h)
+               for j in range(cp)]
+        lse = torch.logsumexp(torch.stack([lse_j for _, lse_j in fwd]), 0)
+        for o_j, lse_j in fwd:
+            wgt = torch.exp(lse_j - lse)[..., None]
+            sizes[r]["out"] = sizes[r]["out"] + wgt * o_j.abs()
+            exact[r]["out"] = exact[r]["out"] + wgt * o_j
+        # the backward under the CPU ring's statistics, as the twins run it
+        out = want[r]["out"].reshape(b * h, s_loc, d)
+        delta = (block(w, r, h).float() * out.float()).sum(-1)
+        for j in range(cp):
+            grads = bwd_exact(*args(r, j), block(w, r, h), lse.float(), delta, pos[r], pos[j],
+                              sm, blk, blk, h // hk, h)
+            for n, i, g in (("dq", r, grads[0]), ("dk", j, grads[1]), ("dv", j, grads[2])):
+                sizes[i][n] = sizes[i][n] + g.abs()
+                exact[i][n] = exact[i][n] + g
+    shapes = dict(out=(b, h), dq=(b, h), dk=(b, hk), dv=(b, hk))
+    sizes = [{n: (t.reshape(*shapes[n], s_loc, d) + want[r][n].double().abs()).float()
+              for n, t in sz.items()} for r, sz in enumerate(sizes)]
+    exact = [{n: t.reshape(*shapes[n], s_loc, d) for n, t in ex.items()} for ex in exact]
+    return sizes, exact
+
+
+def ring_check(got: dict, side=None) -> dict:
+    """(c2)'s ring op on the card (``got``: a card rank's outputs by its cp
+    rank; the ranks are processes: a thread rank's backward would run on
+    the one CUDA autograd thread that all threads share) against the same
+    op on CPU thread ranks (the kernels' twins), each output element held
+    by the kernels phase's rule, against the twin's ring or an fp64
+    evaluation, with one last place allowed a rounding
+    (:func:`ring_references`)."""
+    want, sizes, exact = side or ring_cpu_side()
+    return {r: {n: held(got[r][n], want[r][n], RING_FLOORS[n], exact=exact[r][n],
+                        size=sizes[r][n]) for n in RING_FLOORS} for r in got}
+
+
+def ring_cpu_side():
+    """The CPU ring's outputs by cp rank and their ``ring_references``: the
+    side the ring check and the planted faults are held against."""
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    want = mesh.run_in_threads(CP_CP, lambda r: ring_check_rank("cpu"),
+                               tensor_model_parallel_size=1, context_parallel_size=CP_CP)
+    return (want, *ring_references(want))
+
+
+def ring_faults(want: list) -> dict:
+    """Four wrong rings at (c2)'s shape, each by what it would output (the
+    twins on the CPU, from the same inputs), to show that the ring check's
+    rule fails them: ``dkdv_not_home``, dK/dV left one hop short of home
+    (at cp 2 a rank then holds the other rank's); ``wrong_positions``,
+    every block folded under the rank's own positions;
+    ``positions_off_by_one``, every key a position late (a query loses the
+    key at its own position); ``no_lse_weights``, the blocks' outputs
+    merged with equal weights instead of their LSEs. Returns ``{fault:
+    [{output: tensor} by cp rank]}``."""
+    import math as _math
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import NEG_INF, flash_block_forward
+    from neuronx_distributed_tpu_torch.ops.ring_attention import (
+        _rank_positions,
+        merge_block,
+        zigzag_indices,
+    )
+
+    c = RING_CHECK
+    cp, s, blk = CP_CP, c["s"], c["block"]
+    s_loc, b, h, hk, d = s // cp, c["b"], c["h"], c["hk"], c["d"]
+    q, k, v, _ = (t[:, :, zigzag_indices(s, cp)] for t in ring_check_inputs())
+
+    def block(t, r, heads):
+        return t[:, :, r * s_loc:(r + 1) * s_loc].reshape(b * heads, s_loc, d).contiguous()
+
+    pos = [_rank_positions(r, cp, s_loc, "zigzag").reshape(1, 1, s_loc) for r in range(cp)]
+
+    def out(r, kpos, weigh):
+        m = torch.full((b * h, s_loc), NEG_INF)
+        se, acc = torch.zeros((b * h, s_loc)), torch.zeros((b * h, s_loc, d))
+        for j in ((r - i) % cp for i in range(cp)):
+            o_j, lse_j = flash_block_forward(block(q, r, h), block(k, j, hk), block(v, j, hk),
+                                             pos[r], kpos(j), 1.0 / _math.sqrt(d), blk, blk,
+                                             h // hk, h)
+            m, se, acc = merge_block(m, se, acc, o_j, weigh(lse_j))
+        return (acc / torch.clamp(se, min=1e-20)[..., None]).to(q.dtype).reshape(b, h, s_loc, d)
+
+    return {
+        "dkdv_not_home": [{n: want[(r + 1) % cp][n] for n in ("dk", "dv")} for r in range(cp)],
+        "wrong_positions": [{"out": out(r, lambda j, r=r: pos[r], lambda x: x)}
+                            for r in range(cp)],
+        "positions_off_by_one": [{"out": out(r, lambda j: pos[j] + 1, lambda x: x)}
+                                 for r in range(cp)],
+        "no_lse_weights": [{"out": out(r, lambda j: pos[j], lambda x: torch.where(
+            x > NEG_INF / 2, torch.zeros_like(x), x))} for r in range(cp)]}
+
+
+def ring_fault_check(side=None) -> dict:
+    """Each planted fault (:func:`ring_faults`) held by the ring check's rule
+    against the CPU ring (``side``: :func:`ring_cpu_side`): the least floor
+    it needs, by output, over the ranks, and whether the rule fails it
+    (``caught``)."""
+    want, sizes, exact = side or ring_cpu_side()
+    out = {}
+    for fault, by_rank in ring_faults(want).items():
+        need, caught = {}, False
+        for r, outs in enumerate(by_rank):
+            for n, t in outs.items():
+                h = held(t, want[r][n], RING_FLOORS[n], exact=exact[r][n], size=sizes[r][n])
+                need[n] = max(need.get(n, 0.0), h["floor_needed"])
+                caught = caught or not h["ok"]
+        out[fault] = dict(floor_needed=need, caught=caught)
+    return out
+
+
+# B1, B3a and B3b held element by element at the shapes phase 4m's paths give
+# them, with fewer rows (rows are independent): (c1)'s ring step, 16 q heads over
+# 16 kv heads a rank (group 1) over 16384 local tokens at zigzag positions, taken
+# at 2 heads; (p1)'s stage attention, 32 q heads over 4 kv heads a rank (group 8)
+# over 4096 tokens, taken at 8 over 1. The kernels phase's rule. The stage keeps
+# the kernels phase's floors: on an H100 80GB HBM3 (700 W) it needed out 4.2e-4,
+# dq 8.7e-5, dk 7.5e-5, dv 9.1e-5, under every floor and 5 % of every median
+# (0.026-0.044). At the ring's shape a row sees up to 16384 keys, so the values
+# are about half the training shape's (medians out 0.0085-0.0137, dq
+# 0.0049-0.0077, dk 0.0035-0.0098, dv 0.0035-0.0096) and the kernels phase's
+# floors exceed 5 % of them; the kernels there needed out 8.1e-5, dq 2.0e-5,
+# dk 3.2e-5, dv 2.6e-5 (the seeded inputs and the kernels are deterministic:
+# every run reads the same). The ring's floors are about twice that, under 2 %
+# of every median; ``PATH_TILE`` plants a fault they must fail: one tile of 64
+# keys dropped from the block (the twins' output with those keys invalid).
+PATH_RING = dict(h=2, s=CP_SEQ // CP_CP, d=128)
+PATH_STAGE = dict(h=8, hk=1, s=PP_SEQ, d=128)
+PATH_RING_FLOORS = dict(out=1.6e-4, dq=4e-5, dk=6.5e-5, dv=5.5e-5)
+PATH_TILE = 64
+# the dispatcher on the card at a per-rank length no default block divides
+# (above 1024, not a multiple of 128): causal attention must still launch B1
+PATH_ODD_S = 1984
+
+
+def path_kernel_check(dev, counters) -> dict:
+    """B1 and B3a/B3b on the card at the ring's and the stage's shapes
+    (``PATH_RING``, ``PATH_STAGE``) against their twins and their fp64
+    evaluations, by the kernels phase's element rule and floors. The ring:
+    each cp rank's queries against each block, B1 with the block's own
+    statistics, then B3a/B3b under the global LSE and delta of the merged
+    output, as the ring calls them; rows that see no key of a block and
+    keys no query of it sees are held to exact zeros (LSE to the twin's).
+    The stage: group 8 under the call's own statistics. Then the ring
+    dispatcher at ``PATH_ODD_S`` (one rank): it must launch B1, held
+    against the twin tiled at 64. Each case also holds a planted fault,
+    the twins with the last ``PATH_TILE`` keys of the block's first half
+    made invalid (out and dq), which the rule must fail. Returns the
+    readings and a list of problems."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        INVALID_POS,
+        flash_block_forward,
+        flash_block_forward_plain,
+        flash_bwd_dkdv,
+        flash_bwd_dkdv_plain,
+        flash_bwd_dq,
+        flash_bwd_dq_plain,
+    )
+    from neuronx_distributed_tpu_torch.ops.ring_attention import (
+        _rank_positions,
+        merge_block,
+        ring_attention,
+    )
+
+    kernel_floors = dict(out=TOL_FLASH_TRAIN_FLOOR, dq=TOL_DQ_FLOOR, dk=TOL_DK_FLOOR,
+                         dv=TOL_DV_FLOOR)
+    g = torch.Generator(device=dev).manual_seed(29)
+    readings, problems = {}, []
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def floor(case, name):
+        return kernel_floors[name] if case == "stage" else PATH_RING_FLOORS[name]
+
+    def hold(case, name, got, want, exact, live):
+        """``live``: the rows (positions) that count; the others must be 0."""
+        sel = live.reshape(1, -1, 1).expand_as(got)
+        r = held(got[sel], want[sel], floor(case, name), exact=exact[sel])
+        r["dead_rows"] = int((~live).sum())
+        r["dead_rows_zero"] = bool((got[~sel] == 0).all())
+        readings.setdefault(case, {})[name] = r
+        if not r["ok"] or r["floor"] > FLOOR_SHARE_OF_MEDIAN * r["median_abs_ref"]:
+            problems.append(f"{case} {name}: beyond {r['rel']:.3g} * |ref| + {r['floor']:.3g} "
+                            f"(needs {r['floor_needed']:.3g}, median |ref| "
+                            f"{r['median_abs_ref']:.3g})")
+        if not r["dead_rows_zero"]:
+            problems.append(f"{case} {name}: a row outside the block's mask is not zero")
+
+    def planted(case, name, wrong, want, live):
+        sel = live.reshape(1, -1, 1).expand_as(want)
+        r = held(wrong[sel], want[sel], floor(case, name))
+        readings[case].setdefault("tile_dropped", {})[name] = r["floor_needed"]
+        if r["ok"]:
+            problems.append(f"{case} {name}: the rule passes a dropped key tile")
+
+    def dropped(kpos):
+        """``kpos`` with the last ``PATH_TILE`` keys of its first half invalid."""
+        s_ = kpos.shape[-1]
+        kpos = kpos.clone()
+        kpos[..., s_ // 2 - PATH_TILE:s_ // 2] = INVALID_POS
+        return kpos
+
+    def fwd(case, args, q_live):
+        o, lse = flash_block_forward(*args)
+        want, want_lse = flash_block_forward_plain(*args)
+        hold(case, "out", o, want, fwd_exact(*args)[0], q_live)
+        err = float((lse - want_lse).abs().max())
+        readings[case]["lse_max_abs_err"] = err
+        if err > TOL_LSE:
+            problems.append(f"{case} lse: differs from the twin's by {err:.3g}")
+        planted(case, "out", flash_block_forward_plain(*args[:4], dropped(args[4]),
+                                                       *args[5:])[0], want, q_live)
+        return o, lse
+
+    def bwd(case, args, q_live, k_live):
+        got = (flash_bwd_dq(*args), *flash_bwd_dkdv(*args))
+        want = (flash_bwd_dq_plain(*args), *flash_bwd_dkdv_plain(*args))
+        exact = bwd_exact(*args)
+        for name, a, w, x, live in zip(("dq", "dk", "dv"), got, want, exact,
+                                       (q_live, k_live, k_live)):
+            hold(case, name, a, w, x, live)
+        planted(case, "dq", flash_bwd_dq_plain(*args[:7], dropped(args[7]), *args[8:]),
+                want[0], q_live)
+
+    t0 = time.perf_counter()
+    h, s, d = PATH_RING["h"], PATH_RING["s"], PATH_RING["d"]
+    sm = d ** -0.5
+    pos = [_rank_positions(r, CP_CP, s, "zigzag", dev).reshape(1, 1, s) for r in range(CP_CP)]
+    k, v = [rand(h, s, d) for _ in range(CP_CP)], [rand(h, s, d) for _ in range(CP_CP)]
+    for r in range(CP_CP):
+        q, do = rand(h, s, d), rand(h, s, d)
+        m = torch.full((h, s), -1e30, dtype=torch.float32, device=dev)
+        se = torch.zeros((h, s), dtype=torch.float32, device=dev)
+        acc = torch.zeros((h, s, d), dtype=torch.float32, device=dev)
+        order = [(r - i) % CP_CP for i in range(CP_CP)]
+        lives = {}
+        for j in order:
+            mask = pos[j].reshape(1, s) <= pos[r].reshape(s, 1)
+            lives[j] = mask.any(1), mask.any(0)
+            del mask
+            o, lse_j = fwd(f"ring rank {r} block {j}", (q, k[j], v[j], pos[r], pos[j], sm, 64,
+                                                         64, 1, h), lives[j][0])
+            m, se, acc = merge_block(m, se, acc, o, lse_j)
+        out = (acc / se[..., None]).to(q.dtype)
+        lse = m + torch.log(se)
+        delta = (do.float() * out.float()).sum(-1)
+        for j in order:
+            bwd(f"ring rank {r} block {j}", (q, k[j], v[j], do, lse, delta, pos[r], pos[j], sm,
+                                             64, 64, 1, h), *lives[j])
+        del q, do, acc, out
+    del k, v
+    h, hk, s, d = PATH_STAGE["h"], PATH_STAGE["hk"], PATH_STAGE["s"], PATH_STAGE["d"]
+    q, k, v, do = rand(h, s, d), rand(hk, s, d), rand(hk, s, d), rand(h, s, d)
+    iota = torch.arange(s, dtype=torch.int32, device=dev).reshape(1, 1, s)
+    every = torch.ones(s, dtype=torch.bool, device=dev)
+    o, lse = fwd("stage", (q, k, v, iota, iota, d ** -0.5, 64, 64, h // hk, h), every)
+    delta = (do.float() * o.float()).sum(-1)
+    bwd("stage", (q, k, v, do, lse, delta, iota, iota, d ** -0.5, 64, 64, h // hk, h), every,
+        every)
+    del q, k, v, do, o
+    # the dispatcher: impl=None on CUDA tensors at a length no default block divides
+    q, k, v = (rand(1, 2, PATH_ODD_S, 128) for _ in range(3))
+    zero_launches(counters)
+    got = ring_attention(q, k, v)
+    launches = {c.__name__: c.launches for c in counters}
+    iota = torch.arange(PATH_ODD_S, dtype=torch.int32, device=dev).reshape(1, 1, PATH_ODD_S)
+    args = (q[0], k[0], v[0], iota, iota, 128 ** -0.5, 64, 64, 1, 2)
+    r = held(got[0], flash_block_forward_plain(*args)[0], TOL_FLASH_TRAIN_FLOOR,
+             exact=fwd_exact(*args)[0])
+    readings["dispatch"] = dict(s_loc=PATH_ODD_S, launches=launches, out=r)
+    if launches.get("flash_block_forward", 0) != 1:
+        problems.append(f"ring_attention at a per-rank length of {PATH_ODD_S} on the card "
+                        f"launched B1 {launches.get('flash_block_forward', 0)} times, not once")
+    if not r["ok"]:
+        problems.append(f"ring_attention at {PATH_ODD_S} differs from the twin beyond "
+                        f"{r['rel']:.3g} * |ref| + {r['floor']:.3g} (needs {r['floor_needed']:.3g})")
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return dict(readings=readings, problems=problems, seconds=time.perf_counter() - t0,
+                ring_shape=f"q ({PATH_RING['h']}, {PATH_RING['s']}, {PATH_RING['d']}) over "
+                           f"({PATH_RING['h']}, {PATH_RING['s']}, {PATH_RING['d']}) bf16, group "
+                           f"1, zigzag at cp {CP_CP}",
+                stage_shape=f"q ({PATH_STAGE['h']}, {PATH_STAGE['s']}, {PATH_STAGE['d']}) over "
+                            f"({PATH_STAGE['hk']}, {PATH_STAGE['s']}, {PATH_STAGE['d']}) bf16, "
+                            f"group {PATH_STAGE['h'] // PATH_STAGE['hk']}, causal")
+
+
+def pp_args(extra=()) -> list:
+    """The TP x PP example's arguments for (p1)/(p2)."""
+    return ["--layers", str(PP_LAYERS), "--seq_len", str(PP_SEQ), "--batch_size",
+            str(PP_BATCH), "--num_microbatches", str(PP_MB), "--steps", str(PP_STEPS),
+            "--lr", str(PP_LR), "--log_every", "0", *extra]
+
+
+def pp_p0(dev, counters) -> dict:
+    """(p0): the example's model on one rank, the forward loss of its first
+    training batch (the stream's second: the first is its init sample) from
+    its seeded init: the value (p1)'s first step must reach."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.examples import llama2_tp_pp as example
+    from neuronx_distributed_tpu_torch.examples.common import synthetic_lm_batches
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = example.parse_args(pp_args())
+    cfg = example.build_config(args, PP_SEQ)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    model.load_state_dict(params, assign=True)
+    stream = synthetic_lm_batches(cfg.vocab_size, PP_BATCH, PP_SEQ, seed=args.seed)
+    next(stream)
+    b = next(stream)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    zero_launches(counters)
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        loss = float(model.loss(torch.as_tensor(b["ids"]).to(dev),
+                                torch.as_tensor(b["labels"]).to(dev)))
+    torch.cuda.synchronize()
+    out = dict(loss=loss, ms=(time.perf_counter() - t1) * 1e3, setup_s=setup_s,
+               launches={c.__name__: c.launches for c in counters if c.launches},
+               weight_bytes=sum(nbytes(t) for t in params.values()),
+               params=sum(t.numel() for t in params.values()),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    check(math.isfinite(loss), f"pp (p0): non-finite loss {loss}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_small_config():
+    """(p3)'s model: the small fp32 model at 4 layers (2 stages x 2 chunks)."""
+    return dataclasses.replace(small_config(), num_layers=4)
+
+
+def pp_small_batches() -> list:
+    import numpy as np
+
+    cfg = pp_small_config()
+    out = []
+    for i in range(CPPP_SMALL_STEPS):
+        ids = np.random.RandomState(40 + i).randint(0, cfg.vocab_size,
+                                                   (CPPP_SMALL_BATCH, cfg.max_seq_len + 1))
+        out.append({"ids": ids[:, :-1].astype(np.int32), "labels": ids[:, 1:].astype(np.int32)})
+    return out
+
+
+def pp_small_trainer(dev, params, chunks: int, stages: int = PP_PP, tp: int = PP_TP):
+    """(p3)'s trainer: a ``PipelinedLlama`` stage of the small model (one
+    rank: the whole model), 2 microbatches, ZeRO-1, fp32 masters, clip 1.0."""
+    from neuronx_distributed_tpu_torch.models.llama_pipeline import PipelinedLlama
+    from neuronx_distributed_tpu_torch.trainer import (
+        create_train_state,
+        initialize_parallel_optimizer,
+        make_train_step,
+        neuronx_distributed_config,
+    )
+
+    nxd = neuronx_distributed_config(
+        tensor_parallel_size=tp, pipeline_parallel_size=stages,
+        optimizer_config={"zero_one_enabled": True, "grad_clipping": True, "max_grad_norm": 1.0},
+        mixed_precision_config={"use_master_weights": True})
+    pm = PipelinedLlama(pp_small_config(), num_stages=stages, num_microbatches=2,
+                        num_chunks=chunks)
+    model = pm.as_parallel_model(device=dev, params=params)
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=CPPP_SMALL_LR,
+                                        weight_decay=0.01)
+    step = make_train_step(model, opt, lambda p, b, rng: pm.loss(p, b["ids"], b["labels"]))
+    return create_train_state(model, opt), step
+
+
+def pp_small_steps(state, step, batches, dev):
+    import torch
+
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    out = []
+    for b in batches:
+        rows = (mesh.data_batch_slice(CPPP_SMALL_BATCH) if mesh.model_parallel_is_initialized()
+                else slice(None))
+        state, m = step(state, {k: torch.as_tensor(v[rows]).to(dev) for k, v in b.items()})
+        out.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+    return state, out
+
+
+def cppp_child(rank: int, world: int, port: int, out_path: str, ckpt_dir: str,
+               dev: str = "cuda:0", cp_layers: int = CP_LAYERS) -> int:
+    """One rank of (c1), (c2), (p1), (p2) and (p3), a process of its own on
+    ``cuda:0`` over gloo, each part in a process group of its own. (c1):
+    the (c0) run through the trainer at CP 2 x TP 2, zigzag; (c2): the
+    small fp32 model on that layout, then the ring op alone at
+    ``RING_CHECK``; (p1)/(p2): the TP x PP example's ``main`` at TP 2 x PP
+    2, 1F1B and then two VPP chunks a stage; (p3): the small fp32 model at
+    TP 2 x PP 2, 1F1B and interleaved, a save after step 2 and a fresh
+    group resuming step 3. Launch counters and the collective table are
+    zeroed just before each run and read just after. Writes every reading
+    to ``out_path`` (the ring check's tensors beside it)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.checkpoint import (
+        finalize_checkpoint,
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from neuronx_distributed_tpu_torch.examples import llama2_tp_pp as example
+    from neuronx_distributed_tpu_torch.kernels import _build
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_bwd_dkdv,
+        flash_bwd_dq,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+    from neuronx_distributed_tpu_torch.optimizer.fused_kernel import fused_adamw_leaf
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build()
+    counters = (flash_block_forward, flash_bwd_dkdv, flash_bwd_dq, fused_adamw_leaf)
+    timeout = datetime.timedelta(seconds=CPPP_TIMEOUT_S)
+    _, total = torch.cuda.mem_get_info()
+    res = dict(rank=rank)
+
+    def join(p, **degrees):
+        mesh.init_distributed("gloo", rank=rank, world_size=world, local_rank=0,
+                              init_method=f"tcp://localhost:{p}", timeout=timeout)
+        mesh.initialize_model_parallel(timeout=timeout, **degrees)
+
+    def leave():
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def readings():
+        return dict(launches={c.__name__: c.launches for c in counters},
+                    collectives=mappings.collective_stats(),
+                    peak_bytes=torch.cuda.max_memory_allocated())
+
+    def start():
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(counters)
+        mappings.reset_collective_stats()
+
+    # (c1): Llama-2-7B widths, one 32768-token sequence a step, CP 2 x TP 2
+    join(port, tensor_model_parallel_size=CP_TP, context_parallel_size=CP_CP)
+    cfg = cp_config(cp_layers)
+    model, state, step = cp_trainer(dev, cfg, CP_LR, cp=CP_CP, tp=CP_TP)
+    n = sum(p.numel() for p in state.params.values())
+    s_loc = CP_SEQ // CP_CP
+    # layer inputs kept by remat, one layer's recompute, a loss chunk's logits
+    act = (cfg.num_layers * s_loc * cfg.hidden_size * 2 + 3 * s_loc * cfg.intermediate_size
+           // CP_TP * 2 + 4096 * cfg.vocab_size // CP_TP * 10)
+    res["c1_reckoning"] = reckoning(n, act, total)
+    print(f"rank {rank} (c1) reckoning {json.dumps(res['c1_reckoning'])}", flush=True)
+    batches = cp_batches(cfg.vocab_size, CP_SEQ, CP_STEPS)
+    res["coords_c"] = mesh.local_mesh_coords()
+    start()
+    t1 = time.perf_counter()
+    state, steps = cp_steps(state, step, batches, dev, timed=True)
+    res["c1"] = dict(steps=steps, main_s=time.perf_counter() - t1, **readings())
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c2): the small fp32 model on the same layout; then the ring alone
+    small = dataclasses.replace(small_config(), cp_layout="zigzag")
+    params = init_params(small, torch.Generator().manual_seed(0))
+    _, state, step = cp_trainer(dev, small, CPPP_SMALL_LR, cp=CP_CP, tp=CP_TP, params=params)
+    state, res["c2"] = cp_steps(state, step, cp_batches(small.vocab_size, small.max_seq_len,
+                                                        CPPP_SMALL_STEPS, CPPP_SMALL_BATCH,
+                                                        seed=31), dev)
+    del state, step
+    ring = ring_check_rank(dev)
+    if mesh.tensor_model_parallel_rank() == 0:   # the TP ranks of a cp rank run one ring
+        torch.save(ring, str(Path(out_path).with_suffix(".ring.pt")))
+    res["ring_cp_rank"] = mesh.context_parallel_rank()
+    leave()
+
+    # (p1)/(p2): the TP x PP example at Llama-2-70B widths, 1F1B then VPP 2
+    for part, extra, p in (("p1", [], port + 1), ("p2", ["--num_chunks", "2"], port + 2)):
+        steps, mark, stash = [], {}, {}
+
+        def on_model(pmodel, model, state):
+            act = (PP_MB * PP_LAYERS // PP_PP * (PP_BATCH // PP_MB) * PP_SEQ
+                   * pmodel.config.hidden_size * 2 + PP_SEQ * pmodel.config.vocab_size // PP_TP
+                   * 10)
+            res[f"{part}_reckoning"] = reckoning(model.num_params(), act, total)
+            res[f"{part}_stage"] = pmodel.stage
+            stash["engine"] = pmodel.engine
+            print(f"rank {rank} ({part}) reckoning {json.dumps(res[f'{part}_reckoning'])}",
+                  flush=True)
+
+        def on_step(i, state, metrics):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            steps.append(dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                              ms=(now - mark["t"]) * 1e3, stash_peak=stash["engine"].stash_peak,
+                              sends_peak=stash["engine"].sends_peak))
+            mark["t"] = time.perf_counter()
+
+        argv = pp_args([*extra, "--tp", str(PP_TP), "--pp", str(PP_PP), "--backend", "gloo",
+                        "--device", dev, "--coordinator_address", f"localhost:{p}",
+                        "--num_processes", str(world), "--process_id", str(rank)])
+        start()
+        t1 = mark["t"] = time.perf_counter()
+        example.main(argv, on_step=on_step, on_model=on_model)
+        res[part] = dict(steps=steps, main_s=time.perf_counter() - t1,
+                         coords=mesh.local_mesh_coords(), **readings())
+        leave()
+
+    # (p3): the small fp32 model at TP 2 x PP 2, 1F1B and interleaved
+    small = pp_small_config()
+    params = init_params(small, torch.Generator().manual_seed(0))
+    batches = pp_small_batches()
+    join(port + 3, tensor_model_parallel_size=PP_TP, pipeline_model_parallel_size=PP_PP)
+    state, step = pp_small_trainer(dev, params, 1)
+    state, straight = pp_small_steps(state, step, batches, dev)
+    want = _digest(state.params)
+    state, step = pp_small_trainer(dev, params, 2)
+    _, interleaved = pp_small_steps(state, step, batches, dev)
+    state, step = pp_small_trainer(dev, params, 1)
+    state, head = pp_small_steps(state, step, batches[:2], dev)
+    save_checkpoint(ckpt_dir, "step_2", state, user_content={"step": 2}, async_save=True)
+    torch.save({"params": {n: t.cpu() for n, t in state.params.items()},
+                "layout": {k: (v.global_shape, v.offset) for k, v in state.layout.items()}},
+               str(Path(out_path).with_suffix(".params.pt")))
+    finalize_checkpoint()
+    leave()
+    join(port + 4, tensor_model_parallel_size=PP_TP, pipeline_model_parallel_size=PP_PP)
+    state, step = pp_small_trainer(dev, params, 1)
+    state, content = load_checkpoint(ckpt_dir, target=state, verify=True)
+    state, tail = pp_small_steps(state, step, batches[2:], dev)
+    res["p3"] = dict(straight=straight, interleaved=interleaved, resumed=head + tail,
+                     resumed_step=content["step"],
+                     bit_identical=_digest(state.params) == want
+                     and [s["loss"] for s in head + tail] == [s["loss"] for s in straight])
+    res["wall_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(res))
+    leave()
+    return 0
+
+
+def cppp_ranks(ckpt_dir: str, tmp: Path, cp_layers: int = CP_LAYERS) -> dict:
+    """:func:`cppp_child` as ``CPPP_WORLD`` processes on the one card; the
+    card's used memory polled while they run. A rank that fails or
+    outlives ``CPPP_CHILD_TIMEOUT_S`` fails the phase (every process is
+    stopped)."""
+    import torch
+
+    port = _free_port()
+    free0, total = torch.cuda.mem_get_info()
+    peak_used = total - free0
+    logs = [open(tmp / f"cppp{r}.log", "w") for r in range(CPPP_WORLD)]
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--cppp-world", str(CPPP_WORLD),
+           "--cppp-port", str(port), "--cppp-dir", ckpt_dir, "--cppp-layers", str(cp_layers)]
+    # four ranks' caches share the card: segments that grow in place keep
+    # each rank's reserve near what it allocates
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    procs = [subprocess.Popen(cmd + ["--cppp-rank", str(r), "--cppp-out",
+                                     str(tmp / f"cppp{r}.json")],
+                              cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT, env=env)
+             for r in range(CPPP_WORLD)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() - t0 > CPPP_CHILD_TIMEOUT_S:
+                raise SmokeFailure(f"cp/pp phase: the ranks ran past {CPPP_CHILD_TIMEOUT_S} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break   # one rank failed: its peers fail at the group's timeout
+            free, _ = torch.cuda.mem_get_info()
+            peak_used = max(peak_used, total - free)
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (tmp / f"cppp{r}.log").read_text()[-3000:]
+            raise SmokeFailure(f"cp/pp phase: rank {r} exited {p.returncode}:\n{tail}")
+    ranks = [json.loads((tmp / f"cppp{r}.json").read_text()) for r in range(CPPP_WORLD)]
+    return dict(ranks=ranks, wall_s=wall, card_peak_used_bytes=peak_used, card_bytes=total)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def cppp_gates(c0: dict, p0: dict, ranks: list) -> list:
+    """(c1), (p1) and (p2)'s hard gates, as a list of problems; records the
+    largest relative loss differences in ``c0``/``p0``."""
+    bad = []
+    c_worst = p_worst = v_worst = 0.0
+    want_c = [s["loss"] for s in c0["steps"]]
+    for rk in ranks:
+        r = rk["rank"]
+        for part, n in (("c1", CP_STEPS), ("p1", PP_STEPS), ("p2", PP_STEPS)):
+            got = [s["loss"] for s in rk[part]["steps"]]
+            if len(got) != n:
+                bad.append(f"rank {r} ran {len(got)} {part} steps")
+            elif got != [s["loss"] for s in ranks[0][part]["steps"]]:
+                bad.append(f"rank {r}: {part} losses differ from rank 0's")
+            for name in CPPP_COUNTERS:
+                if rk[part]["launches"].get(name, 0) <= 0:
+                    bad.append(f"rank {r} never launched {name} in ({part})")
+        for a, b in zip((s["loss"] for s in rk["c1"]["steps"]), want_c):
+            c_worst = max(c_worst, _rel(a, b))
+        if rk["p1"]["steps"]:
+            p_worst = max(p_worst, _rel(rk["p1"]["steps"][0]["loss"], p0["loss"]))
+        for a, b in zip(rk["p2"]["steps"], rk["p1"]["steps"]):
+            v_worst = max(v_worst, _rel(a["loss"], b["loss"]))
+        if rk["c1"]["collectives"].get("send", [0, 0])[0] <= 0:
+            bad.append(f"rank {r}: (c1) sent nothing round the ring")
+        # 1F1B's bound (with VPP chunks the stash counts chunk units: not gated)
+        stage = rk["p1_stage"]
+        if any(s["stash_peak"] > PP_PP - stage for s in rk["p1"]["steps"]):
+            bad.append(f"rank {r} (p1): stashed more than pp - stage microbatches")
+        if any(s["sends_peak"] > PP_PP - stage for s in rk["p1"]["steps"]):
+            bad.append(f"rank {r} (p1): held more than pp - stage sends")
+    c0["c1_loss_max_rel_diff"], p0["p1_loss_rel_diff"] = c_worst, p_worst
+    p0["p2_vs_p1_loss_max_rel_diff"] = v_worst
+    for what, worst in (("(c1) losses differ from (c0)'s", c_worst),
+                        ("(p1)'s step-1 loss differs from (p0)'s", p_worst),
+                        ("(p2) losses differ from (p1)'s", v_worst)):
+        if worst > CPPP_LOSS_RTOL:
+            bad.append(f"{what} by {worst:.3g} relative (limit {CPPP_LOSS_RTOL})")
+    return bad
+
+
+def cppp_small_reference(ckpt_dir: str, tmp: Path, ranks: list) -> dict:
+    """(c2) and (p3)'s CPU side: one CPU rank trained on the same weights
+    and batches, the (p3) tag loaded at TP1 x PP1 on one rank against the
+    ranks' step-2 params, and a flipped byte in one rank's piece."""
+    import shutil
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.checkpoint import CheckpointIntegrityError, load_checkpoint
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+
+    small = dataclasses.replace(small_config(), cp_layout="zigzag")
+    _, state, step = cp_trainer("cpu", small, CPPP_SMALL_LR,
+                                params=init_params(small, torch.Generator().manual_seed(0)))
+    _, c2_cpu = cp_steps(state, step, cp_batches(small.vocab_size, small.max_seq_len,
+                                                 CPPP_SMALL_STEPS, CPPP_SMALL_BATCH, seed=31),
+                         "cpu")
+    params = init_params(pp_small_config(), torch.Generator().manual_seed(0))
+    state, step = pp_small_trainer("cpu", params, 1, stages=1, tp=1)
+    _, p3_cpu = pp_small_steps(state, step, pp_small_batches(), "cpu")
+
+    def err(key, cpu):
+        return max(max(abs(a["loss"] - c["loss"]), abs(a["grad_norm"] - c["grad_norm"]))
+                   for rk in ranks for a, c in zip(key(rk), cpu))
+
+    target, _ = pp_small_trainer("cpu", params, 1, stages=1, tp=1)
+    whole, content = load_checkpoint(ckpt_dir, target=target, verify=True)
+    gathered = {n: torch.empty_like(t) for n, t in whole.params.items()}
+    covered = set()
+    for r in range(CPPP_WORLD):
+        part = torch.load(str(tmp / f"cppp{r}.params.pt"))
+        for n, t in part["params"].items():
+            _, off = part["layout"][f".params['{n}']"]
+            gathered[n][tuple(slice(o, o + s) for o, s in zip(off, t.shape))] = t
+            covered.add(n)
+    equal = covered == set(gathered) and all(torch.equal(gathered[n], whole.params[n])
+                                             for n in gathered)
+    bad = tmp / "flipped"
+    shutil.copytree(ckpt_dir, bad)
+    piece = bad / "step_2" / "state" / "tensors.rank00003.safetensors"
+    blob = bytearray(piece.read_bytes())
+    blob[-7] ^= 0x20
+    piece.write_bytes(bytes(blob))
+    try:
+        load_checkpoint(str(bad), verify=True)
+        caught = False
+    except CheckpointIntegrityError:
+        caught = True
+    return dict(c2_cpu=c2_cpu, p3_cpu=p3_cpu,
+                c2_max_abs_err=err(lambda rk: rk["c2"], c2_cpu),
+                p3_max_abs_err=err(lambda rk: rk["p3"]["straight"], p3_cpu),
+                p3_interleaved_max_abs_err=err(lambda rk: rk["p3"]["interleaved"], p3_cpu),
+                tp1_pp1_equals_gathered=equal, flipped_byte_caught=caught,
+                resumed_from=content["step"])
+
+
+def run_cp_pp_phase(dev, counters, cp_layers: int = CP_LAYERS, dump=None) -> dict:
+    """Phase 4m: (c0) and (p0) in this process, the four rank processes,
+    then their CPU sides and ``measure_cp_ratio``; every gate. ``dump``: a
+    path the readings are written to before the gates are held."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.utils.cp_microbench import measure_cp_ratio
+
+    t0 = time.perf_counter()
+    c0 = cp_c0(dev, counters, cp_layers)
+    p0 = pp_p0(dev, counters)
+    paths = path_kernel_check(dev, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        ckpt = str(tmp / "ckpt")
+        kids = cppp_ranks(ckpt, tmp, cp_layers)
+        small = cppp_small_reference(ckpt, tmp, kids["ranks"])
+        side = ring_cpu_side()
+        ring = ring_check({rk["ring_cp_rank"]: torch.load(str(tmp / f"cppp{rk['rank']}.ring.pt"))
+                           for rk in kids["ranks"]
+                           if (tmp / f"cppp{rk['rank']}.ring.pt").exists()}, side)
+        faults = ring_fault_check(side)
+        del side
+    ratio = measure_cp_ratio(CP_SEQ, cp=CP_CP, heads=32, head_dim=128, tp=CP_TP, device=dev)
+    problems = cppp_gates(c0, p0, kids["ranks"]) + paths["problems"]
+    out = dict(c0=c0, p0=p0, ranks=kids["ranks"], ring=ring, ring_faults=faults,
+               paths=paths, small=small, cp_ratio=ratio,
+               ranks_wall_s=kids["wall_s"], card_peak_used_bytes=kids["card_peak_used_bytes"],
+               card_bytes=kids["card_bytes"])
+    if dump is not None:
+        Path(dump).parent.mkdir(parents=True, exist_ok=True)
+        Path(dump).write_text(json.dumps({**out, "problems": problems}, default=str))
+    for r, names in ring.items():
+        for n, h in names.items():
+            if not h["ok"] or h["floor"] > FLOOR_SHARE_OF_MEDIAN * h["median_abs_ref"]:
+                problems.append(f"(c2) rank {r}: the ring's {n} differs from the CPU ring's "
+                                f"beyond {h['rel']:.3g} * |ref| + {h['floor']:.3g} (needs "
+                                f"{h['floor_needed']:.3g}, median |ref| {h['median_abs_ref']:.3g})")
+    for fault, f in faults.items():
+        if not f["caught"]:
+            problems.append(f"(c2): the ring check's rule passes a planted fault, {fault} "
+                            f"(needs {json.dumps(f['floor_needed'])})")
+    for key in ("c2_max_abs_err", "p3_max_abs_err", "p3_interleaved_max_abs_err"):
+        if small[key] > CPPP_SMALL_TOL:
+            problems.append(f"{key} {small[key]:.3g} above {CPPP_SMALL_TOL}")
+    for rk in kids["ranks"]:
+        if not rk["p3"]["bit_identical"]:
+            problems.append(f"(p3) rank {rk['rank']}: the resumed step 3 is not bit-identical")
+    for key in ("tp1_pp1_equals_gathered", "flipped_byte_caught"):
+        if not small[key]:
+            problems.append(f"(p3): {key} failed")
+    check(not problems, "cp/pp phase: " + "; ".join(problems))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, phase_s=time.perf_counter() - t0)
+
+
+def print_cp_pp(st: dict, card: str) -> None:
+    c0, p0 = st["c0"], st["p0"]
+
+    def steps_text(steps):
+        return ", ".join(f"{s['loss']:.5f}/{s['grad_norm']:.4f}"
+                         + (f" {s['ms']:.0f} ms" if s.get("ms") else "") for s in steps)
+
+    print(f"cp (c0): llama2_7b widths, {c0['layers']} of 32 layers, one rank, 1 x {CP_SEQ} "
+          f"tokens a step, bf16 + fp32 masters, remat full; loss/grad norm/step "
+          f"{steps_text(c0['steps'])}; {c0['params']} params, peak {c0['peak_bytes']} bytes, "
+          f"set-up {c0['setup_s']:.1f} s, launches {json.dumps(c0['launches'])} [{card}]",
+          flush=True)
+    print(f"pp (p0): llama2_70b widths, {PP_LAYERS} of 80 layers, one rank, forward loss of "
+          f"{PP_BATCH} x {PP_SEQ} tokens {p0['loss']:.5f} in {p0['ms']:.0f} ms; weight bytes "
+          f"{p0['weight_bytes']}, peak {p0['peak_bytes']} bytes, launches "
+          f"{json.dumps(p0['launches'])} [{card}]", flush=True)
+    for rk in st["ranks"]:
+        c = rk["c1"]
+        coll = {k: f"{v[0]} calls {v[1]} bytes" for k, v in sorted(c["collectives"].items())}
+        print(f"cp (c1) rank {rk['rank']} ({json.dumps(rk['coords_c'])}): CP {CP_CP} x TP "
+              f"{CP_TP} zigzag over gloo; loss/grad norm/step {steps_text(c['steps'])}; peak "
+              f"{c['peak_bytes']} bytes (reckoned {rk['c1_reckoning']['planned_bytes']}), "
+              f"launches {json.dumps(c['launches'])}, collectives {json.dumps(coll)} [{card}]",
+              flush=True)
+    for part in ("p1", "p2"):
+        for rk in st["ranks"]:
+            p = rk[part]
+            coll = {k: f"{v[0]} calls {v[1]} bytes" for k, v in sorted(p["collectives"].items())}
+            print(f"pp ({part}) rank {rk['rank']} (stage {rk[f'{part}_stage']}, tp "
+                  f"{p['coords']['tp']}): the TP x PP example, TP {PP_TP} x PP {PP_PP}"
+                  f"{', 2 VPP chunks' if part == 'p2' else ', 1F1B'}, {PP_MB} microbatches; "
+                  f"loss/grad norm/step {steps_text(p['steps'])}; stash peak "
+                  f"{[s['stash_peak'] for s in p['steps']]}, sends held peak "
+                  f"{[s['sends_peak'] for s in p['steps']]}; {rk[f'{part}_reckoning']['params']} "
+                  f"params, peak {p['peak_bytes']} bytes (reckoned "
+                  f"{rk[f'{part}_reckoning']['planned_bytes']}), launches "
+                  f"{json.dumps(p['launches'])}, collectives {json.dumps(coll)} [{card}]",
+                  flush=True)
+    print(f"cp/pp: (c1) losses within {c0['c1_loss_max_rel_diff']:.3g} of (c0)'s, (p1)'s step 1 "
+          f"within {p0['p1_loss_rel_diff']:.3g} of (p0), (p2) within "
+          f"{p0['p2_vs_p1_loss_max_rel_diff']:.3g} of (p1) (limit {CPPP_LOSS_RTOL}); "
+          f"{CPPP_WORLD} processes in {st['ranks_wall_s']:.1f} s, card peak used "
+          f"{st['card_peak_used_bytes']} of {st['card_bytes']} bytes [{card}]", flush=True)
+    sm = st["small"]
+    worst = {r: {n: f"{h['max_abs_err']:.3g} (floor needed {h['floor_needed']:.3g} of "
+                    f"{h['floor']:.3g})" for n, h in names.items()}
+             for r, names in st["ring"].items()}
+    print(f"cp (c2): small fp32 model CP {CP_CP} x TP {CP_TP} on the card vs one CPU rank: max "
+          f"|loss or grad norm diff| {sm['c2_max_abs_err']:.3g} (tol {CPPP_SMALL_TOL}); the ring "
+          f"at {json.dumps(RING_CHECK)} bf16 zigzag vs the CPU ring {json.dumps(worst)} "
+          f"[{card}]", flush=True)
+    print(f"cp (c2): planted ring faults under the same rule, floor needed and caught "
+          f"{json.dumps(st['ring_faults'])} [{card}]", flush=True)
+    pk = st["paths"]
+    need = {case: {**{n: f"{r[n]['floor_needed']:.3g} of {r[n]['floor']:.3g} (median |ref| "
+                         f"{r[n]['median_abs_ref']:.3g})" for n in ("out", "dq", "dk", "dv")},
+                   "tile dropped": {n: f"{x:.3g}" for n, x in r["tile_dropped"].items()}}
+            for case, r in pk["readings"].items() if case != "dispatch"}
+    dp = pk["readings"]["dispatch"]
+    print(f"cp/pp kernels at the paths' shapes, kernel vs twin or fp64 (ring {pk['ring_shape']}; "
+          f"stage {pk['stage_shape']}): floor needed {json.dumps(need)}; dispatcher at a "
+          f"per-rank {PATH_ODD_S}: launches {json.dumps(dp['launches'])}, out vs the twin needs "
+          f"{dp['out']['floor_needed']:.3g} of {dp['out']['floor']:.3g}; {pk['seconds']:.1f} s "
+          f"[{card}]", flush=True)
+    print(f"pp (p3): small fp32 model TP {PP_TP} x PP {PP_PP} vs one CPU rank: 1F1B "
+          f"{sm['p3_max_abs_err']:.3g}, interleaved {sm['p3_interleaved_max_abs_err']:.3g} (tol "
+          f"{CPPP_SMALL_TOL}); async save after step 2, a fresh group resumed step 3 bit for bit; "
+          f"the tag at TP1 x PP1 equals the gathered params {sm['tp1_pp1_equals_gathered']}; "
+          f"flipped byte caught {sm['flipped_byte_caught']}; phase {st['phase_s']:.1f} s "
+          f"[{card}]", flush=True)
+    r = st["cp_ratio"]
+    print(f"cp ratio: measure_cp_ratio at seq {r['seq']}, cp {r['cp']}: SP rank (32/{r['tp']} "
+          f"heads over {r['seq']}) {r['sp_rank_ms']:.3f} ms, CP rank (32 heads over "
+          f"{r['seq'] // r['cp']}, zigzag ring steps) {r['cp_rank_ms']:.3f} ms, "
+          f"cp_vs_sp_throughput {r['cp_vs_sp_throughput']:.4f} ({r['note']}) [{card}]",
+          flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6456,6 +7535,13 @@ def main(argv=None) -> int:
     parser.add_argument("--dist-out", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dist-layers", type=int, default=DIST_LAYERS, help=argparse.SUPPRESS)
     parser.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
+    # one rank of phase 4m's (c1), (c2), (p1)-(p3), started by the phase itself
+    parser.add_argument("--cppp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--cppp-world", type=int, default=CPPP_WORLD, help=argparse.SUPPRESS)
+    parser.add_argument("--cppp-port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--cppp-out", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--cppp-dir", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--cppp-layers", type=int, default=CP_LAYERS, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6473,6 +7559,9 @@ def main(argv=None) -> int:
     if args.dist_rank is not None:
         return dist_child(args.dist_rank, args.dist_world, args.dist_port, args.dist_out,
                           args.dist_layers, args.dist_dir)
+    if args.cppp_rank is not None:
+        return cppp_child(args.cppp_rank, args.cppp_world, args.cppp_port, args.cppp_out,
+                          args.cppp_dir, cp_layers=args.cppp_layers)
     from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
     from neuronx_distributed_tpu_torch.kernels import _build
     from neuronx_distributed_tpu_torch.kernels.flash_attn import (
@@ -6965,6 +8054,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dist = run_dist_phase(dev, train_counters)
     print_dist(dist, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cp_pp = run_cp_pp_phase(dev, train_counters)
+    print_cp_pp(cp_pp, card)
 
     by_path = {"serve": stats["launches"], "serve_int8": int8["launches"],
                **{f"trace_{label}": st["launches"] for label, st in trace["passes"].items()},
@@ -6991,7 +8084,10 @@ def main(argv=None) -> int:
                **{f"train_{name}": v["launches"] for name, v in variants.items()},
                "dist_d0": dist["d0"]["launches"],
                **{f"dist_d1_rank{rk['rank']}": rk["d1"]["launches"]
-                  for rk in dist["d1"]["ranks"]}}
+                  for rk in dist["d1"]["ranks"]},
+               "cp_c0": cp_pp["c0"]["launches"], "pp_p0": cp_pp["p0"]["launches"],
+               **{f"{part}_rank{rk['rank']}": rk[part]["launches"]
+                  for part in ("c1", "p1", "p2") for rk in cp_pp["ranks"]}}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
                "fused_adamw": "fused_adamw_leaf", "w8a16_gemm": "w8a16_gemm"}
@@ -7030,7 +8126,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
                       "programs": eager, "speculation": spec, "medusa": medusa, "bundle": bundle,
                       "recovery": recovery, "tenants": tenants, "park": park, "fleet": fleet,
-                      "tp": tp, "dist": dist,
+                      "tp": tp, "dist": dist, "cp_pp": cp_pp,
                       "quant": quant,
                       "train_loop": loop, "train": tstats, "train_variants": variants,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,

@@ -42,7 +42,10 @@ replicated and written by rank 0. Rank ``r`` writes
 ``state/tensors.safetensors`` (rank 0) or ``state/tensors.rank{r}.safetensors``
 with its blocks, and ``state/index[.rank{r}].json`` with each block's global
 shape, offset and shape; rank 0 adds ``state/tree.json``, the structure and
-the non-tensor leaves (numbers, strings, None). :func:`load_checkpoint`
+the non-tensor leaves (numbers, strings, None). Under pipeline parallelism
+a leaf lives on one stage (under its global name: a layer by its global
+index, the VPP order undone), so each later stage's first rank adds its
+own structure, ``state/tree.rank{r}.json``, and a load merges them. :func:`load_checkpoint`
 assembles any block from the pieces that cover it, so a tag saved at one
 layout loads at another: ``target``'s layout (or, without one, the whole
 global tensors) decides. A ``torch.Generator`` leaf is saved as its state
@@ -117,6 +120,20 @@ def _tensor_name(rank: int) -> str:
 
 def _index_name(rank: int) -> str:
     return "index.json" if rank == 0 else f"index.rank{rank:05d}.json"
+
+
+def _tree_name(rank: int) -> str:
+    return _TREE if rank == 0 else f"tree.rank{rank:05d}.json"
+
+
+def _merge_skeleton(a: dict, b: dict) -> dict:
+    """The union of two stages' structures (``a``'s order first)."""
+    if "dict" in a and "dict" in b:
+        keys = dict(a["dict"])
+        for k, v in b["dict"]:
+            keys[k] = _merge_skeleton(keys[k], v) if k in keys else v
+        return {"dict": list(keys.items())}
+    return a
 
 
 # --------------------------------------------------------------- the tree
@@ -330,6 +347,8 @@ class _World:
     rank: int
     size: int
     store: Any
+    # writes a structure file: rank 0, and each later pipeline stage's first rank
+    stage_lead: bool = False
 
 
 def _world_size() -> int:
@@ -347,7 +366,8 @@ def _world() -> _World:
         st = mesh.get_state()
         if st.world_size > 1 and st.store is None:
             raise RuntimeError("the parallel state has no store to agree through")
-        return _World(st.rank, st.world_size, st.store)
+        lead = all(i == 0 for axis, i in st.coords().items() if axis != mesh.PP_AXIS)
+        return _World(st.rank, st.world_size, st.store, lead)
     if _world_size() > 1:
         raise NotImplementedError(
             "a checkpoint under a torch.distributed group of more than one rank needs the "
@@ -493,9 +513,9 @@ def save_checkpoint(checkpoint_dir: str, tag: str, state: Any,
             if tensors or lead:
                 save_safetensors(tensors, storage.abspath(f"{payload}/{_tensor_name(world.rank)}"))
                 storage.save_text(json.dumps(index), f"{payload}/{_index_name(world.rank)}")
-            if lead:
+            if lead or world.stage_lead:
                 storage.save_text(json.dumps({"skeleton": skeleton, "scalars": scalars}),
-                                  f"{payload}/{_TREE}")
+                                  f"{payload}/{_tree_name(world.rank)}")
         except Exception as e:  # noqa: BLE001 - every rank must still agree
             err = e
         # every rank's pieces durable before the completion marker; a rank
@@ -561,8 +581,13 @@ def load_checkpoint(checkpoint_dir: str, tag: Optional[str] = None, target: Any 
     if verify:
         verify_checkpoint(storage, tag)
     root = f"{tag}/{_PAYLOAD_DIR}"
+    files = storage.list_files(root)
     tree = json.loads(storage.load_text(f"{root}/{_TREE}"))
-    reader = _PieceReader(storage, root, storage.list_files(root))
+    for rel in sorted(f for f in files if f.startswith("tree.rank") and f.endswith(".json")):
+        stage = json.loads(storage.load_text(f"{root}/{rel}"))
+        tree["skeleton"] = _merge_skeleton(tree["skeleton"], stage["skeleton"])
+        tree["scalars"] = {**stage["scalars"], **tree["scalars"]}
+    reader = _PieceReader(storage, root, files)
     reader.scalars = {p: s["value"] for p, s in tree["scalars"].items() if "value" in s}
     if target is not None:
         state = _restore_into(target, "", reader, getattr(target, "layout", None) or {})

@@ -22,6 +22,11 @@ into the port's per-layer tree keyed by the port's weight names.
 Llama part as above plus each head's ``medusa_res_{i}`` (kernel and bias)
 and ``medusa_head_{i}`` (kernel) under the same names.
 
+``pipelined_llama_params_from_jax`` carries a JAX ``PipelinedLlama`` tree
+(``{"embed", "layers": {"block": stacked}, "final_norm", "lm_head"}``, the
+stacked axis in VPP order when ``num_chunks > 1``) to one stage's state
+dict under the ``LlamaForCausalLM`` names the port's stage uses.
+
 ``mixtral_params_from_jax`` carries a ``MixtralForCausalLM`` tree: the MoE
 block's ``moe/router/kernel`` and the expert tensors ``moe/experts/{gate,
 up,down}`` (stacked ``(L, E, ...)``) unstack like the rest.
@@ -37,7 +42,7 @@ experts.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -248,3 +253,44 @@ def medusa_params_from_jax(tree: Mapping[str, Any],
         out[f"medusa_head_{i}.kernel"] = torch.from_numpy(
             _get(tree, (f"medusa_head_{i}", "kernel")))
     return out
+
+
+def pipelined_llama_params_from_jax(tree: Mapping[str, Any], num_stages: int,
+                                    num_chunks: int = 1, stage: Optional[int] = None,
+                                    tp_rank: int = 0, tp_size: int = 1,
+                                    kv_size_multiplier: int = 1) -> Dict[str, torch.Tensor]:
+    """A JAX ``PipelinedLlama`` tree -> the state dict of the port's
+    ``PipelinedLlama`` stage ``stage`` (None: every stage's leaves, the
+    whole ``LlamaForCausalLM``), rank ``tp_rank``'s shards. The stacked
+    layers are put back in canonical order (JAX
+    ``canonical_layer_params``) and named by global index."""
+    from neuronx_distributed_tpu_torch.pipeline.engine import stage_layers, vpp_layer_order
+
+    if "params" in tree and "layers" not in tree:
+        tree = tree["params"]
+    block = _node(tree, ("layers", "block"))
+    num_layers = np.asarray(_node(block, ("input_norm", "scale"))).shape[0]
+    inv = np.argsort(vpp_layer_order(num_layers, num_stages, num_chunks))
+
+    def canonical(node):
+        if isinstance(node, Mapping):
+            return {k: canonical(v) for k, v in node.items()}
+        return np.asarray(node)[inv]
+
+    llama = {"model": {"embed": tree["embed"], "final_norm": tree["final_norm"],
+                       "layers": {"block": canonical(block)}},
+             "lm_head": tree["lm_head"]}
+    out = llama_params_from_jax(llama, tp_rank=tp_rank, tp_size=tp_size,
+                                kv_size_multiplier=kv_size_multiplier)
+    if stage is None:
+        return out
+    layers = {i for ids in stage_layers(num_layers, num_stages, num_chunks, stage) for i in ids}
+
+    def mine(name: str) -> bool:
+        if name.startswith("model.layers."):
+            return int(name.split(".")[2]) in layers
+        if name.startswith("model.embed."):
+            return stage == 0
+        return stage == num_stages - 1   # the final norm and the head
+
+    return {k: v for k, v in out.items() if mine(k)}

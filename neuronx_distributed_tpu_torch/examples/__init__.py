@@ -1,3 +1,4 @@
 """Training entry points a user runs: ``common`` (arguments, the learning
 rate schedule, ``train_loop``, ``maybe_resume``, synthetic batches) and
-``codegen25`` (FIM pretraining from token shards)."""
+``codegen25`` (FIM pretraining from token shards), ``llama2_tp_zero1``
+(TP + ZeRO-1 + SP) and ``llama2_tp_pp`` (TP x PP, BASELINE config #4)."""

@@ -23,8 +23,19 @@ while autograd records, never in decode mode) under ``remat_policy="full"``
 ``"attention"`` (JAX ``dots_with_no_batch_dims_saveable``: the outputs of
 the projection GEMMs are saved, everything else, the flash kernel
 included, recomputed), ``qkv_clip``, and LoRA training through the layers'
-``adapters`` (``lora/core.py``). Not ported yet: context parallelism
-(``context_parallel=True`` raises).
+``adapters`` (``lora/core.py``).
+
+Context parallelism (JAX ``llama.py:75-86, 386-395, 808-829, 888-891``):
+with ``context_parallel`` and a ``cp_group``, each rank's forward takes
+its block of the sequence (``parallel/mesh.py::context_seq_slice`` of the
+ids, permuted first under ``cp_layout="zigzag"``: JAX's caller applies
+``zigzag_indices`` too); RoPE runs at the block's true positions and
+attention is ``ops/ring_attention.py::ring_attention`` over the group.
+:meth:`LlamaForCausalLM.loss` is the mean over the global sequence: the
+rank's sum and count are summed over the group (the sum through an
+all-reduce region whose backward is the identity), so each rank's
+gradients are its share and the train step sums them over ``cp``.
+Sequence parallelism with CP raises, as in JAX.
 
 Sequence parallelism (JAX ``llama.py:822-829, 873-877``): with
 ``sequence_parallel`` under a group, the residual stream is cut along the
@@ -69,7 +80,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -109,7 +120,12 @@ from neuronx_distributed_tpu_torch.parallel.loss import (
     parallel_cross_entropy,
     parallel_cross_entropy_mean,
 )
-from neuronx_distributed_tpu_torch.parallel.mappings import gather_from_tensor_parallel_region
+from neuronx_distributed_tpu_torch.ops.ring_attention import _rank_positions, ring_attention
+from neuronx_distributed_tpu_torch.parallel.mappings import (
+    all_reduce_sum_,
+    gather_from_tensor_parallel_region,
+    reduce_from_tensor_parallel_region,
+)
 from neuronx_distributed_tpu_torch.parallel.mesh import group_rank, group_size
 
 
@@ -166,9 +182,14 @@ class LlamaConfig:
     lora_slots: int = 0
     lora_targets: Tuple[str, ...] = ("qkv", "o_proj", "gate_proj", "up_proj", "down_proj")
     # training layouts under a tensor-parallel group: the residual stream
-    # cut along the sequence (Megatron SP); context parallelism is not ported
+    # cut along the sequence (Megatron SP); ring-attention context
+    # parallelism over a cp group, the sequence cut contiguously or zigzag
+    # ("zigzag": the caller permutes ids/labels by
+    # ops.ring_attention.zigzag_indices(seq, cp); every rank then does the
+    # same causal work)
     sequence_parallel: bool = False
     context_parallel: bool = False
+    cp_layout: str = "contiguous"
 
     @property
     def head_dim_(self) -> int:
@@ -496,6 +517,8 @@ class LlamaAttention(nn.Module):
                                         dtype=cfg.dtype, param_dtype=cfg.param_dtype,
                                         device=device, group=group,
                                         sequence_parallel=cfg.sequence_parallel)
+        # the context-parallel group (set by LlamaModel under context_parallel)
+        self.cp_group = None
 
     def forward(self, x, rope, cache: Optional[KVCache] = None, layer: int = 0, lora=None,
                 chunk_ctx=None):
@@ -517,6 +540,11 @@ class LlamaAttention(nn.Module):
         cos, sin = rope
         q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
         s = q.shape[1]   # the whole sequence (x is the rank's shard under SP)
+        if cfg.context_parallel:   # s is the rank's block of the sequence
+            o = ring_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               causal=True, group=self.cp_group, layout=cfg.cp_layout,
+                               block_q=cfg.attention_block_q, block_k=cfg.attention_block_k)
+            return self._o_proj(o.transpose(1, 2).reshape(x.shape[0], s, -1), lora)
         blk_q, blk_k = cfg.blocks_for(s)
         o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
                       use_flash=cfg.use_flash_attention and flash_supported(s, s, blk_q, blk_k),
@@ -688,19 +716,24 @@ class LlamaModel(nn.Module):
     """Embedding + decoder stack + final norm over ``(batch, seq, hidden)``.
     ``layer_cls`` is the decoder block (JAX ``llama.py:759-798``: the Mixtral
     family swaps in its MoE block), a class attribute a subclass sets or an
-    argument. ``group``: the tensor-parallel group (None: one device)."""
+    argument. ``group``: the tensor-parallel group (None: one device);
+    ``cp_group``: the context-parallel group under ``context_parallel``
+    (None: one rank holds the whole sequence)."""
 
     layer_cls = LlamaDecoderLayer
 
-    def __init__(self, config: LlamaConfig, device=None, layer_cls=None, group=None):
+    def __init__(self, config: LlamaConfig, device=None, layer_cls=None, group=None,
+                 cp_group=None):
         super().__init__()
         cfg = self.config = config
         layer_cls = layer_cls or self.layer_cls
         if cfg.context_parallel:
             if cfg.sequence_parallel:
                 raise ValueError("sequence_parallel and context_parallel are exclusive")
-            raise NotImplementedError("context parallelism (ring attention) is not ported yet "
-                                      "(ROADMAP queue A)")
+            if cfg.decode:
+                raise ValueError("context_parallel is a training layout; decode mode does not "
+                                 "take it")
+        self.cp_group = cp_group if cfg.context_parallel else None
         if cfg.sequence_parallel and cfg.decode:
             raise ValueError("sequence_parallel is a training layout; decode mode does not "
                              "take it")
@@ -712,6 +745,8 @@ class LlamaModel(nn.Module):
                                        sequence_parallel=sp)
         self.layers = nn.ModuleList(layer_cls(cfg, device, group=group)
                                     for _ in range(cfg.num_layers))
+        for layer in self.layers:
+            layer.attention.cp_group = self.cp_group
         self.final_norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, dtype=cfg.dtype,
                                   param_dtype=cfg.param_dtype, device=device,
                                   sequence_parallel=sp, group=group)
@@ -741,8 +776,7 @@ class LlamaModel(nn.Module):
         x = self.embed(input_ids)
         rope = None
         if not cfg.decode:
-            positions = torch.arange(input_ids.shape[1], dtype=torch.int32,
-                                     device=input_ids.device)
+            positions = self.positions(input_ids.shape[1], input_ids.device)
             rope = rotary_embedding(positions, cfg.head_dim_, cfg.rope_theta, dtype=x.dtype,
                                     scaling=cfg.rope_scaling)
         remat = _remat(cfg)
@@ -766,6 +800,15 @@ class LlamaModel(nn.Module):
             cache.cache_index.add_(input_ids.shape[1])
         return self.final_norm(x)
 
+    def positions(self, s: int, device=None) -> torch.Tensor:
+        """The true positions of a forward's ``s`` tokens: ``0 .. s-1``, or
+        under context parallelism the rank's block of the global sequence
+        (zigzag: its two chunks)."""
+        if not self.config.context_parallel:
+            return torch.arange(s, dtype=torch.int32, device=device)
+        cp = group_size(self.cp_group)
+        return _rank_positions(group_rank(self.cp_group), cp, s, self.config.cp_layout, device)
+
 
 class LlamaForCausalLM(nn.Module):
     """Model + LM head (tied to the embedding when ``tie_word_embeddings``).
@@ -775,10 +818,11 @@ class LlamaForCausalLM(nn.Module):
 
     layer_cls = LlamaDecoderLayer
 
-    def __init__(self, config: LlamaConfig, device=None, group=None):
+    def __init__(self, config: LlamaConfig, device=None, group=None, cp_group=None):
         super().__init__()
         cfg = self.config = config
-        self.model = LlamaModel(cfg, device, layer_cls=self.layer_cls, group=group)
+        self.model = LlamaModel(cfg, device, layer_cls=self.layer_cls, group=group,
+                                cp_group=cp_group)
         self.tp = self.model.tp
         if not cfg.tie_word_embeddings:
             self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size,
@@ -814,12 +858,14 @@ class LlamaForCausalLM(nn.Module):
         checkpointing, so only one chunk's logits are alive at a time; a
         sequence that the chunk does not divide ends with a short chunk.
         Under a tensor-parallel group the logits stay vocab-sharded and the
-        cross entropy reduces over the whole vocabulary through the group."""
+        cross entropy reduces over the whole vocabulary through the group.
+        Under context parallelism ``input_ids``/``labels`` are the rank's
+        block and the mean is over the global sequence."""
         x = self._hidden(input_ids)
-        group = self.model.group
+        group, cp_group = self.model.group, self.model.cp_group
         s = labels.shape[1]
         chunk = self.config.loss_chunk_size or 4096
-        if s <= chunk:
+        if s <= chunk and cp_group is None:
             return parallel_cross_entropy_mean(self._head(x), labels, ignore_index=ignore_index,
                                                group=group)
 
@@ -830,10 +876,18 @@ class LlamaForCausalLM(nn.Module):
 
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         count = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(0, s, chunk):
-            sl, cn = checkpoint(chunk_loss, x[:, i:i + chunk], labels[:, i:i + chunk],
-                                use_reentrant=False)
-            total, count = total + sl, count + cn
+        if s <= chunk:
+            total, count = chunk_loss(x, labels)
+        else:
+            for i in range(0, s, chunk):
+                sl, cn = checkpoint(chunk_loss, x[:, i:i + chunk], labels[:, i:i + chunk],
+                                    use_reentrant=False)
+                total, count = total + sl, count + cn
+        if cp_group is not None:
+            # the global sum and count; the sum's backward is the identity,
+            # so each rank's gradients are its tokens' share
+            total = reduce_from_tensor_parallel_region(total.reshape(1), cp_group).reshape(())
+            count = all_reduce_sum_(count.detach().reshape(1).clone(), cp_group).reshape(())
         return total / torch.clamp(count, min=1.0)
 
     def new_cache(self, batch: int, device=None, cache_index: Optional[torch.Tensor] = None,
@@ -877,7 +931,7 @@ def page_storage_dtype(config: LlamaConfig) -> torch.dtype:
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
                 device=None, model_cls=None, quantize=None, tp_rank: int = 0,
-                tp_size: int = 1) -> dict:
+                tp_size: int = 1, keep: Optional[Callable[[str], bool]] = None) -> dict:
     """Random weights from a seeded generator, in each weight's storage dtype
     (``param_dtype``; a router's is fp32), as a state dict for ``model_cls``
     (default :class:`LlamaForCausalLM`): kernels normal with std
@@ -888,7 +942,9 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     time. ``tp_rank``/``tp_size``: rank ``tp_rank``'s shard of the same
     global weights (each drawn whole, then cut, one at a time: JAX
     initialises the global array and shards it), the state dict of that
-    rank's model."""
+    rank's model. ``keep``: only the leaves whose name it accepts are
+    returned; the others are still drawn, one at a time, and dropped, so a
+    pipeline stage gets the same values as the whole model."""
     from neuronx_distributed_tpu_torch.quantization.core import quantize_leaf
 
     model_cls = model_cls or LlamaForCausalLM
@@ -902,9 +958,13 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     for name, p in meta.items():
         shape = tuple(p.shape)
         if name.endswith(".scale"):
-            out[name] = torch.ones(shape, dtype=p.dtype, device=device)
+            if keep is None or keep(name):
+                out[name] = torch.ones(shape, dtype=p.dtype, device=device)
             continue
         t = torch.randn(shape, generator=generator, dtype=p.dtype, device=device)
+        if keep is not None and not keep(name):
+            del t
+            continue
         if not name.endswith("embedding"):
             t.mul_(1.0 / math.sqrt(shape[-2] if ".experts." in name else shape[0]))
         if specs.get(name):

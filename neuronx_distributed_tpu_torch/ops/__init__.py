@@ -1,1 +1,1 @@
-"""Attention dispatch."""
+"""Attention dispatch and ring attention (context parallelism)."""

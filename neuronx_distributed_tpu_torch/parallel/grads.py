@@ -7,8 +7,9 @@ is a plain sum; here each rank holds pieces, so :func:`get_grad_norm` takes
 the layout: a leaf named in ``tp_sharded`` is a tensor-parallel shard (its
 squares summed over TP), one named in ``dp_sharded`` a ZeRO-1 shard
 reduce-scattered over DP (summed over DP); every other leaf is replicated
-along that axis and counted once, on the axis's rank 0. The inf norm takes
-a MAX over both. Every result stays a device tensor: nothing is read back
+along that axis and counted once, on the axis's rank 0. Under pipeline
+parallelism each leaf lives on one stage, so the sum also runs over the
+``pp_group``. The inf norm takes a MAX over every group. Every result stays a device tensor: nothing is read back
 to the host.
 """
 
@@ -25,18 +26,19 @@ Tree = Mapping[str, torch.Tensor]
 
 
 def get_grad_norm(grads: Tree, norm_type: float = 2.0, *, tp_group=None, dp_group=None,
-                  tp_sharded: Collection[str] = (),
+                  pp_group=None, tp_sharded: Collection[str] = (),
                   dp_sharded: Collection[str] = ()) -> torch.Tensor:
     """Global gradient norm in fp32 (the p-norm over every element of the
     global gradients, or the largest magnitude for ``inf``), the same on
     every rank. Without groups: the single-device norm."""
     leaves = list(grads.items())
+    groups = (tp_group, dp_group, pp_group)
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
     if norm_type == float("inf"):
         out = torch.stack([g.float().abs().amax() for _, g in leaves]).amax().reshape(1)
-        all_reduce_max_(out, tp_group)
-        all_reduce_max_(out, dp_group)
+        for group in groups:
+            all_reduce_max_(out, group)
         return out.reshape(())
     tp_rank, dp_rank = ps.group_rank(tp_group), ps.group_rank(dp_group)
     # a replicated piece counts on its axis's rank 0 only
@@ -44,10 +46,10 @@ def get_grad_norm(grads: Tree, norm_type: float = 2.0, *, tp_group=None, dp_grou
              if (n in tp_sharded or tp_rank == 0) and (n in dp_sharded or dp_rank == 0)]
     total = (torch.stack(parts).sum() if parts
              else torch.zeros((), dtype=torch.float32, device=leaves[0][1].device))
-    if tp_group is not None or dp_group is not None:
+    if any(g is not None for g in groups):
         total = total.reshape(1)
-        all_reduce_sum_(total, tp_group)
-        all_reduce_sum_(total, dp_group)
+        for group in groups:
+            all_reduce_sum_(total, group)
         total = total.reshape(())
     return total ** (1.0 / norm_type)
 

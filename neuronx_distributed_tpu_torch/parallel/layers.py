@@ -322,9 +322,12 @@ class GQAQKVColumnParallelLinear(_Sharded):
             self.v_bias = _param((stored_kv, head_dim), param_dtype, device)
 
     def _kv_heads(self, t: torch.Tensor, axis: int) -> torch.Tensor:
-        """The rank's KV heads of a compact (replicated) tensor."""
+        """The rank's KV heads of a compact (replicated) tensor. A rank uses
+        only its heads of it, so its gradient is a partial sum: it enters
+        through the copy region, whose backward all-reduces it."""
         if self.kv_size_multiplier == 1:
             return t
+        t = copy_to_tensor_parallel_region(t, self.group)
         t = t.repeat_interleave(self.kv_size_multiplier, dim=axis)
         n = self.num_kv_heads
         return t.narrow(axis, self.tp_rank * n, n)

@@ -24,8 +24,19 @@ collectives with the same conjugates; ``all_reduce_sum_`` and
 vocab-parallel loss, the gradient norm, the data-parallel reduction).
 Every function takes the group (``None`` is no group: the identity, no
 collective) and issues its collective at every group size, 1 included, so
-a degree-1 group really runs its backend. The expert all-to-all and the
-pipeline's p2p sends are not here yet.
+a degree-1 group really runs its backend. The expert all-to-all is not
+here yet.
+
+Point to point (JAX ``mappings.py:128-140``): :func:`ppermute_next` and
+:func:`ppermute_prev` send each rank's tensor one step round the group
+(``wrap=False``: the end rank sends nothing and rank 0, or the last rank,
+receives zeros), as autograd regions whose backward permutes the other
+way; :func:`isend`/:func:`recv` are the plain pair the pipeline matches
+rank against rank. Each transfer carries a tag, so a receive matches its
+send whatever else is in flight between the two ranks. Gloo's send and
+receive read a host pointer, so a CUDA tensor goes through a host buffer
+on gloo: one device-to-host copy a send and one host-to-device copy a
+receive, counted as ``p2p_staging``.
 
 Both backends take CUDA tensors as they are (gloo copies through the
 host itself, and cannot run inside a CUDA graph capture; NCCL can).
@@ -36,7 +47,7 @@ bytes of its input (``reset_collective_stats`` zeroes it).
 from __future__ import annotations
 
 import threading
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -51,7 +62,8 @@ _STATS = threading.local()
 def collective_stats() -> Dict[str, List[int]]:
     """This thread's collectives since the last reset: kind -> ``[calls,
     bytes]`` (``all_reduce``, ``all_reduce_max``, ``all_gather``,
-    ``reduce_scatter``)."""
+    ``reduce_scatter``, ``send``, ``recv``, ``p2p_staging``: the host
+    copies of CUDA tensors on gloo)."""
     if not hasattr(_STATS, "table"):
         _STATS.table = {}
     return _STATS.table
@@ -268,3 +280,97 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _Reduce.apply(x, group)
+
+
+# --- point to point (JAX mappings.py:128-140) -------------------------------
+
+def _staged(t: torch.Tensor, group) -> bool:
+    from neuronx_distributed_tpu_torch.parallel.mesh import group_backend
+
+    return t.is_cuda and group_backend(group) == "gloo"
+
+
+class P2PWork:
+    """A transfer in flight: :meth:`wait` blocks until it completed and
+    returns the received tensor (a receive) or None (a send). Holds the
+    buffers the transfer reads or writes until then."""
+
+    def __init__(self, work, buf: torch.Tensor, out: Optional[torch.Tensor] = None):
+        self._work, self._buf, self._out = work, buf, out
+
+    def wait(self) -> Optional[torch.Tensor]:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        if self._out is not None and self._out is not self._buf:
+            _count("p2p_staging", self._buf)
+            self._out.copy_(self._buf)
+        return self._out
+
+
+def isend(t: torch.Tensor, peer: int, group, tag: int = 0) -> P2PWork:
+    """Start sending ``t`` to the group rank ``peer``; the returned work's
+    ``wait`` ends it (``t`` may change once it returned)."""
+    buf = t.contiguous()
+    if _staged(buf, group):
+        _count("p2p_staging", buf)
+        buf = buf.to("cpu")
+    _count("send", buf)
+    return P2PWork(group.send([buf], peer, tag), buf)
+
+
+def irecv(shape, dtype: torch.dtype, device, peer: int, group, tag: int = 0) -> P2PWork:
+    """Start receiving a tensor of ``shape``/``dtype`` on ``device`` from
+    the group rank ``peer``; ``wait`` returns it."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    buf = torch.empty(shape, dtype=dtype) if _staged(out, group) else out
+    _count("recv", buf)
+    return P2PWork(group.recv([buf], peer, tag), buf, out)
+
+
+def recv(shape, dtype: torch.dtype, device, peer: int, group, tag: int = 0) -> torch.Tensor:
+    """Receive a tensor from the group rank ``peer`` (blocking)."""
+    return irecv(shape, dtype, device, peer, group, tag).wait()
+
+
+def _permute(x: torch.Tensor, group, step: int, wrap: bool) -> torch.Tensor:
+    """Each rank's ``x`` moved ``step`` (+1 or -1) ranks round the group;
+    without ``wrap`` the rank past the end receives zeros."""
+    n, r = group_size(group), group_rank(group)
+    dst, src = (r + step) % n, (r - step) % n
+    sends = wrap or 0 <= r + step < n
+    recvs = wrap or 0 <= r - step < n
+    if n == 1:
+        return x.clone() if wrap else torch.zeros_like(x)
+    pending = irecv(x.shape, x.dtype, x.device, src, group, _PERMUTE_TAG) if recvs else None
+    sent = isend(x, dst, group, _PERMUTE_TAG) if sends else None
+    out = pending.wait() if pending is not None else torch.zeros_like(x)
+    if sent is not None:
+        sent.wait()
+    return out
+
+
+# ring permutes share one tag: a pair of ranks exchanges them in one order
+_PERMUTE_TAG = 1 << 20
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, step, wrap):
+        ctx.group, ctx.step, ctx.wrap = group, step, wrap
+        return _permute(x, group, step, wrap)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g.contiguous(), ctx.group, -ctx.step, ctx.wrap), None, None, None
+
+
+def ppermute_next(x: torch.Tensor, group, wrap: bool = True) -> torch.Tensor:
+    """Rank ``r``'s ``x`` arrives at rank ``r + 1`` (JAX ``ppermute_next``);
+    the gradient travels back to ``r``."""
+    return x if group is None else _Permute.apply(x, group, 1, wrap)
+
+
+def ppermute_prev(x: torch.Tensor, group, wrap: bool = True) -> torch.Tensor:
+    """Rank ``r``'s ``x`` arrives at rank ``r - 1`` (JAX ``ppermute_prev``)."""
+    return x if group is None else _Permute.apply(x, group, -1, wrap)

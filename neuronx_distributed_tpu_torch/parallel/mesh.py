@@ -256,7 +256,6 @@ def data_parallel_rank() -> int:
     return _require_state().coords()["dp"]
 
 
-
 def local_mesh_coords() -> Dict[str, int]:
     """This rank's position on every axis, ``dp`` the combined one (JAX
     ``local_mesh_coords``)."""
@@ -279,18 +278,49 @@ def data_batch_slice(global_batch_size: int) -> slice:
     return slice(r * per, (r + 1) * per)
 
 
-def require_trainable_layout() -> None:
-    """Raise for the degrees the port's training line does not take yet:
-    pipeline and context parallelism."""
-    st = _state()
-    if st is None:
-        return
-    for name, n in (("pipeline", st.pipeline_model_parallel_size),
-                    ("context", st.context_parallel_size)):
-        if n > 1:
-            raise NotImplementedError(
-                f"{name} parallel degree {n}: {name} parallelism is not ported yet "
-                f"(ROADMAP queue A)")
+def context_parallel_rank() -> int:
+    return _require_state().coords()[CP_AXIS]
+
+
+def get_context_parallel_group():
+    return _require_state().groups[CP_AXIS]
+
+
+def pipeline_model_parallel_rank() -> int:
+    """This rank's stage (its position along ``pp``)."""
+    return _require_state().coords()[PP_AXIS]
+
+
+def get_pipeline_model_parallel_group():
+    return _require_state().groups[PP_AXIS]
+
+
+def pipeline_next_stage() -> Optional[int]:
+    """The next stage's rank in the pp group (None on the last stage)."""
+    r = pipeline_model_parallel_rank()
+    return r + 1 if r + 1 < get_pipeline_model_parallel_size() else None
+
+
+def pipeline_prev_stage() -> Optional[int]:
+    """The previous stage's rank in the pp group (None on the first)."""
+    r = pipeline_model_parallel_rank()
+    return r - 1 if r > 0 else None
+
+
+def context_seq_slice(seq_len: int) -> slice:
+    """The rank's contiguous block of a global sequence under CP: the
+    counterpart of GSPMD's ``cp`` sharding of the sequence dim (JAX
+    ``ACT_CP``). Under ``cp_layout="zigzag"`` the caller has permuted the
+    sequence first (``ops.ring_attention.zigzag_indices``); the block is
+    still the rank's contiguous one of the permuted sequence. Off-mesh:
+    the whole sequence."""
+    if not model_parallel_is_initialized():
+        return slice(0, seq_len)
+    cp, r = get_context_parallel_size(), context_parallel_rank()
+    if seq_len % cp:
+        raise ValueError(f"global seq {seq_len} not divisible by cp={cp}")
+    per = seq_len // cp
+    return slice(r * per, (r + 1) * per)
 
 
 def rmsg(msg: str) -> str:

@@ -16,9 +16,14 @@ one global init: ``init_params`` draws every leaf whole and cuts the rank's
 slice, and a given global state dict is sliced the same way (a dict of the
 rank's shards is taken as it is), so every layout trains the same weights.
 Data parallelism (``dp = edp * ep``, a dense model) needs nothing here: the
-train step reduces the gradients over it. Pipeline and context parallelism
-raise by name (ROADMAP queue A), and so does LoRA under a tensor-parallel
-degree above 1.
+train step reduces the gradients over it. Context parallelism (JAX
+``:110-117``): a mesh with ``cp > 1`` (or the config's
+``context_parallel_size`` when this call makes the mesh) sets the model's
+``context_parallel``, and the module is built with the mesh's cp group;
+the step sums the gradients over it. Pipeline parallelism takes a
+``models.llama_pipeline.PipelinedLlama`` (its ``as_parallel_model``), not
+this function. LoRA under a tensor-parallel degree above 1 raises by
+name.
 
 LoRA (JAX ``trainer/model.py:39-86, 137-184``): with a ``lora_config`` the
 base weights stay frozen (``requires_grad=False``: no gradient, no
@@ -76,6 +81,11 @@ class ParallelModel:
     seed: int = 0
     # the tensor-parallel group the module was built with (None: one rank)
     group: Any = None
+    # the context-parallel group (None: no CP): the step sums gradients over it
+    cp_group: Any = None
+    # the pipeline-parallel group (None: no PP): a PipelinedLlama's stage;
+    # the grad norm sums over it
+    pp_group: Any = None
     lora_config: Optional[LoraConfig] = None
     lora_leaves: Optional[Dict[str, torch.Tensor]] = None
     lora_specs: Optional[Dict[str, Dict[str, tuple]]] = None
@@ -139,17 +149,18 @@ def _rebind(targets: Mapping[str, torch.Tensor], params: Mapping[str, torch.Tens
 
 
 def _apply_config_overrides(module: nn.Module, nxd_config: Dict[str, Any],
-                            group=None) -> nn.Module:
+                            group=None, cp_group=None) -> nn.Module:
     """Apply the keys the user set explicitly (compute and param dtype,
-    activation checkpointing, sequence parallelism) to the module's
-    dataclass config, rebuilding it as ``type(module)(new_config)``
-    (``group=group`` under tensor parallelism); defaults never override a
-    model's own choice."""
+    activation checkpointing, sequence parallelism) and context parallelism
+    (on whenever the mesh has ``cp > 1``) to the module's dataclass config,
+    rebuilding it as ``type(module)(new_config)`` (``group=group`` under
+    tensor parallelism, ``cp_group=cp_group`` under context parallelism);
+    defaults never override a model's own choice."""
     cfg = getattr(module, "config", None)
     if cfg is None or not dataclasses.is_dataclass(cfg):
-        if group is not None:
+        if group is not None or cp_group is not None:
             raise ValueError(f"{type(module).__name__} has no dataclass config to rebuild "
-                             f"it over a tensor-parallel group")
+                             f"it over a parallel group")
         return module
     over: Dict[str, Any] = {}
     mp = nxd_config.get("mixed_precision_config", {})
@@ -162,26 +173,31 @@ def _apply_config_overrides(module: nn.Module, nxd_config: Dict[str, Any],
         over["remat_policy"] = ac
     if explicit.get("sequence_parallel") and hasattr(cfg, "sequence_parallel"):
         over["sequence_parallel"] = bool(nxd_config.get("sequence_parallel"))
+    if cp_group is not None and hasattr(cfg, "context_parallel"):
+        # keyed on the mesh's cp, not the config's: a cp axis without ring
+        # attention would run the whole forward on every rank
+        over["context_parallel"] = True
     if not over and group is None:
         return module
     new_cfg = dataclasses.replace(cfg, **over)
-    return type(module)(new_cfg) if group is None else type(module)(new_cfg, group=group)
+    kw = {}
+    if group is not None:
+        kw["group"] = group
+    if cp_group is not None:
+        kw["cp_group"] = cp_group
+    return type(module)(new_cfg, **kw)
 
 
 def _mesh(nxd_config: Dict[str, Any]) -> None:
     """The current mesh, or one made from the config's degrees over the
-    default group; pipeline and context parallelism raise."""
+    default group."""
     degrees = {k: int(nxd_config.get(k, 1)) for k in _DEGREES}
-    for key, what in (("pipeline_parallel_size", "pipeline"),
-                      ("context_parallel_size", "context")):
-        if degrees[key] > 1:
-            raise NotImplementedError(f"{key}={degrees[key]}: {what} parallelism is not "
-                                      f"ported yet (ROADMAP queue A)")
     if not ps.model_parallel_is_initialized() and any(v != 1 for v in degrees.values()):
         ps.initialize_model_parallel(
             tensor_model_parallel_size=degrees["tensor_parallel_size"],
-            expert_model_parallel_size=degrees["expert_parallel_size"])
-    ps.require_trainable_layout()
+            pipeline_model_parallel_size=degrees["pipeline_parallel_size"],
+            expert_model_parallel_size=degrees["expert_parallel_size"],
+            context_parallel_size=degrees["context_parallel_size"])
 
 
 def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[], nn.Module],
@@ -199,13 +215,15 @@ def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[]
     tp = ps.get_tensor_model_parallel_size() if on_mesh else 1
     tp_rank = ps.tensor_model_parallel_rank() if on_mesh else 0
     group = ps.get_tensor_model_parallel_group() if tp > 1 else None
+    cp = ps.get_context_parallel_size() if on_mesh else 1
+    cp_group = ps.get_context_parallel_group() if cp > 1 else None
     lora_cfg = nxd_config.get("lora_config")
     if lora_cfg is not None and group is not None:
         raise NotImplementedError("LoRA under a tensor-parallel degree above 1 is not ported "
                                   "yet (ROADMAP queue A); data parallelism takes it")
     dev = resolve_device(device)
     with torch.device("meta"):
-        module = _apply_config_overrides(module_fn(), nxd_config, group)
+        module = _apply_config_overrides(module_fn(), nxd_config, group, cp_group)
     shapes = module.state_dict()
     seed = nxd_config.get("model_init_config", {}).get("seed", 0)
     if params is None:
@@ -224,7 +242,7 @@ def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[]
                  for n in shapes}
     module.load_state_dict(state, strict=True, assign=True)
     module.requires_grad_(lora_cfg is None)
-    model = ParallelModel(module=module, device=dev, seed=seed, group=group,
+    model = ParallelModel(module=module, device=dev, seed=seed, group=group, cp_group=cp_group,
                           params={n: p.detach() for n, p in module.named_parameters()})
     if lora_cfg is not None:
         if isinstance(lora_cfg, dict):

@@ -37,6 +37,15 @@ reference's mean of per-rank means; equal to JAX's global mean when the
 ranks count the same tokens). A state made by :func:`create_train_state`
 on a world of several ranks carries its ``layout`` (leaf path ->
 ``checkpoint.core.Piece``) for the multi-rank checkpoint.
+
+Context parallelism: each rank's gradients are its tokens' share (the
+loss is the global mean), so they are summed over the cp group before the
+DP reduction: JAX's ``DP_AXES`` leave cp out of ZeRO while GSPMD still
+reduces over it. ZeRO-1 shards over DP only. Pipeline parallelism: a
+``PipelinedLlama`` stage's loss runs the whole schedule, its backward
+included, and its gradients are the stage's; every leaf lives on one
+stage, so the clip norm sums the squares over the pp group, and every
+rank clips by the same scale and reports the last stage's loss.
 """
 
 from __future__ import annotations
@@ -82,15 +91,18 @@ def _state_layout(optimizer: NxDOptimizer, params: Tree,
     on one rank): a param is its TP shard, written by its data-parallel
     rank 0; a state leaf its ZeRO-1 slice of that shard, written by its own
     rank (or, not DP-sharded, like its param); a TP-replicated leaf is
-    written by its tensor-parallel rank 0."""
+    written by its tensor-parallel rank 0, and every leaf by context-parallel
+    rank 0 (the cp ranks hold the same state). Under pipeline parallelism a
+    leaf lives on one stage, under its global name."""
     if not ps.model_parallel_is_initialized() or ps.get_world_size() == 1:
         return None
     plan = optimizer.zero1_plan
+    cp_own = ps.context_parallel_rank() == 0
     out: Dict[str, Piece] = {}
     for n, p in params.items():
         shape = tuple(p.shape)
         glob = plan.global_shape(n, shape)
-        tp_own = plan.tp_dim(n) is not None or plan.tp_rank == 0
+        tp_own = (plan.tp_dim(n) is not None or plan.tp_rank == 0) and cp_own
         out[f".params['{n}']"] = Piece(glob, plan.param_offset(n, shape),
                                        tp_own and plan.dp_rank == 0)
         zero = plan.dims.get(n) is not None and plan.dp > 1
@@ -140,7 +152,7 @@ def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
     # in the trainable tree's order: every rank issues the collectives alike
     # (a set's order varies from process to process)
     zero = [n for n in names if plan.dims.get(n) is not None] if plan.sharded else []
-    layout = dict(tp_group=model.group, dp_group=dp_group,
+    layout = dict(tp_group=model.group, dp_group=dp_group, pp_group=model.pp_group,
                   tp_sharded={n for n in names if plan.tp_dim(n) is not None},
                   dp_sharded=set(zero))
     # each ZeRO leaf's shard of the new params, written by the update and
@@ -210,6 +222,10 @@ def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
             del acc
         else:
             loss, grads = value_and_grad(state.params, batch, rng)
+        if model.cp_group is not None:
+            # each cp rank holds its tokens' share: the gradient is the sum
+            grads = {n: all_reduce_sum_(g.contiguous(), model.cp_group)
+                     for n, g in grads.items()}
         if dp_group is not None:
             loss, grads = reduce_over_dp(loss, grads)
         metrics = {"loss": loss}

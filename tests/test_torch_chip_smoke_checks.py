@@ -1361,3 +1361,69 @@ def test_dist_gates_catch_each_fault(smoke, fault, says):
         rk["d1"]["launches"]["fused_adamw_leaf"] = 60
     problems = smoke.dist_gates(d0, d1)
     assert any(says in p for p in problems), problems
+
+
+def _cppp_run():
+    """A fabricated phase-4m reading that passes every gate: (c0), (p0) and
+    four ranks at CP 2 x TP 2, then TP 2 x PP 2."""
+    c0 = {"steps": [{"loss": 10.0 - i, "grad_norm": 1.0} for i in range(3)]}
+    p0 = {"loss": 10.5}
+    launches = {"flash_block_forward": 8, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4,
+                "fused_adamw_leaf": 90}
+    ranks = []
+    for r in range(4):
+        stage = r // 2
+        ranks.append({
+            "rank": r, "p1_stage": stage, "p2_stage": stage,
+            "c1": {"steps": [{"loss": (10.0 - i) * 1.002} for i in range(3)],
+                   "launches": dict(launches), "collectives": {"send": [40, 10], "recv": [40, 10]}},
+            "p1": {"steps": [{"loss": 10.5 * 1.003 - i, "stash_peak": 2 - stage,
+                              "sends_peak": 2 - stage} for i in range(3)],
+                   "launches": dict(launches)},
+            "p2": {"steps": [{"loss": (10.5 * 1.003 - i) * 1.001, "stash_peak": 4,
+                              "sends_peak": 3} for i in range(3)],
+                   "launches": dict(launches)}})
+    return c0, p0, ranks
+
+
+def test_cppp_gates_hold_on_a_good_run(smoke):
+    c0, p0, ranks = _cppp_run()
+    assert smoke.cppp_gates(c0, p0, ranks) == []
+    assert abs(c0["c1_loss_max_rel_diff"] - 2e-3) < 1e-9
+    assert abs(p0["p1_loss_rel_diff"] - 3e-3) < 1e-9
+
+
+@pytest.mark.parametrize("fault,says", [
+    ("c1_loss", "(c1) losses differ from (c0)'s"), ("p1_loss", "(p1)'s step-1 loss"),
+    ("p2_loss", "(p2) losses differ from (p1)'s"), ("b3", "never launched flash_bwd_dq in (p2)"),
+    ("b4", "never launched fused_adamw_leaf in (c1)"), ("ring", "sent nothing round the ring"),
+    ("stash", "stashed more than pp - stage"), ("sends", "held more than pp - stage sends"),
+    ("steps", "ran 2 p1 steps"),
+    ("ranks", "c1 losses differ from rank 0's")])
+def test_cppp_gates_catch_each_fault(smoke, fault, says):
+    c0, p0, ranks = _cppp_run()
+    rk = ranks[3]
+    if fault == "c1_loss":
+        for r in ranks:
+            r["c1"]["steps"][2]["loss"] *= 1.02
+    elif fault == "p1_loss":
+        p0["loss"] *= 0.97
+    elif fault == "p2_loss":
+        for r in ranks:
+            r["p2"]["steps"][1]["loss"] *= 1.03
+    elif fault == "b3":
+        rk["p2"]["launches"]["flash_bwd_dq"] = 0
+    elif fault == "b4":
+        rk["c1"]["launches"]["fused_adamw_leaf"] = 0
+    elif fault == "ring":
+        rk["c1"]["collectives"] = {}
+    elif fault == "stash":
+        rk["p1"]["steps"][0]["stash_peak"] = 2
+    elif fault == "sends":
+        rk["p1"]["steps"][1]["sends_peak"] = 2
+    elif fault == "steps":
+        rk["p1"]["steps"].pop()
+    else:
+        rk["c1"]["steps"][0]["loss"] += 1e-4
+    problems = smoke.cppp_gates(c0, p0, ranks)
+    assert any(says in p for p in problems), problems

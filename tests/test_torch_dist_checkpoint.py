@@ -12,7 +12,11 @@ pieces.
   as the straight run;
 * a flipped byte in one rank's piece fails ``verify=True``;
 * ``convert_zero_checkpoints --params-only`` writes the global params as
-  one rank (JAX ``tests/test_checkpoint.py:392``).
+  one rank (JAX ``tests/test_checkpoint.py:392``);
+* a ``PipelinedLlama`` state saved at TP2 x PP2 (and with two VPP chunks
+  a stage), where each leaf lives on one stage under its global name,
+  resumes bit for bit, loads at TP1 x PP1 on one rank (each leaf whole,
+  every rank's block equal to it) and back into TP2 x PP2.
 """
 
 import os
@@ -25,6 +29,7 @@ import torch
 from neuronx_distributed_tpu_torch.checkpoint import core as tcore
 from neuronx_distributed_tpu_torch.checkpoint import storage as tstorage
 from neuronx_distributed_tpu_torch.models import llama as tl
+from neuronx_distributed_tpu_torch.models.llama_pipeline import PipelinedLlama
 from neuronx_distributed_tpu_torch.optimizer import convert_zero_checkpoints as czc
 from neuronx_distributed_tpu_torch.parallel import mesh
 from neuronx_distributed_tpu_torch.trainer import (
@@ -212,3 +217,83 @@ def test_convert_params_only(tmp_path):
         assert tuple(t.shape) == tuple(piece.global_shape)
     with pytest.raises(ValueError, match="no 'params' entry"):
         czc.convert(dst, str(tmp_path / "x"), params_only=True)
+
+
+def _pp_trainer(chunks):
+    """A TP2 x PP2 stage's trainer (seeded init: the one-rank model's
+    weights), 2 microbatches, ``chunks`` VPP chunks a stage."""
+    cfg = neuronx_distributed_config(tensor_parallel_size=2, pipeline_parallel_size=2,
+                                     optimizer_config={"zero_one_enabled": True})
+    pm = PipelinedLlama(tl.LlamaConfig(**{**TINY, "num_layers": 4}, dtype=torch.float32),
+                        num_stages=2, num_microbatches=2, num_chunks=chunks)
+    model = pm.as_parallel_model(device="cpu")
+    opt = initialize_parallel_optimizer(cfg, model, learning_rate=1e-3)
+    step = make_train_step(model, opt, lambda p, b, rng: pm.loss(p, b["ids"], b["labels"]))
+    return create_train_state(model, opt), step
+
+
+def _leaf(state, path):
+    field, _, name = path[1:].partition("['")
+    name = name[:-2]
+    return (state.params[name] if field == "params"
+            else getattr(state.opt_state, field.split(".")[1])[name])
+
+
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_pp_layout_resumes_and_loads_at_one_rank_and_back(tmp_path, chunks):
+    root, back = str(tmp_path / "pp"), str(tmp_path / "one")
+
+    def pp(fn):
+        return mesh.run_in_threads(WORLD, fn, tensor_model_parallel_size=2,
+                                   pipeline_model_parallel_size=2)
+
+    def straight(r):
+        state, step = _pp_trainer(chunks)
+        return _run(state, step, [1, 2, 3])
+
+    def first(r):
+        state, step = _pp_trainer(chunks)
+        state, losses = _run(state, step, [1, 2])
+        tcore.save_checkpoint(root, "step_2", state, async_save=True)
+        tcore.finalize_checkpoint()
+        return state, losses
+
+    def resumed(r):
+        state, step = _pp_trainer(chunks)
+        state, _ = tcore.load_checkpoint(root, target=state, verify=True)
+        return _run(state, step, [3])
+
+    want, head, got = pp(straight), pp(first), pp(resumed)
+    for (st_w, l_w), (_, l_h), (st_g, l_g) in zip(want, head, got):
+        assert l_h + l_g == l_w
+        for n in st_w.params:
+            assert torch.equal(st_g.params[n], st_w.params[n]), n
+            assert torch.equal(st_g.opt_state.master[n], st_w.opt_state.master[n]), n
+    # one rank at TP1 x PP1: every leaf whole, each stage's block equal to it
+    cfg = neuronx_distributed_config(optimizer_config={"zero_one_enabled": True})
+    model = initialize_parallel_model(cfg, lambda: tl.LlamaForCausalLM(
+        tl.LlamaConfig(**{**TINY, "num_layers": 4}, dtype=torch.float32)), device="cpu")
+    opt = initialize_parallel_optimizer(cfg, model, learning_rate=1e-3)
+    whole, _ = tcore.load_checkpoint(root, "step_2", target=create_train_state(model, opt),
+                                     verify=True)
+    assert int(whole.step) == 2
+    seen = set()
+    for st, _ in head:
+        for path, piece in st.layout.items():
+            local, glob = _leaf(st, path), _leaf(whole, path)
+            assert tuple(glob.shape) == tuple(piece.global_shape)
+            block = glob[tuple(slice(o, o + n) for o, n in zip(piece.offset, local.shape))]
+            assert torch.equal(block, local), path
+            seen.add(path)
+    assert {p for p in seen if p.startswith(".params")} == {
+        f".params['{n}']" for n in whole.params}
+    tcore.save_checkpoint(back, "t", whole)
+
+    def load_back(r):
+        state, _ = _pp_trainer(chunks)
+        return tcore.load_checkpoint(back, "t", target=state)[0]
+
+    for (st, _), got_back in zip(head, pp(load_back)):
+        for n in st.params:
+            assert torch.equal(got_back.params[n], st.params[n]), n
+            assert torch.equal(got_back.opt_state.mu[n], st.opt_state.mu[n]), n

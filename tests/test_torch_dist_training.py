@@ -59,6 +59,10 @@ MESHES = {
     "TP2_DP2_Zero1Off": (dict(tensor_model_parallel_size=2), False, False),
     "TP2_EPmesh2": (dict(tensor_model_parallel_size=2, expert_model_parallel_size=2), False,
                     True),
+    # context parallelism (JAX COMBOS :75-77): each rank feeds its block of
+    # the sequence, ring attention over the cp group
+    "CP2": (dict(tensor_model_parallel_size=1, context_parallel_size=2), False, True),
+    "TP2_CP2": (dict(tensor_model_parallel_size=2, context_parallel_size=2), False, True),
 }
 
 
@@ -134,8 +138,9 @@ def _port_rank(weights, sp, zero1, steps=STEPS, grad_accum=1, lr=1e-3):
     step = make_train_step(model, opt, lambda p, b, rng: model.apply(
         p, b["ids"], b["labels"], method="loss"), grad_accum_steps=grad_accum)
     ids, labels = _batch()
-    rows = mesh.data_batch_slice(len(ids))
-    batch = {"ids": torch.as_tensor(ids[rows]), "labels": torch.as_tensor(labels[rows])}
+    rows, cols = mesh.data_batch_slice(len(ids)), mesh.context_seq_slice(ids.shape[1])
+    batch = {"ids": torch.as_tensor(ids[rows, cols]),
+             "labels": torch.as_tensor(labels[rows, cols])}
     out = []
     for _ in range(steps):
         state, m = step(state, batch)

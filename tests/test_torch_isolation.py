@@ -123,6 +123,24 @@ def test_parallel_core_modules_stand_alone():
         assert set(_imported_roots(path)) <= allowed, mod
 
 
+def test_cp_and_pp_modules_stand_alone():
+    """Ring attention, the pipeline schedules and engine, the pipelined
+    Llama, the CP microbench, the TP x PP example and the script that runs
+    phase 4m alone: none imports ``jax`` or the JAX package (the schedules
+    are the port's own copy of a pure-logic JAX module); the schedules
+    import the standard library only."""
+    mods = ("ops.ring_attention", "pipeline.schedules", "pipeline.engine",
+            "models.llama_pipeline", "utils.cp_microbench", "examples.llama2_tp_pp")
+    for mod in mods:
+        assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
+        path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
+        assert not set(_imported_roots(path)) & FORBIDDEN, mod
+    assert set(_imported_roots(PORT / "pipeline" / "schedules.py")) <= {
+        "__future__", "dataclasses", "typing"}
+    script = ROOT / "scripts" / "cp_pp_phase.py"
+    assert not set(_imported_roots(script)) & FORBIDDEN
+
+
 def test_a_bound_local_rank_picks_its_card(monkeypatch):
     """A process-per-rank launch binds its local rank: the default device
     is ``cuda:{local_rank}``, made current; a rank with no card of its own

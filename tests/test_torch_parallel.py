@@ -453,16 +453,20 @@ def test_gqa_qkv_matches_jax(mult):
 
 def test_sequence_parallel_and_int8_refused_under_tp():
     """Sequence parallelism is ported (``tests/test_torch_sequence_parallel.py``
-    holds it against JAX): without a group the flag is a no-op. What is
-    still not ported raises by name: context parallelism, and int8 weights
-    in a layer of more than one rank."""
+    holds it against JAX): without a group the flag is a no-op. Context
+    parallelism is ported too (``tests/test_torch_ring_attention.py``); what
+    JAX refuses the port refuses with JAX's error: SP with CP. Not ported:
+    int8 weights in a layer of more than one rank."""
     assert not TL.ColumnParallelLinear(8, 8, sequence_parallel=True).sequence_parallel
     from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
-    with torch.device("meta"), pytest.raises(NotImplementedError, match="context parallelism"):
-        LlamaForCausalLM(LlamaConfig(vocab_size=64, hidden_size=16, intermediate_size=32,
-                                     num_layers=1, num_heads=2, num_kv_heads=2,
-                                     context_parallel=True))
+    cfg = dict(vocab_size=64, hidden_size=16, intermediate_size=32, num_layers=1, num_heads=2,
+               num_kv_heads=2, context_parallel=True)
+    with torch.device("meta"):
+        assert LlamaForCausalLM(LlamaConfig(**cfg)).model.layers[0].attention.cp_group is None
+    with torch.device("meta"), pytest.raises(
+            ValueError, match="sequence_parallel and context_parallel are exclusive"):
+        LlamaForCausalLM(LlamaConfig(**cfg, sequence_parallel=True))
 
     def rank(r):
         m = TL.ColumnParallelLinear(8, 8, group=mesh.get_tensor_model_parallel_group())

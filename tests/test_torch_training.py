@@ -39,6 +39,7 @@ from neuronx_distributed_tpu.trainer import (
 from neuronx_distributed_tpu_torch.converters.jax_params import llama_params_from_jax
 from neuronx_distributed_tpu_torch.kernels import flash_attn as tfa
 from neuronx_distributed_tpu_torch.models import llama as tl
+from neuronx_distributed_tpu_torch.parallel import mesh
 from neuronx_distributed_tpu_torch.trainer import (
     create_train_state,
     initialize_parallel_model,
@@ -258,9 +259,10 @@ def test_initialize_parallel_model_config_and_refusals():
     """Explicit mixed-precision keys and the activation-checkpoint config
     reach the model config; the seeded init is reproducible; a LoRA config
     freezes the base and trains the adapters; plain AdamW is built under
-    ``use_master_weights=False``; pipeline and context parallel degrees
-    above 1 raise by name, and a tensor-parallel degree needs a world of
-    ranks (``tests/test_torch_dist_training.py`` trains on one)."""
+    ``use_master_weights=False``; a tensor-, pipeline- or context-parallel
+    degree above 1 needs a world of ranks (``tests/test_torch_dist_training.py``
+    and ``tests/test_torch_pp_training.py`` train on one), and a mesh with
+    ``cp > 1`` turns the model's context parallelism on over its cp group."""
     cfg = neuronx_distributed_config(
         mixed_precision_config={"param_dtype": "bfloat16"},
         activation_checkpoint_config=None, model_init_config={"seed": 7})
@@ -276,9 +278,13 @@ def test_initialize_parallel_model_config_and_refusals():
         lambda: tl.LlamaForCausalLM(tl.LlamaConfig(**TINY, remat_policy=None)), device="cpu")
     assert remat.module.config.remat_policy == "full"
     for degree in ("pipeline_parallel_size", "context_parallel_size"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(RuntimeError, match="no default process group"):
             initialize_parallel_model(neuronx_distributed_config(**{degree: 2}), make,
                                       device="cpu")
+    cp_on = mesh.run_in_threads(2, lambda r: initialize_parallel_model(
+        neuronx_distributed_config(context_parallel_size=2), make, device="cpu"),
+        tensor_model_parallel_size=1, context_parallel_size=2)
+    assert all(m.module.config.context_parallel and m.cp_group is not None for m in cp_on)
     with pytest.raises(RuntimeError, match="no default process group"):
         initialize_parallel_model(neuronx_distributed_config(tensor_parallel_size=2), make,
                                   device="cpu")

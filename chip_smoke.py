@@ -196,7 +196,7 @@ Phases, each fatal on failure (exit code 1, no result line):
            ``remat_policy="attention"`` and with plain AdamW on the bf16
            params: step ms, peak bytes, launches (B1's a layer), the loss
            falling.
-4l. dist   distributed training: (d0) Llama-2-7B widths at 4 layers, 4 x
+4l. dist   distributed training: (d0) Llama-2-7B widths at 2 layers, 4 x
            4096 tokens a step of a seeded stream, bf16 with fp32 masters,
            remat ``"attention"``, clipping 1.0, 3 steps on one rank; (d1)
            the same run through the Llama-2 TP+ZeRO-1+SP example's entry
@@ -204,12 +204,12 @@ Phases, each fatal on failure (exit code 1, no result line):
            and ZeRO-1 on): each step's loss within 1 % of (d0)'s, the DP
            replicas' params and the TP-replicated leaves bit-identical
            after every step, the ZeRO state a quarter of (d0)'s, B1, B3a,
-           B3b and B4 (30 a step) launched in every rank; (d2) the small
+           B3b and B4 (16 a step) launched in every rank; (d2) the small
            fp32 model on the same layout against one CPU rank (losses and
            grad norms within 1e-5), a multi-rank async save after step 2
            and a fresh group resuming step 3 bit for bit, the tag loaded at
            TP=1 equal to the gathered params, a flipped byte caught.
-4m. cp/pp  context and pipeline parallelism: (c0) Llama-2-7B widths at 4
+4m. cp/pp  context and pipeline parallelism: (c0) Llama-2-7B widths at 2
            layers, one 32768-token sequence a step, bf16 with fp32 masters,
            remat ``"full"``, 3 steps on one rank; (c1) the same through the
            trainer at CP 2 x TP 2 (ring attention, zigzag) as four
@@ -229,6 +229,21 @@ Phases, each fatal on failure (exit code 1, no result line):
            group resuming step 3 bit for bit, the tag at TP1 x PP1 equal to
            the gathered params, a flipped byte caught; then
            ``measure_cp_ratio`` at 32768 tokens, cp 2.
+4n. moe    Mixtral training with expert parallelism: (m0) Mixtral-8x7B
+           widths at 2 layers (8 experts, top 2, capacity factor 1.25, aux
+           coefficient 0.01), 2 x 4096 tokens a step of a seeded stream,
+           bf16 with fp32 masters, remat ``"full"``, 3 steps of
+           ``mixtral_loss`` on one rank, each layer's dropped assignments
+           printed; (m1) the same run through the ``mixtral_moe`` example's
+           entry point as four processes on the card over gloo (TP 2 x EP
+           2): each step's loss within 1 % of (m0)'s, B1, B3a, B3b and B4
+           launched and the expert all-to-all issued in every rank, the
+           collectives a step by kind; (m2) the small fp32 Mixtral at a
+           capacity factor that drops tokens, at TP 2 x EP 2 and EP 2 x edp
+           2, against one CPU rank (1e-5, dropped assignments equal), a
+           save after step 2 and a fresh group resuming step 3 bit for bit,
+           the tag at TP1 x EP1 equal to the gathered params, a flipped byte
+           caught, and the small DBRX model's step (1e-5).
 
 ``--profile PATH`` repeats each trace and overload pass under
 ``torch.profiler`` (device activity only) for the device's busy share of
@@ -385,6 +400,14 @@ def time_ms(fn, reps: int, flush) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def collective_snapshot() -> dict:
+    """A copy of this thread's collective table (``mappings.collective_stats``
+    keeps counting into the table it returns)."""
+    from neuronx_distributed_tpu_torch.parallel import mappings
+
+    return {kind: list(v) for kind, v in mappings.collective_stats().items()}
 
 
 def zero_launches(counters) -> None:
@@ -6012,14 +6035,14 @@ def train_variants(cfg, dev, counters) -> dict:
 # --- phase 4l: distributed training (TP + SP + DP with ZeRO-1) ----------------------
 
 DIST_WORLD, DIST_TP = 4, 2        # TP 2 x DP 2, four processes on the one card
-DIST_LAYERS = 4                   # llama2_7b depth 32 -> 4 (fp32 masters of 32 do not fit)
+DIST_LAYERS = 2                   # llama2_7b depth 32 -> 2 (fp32 masters of 32 do not fit)
 DIST_SEQ, DIST_BATCH, DIST_STEPS = 4096, 4, 3
 DIST_LR = 1e-4                    # the example's default
 DIST_LOSS_RTOL = 1e-2             # (d1) vs (d0), bf16
 DIST_STATE_RTOL = 0.01            # ZeRO state bytes against a quarter of (d0)'s
 DIST_SMALL_TOL = 1e-5             # (d2) GPU ranks vs one CPU rank, fp32
 DIST_SMALL_BATCH, DIST_SMALL_LR = 4, 1e-3
-DIST_B4_PER_STEP = 30             # 4 layers x 7 matrices + embedding + head
+DIST_B4_PER_STEP = 16             # 2 layers x 7 matrices + embedding + head
 DIST_TIMEOUT_S = 300              # every group's timeout
 DIST_CHILD_TIMEOUT_S = 900        # the parent's wait for the ranks
 DIST_COUNTERS = ("flash_block_forward", "flash_bwd_dkdv", "flash_bwd_dq", "fused_adamw_leaf")
@@ -6223,7 +6246,7 @@ def dist_child(rank: int, world: int, port: int, out_path: str, layers: int,
     t1 = time.perf_counter()
     example.main(argv, on_step=on_step)
     res["d1"] = dict(steps=steps, launches={c.__name__: c.launches for c in counters},
-                     collectives=mappings.collective_stats(), staging_copies=zero1.staging_copies,
+                     collectives=collective_snapshot(), staging_copies=zero1.staging_copies,
                      peak_bytes=torch.cuda.max_memory_allocated(),
                      main_s=time.perf_counter() - t1, backend=mesh.group_backend(
                          mesh.get_tensor_model_parallel_group()))
@@ -6463,7 +6486,7 @@ def print_dist(dist: dict, card: str) -> None:
 
 CPPP_WORLD = 4                    # four processes on the one card, over gloo
 CP_TP, CP_CP = 2, 2               # (c1): TP 2 x CP 2, zigzag
-CP_LAYERS = 4                     # llama2_7b depth 32 -> 4
+CP_LAYERS = 2                     # llama2_7b depth 32 -> 2
 CP_SEQ, CP_STEPS, CP_LR = 32768, 3, 1e-4
 CP_SEED = 11
 PP_TP, PP_PP = 2, 2               # (p1)/(p2): TP 2 x PP 2
@@ -7122,7 +7145,7 @@ def cppp_child(rank: int, world: int, port: int, out_path: str, ckpt_dir: str,
 
     def readings():
         return dict(launches={c.__name__: c.launches for c in counters},
-                    collectives=mappings.collective_stats(),
+                    collectives=collective_snapshot(),
                     peak_bytes=torch.cuda.max_memory_allocated())
 
     def start():
@@ -7512,6 +7535,557 @@ def print_cp_pp(st: dict, card: str) -> None:
           flush=True)
 
 
+# --- phase 4n: Mixtral training with expert parallelism ----------------------------------
+
+MOE_WORLD, MOE_TP, MOE_EP = 4, 2, 2   # (m1): TP 2 x EP 2 (dp 2, edp 1), four processes
+MOE_LAYERS = 2                        # mixtral_8x7b depth 32 -> 2
+MOE_SEQ, MOE_BATCH, MOE_STEPS, MOE_LR = 4096, 2, 3, 1e-4
+MOE_LOSS_RTOL = 1e-2                  # (m1) vs (m0), bf16
+MOE_SMALL_TOL = 1e-5                  # (m2): card ranks vs one CPU rank, fp32
+MOE_SMALL_BATCH, MOE_SMALL_SEQ, MOE_SMALL_STEPS, MOE_SMALL_LR = 4, 128, 3, 1e-3
+MOE_SMALL_CF = 1.0                    # (m2)'s capacity factor: tokens drop
+# (m2)'s layouts: name -> (tp, ep); the first saves and resumes, the second
+# also takes the small DBRX model's step
+MOE_SMALL_LAYOUTS = {"tp2_ep2": (2, 2), "ep2_edp2": (1, 2)}
+MOE_TIMEOUT_S = 300                   # every group's timeout
+MOE_CHILD_TIMEOUT_S = 900             # the parent's wait for the ranks
+MOE_COUNTERS = DIST_COUNTERS
+
+
+def moe_args(layers: int, extra=()) -> list:
+    """The ``mixtral_moe`` example's arguments for (m0) and (m1)."""
+    return ["--layers", str(layers), "--seq_len", str(MOE_SEQ), "--batch_size",
+            str(MOE_BATCH), "--steps", str(MOE_STEPS), "--lr", str(MOE_LR), "--log_every", "0",
+            *extra]
+
+
+def moe_dropped(module) -> list:
+    """Each MoE block's dropped assignments an expert (global counts) in
+    its last capacity-factor forward."""
+    return [layer.moe.experts.last_dropped.tolist() for layer in module.model.layers]
+
+
+def moe_activation_bytes(cfg, tokens: int, tp: int = 1, ep: int = 1, dp: int = 1) -> int:
+    """A rank's activations under remat: each layer's bf16 input, one
+    layer's MoE recompute (the gate, up and product of its slots, a slot
+    buffer each way, the chosen rows and their outputs) and a loss chunk's
+    fp32 logits with their gradient."""
+    h, e, k = cfg.hidden_size, cfg.num_experts, cfg.top_k
+    cap = min(int(cfg.capacity_factor * tokens * dp / e), tokens)
+    slots = e // ep * cap * ep
+    return (cfg.num_layers * tokens * h * 2 + 3 * slots * cfg.intermediate_size // tp * 2
+            + 2 * e * cap * h * 2 + 2 * tokens * k * h * 2
+            + min(tokens, 4096) * cfg.vocab_size // tp * 10)
+
+
+def moe_m0(dev, counters, layers=MOE_LAYERS) -> dict:
+    """(m0): the example's model and batches on one rank through the
+    trainer, remat ``"full"`` (ZeRO off: one rank); counters zeroed just
+    before the steps, read just after; each step's dropped assignments."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.examples import mixtral_moe as example
+    from neuronx_distributed_tpu_torch.examples.common import synthetic_lm_batches, to_device
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM, mixtral_loss
+    from neuronx_distributed_tpu_torch.trainer import (
+        create_train_state,
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+        neuronx_distributed_config,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    _, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    args = example.parse_args(moe_args(layers))
+    cfg = dataclasses.replace(example.build_config(args, MOE_SEQ), remat_policy="full")
+    nxd = neuronx_distributed_config(
+        optimizer_config={"zero_one_enabled": False, "grad_clipping": True, "max_grad_norm": 1.0},
+        mixed_precision_config={"use_master_weights": True})
+    model = initialize_parallel_model(nxd, lambda: MixtralForCausalLM(cfg), device=dev)
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=MOE_LR,
+                                        weight_decay=args.weight_decay)
+    state = create_train_state(model, opt)
+    plan = reckoning(model.num_params(), moe_activation_bytes(cfg, MOE_BATCH * MOE_SEQ), total)
+    print(f"moe (m0) reckoning {json.dumps(plan)}", flush=True)
+
+    def loss_fn(p, b, rng):
+        model.bind(p)
+        return mixtral_loss(model.module, b["ids"], b["labels"])
+
+    step = make_train_step(model, opt, loss_fn)
+    batches = synthetic_lm_batches(cfg.vocab_size, MOE_BATCH, MOE_SEQ, seed=args.seed)
+    next(batches)   # the example's init sample
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    zero_launches(counters)
+    steps = []
+    for _ in range(MOE_STEPS):
+        batch = to_device(next(batches), dev)
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        steps.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                          ms=(time.perf_counter() - t) * 1e3,
+                          dropped=moe_dropped(model.module)))
+    experts = model.module.model.layers[0].moe.experts
+    out = dict(layers=cfg.num_layers, steps=steps, setup_s=setup_s, reckoning=plan,
+               launches={c.__name__: c.launches for c in counters},
+               capacity=experts.capacity(MOE_BATCH * MOE_SEQ),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in steps),
+          f"moe (m0): non-finite loss or grad norm {steps}")
+    del model, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_small_config():
+    """(m2)'s small fp32 Mixtral: the small model's widths, 4 experts, top
+    2, a capacity that drops tokens."""
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralConfig
+
+    base = {f.name: getattr(small_config(), f.name)
+            for f in dataclasses.fields(small_config()) if f.init}
+    return MixtralConfig(**{**base, "num_experts": 4, "top_k": 2,
+                            "capacity_factor": MOE_SMALL_CF})
+
+
+def moe_dbrx_config():
+    """The small DBRX model: bias-free LayerNorms, ``qkv_clip`` 8, top-4 of
+    8 experts, at the small model's widths."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.mixtral import dbrx
+
+    s = small_config()
+    return dbrx(vocab_size=s.vocab_size, hidden_size=s.hidden_size,
+                intermediate_size=s.intermediate_size, num_layers=s.num_layers,
+                num_heads=s.num_heads, num_kv_heads=s.num_kv_heads, max_seq_len=s.max_seq_len,
+                num_experts=8, top_k=4, capacity_factor=MOE_SMALL_CF, dtype=torch.float32,
+                param_dtype=torch.float32)
+
+
+def moe_small_batches(vocab: int) -> list:
+    """(m2)'s global batches, numpy (the same on every rank and the CPU)."""
+    import numpy as np
+
+    out = []
+    for i in range(MOE_SMALL_STEPS):
+        ids = np.random.RandomState(50 + i).randint(0, vocab, (MOE_SMALL_BATCH, MOE_SMALL_SEQ + 1))
+        out.append({"ids": ids[:, :-1].astype(np.int32), "labels": ids[:, 1:].astype(np.int32)})
+    return out
+
+
+def moe_small_trainer(dev, cfg, params):
+    """(m2)'s trainer at this rank's layout (one rank off-mesh) from the
+    global ``params``: ZeRO-1, fp32 masters, clipping 1.0, ``mixtral_loss``."""
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM, mixtral_loss
+    from neuronx_distributed_tpu_torch.parallel import mesh
+    from neuronx_distributed_tpu_torch.trainer import (
+        create_train_state,
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+        neuronx_distributed_config,
+    )
+
+    on = mesh.model_parallel_is_initialized()
+    nxd = neuronx_distributed_config(
+        tensor_parallel_size=mesh.get_tensor_model_parallel_size() if on else 1,
+        expert_parallel_size=mesh.get_expert_model_parallel_size() if on else 1,
+        optimizer_config={"zero_one_enabled": True, "grad_clipping": True, "max_grad_norm": 1.0},
+        mixed_precision_config={"use_master_weights": True})
+    model = initialize_parallel_model(nxd, lambda: MixtralForCausalLM(cfg), device=dev,
+                                      params=params)
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=MOE_SMALL_LR, weight_decay=0.01)
+
+    def loss_fn(p, b, rng):
+        model.bind(p)
+        return mixtral_loss(model.module, b["ids"], b["labels"])
+
+    return create_train_state(model, opt), make_train_step(model, opt, loss_fn), model
+
+
+def moe_small_steps(state, step, model, batches, dev):
+    import torch
+
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    out = []
+    for b in batches:
+        rows = mesh.data_batch_slice(MOE_SMALL_BATCH)
+        state, m = step(state, {k: torch.as_tensor(v[rows]).to(dev) for k, v in b.items()})
+        out.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                        dropped=moe_dropped(model.module)))
+    return state, out
+
+
+def moe_child(rank: int, world: int, port: int, out_path: str, ckpt_dir: str,
+              layers: int = MOE_LAYERS, dev: str = "cuda:0") -> int:
+    """One rank of (m1) and (m2), a process of its own on ``cuda:0`` over
+    gloo, each part in a process group of its own. (m1): the ``mixtral_moe``
+    example's ``main`` at TP 2 x EP 2 with hooks that print the rank's
+    memory reckoning before the first step and read each step's loss, grad
+    norm, time and dropped assignments; launch counters and the collective
+    table zeroed just before ``main`` and read just after. (m2): the small
+    fp32 Mixtral at each of ``MOE_SMALL_LAYOUTS``, 3 steps; at TP 2 x EP 2 a
+    fresh state trains 2 steps and saves, and a fresh group resumes step
+    3; at EP 2 x edp 2 the small DBRX model's step. Writes every reading to
+    ``out_path``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.checkpoint import (
+        finalize_checkpoint,
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from neuronx_distributed_tpu_torch.examples import mixtral_moe as example
+    from neuronx_distributed_tpu_torch.kernels import _build
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_bwd_dkdv,
+        flash_bwd_dq,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
+    from neuronx_distributed_tpu_torch.optimizer.fused_kernel import fused_adamw_leaf
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build()
+    counters = (flash_block_forward, flash_bwd_dkdv, flash_bwd_dq, fused_adamw_leaf)
+    timeout = datetime.timedelta(seconds=MOE_TIMEOUT_S)
+    _, total = torch.cuda.mem_get_info()
+    res = dict(rank=rank)
+
+    def join(p, tp, ep):
+        mesh.init_distributed("gloo", rank=rank, world_size=world, local_rank=0,
+                              init_method=f"tcp://localhost:{p}", timeout=timeout)
+        mesh.initialize_model_parallel(tp, expert_model_parallel_size=ep, timeout=timeout)
+
+    def leave():
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (m1): the example at mixtral_8x7b widths, TP 2 x EP 2
+    steps, mark, stash = [], {}, {}
+
+    def on_model(model, state):
+        cfg = model.module.config
+        tp, ep = mesh.get_tensor_model_parallel_size(), mesh.get_expert_model_parallel_size()
+        dp = mesh.get_data_parallel_size()
+        act = moe_activation_bytes(cfg, MOE_BATCH * MOE_SEQ // dp, tp, ep, dp)
+        res["m1_reckoning"] = reckoning(model.num_params(), act, total)
+        res["coords"] = mesh.local_mesh_coords()
+        stash["module"] = model.module
+        print(f"rank {rank} (m1) reckoning {json.dumps(res['m1_reckoning'])}", flush=True)
+        torch.cuda.synchronize()
+        mark["t"] = time.perf_counter()
+
+    def on_step(i, state, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append(dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                          ms=(now - mark["t"]) * 1e3, dropped=moe_dropped(stash["module"])))
+        mark["t"] = time.perf_counter()
+
+    argv = moe_args(layers, ["--tp", str(MOE_TP), "--ep", str(MOE_EP), "--backend", "gloo",
+                             "--device", dev, "--coordinator_address", f"localhost:{port}",
+                             "--num_processes", str(world), "--process_id", str(rank)])
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    mappings.reset_collective_stats()
+    t1 = time.perf_counter()
+    example.main(argv, on_step=on_step, on_model=on_model)
+    res["m1"] = dict(steps=steps, launches={c.__name__: c.launches for c in counters},
+                     collectives=collective_snapshot(),
+                     peak_bytes=torch.cuda.max_memory_allocated(),
+                     main_s=time.perf_counter() - t1)
+    stash.clear()
+    leave()
+
+    # (m2): the small fp32 Mixtral, tokens dropping, at each layout
+    small = moe_small_config()
+    params = init_params(small, torch.Generator().manual_seed(0), model_cls=MixtralForCausalLM)
+    batches = moe_small_batches(small.vocab_size)
+    res["m2"] = {}
+    p = port + 1
+    for name, (tp, ep) in MOE_SMALL_LAYOUTS.items():
+        join(p, tp, ep)
+        p += 1
+        state, step, model = moe_small_trainer(dev, small, params)
+        state, straight = moe_small_steps(state, step, model, batches, dev)
+        entry = dict(straight=straight, coords=mesh.local_mesh_coords())
+        if name == "tp2_ep2":
+            want = _digest(state.params)
+            state, step, model = moe_small_trainer(dev, small, params)
+            state, head = moe_small_steps(state, step, model, batches[:2], dev)
+            save_checkpoint(ckpt_dir, "step_2", state, user_content={"step": 2},
+                            async_save=True)
+            torch.save({"params": {n: t.cpu() for n, t in state.params.items()},
+                        "layout": {k: (v.global_shape, v.offset)
+                                   for k, v in state.layout.items()}},
+                       str(Path(out_path).with_suffix(".params.pt")))
+            finalize_checkpoint()
+            leave()
+            join(p, tp, ep)   # a fresh group resumes
+            p += 1
+            state, step, model = moe_small_trainer(dev, small, params)
+            state, content = load_checkpoint(ckpt_dir, target=state, verify=True)
+            state, tail = moe_small_steps(state, step, model, batches[2:], dev)
+            entry.update(resumed=head + tail, resumed_step=content["step"],
+                         bit_identical=_digest(state.params) == want
+                         and [s["loss"] for s in head + tail] == [s["loss"] for s in straight])
+        else:
+            cfg = moe_dbrx_config()
+            state, step, model = moe_small_trainer(dev, cfg, init_params(
+                cfg, torch.Generator().manual_seed(1), model_cls=MixtralForCausalLM))
+            _, entry["dbrx"] = moe_small_steps(state, step, model, batches[:1], dev)
+        del state, step, model
+        res["m2"][name] = entry
+        leave()
+    res["wall_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(res))
+    return 0
+
+
+def moe_ranks(ckpt_dir: str, tmp: Path, layers: int = MOE_LAYERS) -> dict:
+    """:func:`moe_child` as ``MOE_WORLD`` processes on the one card; the
+    card's used memory polled while they run. A rank that fails or
+    outlives ``MOE_CHILD_TIMEOUT_S`` fails the phase (every process is
+    stopped)."""
+    import torch
+
+    port = _free_port()
+    free0, total = torch.cuda.mem_get_info()
+    peak_used = total - free0
+    logs = [open(tmp / f"moe{r}.log", "w") for r in range(MOE_WORLD)]
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--moe-world", str(MOE_WORLD),
+           "--moe-port", str(port), "--moe-dir", ckpt_dir, "--moe-layers", str(layers)]
+    # four ranks' caches share the card: segments that grow in place keep
+    # each rank's reserve near what it allocates
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    procs = [subprocess.Popen(cmd + ["--moe-rank", str(r), "--moe-out",
+                                     str(tmp / f"moe{r}.json")],
+                              cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT, env=env)
+             for r in range(MOE_WORLD)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() - t0 > MOE_CHILD_TIMEOUT_S:
+                raise SmokeFailure(f"moe phase: the ranks ran past {MOE_CHILD_TIMEOUT_S} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break   # one rank failed: its peers fail at the group's timeout
+            free, _ = torch.cuda.mem_get_info()
+            peak_used = max(peak_used, total - free)
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (tmp / f"moe{r}.log").read_text()[-3000:]
+            raise SmokeFailure(f"moe phase: rank {r} exited {p.returncode}:\n{tail}")
+    ranks = [json.loads((tmp / f"moe{r}.json").read_text()) for r in range(MOE_WORLD)]
+    return dict(ranks=ranks, wall_s=wall, card_peak_used_bytes=peak_used, card_bytes=total)
+
+
+def moe_gates(m0: dict, ranks: list) -> list:
+    """(m1)'s hard gates against (m0), as a list of problems; records the
+    largest relative loss difference in ``m0``."""
+    bad = []
+    worst = 0.0
+    want = [s["loss"] for s in m0["steps"]]
+    for rk in ranks:
+        r, m1 = rk["rank"], rk["m1"]
+        got = [s["loss"] for s in m1["steps"]]
+        if len(got) != MOE_STEPS:
+            bad.append(f"rank {r} ran {len(got)} (m1) steps")
+        elif got != [s["loss"] for s in ranks[0]["m1"]["steps"]]:
+            bad.append(f"rank {r}: (m1) losses differ from rank 0's")
+        for a, b in zip(got, want):
+            worst = max(worst, _rel(a, b))
+        for name in MOE_COUNTERS:
+            if m1["launches"].get(name, 0) <= 0:
+                bad.append(f"rank {r} never launched {name} in (m1)")
+        if m1["collectives"].get("all_to_all", [0, 0])[0] <= 0:
+            bad.append(f"rank {r}: (m1) sent no token through the expert all-to-all")
+    m0["m1_loss_max_rel_diff"] = worst
+    if worst > MOE_LOSS_RTOL:
+        bad.append(f"(m1) losses differ from (m0)'s by {worst:.3g} relative (limit "
+                   f"{MOE_LOSS_RTOL})")
+    return bad
+
+
+def moe_small_reference(ckpt_dir: str, tmp: Path, ranks: list) -> dict:
+    """(m2)'s CPU side: one CPU rank trained on the same weights and
+    batches (and the DBRX model's step), the tag loaded at TP1 x EP1 on one
+    rank against the ranks' gathered step-2 params, and a flipped byte in
+    one rank's piece."""
+    import shutil
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.checkpoint import CheckpointIntegrityError, load_checkpoint
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
+
+    small = moe_small_config()
+    params = init_params(small, torch.Generator().manual_seed(0), model_cls=MixtralForCausalLM)
+    batches = moe_small_batches(small.vocab_size)
+    state, step, model = moe_small_trainer("cpu", small, params)
+    _, cpu = moe_small_steps(state, step, model, batches, "cpu")
+    cfg = moe_dbrx_config()
+    state, step, model = moe_small_trainer("cpu", cfg, init_params(
+        cfg, torch.Generator().manual_seed(1), model_cls=MixtralForCausalLM))
+    _, dbrx_cpu = moe_small_steps(state, step, model, batches[:1], "cpu")
+
+    def err(got, want):
+        return max(max(abs(a["loss"] - c["loss"]), abs(a["grad_norm"] - c["grad_norm"]))
+                   for a, c in zip(got, want))
+
+    out = dict(cpu=cpu, dbrx_cpu=dbrx_cpu, max_abs_err={}, dropped_equal={})
+    for name in MOE_SMALL_LAYOUTS:
+        out["max_abs_err"][name] = max(err(rk["m2"][name]["straight"], cpu) for rk in ranks)
+        out["dropped_equal"][name] = all(
+            [s["dropped"] for s in rk["m2"][name]["straight"]] == [s["dropped"] for s in cpu]
+            for rk in ranks)
+    with_dbrx = [rk["m2"][n]["dbrx"] for rk in ranks for n in MOE_SMALL_LAYOUTS
+                 if "dbrx" in rk["m2"][n]]
+    out["dbrx_max_abs_err"] = max(err(d, dbrx_cpu) for d in with_dbrx)
+    out["dbrx_dropped_equal"] = all([s["dropped"] for s in d] == [s["dropped"] for s in dbrx_cpu]
+                                    for d in with_dbrx)
+    target, _, _ = moe_small_trainer("cpu", small, params)
+    whole, content = load_checkpoint(ckpt_dir, target=target, verify=True)
+    gathered = {n: torch.empty_like(t) for n, t in whole.params.items()}
+    covered = set()
+    for r in range(MOE_WORLD):
+        part = torch.load(str(tmp / f"moe{r}.params.pt"))
+        for n, t in part["params"].items():
+            _, off = part["layout"][f".params['{n}']"]
+            gathered[n][tuple(slice(o, o + s) for o, s in zip(off, t.shape))] = t
+            covered.add(n)
+    out["tp1_ep1_equals_gathered"] = covered == set(gathered) and all(
+        torch.equal(gathered[n], whole.params[n]) for n in gathered)
+    out["resumed_from"] = content["step"]
+    bad = tmp / "moe_flipped"
+    shutil.copytree(ckpt_dir, bad)
+    piece = bad / "step_2" / "state" / "tensors.rank00003.safetensors"
+    blob = bytearray(piece.read_bytes())
+    blob[-7] ^= 0x20
+    piece.write_bytes(bytes(blob))
+    try:
+        load_checkpoint(str(bad), verify=True)
+        out["flipped_byte_caught"] = False
+    except CheckpointIntegrityError:
+        out["flipped_byte_caught"] = True
+    return out
+
+
+def moe_small_problems(small: dict, ranks: list) -> list:
+    """(m2)'s hard gates, as a list of problems."""
+    bad = []
+    for name in MOE_SMALL_LAYOUTS:
+        if small["max_abs_err"][name] > MOE_SMALL_TOL:
+            bad.append(f"(m2) {name}: losses or grad norms differ from the CPU rank's by "
+                       f"{small['max_abs_err'][name]:.3g} (limit {MOE_SMALL_TOL})")
+        if not small["dropped_equal"][name]:
+            bad.append(f"(m2) {name}: dropped assignments differ from the CPU rank's")
+    if small["dbrx_max_abs_err"] > MOE_SMALL_TOL:
+        bad.append(f"(m2) DBRX: the step differs from the CPU rank's by "
+                   f"{small['dbrx_max_abs_err']:.3g} (limit {MOE_SMALL_TOL})")
+    if not small["dbrx_dropped_equal"]:
+        bad.append("(m2) DBRX: dropped assignments differ from the CPU rank's")
+    for rk in ranks:
+        if not rk["m2"]["tp2_ep2"]["bit_identical"]:
+            bad.append(f"(m2) rank {rk['rank']}: the resumed step 3 is not bit-identical")
+    for key in ("tp1_ep1_equals_gathered", "flipped_byte_caught"):
+        if not small[key]:
+            bad.append(f"(m2): {key} failed")
+    return bad
+
+
+def run_moe_phase(dev, counters, layers: int = MOE_LAYERS, dump=None) -> dict:
+    """Phase 4n: (m0) in this process, the four rank processes ((m1),
+    (m2)), then (m2)'s CPU side; every gate. ``dump``: a path the readings
+    are written to before the gates are held."""
+    import torch
+
+    t0 = time.perf_counter()
+    m0 = moe_m0(dev, counters, layers)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        ckpt = str(tmp / "ckpt")
+        kids = moe_ranks(ckpt, tmp, layers)
+        small = moe_small_reference(ckpt, tmp, kids["ranks"])
+    problems = moe_gates(m0, kids["ranks"]) + moe_small_problems(small, kids["ranks"])
+    out = dict(m0=m0, ranks=kids["ranks"], small=small, ranks_wall_s=kids["wall_s"],
+               card_peak_used_bytes=kids["card_peak_used_bytes"], card_bytes=kids["card_bytes"])
+    if dump is not None:
+        Path(dump).parent.mkdir(parents=True, exist_ok=True)
+        Path(dump).write_text(json.dumps({**out, "problems": problems}, default=str))
+    check(not problems, "moe phase: " + "; ".join(problems))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, phase_s=time.perf_counter() - t0)
+
+
+def print_moe(st: dict, card: str) -> None:
+    m0 = st["m0"]
+
+    def steps_text(steps):
+        return ", ".join(f"{s['loss']:.5f}/{s['grad_norm']:.4f}"
+                         + (f" {s['ms']:.0f} ms" if s.get("ms") else "") for s in steps)
+
+    print(f"moe (m0): mixtral_8x7b widths, {m0['layers']} of 32 layers, one rank, {MOE_BATCH} x "
+          f"{MOE_SEQ} tokens a step, bf16 + fp32 masters, remat full, capacity "
+          f"{m0['capacity']} slots an expert; loss/grad norm/step {steps_text(m0['steps'])}; "
+          f"dropped a layer and expert {[s['dropped'] for s in m0['steps']]}; "
+          f"{m0['reckoning']['params']} params, peak {m0['peak_bytes']} bytes (reckoned "
+          f"{m0['reckoning']['planned_bytes']}), set-up {m0['setup_s']:.1f} s, launches "
+          f"{json.dumps(m0['launches'])} [{card}]", flush=True)
+    for rk in st["ranks"]:
+        m1 = rk["m1"]
+        per_step = {k: f"{v[0] / MOE_STEPS:g} calls {v[1] / MOE_STEPS:.0f} bytes"
+                    for k, v in sorted(m1["collectives"].items())}
+        print(f"moe (m1) rank {rk['rank']} ({json.dumps(rk['coords'])}): the mixtral_moe "
+              f"example, TP {MOE_TP} x EP {MOE_EP} over gloo, ZeRO-1, remat attention; "
+              f"loss/grad norm/step {steps_text(m1['steps'])}; dropped "
+              f"{[s['dropped'] for s in m1['steps']]}; {rk['m1_reckoning']['params']} params, "
+              f"peak {m1['peak_bytes']} bytes (reckoned {rk['m1_reckoning']['planned_bytes']}), "
+              f"launches {json.dumps(m1['launches'])}, collectives a step {json.dumps(per_step)}, "
+              f"main {m1['main_s']:.1f} s [{card}]", flush=True)
+    print(f"moe (m1): losses within {m0['m1_loss_max_rel_diff']:.3g} of (m0)'s (limit "
+          f"{MOE_LOSS_RTOL}); {MOE_WORLD} processes in {st['ranks_wall_s']:.1f} s with (m2), "
+          f"card peak used {st['card_peak_used_bytes']} of {st['card_bytes']} bytes [{card}]",
+          flush=True)
+    sm = st["small"]
+    print(f"moe (m2): small fp32 Mixtral (capacity factor {MOE_SMALL_CF}, tokens dropping) on "
+          f"the card vs one CPU rank: max |loss or grad norm diff| "
+          f"{json.dumps({n: f'{v:.3g}' for n, v in sm['max_abs_err'].items()})} (tol "
+          f"{MOE_SMALL_TOL}), dropped equal {json.dumps(sm['dropped_equal'])} (CPU "
+          f"{[s['dropped'] for s in sm['cpu']]}); DBRX step {sm['dbrx_max_abs_err']:.3g}, "
+          f"dropped equal {sm['dbrx_dropped_equal']}; async save after step 2 at TP 2 x EP 2, a "
+          f"fresh group resumed step 3 bit for bit; the tag at TP1 x EP1 equals the gathered "
+          f"params {sm['tp1_ep1_equals_gathered']}; flipped byte caught "
+          f"{sm['flipped_byte_caught']}; phase {st['phase_s']:.1f} s [{card}]", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7542,6 +8116,13 @@ def main(argv=None) -> int:
     parser.add_argument("--cppp-out", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--cppp-dir", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--cppp-layers", type=int, default=CP_LAYERS, help=argparse.SUPPRESS)
+    # one rank of phase 4n's (m1)/(m2), started by the phase itself
+    parser.add_argument("--moe-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--moe-world", type=int, default=MOE_WORLD, help=argparse.SUPPRESS)
+    parser.add_argument("--moe-port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--moe-out", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--moe-dir", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--moe-layers", type=int, default=MOE_LAYERS, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -7562,6 +8143,9 @@ def main(argv=None) -> int:
     if args.cppp_rank is not None:
         return cppp_child(args.cppp_rank, args.cppp_world, args.cppp_port, args.cppp_out,
                           args.cppp_dir, cp_layers=args.cppp_layers)
+    if args.moe_rank is not None:
+        return moe_child(args.moe_rank, args.moe_world, args.moe_port, args.moe_out,
+                         args.moe_dir, layers=args.moe_layers)
     from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
     from neuronx_distributed_tpu_torch.kernels import _build
     from neuronx_distributed_tpu_torch.kernels.flash_attn import (
@@ -8058,6 +8642,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cp_pp = run_cp_pp_phase(dev, train_counters)
     print_cp_pp(cp_pp, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = run_moe_phase(dev, train_counters)
+    print_moe(moe, card)
 
     by_path = {"serve": stats["launches"], "serve_int8": int8["launches"],
                **{f"trace_{label}": st["launches"] for label, st in trace["passes"].items()},
@@ -8087,7 +8675,9 @@ def main(argv=None) -> int:
                   for rk in dist["d1"]["ranks"]},
                "cp_c0": cp_pp["c0"]["launches"], "pp_p0": cp_pp["p0"]["launches"],
                **{f"{part}_rank{rk['rank']}": rk[part]["launches"]
-                  for part in ("c1", "p1", "p2") for rk in cp_pp["ranks"]}}
+                  for part in ("c1", "p1", "p2") for rk in cp_pp["ranks"]},
+               "moe_m0": moe["m0"]["launches"],
+               **{f"moe_m1_rank{rk['rank']}": rk["m1"]["launches"] for rk in moe["ranks"]}}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
                "fused_adamw": "fused_adamw_leaf", "w8a16_gemm": "w8a16_gemm"}
@@ -8126,7 +8716,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
                       "programs": eager, "speculation": spec, "medusa": medusa, "bundle": bundle,
                       "recovery": recovery, "tenants": tenants, "park": park, "fleet": fleet,
-                      "tp": tp, "dist": dist, "cp_pp": cp_pp,
+                      "tp": tp, "dist": dist, "cp_pp": cp_pp, "moe": moe,
                       "quant": quant,
                       "train_loop": loop, "train": tstats, "train_variants": variants,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,

@@ -29,7 +29,11 @@ dict under the ``LlamaForCausalLM`` names the port's stage uses.
 
 ``mixtral_params_from_jax`` carries a ``MixtralForCausalLM`` tree: the MoE
 block's ``moe/router/kernel`` and the expert tensors ``moe/experts/{gate,
-up,down}`` (stacked ``(L, E, ...)``) unstack like the rest.
+up,down}`` (stacked ``(L, E, ...)``) unstack like the rest; a DBRX tree's
+LayerNorms (``input_norm/ln/scale``, ``ln/bias`` where the norm has one,
+and the final norm's) map to the port's ``SPLayerNorm`` names. A rank's
+(ep, tp) slice of its output comes from ``parallel.partitioning.
+local_state_dict``.
 ``quantized_params_from_jax`` carries a JAX ``quantize_params`` tree of
 either family: each ``{qweight, scale}`` leaf becomes the port's
 ``X.qweight``/``X.scale`` pair, unstacked (a per-tensor 0-d scale goes to
@@ -42,7 +46,7 @@ experts.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,9 +66,8 @@ _LAYER_LEAVES = {
     ("mlp", "gate_proj", "kernel"): "mlp.gate_proj.kernel",
     ("mlp", "up_proj", "kernel"): "mlp.up_proj.kernel",
     ("mlp", "down_proj", "kernel"): "mlp.down_proj.kernel",
-    ("input_norm", "scale"): "input_norm.scale",
-    ("post_attn_norm", "scale"): "post_attn_norm.scale",
 }
+_NORMS = ("input_norm", "post_attn_norm")
 
 
 # the Mixtral decoder block: Llama's attention and norms, the MoE block
@@ -128,15 +131,27 @@ def _stacked(node, path: str, name: str, num_layers: int, out: Dict[str, torch.T
             out[f"model.layers.{i}.{name}"] = torch.from_numpy(np.ascontiguousarray(stacked[i]))
 
 
+def _norm_leaves(node: Mapping[str, Any]) -> Tuple[tuple, ...]:
+    """A norm's weights under it: RMSNorm's ``scale``, or a LayerNorm's
+    ``ln/scale`` (and ``ln/bias`` where it has one)."""
+    if "ln" in node:
+        return tuple(("ln", k) for k in ("scale", "bias") if k in node["ln"])
+    return (("scale",),)
+
+
 def _params_from_jax(tree: Mapping[str, Any], leaves: Mapping[tuple, str],
                      tie_word_embeddings: bool) -> Dict[str, torch.Tensor]:
     if "params" in tree and "model" not in tree:
         tree = tree["params"]
     block = ("model", "layers", "block")
-    num_layers = _get(tree, block + ("input_norm", "scale")).shape[0]
+    norm = _norm_leaves(_node(tree, block + ("input_norm",)))
+    num_layers = _get(tree, block + ("input_norm",) + norm[0]).shape[0]
     out: Dict[str, torch.Tensor] = {}
     _leaf(_node(tree, ("model", "embed", "embedding")), "model.embed.embedding", out)
-    _leaf(_node(tree, ("model", "final_norm", "scale")), "model.final_norm.scale", out)
+    for sub in _norm_leaves(_node(tree, ("model", "final_norm"))):
+        _leaf(_node(tree, ("model", "final_norm") + sub),
+              "model.final_norm." + ".".join(sub), out)
+    leaves = {**leaves, **{(n,) + sub: ".".join((n,) + sub) for n in _NORMS for sub in norm}}
     for path, name in leaves.items():
         _stacked(_node(tree, block + path), "/".join(block + path), name, num_layers, out)
     if not tie_word_embeddings:

@@ -143,18 +143,21 @@ def setup_distributed(args) -> bool:
     return multi
 
 
-def setup_example(args, tensor_parallel_size: int = 1, pipeline_parallel_size: int = 1) -> int:
+def setup_example(args, tensor_parallel_size: int = 1, pipeline_parallel_size: int = 1,
+                  expert_parallel_size: int = 1) -> int:
     """The examples' bootstrap: join the default group (a process-per-rank
-    launch), then build the mesh at ``tensor_parallel_size`` and
-    ``pipeline_parallel_size`` unless this rank already holds one (a
-    rank-per-thread world). Returns the world size."""
+    launch), then build the mesh at ``tensor_parallel_size``,
+    ``pipeline_parallel_size`` and ``expert_parallel_size`` unless this
+    rank already holds one (a rank-per-thread world). Returns the world
+    size."""
     from neuronx_distributed_tpu_torch.parallel import mesh
 
     if mesh.model_parallel_is_initialized():
         return mesh.get_world_size()
     if setup_distributed(args):
         mesh.initialize_model_parallel(tensor_parallel_size,
-                                       pipeline_model_parallel_size=pipeline_parallel_size)
+                                       pipeline_model_parallel_size=pipeline_parallel_size,
+                                       expert_model_parallel_size=expert_parallel_size)
         return mesh.get_world_size()
     return 1
 

@@ -585,6 +585,10 @@ class CausalLM:
         if self.tp > 1 and quantized_names(params):
             raise NotImplementedError("int8 weights under tensor parallelism are not ported "
                                       "(ROADMAP queue A)")
+        if self.tp > 1 and hasattr(config, "num_experts"):
+            raise NotImplementedError("Mixtral serving under tensor parallelism (the MoE block "
+                                      "under a TP group in decode mode) is not ported: ROADMAP "
+                                      "queue A; training takes it (examples/mixtral_moe.py)")
         with torch.device("meta"):
             model = (model_cls(self.config) if tp_group is None
                      else model_cls(self.config, group=tp_group))

@@ -19,8 +19,13 @@ spec of one serving leaf from its name, rule for rule as the JAX package:
 The name is a JAX tree path (``"['cache']['cached_key']"``) or the port's
 dotted one (``"layers.3.cached_key"``): the last identifier decides. The
 weights' specs come from the layers that hold them (``tp_shard_dims`` in
-``parallel/layers.py``, by state-dict name): :func:`param_partition_specs`.
-:func:`shard_slice` turns any spec into a rank's slice.
+``parallel/layers.py``, by state-dict name, and a module's own
+``partition_specs``): :func:`param_partition_specs`. An expert weight has
+a second axis (JAX ``moe/expert_mlps.py:55-67``): ``("ep", None, "tp")``
+for ``gate``/``up`` ``(E, H, I)``, ``("ep", "tp", None)`` for ``down``, its
+experts over the expert-parallel ranks and its intermediate dim over TP.
+:func:`shard_slice` turns any spec into a rank's slice, along each axis
+it names.
 """
 
 from __future__ import annotations
@@ -83,30 +88,41 @@ def leaf_partition_spec(path: str, shape: Sequence[int], tp: int) -> Spec:
     return ()
 
 
+def axis_dim(spec: Spec, axis: str) -> Optional[int]:
+    """The dim a spec shards over ``axis`` (None: not over it)."""
+    return spec.index(axis) if axis in spec else None
+
+
 def sharded_dim(spec: Spec) -> Optional[int]:
-    """The dim a spec shards (None: replicated)."""
-    return spec.index("tp") if "tp" in spec else None
+    """The dim a spec shards over TP (None: replicated over it)."""
+    return axis_dim(spec, "tp")
 
 
-def local_shape(shape: Sequence[int], spec: Spec, tp: int) -> Tuple[int, ...]:
+def local_shape(shape: Sequence[int], spec: Spec, tp: int, ep: int = 1) -> Tuple[int, ...]:
     """A rank's shard shape of a leaf of ``shape`` under ``spec``."""
-    d = sharded_dim(spec)
     out = list(shape)
-    if d is not None:
-        out[d] //= tp
+    for axis, n in (("tp", tp), ("ep", ep)):
+        d = axis_dim(spec, axis)
+        if d is not None:
+            out[d] //= n
     return tuple(out)
 
 
-def shard_slice(t: torch.Tensor, spec: Spec, rank: int, tp: int) -> torch.Tensor:
-    """Rank ``rank``'s contiguous slice of the global tensor ``t`` under
-    ``spec`` (``t`` itself when replicated)."""
-    d = sharded_dim(spec)
-    if d is None or tp == 1:
-        return t
-    if t.shape[d] % tp:
-        raise ValueError(f"dim {d} of {tuple(t.shape)} does not split over {tp} ranks")
-    c = t.shape[d] // tp
-    return t.narrow(d, rank * c, c)
+def shard_slice(t: torch.Tensor, spec: Spec, rank: int, tp: int, ep_rank: int = 0,
+                ep: int = 1) -> torch.Tensor:
+    """The contiguous slice of the global tensor ``t`` under ``spec`` that
+    tensor-parallel rank ``rank`` of ``tp`` (and, for an expert leaf,
+    expert-parallel rank ``ep_rank`` of ``ep``) holds; ``t`` itself when
+    replicated."""
+    for axis, r, n in (("tp", rank, tp), ("ep", ep_rank, ep)):
+        d = axis_dim(spec, axis)
+        if d is None or n == 1:
+            continue
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split over {n} ranks")
+        c = t.shape[d] // n
+        t = t.narrow(d, r * c, c)
+    return t
 
 
 def dim_spec(ndim: int, dim: Optional[int]) -> Spec:
@@ -117,12 +133,16 @@ def dim_spec(ndim: int, dim: Optional[int]) -> Spec:
 
 
 def param_partition_specs(model: torch.nn.Module) -> Dict[str, Spec]:
-    """Each weight of ``model`` (a TP=1 model: global shapes) by state-dict
-    name: its spec (``()`` for the replicated ones)."""
+    """Each weight of ``model`` by state-dict name: its spec (``()`` for
+    the replicated ones): a TP layer's from its ``tp_shard_dims``, any
+    other module's from its ``partition_specs`` (the expert weights)."""
     from neuronx_distributed_tpu_torch.parallel.layers import tp_shard_dims
 
     dims = tp_shard_dims(model)
-    return {name: dim_spec(t.dim(), dims.get(name))
+    own = {f"{prefix}.{attr}" if prefix else attr: spec
+           for prefix, mod in model.named_modules()
+           for attr, spec in getattr(mod, "partition_specs", {}).items()}
+    return {name: own[name] if name in own else dim_spec(t.dim(), dims.get(name))
             for name, t in model.state_dict().items()}
 
 

@@ -115,6 +115,7 @@ from neuronx_distributed_tpu_torch.parallel.layers import (
     ParallelEmbedding,
     RMSNorm,
     RowParallelLinear,
+    SPLayerNorm,
 )
 from neuronx_distributed_tpu_torch.parallel.loss import (
     parallel_cross_entropy,
@@ -198,6 +199,22 @@ class LlamaConfig:
     def kv_heads(self, tp: int = 1) -> int:
         """KV heads one rank holds at degree ``tp``."""
         return self.num_kv_heads * self.kv_size_multiplier // tp
+
+    def make_norm(self, device=None, group=None) -> nn.Module:
+        """The norm of every decoder layer and of the stack's end (JAX
+        ``make_norm``): RMSNorm, or under ``norm_type="layernorm"`` (DBRX,
+        a Mixtral config field) a ``SPLayerNorm`` with a bias unless
+        ``norm_bias`` is off; sequence-parallel under ``group`` when the
+        config says so."""
+        kw = dict(dtype=self.dtype, param_dtype=self.param_dtype, device=device,
+                  sequence_parallel=self.sequence_parallel, group=group)
+        norm_type = getattr(self, "norm_type", "rmsnorm")
+        if norm_type == "layernorm":
+            return SPLayerNorm(self.hidden_size, epsilon=getattr(self, "layer_norm_eps", 1e-5),
+                               use_bias=getattr(self, "norm_bias", True), **kw)
+        if norm_type != "rmsnorm":
+            raise ValueError(f"unknown norm_type {norm_type!r}")
+        return RMSNorm(self.hidden_size, epsilon=self.rms_norm_eps, **kw)
 
     def blocks_for(self, sq: int, sk: Optional[int] = None) -> Tuple[int, int]:
         """Flash block sizes: explicit config values, else adaptive (block_q
@@ -674,11 +691,9 @@ class LlamaDecoderLayer(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, group=None):
         super().__init__()
         cfg = config
-        norm = dict(epsilon=cfg.rms_norm_eps, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
-                    device=device, sequence_parallel=cfg.sequence_parallel, group=group)
-        self.input_norm = RMSNorm(cfg.hidden_size, **norm)
+        self.input_norm = cfg.make_norm(device, group)
         self.attention = LlamaAttention(cfg, device, group)
-        self.post_attn_norm = RMSNorm(cfg.hidden_size, **norm)
+        self.post_attn_norm = cfg.make_norm(device, group)
         self.mlp = LlamaMLP(cfg, device, group)
 
     def forward(self, x, rope, cache=None, layer=0, lora=None, chunk_ctx=None):
@@ -723,7 +738,7 @@ class LlamaModel(nn.Module):
     layer_cls = LlamaDecoderLayer
 
     def __init__(self, config: LlamaConfig, device=None, layer_cls=None, group=None,
-                 cp_group=None):
+                 cp_group=None, layer_kwargs: Optional[dict] = None):
         super().__init__()
         cfg = self.config = config
         layer_cls = layer_cls or self.layer_cls
@@ -743,13 +758,11 @@ class LlamaModel(nn.Module):
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype,
                                        param_dtype=cfg.param_dtype, device=device, group=group,
                                        sequence_parallel=sp)
-        self.layers = nn.ModuleList(layer_cls(cfg, device, group=group)
+        self.layers = nn.ModuleList(layer_cls(cfg, device, group=group, **(layer_kwargs or {}))
                                     for _ in range(cfg.num_layers))
         for layer in self.layers:
             layer.attention.cp_group = self.cp_group
-        self.final_norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, dtype=cfg.dtype,
-                                  param_dtype=cfg.param_dtype, device=device,
-                                  sequence_parallel=sp, group=group)
+        self.final_norm = cfg.make_norm(device, group)
         # the adapter pool (read-only here; the serving pool writes its
         # slots in place) and the rows' slots, set by the caller
         self.lora_layout: Optional[LoraLayout] = None
@@ -818,11 +831,12 @@ class LlamaForCausalLM(nn.Module):
 
     layer_cls = LlamaDecoderLayer
 
-    def __init__(self, config: LlamaConfig, device=None, group=None, cp_group=None):
+    def __init__(self, config: LlamaConfig, device=None, group=None, cp_group=None,
+                 layer_kwargs: Optional[dict] = None):
         super().__init__()
         cfg = self.config = config
         self.model = LlamaModel(cfg, device, layer_cls=self.layer_cls, group=group,
-                                cp_group=cp_group)
+                                cp_group=cp_group, layer_kwargs=layer_kwargs)
         self.tp = self.model.tp
         if not cfg.tie_word_embeddings:
             self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size,
@@ -931,35 +945,40 @@ def page_storage_dtype(config: LlamaConfig) -> torch.dtype:
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
                 device=None, model_cls=None, quantize=None, tp_rank: int = 0,
-                tp_size: int = 1, keep: Optional[Callable[[str], bool]] = None) -> dict:
+                tp_size: int = 1, keep: Optional[Callable[[str], bool]] = None,
+                ep_rank: int = 0, ep_size: int = 1) -> dict:
     """Random weights from a seeded generator, in each weight's storage dtype
     (``param_dtype``; a router's is fp32), as a state dict for ``model_cls``
     (default :class:`LlamaForCausalLM`): kernels normal with std
     1/sqrt(fan_in) (the JAX package's lecun-normal scale; an expert weight
     ``(E, in, out)`` has fan-in ``in``), the embedding normal(0, 1), norm
-    scales 1. ``quantize`` (a ``QuantizationConfig``) quantizes each weight
-    it targets as soon as it is drawn, so only one float weight exists at a
-    time. ``tp_rank``/``tp_size``: rank ``tp_rank``'s shard of the same
-    global weights (each drawn whole, then cut, one at a time: JAX
-    initialises the global array and shards it), the state dict of that
-    rank's model. ``keep``: only the leaves whose name it accepts are
-    returned; the others are still drawn, one at a time, and dropped, so a
-    pipeline stage gets the same values as the whole model."""
+    scales 1 and LayerNorm biases 0. ``quantize`` (a ``QuantizationConfig``)
+    quantizes each weight it targets as soon as it is drawn, so only one
+    float weight exists at a time. ``tp_rank``/``tp_size`` (and, for a
+    Mixtral model's expert weights, ``ep_rank``/``ep_size``): that rank's
+    shard of the same global weights (each drawn whole, then cut, one at a
+    time: JAX initialises the global array and shards it), the state dict
+    of that rank's model. ``keep``: only the leaves whose name it accepts
+    are returned; the others are still drawn, one at a time, and dropped,
+    so a pipeline stage gets the same values as the whole model."""
     from neuronx_distributed_tpu_torch.quantization.core import quantize_leaf
 
     model_cls = model_cls or LlamaForCausalLM
     with torch.device("meta"):
         model = model_cls(dataclasses.replace(config, lora_rank=None))
     meta = model.state_dict()
-    if tp_size > 1 and quantize is not None:
-        raise NotImplementedError("int8 weights under tensor parallelism are not ported")
-    specs = param_partition_specs(model) if tp_size > 1 else {}
+    sharded = tp_size > 1 or ep_size > 1
+    if sharded and quantize is not None:
+        raise NotImplementedError("int8 weights under tensor or expert parallelism are not "
+                                  "ported")
+    specs = param_partition_specs(model) if sharded else {}
     out = {}
     for name, p in meta.items():
         shape = tuple(p.shape)
-        if name.endswith(".scale"):
+        if name.endswith(".scale") or name.endswith(".ln.bias"):
             if keep is None or keep(name):
-                out[name] = torch.ones(shape, dtype=p.dtype, device=device)
+                fill = torch.ones if name.endswith(".scale") else torch.zeros
+                out[name] = fill(shape, dtype=p.dtype, device=device)
             continue
         t = torch.randn(shape, generator=generator, dtype=p.dtype, device=device)
         if keep is not None and not keep(name):
@@ -968,7 +987,7 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
         if not name.endswith("embedding"):
             t.mul_(1.0 / math.sqrt(shape[-2] if ".experts." in name else shape[0]))
         if specs.get(name):
-            t = shard_slice(t, specs[name], tp_rank, tp_size).clone()
+            t = shard_slice(t, specs[name], tp_rank, tp_size, ep_rank, ep_size).clone()
         if quantize is None:
             out[name] = t
         else:

@@ -3,8 +3,10 @@
 Counterpart of ``neuronx_distributed_tpu/optimizer/convert_zero_checkpoints.py``
 (the reference's ``merge_optim_dp_checkpoints`` / ``split_and_save_ckpts``).
 A tag of the port's format stores every leaf in its global layout, in
-pieces written by many ranks (``checkpoint/core.py``), and loads at any
-layout, so re-splitting for another DP degree needs no tool. What remains
+pieces written by many ranks (``checkpoint/core.py``; an expert leaf a
+piece per (ep, tp) slice, its ZeRO-1 state per edp rank), and loads at
+any layout, so re-splitting for another DP, TP or EP degree needs no
+tool. What remains
 is consolidating a tag into one global tree written by one rank, at
 another location: the whole ``TrainState`` (ZeRO-1 shards of mu, nu and
 the masters joined into whole leaves), or with ``--params-only`` the

@@ -20,7 +20,16 @@ axis name or a tuple of axis names (``("tp", "edp")``); ``()`` replicated.
 
 Layout on a rank: a param is its tensor-parallel shard (``local``); its
 ZeRO state is the ``dp_rank``-th of ``dp`` equal slices of that shard
-along the ZeRO dim, a contiguous tensor of its own. A slice along a dim
+along the ZeRO dim, a contiguous tensor of its own.
+
+Expert leaves (JAX ``:19-23``, the reference's ``NeuronEPZero1Optimizer``):
+a leaf whose spec uses ``ep`` (an expert weight, ``(ep, None, tp)``) is
+already split over the expert-parallel ranks, so its state shards over
+``edp`` alone, and its gradient, which its owner collects from every rank
+of its ep group through the all-to-all, is reduced over the
+expert-data-parallel group (the ranks that hold the same experts) and
+divided by the whole DP degree, as every gradient is the mean over DP
+(:meth:`Zero1Plan.reduction`). A slice along a dim
 other than 0 is strided in the param, so the reduce-scatter is fed from a
 staging copy arranged rank-major and the all-gather lands in one before
 the param takes it; ``staging_copies`` counts those copies.
@@ -119,20 +128,27 @@ def zero_dim(param_spec: Spec, state_spec: Spec, ndim: int) -> Optional[int]:
     return None
 
 
-def _tp_dim(spec: Spec) -> Optional[int]:
+def _axis_dim(spec: Spec, axis: str) -> Optional[int]:
     for d, e in enumerate(spec or ()):
-        if ps.TP_AXIS in _entry_axes(e):
+        if axis in _entry_axes(e):
             return d
     return None
 
 
+def _tp_dim(spec: Spec) -> Optional[int]:
+    return _axis_dim(spec, ps.TP_AXIS)
+
+
 @dataclasses.dataclass
 class Zero1Plan:
-    """Per trainable leaf: its TP spec (``param_specs``), its state spec in
+    """Per trainable leaf: its spec (``param_specs``), its state spec in
     JAX's terms (``state_specs``) and the dim its state shards over DP
     (``dims``; None: all-reduced, state as the param). ``dp_group`` (None
-    off-mesh or at DP 1), ``dp`` and ``dp_rank``; ``tp``/``tp_rank`` the
-    tensor-parallel degree and rank the specs were made for."""
+    off-mesh or at DP 1), ``dp`` and ``dp_rank``; ``tp``/``tp_rank`` and
+    ``ep``/``ep_rank`` the tensor- and expert-parallel degrees and ranks
+    the specs were made for; ``expert`` the leaves sharded over ``ep``,
+    whose gradients and state go over ``edp_group`` (``edp``,
+    ``edp_rank``) instead of the DP group."""
 
     param_specs: Dict[str, Spec]
     state_specs: Dict[str, Spec]
@@ -142,46 +158,70 @@ class Zero1Plan:
     dp_rank: int = 0
     tp: int = 1
     tp_rank: int = 0
+    ep: int = 1
+    ep_rank: int = 0
+    edp_group: object = None
+    edp: int = 1
+    edp_rank: int = 0
+    expert: frozenset = frozenset()
+
+    def reduction(self, name: str) -> Tuple[object, int, int]:
+        """The leaf's gradient reduction ``(group, ranks, rank)``: the
+        expert-data-parallel group for an expert leaf, else the DP group.
+        Every gradient is divided by ``dp`` all the same."""
+        if name in self.expert:
+            return self.edp_group, self.edp, self.edp_rank
+        return self.dp_group, self.dp, self.dp_rank
+
+    def zero(self, name: str) -> bool:
+        """Whether the leaf's state is split over its reduction's ranks."""
+        return self.dims.get(name) is not None and self.reduction(name)[1] > 1
 
     @property
     def sharded(self) -> bool:
         """Whether any leaf's state is split over the data-parallel ranks."""
-        return self.dp > 1 and any(d is not None for d in self.dims.values())
+        return any(self.zero(n) for n in self.dims)
 
     def shard(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's ZeRO slice of the local tensor ``t`` of leaf ``name``
         (a view; ``t`` itself when the leaf's state is not DP-sharded)."""
-        d = self.dims.get(name)
-        if d is None or self.dp == 1:
+        if not self.zero(name):
             return t
-        c = t.shape[d] // self.dp
-        return t.narrow(d, self.dp_rank * c, c)
+        d = self.dims[name]
+        _, n, r = self.reduction(name)
+        c = t.shape[d] // n
+        return t.narrow(d, r * c, c)
 
     def tp_dim(self, name: str) -> Optional[int]:
         """The dim the leaf's param shards over TP (None: replicated)."""
         return _tp_dim(self.param_specs.get(name, ()))
 
+    def ep_dim(self, name: str) -> Optional[int]:
+        """The dim the leaf's param shards over EP (None: not an expert leaf)."""
+        return _axis_dim(self.param_specs.get(name, ()), ps.EP_AXIS)
+
     def global_shape(self, name: str, local: Sequence[int]) -> Tuple[int, ...]:
         out = list(local)
-        d = self.tp_dim(name)
-        if d is not None:
-            out[d] *= self.tp
+        for d, n in ((self.tp_dim(name), self.tp), (self.ep_dim(name), self.ep)):
+            if d is not None:
+                out[d] *= n
         return tuple(out)
 
     def param_offset(self, name: str, local: Sequence[int]) -> Tuple[int, ...]:
-        """Where the rank's TP shard starts in the global tensor."""
+        """Where the rank's (ep, tp) shard starts in the global tensor."""
         off = [0] * len(local)
-        d = self.tp_dim(name)
-        if d is not None:
-            off[d] = self.tp_rank * local[d]
+        for d, r in ((self.tp_dim(name), self.tp_rank), (self.ep_dim(name), self.ep_rank)):
+            if d is not None:
+                off[d] = r * local[d]
         return tuple(off)
 
     def state_offset(self, name: str, local: Sequence[int]) -> Tuple[int, ...]:
         """Where the rank's state shard starts in the global tensor."""
         off = list(self.param_offset(name, local))
-        d = self.dims.get(name)
-        if d is not None and self.dp > 1:
-            off[d] += self.dp_rank * (local[d] // self.dp)
+        if self.zero(name):
+            d = self.dims[name]
+            _, n, r = self.reduction(name)
+            off[d] += r * (local[d] // n)
         return tuple(off)
 
 
@@ -192,15 +232,15 @@ def make_zero1_plan(param_specs: Mapping[str, Spec], params: Mapping[str, torch.
     params' own TP layout and every gradient is all-reduced over DP."""
     sizes = axis_sizes()
     on_mesh = ps.model_parallel_is_initialized()
-    tp = sizes[ps.TP_AXIS]
+    tp, ep, edp = sizes[ps.TP_AXIS], sizes[ps.EP_AXIS], sizes[ps.EDP_AXIS]
     tp_rank = ps.tensor_model_parallel_rank() if on_mesh else 0
     shapes = {}
     for n, p in params.items():
         spec = param_specs.get(n, ())
         shape = list(p.shape)
-        d = _tp_dim(spec)
-        if d is not None:
-            shape[d] *= tp
+        for d, k in ((_tp_dim(spec), tp), (_axis_dim(spec, ps.EP_AXIS), ep)):
+            if d is not None:
+                shape[d] *= k
         shapes[n] = tuple(shape)
     if augment:
         state_specs = zero1_opt_state_specs(param_specs, shapes, sizes)
@@ -209,10 +249,16 @@ def make_zero1_plan(param_specs: Mapping[str, Spec], params: Mapping[str, torch.
     dims = {n: zero_dim(param_specs.get(n, ()), state_specs[n], len(shapes[n]))
             for n in shapes}
     dp = ps.get_data_parallel_size() if on_mesh else 1
+    expert = frozenset(n for n in shapes if _axis_dim(param_specs.get(n, ()), ps.EP_AXIS)
+                       is not None)
     return Zero1Plan(param_specs={n: tuple(param_specs.get(n, ())) for n in shapes},
                      state_specs=state_specs, dims=dims,
                      dp_group=ps.get_data_parallel_group() if dp > 1 else None, dp=dp,
-                     dp_rank=ps.data_parallel_rank() if on_mesh else 0, tp=tp, tp_rank=tp_rank)
+                     dp_rank=ps.data_parallel_rank() if on_mesh else 0, tp=tp, tp_rank=tp_rank,
+                     ep=ep, ep_rank=ps.expert_model_parallel_rank() if on_mesh else 0,
+                     edp_group=ps.get_expert_data_parallel_group() if edp > 1 else None,
+                     edp=edp, edp_rank=ps.expert_data_parallel_rank() if on_mesh else 0,
+                     expert=expert)
 
 
 # --- the dataflow's collectives ------------------------------------------------------
@@ -222,9 +268,11 @@ def make_zero1_plan(param_specs: Mapping[str, Spec], params: Mapping[str, torch.
 staging_copies = 0
 
 
-def reduce_scatter_mean(g: torch.Tensor, d: int, group, n: int) -> torch.Tensor:
-    """The mean over ``group`` of ``g``, this rank's slice along ``d``: a
-    new contiguous tensor in the shard's natural layout."""
+def reduce_scatter_mean(g: torch.Tensor, d: int, group, n: int,
+                        divisor: Optional[int] = None) -> torch.Tensor:
+    """The sum over ``group`` (``n`` ranks) of ``g`` divided by ``divisor``
+    (default ``n``: the mean), this rank's slice along ``d``: a new
+    contiguous tensor in the shard's natural layout."""
     global staging_copies
     c = g.shape[d] // n
     shard = list(g.shape)
@@ -236,11 +284,12 @@ def reduce_scatter_mean(g: torch.Tensor, d: int, group, n: int) -> torch.Tensor:
         staging_copies += 1
     out = torch.empty(shard, dtype=g.dtype, device=g.device)
     mappings._rs(out.view(-1), src.view(-1), group)
-    return out.mul_(1.0 / n)
+    return out.mul_(1.0 / (divisor or n))
 
 
 def all_reduce_mean_(g: torch.Tensor, group, n: int) -> torch.Tensor:
-    """The mean over ``group`` of the contiguous ``g``, in place."""
+    """The sum over ``group`` of the contiguous ``g`` divided by ``n``, in
+    place (the mean when ``n`` is the group's size)."""
     mappings.all_reduce_sum_(g, group)
     return g.mul_(1.0 / n)
 

@@ -7,7 +7,11 @@ is a plain sum; here each rank holds pieces, so :func:`get_grad_norm` takes
 the layout: a leaf named in ``tp_sharded`` is a tensor-parallel shard (its
 squares summed over TP), one named in ``dp_sharded`` a ZeRO-1 shard
 reduce-scattered over DP (summed over DP); every other leaf is replicated
-along that axis and counted once, on the axis's rank 0. Under pipeline
+along that axis and counted once, on the axis's rank 0. An expert leaf
+(``ep_sharded``) is a different slice on each expert-parallel rank, whose
+squares the sum over the DP group (which spans ``ep``) adds up; it is
+replicated over the expert-data-parallel ranks unless ZeRO-1 split it
+there (``dp_sharded``), so it counts on ``edp_group``'s rank 0. Under pipeline
 parallelism each leaf lives on one stage, so the sum also runs over the
 ``pp_group``. The inf norm takes a MAX over every group. Every result stays a device tensor: nothing is read back
 to the host.
@@ -27,7 +31,8 @@ Tree = Mapping[str, torch.Tensor]
 
 def get_grad_norm(grads: Tree, norm_type: float = 2.0, *, tp_group=None, dp_group=None,
                   pp_group=None, tp_sharded: Collection[str] = (),
-                  dp_sharded: Collection[str] = ()) -> torch.Tensor:
+                  dp_sharded: Collection[str] = (), ep_sharded: Collection[str] = (),
+                  edp_group=None) -> torch.Tensor:
     """Global gradient norm in fp32 (the p-norm over every element of the
     global gradients, or the largest magnitude for ``inf``), the same on
     every rank. Without groups: the single-device norm."""
@@ -41,9 +46,11 @@ def get_grad_norm(grads: Tree, norm_type: float = 2.0, *, tp_group=None, dp_grou
             all_reduce_max_(out, group)
         return out.reshape(())
     tp_rank, dp_rank = ps.group_rank(tp_group), ps.group_rank(dp_group)
+    edp_rank = ps.group_rank(edp_group)
     # a replicated piece counts on its axis's rank 0 only
     parts = [(g.float().abs() ** norm_type).sum() for n, g in leaves
-             if (n in tp_sharded or tp_rank == 0) and (n in dp_sharded or dp_rank == 0)]
+             if (n in tp_sharded or tp_rank == 0)
+             and (n in dp_sharded or (edp_rank if n in ep_sharded else dp_rank) == 0)]
     total = (torch.stack(parts).sum() if parts
              else torch.zeros((), dtype=torch.float32, device=leaves[0][1].device))
     if any(g is not None for g in groups):

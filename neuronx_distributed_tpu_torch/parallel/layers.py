@@ -96,9 +96,9 @@ def adopt_quantized(model: nn.Module, state) -> None:
             raise KeyError(f"{key} has no {base}.scale")
         mod_name, _, attr = base.rpartition(".")
         mod = model.get_submodule(mod_name)
-        if getattr(mod, "tp", 1) > 1:
-            raise NotImplementedError(f"{key}: int8 weights under tensor parallelism are not "
-                                      f"ported (ROADMAP queue A)")
+        if getattr(mod, "tp", 1) > 1 or getattr(mod, "ep", 1) > 1:
+            raise NotImplementedError(f"{key}: int8 weights under tensor or expert "
+                                      f"parallelism are not ported (ROADMAP queue A)")
         old = mod._parameters.get(attr)
         if old is None:
             raise KeyError(f"{base} is no float weight of the model")

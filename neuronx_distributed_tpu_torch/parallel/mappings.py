@@ -24,8 +24,19 @@ collectives with the same conjugates; ``all_reduce_sum_`` and
 vocab-parallel loss, the gradient norm, the data-parallel reduction).
 Every function takes the group (``None`` is no group: the identity, no
 collective) and issues its collective at every group size, 1 included, so
-a degree-1 group really runs its backend. The expert all-to-all is not
-here yet.
+a degree-1 group really runs its backend.
+
+All-to-all (JAX ``mappings.py:99-113``, the reference ``:311-338``):
+:func:`all_to_all_in_expert_parallel_region` splits a tensor along one dim
+into a chunk a rank, sends chunk ``j`` to rank ``j`` and concatenates what
+arrives along another dim in rank order (JAX's ``tiled`` all-to-all); its
+backward is the reverse all-to-all. The MoE block sends its tokens to
+their experts' owners and back with it (``moe/expert_mlps.py``).
+:func:`nonzero_partition_dim_swap` is the same collective over the
+tensor-parallel group, moving an activation's sharded dim. Gloo's
+all-to-all reads host memory: on gloo a CUDA tensor goes through a host
+buffer, one device-to-host and one host-to-device copy a call, counted as
+``all_to_all_staging``.
 
 Point to point (JAX ``mappings.py:128-140``): :func:`ppermute_next` and
 :func:`ppermute_prev` send each rank's tensor one step round the group
@@ -41,7 +52,8 @@ receive, counted as ``p2p_staging``.
 Both backends take CUDA tensors as they are (gloo copies through the
 host itself, and cannot run inside a CUDA graph capture; NCCL can).
 ``collective_stats`` counts every collective issued here by kind, with the
-bytes of its input (``reset_collective_stats`` zeroes it).
+bytes of its input (``reset_collective_stats`` zeroes it): one table a
+process, or a thread's own under ``mesh.run_in_threads``.
 """
 
 from __future__ import annotations
@@ -54,23 +66,36 @@ import torch.distributed as dist
 
 from neuronx_distributed_tpu_torch.parallel.mesh import group_rank, group_size
 
-# kind -> [calls, input bytes]; one table a thread (the thread-rank launch
-# runs every rank in one process)
+# kind -> [calls, input bytes]: one table a process (a rank of a card run is
+# a process, and its CUDA backward runs on autograd's device thread, which
+# must count into the rank's table), or one a thread for the ranks that
+# mesh.run_in_threads starts in one process (a CPU backward runs on the
+# thread that called it)
+_PROCESS_TABLE: Dict[str, List[int]] = {}
 _STATS = threading.local()
 
 
+def bind_thread_stats() -> None:
+    """Give the calling thread a table of its own (a thread rank)."""
+    _STATS.table = {}
+
+
 def collective_stats() -> Dict[str, List[int]]:
-    """This thread's collectives since the last reset: kind -> ``[calls,
+    """This rank's collectives since the last reset: kind -> ``[calls,
     bytes]`` (``all_reduce``, ``all_reduce_max``, ``all_gather``,
-    ``reduce_scatter``, ``send``, ``recv``, ``p2p_staging``: the host
-    copies of CUDA tensors on gloo)."""
-    if not hasattr(_STATS, "table"):
-        _STATS.table = {}
-    return _STATS.table
+    ``reduce_scatter``, ``all_to_all``, ``send``, ``recv``;
+    ``p2p_staging`` and ``all_to_all_staging``: the host copies of CUDA
+    tensors on gloo), backward included."""
+    table = getattr(_STATS, "table", None)
+    return _PROCESS_TABLE if table is None else table
 
 
 def reset_collective_stats() -> None:
-    _STATS.table = {}
+    global _PROCESS_TABLE
+    if getattr(_STATS, "table", None) is None:
+        _PROCESS_TABLE = {}
+    else:
+        _STATS.table = {}
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
@@ -280,6 +305,63 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _Reduce.apply(x, group)
+
+
+# --- all-to-all (JAX mappings.py:99-113) -------------------------------------
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    """``x`` cut along ``split_dim`` into a chunk a rank; chunk ``j`` goes
+    to rank ``j``, and the chunks that arrive are concatenated along
+    ``concat_dim`` in rank order."""
+    n = group_size(group)
+    sd, cd = split_dim % x.dim(), concat_dim % x.dim()
+    if x.shape[sd] % n:
+        raise ValueError(f"dim {split_dim} of size {x.shape[sd]} does not split over {n} ranks")
+    # rank-major: chunk j contiguous at index j of dim 0
+    src = x.unflatten(sd, (n, x.shape[sd] // n)).movedim(sd, 0).contiguous()
+    shape, dtype = src.shape, src.dtype
+    # the bytes travel (a copy, no arithmetic): every dtype on every backend
+    src = src.reshape(n, -1).view(torch.uint8)
+    staged = _staged(src, group)
+    if staged:
+        _count("all_to_all_staging", src)
+        src = src.to("cpu")
+    out = torch.empty_like(src)
+    _count("all_to_all", src)
+    group.alltoall_base(out, src, [], []).wait()
+    if staged:
+        _count("all_to_all_staging", out)
+        out = out.to(x.device)
+    # out[j] is rank j's chunk: stack the chunks along concat_dim
+    return out.view(dtype).reshape(shape).movedim(0, cd).flatten(cd, cd + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(g, concat_dim, split_dim, ctx.group), None, None, None
+
+
+def all_to_all_in_expert_parallel_region(x: torch.Tensor, split_dim: int, concat_dim: int,
+                                         group) -> torch.Tensor:
+    """Token dispatch and return across the expert-parallel group (JAX
+    ``all_to_all_in_expert_parallel_region``); the gradient takes the
+    reverse all-to-all."""
+    return x if group is None else _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
+def nonzero_partition_dim_swap(x: torch.Tensor, from_dim: int, to_dim: int,
+                               group) -> torch.Tensor:
+    """Move an activation's sharded dim from ``from_dim`` to ``to_dim``
+    with one all-to-all over ``group`` (JAX ``nonzero_partition_dim_swap``:
+    split ``to_dim``, concatenate ``from_dim``)."""
+    return x if group is None else _AllToAll.apply(x, to_dim, from_dim, group)
 
 
 # --- point to point (JAX mappings.py:128-140) -------------------------------

@@ -240,6 +240,18 @@ def get_data_parallel_group():
     return _require_state().groups["dp"]
 
 
+def get_expert_model_parallel_group():
+    """The ranks that differ only in ``ep``: they hold different experts
+    and trade tokens through the expert all-to-all."""
+    return _require_state().groups[EP_AXIS]
+
+
+def get_expert_data_parallel_group():
+    """The ranks that differ only in ``edp``: they hold the same experts
+    (an expert leaf's gradient is summed over them)."""
+    return _require_state().groups[EDP_AXIS]
+
+
 # --- this rank's coordinates (JAX's in-graph ranks are axis indices inside
 # shard_map; here every rank knows its own) -----------------------------------
 
@@ -249,6 +261,10 @@ def tensor_model_parallel_rank() -> int:
 
 def expert_model_parallel_rank() -> int:
     return _require_state().coords()[EP_AXIS]
+
+
+def expert_data_parallel_rank() -> int:
+    return _require_state().coords()[EDP_AXIS]
 
 
 def data_parallel_rank() -> int:
@@ -373,6 +389,9 @@ def run_in_threads(world_size: int, fn: Callable[[int], object], *,
     errors: List[Optional[BaseException]] = [None] * world_size
 
     def body(r: int) -> None:
+        from neuronx_distributed_tpu_torch.parallel import mappings
+
+        mappings.bind_thread_stats()   # each thread rank counts its own collectives
         try:
             initialize_model_parallel(tp, store=store, rank=r, world_size=world_size,
                                       timeout=timeout, **degrees)

@@ -2,8 +2,10 @@
 
 Counterpart of ``neuronx_distributed_tpu/parallel/partitioning.py``. A spec
 is a tuple with ``"tp"`` on the dim that shards over the tensor-parallel
-ranks (``inference/partition.py``'s terms; ``()`` replicated), taken from
-the layers that hold the weights (``param_partition_specs``).
+ranks and, on an expert weight, ``"ep"`` on the dim that shards over the
+expert-parallel ranks (``inference/partition.py``'s terms; ``()``
+replicated), taken from the layers that hold the weights
+(``param_partition_specs``).
 
 JAX's ``constrain`` (``with_sharding_constraint``) has no torch analogue:
 a GSPMD hint that lets XLA choose the collectives. Here every activation
@@ -28,9 +30,11 @@ from neuronx_distributed_tpu_torch.inference.partition import (  # noqa: F401
 
 
 def local_state_dict(state: Mapping[str, Any], specs: Mapping[str, Spec], rank: int, tp: int,
-                     shapes: Mapping[str, torch.Size] = None) -> Dict[str, torch.Tensor]:
-    """Rank ``rank``'s slices of a global state dict (tensors or arrays)
-    under ``specs`` (a name absent from ``specs`` is replicated). With
+                     shapes: Mapping[str, torch.Size] = None, ep_rank: int = 0,
+                     ep: int = 1) -> Dict[str, torch.Tensor]:
+    """Tensor-parallel rank ``rank``'s slices of a global state dict
+    (tensors or arrays) under ``specs`` (a name absent from ``specs`` is
+    replicated), an expert leaf cut over ``ep`` at ``ep_rank`` too. With
     ``shapes`` (the rank's local shapes), a tensor already of its local
     shape is taken as it is."""
     out = {}
@@ -40,7 +44,7 @@ def local_state_dict(state: Mapping[str, Any], specs: Mapping[str, Spec], rank: 
         if shapes is not None and name in shapes and tuple(t.shape) == tuple(shapes[name]):
             out[name] = t
             continue
-        out[name] = shard_slice(t, spec, rank, tp)
+        out[name] = shard_slice(t, spec, rank, tp, ep_rank, ep)
         if shapes is not None and name in shapes and tuple(out[name].shape) != tuple(shapes[name]):
             raise ValueError(f"{name}: {tuple(t.shape)} is neither rank {rank}'s shard "
                              f"{tuple(shapes[name])} nor its global tensor under {spec}")

@@ -16,7 +16,13 @@ one global init: ``init_params`` draws every leaf whole and cuts the rank's
 slice, and a given global state dict is sliced the same way (a dict of the
 rank's shards is taken as it is), so every layout trains the same weights.
 Data parallelism (``dp = edp * ep``, a dense model) needs nothing here: the
-train step reduces the gradients over it. Context parallelism (JAX
+train step reduces the gradients over it. Expert parallelism (JAX
+``:139-150``): a Mixtral model (a config with ``num_experts``) is built with
+the mesh's ep and dp groups for its MoE blocks, and each rank takes its
+(ep, tp) slice of every expert weight (the seeded init draws each leaf
+whole and cuts it; a given global tree is cut the same way). MoE under
+context or pipeline parallelism raises by name (``models/mixtral.py``,
+``models/llama_pipeline.py``). Context parallelism (JAX
 ``:110-117``): a mesh with ``cp > 1`` (or the config's
 ``context_parallel_size`` when this call makes the mesh) sets the model's
 ``context_parallel``, and the module is built with the mesh's cp group;
@@ -149,16 +155,18 @@ def _rebind(targets: Mapping[str, torch.Tensor], params: Mapping[str, torch.Tens
 
 
 def _apply_config_overrides(module: nn.Module, nxd_config: Dict[str, Any],
-                            group=None, cp_group=None) -> nn.Module:
+                            group=None, cp_group=None, moe_groups=None) -> nn.Module:
     """Apply the keys the user set explicitly (compute and param dtype,
     activation checkpointing, sequence parallelism) and context parallelism
     (on whenever the mesh has ``cp > 1``) to the module's dataclass config,
     rebuilding it as ``type(module)(new_config)`` (``group=group`` under
-    tensor parallelism, ``cp_group=cp_group`` under context parallelism);
+    tensor parallelism, ``cp_group=cp_group`` under context parallelism,
+    and a Mixtral model's ``moe_groups``: its ``ep_group``/``dp_group``);
     defaults never override a model's own choice."""
     cfg = getattr(module, "config", None)
+    moe_groups = {k: g for k, g in (moe_groups or {}).items() if g is not None}
     if cfg is None or not dataclasses.is_dataclass(cfg):
-        if group is not None or cp_group is not None:
+        if group is not None or cp_group is not None or moe_groups:
             raise ValueError(f"{type(module).__name__} has no dataclass config to rebuild "
                              f"it over a parallel group")
         return module
@@ -177,10 +185,10 @@ def _apply_config_overrides(module: nn.Module, nxd_config: Dict[str, Any],
         # keyed on the mesh's cp, not the config's: a cp axis without ring
         # attention would run the whole forward on every rank
         over["context_parallel"] = True
-    if not over and group is None:
+    if not over and group is None and not moe_groups:
         return module
     new_cfg = dataclasses.replace(cfg, **over)
-    kw = {}
+    kw = dict(moe_groups)
     if group is not None:
         kw["group"] = group
     if cp_group is not None:
@@ -217,13 +225,23 @@ def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[]
     group = ps.get_tensor_model_parallel_group() if tp > 1 else None
     cp = ps.get_context_parallel_size() if on_mesh else 1
     cp_group = ps.get_context_parallel_group() if cp > 1 else None
+    ep = ps.get_expert_model_parallel_size() if on_mesh else 1
+    ep_rank = ps.expert_model_parallel_rank() if on_mesh else 0
+    dp = ps.get_data_parallel_size() if on_mesh else 1
     lora_cfg = nxd_config.get("lora_config")
     if lora_cfg is not None and group is not None:
         raise NotImplementedError("LoRA under a tensor-parallel degree above 1 is not ported "
                                   "yet (ROADMAP queue A); data parallelism takes it")
     dev = resolve_device(device)
     with torch.device("meta"):
-        module = _apply_config_overrides(module_fn(), nxd_config, group, cp_group)
+        module = module_fn()
+        # the MoE blocks trade tokens over ep and count them over dp
+        moe = dict(ep_group=ps.get_expert_model_parallel_group() if ep > 1 else None,
+                   dp_group=ps.get_data_parallel_group() if dp > 1 else None) \
+            if hasattr(getattr(module, "config", None), "num_experts") else None
+        module = _apply_config_overrides(module, nxd_config, group, cp_group, moe)
+    if not moe:   # no expert leaves: nothing is cut over ep
+        ep, ep_rank = 1, 0
     shapes = module.state_dict()
     seed = nxd_config.get("model_init_config", {}).get("seed", 0)
     if params is None:
@@ -231,12 +249,13 @@ def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[]
             raise ValueError(f"a seeded init is defined for LlamaForCausalLM; pass params for "
                              f"{type(module).__name__}")
         state = init_params(module.config, torch.Generator(device=dev).manual_seed(seed),
-                            device=dev, model_cls=type(module), tp_rank=tp_rank, tp_size=tp)
+                            device=dev, model_cls=type(module), tp_rank=tp_rank, tp_size=tp,
+                            ep_rank=ep_rank, ep_size=ep)
     else:
         given = {n: params[n] for n in shapes}
-        if group is not None:
+        if group is not None or ep > 1:
             given = local_state_dict(given, param_partition_specs(module), tp_rank, tp,
-                                     {n: t.shape for n, t in shapes.items()})
+                                     {n: t.shape for n, t in shapes.items()}, ep_rank, ep)
         # a copy: the train step updates the weights in place
         state = {n: torch.as_tensor(given[n]).to(device=dev, dtype=shapes[n].dtype, copy=True)
                  for n in shapes}

@@ -38,6 +38,15 @@ ranks count the same tokens). A state made by :func:`create_train_state`
 on a world of several ranks carries its ``layout`` (leaf path ->
 ``checkpoint.core.Piece``) for the multi-rank checkpoint.
 
+Expert parallelism: an expert leaf's owner receives, through the MoE
+all-to-all, the gradient of every rank of its ep group, so its gradient
+is summed over the expert-data-parallel group only (the ranks holding the
+same experts), divided by the DP degree like every other, and its ZeRO-1
+state shards over edp (``optimizer/zero1.py``); the clip norm counts each
+expert slice once (``parallel/grads.py``). The loss the step reports is the
+DP mean of the ranks' losses, which under ``models.mixtral.mixtral_loss``
+is JAX's global loss (``moe/routing.py``).
+
 Context parallelism: each rank's gradients are its tokens' share (the
 loss is the global mean), so they are summed over the cp group before the
 DP reduction: JAX's ``DP_AXES`` leave cp out of ZeRO while GSPMD still
@@ -103,12 +112,13 @@ def _state_layout(optimizer: NxDOptimizer, params: Tree,
         shape = tuple(p.shape)
         glob = plan.global_shape(n, shape)
         tp_own = (plan.tp_dim(n) is not None or plan.tp_rank == 0) and cp_own
-        out[f".params['{n}']"] = Piece(glob, plan.param_offset(n, shape),
-                                       tp_own and plan.dp_rank == 0)
-        zero = plan.dims.get(n) is not None and plan.dp > 1
+        # replicas of the leaf: the DP ranks, or an expert leaf's edp ranks
+        first = plan.reduction(n)[2] == 0
+        out[f".params['{n}']"] = Piece(glob, plan.param_offset(n, shape), tp_own and first)
+        zero = plan.zero(n)
         state_piece = Piece(glob, plan.state_offset(n, shape) if zero
                             else plan.param_offset(n, shape),
-                            tp_own and (zero or plan.dp_rank == 0))
+                            tp_own and (zero or first))
         for field in getattr(opt_state, "_fields", ()):
             tree = getattr(opt_state, field)
             if isinstance(tree, dict) and n in tree:
@@ -151,20 +161,26 @@ def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
     dp_group, dp = plan.dp_group, plan.dp
     # in the trainable tree's order: every rank issues the collectives alike
     # (a set's order varies from process to process)
-    zero = [n for n in names if plan.dims.get(n) is not None] if plan.sharded else []
+    zero = [n for n in names if plan.zero(n)]
     layout = dict(tp_group=model.group, dp_group=dp_group, pp_group=model.pp_group,
                   tp_sharded={n for n in names if plan.tp_dim(n) is not None},
-                  dp_sharded=set(zero))
+                  dp_sharded=set(zero), ep_sharded=set(plan.expert),
+                  edp_group=plan.edp_group)
     # each ZeRO leaf's shard of the new params, written by the update and
     # all-gathered into the params (allocated at the first step)
     shard_out: Tree = {}
 
     def reduce_over_dp(loss, grads):
-        """The DP means: the loss, and each gradient (its ZeRO slice)."""
+        """The DP means: the loss, and each gradient (its ZeRO slice); an
+        expert leaf's gradient is summed over its edp group alone (its
+        owner already holds its ep group's share) and divided by dp."""
         loss = all_reduce_sum_(loss.float().reshape(1), dp_group).reshape(()) / dp
-        return loss, {n: (reduce_scatter_mean(g, plan.dims[n], dp_group, dp) if n in zero
-                          else all_reduce_mean_(g.contiguous(), dp_group, dp))
-                      for n, g in grads.items()}
+        out = {}
+        for n, g in grads.items():
+            group, ranks, _ = plan.reduction(n)
+            out[n] = (reduce_scatter_mean(g, plan.dims[n], group, ranks, divisor=dp) if n in zero
+                      else all_reduce_mean_(g.contiguous(), group, dp))
+        return loss, out
 
     def zero_update(grads, opt_state, params, scale):
         """The update on the state shards; the new param shards all-gathered
@@ -184,7 +200,8 @@ def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
                                                     out=out)
         for n in zero:
             target = params[n] if donate else torch.empty_like(params[n])
-            all_gather_into(target, new[n], plan.dims[n], dp_group, dp)
+            group, ranks, _ = plan.reduction(n)
+            all_gather_into(target, new[n], plan.dims[n], group, ranks)
             new[n] = target
         return new, opt_state
 

@@ -13,7 +13,7 @@ suffix), and the card's name and power limit.
 
     python3 scripts/cp_pp_phase.py [--cp-layers N] [--out PATH]
 
-``--cp-layers N`` sets the depth of (c0) and (c1) (default 4). It exits 1
+``--cp-layers N`` sets the depth of (c0) and (c1) (default 2). It exits 1
 when a gate fails or when no GPU is present.
 """
 

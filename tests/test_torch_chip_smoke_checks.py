@@ -1328,8 +1328,8 @@ def _dist_run():
                       "tp_sharded_leaves": ["a"], "state_bytes_tp_sharded": 1000,
                       "d1": {"steps": [{"loss": (10.0 - i) * 1.001, "digest": f"p{tp}{i}",
                                         "replicated_digest": f"r{i}"} for i in range(3)],
-                             "launches": {"flash_block_forward": 24, "flash_bwd_dkdv": 12,
-                                          "flash_bwd_dq": 12, "fused_adamw_leaf": 90}}})
+                             "launches": {"flash_block_forward": 12, "flash_bwd_dkdv": 6,
+                                          "flash_bwd_dq": 6, "fused_adamw_leaf": 48}}})
     return d0, {"ranks": ranks}
 
 
@@ -1426,4 +1426,68 @@ def test_cppp_gates_catch_each_fault(smoke, fault, says):
     else:
         rk["c1"]["steps"][0]["loss"] += 1e-4
     problems = smoke.cppp_gates(c0, p0, ranks)
+    assert any(says in p for p in problems), problems
+
+
+def _moe_run():
+    """A fabricated phase-4n reading that passes every gate: (m0), four
+    (m1) ranks at TP 2 x EP 2, and (m2)'s CPU side."""
+    m0 = {"steps": [{"loss": 10.0 - i, "grad_norm": 1.0} for i in range(3)]}
+    launches = {"flash_block_forward": 4, "flash_bwd_dkdv": 2, "flash_bwd_dq": 2,
+                "fused_adamw_leaf": 40}
+    ranks = [{"rank": r,
+              "m1": {"steps": [{"loss": (10.0 - i) * 1.004} for i in range(3)],
+                     "launches": dict(launches), "collectives": {"all_to_all": [24, 10]}},
+              "m2": {"tp2_ep2": {"bit_identical": True}}} for r in range(4)]
+    small = {"max_abs_err": {"tp2_ep2": 4e-7, "ep2_edp2": 5e-7},
+             "dropped_equal": {"tp2_ep2": True, "ep2_edp2": True},
+             "dbrx_max_abs_err": 3e-7, "dbrx_dropped_equal": True,
+             "tp1_ep1_equals_gathered": True, "flipped_byte_caught": True}
+    return m0, ranks, small
+
+
+def test_moe_gates_hold_on_a_good_run(smoke):
+    m0, ranks, small = _moe_run()
+    assert smoke.moe_gates(m0, ranks) == []
+    assert smoke.moe_small_problems(small, ranks) == []
+    assert abs(m0["m1_loss_max_rel_diff"] - 4e-3) < 1e-9
+
+
+@pytest.mark.parametrize("fault,says", [
+    ("loss", "(m1) losses differ from (m0)'s"), ("b1", "never launched flash_block_forward"),
+    ("b3", "never launched flash_bwd_dkdv"), ("b4", "never launched fused_adamw_leaf"),
+    ("a2a", "sent no token through the expert all-to-all"), ("steps", "ran 2 (m1) steps"),
+    ("ranks", "(m1) losses differ from rank 0's"),
+    ("small", "(m2) ep2_edp2: losses or grad norms differ"),
+    ("dropped", "(m2) tp2_ep2: dropped assignments differ"),
+    ("dbrx", "(m2) DBRX: the step differs"), ("resume", "the resumed step 3 is not bit"),
+    ("load", "tp1_ep1_equals_gathered failed"), ("flip", "flipped_byte_caught failed")])
+def test_moe_gates_catch_each_fault(smoke, fault, says):
+    m0, ranks, small = _moe_run()
+    rk = ranks[2]
+    if fault == "loss":
+        for r in ranks:
+            r["m1"]["steps"][1]["loss"] *= 1.02
+    elif fault in ("b1", "b3", "b4"):
+        name = {"b1": "flash_block_forward", "b3": "flash_bwd_dkdv", "b4": "fused_adamw_leaf"}
+        rk["m1"]["launches"][name[fault]] = 0
+    elif fault == "a2a":
+        rk["m1"]["collectives"] = {"all_reduce": [10, 10]}
+    elif fault == "steps":
+        rk["m1"]["steps"].pop()
+    elif fault == "ranks":
+        rk["m1"]["steps"][0]["loss"] += 1e-4
+    elif fault == "small":
+        small["max_abs_err"]["ep2_edp2"] = 3e-5
+    elif fault == "dropped":
+        small["dropped_equal"]["tp2_ep2"] = False
+    elif fault == "dbrx":
+        small["dbrx_max_abs_err"] = 2e-5
+    elif fault == "resume":
+        rk["m2"]["tp2_ep2"]["bit_identical"] = False
+    elif fault == "load":
+        small["tp1_ep1_equals_gathered"] = False
+    else:
+        small["flipped_byte_caught"] = False
+    problems = smoke.moe_gates(m0, ranks) + smoke.moe_small_problems(small, ranks)
     assert any(says in p for p in problems), problems

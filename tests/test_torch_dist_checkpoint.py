@@ -13,6 +13,11 @@ pieces.
 * a flipped byte in one rank's piece fails ``verify=True``;
 * ``convert_zero_checkpoints --params-only`` writes the global params as
   one rank (JAX ``tests/test_checkpoint.py:392``);
+* a Mixtral state saved at TP2 x EP2 and at EP2 x edp 2 (each expert
+  leaf a piece per (ep, tp) slice; at edp 2 its ZeRO-1 state split over
+  edp), optimizer state included, resumes bit for bit, loads at TP1 x
+  EP1 on one rank (every rank's block equal to the whole leaf's) and
+  back, and a flipped byte in a rank's piece is caught;
 * a ``PipelinedLlama`` state saved at TP2 x PP2 (and with two VPP chunks
   a stage), where each leaf lives on one stage under its global name,
   resumes bit for bit, loads at TP1 x PP1 on one rank (each leaf whole,
@@ -29,6 +34,7 @@ import torch
 from neuronx_distributed_tpu_torch.checkpoint import core as tcore
 from neuronx_distributed_tpu_torch.checkpoint import storage as tstorage
 from neuronx_distributed_tpu_torch.models import llama as tl
+from neuronx_distributed_tpu_torch.models import mixtral as tm
 from neuronx_distributed_tpu_torch.models.llama_pipeline import PipelinedLlama
 from neuronx_distributed_tpu_torch.optimizer import convert_zero_checkpoints as czc
 from neuronx_distributed_tpu_torch.parallel import mesh
@@ -297,3 +303,94 @@ def test_pp_layout_resumes_and_loads_at_one_rank_and_back(tmp_path, chunks):
         for n in st.params:
             assert torch.equal(got_back.params[n], st.params[n]), n
             assert torch.equal(got_back.opt_state.mu[n], st.opt_state.mu[n]), n
+
+
+def _moe_trainer():
+    """A tiny Mixtral's trainer at this rank's layout (one rank off-mesh),
+    seeded: the same global weights at every layout."""
+    on = mesh.model_parallel_is_initialized()
+    tp = mesh.get_tensor_model_parallel_size() if on else 1
+    ep = mesh.get_expert_model_parallel_size() if on else 1
+    cfg = neuronx_distributed_config(tensor_parallel_size=tp, expert_parallel_size=ep,
+                                     optimizer_config={"zero_one_enabled": True})
+    model = initialize_parallel_model(cfg, lambda: tm.MixtralForCausalLM(tm.MixtralConfig(
+        **TINY, dtype=torch.float32, num_experts=4, top_k=2, capacity_factor=1.25)),
+        device="cpu")
+    opt = initialize_parallel_optimizer(cfg, model, learning_rate=1e-3)
+
+    def loss_fn(p, b, rng):
+        model.bind(p)
+        return tm.mixtral_loss(model.module, b["ids"], b["labels"])
+
+    return model, opt, create_train_state(model, opt), make_train_step(model, opt, loss_fn)
+
+
+@pytest.mark.parametrize("tp", [2, 1])
+def test_ep_layout_resumes_and_loads_at_one_rank(tmp_path, tp):
+    root = str(tmp_path)
+    degrees = dict(tensor_model_parallel_size=tp, expert_model_parallel_size=2)
+
+    def straight(r):
+        _, _, state, step = _moe_trainer()
+        return _run(state, step, [1, 2, 3])
+
+    def first(r):
+        _, opt, state, step = _moe_trainer()
+        state, losses = _run(state, step, [1, 2])
+        tcore.save_checkpoint(root, "step_2", state, async_save=True)
+        tcore.finalize_checkpoint()
+        return state, losses, opt.zero1_plan
+
+    def resumed(r):
+        _, _, state, step = _moe_trainer()
+        state, _ = tcore.load_checkpoint(root, target=state, verify=True)
+        return _run(state, step, [3])
+
+    want = mesh.run_in_threads(WORLD, straight, **degrees)
+    head = mesh.run_in_threads(WORLD, first, **degrees)
+    got = mesh.run_in_threads(WORLD, resumed, **degrees)
+    plan = head[0][2]
+    assert plan.expert and all(plan.zero(n) == (tp == 1) for n in plan.expert)
+    for (st_w, l_w), (_, l_h, _), (st_g, l_g) in zip(want, head, got):
+        assert l_h + l_g == l_w
+        for n in st_w.params:
+            assert torch.equal(st_g.params[n], st_w.params[n]), n
+            assert torch.equal(st_g.opt_state.master[n], st_w.opt_state.master[n]), n
+    # TP1 x EP1 on one rank: each leaf whole, every rank's block equal to it
+    _, _, target, _ = _moe_trainer()
+    whole, _ = tcore.load_checkpoint(root, "step_2", target=target, verify=True)
+    assert int(whole.step) == 2
+    covered = set()
+    for st, _, _ in head:
+        for path, piece in st.layout.items():
+            field, _, name = path[1:].partition("['")
+            name = name[:-2]
+            local = (st.params[name] if field == "params"
+                     else getattr(st.opt_state, field.split(".")[1])[name])
+            glob = (whole.params[name] if field == "params"
+                    else getattr(whole.opt_state, field.split(".")[1])[name])
+            assert tuple(glob.shape) == tuple(piece.global_shape)
+            block = glob[tuple(slice(o, o + n) for o, n in zip(piece.offset, local.shape))]
+            assert torch.equal(block, local), path
+            covered.add((path, piece.offset))
+    experts = [p for p, _ in covered if p == ".params['model.layers.0.moe.experts.gate']"]
+    assert len(experts) == 2 * tp   # one piece per (ep, tp) slice
+    # and back: the one-rank tag into the EP layout, ZeRO state included
+    back = str(tmp_path / "back")
+    tcore.save_checkpoint(back, "t", whole)
+
+    def load(r):
+        _, _, target, _ = _moe_trainer()
+        return tcore.load_checkpoint(back, "t", target=target)[0]
+
+    for (st, _, _), again in zip(head, mesh.run_in_threads(WORLD, load, **degrees)):
+        for n in st.params:
+            assert torch.equal(again.params[n], st.params[n]), n
+            for f in ("mu", "nu", "master"):
+                assert torch.equal(getattr(again.opt_state, f)[n], getattr(st.opt_state, f)[n])
+    path = os.path.join(root, "step_2", "state", "tensors.rank00001.safetensors")
+    data = bytearray(open(path, "rb").read())
+    data[-5] ^= 0x10
+    open(path, "wb").write(bytes(data))
+    with pytest.raises(tcore.CheckpointIntegrityError, match="tensors.rank00001"):
+        tcore.load_checkpoint(root, verify=True)

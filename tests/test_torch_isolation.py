@@ -294,13 +294,33 @@ def test_program_modules_stand_alone():
 def test_quantization_and_moe_modules_stand_alone():
     """Int8 serving and the Mixtral family are the port's own: the standard
     library, torch and the port only."""
-    allowed = {"__future__", "collections", "dataclasses", "math", "re", "typing", "torch",
-               "neuronx_distributed_tpu_torch"}
+    allowed = {"__future__", "collections", "contextlib", "dataclasses", "math", "re",
+               "typing", "torch", "neuronx_distributed_tpu_torch"}
     for mod in ("quantization.core", "kernels.w8a16", "moe.routing", "moe.expert_mlps",
                 "moe.layer", "models.mixtral"):
         assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
         path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
         assert set(_imported_roots(path)) <= allowed, mod
+
+
+def test_expert_parallel_training_stands_alone():
+    """The expert-parallel training line (the Mixtral example, the MoE
+    modules, the parallel core it extends) and the script that runs phase
+    4n alone import neither JAX nor the JAX package, and the script needs
+    a GPU: without one it exits 1 and prints no result."""
+    files = [PORT / "examples" / "mixtral_moe.py", ROOT / "scripts" / "moe_phase.py"] + [
+        PORT.joinpath(*m.split(".")).with_suffix(".py")
+        for m in ("moe.routing", "moe.expert_mlps", "moe.layer", "models.mixtral",
+                  "parallel.mesh", "parallel.mappings", "optimizer.zero1", "parallel.grads",
+                  "trainer.step", "trainer.model")]
+    for f in files:
+        assert f.exists(), f
+        assert not set(_imported_roots(f)) & FORBIDDEN, f
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": ""}
+    res = subprocess.run([sys.executable, str(ROOT / "scripts" / "moe_phase.py")], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 1 and "no CUDA device" in res.stderr
+    assert '"ok"' not in res.stdout
 
 
 def test_fleet_modules_stand_alone():

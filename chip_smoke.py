@@ -20,6 +20,10 @@ Phases, each fatal on failure (exit code 1, no result line):
            decode again at head_dim 96 and 80 (the widths the kernels are
            not built for) and at 160 and 256 (the 256-wide builds, timed
            at 256), paged decode also over an fp32 pool at 256; flash
+           forward and backward at phase 4o's layers, timed: BERT-large
+           (16 x 16 heads of 64 over 512 tokens, bidirectional under the
+           pad keys of ``synthetic_mlm_batches``) and GPT-NeoX-20B (8 x 64
+           heads of 96 over 2048 tokens, causal, at the 128-wide build); flash
            forward again at a chunk extend of the trace phase (queries at
            positions 2560..3071 over a 4096-key view); the W8A16 GEMM (B5)
            at the shapes of phase 4h (dense decode both ways, all_experts
@@ -244,6 +248,23 @@ Phases, each fatal on failure (exit code 1, no result line):
            save after step 2 and a fresh group resuming step 3 bit for bit,
            the tag at TP1 x EP1 equal to the gathered params, a flipped byte
            caught, and the small DBRX model's step (1e-5).
+4o. families the GPT-NeoX and BERT families: (b0) ``bert_large`` at full
+           width and depth through the BERT example's entry point on one
+           rank (16 x 512 tokens a step of ``synthetic_mlm_batches``, fp32
+           weights and masters, bf16 compute, dropout 0.1, 4 steps; every
+           loss finite, B1, B3a, B3b and B4 launched, the peak below the
+           card's), then the same model on one repeated batch and dropout
+           seed, whose loss after 5 steps must be below the first; (n0)
+           ``gpt_neox_20b`` widths at 2 layers, 8 x 2048 tokens a step of a
+           seeded stream, bf16 with fp32 masters, remat ``"attention"``,
+           clipping 1.0, 3 steps on one rank: the kernels launched, every B1
+           at head_dim 96 (the 128-wide build), the peak below the card's;
+           (n1) the same run through the NeoX example's entry point as four
+           processes on the card over gloo (TP 2 x DP 2, SP and ZeRO-1 on):
+           each step's loss within 1 % of (n0)'s, the DP replicas and the
+           TP-replicated leaves bit-identical after every step, the kernels
+           launched in every rank; (n2) the small fp32 NeoX (SP) and BERT on
+           that layout against one CPU rank (1e-5).
 
 ``--profile PATH`` repeats each trace and overload pass under
 ``torch.profiler`` (device activity only) for the device's busy share of
@@ -8086,6 +8107,708 @@ def print_moe(st: dict, card: str) -> None:
           f"{sm['flipped_byte_caught']}; phase {st['phase_s']:.1f} s [{card}]", flush=True)
 
 
+# --- kernel cases at the families' shapes (phase 2) -------------------------------------
+
+FAM_KERNEL_BERT = dict(b=16, h=16, s=512, d=64)    # bert_large, 16 x 512 tokens a step
+FAM_KERNEL_NEOX = dict(b=8, h=64, s=2048, d=96)    # gpt_neox_20b, 8 x 2048 tokens a step
+# The element rule's floors where these shapes need other ones than
+# ``head_dim_floors`` give. Readings on an H100 (the seeded inputs and the
+# kernels are deterministic: every run reads the same): at the BERT shape
+# the kernels need out 2.1e-4, dq 3.9e-4, dk 3.4e-4, dv 2.4e-4 (medians
+# 0.054, 0.052, 0.040, 0.041), under the default floors; at the NeoX shape
+# out 1.03e-3 (median 0.0374: the default 8.5e-4 is too low), dq 7.2e-4, dk
+# 1.01e-3 (median 0.0212: the default 1.5e-3 is above 5 % of it, 1.06e-3),
+# dv 2.4e-4. The out floor is raised to under 5 % of its median, the dk
+# floor lowered to it.
+FAM_KERNEL_FLOORS = {"bert": {}, "neox": {"out": 1.8e-3, "dk": 1.05e-3}}
+
+
+def family_kernel_case(dev, case: str):
+    """B1's and B3's operands at one attention layer of a family's training
+    step, bf16: BERT-large bidirectional under the pad keys of the first
+    ``synthetic_mlm_batches`` batch (queries at ``s - 1``, valid keys at 0,
+    pad keys at ``s``: ``models.bert.mask_positions``), or GPT-NeoX-20B
+    causal at head_dim 96 (run at the 128-wide build). Returns the forward's
+    arguments, dO and the SDPA call on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuronx_distributed_tpu_torch.examples.common import synthetic_mlm_batches
+    from neuronx_distributed_tpu_torch.models.bert import mask_positions
+
+    p = FAM_KERNEL_BERT if case == "bert" else FAM_KERNEL_NEOX
+    b, h, s, d = p["b"], p["h"], p["s"], p["d"]
+    g = torch.Generator(device=dev).manual_seed(31)
+    q, k, v, do = (torch.randn((b * h, s, d), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    q4, k4, v4 = (t.reshape(b, h, s, d) for t in (q, k, v))
+    if case == "bert":
+        mask = torch.as_tensor(next(synthetic_mlm_batches(30522, b, s))["attention_mask"],
+                               device=dev)
+        qpos, kpos = mask_positions(mask)
+        keep = mask.bool()[:, None, None, :]
+
+        def library(q4=q4, k4=k4, v4=v4):
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)
+    else:
+        qpos = kpos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+
+        def library(q4=q4, k4=k4, v4=v4):
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    qpos, kpos = qpos.reshape(b, 1, s).contiguous(), kpos.reshape(b, 1, s).contiguous()
+    return (q, k, v, qpos, kpos, d ** -0.5, 64, 64, 1, h), do, library
+
+
+def run_family_kernels(dev, flush, reps=5) -> dict:
+    """B1 and B3a/B3b at the BERT-large and GPT-NeoX-20B shapes of phase 4o:
+    each output held element by element against its twin or its fp64
+    evaluation (``held``, the floors of ``head_dim_floors``, each under 5 %
+    of its median |ref|), the LSE against the twin's, pad keys' dK/dV
+    exactly 0; each timed beside its twin, SDPA on the same inputs (the
+    boolean pad mask for BERT, ``is_causal`` for NeoX; its forward plus
+    backward for B3) and its bound (the operations of the visible pairs)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_block_forward_plain,
+        flash_bwd_dkdv,
+        flash_bwd_dkdv_plain,
+        flash_bwd_dq,
+        flash_bwd_dq_plain,
+    )
+
+    out, problems = {}, []
+    for case in ("bert", "neox"):
+        fwd, do, library = family_kernel_case(dev, case)
+        q, k, v, qpos, kpos = fwd[:5]
+        bh, s, d = q.shape
+        b = qpos.shape[0]
+        floors = {**head_dim_floors(d), **FAM_KERNEL_FLOORS[case]}
+        o, lse = flash_block_forward(*fwd)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_block_forward_plain(*fwd)
+        r = {"out": held(o, ref, floors["out"], exact=fwd_exact(*fwd)[0]),
+             "lse": dict(max_abs_err=float((lse - ref_lse).abs().max()), tolerance=TOL_LSE)}
+        del ref, ref_lse
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, qpos, kpos, *fwd[5:])
+        got = (flash_bwd_dq(*args), *flash_bwd_dkdv(*args))
+        torch.cuda.synchronize()
+        want = (flash_bwd_dq_plain(*args), *flash_bwd_dkdv_plain(*args))
+        for name, a, w, x in zip(("dq", "dk", "dv"), got, want, bwd_exact(*args)):
+            check(bool(torch.isfinite(a).all()), f"flash backward {name} ({case}) is not finite")
+            r[name] = held(a, w, floors[name], exact=x)
+        del want
+        if case == "bert":   # pad keys take no gradient
+            pads = (kpos.reshape(b, s) != 0).repeat_interleave(bh // b, dim=0)
+            check(float(got[1][pads].abs().max()) == 0.0 and
+                  float(got[2][pads].abs().max()) == 0.0,
+                  "family kernels (bert): a pad key got a nonzero dK or dV")
+        del got
+        if r["lse"]["max_abs_err"] > TOL_LSE:
+            problems.append(f"flash_fwd lse ({case}) differs from its twin by "
+                            f"{r['lse']['max_abs_err']}")
+        for name, x in r.items():
+            if "floor" not in x:
+                continue
+            if not x["ok"]:
+                problems.append(f"{name} at the {case} shape differs from its twin beyond "
+                                f"{x['rel']:.3g} * |ref| + {x['floor']:.3g} (needs "
+                                f"{x['floor_needed']:.3g}, median |ref| "
+                                f"{x['median_abs_ref']:.3g})")
+            if x["floor"] > FLOOR_SHARE_OF_MEDIAN * x["median_abs_ref"]:
+                problems.append(f"{name} at the {case} shape: floor {x['floor']:.3g} exceeds "
+                                f"{FLOOR_SHARE_OF_MEDIAN:.0%} of the median |ref| "
+                                f"{x['median_abs_ref']:.3g}")
+        pairs = int((kpos.reshape(b, 1, s) <= qpos.reshape(b, s, 1)).sum()) * (bh // b)
+        common = nbytes(q, k, v, do, lse, delta, qpos, kpos)
+        qg, kg, vg = (t.reshape(b, -1, s, d).detach().requires_grad_(True) for t in (q, k, v))
+        do4 = do.reshape(b, -1, s, d)
+
+        def library_bwd():
+            return torch.autograd.grad(library(qg, kg, vg), (qg, kg, vg), do4)
+
+        bwd_library_ms = time_ms(library_bwd, reps, flush)
+        shape = (f"q ({bh}, {s}, {d}) bf16, k/v ({bh}, {s}, {d}), group 1, "
+                 + ("bidirectional, the pad keys of synthetic_mlm_batches" if case == "bert"
+                    else "causal, at the 128-wide build"))
+        timed = {
+            "flash_fwd": dict(
+                ms=time_ms(lambda: flash_block_forward(*fwd), reps, flush),
+                plain_ms=time_ms(lambda: flash_block_forward_plain(*fwd), 1, flush),
+                library_ms=time_ms(library, reps, flush),
+                **bound(4 * d * pairs, nbytes(q, k, v, qpos, kpos, o, lse))),
+            "flash_bwd_dkdv": dict(
+                ms=time_ms(lambda: flash_bwd_dkdv(*args), reps, flush),
+                plain_ms=time_ms(lambda: flash_bwd_dkdv_plain(*args), 1, flush),
+                library_ms=bwd_library_ms, **bound(8 * d * pairs, common + 2 * nbytes(k))),
+            "flash_bwd_dq": dict(
+                ms=time_ms(lambda: flash_bwd_dq(*args), reps, flush),
+                plain_ms=time_ms(lambda: flash_bwd_dq_plain(*args), 1, flush),
+                library_ms=bwd_library_ms, **bound(6 * d * pairs, common + nbytes(q))),
+        }
+        library_name = ("SDPA, bool pad mask" if case == "bert" else "SDPA, is_causal")
+        for name, t in timed.items():
+            t.update(library=library_name + ("" if name == "flash_fwd" else
+                                             ", forward + backward"),
+                     tflops=t["flops"] / (t["ms"] * 1e-3) / 1e12, bound_share=t["bound_ms"] / t["ms"])
+        out[case] = dict(shape=shape, held=r, timed=timed)
+        del fwd, do, o, lse, delta, args, qg, kg, vg
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, problems
+
+
+def print_family_kernels(fam: dict, card: str) -> None:
+    for case, r in fam.items():
+        print(f"  held at the {case} shape, {r['shape']}: " + "; ".join(
+            f"{n} max |err| {x['max_abs_err']:.3g}" + (
+                f", floor needed {x['floor_needed']:.3g} of {x['floor']:.3g}, median |ref| "
+                f"{x['median_abs_ref']:.3g}" if "floor" in x else f" (tol {x['tolerance']})")
+            for n, x in r["held"].items()) + f" [{card}]", flush=True)
+        for name, t in r["timed"].items():
+            print(f"kernel {name} at the {case} shape: {r['shape']}; {t['ms']:.4f} ms, "
+                  f"{t['tflops']:.1f} TFLOP/s, {t['bound_share']:.1%} of bound, twin "
+                  f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms ({t['library']}), "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]", flush=True)
+
+
+# --- phase 4o: the GPT-NeoX and BERT families --------------------------------------------
+
+FAM_BERT_BATCH, FAM_BERT_SEQ, FAM_BERT_STEPS = 16, 512, 4   # (b0): bert_large, full depth
+FAM_BERT_DESCENT_STEPS = 5        # (b0): one repeated batch, the loss must fall
+FAM_NEOX_LAYERS = 2               # gpt_neox_20b depth 44 -> 2
+FAM_NEOX_SEQ, FAM_NEOX_BATCH, FAM_NEOX_STEPS = 2048, 8, 3
+FAM_LR = 1e-4                     # the examples' default
+FAM_WORLD, FAM_TP = 4, 2          # (n1): TP 2 x DP 2, four processes on the one card
+FAM_LOSS_RTOL = 1e-2              # (n1) vs (n0), bf16
+FAM_SMALL_TOL = 1e-5              # (n2): card ranks vs one CPU rank, fp32, relative
+FAM_SMALL_BATCH, FAM_SMALL_STEPS, FAM_SMALL_LR = 4, 3, 1e-4
+FAM_TIMEOUT_S = 300               # every group's timeout
+FAM_CHILD_TIMEOUT_S = 900         # the parent's wait for the ranks
+FAM_COUNTERS = DIST_COUNTERS
+
+
+def fam_bert_args(extra=()) -> list:
+    return ["--tp", "1", "--batch_size", str(FAM_BERT_BATCH), "--seq_len", str(FAM_BERT_SEQ),
+            "--steps", str(FAM_BERT_STEPS), "--lr", str(FAM_LR), "--log_every", "0", *extra]
+
+
+def fam_neox_args(layers: int, extra=()) -> list:
+    return ["--size", "20b", "--layers", str(layers), "--seq_len", str(FAM_NEOX_SEQ),
+            "--batch_size", str(FAM_NEOX_BATCH), "--steps", str(FAM_NEOX_STEPS), "--lr",
+            str(FAM_LR), "--log_every", "0", *extra]
+
+
+def _step_hook(steps: list, mark: dict):
+    """``on_step`` of an example's ``main``: each step's loss, grad norm and
+    ms (from the previous step's end; the first step's is None: it follows
+    the set-up)."""
+    import torch
+
+    def on_step(i, state, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append(dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                          ms=(now - mark["t"]) * 1e3 if "t" in mark else None))
+        mark["t"] = time.perf_counter()
+
+    return on_step
+
+
+def fam_b0(dev, counters) -> dict:
+    """(b0): ``bert_large`` at full width and depth through the BERT
+    example's ``main`` on one rank (fp32 weights and masters, bf16 compute,
+    dropout 0.1, ZeRO off: one rank), counters zeroed just before ``main``
+    and read just after; then the same model on one repeated batch (and
+    dropout seed) for ``FAM_BERT_DESCENT_STEPS`` steps through the trainer."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.examples import bert_pretrain as example
+    from neuronx_distributed_tpu_torch.examples.common import synthetic_mlm_batches, to_device
+    from neuronx_distributed_tpu_torch.models.bert import BertForPreTraining
+    from neuronx_distributed_tpu_torch.trainer import (
+        create_train_state,
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+        neuronx_distributed_config,
+    )
+
+    _, total = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    steps, mark = [], {}
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    example.main(fam_bert_args(["--device", dev]), on_step=_step_hook(steps, mark))
+    launches = {c.__name__: c.launches for c in counters}
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    timed = [s["ms"] for s in steps if s["ms"] is not None]
+    out = dict(steps=steps, launches=launches, peak_bytes=peak, card_bytes=total, main_s=main_s,
+               step_ms_mean=sum(timed) / len(timed),
+               tokens_per_s=FAM_BERT_BATCH * FAM_BERT_SEQ / (sum(timed) / len(timed) / 1e3))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    args = example.parse_args(fam_bert_args())
+    cfg = example.build_config(args)
+    nxd = neuronx_distributed_config(optimizer_config={"zero_one_enabled": False},
+                                     mixed_precision_config={"use_master_weights": True})
+    model = initialize_parallel_model(nxd, lambda: BertForPreTraining(cfg), device=dev)
+    out["params"] = model.num_params()
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=FAM_LR,
+                                        weight_decay=args.weight_decay)
+    state = create_train_state(model, opt)
+
+    def loss_fn(p, b, rng):
+        model.bind(p)
+        return model.module.loss(b["input_ids"], b["masked_lm_labels"], b["next_sentence_labels"],
+                                 b["token_type_ids"], b["attention_mask"], deterministic=False,
+                                 dropout_seed=rng)
+
+    step = make_train_step(model, opt, loss_fn)
+    batch = to_device(next(synthetic_mlm_batches(cfg.vocab_size, FAM_BERT_BATCH, FAM_BERT_SEQ)),
+                      dev)
+    losses = []
+    for _ in range(FAM_BERT_DESCENT_STEPS):
+        state, m = step(state, batch, 1)
+        losses.append(float(m["loss"]))
+    out["descent_losses"] = losses
+    del model, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_b0_problems(b0: dict) -> list:
+    bad = []
+    if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in b0["steps"]):
+        bad.append(f"(b0): a non-finite loss or grad norm {b0['steps']}")
+    if len(b0["steps"]) != FAM_BERT_STEPS:
+        bad.append(f"(b0) ran {len(b0['steps'])} steps, not {FAM_BERT_STEPS}")
+    for name in FAM_COUNTERS:
+        if b0["launches"].get(name, 0) <= 0:
+            bad.append(f"(b0) never launched {name}")
+    if b0["peak_bytes"] >= b0["card_bytes"]:
+        bad.append(f"(b0): peak {b0['peak_bytes']} bytes is not below the card's")
+    d = b0["descent_losses"]
+    if not (all(math.isfinite(x) for x in d) and d[-1] < d[0]):
+        bad.append(f"(b0): on one repeated batch the loss did not fall: {d}")
+    return bad
+
+
+def fam_n0(dev, counters, layers=FAM_NEOX_LAYERS) -> dict:
+    """(n0): the NeoX example's ``gpt_neox_20b`` model at ``layers`` layers
+    and its batches on one rank through the trainer (bf16 weights, fp32
+    masters, remat ``"attention"``, clipping 1.0; ZeRO off: one rank),
+    counters zeroed just before the steps and read just after; the head
+    dims B1 was launched at, recorded at the launch."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.examples import gpt_neox_pretrain as example
+    from neuronx_distributed_tpu_torch.examples.common import synthetic_lm_batches, to_device
+    from neuronx_distributed_tpu_torch.kernels import flash_attn
+    from neuronx_distributed_tpu_torch.models.gpt_neox import GPTNeoXForCausalLM
+    from neuronx_distributed_tpu_torch.trainer import (
+        create_train_state,
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+        neuronx_distributed_config,
+    )
+
+    _, total = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = example.parse_args(fam_neox_args(layers))
+    cfg = example.build_config(args, FAM_NEOX_SEQ)
+    nxd = neuronx_distributed_config(
+        optimizer_config={"zero_one_enabled": False, "grad_clipping": True, "max_grad_norm": 1.0},
+        mixed_precision_config={"use_master_weights": True})
+    model = initialize_parallel_model(nxd, lambda: GPTNeoXForCausalLM(cfg), device=dev)
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=FAM_LR,
+                                        weight_decay=args.weight_decay)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, lambda p, b, rng: model.apply(
+        p, b["ids"], b["labels"], method="loss"))
+    batches = synthetic_lm_batches(cfg.vocab_size, FAM_NEOX_BATCH, FAM_NEOX_SEQ, seed=args.seed)
+    next(batches)   # the example's init sample
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    widths = collections.Counter()
+    launch = flash_attn._flash_fwd_kernel
+
+    def spy(q, *rest):
+        widths[q.shape[-1]] += 1
+        return launch(q, *rest)
+
+    flash_attn._flash_fwd_kernel = spy
+    zero_launches(counters)
+    steps = []
+    try:
+        for _ in range(FAM_NEOX_STEPS):
+            batch = to_device(next(batches), dev)
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                              ms=(time.perf_counter() - t) * 1e3))
+    finally:
+        flash_attn._flash_fwd_kernel = launch
+    out = dict(layers=cfg.num_layers, head_dim=cfg.head_dim_, rope_dims=cfg.rope_dims,
+               steps=steps, launches={c.__name__: c.launches for c in counters},
+               b1_head_dims={str(w): n for w, n in widths.items()},
+               kernel_head_dim=flash_attn.kernel_head_dim(cfg.head_dim_), setup_s=setup_s,
+               params=model.num_params(), peak_bytes=torch.cuda.max_memory_allocated(),
+               card_bytes=total)
+    out["tokens_per_s"] = FAM_NEOX_BATCH * FAM_NEOX_SEQ / (
+        sum(s["ms"] for s in steps[1:]) / len(steps[1:]) / 1e3)
+    del model, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_n0_problems(n0: dict) -> list:
+    bad = []
+    if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in n0["steps"]):
+        bad.append(f"(n0): a non-finite loss or grad norm {n0['steps']}")
+    for name in FAM_COUNTERS:
+        if n0["launches"].get(name, 0) <= 0:
+            bad.append(f"(n0) never launched {name}")
+    b1 = n0["launches"].get("flash_block_forward", 0)
+    if n0["b1_head_dims"] != {"96": b1} or b1 < n0["layers"] * FAM_NEOX_STEPS:
+        bad.append(f"(n0): B1 ran at head dims {n0['b1_head_dims']} ({b1} launches), not every "
+                   f"layer's at 96")
+    if n0["kernel_head_dim"] != 128:
+        bad.append(f"(n0): head_dim 96 runs at the {n0['kernel_head_dim']}-wide build")
+    if n0["peak_bytes"] >= n0["card_bytes"]:
+        bad.append(f"(n0): peak {n0['peak_bytes']} bytes is not below the card's")
+    return bad
+
+
+def fam_small_configs() -> dict:
+    """(n2)'s small fp32 models: NeoX at head_dim 128 (a kernel width,
+    rotary over 32 dims) and BERT at head_dim 64, no dropout."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.bert import BertConfig
+    from neuronx_distributed_tpu_torch.models.gpt_neox import GPTNeoXConfig
+
+    return dict(
+        neox=GPTNeoXConfig(vocab_size=512, hidden_size=512, intermediate_size=1024,
+                           num_layers=2, num_heads=4, num_kv_heads=4, max_seq_len=256,
+                           dtype=torch.float32, param_dtype=torch.float32),
+        bert=BertConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                        num_heads=4, max_position_embeddings=256, hidden_dropout=0.0,
+                        dtype=torch.float32, param_dtype=torch.float32))
+
+
+def fam_small_batches(name: str) -> list:
+    """(n2)'s global batches, numpy (the same on every rank and the CPU)."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.examples.common import synthetic_mlm_batches
+
+    if name == "bert":
+        it = synthetic_mlm_batches(512, FAM_SMALL_BATCH, 128, seed=40)
+        return [next(it) for _ in range(FAM_SMALL_STEPS)]
+    out = []
+    for i in range(FAM_SMALL_STEPS):
+        ids = np.random.RandomState(40 + i).randint(0, 512, (FAM_SMALL_BATCH, 257))
+        out.append({"ids": ids[:, :-1].astype(np.int32), "labels": ids[:, 1:].astype(np.int32)})
+    return out
+
+
+def fam_small_run(dev, name: str, tp: int) -> list:
+    """(n2): the small fp32 model ``name`` from its seeded global init, TP
+    ``tp`` (SP for NeoX), ZeRO-1, fp32 masters, clipping 1.0, 3 steps on the
+    rank's rows; each step's loss and grad norm."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.bert import BertForPreTraining
+    from neuronx_distributed_tpu_torch.models.gpt_neox import GPTNeoXForCausalLM
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+    from neuronx_distributed_tpu_torch.parallel import mesh
+    from neuronx_distributed_tpu_torch.trainer import (
+        create_train_state,
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+        neuronx_distributed_config,
+    )
+
+    cfg = fam_small_configs()[name]
+    cls = BertForPreTraining if name == "bert" else GPTNeoXForCausalLM
+    params = init_params(cfg, torch.Generator().manual_seed(0), model_cls=cls)
+    nxd = neuronx_distributed_config(
+        tensor_parallel_size=tp, sequence_parallel=tp > 1 and name == "neox",
+        optimizer_config={"zero_one_enabled": True, "grad_clipping": True, "max_grad_norm": 1.0},
+        mixed_precision_config={"use_master_weights": True})
+    model = initialize_parallel_model(nxd, lambda: cls(cfg), device=dev, params=params)
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=FAM_SMALL_LR, weight_decay=0.01)
+    on_mesh = mesh.model_parallel_is_initialized()
+    dp_group = mesh.get_data_parallel_group() if on_mesh else None
+
+    def loss_fn(p, b, rng):
+        model.bind(p)
+        if name == "bert":
+            return model.module.loss(b["input_ids"], b["masked_lm_labels"],
+                                     b["next_sentence_labels"], b["token_type_ids"],
+                                     b["attention_mask"], dp_group=dp_group)
+        return model.module.loss(b["ids"], b["labels"])
+
+    state, step = create_train_state(model, opt), make_train_step(model, opt, loss_fn)
+    rows = mesh.data_batch_slice(FAM_SMALL_BATCH) if on_mesh else slice(None)
+    out = []
+    for b in fam_small_batches(name):
+        state, m = step(state, {k: torch.as_tensor(v[rows]).to(dev) for k, v in b.items()})
+        out.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+    return out
+
+
+def fam_child(rank: int, world: int, port: int, out_path: str, layers: int = FAM_NEOX_LAYERS,
+              dev: str = "cuda:0") -> int:
+    """One rank of (n1) and (n2), a process of its own on ``cuda:0`` over
+    gloo. (n1): the NeoX example's ``main`` at TP 2 x DP 2 (SP, ZeRO-1),
+    with a step hook that reads the loss, grad norm, step time and param
+    digests; launch counters zeroed just before ``main`` and read just
+    after. (n2): the small fp32 NeoX and BERT models on the same layout.
+    Writes every reading to ``out_path``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.examples import gpt_neox_pretrain as example
+    from neuronx_distributed_tpu_torch.kernels import _build
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_bwd_dkdv,
+        flash_bwd_dq,
+    )
+    from neuronx_distributed_tpu_torch.optimizer.fused_kernel import fused_adamw_leaf
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build()
+    res = dict(rank=rank)
+    counters = (flash_block_forward, flash_bwd_dkdv, flash_bwd_dq, fused_adamw_leaf)
+    steps, mark = [], {}
+    hook = _step_hook(steps, mark)
+
+    def on_step(i, state, metrics):
+        hook(i, state, metrics)
+        pieces = state.layout
+        tp_leaves = {n for n, t in state.params.items()
+                     if tuple(pieces[f".params['{n}']"].global_shape) != tuple(t.shape)}
+        steps[-1]["digest"] = _digest(state.params)
+        steps[-1]["replicated_digest"] = _digest({n: t for n, t in state.params.items()
+                                                  if n not in tp_leaves})
+        if i == 0:
+            res["coords"] = mesh.local_mesh_coords()
+            res["param_bytes"] = sum(nbytes(t) for t in state.params.values())
+        mark["t"] = time.perf_counter()
+
+    argv = fam_neox_args(layers, ["--tp", str(FAM_TP), "--backend", "gloo", "--device", dev,
+                                  "--coordinator_address", f"localhost:{port}",
+                                  "--num_processes", str(world), "--process_id", str(rank)])
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    t1 = time.perf_counter()
+    example.main(argv, on_step=on_step)
+    res["n1"] = dict(steps=steps, launches={c.__name__: c.launches for c in counters},
+                     peak_bytes=torch.cuda.max_memory_allocated(),
+                     main_s=time.perf_counter() - t1)
+    mesh.destroy_model_parallel()
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    timeout = datetime.timedelta(seconds=FAM_TIMEOUT_S)
+    res["n2"] = {}
+    for i, name in enumerate(("neox", "bert")):
+        mesh.init_distributed("gloo", rank=rank, world_size=world, local_rank=0,
+                              init_method=f"tcp://localhost:{port + 1 + i}", timeout=timeout)
+        mesh.initialize_model_parallel(FAM_TP, timeout=timeout)
+        res["n2"][name] = fam_small_run(dev, name, FAM_TP)
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+    res["wall_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(res))
+    return 0
+
+
+def fam_ranks(tmp: Path, layers: int = FAM_NEOX_LAYERS) -> dict:
+    """:func:`fam_child` as ``FAM_WORLD`` processes on the one card; the
+    card's used memory polled while they run. A rank that fails or outlives
+    ``FAM_CHILD_TIMEOUT_S`` fails the phase (every process is stopped)."""
+    import torch
+
+    port = _free_port()
+    free0, total = torch.cuda.mem_get_info()
+    peak_used = total - free0
+    logs = [open(tmp / f"fam{r}.log", "w") for r in range(FAM_WORLD)]
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--fam-world", str(FAM_WORLD),
+           "--fam-port", str(port), "--fam-layers", str(layers)]
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    procs = [subprocess.Popen(cmd + ["--fam-rank", str(r), "--fam-out",
+                                     str(tmp / f"fam{r}.json")],
+                              cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT, env=env)
+             for r in range(FAM_WORLD)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() - t0 > FAM_CHILD_TIMEOUT_S:
+                raise SmokeFailure(f"families phase: the ranks ran past {FAM_CHILD_TIMEOUT_S} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break   # one rank failed: its peers fail at the group's timeout
+            free, _ = torch.cuda.mem_get_info()
+            peak_used = max(peak_used, total - free)
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (tmp / f"fam{r}.log").read_text()[-3000:]
+            raise SmokeFailure(f"families phase: rank {r} exited {p.returncode}:\n{tail}")
+    ranks = [json.loads((tmp / f"fam{r}.json").read_text()) for r in range(FAM_WORLD)]
+    return dict(ranks=ranks, wall_s=wall, card_peak_used_bytes=peak_used, card_bytes=total)
+
+
+def fam_gates(n0: dict, ranks: list) -> list:
+    """(n1)'s hard gates against (n0), as a list of problems; records the
+    largest relative loss difference in ``n0``."""
+    bad = []
+    want = [s["loss"] for s in n0["steps"]]
+    worst = 0.0
+    for rk in ranks:
+        got = [s["loss"] for s in rk["n1"]["steps"]]
+        if len(got) != FAM_NEOX_STEPS:
+            bad.append(f"rank {rk['rank']} ran {len(got)} (n1) steps")
+            continue
+        worst = max([worst] + [_rel(a, b) for a, b in zip(got, want)])
+        for name in FAM_COUNTERS:
+            if rk["n1"]["launches"].get(name, 0) <= 0:
+                bad.append(f"rank {rk['rank']} never launched {name} in (n1)")
+    n0["n1_loss_max_rel_diff"] = worst
+    if worst > FAM_LOSS_RTOL:
+        bad.append(f"(n1) losses differ from (n0)'s by {worst:.3g} relative (limit "
+                   f"{FAM_LOSS_RTOL})")
+    for i in range(FAM_NEOX_STEPS):
+        by_tp = {}
+        for rk in ranks:
+            if len(rk["n1"]["steps"]) > i:
+                by_tp.setdefault(rk["coords"]["tp"], set()).add(rk["n1"]["steps"][i]["digest"])
+        if any(len(v) != 1 for v in by_tp.values()):
+            bad.append(f"(n1) step {i + 1}: data-parallel replicas' params differ {by_tp}")
+        rep = {rk["n1"]["steps"][i]["replicated_digest"] for rk in ranks
+               if len(rk["n1"]["steps"]) > i}
+        if len(rep) != 1:
+            bad.append(f"(n1) step {i + 1}: TP-replicated leaves differ across ranks {rep}")
+    return bad
+
+
+def fam_small_errors(runs: list, cpu: list) -> float:
+    """The largest relative difference of any rank's loss or grad norm from
+    the CPU rank's (the tied MLM decoder over unit-scale embeddings puts the
+    small BERT's loss near 50 and its grad norm above 100)."""
+    return max(max(_rel(a["loss"], c["loss"]), _rel(a["grad_norm"], c["grad_norm"]))
+               for run in runs for a, c in zip(run, cpu))
+
+
+def fam_small_reference(ranks: list) -> dict:
+    """(n2)'s CPU side: each small model on one CPU rank, and the ranks'
+    largest relative difference from it."""
+    out = dict(cpu={}, max_rel_err={})
+    for name in ("neox", "bert"):
+        cpu = out["cpu"][name] = fam_small_run("cpu", name, 1)
+        out["max_rel_err"][name] = fam_small_errors([rk["n2"][name] for rk in ranks], cpu)
+    return out
+
+
+def fam_small_problems(small: dict) -> list:
+    return [f"(n2) {name}: losses or grad norms differ from the CPU rank's by {err:.3g} "
+            f"relative (limit {FAM_SMALL_TOL})" for name, err in small["max_rel_err"].items()
+            if not err <= FAM_SMALL_TOL]
+
+
+def run_families_phase(dev, counters, layers: int = FAM_NEOX_LAYERS, dump=None) -> dict:
+    """Phase 4o: (b0) and (n0) in this process, the four rank processes
+    ((n1), (n2)), then (n2)'s CPU side; every gate. ``dump``: a path the
+    readings are written to before the gates are held."""
+    import torch
+
+    t0 = time.perf_counter()
+    b0 = fam_b0(dev, counters)
+    n0 = fam_n0(dev, counters, layers)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        kids = fam_ranks(Path(tmpdir), layers)
+    small = fam_small_reference(kids["ranks"])
+    problems = (fam_b0_problems(b0) + fam_n0_problems(n0) + fam_gates(n0, kids["ranks"])
+                + fam_small_problems(small))
+    out = dict(b0=b0, n0=n0, ranks=kids["ranks"], small=small, ranks_wall_s=kids["wall_s"],
+               card_peak_used_bytes=kids["card_peak_used_bytes"], card_bytes=kids["card_bytes"])
+    if dump is not None:
+        Path(dump).parent.mkdir(parents=True, exist_ok=True)
+        Path(dump).write_text(json.dumps({**out, "problems": problems}, default=str))
+    check(not problems, "families phase: " + "; ".join(problems))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, phase_s=time.perf_counter() - t0)
+
+
+def print_families(st: dict, card: str) -> None:
+    b0, n0 = st["b0"], st["n0"]
+
+    def steps_text(steps):
+        return ", ".join(f"{s['loss']:.5f}/{s['grad_norm']:.4f}"
+                         + (f" {s['ms']:.0f} ms" if s.get("ms") else "") for s in steps)
+
+    print(f"families (b0): bert_large full width and depth, one rank, {FAM_BERT_BATCH} x "
+          f"{FAM_BERT_SEQ} tokens a step of synthetic_mlm_batches, fp32 weights and masters, "
+          f"bf16 compute, dropout 0.1, {b0['params']} params; loss/grad norm/step "
+          f"{steps_text(b0['steps'])}; step {b0['step_ms_mean']:.1f} ms, "
+          f"{b0['tokens_per_s']:.0f} tok/s, peak {b0['peak_bytes']} of {b0['card_bytes']} "
+          f"bytes, main {b0['main_s']:.1f} s, launches {json.dumps(b0['launches'])}; one "
+          f"repeated batch: losses {[round(x, 4) for x in b0['descent_losses']]} [{card}]",
+          flush=True)
+    print(f"families (n0): gpt_neox_20b widths, {n0['layers']} of 44 layers (head_dim "
+          f"{n0['head_dim']} at the {n0['kernel_head_dim']}-wide build, rotary over "
+          f"{n0['rope_dims']} dims), one rank, {FAM_NEOX_BATCH} x {FAM_NEOX_SEQ} tokens a step, "
+          f"bf16 + fp32 masters, remat attention; loss/grad norm/step {steps_text(n0['steps'])}; "
+          f"{n0['tokens_per_s']:.0f} tok/s after the first step, {n0['params']} params, peak "
+          f"{n0['peak_bytes']} of {n0['card_bytes']} bytes, set-up {n0['setup_s']:.1f} s, "
+          f"launches {json.dumps(n0['launches'])}, B1 launches by head dim "
+          f"{json.dumps(n0['b1_head_dims'])} [{card}]", flush=True)
+    for rk in st["ranks"]:
+        n1 = rk["n1"]
+        print(f"families (n1) rank {rk['rank']} ({json.dumps(rk['coords'])}): the "
+              f"gpt_neox_pretrain example over gloo, TP {FAM_TP} x DP {FAM_WORLD // FAM_TP}, SP "
+              f"and ZeRO-1 on; loss/grad norm/step {steps_text(n1['steps'])}; param bytes "
+              f"{rk['param_bytes']}, peak {n1['peak_bytes']} bytes, launches "
+              f"{json.dumps(n1['launches'])}, main {n1['main_s']:.1f} s [{card}]", flush=True)
+    print(f"families (n1): losses within {n0['n1_loss_max_rel_diff']:.3g} of (n0)'s (limit "
+          f"{FAM_LOSS_RTOL}); DP replicas and TP-replicated leaves bit-identical after every "
+          f"step; {FAM_WORLD} processes in {st['ranks_wall_s']:.1f} s with (n2), card peak used "
+          f"{st['card_peak_used_bytes']} of {st['card_bytes']} bytes [{card}]", flush=True)
+    sm = st["small"]
+    print(f"families (n2): small fp32 NeoX (SP) and BERT at TP {FAM_TP} x DP "
+          f"{FAM_WORLD // FAM_TP} on the card vs one CPU rank: max relative loss or grad norm "
+          f"diff {json.dumps({n: f'{v:.3g}' for n, v in sm['max_rel_err'].items()})} (tol "
+          f"{FAM_SMALL_TOL}); phase {st['phase_s']:.1f} s [{card}]", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -8123,6 +8846,12 @@ def main(argv=None) -> int:
     parser.add_argument("--moe-out", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--moe-dir", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--moe-layers", type=int, default=MOE_LAYERS, help=argparse.SUPPRESS)
+    # one rank of phase 4o's (n1)/(n2), started by the phase itself
+    parser.add_argument("--fam-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--fam-world", type=int, default=FAM_WORLD, help=argparse.SUPPRESS)
+    parser.add_argument("--fam-port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--fam-out", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--fam-layers", type=int, default=FAM_NEOX_LAYERS, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -8146,6 +8875,9 @@ def main(argv=None) -> int:
     if args.moe_rank is not None:
         return moe_child(args.moe_rank, args.moe_world, args.moe_port, args.moe_out,
                          args.moe_dir, layers=args.moe_layers)
+    if args.fam_rank is not None:
+        return fam_child(args.fam_rank, args.fam_world, args.fam_port, args.fam_out,
+                         layers=args.fam_layers)
     from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
     from neuronx_distributed_tpu_torch.kernels import _build
     from neuronx_distributed_tpu_torch.kernels.flash_attn import (
@@ -8208,6 +8940,9 @@ def main(argv=None) -> int:
     for case, t in kernels[-1]["cases"].items():
         print(f"kernel w8a16_gemm ({case}): {w8a16_line(t)} [{card}]", flush=True)
     head_dims = run_head_dims(dev, flush)
+    family_kernels, problems = run_family_kernels(dev, flush)
+    print_family_kernels(family_kernels, card)
+    check(not problems, "family kernels: " + "; ".join(problems))
     paged_names = ("paged bf16", "paged int8", "paged fp32")
     for d, r in head_dims.items():
         for names in (("out", "lse", "dq", "dk", "dv"),
@@ -8239,6 +8974,10 @@ def main(argv=None) -> int:
             print(f"kernel {k['name']} at head_dim 256: {t['shape']}; {t['ms']:.4f} ms, twin "
                   f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms ({t['library']}), "
                   f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]", flush=True)
+    for k in kernels:   # B1, B3a and B3b at the families' shapes (phase 4o's layers)
+        if k["name"] in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+            k["family_shapes"] = {case: dict(shape=r["shape"], **r["timed"][k["name"]])
+                                  for case, r in family_kernels.items()}
     for k in kernels:
         extra = (f", {k['tflops']:.1f} TFLOP/s, {k['bound_share']:.1%} of bound"
                  if "tflops" in k else "")
@@ -8646,6 +9385,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     moe = run_moe_phase(dev, train_counters)
     print_moe(moe, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = run_families_phase(dev, train_counters)
+    print_families(families, card)
 
     by_path = {"serve": stats["launches"], "serve_int8": int8["launches"],
                **{f"trace_{label}": st["launches"] for label, st in trace["passes"].items()},
@@ -8677,7 +9420,10 @@ def main(argv=None) -> int:
                **{f"{part}_rank{rk['rank']}": rk[part]["launches"]
                   for part in ("c1", "p1", "p2") for rk in cp_pp["ranks"]},
                "moe_m0": moe["m0"]["launches"],
-               **{f"moe_m1_rank{rk['rank']}": rk["m1"]["launches"] for rk in moe["ranks"]}}
+               **{f"moe_m1_rank{rk['rank']}": rk["m1"]["launches"] for rk in moe["ranks"]},
+               "families_b0": families["b0"]["launches"], "families_n0": families["n0"]["launches"],
+               **{f"families_n1_rank{rk['rank']}": rk["n1"]["launches"]
+                  for rk in families["ranks"]}}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
                "fused_adamw": "fused_adamw_leaf", "w8a16_gemm": "w8a16_gemm"}
@@ -8704,7 +9450,7 @@ def main(argv=None) -> int:
           f"[{card}]", flush=True)
     # the element-by-element readings go on the summary line, which keeps the
     # kernels line short
-    checks = {}
+    checks = {"family_shapes": {case: r["held"] for case, r in family_kernels.items()}}
     for st in (q1["bf16"], q1["int8"], sv):
         st.pop("streams")
     for k in kernels:
@@ -8716,7 +9462,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": stats, "serve_int8": int8, "trace": trace, "overload": overload,
                       "programs": eager, "speculation": spec, "medusa": medusa, "bundle": bundle,
                       "recovery": recovery, "tenants": tenants, "park": park, "fleet": fleet,
-                      "tp": tp, "dist": dist, "cp_pp": cp_pp, "moe": moe,
+                      "tp": tp, "dist": dist, "cp_pp": cp_pp, "moe": moe, "families": families,
                       "quant": quant,
                       "train_loop": loop, "train": tstats, "train_variants": variants,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,

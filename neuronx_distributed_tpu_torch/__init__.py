@@ -6,8 +6,8 @@ the JAX module of the same path and name. The serving path runs
 block and the int8 weight product, on one device or sharded over
 tensor-parallel ranks (``parallel.mesh``); the training path runs
 ``initialize_parallel_model`` -> ``initialize_parallel_optimizer`` ->
-``create_train_state`` -> ``make_train_step`` -> ``LlamaForCausalLM.loss``
-on one device. Their kernels (flash attention forward and backward, paged
+``create_train_state`` -> ``make_train_step`` -> a model's loss (Llama,
+Mixtral, GPT-NeoX, BERT) on one device or over TP, SP, CP, PP, EP and DP. Their kernels (flash attention forward and backward, paged
 decode attention, fused AdamW, the W8A16 GEMM) are CUDA C++ written for
 Hopper (``csrc/``), built with ``nvcc`` at first use and bound with
 ``ctypes``.

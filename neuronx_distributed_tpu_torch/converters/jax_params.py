@@ -34,6 +34,14 @@ LayerNorms (``input_norm/ln/scale``, ``ln/bias`` where the norm has one,
 and the final norm's) map to the port's ``SPLayerNorm`` names. A rank's
 (ep, tp) slice of its output comes from ``parallel.partitioning.
 local_state_dict``.
+``gpt_neox_params_from_jax`` carries a ``GPTNeoXForCausalLM`` tree: the
+biased QKV (``qkv/{q,k,v}_bias``), ``o_proj``'s and the MLP's kernels and
+biases (``mlp/up``, ``mlp/down``) and the LayerNorms (``ln/scale``,
+``ln/bias``). ``bert_params_from_jax`` carries a ``BertForPreTraining``
+tree (``bert/...`` with its stack under ``bert/layers/block``,
+``mlm_transform``, ``mlm_norm``, ``mlm_bias``, ``nsp_head``) to the port's
+names. Both take ``tp_rank``/``tp_size`` as ``llama_params_from_jax`` does.
+
 ``quantized_params_from_jax`` carries a JAX ``quantize_params`` tree of
 either family: each ``{qweight, scale}`` leaf becomes the port's
 ``X.qweight``/``X.scale`` pair, unstacked (a per-tensor 0-d scale goes to
@@ -187,6 +195,84 @@ def llama_params_from_jax(tree: Mapping[str, Any], tie_word_embeddings: bool = F
     return {k: shard_slice(v, dim_spec(v.dim(), _tp_dim(k, kv_size_multiplier)), tp_rank,
                            tp_size).contiguous()
             for k, v in out.items()}
+
+
+# the GPT-NeoX decoder block: biased attention and MLP, LayerNorms
+_NEOX_LEAVES = {
+    **{("attention", "qkv", f"{c}_{kind}"): f"attention.qkv.{c}_{kind}"
+       for c in "qkv" for kind in ("kernel", "bias")},
+    **{(*path, leaf): ".".join((*path, leaf))
+       for path in (("attention", "o_proj"), ("mlp", "up"), ("mlp", "down"))
+       for leaf in ("kernel", "bias")},
+}
+_NEOX_TP_DIMS = {"embed.embedding": 0, "_kernel": 1, "_bias": 0, "o_proj.kernel": 0,
+                 "mlp.up.kernel": 1, "mlp.up.bias": 0, "mlp.down.kernel": 0, "lm_head.kernel": 1}
+# the BERT tree: each flax path under bert/layers/block, and the sharded
+# dims of the port's weights at TP > 1 (by name suffix; the rest replicated)
+_BERT_LAYER = {
+    **{("attention", "qkv", f"{c}_{kind}"): f"attention.qkv.{c}_{kind}"
+       for c in "qkv" for kind in ("kernel", "bias")},
+    **{(*path, leaf): ".".join((*path, leaf))
+       for path in (("attention", "output"), ("intermediate",), ("mlp_output",))
+       for leaf in ("kernel", "bias")},
+    **{(norm, "ln", leaf): f"{norm}.ln.{leaf}" for norm in ("attention_norm", "output_norm")
+       for leaf in ("scale", "bias")},
+}
+_BERT_TP_DIMS = {"word_embeddings.embedding": 0, "_kernel": 1, "_bias": 0,
+                 "attention.output.kernel": 0, "intermediate.kernel": 1,
+                 "intermediate.bias": 0, "mlp_output.kernel": 0, "mlm_bias": 0}
+
+
+def _shard_by_suffix(out: Dict[str, torch.Tensor], dims: Mapping[str, int], tp_rank: int,
+                     tp_size: int) -> Dict[str, torch.Tensor]:
+    if tp_size == 1:
+        return out
+
+    def dim(name):
+        return next((d for suffix, d in dims.items() if name.endswith(suffix)), None)
+
+    return {k: shard_slice(v, dim_spec(v.dim(), dim(k)), tp_rank, tp_size).contiguous()
+            for k, v in out.items()}
+
+
+def gpt_neox_params_from_jax(tree: Mapping[str, Any], tie_word_embeddings: bool = False,
+                             tp_rank: int = 0, tp_size: int = 1) -> Dict[str, torch.Tensor]:
+    """Flax GPT-NeoX params -> state dict of the port's
+    ``GPTNeoXForCausalLM``: at ``tp_size > 1`` rank ``tp_rank``'s shard
+    (the QKV heads and their biases, ``o_proj``'s and ``down``'s fan-in,
+    ``up``'s fan-out and bias, the embedding's and the head's vocabulary)."""
+    out = _params_from_jax(tree, _NEOX_LEAVES, tie_word_embeddings)
+    return _shard_by_suffix(out, _NEOX_TP_DIMS, tp_rank, tp_size)
+
+
+def bert_params_from_jax(tree: Mapping[str, Any], tp_rank: int = 0,
+                         tp_size: int = 1) -> Dict[str, torch.Tensor]:
+    """Flax ``BertForPreTraining`` params -> state dict of the port's
+    ``BertForPreTraining``: at ``tp_size > 1`` rank ``tp_rank``'s shard
+    (the word embedding's and ``mlm_bias``'s vocabulary, the QKV heads and
+    their biases, ``attention.output``'s and ``mlp_output``'s fan-in,
+    ``intermediate``'s fan-out and bias)."""
+    if "params" in tree and "bert" not in tree:
+        tree = tree["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        _leaf(_node(tree, ("bert", name, "embedding")), f"bert.{name}.embedding", out)
+    for path, name in (((("bert", "embed_norm", "ln"), "bert.embed_norm.ln")),
+                       (("mlm_norm", "ln"), "mlm_norm.ln")):
+        for leaf in ("scale", "bias"):
+            _leaf(_node(tree, path + (leaf,)), f"{name}.{leaf}", out)
+    for path, name in ((("bert", "pooler"), "bert.pooler"), (("mlm_transform",), "mlm_transform"),
+                       (("nsp_head",), "nsp_head")):
+        for leaf in ("kernel", "bias"):
+            _leaf(_node(tree, path + (leaf,)), f"{name}.{leaf}", out)
+    _leaf(_node(tree, ("mlm_bias",)), "mlm_bias", out)
+    block = ("bert", "layers", "block")
+    num_layers = _get(tree, block + ("attention_norm", "ln", "scale")).shape[0]
+    layers: Dict[str, torch.Tensor] = {}
+    for path, name in _BERT_LAYER.items():
+        _stacked(_node(tree, block + path), "/".join(block + path), name, num_layers, layers)
+    out.update({"bert." + k[len("model."):]: v for k, v in layers.items()})
+    return _shard_by_suffix(out, _BERT_TP_DIMS, tp_rank, tp_size)
 
 
 def mixtral_params_from_jax(tree: Mapping[str, Any],

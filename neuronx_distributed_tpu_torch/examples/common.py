@@ -125,6 +125,36 @@ def synthetic_lm_batches(vocab_size: int, batch: int, seq: int,
         yield {"ids": ids[:, :-1].astype(np.int32), "labels": ids[:, 1:].astype(np.int32)}
 
 
+def synthetic_mlm_batches(vocab_size: int, batch: int, seq: int, seed: int = 0,
+                          mask_token: int = 103, mask_prob: float = 0.15,
+                          ignore_index: int = -100) -> Iterator[Dict[str, np.ndarray]]:
+    """BERT-style MLM + NSP batches from a seeded numpy stream, the JAX
+    examples' generator draw for draw: the five fields of the reference's
+    HDF5 records (``input_ids``, ``token_type_ids``, ``attention_mask``,
+    ``masked_lm_labels``, ``next_sentence_labels``)."""
+    rs = np.random.RandomState(seed)
+    while True:
+        ids = rs.randint(5, vocab_size, (batch, seq), dtype=np.int64)
+        seg = (np.arange(seq)[None, :] >= rs.randint(1, seq, (batch, 1))).astype(np.int32)
+        mask = np.ones((batch, seq), np.int32)
+        pad_from = rs.randint(seq // 2, seq + 1, (batch,))
+        for i, p in enumerate(pad_from):
+            mask[i, p:] = 0
+        mlm_labels = np.full((batch, seq), ignore_index, np.int64)
+        masked = (rs.rand(batch, seq) < mask_prob) & (mask == 1)
+        mlm_labels[masked] = ids[masked]
+        input_ids = ids.copy()
+        input_ids[masked] = mask_token
+        nsp = rs.randint(0, 2, (batch,), dtype=np.int64)
+        yield {
+            "input_ids": input_ids.astype(np.int32),
+            "token_type_ids": seg,
+            "attention_mask": mask,
+            "masked_lm_labels": mlm_labels.astype(np.int32),
+            "next_sentence_labels": nsp.astype(np.int32),
+        }
+
+
 def setup_distributed(args) -> bool:
     """Join the default group when a launch is configured (a no-op
     otherwise, so every script calls it). Returns True on a multi-process
@@ -194,7 +224,7 @@ def train_loop(step_fn: Callable, state, batches: Iterator[Dict[str, np.ndarray]
                metrics_file: Optional[str] = None, profile_dir: Optional[str] = None,
                extra_metrics: Optional[Dict[str, Any]] = None, trace_out: Optional[str] = None,
                metrics_out: Optional[str] = None, dataset=None,
-               on_step: Optional[Callable] = None):
+               on_step: Optional[Callable] = None, seed: Optional[int] = None):
     """Run steps ``state.step`` .. ``steps`` with throughput logging,
     optional periodic async checkpoints (every ``checkpoint_every`` steps,
     tag ``step_{n}``, the newest 3 kept, and a sync save at the end unless
@@ -204,7 +234,10 @@ def train_loop(step_fn: Callable, state, batches: Iterator[Dict[str, np.ndarray]
     for example a ``TokenShardDataset``): its position after the step goes
     into each save's ``user_content["data"]``, where :func:`maybe_resume`
     finds it. ``on_step(i, state, metrics)`` runs after step ``i`` (0-based)
-    and before its save. Returns ``(final_state, last_metrics)``.
+    and before its save. ``seed``: step ``i`` gets ``rng=seed + i + 1``
+    (the JAX loop's ``key(seed + i + 1)``), which its ``loss_fn`` may draw
+    dropout from; None passes no rng. Returns ``(final_state,
+    last_metrics)``.
 
     ``trace_out``/``metrics_out`` arm the host-side observability layer:
     a span a step (dispatch wall time) and a save in the trainer lane
@@ -241,7 +274,10 @@ def train_loop(step_fn: Callable, state, batches: Iterator[Dict[str, np.ndarray]
                 batch = to_device(next(batches), device)
                 t0 = time.perf_counter()
                 with step_annotation(i):
-                    state, metrics = step_fn(state, batch)
+                    if seed is None:
+                        state, metrics = step_fn(state, batch)
+                    else:
+                        state, metrics = step_fn(state, batch, seed + i + 1)
                 t1 = time.perf_counter()
                 m_step.observe((t1 - t0) * 1e3)
                 m_steps.inc()

@@ -211,18 +211,15 @@ def export_merged_hf(params: Mapping[str, torch.Tensor],
                      lora: Mapping[str, Mapping[str, torch.Tensor]], config: LoraConfig,
                      model_config, out_dir: str, family: str = "llama",
                      dtype: Optional[torch.dtype] = None) -> str:
-    """Merge ``W + s * A @ B`` and write an HF checkpoint
-    (``converters/hf_llama.py``) that serves with no LoRA machinery.
-    Returns the path of ``model.safetensors``."""
-    if family != "llama":
-        raise NotImplementedError(f"merged HF export of the {family!r} family is not ported")
-    from neuronx_distributed_tpu_torch.converters.hf_llama import (
-        nxd_to_hf_llama,
-        save_hf_checkpoint,
-    )
+    """Merge ``W + s * A @ B`` and write an HF checkpoint of ``family``
+    (``converters/hf.py``'s ``FAMILIES``) that serves with no LoRA
+    machinery. Returns the path of ``model.safetensors``."""
+    from neuronx_distributed_tpu_torch.converters.hf import FAMILIES
+    from neuronx_distributed_tpu_torch.converters.hf_llama import save_hf_checkpoint
 
-    return save_hf_checkpoint(nxd_to_hf_llama(merge_lora(params, lora, config), model_config,
-                                              dtype=dtype or torch.float32), out_dir)
+    to_hf = FAMILIES[family].nxd_to_hf
+    return save_hf_checkpoint(to_hf(merge_lora(params, lora, config), model_config,
+                                    dtype=dtype or torch.float32), out_dir)
 
 
 Spec = Tuple[Optional[str], ...]

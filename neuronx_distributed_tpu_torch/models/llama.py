@@ -196,6 +196,12 @@ class LlamaConfig:
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
 
+    @property
+    def rope_dims(self) -> int:
+        """The head dims the rotary tables cover (the whole head; GPT-NeoX
+        rotates a part of it)."""
+        return self.head_dim_
+
     def kv_heads(self, tp: int = 1) -> int:
         """KV heads one rank holds at degree ``tp``."""
         return self.num_kv_heads * self.kv_size_multiplier // tp
@@ -717,7 +723,7 @@ def _remat(cfg: LlamaConfig) -> Optional[dict]:
     decode mode, so serving never pays for it. ``"full"`` saves nothing
     inside a layer and recomputes it in the backward; ``"attention"`` saves
     the outputs of the dots with no batch dims and recomputes the rest."""
-    if cfg.decode or not torch.is_grad_enabled() or cfg.remat_policy is None:
+    if getattr(cfg, "decode", False) or not torch.is_grad_enabled() or cfg.remat_policy is None:
         return None
     if cfg.remat_policy == "full":
         return {"use_reentrant": False}
@@ -790,7 +796,7 @@ class LlamaModel(nn.Module):
         rope = None
         if not cfg.decode:
             positions = self.positions(input_ids.shape[1], input_ids.device)
-            rope = rotary_embedding(positions, cfg.head_dim_, cfg.rope_theta, dtype=x.dtype,
+            rope = rotary_embedding(positions, cfg.rope_dims, cfg.rope_theta, dtype=x.dtype,
                                     scaling=cfg.rope_scaling)
         remat = _remat(cfg)
         idx = None
@@ -951,8 +957,10 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     (``param_dtype``; a router's is fp32), as a state dict for ``model_cls``
     (default :class:`LlamaForCausalLM`): kernels normal with std
     1/sqrt(fan_in) (the JAX package's lecun-normal scale; an expert weight
-    ``(E, in, out)`` has fan-in ``in``), the embedding normal(0, 1), norm
-    scales 1 and LayerNorm biases 0. ``quantize`` (a ``QuantizationConfig``)
+    ``(E, in, out)`` has fan-in ``in``), embeddings normal(0, 1), norm
+    scales 1 and every bias 0 (the LayerNorms' and the linear layers').
+    ``model_cls`` may be any family whose config this module's conventions
+    cover (Llama, Mixtral, GPT-NeoX, BERT). ``quantize`` (a ``QuantizationConfig``)
     quantizes each weight it targets as soon as it is drawn, so only one
     float weight exists at a time. ``tp_rank``/``tp_size`` (and, for a
     Mixtral model's expert weights, ``ep_rank``/``ep_size``): that rank's
@@ -965,7 +973,8 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
 
     model_cls = model_cls or LlamaForCausalLM
     with torch.device("meta"):
-        model = model_cls(dataclasses.replace(config, lora_rank=None))
+        model = model_cls(dataclasses.replace(config, lora_rank=None)
+                          if hasattr(config, "lora_rank") else config)
     meta = model.state_dict()
     sharded = tp_size > 1 or ep_size > 1
     if sharded and quantize is not None:
@@ -975,10 +984,12 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     out = {}
     for name, p in meta.items():
         shape = tuple(p.shape)
-        if name.endswith(".scale") or name.endswith(".ln.bias"):
-            if keep is None or keep(name):
-                fill = torch.ones if name.endswith(".scale") else torch.zeros
-                out[name] = fill(shape, dtype=p.dtype, device=device)
+        if name.endswith(".scale") or name.endswith("bias"):
+            if keep is not None and not keep(name):
+                continue
+            fill = torch.ones if name.endswith(".scale") else torch.zeros
+            out[name] = fill(local_shape(shape, specs.get(name, ()), tp_size, ep_size),
+                             dtype=p.dtype, device=device)
             continue
         t = torch.randn(shape, generator=generator, dtype=p.dtype, device=device)
         if keep is not None and not keep(name):

@@ -2,10 +2,12 @@
 
 Counterpart of ``neuronx_distributed_tpu/parallel/pad.py`` (the reference's
 ``get_number_of_extra_heads`` and ``pad_model``), on the port's flat state
-dicts (``model.layers.{i}.attention.qkv.q_kernel`` ``(hidden, heads,
-head_dim)``, ``...o_proj.kernel`` ``(heads * head_dim, hidden)``). The
-padded query, key and value heads are zeros, and so are the rows of the
-output projection they feed, so every logit equals the unpadded model's.
+dicts of every family (Llama, Mixtral, GPT-NeoX, BERT): the Q/K/V kernels
+``(hidden, heads, head_dim)`` and their per-head biases ``(heads,
+head_dim)`` gain zero heads, and the attention output projection's kernel
+``(heads * head_dim, hidden)`` (``o_proj``, BERT's ``attention.output``)
+gains zero input rows. The padded heads' outputs meet only those zero
+rows, so every logit equals the unpadded model's.
 Multi-head attention only: a grouped-query model would regroup its heads
 onto other KV heads (raise ``kv_size_multiplier`` instead).
 """
@@ -19,6 +21,9 @@ import torch
 
 _QKV = (".q_kernel", ".k_kernel", ".v_kernel")
 _QKV_BIAS = (".q_bias", ".k_bias", ".v_bias")
+# the attention output projections whose input rows are per head (their
+# biases are per output feature and stay as they are)
+_OUT_PROJ = (".o_proj.kernel", ".attention.output.kernel")
 
 
 def get_number_of_extra_heads(num_heads: int, tp_degree: int) -> int:
@@ -28,15 +33,11 @@ def get_number_of_extra_heads(num_heads: int, tp_degree: int) -> int:
 
 def pad_model(params: Mapping[str, torch.Tensor], config,
               tp_degree: int) -> Tuple[Dict[str, torch.Tensor], Any]:
-    """Zero-pad the attention heads of a Llama or Mixtral state dict so
-    ``num_heads % tp_degree == 0``; returns ``(padded params, padded
-    config)`` (``head_dim`` made explicit). The model families the port has
-    not ported (BERT, GPT-NeoX) raise by name."""
-    name = type(config).__name__
-    if name not in ("LlamaConfig", "MixtralConfig"):
-        raise NotImplementedError(f"head padding for {name}: that model family is not "
-                                  f"ported (ROADMAP queue A)")
-    num_heads, num_kv = config.num_heads, config.num_kv_heads
+    """Zero-pad the attention heads of a Llama, Mixtral, GPT-NeoX or BERT
+    state dict so ``num_heads % tp_degree == 0``; returns ``(padded params,
+    padded config)`` (``head_dim`` made explicit)."""
+    num_heads = config.num_heads
+    num_kv = getattr(config, "num_kv_heads", num_heads)   # BERT: multi-head implicitly
     extra = get_number_of_extra_heads(num_heads, tp_degree)
     if extra == 0:
         return dict(params), config
@@ -50,11 +51,13 @@ def pad_model(params: Mapping[str, torch.Tensor], config,
             t = torch.cat([t, t.new_zeros((t.shape[0], extra, d))], dim=1)
         elif key.endswith(_QKV_BIAS):     # (N, D) -> (N + extra, D)
             t = torch.cat([t, t.new_zeros((extra, d))], dim=0)
-        elif key.endswith(".o_proj.kernel"):   # (N*D, H) -> ((N + extra)*D, H): zero rows
+        elif key.endswith(_OUT_PROJ):   # (N*D, H) -> ((N + extra)*D, H): zero rows
             t = torch.cat([t, t.new_zeros((extra * d, t.shape[-1]))], dim=0)
         out[key] = t
-    return out, dataclasses.replace(config, num_heads=n + extra, num_kv_heads=num_kv + extra,
-                                    head_dim=d)
+    over = dict(num_heads=n + extra, head_dim=d)
+    if hasattr(config, "num_kv_heads"):
+        over["num_kv_heads"] = num_kv + extra
+    return out, dataclasses.replace(config, **over)
 
 
 def pad_llama_heads(params: Mapping[str, torch.Tensor], config,

@@ -5,7 +5,8 @@ built on the meta device, its config takes the trainer config's explicit
 overrides (compute and param dtype, remat policy, sequence parallelism),
 and each weight is materialized once on the target device: random from a
 seeded generator (``model_init_config.seed``, through
-``models.llama.init_params``) or taken from a given state dict (for example
+``models.llama.init_params``: the Llama, Mixtral, GPT-NeoX and BERT models)
+or taken from a given state dict (for example
 one that ``converters.jax_params.llama_params_from_jax`` made).
 
 Parallel degrees (JAX ``trainer/model.py:86-184``): the mesh is the current
@@ -60,10 +61,14 @@ from neuronx_distributed_tpu_torch.lora.core import (
     merge_lora,
     nest_lora,
 )
+from neuronx_distributed_tpu_torch.models.bert import BertForPreTraining
 from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
 from neuronx_distributed_tpu_torch.parallel import mesh as ps
 from neuronx_distributed_tpu_torch.parallel.partitioning import local_state_dict
 
+# the modules ``init_params`` draws (Llama, Mixtral and GPT-NeoX are
+# LlamaForCausalLM subclasses)
+_SEEDED = (LlamaForCausalLM, BertForPreTraining)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 _DEGREES = ("tensor_parallel_size", "pipeline_parallel_size", "expert_parallel_size",
             "context_parallel_size")
@@ -245,9 +250,9 @@ def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[]
     shapes = module.state_dict()
     seed = nxd_config.get("model_init_config", {}).get("seed", 0)
     if params is None:
-        if not isinstance(module, LlamaForCausalLM):
-            raise ValueError(f"a seeded init is defined for LlamaForCausalLM; pass params for "
-                             f"{type(module).__name__}")
+        if not isinstance(module, _SEEDED):
+            raise ValueError(f"a seeded init is defined for the Llama stack's families and "
+                             f"BERT; pass params for {type(module).__name__}")
         state = init_params(module.config, torch.Generator(device=dev).manual_seed(seed),
                             device=dev, model_cls=type(module), tp_rank=tp_rank, tp_size=tp,
                             ep_rank=ep_rank, ep_size=ep)

@@ -1491,3 +1491,114 @@ def test_moe_gates_catch_each_fault(smoke, fault, says):
         small["flipped_byte_caught"] = False
     problems = smoke.moe_gates(m0, ranks) + smoke.moe_small_problems(small, ranks)
     assert any(says in p for p in problems), problems
+
+
+def _families_run():
+    """A fabricated phase-4o reading that passes every gate: (b0), (n0),
+    four (n1) ranks at TP 2 x DP 2 and (n2)'s CPU side."""
+    launches = {"flash_block_forward": 4, "flash_bwd_dkdv": 2, "flash_bwd_dq": 2,
+                "fused_adamw_leaf": 40}
+    b0 = {"steps": [{"loss": 90.0 - i, "grad_norm": 50.0} for i in range(4)],
+          "launches": dict(launches, flash_block_forward=96), "peak_bytes": 2e10,
+          "card_bytes": 8e10, "descent_losses": [90.0, 80.0, 70.0, 60.0, 50.0]}
+    n0 = {"layers": 2, "steps": [{"loss": 11.0 - i, "grad_norm": 3.0} for i in range(3)],
+          "launches": dict(launches, flash_block_forward=12), "b1_head_dims": {"96": 12},
+          "kernel_head_dim": 128, "peak_bytes": 4e10, "card_bytes": 8e10}
+    ranks = [{"rank": r, "coords": {"tp": r % 2, "dp": r // 2},
+              "n1": {"steps": [{"loss": (11.0 - i) * 1.004, "digest": f"p{r % 2}{i}",
+                                "replicated_digest": f"r{i}"} for i in range(3)],
+                     "launches": dict(launches)}} for r in range(4)]
+    small = {"max_rel_err": {"neox": 4e-7, "bert": 6e-7}}
+    return b0, n0, ranks, small
+
+
+def _families_problems(smoke, b0, n0, ranks, small):
+    return (smoke.fam_b0_problems(b0) + smoke.fam_n0_problems(n0) + smoke.fam_gates(n0, ranks)
+            + smoke.fam_small_problems(small))
+
+
+def test_families_gates_hold_on_a_good_run(smoke):
+    b0, n0, ranks, small = _families_run()
+    assert _families_problems(smoke, b0, n0, ranks, small) == []
+    assert abs(n0["n1_loss_max_rel_diff"] - 4e-3) < 1e-9
+
+
+@pytest.mark.parametrize("fault,says", [
+    ("b0_loss", "(b0): a non-finite loss"), ("b0_b3", "(b0) never launched flash_bwd_dq"),
+    ("b0_peak", "(b0): peak"), ("b0_descent", "the loss did not fall"),
+    ("n0_b4", "(n0) never launched fused_adamw_leaf"), ("n0_width", "not every layer's at 96"),
+    ("n0_build", "runs at the 256-wide build"), ("n0_peak", "(n0): peak"),
+    ("n1_loss", "(n1) losses differ from (n0)'s"), ("n1_b1", "never launched flash_block_forward"),
+    ("n1_steps", "ran 2 (n1) steps"), ("n1_dp", "data-parallel replicas' params differ"),
+    ("n1_tp", "TP-replicated leaves differ"), ("n2", "(n2) bert: losses or grad norms differ")])
+def test_families_gates_catch_each_fault(smoke, fault, says):
+    b0, n0, ranks, small = _families_run()
+    rk = ranks[3]
+    if fault == "b0_loss":
+        b0["steps"][2]["loss"] = float("nan")
+    elif fault == "b0_b3":
+        b0["launches"]["flash_bwd_dq"] = 0
+    elif fault == "b0_peak":
+        b0["peak_bytes"] = b0["card_bytes"]
+    elif fault == "b0_descent":
+        b0["descent_losses"][-1] = 95.0
+    elif fault == "n0_b4":
+        n0["launches"]["fused_adamw_leaf"] = 0
+    elif fault == "n0_width":
+        n0["b1_head_dims"] = {"96": 10, "128": 2}
+    elif fault == "n0_build":
+        n0["kernel_head_dim"] = 256
+    elif fault == "n0_peak":
+        n0["peak_bytes"] = 9e10
+    elif fault == "n1_loss":
+        for r in ranks:
+            r["n1"]["steps"][2]["loss"] *= 1.02
+    elif fault == "n1_b1":
+        rk["n1"]["launches"]["flash_block_forward"] = 0
+    elif fault == "n1_steps":
+        rk["n1"]["steps"].pop()
+    elif fault == "n1_dp":
+        rk["n1"]["steps"][1]["digest"] = "other"
+    elif fault == "n1_tp":
+        rk["n1"]["steps"][0]["replicated_digest"] = "other"
+    else:
+        small["max_rel_err"]["bert"] = 2e-5
+    assert any(says in p for p in _families_problems(smoke, b0, n0, ranks, small))
+
+
+def test_families_small_runs_rehearse_on_the_cpu(smoke):
+    """(n2) on the CPU: the small NeoX (SP) and BERT at TP 2 x DP 2 in thread
+    ranks against one rank, within the phase's tolerance."""
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu = {name: smoke.fam_small_run("cpu", name, 1) for name in ("neox", "bert")}
+        ranks = mesh.run_in_threads(4, lambda r: {name: smoke.fam_small_run("cpu", name, 2)
+                                                  for name in ("neox", "bert")},
+                                    tensor_model_parallel_size=2)
+    finally:
+        torch.set_num_threads(threads)
+    small = {"max_rel_err": {name: smoke.fam_small_errors([rk[name] for rk in ranks], cpu[name])
+                             for name in cpu}}
+    assert smoke.fam_small_problems(small) == [], small
+    assert all(len(v) == smoke.FAM_SMALL_STEPS for v in cpu.values())
+
+
+def test_family_kernels_rehearse_on_the_cpu(smoke, monkeypatch):
+    """The family-shape kernel check at tiny shapes on the twins: every
+    element held (errors 0: the twins run on both sides), the pad keys'
+    dK/dV 0, every timing key present."""
+    monkeypatch.setattr(smoke, "FAM_KERNEL_BERT", dict(b=2, h=2, s=128, d=64))
+    monkeypatch.setattr(smoke, "FAM_KERNEL_NEOX", dict(b=1, h=2, s=128, d=96))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    monkeypatch.setattr(smoke, "time_ms", lambda fn, reps, flush: (fn(), 1.0)[1])
+    got, problems = smoke.run_family_kernels("cpu", None)
+    assert problems == [] and set(got) == {"bert", "neox"}
+    for case, r in got.items():
+        assert all(x["max_abs_err"] == 0.0 for x in r["held"].values()), (case, r["held"])
+        for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+            t = r["timed"][name]
+            assert t["bound_ms"] > 0 and t["library_ms"] == 1.0 and t["bound_by"], t

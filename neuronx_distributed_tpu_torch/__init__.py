@@ -25,8 +25,8 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("converters", "inference", "kernels", "lora", "models", "moe", "observability",
-               "ops", "optimizer", "parallel", "quantization", "trainer")
+_SUBMODULES = ("converters", "inference", "kernels", "lightning", "lora", "models", "moe",
+               "observability", "ops", "optimizer", "parallel", "quantization", "trainer")
 
 
 def __getattr__(name):

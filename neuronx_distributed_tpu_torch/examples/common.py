@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from neuronx_distributed_tpu_torch._device import to_device  # noqa: F401  (the examples' name)
 from neuronx_distributed_tpu_torch.checkpoint import (
     finalize_checkpoint,
     has_checkpoint,
@@ -212,10 +213,6 @@ def host_local_batches(batches: Iterator[Dict[str, np.ndarray]],
     sl = host_batch_slice(global_batch)
     for b in batches:
         yield {k: v[sl] for k, v in b.items()}
-
-
-def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
 def train_loop(step_fn: Callable, state, batches: Iterator[Dict[str, np.ndarray]], steps: int,

@@ -119,11 +119,21 @@ def _state_layout(optimizer: NxDOptimizer, params: Tree,
         state_piece = Piece(glob, plan.state_offset(n, shape) if zero
                             else plan.param_offset(n, shape),
                             tp_own and (zero or first))
-        for field in getattr(opt_state, "_fields", ()):
-            tree = getattr(opt_state, field)
-            if isinstance(tree, dict) and n in tree:
-                out[f".opt_state.{field}['{n}']"] = state_piece
+        for path, tree in _state_trees(opt_state, ".opt_state"):
+            if n in tree:
+                out[f"{path}['{n}']"] = state_piece
     return out
+
+
+def _state_trees(opt_state, prefix: str):
+    """``(path, tree)`` for each per-leaf dict of an optimizer state, also
+    inside a wrapped state (``optimizer/multi_steps.py``)."""
+    for field in getattr(opt_state, "_fields", ()):
+        tree = getattr(opt_state, field)
+        if isinstance(tree, dict):
+            yield f"{prefix}.{field}", tree
+        elif hasattr(tree, "_fields"):
+            yield from _state_trees(tree, f"{prefix}.{field}")
 
 
 def create_train_state(model: ParallelModel, optimizer: NxDOptimizer) -> TrainState:

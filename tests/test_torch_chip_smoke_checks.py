@@ -1316,10 +1316,10 @@ def test_train_check_cases_rehearse_on_the_cpu(smoke):
     assert out["lora"]["trained_tensors"] == 2 * 7 * 2
 
 
-def _dist_run():
+def _dist_run(smoke):
     """A fabricated phase-4l reading that passes every gate: (d0) and four
     ranks at TP 2 x DP 2."""
-    d0 = {"steps": [{"loss": 10.0 - i, "grad_norm": 1.0} for i in range(3)],
+    d0 = {"steps": [{"loss": 10.0 - i, "grad_norm": 1.0} for i in range(2)],
           "state_bytes_by_leaf": {"a": 4000, "norm": 40}}
     ranks = []
     for r in range(4):
@@ -1327,14 +1327,15 @@ def _dist_run():
         ranks.append({"rank": r, "coords": {"tp": tp, "dp": r // 2},
                       "tp_sharded_leaves": ["a"], "state_bytes_tp_sharded": 1000,
                       "d1": {"steps": [{"loss": (10.0 - i) * 1.001, "digest": f"p{tp}{i}",
-                                        "replicated_digest": f"r{i}"} for i in range(3)],
+                                        "replicated_digest": f"r{i}"} for i in range(2)],
                              "launches": {"flash_block_forward": 12, "flash_bwd_dkdv": 6,
-                                          "flash_bwd_dq": 6, "fused_adamw_leaf": 48}}})
+                                          "flash_bwd_dq": 6, "fused_adamw_leaf":
+                                              smoke.DIST_B4_PER_STEP * smoke.DIST_STEPS}}})
     return d0, {"ranks": ranks}
 
 
 def test_dist_gates_hold_on_a_good_run(smoke):
-    d0, d1 = _dist_run()
+    d0, d1 = _dist_run(smoke)
     assert smoke.dist_gates(d0, d1) == []
     assert abs(d1["loss_max_rel_diff"] - 1e-3) < 1e-9
     assert all(rk["state_share_of_quarter"] == 1.0 for rk in d1["ranks"])
@@ -1345,12 +1346,12 @@ def test_dist_gates_hold_on_a_good_run(smoke):
     ("replicated", "TP-replicated leaves"), ("state", "ZeRO state bytes"),
     ("b1", "never launched flash_block_forward"), ("b4", "B4 launched 60 times")])
 def test_dist_gates_catch_each_fault(smoke, fault, says):
-    d0, d1 = _dist_run()
+    d0, d1 = _dist_run(smoke)
     rk = d1["ranks"][2]
     if fault == "loss":
         rk["d1"]["steps"][1]["loss"] *= 1.02
     elif fault == "dp_digest":
-        rk["d1"]["steps"][2]["digest"] = "other"
+        rk["d1"]["steps"][1]["digest"] = "other"
     elif fault == "replicated":
         rk["d1"]["steps"][0]["replicated_digest"] = "other"
     elif fault == "state":
@@ -1366,7 +1367,7 @@ def test_dist_gates_catch_each_fault(smoke, fault, says):
 def _cppp_run():
     """A fabricated phase-4m reading that passes every gate: (c0), (p0) and
     four ranks at CP 2 x TP 2, then TP 2 x PP 2."""
-    c0 = {"steps": [{"loss": 10.0 - i, "grad_norm": 1.0} for i in range(3)]}
+    c0 = {"steps": [{"loss": 10.0 - i, "grad_norm": 1.0} for i in range(2)]}
     p0 = {"loss": 10.5}
     launches = {"flash_block_forward": 8, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4,
                 "fused_adamw_leaf": 90}
@@ -1375,13 +1376,13 @@ def _cppp_run():
         stage = r // 2
         ranks.append({
             "rank": r, "p1_stage": stage, "p2_stage": stage,
-            "c1": {"steps": [{"loss": (10.0 - i) * 1.002} for i in range(3)],
+            "c1": {"steps": [{"loss": (10.0 - i) * 1.002} for i in range(2)],
                    "launches": dict(launches), "collectives": {"send": [40, 10], "recv": [40, 10]}},
             "p1": {"steps": [{"loss": 10.5 * 1.003 - i, "stash_peak": 2 - stage,
-                              "sends_peak": 2 - stage} for i in range(3)],
+                              "sends_peak": 2 - stage} for i in range(2)],
                    "launches": dict(launches)},
             "p2": {"steps": [{"loss": (10.5 * 1.003 - i) * 1.001, "stash_peak": 4,
-                              "sends_peak": 3} for i in range(3)],
+                              "sends_peak": 3} for i in range(2)],
                    "launches": dict(launches)}})
     return c0, p0, ranks
 
@@ -1398,14 +1399,14 @@ def test_cppp_gates_hold_on_a_good_run(smoke):
     ("p2_loss", "(p2) losses differ from (p1)'s"), ("b3", "never launched flash_bwd_dq in (p2)"),
     ("b4", "never launched fused_adamw_leaf in (c1)"), ("ring", "sent nothing round the ring"),
     ("stash", "stashed more than pp - stage"), ("sends", "held more than pp - stage sends"),
-    ("steps", "ran 2 p1 steps"),
+    ("steps", "ran 1 p1 steps"),
     ("ranks", "c1 losses differ from rank 0's")])
 def test_cppp_gates_catch_each_fault(smoke, fault, says):
     c0, p0, ranks = _cppp_run()
     rk = ranks[3]
     if fault == "c1_loss":
         for r in ranks:
-            r["c1"]["steps"][2]["loss"] *= 1.02
+            r["c1"]["steps"][1]["loss"] *= 1.02
     elif fault == "p1_loss":
         p0["loss"] *= 0.97
     elif fault == "p2_loss":
@@ -1432,11 +1433,11 @@ def test_cppp_gates_catch_each_fault(smoke, fault, says):
 def _moe_run():
     """A fabricated phase-4n reading that passes every gate: (m0), four
     (m1) ranks at TP 2 x EP 2, and (m2)'s CPU side."""
-    m0 = {"steps": [{"loss": 10.0 - i, "grad_norm": 1.0} for i in range(3)]}
+    m0 = {"steps": [{"loss": 10.0 - i, "grad_norm": 1.0} for i in range(2)]}
     launches = {"flash_block_forward": 4, "flash_bwd_dkdv": 2, "flash_bwd_dq": 2,
                 "fused_adamw_leaf": 40}
     ranks = [{"rank": r,
-              "m1": {"steps": [{"loss": (10.0 - i) * 1.004} for i in range(3)],
+              "m1": {"steps": [{"loss": (10.0 - i) * 1.004} for i in range(2)],
                      "launches": dict(launches), "collectives": {"all_to_all": [24, 10]}},
               "m2": {"tp2_ep2": {"bit_identical": True}}} for r in range(4)]
     small = {"max_abs_err": {"tp2_ep2": 4e-7, "ep2_edp2": 5e-7},
@@ -1456,7 +1457,7 @@ def test_moe_gates_hold_on_a_good_run(smoke):
 @pytest.mark.parametrize("fault,says", [
     ("loss", "(m1) losses differ from (m0)'s"), ("b1", "never launched flash_block_forward"),
     ("b3", "never launched flash_bwd_dkdv"), ("b4", "never launched fused_adamw_leaf"),
-    ("a2a", "sent no token through the expert all-to-all"), ("steps", "ran 2 (m1) steps"),
+    ("a2a", "sent no token through the expert all-to-all"), ("steps", "ran 1 (m1) steps"),
     ("ranks", "(m1) losses differ from rank 0's"),
     ("small", "(m2) ep2_edp2: losses or grad norms differ"),
     ("dropped", "(m2) tp2_ep2: dropped assignments differ"),
@@ -1501,12 +1502,12 @@ def _families_run():
     b0 = {"steps": [{"loss": 90.0 - i, "grad_norm": 50.0} for i in range(4)],
           "launches": dict(launches, flash_block_forward=96), "peak_bytes": 2e10,
           "card_bytes": 8e10, "descent_losses": [90.0, 80.0, 70.0, 60.0, 50.0]}
-    n0 = {"layers": 2, "steps": [{"loss": 11.0 - i, "grad_norm": 3.0} for i in range(3)],
+    n0 = {"layers": 2, "steps": [{"loss": 11.0 - i, "grad_norm": 3.0} for i in range(2)],
           "launches": dict(launches, flash_block_forward=12), "b1_head_dims": {"96": 12},
           "kernel_head_dim": 128, "peak_bytes": 4e10, "card_bytes": 8e10}
     ranks = [{"rank": r, "coords": {"tp": r % 2, "dp": r // 2},
               "n1": {"steps": [{"loss": (11.0 - i) * 1.004, "digest": f"p{r % 2}{i}",
-                                "replicated_digest": f"r{i}"} for i in range(3)],
+                                "replicated_digest": f"r{i}"} for i in range(2)],
                      "launches": dict(launches)}} for r in range(4)]
     small = {"max_rel_err": {"neox": 4e-7, "bert": 6e-7}}
     return b0, n0, ranks, small
@@ -1529,7 +1530,7 @@ def test_families_gates_hold_on_a_good_run(smoke):
     ("n0_b4", "(n0) never launched fused_adamw_leaf"), ("n0_width", "not every layer's at 96"),
     ("n0_build", "runs at the 256-wide build"), ("n0_peak", "(n0): peak"),
     ("n1_loss", "(n1) losses differ from (n0)'s"), ("n1_b1", "never launched flash_block_forward"),
-    ("n1_steps", "ran 2 (n1) steps"), ("n1_dp", "data-parallel replicas' params differ"),
+    ("n1_steps", "ran 1 (n1) steps"), ("n1_dp", "data-parallel replicas' params differ"),
     ("n1_tp", "TP-replicated leaves differ"), ("n2", "(n2) bert: losses or grad norms differ")])
 def test_families_gates_catch_each_fault(smoke, fault, says):
     b0, n0, ranks, small = _families_run()
@@ -1552,7 +1553,7 @@ def test_families_gates_catch_each_fault(smoke, fault, says):
         n0["peak_bytes"] = 9e10
     elif fault == "n1_loss":
         for r in ranks:
-            r["n1"]["steps"][2]["loss"] *= 1.02
+            r["n1"]["steps"][1]["loss"] *= 1.02
     elif fault == "n1_b1":
         rk["n1"]["launches"]["flash_block_forward"] = 0
     elif fault == "n1_steps":
@@ -1602,3 +1603,143 @@ def test_family_kernels_rehearse_on_the_cpu(smoke, monkeypatch):
         for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
             t = r["timed"][name]
             assert t["bound_ms"] > 0 and t["library_ms"] == 1.0 and t["bound_by"], t
+
+
+def _entry_run():
+    """A fabricated phase-4p reading that passes every gate: (r0)-(r4),
+    (r0 shell), (r4 check), (r5)'s tiny cases, and (l0)."""
+    pct = {"p50_ms": 90.0, "p90_ms": 95.0, "p95_ms": 96.0, "p99_ms": 99.0, "p100_ms": 99.5}
+    b1 = {"flash_block_forward": 80, "paged_decode_attention": 0, "w8a16_gemm": 0}
+    gen = [{"prompt": 0, "generated": list(range(32))}]
+    spec = {"report": {"generated": list(range(32)), "draft_layers": 10},
+            "launches": dict(b1), "draft_shared": True, "peak_bytes": 3.6e10,
+            "base_bytes": 2.6e10}
+    st = {
+        "card_bytes": 8.5e10, "bf16_weight_bytes": {"bfloat16": 2.6e10, "total": 2.6e10},
+        "r0": {"report": {"context_encoding": pct, "token_generation": pct,
+                          "token_generation_fused": pct, "fused_chunk": 8},
+               "launches": dict(b1)},
+        "r0_generate": {"report": gen, "launches": dict(b1)},
+        "r0_shell": {"returncode": 0, "report": [dict(g) for g in gen], "launches": dict(b1),
+                     "stderr_tail": ""},
+        "r1": {"report": {"requests_completed": 16, "prefix_hit_tokens": 960},
+               "launches": dict(b1, paged_decode_attention=2000), "peak_bytes": 6e10},
+        "r2": {"host": dict(spec), "fused": dict(spec), "kv_bytes": 8.4e9,
+               "draft_copy_bytes": 6.3e9},
+        "r3": {"report": {"greedy_match": True, "first_divergence": -1,
+                          "logit_max_abs_diff": 2e-5}, "launches": dict(b1),
+               "generate": {"report": gen}, "speculate": {"report": {
+                   "generated": list(range(32))}}},
+        "r4": {"report": gen, "launches": dict(b1, w8a16_gemm=9000),
+               "weight_bytes": {"int8": 1.27e10, "bfloat16": 6.6e8, "total": 1.34e10}},
+        "r4_check": {"report": {"greedy_match": True, "first_divergence": -1,
+                                "logit_max_abs_diff": 3e-5}, "launches": dict(b1, w8a16_gemm=2000)},
+    }
+    r5 = {
+        "medusa": {"report": {"generated": [1] * 6, "matches_base_greedy": True,
+                              "tree_ms_p50": 1.0}},
+        "replicas_crash": {"report": {
+            "replicas": 2, "placement": "affinity", "requests_completed": 6,
+            "total_generated_tokens": 36, "crashes": 1, "failovers": 1, "last_failover_ms": 3.0,
+            "replica_states": [{"replica": 0, "state": "live"}, {"replica": 1, "state": "dead"}],
+            "per_tenant": {"t0": {"requests": 4}, "t1": {"requests": 2}}}},
+        "disagg": {"report": {
+            "disagg": True, "prefill_replicas": 1, "decode_replicas": 1, "requests_completed": 4,
+            "total_generated_tokens": 24, "handoffs_sent": 4, "handoffs_adopted": 4,
+            "handoffs_degraded": 0, "handoff_pages": 8, "itl_p99_ms_decode_clock": 2.0,
+            "replica_states": [{"replica": 0, "role": "prefill"},
+                               {"replica": 1, "role": "decode"}]}},
+        "adapters": {"report": {
+            "multilora": True, "adapter_slots": 2, "requests_completed": 5, "rejected": 1,
+            "total_generated_tokens": 20, "adapter_loads": 3, "adapter_evictions": 2,
+            "adapter_rejects": 1, "adapter_load_failures": 0, "adapter_bytes_per_slot": 100}},
+        "grammar": {"report": {"requests_completed": 6, "structured": {
+            "constrained_requests": 4, "grammar_slots": 3, "grammar_loads": 3,
+            "grammar_evictions": 1, "grammar_rejects": 0,
+            "finish_reasons": {"grammar_accept": 3, "budget": 3},
+            "freeform": {"requests": 2}}}},
+        "snapshot": {"report": {"recovered": True, "restored_requests": 2,
+                                "total_generated_tokens": 21}, "pre_tokens": 6,
+                     "file_left": False},
+    }
+    l0 = {"steps": 4, "kill_at": 2, "straight_losses": [10.5, 10.4, 10.3, 10.2],
+          "preempted": True, "preempted_at": 2, "disposition_restored": True, "resumed_at": 2,
+          "resumed_losses": [10.3, 10.2], "resumed_equal": True,
+          "accum_moved": [False, True, False, True],
+          "accum_state": {"mini_step": 0, "gradient_step": 2, "inner_count": 2},
+          "launches": {"flash_block_forward": 12, "flash_bwd_dkdv": 6, "flash_bwd_dq": 6,
+                       "fused_adamw_leaf": 48}, "peak_bytes": 2e10, "card_bytes": 8.5e10}
+    return st, r5, l0
+
+
+def _entry_problems(smoke, st, r5, l0):
+    return smoke.ep_runner_problems(st) + smoke.ep_tiny_problems(r5) + smoke.ep_fit_problems(l0)
+
+
+def test_entry_points_gates_hold_on_a_good_run(smoke):
+    assert _entry_problems(smoke, *_entry_run()) == []
+
+
+@pytest.mark.parametrize("fault,says", [
+    ("r0_b1", "(r0) never launched flash_fwd"), ("r0_fused", "(r0): fused_chunk"),
+    ("r1_done", "(r1) completed 15 of 16"), ("r1_prefix", "(r1): no prefix hit"),
+    ("r1_b2", "(r1) never launched paged_decode_attention"), ("r1_peak", "(r1): peak"),
+    ("r2_tokens", "(r2): the fused rounds' tokens differ"),
+    ("r3_spec", "(r3): fp32 speculation's tokens differ"),
+    ("r2_shared", "(r2 fused): the draft holds tensors of its own"),
+    ("r2_copy", "past the KV"), ("r3_match", "(r3): greedy diverges at 7"),
+    ("r3_logits", "(r3): logit max |diff|"), ("r4_b5", "(r4) never launched w8a16_gemm"),
+    ("r4_check_match", "(r4 check): greedy diverges at 3"),
+    ("r4_check_logits", "(r4 check): logit max |diff|"),
+    ("r4_check_b5", "(r4 check) never launched w8a16_gemm"),
+    ("r4_bytes", "(r4): weight bytes"), ("r5_medusa", "(r5 medusa)"),
+    ("r5_crash", "(r5 replicas_crash)"), ("r5_disagg", "(r5 disagg)"),
+    ("r5_adapters", "(r5 adapters)"), ("r5_grammar", "(r5 grammar)"),
+    ("r5_snapshot", "(r5 snapshot)"), ("r0_shell_exit", "(r0 shell) exited 1"),
+    ("r0_shell_tokens", "(r0 shell): "), ("r0_shell_b1", "(r0 shell) never launched flash_fwd"),
+    ("l0_resume", "the resumed params differ"),
+    ("l0_preempt", "(l0): preempted False"), ("l0_signal", "disposition was not restored"),
+    ("l0_accum", "the params moved at"), ("l0_b3", "(l0) never launched flash_bwd_dkdv"),
+    ("l0_losses", "resumed at 2 with losses")])
+def test_entry_points_gates_catch_each_fault(smoke, fault, says):
+    st, r5, l0 = _entry_run()
+    edit = {
+        "r0_b1": lambda: st["r0"]["launches"].update(flash_block_forward=0),
+        "r0_fused": lambda: st["r0"]["report"].update(fused_chunk=4),
+        "r1_done": lambda: st["r1"]["report"].update(requests_completed=15),
+        "r1_prefix": lambda: st["r1"]["report"].update(prefix_hit_tokens=0),
+        "r1_b2": lambda: st["r1"]["launches"].update(paged_decode_attention=0),
+        "r1_peak": lambda: st["r1"].update(peak_bytes=9e10),
+        "r2_tokens": lambda: st["r2"].update(host=dict(st["r2"]["host"], report={
+            "generated": [0] * 32})),
+        "r3_spec": lambda: st["r3"]["speculate"]["report"].update(generated=[0] * 32),
+        "r2_shared": lambda: st["r2"].update(fused=dict(st["r2"]["fused"], draft_shared=False)),
+        "r2_copy": lambda: st["r2"].update(host=dict(st["r2"]["host"], peak_bytes=4.3e10)),
+        "r3_match": lambda: st["r3"]["report"].update(greedy_match=False, first_divergence=7),
+        "r3_logits": lambda: st["r3"]["report"].update(logit_max_abs_diff=2e-3),
+        "r4_b5": lambda: st["r4"]["launches"].update(w8a16_gemm=0),
+        "r4_bytes": lambda: st["r4"]["weight_bytes"].update(int8=0),
+        "r4_check_match": lambda: st["r4_check"]["report"].update(greedy_match=False,
+                                                                  first_divergence=3),
+        "r4_check_logits": lambda: st["r4_check"]["report"].update(logit_max_abs_diff=2e-3),
+        "r4_check_b5": lambda: st["r4_check"]["launches"].update(w8a16_gemm=0),
+        "r5_medusa": lambda: r5["medusa"]["report"].update(matches_base_greedy=False),
+        "r5_crash": lambda: r5["replicas_crash"]["report"].update(failovers=0),
+        "r5_disagg": lambda: r5["disagg"]["report"].update(handoffs_adopted=3),
+        "r5_adapters": lambda: r5["adapters"]["report"].update(adapter_evictions=0),
+        "r5_grammar": lambda: r5["grammar"]["report"]["structured"].update(grammar_rejects=1),
+        "r5_snapshot": lambda: r5["snapshot"].update(file_left=True),
+        "r0_shell_exit": lambda: st["r0_shell"].update(returncode=1),
+        "r0_shell_tokens": lambda: st["r0_shell"].update(report=[{"prompt": 0,
+                                                                   "generated": [1]}]),
+        "r0_shell_b1": lambda: st["r0_shell"]["launches"].update(flash_block_forward=0),
+        "l0_resume": lambda: l0.update(resumed_equal=False),
+        "l0_preempt": lambda: l0.update(preempted=False),
+        "l0_signal": lambda: l0.update(disposition_restored=False),
+        "l0_accum": lambda: l0.update(accum_moved=[True] * 4),
+        "l0_b3": lambda: l0["launches"].update(flash_bwd_dkdv=0),
+        "l0_losses": lambda: l0.update(resumed_losses=[10.3, 10.25]),
+    }
+    edit[fault]()
+    assert any(says in p for p in _entry_problems(smoke, st, r5, l0)), _entry_problems(
+        smoke, st, r5, l0)

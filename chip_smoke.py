@@ -322,6 +322,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -528,13 +529,23 @@ def held(got, want, floor: float, rel: float = REL_BF16, exact=None, size=None) 
     return r
 
 
+def held_problems(name: str, r: dict) -> list:
+    """What fails in ``held``'s reading ``r`` of ``name``: an element beyond
+    the rule, or a floor not under ``FLOOR_SHARE_OF_MEDIAN`` of the median
+    |ref| (a floor that large would pass a wrong kernel)."""
+    out = []
+    if not r["ok"]:
+        out.append(f"{name} differs from its twin beyond {r['rel']:.3g} * |ref| + "
+                   f"{r['floor']:.3g} (needs {r['floor_needed']:.3g})")
+    if r["floor"] > FLOOR_SHARE_OF_MEDIAN * r["median_abs_ref"]:
+        out.append(f"{name}: floor {r['floor']:.3g} exceeds {FLOOR_SHARE_OF_MEDIAN:.0%} of the "
+                   f"median |ref| {r['median_abs_ref']:.3g}")
+    return out
+
+
 def check_held(name: str, r: dict) -> None:
-    check(r["ok"], f"{name} differs from its twin beyond {r['rel']:.3g} * |ref| + {r['floor']:.3g}"
-                   f" (needs a floor of {r['floor_needed']:.3g}; max |err| {r['max_abs_err']:.3g},"
-                   f" median |ref| {r['median_abs_ref']:.3g})")
-    check(r["floor"] <= FLOOR_SHARE_OF_MEDIAN * r["median_abs_ref"],
-          f"{name}: floor {r['floor']:.3g} is not below {FLOOR_SHARE_OF_MEDIAN} of the median "
-          f"|ref| {r['median_abs_ref']:.3g}")
+    problems = held_problems(name, r)
+    check(not problems, "; ".join(problems) + f" (max |err| {r['max_abs_err']:.3g})")
 
 
 def compile_report(source: str) -> dict:
@@ -1728,6 +1739,21 @@ def serve_config():
     from neuronx_distributed_tpu_torch.models.llama import llama3_8b
 
     return llama3_8b(max_seq_len=4096, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+
+
+# phases 4b (trace, and its eager passes), 4c (overload), 4d (recovery),
+# 4e (tenants), 4f (park), 4g's speculation and Medusa, and 4i (fleet):
+# llama3_8b depth, of 32 (their gates count decisions and compare passes
+# on one model, which the depth does not change; cut for the run time when
+# phase 4q came). Phase 4's serve cells, (t1) and 4h's (q1) keep all 32.
+SERVING_CUT_LAYERS = 8
+
+
+def serving_cut(cfg, params):
+    """``cfg`` and ``params`` cut to ``SERVING_CUT_LAYERS`` layers (the
+    first ones; the tensors shared, not copied)."""
+    return (dataclasses.replace(cfg, num_layers=SERVING_CUT_LAYERS),
+            first_layers(params, SERVING_CUT_LAYERS))
 
 
 def serve_prompts(vocab: int, seed: int = 5):
@@ -3248,11 +3274,12 @@ def run_tenant_phase(lm, dev, counters, streams_a: dict, trace_n: list) -> dict:
 
 # --- phase 4f: conversations that outlive their slot --------------------------------
 
-# eight chat sessions on the trace phase's CausalLM: six with 512-token
-# prompts and two long-context ones with 3072, arriving one a block; each
-# generates 96 tokens (greedy, no EOS). A Llama-3-8B bf16 page of 16 tokens
-# is 2 MiB over 32 layers (K and V), so a session parked at 512 + 32 tokens
-# holds 34 pages (68 MiB) and one at 3072 + 32 holds 194 (388 MiB)
+# eight chat sessions on the trace phase's CausalLM at SERVING_CUT_LAYERS
+# layers: six with 512-token prompts and two long-context ones with 3072,
+# arriving one a block; each generates 96 tokens (greedy, no EOS). A
+# Llama-3-8B bf16 page of 16 tokens is 64 KiB a layer (K and V), so a
+# session parked at 512 + 32 tokens holds 34 pages and one at 3072 + 32
+# holds 194 (at 8 layers 17 and 97 MiB)
 PARK_LENS = (512, 512, 3072, 512, 512, 3072, 512, 512)
 PARK_NEW_TOKENS = 96
 PARK_AT = 32            # (v), (x), (y) park a session once it delivered this many
@@ -3818,7 +3845,7 @@ def _spec_runs(target, drafts: dict, prompt, collect_stats=False) -> dict:
 
 def run_speculation(cfg, dev, params, counters) -> dict:
     """(z2) Draft-model speculation of one 512-token prompt on the serve
-    weights (bf16, full depth), the target on the slab path: a self-draft
+    weights (bf16, at the depth given), the target on the slab path: a self-draft
     (a second ``CausalLM`` on the same tensors) and a 2-layer draft at full
     width on its own seed, host loop and fused block, greedy and sampled;
     tokens/s of the fused block against ``generate(fused_chunk=8)`` in the
@@ -3902,7 +3929,7 @@ def medusa_heads(cfg, dev, dtype, seed: int = 2) -> dict:
 
 def run_medusa(cfg, dev, params, counters, gen_tokens=None) -> dict:
     """(z3) Medusa tree decoding (``DEFAULT_CHOICES``) of the speculation
-    prompt on the serve weights with two seeded heads, bf16 full depth,
+    prompt on the serve weights with two seeded heads, bf16 at the depth given,
     timed on its second run (the programs captured on the first); then the
     fp32 check on the first 2 layers: the tokens must equal greedy
     ``generate``'s."""
@@ -4389,10 +4416,10 @@ def quant_route_gates(out: dict) -> None:
 
 # --- phase 4i: the replica fleet ------------------------------------------------------
 
-# Every pass runs on the trace cell's CausalLM (trace_lm: Llama-3-8B full width,
-# bf16 seeded weights held once, max_seq_len 4096, pages of 16, 8 rows a
-# replica), each replica a session of its own, block_steps 8 and 512-token
-# prefill chunks. Every count these gates compare was first predicted on the
+# Every pass runs on the trace cell's CausalLM (trace_lm: Llama-3-8B full width
+# at SERVING_CUT_LAYERS layers, bf16 seeded weights held once, max_seq_len
+# 4096, pages of 16, 8 rows a replica), each replica a session of its own,
+# block_steps 8 and 512-token prefill chunks. Every count these gates compare was first predicted on the
 # CPU over SimCausalLM by scripts/fleet_rehearsal.py (greedy, no EOS: the
 # schedules do not depend on token values); after changing a pass, its
 # traffic, its fleet or anything its schedule reads, rerun the script and
@@ -5009,7 +5036,8 @@ def _ms(x) -> str:
 def print_fleet(fleet: dict, card: str) -> None:
     """Phase 4i's report lines."""
     for label, st in fleet["z1"].items():
-        print(f"fleet (z1 {label}): llama3_8b full width, Router(lm, 1) against a bare engine on "
+        print(f"fleet (z1 {label}): llama3_8b full width at {SERVING_CUT_LAYERS} layers, "
+              f"Router(lm, 1) against a bare engine on "
               f"the serve workload: streams bit-identical {st['identical']}; wall "
               f"{st['wall_s']:.3f} s against {st['bare_wall_s']:.3f} s; capture "
               f"{st['capture_s']:.3f} s (the bare engine's closed session taken over); host ops "
@@ -5117,7 +5145,7 @@ TP_TIMEOUT_S = 300            # every group's timeout: a dead rank fails its pee
 TP_CHILD_TIMEOUT_S = 900      # the parent's wait for the (t2) processes
 TP_SMALL_TOL = 1e-4           # (t2) small fp32 model: |logit| vs TP=1
 TP_SHARE_MAX = 0.55           # (t2) per-rank KV and weight bytes against TP=1's
-TP_LAYERS = None              # (t2) llama3_8b depth (None: all 32 layers)
+TP_LAYERS = 8                 # (t2) llama3_8b depth, of 32 (cut for phase 4q's time)
 TP_SMALL_LENS = (40, 150, 200, 7)
 TP_SMALL_NEW = 16
 TP_SMALL_LM = dict(buckets=(128, 256), max_batch=4, page_size=16, paged_attn_kernel=True)
@@ -5281,30 +5309,23 @@ def tp_t1(cfg, dev, params, counters) -> dict:
     return out
 
 
-def tp_child(rank: int, world: int, port: int, out_path: str, layers=None) -> int:
+def tp_child(rank: int, world: int, port: int, out_path: str, layers=None,
+             parts=("t2", "rest")) -> int:
     """One rank of (t2), a process of its own on ``cuda:0`` over gloo:
     the small fp32 model's check, then ``llama3_8b`` (full width, ``layers``
     deep) on its shard, the serve workload step by step; its digest is
-    all-gathered and every rank's written with its readings to
-    ``out_path``."""
+    all-gathered. Then phase 4q's cells on the same group (``parts``:
+    which of the two run). Every rank's readings go to ``out_path``."""
     import datetime
 
     import torch
     import torch.distributed as dist
 
-    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
-    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
-    from neuronx_distributed_tpu_torch.inference.paged_kernel import (
-        paged_decode_attention,
-        paged_decode_attention_plain,
-    )
+    from neuronx_distributed_tpu_torch.inference.paged_kernel import paged_decode_attention
     from neuronx_distributed_tpu_torch.kernels import _build
-    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
-        flash_block_forward,
-        flash_block_forward_plain,
-    )
-    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
-    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import flash_block_forward
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm
+    from neuronx_distributed_tpu_torch.parallel import mesh
 
     dev = "cuda:0"
     torch.cuda.set_device(0)
@@ -5316,6 +5337,36 @@ def tp_child(rank: int, world: int, port: int, out_path: str, layers=None) -> in
     group = mesh.initialize_model_parallel(world, timeout=timeout).groups["tp"]
     _build.build()
     res = dict(rank=rank, backend=mesh.group_backend(group), startup_s=time.perf_counter() - t0)
+    if "t2" in parts:
+        tp_t2_cells(res, rank, world, group, dev, layers)
+    if "rest" in parts:
+        res["rest"] = tpr_rank_cells(dev, (flash_block_forward, paged_decode_attention,
+                                           w8a16_gemm), rank, world)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["wall_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(res))
+    mesh.destroy_model_parallel()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_t2_cells(res: dict, rank: int, world: int, group, dev, layers=None) -> None:
+    """(t2)'s cells on one rank, their readings into ``res``."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+    from neuronx_distributed_tpu_torch.inference.paged_kernel import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_block_forward_plain,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.parallel import mappings
+
     lm_kw = dict(device=dev, tp_group=group, capture_programs=False)
     small = small_config()
     sd = init_params(small, torch.Generator(device=dev).manual_seed(0), device=dev,
@@ -5367,19 +5418,15 @@ def tp_child(rank: int, world: int, port: int, out_path: str, layers=None) -> in
                                       max_abs_err=b1, tolerance=TOL_FLASH_BF16),
                        paged_decode=dict(shape=f"q {tuple(pargs[0].shape)}, pools "
                                          f"{tuple(pargs[1].shape)}", **r))
-    res["peak_bytes"] = torch.cuda.max_memory_allocated()
-    res["wall_s"] = time.perf_counter() - t0
-    Path(out_path).write_text(json.dumps(res))
-    mesh.destroy_model_parallel()
-    dist.destroy_process_group()
-    return 0
+    del lm, eng, q, k, v, qp, kp, pargs
+    _free(dev)
 
 
-def tp_t2(dev, layers=None) -> dict:
-    """(t2): :func:`tp_child` as ``TP_WORLD`` processes on the one card,
-    each a rank of a gloo group; the card's used memory polled while they
-    run. A rank that fails or outlives ``TP_CHILD_TIMEOUT_S`` fails the
-    phase (every process is stopped)."""
+def tp_t2(dev, layers=None, parts=("t2", "rest")) -> dict:
+    """(t2) and phase 4q: :func:`tp_child` as ``TP_WORLD`` processes on the
+    one card, each a rank of a gloo group; the card's used memory polled
+    while they run. A rank that fails or outlives ``TP_CHILD_TIMEOUT_S``
+    fails the phase (every process is stopped)."""
     import torch
 
     port = _free_port()
@@ -5388,7 +5435,8 @@ def tp_t2(dev, layers=None) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(TP_WORLD)]
         cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-world", str(TP_WORLD),
-               "--tp-port", str(port)] + (["--tp-layers", str(layers)] if layers else [])
+               "--tp-port", str(port), "--tp-parts", ",".join(parts)] + (
+                   ["--tp-layers", str(layers)] if layers else [])
         procs = [subprocess.Popen(cmd + ["--tp-rank", str(r), "--tp-out",
                                          str(Path(tmp) / f"rank{r}.json")],
                                   cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
@@ -5483,10 +5531,13 @@ def tp_gates(t1: dict, t2: dict, small_ref: dict) -> list:
 def run_tp_phase(cfg, dev, params, counters, layers=TP_LAYERS) -> dict:
     """Phase 4j: (t1) on the serve weights, the small model's TP=1
     reference on the card, then (t2) with this process holding no model
-    or session, and :func:`tp_gates`."""
+    or session, and :func:`tp_gates`; phase 4q runs in (t2)'s processes
+    after its cells (``rest``: :func:`tpr_finish`'s readings, its gates
+    held here too)."""
     import torch
 
     from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm
     from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
 
     t0 = time.perf_counter()
@@ -5499,6 +5550,7 @@ def run_tp_phase(cfg, dev, params, counters, layers=TP_LAYERS) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["t2"] = tp_t2(dev, layers)
+    out["rest"] = tpr_finish(out["t2"], dev, tuple(counters) + (w8a16_gemm,))
     problems = tp_gates(out["t1"], out["t2"], small_ref)
     ref = out["t1"]["plain"]["streams"]
     for rk in out["t2"]["ranks"]:
@@ -5511,6 +5563,10 @@ def run_tp_phase(cfg, dev, params, counters, layers=TP_LAYERS) -> dict:
     if problems:
         print_tp(out, card_line())
     check(not problems, "tp phase: " + "; ".join(problems))
+    rest = out["rest"].pop("problems")
+    if rest:
+        print_tp_rest(out["rest"], card_line())
+    check(not rest, "tp rest phase: " + "; ".join(rest))
     for st in out["t1"].values():
         st.pop("streams")
     return out
@@ -5549,6 +5605,590 @@ def print_tp(tp: dict, card: str) -> None:
     print(f"tp (t2): {len(t2['ranks'])} processes on one card in {t2['wall_s']:.1f} s, card peak "
           f"used {t2['card_peak_used_bytes']} of {t2['card_bytes']} bytes; phase "
           f"{tp['phase_s']:.1f} s [{card}]", flush=True)
+
+
+# --- phase 4q: tensor-parallel serving, the rest ------------------------------------------
+
+TPR_MIXTRAL_LAYERS = 8        # (u1)/(u2) mixtral_8x7b depth, of 32
+TPR_LLAMA_LAYERS = 4          # (u3) llama2_13b depth, of 40
+TPR_GENERATE = ["generate", "--model", "mixtral", "--quantize", "--max_new_tokens", "32"]
+TPR_SERVE = ["serve", "--model", "mixtral", "--quantize", "--paged", "--paged-kernel",
+             "--num_requests", "8", "--prompt_len", "256", "--max_new_tokens", "16",
+             "--max_batch", "8"]
+TPR_SPEC = ["speculate", "--draft_layers", "2", "--max_new_tokens", "32"]
+TPR_MEDUSA = ["medusa", "--max_new_tokens", "32"]
+# (u0): B5 at the shard shapes a rank's products take at TP 2, (K, N, experts):
+# the attention's Q and K/V products run apart (GQAQKVColumnParallelLinear)
+TPR_B5_SHAPES = {"mixtral q": (4096, 2048, 1), "mixtral k/v": (4096, 512, 1),
+                 "mixtral o_proj": (2048, 4096, 1), "mixtral gate/up": (4096, 7168, 8),
+                 "mixtral down": (7168, 4096, 8), "13b q/k/v": (5120, 2560, 1),
+                 "13b o_proj": (2560, 5120, 1), "13b gate/up": (5120, 6912, 1),
+                 "13b down": (6912, 5120, 1)}
+TPR_B5_ROWS = (1, 8, 512)
+TPR_B5_SELECTIVE = 2          # (token, expert) pairs of one decode token at top 2
+# (u0): B1 at a rank's heads: Mixtral-8x7B's 16 q / 4 kv over (u2)'s 256-token
+# bucket, Llama-2-13B's 20 over (u3)'s 128-token prompt
+TPR_B1 = {"mixtral": dict(h=16, hk=4, sq=256, d=128), "13b": dict(h=20, hk=20, sq=128, d=128)}
+TPR_SMALL_NEW = 12            # (u4) tokens a greedy stream
+TPR_SMALL_LORA = dict(r=8, lora_alpha=16.0)
+
+
+def tpr_b5_cases() -> list:
+    """(u0)'s B5 cases: (name, dtype, B, M, K, N, E, shared, routed)."""
+    out = []
+    for dtype in ("bf16", "fp32"):
+        for name, (K, N, E) in TPR_B5_SHAPES.items():
+            for M in TPR_B5_ROWS:
+                # an expert weight: all_experts, every expert on one shared x
+                out.append((f"{name}, {dtype}, {M} rows", dtype, E, M, K, N, E, E > 1, False))
+            if E > 1:   # selective: one row a (token, expert) pair, through idx
+                out.append((f"{name}, {dtype}, selective", dtype, TPR_B5_SELECTIVE, 1, K, N, E,
+                            False, True))
+    return out
+
+
+def tpr_route(case) -> str:
+    """The B5 route of one ``tpr_b5_cases`` case (shapes alone decide)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import _route
+
+    _name, dtype, B, M, K, N, _E, _shared, _routed = case
+    return _route(B, M, K, N, torch.bfloat16 if dtype == "bf16" else torch.float32)
+
+
+def b5_case_held(dev, case) -> dict:
+    """One B5 case (``tpr_b5_cases``' tuple) launched twice (the same bits)
+    and held element by element against its twin and its fp64 evaluation
+    (``held``; the fp32 floor grows with sqrt(K / 4096)); ``problems``
+    lists what fails (``held_problems``)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.kernels.w8a16 import w8a16_gemm, w8a16_gemm_plain
+
+    name, dtype, B, M, K, N, E, shared, routed = case
+    x, q, scale, idx = w8a16_case(dev, dtype, B, M, K, N, E, shared, routed, False)
+    out = w8a16_gemm(x, q, scale, idx)
+    problems = [] if torch.equal(out, w8a16_gemm(x, q, scale, idx)) else [
+        f"w8a16_gemm ({name}): a second launch gave other bits"]
+    bf16 = dtype == "bf16"
+    floor = TOL_W8A16_FLOOR if bf16 else TOL_W8A16_FP32_FLOOR * math.sqrt(max(1.0, K / 4096))
+    r = held(out, w8a16_gemm_plain(x, q, scale, idx), floor, rel=REL_BF16 if bf16 else REL_FP32,
+             exact=w8a16_exact(x, q, scale, idx))
+    r["route"] = tpr_route(case)
+    r["problems"] = problems + held_problems(f"w8a16_gemm ({name})", r)
+    return r
+
+
+def b5_cases_held(dev, cases) -> dict:
+    """``b5_case_held`` on each of ``cases``, by name, with cuBLAS's
+    reduced-precision bf16 reductions off (the twin's products sum in
+    fp32)."""
+    import torch
+
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    try:
+        for case in cases:
+            out[case[0]] = b5_case_held(dev, case)
+            _free(dev)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    return out
+
+
+def b1_heads_held(dev, h: int, hk: int, sq: int, d: int, preset, sk: int = 0,
+                  seed: int = 41) -> dict:
+    """B1 in bf16 over ``h`` query heads on ``hk`` KV heads: ``sq`` queries
+    at positions 0.. against ``sk`` keys at 0.. (``sk`` 0: ``sq``, a causal
+    prompt), the blocks ``preset``'s cached path picks; held element by
+    element against its twin and its fp64 evaluation with the floor
+    ``EP_B1_FLOOR`` (``held_problems``) and the LSE within ``TOL_LSE``."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
+        flash_block_forward,
+        flash_block_forward_plain,
+    )
+
+    sk = sk or sq
+    blk_q, blk_k = preset(max_seq_len=max(sk, 4096)).blocks_for(sq, sk)
+    blk_q, blk_k = min(blk_q, sq), min(blk_k, sk)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((n, s, d), generator=g, device=dev).to(torch.bfloat16)
+               for n, s in ((h, sq), (hk, sk), (hk, sk)))
+    qpos, kpos = (torch.arange(s, dtype=torch.int32, device=dev).reshape(1, 1, s)
+                  for s in (sq, sk))
+    args = (q, k, v, qpos, kpos, d ** -0.5, blk_q, blk_k, h // hk, h)
+    o, lse = flash_block_forward(*args)
+    ref, ref_lse = flash_block_forward_plain(*args)
+    r = held(o, ref, EP_B1_FLOOR, exact=fwd_exact(*args)[0])
+    r["lse_max_abs_err"] = float((lse - ref_lse).abs().max())
+    r["shape"] = (f"q ({h}, {sq}, {d}) bf16 at positions 0..{sq - 1}, k/v ({hk}, {sk}, {d}), "
+                  f"group {h // hk}, blocks {blk_q} x {blk_k}")
+    r["problems"] = held_problems(f"flash_fwd at {r['shape']}", r)
+    if r["lse_max_abs_err"] > TOL_LSE:
+        r["problems"].append(f"flash_fwd lse at {r['shape']} differs from the twin's by "
+                             f"{r['lse_max_abs_err']:.3g}")
+    return r
+
+
+def tpr_kernel_check(dev, rank: int = 0, world: int = 1) -> dict:
+    """(u0): this rank's share of the B5 cases (every ``world``-th from
+    ``rank``) and of the two B1 cases, not timed and not counted."""
+    from neuronx_distributed_tpu_torch.models.llama import llama2_13b
+    from neuronx_distributed_tpu_torch.models.mixtral import mixtral_8x7b
+
+    out = {"w8a16_gemm": b5_cases_held(dev, tpr_b5_cases()[rank::world]),
+           "flash_block_forward": {}}
+    presets = {"mixtral": mixtral_8x7b, "13b": llama2_13b}
+    for name in sorted(TPR_B1)[rank::world]:
+        out["flash_block_forward"][name] = b1_heads_held(dev, **TPR_B1[name],
+                                                         preset=presets[name])
+    _free(dev)
+    return out
+
+
+def tpr_mixtral_config(layers: int = TPR_MIXTRAL_LAYERS):
+    """(u1)/(u2)'s model: the runner's Mixtral-8x7B config, cut in depth."""
+    runner = ep_runner()
+    return dataclasses.replace(runner.build_config(runner.parse_args(TPR_GENERATE)),
+                               num_layers=layers)
+
+
+def tpr_llama_config(layers: int = TPR_LLAMA_LAYERS):
+    """(u3)'s model: the runner's Llama-2-13B config, cut in depth."""
+    runner = ep_runner()
+    return dataclasses.replace(runner.build_config(runner.parse_args(TPR_SPEC)),
+                               num_layers=layers)
+
+
+def tpr_int8_bytes(cfg, model_cls, tp: int = 1) -> int:
+    """A rank's int8 weight bytes at degree ``tp``, reckoned from the
+    shapes on the meta device (nothing is built): every weight's pair (or
+    float leaf) cut by its spec."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.partition import (
+        local_shape,
+        param_partition_specs,
+        scale_spec,
+    )
+    from neuronx_distributed_tpu_torch.quantization.core import quantize_leaf
+
+    with torch.device("meta"):
+        model = model_cls(cfg)
+        specs = param_partition_specs(model)
+        total = 0
+        for name, t in model.state_dict().items():
+            for k, v in quantize_leaf(name, t).items():
+                sp = scale_spec(specs[name], tuple(v.shape)) if k.endswith(".scale") and \
+                    k != name else specs[name]
+                total += math.prod(local_shape(tuple(v.shape), sp, tp)) * v.element_size()
+    return total
+
+
+class _Spied:
+    """While active, ``module.attr`` is wrapped so that each of this
+    thread's calls lands in ``calls`` as ``(args, kwargs, result)`` (thread
+    ranks share the module: one wrapper, a list per thread)."""
+
+    _lock = threading.Lock()
+
+    def __init__(self, module, attr: str):
+        self.module, self.attr, self.calls = module, attr, []
+
+    def __enter__(self):
+        with self._lock:
+            spy = getattr(self.module, self.attr)
+            if not hasattr(spy, "spied_calls"):
+                base = spy
+
+                def spy(*a, **kw):
+                    out = base(*a, **kw)
+                    calls = spy.spied_calls.get(threading.get_ident())
+                    if calls is not None:
+                        calls.append((a, kw, out))
+                    return out
+
+                spy.spied_calls, spy.spied_base = {}, base
+                setattr(self.module, self.attr, spy)
+            spy.spied_calls[threading.get_ident()] = self.calls
+        return self
+
+    def __exit__(self, *exc):
+        with self._lock:
+            spy = getattr(self.module, self.attr)
+            spy.spied_calls.pop(threading.get_ident(), None)
+            if not spy.spied_calls:
+                setattr(self.module, self.attr, spy.spied_base)
+        return False
+
+
+def tpr_mixtral_cells(dev, counters, rank: int, world: int, cfg=None) -> dict:
+    """(u1) and (u2) on this rank: the Mixtral int8 shard drawn once (each
+    weight whole, quantized, then cut: ``init_params``' rule, the runner's
+    seed), then ``generate`` and ``serve --paged --paged-kernel`` through
+    the runner at ``--tp world``."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference import engine as engine_mod
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
+    from neuronx_distributed_tpu_torch.moe.expert_mlps import ExpertMLPs
+    from neuronx_distributed_tpu_torch.quantization.core import QuantizationConfig
+
+    cfg = cfg or tpr_mixtral_config()
+    tp = ["--tp", str(world)] if world > 1 else []
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         model_cls=MixtralForCausalLM, quantize=QuantizationConfig(),
+                         tp_rank=rank, tp_size=world)
+    _sync(dev)
+    out = {"setup_s": time.perf_counter() - t0, "layers": cfg.num_layers,
+           "weight_bytes": sum(nbytes(t) for t in params.values()),
+           "weight_bytes_tp1": tpr_int8_bytes(cfg, MixtralForCausalLM)}
+    # the decode steps at batch 1 run the selective experts (B5's decode
+    # route through the (token, expert) index): their calls counted
+    with _Spied(ExpertMLPs, "forward_selective") as spied:
+        u1 = out["u1"] = ep_run(TPR_GENERATE + tp, dev, counters, params=params, config=cfg)
+        u1["selective_calls"] = len(spied.calls)
+        spied.calls.clear()
+    u1["tokens"] = [r["generated"] for r in u1.pop("report")]
+    u1["tokens_per_s"] = sum(len(t) for t in u1["tokens"]) / u1["wall_s"]
+    with _Spied(engine_mod, "run_trace") as spied:
+        u2 = out["u2"] = ep_run(TPR_SERVE + tp, dev, counters, params=params, config=cfg)
+        engine = spied.calls[-1][0][0]
+        streams = {c.request_id: c.tokens.tolist() for c in engine.completed}
+        spied.calls.clear()
+        del engine
+    u2["digest"] = tp_digest(streams, {})
+    u2["tokens"] = sum(len(t) for t in streams.values())
+    del params
+    _free(dev)
+    return out
+
+
+def tpr_llama_cells(dev, counters, world: int, cfg=None) -> dict:
+    """(u3) on this rank: ``speculate --draft_layers 2`` and ``medusa``
+    through the runner at ``--tp world`` on its seeded Llama-2-13B shards;
+    whether each speculative run's draft holds the target's own tensors."""
+    from neuronx_distributed_tpu_torch.inference import speculative
+
+    cfg = cfg or tpr_llama_config()
+    tp = ["--tp", str(world)] if world > 1 else []
+    out = {"layers": cfg.num_layers}
+    with _Spied(speculative, "speculative_generate") as spied:
+        spec = out["speculate"] = ep_run(TPR_SPEC + tp, dev, counters, config=cfg)
+        shared = []
+        for (target, draft, *_), _kw, _res in spied.calls:
+            mine = {t.data_ptr() for t in target.model.state_dict().values()}
+            shared.append(all(t.data_ptr() in mine for t in draft.model.state_dict().values()))
+        spied.calls.clear()
+    spec["draft_shared"] = bool(shared) and all(shared)
+    _free(dev)
+    out["medusa"] = ep_run(TPR_MEDUSA + tp, dev, counters, config=cfg)
+    _free(dev)
+    return out
+
+
+def tpr_small_configs():
+    """(u4)'s small fp32 models: ``small_config``'s Llama, a Mixtral of its
+    widths (4 experts, top 2: selective at 1 row, all_experts at 3), and
+    the Llama at ``kv_size_multiplier=2``."""
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralConfig
+
+    llama = small_config()
+    fields = {f.name: getattr(llama, f.name) for f in dataclasses.fields(llama)}
+    mixtral = MixtralConfig(**fields, num_experts=4, top_k=2, selective_loading_threshold=1.5)
+    return llama, mixtral, dataclasses.replace(llama, kv_size_multiplier=2)
+
+
+def tpr_small(dev, rank: int = 0, world: int = 1, counters=()) -> dict:
+    """(u4) at degree ``world`` (this rank's shards; 1: the reference):
+    int8 Llama (greedy streams and one insert's logits), int8 Mixtral in
+    both MoE modes, greedy speculation over a one-layer self-draft, Medusa
+    (the runner's head init) and multi-LoRA at ``kv_size_multiplier=2``,
+    each eager (``capture_programs=False``) and each stream greedy."""
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+    from neuronx_distributed_tpu_torch.inference.medusa import (
+        DEFAULT_CHOICES,
+        medusa_generate,
+        medusa_model,
+    )
+    from neuronx_distributed_tpu_torch.inference.speculative import speculative_generate
+    from neuronx_distributed_tpu_torch.lora.core import LoraConfig, init_lora
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
+    from neuronx_distributed_tpu_torch.quantization.core import QuantizationConfig
+
+    runner = ep_runner()
+    llama, mixtral, kvm = tpr_small_configs()
+    kw = dict(device=dev, capture_programs=False)
+    shard = dict(tp_rank=rank, tp_size=world)
+    prompts = np.stack([p[:40] for p in tp_small_prompts(llama.vocab_size)[:3]])
+    zero_launches(counters)
+    out = {}
+
+    def draw(cfg, cls=LlamaForCausalLM, quantize=None):
+        return init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                           model_cls=cls, quantize=quantize, **shard)
+
+    q = QuantizationConfig()
+    lm = CausalLM(llama, draw(llama, quantize=q), LlamaForCausalLM, buckets=(64,), max_batch=3,
+                  **kw)
+    out["int8_llama"] = dict(
+        streams=lm.generate(prompts, max_new_tokens=TPR_SMALL_NEW).tokens.tolist(),
+        logits=lm.insert(lm.start_session(), np.arange(3), prompts).float().cpu().tolist())
+    del lm
+    mq = draw(mixtral, MixtralForCausalLM, q)
+    for rows in (3, 1):   # all_experts (3 * 2 / 4 >= 1.5), selective
+        lm = CausalLM(mixtral, mq, MixtralForCausalLM, buckets=(64,), max_batch=rows, **kw)
+        out[f"int8_mixtral_{rows}"] = dict(
+            mode=lm.model.model.layers[0].moe.mode_for(rows, 1),
+            streams=lm.generate(prompts[:rows], max_new_tokens=TPR_SMALL_NEW).tokens.tolist())
+        del lm
+    del mq
+    target = CausalLM(llama, draw(llama), LlamaForCausalLM, buckets=(64,), max_batch=1, **kw)
+    draft = CausalLM(dataclasses.replace(llama, num_layers=1),
+                     runner._draft_params(target, 1), LlamaForCausalLM, buckets=(64,),
+                     max_batch=1, **kw)
+    res = speculative_generate(target, draft, prompts[:1], max_new_tokens=TPR_SMALL_NEW,
+                               num_draft=3)
+    out["speculation"] = dict(streams=res.tokens.tolist(), accepted=res.stats["accepted"])
+    del target, draft
+    mp = runner.medusa_init(llama, 0, dev, **shard)
+    res = medusa_generate(llama, medusa_model(llama, mp, 2, dev, capture_programs=False),
+                          prompts[:1], max_new_tokens=TPR_SMALL_NEW,
+                          medusa_choices=DEFAULT_CHOICES, device=dev)
+    out["medusa"] = dict(streams=res.tokens.tolist(), accepted=res.stats["accepted"])
+    del mp
+    acfg = LoraConfig(**TPR_SMALL_LORA)
+    base = init_params(kvm, torch.Generator(device=dev).manual_seed(0), device=dev)
+    ads = {}
+    for i in range(2):   # full-width adapters: the pool keeps the rank's slices
+        ad = init_lora(base, acfg, torch.Generator().manual_seed(50 + i))
+        g = torch.Generator().manual_seed(60 + i)
+        ads[f"a{i}"] = {k: {"lora_a": v["lora_a"], "lora_b": 0.05 * torch.randn(
+            v["lora_b"].shape, generator=g)} for k, v in sorted(ad.items())}
+    del base
+    lm = CausalLM(kvm, draw(kvm), LlamaForCausalLM, buckets=(64,), max_batch=3, lora_rank=8,
+                  lora_slots=3, **kw)
+    eng = ServeEngine(lm, block_steps=4, fused=False, seed=0)
+    for name, ad in ads.items():
+        eng.register_adapter(name, ad, acfg)
+    for i, p in enumerate(prompts):
+        eng.submit(p, TPR_SMALL_NEW, adapter=None if i == 0 else f"a{i % 2}")
+    done = eng.run()
+    eng.close()
+    # a list by request id: the readings cross a JSON file from the ranks
+    out["lora_kvm2"] = dict(streams=[c.tokens.tolist()
+                                     for c in sorted(done, key=lambda c: c.request_id)])
+    del lm, eng
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["launches_by_route"] = routes_of(counters)
+    _free(dev)
+    return out
+
+
+def tpr_rank_cells(dev, counters, rank: int, world: int) -> dict:
+    """Phase 4q on one rank of (t2)'s processes: (u0)-(u4), in order."""
+    t0 = time.perf_counter()
+    out = {"u0": tpr_kernel_check(dev, rank, world)}
+    out.update(tpr_mixtral_cells(dev, counters, rank, world))
+    out["u3"] = tpr_llama_cells(dev, counters, world)
+    out["u4"] = tpr_small(dev, rank, world, counters)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def tpr_reference(dev, counters) -> dict:
+    """What phase 4q's TP=2 cells are held against, made in the parent
+    after the ranks: (u1) at TP=1 on the same seeded int8 weights (printed,
+    not gated), and (u4) at TP=1."""
+    t0 = time.perf_counter()
+    u1 = ep_run(TPR_GENERATE, dev, counters, config=tpr_mixtral_config())
+    out = {"u1_tokens": [r["generated"] for r in u1["report"]],
+           "u1_tokens_per_s": sum(len(r["generated"]) for r in u1["report"]) / u1["wall_s"],
+           "u1_peak_bytes": u1["peak_bytes"]}
+    _free(dev)
+    out["u4"] = tpr_small(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def tpr_gates(ranks: list, ref: dict, card_peak_used: int, card_bytes: int,
+              on_card: bool = True) -> list:
+    """Phase 4q's hard gates over the ranks' ``rest`` readings and the
+    parent's TP=1 references, as a list of problems (empty: pass);
+    ``on_card=False`` leaves out the launch gates and the eager route's
+    (a CPU rehearsal runs the twins, captured)."""
+    import numpy as np
+
+    bad = []
+    rests = [rk["rest"] for rk in ranks]
+    for rk, st in zip(ranks, rests):
+        r = rk["rank"]
+        for kind in ("w8a16_gemm", "flash_block_forward"):
+            for case, reading in st["u0"][kind].items():
+                bad += [f"(u0 rank {r}) {p}" for p in reading["problems"]]
+        u1 = st["u1"]
+        if not st["weight_bytes"] <= TP_SHARE_MAX * st["weight_bytes_tp1"]:
+            bad.append(f"(u1 rank {r}) int8 weight bytes {st['weight_bytes']} against TP=1's "
+                       f"{st['weight_bytes_tp1']}")
+        routes = u1["launches_by_route"].get("w8a16_gemm", {})
+        want = [("(u1)", u1, "flash_block_forward"), ("(u2)", st["u2"], "paged_decode_attention"),
+                ("(u3) speculate", st["u3"]["speculate"], "flash_block_forward"),
+                ("(u3) medusa", st["u3"]["medusa"], "flash_block_forward")]
+        for cell, reading, name in want if on_card else ():
+            if reading["launches"].get(name, 0) <= 0:
+                bad.append(f"{cell} rank {r}: {name} never launched")
+        for route in ("wgmma", "decode") if on_card else ():
+            if routes.get(route, 0) <= 0:
+                bad.append(f"(u1 rank {r}) w8a16_gemm never launched on its {route} route")
+        f32 = st["u4"]["launches_by_route"].get("w8a16_gemm", {}).get("f32", 0)
+        if on_card and f32 <= 0:
+            bad.append(f"(u4 rank {r}) w8a16_gemm never launched on its f32 route")
+        if u1["selective_calls"] <= 0:
+            bad.append(f"(u1 rank {r}) no decode step ran the selective experts")
+        if not u1["tokens"] or any(len(t) != 32 for t in u1["tokens"]):
+            bad.append(f"(u1 rank {r}) streams of lengths {[len(t) for t in u1['tokens']]}")
+        u2 = st["u2"]
+        rep = u2["report"]
+        if rep.get("requests_completed") != 8 or u2["tokens"] != 8 * 16:
+            bad.append(f"(u2 rank {r}) {rep.get('requests_completed')} requests, "
+                       f"{u2['tokens']} tokens")
+        if (on_card and rep.get("fused") is not False) or rep.get("tp_degree") != 2:
+            bad.append(f"(u2 rank {r}) fused {rep.get('fused')}, tp {rep.get('tp_degree')}")
+        u3 = st["u3"]
+        if not u3["speculate"]["draft_shared"]:
+            bad.append(f"(u3 rank {r}) the draft does not hold the target's tensors")
+        if u3["medusa"]["report"].get("matches_base_greedy") is not True:
+            bad.append(f"(u3 rank {r}) Medusa's output is not the base greedy stream")
+        u4, want = st["u4"], ref["u4"]
+        for case in ("int8_llama", "int8_mixtral_3", "int8_mixtral_1", "speculation", "medusa",
+                     "lora_kvm2"):
+            if u4[case]["streams"] != want[case]["streams"]:
+                bad.append(f"(u4 rank {r}) {case} greedy streams differ from TP=1's")
+        for rows, mode in ((3, "all_experts"), (1, "selective")):
+            if u4[f"int8_mixtral_{rows}"]["mode"] != mode:
+                bad.append(f"(u4 rank {r}) {rows} rows ran {u4[f'int8_mixtral_{rows}']['mode']}")
+        err = float(np.abs(np.asarray(u4["int8_llama"]["logits"])
+                           - np.asarray(want["int8_llama"]["logits"])).max())
+        u4["int8_logits_max_abs_err"] = err
+        if not err <= TP_SMALL_TOL:
+            bad.append(f"(u4 rank {r}) int8 logits differ from TP=1's by {err}")
+    if len(rests) > 1:
+        a, b = rests[0], rests[1]
+        if a["u1"]["tokens"] != b["u1"]["tokens"]:
+            bad.append("(u1) the ranks' tokens differ")
+        if a["u2"]["digest"] != b["u2"]["digest"]:
+            bad.append("(u2) the ranks' stream digests differ")
+        for name in ("speculate", "medusa"):
+            if a["u3"][name]["report"]["generated"] != b["u3"][name]["report"]["generated"]:
+                bad.append(f"(u3) the ranks' {name} tokens differ")
+    if not card_peak_used < card_bytes:
+        bad.append(f"the card's used memory reached {card_peak_used} of {card_bytes} bytes")
+    return bad
+
+
+def tpr_finish(t2: dict, dev, counters, on_card: bool = True) -> dict:
+    """Phase 4q's parent half, after (t2)'s processes: the TP=1 references
+    and :func:`tpr_gates` (``problems``); the readings without the
+    streams."""
+    ref = tpr_reference(dev, counters)
+    problems = tpr_gates(t2["ranks"], ref, t2["card_peak_used_bytes"], t2["card_bytes"],
+                         on_card)
+    out = {"ranks": [], "reference_s": ref["wall_s"], "u1_tokens_per_s_tp1":
+           ref["u1_tokens_per_s"], "u1_peak_bytes_tp1": ref["u1_peak_bytes"]}
+    for rk in t2["ranks"]:
+        st = rk.pop("rest")
+        got = {i: t for i, t in enumerate(st["u1"]["tokens"])}
+        st["u1"]["token_match_tp1"] = _token_match(got, dict(enumerate(ref["u1_tokens"])))
+        st["u4"]["int8_llama"].pop("logits")
+        out["ranks"].append({"rank": rk["rank"], **st})
+    out["phase_s"] = max(st["wall_s"] for st in out["ranks"]) + ref["wall_s"]
+    out["problems"] = problems
+    return out
+
+
+def tpr_launches_by_path(st: dict) -> dict:
+    """Phase 4q's launches by path for the kernels line (each path with the
+    kernels it launched; the gates hold which it must)."""
+    out = {}
+    for rk in st["ranks"]:
+        r = rk["rank"]
+        out[f"tp_rest_u1_rank{r}"] = rk["u1"]["launches"]
+        out[f"tp_rest_u2_rank{r}"] = rk["u2"]["launches"]
+        out[f"tp_rest_u3_speculate_rank{r}"] = rk["u3"]["speculate"]["launches"]
+        out[f"tp_rest_u3_medusa_rank{r}"] = rk["u3"]["medusa"]["launches"]
+        out[f"tp_rest_u4_rank{r}"] = rk["u4"]["launches"]
+    out = {path: {k: v for k, v in counts.items() if v} for path, counts in out.items()}
+    return {path: counts for path, counts in out.items() if counts}
+
+
+def tpr_b5_routes_by_path(st: dict) -> dict:
+    """B5's launches by route on each phase 4q path that ran it."""
+    out = {}
+    for rk in st["ranks"]:
+        r = rk["rank"]
+        for path, cell in ((f"tp_rest_u1_rank{r}", rk["u1"]), (f"tp_rest_u2_rank{r}", rk["u2"]),
+                           (f"tp_rest_u4_rank{r}", rk["u4"])):
+            routes = cell["launches_by_route"].get("w8a16_gemm", {})
+            if sum(routes.values()):
+                out[path] = routes
+    return out
+
+
+def print_tp_rest(st: dict, card: str) -> None:
+    for rk in st["ranks"]:
+        r, u0, u1, u2, u3, u4 = (rk[k] for k in ("rank", "u0", "u1", "u2", "u3", "u4"))
+        b5 = u0["w8a16_gemm"]
+        worst = max(b5, key=lambda c: b5[c]["floor_needed"] / b5[c]["floor"])
+        b1 = u0["flash_block_forward"]
+        print(f"tp rest (u0) rank {r}: w8a16_gemm held at {len(b5)} shard cases (routes "
+              f"{sorted({c['route'] for c in b5.values()})}), the nearest {worst} needs "
+              f"{b5[worst]['floor_needed']:.3g} of {b5[worst]['floor']:.3g}; flash_fwd "
+              + "; ".join(f"{n} {c['shape']} needs {c['floor_needed']:.3g} of {c['floor']:.3g}, "
+                          f"lse {c['lse_max_abs_err']:.3g}" for n, c in b1.items())
+              + f" [{card}]", flush=True)
+        rep2 = u2["report"]
+        print(f"tp rest (u1) rank {r}: generate --model mixtral --quantize --tp 2, "
+              f"{rk['layers']} of 32 layers: {sum(len(t) for t in u1['tokens'])} tokens in "
+              f"{u1['wall_s']:.3f} s = {u1['tokens_per_s']:.1f} tok/s (prefill included), int8 "
+              f"weight bytes {rk['weight_bytes']} against TP=1's {rk['weight_bytes_tp1']} "
+              f"({rk['weight_bytes'] / rk['weight_bytes_tp1']:.4f}), tokens equal to TP=1's "
+              f"{u1['token_match_tp1']:.4f} (TP=1 {st['u1_tokens_per_s_tp1']:.1f} tok/s), "
+              f"selective expert calls {u1['selective_calls']}, "
+              f"launches {u1['launches']} by route {u1['launches_by_route']}, set-up "
+              f"{rk['setup_s']:.1f} s, peak {u1['peak_bytes']} bytes [{card}]", flush=True)
+        print(f"tp rest (u2) rank {r}: serve --model mixtral --quantize --paged --paged-kernel "
+              f"--tp 2 (eager, fused {rep2.get('fused')}): {rep2.get('requests_completed')} "
+              f"requests, {u2['tokens']} tokens, {rep2.get('tokens_per_sec')} tok/s, ITL p50 "
+              f"{rep2.get('itl_p50_ms')} ms p99 {rep2.get('itl_p99_ms')} ms, digest "
+              f"{u2['digest']}, launches {u2['launches']}, peak {u2['peak_bytes']} bytes "
+              f"[{card}]", flush=True)
+        sp, md = u3["speculate"]["report"], u3["medusa"]["report"]
+        print(f"tp rest (u3) rank {r}: llama2_13b widths, {u3['layers']} of 40 layers, bf16: "
+              f"speculate --draft_layers 2 {sp['tokens_per_sec']} tok/s, acceptance "
+              f"{sp['acceptance_rate']} ({sp['accepted']} of {sp['proposed']}), draft shares "
+              f"the target's tensors {u3['speculate']['draft_shared']}; medusa accepted "
+              f"{md['accepted']} of {md['proposed']}, matches the base greedy stream "
+              f"{md['matches_base_greedy']}; launches {u3['speculate']['launches']} and "
+              f"{u3['medusa']['launches']} [{card}]", flush=True)
+        print(f"tp rest (u4) rank {r}: small fp32 models at TP=2 against TP=1: greedy streams "
+              f"equal (int8 llama, int8 mixtral all_experts and selective, speculation, medusa, "
+              f"multi-LoRA at kv_size_multiplier 2), int8 logits max |diff| "
+              f"{u4.get('int8_logits_max_abs_err', 'n/a')} (tol {TP_SMALL_TOL}), B5 by route "
+              f"{u4['launches_by_route'].get('w8a16_gemm')}; the rank's phase "
+              f"{rk['wall_s']:.1f} s [{card}]", flush=True)
+    print(f"tp rest: TP=1 references {st['reference_s']:.1f} s; phase {st['phase_s']:.1f} s "
+          f"[{card}]", flush=True)
 
 
 def train_batch(vocab: int, batch: int, seq: int, dev, seed: int = 7) -> dict:
@@ -8244,17 +8884,8 @@ def run_family_kernels(dev, flush, reps=5) -> dict:
             problems.append(f"flash_fwd lse ({case}) differs from its twin by "
                             f"{r['lse']['max_abs_err']}")
         for name, x in r.items():
-            if "floor" not in x:
-                continue
-            if not x["ok"]:
-                problems.append(f"{name} at the {case} shape differs from its twin beyond "
-                                f"{x['rel']:.3g} * |ref| + {x['floor']:.3g} (needs "
-                                f"{x['floor_needed']:.3g}, median |ref| "
-                                f"{x['median_abs_ref']:.3g})")
-            if x["floor"] > FLOOR_SHARE_OF_MEDIAN * x["median_abs_ref"]:
-                problems.append(f"{name} at the {case} shape: floor {x['floor']:.3g} exceeds "
-                                f"{FLOOR_SHARE_OF_MEDIAN:.0%} of the median |ref| "
-                                f"{x['median_abs_ref']:.3g}")
+            if "floor" in x:
+                problems += held_problems(f"{name} at the {case} shape", x)
         pairs = int((kpos.reshape(b, 1, s) <= qpos.reshape(b, s, 1)).sum()) * (bh // b)
         common = nbytes(q, k, v, do, lse, delta, qpos, kpos)
         qg, kg, vg = (t.reshape(b, -1, s, d).detach().requires_grad_(True) for t in (q, k, v))
@@ -8992,79 +9623,25 @@ def _free(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def ep_kernel_check(dev) -> dict:
-    """B5 on every ``EP_B5_SHAPES`` x ``EP_B5_ROWS`` case in bf16 and fp32,
-    and B1 at ``EP_B1_INSERT``, each output held element by element against
-    its twin or its fp64 evaluation (``held``; B5 launched twice must give
-    the same bits, B1's LSE within ``TOL_LSE`` of the twin's), each floor
-    under 5 % of its median |ref|. Returns the readings and a list of
-    problems."""
-    import torch
+def ep_b5_cases() -> list:
+    """Phase 4p's B5 cases, as ``tpr_b5_cases``' tuples: every
+    ``EP_B5_SHAPES`` x ``EP_B5_ROWS`` product in bf16 and fp32."""
+    return [(f"{dtype}, {M} rows, {K} -> {N}", dtype, 1, M, K, N, 1, False, False)
+            for dtype in ("bf16", "fp32") for K, N in EP_B5_SHAPES for M in EP_B5_ROWS]
 
-    from neuronx_distributed_tpu_torch.kernels.flash_attn import (
-        flash_block_forward,
-        flash_block_forward_plain,
-    )
-    from neuronx_distributed_tpu_torch.kernels.w8a16 import _route, w8a16_gemm, w8a16_gemm_plain
+
+def ep_kernel_check(dev) -> dict:
+    """B5 on every ``ep_b5_cases`` case and B1 at ``EP_B1_INSERT``, each
+    held by ``b5_case_held`` and ``b1_heads_held``. Returns the readings and
+    a list of problems."""
     from neuronx_distributed_tpu_torch.models.llama import llama2_13b
 
-    readings, problems = {"w8a16_gemm": {}}, []
-
-    def hold(name, r):
-        if not r["ok"]:
-            problems.append(f"{name} differs from its twin beyond {r['rel']:.3g} * |ref| + "
-                            f"{r['floor']:.3g} (needs {r['floor_needed']:.3g})")
-        if r["floor"] > FLOOR_SHARE_OF_MEDIAN * r["median_abs_ref"]:
-            problems.append(f"{name}: floor {r['floor']:.3g} exceeds "
-                            f"{FLOOR_SHARE_OF_MEDIAN:.0%} of the median |ref| "
-                            f"{r['median_abs_ref']:.3g}")
-
-    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        for dtype in ("bf16", "fp32"):
-            for K, N in EP_B5_SHAPES:
-                for M in EP_B5_ROWS:
-                    case = f"{dtype}, {M} rows, {K} -> {N}"
-                    x, q, scale, idx = w8a16_case(dev, dtype, 1, M, K, N, 1, False, False, False)
-                    out = w8a16_gemm(x, q, scale, idx)
-                    again = w8a16_gemm(x, q, scale, idx)
-                    if not torch.equal(out, again):
-                        problems.append(f"w8a16_gemm ({case}): a second launch gave other bits")
-                    bf16 = dtype == "bf16"
-                    floor = (TOL_W8A16_FLOOR if bf16
-                             else TOL_W8A16_FP32_FLOOR * math.sqrt(max(1.0, K / 4096)))
-                    r = held(out, w8a16_gemm_plain(x, q, scale, idx), floor,
-                             rel=REL_BF16 if bf16 else REL_FP32,
-                             exact=w8a16_exact(x, q, scale, idx))
-                    r["route"] = _route(1, M, K, N, x.dtype)
-                    readings["w8a16_gemm"][case] = r
-                    hold(f"w8a16_gemm ({case})", r)
-                    del x, q, scale, idx, out, again
-    finally:
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    b5 = b5_cases_held(dev, ep_b5_cases())
     h, sq, sk, d = (EP_B1_INSERT[k] for k in ("h", "sq", "sk", "d"))
-    blk_q, blk_k = llama2_13b(max_seq_len=sk).blocks_for(sq, sk)
-    g = torch.Generator(device=dev).manual_seed(37)
-    q, k, v = ((torch.randn((h, s, d), generator=g, device=dev).to(torch.bfloat16))
-               for s in (sq, sk, sk))
-    qpos = torch.arange(sq, dtype=torch.int32, device=dev).reshape(1, 1, sq)
-    kpos = torch.arange(sk, dtype=torch.int32, device=dev).reshape(1, 1, sk)
-    args = (q, k, v, qpos, kpos, d ** -0.5, min(blk_q, sq), blk_k, 1, h)
-    o, lse = flash_block_forward(*args)
-    ref, ref_lse = flash_block_forward_plain(*args)
-    r = held(o, ref, EP_B1_FLOOR, exact=fwd_exact(*args)[0])
-    r["lse_max_abs_err"] = float((lse - ref_lse).abs().max())
-    r["shape"] = (f"q ({h}, {sq}, {d}) bf16 at positions 0..{sq - 1}, k/v ({h}, {sk}, {d}), "
-                  f"group 1, blocks {min(blk_q, sq)} x {blk_k}")
-    readings["flash_block_forward"] = r
-    hold("flash_fwd (the 13B insert)", r)
-    if r["lse_max_abs_err"] > TOL_LSE:
-        problems.append(f"flash_fwd lse (the 13B insert) differs from the twin's by "
-                        f"{r['lse_max_abs_err']:.3g}")
-    del q, k, v, o, lse, ref, ref_lse
+    b1 = b1_heads_held(dev, h, h, sq, d, llama2_13b, sk=sk, seed=37)
     _free(dev)
-    return dict(readings=readings, problems=problems)
+    problems = [p for r in b5.values() for p in r["problems"]] + b1["problems"]
+    return dict(readings={"w8a16_gemm": b5, "flash_block_forward": b1}, problems=problems)
 
 
 def ep_runner_cells(dev, counters, params, cfg, config=None) -> dict:
@@ -9647,6 +10224,7 @@ def main(argv=None) -> int:
     parser.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--tp-layers", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-parts", default="t2,rest", help=argparse.SUPPRESS)
     # one rank of phase 4l's (d1)/(d2), started by the phase itself
     parser.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dist-world", type=int, default=DIST_WORLD, help=argparse.SUPPRESS)
@@ -9687,7 +10265,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     if args.tp_rank is not None:
-        return tp_child(args.tp_rank, args.tp_world, args.tp_port, args.tp_out, args.tp_layers)
+        return tp_child(args.tp_rank, args.tp_world, args.tp_port, args.tp_out, args.tp_layers,
+                        tuple(args.tp_parts.split(",")))
     if args.dist_rank is not None:
         return dist_child(args.dist_rank, args.dist_world, args.dist_port, args.dist_out,
                           args.dist_layers, args.dist_dir)
@@ -9856,65 +10435,90 @@ def main(argv=None) -> int:
     serve_counters = (flash_block_forward, paged_decode_attention)
     cfg = serve_config()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    spent = {}   # wall seconds of each serving phase, printed with them
+    t0 = time.perf_counter()
     # the timed runs first: a profiled run slows the runs after it
     stats = serve(cfg, dev, serve_counters, params=params)
     gc.collect()
     int8 = serve(cfg, dev, serve_counters, params=params, page_dtype="int8",
                  reference=stats["streams"])
     gc.collect()
-    lm = trace_lm(cfg, dev, params)
+    spent["serve"] = time.perf_counter() - t0
+    cut_cfg, cut_params = serving_cut(cfg, params)
+    t0 = time.perf_counter()
+    lm = trace_lm(cut_cfg, dev, cut_params)
     torch.cuda.reset_peak_memory_stats()
     trace = run_trace_phase(lm, dev, serve_counters, profile=args.profile is not None)
     trace["capture_ms"] = dict(lm.capture_ms)
     trace["pool_bytes"] = pool_bytes(lm._graph_pool())
     trace["peak_bytes"] = torch.cuda.max_memory_allocated()
     captured = trace.pop("streams")
+    spent["trace"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     eager = run_eager_trace(lm, dev, serve_counters, captured)
+    spent["programs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     overload = run_overload_phase(lm, dev, serve_counters, profile=args.profile is not None)
+    spent["overload"] = time.perf_counter() - t0
     del lm
     gc.collect()
     torch.cuda.empty_cache()
-    lm = recovery_lm(cfg, dev, params)
+    t0 = time.perf_counter()
+    lm = recovery_lm(cut_cfg, dev, cut_params)
     recovery = run_recovery_phase(lm, dev, serve_counters)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
-    lm = tenant_lm(cfg, dev, params)
+    spent["recovery"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm = tenant_lm(cut_cfg, dev, cut_params)
     tenants = run_tenant_phase(lm, dev, serve_counters, captured["a"],
                                trace.pop("trace"))
     del lm
     gc.collect()
     torch.cuda.empty_cache()
-    lm = trace_lm(cfg, dev, params)
+    spent["tenants"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm = trace_lm(cut_cfg, dev, cut_params)
     park = run_park_phase(lm, dev, serve_counters)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
-    lm = trace_lm(cfg, dev, params)
+    spent["park"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm = trace_lm(cut_cfg, dev, cut_params)
     fleet = run_fleet_phase(lm, dev, serve_counters)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
+    spent["fleet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     tp = run_tp_phase(cfg, dev, params, serve_counters)
     gc.collect()
     torch.cuda.empty_cache()
+    spent["tp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     b1 = (flash_block_forward,)
-    spec = run_speculation(cfg, dev, params, b1)
-    medusa = run_medusa(cfg, dev, params, b1)
+    spec = run_speculation(cut_cfg, dev, cut_params, b1)
+    medusa = run_medusa(cut_cfg, dev, cut_params, b1)
+    del cut_params
     with tempfile.TemporaryDirectory() as tmp:
         bundle = run_bundle(cfg, dev, params, b1, Path(tmp))
+    spent["speculation"] = time.perf_counter() - t0
     if args.profile is not None:
         gc.collect()
         stats["profile"] = serve(cfg, dev, serve_counters, profile_path=args.profile,
                                  params=params)["profile"]
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     quant = run_quant_phase(dev, parts=("q3", "q1"), params=params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     quant.update(run_quant_phase(dev, parts=("q2",)))
     quant_route_gates(quant)
+    spent["quant"] = time.perf_counter() - t0
     for name, st in (("serve", stats), ("serve int8 pages", int8)):
         print(f"{name}: llama3_8b full width ({st['layers']} layers, no depth cut), "
               f"{st['page_dtype']} pages, {st['requests']} requests, {st['generated_tokens']} "
@@ -9932,7 +10536,8 @@ def main(argv=None) -> int:
               + (f", tokens matching the bf16 pass {st['token_match_share']:.4f}"
                  if "token_match_share" in st else "") + f" [{card}]", flush=True)
     for label, st in trace["passes"].items():
-        print(f"trace pass ({label}): llama3_8b full width, {'async' if st['async_loop'] else 'sync'}"
+        print(f"trace pass ({label}): llama3_8b full width at {SERVING_CUT_LAYERS} layers, "
+              f"{'async' if st['async_loop'] else 'sync'}"
               f", prefill_chunk_tokens {st['prefill_chunk_tokens']}, {st['requests']} requests "
               f"(every 4th {TRACE_KNOBS['long_prompt_len']} prompt tokens), "
               f"{st['generated_tokens']} tokens in {st['wall_s']:.3f} s = "
@@ -9953,7 +10558,7 @@ def main(argv=None) -> int:
           flush=True)
     for label, st in overload["passes"].items():
         rep = st.get("report") or {}
-        print(f"overload pass ({label}): llama3_8b full width, "
+        print(f"overload pass ({label}): llama3_8b full width at {SERVING_CUT_LAYERS} layers, "
               f"{'async' if st['async_loop'] else 'sync'}, "
               f"{'run_trace (traced)' if st['traced'] else 'run() untraced'}, "
               f"{st['submitted']} submitted: {st['completed']} completed "
@@ -9989,7 +10594,7 @@ def main(argv=None) -> int:
           f"{overload['deadline_blocks']} blocks [{card}]", flush=True)
     for label, st in recovery["passes"].items():
         c = st["counts"]
-        print(f"recovery pass ({label}): llama3_8b full width, "
+        print(f"recovery pass ({label}): llama3_8b full width at {SERVING_CUT_LAYERS} layers, "
               + (f"crash after {RECOVERY_CRASH_BLOCKS} rounds and restore from the snapshot, "
                  f"{st['restored_requests']} requests restored, capture of the restored engine "
                  f"{st['capture_s']:.4f} s, snapshot file removed {st['file_removed']}"
@@ -10022,7 +10627,7 @@ def main(argv=None) -> int:
           flush=True)
     for label, st in tenants["passes"].items():
         c = st.get("counts", {})
-        print(f"tenants pass ({label}): llama3_8b full width, "
+        print(f"tenants pass ({label}): llama3_8b full width at {SERVING_CUT_LAYERS} layers, "
               + ("the trace phase's trace, no adapter or grammar, sync, one-shot inserts"
                  if label == "n" else
                  f"{'async' if st['async_loop'] else 'sync'}, adapters"
@@ -10057,7 +10662,8 @@ def main(argv=None) -> int:
           f"{lay['delta_max_abs']:.3g}), slot 0 bit-identical {lay['base_bit_identical']} "
           f"[{card}]", flush=True)
     for label, st in park["passes"].items():
-        print(f"park pass ({label}): llama3_8b full width, {len(PARK_LENS)} sessions "
+        print(f"park pass ({label}): llama3_8b full width at {SERVING_CUT_LAYERS} layers, "
+              f"{len(PARK_LENS)} sessions "
               f"({PARK_LENS}), {st['generated_tokens']} tokens in {st['wall_s']:.3f} s = "
               f"{st['tokens_per_s']:.1f} tok/s, {st['decode_blocks']} decode blocks at "
               f"{st['host_ops_per_block']:.3f} host ops a block ({st['steady_blocks']} steady), "
@@ -10076,7 +10682,7 @@ def main(argv=None) -> int:
           f"phase {park['phase_s']:.1f} s [{card}]", flush=True)
     for label, st in eager["passes"].items():
         cap = trace["passes"][label]
-        print(f"program pass ({label}): llama3_8b full width, "
+        print(f"program pass ({label}): llama3_8b full width at {SERVING_CUT_LAYERS} layers, "
               f"{'async' if st['async_loop'] else 'sync'}, prefill_chunk_tokens "
               f"{st['prefill_chunk_tokens']}: captured {cap['tokens_per_s']:.1f} tok/s, eager "
               f"{st['tokens_per_s']:.1f} tok/s; host ms an insert captured "
@@ -10092,7 +10698,8 @@ def main(argv=None) -> int:
           f"[{card}]", flush=True)
     for name, r in spec["drafts"].items():
         h, f = r["host_stats"], r["fused_stats"]
-        print(f"speculation ({name} draft): llama3_8b full width target, {SPEC_PROMPT}-token "
+        print(f"speculation ({name} draft): llama3_8b full width target at {SERVING_CUT_LAYERS} "
+              f"layers, {SPEC_PROMPT}-token "
               f"prompt, {SPEC_NEW} tokens, num_draft {SPEC_DRAFT}: host loop round ms p50 "
               f"{h['round_ms_p50']} (draft {h['draft_ms_p50']}, verify {h['verify_ms_p50']}), "
               f"acceptance {h['acceptance_rate']} (sampled {r['sampled_acceptance']}), tokens "
@@ -10106,7 +10713,8 @@ def main(argv=None) -> int:
           f"{json.dumps(spec['fp32_acceptance'])}; launches {spec['launches']} [{card}]",
           flush=True)
     ms = medusa["stats"]
-    print(f"medusa: llama3_8b full width, {MEDUSA_HEADS} seeded heads, default tree, "
+    print(f"medusa: llama3_8b full width at {SERVING_CUT_LAYERS} layers, {MEDUSA_HEADS} seeded "
+          f"heads, default tree, "
           f"{SPEC_PROMPT}-token prompt, {SPEC_NEW} tokens: tree ms p50 {ms['tree_ms_p50']}, "
           f"replay ms p50 {ms['replay_ms_p50']}, round ms p50 {ms['round_ms_p50']}, tokens a "
           f"round {ms['tokens_per_round']}, {medusa['tokens_per_s']:.1f} tok/s; fp32 at "
@@ -10160,6 +10768,9 @@ def main(argv=None) -> int:
                           for t in prof["top"][:6]) + f" [{card}]", flush=True)
     print_fleet(fleet, card)
     print_tp(tp, card)
+    print_tp_rest(tp["rest"], card)
+    print(f"serving phases: wall s {json.dumps({k: round(v, 1) for k, v in spent.items()})}, "
+          f"{sum(spent.values()):.1f} in all [{card}]", flush=True)
     # the serve phase's weights and page pool go before training
     gc.collect()
     torch.cuda.empty_cache()
@@ -10252,7 +10863,7 @@ def main(argv=None) -> int:
                "families_b0": families["b0"]["launches"], "families_n0": families["n0"]["launches"],
                **{f"families_n1_rank{rk['rank']}": rk["n1"]["launches"]
                   for rk in families["ranks"]},
-               **ep_launches_by_path(entry)}
+               **ep_launches_by_path(entry), **tpr_launches_by_path(tp["rest"])}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
                "fused_adamw": "fused_adamw_leaf", "w8a16_gemm": "w8a16_gemm"}
@@ -10270,7 +10881,8 @@ def main(argv=None) -> int:
         "quant_mixtral": sv["launches_by_route"]["w8a16_gemm"],
         "quant_mixtral_generate": gen["launches_by_route"]["w8a16_gemm"],
         "entry_r4": entry["r4"]["launches_by_route"]["w8a16_gemm"],
-        "entry_r4_check": entry["r4_check"]["launches_by_route"]["w8a16_gemm"]}
+        "entry_r4_check": entry["r4_check"]["launches_by_route"]["w8a16_gemm"],
+        **tpr_b5_routes_by_path(tp["rest"])}
     b5["launches_by_route"] = {
         route: sum(r.get(route, 0) for r in b5["routes_by_path"].values())
         for route in ("wgmma", "decode", "f32")}

@@ -7,13 +7,22 @@ under ``model.layers.{i}``. Kernels keep their ``(in, out)`` and
 ``(hidden, heads, head_dim)`` layouts, so the mapping is a rename plus an
 unstack. ``lm_head/kernel`` is absent when ``tie_word_embeddings`` is set.
 
-Tensor parallelism: ``llama_params_from_jax`` and ``lora_params_from_jax``
-take ``tp_rank``/``tp_size`` and return that rank's shard, cut where the
-port's TP layers shard (``parallel/layers.py``): the embedding's and
+Tensor parallelism: every converter of a served family takes
+``tp_rank``/``tp_size`` and returns that rank's shard, cut where the port's
+TP layers shard (``parallel/layers.py``): the embedding's and
 ``lm_head``'s vocabulary, the Q/K/V heads, ``o_proj``'s and
-``down_proj``'s fan-in, ``gate_proj``'s and ``up_proj``'s fan-out; an
-adapter's ``A`` over fan-in on ``o_proj``/``down_proj`` and its ``B`` over
-fan-out elsewhere.
+``down_proj``'s fan-in, ``gate_proj``'s and ``up_proj``'s fan-out, an
+expert's intermediate columns (``gate``/``up`` ``(E, H, I)`` over ``I``,
+``down`` ``(E, I, H)`` over ``I``), each Medusa head's vocabulary (JAX's
+``ColumnParallelLinear(gather_output=False)``; the ResBlocks are whole);
+an adapter's ``A`` over fan-in on ``o_proj``/``down_proj`` and its ``B``
+over fan-out elsewhere. Under ``kv_size_multiplier > 1`` the compact K/V
+kernels and their adapters' ``B`` stay whole: the forward repeats their
+products' heads and takes the rank's (``GQAQKVColumnParallelLinear``). An
+int8 pair is the cut of the JAX tree's *global* quantization:
+``qweight`` as its float weight, ``scale`` on the axes it keeps
+(``inference.partition.scale_spec``), so a row-parallel weight's scale is
+whole on every rank.
 
 ``lora_params_from_jax`` carries an ``init_lora`` adapter tree over the same
 way: keyed by the full flax path, a leading layer axis on stacked kernels,
@@ -63,6 +72,7 @@ from neuronx_distributed_tpu_torch.inference.partition import (
     ROW_PARALLEL_TARGETS,
     dim_spec,
     shard_slice,
+    state_partition_specs,
 )
 
 # flax path under model/layers/block -> port name under model.layers.{i}
@@ -167,13 +177,18 @@ def _params_from_jax(tree: Mapping[str, Any], leaves: Mapping[tuple, str],
     return out
 
 
-# the sharded dim of each weight of the port's Llama at TP > 1, by name suffix
+# the sharded dim of each weight of the port's Llama (and Mixtral, Medusa)
+# at TP > 1, by name suffix
 _TP_DIMS = {"embed.embedding": 0, "qkv.q_kernel": 1, "qkv.k_kernel": 1, "qkv.v_kernel": 1,
             "o_proj.kernel": 0, "gate_proj.kernel": 1, "up_proj.kernel": 1,
-            "down_proj.kernel": 0, "lm_head.kernel": 1}
+            "down_proj.kernel": 0, "lm_head.kernel": 1, "experts.gate": 2, "experts.up": 2,
+            "experts.down": 1}
+_MEDUSA_HEAD = re.compile(r"^medusa_head_\d+\.kernel$")
 
 
 def _tp_dim(name: str, kv_size_multiplier: int):
+    if _MEDUSA_HEAD.match(name):
+        return 1
     for suffix, dim in _TP_DIMS.items():
         if name.endswith(suffix):
             # compact K/V kernels repeated in the forward stay replicated
@@ -189,12 +204,26 @@ def llama_params_from_jax(tree: Mapping[str, Any], tie_word_embeddings: bool = F
     """Flax Llama params (``{"model": ..., "lm_head": ...}``, or the
     ``{"params": ...}`` wrapper) -> state dict of the port's
     ``LlamaForCausalLM``: at ``tp_size > 1`` rank ``tp_rank``'s shard."""
-    out = _params_from_jax(tree, _LAYER_LEAVES, tie_word_embeddings)
+    return _cut(_params_from_jax(tree, _LAYER_LEAVES, tie_word_embeddings), tp_rank, tp_size,
+                kv_size_multiplier)
+
+
+def _cut(out: Dict[str, torch.Tensor], tp_rank: int, tp_size: int,
+         kv_size_multiplier: int = 1) -> Dict[str, torch.Tensor]:
+    """Rank ``tp_rank``'s shard of a converted state dict (the whole dict
+    at ``tp_size`` 1), its int8 pairs under ``state_partition_specs``."""
     if tp_size == 1:
         return out
-    return {k: shard_slice(v, dim_spec(v.dim(), _tp_dim(k, kv_size_multiplier)), tp_rank,
-                           tp_size).contiguous()
-            for k, v in out.items()}
+    pairs = {k[: -len(".qweight")] for k in out if k.endswith(".qweight")}
+    specs = {}
+    for k, v in out.items():
+        base = k.rpartition(".")[0]
+        if base in pairs:
+            specs[base] = dim_spec(out[f"{base}.qweight"].dim(), _tp_dim(base, kv_size_multiplier))
+        else:
+            specs[k] = dim_spec(v.dim(), _tp_dim(k, kv_size_multiplier))
+    return {k: shard_slice(v, spec, tp_rank, tp_size).contiguous()
+            for (k, v), spec in zip(out.items(), state_partition_specs(specs, out).values())}
 
 
 # the GPT-NeoX decoder block: biased attention and MLP, LayerNorms
@@ -275,30 +304,35 @@ def bert_params_from_jax(tree: Mapping[str, Any], tp_rank: int = 0,
     return _shard_by_suffix(out, _BERT_TP_DIMS, tp_rank, tp_size)
 
 
-def mixtral_params_from_jax(tree: Mapping[str, Any],
-                            tie_word_embeddings: bool = False) -> Dict[str, torch.Tensor]:
+def mixtral_params_from_jax(tree: Mapping[str, Any], tie_word_embeddings: bool = False,
+                            tp_rank: int = 0, tp_size: int = 1) -> Dict[str, torch.Tensor]:
     """Flax Mixtral params -> state dict of the port's
     ``MixtralForCausalLM``: expert tensors ``(L, E, H, I)`` unstack to one
-    ``(E, H, I)`` a layer."""
-    return _params_from_jax(tree, _MIXTRAL_LEAVES, tie_word_embeddings)
+    ``(E, H, I)`` a layer; at ``tp_size > 1`` rank ``tp_rank``'s shard (the
+    experts' intermediate columns, the router whole)."""
+    return _cut(_params_from_jax(tree, _MIXTRAL_LEAVES, tie_word_embeddings), tp_rank,
+                tp_size)
 
 
-def quantized_params_from_jax(tree: Mapping[str, Any],
-                              tie_word_embeddings: bool = False) -> Dict[str, torch.Tensor]:
+def quantized_params_from_jax(tree: Mapping[str, Any], tie_word_embeddings: bool = False,
+                              tp_rank: int = 0, tp_size: int = 1) -> Dict[str, torch.Tensor]:
     """A JAX ``quantize_params`` tree of a Llama or a Mixtral model -> the
     port's int8 state dict (``X.qweight``/``X.scale`` pairs, leaf for leaf;
-    ``CausalLM`` serves it as it is). Raises on a C7 expert scale."""
+    ``CausalLM`` serves it as it is); at ``tp_size > 1`` rank ``tp_rank``'s
+    cut of the global pairs. Raises on a C7 expert scale, at every
+    degree."""
     inner = tree["params"] if "params" in tree and "model" not in tree else tree
     moe = "moe" in _node(inner, ("model", "layers", "block"))
-    return _params_from_jax(inner, _MIXTRAL_LEAVES if moe else _LAYER_LEAVES,
-                            tie_word_embeddings)
+    return _cut(_params_from_jax(inner, _MIXTRAL_LEAVES if moe else _LAYER_LEAVES,
+                                 tie_word_embeddings), tp_rank, tp_size)
 
 
 _FLAX_KEY = re.compile(r"\['([^']+)'\]")
 
 
 def lora_params_from_jax(tree: Mapping[str, Any], config, tp_rank: int = 0,
-                         tp_size: int = 1) -> Dict[str, Dict[str, torch.Tensor]]:
+                         tp_size: int = 1,
+                         kv_size_multiplier: int = 1) -> Dict[str, Dict[str, torch.Tensor]]:
     """A JAX ``init_lora`` tree (``{"['model']['layers']['block']...
     ['q_kernel']": {"lora_a": (L, fan_in, r), "lora_b": (L, r, fan_out)}}``)
     -> the port's tree, one entry a layer under the port's weight name
@@ -307,7 +341,9 @@ def lora_params_from_jax(tree: Mapping[str, Any], config, tp_rank: int = 0,
     elsewhere. Unstacked adapters (the embedding's) keep their shapes.
     ``config`` is the adapters' ``LoraConfig``; their rank must be its
     ``r``. At ``tp_size > 1``: rank ``tp_rank``'s slices (``A`` over fan-in
-    on the row-parallel targets, ``B`` over fan-out on the others)."""
+    on the row-parallel targets, ``B`` over fan-out on the others; the
+    compact K/V ``B`` whole under ``kv_size_multiplier > 1``, since the
+    delta is computed compact, repeated, then cut to the rank's heads)."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     block = ("model", "layers", "block")
     for path, ad in tree.items():
@@ -323,12 +359,13 @@ def lora_params_from_jax(tree: Mapping[str, Any], config, tp_rank: int = 0,
             if name is None:
                 raise KeyError(f"no port weight for the stacked flax path {path}")
             row = any(f"{t}." in name for t in ROW_PARALLEL_TARGETS)
+            compact = kv_size_multiplier > 1 and name.endswith(("k_kernel", "v_kernel"))
             for i in range(a.shape[0]):
                 ai, bi = torch.from_numpy(np.ascontiguousarray(a[i])), torch.from_numpy(
                     np.ascontiguousarray(b[i]))
                 if row:
                     ai = shard_slice(ai, ("tp", None), tp_rank, tp_size).contiguous()
-                else:
+                elif not compact:
                     bi = shard_slice(bi, (None, "tp"), tp_rank, tp_size).contiguous()
                 out[f"model.layers.{i}.{name}"] = {"lora_a": ai, "lora_b": bi}
         else:
@@ -336,12 +373,14 @@ def lora_params_from_jax(tree: Mapping[str, Any], config, tp_rank: int = 0,
     return out
 
 
-def medusa_params_from_jax(tree: Mapping[str, Any],
-                           tie_word_embeddings: bool = False) -> Dict[str, torch.Tensor]:
+def medusa_params_from_jax(tree: Mapping[str, Any], tie_word_embeddings: bool = False,
+                           tp_rank: int = 0, tp_size: int = 1) -> Dict[str, torch.Tensor]:
     """Flax ``MedusaLlamaForCausalLM`` params -> state dict of the port's
     ``MedusaLlamaForCausalLM``: :func:`llama_params_from_jax` for the base
     model, then ``medusa_res_{i}.kernel``/``.bias`` and
-    ``medusa_head_{i}.kernel`` for every head the tree holds."""
+    ``medusa_head_{i}.kernel`` for every head the tree holds; at
+    ``tp_size > 1`` rank ``tp_rank``'s shard (each head over its
+    vocabulary, the ResBlocks whole)."""
     if "params" in tree and "model" not in tree:
         tree = tree["params"]
     out = llama_params_from_jax(tree, tie_word_embeddings)
@@ -353,7 +392,7 @@ def medusa_params_from_jax(tree: Mapping[str, Any],
         out[f"medusa_res_{i}.bias"] = torch.from_numpy(_get(tree, (f"medusa_res_{i}", "bias")))
         out[f"medusa_head_{i}.kernel"] = torch.from_numpy(
             _get(tree, (f"medusa_head_{i}", "kernel")))
-    return out
+    return _cut(out, tp_rank, tp_size)
 
 
 def pipelined_llama_params_from_jax(tree: Mapping[str, Any], num_stages: int,

@@ -30,9 +30,18 @@ shrinks the model (it does not move it). Weights are seeded (generator seed
 0) unless ``--hf_checkpoint`` names a checkpoint. ``--tp N`` shards over the
 tensor-parallel ranks of a multi-process launch (``torchrun``'s environment
 or the ``NXD_*`` trio); by default TP is 8 (2 with ``--tiny``) and never
-more than the world, so one process serves at TP 1. Under TP > 1, int8
-weights, Mixtral serving, speculation, Medusa, and demo adapters over
-``kv_size_multiplier > 1`` are refused by name (not ported).
+more than the world, so one process serves at TP 1. Every subcommand and
+model serves under TP: each rank builds its model on its shard of the one
+global tree (int8 pairs cut from the global quantization, Mixtral's experts
+over their intermediate columns, Medusa's heads over the vocabulary).
+
+The route: over an NCCL group, or with none, every forward runs as a
+captured program and ``serve`` decodes in fused blocks. A gloo group on
+the card (several ranks sharing one card: NCCL refuses that) cannot run
+inside a CUDA graph, so there the runner builds every model with
+``capture_programs=False`` and serves with ``fused=False`` (the eager
+route, logged), and refuses ``--fused_chunk`` and ``--fused_rounds``,
+which are captured blocks by definition.
 
 Llama-2-13B (the default model) on one card:
 
@@ -67,6 +76,7 @@ from neuronx_distributed_tpu_torch.models.llama import (
     llama2_13b,
 )
 from neuronx_distributed_tpu_torch.parallel import mesh
+from neuronx_distributed_tpu_torch.parallel.mesh import capturable
 from neuronx_distributed_tpu_torch.utils import get_logger
 
 logger = get_logger("nxd.examples.inference")
@@ -121,40 +131,85 @@ def _world_tp(args) -> int:
     return tp
 
 
-def _refuse_under_tp(tp: int, what: str) -> None:
-    """The combinations the port does not serve under TP > 1, by name."""
-    if tp > 1:
-        raise SystemExit(f"{what} under --tp {tp} is not ported (ROADMAP queue A); serve it "
-                         f"at --tp 1")
+def captured_route(dev: torch.device, tp: int) -> bool:
+    """True: every forward a captured program and fused serve blocks (no
+    group, or an NCCL one); False: the eager route, which a gloo TP group
+    on the card needs (its collectives cannot be captured). Logged."""
+    group = mesh.get_tensor_model_parallel_group() if tp > 1 else None
+    backend = mesh.group_backend(group)
+    captured = capturable(dev, group)
+    logger.info("route: %s (tp %d, group backend %s, device %s)",
+                "captured programs, fused serve blocks" if captured else
+                "eager: capture_programs=False, fused=False", tp, backend, dev.type)
+    return captured
+
+
+def _refuse_captured_block(args, flag: str) -> None:
+    """``flag`` asks for a captured block: refused on the eager route."""
+    if not captured_route(resolve_device(args.device), _world_tp(args)):
+        raise SystemExit(f"{flag} runs a captured block, and the gloo tensor-parallel group on "
+                         f"the card cannot be captured in a CUDA graph: drop {flag} (the eager "
+                         f"route serves the same tokens) or launch over NCCL")
 
 
 def _rank_params(cfg, cls, params: Mapping[str, Any], tp: int) -> Dict[str, Any]:
-    """A global state dict cut to this rank's shards (the whole dict at TP 1)."""
+    """A global state dict — float, or int8 pairs (``X.qweight``/``X.scale``)
+    — cut to this rank's shards (the whole dict at TP 1). Leaves already of
+    the rank's shape are taken as they are (a pair by its ``qweight``)."""
     if tp == 1:
         return dict(params)
-    from neuronx_distributed_tpu_torch.inference.partition import param_partition_specs
+    from neuronx_distributed_tpu_torch.inference.partition import (
+        local_shape,
+        param_partition_specs,
+        state_partition_specs,
+    )
     from neuronx_distributed_tpu_torch.parallel.partitioning import local_state_dict
+    from neuronx_distributed_tpu_torch.quantization.core import quantized_names
 
     with torch.device("meta"):
         module = cls(cfg, group=mesh.get_tensor_model_parallel_group())
     shapes = {n: t.shape for n, t in module.state_dict().items()}
-    return local_state_dict({n: params[n] for n in shapes}, param_partition_specs(module),
-                            mesh.tensor_model_parallel_rank(), tp, shapes)
+    pairs = quantized_names(params) & set(shapes)
+    state = {n: v for n, v in params.items()
+             if n in shapes or n.rpartition(".")[0] in pairs}
+    specs = state_partition_specs(param_partition_specs(module), state)
+    for base in pairs:
+        mine = shapes[f"{base}.qweight"] = shapes.pop(base)
+        scale = f"{base}.scale"
+        sshape = tuple(torch.as_tensor(state[scale]).shape)
+        local = tuple(torch.as_tensor(state[f"{base}.qweight"]).shape) == tuple(mine)
+        shapes[scale] = sshape if local else local_shape(sshape, specs[scale], tp)
+    return local_state_dict(state, specs, mesh.tensor_model_parallel_rank(), tp, shapes)
+
+
+def _require_global(cfg, cls, params: Mapping[str, Any], tp: int) -> None:
+    """``--quantize`` on a float tree under TP wants every weight it
+    quantizes whole: a rank's cut quantized alone takes scales of its own,
+    another model than the JAX package's global quantization."""
+    from neuronx_distributed_tpu_torch.quantization.core import targeted
+
+    with torch.device("meta"):
+        whole = {n: tuple(t.shape) for n, t in cls(cfg).state_dict().items()}
+    for name, leaf in params.items():
+        shape = tuple(torch.as_tensor(leaf).shape)
+        if name in whole and targeted(name, leaf) and shape != whole[name]:
+            raise SystemExit(f"--quantize at --tp {tp}: {name} has the shape {shape}, not its "
+                             f"global {whole[name]}; pass the global float tree (it is "
+                             f"quantized whole, then cut) or a quantized one")
 
 
 def build_model(args, params: Optional[Mapping[str, Any]] = None, config=None):
     """The served ``CausalLM`` and its config. ``params``: a (global) state
     dict instead of the seeded init — float, or already an int8 tree —
     and ``config``: a config instead of :func:`build_config`'s (the seams a
-    caller uses to carry weights across or to cut depth)."""
+    caller uses to carry weights across or to cut depth). Under TP a float
+    tree with ``--quantize`` is quantized whole, then cut (the JAX package
+    quantizes the global tree)."""
     dev = resolve_device(args.device)
     tp = _world_tp(args)
     cls = _model_cls(args)
     quantize = getattr(args, "quantize", False)
-    if quantize:
-        _refuse_under_tp(tp, "--quantize (int8 weights)")
-    if args.model in ("mixtral", "dbrx"):
-        _refuse_under_tp(tp, f"--model {args.model} (Mixtral serving)")
+    captured = captured_route(dev, tp)
     cfg = config if config is not None else build_config(args)
     if args.hf_checkpoint:
         from neuronx_distributed_tpu_torch.converters.hf import FAMILIES
@@ -179,9 +234,11 @@ def build_model(args, params: Optional[Mapping[str, Any]] = None, config=None):
                              if tp > 1 else 0, tp_size=tp,
                              quantize=QuantizationConfig() if quantize else None)
     else:
-        params = _rank_params(cfg, cls, params, tp)
         if quantize and not quantized_names(params):
-            params = quantize_params(params)
+            if tp > 1:
+                _require_global(cfg, cls, params, tp)
+            params = quantize_params(params)   # the global weights, then the rank's cut
+        params = _rank_params(cfg, cls, params, tp)
     buckets = (64, 128) if args.tiny else tuple(
         b for b in (128, 512, 2048, 4096) if b < cfg.max_seq_len)
     paged_kw: Dict[str, Any] = {}
@@ -204,8 +261,6 @@ def build_model(args, params: Optional[Mapping[str, Any]] = None, config=None):
         if quantize:
             raise SystemExit("--adapters with --quantize is not supported "
                              "(adapters factorize the float base kernels)")
-        if tp > 1 and cfg.kv_size_multiplier > 1:
-            _refuse_under_tp(tp, "--adapters with kv_size_multiplier > 1")
         paged_kw.update(lora_rank=args.adapter_rank,
                         lora_slots=args.adapter_pool_slots or args.adapters + 1)
     if getattr(args, "grammar_frac", 0.0) > 0:
@@ -214,7 +269,7 @@ def build_model(args, params: Optional[Mapping[str, Any]] = None, config=None):
         paged_kw.update(grammar_slots=args.grammar_pool_slots or args.grammars + 1,
                         grammar_states=args.grammar_states)
     lm = CausalLM(cfg, params, cls, buckets=buckets, max_batch=args.max_batch, device=dev,
-                  **paged_kw)
+                  capture_programs=captured, **paged_kw)
     return lm, cfg
 
 
@@ -235,6 +290,8 @@ def _sampler(args) -> Sampler:
 
 
 def cmd_generate(args, params=None, config=None) -> list:
+    if args.fused_chunk > 1:
+        _refuse_captured_block(args, "--fused_chunk")
     lm, cfg = build_model(args, params, config)
     rs = np.random.RandomState(args.seed)
     b = min(args.max_batch, 2)
@@ -282,6 +339,8 @@ def _greedy_slots(lm: CausalLM, session, seed: int) -> None:
 
 
 def cmd_benchmark(args, params=None, config=None) -> dict:
+    if args.fused_chunk > 1:
+        _refuse_captured_block(args, "--fused_chunk")
     lm, cfg = build_model(args, params, config)
     lm.compile()
     rs = np.random.RandomState(args.seed)
@@ -368,7 +427,8 @@ def cmd_speculate(args, params=None, config=None) -> dict:
     if args.top_k or args.top_p < 1.0:
         raise SystemExit("speculate supports --sample with --temperature only "
                          "(top_k/top_p acceptance is not implemented)")
-    _refuse_under_tp(_world_tp(args), "speculate (speculation)")
+    if args.fused_rounds > 0:
+        _refuse_captured_block(args, "--fused_rounds")
     lm, cfg = build_model(args, params, config)
     draft_layers = (args.draft_layers if args.draft_layers is not None
                     else max(1, cfg.num_layers // 4))
@@ -376,8 +436,10 @@ def cmd_speculate(args, params=None, config=None) -> dict:
         raise SystemExit(f"--draft_layers must be in [1, {cfg.num_layers - 1}] "
                          f"(target has {cfg.num_layers} layers), got {draft_layers}")
     draft_cfg = dataclasses.replace(cfg, num_layers=draft_layers)
+    # over the target's TP group (the mesh's) and on its route
     draft = CausalLM(draft_cfg, _draft_params(lm, draft_layers), _model_cls(args),
-                     buckets=lm.buckets, max_batch=lm.max_batch, device=lm.device)
+                     buckets=lm.buckets, max_batch=lm.max_batch, device=lm.device,
+                     capture_programs=lm.capture_programs, tp_group=lm.tp_group)
     rs = np.random.RandomState(args.seed)
     prompt_len = 16 if args.tiny else 128
     prompt = rs.randint(1, cfg.vocab_size, (1, prompt_len)).astype(np.int32)
@@ -415,14 +477,20 @@ def cmd_speculate(args, params=None, config=None) -> dict:
     return report
 
 
-def medusa_init(cfg, seed: int, device, num_heads: int = 2) -> Dict[str, torch.Tensor]:
-    """Seeded ``MedusaLlamaForCausalLM`` weights: the Llama part as
-    ``init_params`` draws it, each head's vocabulary projection random and
-    its ResBlock kernel zero (the JAX package's head init)."""
+def _medusa_cls(num_heads: int = 2):
     from neuronx_distributed_tpu_torch.inference.medusa import MedusaLlamaForCausalLM
 
+    return lambda c, group=None: MedusaLlamaForCausalLM(c, num_heads, group=group)
+
+
+def medusa_init(cfg, seed: int, device, num_heads: int = 2, tp_rank: int = 0,
+                tp_size: int = 1) -> Dict[str, torch.Tensor]:
+    """Seeded ``MedusaLlamaForCausalLM`` weights: the Llama part as
+    ``init_params`` draws it, each head's vocabulary projection random and
+    its ResBlock kernel zero (the JAX package's head init); at ``tp_size >
+    1`` rank ``tp_rank``'s shard of them."""
     p = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device=device,
-                    model_cls=lambda c: MedusaLlamaForCausalLM(c, num_heads))
+                    model_cls=_medusa_cls(num_heads), tp_rank=tp_rank, tp_size=tp_size)
     for i in range(num_heads):
         p[f"medusa_res_{i}.kernel"].zero_()
     return p
@@ -432,25 +500,34 @@ def cmd_medusa(args, params=None, config=None) -> dict:
     """Medusa tree decoding with random heads (acceptance near zero): the
     greedy posterior makes the output the base model's greedy stream, which
     is checked (exit 1 when it differs)."""
-    from neuronx_distributed_tpu_torch.inference.medusa import DEFAULT_CHOICES, medusa_generate
+    from neuronx_distributed_tpu_torch.inference.medusa import (
+        DEFAULT_CHOICES,
+        medusa_generate,
+        medusa_model,
+    )
 
     if args.model != "llama":
         raise SystemExit("medusa supports --model llama")
     if args.hf_checkpoint or getattr(args, "quantize", False) or args.sample:
         raise SystemExit("medusa supports none of --hf_checkpoint/--quantize/--sample "
                          "(random heads, greedy posterior)")
-    _refuse_under_tp(_world_tp(args), "medusa (Medusa decoding)")
+    tp = _world_tp(args)
     dev = resolve_device(args.device)
+    captured = captured_route(dev, tp)
     cfg = config if config is not None else build_config(args)
-    mparams = dict(params) if params is not None else medusa_init(cfg, args.seed, dev)
+    rank = mesh.tensor_model_parallel_rank() if tp > 1 else 0
+    mparams = (_rank_params(cfg, _medusa_cls(), params, tp) if params is not None
+               else medusa_init(cfg, args.seed, dev, tp_rank=rank, tp_size=tp))
     rs = np.random.RandomState(args.seed)
     prompt_len = 16 if args.tiny else 128
     prompt = rs.randint(1, cfg.vocab_size, (1, prompt_len)).astype(np.int32)
-    result = medusa_generate(cfg, mparams, prompt, max_new_tokens=args.max_new_tokens,
+    model = medusa_model(cfg, mparams, 2, dev, capture_programs=captured)
+    result = medusa_generate(cfg, model, prompt, max_new_tokens=args.max_new_tokens,
                              num_medusa_heads=2, medusa_choices=DEFAULT_CHOICES, device=dev)
     # the invariant: the output is the base model's greedy continuation
     base = {k: v for k, v in mparams.items() if not k.startswith("medusa")}
-    lm = CausalLM(cfg, base, LlamaForCausalLM, buckets=(prompt_len,), max_batch=1, device=dev)
+    lm = CausalLM(cfg, base, LlamaForCausalLM, buckets=(prompt_len,), max_batch=1, device=dev,
+                  capture_programs=captured)
     golden = lm.generate(prompt, max_new_tokens=args.max_new_tokens)
     n = int(result.lengths[0])
     exact = bool(np.array_equal(result.tokens[0][:n], golden.tokens[0][:n]))
@@ -500,6 +577,8 @@ def cmd_serve(args, params=None, config=None) -> dict:
 
     lm, cfg = build_model(args, params, config)
     lm.compile()
+    # the eager route (a gloo group on the card) decodes step by step
+    fused = not args.stepwise and lm.capture_programs
 
     def make_adapters():
         # N seeded demo adapters over the base weights (rank r, B nonzero so
@@ -554,7 +633,7 @@ def cmd_serve(args, params=None, config=None) -> dict:
             down_utilization=args.scale_down_util,
             down_patience_blocks=args.scale_down_idle_blocks,
             cooldown_blocks=args.scale_cooldown_blocks))
-    eng_kw = dict(block_steps=args.fused_steps, fused=not args.stepwise,
+    eng_kw = dict(block_steps=args.fused_steps, fused=fused,
                   async_loop=args.async_loop, prefill_chunk_tokens=args.prefill_chunk_tokens,
                   max_queue=args.max_queue, shed_policy=args.shed_policy,
                   block_time_ms=args.block_time_ms, host_tier_pages=tier_pages,
@@ -628,7 +707,7 @@ def cmd_serve(args, params=None, config=None) -> dict:
                                  "pages)")
             # the whole migration path built outside the measured run
             warm_r = DisaggRouter(lm, 2, prefill_replicas=1, block_steps=args.fused_steps,
-                                  fused=not args.stepwise, seed=args.seed)
+                                  fused=fused, seed=args.seed)
             for item in trace[: min(len(trace), lm.max_batch)]:
                 warm_r.submit(item["prompt"], 2)
             warm_r.run(max_blocks=200)
@@ -669,7 +748,7 @@ def cmd_serve(args, params=None, config=None) -> dict:
     # timed run, on the state the served engine then takes over
     if not lm.paged:
         _warm_slab_inserts(lm, {len(item["prompt"]) for item in trace})
-    warm = ServeEngine(lm, block_steps=args.fused_steps, fused=not args.stepwise,
+    warm = ServeEngine(lm, block_steps=args.fused_steps, fused=fused,
                        prefill_chunk_tokens=args.prefill_chunk_tokens, seed=args.seed)
     for item in trace[: min(len(trace), lm.max_batch)]:
         warm.submit(item["prompt"], 2)
@@ -735,8 +814,8 @@ def cmd_check_accuracy(args, params=None, config=None) -> dict:
         f32_cfg = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
         base = (lm.param_transform(lm._raw_params) if lm.param_transform
                 else dequantize_params(lm.model.state_dict(), torch.float32))
-        with torch.device("meta"):
-            golden = _model_cls(args)(f32_cfg)
+        with torch.device("meta"):   # the served model's layout: its rank's shards
+            golden = _model_cls(args)(f32_cfg, group=lm.tp_group)
         # fp32 tensors already on the device are bound as they are
         golden.load_state_dict({k: v.to(torch.float32) for k, v in base.items()},
                                strict=True, assign=True)
@@ -745,7 +824,7 @@ def cmd_check_accuracy(args, params=None, config=None) -> dict:
         def golden_forward(ids_row: np.ndarray) -> np.ndarray:
             with torch.no_grad():
                 ids = torch.as_tensor(ids_row[None], device=lm.device)
-                return golden(ids)[0].float().cpu().numpy()
+                return lm._gather_vocab(golden(ids))[0].float().cpu().numpy()
 
         golden_name = "fp32"
 

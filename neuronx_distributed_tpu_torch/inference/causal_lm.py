@@ -61,9 +61,13 @@ rank's vocabulary columns (``inference/partition.py``): a grammar's mask
 is computed on those columns and gathered beside the logits, and a DFA
 transition is looked up on the rank that holds the token's column and
 all-reduced (:meth:`CausalLM.grammar_next`). Every rank runs the same host
-schedule. A gloo group's collectives cannot be captured in a CUDA graph:
-on the card such a group needs ``capture_programs=False`` (and an engine
-with ``fused=False``), and anything else raises.
+schedule. int8 weights serve under the group as the rank's shard of the
+globally quantized tree (row-parallel products are partial sums the
+layer's one all-reduce sums), and a Mixtral model's MoE blocks reduce
+their experts' partial sums once after the combine. A gloo group's
+collectives cannot be captured in a CUDA graph: on the card such a group
+needs ``capture_programs=False`` (and an engine with ``fused=False``), and
+anything else raises.
 """
 
 from __future__ import annotations
@@ -512,8 +516,10 @@ class CausalLM:
     ``tp_group``: the tensor-parallel group (default: the current
     ``parallel.mesh`` state's, when one is initialized; else none). Under
     it ``params`` is the rank's shard (``init_params(tp_rank=, tp_size=)``,
-    ``llama_params_from_jax(tp_rank=, tp_size=)``). int8 weights, Mixtral
-    and speculation are refused at a degree above 1."""
+    ``llama_params_from_jax(tp_rank=, tp_size=)``), an int8 tree's pairs
+    included (``init_params(quantize=, tp_rank=, tp_size=)``: the global
+    weight quantized, then cut), and a Mixtral model's experts hold their
+    ``I/tp`` columns."""
 
     def __init__(self, config, params: Mapping[str, Any], model_cls,
                  buckets=(128, 512, 2048), max_batch: int = 4,
@@ -582,13 +588,6 @@ class CausalLM:
         self.buckets = tuple(sorted(b for b in buckets if b <= self.config.max_seq_len))
         if not self.buckets:
             raise ValueError(f"no bucket fits max_seq_len {self.config.max_seq_len}")
-        if self.tp > 1 and quantized_names(params):
-            raise NotImplementedError("int8 weights under tensor parallelism are not ported "
-                                      "(ROADMAP queue A)")
-        if self.tp > 1 and hasattr(config, "num_experts"):
-            raise NotImplementedError("Mixtral serving under tensor parallelism (the MoE block "
-                                      "under a TP group in decode mode) is not ported: ROADMAP "
-                                      "queue A; training takes it (examples/mixtral_moe.py)")
         with torch.device("meta"):
             model = (model_cls(self.config) if tp_group is None
                      else model_cls(self.config, group=tp_group))
@@ -633,11 +632,9 @@ class CausalLM:
 
     def _check_capturable(self) -> None:
         """A gloo group on the card cannot run inside captured programs."""
-        if (self.device.type == "cuda" and self.capture_programs
-                and mesh.group_backend(self.tp_group) == "gloo"):
-            raise ValueError("a gloo tensor-parallel group's collectives cannot be captured "
-                             "in a CUDA graph: pass capture_programs=False (and serve with "
-                             "fused=False)")
+        if self.capture_programs:
+            mesh.require_capturable(self.device, self.tp_group, "a CUDA graph",
+                                    "pass capture_programs=False (and serve with fused=False)")
 
     def _gather_vocab(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' vocabulary shards of ``x`` (the last dim) gathered to
@@ -778,9 +775,9 @@ class CausalLM:
         if captured:
             out = prog(*(torch.as_tensor(a) if isinstance(a, np.ndarray) else a
                          for a in inputs))
-        else:   # the same body eagerly, on inputs moved to the device
-            out = body(*(self._ids(a, torch.from_numpy(np.asarray(a)).dtype)
-                         if isinstance(a, np.ndarray) else a for a in inputs))
+        else:   # eagerly, on host inputs copied to the device as _ids copies them
+            out = prog.eager(*(self._ids(a, torch.from_numpy(np.asarray(a)).dtype)
+                               if isinstance(a, np.ndarray) else a for a in inputs))
         if first:
             self._note_capture(state, signature, t0, time.perf_counter())
         return out
@@ -1288,9 +1285,8 @@ class CausalLM:
         other sessions may be live meanwhile."""
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
-        if self.device.type == "cuda" and mesh.group_backend(self.tp_group) == "gloo":
-            raise ValueError("a gloo tensor-parallel group's collectives cannot be captured "
-                             "in the fused decode block: serve with fused=False")
+        mesh.require_capturable(self.device, self.tp_group, "the fused decode block",
+                                "serve with fused=False")
         if session is not None:
             self._check_session(session)
         state = session.state if session is not None else self._default_state()

@@ -21,6 +21,17 @@ over a KV cache the model keeps (one captured graph each on CUDA, the eager
 body on the CPU); the rollbacks are written into ``cache_index`` inside
 them. The candidate and posterior math runs on the host in numpy, as in the
 JAX package.
+
+Tensor parallelism (JAX's heads are ``ColumnParallelLinear(...,
+gather_output=False)``, ``neuronx_distributed_tpu/inference/medusa.py:79,
+93``): built under a TP group, a rank holds the base model's shards, each
+``medusa_head_{i}``'s vocabulary columns and the whole (replicated)
+``medusa_res_{i}``; every program gathers the vocab-sharded base and head
+logits before they leave it, so the tree's top-k candidates and the
+verifier's argmax see the whole vocabulary and every rank builds the same
+tree and accepts the same path. ``capture_programs=False`` runs the three
+programs eagerly on the card (a gloo group's collectives cannot be
+captured: with capture on, that raises).
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from neuronx_distributed_tpu_torch.models.llama import (
 )
 from neuronx_distributed_tpu_torch.parallel import mesh
 from neuronx_distributed_tpu_torch.parallel.layers import ColumnParallelLinear
+from neuronx_distributed_tpu_torch.parallel.mappings import gather_from_tensor_parallel_region
 
 TOPK = 10  # per-head candidate pool
 
@@ -63,22 +75,29 @@ class MedusaLlamaForCausalLM(nn.Module):
     the base head) followed by its own vocabulary head ``medusa_head_i``.
     Weight names follow the flax tree (``medusa_res_{i}.kernel``,
     ``.bias``, ``medusa_head_{i}.kernel``); the base head is ``lm_head`` or,
-    with ``tie_word_embeddings``, the embedding."""
+    with ``tie_word_embeddings``, the embedding. ``group``: the
+    tensor-parallel group (the heads' logits are then the rank's
+    vocabulary shard)."""
 
-    def __init__(self, config: LlamaConfig, num_medusa_heads: int = 2, device=None):
+    def __init__(self, config: LlamaConfig, num_medusa_heads: int = 2, device=None,
+                 group=None):
         super().__init__()
         cfg = self.config = config
         self.num_medusa_heads = int(num_medusa_heads)
-        self.model = LlamaModel(cfg, device)
+        self.model = LlamaModel(cfg, device, group=group)
+        self.group = group
         kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
         if not cfg.tie_word_embeddings:
             self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size, use_bias=False,
-                                                **kw)
+                                                group=group, **kw)
         for i in range(self.num_medusa_heads):
-            self.add_module(f"medusa_res_{i}", ColumnParallelLinear(
-                cfg.hidden_size, cfg.hidden_size, use_bias=True, **kw))
+            res = ColumnParallelLinear(cfg.hidden_size, cfg.hidden_size, use_bias=True, **kw)
+            res.tp_shard_dims = {"kernel": None, "bias": None}   # JAX's nn.Dense: replicated
+            self.add_module(f"medusa_res_{i}", res)
             self.add_module(f"medusa_head_{i}", ColumnParallelLinear(
-                cfg.hidden_size, cfg.vocab_size, use_bias=False, **kw))
+                cfg.hidden_size, cfg.vocab_size, use_bias=False, group=group, **kw))
+        # on CUDA, run the programs as captured graphs (else eagerly)
+        self.capture_programs = True
         # (tree, bucket) -> the KV cache and programs of medusa_generate runs
         self._medusa_runs: Dict[tuple, dict] = {}
 
@@ -86,12 +105,18 @@ class MedusaLlamaForCausalLM(nn.Module):
     new_cache = LlamaForCausalLM.new_cache   # the decode cache at ``batch`` rows
 
     def medusa_heads(self, x: torch.Tensor) -> torch.Tensor:
-        """The heads' logits ``(H, ...)`` over hidden states ``x``."""
+        """The heads' logits ``(H, ...)`` over hidden states ``x`` (the
+        rank's vocabulary shard under a group)."""
         out = []
         for i in range(self.num_medusa_heads):
             r = x + nn.functional.silu(getattr(self, f"medusa_res_{i}")(x))
             out.append(getattr(self, f"medusa_head_{i}")(r))
         return torch.stack(out)
+
+    def gather_vocab(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' vocabulary shards of ``x`` (the last dim) gathered
+        (``x`` itself without a group)."""
+        return gather_from_tensor_parallel_region(x, self.group, -1)
 
     def forward(self, input_ids: torch.Tensor, cache: Optional[KVCache] = None,
                 chunk_ctx=None, heads: bool = True):
@@ -176,21 +201,28 @@ def evaluate_posterior_greedy(path_argmax: np.ndarray, candidates: np.ndarray
 
 
 def medusa_model(config: LlamaConfig, params: Mapping[str, Any], num_medusa_heads: int = 2,
-                 device: DeviceLike = None) -> MedusaLlamaForCausalLM:
+                 device: DeviceLike = None, tp_group=None,
+                 capture_programs: bool = True) -> MedusaLlamaForCausalLM:
     """The decode-mode model on ``device`` (CUDA unless the caller asks for
     the CPU) from a state dict, in the config's ``param_dtype``. It keeps
     the KV cache and the captured programs of its :func:`medusa_generate`
-    runs, so a second run on it replays."""
-    if mesh.model_parallel_is_initialized() and mesh.get_tensor_model_parallel_size() > 1:
-        raise NotImplementedError("Medusa under tensor parallelism is not ported "
-                                  "(ROADMAP queue A)")
+    runs, so a second run on it replays. ``tp_group``: the tensor-parallel
+    group (default: the current mesh's, when one is initialized), under
+    which ``params`` is the rank's shard (``medusa_params_from_jax(tp_rank=,
+    tp_size=)``); ``capture_programs=False`` runs the programs eagerly on
+    the card, which a gloo group there needs."""
+    if tp_group is None and mesh.model_parallel_is_initialized():
+        tp_group = mesh.get_tensor_model_parallel_group()
     dev = resolve_device(device)
+    if capture_programs:
+        mesh.require_capturable(dev, tp_group, "a CUDA graph", "pass capture_programs=False")
     cfg = dataclasses.replace(config, decode=True)
     with torch.device("meta"):
-        model = MedusaLlamaForCausalLM(cfg, num_medusa_heads)
+        model = MedusaLlamaForCausalLM(cfg, num_medusa_heads, group=tp_group)
     state = {k: torch.as_tensor(v).to(device=dev, dtype=cfg.param_dtype)
              for k, v in params.items()}
     model.load_state_dict(state, strict=True, assign=True)
+    model.capture_programs = bool(capture_programs)
     return model.eval().requires_grad_(False)
 
 
@@ -205,10 +237,12 @@ def _programs(model: MedusaLlamaForCausalLM, buffers: Dict[str, Any], bucket: in
     chunk_ctx = (torch.as_tensor(buffers["attn_mask"], device=dev),
                  torch.as_tensor(buffers["position_ids"], device=dev))
     pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+    vocab = model.gather_vocab
 
     def last_of(x, at):
         h = x[:, at]                                            # (1, 1, hidden)
-        return model._head(h)[0, 0].float(), model.medusa_heads(h)[:, 0, 0].float()
+        return (vocab(model._head(h))[0, 0].float(),
+                vocab(model.medusa_heads(h))[:, 0, 0].float())
 
     def prefill(ids, last):
         cache.cache_index.zero_()
@@ -220,7 +254,7 @@ def _programs(model: MedusaLlamaForCausalLM, buffers: Dict[str, Any], bucket: in
     def tree_step(tree_tokens):
         with torch.no_grad():
             x = model.model(tree_tokens, cache, chunk_ctx)
-            return torch.argmax(model._head(x)[0].float(), dim=-1)   # (m,)
+            return torch.argmax(vocab(model._head(x))[0].float(), dim=-1)   # (m,)
 
     def replay(tokens, start, n):
         # roll back to the round's start, replay the accepted tokens, and
@@ -232,7 +266,8 @@ def _programs(model: MedusaLlamaForCausalLM, buffers: Dict[str, Any], bucket: in
         return torch.cat([logits[None], med])
 
     run = model._medusa_runs[key] = {
-        name: CapturedProgram(fn, dev, pool, name=f"medusa_{name}")
+        name: CapturedProgram(fn, dev, pool, name=f"medusa_{name}",
+                              capture=model.capture_programs)
         for name, fn in (("prefill", prefill), ("tree_step", tree_step), ("replay", replay))}
     return run
 

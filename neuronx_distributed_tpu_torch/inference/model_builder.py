@@ -77,8 +77,10 @@ class CapturedProgram:
     as a ``torch.cuda.CUDAGraph`` in ``pool``; every later call copies its
     inputs into the static buffers, replays, and returns copies of the
     graph's outputs (another program sharing the pool may reuse their
-    memory). On the CPU every call runs ``fn`` eagerly. A capture or replay
-    that fails raises: nothing falls back to the eager body.
+    memory). On the CPU, and on CUDA with ``capture=False`` (the route a
+    gloo group on the card needs), every call runs ``fn`` eagerly on its
+    inputs moved to the device. A capture or replay that fails raises:
+    nothing falls back to the eager body.
 
     Inputs must keep the shapes and dtypes of the first call. ``fn`` must
     read no device value on the host (a capture refuses it) and must keep
@@ -88,8 +90,10 @@ class CapturedProgram:
     to their counts by route); each replay adds it again (the capture itself
     launches nothing)."""
 
-    def __init__(self, fn: Callable, device: torch.device, pool=None, name: str = ""):
+    def __init__(self, fn: Callable, device: torch.device, pool=None, name: str = "",
+                 capture: bool = True):
         self.fn, self.device, self.pool, self.name = fn, torch.device(device), pool, name
+        self.captures = capture and self.device.type == "cuda"
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static_in: Tuple[torch.Tensor, ...] = ()
         self.static_out: Any = None
@@ -114,8 +118,8 @@ class CapturedProgram:
     def capture(self, *args):
         """Warm up on the given inputs (the real call) and capture; returns
         the warm-up's result."""
-        if self.device.type != "cuda":
-            raise RuntimeError("only a program on a CUDA device is captured")
+        if not self.captures:
+            raise RuntimeError(f"program {self.name!r} runs eagerly: nothing to capture")
         t0 = time.perf_counter()
         self.static_in = tuple(torch.empty(tuple(torch.as_tensor(a).shape),
                                            dtype=torch.as_tensor(a).dtype, device=self.device)
@@ -161,9 +165,13 @@ class CapturedProgram:
                 fn.launches_by_route[route] += n
         return self.static_out
 
+    def eager(self, *args):
+        """``fn`` run eagerly on ``args``, its tensors moved to the device."""
+        return self.fn(*(a.to(self.device) if isinstance(a, torch.Tensor) else a for a in args))
+
     def __call__(self, *args):
-        if self.device.type != "cuda":
-            return self.fn(*args)
+        if not self.captures:
+            return self.eager(*args)
         if self.graph is None:
             return self.capture(*args)
         self._load(args)

@@ -26,6 +26,15 @@ for ``gate``/``up`` ``(E, H, I)``, ``("ep", "tp", None)`` for ``down``, its
 experts over the expert-parallel ranks and its intermediate dim over TP.
 :func:`shard_slice` turns any spec into a rank's slice, along each axis
 it names.
+
+An int8 weight ``X`` held as the pair ``X.qweight``/``X.scale``
+(``quantization/core.py``): ``qweight`` takes ``X``'s spec, and ``scale``
+takes it on the axes it keeps and is whole on the axes its quantization
+reduced to size 1 (:func:`scale_spec`): a column-parallel weight's
+per-output scales are cut with its columns, a row-parallel weight's are
+whole on every rank, a per-tensor 0-d scale is whole.
+:func:`state_partition_specs` extends a model's specs to a state dict
+that holds such pairs.
 """
 
 from __future__ import annotations
@@ -144,6 +153,34 @@ def param_partition_specs(model: torch.nn.Module) -> Dict[str, Spec]:
            for attr, spec in getattr(mod, "partition_specs", {}).items()}
     return {name: own[name] if name in own else dim_spec(t.dim(), dims.get(name))
             for name, t in model.state_dict().items()}
+
+
+def scale_spec(spec: Spec, scale_shape: Sequence[int]) -> Spec:
+    """The spec of ``X.scale`` of shape ``scale_shape`` when ``X`` has
+    ``spec``: ``X``'s entry on each axis the scale keeps, None on an axis
+    reduced to size 1, ``()`` for a 0-d (per-tensor) scale."""
+    if not spec or len(scale_shape) == 0:
+        return ()
+    out = tuple(a if n != 1 else None for a, n in zip(spec, scale_shape))
+    return out if any(a is not None for a in out) else ()
+
+
+def state_partition_specs(specs: Mapping[str, Spec],
+                          state: Mapping[str, object]) -> Dict[str, Spec]:
+    """The spec of every entry of ``state`` from the float weights'
+    ``specs`` (:func:`param_partition_specs`): an ``X.qweight`` takes
+    ``X``'s, an ``X.scale`` :func:`scale_spec` of it, every other entry
+    its own (``()`` when absent)."""
+    out: Dict[str, Spec] = {}
+    for name, v in state.items():
+        base, _, leaf = name.rpartition(".")
+        if name not in specs and base in specs and leaf == "qweight":
+            out[name] = specs[base]
+        elif name not in specs and base in specs and leaf == "scale":
+            out[name] = scale_spec(specs[base], tuple(torch.as_tensor(v).shape))
+        else:
+            out[name] = specs.get(name, ())
+    return out
 
 
 def sharded_fraction(named: Mapping[str, Tuple[Sequence[int], int]], tp: int) -> float:

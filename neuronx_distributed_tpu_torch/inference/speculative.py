@@ -35,6 +35,16 @@ The target and the draft are two ``CausalLM`` s on the contiguous slab
 path with one ``max_batch``; each runs on its own device state, so a
 self-draft is a second ``CausalLM`` on the same weight tensors (the tensors
 are shared, not copied).
+
+Tensor parallelism: the target and the draft share one TP group, each rank
+holding both models' shards (a self-draft: the target's own rank
+shards). Every program gathers the vocab-sharded logits before they leave
+it, so every decision (the proposals, the acceptance length, the bonus
+token, the sampled draws under the full-vocabulary counter noise) is made
+on values that are bitwise the same on every rank, and every rank rolls
+its caches back to the same length. The fused block is one captured
+program: over a gloo group on the card it raises (the host loop serves
+there).
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from neuronx_distributed_tpu_torch.inference.sampling import (
     request_seed,
     split_key,
 )
+from neuronx_distributed_tpu_torch.parallel import mesh
 
 # noise streams of a run: the first token, the proposals, the acceptance
 # uniforms, the residual draw
@@ -188,9 +199,9 @@ def _check_pair(target: CausalLM, draft: CausalLM) -> None:
     if draft is target:
         raise ValueError("the draft must be its own CausalLM (each runs on its own device "
                          "state); for a self-draft build a second one on the same weights")
-    if getattr(target, "tp", 1) > 1 or getattr(draft, "tp", 1) > 1:
-        raise NotImplementedError("speculation under tensor parallelism is not ported "
-                                  "(ROADMAP queue A)")
+    if draft.tp_group is not target.tp_group or draft.tp != target.tp:
+        raise ValueError(f"target and draft must share one tensor-parallel group (degrees "
+                         f"{target.tp} and {draft.tp})")
     if target.paged or draft.paged:
         raise ValueError("speculation runs on the contiguous slab path (no page_size)")
     if draft.max_batch != target.max_batch or draft.device != target.device:
@@ -401,6 +412,8 @@ def speculative_decode_fused(target: CausalLM, draft: CausalLM, prompt_ids: np.n
     ``host_dispatches_per_block`` and ``block_ms_p50/p90``."""
     if rounds_per_block < 1:
         raise ValueError(f"rounds_per_block must be >= 1, got {rounds_per_block}")
+    mesh.require_capturable(target.device, target.tp_group, "the fused speculative block",
+                            "run speculative_generate")
     length, bucket, _, first = _prefill(
         target, draft, prompt_ids, max_new_tokens, num_draft, pad_token_id, prompt_length)
     keys_np = _keys(seed)

@@ -328,7 +328,10 @@ class LoraLayout:
     (gate_proj, up_proj) and ``down_proj``. At TP degree ``tp`` the fan-ins
     and fan-outs are rank ``tp_rank``'s (``inference/partition.py``: the
     row-parallel targets' ``A`` over fan-in, the others' ``B`` over
-    fan-out)."""
+    fan-out), except the K/V ``B`` under ``kv_size_multiplier > 1``
+    (``kv_compact``): whole and compact at ``num_kv_heads``, as the K/V
+    kernels are, since their deltas are computed compact, repeated and
+    then cut to the rank's heads (JAX ``llama.py:366-372``)."""
 
     rank: int
     groups: Dict[str, LoraGroup]
@@ -336,6 +339,7 @@ class LoraLayout:
     per_layer: int
     tp: int = 1
     tp_rank: int = 0
+    kv_compact: bool = False
 
     def shard(self, leaf: str, a, b):
         """The rank's slices of one leaf's ``A (fan_in, r)`` and ``B (r,
@@ -366,9 +370,8 @@ def lora_layout(cfg: LlamaConfig, tp: int = 1, tp_rank: int = 0) -> LoraLayout:
     rank ``tp_rank`` of degree ``tp``."""
     r, hd = cfg.lora_rank, cfg.head_dim_
     q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
-    if tp > 1 and cfg.kv_size_multiplier > 1:
-        raise NotImplementedError("LoRA serving with kv_size_multiplier > 1 under tensor "
-                                  "parallelism is not ported")
+    # compact K/V deltas (repeated in the forward) keep their B whole
+    kv_compact = cfg.kv_size_multiplier > 1
     t = set(cfg.lora_targets)
     unknown = t - {"qkv", "o_proj", "gate_proj", "up_proj", "down_proj"}
     if unknown:
@@ -384,6 +387,8 @@ def lora_layout(cfg: LlamaConfig, tp: int = 1, tp_rank: int = 0) -> LoraLayout:
     if "down_proj" in t:
         plan.append(("down_proj", cfg.intermediate_size, (("down_proj", cfg.hidden_size),)))
     def local(leaf: str, kind: str, shape) -> Tuple[int, ...]:
+        if kv_compact and leaf in ("k", "v"):
+            return tuple(shape)
         # the serving spec of the stacked leaf (L, slots, ...) decides
         full = (cfg.num_layers, 2, *shape)
         spec = leaf_partition_spec(f"lora_{leaf}_{kind}", full, tp)
@@ -405,7 +410,7 @@ def lora_layout(cfg: LlamaConfig, tp: int = 1, tp_rank: int = 0) -> LoraLayout:
             n_scales += 1
         groups[gname] = LoraGroup(fan_in, a_off, tuple(placed))
     return LoraLayout(rank=r, groups=groups, scale_offset=off, per_layer=off + n_scales,
-                      tp=tp, tp_rank=tp_rank)
+                      tp=tp, tp_rank=tp_rank, kv_compact=kv_compact)
 
 
 def lora_deltas(rows: torch.Tensor, layout: LoraLayout, group: str,
@@ -552,6 +557,9 @@ class LlamaAttention(nn.Module):
             # and RoPE (JAX llama.py:357-369)
             dq, dk, dv = lora_deltas(*lora, "qkv", x)
             q = q + dq.reshape(q.shape).to(q.dtype)
+            if lora[1].kv_compact:   # compact, repeated, then the rank's heads
+                dk, dv = (self.qkv._kv_heads(d.reshape(*x.shape[:2], -1, cfg.head_dim_), -2)
+                          for d in (dk, dv))
             k = k + dk.reshape(k.shape).to(k.dtype)
             v = v + dv.reshape(v.shape).to(v.dtype)
         if cfg.qkv_clip is not None:  # DBRX clip_qkv, before RoPE
@@ -966,10 +974,12 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     Mixtral model's expert weights, ``ep_rank``/``ep_size``): that rank's
     shard of the same global weights (each drawn whole, then cut, one at a
     time: JAX initialises the global array and shards it), the state dict
-    of that rank's model. ``keep``: only the leaves whose name it accepts
+    of that rank's model; a quantized weight is quantized whole and its
+    int8 pair cut (``quantization.core.quantize_shard``), so its scales are
+    the global weight's. ``keep``: only the leaves whose name it accepts
     are returned; the others are still drawn, one at a time, and dropped,
     so a pipeline stage gets the same values as the whole model."""
-    from neuronx_distributed_tpu_torch.quantization.core import quantize_leaf
+    from neuronx_distributed_tpu_torch.quantization.core import quantize_shard
 
     model_cls = model_cls or LlamaForCausalLM
     with torch.device("meta"):
@@ -977,9 +987,6 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
                           if hasattr(config, "lora_rank") else config)
     meta = model.state_dict()
     sharded = tp_size > 1 or ep_size > 1
-    if sharded and quantize is not None:
-        raise NotImplementedError("int8 weights under tensor or expert parallelism are not "
-                                  "ported")
     specs = param_partition_specs(model) if sharded else {}
     out = {}
     for name, p in meta.items():
@@ -997,11 +1004,12 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
             continue
         if not name.endswith("embedding"):
             t.mul_(1.0 / math.sqrt(shape[-2] if ".experts." in name else shape[0]))
+        if quantize is not None:   # quantized whole, then cut (the global scales)
+            out.update(quantize_shard(name, t, specs.get(name, ()), tp_rank, tp_size, quantize,
+                                      ep_rank, ep_size))
+            del t
+            continue
         if specs.get(name):
             t = shard_slice(t, specs[name], tp_rank, tp_size, ep_rank, ep_size).clone()
-        if quantize is None:
-            out[name] = t
-        else:
-            out.update(quantize_leaf(name, t, quantize))
-            del t
+        out[name] = t
     return out

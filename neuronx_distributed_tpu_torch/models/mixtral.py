@@ -13,7 +13,12 @@ the flax tree (``model.layers.{i}.moe.router.kernel``,
 Serving: in decode mode (``CausalLM``) the block takes the JAX package's
 inference dispatch: a decode step of ``T`` tokens runs ``selective`` when
 ``T * top_k / num_experts < selective_loading_threshold``, else
-``all_experts``, and context encoding runs ``all_experts``.
+``all_experts``, and context encoding runs ``all_experts``. Under a TP
+group every rank holds the whole batch, so ``T`` is global and the mode is
+the same on every rank; the router reads the all-reduced hidden state,
+bitwise the same on every rank, so every rank picks the same experts; each
+rank's experts give a partial sum over their ``I/tp`` columns, all-reduced
+once after the combine.
 
 Training: :func:`mixtral_loss` is the cross entropy plus every block's
 auxiliary loss. Built with a tensor-parallel ``group``, an expert-parallel
@@ -23,9 +28,10 @@ experts' slices and the MoE blocks trade tokens over the ep group
 (``moe/expert_mlps.py``), their capacity and load balance over the global
 batch; ``sequence_parallel`` takes the MoE block's SP exit and re-entry.
 
-Not ported: serving under a TP group (``CausalLM`` refuses it), LoRA
-adapters on a Mixtral model, and the MoE block under context or pipeline
-parallelism (each raises by name: ROADMAP queue A).
+Not ported: LoRA adapters on a Mixtral model, and the MoE block under
+context or pipeline parallelism (each raises by name: ROADMAP queue A).
+Serving under EP raises: the JAX package excludes EP from token
+generation.
 """
 
 from __future__ import annotations

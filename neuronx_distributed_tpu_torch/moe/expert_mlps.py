@@ -36,7 +36,10 @@ owner its experts' slots from every rank of its ep group, ``(E/ep, ep *
 Cl, H)``, and the reverse all-to-all takes the outputs home. In
 ``all_experts`` mode the ep group's tokens are all-gathered, a rank runs
 its experts on all of them, and the partial sums are reduce-scattered
-back. ``selective`` runs on one rank only.
+back. ``selective`` (decode) runs under TP alone: each rank reads its
+``I/tp`` slice of every chosen expert (int8 rows included, B5's ``decode``
+route with the (token, expert) index) and gives its partial sum; under EP
+it raises, as the JAX package excludes EP from token generation.
 
 Global capacity (JAX computes over the global batch under GSPMD): with a
 data-parallel ``dp_group`` (dp ranks, each holding its rows of the global
@@ -193,10 +196,9 @@ class ExpertMLPs(nn.Module):
         """Each token through its ``top_k`` experts only: ``T * top_k``
         (token, expert) pairs of one row each; ``combine`` must have exactly
         ``top_k`` nonzeros a row."""
-        if self.ep > 1 or self.tp > 1:
-            raise NotImplementedError("selective expert loading runs on one rank (JAX excludes "
-                                      "EP from token generation; Mixtral serving under TP/EP "
-                                      "is ROADMAP queue A)")
+        if self.ep > 1:
+            raise NotImplementedError("selective expert loading under expert parallelism: the "
+                                      "JAX package excludes EP from token generation")
         in_dtype = x.dtype
         aff, idx = _top_k(combine, top_k)                        # (T, k)
         T, H = x.shape

@@ -38,8 +38,15 @@ int8 weights (JAX ``layers.py:116-120, 163, 322``): a weight may be a
 its fp32 ``scale``, put in place by :func:`adopt_quantized`), and the
 layer's product then runs through B5, the W8A16 GEMM (``kernels/w8a16.py``):
 the kernel on the card, JAX's ``dequantize_leaf`` then the matmul on the
-CPU. A GQA kernel ``(H, N, D)`` runs as ``(H, N*D)``. Not under a group
-of more than one rank.
+CPU. A GQA kernel ``(H, N, D)`` runs as ``(H, N*D)``. Under a group the
+pair is the rank's shard of the globally quantized weight
+(``quantization.core.quantize_shard``): a column layer holds its output
+columns and their scales and needs no collective; a row layer holds its
+fan-in rows and the whole per-output scale, so its B5 product is a partial
+sum that the layer's one all-reduce sums (the scale is linear, so it may be
+applied before the reduction); compact K/V kernels under
+``kv_size_multiplier`` stay whole with their scales, their products
+repeated and cut to the rank's heads as the float ones are.
 
 LoRA training (JAX ``layers.py:56-80``): ``adapters`` maps a weight's
 attribute name to the callable ``lora.core.attach_adapters`` installs. A
@@ -96,9 +103,10 @@ def adopt_quantized(model: nn.Module, state) -> None:
             raise KeyError(f"{key} has no {base}.scale")
         mod_name, _, attr = base.rpartition(".")
         mod = model.get_submodule(mod_name)
-        if getattr(mod, "tp", 1) > 1 or getattr(mod, "ep", 1) > 1:
-            raise NotImplementedError(f"{key}: int8 weights under tensor or expert "
-                                      f"parallelism are not ported (ROADMAP queue A)")
+        if getattr(mod, "ep", 1) > 1:
+            raise NotImplementedError(f"{key}: int8 expert weights under expert parallelism "
+                                      f"serve nothing: the JAX package excludes EP from token "
+                                      f"generation")
         old = mod._parameters.get(attr)
         if old is None:
             raise KeyError(f"{base} is no float weight of the model")

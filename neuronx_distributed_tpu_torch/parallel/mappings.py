@@ -367,9 +367,9 @@ def nonzero_partition_dim_swap(x: torch.Tensor, from_dim: int, to_dim: int,
 # --- point to point (JAX mappings.py:128-140) -------------------------------
 
 def _staged(t: torch.Tensor, group) -> bool:
-    from neuronx_distributed_tpu_torch.parallel.mesh import group_backend
+    from neuronx_distributed_tpu_torch.parallel.mesh import capturable
 
-    return t.is_cuda and group_backend(group) == "gloo"
+    return not capturable(t.device, group)
 
 
 class P2PWork:

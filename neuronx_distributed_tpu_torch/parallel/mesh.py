@@ -431,3 +431,18 @@ def group_backend(group) -> Optional[str]:
         return name
     return str(dist.get_backend(group))
 
+
+def capturable(device, group) -> bool:
+    """Whether ``group``'s collectives on ``device`` can run inside a CUDA
+    graph: all but a gloo group's on the card, whose collectives copy
+    through the host. True on the CPU, where nothing is captured."""
+    return not (torch.device(device).type == "cuda" and group_backend(group) == "gloo")
+
+
+def require_capturable(device, group, what: str, instead: str) -> None:
+    """Raise when :func:`capturable` is false: ``what`` is the captured
+    program asked for, ``instead`` the route to take."""
+    if not capturable(device, group):
+        raise ValueError(f"a gloo tensor-parallel group's collectives cannot be captured in "
+                         f"{what}: {instead}")
+

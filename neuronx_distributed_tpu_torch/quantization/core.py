@@ -26,6 +26,13 @@ quantized weight for a :class:`~neuronx_distributed_tpu_torch.parallel.
 layers.QuantizedKernel`, whose products run through B5 (the W8A16 GEMM) on
 the card and through its twin, JAX's dequantize-then-matmul, on the CPU.
 :func:`dequantize_params` is the float tree for a ``param_transform``.
+
+Tensor parallelism: a rank's int8 shard is cut from the quantization of
+the *global* weight (:func:`quantize_shard`), as the JAX package quantizes
+the global array and GSPMD shards the result: a row-parallel weight's
+scale reduces every rank's fan-in rows, so it is the same whole scale on
+every rank. Quantizing a rank's shard alone would give each rank its own
+scale and another model.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from neuronx_distributed_tpu_torch.inference.partition import scale_spec, shard_slice
 from neuronx_distributed_tpu_torch.kernels.w8a16 import dequantize
 
 
@@ -83,16 +91,22 @@ def quantize_tensor(w: torch.Tensor, axis: Optional[int],
     return q, scale
 
 
+def targeted(name: str, leaf, config: Optional[QuantizationConfig] = None) -> bool:
+    """Whether :func:`quantize_leaf` quantizes ``name``."""
+    return (torch.as_tensor(leaf).dim() >= 2
+            and _is_target(flax_path(name), config or QuantizationConfig()))
+
+
 def quantize_leaf(name: str, leaf, config: Optional[QuantizationConfig] = None
                   ) -> Dict[str, torch.Tensor]:
     """One state-dict entry, quantized when the config targets it:
     ``{name + ".qweight": int8, name + ".scale": fp32}``, else ``{name:
     leaf}`` unchanged."""
     cfg = config or QuantizationConfig()
+    if not targeted(name, leaf, cfg):
+        return {name: leaf}
     t = torch.as_tensor(leaf)
     path = flax_path(name)
-    if t.dim() < 2 or not _is_target(path, cfg):
-        return {name: leaf}
     if cfg.quantization_type == "per_channel_symmetric":
         expert = t.dim() >= 3 and any(re.search(p, path) for p in cfg.expert_patterns)
         axis = 1 if expert else 0
@@ -102,6 +116,21 @@ def quantize_leaf(name: str, leaf, config: Optional[QuantizationConfig] = None
         raise ValueError(f"unknown quantization_type {cfg.quantization_type!r}")
     q, scale = quantize_tensor(t, axis, cfg.quantized_dtype)
     return {f"{name}.qweight": q, f"{name}.scale": scale}
+
+
+def quantize_shard(name: str, leaf, spec, tp_rank: int, tp_size: int,
+                   config: Optional[QuantizationConfig] = None, ep_rank: int = 0,
+                   ep_size: int = 1) -> Dict[str, torch.Tensor]:
+    """:func:`quantize_leaf` of the global ``leaf``, then rank ``tp_rank``'s
+    slices under ``spec`` (``inference/partition.py``): ``qweight`` cut as
+    the float weight is, ``scale`` cut only on the axes it keeps
+    (``scale_spec``). A leaf the config does not target is cut as it is."""
+    out = {}
+    for k, t in quantize_leaf(name, leaf, config).items():
+        sp = scale_spec(spec, tuple(t.shape)) if k == f"{name}.scale" else spec
+        out[k] = shard_slice(torch.as_tensor(t), sp, tp_rank, tp_size, ep_rank,
+                             ep_size).contiguous()
+    return out
 
 
 def quantized_names(params: Mapping[str, object]) -> set:

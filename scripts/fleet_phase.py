@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s fleet phase (4i) alone on one NVIDIA GPU: build the
 kernels, make the serve phase's Llama-3-8B weights, and call
-``run_fleet_phase`` on the trace phase's ``CausalLM``; print the phase's
+``run_fleet_phase`` on the trace phase's ``CausalLM`` cut to the smoke's
+depth (``SERVING_CUT_LAYERS``); print the phase's
 report lines, its passes as one JSON line (to ``--out`` too), and the
 card's name and power limit.
 
     python3 scripts/fleet_phase.py [--out PATH]
 
-About three minutes on an H100 (the build, the weights and the phase). It
-exits 1 when a gate fails or when no GPU is present.
+It exits 1 when a gate fails or when no GPU is present.
 """
 
 from __future__ import annotations
@@ -44,7 +44,8 @@ def main() -> int:
     _build.build()
     cfg = smoke.serve_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    lm = smoke.trace_lm(cfg, "cuda", params)
+    cut_cfg, cut_params = smoke.serving_cut(cfg, params)   # the smoke's depth
+    lm = smoke.trace_lm(cut_cfg, "cuda", cut_params)
     t0 = time.perf_counter()
     try:
         out = smoke.run_fleet_phase(lm, "cuda", (flash_block_forward, paged_decode_attention))

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s park phase (4f) alone on one NVIDIA GPU: build the
 kernels, make the serve phase's Llama-3-8B weights, and call
-``run_park_phase`` on the trace phase's ``CausalLM``; print each pass and
+``run_park_phase`` on the trace phase's ``CausalLM`` cut to the smoke's
+depth (``SERVING_CUT_LAYERS``); print each pass and
 the phase's report as JSON lines, and the card's name and power limit.
 
     python3 scripts/park_phase.py
 
-About 100 s on an H100 (the build, the weights and the phase). It exits 1
+It exits 1
 when a gate fails or when no GPU is present.
 """
 
@@ -38,7 +39,8 @@ def main() -> int:
     _build.build()
     cfg = smoke.serve_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    lm = smoke.trace_lm(cfg, "cuda", params)
+    cut_cfg, cut_params = smoke.serving_cut(cfg, params)   # the smoke's depth
+    lm = smoke.trace_lm(cut_cfg, "cuda", cut_params)
     t0 = time.perf_counter()
     try:
         out = smoke.run_park_phase(lm, "cuda", (flash_block_forward, paged_decode_attention))

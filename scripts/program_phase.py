@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s phase 4g (captured programs and speculation), or
 parts of it, alone on one NVIDIA GPU: build the kernels, make the serve
-phase's Llama-3-8B weights, and run the parts named; print each part's
-result as a JSON line, and the card's name and power limit.
+phase's Llama-3-8B weights (``trace``, ``spec`` and ``medusa`` at the
+smoke's ``SERVING_CUT_LAYERS`` depth), and run the parts named; print each
+part's result as a JSON line, and the card's name and power limit.
 
     python3 scripts/program_phase.py [--parts check,trace,spec,medusa,bundle]
 
@@ -10,7 +11,8 @@ result as a JSON line, and the card's name and power limit.
 (``program_check``); ``trace``: the trace phase's three passes with captured
 programs, then on the eager route (z1); ``spec``: speculation (z2);
 ``medusa``: Medusa (z3); ``bundle``: a saved and loaded program bundle
-(z4). All parts take about 5 minutes on an H100, ``trace`` about 3 of them.
+(z4). All parts took about 5 minutes on an H100 at full depth, ``trace``
+about 3 of them.
 It exits 1 when a gate fails or when no GPU is present.
 """
 
@@ -58,8 +60,9 @@ def main(argv=None) -> int:
             print(json.dumps({"part": "check", **out["check"], "card": card}), flush=True)
         cfg = smoke.serve_config()
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        cut_cfg, cut_params = smoke.serving_cut(cfg, params)   # the smoke's depth
         if "trace" in parts:
-            lm = smoke.trace_lm(cfg, dev, params)
+            lm = smoke.trace_lm(cut_cfg, dev, cut_params)
             torch.cuda.reset_peak_memory_stats()
             trace = smoke.run_trace_phase(lm, dev, (flash_block_forward, paged_decode_attention))
             captured = trace.pop("streams")
@@ -80,8 +83,8 @@ def main(argv=None) -> int:
                               "pool_bytes": trace["pool_bytes"],
                               "peak_bytes": trace["peak_bytes"], "card": card}), flush=True)
             del lm
-        for name, fn in (("spec", lambda: smoke.run_speculation(cfg, dev, params, b1)),
-                         ("medusa", lambda: smoke.run_medusa(cfg, dev, params, b1))):
+        for name, fn in (("spec", lambda: smoke.run_speculation(cut_cfg, dev, cut_params, b1)),
+                         ("medusa", lambda: smoke.run_medusa(cut_cfg, dev, cut_params, b1))):
             if name in parts:
                 t0 = time.perf_counter()
                 out[name] = fn()

@@ -2,14 +2,15 @@
 """Run ``chip_smoke.py``'s tensor-parallel phase (4j) alone on one NVIDIA GPU:
 build the kernels, make the serve phase's Llama-3-8B weights, and call
 ``run_tp_phase``: (t1) the serve workload without a group and over a
-one-rank NCCL group, then (t2) two processes on the card over gloo. Prints
+one-rank NCCL group, then (t2) two processes on the card over gloo, which
+then run phase 4q's cells (``scripts/tp_rest_phase.py`` runs those
+alone). Prints
 the phase's report lines, its readings as one JSON line (to ``--out``
 too), and the card's name and power limit.
 
     python3 scripts/tp_phase.py [--layers N] [--out PATH]
 
-``--layers N`` cuts the depth of both legs (default: all 32 layers). About
-two and a half minutes on an H100 at full depth. It exits 1 when a gate
+``--layers N`` cuts the depth of both legs (default: all 32 layers). It exits 1 when a gate
 fails or when no GPU is present.
 """
 
@@ -59,6 +60,7 @@ def main() -> int:
         print(f"tp_phase: FAILED: {e}", file=sys.stderr)
         return 1
     smoke.print_tp(out, card)
+    smoke.print_tp_rest(out["rest"], card)
     line = json.dumps({**out, "script_wall_s": time.perf_counter() - t0, "card": card},
                       default=str)
     if args.out:

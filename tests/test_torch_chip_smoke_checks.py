@@ -1743,3 +1743,139 @@ def test_entry_points_gates_catch_each_fault(smoke, fault, says):
     edit[fault]()
     assert any(says in p for p in _entry_problems(smoke, st, r5, l0)), _entry_problems(
         smoke, st, r5, l0)
+
+
+# ------------------------------------------ phase 4q: TP serving, the rest
+
+_TPR_CASES = ("int8_llama", "int8_mixtral_3", "int8_mixtral_1", "speculation", "medusa",
+              "lora_kvm2")
+
+
+def _tpr_readings():
+    """Fabricated phase 4q readings of two ranks that pass every gate, and
+    the parent's TP=1 references."""
+    def u4():
+        out = {case: {"streams": [[3, 1, 4, 1]]} for case in _TPR_CASES}
+        out["int8_llama"]["logits"] = [[0.5, -0.25]]
+        out["int8_mixtral_3"]["mode"], out["int8_mixtral_1"]["mode"] = "all_experts", "selective"
+        out["launches_by_route"] = {"w8a16_gemm": {"wgmma": 0, "decode": 0, "f32": 30}}
+        return out
+
+    def rank(r):
+        return {"rank": r, "rest": {
+            "u0": {"w8a16_gemm": {"mixtral q, bf16, 1 rows": {"problems": []}},
+                   "flash_block_forward": {"mixtral": {"problems": []}}},
+            "weight_bytes": 6_100_000_000, "weight_bytes_tp1": 12_100_000_000,
+            "u1": {"launches": {"flash_block_forward": 16, "w8a16_gemm": 2000},
+                   "launches_by_route": {"w8a16_gemm": {"wgmma": 64, "decode": 1936, "f32": 0}},
+                   "tokens": [list(range(32))], "selective_calls": 256},
+            "u2": {"report": {"requests_completed": 8, "fused": False, "tp_degree": 2},
+                   "tokens": 128, "digest": "abc", "launches": {
+                       "paged_decode_attention": 120, "w8a16_gemm": 900}},
+            "u3": {"speculate": {"draft_shared": True, "report": {"generated": [5] * 32},
+                                 "launches": {"flash_block_forward": 8}},
+                   "medusa": {"report": {"matches_base_greedy": True, "generated": [6] * 32},
+                              "launches": {"flash_block_forward": 8}}},
+            "u4": u4()}}
+
+    return [rank(0), rank(1)], {"u4": u4()}
+
+
+def test_tp_rest_gates_hold_on_a_good_run(smoke):
+    ranks, ref = _tpr_readings()
+    assert smoke.tpr_gates(ranks, ref, 60_000_000_000, 85_000_000_000) == []
+
+
+@pytest.mark.parametrize("fault,says", [
+    ("u0", "(u0 rank 0) w8a16_gemm (mixtral q"),
+    ("bytes", "int8 weight bytes"),
+    ("u1_b1", "(u1) rank 0: flash_block_forward never launched"),
+    ("u1_decode", "never launched on its decode route"),
+    ("u1_wgmma", "never launched on its wgmma route"),
+    ("u1_selective", "(u1 rank 0) no decode step ran the selective experts"),
+    ("u1_len", "(u1 rank 1) streams of lengths"),
+    ("u1_ranks", "(u1) the ranks' tokens differ"),
+    ("u2_done", "(u2 rank 0) 7 requests"),
+    ("u2_b2", "(u2) rank 1: paged_decode_attention never launched"),
+    ("u2_fused", "(u2 rank 0) fused True"),
+    ("u2_digest", "(u2) the ranks' stream digests differ"),
+    ("u3_shared", "the draft does not hold the target's tensors"),
+    ("u3_medusa", "Medusa's output is not the base greedy stream"),
+    ("u3_b1", "(u3) medusa rank 0: flash_block_forward never launched"),
+    ("u3_ranks", "(u3) the ranks' speculate tokens differ"),
+    ("u4_stream", "(u4 rank 1) lora_kvm2 greedy streams differ from TP=1's"),
+    ("u4_mode", "(u4 rank 0) 1 rows ran all_experts"),
+    ("u4_logits", "int8 logits differ from TP=1's"),
+    ("u4_f32", "(u4 rank 0) w8a16_gemm never launched on its f32 route"),
+    ("memory", "the card's used memory reached"),
+])
+def test_tp_rest_gates_catch_each_fault(smoke, fault, says):
+    ranks, ref = _tpr_readings()
+    a, b = ranks[0]["rest"], ranks[1]["rest"]
+    peak = 60_000_000_000
+    if fault == "u0":
+        a["u0"]["w8a16_gemm"]["mixtral q, bf16, 1 rows"]["problems"] = [
+            "w8a16_gemm (mixtral q, bf16, 1 rows) differs from its twin"]
+    elif fault == "bytes":
+        b["weight_bytes"] = 6_700_000_000
+    elif fault == "u1_b1":
+        a["u1"]["launches"]["flash_block_forward"] = 0
+    elif fault in ("u1_decode", "u1_wgmma"):
+        a["u1"]["launches_by_route"]["w8a16_gemm"][fault[3:]] = 0
+    elif fault == "u1_selective":
+        a["u1"]["selective_calls"] = 0
+    elif fault == "u1_len":
+        b["u1"]["tokens"] = [list(range(31))]
+    elif fault == "u1_ranks":
+        b["u1"]["tokens"] = [list(range(1, 33))]
+    elif fault == "u2_done":
+        a["u2"]["report"]["requests_completed"] = 7
+    elif fault == "u2_b2":
+        b["u2"]["launches"]["paged_decode_attention"] = 0
+    elif fault == "u2_fused":
+        a["u2"]["report"]["fused"] = True
+    elif fault == "u2_digest":
+        b["u2"]["digest"] = "abd"
+    elif fault == "u3_shared":
+        a["u3"]["speculate"]["draft_shared"] = False
+    elif fault == "u3_medusa":
+        a["u3"]["medusa"]["report"]["matches_base_greedy"] = False
+    elif fault == "u3_b1":
+        a["u3"]["medusa"]["launches"] = {}
+    elif fault == "u3_ranks":
+        b["u3"]["speculate"]["report"]["generated"] = [5] * 31 + [7]
+    elif fault == "u4_stream":
+        b["u4"]["lora_kvm2"]["streams"] = [[3, 1, 4, 2]]
+    elif fault == "u4_mode":
+        a["u4"]["int8_mixtral_1"]["mode"] = "all_experts"
+    elif fault == "u4_logits":
+        a["u4"]["int8_llama"]["logits"] = [[0.5002, -0.25]]
+    elif fault == "u4_f32":
+        a["u4"]["launches_by_route"]["w8a16_gemm"]["f32"] = 0
+    elif fault == "memory":
+        peak = 85_000_000_000
+    problems = smoke.tpr_gates(ranks, ref, peak, 85_000_000_000)
+    assert any(says in p for p in problems), problems
+
+
+def test_tp_rest_int8_bytes_reckoned_from_shapes(smoke):
+    """(u1)'s yardstick: Mixtral-8x7B's int8 bytes at 8 layers, TP=1 and a
+    rank's at TP=2, from the meta shapes alone (the reckoning PERF.md
+    states: 1.451 B parameters a layer, the bf16 embedding and head)."""
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
+
+    cfg = smoke.tpr_mixtral_config()
+    tp1 = smoke.tpr_int8_bytes(cfg, MixtralForCausalLM)
+    tp2 = smoke.tpr_int8_bytes(cfg, MixtralForCausalLM, tp=2)
+    assert cfg.num_layers == smoke.TPR_MIXTRAL_LAYERS == 8 and cfg.hidden_size == 4096
+    assert 11.5e9 < tp1 < 12.5e9 and tp2 <= smoke.TP_SHARE_MAX * tp1
+    assert 5.8e9 < tp2 < 6.4e9
+
+
+def test_tp_rest_b5_cases_cover_every_shard_shape(smoke):
+    cases = smoke.tpr_b5_cases()
+    names = {c[0].split(",")[0] for c in cases}
+    assert names == set(smoke.TPR_B5_SHAPES)
+    routes = {smoke.tpr_route(c) for c in cases}
+    assert routes == {"wgmma", "decode", "f32"}
+    assert any(c[8] for c in cases)   # the selective gather through idx

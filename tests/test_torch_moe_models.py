@@ -154,16 +154,21 @@ def test_moe_under_cp_pp_and_tp_serving_raises_by_name():
     with pytest.raises(NotImplementedError, match="pipeline parallelism"):
         PipelinedLlama(cfg, num_stages=2, num_microbatches=2)
     params = init_params(cfg, torch.Generator().manual_seed(0), model_cls=tm.MixtralForCausalLM)
+    ids = np.arange(1, 9, dtype=np.int32)[None]
+    want = CausalLM(cfg, params, tm.MixtralForCausalLM, buckets=(8,), max_batch=1,
+                    device="cpu").generate(ids, max_new_tokens=4).tokens
 
     def rank(r):
         if mesh.get_context_parallel_size() > 1:
             with pytest.raises(NotImplementedError, match="context parallelism"):
                 initialize_parallel_model(neuronx_distributed_config(), lambda: (
                     tm.MixtralForCausalLM(cfg)), device="cpu")
-        else:
-            with pytest.raises(NotImplementedError, match="Mixtral serving under tensor"):
-                CausalLM(cfg, params, tm.MixtralForCausalLM, buckets=(8,), max_batch=1,
-                         device="cpu")
+        else:   # serving under a TP group: the rank's shard, TP=1's tokens
+            sd = init_params(cfg, torch.Generator().manual_seed(0),
+                             model_cls=tm.MixtralForCausalLM, tp_rank=r, tp_size=2)
+            lm = CausalLM(cfg, sd, tm.MixtralForCausalLM, buckets=(8,), max_batch=1,
+                          device="cpu")
+            np.testing.assert_array_equal(lm.generate(ids, max_new_tokens=4).tokens, want)
         return True
 
     assert mesh.run_in_threads(2, rank, tensor_model_parallel_size=1,

@@ -455,8 +455,9 @@ def test_sequence_parallel_and_int8_refused_under_tp():
     """Sequence parallelism is ported (``tests/test_torch_sequence_parallel.py``
     holds it against JAX): without a group the flag is a no-op. Context
     parallelism is ported too (``tests/test_torch_ring_attention.py``); what
-    JAX refuses the port refuses with JAX's error: SP with CP. Not ported:
-    int8 weights in a layer of more than one rank."""
+    JAX refuses the port refuses with JAX's error: SP with CP. int8 weights
+    in a layer of more than one rank serve the rank's shard: a column
+    layer's product is its columns of the whole int8 product."""
     assert not TL.ColumnParallelLinear(8, 8, sequence_parallel=True).sequence_parallel
     from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
@@ -468,11 +469,21 @@ def test_sequence_parallel_and_int8_refused_under_tp():
             ValueError, match="sequence_parallel and context_parallel are exclusive"):
         LlamaForCausalLM(LlamaConfig(**cfg, sequence_parallel=True))
 
+    q = torch.randint(-127, 128, (8, 8), generator=torch.Generator().manual_seed(3),
+                      dtype=torch.int8)
+    scale = torch.rand((1, 8), generator=torch.Generator().manual_seed(4))
+    x = torch.randn((2, 8), generator=torch.Generator().manual_seed(5))
+    whole = x @ (q.float() * scale)
+
     def rank(r):
-        m = TL.ColumnParallelLinear(8, 8, group=mesh.get_tensor_model_parallel_group())
-        with pytest.raises(NotImplementedError, match="int8"):
-            TL.adopt_quantized(m, {"kernel.qweight": torch.zeros((8, 4), dtype=torch.int8),
-                                   "kernel.scale": torch.ones((1, 4))})
+        m = TL.ColumnParallelLinear(8, 8, use_bias=False,
+                                    group=mesh.get_tensor_model_parallel_group())
+        state = {"kernel.qweight": q[:, 4 * r:4 * r + 4].clone(),
+                 "kernel.scale": scale[:, 4 * r:4 * r + 4].clone()}
+        TL.adopt_quantized(m, state)
+        m.load_state_dict(state, strict=True)
+        assert isinstance(m.kernel, TL.QuantizedKernel)
+        torch.testing.assert_close(m(x), whole[:, 4 * r:4 * r + 4], rtol=1e-6, atol=1e-6)
         return True
 
     assert _tp2(rank) == [True, True]

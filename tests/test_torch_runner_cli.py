@@ -9,8 +9,8 @@ and the acceptance counts equal JAX's. ``--hf_checkpoint``: a tiny
 held against its own fp32 model, as JAX holds it. Port only:
 ``benchmark``'s report keys, every refusal of ``build_model``,
 ``cmd_speculate`` and ``cmd_medusa`` (a ``SystemExit`` on JAX's
-conditions), ``--tp`` above the world, and the combinations not ported
-under TP > 1 refused by name on two thread ranks. ``serve --snapshot_path``:
+conditions) and ``--tp`` above the world (the subcommands at ``--tp 2`` are
+in ``test_torch_runner_tp.py``). ``serve --snapshot_path``:
 a snapshot a JAX engine wrote (the JAX version-1 format the port reads),
 restored and finished by both runners alike.
 """
@@ -28,7 +28,6 @@ import torch
 
 from neuronx_distributed_tpu_torch.converters.jax_params import medusa_params_from_jax
 from neuronx_distributed_tpu_torch.examples import runner
-from neuronx_distributed_tpu_torch.parallel import mesh
 from tests.test_torch_runner import _jax_runner, _same_keys, run_jax, run_port
 
 
@@ -133,35 +132,6 @@ def test_refusals(case):
     with pytest.raises(SystemExit) as e:
         runner.main([argv[0], "--tiny", "--device", "cpu", *argv[1:]])
     assert says in str(e.value.code)
-
-
-NOT_UNDER_TP = {
-    "quantize": (["generate", "--quantize"], "--quantize (int8 weights) under --tp 2"),
-    "mixtral": (["generate", "--model", "mixtral"], "Mixtral serving) under --tp 2"),
-    "speculate": (["speculate"], "speculate (speculation) under --tp 2"),
-    "medusa": (["medusa"], "medusa (Medusa decoding) under --tp 2"),
-    "adapters_kv_multiplier": (["serve", "--adapters", "1"],
-                               "kv_size_multiplier > 1 under --tp 2"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(NOT_UNDER_TP))
-def test_not_ported_under_tp_refused_by_name(case):
-    argv, says = NOT_UNDER_TP[case]
-    config = None
-    if case == "adapters_kv_multiplier":
-        args = runner.parse_args(["serve", "--tiny"])
-        config = dataclasses.replace(runner.build_config(args), num_kv_heads=2,
-                                     kv_size_multiplier=2)
-
-    def rank(r):
-        with pytest.raises(SystemExit) as e:
-            runner.main([argv[0], "--tiny", "--device", "cpu", "--tp", "2", *argv[1:]],
-                        config=config)
-        return str(e.value.code)
-
-    for msg in mesh.run_in_threads(2, rank, tensor_model_parallel_size=2):
-        assert says in msg and "not ported" in msg
 
 
 def test_serve_snapshot_recovery_equals_jax(tmp_path):

@@ -298,6 +298,26 @@ Phases, each fatal on failure (exit code 1, no result line):
            fresh trainer resumes to step 4 (params equal bit for bit), and
            ``grad_accum_steps=2`` (the params move on even steps only); B1,
            B3a, B3b and B4 launched.
+4r. lora/moe the last runtime gaps (``scripts/lora_moe_phase.py`` runs it
+           with 4l and 4n alone): (v0) in phase 4l's rank processes, LoRA
+           (rank 16 on the five default targets and the embedding, dropout
+           0.05) at TP 2 x DP 2 with ZeRO-1 over Llama-2-7B widths at 1
+           layer, 4 x 4096 tokens, 2 steps, against the one-rank run on the
+           same seeds: losses within 1 %, the frozen base unchanged, the DP
+           replicas' adapters and the TP-replicated ones bit-identical,
+           optimizer state for the adapters only, B1/B3a/B3b/B4 launched on
+           every rank; (v1) in phase 4n's, Mixtral-8x7B widths at 1 layer
+           at CP 2 x EP 2 (zigzag, capacity factor 1.0), 2 x 4096 tokens, 2
+           steps, against the one-rank run whose MoE blocks take the zigzag
+           order: losses within 1 %, the same on every rank, the kernels
+           and the expert all-to-all on every rank; the small fp32 Mixtral
+           on that layout against one CPU rank (1e-5, dropped counts equal);
+           (v2) ``runner.py serve --model mixtral --adapters 3 --paged
+           --paged-kernel`` (rank 16, a pool of 4 slots) at Mixtral-8x7B
+           widths cut to 8 layers, beside the same serve without the pool:
+           every request completes, B1 and B2 launched, adapter loads and
+           hits, slot-0 streams of both runners' models bit-identical, and a
+           small fp32 Mixtral layer pooled against merged within 1e-4.
 
 ``--profile PATH`` repeats each trace and overload pass under
 ``torch.profiler`` (device activity only) for the device's busy share of
@@ -1745,8 +1765,9 @@ def serve_config():
 # 4e (tenants), 4f (park), 4g's speculation and Medusa, and 4i (fleet):
 # llama3_8b depth, of 32 (their gates count decisions and compare passes
 # on one model, which the depth does not change; cut for the run time when
-# phase 4q came). Phase 4's serve cells, (t1) and 4h's (q1) keep all 32.
-SERVING_CUT_LAYERS = 8
+# phase 4q came, 8 to 4 when phase 4r came). Phase 4's serve cells, (t1)
+# and 4h's (q1) keep all 32.
+SERVING_CUT_LAYERS = 4
 
 
 def serving_cut(cfg, params):
@@ -3149,34 +3170,28 @@ def tenant_gates(passes: dict, predicted: dict, streams_a: dict, traces: dict) -
     return problems
 
 
-def lora_layer_check(cfg, dev) -> dict:
-    """Pass (t): one decoder layer at ``cfg``'s widths in fp32 (seeded
-    weights), an adapter of rank 16 in slot 1 of a pool: its output on two
-    rows of 64 tokens against the same layer with the adapter merged into
-    its weights (``merge_lora``); slot-0 rows against the layer without
-    LoRA, bit for bit."""
-    import dataclasses
+def pooled_layer_readings(c, layer_cls, dev) -> dict:
+    """One decoder layer of ``layer_cls`` at config ``c`` (fp32, one layer,
+    ``lora_rank`` 16 and 2 slots; seeded weights), an adapter of rank 16 in
+    slot 1 of a pool: its output on two rows of 64 tokens against the same
+    layer with the adapter merged into its weights (``merge_lora``), and
+    slot-0 rows against the layer without LoRA."""
     import math
 
     import torch
 
     from neuronx_distributed_tpu_torch.inference.adapters import AdapterPool
     from neuronx_distributed_tpu_torch.lora import LoraConfig, init_lora, merge_lora
-    from neuronx_distributed_tpu_torch.models.llama import (
-        LlamaDecoderLayer,
-        lora_layout,
-        rotary_embedding,
-    )
+    from neuronx_distributed_tpu_torch.models.llama import lora_layout, rotary_embedding
 
-    c = dataclasses.replace(cfg, num_layers=1, dtype=torch.float32, param_dtype=torch.float32,
-                            use_flash_attention=False, lora_rank=16, lora_slots=2, decode=False)
     gen = torch.Generator(device=dev).manual_seed(11)
-    layer = LlamaDecoderLayer(c, device=dev)
+    layer = layer_cls(c, device=dev)
     sd = {}
     for name, w in layer.state_dict().items():
         t = torch.randn(w.shape, generator=gen, device=dev)
+        fan_in = w.shape[1] if ".experts." in name else w.shape[0]   # experts (E, in, out)
         sd[name] = (torch.ones_like(w) if name.endswith(".scale")
-                    else t * (1.0 / math.sqrt(w.shape[0])))
+                    else t * (1.0 / math.sqrt(fan_in)))
     layer.load_state_dict(sd)
     lcfg = LoraConfig(r=16, lora_alpha=32.0)
     prefix = "model.layers.0."
@@ -3190,7 +3205,7 @@ def lora_layer_check(cfg, dev) -> dict:
     pool = AdapterPool(pool_buf, layout)
     pool.register("a", tree, lcfg)
     slot = pool.acquire("a")
-    merged = LlamaDecoderLayer(c, device=dev)
+    merged = layer_cls(c, device=dev)
     merged.load_state_dict({k[len(prefix):]: v.to(dev) for k, v in
                             merge_lora(full, {k: {n: t.to(dev) for n, t in v.items()}
                                               for k, v in tree.items()}, lcfg).items()})
@@ -3205,14 +3220,31 @@ def lora_layer_check(cfg, dev) -> dict:
             return mod(x, rope, None, 0, lora)
 
     got, want = run(layer, [slot, slot]), run(merged, None)
-    err = float((got - want).abs().max())
-    base_equal = bool(torch.equal(run(layer, [0, 0]), run(layer, None)))
-    check(err <= TOL_LORA_LAYER, f"tenants (t): pooled adapter vs merged weights max |err| "
-                                 f"{err:.3g} > {TOL_LORA_LAYER}")
-    check(base_equal, "tenants (t): slot-0 rows differ from the layer without LoRA")
-    return dict(max_abs_err=err, tolerance=TOL_LORA_LAYER, max_abs_ref=float(want.abs().max()),
+    return dict(max_abs_err=float((got - want).abs().max()), max_abs_ref=float(want.abs().max()),
                 delta_max_abs=float((want - run(layer, None)).abs().max()),
-                base_bit_identical=base_equal, shape=[2, 64, c.hidden_size])
+                base_bit_identical=bool(torch.equal(run(layer, [0, 0]), run(layer, None))),
+                targets=sorted(layout.groups), adapted=len(tree),
+                shape=[2, 64, c.hidden_size])
+
+
+def lora_layer_check(cfg, dev) -> dict:
+    """Pass (t): :func:`pooled_layer_readings` for one Llama decoder layer
+    at ``cfg``'s widths, held to ``TOL_LORA_LAYER`` and slot-0 rows bit for
+    bit."""
+    import dataclasses
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import LlamaDecoderLayer
+
+    c = dataclasses.replace(cfg, num_layers=1, dtype=torch.float32, param_dtype=torch.float32,
+                            use_flash_attention=False, lora_rank=16, lora_slots=2, decode=False)
+    r = pooled_layer_readings(c, LlamaDecoderLayer, dev)
+    check(r["max_abs_err"] <= TOL_LORA_LAYER, f"tenants (t): pooled adapter vs merged weights "
+                                              f"max |err| {r['max_abs_err']:.3g} > "
+                                              f"{TOL_LORA_LAYER}")
+    check(r["base_bit_identical"], "tenants (t): slot-0 rows differ from the layer without LoRA")
+    return dict(r, tolerance=TOL_LORA_LAYER)
 
 
 def tenant_passes(lm, dev, counters, adapters, trace_n=None, labels=None):
@@ -6981,10 +7013,15 @@ def dist_child(rank: int, world: int, port: int, out_path: str, layers: int,
     res["d2"] = dict(straight=straight, resumed=head + tail, resumed_step=content["step"],
                      bit_identical=_digest(state.params) == want
                      and [s["loss"] for s in head + tail] == [s["loss"] for s in straight])
-    res["wall_s"] = time.perf_counter() - t0
-    Path(out_path).write_text(json.dumps(res))
+    del state, step
     mesh.destroy_model_parallel()
     dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 4r's (v0): LoRA at TP 2 x DP 2 on a group of its own
+    res["v0"] = ltp_rank_cell(rank, world, port + 3, dev, counters, timeout)
+    res["wall_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(res))
     return 0
 
 
@@ -7122,6 +7159,7 @@ def run_dist_phase(dev, counters, layers=DIST_LAYERS) -> dict:
     processes, then (d2)'s CPU side; every gate."""
     t0 = time.perf_counter()
     d0 = dist_d0(dev, counters, layers)
+    v0_ref = ltp_reference(dev, counters)   # phase 4r's (v0), gated there
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
         ckpt = str(tmp / "ckpt")
@@ -7138,7 +7176,7 @@ def run_dist_phase(dev, counters, layers=DIST_LAYERS) -> dict:
         if not d2[key]:
             problems.append(f"(d2): {key} failed")
     check(not problems, "dist phase: " + "; ".join(problems))
-    return dict(d0=d0, d1=d1, d2=d2, phase_s=time.perf_counter() - t0)
+    return dict(d0=d0, d1=d1, d2=d2, v0_ref=v0_ref, phase_s=time.perf_counter() - t0)
 
 
 def print_dist(dist: dict, card: str) -> None:
@@ -8374,9 +8412,11 @@ def moe_small_batches(vocab: int) -> list:
     return out
 
 
-def moe_small_trainer(dev, cfg, params):
-    """(m2)'s trainer at this rank's layout (one rank off-mesh) from the
-    global ``params``: ZeRO-1, fp32 masters, clipping 1.0, ``mixtral_loss``."""
+def moe_small_trainer(dev, cfg, params=None, lr: float = MOE_SMALL_LR):
+    """(m2)'s trainer (and (v1)'s) at this rank's layout (one rank
+    off-mesh) from the global ``params`` (None: drawn from the seed): the
+    mesh's TP, EP and CP degrees, ZeRO-1, fp32 masters, clipping 1.0,
+    ``mixtral_loss``."""
     from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM, mixtral_loss
     from neuronx_distributed_tpu_torch.parallel import mesh
     from neuronx_distributed_tpu_torch.trainer import (
@@ -8391,11 +8431,12 @@ def moe_small_trainer(dev, cfg, params):
     nxd = neuronx_distributed_config(
         tensor_parallel_size=mesh.get_tensor_model_parallel_size() if on else 1,
         expert_parallel_size=mesh.get_expert_model_parallel_size() if on else 1,
+        context_parallel_size=mesh.get_context_parallel_size() if on else 1,
         optimizer_config={"zero_one_enabled": True, "grad_clipping": True, "max_grad_norm": 1.0},
         mixed_precision_config={"use_master_weights": True})
     model = initialize_parallel_model(nxd, lambda: MixtralForCausalLM(cfg), device=dev,
                                       params=params)
-    opt = initialize_parallel_optimizer(nxd, model, learning_rate=MOE_SMALL_LR, weight_decay=0.01)
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=lr, weight_decay=0.01)
 
     def loss_fn(p, b, rng):
         model.bind(p)
@@ -8404,17 +8445,24 @@ def moe_small_trainer(dev, cfg, params):
     return create_train_state(model, opt), make_train_step(model, opt, loss_fn), model
 
 
-def moe_small_steps(state, step, model, batches, dev):
+def moe_small_steps(state, step, model, batches, dev, counters=(), timed=False):
+    """Each step on this rank's rows and block of the sequence
+    (``cp_rank_batch``: zigzag under CP; one rank: the whole batch in the
+    natural order): loss, grad norm, dropped assignments, and with
+    ``timed`` the ms (the counters zeroed first)."""
     import torch
 
-    from neuronx_distributed_tpu_torch.parallel import mesh
-
+    zero_launches(counters)
     out = []
     for b in batches:
-        rows = mesh.data_batch_slice(MOE_SMALL_BATCH)
-        state, m = step(state, {k: torch.as_tensor(v[rows]).to(dev) for k, v in b.items()})
+        t = time.perf_counter()
+        state, m = step(state, cp_rank_batch(b, dev))
+        if timed:
+            torch.cuda.synchronize()
         out.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                         dropped=moe_dropped(model.module)))
+        if timed:
+            out[-1]["ms"] = (time.perf_counter() - t) * 1e3
     return state, out
 
 
@@ -8549,6 +8597,8 @@ def moe_child(rank: int, world: int, port: int, out_path: str, ckpt_dir: str,
         del state, step, model
         res["m2"][name] = entry
         leave()
+    # phase 4r's (v1): Mixtral at CP 2 x EP 2 on a group of its own
+    res["v1"] = mcp_rank_cell(rank, world, p, dev, counters, timeout)
     res["wall_s"] = time.perf_counter() - t0
     Path(out_path).write_text(json.dumps(res))
     return 0
@@ -8723,14 +8773,19 @@ def run_moe_phase(dev, counters, layers: int = MOE_LAYERS, dump=None) -> dict:
 
     t0 = time.perf_counter()
     m0 = moe_m0(dev, counters, layers)
+    v1_ref = mcp_reference(dev, counters)   # phase 4r's (v1), gated there
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
         ckpt = str(tmp / "ckpt")
         kids = moe_ranks(ckpt, tmp, layers)
         small = moe_small_reference(ckpt, tmp, kids["ranks"])
+    t1 = time.perf_counter()
+    v1_small_cpu = mcp_small_run("cpu")
     problems = moe_gates(m0, kids["ranks"]) + moe_small_problems(small, kids["ranks"])
     out = dict(m0=m0, ranks=kids["ranks"], small=small, ranks_wall_s=kids["wall_s"],
-               card_peak_used_bytes=kids["card_peak_used_bytes"], card_bytes=kids["card_bytes"])
+               card_peak_used_bytes=kids["card_peak_used_bytes"], card_bytes=kids["card_bytes"],
+               v1_ref=v1_ref, v1_small_cpu=v1_small_cpu,
+               v1_small_cpu_s=time.perf_counter() - t1)
     if dump is not None:
         Path(dump).parent.mkdir(parents=True, exist_ok=True)
         Path(dump).write_text(json.dumps({**out, "problems": problems}, default=str))
@@ -8779,6 +8834,554 @@ def print_moe(st: dict, card: str) -> None:
           f"fresh group resumed step 3 bit for bit; the tag at TP1 x EP1 equals the gathered "
           f"params {sm['tp1_ep1_equals_gathered']}; flipped byte caught "
           f"{sm['flipped_byte_caught']}; phase {st['phase_s']:.1f} s [{card}]", flush=True)
+
+
+# --- phase 4r: LoRA under TP, the MoE block under CP, multi-LoRA on Mixtral --------------
+#
+# (v0) rides phase 4l's rank processes and (v1) phase 4n's: each joins a
+# group of its own after the phase's cells. (v2) runs in this process.
+
+LTP_LORA = dict(r=16, lora_alpha=32.0, lora_dropout=0.05,
+                target_modules=("qkv", "o_proj", "gate_proj", "up_proj", "down_proj", "embed"))
+LTP_RTOL = 1e-3                 # (v0) losses and grad norms, ranks vs one rank, bf16 (on the
+                                # card 9.6e-7 and 1.2e-5; a skipped update or a gradient summed
+                                # twice moves a grad norm far more)
+MCP_CP, MCP_EP = 2, 2           # (v1): CP 2 x EP 2 (dp 2, edp 1), four processes
+MCP_SEQ, MCP_BATCH = 8192, 2    # each rank 4096 tokens: the longest measured to fit four
+                                # ranks (16384 asked); a rank's peak is mostly its 1.0 B params
+                                # with fp32 masters
+MCP_STEPS, MCP_LR, MCP_CF = 2, 1e-4, 1.0
+MCP_RTOL = 1e-3                 # (v1) losses and grad norms, ranks vs one rank, bf16 (on the
+                                # card 1.2e-5 and 1.2e-5)
+MCP_SMALL_TOL = 1e-5            # (v1 small) card ranks vs one CPU rank, fp32
+MCP_SMALL_STEPS = 2             # (v1 small): (m2)'s model and first batches
+MLORA_LAYERS = 8                # (v2) mixtral_8x7b depth 32 -> 8 (bf16 weights 23.8 GB)
+MLORA_ADAPTERS, MLORA_RANK, MLORA_SLOTS = 3, 16, 4
+MLORA_SERVE = ["serve", "--model", "mixtral", "--paged", "--paged-kernel", "--max_batch", "8",
+               "--num_requests", "16", "--prompt_len", "256", "--max_new_tokens", "32",
+               "--shared_prefix_len", "64"]
+MLORA_POOL = ["--adapters", str(MLORA_ADAPTERS), "--adapter_rank", str(MLORA_RANK),
+              "--adapter_pool_slots", str(MLORA_SLOTS)]
+MLORA_SLOT0 = dict(requests=4, prompt=96, new=16)   # the slot-0 streams' workload
+MLORA_LAYER_TOL = 1e-4          # (v2) a small fp32 Mixtral layer, pooled vs merged
+
+
+def ltp_trainer(dev, tp: int):
+    """(v0)'s trainer through its entry points: Llama-2-7B widths at
+    ``DIST_LAYERS`` (the Llama-2 example's config), the seeded base frozen,
+    ``LTP_LORA`` adapters, ZeRO-1, fp32 masters, clipping 1.0."""
+    from neuronx_distributed_tpu_torch.examples import llama2_tp_zero1 as example
+    from neuronx_distributed_tpu_torch.lora import LoraConfig
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.trainer import (
+        create_train_state,
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+        neuronx_distributed_config,
+    )
+
+    cfg = example.build_config(example.parse_args(dist_args(DIST_LAYERS)), DIST_SEQ)
+    cfg = dataclasses.replace(cfg, sequence_parallel=tp > 1)
+    nxd = neuronx_distributed_config(
+        tensor_parallel_size=tp, lora_config=LoraConfig(**LTP_LORA),
+        optimizer_config={"zero_one_enabled": True, "grad_clipping": True, "max_grad_norm": 1.0},
+        mixed_precision_config={"use_master_weights": True})
+    model = initialize_parallel_model(nxd, lambda: LlamaForCausalLM(cfg), device=dev)
+    opt = initialize_parallel_optimizer(nxd, model, learning_rate=DIST_LR, weight_decay=0.0)
+    step = make_train_step(model, opt, lambda p, b, rng: model.apply(
+        p, b["ids"], b["labels"], method="loss"))
+    return model, create_train_state(model, opt), step
+
+
+def ltp_steps(model, state, step, dev, counters) -> dict:
+    """(v0)'s 2 steps on the seeded stream, each rank on its rows: the
+    counters zeroed just before and read just after; each step's loss,
+    grad norm, ms and the adapters' digests (all of them, and the
+    TP-replicated ones); the base's digest before and after."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.examples.common import synthetic_lm_batches
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    on = mesh.model_parallel_is_initialized()
+    stream = synthetic_lm_batches(model.module.config.vocab_size, DIST_BATCH, DIST_SEQ, seed=0)
+    rows = mesh.data_batch_slice(DIST_BATCH) if on else slice(None)
+    batches = [{k: torch.as_tensor(v[rows]).to(dev) for k, v in next(stream).items()}
+               for _ in range(DIST_STEPS)]
+    whole = [n for n, s in model.trainable_specs.items() if "tp" not in s]
+    base, digest0 = _digest(model.params), _digest(state.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    steps = []
+    for b in batches:
+        t = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        steps.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                          ms=(time.perf_counter() - t) * 1e3, digest=_digest(state.params),
+                          whole_digest=_digest({n: state.params[n] for n in whole})))
+    return dict(steps=steps, launches={c.__name__: c.launches for c in counters},
+                digest0=digest0, base_unchanged=_digest(model.params) == base,
+                whole_leaves=len(whole),
+                adapter_leaves=len(state.params), state_leaves=len(state.opt_state.mu),
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def ltp_reference(dev, counters) -> dict:
+    """(v0)'s one-rank run, the seeds of the ranks' (the same global base,
+    adapters and dropout masks)."""
+    import torch
+
+    t0 = time.perf_counter()
+    model, state, step = ltp_trainer(dev, 1)
+    out = ltp_steps(model, state, step, dev, counters)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, wall_s=time.perf_counter() - t0)
+
+
+def ltp_rank_cell(rank: int, world: int, port: int, dev, counters, timeout) -> dict:
+    """(v0) in a rank process of phase 4l: a group of its own at TP 2 x DP
+    2, the trainer, 2 steps."""
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    mesh.init_distributed("gloo", rank=rank, world_size=world, local_rank=0,
+                          init_method=f"tcp://localhost:{port}", timeout=timeout)
+    mesh.initialize_model_parallel(DIST_TP, timeout=timeout)
+    model, state, step = ltp_trainer(dev, DIST_TP)
+    out = ltp_steps(model, state, step, dev, counters)
+    out.update(coords=mesh.local_mesh_coords(), wall_s=time.perf_counter() - t0)
+    del model, state, step
+    mesh.destroy_model_parallel()
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def trajectory_rel(ref: dict, ranks: list, cell: str) -> tuple:
+    """The largest relative differences of any rank's losses and grad norms
+    from the one-rank run's, step by step; recorded on ``ref``."""
+    loss = norm = 0.0
+    for rk in ranks:
+        for a, b in zip(rk[cell]["steps"], ref["steps"]):
+            loss = max(loss, _rel(a["loss"], b["loss"]))
+            norm = max(norm, _rel(a["grad_norm"], b["grad_norm"]))
+    ref["ranks_loss_max_rel_diff"], ref["ranks_grad_norm_max_rel_diff"] = loss, norm
+    return loss, norm
+
+
+def ltp_gates(ref: dict, ranks: list) -> list:
+    """(v0)'s gates: each step's loss and grad norm within ``LTP_RTOL`` of
+    the one-rank run's, every step moving the adapters, the base unchanged,
+    the adapters equal across the DP replicas and the TP-replicated ones
+    across every rank, the optimizer state the adapters' only,
+    B1/B3a/B3b/B4 launched on every rank."""
+    bad = []
+    for rk in ranks:
+        v0 = rk["v0"]
+        if len(v0["steps"]) != DIST_STEPS:
+            bad.append(f"(v0) rank {rk['rank']} ran {len(v0['steps'])} steps")
+        digests = [v0["digest0"]] + [s["digest"] for s in v0["steps"]]
+        for i in range(1, len(digests)):
+            if digests[i] == digests[i - 1]:
+                bad.append(f"(v0) rank {rk['rank']}: step {i} left the adapters unchanged")
+        if not v0["base_unchanged"]:
+            bad.append(f"(v0) rank {rk['rank']}: the frozen base changed")
+        if v0["state_leaves"] != v0["adapter_leaves"]:
+            bad.append(f"(v0) rank {rk['rank']}: optimizer state for {v0['state_leaves']} "
+                       f"leaves, {v0['adapter_leaves']} adapters")
+        for name in DIST_COUNTERS:
+            if v0["launches"].get(name, 0) <= 0:
+                bad.append(f"(v0) rank {rk['rank']} never launched {name}")
+    loss, norm = trajectory_rel(ref, ranks, "v0")
+    if max(loss, norm) > LTP_RTOL:
+        bad.append(f"(v0) losses and grad norms differ from the one-rank run's by {loss:.3g} "
+                   f"and {norm:.3g} relative (limit {LTP_RTOL})")
+    for i in range(DIST_STEPS):
+        by_tp = {}
+        for rk in ranks:
+            by_tp.setdefault(rk["v0"]["coords"]["tp"], set()).add(rk["v0"]["steps"][i]["digest"])
+        if any(len(v) != 1 for v in by_tp.values()):
+            bad.append(f"(v0) step {i + 1}: the DP replicas' adapters differ {by_tp}")
+        whole = {rk["v0"]["steps"][i]["whole_digest"] for rk in ranks}
+        if len(whole) != 1:
+            bad.append(f"(v0) step {i + 1}: the TP-replicated adapters differ {whole}")
+    return bad
+
+
+def mcp_config(layers: int = MOE_LAYERS, seq: int = MCP_SEQ):
+    """(v1)'s model: the ``mixtral_moe`` example's Mixtral-8x7B widths at
+    ``layers``, capacity factor ``MCP_CF``, remat ``"full"``, zigzag."""
+    from neuronx_distributed_tpu_torch.examples import mixtral_moe as example
+
+    cfg = example.build_config(example.parse_args(moe_args(layers)), seq)
+    return dataclasses.replace(cfg, capacity_factor=MCP_CF, remat_policy="full",
+                               cp_layout="zigzag")
+
+
+def mcp_small_config():
+    """(v1 small): (m2)'s small fp32 Mixtral, zigzag under CP."""
+    return dataclasses.replace(moe_small_config(), cp_layout="zigzag")
+
+
+def zigzag_moe_hooks(module, seq: int, cp: int) -> list:
+    """On one rank, feed each MoE block its tokens in the zigzag order of
+    ``cp`` ranks (and take its output back): the global program the
+    permuted ids give, whose drop order is the permuted one (attention and
+    the loss do not depend on the order). Returns the hook handles."""
+    from neuronx_distributed_tpu_torch.moe import MoE
+    from neuronx_distributed_tpu_torch.ops.ring_attention import zigzag_indices
+
+    perm = zigzag_indices(seq, cp)
+    inv = perm.argsort()
+    handles = []
+    for m in module.modules():
+        if isinstance(m, MoE):
+            handles.append(m.register_forward_pre_hook(
+                lambda mod, args: (args[0][:, perm.to(args[0].device)],) + tuple(args[1:])))
+            handles.append(m.register_forward_hook(
+                lambda mod, args, out: out[:, inv.to(out.device)]))
+    return handles
+
+
+def mcp_reference(dev, counters) -> dict:
+    """(v1)'s one-rank run: the same seeded weights and batches, the MoE
+    blocks fed the zigzag order."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = mcp_config()
+    state, step, model = moe_small_trainer(dev, cfg, lr=MCP_LR)
+    zigzag_moe_hooks(model.module, MCP_SEQ, MCP_CP)
+    batches = cp_batches(cfg.vocab_size, MCP_SEQ, MCP_STEPS, batch=MCP_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    state, steps = moe_small_steps(state, step, model, batches, dev, counters, timed=True)
+    out = dict(steps=steps, launches={c.__name__: c.launches for c in counters},
+               capacity=model.module.model.layers[0].moe.experts.capacity(MCP_BATCH * MCP_SEQ),
+               peak_bytes=torch.cuda.max_memory_allocated(), wall_s=time.perf_counter() - t0)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mcp_small_run(dev) -> list:
+    """(v1 small) at this rank's layout (one rank: hooked, natural order)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    small = mcp_small_config()
+    params = init_params(small, torch.Generator().manual_seed(0), model_cls=MixtralForCausalLM)
+    state, step, model = moe_small_trainer(dev, small, params)
+    if not mesh.model_parallel_is_initialized():
+        zigzag_moe_hooks(model.module, MOE_SMALL_SEQ, MCP_CP)
+    batches = moe_small_batches(small.vocab_size)[:MCP_SMALL_STEPS]
+    return moe_small_steps(state, step, model, batches, dev)[1]
+
+
+def mcp_rank_cell(rank: int, world: int, port: int, dev, counters, timeout) -> dict:
+    """(v1) in a rank process of phase 4n: a group of its own at CP 2 x EP
+    2, the Mixtral-8x7B cell, then (v1 small) on the same group."""
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+
+    t0 = time.perf_counter()
+    mesh.init_distributed("gloo", rank=rank, world_size=world, local_rank=0,
+                          init_method=f"tcp://localhost:{port}", timeout=timeout)
+    mesh.initialize_model_parallel(1, expert_model_parallel_size=MCP_EP,
+                                   context_parallel_size=MCP_CP, timeout=timeout)
+    cfg = mcp_config()
+    state, step, model = moe_small_trainer(dev, cfg, lr=MCP_LR)
+    batches = cp_batches(cfg.vocab_size, MCP_SEQ, MCP_STEPS, batch=MCP_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mappings.reset_collective_stats()
+    state, steps = moe_small_steps(state, step, model, batches, dev, counters, timed=True)
+    out = dict(steps=steps, launches={c.__name__: c.launches for c in counters},
+               collectives=collective_snapshot(), peak_bytes=torch.cuda.max_memory_allocated(),
+               coords=mesh.local_mesh_coords())
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["small"] = mcp_small_run(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    mesh.destroy_model_parallel()
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mcp_gates(ref: dict, small_cpu: list, ranks: list) -> list:
+    """(v1)'s gates: each step's loss and grad norm within ``MCP_RTOL`` of
+    the one-rank run's and the same on every rank; B1, B3a, B3b and B4
+    launched and the expert all-to-all issued on every rank; (v1 small):
+    losses and grad norms within ``MCP_SMALL_TOL`` of the CPU rank's, the
+    dropped assignments a layer and expert equal."""
+    bad = []
+    small_err = 0.0
+    for rk in ranks:
+        v1 = rk["v1"]
+        if len(v1["steps"]) != MCP_STEPS:
+            bad.append(f"(v1) rank {rk['rank']} ran {len(v1['steps'])} steps")
+        elif [s["loss"] for s in v1["steps"]] != [s["loss"] for s in ranks[0]["v1"]["steps"]]:
+            bad.append(f"(v1) rank {rk['rank']}: losses differ from rank 0's")
+        for name in DIST_COUNTERS:
+            if v1["launches"].get(name, 0) <= 0:
+                bad.append(f"(v1) rank {rk['rank']} never launched {name}")
+        if v1["collectives"].get("all_to_all", [0, 0])[0] <= 0:
+            bad.append(f"(v1) rank {rk['rank']} sent no token through the expert all-to-all")
+        for a, c in zip(v1["small"], small_cpu):
+            small_err = max(small_err, abs(a["loss"] - c["loss"]),
+                            abs(a["grad_norm"] - c["grad_norm"]))
+        if [s["dropped"] for s in v1["small"]] != [s["dropped"] for s in small_cpu]:
+            bad.append(f"(v1 small) rank {rk['rank']}: dropped assignments differ from the CPU "
+                       f"rank's")
+    ref["small_max_abs_err"] = small_err
+    loss, norm = trajectory_rel(ref, ranks, "v1")
+    if max(loss, norm) > MCP_RTOL:
+        bad.append(f"(v1) losses and grad norms differ from the one-rank run's by {loss:.3g} "
+                   f"and {norm:.3g} relative (limit {MCP_RTOL})")
+    if small_err > MCP_SMALL_TOL:
+        bad.append(f"(v1 small) losses or grad norms differ from the CPU rank's by "
+                   f"{small_err:.3g} (limit {MCP_SMALL_TOL})")
+    if not any(sum(map(sum, s["dropped"])) for s in small_cpu):
+        bad.append("(v1 small) no token dropped: the case tests no drop order")
+    return bad
+
+
+def mlora_config(layers: int = MLORA_LAYERS):
+    """(v2)'s model: the runner's Mixtral-8x7B preset in bf16, cut in depth."""
+    runner = ep_runner()
+    return dataclasses.replace(runner.build_config(runner.parse_args(
+        ["serve", "--model", "mixtral"])), num_layers=layers)
+
+
+def mlora_slot0_streams(lm, dev) -> dict:
+    """Greedy streams of ``MLORA_SLOT0`` requests with no adapter (slot 0),
+    served by a ``ServeEngine`` over ``lm``."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
+
+    rs = np.random.RandomState(17)
+    engine = ServeEngine(lm, block_steps=8, seed=0)
+    for _ in range(MLORA_SLOT0["requests"]):
+        engine.submit(rs.randint(1, lm.config.vocab_size, (MLORA_SLOT0["prompt"],)),
+                      MLORA_SLOT0["new"])
+    done = {c.request_id: c.tokens.tolist() for c in engine.run()}
+    engine.close()
+    return done
+
+
+def mlora_layer_check(dev) -> dict:
+    """(v2 layer): :func:`pooled_layer_readings` for one small fp32 Mixtral
+    decoder layer (capacity 8: nothing drops)."""
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralDecoderLayer
+
+    c = dataclasses.replace(moe_small_config(), num_layers=1, use_flash_attention=False,
+                            capacity_factor=8.0, lora_rank=16, lora_slots=2, decode=False)
+    return dict(pooled_layer_readings(c, MixtralDecoderLayer, dev), tolerance=MLORA_LAYER_TOL)
+
+
+def mlora_cell(dev, counters) -> dict:
+    """(v2): ``runner.py serve --model mixtral --adapters 3 --paged`` at
+    Mixtral-8x7B widths cut to ``MLORA_LAYERS`` layers (seeded bf16 weights
+    through ``main``'s ``params=``/``config=`` seam), and the same serve
+    without the pool; each ``CausalLM`` the runner built then serves
+    ``MLORA_SLOT0`` requests on slot 0; the small fp32 layer check."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import init_params
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
+
+    t0 = time.perf_counter()
+    cfg = mlora_config()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         model_cls=MixtralForCausalLM)
+    out = dict(layers=cfg.num_layers, weight_bytes=ep_weight_bytes(params)["total"])
+    streams = {}
+    for name, extra in (("pool", MLORA_POOL), ("plain", [])):
+        with _Recorded() as rec:
+            out[name] = ep_run(MLORA_SERVE + extra, dev, counters, params=params, config=cfg)
+            zero_launches(counters)
+            streams[name] = mlora_slot0_streams(rec.built[0], dev)
+            out[name]["pool_slots"] = (rec.built[0].model.model.lora_pool.shape[0]
+                                       if rec.built[0].lora else 0)
+            rec.built.clear()
+        _free(dev)
+    out["slot0_bit_identical"] = streams["pool"] == streams["plain"]
+    out["slot0_tokens"] = sum(len(v) for v in streams["pool"].values())
+    del params
+    _free(dev)
+    out["layer"] = mlora_layer_check(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def mlora_gates(v2: dict) -> list:
+    bad = []
+    rep = v2["pool"]["report"]
+    n = int(MLORA_SERVE[MLORA_SERVE.index("--num_requests") + 1])
+    for name in ("pool", "plain"):
+        if v2[name]["report"].get("requests_completed") != n:
+            bad.append(f"(v2 {name}): {v2[name]['report'].get('requests_completed')} of {n} "
+                       f"requests completed")
+        for c in ("flash_block_forward", "paged_decode_attention"):
+            if v2[name]["launches"].get(c, 0) <= 0:
+                bad.append(f"(v2 {name}) never launched {c}")
+    if rep.get("adapter_loads", 0) <= 0 or rep.get("adapter_hits", 0) <= 0:
+        bad.append(f"(v2): adapter loads {rep.get('adapter_loads')}, hits "
+                   f"{rep.get('adapter_hits')}")
+    if v2["pool"]["pool_slots"] != MLORA_SLOTS:
+        bad.append(f"(v2): the pool holds {v2['pool']['pool_slots']} slots")
+    if not v2["slot0_bit_identical"]:
+        bad.append("(v2): slot-0 streams differ from the engine without a pool")
+    lay = v2["layer"]
+    if lay["max_abs_err"] > MLORA_LAYER_TOL:
+        bad.append(f"(v2 layer): pooled vs merged max |err| {lay['max_abs_err']:.3g} "
+                   f"(limit {MLORA_LAYER_TOL})")
+    if not lay["base_bit_identical"]:
+        bad.append("(v2 layer): slot-0 rows differ from the layer without LoRA")
+    if lay["targets"] != ["o_proj", "qkv"]:
+        bad.append(f"(v2 layer): the pool holds {lay['targets']}")
+    return bad
+
+
+def run_lora_moe_phase(dev, counters, dist=None, moe=None, dump=None) -> dict:
+    """Phase 4r: (v0)'s and (v1)'s gates on what phases 4l and 4n's ranks
+    read (``dist``/``moe``: those phases' results, their references made
+    there; None: that cell is not run), then (v2) here; every gate."""
+    import torch
+
+    t0 = time.perf_counter()
+    v2 = mlora_cell(dev, counters)
+    out, problems = dict(v2=v2), mlora_gates(v2)
+    wall = {}
+    if dist is not None:
+        problems += ltp_gates(dist["v0_ref"], dist["d1"]["ranks"])
+        out.update(v0_ref=dist["v0_ref"], v0=[rk["v0"] for rk in dist["d1"]["ranks"]])
+        # the reference in this process, the ranks' cells in theirs
+        wall.update(v0_reference=dist["v0_ref"]["wall_s"],
+                    v0_ranks=max(rk["v0"]["wall_s"] for rk in dist["d1"]["ranks"]))
+    if moe is not None:
+        problems += mcp_gates(moe["v1_ref"], moe["v1_small_cpu"], moe["ranks"])
+        out.update(v1_ref=moe["v1_ref"], v1=[rk["v1"] for rk in moe["ranks"]],
+                   v1_small_cpu=moe["v1_small_cpu"])
+        wall.update(v1_reference=moe["v1_ref"]["wall_s"] + moe["v1_small_cpu_s"],
+                    v1_ranks=max(rk["v1"]["wall_s"] for rk in moe["ranks"]))
+    if dump is not None:
+        Path(dump).parent.mkdir(parents=True, exist_ok=True)
+        Path(dump).write_text(json.dumps({**out, "problems": problems}, default=str))
+    check(not problems, "lora/moe phase: " + "; ".join(problems))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = dict(wall, v2=time.perf_counter() - t0)
+    return out
+
+
+def lora_moe_launches_by_path(st: dict) -> dict:
+    """Phase 4r's launch counts by path, for the kernel table."""
+    out = {"mixtral_lora_v2_pool": st["v2"]["pool"]["launches"],
+           "mixtral_lora_v2_plain": st["v2"]["plain"]["launches"]}
+    for cell, ref, ranks in (("lora_v0", "v0_ref", "v0"), ("moe_v1", "v1_ref", "v1")):
+        if ref in st:
+            out[f"{cell}_reference"] = st[ref]["launches"]
+            out.update({f"{cell}_rank{r}": v["launches"] for r, v in enumerate(st[ranks])})
+    return out
+
+
+def print_lora_moe(st: dict, card: str) -> None:
+    def steps_text(steps):
+        return ", ".join(f"{s['loss']:.5f}/{s['grad_norm']:.4f} {s['ms']:.0f} ms"
+                         for s in steps)
+
+    if "v0_ref" in st:
+        print_lora_tp(st, card, steps_text)
+    if "v1_ref" in st:
+        print_moe_cp(st, card, steps_text)
+    print_mixtral_lora(st["v2"], card)
+    print(f"lora/moe phases: wall s {json.dumps({k: round(v, 1) for k, v in st['wall_s'].items()})}"
+          f" [{card}]", flush=True)
+
+
+def print_lora_tp(st: dict, card: str, steps_text) -> None:
+    ref = st["v0_ref"]
+    print(f"lora (v0) reference: llama2_7b widths, {DIST_LAYERS} of 32 layers, one rank, "
+          f"{DIST_BATCH} x {DIST_SEQ} tokens a step, rank-{LTP_LORA['r']} adapters on "
+          f"{'/'.join(LTP_LORA['target_modules'])}, dropout {LTP_LORA['lora_dropout']}, bf16 "
+          f"base + fp32 masters; loss/grad norm/step {steps_text(ref['steps'])}; peak "
+          f"{ref['peak_bytes']} bytes, launches {json.dumps(ref['launches'])} [{card}]",
+          flush=True)
+    for r, v0 in enumerate(st["v0"]):
+        print(f"lora (v0) rank {r} ({json.dumps(v0['coords'])}): TP {DIST_TP} x DP "
+              f"{DIST_WORLD // DIST_TP} over gloo, SP and ZeRO-1; loss/grad norm/step "
+              f"{steps_text(v0['steps'])}; {v0['adapter_leaves']} adapter leaves "
+              f"({v0['whole_leaves']} whole on every rank), base unchanged "
+              f"{v0['base_unchanged']}, peak {v0['peak_bytes']} bytes, launches "
+              f"{json.dumps(v0['launches'])}, cell {v0['wall_s']:.1f} s [{card}]", flush=True)
+    print(f"lora (v0): losses and grad norms within {ref['ranks_loss_max_rel_diff']:.3g} and "
+          f"{ref['ranks_grad_norm_max_rel_diff']:.3g} of the one-rank run's (limit {LTP_RTOL}); "
+          f"every step moved the adapters; DP replicas and TP-replicated adapters bit-identical after "
+          f"every step [{card}]", flush=True)
+
+
+def print_moe_cp(st: dict, card: str, steps_text) -> None:
+    ref = st["v1_ref"]
+    print(f"moe (v1) reference: mixtral_8x7b widths, {MOE_LAYERS} of 32 layers, one rank, "
+          f"{MCP_BATCH} x {MCP_SEQ} tokens a step (the MoE blocks fed the zigzag order of cp "
+          f"{MCP_CP}), capacity factor {MCP_CF} ({ref['capacity']} slots an expert), bf16 + fp32 "
+          f"masters, remat full; loss/grad norm/step {steps_text(ref['steps'])}; dropped "
+          f"{[s['dropped'] for s in ref['steps']]}; peak {ref['peak_bytes']} bytes, launches "
+          f"{json.dumps(ref['launches'])} [{card}]", flush=True)
+    for r, v1 in enumerate(st["v1"]):
+        per_step = {k: f"{v[0] / MCP_STEPS:g} calls {v[1] / MCP_STEPS:.0f} bytes"
+                    for k, v in sorted(v1["collectives"].items())}
+        print(f"moe (v1) rank {r} ({json.dumps(v1['coords'])}): CP {MCP_CP} x EP {MCP_EP} over "
+              f"gloo, zigzag, ZeRO-1; loss/grad norm/step {steps_text(v1['steps'])}; dropped "
+              f"{[s['dropped'] for s in v1['steps']]}; peak {v1['peak_bytes']} bytes, launches "
+              f"{json.dumps(v1['launches'])}, collectives a step {json.dumps(per_step)}, cell "
+              f"{v1['wall_s']:.1f} s [{card}]", flush=True)
+    print(f"moe (v1): losses and grad norms within {ref['ranks_loss_max_rel_diff']:.3g} and "
+          f"{ref['ranks_grad_norm_max_rel_diff']:.3g} of the one-rank run's (limit {MCP_RTOL}); "
+          f"(v1 small) small fp32 Mixtral at CP {MCP_CP} x EP {MCP_EP} "
+          f"zigzag, capacity factor {MOE_SMALL_CF}, on the card vs one CPU rank: max |loss or "
+          f"grad norm diff| {ref['small_max_abs_err']:.3g} (tol {MCP_SMALL_TOL}), dropped "
+          f"equal, CPU dropped {[s['dropped'] for s in st['v1_small_cpu']]} [{card}]",
+          flush=True)
+
+
+def print_mixtral_lora(v2: dict, card: str) -> None:
+    for name in ("pool", "plain"):
+        rep = v2[name]["report"]
+        print(f"mixtral lora (v2 {name}): runner serve --model mixtral"
+              + (f" --adapters {MLORA_ADAPTERS} (rank {MLORA_RANK}, {MLORA_SLOTS} slots)"
+                 if name == "pool" else "")
+              + f" --paged --paged-kernel, mixtral_8x7b full width at {v2['layers']} of 32 "
+              f"layers, bf16 weights {v2['weight_bytes']} bytes; {rep.get('requests_completed')} "
+              f"requests, {rep.get('total_generated_tokens')} tokens, {rep.get('tokens_per_sec')} "
+              f"tok/s, adapter loads {rep.get('adapter_loads', 0)} hits "
+              f"{rep.get('adapter_hits', 0)}, peak {v2[name]['peak_bytes']} bytes, launches "
+              f"{json.dumps(v2[name]['launches'])} [{card}]", flush=True)
+    lay = v2["layer"]
+    print(f"mixtral lora (v2): slot-0 streams ({v2['slot0_tokens']} tokens) bit-identical to "
+          f"the engine without a pool {v2['slot0_bit_identical']}; small fp32 Mixtral layer, "
+          f"pool targets {lay['targets']}, pooled vs merged max |err| {lay['max_abs_err']:.3g} "
+          f"(tol {MLORA_LAYER_TOL}, the delta {lay['delta_max_abs']:.3g}), slot-0 rows "
+          f"bit-identical {lay['base_bit_identical']} [{card}]", flush=True)
 
 
 # --- kernel cases at the families' shapes (phase 2) -------------------------------------
@@ -10828,6 +11431,10 @@ def main(argv=None) -> int:
     entry = run_entry_points_phase(dev, (flash_block_forward, paged_decode_attention, w8a16_gemm,
                                          flash_bwd_dkdv, flash_bwd_dq, fused_adamw_leaf))
     print_entry_points(entry, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora_moe = run_lora_moe_phase(dev, serve_counters, dist, moe)
+    print_lora_moe(lora_moe, card)
 
     by_path = {"serve": stats["launches"], "serve_int8": int8["launches"],
                **{f"trace_{label}": st["launches"] for label, st in trace["passes"].items()},
@@ -10863,7 +11470,8 @@ def main(argv=None) -> int:
                "families_b0": families["b0"]["launches"], "families_n0": families["n0"]["launches"],
                **{f"families_n1_rank{rk['rank']}": rk["n1"]["launches"]
                   for rk in families["ranks"]},
-               **ep_launches_by_path(entry), **tpr_launches_by_path(tp["rest"])}
+               **ep_launches_by_path(entry), **tpr_launches_by_path(tp["rest"]),
+               **lora_moe_launches_by_path(lora_moe)}
     wrapper = {"flash_fwd": "flash_block_forward", "paged_decode": "paged_decode_attention",
                "flash_bwd_dkdv": "flash_bwd_dkdv", "flash_bwd_dq": "flash_bwd_dq",
                "fused_adamw": "fused_adamw_leaf", "w8a16_gemm": "w8a16_gemm"}

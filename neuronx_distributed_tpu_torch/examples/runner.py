@@ -260,7 +260,7 @@ def build_model(args, params: Optional[Mapping[str, Any]] = None, config=None):
             raise SystemExit("--adapters applies to the serve subcommand")
         if quantize:
             raise SystemExit("--adapters with --quantize is not supported "
-                             "(adapters factorize the float base kernels)")
+                             "(adapters factorize the fp32 base kernels)")
         paged_kw.update(lora_rank=args.adapter_rank,
                         lora_slots=args.adapter_pool_slots or args.adapters + 1)
     if getattr(args, "grammar_frac", 0.0) > 0:

@@ -117,6 +117,17 @@ def local_shape(shape: Sequence[int], spec: Spec, tp: int, ep: int = 1) -> Tuple
     return tuple(out)
 
 
+def global_shape(shape: Sequence[int], spec: Spec, tp: int, ep: int = 1) -> Tuple[int, ...]:
+    """The global shape of a rank's shard of ``shape`` under ``spec`` (the
+    inverse of :func:`local_shape`)."""
+    out = list(shape)
+    for axis, n in (("tp", tp), ("ep", ep)):
+        d = axis_dim(spec, axis)
+        if d is not None:
+            out[d] *= n
+    return tuple(out)
+
+
 def shard_slice(t: torch.Tensor, spec: Spec, rank: int, tp: int, ep_rank: int = 0,
                 ep: int = 1) -> torch.Tensor:
     """The contiguous slice of the global tensor ``t`` under ``spec`` that

@@ -61,7 +61,9 @@ slots (:class:`LoraLayout` says where each matrix sits in a layer's chunk)
 and reads an ``adapter_idx (b,)`` the caller sets; each targeted
 projection adds the row's own ``s * (x @ A) @ B``, gathered from the pool
 per row (S-LoRA's batched adapter matmul). Slot 0 is all zeros, so its
-rows' outputs are bit for bit those of a model built without LoRA.
+rows' outputs are bit for bit those of a model built without LoRA. A
+Mixtral config's pool holds the attention targets only (its MoE block has
+no dense MLP projections).
 
 Tensor parallelism (JAX ``llama.py:863-871``): built with a ``group``, the
 embedding, the QKV projection, ``o_proj``, the MLP and ``lm_head`` are the
@@ -365,6 +367,15 @@ class LoraLayout:
         return out
 
 
+def pool_targets(cfg: LlamaConfig) -> set:
+    """The ``lora_targets`` the pool holds stacks for: those the forward
+    reads. An MoE block has no dense MLP projections, so a Mixtral config's
+    pool holds the attention's only, as the JAX pool makes stacks only
+    where its forward reads them."""
+    t = set(cfg.lora_targets)
+    return t & {"qkv", "o_proj"} if hasattr(cfg, "num_experts") else t
+
+
 def lora_layout(cfg: LlamaConfig, tp: int = 1, tp_rank: int = 0) -> LoraLayout:
     """The pool layout of ``cfg``'s ``lora_rank`` over ``lora_targets``, at
     rank ``tp_rank`` of degree ``tp``."""
@@ -372,10 +383,10 @@ def lora_layout(cfg: LlamaConfig, tp: int = 1, tp_rank: int = 0) -> LoraLayout:
     q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
     # compact K/V deltas (repeated in the forward) keep their B whole
     kv_compact = cfg.kv_size_multiplier > 1
-    t = set(cfg.lora_targets)
-    unknown = t - {"qkv", "o_proj", "gate_proj", "up_proj", "down_proj"}
+    unknown = set(cfg.lora_targets) - {"qkv", "o_proj", "gate_proj", "up_proj", "down_proj"}
     if unknown:
         raise ValueError(f"lora_targets {sorted(unknown)} are not serving projections")
+    t = pool_targets(cfg)
     plan = []
     if "qkv" in t:
         plan.append(("qkv", cfg.hidden_size, (("q", q_out), ("k", kv_out), ("v", kv_out))))

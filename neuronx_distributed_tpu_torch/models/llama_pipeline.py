@@ -152,7 +152,9 @@ class PipelinedLlama:
             raise NotImplementedError("tied embeddings with PP: use the non-PP model")
         if hasattr(cfg, "num_experts"):
             raise NotImplementedError("the MoE block (a Mixtral config) under pipeline "
-                                      "parallelism is not ported: ROADMAP queue A")
+                                      "parallelism has no reference: the JAX PipelinedLlama "
+                                      "builds dense layers from a Mixtral config and drops "
+                                      "its experts (ROADMAP queue C, C13)")
         on_mesh = ps.model_parallel_is_initialized()
         if on_mesh and self.pp_group is None and ps.get_pipeline_model_parallel_size() > 1:
             self.pp_group = ps.get_pipeline_model_parallel_group()

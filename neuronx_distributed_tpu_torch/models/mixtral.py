@@ -28,10 +28,20 @@ experts' slices and the MoE blocks trade tokens over the ep group
 (``moe/expert_mlps.py``), their capacity and load balance over the global
 batch; ``sequence_parallel`` takes the MoE block's SP exit and re-entry.
 
-Not ported: LoRA adapters on a Mixtral model, and the MoE block under
-context or pipeline parallelism (each raises by name: ROADMAP queue A).
-Serving under EP raises: the JAX package excludes EP from token
-generation.
+Context parallelism (``context_parallel`` with a ``cp_group``): the
+attention is Llama's ring attention, and the MoE blocks take the cp group:
+their capacity and drop order run over the global batch's rows and
+positions, in the order the caller fed them (contiguous, or the
+zigzag-permuted sequence), and their auxiliary losses over the global
+tokens (``moe/``). Under pipeline parallelism the MoE block raises by name
+(``models/llama_pipeline.py``: the JAX ``PipelinedLlama`` builds dense
+layers from a Mixtral config, fault C13).
+
+Multi-LoRA serving (``lora_rank``/``lora_slots``): the decoder layer's
+``LlamaAttention`` carries the pool as Llama's does, and the pool holds the
+attention targets only (``models/llama.py``'s ``lora_layout``), as the JAX
+package's pool has no stacks for the MoE block. Serving under EP raises:
+the JAX package excludes EP from token generation.
 """
 
 from __future__ import annotations
@@ -88,12 +98,9 @@ def dbrx(**over) -> MixtralConfig:
 
 class MixtralDecoderLayer(nn.Module):
     def __init__(self, config: MixtralConfig, device=None, group=None, ep_group=None,
-                 dp_group=None):
+                 dp_group=None, cp_group=None):
         super().__init__()
         cfg = config
-        if cfg.lora_rank:
-            raise NotImplementedError("LoRA adapters on a Mixtral model are not ported yet: "
-                                      "ROADMAP queue A")
         self.input_norm = cfg.make_norm(device, group)
         self.attention = LlamaAttention(cfg, device, group)
         self.post_attn_norm = cfg.make_norm(device, group)
@@ -104,7 +111,8 @@ class MixtralDecoderLayer(nn.Module):
                        selective_loading_threshold=cfg.selective_loading_threshold,
                        device=device, sequence_parallel=cfg.sequence_parallel,
                        aux_loss_coef=cfg.aux_loss_coef, z_loss_coef=cfg.z_loss_coef,
-                       tp_group=group, ep_group=ep_group, dp_group=dp_group)
+                       tp_group=group, ep_group=ep_group, dp_group=dp_group,
+                       cp_group=cp_group)
 
     def forward(self, x, rope, cache=None, layer=0, lora=None, chunk_ctx=None):
         x = x + self.attention(self.input_norm(x), rope, cache, layer, lora, chunk_ctx)
@@ -126,12 +134,10 @@ class MixtralForCausalLM(LlamaForCausalLM):
 
     def __init__(self, config: MixtralConfig, device=None, group=None, cp_group=None,
                  ep_group=None, dp_group=None):
-        if config.context_parallel:
-            raise NotImplementedError("the MoE block under context parallelism is not ported "
-                                      "(its capacity would need the zigzag token order): "
-                                      "ROADMAP queue A")
         super().__init__(config, device, group=group, cp_group=cp_group,
-                         layer_kwargs=dict(ep_group=ep_group, dp_group=dp_group))
+                         layer_kwargs=dict(ep_group=ep_group, dp_group=dp_group,
+                                           cp_group=cp_group if config.context_parallel
+                                           else None))
 
 
 def mixtral_loss(model: MixtralForCausalLM, input_ids: torch.Tensor, labels: torch.Tensor,

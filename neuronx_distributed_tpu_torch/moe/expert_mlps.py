@@ -41,15 +41,20 @@ back. ``selective`` (decode) runs under TP alone: each rank reads its
 route with the (token, expert) index) and gives its partial sum; under EP
 it raises, as the JAX package excludes EP from token generation.
 
-Global capacity (JAX computes over the global batch under GSPMD): with a
-data-parallel ``dp_group`` (dp ranks, each holding its rows of the global
-batch in rank order) ``C`` comes from the global token count, and a
-token's position in an expert is its local position plus that expert's
-assignments on the lower dp ranks: the ranks all-gather their ``E``
-dispatch counts once a forward (:func:`dispatch_counts`), so every rank
-drops exactly the assignments the one-device run drops. ``last_dropped``
-holds the global dropped assignments an expert of the last
-``capacity_factor`` forward.
+Global capacity (JAX computes over the global batch under GSPMD, its
+tokens flattened row-major: row by row, each row's positions in the order
+the caller fed them): with a data-parallel ``dp_group`` (dp ranks, each
+holding its rows of the global batch in rank order) and a context-parallel
+``cp_group`` (cp ranks, each holding its block of every row's positions in
+rank order, contiguous or of the zigzag-permuted sequence) ``C`` comes from
+the global token count, and a token's position in an expert counts that
+expert's assignments before it in the global order: on every row before
+its own (the lower dp ranks' rows, then its rank's earlier rows, over every
+cp rank), then in its own row on the lower cp ranks, then before it in its
+block. The ranks all-gather their dispatch counts a row and an expert once
+a forward (:func:`dispatch_counts`), so every rank drops exactly the
+assignments the one-device run drops. ``last_dropped`` holds the global
+dropped assignments an expert of the last ``capacity_factor`` forward.
 """
 
 from __future__ import annotations
@@ -69,14 +74,19 @@ from neuronx_distributed_tpu_torch.parallel.mesh import group_rank, group_size
 MODES = ("capacity_factor", "all_experts", "selective")
 
 
-def dispatch_counts(combine: torch.Tensor, dp_group=None) -> torch.Tensor:
-    """``(dp, E)`` int32: each data-parallel rank's count of assignments
-    (``combine > 0``) an expert, in dp rank order (``(1, E)`` without a
-    group). No gradient."""
-    counts = (combine > 0).sum(dim=0, dtype=torch.int32)[None]
-    if dp_group is None:
-        return counts
-    return mappings._all_gather(counts, 0, dp_group)
+def dispatch_counts(combine: torch.Tensor, rows: int = 1, dp_group=None,
+                    cp_group=None) -> torch.Tensor:
+    """``(dp, cp, rows, E)`` int32: the count of assignments (``combine >
+    0``) an expert in each of the ``rows`` rows of ``combine`` (the rank's
+    tokens, row-major) on each data- and context-parallel rank, in rank
+    order (size 1 along an axis without a group). No gradient."""
+    E = combine.shape[-1]
+    counts = (combine > 0).view(rows, -1, E).sum(dim=1, dtype=torch.int32)[None, None]
+    if cp_group is not None:
+        counts = mappings._all_gather(counts, 1, cp_group)
+    if dp_group is not None:
+        counts = mappings._all_gather(counts, 0, dp_group)
+    return counts
 
 
 class ExpertMLPs(nn.Module):
@@ -84,7 +94,7 @@ class ExpertMLPs(nn.Module):
                  capacity_factor: float = 1.25,
                  mode: str = "capacity_factor", dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32, device=None, tp: int = 1,
-                 ep_group=None, dp_group=None):
+                 ep_group=None, dp_group=None, cp_group=None):
         super().__init__()
         if mode not in MODES:
             raise ValueError(f"unknown expert mode {mode!r}")
@@ -92,6 +102,7 @@ class ExpertMLPs(nn.Module):
         self.num_experts, self.capacity_factor = E, capacity_factor
         self.mode, self.dtype = mode, dtype
         self.tp, self.ep_group, self.dp_group = tp, ep_group, dp_group
+        self.cp_group = cp_group
         self.ep, self.ep_rank = group_size(ep_group), group_rank(ep_group)
         el, il = divide(E, self.ep), divide(I, tp)
         self.gate = _param((el, H, il), param_dtype, device)
@@ -135,24 +146,42 @@ class ExpertMLPs(nn.Module):
     def forward_capacity_factor(self, x: torch.Tensor, combine: torch.Tensor,
                                 top_k: Optional[int] = None,
                                 counts: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``x (T, H)`` (the rank's tokens), ``combine (T, E)`` -> ``(T, H)``;
-        assignments past an expert's global capacity are dropped in global
-        token order. ``top_k``: the most nonzeros a row of ``combine`` has
-        (default E); ``counts``: :func:`dispatch_counts` of ``combine``
-        over the dp group, when the caller has them."""
+        """``x (T, H)`` (the rank's tokens, row-major), ``combine (T, E)`` ->
+        ``(T, H)``; assignments past an expert's global capacity are dropped
+        in global token order. ``top_k``: the most nonzeros a row of
+        ``combine`` has (default E); ``counts``: :func:`dispatch_counts` of
+        ``combine`` over the dp and cp groups, when the caller has them
+        (else counted here over the dp group, the rank's tokens taken as
+        one row; under CP the caller must give them a row at a time)."""
         T, H = x.shape
         E = self.num_experts
         k = min(top_k or E, E)
         if counts is None:
-            counts = dispatch_counts(combine, self.dp_group)
-        dp = counts.shape[0]
-        C = self.capacity(T * dp)
+            if group_size(self.cp_group) > 1:
+                raise ValueError("under context parallelism the drop order needs the dispatch "
+                                 "counts of each row: pass dispatch_counts(combine, rows, "
+                                 "dp_group, cp_group)")
+            counts = dispatch_counts(combine, 1, self.dp_group)
+        dp, cp, rows = counts.shape[:3]
+        C = self.capacity(T * dp * cp)
         cl = min(C, T)
-        offset = counts[:group_rank(self.dp_group)].sum(dim=0)             # (E,)
-        self.last_dropped = (counts.sum(dim=0) - C).clamp_min(0)
+        d, c = group_rank(self.dp_group), group_rank(self.cp_group)
+        per_row = counts.sum(dim=1)                                        # (dp, rows, E)
+        mine = per_row[d]
+        # the assignments before each of this rank's rows in the global
+        # order: the lower dp ranks' rows, this rank's earlier rows (every
+        # cp rank's block of them), the row's blocks on the lower cp ranks
+        offset = (per_row[:d].sum(dim=(0, 1)) + torch.cumsum(mine, dim=0) - mine
+                  + counts[d, :c].sum(dim=0))                              # (rows, E)
+        self.last_dropped = (counts.sum(dim=(0, 1, 2)) - C).clamp_min(0)
         mask = (combine > 0).to(torch.int32)
         pos = torch.cumsum(mask, dim=0, dtype=torch.int32) * mask - mask   # 0-based, local
-        keep = (pos + offset < C) & (mask > 0)
+        # the global position: in the row's block, plus what precedes it;
+        # the rank's order is the global one's, so its kept assignments are
+        # the first of each expert's and their local positions fit cl slots
+        block = mask.view(rows, T // rows, E)
+        in_block = torch.cumsum(block, dim=1, dtype=torch.int32) * block - block
+        keep = ((in_block + offset[:, None, :] < C) & (block > 0)).view(T, E)
         w, e_idx = _top_k(combine, k)                                      # (T, k)
         kept = keep.gather(1, e_idx)
         # slot e * cl + position; the dropped go to one spare row past the end

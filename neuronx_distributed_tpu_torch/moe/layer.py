@@ -11,8 +11,8 @@ indexing). The router output ``combine`` reaches the experts in the
 activations' dtype, as in the JAX block.
 
 Parallel training (the groups come from the model: ``tp_group``,
-``ep_group``, ``dp_group``). The router is replicated and routes in fp32,
-so every tensor-parallel rank routes its tokens alike. Each TP rank's
+``ep_group``, ``dp_group``, ``cp_group``). The router is replicated and
+routes in fp32, so every tensor-parallel rank routes its tokens alike. Each TP rank's
 experts produce a partial sum over their intermediate columns, reduced
 once after the combine: an all-reduce, or under ``sequence_parallel`` a
 reduce-scatter along the sequence (SP re-entry; the block's input, the
@@ -24,6 +24,14 @@ alike on every TP rank, are counted once: the reference all-reduces its
 ``LinearRouter``'s weight gradient over TP for the same reason. Under SP
 the gathered input's gradient is then whole on every rank, so the exit's
 backward keeps the rank's slice.
+
+Context parallelism: the block sees the rank's block of every row's
+positions; capacity and drop order run over the global rows and positions
+(``moe/expert_mlps.py``), and the auxiliary loss, whose router-probability
+mean is over the rank's tokens, is averaged over the cp group as the cross
+entropy is summed there: forward all-reduced, so every cp rank holds the
+global value, backward the identity, so each rank's gradient is its
+tokens' share, which the train step sums over cp.
 
 Auxiliary losses (JAX's ``sow("losses", ...)``): outside decode mode each
 forward computes ``aux_loss_coef * load_balancing_loss`` (plus
@@ -65,25 +73,27 @@ class MoE(nn.Module):
                  param_dtype: torch.dtype = torch.float32,
                  inference: bool = False, selective_loading_threshold: float = 0.5,
                  device=None, sequence_parallel: bool = False, aux_loss_coef: float = 0.01,
-                 z_loss_coef: float = 0.0, tp_group=None, ep_group=None, dp_group=None):
+                 z_loss_coef: float = 0.0, tp_group=None, ep_group=None, dp_group=None,
+                 cp_group=None):
         super().__init__()
         self.num_experts, self.hidden_size, self.top_k = num_experts, hidden_size, top_k
         self.mode, self.inference = mode, inference
         self.selective_loading_threshold = selective_loading_threshold
         self.aux_loss_coef, self.z_loss_coef = aux_loss_coef, z_loss_coef
-        self.tp_group, self.dp_group = tp_group, dp_group
+        self.tp_group, self.dp_group, self.cp_group = tp_group, dp_group, cp_group
         self.sequence_parallel = bool(sequence_parallel) and tp_group is not None
         if router == "top_k":
             self.router = RouterTopK(hidden_size, num_experts, top_k=top_k, device=device)
         elif router == "sinkhorn":
-            self.router = RouterSinkhorn(hidden_size, num_experts, device=device, group=dp_group)
+            self.router = RouterSinkhorn(hidden_size, num_experts, device=device,
+                                         group=dp_group, cp_group=cp_group)
         else:
             raise ValueError(f"unknown router {router!r}")
         self.experts = ExpertMLPs(num_experts, hidden_size, intermediate_size,
                                   capacity_factor=capacity_factor, mode=mode, dtype=dtype,
                                   param_dtype=param_dtype, device=device,
                                   tp=group_size(tp_group), ep_group=ep_group,
-                                  dp_group=dp_group)
+                                  dp_group=dp_group, cp_group=cp_group)
         # set by record_aux_losses: keep this forward's auxiliary loss
         self.record_aux = False
         self.aux_loss = None
@@ -107,15 +117,20 @@ class MoE(nn.Module):
         flat = x.reshape(b * s, h)
         combine, logits = self.router(flat)
         mode = self.mode_for(b, s)
-        counts = None if self.inference else dispatch_counts(combine, self.dp_group)
+        counts = (None if self.inference
+                  else dispatch_counts(combine, b, self.dp_group, self.cp_group))
         out = self.experts(copy_to_tensor_parallel_region(flat, tp),
                            copy_to_tensor_parallel_region(combine.to(flat.dtype), tp),
                            top_k=self.top_k, mode=mode, counts=counts).reshape(b, s, h)
         if not self.inference:
+            dp, cp = counts.shape[:2]
             aux = self.aux_loss_coef * load_balancing_loss(
-                logits, combine, self.num_experts, counts.sum(dim=0), b * s * counts.shape[0])
+                logits, combine, self.num_experts, counts.sum(dim=(0, 1, 2)), b * s * dp * cp)
             if self.z_loss_coef:
                 aux = aux + self.z_loss_coef * router_z_loss(logits)
+            if self.cp_group is not None:   # the mean over the cp ranks' tokens
+                aux = reduce_from_tensor_parallel_region((aux / cp).reshape(1),
+                                                         self.cp_group).reshape(())
             if self.record_aux:
                 self.aux_loss = aux
         if self.sequence_parallel:   # re-enter SP: the partial sums reduce-scattered

@@ -9,11 +9,12 @@ replicated on every rank. :func:`top_k` breaks ties as ``jax.lax.top_k``
 does, lower index first (``torch.topk`` promises no order among equal
 values).
 
-Data parallelism: JAX's means and sums over tokens run over the global
-batch (GSPMD), while a rank here holds its rows. Sinkhorn's column balance
-sums over the tokens: with a ``group`` (the data-parallel group) that sum
-is all-reduced, once an iteration, outside autograd (JAX stops the
-gradient there). :func:`load_balancing_loss` is ``E * sum_e f_e * p_e``;
+Data and context parallelism: JAX's means and sums over tokens run over
+the global batch (GSPMD), while a rank here holds its rows (and, under CP,
+its block of their positions). Sinkhorn's column balance sums over the
+tokens: with a ``group`` (the data-parallel group) and a ``cp_group`` that
+sum is all-reduced over each, once an iteration, outside autograd (JAX
+stops the gradient there). :func:`load_balancing_loss` is ``E * sum_e f_e * p_e``;
 given the global dispatch counts, ``f`` is the global fraction and ``p``
 the mean over the rank's own tokens, so the data-parallel mean of the
 ranks' losses, which the train step takes, is JAX's loss on the global
@@ -69,12 +70,13 @@ class RouterSinkhorn(nn.Module):
     expert."""
 
     def __init__(self, hidden: int, num_experts: int, num_iterations: int = 3, device=None,
-                 group=None):
+                 group=None, cp_group=None):
         super().__init__()
         self.num_experts, self.num_iterations = num_experts, num_iterations
         self.kernel = _router_weight(hidden, num_experts, device)
-        # the data-parallel group the column sums run over (None: one rank)
-        self.group = group
+        # the data- and context-parallel groups the column sums run over
+        # (None: one rank)
+        self.group, self.cp_group = group, cp_group
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         logits = x.float() @ self.kernel.float()
@@ -83,6 +85,7 @@ class RouterSinkhorn(nn.Module):
             for _ in range(self.num_iterations):
                 col = pi.sum(dim=0, keepdim=True)
                 all_reduce_sum_(col, self.group)
+                all_reduce_sum_(col, self.cp_group)
                 pi = pi / torch.clamp_min(col, 1e-9)
                 pi = pi / torch.clamp_min(pi.sum(dim=1, keepdim=True), 1e-9)
         mask = F.one_hot(torch.argmax(pi, dim=-1), self.num_experts).float()

@@ -53,7 +53,9 @@ attribute name to the callable ``lora.core.attach_adapters`` installs. A
 linear layer adds its output ``(dropout(x) @ A) @ (s * B)`` to ``x @ W``
 before the bias (a row layer before its reduction, a GQA kernel's per head
 group); the embedding adds ``s * A @ B`` to its table. Empty: the layer is
-unchanged.
+unchanged. Under a group the adapter reads its whole leaves through copy
+regions (``lora/core.py``), so a compact K/V delta is cut to the rank's
+heads without a region of its own.
 """
 
 from __future__ import annotations
@@ -329,13 +331,16 @@ class GQAQKVColumnParallelLinear(_Sharded):
             self.k_bias = _param((stored_kv, head_dim), param_dtype, device)
             self.v_bias = _param((stored_kv, head_dim), param_dtype, device)
 
-    def _kv_heads(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+    def _kv_heads(self, t: torch.Tensor, axis: int, reduce: bool = True) -> torch.Tensor:
         """The rank's KV heads of a compact (replicated) tensor. A rank uses
         only its heads of it, so its gradient is a partial sum: it enters
-        through the copy region, whose backward all-reduces it."""
+        through the copy region, whose backward all-reduces it
+        (``reduce=False``: no region, where the tensor's own inputs are
+        reduced instead, as a LoRA delta's whole leaves are)."""
         if self.kv_size_multiplier == 1:
             return t
-        t = copy_to_tensor_parallel_region(t, self.group)
+        if reduce:
+            t = copy_to_tensor_parallel_region(t, self.group)
         t = t.repeat_interleave(self.kv_size_multiplier, dim=axis)
         n = self.num_kv_heads
         return t.narrow(axis, self.tp_rank * n, n)
@@ -364,7 +369,9 @@ class GQAQKVColumnParallelLinear(_Sharded):
             ad = self.adapters.get(f"{name}_kernel")
             if ad is not None:   # per stored head, then the rank's KV heads
                 d = ad(x).reshape(*x.shape[:-1], -1, self.head_dim)
-                y = y + (d if name == "q" else self._kv_heads(d, -2))
+                # a compact delta's A and B sum their partial gradients
+                # themselves: a region here would count x's gradient twice
+                y = y + (d if name == "q" else self._kv_heads(d, -2, reduce=False))
             if self.use_bias:
                 bias = getattr(self, f"{name}_bias").to(y.dtype)
                 y = y + (bias if name == "q" else self._kv_heads(bias, 0))

@@ -32,6 +32,7 @@ next collective instead of hanging them.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
 import os
@@ -359,7 +360,13 @@ def init_distributed(backend: Optional[str] = None, *, rank: Optional[int] = Non
     ``WORLD_SIZE``, ``LOCAL_RANK``; ``init_method`` defaults to
     ``env://``). ``backend`` defaults to ``nccl`` with a GPU, else
     ``gloo``. Binds ``local_rank`` for :func:`_device.resolve_device`,
-    which then picks ``cuda:{local_rank}``. Returns the local rank."""
+    which then picks ``cuda:{local_rank}``. Returns the local rank.
+
+    At interpreter exit the default group and the groups made over it are
+    destroyed (:func:`_destroy_at_exit`): left to the interpreter's own
+    teardown, their background threads can outlive it and abort the process
+    (``terminate called without an active exception``) after its work is
+    done."""
     env = os.environ
     rank = int(env["RANK"]) if rank is None else int(rank)
     world_size = int(env["WORLD_SIZE"]) if world_size is None else int(world_size)
@@ -372,7 +379,16 @@ def init_distributed(backend: Optional[str] = None, *, rank: Optional[int] = Non
         _device.resolve_device()   # sets the rank's card before NCCL forms
     dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
                             world_size=world_size, timeout=timeout)
+    atexit.unregister(_destroy_at_exit)   # once, however many joins
+    atexit.register(_destroy_at_exit)
     return local_rank
+
+
+def _destroy_at_exit() -> None:
+    """Destroy the default group (and every group made over it) if the
+    caller has not."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def run_in_threads(world_size: int, fn: Callable[[int], object], *,

@@ -22,15 +22,16 @@ train step reduces the gradients over it. Expert parallelism (JAX
 the mesh's ep and dp groups for its MoE blocks, and each rank takes its
 (ep, tp) slice of every expert weight (the seeded init draws each leaf
 whole and cuts it; a given global tree is cut the same way). MoE under
-context or pipeline parallelism raises by name (``models/mixtral.py``,
-``models/llama_pipeline.py``). Context parallelism (JAX
+pipeline parallelism raises by name (``models/llama_pipeline.py``, fault
+C13 of the reference). Context parallelism (JAX
 ``:110-117``): a mesh with ``cp > 1`` (or the config's
 ``context_parallel_size`` when this call makes the mesh) sets the model's
 ``context_parallel``, and the module is built with the mesh's cp group;
-the step sums the gradients over it. Pipeline parallelism takes a
-``models.llama_pipeline.PipelinedLlama`` (its ``as_parallel_model``), not
-this function. LoRA under a tensor-parallel degree above 1 raises by
-name.
+the step sums the gradients over it. A Mixtral model's MoE blocks then take
+the cp group too: their capacity, drop order and auxiliary losses run over
+the global batch and sequence (``moe/expert_mlps.py``). Pipeline
+parallelism takes a ``models.llama_pipeline.PipelinedLlama`` (its
+``as_parallel_model``), not this function.
 
 LoRA (JAX ``trainer/model.py:39-86, 137-184``): with a ``lora_config`` the
 base weights stay frozen (``requires_grad=False``: no gradient, no
@@ -38,7 +39,11 @@ optimizer state, no gradient GEMMs), ``init_lora`` draws the adapters from
 a generator seeded ``seed + 1``, they are attached to the layers in the
 in-activation form (``lora.core.attach_adapters``), and the trainable tree
 is theirs: ``trainable_params`` (``"{weight}.lora_a"`` / ``.lora_b``),
-``trainable_specs`` and ``merged_params``.
+``trainable_specs`` and ``merged_params``. Under a tensor-parallel degree
+above 1 every adapter is drawn at its global shape (its weight's global
+fan-in and fan-out) and each rank keeps its slice under
+``lora_param_specs``, as the base weights are cut from one global init;
+the dropout masks are the global batch's, each rank computing its rows.
 """
 
 from __future__ import annotations
@@ -50,7 +55,11 @@ import torch
 from torch import nn
 
 from neuronx_distributed_tpu_torch._device import DeviceLike, resolve_device
-from neuronx_distributed_tpu_torch.inference.partition import param_partition_specs
+from neuronx_distributed_tpu_torch.inference.partition import (
+    global_shape,
+    param_partition_specs,
+    shard_slice,
+)
 from neuronx_distributed_tpu_torch.lora.core import (
     LoraConfig,
     LoraDropout,
@@ -234,13 +243,10 @@ def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[]
     ep_rank = ps.expert_model_parallel_rank() if on_mesh else 0
     dp = ps.get_data_parallel_size() if on_mesh else 1
     lora_cfg = nxd_config.get("lora_config")
-    if lora_cfg is not None and group is not None:
-        raise NotImplementedError("LoRA under a tensor-parallel degree above 1 is not ported "
-                                  "yet (ROADMAP queue A); data parallelism takes it")
     dev = resolve_device(device)
     with torch.device("meta"):
         module = module_fn()
-        # the MoE blocks trade tokens over ep and count them over dp
+        # the MoE blocks trade tokens over ep and count them over dp and cp
         moe = dict(ep_group=ps.get_expert_model_parallel_group() if ep > 1 else None,
                    dp_group=ps.get_data_parallel_group() if dp > 1 else None) \
             if hasattr(getattr(module, "config", None), "num_experts") else None
@@ -271,10 +277,18 @@ def initialize_parallel_model(nxd_config: Dict[str, Any], module_fn: Callable[[]
     if lora_cfg is not None:
         if isinstance(lora_cfg, dict):
             lora_cfg = LoraConfig(**lora_cfg)
-        lora = init_lora(model.params, lora_cfg,
-                         torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
+        specs = param_partition_specs(module)
+        # drawn whole (the global shapes), then each rank's slice
+        glob = {n: torch.empty(global_shape(p.shape, specs.get(n, ()), tp, ep), device="meta")
+                for n, p in model.params.items()}
+        lora = init_lora(glob, lora_cfg, torch.Generator(device=dev).manual_seed(seed + 1),
+                         device=dev)
+        model.lora_specs = lora_param_specs(lora, specs)
+        lora = {w: {k: shard_slice(t, model.lora_specs[w][k], tp_rank, tp).contiguous()
+                    for k, t in ad.items()} for w, ad in lora.items()}
         leaves = {n: t.requires_grad_(True) for n, t in flat_lora(lora).items()}
         model.lora_config, model.lora_leaves = lora_cfg, leaves
-        model.lora_specs = lora_param_specs(lora, param_partition_specs(module))
-        model.lora_dropout = attach_adapters(module, nest_lora(leaves), lora_cfg)
+        cut = ((ps.data_parallel_rank(), dp), (ps.context_parallel_rank(), cp)) if on_mesh \
+            else ((0, 1), (0, 1))
+        model.lora_dropout = attach_adapters(module, nest_lora(leaves), lora_cfg, *cut)
     return model

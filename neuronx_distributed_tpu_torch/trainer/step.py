@@ -12,7 +12,10 @@ reads nothing back to the host.
 
 LoRA (JAX ``step.py:115-135``): ``state.params`` is the flat adapter tree,
 gradients are taken with respect to the adapters only, and the layers add
-their in-activation correction (``lora/core.py``). With dropout each step
+their in-activation correction (``lora/core.py``). Under TP an adapter
+leaf is a rank's slice or whole on every rank (``model.trainable_specs``);
+a whole leaf's gradient is already summed over TP in the backward, and
+the clip norm counts it once. With dropout each step
 draws one seed per adapter from ``state.rng`` (a CPU ``torch.Generator``,
 part of the train state and so of its checkpoint), or takes the step's
 ``lora_masks``.
@@ -50,7 +53,10 @@ is JAX's global loss (``moe/routing.py``).
 Context parallelism: each rank's gradients are its tokens' share (the
 loss is the global mean), so they are summed over the cp group before the
 DP reduction: JAX's ``DP_AXES`` leave cp out of ZeRO while GSPMD still
-reduces over it. ZeRO-1 shards over DP only. Pipeline parallelism: a
+reduces over it. An expert leaf under CP x EP is summed once over each
+axis: its owner's ep group shares its cp coordinate, so the all-to-all
+brings it that cp rank's tokens only, the cp sum adds the other blocks and
+the edp sum the other rows. ZeRO-1 shards over DP only. Pipeline parallelism: a
 ``PipelinedLlama`` stage's loss runs the whole schedule, its backward
 included, and its gradients are the stage's; every leaf lives on one
 stage, so the clip norm sums the squares over the pp group, and every
@@ -162,7 +168,8 @@ def make_train_step(model: ParallelModel, optimizer: NxDOptimizer,
     batch dim, which ``grad_accum_steps > 1`` splits into that many
     microbatches; each gets the same ``rng`` and the same dropout seeds.
     ``lora_masks`` (adapter weight name -> bool keep-mask shaped like the
-    layer's input) replaces the drawn dropout masks for this step."""
+    layer's global input; each rank keeps its block) replaces the drawn
+    dropout masks for this step."""
     tx = optimizer.tx
     lora_cfg = model.lora_config
     leaves = model.trainable_leaves()

@@ -1879,3 +1879,197 @@ def test_tp_rest_b5_cases_cover_every_shard_shape(smoke):
     routes = {smoke.tpr_route(c) for c in cases}
     assert routes == {"wgmma", "decode", "f32"}
     assert any(c[8] for c in cases)   # the selective gather through idx
+
+
+def _lora_moe_run():
+    """A fabricated phase-4r reading that passes every gate: (v0)'s
+    reference and four ranks at TP 2 x DP 2, (v1)'s reference, four ranks
+    at CP 2 x EP 2 and (v1 small)'s CPU side, and (v2)."""
+    launches = {"flash_block_forward": 4, "flash_bwd_dkdv": 2, "flash_bwd_dq": 2,
+                "fused_adamw_leaf": 30}
+    v0_ref = {"steps": [{"loss": 10.0, "grad_norm": 0.5}, {"loss": 9.9, "grad_norm": 0.5}]}
+    v0 = [{"rank": r, "v0": {
+        "steps": [{"loss": 10.0 * 1.0001, "grad_norm": 0.5, "digest": f"a{r % 2}0",
+                   "whole_digest": "w0"},
+                  {"loss": 9.9, "grad_norm": 0.5 * (1 - 2e-4), "digest": f"a{r % 2}1",
+                   "whole_digest": "w1"}],
+        "digest0": f"a{r % 2}i", "coords": {"tp": r % 2, "dp": r // 2}, "base_unchanged": True,
+        "state_leaves": 18,
+        "adapter_leaves": 18, "launches": dict(launches)}} for r in range(4)]
+    dropped = [[3, 0, 2, 1], [2, 1, 0, 0]]   # a layer's, an expert
+    v1_ref = {"steps": [{"loss": 10.5, "grad_norm": 0.6}, {"loss": 10.4, "grad_norm": 0.6}]}
+    small_cpu = [{"loss": 6.2, "grad_norm": 1.1, "dropped": dropped},
+                 {"loss": 6.1, "grad_norm": 1.0, "dropped": dropped}]
+    v1 = [{"rank": r, "v1": {
+        "steps": [{"loss": 10.5 * 1.0002, "grad_norm": 0.6},
+                  {"loss": 10.4, "grad_norm": 0.6 * (1 + 5e-4)}],
+        "launches": dict(launches),
+        "collectives": {"all_to_all": [8, 100]},
+        "small": [dict(s, loss=s["loss"] + 2e-7) for s in small_cpu]}} for r in range(4)]
+    report = {"requests_completed": 16, "adapter_loads": 3, "adapter_hits": 13}
+    serve = {"flash_block_forward": 20, "paged_decode_attention": 300}
+    v2 = {"pool": {"report": dict(report), "launches": dict(serve), "pool_slots": 4},
+          "plain": {"report": {"requests_completed": 16}, "launches": dict(serve),
+                    "pool_slots": 0},
+          "slot0_bit_identical": True,
+          "layer": {"max_abs_err": 3e-6, "base_bit_identical": True,
+                    "targets": ["o_proj", "qkv"]}}
+    return v0_ref, v0, v1_ref, small_cpu, v1, v2
+
+
+def _lora_moe_problems(smoke, v0_ref, v0, v1_ref, small_cpu, v1, v2):
+    return (smoke.ltp_gates(v0_ref, v0) + smoke.mcp_gates(v1_ref, small_cpu, v1)
+            + smoke.mlora_gates(v2))
+
+
+def test_lora_moe_gates_hold_on_a_good_run(smoke):
+    run = _lora_moe_run()
+    assert _lora_moe_problems(smoke, *run) == []
+    v0_ref, _, v1_ref = run[:3]
+    assert abs(v0_ref["ranks_loss_max_rel_diff"] - 1e-4) < 1e-9
+    assert abs(v0_ref["ranks_grad_norm_max_rel_diff"] - 2e-4) < 1e-9
+    assert abs(v1_ref["ranks_loss_max_rel_diff"] - 2e-4) < 1e-9
+    assert abs(v1_ref["ranks_grad_norm_max_rel_diff"] - 5e-4) < 1e-9
+    assert 0 < v1_ref["small_max_abs_err"] < 1e-6
+
+
+@pytest.mark.parametrize("fault,says", [
+    ("v0_loss", "(v0) losses and grad norms differ from the one-rank run's"),
+    ("v0_norm", "(v0) losses and grad norms differ from the one-rank run's"),
+    ("v0_skipped", "(v0) rank 2: step 1 left the adapters unchanged"),
+    ("v0_base", "the frozen base changed"), ("v0_state", "optimizer state for 20 leaves"),
+    ("v0_b4", "(v0) rank 1 never launched fused_adamw_leaf"),
+    ("v0_dp", "the DP replicas' adapters differ"),
+    ("v0_whole", "the TP-replicated adapters differ"),
+    ("v1_loss", "(v1) losses and grad norms differ from the one-rank run's"),
+    ("v1_norm", "(v1) losses and grad norms differ from the one-rank run's"),
+    ("v1_ranks", "(v1) rank 3: losses differ from rank 0's"),
+    ("v1_b3", "(v1) rank 2 never launched flash_bwd_dq"),
+    ("v1_a2a", "sent no token through the expert all-to-all"),
+    ("v1_small", "(v1 small) losses or grad norms differ"),
+    ("v1_dropped", "(v1 small) rank 0: dropped assignments differ"),
+    ("v1_nodrop", "no token dropped"),
+    ("v2_requests", "(v2 pool): 15 of 16 requests completed"),
+    ("v2_b2", "(v2 plain) never launched paged_decode_attention"),
+    ("v2_hits", "(v2): adapter loads 3, hits 0"),
+    ("v2_slot0", "slot-0 streams differ"), ("v2_layer", "pooled vs merged max |err|"),
+    ("v2_targets", "the pool holds ['down_proj'"), ("v2_slots", "the pool holds 3 slots")])
+def test_lora_moe_gates_catch_each_fault(smoke, fault, says):
+    v0_ref, v0, v1_ref, small_cpu, v1, v2 = _lora_moe_run()
+    if fault == "v0_loss":
+        for rk in v0:
+            rk["v0"]["steps"][1]["loss"] *= 1.002
+    elif fault == "v0_norm":   # a gradient summed twice the same way on every rank
+        for rk in v0:
+            rk["v0"]["steps"][0]["grad_norm"] *= 2
+    elif fault == "v0_skipped":
+        v0[2]["v0"]["digest0"] = v0[2]["v0"]["steps"][0]["digest"]
+    elif fault == "v0_base":
+        v0[1]["v0"]["base_unchanged"] = False
+    elif fault == "v0_state":
+        v0[1]["v0"]["state_leaves"] = 20
+    elif fault == "v0_b4":
+        v0[1]["v0"]["launches"]["fused_adamw_leaf"] = 0
+    elif fault == "v0_dp":
+        v0[2]["v0"]["steps"][1]["digest"] = "x"
+    elif fault == "v0_whole":
+        v0[3]["v0"]["steps"][0]["whole_digest"] = "x"
+    elif fault == "v1_loss":
+        for rk in v1:
+            rk["v1"]["steps"][0]["loss"] *= 1.002
+    elif fault == "v1_norm":
+        for rk in v1:
+            rk["v1"]["steps"][1]["grad_norm"] *= 1.0015
+    elif fault == "v1_ranks":
+        v1[3]["v1"]["steps"][1]["loss"] += 1e-4
+    elif fault == "v1_b3":
+        v1[2]["v1"]["launches"]["flash_bwd_dq"] = 0
+    elif fault == "v1_a2a":
+        v1[1]["v1"]["collectives"] = {"all_reduce": [4, 4]}
+    elif fault == "v1_small":
+        v1[1]["v1"]["small"][1]["grad_norm"] += 1e-4
+    elif fault == "v1_dropped":
+        v1[0]["v1"]["small"][0]["dropped"] = [[3, 0, 2, 2], [2, 1, 0, 0]]
+    elif fault == "v1_nodrop":
+        zero = [[0, 0, 0, 0], [0, 0, 0, 0]]
+        for s in small_cpu:
+            s["dropped"] = zero
+        for rk in v1:
+            for s in rk["v1"]["small"]:
+                s["dropped"] = zero
+    elif fault == "v2_requests":
+        v2["pool"]["report"]["requests_completed"] = 15
+    elif fault == "v2_b2":
+        v2["plain"]["launches"]["paged_decode_attention"] = 0
+    elif fault == "v2_hits":
+        v2["pool"]["report"]["adapter_hits"] = 0
+    elif fault == "v2_slot0":
+        v2["slot0_bit_identical"] = False
+    elif fault == "v2_layer":
+        v2["layer"]["max_abs_err"] = 2e-4
+    elif fault == "v2_targets":
+        v2["layer"]["targets"] = ["down_proj", "o_proj", "qkv"]
+    else:
+        v2["pool"]["pool_slots"] = 3
+    problems = _lora_moe_problems(smoke, v0_ref, v0, v1_ref, small_cpu, v1, v2)
+    assert any(says in p for p in problems), problems
+
+
+def test_lora_moe_cells_rehearse_on_the_cpu(smoke, monkeypatch):
+    """(v0), (v1) and (v1 small) on the CPU at a tiny size: the one-rank
+    references against thread ranks (TP 2 x DP 2; CP 2 x EP 2, the MoE
+    blocks of the one rank fed the zigzag order), through the phase's own
+    functions and gates; the small fp32 Mixtral layer pooled vs merged."""
+    from neuronx_distributed_tpu_torch.examples import llama2_tp_zero1, mixtral_moe
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralConfig
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(smoke, "DIST_SEQ", 64)
+    monkeypatch.setattr(smoke, "MCP_SEQ", 64)
+    monkeypatch.setattr(llama2_tp_zero1, "build_config", lambda args, seq: LlamaConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=1, num_heads=4,
+        num_kv_heads=4, max_seq_len=seq, dtype=torch.float32, use_flash_attention=False,
+        remat_policy="attention"))
+    monkeypatch.setattr(mixtral_moe, "build_config", lambda args, seq: MixtralConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=1, num_heads=4,
+        num_kv_heads=2, max_seq_len=seq, dtype=torch.float32, use_flash_attention=False,
+        num_experts=8, top_k=2))
+    launched = {n: 1 for n in smoke.DIST_COUNTERS}
+    v0_ref = smoke.ltp_reference("cpu", ())
+
+    def v0_rank(r):
+        model, state, step = smoke.ltp_trainer("cpu", 2)
+        out = smoke.ltp_steps(model, state, step, "cpu", ())
+        return {"rank": r, "v0": dict(out, coords=mesh.local_mesh_coords(),
+                                      launches=launched)}
+
+    v0 = mesh.run_in_threads(4, v0_rank, tensor_model_parallel_size=2)
+    assert smoke.ltp_gates(v0_ref, v0) == []
+    assert v0_ref["ranks_loss_max_rel_diff"] < 1e-5
+    assert v0_ref["ranks_grad_norm_max_rel_diff"] < 1e-4
+    v1_ref = smoke.mcp_reference("cpu", ())
+
+    def v1_rank(r):
+        cfg = smoke.mcp_config()
+        state, step, model = smoke.moe_small_trainer("cpu", cfg, lr=smoke.MCP_LR)
+        batches = smoke.cp_batches(cfg.vocab_size, smoke.MCP_SEQ, smoke.MCP_STEPS,
+                                   batch=smoke.MCP_BATCH)
+        steps = smoke.moe_small_steps(state, step, model, batches, "cpu")[1]
+        return {"rank": r, "v1": dict(steps=steps, launches=launched,
+                                      collectives={"all_to_all": [1, 1]},
+                                      small=smoke.mcp_small_run("cpu"))}
+
+    v1 = mesh.run_in_threads(4, v1_rank, tensor_model_parallel_size=1,
+                             expert_model_parallel_size=2, context_parallel_size=2)
+    assert smoke.mcp_gates(v1_ref, smoke.mcp_small_run("cpu"), v1) == []
+    assert v1_ref["ranks_loss_max_rel_diff"] < 1e-5
+    assert v1_ref["ranks_grad_norm_max_rel_diff"] < 1e-4
+    assert [s["dropped"] for s in v1[0]["v1"]["steps"]] == [s["dropped"] for s in
+                                                           v1_ref["steps"]]
+    layer = smoke.mlora_layer_check("cpu")
+    assert layer["max_abs_err"] < smoke.MLORA_LAYER_TOL and layer["base_bit_identical"]
+    assert layer["targets"] == ["o_proj", "qkv"] and layer["delta_max_abs"] > 0.1

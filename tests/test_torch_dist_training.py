@@ -14,8 +14,9 @@ a tensor-parallel-replicated leaf is bit-identical across the TP ranks.
 ``grad_accum_steps=2`` equals the full batch (JAX ``tests/test_trainer.py:228``:
 the loss to ``rtol=1e-6``, the params after one update to 1e-5). Without
 donation the ZeRO route gives the same bits and keeps the old state; LoRA
-trains under DP as on one rank (``rtol=1e-5``, adapters 1e-4) and raises
-under TP.
+trains under DP as on one rank (``rtol=1e-5``, adapters 1e-4), and under TP
+2 x DP 2 to the same loss (``tests/test_torch_lora_tp.py`` holds that
+layout against JAX).
 """
 
 import jax
@@ -37,6 +38,7 @@ from neuronx_distributed_tpu.trainer import (
 )
 from neuronx_distributed_tpu.trainer.model import ParallelModel as JParallelModel
 from neuronx_distributed_tpu_torch.converters.jax_params import llama_params_from_jax
+from neuronx_distributed_tpu_torch.inference.partition import shard_slice
 from neuronx_distributed_tpu_torch.models import llama as tl
 from neuronx_distributed_tpu_torch.parallel import mesh
 from neuronx_distributed_tpu_torch.trainer import (
@@ -190,7 +192,8 @@ def test_donation_lora_and_the_dp_reduction(weights):
     """At TP2 x DP2 with ZeRO-1, ``donate=False`` gives the donated run's
     bits and leaves the old state as it was; LoRA trains under DP 4 as on
     one rank (the DP reduction and ZeRO-1 act on the adapter tree) and
-    raises by name under TP 2; ``psum_gradients_over_dp`` is the DP mean
+    under TP 2 x DP 2, each rank holding its slices of the one-rank
+    adapters; ``psum_gradients_over_dp`` is the DP mean
     and the inf norm the largest magnitude over every rank's piece."""
     from neuronx_distributed_tpu_torch.parallel.grads import get_grad_norm, psum_gradients_over_dp
 
@@ -241,20 +244,15 @@ def test_donation_lora_and_the_dp_reduction(weights):
         for _ in range(2):
             state, m = step(state, {"ids": torch.as_tensor(ids[rows]),
                                     "labels": torch.as_tensor(labels[rows])})
-        return float(m["loss"]), state.params
+        tp_rank = mesh.tensor_model_parallel_rank() if mesh.model_parallel_is_initialized() else 0
+        return float(m["loss"]), state.params, model.trainable_specs, tp_rank
 
-    one_loss, one = lora_run()
-    for loss, adapters in mesh.run_in_threads(WORLD, lora_run, tensor_model_parallel_size=1):
-        np.testing.assert_allclose(loss, one_loss, rtol=1e-5)
-        for n, t in adapters.items():
-            np.testing.assert_allclose(t.numpy(), one[n].numpy(), rtol=1e-4, atol=1e-5,
-                                       err_msg=n)
-
-    def lora_tp(r):
-        with pytest.raises(NotImplementedError, match="LoRA under a tensor-parallel"):
-            initialize_parallel_model(
-                neuronx_distributed_config(tensor_parallel_size=2, lora_config=lora),
-                lambda: tl.LlamaForCausalLM(tl.LlamaConfig(**TINY)), device="cpu")
-        return True
-
-    assert all(mesh.run_in_threads(2, lora_tp))
+    one_loss, one, _, _ = lora_run()
+    for tp in (1, 2):
+        for loss, adapters, specs, tp_rank in mesh.run_in_threads(
+                WORLD, lora_run, tensor_model_parallel_size=tp):
+            np.testing.assert_allclose(loss, one_loss, rtol=1e-5)
+            for n, t in adapters.items():
+                want = shard_slice(one[n], specs[n], tp_rank, tp)
+                np.testing.assert_allclose(t.numpy(), want.numpy(), rtol=1e-4, atol=1e-5,
+                                           err_msg=n)

@@ -89,8 +89,8 @@ def test_tenancy_modules_stand_alone():
     """The LoRA core, the adapter pool and the grammar compiler and pool are
     the port's own: the standard library, numpy, torch and the port only
     (the numpy compiler is a copy, not an import of the JAX package's)."""
-    allowed = {"__future__", "dataclasses", "math", "re", "time", "zlib", "typing", "numpy",
-               "torch", "neuronx_distributed_tpu_torch"}
+    allowed = {"__future__", "dataclasses", "math", "os", "re", "time", "zlib", "typing",
+               "numpy", "torch", "neuronx_distributed_tpu_torch"}
     for mod in ("lora.core", "inference.adapters", "inference.grammar"):
         assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
         path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
@@ -115,8 +115,8 @@ def test_parallel_core_modules_stand_alone():
     """The rank layout and launchers, the TP regions and the serving specs
     are the port's own: the standard library, numpy, torch and the port
     only."""
-    allowed = {"__future__", "dataclasses", "datetime", "os", "re", "threading", "typing",
-               "numpy", "torch", "neuronx_distributed_tpu_torch"}
+    allowed = {"__future__", "atexit", "dataclasses", "datetime", "os", "re", "threading",
+               "typing", "numpy", "torch", "neuronx_distributed_tpu_torch"}
     for mod in ("parallel.mesh", "parallel.mappings", "inference.partition"):
         assert f"neuronx_distributed_tpu_torch.{mod}" in SUBMODULES
         path = PORT.joinpath(*mod.split(".")).with_suffix(".py")

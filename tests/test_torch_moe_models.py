@@ -11,9 +11,11 @@ loss under activation checkpointing, and what stays refused.
   ``rtol=5e-4``.
 - The auxiliary loss's router gradient is the same under remat ``"full"``,
   ``"attention"`` and none (the recompute reaches it), and not zero.
-- Refused by name: the MoE block under context parallelism (the model and
-  the trainer on a cp mesh) and under pipeline parallelism, Mixtral
-  serving under a tensor-parallel group (``CausalLM``).
+- The MoE block under context parallelism builds (the model and the
+  trainer on a cp mesh, each MoE block over the cp group; its numbers are
+  held against JAX in ``tests/test_torch_moe_cp.py``); refused by name
+  under pipeline parallelism (fault C13 of the reference); Mixtral serving
+  under a tensor-parallel group (``CausalLM``) gives TP=1's tokens.
 """
 
 import dataclasses
@@ -149,8 +151,9 @@ def test_moe_under_cp_pp_and_tp_serving_raises_by_name():
     cfg = tm.MixtralConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=2,
                            num_heads=4, num_kv_heads=2, max_seq_len=32, dtype=torch.float32,
                            use_flash_attention=False, num_experts=4, top_k=2)
-    with torch.device("meta"), pytest.raises(NotImplementedError, match="context parallelism"):
-        tm.MixtralForCausalLM(dataclasses.replace(cfg, context_parallel=True))
+    with torch.device("meta"):   # no group: one rank's whole sequence
+        built = tm.MixtralForCausalLM(dataclasses.replace(cfg, context_parallel=True))
+    assert all(layer.moe.cp_group is None for layer in built.model.layers)
     with pytest.raises(NotImplementedError, match="pipeline parallelism"):
         PipelinedLlama(cfg, num_stages=2, num_microbatches=2)
     params = init_params(cfg, torch.Generator().manual_seed(0), model_cls=tm.MixtralForCausalLM)
@@ -160,9 +163,12 @@ def test_moe_under_cp_pp_and_tp_serving_raises_by_name():
 
     def rank(r):
         if mesh.get_context_parallel_size() > 1:
-            with pytest.raises(NotImplementedError, match="context parallelism"):
-                initialize_parallel_model(neuronx_distributed_config(), lambda: (
-                    tm.MixtralForCausalLM(cfg)), device="cpu")
+            model = initialize_parallel_model(neuronx_distributed_config(), lambda: (
+                tm.MixtralForCausalLM(cfg)), device="cpu")
+            cp_group = mesh.get_context_parallel_group()
+            for layer in model.module.model.layers:
+                assert layer.moe.cp_group is cp_group and layer.moe.experts.cp_group is cp_group
+                assert layer.attention.cp_group is cp_group
         else:   # serving under a TP group: the rank's shard, TP=1's tokens
             sd = init_params(cfg, torch.Generator().manual_seed(0),
                              model_cls=tm.MixtralForCausalLM, tp_rank=r, tp_size=2)

@@ -16,6 +16,8 @@ import os
 import socket
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import jax
@@ -167,6 +169,62 @@ print(json.dumps({"local": local, "tp": lm.tp, "backend": mesh.group_backend(lm.
 """
 
 
+def _run_two_ranks(port: int, timeout: float = 120.0):
+    """Start both rank processes on ``port``; when one exits non-zero, kill
+    the other at once (it would wait out the group's timeout). Returns
+    ``[(returncode, stdout, stderr)]`` by rank."""
+    root = Path(__file__).resolve().parents[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK_PROCESS], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(root), "RANK": str(r), "WORLD_SIZE": "2",
+             "LOCAL_RANK": str(r), "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
+        for r in range(2)]
+    # One reader thread a pipe, so a full pipe never blocks a rank.
+    results = [None, None]
+
+    def drain(r):
+        results[r] = procs[r].communicate()
+
+    readers = [threading.Thread(target=drain, args=(r,), daemon=True) for r in range(2)]
+    for t in readers:
+        t.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for t in readers:
+            t.join()
+    return [(p.returncode, *results[r]) for r, p in enumerate(procs)]
+
+
+def _launch_two_ranks(attempts: int = 5):
+    """Launch the two ranks on a fresh free port. The port is picked by
+    binding port 0 and closing the socket, so another process (a gloo store
+    of another test worker) can take it before rank 0's store binds it: that
+    attempt is retried on a new port. Any other failure fails the test with
+    both ranks' stderr."""
+    for _ in range(attempts):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        ranks = _run_two_ranks(port)
+        if any(rc != 0 and ("EADDRINUSE" in err or "address already in use" in err.lower())
+               for rc, _, err in ranks):
+            continue
+        for r, (rc, _, err) in enumerate(ranks):
+            assert rc == 0, f"rank {r} exited {rc}; stderr of each rank:\n" + "\n".join(
+                f"--- rank {q} (rc {c}) ---\n{e[-4000:]}" for q, (c, _, e) in enumerate(ranks))
+        return [json.loads(out.strip().splitlines()[-1]) for _, out, _ in ranks]
+    pytest.fail(f"the store's port was taken on each of {attempts} attempts")
+
+
 def test_process_per_rank_launch_from_torchrun_environment():
     """Two processes launched as ``torchrun`` launches them (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) join
@@ -176,20 +234,7 @@ def test_process_per_rank_launch_from_torchrun_environment():
     from neuronx_distributed_tpu_torch.inference.engine import ServeEngine
     from neuronx_distributed_tpu_torch.models import llama as tl
 
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    root = Path(__file__).resolve().parents[1]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _RANK_PROCESS], cwd=root, stdout=subprocess.PIPE, text=True,
-        env={**os.environ, "PYTHONPATH": str(root), "RANK": str(r), "WORLD_SIZE": "2",
-             "LOCAL_RANK": str(r), "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
-        for r in range(2)]
-    outs = []
-    for p in procs:
-        out, _ = p.communicate(timeout=120)
-        assert p.returncode == 0
-        outs.append(json.loads(out.strip().splitlines()[-1]))
+    outs = _launch_two_ranks()
     cfg = tl.LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=2,
                          num_heads=4, num_kv_heads=2, max_seq_len=32, dtype=torch.float32)
     lm = CausalLM(cfg, tl.init_params(cfg, torch.Generator().manual_seed(0)),

@@ -318,6 +318,12 @@ Phases, each fatal on failure (exit code 1, no result line):
            every request completes, B1 and B2 launched, adapter loads and
            hits, slot-0 streams of both runners' models bit-identical, and a
            small fp32 Mixtral layer pooled against merged within 1e-4.
+4s. nxdcheck the port's static contract checker: ``scripts/nxdcheck_torch.py``
+           in a subprocess over the port tree (exit 0, verdict clean, the
+           six rule ids, the sweep within ``NXDCHECK_MAX_S`` seconds) and
+           over ``tests/fixtures/nxdcheck_torch/bad`` (exit 1, every rule
+           firing); both summaries printed with the card's name and power
+           limit.
 
 ``--profile PATH`` repeats each trace and overload pass under
 ``torch.profiler`` (device activity only) for the device's busy share of
@@ -10077,6 +10083,62 @@ def print_families(st: dict, card: str) -> None:
           f"{FAM_SMALL_TOL}); phase {st['phase_s']:.1f} s [{card}]", flush=True)
 
 
+# --- phase 4s: the port's static contract checker -------------------------------------
+
+NXDCHECK_RULES = ("host-sync", "cache-replication", "resource-pairing", "determinism",
+                  "surface-drift", "async-contract")
+NXDCHECK_MAX_S = 30.0   # the sweep's own seconds (about 5 on an idle 8-core host)
+NXDCHECK_BAD = ROOT / "tests" / "fixtures" / "nxdcheck_torch" / "bad"
+
+
+def nxdcheck_run(root=None) -> tuple:
+    """``scripts/nxdcheck_torch.py`` in a subprocess over the port tree (or
+    the tree at ``root``): (exit code, its JSON summary or None, wall s)."""
+    cmd = [sys.executable, str(ROOT / "scripts" / "nxdcheck_torch.py")]
+    if root is not None:
+        cmd += ["--root", str(root)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    try:
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        summary = None
+    return proc.returncode, summary, wall
+
+
+def nxdcheck_problems(clean: tuple, bad: tuple) -> list:
+    """Phase 4s's gates on the port tree's run and the bad fixture's."""
+    problems = []
+    rc, summary, _ = clean
+    if rc != 0 or not summary or summary.get("verdict") != "clean" or summary.get("unwaived"):
+        problems.append(f"the port tree is not clean: exit {rc}, summary {summary}")
+    elif tuple(summary.get("rules", ())) != NXDCHECK_RULES:
+        problems.append(f"the port tree ran rules {summary.get('rules')}, not {NXDCHECK_RULES}")
+    elif summary["elapsed_s"] > NXDCHECK_MAX_S:
+        problems.append(f"the sweep took {summary['elapsed_s']} s (limit {NXDCHECK_MAX_S})")
+    rc, summary, _ = bad
+    fired = set((summary or {}).get("by_rule", {}))
+    if rc != 1 or not summary or summary.get("verdict") != "findings":
+        problems.append(f"the bad fixture did not fail: exit {rc}, summary {summary}")
+    elif fired != set(NXDCHECK_RULES):
+        problems.append(f"rules silent on the bad fixture: {sorted(set(NXDCHECK_RULES) - fired)}")
+    return problems
+
+
+def run_nxdcheck_phase(card: str) -> dict:
+    """Phase 4s: the checker over the port tree, then over its bad fixture;
+    prints both summaries and the sweep's seconds with ``card``."""
+    clean, bad = nxdcheck_run(), nxdcheck_run(NXDCHECK_BAD)
+    for name, (rc, summary, wall) in (("port tree", clean), ("bad fixture", bad)):
+        print(f"nxdcheck {name}: exit {rc}, {wall:.2f} s wall, summary "
+              f"{json.dumps(summary)} [{card}]", flush=True)
+    problems = nxdcheck_problems(clean, bad)
+    check(not problems, "nxdcheck: " + "; ".join(problems))
+    return {"port_tree": clean[1], "port_tree_wall_s": clean[2], "bad_fixture": bad[1],
+            "bad_fixture_wall_s": bad[2]}
+
+
 # --------------------------------------------------------------- phase 4p
 # The user's entry points: the serving runner (examples/runner.py) at
 # Llama-2-13B full width and depth, bf16 seeded weights, TP 1, through its
@@ -10919,6 +10981,7 @@ def main(argv=None) -> int:
           f"B5's prefill kernels are missing from {sorted(compiled)}")
     wide = ("tc::fwd_kernel<256>", "tc::dkdv_kernel<256>", "tc::dq_kernel<256>")
     check(all(k in compiled for k in wide), f"the 256-wide builds are missing from {sorted(compiled)}")
+    nxdcheck = run_nxdcheck_phase(card)   # phase 4s: static, no kernel
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)   # 256 MB > L2
     flash = run_flash(dev, flush)
@@ -11518,7 +11581,7 @@ def main(argv=None) -> int:
                       "quant": quant,
                       "train_loop": loop, "train": tstats, "train_variants": variants,
                       "train_check": tc, "graph_check": graph, "kernel_checks": checks,
-                      "program_check": programs_small,
+                      "program_check": programs_small, "nxdcheck": nxdcheck,
                       "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

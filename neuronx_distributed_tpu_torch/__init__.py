@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("converters", "inference", "kernels", "lightning", "lora", "models", "moe",
+_SUBMODULES = ("analysis", "converters", "inference", "kernels", "lightning", "lora", "models", "moe",
                "observability", "ops", "optimizer", "parallel", "quantization", "trainer")
 
 

@@ -169,7 +169,7 @@ def _retry(fn: Callable, attempts: Optional[int] = None,
         except Exception as e:  # noqa: BLE001 — storage errors vary by backend
             if i == attempts - 1:
                 raise
-            # the jitter is wall timing only: it never feeds a scheduling decision
+            # nxdcheck: waive determinism -- retry backoff jitter is wall timing only (it spreads storage retries across hosts); it never feeds a scheduling decision or a replayed stream
             delay = base_delay * (2 ** i) * (1.0 + jitter * random.random())
             logger.warning("storage op failed (%s); retry %d/%d in %.2fs",
                            e, i + 1, attempts, delay)

@@ -913,7 +913,7 @@ class ServeEngine:
         when the id is unknown or already completed."""
         queued = self.queue.remove(request_id)
         if queued is not None:
-            self._release_pins(queued)
+            self._release_pins(queued.request_id)
             self._submit_ts.pop(request_id, None)
             self.cancelled += 1
             self._trace_req("cancel", request_id, state="queued")
@@ -938,13 +938,12 @@ class ServeEngine:
                     deadline_missed=self._missed(req), tenant=req.tenant,
                     adapter=req.adapter, grammar=req.grammar,
                     finish_reason="cancelled"), self.blocks)
-                self._release_pins(req)
                 self.cancelled += 1
                 return True
         for slot, st in list(self._prefilling.items()):
             if st.req.request_id == request_id:
                 self._abort_prefill(slot, requeue=False)
-                self._release_pins(st.req)
+                self._release_pins(st.req.request_id)
                 self._submit_ts.pop(request_id, None)
                 self.cancelled += 1
                 self._trace_req("cancel", request_id, state="prefill")
@@ -1094,7 +1093,7 @@ class ServeEngine:
                        reason="pool_exhausted" if pool_bound else "queue_full")
         self.rejected.append(rej)
         self._submit_ts.pop(victim.request_id, None)
-        self._release_pins(victim)
+        self._release_pins(victim.request_id)
         self._trace_req("shed", victim.request_id, policy=self.shed_policy, reason=rej.reason,
                         retry_after_blocks=rej.retry_after_blocks, queue_depth=rej.queue_depth,
                         evicted=victim is not req)
@@ -1125,7 +1124,7 @@ class ServeEngine:
                                           retry_after_blocks=self._retry_after(),
                                           queue_depth=arrived - 1))
             self._submit_ts.pop(victim.request_id, None)
-            self._release_pins(victim)
+            self._release_pins(victim.request_id)
             self._trace_req("shed", victim.request_id, policy=self.shed_policy,
                             at="block_boundary", queue_depth=arrived - 1, evicted=evicted)
 
@@ -1142,7 +1141,7 @@ class ServeEngine:
             token_ts=np.zeros((0,), np.float64), submit_ts=self._submit_ts.pop(rid, None),
             expired=True, deadline_missed=True, tenant=req.tenant, adapter=req.adapter,
             grammar=req.grammar, finish_reason="expired"))
-        self._release_pins(req)
+        self._release_pins(req.request_id)
         if self.incident is not None:
             self._miss_blocks.append(self.blocks)
         self.expired += 1
@@ -1463,7 +1462,7 @@ class ServeEngine:
             self.rejected.append(rej)
             setattr(self, f"{kind}_rejects", getattr(self, f"{kind}_rejects") + 1)
             self._submit_ts.pop(req.request_id, None)
-            self._release_pins(req)
+            self._release_pins(req.request_id)
             self._trace_req("shed", req.request_id, reason=rej.reason, **{kind: name},
                             retry_after_blocks=rej.retry_after_blocks)
             return False
@@ -1487,12 +1486,13 @@ class ServeEngine:
             return 0
         return self.session.grammars.slot_of(req.grammar)
 
-    def _release_pins(self, req: Request) -> None:
-        """Drop ``req``'s adapter and grammar pins (they stay resident)."""
-        name = self._adapter_pins.pop(req.request_id, None)
+    def _release_pins(self, rid: int) -> None:
+        """Drop request ``rid``'s adapter and grammar pins (they stay
+        resident); a request without pins releases nothing."""
+        name = self._adapter_pins.pop(rid, None)
         if name is not None:
             self.session.adapters.release(name)
-        name = self._grammar_pins.pop(req.request_id, None)
+        name = self._grammar_pins.pop(rid, None)
         if name is not None:
             self.session.grammars.release(name)
 
@@ -1801,7 +1801,7 @@ class ServeEngine:
                 finish_reason=reason or "")
             # unpinned at the slot's release, in either loop (the adapter
             # and grammar stay resident)
-            self._release_pins(req)
+            self._release_pins(req.request_id)
             self.slots[slot] = None
             self._active[slot] = False
             self._done[slot] = False
@@ -1817,6 +1817,8 @@ class ServeEngine:
         """Fill in ``comp``'s tokens and hand it out, with a ``retire``,
         ``expire`` or ``cancel`` mark stamped with the retiring ``block``."""
         rid = comp.request_id
+        # every completion leaves unpinned, whichever seam completed it
+        self._release_pins(rid)
         self._dfa.pop(rid, None)
         self._decode_since.pop(rid, None)
         if self.incident is not None and comp.deadline_missed:
@@ -2241,7 +2243,7 @@ class ServeEngine:
             self._set_tenancy(slot, None)
             self._tok_from.pop(slot, None)
             self._staged.add(slot)
-            self._release_pins(req)
+            self._release_pins(req.request_id)
             for d in (self._out, self._out_ts, self._last_tok_ts, self._submit_ts, self._dfa,
                       self._finish_reason, self._decode_since):
                 d.pop(rid, None)
@@ -2449,7 +2451,7 @@ class ServeEngine:
         self.slots[slot] = None
         self._active[slot] = False
         self._done[slot] = False
-        self._release_pins(req)
+        self._release_pins(req.request_id)
         self._set_tenancy(slot, None)
         self._tok_from.pop(slot, None)
         self._staged.add(slot)
@@ -2605,7 +2607,7 @@ class ServeEngine:
                 getattr(self.session, kind + "s").acquire(name)
             except (AdapterPoolExhausted, AdapterLoadError, GrammarPoolExhausted,
                     GrammarLoadError):
-                self._release_pins(req)
+                self._release_pins(req.request_id)
                 return self._park_deferred(rid, "park_deferred")
             pins[rid] = name
         slot = free[0]
@@ -2615,7 +2617,7 @@ class ServeEngine:
                             prompt.size + req.max_new_tokens
                             + self._reserve_slack(req.eos_token_id is not None), ns=req.adapter)
         except PagePoolExhausted:
-            self._release_pins(req)
+            self._release_pins(req.request_id)
             self._note_pool_pressure([req])
             return self._park_deferred(rid, "park_deferred")
         self.resume_copy_ms += (time.perf_counter() - t1) * 1e3
@@ -2682,7 +2684,7 @@ class ServeEngine:
         out = self.queue.ordered()
         for r in out:
             self.queue.remove(r.request_id)
-            self._release_pins(r)
+            self._release_pins(r.request_id)
             self._submit_ts.pop(r.request_id, None)
         self._m_queue.set(0)
         return out
@@ -2696,7 +2698,7 @@ class ServeEngine:
             req = self._prefilling[slot].req
             out.append(req)
             self._abort_prefill(slot, requeue=False)
-            self._release_pins(req)
+            self._release_pins(req.request_id)
             self._submit_ts.pop(req.request_id, None)
         return out
 
@@ -2707,7 +2709,7 @@ class ServeEngine:
         self._replay_q.clear()
         self._replay_tokens = 0
         for req, _gen in out:
-            self._release_pins(req)
+            self._release_pins(req.request_id)
         return out
 
     def has_decode_work(self) -> bool:

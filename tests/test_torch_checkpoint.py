@@ -25,6 +25,16 @@ from neuronx_distributed_tpu_torch.optimizer.adamw import FP32MasterState
 from neuronx_distributed_tpu_torch.trainer.step import TrainState
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _view(root):
     """Tags on disk, and each completed tag's done number."""
     tags = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))

@@ -31,6 +31,17 @@ import torch
 from neuronx_distributed_tpu.inference import paged_kernel as jpk
 from neuronx_distributed_tpu.kernels import flash_attn as jfa
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -1305,9 +1316,18 @@ def test_train_loop_gates_catch_each_fault(smoke, train_loop_run, key, value, sa
     assert len(bad) == 1 and says in bad[0], bad
 
 
-def test_train_check_cases_rehearse_on_the_cpu(smoke):
+def test_train_check_cases_rehearse_on_the_cpu(smoke, monkeypatch):
     """Phase 3's five training cases run end to end (CPU against CPU here,
-    so every difference reads 0 and no kernel is counted)."""
+    so every difference reads 0 and no kernel is counted), on a narrow
+    model of the same depth (the card's 512-wide fp32 model at 256 tokens
+    takes minutes on a loaded CPU; the assertions count cases, layers and
+    targets, not widths)."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
+
+    monkeypatch.setattr(smoke, "small_config", lambda: LlamaConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=128, num_layers=2, num_heads=4,
+        num_kv_heads=2, max_seq_len=32, rope_theta=500000.0, dtype=torch.float32,
+        param_dtype=torch.float32))
     out = smoke.train_check("cpu", ())
     assert list(out) == [name for name, _ in smoke.TRAIN_CHECK_CASES]
     for name, r in out.items():
@@ -2073,3 +2093,33 @@ def test_lora_moe_cells_rehearse_on_the_cpu(smoke, monkeypatch):
     layer = smoke.mlora_layer_check("cpu")
     assert layer["max_abs_err"] < smoke.MLORA_LAYER_TOL and layer["base_bit_identical"]
     assert layer["targets"] == ["o_proj", "qkv"] and layer["delta_max_abs"] > 0.1
+
+
+def test_nxdcheck_phase_rehearses_on_the_cpu(smoke, capsys):
+    """Phase 4s as the card runs it: the port tree clean with the six rule
+    ids, the bad fixture failing on every rule, both summaries printed with
+    the card line (one sweep of the port tree)."""
+    out = smoke.run_nxdcheck_phase("a card line")
+    assert out["port_tree"]["verdict"] == "clean" and out["port_tree"]["unwaived"] == 0
+    assert set(out["bad_fixture"]["by_rule"]) == set(smoke.NXDCHECK_RULES)
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("nxdcheck ")]
+    assert len(lines) == 2 and all(ln.endswith("[a card line]") for ln in lines)
+    print(f"phase 4s on the CPU: sweep {out['port_tree']['elapsed_s']} s")
+
+
+def test_nxdcheck_gates_hold_each_reading(smoke):
+    rules = list(smoke.NXDCHECK_RULES)
+    clean = (0, {"rules": rules, "verdict": "clean", "unwaived": 0, "elapsed_s": 4.0}, 4.5)
+    bad = (1, {"rules": rules, "verdict": "findings", "unwaived": 40,
+               "by_rule": dict.fromkeys(rules, 2)}, 0.5)
+    assert smoke.nxdcheck_problems(clean, bad) == []
+    for reading, says in (
+            ((1, {**clean[1], "verdict": "findings", "unwaived": 1}, 4.5), "not clean"),
+            ((0, {**clean[1], "rules": rules[:5]}, 4.5), "ran rules"),
+            ((0, {**clean[1], "elapsed_s": smoke.NXDCHECK_MAX_S + 1}, 40.0), "the sweep took"),
+            ((2, None, 0.1), "not clean")):
+        bad_list = smoke.nxdcheck_problems(reading, bad)
+        assert len(bad_list) == 1 and says in bad_list[0], bad_list
+    silent = (1, {**bad[1], "by_rule": dict.fromkeys(rules[1:], 2)}, 0.5)
+    assert "host-sync" in smoke.nxdcheck_problems(clean, silent)[0]
+    assert "did not fail" in smoke.nxdcheck_problems(clean, (0, clean[1], 1.0))[0]

@@ -45,8 +45,10 @@ def smoke():
 
 @pytest.fixture(scope="module", autouse=True)
 def threads():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and a wider pool would oversubscribe them."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

@@ -15,6 +15,17 @@ import torch
 from neuronx_distributed_tpu.kernels import flash_attn as jfa
 from neuronx_distributed_tpu_torch.kernels import flash_attn as tfa
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-5
 
 

@@ -26,6 +26,17 @@ from neuronx_distributed_tpu.kernels import flash_attn as jfa
 from neuronx_distributed_tpu_torch.inference import paged_kernel as tpk
 from neuronx_distributed_tpu_torch.kernels import flash_attn as tfa
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B, H, HK, S = 2, 4, 2, 128
 
 

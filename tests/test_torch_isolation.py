@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no JAX, no silent CPU fallback.
 
 - no file of ``neuronx_distributed_tpu_torch`` (nor ``chip_smoke.py``)
-  imports ``jax``, ``flax`` or ``neuronx_distributed_tpu``;
+  imports ``jax``, ``flax`` or ``neuronx_distributed_tpu``, nor loads a
+  module of the JAX package by path (``spec_from_file_location`` and the
+  like), and no code string of the port names the JAX package;
 - the package and every submodule import with those modules blocked;
 - without a GPU, an entry point that was not asked for the CPU raises;
 - a CPU tensor routes a kernel wrapper to its plain twin, and the launch
@@ -10,6 +12,7 @@
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -24,6 +27,17 @@ from neuronx_distributed_tpu_torch.inference import paged_kernel as tpk
 from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
 from neuronx_distributed_tpu_torch.kernels import flash_attn as tfa
 from neuronx_distributed_tpu_torch.models import llama as tl
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "neuronx_distributed_tpu_torch"
@@ -47,6 +61,60 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert {f: m for f, m in bad.items() if m} == {}
+
+
+JAX_PACKAGE_PATH = re.compile(r"neuronx_distributed_tpu(?!_torch)")
+PATH_LOADERS = {"spec_from_file_location", "SourceFileLoader", "SourcelessFileLoader",
+                "run_path", "load_source", "import_module", "__import__"}
+
+
+def _call_name(func) -> str:
+    return func.attr if isinstance(func, ast.Attribute) else getattr(func, "id", "")
+
+
+def _jax_package_loads(source: str, in_package: bool):
+    """(line, text) of each place the source reaches the JAX package other
+    than by an import statement: a module loaded by path or by name
+    (``spec_from_file_location``, ``run_path``, ``import_module``, ...) or a
+    path joined (``/``, ``os.path.join``, ``Path(...)``) with an argument
+    naming it; in a file of the port package, any string of its code
+    (docstrings aside) that names it."""
+    tree = ast.parse(source)
+    docs = {id(n.value) for n in ast.walk(tree)
+            if isinstance(n, ast.Expr) and isinstance(n.value, ast.Constant)}
+
+    def naming(node):
+        return [(c.lineno, c.value) for c in ast.walk(node)
+                if isinstance(c, ast.Constant) and isinstance(c.value, str)
+                and id(c) not in docs and JAX_PACKAGE_PATH.search(c.value)]
+
+    found = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and _call_name(node.func) in PATH_LOADERS | {"join", "Path"}:
+            found.update(naming(node))
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            found.update(naming(node))
+    if in_package:
+        found.update(naming(tree))
+    return sorted(found)
+
+
+def test_no_port_file_loads_the_jax_package_by_path():
+    """Beyond imports: no port file, script or ``chip_smoke.py`` loads a JAX
+    module by path (as JAX's own ``scripts/nxdcheck.py`` loads
+    ``neuronx_distributed_tpu/analysis``), and the detector catches exactly
+    that load when it is planted."""
+    files = ([(f, True) for f in sorted(PORT.rglob("*.py"))]
+             + [(ROOT / "chip_smoke.py", False), (ROOT / "scripts" / "nxdcheck_torch.py", False)])
+    found = {str(f.relative_to(ROOT)): _jax_package_loads(f.read_text(), pkg) for f, pkg in files}
+    assert {f: hits for f, hits in found.items() if hits} == {}
+    planted = ('"""Loads the JAX checker."""\n'
+               "import importlib.util\n"
+               "spec = importlib.util.spec_from_file_location(\n"
+               "    'nxd_analysis', ROOT / 'neuronx_distributed_tpu' / 'analysis' / '__init__.py')\n")
+    assert _jax_package_loads(planted, in_package=False) == [(4, "neuronx_distributed_tpu")]
+    assert _jax_package_loads("X = 'neuronx_distributed_tpu/analysis'\n", in_package=True) == [
+        (1, "neuronx_distributed_tpu/analysis")]
 
 
 def test_port_imports_with_jax_blocked():

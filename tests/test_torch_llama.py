@@ -25,6 +25,17 @@ from neuronx_distributed_tpu_torch.inference.causal_lm import CausalLM
 from neuronx_distributed_tpu_torch.kernels import flash_attn as tfa
 from neuronx_distributed_tpu_torch.models import llama as tl
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-4
 TINY = dict(vocab_size=128, hidden_size=32, intermediate_size=64, num_layers=2,
             num_heads=4, num_kv_heads=2, max_seq_len=64)

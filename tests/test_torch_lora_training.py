@@ -64,6 +64,17 @@ from neuronx_distributed_tpu_torch.trainer import (
     neuronx_distributed_config,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY = dict(vocab_size=128, hidden_size=32, intermediate_size=64, num_layers=2, num_heads=4,
             num_kv_heads=2, max_seq_len=128)
 LORA = dict(r=4, lora_alpha=8.0)

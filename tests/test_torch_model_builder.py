@@ -32,6 +32,16 @@ from neuronx_distributed_tpu_torch.kernels.flash_attn import flash_block_forward
 from neuronx_distributed_tpu_torch.models import llama as tl
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_bucket_router():
     calls = []
 

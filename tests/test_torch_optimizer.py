@@ -34,6 +34,17 @@ from neuronx_distributed_tpu_torch.optimizer.adamw import adamw_fp32_master
 from neuronx_distributed_tpu_torch.parallel import grads as tgrads
 from neuronx_distributed_tpu_torch.parallel import loss as tloss
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RTOL = 1e-6
 
 

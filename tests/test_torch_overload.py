@@ -43,6 +43,17 @@ from neuronx_distributed_tpu_torch.inference.engine import Rejected, ServeEngine
 from neuronx_distributed_tpu_torch.inference.trace import synthetic_trace
 from neuronx_distributed_tpu_torch.models import llama as tl
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_layers=2,
             num_heads=4, num_kv_heads=2, max_seq_len=64, use_flash_attention=False)
 LM = dict(buckets=(8, 16), max_batch=3)

@@ -18,6 +18,16 @@ from neuronx_distributed_tpu.inference import sampling as js
 from neuronx_distributed_tpu_torch.inference import sampling as ts
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tied_logits(seed, shape=(6, 16)):
     # small integers: many ties, some at the k-th value
     return np.random.default_rng(seed).integers(-3, 4, shape).astype(np.float32)

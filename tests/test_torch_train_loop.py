@@ -33,6 +33,17 @@ from neuronx_distributed_tpu.trainer import initialize_parallel_model, neuronx_d
 from neuronx_distributed_tpu_torch.checkpoint import latest_tag, load_checkpoint
 from neuronx_distributed_tpu_torch.examples import codegen25 as tcg
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's default pool would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="no C++ toolchain for the native reader")
 ROOT = Path(__file__).resolve().parents[1]
